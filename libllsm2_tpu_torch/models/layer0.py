@@ -1,0 +1,397 @@
+"""Layer-0 codec of the PyTorch port: harmonic + noise analysis and
+synthesis (counterpart of libllsm2_tpu/models/layer0.py; reference:
+layer0.c -> llsm_analyze / llsm_synthesize).
+
+Analysis: F0 refine, one batched pitch-synchronous chirped projection
+over all frames, the analytic amplitude-track deconvolution, a residual
+render, band envelopes by FFT with their envelope projection, and a
+warped periodogram.  Synthesis: an oscillator bank with overlap-add for
+the harmonic part, and a WOLA noise shaper for the noise part.  The
+kernels of the path are in ops/kernels.py.
+
+The private ``_analyze`` / ``_synthesize`` / ``_synth_noise`` take a
+leading batch axis where the JAX package maps single utterances with
+``jax.vmap``.  Options outside the ported configuration (see
+config.AnalysisOptions) raise NotImplementedError naming the ROADMAP item
+that brings them.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..config import AnalysisOptions, ChunkConf, SynthesisOptions
+from ..container import LAYER0_FIELDS, Chunk
+from ..fp import FP
+from ..ops import harmonics, interp, kernels, spectral, warp
+
+
+class SynthResult(NamedTuple):
+    """Reference: llsm_output (llsm.h) -- synthesized signal + components."""
+    y: torch.Tensor
+    y_sin: torch.Tensor
+    y_nos: torch.Tensor
+    fs: float
+
+
+def _unported(what: str, item: str):
+    return NotImplementedError(
+        f"{what} is not ported to libllsm2_tpu_torch yet ({item} in "
+        "ROADMAP.md)")
+
+
+def _check_analysis(opt: AnalysisOptions) -> None:
+    if not opt.use_pallas:
+        raise _unported("use_pallas=False (the JAX package's jnp branches)",
+                        "Queue 1 item 11")
+    if opt.track_denoise and opt.track_lowpass_hz <= 0.0:
+        raise _unported("track_denoise=True (the library default)",
+                        "Queue 1 item 4, the track denoiser")
+    if opt.track_lowpass_hz > 0.0:
+        raise _unported("track_lowpass_hz > 0", "Queue 1 item 11")
+    if opt.hm_method != "czt":
+        raise _unported(f"hm_method={opt.hm_method!r}", "Queue 1 item 11")
+    if opt.hm_passes != 1:
+        raise _unported(f"hm_passes={opt.hm_passes}", "Queue 1 item 11")
+    if opt.hm_correction != "deconv":
+        raise _unported(f"hm_correction={opt.hm_correction!r}",
+                        "Queue 1 item 11")
+    if opt.fs_input and abs(opt.fs_input - opt.conf.fs) > 1e-9:
+        raise _unported("fs_input (input resampling)", "Queue 1 item 11")
+    if opt.frame_chunk:
+        raise _unported("frame_chunk > 0", "Queue 1 item 11")
+    if opt.hm_kernel != "rotation":
+        raise _unported(f"hm_kernel={opt.hm_kernel!r}",
+                        "Queue 2, harmonic_project_mxu")
+
+
+# ---------------------------------------------------------------------------
+# analysis
+# ---------------------------------------------------------------------------
+
+def _env_decimation(conf: ChunkConf, requested: int, nx: int) -> int:
+    """Largest valid envelope decimation <= requested: a power of two that
+    divides the hop and the FFT size, with every noise channel's band
+    inside one alias window of the decimated grid (checked on the same
+    ceil-rounded FFT-bin indices _band_envelopes folds)."""
+    edges = conf.chan_edges
+    nfft = spectral.next_pow2(nx)
+    D = 1
+    while 2 * D <= max(int(requested), 1):
+        D *= 2
+    while D > 1:
+        nfft_d = nfft // D
+        ok = conf.nhop % D == 0 and nfft % D == 0
+        for c in range(conf.nchannel):
+            lo, hi = edges[c], edges[c + 1]
+            b_lo = int(-(-lo * nfft // conf.fs))
+            b_hi = min(int(-(-hi * nfft // conf.fs)), nfft // 2 + 1)
+            if b_hi <= b_lo or b_lo // nfft_d != (b_hi - 1) // nfft_d:
+                ok = False
+        if ok:
+            return D
+        D //= 2
+    return 1
+
+
+def _band_envelopes(residual: torch.Tensor, conf: ChunkConf,
+                    decimate: int = 1) -> torch.Tensor:
+    """Per-channel temporal amplitude envelopes of the residual [B, nx]
+    from the FFT-domain analytic signal -> [B, C, nx // decimate].  With
+    D > 1 each band's one-sided spectrum is folded into an nfft/D grid (a
+    coherent frequency shift, since the band lies in one alias window), so
+    |z| is exactly the full-rate envelope sampled every D samples."""
+    B, nx = residual.shape
+    dev = residual.device
+    nfft = spectral.next_pow2(nx)
+    X = torch.fft.fft(residual, n=nfft)
+    edges = conf.chan_edges
+    envs = []
+    if decimate == 1:
+        f = torch.fft.fftfreq(nfft, 1.0 / conf.fs, device=dev)
+        for c in range(conf.nchannel):
+            m = ((f >= edges[c]) & (f < edges[c + 1])).to(FP)
+            envs.append(torch.abs(torch.fft.ifft(X * m * 2.0))[:, :nx])
+        return torch.stack(envs, dim=1)
+    D = decimate
+    nfft_d = nfft // D
+    for c in range(conf.nchannel):
+        b_lo = int(-(-edges[c] * nfft // conf.fs))
+        b_hi = min(int(-(-edges[c + 1] * nfft // conf.fs)), nfft // 2 + 1)
+        shift = (b_lo // nfft_d) * nfft_d
+        y = torch.zeros((B, nfft_d), dtype=X.dtype, device=dev)
+        y[:, b_lo - shift:b_hi - shift] = X[:, b_lo:b_hi]
+        z = torch.fft.ifft(2.0 * y) * (1.0 / D)
+        envs.append(torch.abs(z)[:, :nx // D])
+    return torch.stack(envs, dim=1)
+
+
+def _warped_psd(residual: torch.Tensor, nfrm: int,
+                conf: ChunkConf) -> torch.Tensor:
+    """Per-frame PSD of the residual [B, nx] on the warped axis
+    [B, N, npsd] (reference: dsputils.c warped PSD estimation)."""
+    nhop = conf.nhop
+    winlen = 4 * nhop
+    nfft = spectral.next_pow2(winlen)
+    frames = harmonics.frame_hops(residual, nfrm, nhop, 2)
+    # np.hanning is the SYMMETRIC window, as jnp.hanning
+    w = torch.as_tensor(np.hanning(winlen), dtype=FP, device=residual.device)
+    pgram = spectral.periodogram(frames, w, nfft)          # [B, N, nbin]
+    band_mat = warp.warped_band_matrix(conf.npsd, nfft // 2 + 1, conf.fs,
+                                       conf.noswarp, device=residual.device)
+    return pgram @ band_mat.T
+
+
+def _deconv_correction(opt: AnalysisOptions, f0, cyc, ampl, phse, mask):
+    """Analytic amplitude-track deconvolution (hm_correction="deconv"):
+    one Neumann step c' <- 2c - S c on the phase-aligned complex tracks,
+    S = the banded render+measure operator (temporal smoothing T and the
+    k +- 1 AM-sideband coupling X).  f0 [B, N], cyc [B, nx], ampl/phse/mask
+    [B, N, K] -> corrected (ampl, phse)."""
+    conf = opt.conf
+    nhop = conf.nhop
+    B, N, K = ampl.shape
+    hh = -(-conf.halfwin_max // nhop)
+    D = hh + 1                       # |d| band: window +- OLA half-width
+    if D > 128:
+        raise _unported("deconvolution bands wider than 128 frames",
+                        "Queue 1 item 11")
+    voiced = f0 > 0.0
+    f0s = torch.where(voiced, f0, torch.full_like(f0, 100.0))
+    halfwidth = torch.clamp(conf.rel_winsize * conf.fs / (2.0 * f0s), 2.0,
+                            float(conf.halfwin_max))
+    # stride-8 midpoint quadrature of the window x crossfade products
+    stride = max(min(8, nhop), 1)
+    nq = (2 * nhop) // stride
+    C2 = harmonics.frame_hops(cyc, N, nhop, 1, mode="edge")   # [B, N, 2nhop]
+    ang = 2.0 * math.pi * C2[..., stride // 2::stride][..., :nq]
+    c_re, c_im = kernels.deconv_full(ampl, phse, cyc[..., ::nhop][..., :N],
+                                     halfwidth, torch.cos(ang),
+                                     torch.sin(ang), D, nhop, stride)
+    return (torch.sqrt(c_re ** 2 + c_im ** 2) * mask,
+            torch.atan2(c_im, c_re) * mask)
+
+
+def _moving_sum(v: torch.Tensor, S: int) -> torch.Tensor:
+    """jnp.convolve(v, ones(S), mode="same") along the last axis, as a
+    zero-padded windowed sum (no cuDNN, so no TF32 on the card)."""
+    vp = torch.nn.functional.pad(v, (S // 2, (S - 1) // 2))
+    return vp.unfold(-1, S, 1).sum(dim=-1)
+
+
+def analyze(opt: AnalysisOptions, x, f0) -> Chunk:
+    """Analyze one signal x [nx] with its F0 track f0 [nfrm] (0 =
+    unvoiced, frame rate 1/conf.thop) into a chunk (reference: layer0.c
+    -> llsm_analyze).  Tensors stay on their device; numpy input goes to
+    the CPU."""
+    x = torch.as_tensor(x).to(FP)
+    f0 = torch.as_tensor(f0, device=x.device).to(FP)
+    ch = _analyze(opt, x[None], f0[None])
+    return ch.replace(**{f: getattr(ch, f)[0] for f in LAYER0_FIELDS})
+
+
+def _analyze(opt: AnalysisOptions, x: torch.Tensor,
+             f0: torch.Tensor) -> Chunk:
+    """Batched analysis: x [B, nx'], f0 [B, N] -> chunk with a leading
+    batch axis.  x is cut or zero-padded to N*nhop samples."""
+    _check_analysis(opt)
+    conf = opt.conf
+    nhop = conf.nhop
+    B, nfrm = f0.shape
+    nx = nfrm * nhop
+    x = x.to(FP)[:, :nx]
+    x = torch.nn.functional.pad(x, (0, nx - x.shape[1]))
+    f0 = f0.to(FP)
+
+    if opt.f0_refine:
+        f0_ref = harmonics.refine_f0(
+            x, f0, nhop=nhop, fs=conf.fs, halfwin_max=conf.halfwin_max,
+            rel_winsize=conf.rel_winsize, f0_ceil=conf.f0_ceil)
+        S = opt.f0_refine_smooth
+        if S > 1:
+            # voicing-masked moving average of the refine CORRECTION
+            voiced_m = (f0 > 0).to(FP)
+            num = _moving_sum((f0_ref - f0) * voiced_m, S)
+            den = torch.clamp(_moving_sum(voiced_m, S), min=1.0)
+            f0 = torch.where(voiced_m > 0, f0 + num / den,
+                             torch.zeros_like(f0))
+        else:
+            f0 = f0_ref
+
+    cyc = harmonics.sample_cycles(f0, nhop, conf.fs, nx)
+
+    # harmonic pass: zoomed chirped projection
+    ampl, phse, mask = harmonics.harmonic_analysis(
+        x, f0, cyc, nhop=nhop, fs=conf.fs, max_k=conf.maxnhar,
+        halfwin_max=conf.halfwin_max, rel_winsize=conf.rel_winsize,
+        fnyq=conf.fnyq)
+
+    # residual: deconvolve the track smoothing, subtract the harmonic part
+    ampl, phse = _deconv_correction(opt, f0, cyc, ampl, phse, mask)
+    segs = harmonics.oscillator_bank(cyc, ampl, phse, mask, nhop=nhop)
+    residual = x - harmonics.overlap_add_half(segs, nhop, nx)
+
+    # noise pass: band envelopes (at the decimated rate fs/D) + warped PSD
+    D = _env_decimation(conf, opt.env_decimate, nx)
+    envs = _band_envelopes(residual, conf, D)              # [B, C, nx/D]
+    Cn, Ke = conf.nchannel, conf.maxnhar_e
+    rep = lambda a: a[:, None].expand((B, Cn) + a.shape[1:]).reshape(
+        (B * Cn,) + a.shape[1:])
+    ea, ep, _, edc = harmonics.harmonic_analysis(
+        envs.reshape(B * Cn, -1), rep(f0), rep(cyc[:, ::D]),
+        nhop=nhop // D, fs=conf.fs / D, max_k=Ke,
+        halfwin_max=-(-conf.halfwin_max // D), rel_winsize=conf.rel_winsize,
+        fnyq=min(conf.fnyq, 0.4 * conf.fs / D), with_dc=True)
+    edc = torch.clamp(edc, min=0.0).reshape(B, Cn, nfrm).transpose(1, 2)
+    eenv_a = ea.reshape(B, Cn, nfrm, Ke).transpose(1, 2)   # [B, N, C, Ke]
+    eenv_p = ep.reshape(B, Cn, nfrm, Ke).transpose(1, 2)
+    psd = _warped_psd(residual, nfrm, conf)
+    return Chunk(f0=f0, ampl=ampl, phse=phse, hm_mask=mask, psd=psd,
+                 edc=edc.contiguous(), eenv_a=eenv_a.contiguous(),
+                 eenv_p=eenv_p.contiguous(), conf=conf)
+
+
+# ---------------------------------------------------------------------------
+# synthesis
+# ---------------------------------------------------------------------------
+
+def _env_coefs(chunk: Chunk, cyc_c: torch.Tensor):
+    """Rotated, voicing-masked envelope-harmonic coefficients of a batched
+    chunk: (edc [B, N, C], ar, ai [B, N, C, Ke], base [B, N, C]).  eenv_p
+    is measured at the frame center, the renderers use the absolute cycle
+    track, so the phases are re-referenced by -2 pi k cyc_c; base is the
+    unit-RMS modulator normalizer sqrt(edc^2 + sum a^2/2)."""
+    voiced = (chunk.f0 > 0).to(FP)[..., None, None]
+    Ke = chunk.eenv_a.shape[-1]
+    kh = torch.arange(1, Ke + 1, dtype=FP, device=cyc_c.device)
+    ph = chunk.eenv_p / (2.0 * math.pi) - kh * cyc_c[..., None, None]
+    ph = (ph - torch.round(ph)) * (2.0 * math.pi)
+    ar = chunk.eenv_a * torch.cos(ph) * voiced
+    ai = chunk.eenv_a * torch.sin(ph) * voiced
+    base = torch.sqrt(chunk.edc ** 2
+                      + 0.5 * torch.sum((chunk.eenv_a * voiced) ** 2, dim=-1))
+    return chunk.edc, ar, ai, base
+
+
+def _band_segments(shaped_spec: torch.Tensor, masks: torch.Tensor,
+                   w: torch.Tensor, T: int) -> torch.Tensor:
+    """Windowed per-band time segments [B, C, N, T] from the shaped noise
+    spectra [B, N, nbin]: the inverse real DFT as one contraction with the
+    synthesis window and band masks folded into the matrix."""
+    nbin = shaped_spec.shape[-1]
+    dev = shaped_spec.device
+    b = torch.arange(nbin, dtype=torch.int64, device=dev)
+    t = torch.arange(T, dtype=torch.int64, device=dev)
+    # exact cycles mod 1 via integer arithmetic before trig
+    ang = 2.0 * math.pi * (torch.remainder(b[:, None] * t[None, :], T)
+                           .to(FP) / T)
+    wb = torch.full((nbin,), 2.0 / T, dtype=FP, device=dev)
+    wb[0] = wb[-1] = 1.0 / T
+    scale = wb[:, None] * w[None, :]                         # [nbin, T]
+    cos_c = masks[:, :, None] * (torch.cos(ang) * scale)     # [C, nbin, T]
+    sin_c = masks[:, :, None] * (torch.sin(ang) * scale)
+    return (torch.einsum("znb,cbt->zcnt", shaped_spec.real, cos_c)
+            - torch.einsum("znb,cbt->zcnt", shaped_spec.imag, sin_c))
+
+
+def _synth_noise(chunk: Chunk, cyc: torch.Tensor, nhop: int, fs: float,
+                 noise_seed: int, bins=None) -> torch.Tensor:
+    """Noise component of a batched chunk [B, N, ...] -> [B, N*nhop]: each
+    frame's white-noise spectrum is shaped by sqrt(PSD), band-split,
+    windowed back to time, overlap-added and modulated by the temporal
+    envelopes (reference: layer0.c noise synthesis).
+
+    bins: optional (re, im) [B, N, nbin] standard-normal spectra; without
+    them they are drawn from a torch.Generator seeded with noise_seed
+    (re first, then im)."""
+    conf = chunk.conf
+    B, N = chunk.f0.shape
+    T = 2 * nhop
+    nbin = T // 2 + 1
+    dev = cyc.device
+    # sqrt-Hann WOLA pair: perfect reconstruction at 50% overlap
+    w = torch.sqrt(0.5 - 0.5 * torch.cos(
+        2.0 * math.pi * (torch.arange(T, dtype=FP, device=dev) + 0.5) / T))
+    # the PSD axis is warped over the analysis band [0, conf.fs/2]
+    f = torch.arange(nbin, dtype=FP, device=dev) * fs / T
+    nyq_a = conf.fs / 2.0
+    wmax = warp.warp_frequency(nyq_a, conf.noswarp).to(dev)
+    pos = torch.clamp(warp.warp_frequency(f, conf.noswarp) / wmax * conf.npsd
+                      - 0.5, 0.0, conf.npsd - 1.0)
+    gain = torch.sqrt(torch.clamp(interp.interp1_uniform(chunk.psd, pos),
+                                  min=0.0))                  # [B, N, nbin]
+    if fs > conf.fs:
+        # no information above the analysis Nyquist: raised-cosine taper
+        # over its top 5%, zero beyond
+        edge0 = 0.95 * nyq_a
+        taper = torch.where(
+            f <= edge0, torch.ones_like(f),
+            torch.where(f >= nyq_a, torch.zeros_like(f),
+                        0.5 + 0.5 * torch.cos(math.pi * (f - edge0)
+                                              / (nyq_a - edge0))))
+        gain = gain * taper
+
+    if bins is None:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(noise_seed))
+        re = torch.randn((B, N, nbin), generator=gen, dtype=FP, device=dev)
+        im = torch.randn((B, N, nbin), generator=gen, dtype=FP, device=dev)
+    else:
+        re, im = (v.to(dev, FP) if torch.is_tensor(v) else
+                  torch.tensor(np.asarray(v), dtype=FP, device=dev)
+                  for v in bins)
+        if re.shape != (B, N, nbin) or im.shape != (B, N, nbin):
+            raise ValueError(f"bins must be [{B}, {N}, {nbin}] each")
+        im = im.clone()
+    im[..., 0] = 0.0
+    im[..., -1] = 0.0
+    scale = torch.full((nbin,), math.sqrt(T / 2.0), dtype=FP, device=dev)
+    scale[0] = scale[-1] = math.sqrt(float(T))
+    shaped = torch.complex(re * scale, im * scale) * gain      # [B, N, nbin]
+    edges = conf.chan_edges
+    masks = torch.stack([((f >= edges[c]) & (f < edges[c + 1])).to(FP)
+                         for c in range(conf.nchannel)])       # [C, nbin]
+    band_segs = _band_segments(shaped, masks, w, T)            # [B, C, N, T]
+    edc, ar, ai, base = _env_coefs(chunk, cyc[..., ::nhop][..., :N])
+    return kernels.noise_mod_ola(cyc, edc, ar, ai, base, band_segs)
+
+
+def synthesize(opt: SynthesisOptions, chunk: Chunk) -> SynthResult:
+    """Synthesize one chunk (no batch axis) back to a waveform (reference:
+    layer0.c -> llsm_synthesize)."""
+    batched = chunk.replace(**{f: getattr(chunk, f)[None]
+                               for f in LAYER0_FIELDS})
+    res = _synthesize(opt, batched)
+    return SynthResult(y=res.y[0], y_sin=res.y_sin[0], y_nos=res.y_nos[0],
+                       fs=res.fs)
+
+
+def _synthesize(opt: SynthesisOptions, chunk: Chunk, bins=None) -> SynthResult:
+    """Batched synthesis of a chunk with a leading batch axis -> [B, nx]
+    signals, rendered directly at opt.fs (harmonics above its Nyquist are
+    masked).  bins: see _synth_noise."""
+    if not opt.use_pallas:
+        raise _unported("use_pallas=False (the JAX package's jnp branches)",
+                        "Queue 1 item 11")
+    if opt.noise_idft != "matmul":
+        raise _unported(f"noise_idft={opt.noise_idft!r}", "Queue 1 item 5")
+    conf = chunk.conf
+    fs = opt.fs
+    if abs(conf.thop * fs - round(conf.thop * fs)) > 1e-6:
+        raise _unported("synthesis at a rate with a non-integral hop",
+                        "Queue 1 item 5")
+    nhop = int(round(conf.thop * fs))
+    nx = chunk.nfrm * nhop
+    cyc = harmonics.sample_cycles(chunk.f0, nhop, fs, nx)
+    K = chunk.ampl.shape[-1]
+    kharm = torch.arange(1, K + 1, dtype=FP, device=cyc.device)
+    f0s = torch.where(chunk.f0 > 0, chunk.f0, torch.full_like(chunk.f0, 100.0))
+    hm_mask = chunk.hm_mask * (kharm * f0s[..., None] < 0.5 * fs)
+    segs = harmonics.oscillator_bank(cyc, chunk.ampl, chunk.phse, hm_mask,
+                                     nhop=nhop)
+    y_sin = harmonics.overlap_add_half(segs, nhop, nx)
+    y_nos = _synth_noise(chunk, cyc, nhop, fs, opt.noise_seed, bins=bins)
+    return SynthResult(y=y_sin + y_nos, y_sin=y_sin, y_nos=y_nos, fs=fs)

@@ -1,0 +1,335 @@
+"""The port's hand-written Hopper kernels and their plain PyTorch twins
+(counterpart of libllsm2_tpu/ops/pallas_osc.py).
+
+Each public function dispatches on the device of its tensors: a CPU
+tensor runs the plain version (``*_ref``), a CUDA tensor launches the CUDA
+kernel from ``csrc/`` (built by ops/_build.py on first use) or raises.
+There is no fallback between the two.  ``LAUNCHES[name]`` counts the
+kernel launches of each wrapper (and nothing else), so a run can show
+that it went through the kernels.
+
+Every kernel computes what its TPU kernel computes; the TPU blocking
+(128-frame blocks, 8-row chunks, MXU banded matmuls) is not carried
+over.  Each source file says what bounds its kernel on the H100 and how
+its design answers that.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..fp import CP, FP
+from . import _build
+from .windows import COSINE_SERIES, window_centered
+
+LAUNCHES = {"osc_bank": 0, "harmonic_project_win": 0, "deconv_full": 0,
+            "noise_mod_ola": 0}
+
+# frames per chunk of the plain versions: bounds their [frames, K, T]
+# temporaries to ~64 MB at any input size
+_REF_ELEMS = 1 << 24
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _on_cuda(*ts: torch.Tensor) -> bool:
+    """True for CUDA tensors, False for CPU ones; raises otherwise or on a
+    device mismatch."""
+    dev = ts[0].device
+    for t in ts:
+        if t.device != dev:
+            raise ValueError(f"tensors on different devices: {t.device} "
+                             f"vs {dev}")
+    if dev.type == "cuda":
+        return True
+    if dev.type == "cpu":
+        return False
+    raise ValueError(f"unsupported device {dev}")
+
+
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.float32).contiguous()
+
+
+def _i32(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.int32).contiguous()
+
+
+def _launch(name: str, *args) -> None:
+    rc = getattr(_build.library(), "llsm_" + name)(*args)
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"cudaError {rc}")
+    LAUNCHES[name] += 1
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _phase_cycles(k: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    ph = k * d
+    return ph - torch.round(ph)
+
+
+# ---------------------------------------------------------------------------
+# 1. oscillator bank (pallas_osc.osc_bank_pallas)
+# ---------------------------------------------------------------------------
+
+def osc_bank(dc: torch.Tensor, ampl: torch.Tensor, phse: torch.Tensor,
+             mask: torch.Tensor, kl: torch.Tensor) -> torch.Tensor:
+    """Fused oscillator bank: seg[n, t] = sum_{k < kl[n]} a m cos(2 pi (k+1)
+    dc[n, t] + phi).  dc [R, T] cycle offsets (any mod-1 representative),
+    ampl/phse/mask [R, K], kl [R] live-slot count (slots at or beyond it
+    must be masked; they are skipped) -> [R, T] (no OLA window)."""
+    if not _on_cuda(dc, ampl, phse, mask, kl):
+        return osc_bank_ref(dc, ampl, phse, mask, kl)
+    R, T = dc.shape
+    K = ampl.shape[-1]
+    if ampl.shape != (R, K) or phse.shape != (R, K) or mask.shape != (R, K) \
+            or kl.shape != (R,):
+        raise ValueError("osc_bank: shape mismatch")
+    a = ampl.float() * mask.float()
+    ar = _f32(a * torch.cos(phse.float()))
+    ai = _f32(a * torch.sin(phse.float()))
+    dc, kl = _f32(dc), _i32(kl)
+    out = torch.empty((R, T), dtype=FP, device=dc.device)
+    _launch("osc_bank", *(t.data_ptr() for t in (dc, ar, ai, kl, out)),
+            R, T, K, _stream(dc))
+    return out
+
+
+def osc_bank_ref(dc, ampl, phse, mask, kl):
+    """Plain version of osc_bank (the jnp math of harmonics.py:591-608)."""
+    R, T = dc.shape
+    K = ampl.shape[-1]
+    kh = torch.arange(1, K + 1, dtype=FP, device=dc.device)
+    live = torch.arange(K, device=dc.device)[None, :] < kl[:, None]
+    a = ampl * mask * live
+    out = torch.empty((R, T), dtype=FP, device=dc.device)
+    step = max(_REF_ELEMS // (K * T), 1)
+    for s in range(0, R, step):
+        ph = _phase_cycles(kh[None, :, None], dc[s:s + step, None, :])
+        osc = torch.cos(2.0 * math.pi * ph + phse[s:s + step, :, None])
+        out[s:s + step] = torch.einsum("nkt,nk->nt", osc, a[s:s + step])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 2. fused-window harmonic projection (pallas_osc.harmonic_project_win_pallas)
+# ---------------------------------------------------------------------------
+
+def harmonic_project_win(dc: torch.Tensor, frames: torch.Tensor,
+                         hw: torch.Tensor, max_k: int, lo: torch.Tensor,
+                         hi: torch.Tensor, *, center: int,
+                         window: str = "hanning",
+                         kl: torch.Tensor | None = None):
+    """Fused window + projection: dc, frames [R, W]; hw, lo, hi, kl [R] ->
+    (re [R, K], im [R, K], wsum [R], xsum [R]) with
+    re + j im = sum_w frames win e^{-2 pi j (k+1) dc}, wsum = sum_w win and
+    xsum = sum_w frames win (the k = 0 row).  win is the cosine-series
+    `window` centered at buffer column `center` with halfwidth hw; only
+    columns in [lo, hi) (which must cover its support) contribute.  Slots
+    k >= kl are exact zeros (kl=None: all max_k slots live)."""
+    R, W = dc.shape
+    if kl is None:
+        kl = torch.full((R,), max_k, dtype=torch.int32, device=dc.device)
+    if not _on_cuda(dc, frames, hw, lo, hi, kl):
+        return harmonic_project_win_ref(dc, frames, hw, max_k, lo, hi,
+                                        center=center, window=window, kl=kl)
+    if frames.shape != (R, W) \
+            or any(v.shape != (R,) for v in (hw, lo, hi, kl)):
+        raise ValueError("harmonic_project_win: shape mismatch")
+    coefs = tuple(float(c) for c in COSINE_SERIES[window]) + (0.0,) * 3
+    dc, frames, hw = _f32(dc), _f32(frames), _f32(hw)
+    lo, hi, kl = _i32(lo), _i32(hi), _i32(kl)
+    dev = dc.device
+    re = torch.empty((R, max_k), dtype=FP, device=dev)
+    im = torch.empty((R, max_k), dtype=FP, device=dev)
+    ws = torch.empty((R,), dtype=FP, device=dev)
+    xs = torch.empty((R,), dtype=FP, device=dev)
+    ptrs = (t.data_ptr() for t in (dc, frames, hw, lo, hi, kl, re, im, ws, xs))
+    _launch("harmonic_project_win", *ptrs, R, W, max_k, int(center), *coefs[:4],
+            len(COSINE_SERIES[window]), _stream(dc))
+    return re, im, ws, xs
+
+
+def harmonic_project_win_ref(dc, frames, hw, max_k, lo, hi, *, center,
+                             window="hanning", kl=None):
+    """Plain version of harmonic_project_win (the jnp math of
+    harmonics.py:171-188 on framed buffers)."""
+    R, W = dc.shape
+    dev = dc.device
+    col = torch.arange(W, device=dev)
+    noff = (col - center).to(FP)[None, :]
+    w = window_centered(window, noff, hw[:, None])
+    w = w * ((col[None, :] >= lo[:, None]) & (col[None, :] < hi[:, None]))
+    xw = frames * w
+    kh = torch.arange(1, max_k + 1, dtype=FP, device=dev)
+    re = torch.empty((R, max_k), dtype=FP, device=dev)
+    im = torch.empty((R, max_k), dtype=FP, device=dev)
+    step = max(_REF_ELEMS // (max_k * W), 1)
+    for s in range(0, R, step):
+        arg = 2.0 * math.pi * _phase_cycles(kh[None, :, None],
+                                            dc[s:s + step, None, :])
+        re[s:s + step] = torch.einsum("nkw,nw->nk", torch.cos(arg),
+                                      xw[s:s + step])
+        im[s:s + step] = torch.einsum("nkw,nw->nk", -torch.sin(arg),
+                                      xw[s:s + step])
+    if kl is not None:
+        live = torch.arange(max_k, device=dev)[None, :] < kl[:, None]
+        re, im = re * live, im * live
+    return re, im, w.sum(dim=-1), xw.sum(dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# 5. amplitude-track deconvolution (pallas_osc.deconv_full_pallas)
+# ---------------------------------------------------------------------------
+
+def deconv_full(ampl: torch.Tensor, phse: torch.Tensor, cyc_c: torch.Tensor,
+                hw: torch.Tensor, eq_re: torch.Tensor, eq_im: torch.Tensor,
+                D: int, nhop: int, stride: int):
+    """Fused amplitude-track deconvolution of a batch of utterances:
+    ampl/phse [B, N, K] (masked), cyc_c [B, N] (mod-1 cycle at the frame
+    centers), hw [B, N] (window halfwidth), eq_re/eq_im [B, N, nq]
+    (e^{2 pi j cyc} at the band-quadrature points of each frame's hop) ->
+    the corrected complex harmonics (re, im) [B, N, K] in the absolute-
+    phase domain.  Frames beyond either end of an utterance are zero."""
+    if not _on_cuda(ampl, phse, cyc_c, hw, eq_re, eq_im):
+        return deconv_full_ref(ampl, phse, cyc_c, hw, eq_re, eq_im, D, nhop,
+                               stride)
+    B, N, K = ampl.shape
+    nq = eq_re.shape[-1]
+    if phse.shape != (B, N, K) or cyc_c.shape != (B, N) or hw.shape != (B, N) \
+            or eq_re.shape != (B, N, nq) or eq_im.shape != (B, N, nq):
+        raise ValueError("deconv_full: shape mismatch")
+    ampl, phse, cyc_c, hw = _f32(ampl), _f32(phse), _f32(cyc_c), _f32(hw)
+    eq_re, eq_im = _f32(eq_re), _f32(eq_im)
+    o_re = torch.empty((B, N, K), dtype=FP, device=ampl.device)
+    o_im = torch.empty((B, N, K), dtype=FP, device=ampl.device)
+    ptrs = (t.data_ptr()
+            for t in (ampl, phse, cyc_c, hw, eq_re, eq_im, o_re, o_im))
+    _launch("deconv_full", *ptrs, B, N, K, int(D), int(nhop), int(stride), nq, _stream(ampl))
+    return o_re, o_im
+
+
+def _shift_frames(v: torch.Tensor, d: int) -> torch.Tensor:
+    """v[:, i] -> v[:, i + d] along the frame axis (dim 1), zero-padded:
+    shifts stay inside each utterance."""
+    if d == 0:
+        return v
+    out = torch.zeros_like(v)
+    if d > 0:
+        out[:, :-d] = v[:, d:]
+    else:
+        out[:, -d:] = v[:, :d]
+    return out
+
+
+def deconv_full_ref(ampl, phse, cyc_c, hw, eq_re, eq_im, D, nhop, stride):
+    """Plain version of deconv_full (the jnp math of layer0.py:248-299)."""
+    B, N, K = ampl.shape
+    nq = eq_re.shape[-1]
+    dev = ampl.device
+    r = -nhop + (torch.arange(nq, dtype=FP, device=dev) + 0.5) * stride
+    w_ola = 0.5 + 0.5 * torch.cos(math.pi * r / nhop)
+    d_off = torch.arange(-D, D + 1, dtype=FP, device=dev)
+    n_abs = d_off[:, None] * nhop + r[None, :]                  # [2D+1, nq]
+    w_i = window_centered("hanning", n_abs, hw[..., None, None])
+    P = w_i * w_ola                                     # [B, N, 2D+1, nq]
+    tot = torch.clamp(P.sum(dim=(-2, -1), keepdim=True), min=1e-9)
+    Pn = P / tot
+    T_band = Pn.sum(dim=-1)                                     # [B, N, 2D+1]
+    eq = torch.complex(eq_re, eq_im)
+    X_band = torch.stack([
+        (Pn[:, :, j].to(CP) * _shift_frames(eq, d)).sum(dim=-1)
+        for j, d in enumerate(range(-D, D + 1))], dim=-1)       # [B, N, 2D+1]
+    kh = torch.arange(1, K + 1, dtype=FP, device=dev)
+    ph = _phase_cycles(kh, cyc_c[..., None])
+    align = torch.polar(torch.ones_like(ph), -2.0 * math.pi * ph)
+    c = torch.polar(ampl, phse) * align                         # [B, N, K]
+    zero = torch.zeros_like(c[..., :1])
+    c_up = torch.cat([c[..., 1:], zero], dim=-1)                # c'_{k+1}
+    c_dn = torch.cat([zero, c[..., :-1]], dim=-1)               # c'_{k-1}
+    Sm = torch.zeros_like(c)
+    for j, d in enumerate(range(-D, D + 1)):
+        Sm = Sm + T_band[..., j:j + 1] * _shift_frames(c, d) \
+            + X_band[..., j:j + 1] * _shift_frames(c_up, d) \
+            + X_band[..., j:j + 1].conj() * _shift_frames(c_dn, d)
+    c2 = (2.0 * c - Sm) * align.conj()
+    return c2.real.contiguous(), c2.imag.contiguous()
+
+
+# ---------------------------------------------------------------------------
+# 4. noise-band OLA + envelope modulation (pallas_osc.noise_mod_ola_pallas)
+# ---------------------------------------------------------------------------
+
+def noise_mod_ola(cyc: torch.Tensor, edc: torch.Tensor, ar: torch.Tensor,
+                  ai: torch.Tensor, base: torch.Tensor,
+                  segs: torch.Tensor) -> torch.Tensor:
+    """Fused noise-band OLA + temporal-envelope modulation + band sum of a
+    batch: cyc [B, N*nhop] mod-1 cycle track; edc/base [B, N, C]; ar/ai
+    [B, N, C, Ke] (rotated, voicing-masked envelope coefficients);
+    segs [B, C, N, 2*nhop] per-band WOLA noise segments -> y [B, N*nhop]
+    = sum_c OLA(segs[:, c]) * max(env_c, 0) / max(base_c, 1e-8)."""
+    if not _on_cuda(cyc, edc, ar, ai, base, segs):
+        return noise_mod_ola_ref(cyc, edc, ar, ai, base, segs)
+    B, N, C, Ke = ar.shape
+    nhop = segs.shape[-1] // 2
+    if cyc.shape != (B, N * nhop) or edc.shape != (B, N, C) \
+            or base.shape != (B, N, C) or ai.shape != ar.shape \
+            or segs.shape != (B, C, N, 2 * nhop):
+        raise ValueError("noise_mod_ola: shape mismatch")
+    cyc, edc, ar, ai = _f32(cyc), _f32(edc), _f32(ar), _f32(ai)
+    base, segs = _f32(base), _f32(segs)
+    y = torch.empty((B, N * nhop), dtype=FP, device=cyc.device)
+    ptrs = (t.data_ptr() for t in (cyc, edc, ar, ai, base, segs, y))
+    _launch("noise_mod_ola", *ptrs, B, N, nhop, C, Ke, _stream(cyc))
+    return y
+
+
+def render_envelopes(cyc, edc, ar, ai, base, nhop: int):
+    """Per-channel temporal envelopes and their baselines (env [B, C, nx],
+    base [B, C, nx]) from the frame coefficients: the frame-structured
+    lerp + rotation recurrence of layer0._render_envelopes
+    (layer0.py:1008-1041)."""
+    B, N, C, Ke = ar.shape
+    nx = cyc.shape[-1]
+    t = torch.arange(nhop, dtype=FP, device=cyc.device) / nhop
+
+    def lerp(a):  # [B, N, ...] -> [B, nx, ...]
+        rest = a.shape[2:]
+        tt = t.reshape((1, 1, nhop) + (1,) * len(rest))
+        out = a[:, :-1, None] + tt * (a[:, 1:] - a[:, :-1])[:, :, None]
+        out = out.reshape((B, (N - 1) * nhop) + rest)
+        tail = a[:, -1:].expand((B, nhop) + rest)   # last frame constant
+        return torch.cat([out, tail], dim=1)[:, :nx]
+
+    ph1 = 2.0 * math.pi * (cyc - torch.round(cyc))
+    c1, s1 = torch.cos(ph1), torch.sin(ph1)
+    osc_c, osc_s = [c1], [s1]
+    for _ in range(Ke - 1):
+        osc_c.append(osc_c[-1] * c1 - osc_s[-1] * s1)
+        osc_s.append(osc_c[-2] * s1 + osc_s[-1] * c1)
+    osc_c = torch.stack(osc_c, dim=-1)[:, :, None, :]            # [B, nx, 1, Ke]
+    osc_s = torch.stack(osc_s, dim=-1)[:, :, None, :]
+    env = lerp(edc) + torch.sum(lerp(ar) * osc_c - lerp(ai) * osc_s, dim=-1)
+    return (torch.clamp(env, min=0.0).transpose(1, 2),
+            torch.clamp(lerp(base), min=1e-8).transpose(1, 2))
+
+
+def noise_mod_ola_ref(cyc, edc, ar, ai, base, segs):
+    """Plain version of noise_mod_ola (layer0.py:1190-1195)."""
+    from .harmonics import overlap_add_half
+    nhop = segs.shape[-1] // 2
+    nx = cyc.shape[-1]
+    env, base_s = render_envelopes(cyc, edc, ar, ai, base, nhop)
+    y = torch.zeros_like(cyc)
+    for c in range(segs.shape[1]):
+        band = overlap_add_half(segs[:, c], nhop, nx)
+        y = y + band * (env[:, c] / base_s[:, c])
+    return y

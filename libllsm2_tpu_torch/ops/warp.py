@@ -1,0 +1,28 @@
+"""Frequency-axis warping for the noise PSD (counterpart of
+libllsm2_tpu/ops/warp.py; reference: dsputils.c -> llsm_warp_frequency).
+The warped axis compresses high frequencies logarithmically."""
+from __future__ import annotations
+
+import torch
+
+from ..fp import FP
+
+
+def warp_frequency(f, warp_const):
+    """Linear frequency [Hz] -> warped coordinate (float32)."""
+    return warp_const * torch.log1p(torch.as_tensor(f, dtype=FP) / warp_const)
+
+
+def warped_band_matrix(npsd: int, nbin: int, fs: float, warp_const: float,
+                       device="cpu") -> torch.Tensor:
+    """[npsd, nbin] row-normalized averaging matrix taking a linear-axis
+    half-spectrum (nbin rfft bins, 0..fs/2) to npsd warped-axis band means.
+    Built on the CPU in float32 (so the band edges do not depend on the
+    device's transcendental rounding) and moved to `device`."""
+    f = torch.arange(nbin, dtype=FP) * (fs / 2.0) / (nbin - 1)
+    wmax = warp_frequency(fs / 2.0, warp_const)
+    band = torch.floor(warp_frequency(f, warp_const) / wmax * npsd)
+    band = torch.clamp(band, 0, npsd - 1).to(torch.int64)
+    onehot = (band[None, :] == torch.arange(npsd)[:, None]).to(FP)
+    counts = torch.clamp(onehot.sum(dim=1, keepdim=True), min=1.0)
+    return (onehot / counts).to(device)

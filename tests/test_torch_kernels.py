@@ -1,0 +1,216 @@
+"""The plain PyTorch versions of the port's four CUDA kernels against the
+JAX package's Pallas kernels (interpret mode on the CPU), on identical
+numpy inputs; the CPU dispatch; and, on a CUDA card only, each kernel
+against its plain version.  Tolerances are test_pallas.py's."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from libllsm2_tpu.ops import harmonics as jhm
+from libllsm2_tpu.ops import pallas_osc
+
+from libllsm2_tpu_torch.ops import _build, kernels
+from libllsm2_tpu_torch.ops import harmonics as thm
+
+torch.set_num_threads(1)
+
+T = lambda a: torch.tensor(np.asarray(a))
+N = 300   # ragged: three 128-frame blocks of the TPU kernels, the last partial
+
+
+def _osc_inputs(K, notch):
+    rng = np.random.default_rng(K + notch)
+    dc = rng.uniform(-0.5, 0.5, (N, 160)).astype(np.float32)
+    ampl = rng.uniform(0, 1, (N, K)).astype(np.float32)
+    phse = rng.uniform(-3, 3, (N, K)).astype(np.float32)
+    top = rng.integers(1, K + 1, N)
+    mask = (np.arange(K)[None, :] < top[:, None]).astype(np.float32)
+    if notch:                      # edited chunks notch interior slots
+        mask[:, 2] = 0.0
+        mask[::3, top[0] // 2] = 0.0
+    kl = (np.arange(1, K + 1)[None, :] * (mask > 0)).max(-1).astype(np.int32)
+    return dc, ampl, phse, mask, kl
+
+
+@pytest.mark.parametrize("K,notch", [(24, False), (80, False), (80, True)])
+def test_osc_bank_plain_matches_pallas(K, notch):
+    dc, ampl, phse, mask, kl = _osc_inputs(K, notch)
+    ref = pallas_osc.osc_bank_pallas(*map(jnp.asarray, (dc, ampl, phse, mask)),
+                                     kl=jnp.asarray(kl))
+    got = kernels.osc_bank(*map(T, (dc, ampl, phse, mask, kl)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=2e-4)
+
+
+def _proj_inputs(K, W, seed):
+    rng = np.random.default_rng(seed)
+    C = W // 2
+    dc = rng.uniform(-1, 1, (N, W)).astype(np.float32)
+    fr = rng.standard_normal((N, W)).astype(np.float32)
+    hw = rng.uniform(2.0, C - 1, N).astype(np.float32)
+    hw_int = np.ceil(hw).astype(np.int32)
+    return dc, fr, hw, C - hw_int, C + hw_int + 1, C
+
+
+@pytest.mark.parametrize("K,W,skip", [(24, 960, True), (80, 960, True),
+                                      (80, 960, False), (4, 240, False)])
+def test_harmonic_project_win_plain_matches_pallas(K, W, skip):
+    """Main-pass (Wf = 960) and envelope-pass (Wf = 240, K = 4) shapes.
+    With a skipping kl the Pallas kernel computes every slot below its
+    128-frame block's maximum, the port below each frame's own kl: the two
+    agree on the live slots, and the port's dead slots are exact zeros."""
+    dc, fr, hw, lo, hi, C = _proj_inputs(K, W, K + W)
+    rng = np.random.default_rng(5)
+    kl = (rng.integers(0, K, N) if skip else np.full(N, K)).astype(np.int32)
+    re_j, im_j, ws_j, xs_j = map(np.asarray, pallas_osc.harmonic_project_win_pallas(
+        *map(jnp.asarray, (dc, fr, hw)), K, lo=jnp.asarray(lo),
+        hi=jnp.asarray(hi), center=C, kl=jnp.asarray(kl)))
+    re, im, ws, xs = (v.numpy() for v in kernels.harmonic_project_win(
+        *map(T, (dc, fr, hw)), K, T(lo), T(hi), center=C, kl=T(kl)))
+    live = np.arange(K)[None, :] < kl[:, None]
+    if skip:
+        assert not live.all()
+    np.testing.assert_allclose(np.where(live, re, 0), np.where(live, re_j, 0),
+                               atol=2e-3)
+    np.testing.assert_allclose(np.where(live, im, 0), np.where(live, im_j, 0),
+                               atol=2e-3)
+    assert not re[~live].any() and not im[~live].any()
+    np.testing.assert_allclose(ws, ws_j, rtol=1e-5)
+    np.testing.assert_allclose(xs, xs_j, atol=2e-3)
+
+
+@pytest.mark.parametrize("envelope", [False, True])
+def test_harmonic_analysis_matches(envelope):
+    """The module around the projection kernel: the main pass (K = 24)
+    and the envelope pass (K = 4 with the windowed DC, at fs/4), on a
+    batch of two utterances with unvoiced frames."""
+    from libllsm2_tpu.utils import testsig
+    rows = [testsig.make_test_utterance(duration=0.5, seed=s, noise_level=nl,
+                                        unvoiced_tail_frac=0.2)
+            for s, nl in ((0, 0.0), (1, 0.05))]
+    fs, nhop, H, K, fnyq = 16000.0, 80, 356, 24, 6000.0
+    if envelope:
+        fs, nhop, H, K, fnyq = 4000.0, 20, 89, 4, 1600.0
+    nfrm = len(rows[0][1])
+    nx = nfrm * nhop
+    x = np.stack([np.abs(r[0][:nx]) for r in rows]).astype(np.float32)
+    f0 = np.stack([r[1] for r in rows]).astype(np.float32)
+    kw = dict(fs=fs, max_k=K, halfwin_max=H, rel_winsize=4.0, fnyq=fnyq,
+              with_dc=envelope)
+    cyc = thm.sample_cycles(T(f0), nhop, fs, nx)
+    got = thm.harmonic_analysis(T(x), T(f0), cyc, nhop=nhop, **kw)
+    centers = jnp.arange(nfrm, dtype=jnp.int32) * nhop
+    for b in range(2):
+        ref = jhm.harmonic_analysis(jnp.asarray(x[b]), jnp.asarray(f0[b]),
+                                    centers, jnp.asarray(cyc[b].numpy()),
+                                    use_pallas=True, nhop=nhop, **kw)
+        a_j, p_j, m_j = map(np.asarray, ref[:3])
+        a, p, m = (v[b].numpy() for v in got[:3])
+        scale = np.abs(a_j).max()
+        np.testing.assert_array_equal(m, m_j)
+        np.testing.assert_allclose(a, a_j, atol=1e-3 * scale)
+        np.testing.assert_allclose(a * np.exp(1j * p), a_j * np.exp(1j * p_j),
+                                   atol=1e-3 * scale)
+        if envelope:
+            np.testing.assert_allclose(got[3][b].numpy(), np.asarray(ref[3]),
+                                       atol=1e-5 * np.abs(x).max())
+
+
+def test_deconv_full_plain_matches_pallas():
+    """D = 7 (halfwin_max 458 at an 80-sample hop), two utterances with
+    unvoiced (zero) frames at both ends of each: the plain version's frame
+    shifts must stay inside each utterance."""
+    rng = np.random.default_rng(9)
+    B, K, D, nhop, stride = 2, 80, 7, 80, 8
+    nq = 2 * nhop // stride
+    ampl = rng.uniform(0, 1, (B, N, K)).astype(np.float32)
+    ampl[0, :12] = ampl[0, -20:] = 0.0
+    ampl[1, :3] = ampl[1, -9:] = 0.0
+    phse = rng.uniform(-3, 3, (B, N, K)).astype(np.float32)
+    cyc_c = rng.uniform(0, 1, (B, N)).astype(np.float32)
+    hw = rng.uniform(30, 458, (B, N)).astype(np.float32)
+    ang = rng.uniform(0, 2 * np.pi, (B, N, nq))
+    eq_re, eq_im = np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)
+    re, im = kernels.deconv_full(*map(T, (ampl, phse, cyc_c, hw, eq_re, eq_im)),
+                                 D, nhop, stride)
+    z = re.numpy() + 1j * im.numpy()
+    for b in range(B):
+        rj, ij = pallas_osc.deconv_full_pallas(
+            *(jnp.asarray(a[b]) for a in (ampl, phse, cyc_c, hw, eq_re, eq_im)),
+            D, nhop, stride)
+        np.testing.assert_allclose(z[b], np.asarray(rj) + 1j * np.asarray(ij),
+                                   atol=5e-4)
+
+
+def test_noise_mod_ola_plain_matches_pallas():
+    rng = np.random.default_rng(13)
+    B, C, Ke, nhop = 2, 4, 4, 80
+    cyc = rng.uniform(0, 1, (B, N * nhop)).astype(np.float32)
+    edc = rng.uniform(0, 1, (B, N, C)).astype(np.float32)
+    ar = rng.uniform(-0.3, 0.3, (B, N, C, Ke)).astype(np.float32)
+    ai = rng.uniform(-0.3, 0.3, (B, N, C, Ke)).astype(np.float32)
+    base = rng.uniform(0.5, 1.5, (B, N, C)).astype(np.float32)
+    segs = rng.standard_normal((B, C, N, 2 * nhop)).astype(np.float32)
+    got = kernels.noise_mod_ola(*map(T, (cyc, edc, ar, ai, base, segs)))
+    for b in range(B):
+        ref = pallas_osc.noise_mod_ola_pallas(
+            *(jnp.asarray(a[b]) for a in (cyc, edc, ar, ai, base, segs)))
+        np.testing.assert_allclose(got[b].numpy(), np.asarray(ref), atol=5e-5)
+
+
+def test_cpu_tensors_never_reach_the_kernels(monkeypatch):
+    def no_build():
+        raise AssertionError("CPU call reached the CUDA build")
+    monkeypatch.setattr(_build, "library", no_build)
+    kernels.reset_launches()
+    dc, ampl, phse, mask, kl = _osc_inputs(24, False)
+    kernels.osc_bank(*map(T, (dc, ampl, phse, mask, kl)))
+    dc, fr, hw, lo, hi, C = _proj_inputs(4, 240, 1)
+    kernels.harmonic_project_win(*map(T, (dc, fr, hw)), 4, T(lo), T(hi),
+                                 center=C)
+    a = torch.rand(1, 40, 8)
+    kernels.deconv_full(a, a, a[..., 0], a[..., 0] + 30, a[..., :4],
+                        a[..., :4], 2, 8, 4)
+    kernels.noise_mod_ola(torch.rand(1, 40 * 8), a[..., :2], a[..., :2, None],
+                          a[..., :2, None], a[..., :2] + 1,
+                          torch.rand(1, 2, 40, 16))
+    assert all(v == 0 for v in kernels.LAUNCHES.values()), kernels.LAUNCHES
+
+
+@pytest.mark.requires_cuda
+def test_cuda_kernels_match_plain_on_card():
+    """On the card: each kernel against its plain version on the card,
+    and its launch counted (run: pytest -m requires_cuda)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc (CUDA kernels have no CPU "
+                    "or interpret mode)")
+    dev = torch.device("cuda")
+    kernels.reset_launches()
+    dc, ampl, phse, mask, kl = (T(a).to(dev) for a in _osc_inputs(80, True))
+    torch.testing.assert_close(kernels.osc_bank(dc, ampl, phse, mask, kl),
+                               kernels.osc_bank_ref(dc, ampl, phse, mask, kl),
+                               atol=2e-4, rtol=0)
+    dc, fr, hw, lo, hi, C = _proj_inputs(80, 960, 3)
+    args = [T(a).to(dev) for a in (dc, fr, hw)]
+    lo, hi = T(lo).to(dev), T(hi).to(dev)
+    kl = torch.randint(0, 80, (N,), device=dev, dtype=torch.int32)
+    for g, r in zip(kernels.harmonic_project_win(*args, 80, lo, hi, center=C,
+                                                 kl=kl),
+                    kernels.harmonic_project_win_ref(*args, 80, lo, hi,
+                                                     center=C, kl=kl)):
+        torch.testing.assert_close(g, r, atol=2e-3, rtol=1e-5)
+    a = torch.rand(2, N, 80, device=dev)
+    cyc_c, hw = torch.rand(2, N, device=dev), 30 + 400 * torch.rand(2, N, device=dev)
+    ang = 6.3 * torch.rand(2, N, 20, device=dev)
+    d_args = (a, 6 * a - 3, cyc_c, hw, torch.cos(ang), torch.sin(ang), 7, 80, 8)
+    for g, r in zip(kernels.deconv_full(*d_args), kernels.deconv_full_ref(*d_args)):
+        torch.testing.assert_close(g, r, atol=5e-4, rtol=0)
+    e = torch.rand(2, N, 4, device=dev)
+    n_args = (torch.rand(2, N * 80, device=dev), e, 0.3 * torch.rand(2, N, 4, 4, device=dev),
+              0.3 * torch.rand(2, N, 4, 4, device=dev), e + 0.5,
+              torch.randn(2, 4, N, 160, device=dev))
+    torch.testing.assert_close(kernels.noise_mod_ola(*n_args),
+                               kernels.noise_mod_ola_ref(*n_args),
+                               atol=5e-5, rtol=0)
+    assert kernels.LAUNCHES == {"osc_bank": 1, "harmonic_project_win": 1,
+                                "deconv_full": 1, "noise_mod_ola": 1}

@@ -1,0 +1,198 @@
+"""The PyTorch port's leaf ops, fixtures and configs against the JAX
+package (libllsm2_tpu_torch vs libllsm2_tpu, CPU, float32).  Inputs are
+made with numpy from a seed and fed to both packages."""
+import dataclasses
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from libllsm2_tpu import config as jconfig
+from libllsm2_tpu.ops import harmonics as jhm
+from libllsm2_tpu.ops import interp as jinterp
+from libllsm2_tpu.ops import spectral as jspectral
+from libllsm2_tpu.ops import warp as jwarp
+from libllsm2_tpu.ops import windows as jwindows
+from libllsm2_tpu.utils import testsig as jtestsig
+
+from libllsm2_tpu_torch import config as tconfig
+from libllsm2_tpu_torch.ops import harmonics as thm
+from libllsm2_tpu_torch.ops import interp as tinterp
+from libllsm2_tpu_torch.ops import spectral as tspectral
+from libllsm2_tpu_torch.ops import warp as twarp
+from libllsm2_tpu_torch.ops import windows as twindows
+from libllsm2_tpu_torch.utils import testsig as ttestsig
+
+torch.set_num_threads(1)
+
+T = lambda a: torch.tensor(np.asarray(a, np.float32))
+
+
+def _cycles_close(a, b, atol):
+    """Mod-1 cycle tracks compared on the circle (0.999.. vs 0.000..)."""
+    d = np.asarray(a, np.float64) - np.asarray(b, np.float64)
+    d = d - np.round(d)
+    assert np.abs(d).max() <= atol, np.abs(d).max()
+
+
+@pytest.mark.parametrize("name", sorted(jwindows.COSINE_SERIES) + ["mltsine"])
+def test_windows_match(name):
+    rng = np.random.default_rng(0)
+    n = rng.uniform(-300, 300, (7, 91)).astype(np.float32)
+    hw = rng.uniform(2, 300, (7, 1)).astype(np.float32)
+    ref = jwindows.window_centered(name, jnp.asarray(n), jnp.asarray(hw))
+    got = twindows.window_centered(name, T(n), T(hw))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-6)
+    assert twindows.COSINE_SERIES == jwindows.COSINE_SERIES
+
+
+def test_interp_warp_periodogram_match():
+    rng = np.random.default_rng(1)
+    fp = rng.standard_normal((5, 32)).astype(np.float32)
+    pos = rng.uniform(-2, 35, 81).astype(np.float32)
+    ref = jax.vmap(lambda p: jinterp.interp1_uniform(p, jnp.asarray(pos)))(
+        jnp.asarray(fp))
+    np.testing.assert_allclose(tinterp.interp1_uniform(T(fp), T(pos)).numpy(),
+                               np.asarray(ref), atol=1e-6)
+
+    f = rng.uniform(0, 8000, 50).astype(np.float32)
+    np.testing.assert_allclose(
+        twarp.warp_frequency(T(f), 15000.0).numpy(),
+        np.asarray(jwarp.warp_frequency(jnp.asarray(f), 15000.0)), rtol=1e-6)
+    for npsd, nbin in ((128, 257), (32, 257), (32, 65)):
+        np.testing.assert_array_equal(
+            twarp.warped_band_matrix(npsd, nbin, 16000.0, 15000.0).numpy(),
+            np.asarray(jwarp.warped_band_matrix(npsd, nbin, 16000.0, 15000.0)))
+
+    for n in (1, 5, 320, 1024, 1025):
+        assert tspectral.next_pow2(n) == jspectral.next_pow2(n)
+    frames = rng.standard_normal((3, 9, 320)).astype(np.float32)
+    w = np.hanning(320).astype(np.float32)
+    ref = jspectral.periodogram(jnp.asarray(frames), jnp.asarray(w), 512)
+    got = tspectral.periodogram(T(frames), T(w), 512)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-4,
+                               atol=1e-5 * float(np.abs(ref).max()))
+
+
+def test_sample_cycles_frames_segments_match():
+    """sample_cycles against the JAX function over 100 hops, and over 1600
+    hops (the bench length: a float32 cumsum of hop totals would drift
+    ~1e-4 cycles there) against the float64 integral of the same F0
+    samples, on a batch of two tracks (one with an unvoiced tail); then
+    frame_hops in both padding modes and cycle_segments.
+
+    The JAX comparison stays short because the jitted JAX scan itself
+    drifts from the float64 integral on the CPU (~1e-5 cycles at 400 hops,
+    ~6e-5 at 1600), while the port stays within 1e-6."""
+    nhop, nfrm, fs = 80, 1600, 16000.0
+    nx = nhop * nfrm
+    f0 = np.stack([jtestsig.make_f0_track(nfrm, 0.005),
+                   jtestsig.make_f0_track(nfrm, 0.005, f0_base=210.0,
+                                          unvoiced_tail_frac=0.2)])
+    f0 = f0.astype(np.float32)
+    got = thm.sample_cycles(T(f0), nhop, fs, nx).numpy()
+    assert got.shape == (2, nx)
+    n_j = 100
+    ref = np.asarray(jax.jit(jhm.sample_cycles, static_argnums=(1, 2, 3))(
+        jnp.asarray(f0[0, :n_j]), nhop, fs, n_j * nhop))
+    _cycles_close(thm.sample_cycles(T(f0[:1, :n_j]), nhop, fs,
+                                    n_j * nhop)[0].numpy(), ref, 1e-5)
+    pos = np.arange(nx, dtype=np.float32) / nhop
+    i0 = np.clip(np.floor(pos).astype(np.int64), 0, nfrm - 2)
+    t = np.clip(pos - i0, 0.0, 1.0).astype(np.float64)
+    for b in range(2):
+        f0s = np.maximum(f0[b], 0.0).astype(np.float64)
+        c = np.cumsum((f0s[i0] * (1 - t) + f0s[i0 + 1] * t) / fs)
+        _cycles_close(got[b], np.concatenate([[0.0], c[:-1]]), 5e-6)
+
+    cyc = got[:, :300 * nhop]
+    x = np.random.default_rng(2).standard_normal(cyc.shape).astype(np.float32)
+    for arr, mode in ((x, "constant"), (cyc, "edge")):
+        ref = jhm.frame_hops(jnp.asarray(arr[1]), 300, nhop, 6, mode=mode)
+        got = thm.frame_hops(T(arr), 300, nhop, 6, mode=mode)
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(ref))
+    centers = np.arange(300, dtype=np.int32) * nhop
+    ref = jhm.cycle_segments(jnp.asarray(cyc[0]), jnp.asarray(centers), 37)
+    got = thm.cycle_segments(T(cyc), torch.tensor(centers, dtype=torch.int64),
+                             37)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("tail", [0.0, 0.3])
+def test_refine_f0_decimated_matches(tail):
+    """The port's refine is the JAX package's decimated branch (the one
+    use_pallas=True takes at 16 kHz)."""
+    conf = jconfig.ChunkConf(f0_floor=90.0)
+    rows = [jtestsig.make_test_utterance(duration=0.4, seed=s,
+                                         noise_level=nl,
+                                         unvoiced_tail_frac=tail)
+            for s, nl in ((0, 0.0), (3, 0.05))]
+    nhop, nfrm = conf.nhop, len(rows[0][1])
+    x = np.stack([r[0][:nfrm * nhop] for r in rows]).astype(np.float32)
+    f0 = np.stack([r[1] for r in rows]).astype(np.float32)
+    kw = dict(fs=conf.fs, halfwin_max=conf.halfwin_max,
+              rel_winsize=conf.rel_winsize, f0_ceil=conf.f0_ceil)
+    got = thm.refine_f0(T(x), T(f0), nhop=nhop, **kw).numpy()
+    centers = jnp.arange(nfrm, dtype=jnp.int32) * nhop
+    for b in range(2):
+        ref = np.asarray(jhm.refine_f0(jnp.asarray(x[b]), jnp.asarray(f0[b]),
+                                       centers, use_pallas=True, nhop=nhop,
+                                       **kw))
+        np.testing.assert_allclose(got[b], ref, rtol=1e-4)
+        assert np.all(got[b][f0[b] == 0] == 0)
+
+
+@pytest.mark.parametrize("fn,kw", [
+    ("formant_envelope", dict(f=np.linspace(0, 8000, 101))),
+    ("make_f0_track", dict(nfrm=200, thop=0.005, unvoiced_tail_frac=0.25)),
+    ("make_test_utterance", dict(duration=0.2, seed=5, noise_level=0.05,
+                                 return_parts=True)),
+    ("make_test_utterance", dict(duration=0.2, seed=2)),
+])
+def test_fixture_copies_are_exact(fn, kw):
+    ref = getattr(jtestsig, fn)(**kw)
+    got = getattr(ttestsig, fn)(**kw)
+    for r, g in zip(*(v if isinstance(v, tuple) else (v,)
+                      for v in (ref, got))):
+        np.testing.assert_array_equal(g, r)
+
+
+@pytest.mark.parametrize("name", ["ChunkConf", "AnalysisOptions",
+                                  "SynthesisOptions"])
+def test_config_fields_and_defaults_match(name):
+    jc, tc = getattr(jconfig, name), getattr(tconfig, name)
+    jf = [(f.name, f.default) for f in dataclasses.fields(jc)]
+    tf = [(f.name, f.default) for f in dataclasses.fields(tc)]
+    assert [n for n, _ in tf] == [n for n, _ in jf]
+    for (n, jd), (_, td) in zip(jf, tf):
+        if n == "conf":
+            assert dataclasses.asdict(td) == dataclasses.asdict(jd)
+        else:
+            assert td == jd, n
+    if name == "ChunkConf":
+        for conf_kw in ({}, dict(f0_floor=70.0), dict(fs=8000.0, fnyq=4000.0)):
+            j, t = jc(**conf_kw), tc(**conf_kw)
+            for p in ("nhop", "halfwin_max", "winlen_max", "nfft_spec",
+                      "nfft_noise", "chan_edges"):
+                assert getattr(t, p) == getattr(j, p), p
+    ja = jconfig.create_aoptions(fs=44100.0, maxnhar=40)
+    ta = tconfig.create_aoptions(fs=44100.0, maxnhar=40)
+    assert dataclasses.asdict(ta) == dataclasses.asdict(ja)
+
+
+def test_import_pulls_in_no_jax():
+    code = ("import sys, libllsm2_tpu_torch\n"
+            "from libllsm2_tpu_torch.models import layer0\n"
+            "from libllsm2_tpu_torch.parallel import corpus\n"
+            "from libllsm2_tpu_torch.utils import testsig\n"
+            "bad = [m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m.startswith('libllsm2_tpu.') "
+            "or m == 'libllsm2_tpu']\n"
+            "assert not bad, bad\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
