@@ -81,10 +81,11 @@ class ChunkConf:
 @dataclasses.dataclass(frozen=True)
 class AnalysisOptions:
     """Analysis configuration (reference: llsm.h -> llsm_aoptions).  The
-    port runs the configuration hm_method="czt", hm_passes=1,
-    hm_correction="deconv", track_denoise=False, track_lowpass_hz=0,
-    fs_input=0, frame_chunk=0, hm_kernel="rotation", use_pallas=True;
-    models/layer0.py raises NotImplementedError for any other value."""
+    port runs hm_method="czt", hm_passes=1, hm_correction="deconv",
+    fs_input=0, frame_chunk=0, hm_kernel="rotation", use_pallas=True, with
+    any setting of the track denoiser (track_denoise, its spectral gate at
+    any decimation) and of track_lowpass_hz; models/layer0.py raises
+    NotImplementedError for any other value of those seven."""
 
     conf: ChunkConf = ChunkConf()
     fs_input: float = 0.0        # input-signal rate if != conf.fs (0 = conf.fs)

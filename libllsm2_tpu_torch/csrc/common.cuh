@@ -28,6 +28,13 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// Sum over the warp, returned to every lane.
+__device__ __forceinline__ float warp_allsum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
 // Dynamic shared memory above the 48 KB default needs an opt-in per kernel.
 template <typename Kernel>
 inline cudaError_t allow_smem(Kernel k, size_t bytes) {

@@ -3,7 +3,8 @@ synthesis (counterpart of libllsm2_tpu/models/layer0.py; reference:
 layer0.c -> llsm_analyze / llsm_synthesize).
 
 Analysis: F0 refine, one batched pitch-synchronous chirped projection
-over all frames, the analytic amplitude-track deconvolution, a residual
+over all frames, the analytic amplitude-track deconvolution, the
+harmonic-track denoiser (or the opt-in track lowpass), a residual
 render, band envelopes by FFT with their envelope projection, and a
 warped periodogram.  Synthesis: an oscillator bank with overlap-add for
 the harmonic part, and a WOLA noise shaper for the noise part.  The
@@ -17,6 +18,7 @@ that brings them.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -47,11 +49,6 @@ def _check_analysis(opt: AnalysisOptions) -> None:
     if not opt.use_pallas:
         raise _unported("use_pallas=False (the JAX package's jnp branches)",
                         "Queue 1 item 11")
-    if opt.track_denoise and opt.track_lowpass_hz <= 0.0:
-        raise _unported("track_denoise=True (the library default)",
-                        "Queue 1 item 4, the track denoiser")
-    if opt.track_lowpass_hz > 0.0:
-        raise _unported("track_lowpass_hz > 0", "Queue 1 item 11")
     if opt.hm_method != "czt":
         raise _unported(f"hm_method={opt.hm_method!r}", "Queue 1 item 11")
     if opt.hm_passes != 1:
@@ -145,12 +142,25 @@ def _warped_psd(residual: torch.Tensor, nfrm: int,
     return pgram @ band_mat.T
 
 
-def _deconv_correction(opt: AnalysisOptions, f0, cyc, ampl, phse, mask):
+def _complex_handoff(opt: AnalysisOptions) -> bool:
+    """True where the deconvolution hands its raw complex track straight
+    to the track denoiser (layer0.py:865-867 of the JAX package): the
+    single-pass czt deconvolution followed by the denoiser, not the
+    lowpass."""
+    return (opt.hm_correction == "deconv" and opt.hm_passes <= 1
+            and opt.hm_method == "czt" and opt.track_denoise
+            and opt.track_lowpass_hz <= 0.0)
+
+
+def _deconv_correction(opt: AnalysisOptions, f0, cyc, ampl, phse, mask,
+                       return_complex: bool = False):
     """Analytic amplitude-track deconvolution (hm_correction="deconv"):
     one Neumann step c' <- 2c - S c on the phase-aligned complex tracks,
     S = the banded render+measure operator (temporal smoothing T and the
     k +- 1 AM-sideband coupling X).  f0 [B, N], cyc [B, nx], ampl/phse/mask
-    [B, N, K] -> corrected (ampl, phse)."""
+    [B, N, K] -> corrected (ampl, phse), or with return_complex the masked
+    complex track (re, im): the banded step mixes neighbour frames, so
+    dead slots are not exactly zero before the mask."""
     conf = opt.conf
     nhop = conf.nhop
     B, N, K = ampl.shape
@@ -171,8 +181,240 @@ def _deconv_correction(opt: AnalysisOptions, f0, cyc, ampl, phse, mask):
     c_re, c_im = kernels.deconv_full(ampl, phse, cyc[..., ::nhop][..., :N],
                                      halfwidth, torch.cos(ang),
                                      torch.sin(ang), D, nhop, stride)
+    if return_complex:
+        return c_re * mask, c_im * mask
     return (torch.sqrt(c_re ** 2 + c_im ** 2) * mask,
             torch.atan2(c_im, c_re) * mask)
+
+
+# ---------------------------------------------------------------------------
+# harmonic-track denoisers (JAX layer0.py:140-789, the Pallas branch)
+# ---------------------------------------------------------------------------
+
+def _hann_taps(M: int) -> np.ndarray:
+    """Normalized symmetric Hann FIR of M taps (np.hanning(M + 2)[1:-1])."""
+    w = np.hanning(M + 2)[1:-1]
+    return w / w.sum()
+
+
+def _aligned_track(ampl, phse, cyc_c):
+    """Phase-aligned complex tracks c'_k = a e^{j phi} e^{-2 pi j k cyc_c}
+    [B, N, K] and the alignment field e^{-2 pi j k cyc_c} (mod-1
+    phases)."""
+    kh = torch.arange(1, ampl.shape[-1] + 1, dtype=FP, device=ampl.device)
+    ph = kh * cyc_c[..., None]
+    ph = ph - torch.round(ph)
+    align = torch.polar(torch.ones_like(ph), -2.0 * math.pi * ph)
+    return torch.polar(ampl, phse) * align, align
+
+
+def _track_lowpass(conf: ChunkConf, f0, cyc_c, ampl, phse, mask,
+                   cutoff_hz: float):
+    """Opt-in track lowpass (AnalysisOptions.track_lowpass_hz): Hann FIR of
+    each harmonic's aligned complex track along frames, applied only where
+    the whole filter support is voiced.  f0, cyc_c [B, N]; ampl, phse,
+    mask [B, N, K] -> (ampl, phse)."""
+    frame_rate = 1.0 / conf.thop
+    M = int(round(frame_rate / cutoff_hz)) | 1          # odd tap count
+    w = _hann_taps(M)
+    c, align = _aligned_track(ampl, phse, cyc_c)
+    voiced = (f0 > 0).to(FP)[..., None]
+    guard = kernels._fir_frames(voiced, w) > 0.999      # [B, N, 1]
+    cs = torch.where(guard, kernels._fir_frames(c, w), c) * align.conj()
+    return torch.abs(cs) * mask, torch.angle(cs) * mask
+
+
+def _denoise_floor_stats(pp, cs2_m, r2, amp2_m, ok):
+    """Per-utterance floor statistics of the track denoiser: [B, N, K]
+    powers and the usable-slot mask ok -> (v [B, K] gate floor, wmul
+    [B, K] coherent-fit weights), every sum over one utterance's frames.
+    v is the Winsorized mean of pp over usable frames, zeroed with fewer
+    than 16 of them, below -35 dB of the slow power, or where the slow
+    track keeps under 10% of the raw energy; wmul drops noise-dominated
+    tracks from the fit (JAX layer0.py:329-365 says why)."""
+    zero = torch.zeros((), dtype=FP, device=pp.device)
+    osum = lambda t: torch.sum(torch.where(ok, t, zero), dim=1)
+    cnt = torch.sum(ok, dim=1).to(FP)
+    n_ok = torch.clamp(cnt, min=1.0)
+    v = osum(pp) / n_ok
+    for _ in range(3):
+        v = osum(torch.minimum(pp, 3.0 * v[:, None, :])) / n_ok
+    v = torch.where(cnt >= 16.0, v, zero)
+    p_bar = osum(cs2_m) / n_ok
+    v = torch.where(v > 10.0 ** -3.5 * p_bar, v, zero)
+    p_raw = osum(amp2_m) / n_ok
+    q = p_bar / torch.clamp(p_raw, min=1e-20)
+    v = torch.where(q > 0.1, v, zero)
+    f_k = osum(r2) / n_ok
+    wmul = torch.clamp(1.0 - 2.0 * f_k / torch.clamp(p_bar, min=1e-20),
+                       0.0, 1.0)
+    return v, wmul
+
+
+class _GateDFT(NamedTuple):
+    """Constant transforms of the decimated spectral gate."""
+    Wf: torch.Tensor       # [NPd, Nd] forward DFT
+    Whigh: torch.Tensor    # [H/2, N] every second probe-band bin, full rate
+    Wi: torch.Tensor       # [Nd, NPd] inverse DFT (1/NPd folded in)
+    n_high: int
+
+
+def _gate_sizes(N: int, D: int):
+    NP = 1 << max(int(N - 1).bit_length(), 4)
+    Nd = (N + D - 1) // D
+    NPd = 1 << max(int(Nd - 1).bit_length(), 4)
+    return NP, Nd, NPd
+
+
+@functools.lru_cache(maxsize=8)
+def _gate_dft(N: int, D: int, thop: float, cutoff_hz: float,
+              device: torch.device) -> _GateDFT:
+    """The decimated gate's DFT matrices, built once per shape and device
+    (Whigh alone is ~9 MB at N = 1600)."""
+    NP, Nd, NPd = _gate_sizes(N, D)
+    f_np = np.fft.fftfreq(NP, thop)
+    high_n = np.where(np.abs(f_np) > 2.0 * cutoff_hz)[0][::2]
+    mat = lambda a: torch.as_tensor(a.astype(np.complex64), device=device)
+    return _GateDFT(
+        Wf=mat(np.exp((-2j * np.pi / NPd)
+                      * np.outer(np.arange(NPd), np.arange(Nd)))),
+        Whigh=mat(np.exp((-2j * np.pi / NP)
+                         * np.outer(high_n, np.arange(N)))),
+        Wi=mat(np.exp((2j * np.pi / NPd)
+                      * np.outer(np.arange(Nd), np.arange(NPd))) / NPd),
+        n_high=len(high_n))
+
+
+def _spectral_gate(c_s, full, pp, guard, v, mask, thop: float,
+                   cutoff_hz: float, a_spec: float, decimate: int = 1):
+    """Per-frame-frequency-bin noise gate on the slow track (JAX
+    layer0.py:368-599, whose docstring gives the reasons): c_s, full
+    [B, N, K] complex (slow part; guarded c_s + r_inc), pp [B, N, K], guard
+    [B, N, 1] bool, v [B, K], mask [B, N, K] -> the aligned-domain
+    subtraction delta [B, N, K], zero on unguarded rows.  Every statistic
+    (probe level, engagement, noise profile, local blend) is taken within
+    one utterance.  decimate D > 1 gates at the frame rate / D by DFT
+    matmuls and block-lerps the delta back; D = 1 uses FFTs.  The products
+    run in complex64 (fp32, no TF32)."""
+    B, N, K = c_s.shape
+    D = max(int(decimate), 1)
+    zero = torch.zeros((), dtype=FP, device=c_s.device)
+    czero = torch.zeros((), dtype=c_s.dtype, device=c_s.device)
+    if D > 1:
+        mats = _gate_dft(N, D, float(thop), float(cutoff_hz), c_s.device)
+        sg_d = torch.where(guard[:, ::D], c_s[:, ::D], czero)   # [B, Nd, K]
+        Xs = torch.matmul(mats.Wf, sg_d)                         # [B, NPd, K]
+        X_high = torch.matmul(mats.Whigh, full)
+        lev_k = torch.sum(X_high.real ** 2 + X_high.imag ** 2, dim=1) \
+            / (float(max(mats.n_high, 1)) * D)
+    else:
+        NP = _gate_sizes(N, 1)[0]
+        hb = np.abs(np.fft.fftfreq(NP, thop)) > 2.0 * cutoff_hz
+        Xs = torch.fft.fft(torch.where(guard, c_s, czero), n=NP, dim=1)
+        Xfull = torch.fft.fft(full, n=NP, dim=1)
+        Pfull = Xfull.real ** 2 + Xfull.imag ** 2
+        hbt = torch.as_tensor(hb, device=c_s.device)[None, :, None]
+        lev_k = torch.sum(torch.where(hbt, Pfull, zero), dim=1) \
+            / float(max(hb.sum(), 1))
+    Ps = Xs.real ** 2 + Xs.imag ** 2
+    # engagement stricter than the time gate's: -15 dB of the slow power
+    gd = guard & (mask > 0)
+    n_gd = torch.clamp(torch.sum(gd, dim=1).to(FP), min=1.0)
+    p_bar = torch.sum(torch.where(gd, c_s.real ** 2 + c_s.imag ** 2, zero),
+                      dim=1) / n_gd
+    engaged = (v > 10.0 ** -1.5 * p_bar) & (mask != 0).any(dim=1)   # [B, K]
+    wk = engaged.to(FP)[:, None, :]
+    nwk = torch.sum(engaged.to(FP), dim=-1)                        # [B]
+    wsum = torch.clamp(nwk, min=1e-9)[:, None]
+    lev_safe = torch.where(engaged, torch.clamp(lev_k, min=1e-30),
+                           torch.ones_like(lev_k))
+    pn = Ps / lev_safe[:, None, :]
+    prof = torch.sum(pn * wk, dim=-1) / wsum                       # [B, NP]
+    for _ in range(3):                                             # Winsorize
+        cl = torch.minimum(pn, 3.0 * prof[..., None])
+        prof = torch.sum(cl * wk, dim=-1) / wsum
+    sm = 15                                                        # circular MA
+    prof = sum(torch.roll(prof, j - sm // 2, dims=1) for j in range(sm)) / sm
+    nf = lev_k[:, None, :] * prof[..., None]
+    g = torch.clamp(1.0 - a_spec * nf / (Ps + 1e-30), 0.0, 1.0)
+    # >= 3 noisy tracks for a usable profile; clean tracks untouched
+    use = (nwk >= 3.0)[:, None, None] & engaged[:, None, :]
+    g = torch.where(use, g, torch.ones_like(g))
+    if D > 1:
+        # inverse of the gated DIFFERENCE (g - 1) Xs, so transform rounding
+        # stays relative to the delta; block-lerp back to the frame rate
+        delta_d = torch.matmul(mats.Wi, (g - 1.0) * Xs)           # [B, Nd, K]
+        nxt = torch.cat([delta_d[:, 1:], delta_d[:, -1:]], dim=1)
+        wts = (torch.arange(D, dtype=FP, device=c_s.device) / D)[:, None]
+        up = delta_d[:, :, None] * (1.0 - wts) + nxt[:, :, None] * wts
+        s_dn = c_s + up.reshape(B, -1, K)[:, :N]
+    else:
+        s_dn = torch.fft.ifft(g * Xs, dim=1)[:, :N]
+
+    # local-noisiness blend: frame-smoothed probe power against the floor
+    M = int(round(1.0 / (thop * cutoff_hz))) | 1
+    okf = gd.to(FP)
+    if D > 1:
+        BB = 2 * D
+        Nb = -(-N // BB)
+        bmean = lambda a: torch.nn.functional.pad(
+            a, (0, 0, 0, Nb * BB - N)).reshape(B, Nb, BB, K).mean(dim=2)
+        MB = max(int(round(M / BB)), 1) | 1
+        wb = _hann_taps(MB)
+        lp_b = kernels._fir_frames(bmean(pp * okf), wb) \
+            / torch.clamp(kernels._fir_frames(bmean(okf), wb), min=1e-9)
+        lp = torch.repeat_interleave(lp_b, BB, dim=1)[:, :N]
+    else:
+        wl = _hann_taps(M)
+        lp = kernels._fir_frames(pp * okf, wl) \
+            / torch.clamp(kernels._fir_frames(okf, wl), min=1e-9)
+    w_loc = torch.clamp(3.0 * lp / torch.clamp(v[:, None, :], min=1e-30)
+                        - 0.5, 0.0, 1.0)
+    return torch.where(guard, w_loc * (s_dn - c_s), czero)
+
+
+def _track_denoise(conf: ChunkConf, f0, cyc_c, ampl, phse, mask,
+                   cutoff_hz: float, strength: float, *,
+                   spectral: bool = False, a_spec: float = 3.0,
+                   spec_decimate: int = 1, c_complex=None):
+    """The dynamics-adaptive harmonic-track denoiser (AnalysisOptions.
+    track_denoise; the JAX Pallas branch, layer0.py:648-702): pass A
+    (kernels.denoise_stats), the per-utterance floor statistics, pass B
+    (kernels.denoise_apply) and, with `spectral`, the per-bin gate on the
+    slow track.  f0, cyc_c [B, N]; ampl, phse, mask [B, N, K] ->
+    (ampl, phse).  c_complex: the raw complex track (re, im) from
+    _deconv_correction(return_complex=True); ampl and phse are then
+    ignored."""
+    frame_rate = 1.0 / conf.thop
+    M = int(round(frame_rate / cutoff_hz)) | 1          # odd tap count
+    Mp = int(round(frame_rate / (2.0 * cutoff_hz))) | 1
+    taps1, taps2 = tuple(_hann_taps(M)), tuple(_hann_taps(Mp))
+    voiced = (f0 > 0).to(FP)
+    if c_complex is not None:
+        (pp, cs2, r2, guard, cre, cim, csr, csi) = kernels.denoise_stats(
+            c_complex[0], c_complex[1], cyc_c, mask, voiced, taps1, taps2,
+            complex_input=True)
+        amp2_m = (cre * cre + cim * cim) * mask
+    else:
+        (pp, cs2, r2, guard, cre, cim, csr, csi) = kernels.denoise_stats(
+            ampl, phse, cyc_c, mask, voiced, taps1, taps2)
+        amp2_m = ampl * ampl * mask
+    ok = guard[..., None] & (mask > 0)
+    v, wmul = _denoise_floor_stats(pp, cs2 * mask, r2, amp2_m, ok)
+    if not spectral:
+        re, im = kernels.denoise_apply(cre, cim, csr, csi, cyc_c, mask, guard,
+                                       v, wmul, float(strength))
+        return torch.sqrt(re * re + im * im) * mask, torch.atan2(im, re) * mask
+    re, im, fullr, fulli, ur, ui = kernels.denoise_apply(
+        cre, cim, csr, csi, cyc_c, mask, guard, v, wmul, float(strength),
+        emit_resid=True)
+    delta = _spectral_gate(torch.complex(csr, csi), torch.complex(fullr, fulli),
+                           pp, guard[..., None], v, mask, conf.thop,
+                           cutoff_hz, a_spec, decimate=spec_decimate)
+    outr = re + delta.real * ur - delta.imag * ui
+    outi = im + delta.real * ui + delta.imag * ur
+    return (torch.sqrt(outr * outr + outi * outi) * mask,
+            torch.atan2(outi, outr) * mask)
 
 
 def _moving_sum(v: torch.Tensor, S: int) -> torch.Tensor:
@@ -229,8 +471,24 @@ def _analyze(opt: AnalysisOptions, x: torch.Tensor,
         halfwin_max=conf.halfwin_max, rel_winsize=conf.rel_winsize,
         fnyq=conf.fnyq)
 
-    # residual: deconvolve the track smoothing, subtract the harmonic part
-    ampl, phse = _deconv_correction(opt, f0, cyc, ampl, phse, mask)
+    # residual: deconvolve the track smoothing (handing the complex track
+    # to the denoiser), denoise, subtract the harmonic part
+    cplx = None
+    if _complex_handoff(opt):
+        cplx = _deconv_correction(opt, f0, cyc, ampl, phse, mask,
+                                  return_complex=True)
+    else:
+        ampl, phse = _deconv_correction(opt, f0, cyc, ampl, phse, mask)
+    cyc_c = cyc[..., ::nhop][..., :nfrm]
+    if opt.track_denoise and opt.track_lowpass_hz <= 0.0:
+        ampl, phse = _track_denoise(
+            conf, f0, cyc_c, ampl, phse, mask, opt.track_denoise_hz,
+            opt.track_denoise_strength, spectral=opt.track_denoise_spectral,
+            a_spec=opt.track_spectral_strength,
+            spec_decimate=opt.track_spectral_decimate, c_complex=cplx)
+    if opt.track_lowpass_hz > 0.0:
+        ampl, phse = _track_lowpass(conf, f0, cyc_c, ampl, phse, mask,
+                                    opt.track_lowpass_hz)
     segs = harmonics.oscillator_bank(cyc, ampl, phse, mask, nhop=nhop)
     residual = x - harmonics.overlap_add_half(segs, nhop, nx)
 

@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels (csrc/*.cu).
 
-The sources are compiled with nvcc for sm_90a (Hopper) into ONE shared
-library with a plain C interface and loaded with ctypes -- no PyTorch
-headers, so the build takes seconds.  The library goes to
-``build/kernels/`` beside the package (listed in .gitignore), named by a
-hash of the sources and flags, so an edited source rebuilds and an
-unchanged one is reused.  Nothing here runs at import time.
+Each source is compiled by its own nvcc process for sm_90a (Hopper), all
+started together, and the objects are linked into ONE shared library with
+a plain C interface, loaded with ctypes -- no PyTorch headers, so the
+build takes seconds.  The library goes to ``build/kernels/`` beside the
+package (listed in .gitignore), named by a hash of the sources and flags,
+so an edited source rebuilds and an unchanged one is reused.  Nothing
+here runs at import time.
 """
 from __future__ import annotations
 
@@ -18,8 +19,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -40,6 +41,14 @@ SIGNATURES = {
     # cyc, edc, ar, ai, base, segs, y, B, N, nhop, C, Ke, stream
     "llsm_noise_mod_ola": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                            _P),
+    # a, p, cyc_c, mask, voiced, pp, gd, cre, cim, csr, csi, B, N, K,
+    # taps1 (host), n1, taps2 (host), n2, complex_input, stream
+    "llsm_denoise_stats": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                           _I, _I, _P, _I, _P, _I, _I, _P),
+    # v, wmul, cre, cim, csr, csi, cyc_c, mask, guard, o_r, o_i, fr, fi,
+    # ur, ui, B, N, K, strength, emit, stream
+    "llsm_denoise_apply": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _P, _P, _P, _I, _I, _I, _F, _I, _P),
 }
 
 _lib = None
@@ -55,6 +64,22 @@ def _nvcc() -> str:
                        "toolkit (PATH or CUDA_HOME)")
 
 
+def _run_all(cmds) -> None:
+    """Run the commands in parallel; raise with the first failure's
+    stderr."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
     global _lib
@@ -68,13 +93,19 @@ def library() -> ctypes.CDLL:
     out = BUILD_DIR / f"libllsm2_kernels_{h.hexdigest()[:16]}.so"
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{' '.join(cmd)}\n{res.stderr}")
-        os.replace(tmp, out)
+        tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
+        objs = [BUILD_DIR / f"{s.stem}.{tag}.o" for s in sources]
+        nvcc = _nvcc()
+        try:
+            _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+                      for s, o in zip(sources, objs)])
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            _run_all([[nvcc, *ARCH, "-shared", "-o", str(tmp),
+                       *map(str, objs)]])
+            os.replace(tmp, out)
+        finally:
+            for o in objs:
+                o.unlink(missing_ok=True)
     lib = ctypes.CDLL(str(out))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)

@@ -15,8 +15,10 @@ its design answers that.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 
+import numpy as np
 import torch
 
 from ..fp import CP, FP
@@ -24,7 +26,7 @@ from . import _build
 from .windows import COSINE_SERIES, window_centered
 
 LAUNCHES = {"osc_bank": 0, "harmonic_project_win": 0, "deconv_full": 0,
-            "noise_mod_ola": 0}
+            "noise_mod_ola": 0, "denoise_stats": 0, "denoise_apply": 0}
 
 # frames per chunk of the plain versions: bounds their [frames, K, T]
 # temporaries to ~64 MB at any input size
@@ -333,3 +335,192 @@ def noise_mod_ola_ref(cyc, edc, ar, ai, base, segs):
         band = overlap_add_half(segs[:, c], nhop, nx)
         y = y + band * (env[:, c] / base_s[:, c])
     return y
+
+
+# ---------------------------------------------------------------------------
+# 7./8. track denoiser, pass A and pass B (pallas_osc.denoise_stats_pallas,
+#       pallas_osc.denoise_apply_pallas)
+# ---------------------------------------------------------------------------
+
+# frames per block of csrc/denoise_stats.cu (its kTile); the FIR halo
+# h1 + 2 h2 must stay under it, as under the TPU kernel's frame block
+_DENOISE_TILE = 32
+_DENOISE_MAX_TAPS = 31
+
+
+def _taps32(taps) -> tuple:
+    """FIR taps rounded to float32, as the kernels (and the Pallas kernel's
+    Python-float constants) apply them."""
+    return tuple(float(t) for t in np.asarray(taps, dtype=np.float32))
+
+
+def _fir_frames(v: torch.Tensor, taps) -> torch.Tensor:
+    """Zero-padded FIR along the frame axis (dim 1) with centered taps,
+    applied in float32."""
+    h = len(taps) // 2
+    out = torch.zeros_like(v)
+    for j, t in enumerate(_taps32(taps)):
+        out = out + t * _shift_frames(v, j - h)
+    return out
+
+
+def _coherent_fit(cre, cim, csr, csi, w):
+    """Per-row weighted least-squares fit of the fast residual r = c - c_s
+    across k, r ~ (m0 + m1 k) c_s, weights w [B, N, K] -> (rcr, rci) the
+    coherent part and (rir, rii) the incoherent rest (pallas_osc.py:965-987
+    and :1063-1087; the ridge keeps near-singular rows finite)."""
+    kh = torch.arange(1, cre.shape[-1] + 1, dtype=FP, device=cre.device)
+    rr = cre - csr
+    ri = cim - csi
+    p = (csr * csr + csi * csi) * w
+    crr = (csr * rr + csi * ri) * w       # Re(conj(c_s) r)
+    cri = (csr * ri - csi * rr) * w       # Im(conj(c_s) r)
+    s = lambda t: torch.sum(t, dim=-1, keepdim=True)
+    a00, a01, a11 = s(p), s(kh * p), s(kh * kh * p)
+    b0r, b0i, b1r, b1i = s(crr), s(cri), s(kh * crr), s(kh * cri)
+    det = a00 * a11 - a01 * a01
+    inv = 1.0 / (det + 1e-5 * a00 * a11 + 1e-12)
+    m0r = (a11 * b0r - a01 * b1r) * inv
+    m0i = (a11 * b0i - a01 * b1i) * inv
+    m1r = (a00 * b1r - a01 * b0r) * inv
+    m1i = (a00 * b1i - a01 * b0i) * inv
+    wr = m0r + m1r * kh
+    wi = m0i + m1i * kh
+    rcr = wr * csr - wi * csi
+    rci = wr * csi + wi * csr
+    return rcr, rci, rr - rcr, ri - rci
+
+
+def denoise_stats(a: torch.Tensor, p: torch.Tensor, cyc_c: torch.Tensor,
+                  mask: torch.Tensor, voiced: torch.Tensor, taps1, taps2, *,
+                  complex_input: bool = False):
+    """Pass A of the track denoiser on a batch of utterances: a, p
+    [B, N, K] = (ampl, phse), or the raw complex track (re, im) with
+    complex_input=True; cyc_c [B, N] mod-1 cycle at the frame centers;
+    mask [B, N, K]; voiced [B, N]; taps1 (slow-track FIR) and taps2 (probe
+    FIR) odd-length sequences.  Returns (pp, cs2, r2, guard, cre, cim, csr,
+    csi): the probe-band incoherent power, |c_s|^2, |c - c_s|^2, the voicing
+    guard [B, N] (bool), the aligned track c and its slow part c_s, all
+    [B, N, K].  Frames beyond either end of an utterance enter as zeros;
+    their intermediates (c_s, r_inc = -c_s) reach the probe FIR of the
+    last h2 frames, as in the Pallas kernel."""
+    t1, t2 = _taps32(taps1), _taps32(taps2)
+    if max(len(t1), len(t2)) > _DENOISE_MAX_TAPS \
+            or len(t1) // 2 + 2 * (len(t2) // 2) >= _DENOISE_TILE:
+        raise ValueError(f"denoise_stats: FIR halo of {len(t1)} + {len(t2)} "
+                         f"taps exceeds the {_DENOISE_TILE}-frame tile")
+    if not _on_cuda(a, p, cyc_c, mask, voiced):
+        return denoise_stats_ref(a, p, cyc_c, mask, voiced, t1, t2,
+                                 complex_input=complex_input)
+    B, N, K = a.shape
+    if p.shape != (B, N, K) or mask.shape != (B, N, K) \
+            or cyc_c.shape != (B, N) or voiced.shape != (B, N):
+        raise ValueError("denoise_stats: shape mismatch")
+    a, p, cyc_c, mask, voiced = map(_f32, (a, p, cyc_c, mask, voiced))
+    dev = a.device
+    pp, cre, cim, csr, csi = (torch.empty((B, N, K), dtype=FP, device=dev)
+                              for _ in range(5))
+    gd = torch.empty((B, N), dtype=FP, device=dev)
+    c1 = (ctypes.c_float * len(t1))(*t1)
+    c2 = (ctypes.c_float * len(t2))(*t2)
+    ptrs = (t.data_ptr() for t in (a, p, cyc_c, mask, voiced, pp, gd, cre,
+                                   cim, csr, csi))
+    _launch("denoise_stats", *ptrs, B, N, K, ctypes.addressof(c1), len(t1),
+            ctypes.addressof(c2), len(t2), int(complex_input), _stream(a))
+    cs2 = csr * csr + csi * csi
+    r2 = (cre - csr) ** 2 + (cim - csi) ** 2
+    return pp, cs2, r2, gd > 0.5, cre, cim, csr, csi
+
+
+def denoise_stats_ref(a, p, cyc_c, mask, voiced, taps1, taps2, *,
+                      complex_input=False):
+    """Plain version of denoise_stats (_denoise_body and
+    _denoise_stats_kernel, pallas_osc.py:885-1040): the utterances are
+    zero-extended by h1 + h2 frames at both ends, which is what the Pallas
+    kernel's zero halo gives."""
+    B, N, K = a.shape
+    t1, t2 = _taps32(taps1), _taps32(taps2)
+    h1, h2 = len(t1) // 2, len(t2) // 2
+    e = h1 + h2
+    pad = lambda t: torch.nn.functional.pad(t.to(FP), (0, 0, e, e))
+    a_e, p_e, m_e = pad(a), pad(p), pad(mask)                 # [B, N+2e, K]
+    cy_e, vo_e = pad(cyc_c[..., None]), pad(voiced[..., None])
+    kh = torch.arange(1, K + 1, dtype=FP, device=a.device)
+    if complex_input:
+        ph = -cy_e * kh
+        ph = ph - torch.round(ph)
+        ang = 2.0 * math.pi * ph
+        ar, ai = torch.cos(ang), torch.sin(ang)
+        cre_all = a_e * ar - p_e * ai
+        cim_all = a_e * ai + p_e * ar
+    else:
+        ph = p_e / (2.0 * math.pi) - cy_e * kh
+        ph = ph - torch.round(ph)
+        ang = 2.0 * math.pi * ph
+        cre_all = a_e * torch.cos(ang)
+        cim_all = a_e * torch.sin(ang)
+    ext = lambda t: t[:, h1:h1 + N + 2 * h2]      # frames [-h2, N + h2)
+    csr, csi = ext(_fir_frames(cre_all, t1)), ext(_fir_frames(cim_all, t1))
+    guard = ext(_fir_frames(vo_e, t1)) > 0.999
+    cre, cim = ext(cre_all), ext(cim_all)
+    _, _, rir, rii = _coherent_fit(cre, cim, csr, csi, ext(m_e))
+    core = lambda t: t[:, h2:h2 + N]
+    prr = core(rir - _fir_frames(rir, t2))
+    pri = core(rii - _fir_frames(rii, t2))
+    cre, cim, csr, csi = core(cre), core(cim), core(csr), core(csi)
+    cs2 = csr * csr + csi * csi
+    r2 = (cre - csr) ** 2 + (cim - csi) ** 2
+    return (prr * prr + pri * pri, cs2, r2, core(guard)[..., 0], cre, cim,
+            csr, csi)
+
+
+def denoise_apply(cre: torch.Tensor, cim: torch.Tensor, csr: torch.Tensor,
+                  csi: torch.Tensor, cyc_c: torch.Tensor, mask: torch.Tensor,
+                  guard: torch.Tensor, v: torch.Tensor, wmul: torch.Tensor,
+                  strength: float, *, emit_resid: bool = False):
+    """Pass B of the track denoiser: pass A's aligned track (cre, cim) and
+    slow track (csr, csi) [B, N, K], cyc_c [B, N], mask [B, N, K], guard
+    [B, N], the per-utterance floor v and fit weights wmul [B, K] -> the
+    gated, un-aligned complex harmonics (re, im) [B, N, K]: the coherent
+    fit weighted by wmul, the Wiener gate g = clip(1 - strength v /
+    |r_inc|^2, 0, 1) on the incoherent residual, the raw track where the
+    guard fails.  emit_resid=True also returns where(guard, c_s + r_inc,
+    0) as (full_r, full_i) and the un-align factors (ur, ui)."""
+    if not _on_cuda(cre, cim, csr, csi, cyc_c, mask, guard, v, wmul):
+        return denoise_apply_ref(cre, cim, csr, csi, cyc_c, mask, guard, v,
+                                 wmul, strength, emit_resid=emit_resid)
+    B, N, K = cre.shape
+    if any(t.shape != (B, N, K) for t in (cim, csr, csi, mask)) \
+            or cyc_c.shape != (B, N) or guard.shape != (B, N) \
+            or v.shape != (B, K) or wmul.shape != (B, K):
+        raise ValueError("denoise_apply: shape mismatch")
+    ins = tuple(map(_f32, (v, wmul, cre, cim, csr, csi, cyc_c, mask, guard)))
+    outs = tuple(torch.empty((B, N, K), dtype=FP, device=cre.device)
+                 for _ in range(6 if emit_resid else 2))
+    ptrs = [t.data_ptr() for t in ins + outs] + [None] * (6 - len(outs))
+    _launch("denoise_apply", *ptrs, B, N, K, float(strength),
+            int(emit_resid), _stream(cre))
+    return outs
+
+
+def denoise_apply_ref(cre, cim, csr, csi, cyc_c, mask, guard, v, wmul,
+                      strength, *, emit_resid=False):
+    """Plain version of denoise_apply (_denoise_apply_body and its two
+    kernels, pallas_osc.py:1043-1139)."""
+    g = (guard if guard.dtype == torch.bool else guard > 0.5)[..., None]
+    rcr, rci, rir, rii = _coherent_fit(cre, cim, csr, csi,
+                                       wmul[:, None, :] * mask)
+    pw = rir * rir + rii * rii
+    gain = torch.clamp(1.0 - strength * v[:, None, :] / (pw + 1e-20),
+                       0.0, 1.0)
+    outr = torch.where(g, csr + rcr + gain * rir, cre)
+    outi = torch.where(g, csi + rci + gain * rii, cim)
+    kh = torch.arange(1, cre.shape[-1] + 1, dtype=FP, device=cre.device)
+    ua = 2.0 * math.pi * _phase_cycles(kh, cyc_c[..., None])
+    ur, ui = torch.cos(ua), torch.sin(ua)
+    out = (outr * ur - outi * ui, outr * ui + outi * ur)
+    if not emit_resid:
+        return out
+    zero = torch.zeros_like(csr)
+    return out + (torch.where(g, csr + rir, zero),
+                  torch.where(g, csi + rii, zero), ur, ui)

@@ -1,0 +1,160 @@
+"""On a CUDA card only: each of the port's hand-written kernels against its
+plain PyTorch twin on the card, and its launch counted.  Elsewhere every
+test here skips.  The file imports neither jax nor the JAX package (the
+card's machine has neither), and holds the random-input generators that
+the CPU parity tests share with it.  Run on the card without the
+repository's jax-importing conftest:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -m requires_cuda
+"""
+import numpy as np
+import pytest
+import torch
+
+from libllsm2_tpu_torch.models import layer0 as tl0
+from libllsm2_tpu_torch.ops import kernels
+
+T = lambda a: torch.tensor(np.asarray(a))
+N = 300   # ragged: three 128-frame blocks of the TPU kernels, the last partial
+# the default path's denoiser taps: 15 Hz split at a 5 ms hop -> M = 13, Mp = 7
+TAPS1, TAPS2 = tuple(tl0._hann_taps(13)), tuple(tl0._hann_taps(7))
+STATS_NAMES = ("pp", "cs2", "r2", "guard", "cre", "cim", "csr", "csi")
+
+
+def _osc_inputs(K, notch):
+    rng = np.random.default_rng(K + notch)
+    dc = rng.uniform(-0.5, 0.5, (N, 160)).astype(np.float32)
+    ampl = rng.uniform(0, 1, (N, K)).astype(np.float32)
+    phse = rng.uniform(-3, 3, (N, K)).astype(np.float32)
+    top = rng.integers(1, K + 1, N)
+    mask = (np.arange(K)[None, :] < top[:, None]).astype(np.float32)
+    if notch:                      # edited chunks notch interior slots
+        mask[:, 2] = 0.0
+        mask[::3, top[0] // 2] = 0.0
+    kl = (np.arange(1, K + 1)[None, :] * (mask > 0)).max(-1).astype(np.int32)
+    return dc, ampl, phse, mask, kl
+
+
+def _proj_inputs(K, W, seed):
+    rng = np.random.default_rng(seed)
+    C = W // 2
+    dc = rng.uniform(-1, 1, (N, W)).astype(np.float32)
+    fr = rng.standard_normal((N, W)).astype(np.float32)
+    hw = rng.uniform(2.0, C - 1, N).astype(np.float32)
+    hw_int = np.ceil(hw).astype(np.int32)
+    return dc, fr, hw, C - hw_int, C + hw_int + 1, C
+
+
+def _stats_inputs(Nf, K, seed, complex_input):
+    """One utterance of denoise_stats inputs (a, p, cyc_c, mask, voiced):
+    mod-1 cycles, ~10% dead slots, unvoiced at both ends."""
+    rng = np.random.default_rng(seed)
+    ampl = rng.uniform(0.0, 1.0, (Nf, K)).astype(np.float32)
+    phse = rng.uniform(-3.1, 3.1, (Nf, K)).astype(np.float32)
+    cyc_c = (np.cumsum(rng.uniform(0.4, 0.6, Nf)) % 1.0).astype(np.float32)
+    mask = (rng.uniform(size=(Nf, K)) > 0.1).astype(np.float32)
+    voiced = ((np.arange(Nf) >= 5) & (np.arange(Nf) < int(0.85 * Nf))
+              ).astype(np.float32)
+    if complex_input:
+        ampl, phse = ampl * np.cos(phse), ampl * np.sin(phse)
+    return ampl * mask, phse * mask, cyc_c, mask, voiced
+
+
+def _apply_inputs(B, Nf, K, seed):
+    """denoise_apply inputs of B utterances, each with its own v and wmul."""
+    rng = np.random.default_rng(seed)
+    c = [rng.standard_normal((B, Nf, K)).astype(np.float32) for _ in range(4)]
+    c[2] = c[0] + 0.3 * c[2]          # slow track near the track
+    c[3] = c[1] + 0.3 * c[3]
+    cyc_c = rng.uniform(0, 1, (B, Nf)).astype(np.float32)
+    mask = (rng.uniform(size=(B, Nf, K)) > 0.1).astype(np.float32)
+    guard = rng.uniform(size=(B, Nf)) > 0.2
+    v = rng.uniform(0.0, 0.05, (B, K)).astype(np.float32)
+    v[:, ::5] = 0.0
+    wmul = np.clip(rng.uniform(-0.2, 1.2, (B, K)), 0, 1).astype(np.float32)
+    return (*c, cyc_c, mask, guard, v, wmul)
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc (CUDA kernels have no CPU "
+                    "or interpret mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.requires_cuda
+def test_cuda_kernels_match_plain_on_card():
+    """The four kernels of the denoiser-off path."""
+    dev = _card()
+    kernels.reset_launches()
+    dc, ampl, phse, mask, kl = (T(a).to(dev) for a in _osc_inputs(80, True))
+    torch.testing.assert_close(kernels.osc_bank(dc, ampl, phse, mask, kl),
+                               kernels.osc_bank_ref(dc, ampl, phse, mask, kl),
+                               atol=2e-4, rtol=0)
+    dc, fr, hw, lo, hi, C = _proj_inputs(80, 960, 3)
+    args = [T(a).to(dev) for a in (dc, fr, hw)]
+    lo, hi = T(lo).to(dev), T(hi).to(dev)
+    kl = torch.randint(0, 80, (N,), device=dev, dtype=torch.int32)
+    for g, r in zip(kernels.harmonic_project_win(*args, 80, lo, hi, center=C,
+                                                 kl=kl),
+                    kernels.harmonic_project_win_ref(*args, 80, lo, hi,
+                                                     center=C, kl=kl)):
+        torch.testing.assert_close(g, r, atol=2e-3, rtol=1e-5)
+    a = torch.rand(2, N, 80, device=dev)
+    cyc_c, hw = torch.rand(2, N, device=dev), 30 + 400 * torch.rand(2, N, device=dev)
+    ang = 6.3 * torch.rand(2, N, 20, device=dev)
+    d_args = (a, 6 * a - 3, cyc_c, hw, torch.cos(ang), torch.sin(ang), 7, 80, 8)
+    for g, r in zip(kernels.deconv_full(*d_args), kernels.deconv_full_ref(*d_args)):
+        torch.testing.assert_close(g, r, atol=5e-4, rtol=0)
+    e = torch.rand(2, N, 4, device=dev)
+    n_args = (torch.rand(2, N * 80, device=dev), e, 0.3 * torch.rand(2, N, 4, 4, device=dev),
+              0.3 * torch.rand(2, N, 4, 4, device=dev), e + 0.5,
+              torch.randn(2, 4, N, 160, device=dev))
+    torch.testing.assert_close(kernels.noise_mod_ola(*n_args),
+                               kernels.noise_mod_ola_ref(*n_args),
+                               atol=5e-5, rtol=0)
+    assert {k: kernels.LAUNCHES[k] for k in
+            ("osc_bank", "harmonic_project_win", "deconv_full",
+             "noise_mod_ola")} == {"osc_bank": 1, "harmonic_project_win": 1,
+                                   "deconv_full": 1, "noise_mod_ola": 1}
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("complex_input", [True, False])
+def test_denoise_stats_kernel_matches_plain_on_card(complex_input):
+    """Two utterances of 1600 frames (the bench length), K = 80.  The
+    kernel reduces k*cyc mod 1 with the product's rounding error added
+    back, the twin as the Pallas kernel does: ~1e-5 apart at k = 80."""
+    dev = _card()
+    ins = [np.stack(v) for v in zip(*(_stats_inputs(1600, 80, s, complex_input)
+                                      for s in (1, 2)))]
+    args = [T(v).to(dev) for v in ins]
+    kernels.reset_launches()
+    got = kernels.denoise_stats(*args, TAPS1, TAPS2,
+                                complex_input=complex_input)
+    ref = kernels.denoise_stats_ref(*args, TAPS1, TAPS2,
+                                    complex_input=complex_input)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["denoise_stats"] == 1
+    for name, g, r in zip(STATS_NAMES, got, ref):
+        if name == "guard":
+            assert torch.equal(g, r)
+        else:
+            torch.testing.assert_close(g, r, atol=2e-4, rtol=1e-3, msg=name)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("emit_resid", [False, True])
+def test_denoise_apply_kernel_matches_plain_on_card(emit_resid):
+    dev = _card()
+    args = [T(v).to(dev) for v in _apply_inputs(2, 1600, 80, 3)]
+    kernels.reset_launches()
+    got = kernels.denoise_apply(*args, 8.0, emit_resid=emit_resid)
+    ref = kernels.denoise_apply_ref(*args, 8.0, emit_resid=emit_resid)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["denoise_apply"] == 1
+    assert len(got) == (6 if emit_resid else 2)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, atol=2e-4, rtol=1e-4)

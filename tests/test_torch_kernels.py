@@ -1,7 +1,8 @@
 """The plain PyTorch versions of the port's four CUDA kernels against the
 JAX package's Pallas kernels (interpret mode on the CPU), on identical
-numpy inputs; the CPU dispatch; and, on a CUDA card only, each kernel
-against its plain version.  Tolerances are test_pallas.py's."""
+numpy inputs, and the CPU dispatch; test_torch_cuda.py holds each kernel
+against its plain version on a CUDA card.  Tolerances are
+test_pallas.py's."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,22 +16,7 @@ from libllsm2_tpu_torch.ops import harmonics as thm
 
 torch.set_num_threads(1)
 
-T = lambda a: torch.tensor(np.asarray(a))
-N = 300   # ragged: three 128-frame blocks of the TPU kernels, the last partial
-
-
-def _osc_inputs(K, notch):
-    rng = np.random.default_rng(K + notch)
-    dc = rng.uniform(-0.5, 0.5, (N, 160)).astype(np.float32)
-    ampl = rng.uniform(0, 1, (N, K)).astype(np.float32)
-    phse = rng.uniform(-3, 3, (N, K)).astype(np.float32)
-    top = rng.integers(1, K + 1, N)
-    mask = (np.arange(K)[None, :] < top[:, None]).astype(np.float32)
-    if notch:                      # edited chunks notch interior slots
-        mask[:, 2] = 0.0
-        mask[::3, top[0] // 2] = 0.0
-    kl = (np.arange(1, K + 1)[None, :] * (mask > 0)).max(-1).astype(np.int32)
-    return dc, ampl, phse, mask, kl
+from test_torch_cuda import N, T, _osc_inputs, _proj_inputs
 
 
 @pytest.mark.parametrize("K,notch", [(24, False), (80, False), (80, True)])
@@ -40,16 +26,6 @@ def test_osc_bank_plain_matches_pallas(K, notch):
                                      kl=jnp.asarray(kl))
     got = kernels.osc_bank(*map(T, (dc, ampl, phse, mask, kl)))
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=2e-4)
-
-
-def _proj_inputs(K, W, seed):
-    rng = np.random.default_rng(seed)
-    C = W // 2
-    dc = rng.uniform(-1, 1, (N, W)).astype(np.float32)
-    fr = rng.standard_normal((N, W)).astype(np.float32)
-    hw = rng.uniform(2.0, C - 1, N).astype(np.float32)
-    hw_int = np.ceil(hw).astype(np.int32)
-    return dc, fr, hw, C - hw_int, C + hw_int + 1, C
 
 
 @pytest.mark.parametrize("K,W,skip", [(24, 960, True), (80, 960, True),
@@ -175,42 +151,3 @@ def test_cpu_tensors_never_reach_the_kernels(monkeypatch):
                           a[..., :2, None], a[..., :2] + 1,
                           torch.rand(1, 2, 40, 16))
     assert all(v == 0 for v in kernels.LAUNCHES.values()), kernels.LAUNCHES
-
-
-@pytest.mark.requires_cuda
-def test_cuda_kernels_match_plain_on_card():
-    """On the card: each kernel against its plain version on the card,
-    and its launch counted (run: pytest -m requires_cuda)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card and nvcc (CUDA kernels have no CPU "
-                    "or interpret mode)")
-    dev = torch.device("cuda")
-    kernels.reset_launches()
-    dc, ampl, phse, mask, kl = (T(a).to(dev) for a in _osc_inputs(80, True))
-    torch.testing.assert_close(kernels.osc_bank(dc, ampl, phse, mask, kl),
-                               kernels.osc_bank_ref(dc, ampl, phse, mask, kl),
-                               atol=2e-4, rtol=0)
-    dc, fr, hw, lo, hi, C = _proj_inputs(80, 960, 3)
-    args = [T(a).to(dev) for a in (dc, fr, hw)]
-    lo, hi = T(lo).to(dev), T(hi).to(dev)
-    kl = torch.randint(0, 80, (N,), device=dev, dtype=torch.int32)
-    for g, r in zip(kernels.harmonic_project_win(*args, 80, lo, hi, center=C,
-                                                 kl=kl),
-                    kernels.harmonic_project_win_ref(*args, 80, lo, hi,
-                                                     center=C, kl=kl)):
-        torch.testing.assert_close(g, r, atol=2e-3, rtol=1e-5)
-    a = torch.rand(2, N, 80, device=dev)
-    cyc_c, hw = torch.rand(2, N, device=dev), 30 + 400 * torch.rand(2, N, device=dev)
-    ang = 6.3 * torch.rand(2, N, 20, device=dev)
-    d_args = (a, 6 * a - 3, cyc_c, hw, torch.cos(ang), torch.sin(ang), 7, 80, 8)
-    for g, r in zip(kernels.deconv_full(*d_args), kernels.deconv_full_ref(*d_args)):
-        torch.testing.assert_close(g, r, atol=5e-4, rtol=0)
-    e = torch.rand(2, N, 4, device=dev)
-    n_args = (torch.rand(2, N * 80, device=dev), e, 0.3 * torch.rand(2, N, 4, 4, device=dev),
-              0.3 * torch.rand(2, N, 4, 4, device=dev), e + 0.5,
-              torch.randn(2, 4, N, 160, device=dev))
-    torch.testing.assert_close(kernels.noise_mod_ola(*n_args),
-                               kernels.noise_mod_ola_ref(*n_args),
-                               atol=5e-5, rtol=0)
-    assert kernels.LAUNCHES == {"osc_bank": 1, "harmonic_project_win": 1,
-                                "deconv_full": 1, "noise_mod_ola": 1}

@@ -1,6 +1,7 @@
 """The PyTorch port's layer-0 round trip against the JAX package's Pallas
-branch (use_pallas=True, interpret mode on the CPU) with the track
-denoiser off, at the small verification shapes: chunk fields, harmonic
+branch (use_pallas=True, interpret mode on the CPU), with the track
+denoiser off and with the library default (denoiser on, spectral gate at
+decimation 4), at the small verification shapes: chunk fields, harmonic
 synthesis from a carried-across chunk, noise synthesis with the JAX noise
 bins injected, and the batched pipeline's per-row SNR."""
 import dataclasses
@@ -30,9 +31,9 @@ ROWS = {"noisy": (0, 0.05), "noisy2": (1, 0.05), "clean": (2, 0.0),
         "clean2": (3, 0.0)}
 
 
-def _opts(pkg):
+def _opts(pkg, denoise=False, **change):
     opt = dataclasses.replace(pkg.create_aoptions(), conf=pkg.ChunkConf(**CONF),
-                              track_denoise=False, use_pallas=True)
+                              track_denoise=denoise, use_pallas=True, **change)
     return opt, dataclasses.replace(pkg.create_soptions(), use_pallas=True)
 
 
@@ -49,17 +50,22 @@ def _jax_bins(seed, nfrm, nbin):
     return np.asarray(re), np.asarray(im)
 
 
-@pytest.fixture(scope="module")
-def ref():
-    """Both packages on the same four fixtures (two noisy, two clean)."""
+def _fixtures():
     data = [testsig.make_test_utterance(duration=DUR, seed=s, noise_level=nl,
                                         return_parts=True)
             for s, nl in ROWS.values()]
-    x = np.stack([d[0] for d in data]).astype(np.float32)
-    f0 = np.stack([d[1] for d in data]).astype(np.float32)
-    x_ref = np.stack([d[2] for d in data]).astype(np.float32)
-    jopt, jsopt = _opts(jpkg)
-    topt, tsopt = _opts(tpkg)
+    return tuple(np.stack([d[j] for d in data]).astype(np.float32)
+                 for j in range(3))
+
+
+@pytest.fixture(scope="module", params=["denoise_off", "denoise_on"])
+def ref(request):
+    """Both packages on the same four fixtures (two noisy, two clean), with
+    the denoiser off or at the library default."""
+    x, f0, x_ref = _fixtures()
+    denoise = request.param == "denoise_on"
+    jopt, jsopt = _opts(jpkg, denoise)
+    topt, tsopt = _opts(tpkg, denoise)
     jchunks = [jl0._analyze_jit(jopt, jnp.asarray(x[i]), jnp.asarray(f0[i]))
                for i in range(len(ROWS))]
     tchunk = tl0._analyze(topt, torch.tensor(x), torch.tensor(f0))
@@ -158,14 +164,30 @@ def test_public_single_utterance_api(ref):
 
 
 @pytest.mark.parametrize("change", [
-    dict(), dict(track_denoise=True), dict(use_pallas=False),
-    dict(hm_method="pp"), dict(hm_passes=2), dict(hm_correction="none"),
-    dict(track_lowpass_hz=30.0), dict(frame_chunk=32),
+    dict(use_pallas=False), dict(hm_method="pp"), dict(hm_passes=2),
+    dict(hm_correction="none"), dict(frame_chunk=32),
     dict(hm_kernel="matmul")])
 def test_unported_options_raise(ref, change):
-    """Options outside the ported slice raise, naming a ROADMAP item; the
-    library default (track_denoise=True) is one of them."""
-    opt = dataclasses.replace(ref["topt"], **change) if change else \
-        tpkg.create_aoptions(**CONF)
+    """Options outside the ported slice raise, naming a ROADMAP item."""
+    opt = dataclasses.replace(ref["topt"], **change)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tl0._analyze(opt, torch.tensor(ref["x"][:1]), torch.tensor(ref["f0"][:1]))
+
+
+@pytest.mark.parametrize("change", [
+    dict(track_denoise_spectral=False), dict(track_spectral_decimate=1),
+    dict(track_lowpass_hz=30.0)])
+def test_denoiser_options_match(change):
+    """The denoiser's other settings (time gate only, the full-rate FFT
+    gate, the opt-in track lowpass) run through _analyze and give the JAX
+    Pallas branch's harmonic tracks on a noisy fixture."""
+    x, f0, _ = _fixtures()
+    jopt, _ = _opts(jpkg, True, **change)
+    topt, _ = _opts(tpkg, True, **change)
+    j = jl0._analyze_jit(jopt, jnp.asarray(x[0]), jnp.asarray(f0[0]))
+    t = tl0._analyze(topt, torch.tensor(x[:1]), torch.tensor(f0[:1]))
+    ja, jp = np.asarray(j.ampl), np.asarray(j.phse)
+    scale = float(np.abs(ja).max())
+    np.testing.assert_allclose(t.ampl[0].numpy(), ja, atol=1e-3 * scale)
+    np.testing.assert_allclose(t.ampl[0].numpy() * np.exp(1j * t.phse[0].numpy()),
+                               ja * np.exp(1j * jp), atol=1e-3 * scale)
