@@ -82,10 +82,13 @@ class ChunkConf:
 class AnalysisOptions:
     """Analysis configuration (reference: llsm.h -> llsm_aoptions).  The
     port runs hm_method="czt", hm_passes=1, hm_correction="deconv",
-    fs_input=0, frame_chunk=0, hm_kernel="rotation", use_pallas=True, with
-    any setting of the track denoiser (track_denoise, its spectral gate at
-    any decimation) and of track_lowpass_hz; models/layer0.py raises
-    NotImplementedError for any other value of those seven."""
+    frame_chunk=0, use_pallas=True, with any hm_kernel ("matmul" runs the
+    main harmonic pass through the unframed projection kernel, any other
+    value the rotation kernel, as in the JAX package), any fs_input
+    (layer0.analyze resamples from it), and any setting of the track
+    denoiser (track_denoise, its spectral gate at any decimation) and of
+    track_lowpass_hz; models/layer0.py raises NotImplementedError for any
+    other value of those five."""
 
     conf: ChunkConf = ChunkConf()
     fs_input: float = 0.0        # input-signal rate if != conf.fs (0 = conf.fs)

@@ -35,6 +35,42 @@ __device__ __forceinline__ float warp_allsum(float v) {
   return v;
 }
 
+// Sums v[0..NV) over a block of NWARPS warps; every thread gets the totals.
+// `red` holds NWARPS * NV floats; lane 0 of each warp deposits, then all
+// read.  Both barriers are inside, so it also orders earlier shared-memory
+// writes.
+template <int NV, int NWARPS>
+__device__ __forceinline__ void block_sums(float* v, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const float s = warp_sum(v[i]);
+    if (lane == 0) red[warp * NV + i] = s;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    float s = 0.0f;
+#pragma unroll
+    for (int q = 0; q < NWARPS; ++q) s += red[q * NV + i];
+    v[i] = s;
+  }
+  __syncthreads();
+}
+
+// Cosine-series window c0 + sum_m c_m cos(2 pi m u) (ncoef terms), zero
+// outside u in [0, 1].
+__device__ __forceinline__ float cosine_window(float u, float c0, float c1,
+                                               float c2, float c3,
+                                               int ncoef) {
+  if (!(u >= 0.0f && u <= 1.0f)) return 0.0f;
+  float w = c0;
+  if (ncoef > 1) w = fmaf(c1, cospif(2.0f * u), w);
+  if (ncoef > 2) w = fmaf(c2, cospif(4.0f * u), w);
+  if (ncoef > 3) w = fmaf(c3, cospif(6.0f * u), w);
+  return w;
+}
+
 // Dynamic shared memory above the 48 KB default needs an opt-in per kernel.
 template <typename Kernel>
 inline cudaError_t allow_smem(Kernel k, size_t bytes) {

@@ -26,38 +26,6 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kChunk = 8;
 
-__device__ __forceinline__ float cosine_window(float u, float c0, float c1,
-                                               float c2, float c3,
-                                               int ncoef) {
-  if (!(u >= 0.0f && u <= 1.0f)) return 0.0f;
-  float w = c0;
-  if (ncoef > 1) w = fmaf(c1, cospif(2.0f * u), w);
-  if (ncoef > 2) w = fmaf(c2, cospif(4.0f * u), w);
-  if (ncoef > 3) w = fmaf(c3, cospif(6.0f * u), w);
-  return w;
-}
-
-// Sums v over the block; every thread gets the total.  `red` holds
-// kWarps * NV floats; lane 0 of each warp deposits, then all read.
-template <int NV>
-__device__ __forceinline__ void block_sums(float* v, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    const float s = llsm::warp_sum(v[i]);
-    if (lane == 0) red[warp * NV + i] = s;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    float s = 0.0f;
-#pragma unroll
-    for (int q = 0; q < kWarps; ++q) s += red[q * NV + i];
-    v[i] = s;
-  }
-  __syncthreads();
-}
-
 __global__ void __launch_bounds__(kThreads)
 proj_win_kernel(const float* __restrict__ dc, const float* __restrict__ fr,
                 const float* __restrict__ hw, const int* __restrict__ lo,
@@ -83,14 +51,15 @@ proj_win_kernel(const float* __restrict__ dc, const float* __restrict__ fr,
   for (int i = threadIdx.x; i < len; i += kThreads) {
     const int w = a + i;
     const float u = ((float)(w - center) / h + 1.0f) * 0.5f;
-    const float win = cosine_window(u, c0, c1, c2, c3, ncoef);
+    const float win = llsm::cosine_window(u, c0, c1, c2, c3, ncoef);
     const float xw = frn[w] * win;
     xw_s[i] = xw;
     r_s[i] = llsm::frac_c(dcn[w]);
     sums[0] += win;
     sums[1] += xw;
   }
-  block_sums<2>(sums, red);  // also orders the shared-memory writes above
+  // also orders the shared-memory writes above
+  llsm::block_sums<2, kWarps>(sums, red);
   if (threadIdx.x == 0) {
     wsum[n] = sums[0];
     xsum[n] = sums[1];
@@ -113,7 +82,7 @@ proj_win_kernel(const float* __restrict__ dc, const float* __restrict__ fr,
         wr = nwr;
       }
     }
-    block_sums<2 * kChunk>(sums, red);
+    llsm::block_sums<2 * kChunk, kWarps>(sums, red);
     if (threadIdx.x == 0) {  // static indices keep sums[] in registers
 #pragma unroll
       for (int j = 0; j < kChunk; ++j) {

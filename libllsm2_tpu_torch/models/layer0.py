@@ -18,6 +18,7 @@ that brings them.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 from typing import NamedTuple
@@ -28,7 +29,7 @@ import torch
 from ..config import AnalysisOptions, ChunkConf, SynthesisOptions
 from ..container import LAYER0_FIELDS, Chunk
 from ..fp import FP
-from ..ops import harmonics, interp, kernels, spectral, warp
+from ..ops import harmonics, interp, kernels, resample, spectral, warp
 
 
 class SynthResult(NamedTuple):
@@ -56,13 +57,16 @@ def _check_analysis(opt: AnalysisOptions) -> None:
     if opt.hm_correction != "deconv":
         raise _unported(f"hm_correction={opt.hm_correction!r}",
                         "Queue 1 item 11")
-    if opt.fs_input and abs(opt.fs_input - opt.conf.fs) > 1e-9:
-        raise _unported("fs_input (input resampling)", "Queue 1 item 11")
     if opt.frame_chunk:
         raise _unported("frame_chunk > 0", "Queue 1 item 11")
-    if opt.hm_kernel != "rotation":
-        raise _unported(f"hm_kernel={opt.hm_kernel!r}",
-                        "Queue 2, harmonic_project_mxu")
+    if _resamples(opt):
+        raise ValueError(
+            f"_analyze takes x at conf.fs = {opt.conf.fs} Hz, not at "
+            f"fs_input = {opt.fs_input} Hz: analyze() resamples first")
+
+
+def _resamples(opt: AnalysisOptions) -> bool:
+    return bool(opt.fs_input) and abs(opt.fs_input - opt.conf.fs) > 1e-9
 
 
 # ---------------------------------------------------------------------------
@@ -427,10 +431,15 @@ def _moving_sum(v: torch.Tensor, S: int) -> torch.Tensor:
 def analyze(opt: AnalysisOptions, x, f0) -> Chunk:
     """Analyze one signal x [nx] with its F0 track f0 [nfrm] (0 =
     unvoiced, frame rate 1/conf.thop) into a chunk (reference: layer0.c
-    -> llsm_analyze).  Tensors stay on their device; numpy input goes to
-    the CPU."""
+    -> llsm_analyze).  x is at conf.fs, or at opt.fs_input, from which it
+    is resampled to conf.fs first (create_aoptions sets fs_input for rates
+    with a non-integral hop, e.g. 11025 Hz).  Tensors stay on their
+    device; numpy input goes to the CPU."""
     x = torch.as_tensor(x).to(FP)
     f0 = torch.as_tensor(f0, device=x.device).to(FP)
+    if _resamples(opt):
+        x = resample.resample_to(x, opt.fs_input, opt.conf.fs)
+        opt = dataclasses.replace(opt, fs_input=0.0)
     ch = _analyze(opt, x[None], f0[None])
     return ch.replace(**{f: getattr(ch, f)[0] for f in LAYER0_FIELDS})
 
@@ -438,7 +447,10 @@ def analyze(opt: AnalysisOptions, x, f0) -> Chunk:
 def _analyze(opt: AnalysisOptions, x: torch.Tensor,
              f0: torch.Tensor) -> Chunk:
     """Batched analysis: x [B, nx'], f0 [B, N] -> chunk with a leading
-    batch axis.  x is cut or zero-padded to N*nhop samples."""
+    batch axis.  x is cut or zero-padded to N*nhop samples.  x must be at
+    conf.fs: like the JAX package's _analyze_jit (and batched_pipeline),
+    this never resamples, so an opt whose fs_input differs from conf.fs
+    raises here instead of analyzing x at the wrong rate."""
     _check_analysis(opt)
     conf = opt.conf
     nhop = conf.nhop
@@ -469,7 +481,7 @@ def _analyze(opt: AnalysisOptions, x: torch.Tensor,
     ampl, phse, mask = harmonics.harmonic_analysis(
         x, f0, cyc, nhop=nhop, fs=conf.fs, max_k=conf.maxnhar,
         halfwin_max=conf.halfwin_max, rel_winsize=conf.rel_winsize,
-        fnyq=conf.fnyq)
+        fnyq=conf.fnyq, mxu=opt.hm_kernel == "matmul")
 
     # residual: deconvolve the track smoothing (handing the complex track
     # to the denoiser), denoise, subtract the harmonic part
@@ -630,7 +642,9 @@ def synthesize(opt: SynthesisOptions, chunk: Chunk) -> SynthResult:
 def _synthesize(opt: SynthesisOptions, chunk: Chunk, bins=None) -> SynthResult:
     """Batched synthesis of a chunk with a leading batch axis -> [B, nx]
     signals, rendered directly at opt.fs (harmonics above its Nyquist are
-    masked).  bins: see _synth_noise."""
+    masked); a rate with a non-integral hop renders at the nearest rate
+    with an integral hop and resamples to opt.fs.  bins: see _synth_noise
+    (at the rendering rate)."""
     if not opt.use_pallas:
         raise _unported("use_pallas=False (the JAX package's jnp branches)",
                         "Queue 1 item 11")
@@ -639,8 +653,14 @@ def _synthesize(opt: SynthesisOptions, chunk: Chunk, bins=None) -> SynthResult:
     conf = chunk.conf
     fs = opt.fs
     if abs(conf.thop * fs - round(conf.thop * fs)) > 1e-6:
-        raise _unported("synthesis at a rate with a non-integral hop",
-                        "Queue 1 item 5")
+        # render at the nearest rate with an integral hop, then resample
+        # every output to fs (e.g. 11025 Hz renders at 11000)
+        fs_render = max(round(conf.thop * fs), 1) / conf.thop
+        res = _synthesize(dataclasses.replace(opt, fs=fs_render), chunk,
+                          bins=bins)
+        ny = int(round(chunk.nfrm * conf.thop * fs))
+        return SynthResult(*(resample.resample_to(v, fs_render, fs, ny=ny)
+                             for v in res[:3]), fs=fs)
     nhop = int(round(conf.thop * fs))
     nx = chunk.nfrm * nhop
     cyc = harmonics.sample_cycles(chunk.f0, nhop, fs, nx)

@@ -49,6 +49,12 @@ SIGNATURES = {
     # ur, ui, B, N, K, strength, emit, stream
     "llsm_denoise_apply": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                            _P, _P, _P, _I, _I, _I, _F, _I, _P),
+    # dc, xw, lo, hi, re, im, R, W, K, stream
+    "llsm_harmonic_project": (_P, _P, _P, _P, _P, _P, _L, _I, _I, _P),
+    # x, cyc, hw, re, im, wsum, xsum, B, nx, N, K, nhop, reach, c0, c1, c2,
+    # c3, ncoef, stream
+    "llsm_harmonic_project_mxu": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                  _I, _I, _F, _F, _F, _F, _I, _P),
 }
 
 _lib = None

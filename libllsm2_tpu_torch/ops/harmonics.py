@@ -4,8 +4,9 @@ layer0.c frame loop and sinusoidal synthesis).
 
 Every function takes a leading batch axis ``[B, ...]`` where the JAX
 package maps one utterance under ``jax.vmap``.  Only the branches the
-JAX package runs with ``use_pallas=True`` at uniform frame centers are
-ported; phase arguments are reduced to cycles mod 1 before trig.
+JAX package runs with ``use_pallas=True`` at uniform frame centers (and
+without frame_chunk) are ported; phase arguments are reduced to cycles
+mod 1 before trig.
 """
 from __future__ import annotations
 
@@ -84,19 +85,19 @@ def cycle_segments(cyc: torch.Tensor, centers: torch.Tensor,
 
 def harmonic_analysis(x, f0, cyc, *, nhop: int, fs: float, max_k: int,
                       halfwin_max: int, rel_winsize: float, fnyq: float,
-                      window: str = "hanning", with_dc: bool = False):
+                      window: str = "hanning", with_dc: bool = False,
+                      mxu: bool = False):
     """Harmonic amplitudes/phases of every frame by the chirped
-    pitch-synchronous projection (the fused cosine-series-window branch
-    of the JAX package, frames at centers i*nhop).
+    pitch-synchronous projection (the JAX package's use_pallas=True
+    branches at frame centers i*nhop).
 
     x, cyc [B, nx]; f0 [B, N] (0 = unvoiced) -> ampl, phse, mask
     [B, N, max_k] (phase at the frame center), plus the windowed DC
     [B, N] with with_dc (every frame, unvoiced ones with the f0 = 100 Hz
-    placeholder window)."""
-    if window not in COSINE_SERIES:
-        raise NotImplementedError(
-            f"window {window!r}: only cosine-series windows are ported "
-            "(ROADMAP Queue 2: harmonic_project_pallas)")
+    placeholder window).  A cosine-series window runs the fused-window
+    kernel on frame buffers, or with mxu=True the unframed projection
+    (no [N, W] buffers); any other window (mltsine) is applied here and
+    the frames go through the plain projection kernel."""
     B, N = f0.shape
     H = halfwin_max
     dev = x.device
@@ -109,37 +110,59 @@ def harmonic_analysis(x, f0, cyc, *, nhop: int, fs: float, max_k: int,
     # unless the caller wants the (unmaskable) DC
     halfwidth_e = halfwidth if with_dc else torch.where(
         voiced, halfwidth, torch.full_like(halfwidth, 2.0))
-    hw_int = torch.ceil(halfwidth_e).to(torch.int32)
     hh = -(-H // nhop)           # window halfwidth in whole hops
-    C = hh * nhop                # window center column in the frame buffer
-    lo, hi = C - hw_int, C + hw_int + 1
-    # live slots: ceil(fnyq/f0) >= the mask's slot count under rounding
-    kl = torch.where(voiced, torch.ceil(fnyq / f0s).to(torch.int32),
-                     torch.zeros_like(hw_int))
-    kl = torch.clamp(kl, 0, max_k)
     cyc_c = cyc[..., ::nhop][..., :N]
-    frames = frame_hops(x.to(FP), N, nhop, hh)
-    dcf = frame_hops(cyc, N, nhop, hh, mode="edge") - cyc_c[..., None]
-    R = B * N
-    re, im, wsum, xsum = kernels.harmonic_project_win(
-        dcf.reshape(R, -1), frames.reshape(R, -1), halfwidth_e.reshape(R),
-        max_k, lo.reshape(R), hi.reshape(R), center=C, window=window,
-        kl=kl.reshape(R))
-    wsum = torch.clamp(wsum, min=1e-9).reshape(B, N)
-    re, im = re.reshape(B, N, max_k), im.reshape(B, N, max_k)
-    ampl = 2.0 * torch.sqrt(re ** 2 + im ** 2) / wsum[..., None]
+    if mxu and window in COSINE_SERIES:
+        re, im, wsum, xsum = kernels.harmonic_project_mxu(
+            x, cyc, halfwidth_e, max_k, nhop, hh, window=window)
+        ampl = 2.0 * torch.sqrt(re ** 2 + im ** 2)
+        # the kernel projects on the absolute cycle: rotate to the centers
+        ang_c = 2.0 * math.pi * _phase_cycles(kharm, cyc_c[..., None])
+        re, im = (re * torch.cos(ang_c) - im * torch.sin(ang_c),
+                  re * torch.sin(ang_c) + im * torch.cos(ang_c))
+    else:
+        hw_int = torch.ceil(halfwidth_e).to(torch.int32)
+        C = hh * nhop            # window center column in the frame buffer
+        lo, hi = (C - hw_int).reshape(-1), (C + hw_int + 1).reshape(-1)
+        R = B * N
+        frames = frame_hops(x.to(FP), N, nhop, hh).reshape(R, -1)
+        dcf = (frame_hops(cyc, N, nhop, hh, mode="edge")
+               - cyc_c[..., None]).reshape(R, -1)
+        if window in COSINE_SERIES:
+            # live slots: ceil(fnyq/f0) >= the mask's slot count under
+            # rounding
+            kl = torch.where(voiced, torch.ceil(fnyq / f0s).to(torch.int32),
+                             torch.zeros_like(hw_int))
+            kl = torch.clamp(kl, 0, max_k)
+            re, im, wsum, xsum = kernels.harmonic_project_win(
+                dcf, frames, halfwidth_e.reshape(R), max_k, lo, hi, center=C,
+                window=window, kl=kl.reshape(R))
+        else:
+            noff = torch.arange(2 * C, dtype=FP, device=dev) - C
+            w = window_centered(window, noff,
+                                halfwidth_e.reshape(R)[:, None])
+            xw = frames * w
+            re, im = kernels.harmonic_project(dcf, xw, max_k, lo, hi)
+            wsum, xsum = w.sum(dim=-1), xw.sum(dim=-1)
+        re, im = re.reshape(B, N, max_k), im.reshape(B, N, max_k)
+        wsum, xsum = wsum.reshape(B, N), xsum.reshape(B, N)
+        ampl = 2.0 * torch.sqrt(re ** 2 + im ** 2)
+    wsum = torch.clamp(wsum, min=1e-9)
+    ampl = ampl / wsum[..., None]
     phse = torch.atan2(im, re)
     if with_dc:
-        return ampl * mask, phse * mask, mask, xsum.reshape(B, N) / wsum
+        return ampl * mask, phse * mask, mask, xsum / wsum
     return ampl * mask, phse * mask, mask
 
 
 def refine_f0(x, f0, *, nhop: int, fs: float, halfwin_max: int,
               rel_winsize: float, window: str = "hanning", iters: int = 2,
               max_rel_dev: float = 0.05, f0_ceil: float = 600.0):
-    """Refine F0 by the fundamental's phase slope, measured on a
-    lowpass-decimated signal (the JAX package's decimated branch,
-    harmonics.py:372-492).  x [B, nx], f0 [B, N] -> [B, N]."""
+    """Refine F0 by the fundamental's phase slope (the JAX package's
+    use_pallas=True branches): on a lowpass-decimated signal where some
+    D in 8/4/2 divides the hop and clears f0_ceil (harmonics.py:372-492),
+    else at the full rate through the projection kernel
+    (harmonics.py:494-543).  x [B, nx], f0 [B, N] -> [B, N]."""
     B, N = f0.shape
     nx = x.shape[-1]
     dev = x.device
@@ -153,10 +176,9 @@ def refine_f0(x, f0, *, nhop: int, fs: float, halfwin_max: int,
             D = cand
             break
     if D == 1:
-        raise NotImplementedError(
-            "refine_f0 without decimation (no D in 8/4/2 divides the hop and "
-            "clears f0_ceil) is not ported (ROADMAP Queue 2: "
-            "harmonic_project_pallas)")
+        return _refine_f0_full_rate(x, f0, nhop=nhop, fs=fs, halfwin_max=H,
+                                    rel_winsize=rel_winsize, window=window,
+                                    iters=iters, max_rel_dev=max_rel_dev)
     fs_d = fs / D
     nxd = nx // D
     # polyphase decimating FIR: windowed-sinc lowpass with passband
@@ -228,6 +250,59 @@ def refine_f0(x, f0, *, nhop: int, fs: float, halfwin_max: int,
     # is buried under harmonic 2 (period-doubled sources)
     gate_ok = (p1 > 0.0625 * p2) | (2.0 * f0s >= pass_hz)
     f0s = torch.where(gate_ok, f0s, f0)
+    return torch.where(voiced, f0s, torch.zeros_like(f0s))
+
+
+def _refine_f0_full_rate(x, f0, *, nhop: int, fs: float, halfwin_max: int,
+                         rel_winsize: float, window: str, iters: int,
+                         max_rel_dev: float):
+    """refine_f0 without decimation (harmonics.py:494-543): each probe
+    projects left-aligned frames (window centred at ceil(halfwidth)) onto
+    the fundamental with harmonic_project at K = 1; the presence gate is a
+    fifth probe at 2 f0.  x [B, nx], f0 [B, N] -> [B, N]."""
+    B, N = f0.shape
+    dev = x.device
+    H = halfwin_max
+    W = 2 * H + 1
+    voiced = f0 > 0.0
+    xp = F.pad(x.to(FP), (H + W, H + W + 1))
+    delta = max(H // 8, 2)
+    dt = 2.0 * delta / fs
+    centers = torch.arange(N, device=dev) * nhop
+    col = torch.arange(W, device=dev)
+
+    def probe(cts, f0s, halfwidth):
+        # the basis phase reference shifts by (H - hw) per frame; the
+        # update only uses ph_p - ph_m at equal halfwidth, so it cancels
+        hw_int = torch.ceil(halfwidth).to(torch.int64)          # [B, N]
+        noff = (col - hw_int[..., None]).to(FP)                 # [B, N, W]
+        idx = (cts + W + H - hw_int)[..., None] + col
+        frames = torch.gather(xp, 1, idx.reshape(B, -1)).reshape(B, N, W)
+        xw = frames * window_centered(window, noff, halfwidth[..., None])
+        dc = _phase_cycles(noff, (f0s / fs)[..., None])
+        re, im = kernels.harmonic_project(
+            dc.reshape(B * N, W), xw.reshape(B * N, W), 1,
+            torch.zeros_like(hw_int).reshape(-1), (2 * hw_int + 1).reshape(-1))
+        re, im = re.reshape(B, N), im.reshape(B, N)
+        return torch.atan2(im, re), re * re + im * im
+
+    f0s = torch.where(voiced, f0, torch.full_like(f0, 100.0))
+    p1 = torch.zeros_like(f0s)
+    for _ in range(iters):
+        halfwidth = torch.clamp(rel_winsize * fs / (2.0 * f0s), 2.0, float(H))
+        ph_m, _ = probe(centers - delta, f0s, halfwidth)
+        ph_p, p1 = probe(centers + delta, f0s, halfwidth)
+        expected = 2.0 * math.pi * f0s * dt
+        err = ph_p - ph_m - expected
+        err = torch.atan2(torch.sin(err), torch.cos(err))
+        f0_new = f0s + err / (2.0 * math.pi * dt)
+        f0s = torch.minimum(torch.maximum(f0_new, f0 * (1 - max_rel_dev) - 1.0),
+                            f0 * (1 + max_rel_dev) + 1.0)
+    # fundamental-presence gate, measured by its own probe at 2 f0 (not the
+    # decimated branch's double-angle fold)
+    hw_g = torch.clamp(rel_winsize * fs / (2.0 * f0s), 2.0, float(H))
+    _, p2 = probe(centers + delta, 2.0 * f0s, hw_g)
+    f0s = torch.where(p1 > 0.0625 * p2, f0s, f0)
     return torch.where(voiced, f0s, torch.zeros_like(f0s))
 
 

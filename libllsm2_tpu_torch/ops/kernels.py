@@ -26,7 +26,8 @@ from . import _build
 from .windows import COSINE_SERIES, window_centered
 
 LAUNCHES = {"osc_bank": 0, "harmonic_project_win": 0, "deconv_full": 0,
-            "noise_mod_ola": 0, "denoise_stats": 0, "denoise_apply": 0}
+            "noise_mod_ola": 0, "denoise_stats": 0, "denoise_apply": 0,
+            "harmonic_project": 0, "harmonic_project_mxu": 0}
 
 # frames per chunk of the plain versions: bounds their [frames, K, T]
 # temporaries to ~64 MB at any input size
@@ -171,17 +172,7 @@ def harmonic_project_win_ref(dc, frames, hw, max_k, lo, hi, *, center,
     w = window_centered(window, noff, hw[:, None])
     w = w * ((col[None, :] >= lo[:, None]) & (col[None, :] < hi[:, None]))
     xw = frames * w
-    kh = torch.arange(1, max_k + 1, dtype=FP, device=dev)
-    re = torch.empty((R, max_k), dtype=FP, device=dev)
-    im = torch.empty((R, max_k), dtype=FP, device=dev)
-    step = max(_REF_ELEMS // (max_k * W), 1)
-    for s in range(0, R, step):
-        arg = 2.0 * math.pi * _phase_cycles(kh[None, :, None],
-                                            dc[s:s + step, None, :])
-        re[s:s + step] = torch.einsum("nkw,nw->nk", torch.cos(arg),
-                                      xw[s:s + step])
-        im[s:s + step] = torch.einsum("nkw,nw->nk", -torch.sin(arg),
-                                      xw[s:s + step])
+    re, im = harmonic_project_ref(dc, xw, max_k)
     if kl is not None:
         live = torch.arange(max_k, device=dev)[None, :] < kl[:, None]
         re, im = re * live, im * live
@@ -524,3 +515,130 @@ def denoise_apply_ref(cre, cim, csr, csi, cyc_c, mask, guard, v, wmul,
     zero = torch.zeros_like(csr)
     return out + (torch.where(g, csr + rir, zero),
                   torch.where(g, csi + rii, zero), ur, ui)
+
+
+# ---------------------------------------------------------------------------
+# 10. chirped projection of pre-windowed frames
+#     (pallas_osc.harmonic_project_pallas)
+# ---------------------------------------------------------------------------
+
+def harmonic_project(dc: torch.Tensor, xw: torch.Tensor, max_k: int,
+                     lo: torch.Tensor | None = None,
+                     hi: torch.Tensor | None = None):
+    """Projection of windowed frames onto the chirped harmonic basis: dc,
+    xw [R, W]; lo, hi [R] (optional) each row's live columns [lo, hi),
+    outside which xw must be zero -> (re [R, K], im [R, K]) with re + j im
+    = sum_w xw e^{-2 pi j (k+1) dc}.  dc is any representative of the
+    cycle offset."""
+    R, W = dc.shape
+    dev = dc.device
+    if lo is None or hi is None:
+        lo = torch.zeros((R,), dtype=torch.int32, device=dev)
+        hi = torch.full((R,), W, dtype=torch.int32, device=dev)
+    if not _on_cuda(dc, xw, lo, hi):
+        return harmonic_project_ref(dc, xw, max_k, lo, hi)
+    if xw.shape != (R, W) or lo.shape != (R,) or hi.shape != (R,):
+        raise ValueError("harmonic_project: shape mismatch")
+    dc, xw, lo, hi = _f32(dc), _f32(xw), _i32(lo), _i32(hi)
+    re = torch.empty((R, max_k), dtype=FP, device=dev)
+    im = torch.empty((R, max_k), dtype=FP, device=dev)
+    ptrs = (t.data_ptr() for t in (dc, xw, lo, hi, re, im))
+    _launch("harmonic_project", *ptrs, R, W, max_k, _stream(dc))
+    return re, im
+
+
+def harmonic_project_ref(dc, xw, max_k, lo=None, hi=None):
+    """Plain version of harmonic_project (the jnp math of
+    test_pallas.py:35-47, with k dc reduced mod 1)."""
+    R, W = dc.shape
+    dev = dc.device
+    if lo is not None and hi is not None:
+        col = torch.arange(W, device=dev)[None, :]
+        xw = xw * ((col >= lo[:, None]) & (col < hi[:, None]))
+    kh = torch.arange(1, max_k + 1, dtype=FP, device=dev)
+    re = torch.empty((R, max_k), dtype=FP, device=dev)
+    im = torch.empty((R, max_k), dtype=FP, device=dev)
+    step = max(_REF_ELEMS // (max_k * W), 1)
+    for s in range(0, R, step):
+        arg = 2.0 * math.pi * _phase_cycles(kh[None, :, None],
+                                            dc[s:s + step, None, :])
+        re[s:s + step] = torch.einsum("nkw,nw->nk", torch.cos(arg),
+                                      xw[s:s + step])
+        im[s:s + step] = torch.einsum("nkw,nw->nk", -torch.sin(arg),
+                                      xw[s:s + step])
+    return re, im
+
+
+# ---------------------------------------------------------------------------
+# 6. unframed banded projection (pallas_osc.harmonic_project_mxu)
+# ---------------------------------------------------------------------------
+
+def harmonic_project_mxu(x: torch.Tensor, cyc: torch.Tensor, hw: torch.Tensor,
+                         max_k: int, nhop: int, hh: int, *,
+                         window: str = "hanning"):
+    """Chirped projection at uniform centers f*nhop without frame buffers:
+    x, cyc [B, nx] the signal and its absolute mod-1 cycle track (unframed);
+    hw [B, N] the window halfwidths; hh the window reach in whole hops ->
+    (re [B, N, K], im [B, N, K], wsum [B, N], xsum [B, N]) with
+    re + j im = sum_n w_f(n) x(n) e^{-2 pi j (k+1) cyc(n)} (NOT relative to
+    the frame center: the caller rotates by e^{+2 pi j (k+1) cyc_c}),
+    wsum = sum_n w_f(n) and xsum = sum_n w_f(n) x(n).  w_f is the
+    cosine-series `window` of halfwidth hw centred at f*nhop, cut at
+    |n - f nhop| <= hh*nhop; x is zero outside each utterance."""
+    if window not in COSINE_SERIES:
+        raise ValueError(f"harmonic_project_mxu: {window!r} is not a "
+                         "cosine-series window")
+    if not _on_cuda(x, cyc, hw):
+        return harmonic_project_mxu_ref(x, cyc, hw, max_k, nhop, hh,
+                                        window=window)
+    B, nx = x.shape
+    N = hw.shape[-1]
+    if cyc.shape != (B, nx) or hw.shape != (B, N):
+        raise ValueError("harmonic_project_mxu: shape mismatch")
+    coefs = tuple(float(c) for c in COSINE_SERIES[window]) + (0.0,) * 3
+    x, cyc, hw = _f32(x), _f32(cyc), _f32(hw)
+    dev = x.device
+    re = torch.empty((B, N, max_k), dtype=FP, device=dev)
+    im = torch.empty((B, N, max_k), dtype=FP, device=dev)
+    ws = torch.empty((B, N), dtype=FP, device=dev)
+    xs = torch.empty((B, N), dtype=FP, device=dev)
+    ptrs = (t.data_ptr() for t in (x, cyc, hw, re, im, ws, xs))
+    _launch("harmonic_project_mxu", *ptrs, B, nx, N, max_k, int(nhop),
+            int(hh) * int(nhop), *coefs[:4], len(COSINE_SERIES[window]),
+            _stream(x))
+    return re, im, ws, xs
+
+
+def harmonic_project_mxu_ref(x, cyc, hw, max_k, nhop, hh, *,
+                             window="hanning"):
+    """Plain version of harmonic_project_mxu: the modulated rows G = [1, x,
+    x cos(2 pi k cyc), -x sin(2 pi k cyc)] over each frame chunk's span
+    (x zero-padded, cyc edge-padded by hh*nhop per utterance), contracted
+    with the chunk's window rows by torch.einsum in float32."""
+    B, nx = x.shape
+    N = hw.shape[-1]
+    P = hh * nhop
+    dev = x.device
+    xp = torch.nn.functional.pad(x.to(FP), (P, P))
+    cp = torch.cat([cyc[:, :1].expand(B, P), cyc, cyc[:, -1:].expand(B, P)],
+                   dim=-1).to(FP)
+    kh = torch.arange(1, max_k + 1, dtype=FP, device=dev)
+    out = torch.empty((B, N, 2 * max_k + 2), dtype=FP, device=dev)
+    FC = max(1, min(N, _REF_ELEMS // (B * (2 * max_k + 2) * (nhop + 2 * P))))
+    for f0 in range(0, N, FC):
+        f1 = min(N, f0 + FC)
+        L = (f1 - 1 - f0) * nhop + 2 * P + 1
+        s0 = f0 * nhop                        # padded index of the span start
+        xs, cs = xp[:, s0:s0 + L], cp[:, s0:s0 + L]
+        ang = 2.0 * math.pi * _phase_cycles(kh, cs[..., None])  # [B, L, K]
+        G = torch.cat([torch.ones_like(xs)[..., None], xs[..., None],
+                       xs[..., None] * torch.cos(ang),
+                       -xs[..., None] * torch.sin(ang)], dim=-1)
+        off = (torch.arange(L, device=dev)[None, :]
+               - (torch.arange(f1 - f0, device=dev)[:, None] * nhop + P))
+        w = window_centered(window, off.to(FP), hw[:, f0:f1, None])
+        w = w * (off.abs() <= P)                   # [B, FC, L]
+        out[:, f0:f1] = torch.einsum("bfs,bsc->bfc", w, G)
+    K = max_k
+    return (out[..., 2:2 + K].contiguous(), out[..., 2 + K:].contiguous(),
+            out[..., 0].contiguous(), out[..., 1].contiguous())

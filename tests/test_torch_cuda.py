@@ -158,3 +158,73 @@ def test_denoise_apply_kernel_matches_plain_on_card(emit_resid):
     assert len(got) == (6 if emit_resid else 2)
     for g, r in zip(got, ref):
         torch.testing.assert_close(g, r, atol=2e-4, rtol=1e-4)
+
+
+def _mxu_inputs(B, Nf, nhop, H, seed):
+    """B distinct utterances for harmonic_project_mxu: x, a mod-1 cycle
+    track of a wandering F0, and window halfwidths in [2, H] (x and cyc
+    [B, Nf*nhop], hw [B, Nf])."""
+    rng = np.random.default_rng(seed)
+    nx = Nf * nhop
+    x = rng.standard_normal((B, nx)).astype(np.float32)
+    f0 = 100.0 + 80.0 * rng.uniform(size=(B, 1)) \
+        + 20.0 * np.sin(np.arange(nx)[None, :] / 900.0)
+    cyc = (np.cumsum(f0 / 16000.0, axis=-1) % 1.0).astype(np.float32)
+    hw = rng.uniform(2.0, H, (B, Nf)).astype(np.float32)
+    return x, cyc, hw
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("K", [1, 4, 80])
+def test_harmonic_project_kernel_matches_plain_on_card(K):
+    """K = 1 (the refine probe: one warp per row), K = 4 (the same kernel
+    rotating) and K = 80 (one block per row), with each row's live columns
+    [lo, hi); 2e-3 absolute (test_pallas.py:46)."""
+    dev = _card()
+    rng = np.random.default_rng(K)
+    W = 631
+    dc = rng.uniform(-2, 2, (N, W)).astype(np.float32)
+    lo = rng.integers(0, W // 3, N).astype(np.int32)
+    hi = (lo + rng.integers(1, W - lo)).astype(np.int32)
+    col = np.arange(W)[None, :]
+    xw = np.where((col >= lo[:, None]) & (col < hi[:, None]),
+                  rng.standard_normal((N, W)), 0.0).astype(np.float32)
+    args = [T(a).to(dev) for a in (dc, xw)]
+    lo, hi = T(lo).to(dev), T(hi).to(dev)
+    kernels.reset_launches()
+    got = kernels.harmonic_project(*args, K, lo, hi)
+    ref = kernels.harmonic_project_ref(*args, K, lo, hi)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["harmonic_project"] == 1
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, atol=2e-3, rtol=0)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("K,nhop,H", [(80, 80, 458), (4, 20, 115)])
+def test_harmonic_project_mxu_kernel_matches_plain_on_card(K, nhop, H):
+    """A batch of 3 utterances of 301 frames (not a multiple of the 16-frame
+    tile), main-pass and envelope-pass widths: kernel against twin within
+    2e-3 x the twin's largest |re + j im| (raw window sums scale with the
+    window), and each utterance's rows equal to the kernel on that
+    utterance alone -- no frame's window reads its neighbour."""
+    dev = _card()
+    x, cyc, hw = (T(a).to(dev) for a in _mxu_inputs(3, 301, nhop, H, K))
+    hh = -(-H // nhop)
+    kernels.reset_launches()
+    got = kernels.harmonic_project_mxu(x, cyc, hw, K, nhop, hh)
+    ref = kernels.harmonic_project_mxu_ref(x, cyc, hw, K, nhop, hh)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["harmonic_project_mxu"] == 1
+    zscale = float(torch.max(torch.hypot(ref[0], ref[1])))
+    torch.testing.assert_close(torch.complex(got[0], got[1]),
+                               torch.complex(ref[0], ref[1]),
+                               atol=2e-3 * zscale, rtol=0)
+    for g, r in zip(got[2:], ref[2:]):
+        torch.testing.assert_close(g, r, atol=2e-3 * float(r.abs().max()),
+                                   rtol=0)
+    for b in range(3):
+        alone = kernels.harmonic_project_mxu(x[b:b + 1], cyc[b:b + 1],
+                                             hw[b:b + 1], K, nhop, hh)
+        for g, a in zip(got, alone):
+            assert torch.equal(g[b], a[0])

@@ -165,8 +165,7 @@ def test_public_single_utterance_api(ref):
 
 @pytest.mark.parametrize("change", [
     dict(use_pallas=False), dict(hm_method="pp"), dict(hm_passes=2),
-    dict(hm_correction="none"), dict(frame_chunk=32),
-    dict(hm_kernel="matmul")])
+    dict(hm_correction="none"), dict(frame_chunk=32)])
 def test_unported_options_raise(ref, change):
     """Options outside the ported slice raise, naming a ROADMAP item."""
     opt = dataclasses.replace(ref["topt"], **change)
