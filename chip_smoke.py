@@ -10,14 +10,22 @@ Phases, one line each; any failure exits non-zero without the final
   2. build: compiles the port's CUDA kernels from libllsm2_tpu_torch/csrc.
   3. kernels: captures every kernel's inputs on the first 2 rows of the
      path that runs it -- the six of the library-default path (denoiser
-     on; K = 80, Wf = 960, plus the envelope projection), the unframed
-     projection of phase 6's hm_kernel="matmul", the plain projection of
-     phase 7's refine probes (K = 1) and of one harmonic_analysis with the
-     mltsine window (K = 80) -- runs kernel and plain PyTorch version on
-     them on the card, checks the maximum error against each tolerance,
-     and times both (median of 10, CUDA events).  The denoiser kernels'
-     other variants (apply without emit_resid, stats from (ampl, phse) =
-     (|c|, angle c) of the captured complex track) run on the same inputs.
+     on; K = 80, Wf = 960, plus the envelope projection) and its two
+     frame-axis FIRs (the spectral gate's local-noisiness blend), the
+     track lowpass's two FIRs (track_lowpass_hz=30: a voicing column and
+     a complex track), env_render on the envelope coefficients of the
+     main path's noise_mod_ola call, the unframed projection of phase 6's
+     hm_kernel="matmul", the plain projection of phase 7's refine probes
+     (K = 1) and of one harmonic_analysis with the mltsine window (K = 80)
+     -- runs kernel and plain PyTorch version on them on the card, checks
+     the maximum error against each tolerance, and times both (median of
+     10, CUDA events) and, where PyTorch computes the same function in
+     one contraction or convolution, that call with the making of its
+     operands from the same inputs (the dense oscillator / chirp basis,
+     the banded windows, the FIR's layout) timed with it.  The denoiser
+     kernels' other variants (apply without emit_resid, stats from (ampl,
+     phse) = (|c|, angle c) of the captured complex track) run on the
+     same inputs.
   4. denoiser off: batched_pipeline on 32 bench rows (16 noisy, 16 clean;
      ChunkConf(f0_floor=70), track_denoise=False, use_pallas=True) after
      zeroing the launch counters; its four kernels must have launched,
@@ -25,10 +33,10 @@ Phases, one line each; any failure exits non-zero without the final
      0.2 dB of 32.69 and 33.14 dB.  Then the step time (median of 5).
   5. main path, the library default (create_aoptions(f0_floor=70,
      use_pallas=True): denoiser on, spectral gate at decimation 4) on all
-     128 rows x 8 s after zeroing the launch counters: all six kernels must
-     have launched, clean rows >= 55.17 dB, noisy rows 0 and 1 within 0.2
-     dB of 40.05 and 40.6 dB.  Then the step time (median of 5) and peak
-     memory.
+     128 rows x 8 s after zeroing the launch counters: all six kernels and
+     fir_frames must have launched, clean rows >= 55.17 dB, noisy rows 0
+     and 1 within 0.2 dB of 40.05 and 40.6 dB.  Then the step time (median
+     of 5) and peak memory.
   6. hm_kernel="matmul" at the library default, all 128 rows x 8 s: the
      main harmonic pass through harmonic_project_mxu (launched), the pins
      of phase 5; prints the SNR change from phase 5, then step and peak.
@@ -38,18 +46,45 @@ Phases, one line each; any failure exits non-zero without the final
      envelope decimation 1); harmonic_project and the six kernels of
      phase 5 launched; noisy rows 0/1 within 0.2 dB and clean row 64 at
      most 0.1 dB under the JAX package's values.  Then step and peak.
-  8. an 11.025 kHz file through the public analyze -> synthesize (input
-     resampled to 11000 Hz, output rendered there and resampled back), one
-     noisy and one clean 1 s row made at 11025 Hz: output length
-     round(nfrm thop fs), finite, y_sin SNR within 0.1 dB of the JAX
-     package's.
-The line before the last is the kernels' JSON summary (launches from the
-phase that runs each: 5 for the six, 6 for harmonic_project_mxu, 7 for
-harmonic_project); the last line is {"ok": true, "device": {...}}.  TF32
-is off for every float32 matmul.
+  8. an 11.025 kHz file through the public analyze -> synthesize (numpy
+     input, on the card by default; resampled to 11000 Hz, output
+     rendered there and resampled back), one noisy and one clean 1 s row
+     made at 11025 Hz: output length round(nfrm thop fs), finite, y_sin
+     SNR within 0.1 dB of the JAX package's.
+  9. layer-1 round trip on the 128 x 8 s bench rows: the library-default
+     analysis, then chunk_to_layer1 -> chunk_to_layer0 -> _synthesize,
+     counters zeroed before; the seven kernels of phase 5 launched; y_sin
+     SNR against the clean harmonic part: noisy rows 0/1 within 0.2 dB of
+     the JAX package's values, every clean row at most 0.1 dB under the
+     JAX value of row 64.  Prints each stage's ms, the audio-sec/s of the
+     layer-1 round trip and the peak.  Then env_render, which no library
+     path runs, renders this chunk's envelopes at full batch through
+     layer0._render_envelopes(use_pallas=True), counters zeroed before.
+ 10. pulse-by-pulse synthesis: 128 rows x 8 s of synth_lf_speech (Rd 0.4 /
+     1.0 / 1.8 / 2.7 by row, make_f0_track's contour, aspiration seed =
+     row), the library-default analysis -> chunk_to_layer1 ->
+     pbp_synthesize, counters zeroed before: noise_mod_ola and fir_frames
+     launched; each row's median voiced rd within 15% of its truth (the
+     JAX suite's criterion) and rows 0 and 1 within 1% of the JAX
+     package's medians; row 0's rd track, frame by frame, within 1e-3
+     relative of chunk_to_layer1 on the CPU from the same layer-0 row;
+     rows 0 and 1: the SNR of PbP y_sin against the layer-1 sinusoidal
+     y_sin within 0.2 dB of the JAX package's.  Prints the PbP ms,
+     audio-sec/s and peak.
+Phases 5, 6, 7 and 9 also time each of their kernels at full batch on
+its first call of the counted run (median of 10), beside its bound.
+The line before the last is the kernels' JSON summary: launches from
+the phase that runs each (5 for the six and fir_frames, 6 for
+harmonic_project_mxu, 7 for harmonic_project, 9 for env_render); ms,
+plain_ms, library_ms and bound_ms at the first 2-row call of phase 3;
+"full_batch" the same kernel at full batch.  bound_ms is the larger of
+the bytes the call must move (inputs read once, outputs written once; of
+a framed projection's inputs only the live columns) over 3.35 TB/s and
+its float32 operations over 67 TFLOP/s (the H100 SXM data sheet).  The
+last line is {"ok": true, "device": {...}}.  TF32 is off for every
+float32 matmul and convolution.
 """
 import dataclasses
-import functools
 import json
 import statistics
 import subprocess
@@ -75,9 +110,29 @@ CLEAN_TOL_DB = 0.1
 # phase 8: y_sin SNR of the 1 s rows of seeds 0 (noisy) and 64 (clean)
 PUBLIC_11025_PINS_DB = {0: 36.86190946632691, 64: 46.70321121537888}
 PUBLIC_TOL_DB = 0.1
+# the JAX package's own values at 16 kHz on the CPU, from
+#   JAX_PLATFORMS=cpu PYTHONPATH=. python scripts/port_jax_pins.py duration=8
+# phase 9: layer-1 round-trip y_sin SNR of bench rows 0, 1 (noisy), 64 (clean)
+LAYER1_PINS_DB = {0: 40.059172572920154, 1: 40.609634863972815,
+                  64: 55.24957249760942}
+# phase 10: SNR of PbP y_sin against the layer-1 sinusoidal y_sin, LF rows
+# 0 and 1 (PbP renders the LF x minimum-phase pulse and drops the measured
+# phase residual vsphse, so the two waveforms are near-uncorrelated: a
+# regression pin, not a quality figure)
+PBP_PINS_DB = {0: 2.5078524906236277, 1: -3.4844267509230527}
+# phase 10: median voiced rd of LF rows 0 and 1 after the library-default
+# analysis and chunk_to_layer1 (Rd 0.4 and 1.0; the same script)
+RD_PINS = {0: 0.41814684867858887, 1: 0.9919065237045288}
+RD_PIN_REL_TOL = 0.01
+RD_CPU_REL_TOL = 1e-3                     # phase 10: card rd against the CPU
+LF_RD = (0.4, 1.0, 1.8, 2.7)              # phase 10: true Rd of row i % 4
+RD_REL_TOL = 0.15                         # tests/test_layer1.py's criterion
+# H100 SXM data sheet: HBM rate and float32 rate outside the tensor cores
+HBM_BYTES_PER_S, FP32_OPS_PER_S = 3.35e12, 67e12
 # kernel -> (source, TPU kernel it replaces, tolerance on max |error|); a
 # string tolerance "rel x" is x times the largest |track| of the call's
-# inputs (the denoiser's: test_pallas.py's 2e-3 x scale)
+# inputs (the denoiser's: test_pallas.py's 2e-3 x scale); a tuple is one
+# absolute tolerance per output
 KERNELS = {
     "harmonic_project_win": ("libllsm2_tpu_torch/csrc/harmonic_project_win.cu",
                              "libllsm2_tpu/ops/pallas_osc.py:254", 2e-3),
@@ -95,8 +150,13 @@ KERNELS = {
                              "libllsm2_tpu/ops/pallas_osc.py:786", "rel 2e-3"),
     "harmonic_project": ("libllsm2_tpu_torch/csrc/harmonic_project.cu",
                          "libllsm2_tpu/ops/pallas_osc.py:1388", 2e-3),
+    "fir_frames": ("libllsm2_tpu_torch/csrc/fir_frames.cu",
+                   "libllsm2_tpu/ops/pallas_osc.py:1315", "rel 1e-6"),
+    "env_render": ("libllsm2_tpu_torch/csrc/env_render.cu",
+                   "libllsm2_tpu/ops/pallas_osc.py:360", (2e-5, 2e-6)),
 }
-MAIN_SIX = tuple(KERNELS)[:6]     # the library-default path's kernels
+MAIN_SIX = tuple(KERNELS)[:6]     # the library-default path's CUDA kernels
+MAIN = MAIN_SIX + ("fir_frames",)  # ... and its frame-axis FIR
 
 
 class PhaseError(Exception):
@@ -130,6 +190,8 @@ def track_scale(torch, name, args, kw, ref):
     projection, the largest |re + j im| of the plain version's output."""
     if name == "harmonic_project_mxu":
         return float(torch.max(torch.hypot(ref[0], ref[1])))
+    if name == "fir_frames":
+        return float(torch.max(torch.abs(args[0])))
     if name == "denoise_stats" and not kw.get("complex_input"):
         return float(torch.max(torch.abs(args[0])))
     return float(torch.max(torch.hypot(args[0], args[1])))
@@ -179,40 +241,226 @@ def variants(torch, name, args, kw):
     return []
 
 
-def check_kernel(torch, kernels, name, tol, args, kw, label):
-    """Kernel against its plain version on one call's inputs -> case."""
+def _nbytes(torch, ts):
+    return sum(t.numel() * t.element_size() for t in ts if torch.is_tensor(t))
+
+
+def kernel_ops(torch, name, args, kw):
+    """float32 operations one call needs on these inputs (a complex
+    rotate-and-accumulate step counts 10; the denoiser's per-slot fit ~40),
+    counting only live harmonics and columns where the inputs say so."""
+    a = args
+    if name == "osc_bank":                   # dc [R, T], kl [R]
+        return 10.0 * a[0].shape[1] * float(a[4].sum())
+    if name in ("harmonic_project_win", "harmonic_project"):
+        R, W = a[0].shape
+        K = a[3] if name == "harmonic_project_win" else a[2]
+        lo, hi = ((a[4], a[5]) if name == "harmonic_project_win"
+                  else (a[3] if len(a) > 3 else None,
+                        a[4] if len(a) > 4 else None))
+        if lo is None:
+            return 10.0 * R * W * K
+        kl = kw.get("kl")
+        live = kl.float() if kl is not None else float(K)
+        return 10.0 * float(((hi - lo).float() * live).sum())
+    if name == "harmonic_project_mxu":       # x, cyc, hw, K, nhop, hh
+        reach = a[5] * a[4]
+        span = torch.clamp(2 * torch.ceil(a[2]) + 1, max=2 * reach + 1)
+        return 10.0 * a[3] * float(span.sum())
+    if name == "deconv_full":                # ampl [B, N, K], eq [B, N, nq]
+        B, N, K = a[0].shape
+        band = 2 * a[6] + 1
+        return float(B * N) * (24.0 * K * band + 10.0 * band * a[4].shape[-1])
+    if name in ("noise_mod_ola", "env_render"):
+        B, N, C, Ke = a[2].shape
+        return float(a[0].numel()) * C * (16.0 * Ke + 13.0)
+    if name == "denoise_stats":
+        return float(a[0].numel()) * (4.0 * len(a[5]) + 4.0 * len(a[6]) + 40.0)
+    if name == "denoise_apply":
+        return float(a[0].numel()) * 40.0
+    if name == "fir_frames":
+        n = a[0].numel() * (2 if a[0].is_complex() else 1)
+        return 2.0 * len(a[1]) * n
+    raise KeyError(name)
+
+
+def kernel_bytes(torch, name, args, out):
+    """Bytes one call must move: every input read once, every output
+    written once; of the framed projections' [R, W] inputs (cycle offsets
+    and frames) only each row's live columns [lo, hi)."""
+    outs = out if isinstance(out, (tuple, list)) else (out,)
+    nbytes = _nbytes(torch, args) + _nbytes(torch, outs)
+    lohi = {"harmonic_project_win": (4, 5), "harmonic_project": (3, 4)}
+    if name in lohi and len(args) > max(lohi[name]):
+        lo, hi = (args[i] for i in lohi[name])
+        R, W = args[0].shape
+        nbytes -= 2 * 4 * (R * W - float((hi - lo).sum()))
+    return nbytes
+
+
+def bound(torch, name, args, kw, out):
+    """-> (bound_ms, bound_by): the larger of the bytes the call must move
+    (kernel_bytes) over the HBM rate and its operations over the float32
+    rate."""
+    nbytes = kernel_bytes(torch, name, args, out)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = kernel_ops(torch, name, args, kw) / FP32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def library_call(torch, name, args, kw):
+    """The kernel's function in plain PyTorch around one library
+    contraction or convolution, from the same inputs, or None where there
+    is none: an einsum against the dense oscillator / chirp basis for the
+    oscillator bank and the framed projections, one bmm of banded window
+    rows for the unframed projection, conv1d with the fixed taps for
+    fir_frames.  The making of those operands (basis, windows, layout) is
+    part of the returned callable, so it is timed with the call."""
+    import math
+    F = torch.nn.functional
+    from libllsm2_tpu_torch.ops.windows import window_centered
+    frac = lambda v: v - torch.round(v)
+    if name == "osc_bank":
+        dc, ampl, phse, mask, kl = args
+        K = ampl.shape[-1]
+        kh = torch.arange(1, K + 1, device=dc.device, dtype=dc.dtype)
+        live = torch.arange(K, device=dc.device) < kl[:, None]
+
+        def call():
+            osc = torch.cos(2 * math.pi * frac(kh[None, :, None]
+                                               * dc[:, None])
+                            + phse[..., None])
+            return torch.einsum("nkt,nk->nt", osc, ampl * mask * live)
+        return call
+    if name in ("harmonic_project_win", "harmonic_project"):
+        dc = args[0]
+        W = dc.shape[1]
+        col = torch.arange(W, device=dc.device)
+        K = args[3] if name == "harmonic_project_win" else args[2]
+        kh = torch.arange(1, K + 1, device=dc.device, dtype=dc.dtype)
+        one = torch.ones((), device=dc.device)
+
+        def call():
+            if name == "harmonic_project_win":
+                frames, hw, _, lo, hi = args[1:6]
+                xw = frames * window_centered(
+                    kw.get("window", "hanning"),
+                    (col - kw["center"]).to(dc.dtype)[None], hw[:, None])
+            else:
+                xw = args[1]
+                lo, hi = (args[3], args[4]) if len(args) > 4 else (0, W)
+                lo = torch.as_tensor(lo, device=dc.device)
+                hi = torch.as_tensor(hi, device=dc.device)
+            xw = xw * ((col >= lo.reshape(-1, 1)) & (col < hi.reshape(-1, 1)))
+            basis = torch.polar(one, -2 * math.pi * frac(kh[None, :, None]
+                                                         * dc[:, None]))
+            return torch.einsum("nkw,nw->nk", basis, xw.to(basis.dtype))
+        return call
+    if name == "harmonic_project_mxu":
+        x, cyc, hw, K, nhop, hh = args
+        B, nx = x.shape
+        N = hw.shape[-1]
+        off = (torch.arange(nx, device=x.device)[None, :]
+               - torch.arange(N, device=x.device)[:, None] * nhop)
+        kh = torch.arange(1, K + 1, device=x.device, dtype=x.dtype)
+
+        def call():
+            w = window_centered(kw.get("window", "hanning"),
+                                off.to(x.dtype)[None],
+                                hw[..., None]) * (off.abs() <= hh * nhop)
+            ang = 2 * math.pi * frac(kh * cyc[..., None])
+            G = torch.cat([torch.ones_like(x)[..., None], x[..., None],
+                           x[..., None] * torch.cos(ang),
+                           -x[..., None] * torch.sin(ang)], dim=-1)
+            return torch.bmm(w, G)
+        return call
+    if name == "fir_frames":
+        v, taps = args
+        x = torch.view_as_real(v) if v.is_complex() else v
+        B, N = x.shape[:2]
+        wt = torch.tensor(taps, dtype=torch.float32,
+                          device=v.device).reshape(1, 1, -1)
+        return lambda: F.conv1d(
+            x.reshape(B, N, -1).permute(0, 2, 1).reshape(-1, 1, N),
+            wt, padding=len(taps) // 2)
+    return None
+
+
+def check_kernel(torch, kernels, name, tol, args, kw, label, library=False):
+    """Kernel against its plain version on one call's inputs -> case (with
+    the bound and, if library, the one-call PyTorch yardstick's time)."""
     fn = getattr(kernels, name)
     ref_fn = getattr(kernels, name + "_ref")
     got, ref = fn(*args, **kw), ref_fn(*args, **kw)
     torch.cuda.synchronize()
-    scale = 1.0
-    if isinstance(tol, str):
-        scale = track_scale(torch, name, args, kw, ref)
-        tol = float(tol.split()[1]) * scale
-    err = max_err(torch, name, got, ref, scale)
+    if isinstance(tol, tuple):                # one tolerance per output
+        errs = [float(torch.max(torch.abs(g - r))) for g, r in zip(got, ref)]
+        err, ok = max(errs), all(e <= t for e, t in zip(errs, tol))
+    else:
+        scale = 1.0
+        if isinstance(tol, str):
+            scale = track_scale(torch, name, args, kw, ref)
+            tol = float(tol.split()[1]) * scale
+        err = max_err(torch, name, got, ref, scale)
+        ok = err <= tol
     ms = cuda_ms(torch, lambda: fn(*args, **kw), 10)
     plain_ms = cuda_ms(torch, lambda: ref_fn(*args, **kw), 10)
+    bound_ms, bound_by = bound(torch, name, args, kw, got)
+    library_ms = None
+    if library:
+        call = library_call(torch, name, args, kw)
+        if call is not None:
+            library_ms = cuda_ms(torch, call, 10)
+            del call
+            torch.cuda.empty_cache()
     shapes = [tuple(a.shape) for a in args if torch.is_tensor(a)]
-    phase(f"3 {name}[{label}]", err <= tol,
-          f"shapes {shapes[:2]} max_abs_err {err:.3e} (tol {tol:.3g}) "
-          f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+    lib = "n/a" if library_ms is None else f"{library_ms:.4f} ms"
+    phase(f"3 {name}[{label}]", ok,
+          f"shapes {shapes[:2]} max_abs_err {err:.3e} (tol {tol}) "
+          f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms library {lib} "
+          f"bound {bound_ms:.4f} ms ({bound_by})")
     return {"call": label, "shapes": shapes[:2], "max_abs_err": err,
-            "tol": tol, "ms": ms, "plain_ms": plain_ms}
+            "tol": tol, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
+
+
+def full_batch(torch, kernels, calls, label):
+    """Each captured kernel at full batch: its first call timed alone
+    (median of 10) beside its bound -> {name: record}."""
+    out = {}
+    for name in calls:
+        args, kw = calls[name][0]
+        fn = getattr(kernels, name)
+        got = fn(*args, **kw)
+        ms = cuda_ms(torch, lambda: fn(*args, **kw), 10)
+        bound_ms, bound_by = bound(torch, name, args, kw, got)
+        shapes = [tuple(a.shape) for a in args if torch.is_tensor(a)]
+        print(f"full batch {label} {name}: shapes {shapes[:2]} kernel "
+              f"{ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+        out[name] = {"phase": label, "shapes": shapes[:2], "ms": ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by}
+        del got
+    torch.cuda.empty_cache()
+    return out
 
 
 def run_path(torch, kernels, corpus, label, opt, sopt, data, pins, need,
-             clean_min=CLEAN_MIN_DB):
+             timed, clean_min=CLEAN_MIN_DB):
     """Drive batched_pipeline once with the launch counters zeroed just
-    before and read just after; check the kernels in `need` launched, the
-    output and the SNR pins (noisy rows within NOISY_TOL_DB of theirs,
-    clean rows at most CLEAN_TOL_DB under theirs, the clean mean >=
-    clean_min unless None); then the step time (median of 5) and peak
-    memory.  -> (the launch counts, the per-row SNRs)."""
+    before and read just after, capturing the inputs of the kernels in
+    `timed`; check the kernels in `need` launched, the output and the SNR
+    pins (noisy rows within NOISY_TOL_DB of theirs, clean rows at most
+    CLEAN_TOL_DB under theirs, the clean mean >= clean_min unless None);
+    time each `timed` kernel at full batch on its first call (full_batch);
+    then the step time (median of 5) and peak memory.  -> (the launch
+    counts, the per-row SNRs, the full-batch records)."""
     x, f0, x_ref, nxv = data
     B = x.shape[0]
-    n_noisy = B // 2                 # noisy rows first, then clean
     kernels.reset_launches()
-    y, snr, _ = corpus.batched_pipeline(opt, sopt, x, f0, nxv, x_ref)
+    calls, (y, snr, _) = capture_kernel_inputs(
+        kernels, timed,
+        lambda: corpus.batched_pipeline(opt, sopt, x, f0, nxv, x_ref))
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
     phase(f"{label} launches", all(launches[k] > 0 for k in need),
@@ -220,21 +468,11 @@ def run_path(torch, kernels, corpus, label, opt, sopt, data, pins, need,
     phase(f"{label} output", tuple(y.shape) == tuple(x.shape)
           and bool(torch.isfinite(y).all()), f"y {tuple(y.shape)} finite")
     snr = snr.cpu().tolist()
-    clean = statistics.fmean(snr[n_noisy:])
-    phase(f"{label} clean snr", clean_min is None or clean >= clean_min,
-          f"mean {clean:.4f} dB over {B - n_noisy} clean rows "
-          f"(min {min(snr[n_noisy:]):.4f}; pin >= {clean_min})")
-    for row, pin in pins.items():
-        if row < n_noisy:
-            phase(f"{label} noisy snr row {row}",
-                  abs(snr[row] - pin) <= NOISY_TOL_DB,
-                  f"{snr[row]:.4f} dB (pin {pin} +- {NOISY_TOL_DB})")
-        else:
-            phase(f"{label} clean snr row {row}",
-                  snr[row] >= pin - CLEAN_TOL_DB,
-                  f"{snr[row]:.4f} dB (pin {pin} - {CLEAN_TOL_DB})")
-    print(f"{label}: noisy rows mean snr {statistics.fmean(snr[:n_noisy]):.4f}"
-          f" dB over {n_noisy} rows", flush=True)
+    check_snr(label, snr, pins, clean_min)
+    del y
+    full = full_batch(torch, kernels, calls, label.split()[0])
+    del calls
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     steps = []
     for _ in range(5):
@@ -248,30 +486,41 @@ def run_path(torch, kernels, corpus, label, opt, sopt, data, pins, need,
           f"{[round(t * 1e3, 2) for t in steps]} ms; "
           f"{B * DURATION / step:.1f} audio-sec/s; peak "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return launches, snr
+    return launches, snr, full
 
 
-def _utterance(i, fs=16000.0):
-    from libllsm2_tpu_torch.utils import testsig
-    return testsig.make_test_utterance(
-        duration=DURATION, fs=fs, seed=i,
-        noise_level=0.05 if i < N_NOISY else 0.0, return_parts=True)
+def check_snr(label, snr, pins, clean_min):
+    """Per-row SNR checks of a bench batch (noisy rows first, then clean):
+    the clean mean >= clean_min unless None, noisy pinned rows within
+    NOISY_TOL_DB, clean pinned rows at most CLEAN_TOL_DB under."""
+    n_noisy = len(snr) // 2
+    clean = statistics.fmean(snr[n_noisy:])
+    phase(f"{label} clean snr", clean_min is None or clean >= clean_min,
+          f"mean {clean:.4f} dB over {len(snr) - n_noisy} clean rows "
+          f"(min {min(snr[n_noisy:]):.4f}; pin >= {clean_min})")
+    for row, pin in pins.items():
+        if row < n_noisy:
+            phase(f"{label} noisy snr row {row}",
+                  abs(snr[row] - pin) <= NOISY_TOL_DB,
+                  f"{snr[row]:.4f} dB (pin {pin} +- {NOISY_TOL_DB})")
+        else:
+            phase(f"{label} clean snr row {row}",
+                  snr[row] >= pin - CLEAN_TOL_DB,
+                  f"{snr[row]:.4f} dB (pin {pin} - {CLEAN_TOL_DB})")
+    print(f"{label}: noisy rows mean snr {statistics.fmean(snr[:n_noisy]):.4f}"
+          f" dB over {n_noisy} rows", flush=True)
 
 
 def fixtures(torch, dev, fs=16000.0):
-    """The bench fixtures at rate fs: rows [0, N_NOISY) noisy, the rest
-    clean; made in worker processes (numpy, float64), which all exit
-    before return."""
-    import multiprocessing
-    import os
-    from concurrent.futures import ProcessPoolExecutor
-
+    """The bench fixtures at rate fs (bench.py's rows): rows [0, N_NOISY)
+    with breath noise 0.05, the rest clean; the harmonic part, which no
+    row's seed changes, is synthesized once (numpy, float64)."""
     import numpy as np
-    workers = max(1, min(8, os.cpu_count() or 1))
-    with ProcessPoolExecutor(workers, multiprocessing.get_context("spawn")) \
-            as pool:
-        rows = list(pool.map(functools.partial(_utterance, fs=fs),
-                             range(BATCH)))
+
+    from libllsm2_tpu_torch.utils import testsig
+    rows = testsig.make_test_utterances(
+        [(i, 0.05 if i < N_NOISY else 0.0) for i in range(BATCH)],
+        duration=DURATION, fs=fs)
     x, f0, x_ref = (torch.tensor(np.stack([r[j] for r in rows]),
                                  dtype=torch.float32, device=dev)
                     for j in range(3))
@@ -279,9 +528,178 @@ def fixtures(torch, dev, fs=16000.0):
     return x, f0, x_ref, nxv
 
 
+def _lf_utterance(i):
+    from libllsm2_tpu_torch.utils import testsig
+    nfrm = int(round(DURATION / 0.005))
+    return testsig.synth_lf_speech(testsig.make_f0_track(nfrm, 0.005),
+                                   rd=LF_RD[i % len(LF_RD)], seed=i)
+
+
+def lf_fixtures(torch, dev):
+    """Phase 10's LF rows, made here (numpy, scipy and the port's LF model
+    on the CPU: ~30 ms a row) -> (x, f0)."""
+    import numpy as np
+    rows = [_lf_utterance(i) for i in range(BATCH)]
+    return tuple(torch.tensor(np.stack([r[j] for r in rows]),
+                              dtype=torch.float32, device=dev)
+                 for j in range(2))
+
+
+def snr_rows(torch, ref, y, fs, f0_floor):
+    """snr_db of every row of a batch -> list."""
+    return [snr_db(torch, ref[b], y[b], fs, f0_floor)
+            for b in range(ref.shape[0])]
+
+
+def staged(torch, stages):
+    """Run the (name, fn) stages in order, each fed the previous result,
+    with a synchronized host timer around each -> (result, {name: ms})."""
+    out, ms = None, {}
+    for name, fn in stages:
+        t0 = time.perf_counter()
+        out = fn(out)
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) * 1e3
+    return out, ms
+
+
+def median_stages(torch, stages, reps):
+    """Stage times (median of reps) and the peak memory of those runs."""
+    torch.cuda.reset_peak_memory_stats()
+    runs = [staged(torch, stages)[1] for _ in range(reps)]
+    return ({k: statistics.median(r[k] for r in runs) for k in runs[0]},
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def layer1_round_trip(torch, kernels, mods, opt, sopt, data):
+    """Phase 9: the library-default analysis -> chunk_to_layer1 ->
+    chunk_to_layer0 -> _synthesize on the bench rows -> (the layer-0
+    chunk, launches)."""
+    layer0, layer1 = mods
+    x, f0, x_ref, _ = data
+    B = x.shape[0]
+    conf = opt.conf
+    chunk0 = {}
+
+    def analysis(_):
+        chunk0["c"] = layer0._analyze(opt, x, f0)
+        return chunk0["c"]
+
+    stages = [("analyze", analysis), ("to_layer1", layer1.chunk_to_layer1),
+              ("to_layer0", layer1.chunk_to_layer0),
+              ("synthesize", lambda c: layer0._synthesize(sopt, c))]
+    kernels.reset_launches()
+    out, _ = staged(torch, stages)
+    launches = dict(kernels.LAUNCHES)
+    phase("9 layer1 launches", all(launches[k] > 0 for k in MAIN),
+          str(launches))
+    phase("9 layer1 output", tuple(out.y.shape) == tuple(x.shape)
+          and bool(torch.isfinite(out.y).all()),
+          f"y {tuple(out.y.shape)} finite")
+    snr = snr_rows(torch, x_ref, out.y_sin, conf.fs, conf.f0_floor)
+    print(f"9 layer1: y_sin snr by row (dB): {[round(v, 4) for v in snr]}",
+          flush=True)
+    pin_clean = LAYER1_PINS_DB[max(LAYER1_PINS_DB)]
+    check_snr("9 layer1", snr, LAYER1_PINS_DB, None)
+    phase("9 layer1 every clean row", min(snr[B // 2:]) >= pin_clean
+          - CLEAN_TOL_DB, f"min {min(snr[B // 2:]):.4f} dB (pin {pin_clean} "
+          f"- {CLEAN_TOL_DB})")
+    ms, peak = median_stages(torch, stages, 3)
+    g = torch.Generator(device=x.device).manual_seed(0)
+    score = torch.rand((B, chunk0["c"].nfrm, layer1.RD_GRID_SIZE),
+                       generator=g, device=x.device)
+    voiced = chunk0["c"].f0 > 0
+    vit_ms = cuda_ms(torch, lambda: layer1._rd_viterbi(score, voiced, 10.0), 3)
+    print(f"9 layer1: _rd_viterbi on [{B}, {score.shape[1]}, "
+          f"{score.shape[2]}] scores {vit_ms:.2f} ms a call (median of 3; "
+          f"two calls in each chunk_to_layer1)", flush=True)
+    del score
+    l1_ms = ms["to_layer1"] + ms["to_layer0"] + ms["synthesize"]
+    phase("9 layer1 step", True,
+          f"{B} x {DURATION} s: " + ", ".join(f"{k} {v:.2f} ms"
+                                              for k, v in ms.items())
+          + f" (median of 3); layer-1 round trip {l1_ms:.2f} ms = "
+          f"{B * DURATION / (l1_ms / 1e3):.1f} audio-sec/s; with the analysis "
+          f"{B * DURATION / (sum(ms.values()) / 1e3):.1f} audio-sec/s; peak "
+          f"{peak:.2f} GiB")
+    return chunk0["c"], launches
+
+
+def pbp_phase(torch, kernels, mods, opt, sopt, dev):
+    """Phase 10: LF rows -> the library-default analysis -> chunk_to_layer1
+    -> pbp_synthesize -> launches."""
+    from libllsm2_tpu_torch.container import (chunk_from_numpy,
+                                              chunk_to_numpy, index_batch)
+    layer0, layer1, pbp = mods
+    t0 = time.perf_counter()
+    x, f0 = lf_fixtures(torch, dev)
+    print(f"10 pbp fixtures: {BATCH} x {DURATION} s of synth_lf_speech in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    B = x.shape[0]
+    conf = opt.conf
+    chunk0 = {}
+
+    def analysis(_):
+        chunk0["c"] = layer0._analyze(opt, x, f0)
+        return chunk0["c"]
+
+    stages = [("analyze", analysis), ("to_layer1", layer1.chunk_to_layer1),
+              ("pbp", lambda c: (c, pbp._pbp_synthesize(sopt, c)))]
+    kernels.reset_launches()
+    (l1, out), _ = staged(torch, stages)
+    launches = dict(kernels.LAUNCHES)
+    phase("10 pbp launches", launches["noise_mod_ola"] > 0
+          and launches["fir_frames"] > 0, str(launches))
+    phase("10 pbp output", tuple(out.y.shape) == tuple(x.shape)
+          and bool(torch.isfinite(out.y).all()),
+          f"y {tuple(out.y.shape)} finite")
+    errs = []
+    for b in range(B):
+        med = float(torch.median(l1.rd[b][l1.f0[b] > 0]))
+        errs.append(abs(med - LF_RD[b % len(LF_RD)]) / LF_RD[b % len(LF_RD)])
+    worst = max(range(B), key=errs.__getitem__)
+    phase("10 pbp rd", max(errs) <= RD_REL_TOL,
+          f"median voiced rd within {max(errs) * 100:.2f}% of the truth "
+          f"(worst row {worst}, Rd {LF_RD[worst % len(LF_RD)]}; "
+          f"limit {RD_REL_TOL * 100:.0f}%)")
+    for row, pin in RD_PINS.items():
+        med = float(torch.median(l1.rd[row][l1.f0[row] > 0]))
+        phase(f"10 pbp rd row {row}", abs(med - pin) <= RD_PIN_REL_TOL * pin,
+              f"median voiced rd {med:.6f} (JAX {pin:.6f} +- "
+              f"{RD_PIN_REL_TOL * 100:.0f}%)")
+    # the card's Rd fit (scores, Viterbi, IRLS pass) against the CPU's on
+    # one full-length row from the same layer-0 parameters
+    t0 = time.perf_counter()
+    row_cpu = chunk_from_numpy(chunk_to_numpy(index_batch(chunk0["c"],
+                                                          slice(0, 1))),
+                               conf, device="cpu")
+    rd_cpu = layer1.chunk_to_layer1(row_cpu).rd[0]
+    rel = torch.abs(l1.rd[0].cpu() - rd_cpu) / rd_cpu
+    phase("10 pbp rd row 0 card vs cpu", float(rel.max()) <= RD_CPU_REL_TOL,
+          f"{rd_cpu.shape[0]} frames: max relative difference "
+          f"{float(rel.max()):.3e}, {int((rel > RD_CPU_REL_TOL).sum())} "
+          f"frames over {RD_CPU_REL_TOL} (CPU fit "
+          f"{time.perf_counter() - t0:.1f} s)")
+    chunk0.clear()
+    y_sin = layer0._synthesize(sopt, layer1.chunk_to_layer0(l1)).y_sin
+    for row, pin in PBP_PINS_DB.items():
+        snr = snr_db(torch, y_sin[row], out.y_sin[row], conf.fs, conf.f0_floor)
+        phase(f"10 pbp snr row {row}", abs(snr - pin) <= NOISY_TOL_DB,
+              f"PbP y_sin against the sinusoidal y_sin {snr:.4f} dB "
+              f"(JAX {pin:.4f} +- {NOISY_TOL_DB})")
+    del y_sin, out
+    ms, peak = median_stages(torch, stages, 3)
+    phase("10 pbp step", True,
+          f"{B} x {DURATION} s: " + ", ".join(f"{k} {v:.2f} ms"
+                                              for k, v in ms.items())
+          + f" (median of 3); PbP {B * DURATION / (ms['pbp'] / 1e3):.1f} "
+          f"audio-sec/s; peak {peak:.2f} GiB")
+    return launches
+
+
 def capture_kernel_inputs(kernels, names, run):
-    """Run `run()` with the wrappers of `names` recording their
-    arguments."""
+    """Run `run()` with the wrappers of `names` recording the arguments of
+    each call -> ({name: [(args, kw), ...]}, run's result)."""
     calls = {name: [] for name in names}
     originals = {name: getattr(kernels, name) for name in names}
 
@@ -294,11 +712,11 @@ def capture_kernel_inputs(kernels, names, run):
     for name in names:
         setattr(kernels, name, hook(name))
     try:
-        run()
+        result = run()
     finally:
         for name, fn in originals.items():
             setattr(kernels, name, fn)
-    return calls
+    return calls, result
 
 
 def snr_db(torch, ref, y, fs, f0_floor):
@@ -323,13 +741,17 @@ def public_11025(torch, kernels, lt, dev):
     sopt = dataclasses.replace(lt.create_soptions(fs=fs), use_pallas=True)
     kernels.reset_launches()
     for seed, pin in PUBLIC_11025_PINS_DB.items():
-        x, f0, x_ref = (torch.tensor(v, dtype=torch.float32, device=dev)
+        x, f0, x_ref = (v.astype("float32")
                         for v in testsig.make_test_utterance(
                             duration=1.0, fs=fs, seed=seed,
                             noise_level=0.05 if seed < N_NOISY else 0.0,
                             return_parts=True))
-        chunk = lt.analyze(opt, x, f0)
+        chunk = lt.analyze(opt, x, f0)          # numpy: on the card by default
+        phase(f"8 public 11025 Hz seed {seed} device",
+              chunk.ampl.device == dev, f"numpy input analyzed on "
+              f"{chunk.ampl.device}")
         out = lt.synthesize(sopt, chunk)
+        x_ref = torch.tensor(x_ref, device=dev)
         torch.cuda.synchronize()
         ny = int(round(chunk.nfrm * opt.conf.thop * fs))
         phase(f"8 public 11025 Hz seed {seed} output",
@@ -408,8 +830,11 @@ def main():
             halfwin_max=conf.halfwin_max, rel_winsize=conf.rel_winsize,
             fnyq=conf.fnyq, window="mltsine")
 
+    opt_lp = dataclasses.replace(opt, track_lowpass_hz=30.0)
     captures = [
-        ("", MAIN_SIX, lambda: corpus.batched_pipeline(opt, sopt, *two(data))),
+        ("", MAIN, lambda: corpus.batched_pipeline(opt, sopt, *two(data))),
+        ("lowpass ", ("fir_frames",),
+         lambda: corpus.batched_pipeline(opt_lp, sopt, *two(data))),
         ("matmul ", ("harmonic_project_mxu",),
          lambda: corpus.batched_pipeline(opt_mxu, sopt, *two(data))),
         ("refine K=1 ", ("harmonic_project",),
@@ -418,60 +843,100 @@ def main():
     ]
     cases = {name: [] for name in KERNELS}
     for prefix, names, run in captures:
-        calls = capture_kernel_inputs(kernels, names, run)
+        calls, _ = capture_kernel_inputs(kernels, names, run)
         for name in names:
             tol = KERNELS[name][2]
             if not calls[name]:
                 phase(f"3 {name}", False,
                       f"not called by {prefix or 'the main path'}")
             for i, (args, kw) in enumerate(calls[name]):
-                cases[name].append(check_kernel(torch, kernels, name, tol,
-                                                args, kw, f"{prefix}{i}"))
+                cases[name].append(check_kernel(
+                    torch, kernels, name, tol, args, kw, f"{prefix}{i}",
+                    library=not cases[name]))
                 for label, v_args, v_kw in variants(torch, name, args, kw):
                     cases[name].append(check_kernel(torch, kernels, name, tol,
                                                     v_args, v_kw, label))
+        if "noise_mod_ola" in names:
+            # env_render on the main path's envelope coefficients: the
+            # first five arguments of its noise_mod_ola call
+            for i, (args, _) in enumerate(calls["noise_mod_ola"]):
+                cases["env_render"].append(check_kernel(
+                    torch, kernels, "env_render", KERNELS["env_render"][2],
+                    args[:5], {}, f"noise_mod_ola {i}",
+                    library=not cases["env_render"]))
         del calls
     summary = {name: {"name": name, "route": "cuda", "source": source,
-                      "replaces": replaces,
+                      "replaces": replaces, "launches": 0,
                       "max_abs_err": max(c["max_abs_err"]
                                          for c in cases[name]),
-                      "ms": cases[name][0]["ms"],
-                      "plain_ms": cases[name][0]["plain_ms"],
+                      **{k: cases[name][0][k] for k in
+                         ("ms", "plain_ms", "bound_ms", "bound_by",
+                          "library_ms")},
                       "cases": cases[name]}
                for name, (source, replaces, _) in KERNELS.items()}
+    full = {}
 
     # phase 4: the denoiser-off path on 32 rows
     rows = torch.tensor(OFF_ROWS, device=dev)
     run_path(torch, kernels, corpus, "4 denoiser off", opt_off, sopt,
              tuple(d[rows] for d in data), NOISY_PINS_DB["denoiser off"],
              ("osc_bank", "harmonic_project_win", "deconv_full",
-              "noise_mod_ola"))
+              "noise_mod_ola"), ())
     # phase 5: the main path, the library default, on all 128 rows
-    launches, snr5 = run_path(torch, kernels, corpus, "5 library default",
-                              opt, sopt, data,
-                              NOISY_PINS_DB["library default"], MAIN_SIX)
-    for name in MAIN_SIX:
+    launches, snr5, f = run_path(torch, kernels, corpus, "5 library default",
+                                 opt, sopt, data,
+                                 NOISY_PINS_DB["library default"], MAIN, MAIN)
+    for name in MAIN:
         summary[name]["launches"] = launches[name]
+    full.update(f)
     # phase 6: hm_kernel="matmul" at the library default, all 128 rows
-    launches, snr6 = run_path(torch, kernels, corpus, "6 matmul", opt_mxu,
-                              sopt, data, NOISY_PINS_DB["library default"],
-                              ("harmonic_project_mxu",) + MAIN_SIX)
+    launches, snr6, f = run_path(torch, kernels, corpus, "6 matmul", opt_mxu,
+                                 sopt, data, NOISY_PINS_DB["library default"],
+                                 ("harmonic_project_mxu",) + MAIN_SIX,
+                                 ("harmonic_project_mxu",))
     summary["harmonic_project_mxu"]["launches"] = \
         launches["harmonic_project_mxu"]
+    full.update(f)
     diff = [a - b for a, b in zip(snr6, snr5)]
     print(f"6 matmul: snr - phase 5 snr: max |diff| "
           f"{max(map(abs, diff)):.4f} dB, noisy rows 0/1 {diff[0]:+.4f} / "
           f"{diff[1]:+.4f} dB, clean mean "
           f"{statistics.fmean(diff[BATCH // 2:]):+.4f} dB", flush=True)
     # phase 7: odd hop at 11 kHz, all 128 rows
-    del data
-    launches, _ = run_path(torch, kernels, corpus, "7 odd hop", opt11, sopt11,
-                           data11, ODD_HOP_PINS_DB,
-                           ("harmonic_project",) + MAIN_SIX, clean_min=None)
+    launches, _, f = run_path(torch, kernels, corpus, "7 odd hop", opt11,
+                              sopt11, data11, ODD_HOP_PINS_DB,
+                              ("harmonic_project",) + MAIN_SIX,
+                              ("harmonic_project",), clean_min=None)
     summary["harmonic_project"]["launches"] = launches["harmonic_project"]
+    full.update(f)
     del data11
     # phase 8: an 11.025 kHz file through the public API
     public_11025(torch, kernels, lt, dev)
+    # phase 9: the layer-1 round trip on the bench rows
+    from libllsm2_tpu_torch.models import layer0, layer1, pbp
+    chunk, _ = layer1_round_trip(torch, kernels, (layer0, layer1), opt, sopt,
+                                 data)
+    # env_render, which no library path runs: the full-batch chunk's
+    # envelopes through layer0._render_envelopes(use_pallas=True)
+    nx = chunk.nfrm * conf.nhop
+    cyc = harmonics.sample_cycles(chunk.f0, conf.nhop, conf.fs, nx)
+    render = lambda: layer0._render_envelopes(chunk, cyc, conf.nhop,
+                                              use_pallas=True)
+    kernels.reset_launches()
+    calls, (env, base) = capture_kernel_inputs(kernels, ("env_render",),
+                                               render)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    phase("9 env_render launches", launches["env_render"] == 1
+          and bool(torch.isfinite(env).all() and torch.isfinite(base).all()),
+          f"env, base {tuple(env.shape)} finite; {launches}")
+    summary["env_render"]["launches"] = launches["env_render"]
+    full.update(full_batch(torch, kernels, calls, "9"))
+    del chunk, cyc, env, base, data, calls
+    # phase 10: pulse-by-pulse synthesis of LF rows
+    pbp_phase(torch, kernels, (layer0, layer1, pbp), opt, sopt, dev)
+    for name in KERNELS:
+        summary[name]["full_batch"] = full[name]
     print(card, flush=True)
 
     print(json.dumps({"kernels": list(summary.values())}), flush=True)

@@ -3,9 +3,14 @@ Hopper GPUs.  It imports torch and never jax; the JAX package beside it
 is the reference its tests compare against.
 
 Ported so far: the layer-0 round trip analyze -> synthesize with the
-track denoiser off (AnalysisOptions(track_denoise=False, use_pallas=True),
-SynthesisOptions(use_pallas=True)), its four CUDA kernels
-(ops/kernels.py) and the batched pipeline (parallel/corpus.py).
+library's default options and kernels on (use_pallas=True; track
+denoiser, hm_kernel="matmul", odd hops, 11.025 kHz through resampling),
+the batched pipeline (parallel/corpus.py), the layer-1 codec
+(models/layer1.py: chunk_to_layer1, chunk_to_layer0) and pulse-by-pulse
+synthesis (models/pbp.py: pbp_synthesize), with all ten CUDA kernels
+(ops/kernels.py).  Entry points run on the card: numpy input goes to
+"cuda" unless the caller passes device="cpu".  Options not ported raise
+NotImplementedError naming their ROADMAP item.
 """
 
 from .config import (AnalysisOptions, ChunkConf, SynthesisOptions,

@@ -23,7 +23,8 @@ from .fp import FP
 #: the layer-0 fields every chunk carries, in declaration order
 LAYER0_FIELDS = ("f0", "ampl", "phse", "hm_mask", "psd", "edc", "eenv_a",
                  "eenv_p")
-_LAYER1_FIELDS = ("rd", "vtmagn", "vsphse")
+LAYER1_FIELDS = ("rd", "vtmagn", "vsphse")
+CHUNK_FIELDS = LAYER0_FIELDS + LAYER1_FIELDS
 
 
 @dataclasses.dataclass
@@ -39,8 +40,10 @@ class Chunk:
       psd       [..., N, npsd]  residual PSD on the warped axis (linear power)
       edc       [..., N, C]     per-channel temporal-envelope DC (amplitude)
       eenv_a/p  [..., N, C, Ke] envelope harmonic amplitudes / phases
-    Layer 1 (not produced by the port yet):
-      rd [..., N], vtmagn [..., N, nspec], vsphse [..., N, K]
+    Layer 1 (models.layer1.chunk_to_layer1; None on a layer-0 chunk):
+      rd        [..., N]        LF glottal shape parameter per frame
+      vtmagn    [..., N, nspec] vocal-tract LOG magnitude on the rfft grid
+      vsphse    [..., N, K]     voice-source phase residual [rad]
     """
 
     f0: torch.Tensor
@@ -61,6 +64,10 @@ class Chunk:
         return self.f0.shape[-1]
 
     @property
+    def has_layer1(self) -> bool:
+        return self.rd is not None
+
+    @property
     def voiced(self) -> torch.Tensor:
         return self.f0 > 0.0
 
@@ -68,11 +75,20 @@ class Chunk:
         return dataclasses.replace(self, **kw)
 
 
+def index_batch(chunk: Chunk, i) -> Chunk:
+    """Every tensor field indexed by i on its leading axis: i = None adds a
+    batch axis to a single-utterance chunk, i = 0 takes the first row."""
+    return chunk.replace(**{f: getattr(chunk, f)[i] for f in CHUNK_FIELDS
+                            if getattr(chunk, f) is not None})
+
+
 def chunk_from_numpy(d: Mapping[str, np.ndarray], conf: ChunkConf,
-                     device="cpu") -> Chunk:
+                     device="cuda") -> Chunk:
     """Chunk from a mapping of field name -> array (e.g. the fields of a
     JAX-package chunk passed through ``np.asarray``), as float32 tensors
-    on `device`.  The layer-0 fields are required; layer-1 ones optional."""
+    on `device`: the card unless the caller passes ``device="cpu"`` (no
+    fallback: without a card the default raises).  The layer-0 fields are
+    required; layer-1 ones optional."""
     missing = [f for f in LAYER0_FIELDS if f not in d]
     if missing:
         raise KeyError(f"chunk fields missing: {missing}")
@@ -81,14 +97,14 @@ def chunk_from_numpy(d: Mapping[str, np.ndarray], conf: ChunkConf,
         return None if a is None else torch.tensor(
             np.asarray(a, np.float32), device=device)
 
-    return Chunk(**{f: conv(d.get(f)) for f in LAYER0_FIELDS + _LAYER1_FIELDS},
+    return Chunk(**{f: conv(d.get(f)) for f in CHUNK_FIELDS},
                  conf=conf)
 
 
 def chunk_to_numpy(chunk: Chunk) -> dict:
     """Field name -> float32 numpy array for every tensor field set."""
     out = {}
-    for f in LAYER0_FIELDS + _LAYER1_FIELDS:
+    for f in CHUNK_FIELDS:
         v = getattr(chunk, f)
         if v is not None:
             out[f] = v.detach().to("cpu", FP).numpy()

@@ -71,6 +71,29 @@ __device__ __forceinline__ float cosine_window(float u, float c0, float c1,
   return w;
 }
 
+// One noise channel's temporal envelope at one sample, before max(., 0):
+//   lerp(edc) + sum_k lerp(ar_k) cos(2 pi k cyc) - lerp(ai_k) sin(2 pi k cyc)
+// for k = 1..Ke, lerp(a) = a0 + (a1 - a0) s between the coefficients of
+// frames i (ar0, ai0: the channel's Ke values) and i + 1 (ar1, ai1), with
+// (c1, s1) = (cos, sin)(2 pi cyc) seeding the rotation recurrence.  Shared
+// by noise_mod_ola.cu and env_render.cu, so both render the same envelope.
+__device__ __forceinline__ float envelope_sample(
+    float edc0, float edc1, const float* ar0, const float* ar1,
+    const float* ai0, const float* ai1, int Ke, float s, float c1,
+    float s1) {
+  float env = edc0 + (edc1 - edc0) * s;
+  float wr = c1, wi = s1;
+  for (int k = 0; k < Ke; ++k) {
+    const float rl = ar0[k] + (ar1[k] - ar0[k]) * s;
+    const float il = ai0[k] + (ai1[k] - ai0[k]) * s;
+    env += rl * wr - il * wi;
+    const float nwr = wr * c1 - wi * s1;
+    wi = wr * s1 + wi * c1;
+    wr = nwr;
+  }
+  return env;
+}
+
 // Dynamic shared memory above the 48 KB default needs an opt-in per kernel.
 template <typename Kernel>
 inline cudaError_t allow_smem(Kernel k, size_t bytes) {

@@ -15,6 +15,7 @@
 // next-frame lerp partners are read straight from the [B, C, N, 2 nhop]
 // segments and [B, N, ...] coefficients (no cur/nxt or pair copies);
 // threads of one hop share their coefficient loads through the cache.
+// The envelope itself is common.cuh's envelope_sample (env_render.cu's too).
 #include "common.cuh"
 
 namespace {
@@ -40,19 +41,10 @@ noise_mod_kernel(const float* __restrict__ cyc, const float* __restrict__ edc,
   const int T = 2 * nhop;
   float acc = 0.0f;
   for (int c = 0; c < C; ++c) {
-    const float e0 = edc[row * C + c];
-    float env = e0 + (edc[row1 * C + c] - e0) * s;
-    float wr = c1, wi = s1;
-    for (int k = 0; k < Ke; ++k) {
-      const int ck = c * Ke + k;
-      const float r0 = ar[row * C * Ke + ck], i0 = ai[row * C * Ke + ck];
-      const float rl = r0 + (ar[row1 * C * Ke + ck] - r0) * s;
-      const float il = i0 + (ai[row1 * C * Ke + ck] - i0) * s;
-      env += rl * wr - il * wi;
-      const float nwr = wr * c1 - wi * s1;
-      wi = wr * s1 + wi * c1;
-      wr = nwr;
-    }
+    const int64_t o0 = row * C * Ke + c * Ke, o1 = row1 * C * Ke + c * Ke;
+    const float env = llsm::envelope_sample(
+        edc[row * C + c], edc[row1 * C + c], ar + o0, ar + o1, ai + o0,
+        ai + o1, Ke, s, c1, s1);
     const float b0 = base[row * C + c];
     const float bl = b0 + (base[row1 * C + c] - b0) * s;
     const int64_t sg = (((int64_t)b * C + c) * N + i) * T;

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from ..config import AnalysisOptions, ChunkConf, SynthesisOptions
-from ..container import LAYER0_FIELDS, Chunk
+from ..container import Chunk, index_batch
 from ..fp import FP
 from ..ops import harmonics, interp, kernels, resample, spectral, warp
 
@@ -223,8 +223,8 @@ def _track_lowpass(conf: ChunkConf, f0, cyc_c, ampl, phse, mask,
     w = _hann_taps(M)
     c, align = _aligned_track(ampl, phse, cyc_c)
     voiced = (f0 > 0).to(FP)[..., None]
-    guard = kernels._fir_frames(voiced, w) > 0.999      # [B, N, 1]
-    cs = torch.where(guard, kernels._fir_frames(c, w), c) * align.conj()
+    guard = kernels.fir_frames(voiced, w) > 0.999      # [B, N, 1]
+    cs = torch.where(guard, kernels.fir_frames(c, w), c) * align.conj()
     return torch.abs(cs) * mask, torch.angle(cs) * mask
 
 
@@ -365,13 +365,13 @@ def _spectral_gate(c_s, full, pp, guard, v, mask, thop: float,
             a, (0, 0, 0, Nb * BB - N)).reshape(B, Nb, BB, K).mean(dim=2)
         MB = max(int(round(M / BB)), 1) | 1
         wb = _hann_taps(MB)
-        lp_b = kernels._fir_frames(bmean(pp * okf), wb) \
-            / torch.clamp(kernels._fir_frames(bmean(okf), wb), min=1e-9)
+        lp_b = kernels.fir_frames(bmean(pp * okf), wb) \
+            / torch.clamp(kernels.fir_frames(bmean(okf), wb), min=1e-9)
         lp = torch.repeat_interleave(lp_b, BB, dim=1)[:, :N]
     else:
         wl = _hann_taps(M)
-        lp = kernels._fir_frames(pp * okf, wl) \
-            / torch.clamp(kernels._fir_frames(okf, wl), min=1e-9)
+        lp = kernels.fir_frames(pp * okf, wl) \
+            / torch.clamp(kernels.fir_frames(okf, wl), min=1e-9)
     w_loc = torch.clamp(3.0 * lp / torch.clamp(v[:, None, :], min=1e-30)
                         - 0.5, 0.0, 1.0)
     return torch.where(guard, w_loc * (s_dn - c_s), czero)
@@ -428,20 +428,23 @@ def _moving_sum(v: torch.Tensor, S: int) -> torch.Tensor:
     return vp.unfold(-1, S, 1).sum(dim=-1)
 
 
-def analyze(opt: AnalysisOptions, x, f0) -> Chunk:
+def analyze(opt: AnalysisOptions, x, f0, device=None) -> Chunk:
     """Analyze one signal x [nx] with its F0 track f0 [nfrm] (0 =
     unvoiced, frame rate 1/conf.thop) into a chunk (reference: layer0.c
     -> llsm_analyze).  x is at conf.fs, or at opt.fs_input, from which it
     is resampled to conf.fs first (create_aoptions sets fs_input for rates
-    with a non-integral hop, e.g. 11025 Hz).  Tensors stay on their
-    device; numpy input goes to the CPU."""
-    x = torch.as_tensor(x).to(FP)
+    with a non-integral hop, e.g. 11025 Hz).  The analysis runs on
+    `device`; by default a tensor x stays on its device and numpy input
+    goes to the card ("cuda"; pass device="cpu" for the CPU -- without a
+    card the default raises, there is no fallback)."""
+    if device is None:
+        device = x.device if torch.is_tensor(x) else "cuda"
+    x = torch.as_tensor(x, device=device).to(FP)
     f0 = torch.as_tensor(f0, device=x.device).to(FP)
     if _resamples(opt):
         x = resample.resample_to(x, opt.fs_input, opt.conf.fs)
         opt = dataclasses.replace(opt, fs_input=0.0)
-    ch = _analyze(opt, x[None], f0[None])
-    return ch.replace(**{f: getattr(ch, f)[0] for f in LAYER0_FIELDS})
+    return index_batch(_analyze(opt, x[None], f0[None]), 0)
 
 
 def _analyze(opt: AnalysisOptions, x: torch.Tensor,
@@ -546,6 +549,25 @@ def _env_coefs(chunk: Chunk, cyc_c: torch.Tensor):
     return chunk.edc, ar, ai, base
 
 
+def _render_envelopes(chunk: Chunk, cyc: torch.Tensor, nhop: int,
+                      use_pallas: bool = False):
+    """Per-channel temporal envelopes and their baselines (env, base
+    [B, C, nx], nx = cyc.shape[-1]) of a batched chunk, rendered per
+    sample from the frames' envelope coefficients (reference: layer0.c
+    noise synthesis -- envelope reconstruction).  Renders through
+    kernels.env_render, a cut render (nx < N * nhop) included; the JAX
+    package's use_pallas=False branch is not ported."""
+    if not use_pallas:
+        raise _unported("use_pallas=False (the JAX package's jnp branches)",
+                        "Queue 1 item 11")
+    N = chunk.f0.shape[-1]
+    nx = cyc.shape[-1]
+    centers = torch.clamp(torch.arange(N, device=cyc.device) * nhop,
+                          max=nx - 1)
+    coefs = _env_coefs(chunk, cyc[..., centers])
+    return kernels.env_render(cyc, *coefs, nhop=nhop)
+
+
 def _band_segments(shaped_spec: torch.Tensor, masks: torch.Tensor,
                    w: torch.Tensor, T: int) -> torch.Tensor:
     """Windowed per-band time segments [B, C, N, T] from the shaped noise
@@ -632,9 +654,7 @@ def _synth_noise(chunk: Chunk, cyc: torch.Tensor, nhop: int, fs: float,
 def synthesize(opt: SynthesisOptions, chunk: Chunk) -> SynthResult:
     """Synthesize one chunk (no batch axis) back to a waveform (reference:
     layer0.c -> llsm_synthesize)."""
-    batched = chunk.replace(**{f: getattr(chunk, f)[None]
-                               for f in LAYER0_FIELDS})
-    res = _synthesize(opt, batched)
+    res = _synthesize(opt, index_batch(chunk, None))
     return SynthResult(y=res.y[0], y_sin=res.y_sin[0], y_nos=res.y_nos[0],
                        fs=res.fs)
 

@@ -55,6 +55,11 @@ SIGNATURES = {
     # c3, ncoef, stream
     "llsm_harmonic_project_mxu": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                   _I, _I, _F, _F, _F, _F, _I, _P),
+    # v, out, B, N, C, taps (host), ntaps, stream
+    "llsm_fir_frames": (_P, _P, _I, _I, _I, _P, _I, _P),
+    # cyc, edc, ar, ai, base, env, base_out, B, N, nhop, nx, C, Ke, stream
+    "llsm_env_render": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                        _P),
 }
 
 _lib = None

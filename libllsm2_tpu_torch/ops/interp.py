@@ -2,17 +2,48 @@
 reference: ciglet.h -> interp1)."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
 def interp1_uniform(fp: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     """Linear interpolation of fp (last axis sampled on the uniform grid
-    0..len-1) at fractional positions `pos` [P], clamped at the edges.
-    Leading axes of fp are batch axes: returns [..., P]."""
+    0..len-1) at fractional positions pos, clamped at the edges.  The
+    leading axes of fp and pos broadcast: pos [P] serves every row, pos
+    [..., P] one row each (the JAX package's vmap(interp1_uniform)) ->
+    [..., P]."""
     n = fp.shape[-1]
+    lead = torch.broadcast_shapes(fp.shape[:-1], pos.shape[:-1])
     pos = torch.clamp(pos, 0.0, n - 1.0)
     i0 = torch.clamp(torch.floor(pos).to(torch.int64), 0, n - 2)
     frac = pos - i0
-    f0 = fp[..., i0]
-    f1 = fp[..., i0 + 1]
+    fp = fp.expand(lead + (n,))
+    i0 = i0.expand(lead + i0.shape[-1:])
+    f0 = torch.gather(fp, -1, i0)
+    f1 = torch.gather(fp, -1, i0 + 1)
     return f0 + (f1 - f0) * frac
+
+
+def interp(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor) -> torch.Tensor:
+    """Batched counterpart of jnp.interp for non-decreasing knots: x [..., M]
+    at knots xp [..., P] with values fp [..., P] -> [..., M], leading axes
+    broadcast.  As jnp.interp: x below xp[0] gives fp[0], above xp[-1]
+    fp[-1]; among equal knots x falls in the interval to the right of the
+    last of them (searchsorted side="right")."""
+    P = xp.shape[-1]
+    shape = torch.broadcast_shapes(x.shape[:-1], xp.shape[:-1], fp.shape[:-1])
+    x = x.expand(shape + x.shape[-1:]).contiguous()
+    xp = xp.expand(shape + (P,)).contiguous()
+    fp = fp.expand(shape + (P,))
+    i = torch.clamp(torch.searchsorted(xp, x, right=True), 1, P - 1)
+    take = lambda a, j: torch.gather(a, -1, j)
+    x0, x1 = take(xp, i - 1), take(xp, i)
+    f0, f1 = take(fp, i - 1), take(fp, i)
+    dx = x1 - x0
+    delta = x - x0
+    # jnp.interp's equal-knot test: |dx| at most the spacing of eps
+    safe = torch.abs(dx) > float(np.spacing(np.finfo(np.float32).eps))
+    step = delta / torch.where(safe, dx, torch.ones_like(dx))
+    y = torch.where(safe, f0 + step * (f1 - f0), f0)
+    y = torch.where(x < xp[..., :1], fp[..., :1], y)
+    return torch.where(x > xp[..., -1:], fp[..., -1:], y)

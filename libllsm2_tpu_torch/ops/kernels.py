@@ -27,7 +27,8 @@ from .windows import COSINE_SERIES, window_centered
 
 LAUNCHES = {"osc_bank": 0, "harmonic_project_win": 0, "deconv_full": 0,
             "noise_mod_ola": 0, "denoise_stats": 0, "denoise_apply": 0,
-            "harmonic_project": 0, "harmonic_project_mxu": 0}
+            "harmonic_project": 0, "harmonic_project_mxu": 0,
+            "fir_frames": 0, "env_render": 0}
 
 # frames per chunk of the plain versions: bounds their [frames, K, T]
 # temporaries to ~64 MB at any input size
@@ -285,13 +286,43 @@ def noise_mod_ola(cyc: torch.Tensor, edc: torch.Tensor, ar: torch.Tensor,
     return y
 
 
-def render_envelopes(cyc, edc, ar, ai, base, nhop: int):
-    """Per-channel temporal envelopes and their baselines (env [B, C, nx],
-    base [B, C, nx]) from the frame coefficients: the frame-structured
-    lerp + rotation recurrence of layer0._render_envelopes
-    (layer0.py:1008-1041)."""
+# ---------------------------------------------------------------------------
+# 3. envelope render (pallas_osc.env_render_pallas)
+# ---------------------------------------------------------------------------
+
+def env_render(cyc: torch.Tensor, edc: torch.Tensor, ar: torch.Tensor,
+               ai: torch.Tensor, base: torch.Tensor, nhop: int | None = None):
+    """Per-channel temporal envelopes and their baselines of a batch: cyc
+    [B, nx] mod-1 cycle track; edc/base [B, N, C]; ar/ai [B, N, C, Ke]
+    (rotated, voicing-masked envelope coefficients) -> (env [B, C, nx]
+    = max(lerp(edc) + sum_k lerp(ar) cos(2 pi k cyc) - lerp(ai) sin(...),
+    0), base [B, C, nx] = max(lerp(base), 1e-8)); sample t of frame i
+    lerps frames i and i + 1, the last frame holds constant.  nx = N*nhop
+    unless nhop is given: then nx <= N*nhop (the render is cut)."""
+    if not _on_cuda(cyc, edc, ar, ai, base):
+        return env_render_ref(cyc, edc, ar, ai, base, nhop)
     B, N, C, Ke = ar.shape
     nx = cyc.shape[-1]
+    nhop = nx // max(N, 1) if nhop is None else int(nhop)
+    if cyc.shape != (B, nx) or not 0 < nx <= N * nhop \
+            or edc.shape != (B, N, C) or base.shape != (B, N, C) \
+            or ai.shape != ar.shape:
+        raise ValueError("env_render: shape mismatch")
+    cyc, edc, ar, ai, base = map(_f32, (cyc, edc, ar, ai, base))
+    env = torch.empty((B, C, nx), dtype=FP, device=cyc.device)
+    base_o = torch.empty_like(env)
+    ptrs = (t.data_ptr() for t in (cyc, edc, ar, ai, base, env, base_o))
+    _launch("env_render", *ptrs, B, N, nhop, nx, C, Ke, _stream(cyc))
+    return env, base_o
+
+
+def env_render_ref(cyc, edc, ar, ai, base, nhop: int | None = None):
+    """Plain version of env_render (the frame-structured lerp + rotation
+    recurrence of layer0._render_envelopes, layer0.py:1008-1041); with an
+    explicit nhop, cyc may be shorter than N*nhop (the render is cut)."""
+    B, N, C, Ke = ar.shape
+    nx = cyc.shape[-1]
+    nhop = nx // N if nhop is None else nhop
     t = torch.arange(nhop, dtype=FP, device=cyc.device) / nhop
 
     def lerp(a):  # [B, N, ...] -> [B, nx, ...]
@@ -320,7 +351,7 @@ def noise_mod_ola_ref(cyc, edc, ar, ai, base, segs):
     from .harmonics import overlap_add_half
     nhop = segs.shape[-1] // 2
     nx = cyc.shape[-1]
-    env, base_s = render_envelopes(cyc, edc, ar, ai, base, nhop)
+    env, base_s = env_render_ref(cyc, edc, ar, ai, base, nhop)
     y = torch.zeros_like(cyc)
     for c in range(segs.shape[1]):
         band = overlap_add_half(segs[:, c], nhop, nx)
@@ -345,9 +376,39 @@ def _taps32(taps) -> tuple:
     return tuple(float(t) for t in np.asarray(taps, dtype=np.float32))
 
 
-def _fir_frames(v: torch.Tensor, taps) -> torch.Tensor:
-    """Zero-padded FIR along the frame axis (dim 1) with centered taps,
-    applied in float32."""
+# ---------------------------------------------------------------------------
+# 9. frame-axis FIR (pallas_osc.fir_frames_pallas)
+# ---------------------------------------------------------------------------
+
+_FIR_MAX_TAPS = 256
+
+
+def fir_frames(v: torch.Tensor, taps) -> torch.Tensor:
+    """Zero-edged FIR along the frame axis (dim 1) of a batch: v [B, N, ...]
+    real or complex (complex runs as its (re, im) pairs), taps an odd-length
+    sequence applied as float32 constants -> out[:, i] = sum_j taps[j]
+    v[:, i + j - len(taps) // 2], frames outside [0, N) of each utterance
+    zero."""
+    t = _taps32(taps)
+    if not 1 <= len(t) <= _FIR_MAX_TAPS:
+        raise ValueError(f"fir_frames: {len(t)} taps (1..{_FIR_MAX_TAPS})")
+    if not _on_cuda(v):
+        return fir_frames_ref(v, t)
+    cplx = v.is_complex()
+    x = torch.view_as_real(v) if cplx else v
+    B, N = x.shape[:2]
+    x = _f32(x.reshape(B, N, -1))
+    out = torch.empty_like(x)
+    ct = (ctypes.c_float * len(t))(*t)
+    _launch("fir_frames", x.data_ptr(), out.data_ptr(), B, N, x.shape[-1],
+            ctypes.addressof(ct), len(t), _stream(x))
+    out = out.reshape((B, N) + ((v.shape[2:] + (2,)) if cplx else v.shape[2:]))
+    return torch.view_as_complex(out) if cplx else out
+
+
+def fir_frames_ref(v: torch.Tensor, taps) -> torch.Tensor:
+    """Plain version of fir_frames: the shift-and-add chain in tap order,
+    in float32."""
     h = len(taps) // 2
     out = torch.zeros_like(v)
     for j, t in enumerate(_taps32(taps)):
@@ -451,13 +512,14 @@ def denoise_stats_ref(a, p, cyc_c, mask, voiced, taps1, taps2, *,
         cre_all = a_e * torch.cos(ang)
         cim_all = a_e * torch.sin(ang)
     ext = lambda t: t[:, h1:h1 + N + 2 * h2]      # frames [-h2, N + h2)
-    csr, csi = ext(_fir_frames(cre_all, t1)), ext(_fir_frames(cim_all, t1))
-    guard = ext(_fir_frames(vo_e, t1)) > 0.999
+    csr = ext(fir_frames_ref(cre_all, t1))
+    csi = ext(fir_frames_ref(cim_all, t1))
+    guard = ext(fir_frames_ref(vo_e, t1)) > 0.999
     cre, cim = ext(cre_all), ext(cim_all)
     _, _, rir, rii = _coherent_fit(cre, cim, csr, csi, ext(m_e))
     core = lambda t: t[:, h2:h2 + N]
-    prr = core(rir - _fir_frames(rir, t2))
-    pri = core(rii - _fir_frames(rii, t2))
+    prr = core(rir - fir_frames_ref(rir, t2))
+    pri = core(rii - fir_frames_ref(rii, t2))
     cre, cim, csr, csi = core(cre), core(cim), core(csr), core(csi)
     cs2 = csr * csr + csi * csi
     r2 = (cre - csr) ** 2 + (cim - csi) ** 2

@@ -1,11 +1,13 @@
 """Deterministic synthetic speech-like test signals (pure numpy).
 
-A copy of the first four fixtures of libllsm2_tpu/utils/testsig.py, so
+A copy of the first five fixtures of libllsm2_tpu/utils/testsig.py, so
 that the port's scripts run on a machine without jax;
-tests/test_torch_ops.py holds the copies equal to the originals.  A
-vowel-like utterance with a known F0 track: a harmonic source shaped by a
-formant envelope, optionally mixed with breath noise.  Generated in
-float64 so the fixture itself introduces no phase error.
+tests/test_torch_ops.py and tests/test_torch_layer1.py hold the copies
+equal to the originals.  A vowel-like utterance with a known F0 track: a
+harmonic source shaped by a formant envelope, optionally mixed with
+breath noise (generated in float64, so the fixture itself introduces no
+phase error); and LF-excited speech with a known Rd, whose pulse shape
+comes from the port's ops/lf.py.
 """
 from __future__ import annotations
 
@@ -50,6 +52,16 @@ def synth_harmonic(f0_frames, fs=16000.0, thop=0.005, nharmonics=60,
     amplitude-modulated by the glottal cycle.
     """
     f0_frames = np.asarray(f0_frames, np.float64)
+    src = _harmonic_source(f0_frames, fs, thop, nharmonics, fnyq)
+    x, x_harm = _add_noise(src, fs, seed, noise_level, noise_band)
+    if return_parts:
+        return x.astype(np.float64), f0_frames, x_harm.astype(np.float64)
+    return x.astype(np.float64), f0_frames
+
+
+def _harmonic_source(f0_frames, fs, thop, nharmonics, fnyq):
+    """synth_harmonic's normalized harmonic part with its sample-rate
+    voicing and cycle track: (x, voiced_s, phase_cycles)."""
     nhop = int(round(thop * fs))
     nfrm = len(f0_frames)
     nx = nfrm * nhop
@@ -63,7 +75,6 @@ def synth_harmonic(f0_frames, fs=16000.0, thop=0.005, nharmonics=60,
 
     x = np.zeros(nx)
     fny = fnyq if fnyq is not None else 0.47 * fs
-    rng = np.random.default_rng(seed)
     for k in range(1, nharmonics + 1):
         fk = k * f0_s
         active = voiced_s & (fk < fny)
@@ -72,9 +83,16 @@ def synth_harmonic(f0_frames, fs=16000.0, thop=0.005, nharmonics=60,
         amp = formant_envelope(fk) * active
         x += amp * np.cos(2 * np.pi * k * phase_cycles + 0.7 * k)
     x /= max(np.abs(x).max(), 1e-9)
+    return x, voiced_s, phase_cycles
 
+
+def _add_noise(src, fs, seed, noise_level, noise_band):
+    """synth_harmonic's breath noise on a _harmonic_source -> (x, x_harm)."""
+    x, voiced_s, phase_cycles = src
     x_harm = x
     if noise_level > 0:
+        nx = len(x)
+        rng = np.random.default_rng(seed)
         n = rng.standard_normal(nx)
         spec = np.fft.rfft(n)
         f = np.fft.rfftfreq(nx, 1 / fs)
@@ -88,9 +106,7 @@ def synth_harmonic(f0_frames, fs=16000.0, thop=0.005, nharmonics=60,
         scale = max(np.abs(x).max(), 1e-9)
         x = x / scale
         x_harm = x_harm / scale
-    if return_parts:
-        return x.astype(np.float64), f0_frames, x_harm.astype(np.float64)
-    return x.astype(np.float64), f0_frames
+    return x, x_harm
 
 
 def make_test_utterance(duration=1.0, fs=16000.0, thop=0.005, seed=0,
@@ -105,3 +121,82 @@ def make_test_utterance(duration=1.0, fs=16000.0, thop=0.005, seed=0,
     return synth_harmonic(f0, fs=fs, thop=thop, seed=seed,
                           noise_level=noise_level,
                           return_parts=return_parts)
+
+
+def synth_lf_speech(f0_frames, rd=1.0, fs=16000.0, thop=0.005,
+                    formants=((700, 80), (1220, 90), (2600, 120)),
+                    zeros=(), noise_level=0.02, seed=0):
+    """LF glottal flow derivative pulses of known Rd (a scalar, or one per
+    frame held constant over each glottal cycle) through an all-pole
+    formant filter, optional antiformants (min-phase zero pairs), lip
+    radiation, and aspiration noise; the JAX package's fixture, with the
+    pulse shape from the port's ops/lf.py in float32."""
+    import torch
+    from scipy import signal as sps
+
+    from ..ops import lf
+
+    f0_frames = np.asarray(f0_frames, np.float64)
+    nhop = int(round(thop * fs))
+    nfrm = len(f0_frames)
+    nx = nfrm * nhop
+    t = np.arange(nx) / fs
+    frame_t = np.arange(nfrm) * thop
+    f0_s = np.interp(t, frame_t, np.where(f0_frames > 0, f0_frames, 0.0))
+    voiced_s = f0_s > 1.0
+    cycles = np.cumsum(np.where(voiced_s, f0_s, 0.0)) / fs
+
+    # the pulse shape within each cycle: u[n] = E(frac(cycles[n]))
+    phase = torch.as_tensor(cycles % 1.0, dtype=torch.float32)
+    rd_arr = np.asarray(rd, np.float64)
+    if rd_arr.ndim == 0:
+        p = lf.lf_from_rd(float(rd))
+    else:
+        # per-frame Rd track, held constant per glottal cycle
+        assert rd_arr.shape == (nfrm,), (rd_arr.shape, nfrm)
+        c_idx = np.floor(cycles).astype(np.int64)
+        ncyc = int(c_idx.max()) + 1
+        onset = np.searchsorted(cycles, np.arange(ncyc))
+        rd_cyc = rd_arr[np.clip(onset // nhop, 0, nfrm - 1)]
+        rd_s = rd_cyc[np.clip(c_idx, 0, ncyc - 1)]
+        p = lf.lf_from_rd(torch.as_tensor(rd_s, dtype=torch.float32))
+    u = lf.lf_flow_deriv(phase, p).numpy() * voiced_s
+
+    # all-pole formant filter (cascade of resonators)
+    x = u.astype(np.float64)
+    for fc, bw in formants:
+        r = np.exp(-np.pi * bw / fs)
+        th = 2 * np.pi * fc / fs
+        a = [1.0, -2 * r * np.cos(th), r * r]
+        x = sps.lfilter([1.0 - r], a, x)
+    for fc, bw in zeros:
+        r = np.exp(-np.pi * bw / fs)
+        th = 2 * np.pi * fc / fs
+        b = np.array([1.0, -2 * r * np.cos(th), r * r])
+        x = sps.lfilter(b / b.sum(), [1.0], x)   # unit DC gain, min-phase
+    # lip radiation (differentiator)
+    x = np.diff(x, prepend=0.0)
+
+    if noise_level > 0:
+        rng = np.random.default_rng(seed)
+        n = rng.standard_normal(nx)
+        b, a = sps.butter(2, 2500 / (fs / 2), "highpass")
+        n = sps.lfilter(b, a, n)
+        x = x + noise_level * np.std(x) / max(np.std(n), 1e-9) * n
+    x = x / max(np.abs(x).max(), 1e-9)
+    return x, f0_frames
+
+
+def make_test_utterances(rows, duration=1.0, fs=16000.0, thop=0.005):
+    """make_test_utterance(duration, fs, thop, seed, noise_level,
+    return_parts=True) for every (seed, noise_level) of `rows`, with the
+    harmonic part (which depends on neither) synthesized once -> list of
+    (x, f0, x_harm)."""
+    nhop = int(round(thop * fs))
+    nfrm = int(round(duration * fs)) // nhop
+    f0 = make_f0_track(nfrm, thop)
+    src = _harmonic_source(f0, fs, thop, 60, None)
+    return [(x.astype(np.float64), f0, x_harm.astype(np.float64))
+            for x, x_harm in (_add_noise(src, fs, seed, level,
+                                         (2500.0, 7000.0))
+                              for seed, level in rows)]

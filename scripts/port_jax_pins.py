@@ -1,6 +1,6 @@
-"""The JAX package's own SNRs on the 11 kHz configurations that
-chip_smoke.py drives through the PyTorch port (its phases 7 and 8), on
-the CPU with the Pallas kernels in interpret mode:
+"""The JAX package's own SNRs on the configurations that chip_smoke.py
+drives through the PyTorch port (its phases 7 to 10), on the CPU with the
+Pallas kernels in interpret mode:
 
   odd hop   batched_pipeline, create_aoptions(fs=11000, f0_floor=70,
             use_pallas=True) with create_soptions(fs=11000, use_pallas=True),
@@ -9,9 +9,18 @@ the CPU with the Pallas kernels in interpret mode:
   11025 Hz  the public analyze -> synthesize at fs = 11025 (input and
             output resampled) on one noisy (seed 0) and one clean (seed 64)
             1 s row made at 11025 Hz: the SNR of y_sin against the clean
-            harmonic part, OLA edges excluded.
+            harmonic part, OLA edges excluded;
+  layer 1   create_aoptions(f0_floor=70, use_pallas=True) analysis of the
+            bench rows 0, 1 (noisy) and 64 (clean) at 16 kHz, then
+            chunk_to_layer1 -> chunk_to_layer0 -> synthesize: the SNR of
+            y_sin against the clean harmonic part, OLA edges excluded;
+  PbP       the same analysis of LF rows 0 and 1 (synth_lf_speech, Rd 0.4
+            and 1.0, seeds 0 and 1, make_f0_track's default contour), then
+            chunk_to_layer1 -> pbp_synthesize: the SNR of PbP y_sin against
+            the layer-1 sinusoidal y_sin (synthesize(chunk_to_layer0(l1))).
 
-    JAX_PLATFORMS=cpu python scripts/port_jax_pins.py [duration=8.0]
+    JAX_PLATFORMS=cpu python scripts/port_jax_pins.py [duration=8.0] \
+        [only=11k,l1,pbp]
 """
 import dataclasses
 import sys
@@ -25,11 +34,12 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 from libllsm2_tpu import create_aoptions, create_soptions  # noqa: E402
-from libllsm2_tpu.models import layer0  # noqa: E402
+from libllsm2_tpu.models import layer0, layer1, pbp  # noqa: E402
 from libllsm2_tpu.parallel import corpus  # noqa: E402
 from libllsm2_tpu.utils import testsig  # noqa: E402
 
 ROWS = {0: 0.05, 1: 0.05, 64: 0.0}      # bench row -> noise level
+LF_RD = (0.4, 1.0, 1.8, 2.7)            # chip_smoke.py phase 10: Rd of row i % 4
 
 
 def snr_db(ref, y, fs, f0_floor):
@@ -74,16 +84,63 @@ def public_11025():
     return out
 
 
+def _opts16():
+    opt = create_aoptions(f0_floor=70.0, use_pallas=True)
+    return opt, dataclasses.replace(create_soptions(), use_pallas=True)
+
+
+def layer1_round_trip(duration):
+    opt, sopt = _opts16()
+    out = {}
+    for i, nl in ROWS.items():
+        x, f0, x_ref = testsig.make_test_utterance(
+            duration=duration, seed=i, noise_level=nl, return_parts=True)
+        ch = layer0.analyze(opt, x.astype(np.float32), f0.astype(np.float32))
+        back = layer1.chunk_to_layer0(layer1.chunk_to_layer1(ch))
+        y_sin = np.asarray(layer0.synthesize(sopt, back).y_sin, np.float64)
+        out[i] = snr_db(x_ref, y_sin, opt.conf.fs, opt.conf.f0_floor)
+    return out
+
+
+def pbp_rows(duration):
+    opt, sopt = _opts16()
+    nfrm = int(round(duration / opt.conf.thop))
+    out = {}
+    for i in (0, 1):
+        f0 = testsig.make_f0_track(nfrm, opt.conf.thop)
+        x, f0 = testsig.synth_lf_speech(f0, rd=LF_RD[i % 4], seed=i)
+        l1 = layer1.chunk_to_layer1(layer0.analyze(
+            opt, x.astype(np.float32), f0.astype(np.float32)))
+        y_sin = np.asarray(layer0.synthesize(
+            sopt, layer1.chunk_to_layer0(l1)).y_sin, np.float64)
+        y_pbp = np.asarray(pbp.pbp_synthesize(sopt, l1).y_sin, np.float64)
+        v = np.asarray(l1.rd)[np.asarray(l1.f0) > 0]
+        out[i] = dict(snr=snr_db(y_sin, y_pbp, opt.conf.fs, opt.conf.f0_floor),
+                      rd_median=float(np.median(v)))
+    return out
+
+
 def main():
     kw = dict(a.split("=", 1) for a in sys.argv[1:])
     duration = float(kw.get("duration", 8.0))
-    t0 = time.perf_counter()
-    print("11025 Hz public analyze -> synthesize:", public_11025(),
-          f"({time.perf_counter() - t0:.1f} s)", flush=True)
-    t0 = time.perf_counter()
-    print(f"odd hop batched_pipeline at {duration} s:", odd_hop(duration),
-          f"({time.perf_counter() - t0:.1f} s)", flush=True)
-
+    only = kw.get("only", "11k,l1,pbp").split(",")
+    if "11k" in only:
+        t0 = time.perf_counter()
+        print("11025 Hz public analyze -> synthesize:", public_11025(),
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        t0 = time.perf_counter()
+        print(f"odd hop batched_pipeline at {duration} s:", odd_hop(duration),
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    if "l1" in only:
+        t0 = time.perf_counter()
+        print(f"layer-1 round trip at {duration} s:",
+              layer1_round_trip(duration),
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    if "pbp" in only:
+        t0 = time.perf_counter()
+        print(f"PbP against the layer-1 sinusoidal render at {duration} s:",
+              pbp_rows(duration), f"({time.perf_counter() - t0:.1f} s)",
+              flush=True)
 
 if __name__ == "__main__":
     main()

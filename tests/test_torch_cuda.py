@@ -228,3 +228,88 @@ def test_harmonic_project_mxu_kernel_matches_plain_on_card(K, nhop, H):
                                              hw[b:b + 1], K, nhop, hh)
         for g, a in zip(got, alone):
             assert torch.equal(g[b], a[0])
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("shape,ntaps,cplx", [((3, 300, 80), 13, False),
+                                              ((2, 1600, 1), 13, False),
+                                              ((2, 150, 24), 31, True)])
+def test_fir_frames_kernel_matches_plain_on_card(shape, ntaps, cplx):
+    """The kernel sums in tap order with separate float32 multiply and add,
+    as the twin does: equal within 1e-6; each utterance's rows equal to the
+    kernel on that utterance alone (the zero edges stop at its ends)."""
+    dev = _card()
+    g = torch.Generator().manual_seed(ntaps)
+    v = torch.randn(shape + ((2,) if cplx else ()), generator=g).to(dev)
+    v = torch.view_as_complex(v) if cplx else v
+    taps = tuple(tl0._hann_taps(ntaps))
+    kernels.reset_launches()
+    got = kernels.fir_frames(v, taps)
+    ref = kernels.fir_frames_ref(v, taps)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["fir_frames"] == 1
+    torch.testing.assert_close(got, ref, atol=1e-6, rtol=0)
+    for b in range(shape[0]):
+        assert torch.equal(kernels.fir_frames(v[b:b + 1], taps)[0], got[b])
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("cut", [0, 45])
+def test_env_render_kernel_matches_plain_on_card(cut):
+    """Two utterances of 301 frames (not a multiple of the 16-frame tile),
+    C = 4, Ke = 4, nhop = 80, whole and `cut` samples short of N*nhop (the
+    last tile stops early): env 2e-5, base 2e-6 (test_pallas.py:231)."""
+    dev = _card()
+    g = torch.Generator().manual_seed(5)
+    B, Nf, C, Ke, nhop = 2, 301, 4, 4, 80
+    r = lambda *s: torch.rand(*s, generator=g).to(dev)
+    args = (r(B, Nf * nhop)[:, :Nf * nhop - cut], r(B, Nf, C),
+            0.3 * r(B, Nf, C, Ke) - 0.15, 0.3 * r(B, Nf, C, Ke) - 0.15,
+            r(B, Nf, C) + 0.5)
+    kernels.reset_launches()
+    env, base = kernels.env_render(*args, nhop=nhop)
+    env_r, base_r = kernels.env_render_ref(*args, nhop=nhop)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["env_render"] == 1
+    assert env.shape == (B, C, Nf * nhop - cut)
+    torch.testing.assert_close(env, env_r, atol=2e-5, rtol=0)
+    torch.testing.assert_close(base, base_r, atol=2e-6, rtol=0)
+
+
+@pytest.mark.requires_cuda
+def test_layer1_and_pbp_on_card_match_cpu():
+    """A 0.5 s LF utterance analyzed on the CPU, then layer 1 and PbP on
+    the card against the same calls on the CPU: rd within 1e-3 relative
+    (an in-model source, where the Rd score has a clear peak), the
+    regenerated harmonics within 1e-4 x scale, PbP y_sin within 1e-3 x
+    peak (index_add_ on the card adds in no fixed order), and the noise
+    part through noise_mod_ola."""
+    from libllsm2_tpu_torch import create_aoptions, create_soptions
+    from libllsm2_tpu_torch.models import layer1 as tl1, pbp as tpbp
+    from libllsm2_tpu_torch.utils import testsig
+    import dataclasses
+    dev = _card()
+    f0 = testsig.make_f0_track(100, 0.005)
+    x, f0 = testsig.synth_lf_speech(f0, rd=1.2)
+    opt = create_aoptions(use_pallas=True)
+    sopt = dataclasses.replace(create_soptions(), use_pallas=True)
+    ch = tl0.analyze(opt, x.astype(np.float32), f0.astype(np.float32),
+                     device="cpu")
+    to_dev = lambda c: c.replace(**{f: getattr(c, f).to(dev) for f in
+                                    ("f0", "ampl", "phse", "hm_mask", "psd",
+                                     "edc", "eenv_a", "eenv_p")})
+    l1_cpu, l1_dev = tl1.chunk_to_layer1(ch), tl1.chunk_to_layer1(to_dev(ch))
+    torch.testing.assert_close(l1_dev.rd.cpu(), l1_cpu.rd, rtol=1e-3, atol=0)
+    b_cpu, b_dev = tl1.chunk_to_layer0(l1_cpu), tl1.chunk_to_layer0(l1_dev)
+    z = lambda c: torch.polar(c.ampl, c.phse)
+    scale = float(b_cpu.ampl.abs().max())
+    torch.testing.assert_close(z(b_dev).cpu(), z(b_cpu), atol=1e-4 * scale,
+                               rtol=0)
+    kernels.reset_launches()
+    y_dev = tpbp.pbp_synthesize(sopt, l1_dev)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["noise_mod_ola"] == 1
+    y_cpu = tpbp.pbp_synthesize(sopt, l1_cpu)
+    peak = float(y_cpu.y_sin.abs().max())
+    torch.testing.assert_close(y_dev.y_sin.cpu(), y_cpu.y_sin,
+                               atol=1e-3 * peak, rtol=0)

@@ -1,8 +1,10 @@
-"""The plain PyTorch versions of the port's four CUDA kernels against the
-JAX package's Pallas kernels (interpret mode on the CPU), on identical
+"""The plain PyTorch versions of the port's CUDA kernels against the JAX
+package's Pallas kernels (interpret mode on the CPU), on identical
 numpy inputs, and the CPU dispatch; test_torch_cuda.py holds each kernel
 against its plain version on a CUDA card.  Tolerances are
 test_pallas.py's."""
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -11,6 +13,7 @@ import torch
 from libllsm2_tpu.ops import harmonics as jhm
 from libllsm2_tpu.ops import pallas_osc
 
+import libllsm2_tpu_torch as tpkg
 from libllsm2_tpu_torch.ops import _build, kernels
 from libllsm2_tpu_torch.ops import harmonics as thm
 
@@ -134,6 +137,76 @@ def test_noise_mod_ola_plain_matches_pallas():
         np.testing.assert_allclose(got[b].numpy(), np.asarray(ref), atol=5e-5)
 
 
+@pytest.mark.parametrize("B,N,C,ntaps,cplx", [
+    (1, 137, 30, 7, False),        # test_pallas.py's case
+    (3, 300, 80, 13, False),       # ragged blocks, the denoiser's 13 taps
+    (2, 150, 24, 31, True),        # a complex track, 31 taps
+    (2, 9, 5, 31, False)])         # taps longer than the utterance
+def test_fir_frames_plain_matches_pallas(B, N, C, ntaps, cplx):
+    """fir_frames' twin against fir_frames_pallas per utterance (complex
+    tracks as their (re, im) columns), edge rows included: 1e-6 absolute
+    (test_pallas.py:505)."""
+    rng = np.random.default_rng(N + ntaps)
+    v = rng.standard_normal((B, N, C, 2) if cplx else (B, N, C)).astype(
+        np.float32)
+    taps = np.hanning(ntaps + 2)[1:-1]
+    taps = tuple(taps / taps.sum())
+    tv = torch.view_as_complex(T(v)) if cplx else T(v)
+    got = kernels.fir_frames(tv, taps)
+    got = torch.view_as_real(got) if cplx else got
+    assert got.shape == v.shape
+    for b in range(B):
+        ref = pallas_osc.fir_frames_pallas(jnp.asarray(v[b].reshape(N, -1)),
+                                           taps)
+        np.testing.assert_allclose(got[b].numpy().reshape(N, -1),
+                                   np.asarray(ref), atol=1e-6)
+
+
+@pytest.mark.parametrize("nfrm,cut", [(37, 0), (160, 0), (37, 45)])
+def test_env_render_plain_matches_pallas(nfrm, cut):
+    """_render_envelopes(use_pallas=True) on the CPU (the kernel's twin)
+    against the JAX Pallas render, on a batch of two chunks with an
+    unvoiced run, as test_pallas.py:231: env 2e-5, base 2e-6 absolute.
+    With a render `cut` samples short of N*nhop the JAX package takes its
+    plain render and the port the same wrapper."""
+    from libllsm2_tpu import ChunkConf, create_chunk
+    from libllsm2_tpu.models import layer0 as jl0
+    from libllsm2_tpu_torch.container import chunk_from_numpy
+    from libllsm2_tpu_torch.models import layer0 as tl0
+    conf = ChunkConf()
+    nhop, C, Ke = conf.nhop, conf.nchannel, conf.maxnhar_e
+    rows = []
+    for seed in (11, 12):
+        rng = np.random.default_rng(seed)
+        f0 = rng.uniform(100, 300, nfrm).astype(np.float32)
+        f0[5:8] = 0.0
+        rows.append(dict(
+            f0=f0, edc=rng.uniform(0, 1, (nfrm, C)).astype(np.float32),
+            eenv_a=rng.uniform(0, 0.5, (nfrm, C, Ke)).astype(np.float32),
+            eenv_p=rng.uniform(-3, 3, (nfrm, C, Ke)).astype(np.float32)))
+    nx = nfrm * nhop - cut
+    d = {f: np.stack([np.asarray(getattr(create_chunk(conf, nfrm), f))] * 2)
+         for f in ("ampl", "phse", "hm_mask", "psd")}
+    d.update({f: np.stack([r[f] for r in rows]) for f in rows[0]})
+    tch = chunk_from_numpy(d, tpkg.ChunkConf(), device="cpu")
+    cyc = thm.sample_cycles(tch.f0, nhop, conf.fs, nfrm * nhop)[:, :nx]
+    env, base = tl0._render_envelopes(tch, cyc, nhop, use_pallas=True)
+    assert env.shape == base.shape == (2, C, nx)
+    centers = jnp.arange(nfrm, dtype=jnp.int32) * nhop
+    for b in range(2):
+        jch = dataclasses.replace(create_chunk(conf, nfrm), **{
+            f: jnp.asarray(v) for f, v in rows[b].items()})
+        env_j, base_j = jl0._render_envelopes(
+            jch, jnp.asarray(cyc[b].numpy()), centers, nx, nhop,
+            use_pallas=True)
+        np.testing.assert_allclose(env[b].numpy(), np.asarray(env_j),
+                                   atol=2e-5)
+        np.testing.assert_allclose(base[b].numpy(), np.asarray(base_j),
+                                   atol=2e-6)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tl0._render_envelopes(tch, cyc, nhop)      # the jnp branch
+
+
 def test_cpu_tensors_never_reach_the_kernels(monkeypatch):
     def no_build():
         raise AssertionError("CPU call reached the CUDA build")
@@ -150,4 +223,7 @@ def test_cpu_tensors_never_reach_the_kernels(monkeypatch):
     kernels.noise_mod_ola(torch.rand(1, 40 * 8), a[..., :2], a[..., :2, None],
                           a[..., :2, None], a[..., :2] + 1,
                           torch.rand(1, 2, 40, 16))
+    kernels.fir_frames(a, (0.25, 0.5, 0.25))
+    kernels.env_render(torch.rand(1, 40 * 8), a[..., :2], a[..., :2, None],
+                       a[..., :2, None], a[..., :2] + 1)
     assert all(v == 0 for v in kernels.LAUNCHES.values()), kernels.LAUNCHES

@@ -106,7 +106,7 @@ def test_synthesis_from_carried_chunk_matches(ref, row):
     i = list(ROWS).index(row)
     j = ref["jchunks"][i]
     d = {f: np.asarray(getattr(j, f))[None] for f in LAYER0_FIELDS}
-    chunk = chunk_from_numpy(d, ref["topt"].conf)
+    chunk = chunk_from_numpy(d, ref["topt"].conf, device="cpu")
     nhop = ref["topt"].conf.nhop
     bins = _jax_bins(ref["jsopt"].noise_seed, chunk.nfrm, nhop + 1)
     out = tl0._synthesize(ref["tsopt"], chunk,
@@ -126,7 +126,8 @@ def test_synthesis_upsampled_matches(ref):
     band."""
     j = ref["jchunks"][list(ROWS).index("noisy")]
     chunk = chunk_from_numpy({f: np.asarray(getattr(j, f))[None]
-                              for f in LAYER0_FIELDS}, ref["topt"].conf)
+                              for f in LAYER0_FIELDS}, ref["topt"].conf,
+                             device="cpu")
     jsopt = dataclasses.replace(ref["jsopt"], fs=32000.0)
     tsopt = dataclasses.replace(ref["tsopt"], fs=32000.0)
     bins = _jax_bins(jsopt.noise_seed, chunk.nfrm, 161)
@@ -154,7 +155,7 @@ def test_batched_pipeline_snr_matches(ref):
 def test_public_single_utterance_api(ref):
     """analyze / synthesize on one utterance (no batch axis) give the
     batched path's row."""
-    ch = tpkg.analyze(ref["topt"], ref["x"][2], ref["f0"][2])
+    ch = tpkg.analyze(ref["topt"], ref["x"][2], ref["f0"][2], device="cpu")
     assert ch.ampl.shape == ref["tchunk"].ampl.shape[1:]
     np.testing.assert_allclose(ch.ampl.numpy(), ref["tchunk"].ampl[2].numpy(),
                                atol=1e-6)

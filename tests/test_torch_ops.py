@@ -161,6 +161,20 @@ def test_fixture_copies_are_exact(fn, kw):
         np.testing.assert_array_equal(g, r)
 
 
+@pytest.mark.parametrize("fs", [16000.0, 11000.0])
+def test_batched_fixture_rows_are_exact(fs):
+    """make_test_utterances (one harmonic synthesis for many rows) gives
+    every row of the JAX package's make_test_utterance exactly."""
+    rows = [(0, 0.05), (3, 0.05), (64, 0.0)]
+    got = ttestsig.make_test_utterances(rows, duration=0.2, fs=fs)
+    for (seed, level), g in zip(rows, got):
+        ref = jtestsig.make_test_utterance(duration=0.2, fs=fs, seed=seed,
+                                           noise_level=level,
+                                           return_parts=True)
+        for r, v in zip(ref, g):
+            np.testing.assert_array_equal(v, r)
+
+
 @pytest.mark.parametrize("name", ["ChunkConf", "AnalysisOptions",
                                   "SynthesisOptions"])
 def test_config_fields_and_defaults_match(name):

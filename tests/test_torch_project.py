@@ -309,7 +309,7 @@ def test_public_api_at_11025_matches(seed, noise):
                                         noise_level=noise)
     x, f0 = x.astype(np.float32), f0.astype(np.float32)
     j = jl0.analyze(jopt, x, f0)
-    t = chunk_to_numpy(tpkg.analyze(topt, x, f0))
+    t = chunk_to_numpy(tpkg.analyze(topt, x, f0, device="cpu"))
     np.testing.assert_allclose(t["f0"], np.asarray(j.f0), rtol=1e-4)
     np.testing.assert_array_equal(t["hm_mask"], np.asarray(j.hm_mask))
     scale = float(np.abs(np.asarray(j.ampl)).max())
@@ -320,7 +320,8 @@ def test_public_api_at_11025_matches(seed, noise):
         tl0._analyze(topt, T(x[None]), T(f0[None]))
 
     chunk = chunk_from_numpy(
-        {f: np.asarray(getattr(j, f))[None] for f in LAYER0_FIELDS}, topt.conf)
+        {f: np.asarray(getattr(j, f))[None] for f in LAYER0_FIELDS}, topt.conf,
+        device="cpu")
     bins = _jax_bins(jsopt.noise_seed, chunk.nfrm, topt.conf.nhop + 1)
     out = tl0._synthesize(tsopt, chunk, bins=(bins[0][None], bins[1][None]))
     jout = jl0.synthesize(jsopt, j)
@@ -332,7 +333,7 @@ def test_public_api_at_11025_matches(seed, noise):
     np.testing.assert_allclose(out.y_nos[0].numpy(), np.asarray(jout.y_nos),
                                atol=1e-4)
     np.testing.assert_allclose(out.y[0].numpy(), np.asarray(jout.y), atol=1e-3)
-    single = tpkg.synthesize(tsopt, tpkg.analyze(topt, x, f0))
+    single = tpkg.synthesize(tsopt, tpkg.analyze(topt, x, f0, device="cpu"))
     assert single.y.shape == (ny,) and bool(torch.isfinite(single.y).all())
 
 
