@@ -2,22 +2,29 @@
 """Smoke run of the PyTorch port (libllsm2_tpu_torch) on one CUDA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py breakdown DIR
 
-Phases, one line each; any failure exits non-zero without the final
-"ok" line:
+The second form runs only phase 5's breakdown (the harmonic_analysis
+calls and the analysis / synthesis times and peaks) on the
+libllsm2_tpu_torch package in DIR, another checkout such as the parent
+commit's, so that two versions compare on one card; it prints no result
+line.  The first form's phases, one line each; any failure exits
+non-zero without the final "ok" line:
   1. device: a CUDA card must be present; prints the card's name and
      power limit (nvidia-smi).
-  2. build: compiles the port's CUDA kernels from libllsm2_tpu_torch/csrc.
+  2. build: compiles the port's CUDA kernels from libllsm2_tpu_torch/csrc
+     and prints each kernel's registers, spills and static shared memory
+     from the ptxas report.
   3. kernels: captures every kernel's inputs on the first 2 rows of the
      path that runs it -- the six of the library-default path (denoiser
-     on; K = 80, Wf = 960, plus the envelope projection) and its two
-     frame-axis FIRs (the spectral gate's local-noisiness blend), the
-     track lowpass's two FIRs (track_lowpass_hz=30: a voicing column and
-     a complex track), env_render on the envelope coefficients of the
-     main path's noise_mod_ola call, the unframed projection of phase 6's
-     hm_kernel="matmul", the plain projection of phase 7's refine probes
-     (K = 1) and of one harmonic_analysis with the mltsine window (K = 80)
-     -- runs kernel and plain PyTorch version on them on the card, checks
+     on; K = 80, Wf = 960, plus the K = 4 envelope projection) and its
+     frame-axis FIR pair (the spectral gate's local-noisiness blend, one
+     launch), the track lowpass's FIR pair (track_lowpass_hz=30: a
+     voicing column and a complex track), env_render on the envelope
+     coefficients of the main path's noise_mod_ola call, the unframed
+     projection of phase 6's hm_kernel="matmul", the plain projection of
+     phase 7's refine probes (K = 1) and of one harmonic_analysis with the
+     mltsine window (K = 80) -- runs kernel and plain PyTorch version on them on the card, checks
      the maximum error against each tolerance, and times both (median of
      10, CUDA events) and, where PyTorch computes the same function in
      one contraction or convolution, that call with the making of its
@@ -36,7 +43,11 @@ Phases, one line each; any failure exits non-zero without the final
      128 rows x 8 s after zeroing the launch counters: all six kernels and
      fir_frames must have launched, clean rows >= 55.17 dB, noisy rows 0
      and 1 within 0.2 dB of 40.05 and 40.6 dB.  Then the step time (median
-     of 5) and peak memory.
+     of 5) and peak memory, each of the step's two harmonic_analysis
+     calls (the K = 80 main pass, the K = 4 envelope pass) at full batch,
+     framing, window and glue included (median of 10), and the analysis
+     and the synthesis apart: time (median of 3) and the peak memory each
+     takes above its inputs.
   6. hm_kernel="matmul" at the library default, all 128 rows x 8 s: the
      main harmonic pass through harmonic_project_mxu (launched), the pins
      of phase 5; prints the SNR change from phase 5, then step and peak.
@@ -71,21 +82,24 @@ Phases, one line each; any failure exits non-zero without the final
      rows 0 and 1: the SNR of PbP y_sin against the layer-1 sinusoidal
      y_sin within 0.2 dB of the JAX package's.  Prints the PbP ms,
      audio-sec/s and peak.
-Phases 5, 6, 7 and 9 also time each of their kernels at full batch on
-its first call of the counted run (median of 10), beside its bound.
-The line before the last is the kernels' JSON summary: launches from
-the phase that runs each (5 for the six and fir_frames, 6 for
-harmonic_project_mxu, 7 for harmonic_project, 9 for env_render); ms,
-plain_ms, library_ms and bound_ms at the first 2-row call of phase 3;
-"full_batch" the same kernel at full batch.  bound_ms is the larger of
-the bytes the call must move (inputs read once, outputs written once; of
-a framed projection's inputs only the live columns) over 3.35 TB/s and
-its float32 operations over 67 TFLOP/s (the H100 SXM data sheet).  The
-last line is {"ok": true, "device": {...}}.  TF32 is off for every
-float32 matmul and convolution.
+Phases 5, 6, 7 and 9 also time every call of each of their kernels in
+the counted run at full batch (median of 10), beside its bound, and
+fir_frames beside its conv1d yardstick.  The line before the last is
+the kernels' JSON summary: launches from the phase that runs each (5 for
+the six and fir_frames, 6 for harmonic_project_mxu, 7 for
+harmonic_project, 9 for env_render); ms, plain_ms, library_ms and
+bound_ms at the first 2-row call of phase 3; "full_batch" a record per
+call at full batch ("analysis_calls" on harmonic_project_win: phase 5's
+two harmonic_analysis calls).  bound_ms is the larger of the bytes the
+call must move (inputs read once, outputs written once; of the
+pre-windowed frames of harmonic_project only the live columns) over 3.35
+TB/s and its float32 operations over 67 TFLOP/s (the H100 SXM data
+sheet).  The last line is {"ok": true, "device": {...}}.  TF32 is off
+for every float32 matmul and convolution.
 """
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -169,6 +183,15 @@ def phase(name, ok, detail):
         raise PhaseError(f"{name}: {detail}")
 
 
+def kernel_label(mangled):
+    """'..._23proj_win_kernelILi16ELi5ELb0EEEv...' -> 'proj_win_kernel<16,5,0>'."""
+    m = re.search(r"\d+([a-z_]+_kernel)(I(?:L[ib]\d+E)+E)?", mangled)
+    if not m:
+        return mangled
+    args = re.findall(r"L[ib](\d+)E", m.group(2) or "")
+    return m.group(1) + (f"<{','.join(args)}>" if args else "")
+
+
 def cuda_ms(torch, fn, reps):
     """Median milliseconds of fn() over reps runs, by CUDA events."""
     fn()
@@ -191,7 +214,8 @@ def track_scale(torch, name, args, kw, ref):
     if name == "harmonic_project_mxu":
         return float(torch.max(torch.hypot(ref[0], ref[1])))
     if name == "fir_frames":
-        return float(torch.max(torch.abs(args[0])))
+        return max(float(torch.max(torch.abs(v)))
+                   for v in _tensors(torch, args[:1]))
     if name == "denoise_stats" and not kw.get("complex_input"):
         return float(torch.max(torch.abs(args[0])))
     return float(torch.max(torch.hypot(args[0], args[1])))
@@ -241,8 +265,21 @@ def variants(torch, name, args, kw):
     return []
 
 
+def _tensors(torch, ts):
+    """The tensors of ts, tuples and lists flattened."""
+    for t in ts:
+        if torch.is_tensor(t):
+            yield t
+        elif isinstance(t, (tuple, list)):
+            yield from _tensors(torch, t)
+
+
 def _nbytes(torch, ts):
-    return sum(t.numel() * t.element_size() for t in ts if torch.is_tensor(t))
+    return sum(t.numel() * t.element_size() for t in _tensors(torch, ts))
+
+
+def _shapes(torch, args):
+    return [tuple(t.shape) for t in _tensors(torch, args)]
 
 
 def kernel_ops(torch, name, args, kw):
@@ -279,20 +316,21 @@ def kernel_ops(torch, name, args, kw):
     if name == "denoise_apply":
         return float(a[0].numel()) * 40.0
     if name == "fir_frames":
-        n = a[0].numel() * (2 if a[0].is_complex() else 1)
+        n = sum(v.numel() * (2 if v.is_complex() else 1)
+                for v in _tensors(torch, a[:1]))
         return 2.0 * len(a[1]) * n
     raise KeyError(name)
 
 
-def kernel_bytes(torch, name, args, out):
-    """Bytes one call must move: every input read once, every output
-    written once; of the framed projections' [R, W] inputs (cycle offsets
-    and frames) only each row's live columns [lo, hi)."""
-    outs = out if isinstance(out, (tuple, list)) else (out,)
-    nbytes = _nbytes(torch, args) + _nbytes(torch, outs)
-    lohi = {"harmonic_project_win": (4, 5), "harmonic_project": (3, 4)}
-    if name in lohi and len(args) > max(lohi[name]):
-        lo, hi = (args[i] for i in lohi[name])
+def kernel_bytes(torch, name, args, kw, out):
+    """Bytes one call must move: every input read once (harmonic_project_
+    win's x and cyc once a row, not once a frame), every output written
+    once; of harmonic_project's pre-windowed [R, W] frames and cycle
+    offsets only each row's live columns [lo, hi)."""
+    nbytes = _nbytes(torch, args) + _nbytes(torch, kw.values()) \
+        + _nbytes(torch, (out,))
+    if name == "harmonic_project" and len(args) > 4:
+        lo, hi = args[3], args[4]
         R, W = args[0].shape
         nbytes -= 2 * 4 * (R * W - float((hi - lo).sum()))
     return nbytes
@@ -302,7 +340,7 @@ def bound(torch, name, args, kw, out):
     """-> (bound_ms, bound_by): the larger of the bytes the call must move
     (kernel_bytes) over the HBM rate and its operations over the float32
     rate."""
-    nbytes = kernel_bytes(torch, name, args, out)
+    nbytes = kernel_bytes(torch, name, args, kw, out)
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = kernel_ops(torch, name, args, kw) / FP32_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
@@ -315,10 +353,12 @@ def library_call(torch, name, args, kw):
     is none: an einsum against the dense oscillator / chirp basis for the
     oscillator bank and the framed projections, one bmm of banded window
     rows for the unframed projection, conv1d with the fixed taps for
-    fir_frames.  The making of those operands (basis, windows, layout) is
-    part of the returned callable, so it is timed with the call."""
+    fir_frames (a pair as one batch).  The making of those operands
+    (frames, basis, windows, layout) is part of the returned callable, so
+    it is timed with the call."""
     import math
     F = torch.nn.functional
+    from libllsm2_tpu_torch.ops.harmonics import win_frames
     from libllsm2_tpu_torch.ops.windows import window_centered
     frac = lambda v: v - torch.round(v)
     if name == "osc_bank":
@@ -334,24 +374,28 @@ def library_call(torch, name, args, kw):
             return torch.einsum("nkt,nk->nt", osc, ampl * mask * live)
         return call
     if name in ("harmonic_project_win", "harmonic_project"):
-        dc = args[0]
-        W = dc.shape[1]
-        col = torch.arange(W, device=dc.device)
-        K = args[3] if name == "harmonic_project_win" else args[2]
-        kh = torch.arange(1, K + 1, device=dc.device, dtype=dc.dtype)
-        one = torch.ones((), device=dc.device)
+        win = name == "harmonic_project_win"
+        W = 2 * kw["center"] if win else args[0].shape[1]
+        dev = args[0].device
+        col = torch.arange(W, device=dev)
+        K = args[3] if win else args[2]
+        kh = torch.arange(1, K + 1, device=dev, dtype=torch.float32)
+        one = torch.ones((), device=dev)
 
         def call():
-            if name == "harmonic_project_win":
-                frames, hw, _, lo, hi = args[1:6]
+            if win:
+                x, cyc, hw, _, lo, hi = args
+                frames, dc = win_frames(x, cyc, hw.shape[-1], kw["nhop"],
+                                        kw["center"])
                 xw = frames * window_centered(
                     kw.get("window", "hanning"),
-                    (col - kw["center"]).to(dc.dtype)[None], hw[:, None])
+                    (col - kw["center"]).to(dc.dtype)[None],
+                    hw.reshape(-1, 1))
             else:
-                xw = args[1]
+                dc, xw = args[:2]
                 lo, hi = (args[3], args[4]) if len(args) > 4 else (0, W)
-                lo = torch.as_tensor(lo, device=dc.device)
-                hi = torch.as_tensor(hi, device=dc.device)
+                lo = torch.as_tensor(lo, device=dev)
+                hi = torch.as_tensor(hi, device=dev)
             xw = xw * ((col >= lo.reshape(-1, 1)) & (col < hi.reshape(-1, 1)))
             basis = torch.polar(one, -2 * math.pi * frac(kh[None, :, None]
                                                          * dc[:, None]))
@@ -376,14 +420,14 @@ def library_call(torch, name, args, kw):
             return torch.bmm(w, G)
         return call
     if name == "fir_frames":
-        v, taps = args
-        x = torch.view_as_real(v) if v.is_complex() else v
-        B, N = x.shape[:2]
+        vs, taps = list(_tensors(torch, args[:1])), args[1]
+        B, N = vs[0].shape[:2]
         wt = torch.tensor(taps, dtype=torch.float32,
-                          device=v.device).reshape(1, 1, -1)
-        return lambda: F.conv1d(
-            x.reshape(B, N, -1).permute(0, 2, 1).reshape(-1, 1, N),
-            wt, padding=len(taps) // 2)
+                          device=vs[0].device).reshape(1, 1, -1)
+        cols = lambda v: (torch.view_as_real(v) if v.is_complex() else v
+                          ).reshape(B, N, -1).permute(0, 2, 1).reshape(-1, N)
+        return lambda: F.conv1d(torch.cat([cols(v) for v in vs])[:, None],
+                                wt, padding=len(taps) // 2)
     return None
 
 
@@ -414,7 +458,7 @@ def check_kernel(torch, kernels, name, tol, args, kw, label, library=False):
             library_ms = cuda_ms(torch, call, 10)
             del call
             torch.cuda.empty_cache()
-    shapes = [tuple(a.shape) for a in args if torch.is_tensor(a)]
+    shapes = _shapes(torch, args)
     lib = "n/a" if library_ms is None else f"{library_ms:.4f} ms"
     phase(f"3 {name}[{label}]", ok,
           f"shapes {shapes[:2]} max_abs_err {err:.3e} (tol {tol}) "
@@ -426,21 +470,80 @@ def check_kernel(torch, kernels, name, tol, args, kw, label, library=False):
 
 
 def full_batch(torch, kernels, calls, label):
-    """Each captured kernel at full batch: its first call timed alone
-    (median of 10) beside its bound -> {name: record}."""
+    """Every captured call of each kernel at full batch, timed alone
+    (median of 10) beside its bound, fir_frames also beside its conv1d
+    yardstick (its operands fit at full batch) -> {name: [record per
+    call]}."""
     out = {}
     for name in calls:
-        args, kw = calls[name][0]
         fn = getattr(kernels, name)
-        got = fn(*args, **kw)
-        ms = cuda_ms(torch, lambda: fn(*args, **kw), 10)
-        bound_ms, bound_by = bound(torch, name, args, kw, got)
-        shapes = [tuple(a.shape) for a in args if torch.is_tensor(a)]
-        print(f"full batch {label} {name}: shapes {shapes[:2]} kernel "
-              f"{ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by})", flush=True)
-        out[name] = {"phase": label, "shapes": shapes[:2], "ms": ms,
-                     "bound_ms": bound_ms, "bound_by": bound_by}
-        del got
+        out[name] = []
+        for i, (args, kw) in enumerate(calls[name]):
+            got = fn(*args, **kw)
+            ms = cuda_ms(torch, lambda: fn(*args, **kw), 10)
+            bound_ms, bound_by = bound(torch, name, args, kw, got)
+            del got
+            library_ms = host_ms = None
+            extra = ""
+            if name == "fir_frames":
+                library_ms = cuda_ms(torch, library_call(torch, name, args,
+                                                         kw), 10)
+                host_ms = host_call_ms(torch, lambda: fn(*args, **kw), 50)
+                extra = (f" (host path {host_ms:.4f} ms a call) library "
+                         f"{library_ms:.4f} ms")
+            shapes = _shapes(torch, args)
+            print(f"full batch {label} {name}[{i}]: shapes {shapes[:2]} "
+                  f"kernel {ms:.4f} ms{extra} bound {bound_ms:.4f} ms "
+                  f"({bound_by})", flush=True)
+            out[name].append({"phase": label, "call": i,
+                              "shapes": shapes[:2], "ms": ms,
+                              "bound_ms": bound_ms, "bound_by": bound_by,
+                              "library_ms": library_ms, "host_ms": host_ms})
+    torch.cuda.empty_cache()
+    return out
+
+
+def host_call_ms(torch, fn, reps):
+    """Host milliseconds one call of fn takes to return (its enqueue: the
+    Python wrapper and the launch, no synchronisation), mean of reps."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / reps
+
+
+def peak_above(torch, fn):
+    """-> (fn(), the peak device memory fn takes above what was allocated
+    when it started, GiB)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (torch.cuda.max_memory_allocated() - base) / 2**30
+
+
+def analysis_calls(torch, harmonics, run):
+    """The harmonic_analysis calls of one run() (phase 5: the K = 80 main
+    pass and the K = 4 envelope pass), each timed alone at full batch
+    (median of 10), framing, window, projection and glue included, with
+    the device memory it takes above what it is given -> [record]."""
+    calls, _ = capture_kernel_inputs(harmonics, ("harmonic_analysis",), run)
+    out = []
+    for i, (args, kw) in enumerate(calls["harmonic_analysis"]):
+        call = lambda: harmonics.harmonic_analysis(*args, **kw)
+        ms = cuda_ms(torch, call, 10)
+        extra = peak_above(torch, call)[1]
+        print(f"5 analysis call {i}: harmonic_analysis K {kw['max_k']} on x "
+              f"{tuple(args[0].shape)}, cyc {tuple(args[2].shape)}: "
+              f"{ms:.4f} ms (framing, window, projection and glue; median "
+              f"of 10), {extra:.3f} GiB above its inputs", flush=True)
+        out.append({"call": i, "max_k": kw["max_k"],
+                    "x": tuple(args[0].shape), "ms": ms, "extra_gib": extra})
+    del calls
     torch.cuda.empty_cache()
     return out
 
@@ -697,9 +800,57 @@ def pbp_phase(torch, kernels, mods, opt, sopt, dev):
     return launches
 
 
+def phase5_breakdown(torch, mods, opt, sopt, data):
+    """Phase 5's two harmonic_analysis calls (analysis_calls), then its
+    analysis and synthesis apart: time (median of 3) and the peak memory
+    each takes above its inputs, which says which half sets the step's
+    peak -> the analysis-call records."""
+    harmonics, layer0, corpus = mods
+    x, f0, x_ref, nxv = data
+    calls = analysis_calls(torch, harmonics, lambda: corpus.batched_pipeline(
+        opt, sopt, x, f0, nxv, x_ref))
+    stages = [("analyze", lambda _: layer0._analyze(opt, x, f0)),
+              ("synthesize", lambda c: layer0._synthesize(sopt, c))]
+    ms, _ = median_stages(torch, stages, 3)
+    chunk, peak_a = peak_above(torch, lambda: layer0._analyze(opt, x, f0))
+    peak_s = peak_above(torch, lambda: layer0._synthesize(sopt, chunk))[1]
+    print(f"5 stages: analyze {ms['analyze']:.2f} ms, peak {peak_a:.3f} GiB "
+          f"above its inputs; synthesize {ms['synthesize']:.2f} ms, peak "
+          f"{peak_s:.3f} GiB above the chunk (median of 3)", flush=True)
+    # the analysis's own stages (siblings inside _analyze), each call's
+    # peak above the memory allocated when it starts
+    peaks = {}
+
+    def tracked(mod, name):
+        fn = getattr(mod, name)
+
+        def wrapped(*args, **kw):
+            out, gib = peak_above(torch, lambda: fn(*args, **kw))
+            peaks[name] = max(peaks.get(name, 0.0), gib)
+            return out
+        return wrapped
+
+    hooks = [(harmonics, "refine_f0"), (harmonics, "harmonic_analysis"),
+             (layer0, "_deconv_correction"), (layer0, "_track_denoise"),
+             (harmonics, "oscillator_bank"), (layer0, "_band_envelopes"),
+             (layer0, "_warped_psd")]
+    originals = [(mod, name, getattr(mod, name)) for mod, name in hooks]
+    for mod, name in hooks:
+        setattr(mod, name, tracked(mod, name))
+    try:
+        layer0._analyze(opt, x, f0)
+    finally:
+        for mod, name, fn in originals:
+            setattr(mod, name, fn)
+    print("5 analysis stages, peak GiB above each call's start: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in peaks.items()), flush=True)
+    return calls
+
+
 def capture_kernel_inputs(kernels, names, run):
-    """Run `run()` with the wrappers of `names` recording the arguments of
-    each call -> ({name: [(args, kw), ...]}, run's result)."""
+    """Run `run()` with the functions `names` of module `kernels` recording
+    the arguments of each call -> ({name: [(args, kw), ...]}, run's
+    result)."""
     calls = {name: [] for name in names}
     originals = {name: getattr(kernels, name) for name in names}
 
@@ -768,15 +919,19 @@ def public_11025(torch, kernels, lt, dev):
     phase("8 launches", launches["harmonic_project"] > 0, str(launches))
 
 
-def main():
+def main(argv):
     import torch
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False", flush=True)
         return 2
-    repo = Path(__file__).resolve().parent
+    if argv and (len(argv) != 2 or argv[0] != "breakdown"):
+        print(__doc__, flush=True)
+        return 2
+    # "breakdown DIR": only phase 5's breakdown, of the package in DIR
+    other = Path(argv[1]).resolve() if argv else None
+    repo = other or Path(__file__).resolve().parent
     if not (repo / "libllsm2_tpu_torch" / "__init__.py").exists():
-        print(f"FAIL: no libllsm2_tpu_torch package beside {__file__}",
-              flush=True)
+        print(f"FAIL: no libllsm2_tpu_torch package in {repo}", flush=True)
         return 1
     sys.path.insert(0, str(repo))
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -793,6 +948,7 @@ def main():
 
     import libllsm2_tpu_torch as lt
     from libllsm2_tpu_torch import create_aoptions, create_soptions
+    from libllsm2_tpu_torch.models import layer0, layer1, pbp
     from libllsm2_tpu_torch.ops import _build, harmonics, kernels
     from libllsm2_tpu_torch.parallel import corpus
 
@@ -800,6 +956,10 @@ def main():
     _build.library()
     phase("2 build", True, f"{time.perf_counter() - t0:.1f} s "
           "(nvcc sm_90a, ctypes)")
+    print("2 ptxas: " + "; ".join(
+        f"{kernel_label(name)} {regs} registers, {spill} B spilled, {smem} B "
+        "static smem" for name, regs, spill, smem in _build.resource_usage()),
+        flush=True)
 
     opt_off = dataclasses.replace(create_aoptions(f0_floor=70.0),
                                   track_denoise=False, use_pallas=True)
@@ -813,6 +973,10 @@ def main():
     assert opt11.conf.nhop == 55 and not opt11.fs_input
     t0 = time.perf_counter()
     data = fixtures(torch, dev)
+    if other:
+        print(f"breakdown of the package in {other}", flush=True)
+        phase5_breakdown(torch, (harmonics, layer0, corpus), opt, sopt, data)
+        return 0
     data11 = fixtures(torch, dev, fs=11000.0)
     print(f"fixtures: {BATCH} x {DURATION} s at 16 and 11 kHz in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -889,6 +1053,8 @@ def main():
     for name in MAIN:
         summary[name]["launches"] = launches[name]
     full.update(f)
+    summary["harmonic_project_win"]["analysis_calls"] = phase5_breakdown(
+        torch, (harmonics, layer0, corpus), opt, sopt, data)
     # phase 6: hm_kernel="matmul" at the library default, all 128 rows
     launches, snr6, f = run_path(torch, kernels, corpus, "6 matmul", opt_mxu,
                                  sopt, data, NOISY_PINS_DB["library default"],
@@ -913,7 +1079,6 @@ def main():
     # phase 8: an 11.025 kHz file through the public API
     public_11025(torch, kernels, lt, dev)
     # phase 9: the layer-1 round trip on the bench rows
-    from libllsm2_tpu_torch.models import layer0, layer1, pbp
     chunk, _ = layer1_round_trip(torch, kernels, (layer0, layer1), opt, sopt,
                                  data)
     # env_render, which no library path runs: the full-batch chunk's
@@ -948,7 +1113,7 @@ def main():
 
 if __name__ == "__main__":
     try:
-        rc = main()
+        rc = main(sys.argv[1:])
     except Exception:
         traceback.print_exc()
         print("FAIL: chip smoke did not complete", flush=True)

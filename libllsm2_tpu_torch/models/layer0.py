@@ -195,10 +195,11 @@ def _deconv_correction(opt: AnalysisOptions, f0, cyc, ampl, phse, mask,
 # harmonic-track denoisers (JAX layer0.py:140-789, the Pallas branch)
 # ---------------------------------------------------------------------------
 
-def _hann_taps(M: int) -> np.ndarray:
+@functools.lru_cache(maxsize=32)
+def _hann_taps(M: int) -> tuple:
     """Normalized symmetric Hann FIR of M taps (np.hanning(M + 2)[1:-1])."""
     w = np.hanning(M + 2)[1:-1]
-    return w / w.sum()
+    return tuple((w / w.sum()).tolist())
 
 
 def _aligned_track(ampl, phse, cyc_c):
@@ -223,8 +224,8 @@ def _track_lowpass(conf: ChunkConf, f0, cyc_c, ampl, phse, mask,
     w = _hann_taps(M)
     c, align = _aligned_track(ampl, phse, cyc_c)
     voiced = (f0 > 0).to(FP)[..., None]
-    guard = kernels.fir_frames(voiced, w) > 0.999      # [B, N, 1]
-    cs = torch.where(guard, kernels.fir_frames(c, w), c) * align.conj()
+    guard, c_f = kernels.fir_frames((voiced, c), w)
+    cs = torch.where(guard > 0.999, c_f, c) * align.conj()  # guard [B, N, 1]
     return torch.abs(cs) * mask, torch.angle(cs) * mask
 
 
@@ -365,13 +366,12 @@ def _spectral_gate(c_s, full, pp, guard, v, mask, thop: float,
             a, (0, 0, 0, Nb * BB - N)).reshape(B, Nb, BB, K).mean(dim=2)
         MB = max(int(round(M / BB)), 1) | 1
         wb = _hann_taps(MB)
-        lp_b = kernels.fir_frames(bmean(pp * okf), wb) \
-            / torch.clamp(kernels.fir_frames(bmean(okf), wb), min=1e-9)
-        lp = torch.repeat_interleave(lp_b, BB, dim=1)[:, :N]
+        num, den = kernels.fir_frames((bmean(pp * okf), bmean(okf)), wb)
+        lp = torch.repeat_interleave(num / torch.clamp(den, min=1e-9), BB,
+                                     dim=1)[:, :N]
     else:
-        wl = _hann_taps(M)
-        lp = kernels.fir_frames(pp * okf, wl) \
-            / torch.clamp(kernels.fir_frames(okf, wl), min=1e-9)
+        num, den = kernels.fir_frames((pp * okf, okf), _hann_taps(M))
+        lp = num / torch.clamp(den, min=1e-9)
     w_loc = torch.clamp(3.0 * lp / torch.clamp(v[:, None, :], min=1e-30)
                         - 0.5, 0.0, 1.0)
     return torch.where(guard, w_loc * (s_dn - c_s), czero)
@@ -392,7 +392,7 @@ def _track_denoise(conf: ChunkConf, f0, cyc_c, ampl, phse, mask,
     frame_rate = 1.0 / conf.thop
     M = int(round(frame_rate / cutoff_hz)) | 1          # odd tap count
     Mp = int(round(frame_rate / (2.0 * cutoff_hz))) | 1
-    taps1, taps2 = tuple(_hann_taps(M)), tuple(_hann_taps(Mp))
+    taps1, taps2 = _hann_taps(M), _hann_taps(Mp)
     voiced = (f0 > 0).to(FP)
     if c_complex is not None:
         (pp, cs2, r2, guard, cre, cim, csr, csi) = kernels.denoise_stats(
@@ -511,10 +511,10 @@ def _analyze(opt: AnalysisOptions, x: torch.Tensor,
     D = _env_decimation(conf, opt.env_decimate, nx)
     envs = _band_envelopes(residual, conf, D)              # [B, C, nx/D]
     Cn, Ke = conf.nchannel, conf.maxnhar_e
-    rep = lambda a: a[:, None].expand((B, Cn) + a.shape[1:]).reshape(
-        (B * Cn,) + a.shape[1:])
+    # each channel's row of envs reads its utterance's cycle track
     ea, ep, _, edc = harmonics.harmonic_analysis(
-        envs.reshape(B * Cn, -1), rep(f0), rep(cyc[:, ::D]),
+        envs.reshape(B * Cn, -1), torch.repeat_interleave(f0, Cn, dim=0),
+        cyc[:, ::D],
         nhop=nhop // D, fs=conf.fs / D, max_k=Ke,
         halfwin_max=-(-conf.halfwin_max // D), rel_winsize=conf.rel_winsize,
         fnyq=min(conf.fnyq, 0.4 * conf.fs / D), with_dc=True)

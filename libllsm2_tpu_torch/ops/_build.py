@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -20,7 +21,10 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
-NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
+# -Xptxas -v: each kernel's registers, spills and shared memory, kept in
+# <library>.ptxas.txt beside the library (resource_usage reads it)
+NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
+                     "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -30,10 +34,11 @@ _F = ctypes.c_float
 SIGNATURES = {
     # dc, ar, ai, kl, out, R, T, K, stream
     "llsm_osc_bank": (_P, _P, _P, _P, _P, _L, _I, _I, _P),
-    # dc, frames, hw, lo, hi, kl, re, im, wsum, xsum, R, W, K, center,
-    # c0, c1, c2, c3, ncoef, stream
+    # x, cyc, hw, lo, hi, kl, re, im, wsum, xsum, Bx, rep, nx, N, K, nhop,
+    # center, c0, c1, c2, c3, ncoef, stream
     "llsm_harmonic_project_win": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                  _L, _I, _I, _I, _F, _F, _F, _F, _I, _P),
+                                  _I, _I, _I, _I, _I, _I, _I, _F, _F, _F,
+                                  _F, _I, _P),
     # ampl, phse, cyc_c, hw, eq_re, eq_im, out_re, out_im, B, N, K, D,
     # nhop, stride, nq, stream
     "llsm_deconv_full": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -55,8 +60,8 @@ SIGNATURES = {
     # c3, ncoef, stream
     "llsm_harmonic_project_mxu": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                   _I, _I, _F, _F, _F, _F, _I, _P),
-    # v, out, B, N, C, taps (host), ntaps, stream
-    "llsm_fir_frames": (_P, _P, _I, _I, _I, _P, _I, _P),
+    # in0, out0, C0, in1, out1, C1, B, N, taps (device), ntaps, stream
+    "llsm_fir_frames": (_P, _P, _I, _P, _P, _I, _I, _I, _P, _I, _P),
     # cyc, edc, ar, ai, base, env, base_out, B, N, nhop, nx, C, Ke, stream
     "llsm_env_render": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                         _P),
@@ -75,20 +80,22 @@ def _nvcc() -> str:
                        "toolkit (PATH or CUDA_HOME)")
 
 
-def _run_all(cmds) -> None:
-    """Run the commands in parallel; raise with the first failure's
-    stderr."""
+def _run_all(cmds) -> str:
+    """Run the commands in parallel -> their stderr, joined; raise with the
+    failures' stderr."""
     procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                     stderr=subprocess.PIPE, text=True))
              for cmd in cmds]
-    failed = []
+    failed, errs = [], []
     for cmd, proc in procs:
         _, err = proc.communicate()
+        errs.append(err)
         if proc.returncode != 0:
             failed.append(f"nvcc failed ({proc.returncode}):\n"
                           f"{' '.join(cmd)}\n{err}")
     if failed:
         raise RuntimeError("\n".join(failed))
+    return "".join(errs)
 
 
 def library() -> ctypes.CDLL:
@@ -108,8 +115,9 @@ def library() -> ctypes.CDLL:
         objs = [BUILD_DIR / f"{s.stem}.{tag}.o" for s in sources]
         nvcc = _nvcc()
         try:
-            _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
-                      for s, o in zip(sources, objs)])
+            report = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+                               for s, o in zip(sources, objs)])
+            out.with_suffix(".ptxas.txt").write_text(report)
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
             _run_all([[nvcc, *ARCH, "-shared", "-o", str(tmp),
                        *map(str, objs)]])
@@ -122,5 +130,28 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    lib.ptxas_report = out.with_suffix(".ptxas.txt")
     _lib = lib
     return lib
+
+
+def resource_usage() -> list:
+    """[(kernel, registers, spill bytes stored + loaded, static shared
+    bytes)] of every compiled kernel, from the build's ptxas report."""
+    report = library().ptxas_report
+    rows, name, spill = [], None, 0
+    for line in (report.read_text() if report.exists() else "").splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, spill = m.group(1), 0
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            smem = re.search(r"(\d+) bytes smem", line)
+            rows.append((name, int(m.group(1)), spill,
+                         int(smem.group(1)) if smem else 0))
+            name = None
+    return rows

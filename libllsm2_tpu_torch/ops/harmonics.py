@@ -70,6 +70,23 @@ def frame_hops(x: torch.Tensor, nfrm: int, nhop: int, halfhops: int,
     return xp.unfold(-1, 2 * p, nhop)[..., :nfrm, :]
 
 
+def win_frames(x: torch.Tensor, cyc: torch.Tensor, nfrm: int, nhop: int,
+               center: int):
+    """The analysis frames at centers i*nhop as buffers: x [Bx, nx], cyc
+    [Bc, nx] (x row b takes cyc row b // (Bx // Bc)) -> (frames, dc)
+    [Bx nfrm, 2 center], x zero-padded and cyc edge-padded, dc the cycle
+    offset from each frame's center sample."""
+    Bx = x.shape[0]
+    hh = center // nhop
+    if hh * nhop != center:
+        raise ValueError("win_frames: center must be a multiple of nhop")
+    cyc = torch.repeat_interleave(cyc, Bx // cyc.shape[0], dim=0)
+    frames = frame_hops(x.to(FP), nfrm, nhop, hh).reshape(Bx * nfrm, -1)
+    dc = (frame_hops(cyc, nfrm, nhop, hh, mode="edge")
+          - cyc[..., ::nhop][..., :nfrm, None]).reshape(Bx * nfrm, -1)
+    return frames, dc
+
+
 def cycle_segments(cyc: torch.Tensor, centers: torch.Tensor,
                    halfwin: int) -> torch.Tensor:
     """Per-frame cycle offsets cyc[c+n] - cyc[c] for n in [-halfwin,
@@ -91,13 +108,15 @@ def harmonic_analysis(x, f0, cyc, *, nhop: int, fs: float, max_k: int,
     pitch-synchronous projection (the JAX package's use_pallas=True
     branches at frame centers i*nhop).
 
-    x, cyc [B, nx]; f0 [B, N] (0 = unvoiced) -> ampl, phse, mask
+    x [B, nx], cyc [Bc, nx] (Bc divides B: row b of x takes cyc row
+    b // (B // Bc), as the envelope pass's channels share their
+    utterance's track); f0 [B, N] (0 = unvoiced) -> ampl, phse, mask
     [B, N, max_k] (phase at the frame center), plus the windowed DC
     [B, N] with with_dc (every frame, unvoiced ones with the f0 = 100 Hz
-    placeholder window).  A cosine-series window runs the fused-window
-    kernel on frame buffers, or with mxu=True the unframed projection
-    (no [N, W] buffers); any other window (mltsine) is applied here and
-    the frames go through the plain projection kernel."""
+    placeholder window).  A cosine-series window runs the fused kernel,
+    which frames x and cyc itself, or with mxu=True the unframed
+    projection; any other window (mltsine) is applied here to frame
+    buffers, which go through the plain projection kernel."""
     B, N = f0.shape
     H = halfwin_max
     dev = x.device
@@ -111,41 +130,38 @@ def harmonic_analysis(x, f0, cyc, *, nhop: int, fs: float, max_k: int,
     halfwidth_e = halfwidth if with_dc else torch.where(
         voiced, halfwidth, torch.full_like(halfwidth, 2.0))
     hh = -(-H // nhop)           # window halfwidth in whole hops
-    cyc_c = cyc[..., ::nhop][..., :N]
     if mxu and window in COSINE_SERIES:
+        cyc = torch.repeat_interleave(cyc, B // cyc.shape[0], dim=0)
         re, im, wsum, xsum = kernels.harmonic_project_mxu(
             x, cyc, halfwidth_e, max_k, nhop, hh, window=window)
         ampl = 2.0 * torch.sqrt(re ** 2 + im ** 2)
         # the kernel projects on the absolute cycle: rotate to the centers
+        cyc_c = cyc[..., ::nhop][..., :N]
         ang_c = 2.0 * math.pi * _phase_cycles(kharm, cyc_c[..., None])
         re, im = (re * torch.cos(ang_c) - im * torch.sin(ang_c),
                   re * torch.sin(ang_c) + im * torch.cos(ang_c))
     else:
+        C = hh * nhop            # window center column of a frame
         hw_int = torch.ceil(halfwidth_e).to(torch.int32)
-        C = hh * nhop            # window center column in the frame buffer
-        lo, hi = (C - hw_int).reshape(-1), (C + hw_int + 1).reshape(-1)
-        R = B * N
-        frames = frame_hops(x.to(FP), N, nhop, hh).reshape(R, -1)
-        dcf = (frame_hops(cyc, N, nhop, hh, mode="edge")
-               - cyc_c[..., None]).reshape(R, -1)
+        lo, hi = C - hw_int, C + hw_int + 1
         if window in COSINE_SERIES:
             # live slots: ceil(fnyq/f0) >= the mask's slot count under
             # rounding
             kl = torch.where(voiced, torch.ceil(fnyq / f0s).to(torch.int32),
                              torch.zeros_like(hw_int))
-            kl = torch.clamp(kl, 0, max_k)
             re, im, wsum, xsum = kernels.harmonic_project_win(
-                dcf, frames, halfwidth_e.reshape(R), max_k, lo, hi, center=C,
-                window=window, kl=kl.reshape(R))
+                x, cyc, halfwidth_e, max_k, lo, hi, nhop=nhop, center=C,
+                window=window, kl=torch.clamp(kl, 0, max_k))
         else:
+            frames, dcf = win_frames(x, cyc, N, nhop, C)
             noff = torch.arange(2 * C, dtype=FP, device=dev) - C
-            w = window_centered(window, noff,
-                                halfwidth_e.reshape(R)[:, None])
+            w = window_centered(window, noff, halfwidth_e.reshape(-1, 1))
             xw = frames * w
-            re, im = kernels.harmonic_project(dcf, xw, max_k, lo, hi)
-            wsum, xsum = w.sum(dim=-1), xw.sum(dim=-1)
-        re, im = re.reshape(B, N, max_k), im.reshape(B, N, max_k)
-        wsum, xsum = wsum.reshape(B, N), xsum.reshape(B, N)
+            re, im = kernels.harmonic_project(dcf, xw, max_k, lo.reshape(-1),
+                                              hi.reshape(-1))
+            re, im = re.reshape(B, N, max_k), im.reshape(B, N, max_k)
+            wsum = w.sum(dim=-1).reshape(B, N)
+            xsum = xw.sum(dim=-1).reshape(B, N)
         ampl = 2.0 * torch.sqrt(re ** 2 + im ** 2)
     wsum = torch.clamp(wsum, min=1e-9)
     ampl = ampl / wsum[..., None]

@@ -16,6 +16,7 @@ its design answers that.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import numpy as np
@@ -127,57 +128,69 @@ def osc_bank_ref(dc, ampl, phse, mask, kl):
 # 2. fused-window harmonic projection (pallas_osc.harmonic_project_win_pallas)
 # ---------------------------------------------------------------------------
 
-def harmonic_project_win(dc: torch.Tensor, frames: torch.Tensor,
+def harmonic_project_win(x: torch.Tensor, cyc: torch.Tensor,
                          hw: torch.Tensor, max_k: int, lo: torch.Tensor,
-                         hi: torch.Tensor, *, center: int,
+                         hi: torch.Tensor, *, nhop: int, center: int,
                          window: str = "hanning",
                          kl: torch.Tensor | None = None):
-    """Fused window + projection: dc, frames [R, W]; hw, lo, hi, kl [R] ->
-    (re [R, K], im [R, K], wsum [R], xsum [R]) with
-    re + j im = sum_w frames win e^{-2 pi j (k+1) dc}, wsum = sum_w win and
-    xsum = sum_w frames win (the k = 0 row).  win is the cosine-series
-    `window` centered at buffer column `center` with halfwidth hw; only
-    columns in [lo, hi) (which must cover its support) contribute.  Slots
-    k >= kl are exact zeros (kl=None: all max_k slots live)."""
-    R, W = dc.shape
+    """Framing + fused window + projection of frames at centers n*nhop:
+    x [Bx, nx] the signal, cyc [Bc, nx] its mod-1 cycle track (x row b
+    reads cyc row b // (Bx // Bc)); hw, lo, hi, kl [Bx, N] per frame ->
+    (re [Bx, N, K], im [Bx, N, K], wsum [Bx, N], xsum [Bx, N]).  Frame n
+    is column w in [0, 2 center) at sample s = n nhop - center + w, with
+    x zero and cyc edge-clamped outside [0, nx) and dc(w) = cyc[s] -
+    cyc[n nhop]; re + j im = sum_w x win e^{-2 pi j (k+1) dc}, wsum =
+    sum_w win and xsum = sum_w x win (the k = 0 row).  win is the
+    cosine-series `window` centered at column `center` with halfwidth
+    hw; only columns in [lo, hi) (which must cover its support)
+    contribute.  Slots k >= kl are exact zeros (kl=None: all max_k slots
+    live).  No [Bx N, 2 center] frame buffer is built on the card."""
+    Bx, nx = x.shape
+    N = hw.shape[-1]
     if kl is None:
-        kl = torch.full((R,), max_k, dtype=torch.int32, device=dc.device)
-    if not _on_cuda(dc, frames, hw, lo, hi, kl):
-        return harmonic_project_win_ref(dc, frames, hw, max_k, lo, hi,
+        kl = torch.full((Bx, N), max_k, dtype=torch.int32, device=x.device)
+    if not _on_cuda(x, cyc, hw, lo, hi, kl):
+        return harmonic_project_win_ref(x, cyc, hw, max_k, lo, hi, nhop=nhop,
                                         center=center, window=window, kl=kl)
-    if frames.shape != (R, W) \
-            or any(v.shape != (R,) for v in (hw, lo, hi, kl)):
+    Bc = cyc.shape[0]
+    if cyc.shape != (Bc, nx) or Bx % Bc or (N - 1) * nhop >= nx \
+            or any(v.shape != (Bx, N) for v in (hw, lo, hi, kl)):
         raise ValueError("harmonic_project_win: shape mismatch")
     coefs = tuple(float(c) for c in COSINE_SERIES[window]) + (0.0,) * 3
-    dc, frames, hw = _f32(dc), _f32(frames), _f32(hw)
+    x, cyc, hw = _f32(x), _f32(cyc), _f32(hw)
     lo, hi, kl = _i32(lo), _i32(hi), _i32(kl)
-    dev = dc.device
-    re = torch.empty((R, max_k), dtype=FP, device=dev)
-    im = torch.empty((R, max_k), dtype=FP, device=dev)
-    ws = torch.empty((R,), dtype=FP, device=dev)
-    xs = torch.empty((R,), dtype=FP, device=dev)
-    ptrs = (t.data_ptr() for t in (dc, frames, hw, lo, hi, kl, re, im, ws, xs))
-    _launch("harmonic_project_win", *ptrs, R, W, max_k, int(center), *coefs[:4],
-            len(COSINE_SERIES[window]), _stream(dc))
+    dev = x.device
+    re = torch.empty((Bx, N, max_k), dtype=FP, device=dev)
+    im = torch.empty((Bx, N, max_k), dtype=FP, device=dev)
+    ws = torch.empty((Bx, N), dtype=FP, device=dev)
+    xs = torch.empty((Bx, N), dtype=FP, device=dev)
+    ptrs = (t.data_ptr() for t in (x, cyc, hw, lo, hi, kl, re, im, ws, xs))
+    _launch("harmonic_project_win", *ptrs, Bx, Bx // Bc, nx, N, max_k,
+            int(nhop), int(center), *coefs[:4], len(COSINE_SERIES[window]),
+            _stream(x))
     return re, im, ws, xs
 
 
-def harmonic_project_win_ref(dc, frames, hw, max_k, lo, hi, *, center,
+def harmonic_project_win_ref(x, cyc, hw, max_k, lo, hi, *, nhop, center,
                              window="hanning", kl=None):
-    """Plain version of harmonic_project_win (the jnp math of
-    harmonics.py:171-188 on framed buffers)."""
-    R, W = dc.shape
-    dev = dc.device
-    col = torch.arange(W, device=dev)
+    """Plain version of harmonic_project_win: harmonics.win_frames'
+    buffers through the jnp math of harmonics.py:171-188."""
+    from .harmonics import win_frames
+    Bx, N = hw.shape
+    frames, dc = win_frames(x, cyc, N, nhop, center)
+    hw, lo, hi = hw.reshape(-1), lo.reshape(-1), hi.reshape(-1)
+    dev = x.device
+    col = torch.arange(2 * center, device=dev)
     noff = (col - center).to(FP)[None, :]
     w = window_centered(window, noff, hw[:, None])
     w = w * ((col[None, :] >= lo[:, None]) & (col[None, :] < hi[:, None]))
     xw = frames * w
     re, im = harmonic_project_ref(dc, xw, max_k)
     if kl is not None:
-        live = torch.arange(max_k, device=dev)[None, :] < kl[:, None]
+        live = torch.arange(max_k, device=dev)[None, :] < kl.reshape(-1, 1)
         re, im = re * live, im * live
-    return re, im, w.sum(dim=-1), xw.sum(dim=-1)
+    return (re.reshape(Bx, N, max_k), im.reshape(Bx, N, max_k),
+            w.sum(dim=-1).reshape(Bx, N), xw.sum(dim=-1).reshape(Bx, N))
 
 
 # ---------------------------------------------------------------------------
@@ -370,10 +383,15 @@ _DENOISE_TILE = 32
 _DENOISE_MAX_TAPS = 31
 
 
+@functools.lru_cache(maxsize=64)
+def _taps32_cached(taps: tuple) -> tuple:
+    return tuple(float(t) for t in np.asarray(taps, dtype=np.float32))
+
+
 def _taps32(taps) -> tuple:
     """FIR taps rounded to float32, as the kernels (and the Pallas kernel's
-    Python-float constants) apply them."""
-    return tuple(float(t) for t in np.asarray(taps, dtype=np.float32))
+    Python-float constants) apply them; converted once per tap tuple."""
+    return _taps32_cached(taps if isinstance(taps, tuple) else tuple(taps))
 
 
 # ---------------------------------------------------------------------------
@@ -383,32 +401,51 @@ def _taps32(taps) -> tuple:
 _FIR_MAX_TAPS = 256
 
 
-def fir_frames(v: torch.Tensor, taps) -> torch.Tensor:
+@functools.lru_cache(maxsize=64)
+def _taps_on(taps32: tuple, device: torch.device) -> torch.Tensor:
+    """The float32 taps as a tensor on `device`, made once per tap tuple."""
+    return torch.tensor(taps32, dtype=FP, device=device)
+
+
+def fir_frames(v, taps):
     """Zero-edged FIR along the frame axis (dim 1) of a batch: v [B, N, ...]
-    real or complex (complex runs as its (re, im) pairs), taps an odd-length
-    sequence applied as float32 constants -> out[:, i] = sum_j taps[j]
-    v[:, i + j - len(taps) // 2], frames outside [0, N) of each utterance
-    zero."""
+    real or complex (complex runs as its (re, im) pairs), or a pair of
+    such tensors with the same leading [B, N]; taps an odd-length sequence
+    applied as float32 constants -> out[:, i] = sum_j taps[j]
+    v[:, i + j - len(taps) // 2] for each tensor, frames outside [0, N) of
+    each utterance zero; a pair gives a pair, filtered in one launch."""
     t = _taps32(taps)
     if not 1 <= len(t) <= _FIR_MAX_TAPS:
         raise ValueError(f"fir_frames: {len(t)} taps (1..{_FIR_MAX_TAPS})")
-    if not _on_cuda(v):
+    vs = (v,) if torch.is_tensor(v) else tuple(v)
+    if not 1 <= len(vs) <= 2:
+        raise ValueError(f"fir_frames: {len(vs)} tensors (one or a pair)")
+    if not _on_cuda(*vs):
         return fir_frames_ref(v, t)
-    cplx = v.is_complex()
-    x = torch.view_as_real(v) if cplx else v
-    B, N = x.shape[:2]
-    x = _f32(x.reshape(B, N, -1))
-    out = torch.empty_like(x)
-    ct = (ctypes.c_float * len(t))(*t)
-    _launch("fir_frames", x.data_ptr(), out.data_ptr(), B, N, x.shape[-1],
-            ctypes.addressof(ct), len(t), _stream(x))
-    out = out.reshape((B, N) + ((v.shape[2:] + (2,)) if cplx else v.shape[2:]))
-    return torch.view_as_complex(out) if cplx else out
+    B, N = vs[0].shape[:2]
+    if any(u.shape[:2] != (B, N) for u in vs):
+        raise ValueError("fir_frames: tensors of different [B, N]")
+    # complex64 storage is its float32 (re, im) pairs: the kernel reads and
+    # writes it as float columns, so no view or reshape is needed
+    vs = tuple(u if u.dtype in (FP, CP) and u.is_contiguous()
+               else u.to(CP if u.is_complex() else FP).contiguous()
+               for u in vs)
+    outs = tuple(torch.empty_like(u) for u in vs)
+    taps_d = _taps_on(t, vs[0].device).data_ptr()
+    stream = _stream(vs[0])
+    cols = lambda u: u.numel() // max(B * N, 1) * (2 if u.is_complex() else 1)
+    args = [a for u, o in zip(vs, outs) for a in (u.data_ptr(), o.data_ptr(),
+                                                   cols(u))]
+    args += [None, None, 0] * (2 - len(vs))
+    _launch("fir_frames", *args, B, N, taps_d, len(t), stream)
+    return outs[0] if torch.is_tensor(v) else outs
 
 
-def fir_frames_ref(v: torch.Tensor, taps) -> torch.Tensor:
+def fir_frames_ref(v, taps):
     """Plain version of fir_frames: the shift-and-add chain in tap order,
-    in float32."""
+    in float32, on v or each tensor of the pair v."""
+    if not torch.is_tensor(v):
+        return tuple(fir_frames_ref(u, taps) for u in v)
     h = len(taps) // 2
     out = torch.zeros_like(v)
     for j, t in enumerate(_taps32(taps)):

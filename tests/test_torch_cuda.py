@@ -35,14 +35,22 @@ def _osc_inputs(K, notch):
     return dc, ampl, phse, mask, kl
 
 
-def _proj_inputs(K, W, seed):
+def _win_inputs(nhop, W, seed, B=2, Nf=N // 2):
+    """B utterances for harmonic_project_win at hop nhop and frame width W
+    (center C = W // 2): x [B, Nf*nhop], the mod-1 cycle track of an F0
+    that differs by row (so frames mixing utterances show), halfwidths
+    [B, Nf] in [2, C - 1] and their live columns lo, hi -> (x, cyc, hw, lo,
+    hi, C)."""
     rng = np.random.default_rng(seed)
     C = W // 2
-    dc = rng.uniform(-1, 1, (N, W)).astype(np.float32)
-    fr = rng.standard_normal((N, W)).astype(np.float32)
-    hw = rng.uniform(2.0, C - 1, N).astype(np.float32)
+    nx = Nf * nhop
+    f0 = 100.0 + 70.0 * np.arange(B)[:, None] \
+        + 20.0 * np.sin(np.arange(nx)[None, :] / (40.0 * nhop))
+    cyc = (np.cumsum(f0 / (200.0 * nhop), axis=-1) % 1.0).astype(np.float32)
+    x = rng.standard_normal((B, nx)).astype(np.float32)
+    hw = rng.uniform(2.0, C - 1, (B, Nf)).astype(np.float32)
     hw_int = np.ceil(hw).astype(np.int32)
-    return dc, fr, hw, C - hw_int, C + hw_int + 1, C
+    return x, cyc, hw, C - hw_int, C + hw_int + 1, C
 
 
 def _stats_inputs(Nf, K, seed, complex_input):
@@ -93,14 +101,13 @@ def test_cuda_kernels_match_plain_on_card():
     torch.testing.assert_close(kernels.osc_bank(dc, ampl, phse, mask, kl),
                                kernels.osc_bank_ref(dc, ampl, phse, mask, kl),
                                atol=2e-4, rtol=0)
-    dc, fr, hw, lo, hi, C = _proj_inputs(80, 960, 3)
-    args = [T(a).to(dev) for a in (dc, fr, hw)]
+    x, cyc, hw, lo, hi, C = _win_inputs(80, 960, 3)
+    args = [T(a).to(dev) for a in (x, cyc, hw)]
     lo, hi = T(lo).to(dev), T(hi).to(dev)
-    kl = torch.randint(0, 80, (N,), device=dev, dtype=torch.int32)
-    for g, r in zip(kernels.harmonic_project_win(*args, 80, lo, hi, center=C,
-                                                 kl=kl),
-                    kernels.harmonic_project_win_ref(*args, 80, lo, hi,
-                                                     center=C, kl=kl)):
+    kl = torch.randint(0, 80, hw.shape, device=dev, dtype=torch.int32)
+    kw = dict(nhop=80, center=C, kl=kl)
+    for g, r in zip(kernels.harmonic_project_win(*args, 80, lo, hi, **kw),
+                    kernels.harmonic_project_win_ref(*args, 80, lo, hi, **kw)):
         torch.testing.assert_close(g, r, atol=2e-3, rtol=1e-5)
     a = torch.rand(2, N, 80, device=dev)
     cyc_c, hw = torch.rand(2, N, device=dev), 30 + 400 * torch.rand(2, N, device=dev)
@@ -158,6 +165,42 @@ def test_denoise_apply_kernel_matches_plain_on_card(emit_resid):
     assert len(got) == (6 if emit_resid else 2)
     for g, r in zip(got, ref):
         torch.testing.assert_close(g, r, atol=2e-4, rtol=1e-4)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("K,nhop,W,rep", [(80, 80, 960, 1), (4, 20, 240, 4)])
+def test_harmonic_project_win_kernel_matches_plain_on_card(K, nhop, W, rep):
+    """The main pass (K = 80, hop 80, W = 960) and the envelope pass (K = 4,
+    hop 20, W = 240, four x rows on each cycle row) on 3 utterances of 301
+    frames: a ragged last 16-frame tile, and the first and last frames
+    reaching past both ends (zero x, edge cyc).  re/im/xsum within 2e-3,
+    wsum 1e-5 relative (test_pallas.py's), slots at or above kl exact
+    zeros, and each utterance's rows equal to the kernel on it alone."""
+    dev = _card()
+    x, cyc, hw, lo, hi, C = (T(a).to(dev) if isinstance(a, np.ndarray) else a
+                             for a in _win_inputs(nhop, W, K, B=3 * rep,
+                                                  Nf=301))
+    cyc = cyc[::rep].contiguous()
+    kl = torch.randint(0, K + 1, hw.shape, device=dev, dtype=torch.int32,
+                       generator=torch.Generator(dev).manual_seed(K))
+    kl[:, :5] = K                         # voiced frames at the left edge
+    kw = dict(nhop=nhop, center=C, kl=kl)
+    kernels.reset_launches()
+    got = kernels.harmonic_project_win(x, cyc, hw, K, lo, hi, **kw)
+    ref = kernels.harmonic_project_win_ref(x, cyc, hw, K, lo, hi, **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["harmonic_project_win"] == 1
+    for g, r in zip(got[:2] + got[3:], ref[:2] + ref[3:]):
+        torch.testing.assert_close(g, r, atol=2e-3, rtol=0)
+    torch.testing.assert_close(got[2], ref[2], atol=0, rtol=1e-5)
+    dead = torch.arange(K, device=dev) >= kl[..., None]
+    assert not got[0][dead].any() and not got[1][dead].any()
+    for b in range(x.shape[0]):
+        alone = kernels.harmonic_project_win(
+            x[b:b + 1], cyc[b // rep:b // rep + 1], hw[b:b + 1], K,
+            lo[b:b + 1], hi[b:b + 1], nhop=nhop, center=C, kl=kl[b:b + 1])
+        for g, a in zip(got, alone):
+            assert torch.equal(g[b], a[0])
 
 
 def _mxu_inputs(B, Nf, nhop, H, seed):
@@ -251,6 +294,29 @@ def test_fir_frames_kernel_matches_plain_on_card(shape, ntaps, cplx):
     torch.testing.assert_close(got, ref, atol=1e-6, rtol=0)
     for b in range(shape[0]):
         assert torch.equal(kernels.fir_frames(v[b:b + 1], taps)[0], got[b])
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("shapes,ntaps", [
+    (((128, 200, 80), (128, 200, 80)), 3),  # the spectral gate's pair
+    (((3, 150, 1), (3, 150, 24)), 7)])       # voicing column, complex track
+def test_fir_frames_pair_kernel_matches_plain_on_card(shapes, ntaps):
+    """A pair in one launch (float4 columns and single ones), bit-equal to
+    the twin on each tensor."""
+    dev = _card()
+    g = torch.Generator().manual_seed(ntaps)
+    v = (torch.rand(shapes[0], generator=g).to(dev),
+         torch.randn(shapes[1], generator=g, dtype=torch.complex64).to(dev)
+         if ntaps == 7 else torch.rand(shapes[1], generator=g).to(dev))
+    taps = tl0._hann_taps(ntaps)
+    kernels.reset_launches()
+    got = kernels.fir_frames(v, taps)
+    ref = kernels.fir_frames_ref(v, taps)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["fir_frames"] == 1
+    assert isinstance(got, tuple) and len(got) == 2
+    for g_, r in zip(got, ref):
+        assert g_.dtype == r.dtype and torch.equal(g_, r)
 
 
 @pytest.mark.requires_cuda

@@ -19,7 +19,20 @@ from libllsm2_tpu_torch.ops import harmonics as thm
 
 torch.set_num_threads(1)
 
-from test_torch_cuda import N, T, _osc_inputs, _proj_inputs
+from test_torch_cuda import N, T, _osc_inputs, _win_inputs
+
+
+def _frames_np(x, cyc, Nf, nhop, C):
+    """harmonic_project_win's frames built in numpy from x [B, nx] and cyc
+    [B, nx]: (frames, dc) [B Nf, 2C] at centers n*nhop, x zero and cyc
+    edge-clamped outside [0, nx), dc the float32 offset from the center
+    sample."""
+    B, nx = x.shape
+    s = np.arange(Nf)[:, None] * nhop - C + np.arange(2 * C)[None, :]
+    sc = np.clip(s, 0, nx - 1)
+    fr = np.where((s >= 0) & (s < nx), x[:, sc], np.float32(0))
+    dc = cyc[:, sc] - cyc[:, np.arange(Nf) * nhop][..., None]
+    return fr.reshape(B * Nf, -1), dc.reshape(B * Nf, -1)
 
 
 @pytest.mark.parametrize("K,notch", [(24, False), (80, False), (80, True)])
@@ -31,21 +44,32 @@ def test_osc_bank_plain_matches_pallas(K, notch):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=2e-4)
 
 
-@pytest.mark.parametrize("K,W,skip", [(24, 960, True), (80, 960, True),
-                                      (80, 960, False), (4, 240, False)])
-def test_harmonic_project_win_plain_matches_pallas(K, W, skip):
-    """Main-pass (Wf = 960) and envelope-pass (Wf = 240, K = 4) shapes.
+@pytest.mark.parametrize("K,nhop,W,skip", [
+    (24, 80, 960, True), (80, 80, 960, True), (80, 80, 960, False),
+    (4, 20, 240, False)])
+def test_harmonic_project_win_plain_matches_pallas(K, nhop, W, skip):
+    """Main-pass (hop 80, Wf = 960) and envelope-pass (hop 20, Wf = 240,
+    K = 4) geometries on two utterances of different F0: the twin framing
+    x and cyc itself against the Pallas kernel fed frames built in numpy,
+    every frame, the first and last hh (zero and edge padding) included.
     With a skipping kl the Pallas kernel computes every slot below its
     128-frame block's maximum, the port below each frame's own kl: the two
     agree on the live slots, and the port's dead slots are exact zeros."""
-    dc, fr, hw, lo, hi, C = _proj_inputs(K, W, K + W)
+    x, cyc, hw, lo, hi, C = _win_inputs(nhop, W, K + W)
+    B, Nf = hw.shape
     rng = np.random.default_rng(5)
-    kl = (rng.integers(0, K, N) if skip else np.full(N, K)).astype(np.int32)
+    kl = (rng.integers(0, K, (B, Nf)) if skip else np.full((B, Nf), K)
+          ).astype(np.int32)
+    fr, dc = _frames_np(x, cyc, Nf, nhop, C)
     re_j, im_j, ws_j, xs_j = map(np.asarray, pallas_osc.harmonic_project_win_pallas(
-        *map(jnp.asarray, (dc, fr, hw)), K, lo=jnp.asarray(lo),
-        hi=jnp.asarray(hi), center=C, kl=jnp.asarray(kl)))
-    re, im, ws, xs = (v.numpy() for v in kernels.harmonic_project_win(
-        *map(T, (dc, fr, hw)), K, T(lo), T(hi), center=C, kl=T(kl)))
+        *map(jnp.asarray, (dc, fr, hw.reshape(-1))), K,
+        lo=jnp.asarray(lo.reshape(-1)), hi=jnp.asarray(hi.reshape(-1)),
+        center=C, kl=jnp.asarray(kl.reshape(-1))))
+    got = kernels.harmonic_project_win(*map(T, (x, cyc, hw)), K, T(lo),
+                                       T(hi), nhop=nhop, center=C, kl=T(kl))
+    re, im = (v.numpy().reshape(-1, K) for v in got[:2])
+    ws, xs = (v.numpy().reshape(-1) for v in got[2:])
+    kl = kl.reshape(-1)
     live = np.arange(K)[None, :] < kl[:, None]
     if skip:
         assert not live.all()
@@ -56,6 +80,38 @@ def test_harmonic_project_win_plain_matches_pallas(K, W, skip):
     assert not re[~live].any() and not im[~live].any()
     np.testing.assert_allclose(ws, ws_j, rtol=1e-5)
     np.testing.assert_allclose(xs, xs_j, atol=2e-3)
+
+
+def test_harmonic_project_win_row_map():
+    """The envelope pass's layout: x row b*Cn + c (channel c of utterance
+    b) reads cyc row b.  The twin on 2 x Cn = 8 x rows with 2 cycle rows
+    matches the Pallas kernel on frames built with each row's own track,
+    and harmonic_analysis with the shared rows equals it with the rows
+    repeated."""
+    K, nhop, W, Cn = 4, 20, 240, 4
+    x, cyc, hw, lo, hi, C = _win_inputs(nhop, W, 7, B=2 * Cn, Nf=60)
+    cyc = cyc[::Cn]
+    B, Nf = hw.shape
+    cyc_rep = np.repeat(cyc, Cn, axis=0)
+    fr, dc = _frames_np(x, cyc_rep, Nf, nhop, C)
+    ref = pallas_osc.harmonic_project_win_pallas(
+        *map(jnp.asarray, (dc, fr, hw.reshape(-1))), K,
+        lo=jnp.asarray(lo.reshape(-1)), hi=jnp.asarray(hi.reshape(-1)),
+        center=C)
+    got = kernels.harmonic_project_win(*map(T, (x, cyc, hw)), K, T(lo),
+                                       T(hi), nhop=nhop, center=C)
+    for g, r, tol in zip(got, ref, (2e-3, 2e-3, 0, 2e-3)):
+        np.testing.assert_allclose(g.numpy().reshape(np.shape(r)),
+                                   np.asarray(r), atol=tol,
+                                   rtol=1e-5 if tol == 0 else 0)
+    f0 = np.tile(np.linspace(90.0, 220.0, Nf, dtype=np.float32), (B, 1))
+    f0[:, :6] = 0.0
+    kw = dict(nhop=nhop, fs=4000.0, max_k=K, halfwin_max=115, rel_winsize=4.0,
+              fnyq=1600.0, with_dc=True)
+    shared = thm.harmonic_analysis(T(x), T(f0), T(cyc), **kw)
+    repeated = thm.harmonic_analysis(T(x), T(f0), T(cyc_rep), **kw)
+    for a, b in zip(shared, repeated):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("envelope", [False, True])
@@ -162,6 +218,29 @@ def test_fir_frames_plain_matches_pallas(B, N, C, ntaps, cplx):
                                    np.asarray(ref), atol=1e-6)
 
 
+@pytest.mark.parametrize("shapes,ntaps", [
+    (((2, 200, 80), (2, 200, 80)), 3),      # the spectral gate's pair (D = 4)
+    (((2, 150, 1), (2, 150, 24, 2)), 7)])   # track lowpass: voicing, complex
+def test_fir_frames_pair_plain_matches_pallas(shapes, ntaps):
+    """A pair through fir_frames gives a pair, each output against
+    fir_frames_pallas per utterance within 1e-6 (test_pallas.py:505)."""
+    rng = np.random.default_rng(ntaps)
+    vs = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    taps = tuple(np.hanning(ntaps + 2)[1:-1] / np.hanning(ntaps + 2).sum())
+    tv = tuple(torch.view_as_complex(T(v)) if v.ndim == 4 else T(v)
+               for v in vs)
+    got = kernels.fir_frames(tv, taps)
+    assert isinstance(got, tuple) and len(got) == 2
+    for v, g in zip(vs, got):
+        g = torch.view_as_real(g) if g.is_complex() else g
+        assert g.shape == v.shape
+        for b in range(v.shape[0]):
+            ref = pallas_osc.fir_frames_pallas(
+                jnp.asarray(v[b].reshape(v.shape[1], -1)), taps)
+            np.testing.assert_allclose(g[b].numpy().reshape(v.shape[1], -1),
+                                       np.asarray(ref), atol=1e-6)
+
+
 @pytest.mark.parametrize("nfrm,cut", [(37, 0), (160, 0), (37, 45)])
 def test_env_render_plain_matches_pallas(nfrm, cut):
     """_render_envelopes(use_pallas=True) on the CPU (the kernel's twin)
@@ -214,9 +293,9 @@ def test_cpu_tensors_never_reach_the_kernels(monkeypatch):
     kernels.reset_launches()
     dc, ampl, phse, mask, kl = _osc_inputs(24, False)
     kernels.osc_bank(*map(T, (dc, ampl, phse, mask, kl)))
-    dc, fr, hw, lo, hi, C = _proj_inputs(4, 240, 1)
-    kernels.harmonic_project_win(*map(T, (dc, fr, hw)), 4, T(lo), T(hi),
-                                 center=C)
+    x, cyc, hw, lo, hi, C = _win_inputs(20, 240, 1, Nf=20)
+    kernels.harmonic_project_win(*map(T, (x, cyc, hw)), 4, T(lo), T(hi),
+                                 nhop=20, center=C)
     a = torch.rand(1, 40, 8)
     kernels.deconv_full(a, a, a[..., 0], a[..., 0] + 30, a[..., :4],
                         a[..., :4], 2, 8, 4)
@@ -224,6 +303,9 @@ def test_cpu_tensors_never_reach_the_kernels(monkeypatch):
                           a[..., :2, None], a[..., :2] + 1,
                           torch.rand(1, 2, 40, 16))
     kernels.fir_frames(a, (0.25, 0.5, 0.25))
+    kernels.fir_frames((a, torch.complex(a, a)), (0.25, 0.5, 0.25))
+    with pytest.raises(ValueError, match="one or a pair"):
+        kernels.fir_frames((a, a, a), (0.25, 0.5, 0.25))
     kernels.env_render(torch.rand(1, 40 * 8), a[..., :2], a[..., :2, None],
                        a[..., :2, None], a[..., :2] + 1)
     assert all(v == 0 for v in kernels.LAUNCHES.values()), kernels.LAUNCHES
