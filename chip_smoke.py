@@ -5,7 +5,8 @@
     python3 chip_smoke.py breakdown DIR
 
 The second form runs only phase 5's breakdown (the harmonic_analysis
-calls and the analysis / synthesis times and peaks) on the
+calls, the harmonic renders, the analysis / synthesis times and peaks and
+each analysis stage's time and peak) on the
 libllsm2_tpu_torch package in DIR, another checkout such as the parent
 commit's, so that two versions compare on one card; it prints no result
 line.  The first form's phases, one line each; any failure exits
@@ -17,9 +18,11 @@ non-zero without the final "ok" line:
      from the ptxas report.
   3. kernels: captures every kernel's inputs on the first 2 rows of the
      path that runs it -- the six of the library-default path (denoiser
-     on; K = 80, Wf = 960, plus the K = 4 envelope projection) and its
-     frame-axis FIR pair (the spectral gate's local-noisiness blend, one
-     launch), the track lowpass's FIR pair (track_lowpass_hz=30: a
+     on; K = 80, Wf = 960, plus the K = 4 envelope projection; osc_bank's
+     residual and synthesis renders), its frame-axis FIR pair (the
+     spectral gate's local-noisiness blend, one launch) and its noise draw
+     (noise_bins, held to its twin's bits exactly and its normals within
+     1e-6), the track lowpass's FIR pair (track_lowpass_hz=30: a
      voicing column and a complex track), env_render on the envelope
      coefficients of the main path's noise_mod_ola call, the unframed
      projection of phase 6's hm_kernel="matmul", the plain projection of
@@ -35,19 +38,23 @@ non-zero without the final "ok" line:
      same inputs.
   4. denoiser off: batched_pipeline on 32 bench rows (16 noisy, 16 clean;
      ChunkConf(f0_floor=70), track_denoise=False, use_pallas=True) after
-     zeroing the launch counters; its four kernels must have launched,
-     the clean rows must reach 55.17 dB, noisy rows 0 and 1 must lie within
-     0.2 dB of 32.69 and 33.14 dB.  Then the step time (median of 5).
+     zeroing the launch counters; its four kernels and the noise draw must
+     have launched, the clean rows must reach 55.17 dB, noisy rows 0 and 1
+     must lie within 0.05 dB of the JAX package's values.  Then the step
+     time (median of 5).
   5. main path, the library default (create_aoptions(f0_floor=70,
      use_pallas=True): denoiser on, spectral gate at decimation 4) on all
-     128 rows x 8 s after zeroing the launch counters: all six kernels and
-     fir_frames must have launched, clean rows >= 55.17 dB, noisy rows 0
-     and 1 within 0.2 dB of 40.05 and 40.6 dB.  Then the step time (median
-     of 5) and peak memory, each of the step's two harmonic_analysis
-     calls (the K = 80 main pass, the K = 4 envelope pass) at full batch,
-     framing, window and glue included (median of 10), and the analysis
-     and the synthesis apart: time (median of 3) and the peak memory each
-     takes above its inputs.
+     128 rows x 8 s after zeroing the launch counters: all six kernels,
+     fir_frames and noise_bins must have launched, clean rows >= 55.17 dB,
+     noisy rows 0 and 1 within 0.05 dB and clean row 64 at most 0.1 dB
+     under the JAX package's values.  Then the step time (median of 5) and peak
+     memory, each of the step's two harmonic_analysis calls (the K = 80
+     main pass, the K = 4 envelope pass) and its two harmonic renders (the
+     residual and the synthesis: one osc_bank launch each) at full batch,
+     framing, window and glue included (median of 10), the analysis and
+     the synthesis apart: time (median of 3) and the peak memory each
+     takes above its inputs, and each analysis stage's synchronized time
+     and peak.
   6. hm_kernel="matmul" at the library default, all 128 rows x 8 s: the
      main harmonic pass through harmonic_project_mxu (launched), the pins
      of phase 5; prints the SNR change from phase 5, then step and peak.
@@ -83,19 +90,31 @@ non-zero without the final "ok" line:
      y_sin within 0.2 dB of the JAX package's.  Prints the PbP ms,
      audio-sec/s and peak.
 Phases 5, 6, 7 and 9 also time every call of each of their kernels in
-the counted run at full batch (median of 10), beside its bound, and
-fir_frames beside its conv1d yardstick.  The line before the last is
+the counted run at full batch (median of 10, and a launch's share of a
+run of 20 back-to-back launches: the device time where the host enqueues
+faster than the card runs), beside its bound, and fir_frames beside its
+conv1d yardstick.  The line before the last is
 the kernels' JSON summary: launches from the phase that runs each (5 for
 the six and fir_frames, 6 for harmonic_project_mxu, 7 for
 harmonic_project, 9 for env_render); ms, plain_ms, library_ms and
 bound_ms at the first 2-row call of phase 3; "full_batch" a record per
-call at full batch ("analysis_calls" on harmonic_project_win: phase 5's
-two harmonic_analysis calls).  bound_ms is the larger of the bytes the
+call at full batch ("analysis_calls" on harmonic_project_win and
+"render_calls" on osc_bank: phase 5's two harmonic_analysis calls and two
+renders).  bound_ms is the larger of the bytes the
 call must move (inputs read once, outputs written once; of the
 pre-windowed frames of harmonic_project only the live columns) over 3.35
-TB/s and its float32 operations over 67 TFLOP/s (the H100 SXM data
-sheet).  The last line is {"ok": true, "device": {...}}.  TF32 is off
-for every float32 matmul and convolution.
+TB/s and its operations: float32 ones over 67 TFLOP/s (the H100 SXM data
+sheet), the noise draw's integer ones over the 16.75 TOP/s of the SM's
+INT32 lanes (a quarter of the float32 rate).
+The last line is {"ok": true, "device": {...}}.  TF32 is off for every
+float32 matmul and convolution.
+
+The SNR, rd and PbP pins are the JAX package's own values on the CPU, from
+
+    JAX_PLATFORMS=cpu PYTHONPATH=. python scripts/port_jax_pins.py \
+        [only=l0,11k,l1,pbp]
+
+(l0: phases 4 and 5; 11k: phases 7 and 8; l1: phase 9; pbp: phase 10).
 """
 import dataclasses
 import json
@@ -111,12 +130,22 @@ BATCH, DURATION, N_NOISY = 128, 8.0, 64
 OFF_ROWS = list(range(16)) + list(range(N_NOISY, N_NOISY + 16))  # phase 4
 CLEAN_MIN_DB = 55.17                      # JAX Pallas-branch reference: 55.27
 NOISY_TOL_DB = 0.2
-# JAX Pallas-branch references on noisy rows 0 and 1
-NOISY_PINS_DB = {"denoiser off": {0: 32.69, 1: 33.14},
-                 "library default": {0: 40.05, 1: 40.6}}
+# phases 4-6: the card sits 0.017-0.022 dB above the JAX package on noisy
+# rows 0/1 with the denoiser on, from float32 rounding in the analysis front
+# end that the denoiser's gates amplify (scripts/port_card_vs_cpu.py,
+# scripts/port_l0_parity.py; PERF.md section 7), within 2e-4 dB with it off
+L0_NOISY_TOL_DB = 0.05
+# the JAX package's own values at 16 kHz on the CPU, from
+#   JAX_PLATFORMS=cpu PYTHONPATH=. python scripts/port_jax_pins.py only=l0
+# phases 4 and 5: batched_pipeline SNR of bench rows 0, 1 (noisy), and 64
+# (clean) with the library default
+NOISY_PINS_DB = {"denoiser off": {0: 32.69486618041992, 1: 33.14051818847656},
+                 "library default": {0: 40.05961608886719,
+                                     1: 40.60990905761719,
+                                     64: 55.269065856933594}}
 # the JAX package's own values at 11 kHz (Pallas kernels in interpret mode
 # on the CPU), from
-#   JAX_PLATFORMS=cpu PYTHONPATH=. python scripts/port_jax_pins.py duration=8
+#   JAX_PLATFORMS=cpu PYTHONPATH=. python scripts/port_jax_pins.py only=11k
 # phase 7: batched_pipeline SNR of bench rows 0, 1 (noisy) and 64 (clean)
 ODD_HOP_PINS_DB = {0: 38.74501419067383, 1: 38.651763916015625,
                    64: 54.44218826293945}
@@ -125,7 +154,7 @@ CLEAN_TOL_DB = 0.1
 PUBLIC_11025_PINS_DB = {0: 36.86190946632691, 64: 46.70321121537888}
 PUBLIC_TOL_DB = 0.1
 # the JAX package's own values at 16 kHz on the CPU, from
-#   JAX_PLATFORMS=cpu PYTHONPATH=. python scripts/port_jax_pins.py duration=8
+#   JAX_PLATFORMS=cpu PYTHONPATH=. python scripts/port_jax_pins.py only=l1
 # phase 9: layer-1 round-trip y_sin SNR of bench rows 0, 1 (noisy), 64 (clean)
 LAYER1_PINS_DB = {0: 40.059172572920154, 1: 40.609634863972815,
                   64: 55.24957249760942}
@@ -142,7 +171,10 @@ RD_CPU_REL_TOL = 1e-3                     # phase 10: card rd against the CPU
 LF_RD = (0.4, 1.0, 1.8, 2.7)              # phase 10: true Rd of row i % 4
 RD_REL_TOL = 0.15                         # tests/test_layer1.py's criterion
 # H100 SXM data sheet: HBM rate and float32 rate outside the tensor cores
+# (128 lanes an SM, an FMA counted as two); the SM's 64 INT32 lanes issue a
+# quarter of that in integer operations
 HBM_BYTES_PER_S, FP32_OPS_PER_S = 3.35e12, 67e12
+INT32_OPS_PER_S = FP32_OPS_PER_S / 4
 # kernel -> (source, TPU kernel it replaces, tolerance on max |error|); a
 # string tolerance "rel x" is x times the largest |track| of the call's
 # inputs (the denoiser's: test_pallas.py's 2e-3 x scale); a tuple is one
@@ -168,9 +200,15 @@ KERNELS = {
                    "libllsm2_tpu/ops/pallas_osc.py:1315", "rel 1e-6"),
     "env_render": ("libllsm2_tpu_torch/csrc/env_render.cu",
                    "libllsm2_tpu/ops/pallas_osc.py:360", (2e-5, 2e-6)),
+    # not a Pallas kernel: the port's counterpart of the jax.random draw
+    # that XLA makes itself (fold_in / split / normal); the bits must be
+    # equal, the normals within the tolerance
+    "noise_bins": ("libllsm2_tpu_torch/csrc/noise_bins.cu",
+                   "libllsm2_tpu/models/layer0.py:1163", 1e-6),
 }
 MAIN_SIX = tuple(KERNELS)[:6]     # the library-default path's CUDA kernels
-MAIN = MAIN_SIX + ("fir_frames",)  # ... and its frame-axis FIR
+# ... and its frame-axis FIR and noise draw
+MAIN = MAIN_SIX + ("fir_frames", "noise_bins")
 
 
 class PhaseError(Exception):
@@ -244,6 +282,10 @@ def max_err(torch, name, got, ref, scale=1.0):
                      for g, r in zip(got[:3], ref[:3]))
         return max(powers / scale, cplx(got[4:6], ref[4:6]),
                    cplx(got[6:8], ref[6:8]))
+    if name == "noise_bins":                 # (re, im, bits_re, bits_im)
+        if not (torch.equal(got[2], ref[2]) and torch.equal(got[3], ref[3])):
+            return float("inf")
+        got, ref = got[:2], ref[:2]
     if name == "denoise_apply":
         errs = [cplx(got[i:i + 2], ref[i:i + 2]) for i in range(0, len(got), 2)]
         if len(errs) == 3:
@@ -287,8 +329,18 @@ def kernel_ops(torch, name, args, kw):
     rotate-and-accumulate step counts 10; the denoiser's per-slot fit ~40),
     counting only live harmonics and columns where the inputs say so."""
     a = args
-    if name == "osc_bank":                   # dc [R, T], kl [R]
-        return 10.0 * a[0].shape[1] * float(a[4].sum())
+    if name == "osc_bank":                   # cyc, ampl, phse, mask, nhop
+        # a sample of hop block i sums frames i and i + 1 (the last block
+        # frame N - 1 alone): one rotation z^{k+1} a harmonic serves both (a
+        # complex product, 6), each frame's live harmonic adds 2 FMAs (4)
+        K = a[3].shape[-1]
+        kslots = torch.arange(1, K + 1, device=a[3].device)
+        kl = torch.amax(kslots * (a[3] > 0), dim=-1).double()  # live + 1
+        kn = torch.nn.functional.pad(kl[..., 1:], (0, 1))
+        return a[4] * float((6.0 * torch.maximum(kl, kn)
+                             + 4.0 * (kl + kn)).sum())
+    if name == "noise_bins":                 # seed, frame_base, B, N, nbin
+        return 2 * 40.0 * a[3] * a[4]        # two normals of ~40 a bin
     if name in ("harmonic_project_win", "harmonic_project"):
         R, W = a[0].shape
         K = a[3] if name == "harmonic_project_win" else a[2]
@@ -322,11 +374,25 @@ def kernel_ops(torch, name, args, kw):
     raise KeyError(name)
 
 
+def kernel_int_ops(name, args):
+    """Integer operations one call needs beyond its float32 ones: the noise
+    draw's threefry hashes (79 operations: 20 rounds of add, rotate and
+    xor, and the key schedule), 3 a frame (fold_in and split) and one a
+    normal, two normals a bin, and the 2 a normal that make its uniform;
+    0 elsewhere."""
+    if name == "noise_bins":                 # seed, frame_base, B, N, nbin
+        N, nbin = args[3], args[4]
+        return 79.0 * (3 * N + 2 * N * nbin) + 2 * 2.0 * N * nbin
+    return 0.0
+
+
 def kernel_bytes(torch, name, args, kw, out):
     """Bytes one call must move: every input read once (harmonic_project_
     win's x and cyc once a row, not once a frame), every output written
     once; of harmonic_project's pre-windowed [R, W] frames and cycle
     offsets only each row's live columns [lo, hi)."""
+    if name == "noise_bins":                 # two [N, nbin] draws, expanded
+        return 2 * 4 * args[3] * args[4]
     nbytes = _nbytes(torch, args) + _nbytes(torch, kw.values()) \
         + _nbytes(torch, (out,))
     if name == "harmonic_project" and len(args) > 4:
@@ -338,11 +404,13 @@ def kernel_bytes(torch, name, args, kw, out):
 
 def bound(torch, name, args, kw, out):
     """-> (bound_ms, bound_by): the larger of the bytes the call must move
-    (kernel_bytes) over the HBM rate and its operations over the float32
-    rate."""
+    (kernel_bytes) over the HBM rate and its operations, float32 ones over
+    the float32 rate and integer ones over the INT32 rate, each taken
+    alone (the two pipes issue side by side)."""
     nbytes = kernel_bytes(torch, name, args, kw, out)
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = kernel_ops(torch, name, args, kw) / FP32_OPS_PER_S
+    t_ops = max(kernel_ops(torch, name, args, kw) / FP32_OPS_PER_S,
+                kernel_int_ops(name, args) / INT32_OPS_PER_S)
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -362,16 +430,24 @@ def library_call(torch, name, args, kw):
     from libllsm2_tpu_torch.ops.windows import window_centered
     frac = lambda v: v - torch.round(v)
     if name == "osc_bank":
-        dc, ampl, phse, mask, kl = args
-        K = ampl.shape[-1]
-        kh = torch.arange(1, K + 1, device=dc.device, dtype=dc.dtype)
-        live = torch.arange(K, device=dc.device) < kl[:, None]
+        from libllsm2_tpu_torch.ops.harmonics import (frame_hops,
+                                                      overlap_add_half)
+        cyc, ampl, phse, mask, nhop = args[:5]
+        x = args[5] if len(args) > 5 else kw.get("x")
+        B, N, K = ampl.shape
+        T = 2 * nhop
+        kh = torch.arange(1, K + 1, device=cyc.device, dtype=cyc.dtype)
+        w_ola = 0.5 - 0.5 * torch.cos(2 * math.pi * (torch.arange(
+            T, device=cyc.device, dtype=cyc.dtype) + 0.5) / T)
 
         def call():
-            osc = torch.cos(2 * math.pi * frac(kh[None, :, None]
-                                               * dc[:, None])
+            dc = frame_hops(cyc, N, nhop, 1, mode="edge") \
+                - cyc[..., ::nhop][..., :N, None]
+            osc = torch.cos(2 * math.pi * frac(kh[:, None] * dc[..., None, :])
                             + phse[..., None])
-            return torch.einsum("nkt,nk->nt", osc, ampl * mask * live)
+            segs = torch.einsum("bnkt,bnk->bnt", osc, ampl * mask) * w_ola
+            y = overlap_add_half(segs, nhop, cyc.shape[-1])
+            return y if x is None else x - y
         return call
     if name in ("harmonic_project_win", "harmonic_project"):
         win = name == "harmonic_project_win"
@@ -436,7 +512,9 @@ def check_kernel(torch, kernels, name, tol, args, kw, label, library=False):
     the bound and, if library, the one-call PyTorch yardstick's time)."""
     fn = getattr(kernels, name)
     ref_fn = getattr(kernels, name + "_ref")
-    got, ref = fn(*args, **kw), ref_fn(*args, **kw)
+    # the noise draw is compared on its bits too
+    cmp_kw = dict(kw, bits=True) if name == "noise_bins" else kw
+    got, ref = fn(*args, **cmp_kw), ref_fn(*args, **cmp_kw)
     torch.cuda.synchronize()
     if isinstance(tol, tuple):                # one tolerance per output
         errs = [float(torch.max(torch.abs(g - r))) for g, r in zip(got, ref)]
@@ -481,6 +559,7 @@ def full_batch(torch, kernels, calls, label):
         for i, (args, kw) in enumerate(calls[name]):
             got = fn(*args, **kw)
             ms = cuda_ms(torch, lambda: fn(*args, **kw), 10)
+            run = run_ms(torch, lambda: fn(*args, **kw), 20)
             bound_ms, bound_by = bound(torch, name, args, kw, got)
             del got
             library_ms = host_ms = None
@@ -494,13 +573,33 @@ def full_batch(torch, kernels, calls, label):
             shapes = _shapes(torch, args)
             print(f"full batch {label} {name}[{i}]: shapes {shapes[:2]} "
                   f"kernel {ms:.4f} ms{extra} bound {bound_ms:.4f} ms "
-                  f"({bound_by})", flush=True)
+                  f"({bound_by}); {run:.4f} ms a launch in a run of 20",
+                  flush=True)
             out[name].append({"phase": label, "call": i,
-                              "shapes": shapes[:2], "ms": ms,
+                              "shapes": shapes[:2], "ms": ms, "run_ms": run,
                               "bound_ms": bound_ms, "bound_by": bound_by,
                               "library_ms": library_ms, "host_ms": host_ms})
     torch.cuda.empty_cache()
     return out
+
+
+def run_ms(torch, fn, reps):
+    """Milliseconds a call of fn in a run of reps back-to-back calls (CUDA
+    events around the run, best of 3 runs): the device's time where the
+    device, not the host's enqueue, is the slower."""
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / reps)
+    return best
 
 
 def host_call_ms(torch, fn, reps):
@@ -548,12 +647,59 @@ def analysis_calls(torch, harmonics, run):
     return out
 
 
+def render_hook(harmonics, kernels):
+    """(module, name) of the function that renders the harmonic part: the
+    one-launch kernels.osc_bank(cyc, ..., nhop, x), or on a package whose
+    osc_bank takes frame offsets (the parent's) harmonics.oscillator_bank,
+    whose segments overlap_add_half adds."""
+    import inspect
+    if "nhop" in inspect.signature(kernels.osc_bank).parameters:
+        return kernels, "osc_bank"
+    return harmonics, "oscillator_bank"
+
+
+def render_calls(torch, harmonics, kernels, run):
+    """The harmonic renders of one run() (phase 5: the analysis residual and
+    the synthesis), each timed alone at full batch (median of 10) with the
+    device memory it takes above what it is given -> [record].  Each is one
+    osc_bank call (one launch); on the parent's package it is
+    oscillator_bank + overlap_add_half, and the residual's x - y (cyc
+    standing in for x)."""
+    mod, name = render_hook(harmonics, kernels)
+    new = mod is kernels
+    calls, _ = capture_kernel_inputs(mod, (name,), run)
+    out = []
+    for i, (args, kw) in enumerate(calls[name]):
+        resid = (len(args) > 5 and args[5] is not None) if new else i == 0
+        if new:
+            call = lambda: kernels.osc_bank(*args, **kw)
+        else:
+            nhop, nx = kw["nhop"], args[0].shape[-1]
+
+            def call():
+                y = harmonics.overlap_add_half(
+                    harmonics.oscillator_bank(*args, **kw), nhop, nx)
+                return args[0] - y if resid else y
+        what = "residual" if resid else "synthesis"
+        ms = cuda_ms(torch, call, 10)
+        extra = peak_above(torch, call)[1]
+        print(f"5 render call {i} ({what}): {name} on cyc "
+              f"{tuple(args[0].shape)}, K {args[1].shape[-1]}: {ms:.4f} ms "
+              f"(framing, coefficients, window and OLA included; median of "
+              f"10), {extra:.3f} GiB above its inputs", flush=True)
+        out.append({"call": i, "what": what, "fn": name, "ms": ms,
+                    "extra_gib": extra})
+    del calls
+    torch.cuda.empty_cache()
+    return out
+
+
 def run_path(torch, kernels, corpus, label, opt, sopt, data, pins, need,
-             timed, clean_min=CLEAN_MIN_DB):
+             timed, clean_min=CLEAN_MIN_DB, noisy_tol=NOISY_TOL_DB):
     """Drive batched_pipeline once with the launch counters zeroed just
     before and read just after, capturing the inputs of the kernels in
     `timed`; check the kernels in `need` launched, the output and the SNR
-    pins (noisy rows within NOISY_TOL_DB of theirs, clean rows at most
+    pins (noisy rows within noisy_tol of theirs, clean rows at most
     CLEAN_TOL_DB under theirs, the clean mean >= clean_min unless None);
     time each `timed` kernel at full batch on its first call (full_batch);
     then the step time (median of 5) and peak memory.  -> (the launch
@@ -571,7 +717,7 @@ def run_path(torch, kernels, corpus, label, opt, sopt, data, pins, need,
     phase(f"{label} output", tuple(y.shape) == tuple(x.shape)
           and bool(torch.isfinite(y).all()), f"y {tuple(y.shape)} finite")
     snr = snr.cpu().tolist()
-    check_snr(label, snr, pins, clean_min)
+    check_snr(label, snr, pins, clean_min, noisy_tol)
     del y
     full = full_batch(torch, kernels, calls, label.split()[0])
     del calls
@@ -592,10 +738,10 @@ def run_path(torch, kernels, corpus, label, opt, sopt, data, pins, need,
     return launches, snr, full
 
 
-def check_snr(label, snr, pins, clean_min):
+def check_snr(label, snr, pins, clean_min, noisy_tol=NOISY_TOL_DB):
     """Per-row SNR checks of a bench batch (noisy rows first, then clean):
     the clean mean >= clean_min unless None, noisy pinned rows within
-    NOISY_TOL_DB, clean pinned rows at most CLEAN_TOL_DB under."""
+    noisy_tol, clean pinned rows at most CLEAN_TOL_DB under."""
     n_noisy = len(snr) // 2
     clean = statistics.fmean(snr[n_noisy:])
     phase(f"{label} clean snr", clean_min is None or clean >= clean_min,
@@ -604,8 +750,8 @@ def check_snr(label, snr, pins, clean_min):
     for row, pin in pins.items():
         if row < n_noisy:
             phase(f"{label} noisy snr row {row}",
-                  abs(snr[row] - pin) <= NOISY_TOL_DB,
-                  f"{snr[row]:.4f} dB (pin {pin} +- {NOISY_TOL_DB})")
+                  abs(snr[row] - pin) <= noisy_tol,
+                  f"{snr[row]:.4f} dB (pin {pin} +- {noisy_tol})")
         else:
             phase(f"{label} clean snr row {row}",
                   snr[row] >= pin - CLEAN_TOL_DB,
@@ -752,7 +898,8 @@ def pbp_phase(torch, kernels, mods, opt, sopt, dev):
     (l1, out), _ = staged(torch, stages)
     launches = dict(kernels.LAUNCHES)
     phase("10 pbp launches", launches["noise_mod_ola"] > 0
-          and launches["fir_frames"] > 0, str(launches))
+          and launches["fir_frames"] > 0 and launches["noise_bins"] > 0,
+          str(launches))
     phase("10 pbp output", tuple(out.y.shape) == tuple(x.shape)
           and bool(torch.isfinite(out.y).all()),
           f"y {tuple(out.y.shape)} finite")
@@ -801,14 +948,17 @@ def pbp_phase(torch, kernels, mods, opt, sopt, dev):
 
 
 def phase5_breakdown(torch, mods, opt, sopt, data):
-    """Phase 5's two harmonic_analysis calls (analysis_calls), then its
-    analysis and synthesis apart: time (median of 3) and the peak memory
-    each takes above its inputs, which says which half sets the step's
-    peak -> the analysis-call records."""
-    harmonics, layer0, corpus = mods
+    """Phase 5's two harmonic_analysis calls (analysis_calls) and its two
+    harmonic renders (render_calls), then its analysis and synthesis apart:
+    time (median of 3) and the peak memory each takes above its inputs,
+    which says which half sets the step's peak, and each analysis stage's
+    synchronized time and peak -> (the analysis-call records, the
+    render-call records)."""
+    harmonics, layer0, corpus, kernels = mods
     x, f0, x_ref, nxv = data
-    calls = analysis_calls(torch, harmonics, lambda: corpus.batched_pipeline(
-        opt, sopt, x, f0, nxv, x_ref))
+    step = lambda: corpus.batched_pipeline(opt, sopt, x, f0, nxv, x_ref)
+    calls = analysis_calls(torch, harmonics, step)
+    renders = render_calls(torch, harmonics, kernels, step)
     stages = [("analyze", lambda _: layer0._analyze(opt, x, f0)),
               ("synthesize", lambda c: layer0._synthesize(sopt, c))]
     ms, _ = median_stages(torch, stages, 3)
@@ -817,34 +967,49 @@ def phase5_breakdown(torch, mods, opt, sopt, data):
     print(f"5 stages: analyze {ms['analyze']:.2f} ms, peak {peak_a:.3f} GiB "
           f"above its inputs; synthesize {ms['synthesize']:.2f} ms, peak "
           f"{peak_s:.3f} GiB above the chunk (median of 3)", flush=True)
-    # the analysis's own stages (siblings inside _analyze), each call's
-    # peak above the memory allocated when it starts
-    peaks = {}
+    # the analysis's own stages (siblings inside _analyze): each call's
+    # time, synchronized before and after (summed over a stage's calls;
+    # median of 3 analyses), and its peak above the memory allocated when
+    # it starts
+    hooks = [(harmonics, "refine_f0"), (harmonics, "harmonic_analysis"),
+             (layer0, "_deconv_correction"), (layer0, "_track_denoise"),
+             render_hook(harmonics, kernels), (layer0, "_band_envelopes"),
+             (layer0, "_warped_psd")]
+    runs, peaks = [], {}
 
-    def tracked(mod, name):
-        fn = getattr(mod, name)
-
+    def tracked(name, fn):
         def wrapped(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
             out, gib = peak_above(torch, lambda: fn(*args, **kw))
+            runs[-1][name] = runs[-1].get(name, 0.0) \
+                + (time.perf_counter() - t0) * 1e3
             peaks[name] = max(peaks.get(name, 0.0), gib)
             return out
         return wrapped
 
-    hooks = [(harmonics, "refine_f0"), (harmonics, "harmonic_analysis"),
-             (layer0, "_deconv_correction"), (layer0, "_track_denoise"),
-             (harmonics, "oscillator_bank"), (layer0, "_band_envelopes"),
-             (layer0, "_warped_psd")]
     originals = [(mod, name, getattr(mod, name)) for mod, name in hooks]
-    for mod, name in hooks:
-        setattr(mod, name, tracked(mod, name))
+    for mod, name, fn in originals:
+        setattr(mod, name, tracked(name, fn))
     try:
-        layer0._analyze(opt, x, f0)
+        for _ in range(3):
+            runs.append({})
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            layer0._analyze(opt, x, f0)
+            torch.cuda.synchronize()
+            runs[-1]["total"] = (time.perf_counter() - t0) * 1e3
     finally:
         for mod, name, fn in originals:
             setattr(mod, name, fn)
-    print("5 analysis stages, peak GiB above each call's start: "
-          + ", ".join(f"{k} {v:.3f}" for k, v in peaks.items()), flush=True)
-    return calls
+    ms = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+    print("5 analysis stages, ms (synchronized, median of 3) and peak GiB "
+          "above each call's start: " + ", ".join(
+              f"{k} {ms[k]:.2f} ms {peaks[k]:.3f} GiB" for k in peaks)
+          + f"; the analysis {ms['total']:.2f} ms, of which "
+          f"{ms['total'] - sum(ms[k] for k in peaks):.2f} ms outside them",
+          flush=True)
+    return calls, renders
 
 
 def capture_kernel_inputs(kernels, names, run):
@@ -975,7 +1140,8 @@ def main(argv):
     data = fixtures(torch, dev)
     if other:
         print(f"breakdown of the package in {other}", flush=True)
-        phase5_breakdown(torch, (harmonics, layer0, corpus), opt, sopt, data)
+        phase5_breakdown(torch, (harmonics, layer0, corpus, kernels), opt,
+                         sopt, data)
         return 0
     data11 = fixtures(torch, dev, fs=11000.0)
     print(f"fixtures: {BATCH} x {DURATION} s at 16 and 11 kHz in "
@@ -1045,21 +1211,24 @@ def main(argv):
     run_path(torch, kernels, corpus, "4 denoiser off", opt_off, sopt,
              tuple(d[rows] for d in data), NOISY_PINS_DB["denoiser off"],
              ("osc_bank", "harmonic_project_win", "deconv_full",
-              "noise_mod_ola"), ())
+              "noise_mod_ola", "noise_bins"), (), noisy_tol=L0_NOISY_TOL_DB)
     # phase 5: the main path, the library default, on all 128 rows
     launches, snr5, f = run_path(torch, kernels, corpus, "5 library default",
                                  opt, sopt, data,
-                                 NOISY_PINS_DB["library default"], MAIN, MAIN)
+                                 NOISY_PINS_DB["library default"], MAIN, MAIN,
+                                 noisy_tol=L0_NOISY_TOL_DB)
     for name in MAIN:
         summary[name]["launches"] = launches[name]
     full.update(f)
-    summary["harmonic_project_win"]["analysis_calls"] = phase5_breakdown(
-        torch, (harmonics, layer0, corpus), opt, sopt, data)
+    (summary["harmonic_project_win"]["analysis_calls"],
+     summary["osc_bank"]["render_calls"]) = phase5_breakdown(
+        torch, (harmonics, layer0, corpus, kernels), opt, sopt, data)
     # phase 6: hm_kernel="matmul" at the library default, all 128 rows
     launches, snr6, f = run_path(torch, kernels, corpus, "6 matmul", opt_mxu,
                                  sopt, data, NOISY_PINS_DB["library default"],
                                  ("harmonic_project_mxu",) + MAIN_SIX,
-                                 ("harmonic_project_mxu",))
+                                 ("harmonic_project_mxu",),
+                                 noisy_tol=L0_NOISY_TOL_DB)
     summary["harmonic_project_mxu"]["launches"] = \
         launches["harmonic_project_mxu"]
     full.update(f)

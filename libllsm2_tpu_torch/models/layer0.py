@@ -494,7 +494,7 @@ def _analyze(opt: AnalysisOptions, x: torch.Tensor,
                                   return_complex=True)
     else:
         ampl, phse = _deconv_correction(opt, f0, cyc, ampl, phse, mask)
-    cyc_c = cyc[..., ::nhop][..., :nfrm]
+    cyc_c = cyc[..., ::nhop][..., :nfrm].contiguous()   # read by 2 kernels
     if opt.track_denoise and opt.track_lowpass_hz <= 0.0:
         ampl, phse = _track_denoise(
             conf, f0, cyc_c, ampl, phse, mask, opt.track_denoise_hz,
@@ -504,8 +504,7 @@ def _analyze(opt: AnalysisOptions, x: torch.Tensor,
     if opt.track_lowpass_hz > 0.0:
         ampl, phse = _track_lowpass(conf, f0, cyc_c, ampl, phse, mask,
                                     opt.track_lowpass_hz)
-    segs = harmonics.oscillator_bank(cyc, ampl, phse, mask, nhop=nhop)
-    residual = x - harmonics.overlap_add_half(segs, nhop, nx)
+    residual = kernels.osc_bank(cyc, ampl, phse, mask, nhop, x)
 
     # noise pass: band envelopes (at the decimated rate fs/D) + warped PSD
     D = _env_decimation(conf, opt.env_decimate, nx)
@@ -590,15 +589,19 @@ def _band_segments(shaped_spec: torch.Tensor, masks: torch.Tensor,
 
 
 def _synth_noise(chunk: Chunk, cyc: torch.Tensor, nhop: int, fs: float,
-                 noise_seed: int, bins=None) -> torch.Tensor:
+                 noise_seed: int, bins=None,
+                 frame_base: int = 0) -> torch.Tensor:
     """Noise component of a batched chunk [B, N, ...] -> [B, N*nhop]: each
     frame's white-noise spectrum is shaped by sqrt(PSD), band-split,
     windowed back to time, overlap-added and modulated by the temporal
     envelopes (reference: layer0.c noise synthesis).
 
-    bins: optional (re, im) [B, N, nbin] standard-normal spectra; without
-    them they are drawn from a torch.Generator seeded with noise_seed
-    (re first, then im)."""
+    Frame i's standard-normal spectrum is keyed by (noise_seed,
+    frame_base + i) and drawn as the JAX package draws it
+    (kernels.noise_bins), the same in every batch row: a chunk renders the
+    same noise alone and in a batch, and frames [i0, i0+n) rendered with
+    frame_base=i0 draw the spectra the whole render draws for them.
+    bins: optional (re, im) [B, N, nbin] spectra to use instead."""
     conf = chunk.conf
     B, N = chunk.f0.shape
     T = 2 * nhop
@@ -627,22 +630,19 @@ def _synth_noise(chunk: Chunk, cyc: torch.Tensor, nhop: int, fs: float,
         gain = gain * taper
 
     if bins is None:
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(int(noise_seed))
-        re = torch.randn((B, N, nbin), generator=gen, dtype=FP, device=dev)
-        im = torch.randn((B, N, nbin), generator=gen, dtype=FP, device=dev)
+        re, im = kernels.noise_bins(noise_seed, frame_base, B, N, nbin, dev)
     else:
         re, im = (v.to(dev, FP) if torch.is_tensor(v) else
                   torch.tensor(np.asarray(v), dtype=FP, device=dev)
                   for v in bins)
         if re.shape != (B, N, nbin) or im.shape != (B, N, nbin):
             raise ValueError(f"bins must be [{B}, {N}, {nbin}] each")
-        im = im.clone()
-    im[..., 0] = 0.0
-    im[..., -1] = 0.0
     scale = torch.full((nbin,), math.sqrt(T / 2.0), dtype=FP, device=dev)
     scale[0] = scale[-1] = math.sqrt(float(T))
-    shaped = torch.complex(re * scale, im * scale) * gain      # [B, N, nbin]
+    # the DC and Nyquist bins are real: their imaginary draws are dropped
+    im_scale = scale.clone()
+    im_scale[0] = im_scale[-1] = 0.0
+    shaped = torch.complex(re * scale, im * im_scale) * gain   # [B, N, nbin]
     edges = conf.chan_edges
     masks = torch.stack([((f >= edges[c]) & (f < edges[c + 1])).to(FP)
                          for c in range(conf.nchannel)])       # [C, nbin]
@@ -688,8 +688,6 @@ def _synthesize(opt: SynthesisOptions, chunk: Chunk, bins=None) -> SynthResult:
     kharm = torch.arange(1, K + 1, dtype=FP, device=cyc.device)
     f0s = torch.where(chunk.f0 > 0, chunk.f0, torch.full_like(chunk.f0, 100.0))
     hm_mask = chunk.hm_mask * (kharm * f0s[..., None] < 0.5 * fs)
-    segs = harmonics.oscillator_bank(cyc, chunk.ampl, chunk.phse, hm_mask,
-                                     nhop=nhop)
-    y_sin = harmonics.overlap_add_half(segs, nhop, nx)
+    y_sin = kernels.osc_bank(cyc, chunk.ampl, chunk.phse, hm_mask, nhop)
     y_nos = _synth_noise(chunk, cyc, nhop, fs, opt.noise_seed, bins=bins)
     return SynthResult(y=y_sin + y_nos, y_sin=y_sin, y_nos=y_nos, fs=fs)

@@ -30,10 +30,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
+_U = ctypes.c_uint
 # C entry points: name -> argtypes (every one returns cudaGetLastError())
 SIGNATURES = {
-    # dc, ar, ai, kl, out, R, T, K, stream
-    "llsm_osc_bank": (_P, _P, _P, _P, _P, _L, _I, _I, _P),
+    # cyc, ampl, phse, mask, x (or null), y, B, N, K, nhop, stream
+    "llsm_osc_bank": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # x, cyc, hw, lo, hi, kl, re, im, wsum, xsum, Bx, rep, nx, N, K, nhop,
     # center, c0, c1, c2, c3, ncoef, stream
     "llsm_harmonic_project_win": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -46,10 +47,10 @@ SIGNATURES = {
     # cyc, edc, ar, ai, base, segs, y, B, N, nhop, C, Ke, stream
     "llsm_noise_mod_ola": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                            _P),
-    # a, p, cyc_c, mask, voiced, pp, gd, cre, cim, csr, csi, B, N, K,
-    # taps1 (host), n1, taps2 (host), n2, complex_input, stream
-    "llsm_denoise_stats": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                           _I, _I, _P, _I, _P, _I, _I, _P),
+    # a, p, cyc_c, mask, voiced, pp, cs2, r2, guard (bool), cre, cim, csr,
+    # csi, B, N, K, taps1 (host), n1, taps2 (host), n2, complex_input, stream
+    "llsm_denoise_stats": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _P, _I, _I, _I, _P, _I, _P, _I, _I, _P),
     # v, wmul, cre, cim, csr, csi, cyc_c, mask, guard, o_r, o_i, fr, fi,
     # ur, ui, B, N, K, strength, emit, stream
     "llsm_denoise_apply": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -65,6 +66,8 @@ SIGNATURES = {
     # cyc, edc, ar, ai, base, env, base_out, B, N, nhop, nx, C, Ke, stream
     "llsm_env_render": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                         _P),
+    # re, im, bits_re, bits_im (or null), seed, frame_base, N, nbin, stream
+    "llsm_noise_bins": (_P, _P, _P, _P, _U, _U, _I, _I, _P),
 }
 
 _lib = None

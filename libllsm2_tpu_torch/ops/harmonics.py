@@ -323,9 +323,10 @@ def _refine_f0_full_rate(x, f0, *, nhop: int, fs: float, halfwin_max: int,
 
 
 def oscillator_bank(cyc, ampl, phse, mask, *, nhop: int) -> torch.Tensor:
-    """Per-frame harmonic segments for 50%-overlap Hann OLA: cyc [B, nx],
-    ampl/phse/mask [B, N, K] -> [B, N, 2*nhop], segment i spanning samples
-    [(i-1)*nhop, (i+1)*nhop):
+    """Per-frame harmonic segments for 50%-overlap Hann OLA, in plain
+    PyTorch (with overlap_add_half, kernels.osc_bank's plain composition):
+    cyc [B, nx], ampl/phse/mask [B, N, K] -> [B, N, 2*nhop], segment i
+    spanning samples [(i-1)*nhop, (i+1)*nhop):
         s_i[t] = hann_ola(t) sum_k m a_k cos(2 pi (k+1)(cyc[c_i+t]-cyc[c_i])
                                             + phi_k)."""
     B, N, K = ampl.shape
@@ -333,15 +334,17 @@ def oscillator_bank(cyc, ampl, phse, mask, *, nhop: int) -> torch.Tensor:
     dev = cyc.device
     w_ola = 0.5 - 0.5 * torch.cos(
         2.0 * math.pi * (torch.arange(T, dtype=FP, device=dev) + 0.5) / T)
-    dc = frame_hops(cyc, N, nhop, 1, mode="edge") \
-        - cyc[..., ::nhop][..., :N, None]
-    # kl = highest live slot + 1 (edited chunks may notch interior slots)
-    kslots = torch.arange(1, K + 1, dtype=FP, device=dev)
-    kl = torch.amax(kslots * (mask > 0), dim=-1).to(torch.int32)
-    R = B * N
-    segs = kernels.osc_bank(dc.reshape(R, T), ampl.reshape(R, K),
-                            phse.reshape(R, K), mask.reshape(R, K),
-                            kl.reshape(R))
+    dc = (frame_hops(cyc, N, nhop, 1, mode="edge")
+          - cyc[..., ::nhop][..., :N, None]).reshape(B * N, T)
+    kh = torch.arange(1, K + 1, dtype=FP, device=dev)
+    a = (ampl * mask).reshape(B * N, K)
+    ph0 = phse.reshape(B * N, K)
+    segs = torch.empty((B * N, T), dtype=FP, device=dev)
+    step = max((1 << 24) // (K * T), 1)     # ~64 MB of [rows, K, T] a chunk
+    for s in range(0, B * N, step):
+        ph = _phase_cycles(kh[None, :, None], dc[s:s + step, None, :])
+        osc = torch.cos(2.0 * math.pi * ph + ph0[s:s + step, :, None])
+        segs[s:s + step] = torch.einsum("nkt,nk->nt", osc, a[s:s + step])
     return segs.reshape(B, N, T) * w_ola
 
 

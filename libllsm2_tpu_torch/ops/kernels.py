@@ -29,7 +29,7 @@ from .windows import COSINE_SERIES, window_centered
 LAUNCHES = {"osc_bank": 0, "harmonic_project_win": 0, "deconv_full": 0,
             "noise_mod_ola": 0, "denoise_stats": 0, "denoise_apply": 0,
             "harmonic_project": 0, "harmonic_project_mxu": 0,
-            "fir_frames": 0, "env_render": 0}
+            "fir_frames": 0, "env_render": 0, "noise_bins": 0}
 
 # frames per chunk of the plain versions: bounds their [frames, K, T]
 # temporaries to ~64 MB at any input size
@@ -85,43 +85,39 @@ def _phase_cycles(k: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
 # 1. oscillator bank (pallas_osc.osc_bank_pallas)
 # ---------------------------------------------------------------------------
 
-def osc_bank(dc: torch.Tensor, ampl: torch.Tensor, phse: torch.Tensor,
-             mask: torch.Tensor, kl: torch.Tensor) -> torch.Tensor:
-    """Fused oscillator bank: seg[n, t] = sum_{k < kl[n]} a m cos(2 pi (k+1)
-    dc[n, t] + phi).  dc [R, T] cycle offsets (any mod-1 representative),
-    ampl/phse/mask [R, K], kl [R] live-slot count (slots at or beyond it
-    must be masked; they are skipped) -> [R, T] (no OLA window)."""
-    if not _on_cuda(dc, ampl, phse, mask, kl):
-        return osc_bank_ref(dc, ampl, phse, mask, kl)
-    R, T = dc.shape
-    K = ampl.shape[-1]
-    if ampl.shape != (R, K) or phse.shape != (R, K) or mask.shape != (R, K) \
-            or kl.shape != (R,):
+def osc_bank(cyc: torch.Tensor, ampl: torch.Tensor, phse: torch.Tensor,
+             mask: torch.Tensor, nhop: int,
+             x: torch.Tensor | None = None) -> torch.Tensor:
+    """Oscillator bank with its Hann OLA, from the cycle track to the
+    signal: cyc [B, nx] mod-1 cycle track (nx = N nhop), ampl/phse/mask
+    [B, N, K] -> y [B, nx] = overlap_add_half of the frames' segments
+    w_ola(t) sum_k a m cos(2 pi (k+1) (cyc[c_n + t] - cyc[c_n]) + phi) at
+    centers c_n = n nhop, or x - y given x [B, nx] (the analysis
+    residual).  Slots above each frame's highest live one are skipped.
+    One launch on the card; no [B N, 2 nhop] frame or segment buffer."""
+    if not _on_cuda(cyc, ampl, phse, mask, *(() if x is None else (x,))):
+        return osc_bank_ref(cyc, ampl, phse, mask, nhop, x)
+    B, N, K = ampl.shape
+    if cyc.shape != (B, N * nhop) or phse.shape != (B, N, K) \
+            or mask.shape != (B, N, K) \
+            or (x is not None and x.shape != cyc.shape):
         raise ValueError("osc_bank: shape mismatch")
-    a = ampl.float() * mask.float()
-    ar = _f32(a * torch.cos(phse.float()))
-    ai = _f32(a * torch.sin(phse.float()))
-    dc, kl = _f32(dc), _i32(kl)
-    out = torch.empty((R, T), dtype=FP, device=dc.device)
-    _launch("osc_bank", *(t.data_ptr() for t in (dc, ar, ai, kl, out)),
-            R, T, K, _stream(dc))
-    return out
+    cyc, ampl, phse, mask = map(_f32, (cyc, ampl, phse, mask))
+    x = None if x is None else _f32(x)
+    y = torch.empty_like(cyc)
+    _launch("osc_bank", cyc.data_ptr(), ampl.data_ptr(), phse.data_ptr(),
+            mask.data_ptr(), None if x is None else x.data_ptr(),
+            y.data_ptr(), B, N, K, int(nhop), _stream(cyc))
+    return y
 
 
-def osc_bank_ref(dc, ampl, phse, mask, kl):
-    """Plain version of osc_bank (the jnp math of harmonics.py:591-608)."""
-    R, T = dc.shape
-    K = ampl.shape[-1]
-    kh = torch.arange(1, K + 1, dtype=FP, device=dc.device)
-    live = torch.arange(K, device=dc.device)[None, :] < kl[:, None]
-    a = ampl * mask * live
-    out = torch.empty((R, T), dtype=FP, device=dc.device)
-    step = max(_REF_ELEMS // (K * T), 1)
-    for s in range(0, R, step):
-        ph = _phase_cycles(kh[None, :, None], dc[s:s + step, None, :])
-        osc = torch.cos(2.0 * math.pi * ph + phse[s:s + step, :, None])
-        out[s:s + step] = torch.einsum("nkt,nk->nt", osc, a[s:s + step])
-    return out
+def osc_bank_ref(cyc, ampl, phse, mask, nhop, x=None):
+    """Plain version of osc_bank: harmonics.oscillator_bank's framed
+    segments (the jnp math of harmonics.py:570-607), overlap-added."""
+    from .harmonics import oscillator_bank, overlap_add_half
+    y = overlap_add_half(oscillator_bank(cyc, ampl, phse, mask, nhop=nhop),
+                         nhop, cyc.shape[-1])
+    return y if x is None else x - y
 
 
 # ---------------------------------------------------------------------------
@@ -379,8 +375,9 @@ def noise_mod_ola_ref(cyc, edc, ar, ai, base, segs):
 
 # frames per block of csrc/denoise_stats.cu (its kTile); the FIR halo
 # h1 + 2 h2 must stay under it, as under the TPU kernel's frame block
-_DENOISE_TILE = 32
+_DENOISE_TILE = 64
 _DENOISE_MAX_TAPS = 31
+_DENOISE_MAX_K = 128
 
 
 @functools.lru_cache(maxsize=64)
@@ -392,6 +389,12 @@ def _taps32(taps) -> tuple:
     """FIR taps rounded to float32, as the kernels (and the Pallas kernel's
     Python-float constants) apply them; converted once per tap tuple."""
     return _taps32_cached(taps if isinstance(taps, tuple) else tuple(taps))
+
+
+@functools.lru_cache(maxsize=64)
+def _taps_host(taps32: tuple):
+    """The float32 taps as a C array on the host, made once per tap tuple."""
+    return (ctypes.c_float * len(taps32))(*taps32)
 
 
 # ---------------------------------------------------------------------------
@@ -496,8 +499,9 @@ def denoise_stats(a: torch.Tensor, p: torch.Tensor, cyc_c: torch.Tensor,
     t1, t2 = _taps32(taps1), _taps32(taps2)
     if max(len(t1), len(t2)) > _DENOISE_MAX_TAPS \
             or len(t1) // 2 + 2 * (len(t2) // 2) >= _DENOISE_TILE:
-        raise ValueError(f"denoise_stats: FIR halo of {len(t1)} + {len(t2)} "
-                         f"taps exceeds the {_DENOISE_TILE}-frame tile")
+        raise ValueError(f"denoise_stats: {len(t1)} + {len(t2)} taps: at "
+                         f"most {_DENOISE_MAX_TAPS} each, their halo h1 + 2 "
+                         f"h2 under the {_DENOISE_TILE}-frame tile")
     if not _on_cuda(a, p, cyc_c, mask, voiced):
         return denoise_stats_ref(a, p, cyc_c, mask, voiced, t1, t2,
                                  complex_input=complex_input)
@@ -505,20 +509,24 @@ def denoise_stats(a: torch.Tensor, p: torch.Tensor, cyc_c: torch.Tensor,
     if p.shape != (B, N, K) or mask.shape != (B, N, K) \
             or cyc_c.shape != (B, N) or voiced.shape != (B, N):
         raise ValueError("denoise_stats: shape mismatch")
+    if K > _DENOISE_MAX_K:
+        raise ValueError(f"denoise_stats: K = {K} > {_DENOISE_MAX_K}")
     a, p, cyc_c, mask, voiced = map(_f32, (a, p, cyc_c, mask, voiced))
     dev = a.device
-    pp, cre, cim, csr, csi = (torch.empty((B, N, K), dtype=FP, device=dev)
-                              for _ in range(5))
-    gd = torch.empty((B, N), dtype=FP, device=dev)
-    c1 = (ctypes.c_float * len(t1))(*t1)
-    c2 = (ctypes.c_float * len(t2))(*t2)
-    ptrs = (t.data_ptr() for t in (a, p, cyc_c, mask, voiced, pp, gd, cre,
-                                   cim, csr, csi))
-    _launch("denoise_stats", *ptrs, B, N, K, ctypes.addressof(c1), len(t1),
-            ctypes.addressof(c2), len(t2), int(complex_input), _stream(a))
-    cs2 = csr * csr + csi * csi
-    r2 = (cre - csr) ** 2 + (cim - csi) ** 2
-    return pp, cs2, r2, gd > 0.5, cre, cim, csr, csi
+    # the five outputs that live through pass B as views of one allocation;
+    # the two powers apart, so they free after the floor statistics
+    pp, cre, cim, csr, csi = torch.empty((5, B, N, K), dtype=FP,
+                                         device=dev).unbind(0)
+    cs2, r2 = (torch.empty((B, N, K), dtype=FP, device=dev)
+               for _ in range(2))
+    gd = torch.empty((B, N), dtype=torch.bool, device=dev)
+    ptrs = (t.data_ptr() for t in (a, p, cyc_c, mask, voiced, pp, cs2, r2,
+                                   gd, cre, cim, csr, csi))
+    _launch("denoise_stats", *ptrs, B, N, K,
+            ctypes.addressof(_taps_host(t1)), len(t1),
+            ctypes.addressof(_taps_host(t2)), len(t2), int(complex_input),
+            _stream(a))
+    return pp, cs2, r2, gd, cre, cim, csr, csi
 
 
 def denoise_stats_ref(a, p, cyc_c, mask, voiced, taps1, taps2, *,
@@ -614,6 +622,107 @@ def denoise_apply_ref(cre, cim, csr, csi, cyc_c, mask, guard, v, wmul,
     zero = torch.zeros_like(csr)
     return out + (torch.where(g, csr + rir, zero),
                   torch.where(g, csi + rii, zero), ur, ui)
+
+
+# ---------------------------------------------------------------------------
+# noise spectra keyed by frame (the port's counterpart of jax.random, which
+# XLA draws with its own built-in kernel; no Pallas kernel)
+# ---------------------------------------------------------------------------
+
+_U32 = 0xFFFFFFFF
+_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+# XLA's float32 erf_inv: M. Giles' polynomials in w = -log1p(-u^2) - 2.5
+# (w < 5) and sqrt(w) - 3 (w >= 5), highest power first
+_ERFINV_LO = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+              -4.39150654e-06, 0.00021858087, -0.00125372503,
+              -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_HI = (-0.000200214257, 0.000100950558, 0.00134934322,
+              -0.00367342844, 0.00573950773, -0.0076224613, 0.00943887047,
+              1.00167406, 2.83297682)
+
+
+def _threefry(k1, k2, x0, x1):
+    """Threefry-2x32 (20 rounds; jax/_src/prng.py threefry2x32) on int64
+    tensors holding uint32 values -> (x0, x1) hashed."""
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    x0, x1 = (x0 + ks[0]) & _U32, (x1 + ks[1]) & _U32
+    for i in range(5):
+        for r in _ROT[i % 2]:
+            x0 = (x0 + x1) & _U32
+            x1 = ((x1 << r) & _U32 | (x1 >> (32 - r))) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _U32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _U32
+    return x0, x1
+
+
+def _normal_from_bits(bits: torch.Tensor) -> torch.Tensor:
+    """jax.random.normal's float32 step from 32 random bits: the mantissa
+    of a float in [1, 2) minus 1, scaled to u in (-1, 1), sqrt(2)
+    erf_inv(u), every operation a separate float32 rounding."""
+    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    lo = np.nextafter(np.float32(-1.0), np.float32(0.0))
+    # (1 - lo) rounds to 2 in float32, as in jax.random.uniform
+    u = torch.clamp(f * float(np.float32(1.0) - lo) + float(lo),
+                    min=float(lo))
+    w = -torch.log1p(-(u * u))
+    small = w < 5.0
+    w = torch.where(small, w - 2.5, torch.sqrt(w) - 3.0)
+    coef = lambda i: torch.where(small, _ERFINV_LO[i], _ERFINV_HI[i])
+    p = coef(0)
+    for i in range(1, len(_ERFINV_LO)):
+        p = coef(i) + p * w
+    return float(np.float32(math.sqrt(2.0))) * (p * u)
+
+
+def noise_bins_ref(seed: int, frame_base: int, B: int, N: int, nbin: int,
+                   device=None, *, bits: bool = False):
+    """Plain version of noise_bins: threefry in int64 tensors masked to 32
+    bits.  bits=True also returns the two [N, nbin] int32 bit tensors (the
+    uint32 draws, wrapped) that the normals come from."""
+    dev = torch.device("cpu") if device is None else torch.device(device)
+    i64 = dict(dtype=torch.int64, device=dev)
+    frame = (frame_base + torch.arange(N, **i64)) & _U32
+    zero = torch.zeros_like(frame)
+    # fold_in(PRNGKey(seed), frame), then split: the key pair of each draw
+    f0, f1 = _threefry(0, int(seed) & _U32, zero, frame)
+    keys = [_threefry(f0, f1, zero, zero + j) for j in (0, 1)]
+    col = torch.arange(nbin, **i64)[None, :]
+    out, raw = [], []
+    for k0, k1 in keys:
+        b0, b1 = _threefry(k0[:, None], k1[:, None], torch.zeros_like(col),
+                           col)
+        raw.append(b0 ^ b1)
+        out.append(_normal_from_bits(raw[-1]).expand(B, N, nbin))
+    if bits:
+        return tuple(out) + tuple(r.to(torch.int32) for r in raw)
+    return tuple(out)
+
+
+def noise_bins(seed: int, frame_base: int, B: int, N: int, nbin: int,
+               device, *, bits: bool = False):
+    """Standard-normal noise spectra of frames [frame_base, frame_base + N),
+    drawn as the JAX package draws them (layer0._synth_noise): frame f's
+    (re, im) bins are jax.random.normal(kr, (nbin,)) and normal(ki,
+    (nbin,)) with kr, ki = split(fold_in(PRNGKey(seed), f)), threefry-2x32
+    partitionable.  The bits are JAX's exactly; the normals within an ulp
+    of its float32 erf_inv.  No batch row changes the draw, so (re, im) are
+    one [N, nbin] draw each, expanded (not copied) to [B, N, nbin].
+    device "cpu" runs noise_bins_ref; a CUDA device launches the kernel."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return noise_bins_ref(seed, frame_base, B, N, nbin, device, bits=bits)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    if N < 0 or nbin < 0 or not 0 <= frame_base <= _U32 - N:
+        raise ValueError("noise_bins: bad frame range or bin count")
+    out = [torch.empty((N, nbin), dtype=FP, device=device) for _ in range(2)]
+    if bits:
+        out += [torch.empty((N, nbin), dtype=torch.int32, device=device)
+                for _ in range(2)]
+    ptrs = [t.data_ptr() for t in out] + [None] * (4 - len(out))
+    _launch("noise_bins", *ptrs, int(seed) & _U32, int(frame_base), N, nbin,
+            torch.cuda.current_stream(device).cuda_stream)
+    return tuple(t.expand(B, N, nbin) for t in out[:2]) + tuple(out[2:])
 
 
 # ---------------------------------------------------------------------------

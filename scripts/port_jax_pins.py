@@ -1,7 +1,11 @@
 """The JAX package's own SNRs on the configurations that chip_smoke.py
-drives through the PyTorch port (its phases 7 to 10), on the CPU with the
-Pallas kernels in interpret mode:
+drives through the PyTorch port (its phases 4, 5 and 7 to 10), on the CPU
+with the Pallas kernels in interpret mode:
 
+  16 kHz    batched_pipeline, create_aoptions(f0_floor=70, use_pallas=True)
+            with create_soptions(use_pallas=True), on bench rows 0, 1
+            (noisy) and 64 (clean), and with track_denoise=False on rows 0
+            and 1;
   odd hop   batched_pipeline, create_aoptions(fs=11000, f0_floor=70,
             use_pallas=True) with create_soptions(fs=11000, use_pallas=True),
             on the bench seeds of noisy rows 0 and 1 and clean row 64
@@ -20,7 +24,7 @@ Pallas kernels in interpret mode:
             the layer-1 sinusoidal y_sin (synthesize(chunk_to_layer0(l1))).
 
     JAX_PLATFORMS=cpu python scripts/port_jax_pins.py [duration=8.0] \
-        [only=11k,l1,pbp]
+        [only=l0,11k,l1,pbp]
 """
 import dataclasses
 import sys
@@ -89,6 +93,27 @@ def _opts16():
     return opt, dataclasses.replace(create_soptions(), use_pallas=True)
 
 
+def layer0_rows(duration):
+    """chip_smoke.py phases 4 and 5 at 16 kHz: batched_pipeline SNRs of
+    bench rows 0, 1 (noisy) and 64 (clean) with the library default, and of
+    rows 0 and 1 with the denoiser off."""
+    opt, sopt = _opts16()
+    rows = [testsig.make_test_utterance(duration=duration, seed=i,
+                                        noise_level=nl, return_parts=True)
+            for i, nl in ROWS.items()]
+    x, f0, x_ref = (np.stack([r[j] for r in rows]).astype(np.float32)
+                    for j in range(3))
+    out = {}
+    for label, o, n in (
+            ("library default", opt, len(rows)),
+            ("denoiser off", dataclasses.replace(opt, track_denoise=False), 2)):
+        nxv = np.full((n,), x.shape[1], np.int32)
+        _, snr, _ = corpus.batched_pipeline(
+            o, sopt, *(jnp.asarray(a[:n]) for a in (x, f0, nxv, x_ref)))
+        out[label] = dict(zip(list(ROWS)[:n], np.asarray(snr).tolist()))
+    return out
+
+
 def layer1_round_trip(duration):
     opt, sopt = _opts16()
     out = {}
@@ -123,7 +148,12 @@ def pbp_rows(duration):
 def main():
     kw = dict(a.split("=", 1) for a in sys.argv[1:])
     duration = float(kw.get("duration", 8.0))
-    only = kw.get("only", "11k,l1,pbp").split(",")
+    only = kw.get("only", "l0,11k,l1,pbp").split(",")
+    if "l0" in only:
+        t0 = time.perf_counter()
+        print(f"16 kHz batched_pipeline at {duration} s:",
+              layer0_rows(duration), f"({time.perf_counter() - t0:.1f} s)",
+              flush=True)
     if "11k" in only:
         t0 = time.perf_counter()
         print("11025 Hz public analyze -> synthesize:", public_11025(),

@@ -21,20 +21,6 @@ TAPS1, TAPS2 = tuple(tl0._hann_taps(13)), tuple(tl0._hann_taps(7))
 STATS_NAMES = ("pp", "cs2", "r2", "guard", "cre", "cim", "csr", "csi")
 
 
-def _osc_inputs(K, notch):
-    rng = np.random.default_rng(K + notch)
-    dc = rng.uniform(-0.5, 0.5, (N, 160)).astype(np.float32)
-    ampl = rng.uniform(0, 1, (N, K)).astype(np.float32)
-    phse = rng.uniform(-3, 3, (N, K)).astype(np.float32)
-    top = rng.integers(1, K + 1, N)
-    mask = (np.arange(K)[None, :] < top[:, None]).astype(np.float32)
-    if notch:                      # edited chunks notch interior slots
-        mask[:, 2] = 0.0
-        mask[::3, top[0] // 2] = 0.0
-    kl = (np.arange(1, K + 1)[None, :] * (mask > 0)).max(-1).astype(np.int32)
-    return dc, ampl, phse, mask, kl
-
-
 def _win_inputs(nhop, W, seed, B=2, Nf=N // 2):
     """B utterances for harmonic_project_win at hop nhop and frame width W
     (center C = W // 2): x [B, Nf*nhop], the mod-1 cycle track of an F0
@@ -51,6 +37,24 @@ def _win_inputs(nhop, W, seed, B=2, Nf=N // 2):
     hw = rng.uniform(2.0, C - 1, (B, Nf)).astype(np.float32)
     hw_int = np.ceil(hw).astype(np.int32)
     return x, cyc, hw, C - hw_int, C + hw_int + 1, C
+
+
+def _render_inputs(K, notch, B=2, Nf=N // 2, nhop=80):
+    """B utterances for osc_bank: cyc [B, Nf*nhop] (_win_inputs' mod-1
+    track, its F0 different by row), ampl/phse/mask [B, Nf, K] with each
+    frame's live slots below a random top (interior slots notched, as
+    edited chunks notch them, with `notch`) and a residual input x [B, nx]
+    -> (cyc, ampl, phse, mask, x)."""
+    x, cyc = _win_inputs(nhop, 2 * nhop, K + 100 * notch, B=B, Nf=Nf)[:2]
+    rng = np.random.default_rng(K + notch)
+    ampl = rng.uniform(0, 1, (B, Nf, K)).astype(np.float32)
+    phse = rng.uniform(-3, 3, (B, Nf, K)).astype(np.float32)
+    top = rng.integers(1, K + 1, (B, Nf))
+    mask = (np.arange(K) < top[..., None]).astype(np.float32)
+    if notch:
+        mask[..., 2] = 0.0
+        mask[:, ::3, K // 2] = 0.0
+    return cyc, ampl, phse, mask, x
 
 
 def _stats_inputs(Nf, K, seed, complex_input):
@@ -97,9 +101,9 @@ def test_cuda_kernels_match_plain_on_card():
     """The four kernels of the denoiser-off path."""
     dev = _card()
     kernels.reset_launches()
-    dc, ampl, phse, mask, kl = (T(a).to(dev) for a in _osc_inputs(80, True))
-    torch.testing.assert_close(kernels.osc_bank(dc, ampl, phse, mask, kl),
-                               kernels.osc_bank_ref(dc, ampl, phse, mask, kl),
+    cyc, ampl, phse, mask, _ = (T(a).to(dev) for a in _render_inputs(80, True))
+    torch.testing.assert_close(kernels.osc_bank(cyc, ampl, phse, mask, 80),
+                               kernels.osc_bank_ref(cyc, ampl, phse, mask, 80),
                                atol=2e-4, rtol=0)
     x, cyc, hw, lo, hi, C = _win_inputs(80, 960, 3)
     args = [T(a).to(dev) for a in (x, cyc, hw)]
@@ -129,13 +133,61 @@ def test_cuda_kernels_match_plain_on_card():
 
 
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("complex_input", [True, False])
-def test_denoise_stats_kernel_matches_plain_on_card(complex_input):
-    """Two utterances of 1600 frames (the bench length), K = 80.  The
-    kernel reduces k*cyc mod 1 with the product's rounding error added
-    back, the twin as the Pallas kernel does: ~1e-5 apart at k = 80."""
+@pytest.mark.parametrize("K,notch,resid,nhop", [
+    (80, True, False, 80), (80, True, True, 80), (24, False, True, 55),
+    (7, False, False, 160)])
+def test_osc_bank_kernel_matches_plain_on_card(K, notch, resid, nhop):
+    """Synthesis and the analysis residual at the 16 kHz hop, the 11 kHz
+    hop (a sample group partly idle) and a 32 kHz render (a second sample
+    group), on 3 utterances of 301 frames (a ragged last 16-frame tile):
+    2e-4 against the twin (test_pallas.py's), and each utterance's rows
+    equal to the kernel on it alone."""
     dev = _card()
-    ins = [np.stack(v) for v in zip(*(_stats_inputs(1600, 80, s, complex_input)
+    cyc, ampl, phse, mask, x = (T(a).to(dev) for a in _render_inputs(
+        K, notch, B=3, Nf=301, nhop=nhop))
+    x = x if resid else None
+    kernels.reset_launches()
+    got = kernels.osc_bank(cyc, ampl, phse, mask, nhop, x)
+    ref = kernels.osc_bank_ref(cyc, ampl, phse, mask, nhop, x)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["osc_bank"] == 1
+    torch.testing.assert_close(got, ref, atol=2e-4, rtol=0)
+    for b in range(3):
+        one = lambda t: None if t is None else t[b:b + 1]
+        alone = kernels.osc_bank(*map(one, (cyc, ampl, phse, mask)), nhop,
+                                 one(x))
+        assert torch.equal(got[b], alone[0])
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("seed,frame_base,N_,nbin", [
+    (0, 0, 1600, 81), (12345, 1537, 301, 161), (-1, 3, 7, 3)])
+def test_noise_bins_kernel_matches_plain_on_card(seed, frame_base, N_, nbin):
+    """The draw on the card against the twin on the card: the bits equal,
+    the normals within 1e-6; every batch row the same draw."""
+    dev = _card()
+    kernels.reset_launches()
+    got = kernels.noise_bins(seed, frame_base, 2, N_, nbin, dev, bits=True)
+    ref = kernels.noise_bins_ref(seed, frame_base, 2, N_, nbin, dev,
+                                 bits=True)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["noise_bins"] == 1
+    assert torch.equal(got[2], ref[2]) and torch.equal(got[3], ref[3])
+    for g, r in zip(got[:2], ref[:2]):
+        assert g.shape == (2, N_, nbin) and torch.equal(g[0], g[1])
+        torch.testing.assert_close(g, r, atol=1e-6, rtol=0)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("complex_input,Nf", [(True, 1600), (False, 1600),
+                                              (True, 301), (False, 9)])
+def test_denoise_stats_kernel_matches_plain_on_card(complex_input, Nf):
+    """Two utterances of 1600 frames (the bench length), of 301 (a ragged
+    last tile) and of 9 (shorter than the FIR halo), K = 80.  The kernel
+    reduces k*cyc mod 1 with the product's rounding error added back, the
+    twin as the Pallas kernel does: ~1e-5 apart at k = 80."""
+    dev = _card()
+    ins = [np.stack(v) for v in zip(*(_stats_inputs(Nf, 80, s, complex_input)
                                       for s in (1, 2)))]
     args = [T(v).to(dev) for v in ins]
     kernels.reset_launches()

@@ -240,4 +240,4 @@ def test_denoise_cpu_tensors_never_reach_the_kernels(monkeypatch):
     assert all(v == 0 for v in kernels.LAUNCHES.values()), kernels.LAUNCHES
     with pytest.raises(ValueError, match="tile"):
         kernels.denoise_stats(a, p, cyc_c, mask, voiced, TAPS1,
-                              tuple(tl0._hann_taps(27)))
+                              tuple(tl0._hann_taps(33)))

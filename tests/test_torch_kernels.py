@@ -19,7 +19,7 @@ from libllsm2_tpu_torch.ops import harmonics as thm
 
 torch.set_num_threads(1)
 
-from test_torch_cuda import N, T, _osc_inputs, _win_inputs
+from test_torch_cuda import N, T, _render_inputs, _win_inputs
 
 
 def _frames_np(x, cyc, Nf, nhop, C):
@@ -35,13 +35,28 @@ def _frames_np(x, cyc, Nf, nhop, C):
     return fr.reshape(B * Nf, -1), dc.reshape(B * Nf, -1)
 
 
-@pytest.mark.parametrize("K,notch", [(24, False), (80, False), (80, True)])
-def test_osc_bank_plain_matches_pallas(K, notch):
-    dc, ampl, phse, mask, kl = _osc_inputs(K, notch)
-    ref = pallas_osc.osc_bank_pallas(*map(jnp.asarray, (dc, ampl, phse, mask)),
-                                     kl=jnp.asarray(kl))
-    got = kernels.osc_bank(*map(T, (dc, ampl, phse, mask, kl)))
-    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=2e-4)
+@pytest.mark.parametrize("K,notch,resid", [
+    (24, False, False), (80, False, False), (80, True, False),
+    (80, True, True), (24, False, True)])
+def test_osc_bank_plain_matches_pallas(K, notch, resid):
+    """osc_bank's twin (render and residual) against the JAX package's
+    oscillator_bank(use_pallas=True) + overlap_add_half per utterance, 2e-4
+    (test_pallas.py's): two utterances of different F0, a notched mask."""
+    cyc, ampl, phse, mask, x = _render_inputs(K, notch, Nf=151)
+    B, Nf, _ = ampl.shape
+    nhop = 80
+    got = kernels.osc_bank(*map(T, (cyc, ampl, phse, mask)), nhop,
+                           T(x) if resid else None)
+    assert got.shape == (B, Nf * nhop)
+    centers = jnp.arange(Nf, dtype=jnp.int32) * nhop
+    for b in range(B):
+        segs = jhm.oscillator_bank(
+            jnp.asarray(cyc[b]), centers,
+            *(jnp.asarray(a[b]) for a in (ampl, phse, mask)), nhop=nhop,
+            use_pallas=True)
+        ref = np.asarray(jhm.overlap_add_half(segs, nhop, Nf * nhop))
+        np.testing.assert_allclose(got[b].numpy(), x[b] - ref if resid else ref,
+                                   atol=2e-4)
 
 
 @pytest.mark.parametrize("K,nhop,W,skip", [
@@ -291,8 +306,9 @@ def test_cpu_tensors_never_reach_the_kernels(monkeypatch):
         raise AssertionError("CPU call reached the CUDA build")
     monkeypatch.setattr(_build, "library", no_build)
     kernels.reset_launches()
-    dc, ampl, phse, mask, kl = _osc_inputs(24, False)
-    kernels.osc_bank(*map(T, (dc, ampl, phse, mask, kl)))
+    cyc, ampl, phse, mask, x = _render_inputs(24, False, Nf=20)
+    kernels.osc_bank(*map(T, (cyc, ampl, phse, mask)), 80, T(x))
+    kernels.noise_bins(0, 5, 2, 20, 81, "cpu")
     x, cyc, hw, lo, hi, C = _win_inputs(20, 240, 1, Nf=20)
     kernels.harmonic_project_win(*map(T, (x, cyc, hw)), 4, T(lo), T(hi),
                                  nhop=20, center=C)

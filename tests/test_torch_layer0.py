@@ -3,7 +3,8 @@ branch (use_pallas=True, interpret mode on the CPU), with the track
 denoiser off and with the library default (denoiser on, spectral gate at
 decimation 4), at the small verification shapes: chunk fields, harmonic
 synthesis from a carried-across chunk, noise synthesis with the JAX noise
-bins injected, and the batched pipeline's per-row SNR."""
+bins injected and drawn by the port (keyed by frame as jax.random keys
+them), and the batched pipeline's per-row SNR."""
 import dataclasses
 
 import jax
@@ -19,8 +20,10 @@ from libllsm2_tpu.utils import testsig
 
 import libllsm2_tpu_torch as tpkg
 from libllsm2_tpu_torch.container import (LAYER0_FIELDS, chunk_from_numpy,
-                                          chunk_to_numpy)
+                                          chunk_to_numpy, index_batch)
 from libllsm2_tpu_torch.models import layer0 as tl0
+from libllsm2_tpu_torch.ops import harmonics as thm
+from libllsm2_tpu_torch.ops import kernels as tkernels
 from libllsm2_tpu_torch.parallel import corpus as tcorpus
 
 torch.set_num_threads(1)
@@ -102,7 +105,7 @@ def test_analysis_chunk_matches(ref, row):
 @pytest.mark.parametrize("row", ["clean", "noisy"])
 def test_synthesis_from_carried_chunk_matches(ref, row):
     """The JAX chunk carried across (numpy -> port Chunk): y_sin, and y_nos
-    with the JAX noise bins injected (torch cannot draw JAX's bits)."""
+    with the JAX noise bins injected through bins=."""
     i = list(ROWS).index(row)
     j = ref["jchunks"][i]
     d = {f: np.asarray(getattr(j, f))[None] for f in LAYER0_FIELDS}
@@ -118,6 +121,78 @@ def test_synthesis_from_carried_chunk_matches(ref, row):
                                atol=1e-4)
     np.testing.assert_allclose(out.y[0].numpy(), np.asarray(jout.y),
                                atol=1e-3)
+
+
+@pytest.mark.parametrize("seed,frame_base,nfrm,nbin", [
+    (0, 0, 60, 81), (12345, 1537, 40, 161), (-1, 7, 9, 3)])
+def test_noise_bins_match_jax_draw(seed, frame_base, nfrm, nbin):
+    """The port's per-frame draw against jax.random's: the uint32 bits
+    exactly, the normals within 1e-6 (XLA's erf_inv to an ulp); every row
+    of the batch the same draw."""
+    key = jax.random.PRNGKey(seed)
+
+    def frame(i):
+        kr, ki = jax.random.split(jax.random.fold_in(key, i))
+        return tuple(f(k, (nbin,), d) for k in (kr, ki) for f, d in (
+            (jax.random.normal, jnp.float32), (jax.random.bits, jnp.uint32)))
+
+    jre, jbre, jim, jbim = map(np.asarray, jax.vmap(frame)(
+        frame_base + jnp.arange(nfrm, dtype=jnp.int32)))
+    re, im, bre, bim = tkernels.noise_bins(seed, frame_base, 2, nfrm, nbin,
+                                           "cpu", bits=True)
+    np.testing.assert_array_equal(bre.numpy().view(np.uint32), jbre)
+    np.testing.assert_array_equal(bim.numpy().view(np.uint32), jbim)
+    assert re.shape == im.shape == (2, nfrm, nbin)
+    for b in range(2):
+        np.testing.assert_allclose(re[b].numpy(), jre, atol=1e-6, rtol=0)
+        np.testing.assert_allclose(im[b].numpy(), jim, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("row", ["clean", "noisy"])
+def test_synthesis_draws_jax_noise(ref, row):
+    """_synthesize with no bins injected: y_nos against the JAX
+    synthesize's at the injected-bins tolerance."""
+    i = list(ROWS).index(row)
+    j = ref["jchunks"][i]
+    chunk = chunk_from_numpy({f: np.asarray(getattr(j, f))[None]
+                              for f in LAYER0_FIELDS}, ref["topt"].conf,
+                             device="cpu")
+    out = tl0._synthesize(ref["tsopt"], chunk)
+    jout = jl0._synthesize_jit(ref["jsopt"], j)
+    np.testing.assert_allclose(out.y_nos[0].numpy(), np.asarray(jout.y_nos),
+                               atol=1e-4)
+
+
+def test_chunk_alone_equals_its_row_in_a_batch(ref):
+    """Row 1 of a batch of 3 and the same chunk alone render the same
+    waveform, noise included, bit for bit on the CPU."""
+    batch = index_batch(ref["tchunk"], slice(0, 3))
+    alone = index_batch(ref["tchunk"], slice(1, 2))
+    got = tl0._synthesize(ref["tsopt"], batch)
+    one = tl0._synthesize(ref["tsopt"], alone)
+    for g, o in zip(got[:3], one[:3]):
+        assert torch.equal(g[1], o[0])
+
+
+def test_noise_frame_base_renders_a_slice_of_the_whole(ref):
+    """Frames [i0, i0+n) of a chunk rendered with frame_base=i0 (on the
+    whole render's cycle track) give the whole render's samples wherever
+    both of their overlapping segments lie in the slice."""
+    ch = index_batch(ref["tchunk"], slice(0, 2))
+    conf, sopt = ch.conf, ref["tsopt"]
+    nhop, N = conf.nhop, ch.nfrm
+    cyc = thm.sample_cycles(ch.f0, nhop, conf.fs, N * nhop)
+    whole = tl0._synth_noise(ch, cyc, nhop, conf.fs, sopt.noise_seed)
+    i0, n = 17, 23
+    part = ch.replace(**{f: getattr(ch, f)[:, i0:i0 + n]
+                         for f in LAYER0_FIELDS})
+    got = tl0._synth_noise(part, cyc[:, i0 * nhop:(i0 + n) * nhop], nhop,
+                           conf.fs, sopt.noise_seed, frame_base=i0)
+    assert torch.equal(got[:, :(n - 1) * nhop],
+                       whole[:, i0 * nhop:(i0 + n - 1) * nhop])
+    other = tl0._synth_noise(part, cyc[:, i0 * nhop:(i0 + n) * nhop], nhop,
+                             conf.fs, sopt.noise_seed)
+    assert not torch.equal(other, got)
 
 
 def test_synthesis_upsampled_matches(ref):

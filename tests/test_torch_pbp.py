@@ -1,7 +1,7 @@
 """The PyTorch port's pulse-by-pulse synthesis against the JAX package on
 the CPU, on a 0.8 s LF fixture (as tests/test_pbp.py) carried across as a
 JAX layer-1 chunk: the pulse onsets, y_sin, and y_nos with the JAX noise
-bins injected (torch cannot draw JAX's bits).  Utterances stay under 1 s:
+bins injected through bins=.  Utterances stay under 1 s:
 the onsets come from a float32 cumsum of f0 thop, which two libraries sum
 in different orders."""
 import dataclasses
