@@ -20,22 +20,26 @@ non-zero without the final "ok" line:
      path that runs it -- the six of the library-default path (denoiser
      on; K = 80, Wf = 960, plus the K = 4 envelope projection; osc_bank's
      residual and synthesis renders), its frame-axis FIR pair (the
-     spectral gate's local-noisiness blend, one launch) and its noise draw
+     spectral gate's local-noisiness blend, one launch), its noise draw
      (noise_bins, held to its twin's bits exactly and its normals within
-     1e-6), the track lowpass's FIR pair (track_lowpass_hz=30: a
-     voicing column and a complex track), env_render on the envelope
+     1e-6) and its cycle track (sample_cycles, within 1e-4 cycles mod 1
+     of its twin on the card and 1e-6 of its twin on the CPU, which sums
+     in the kernel's order; the analysis's and the synthesis's calls), the
+     track lowpass's FIR
+     pair (track_lowpass_hz=30: a voicing column and a complex track), env_render on the envelope
      coefficients of the main path's noise_mod_ola call, the unframed
      projection of phase 6's hm_kernel="matmul", the plain projection of
      phase 7's refine probes (K = 1) and of one harmonic_analysis with the
      mltsine window (K = 80) -- runs kernel and plain PyTorch version on them on the card, checks
      the maximum error against each tolerance, and times both (median of
      10, CUDA events) and, where PyTorch computes the same function in
-     one contraction or convolution, that call with the making of its
-     operands from the same inputs (the dense oscillator / chirp basis,
-     the banded windows, the FIR's layout) timed with it.  The denoiser
+     one contraction, convolution or FFT, that call with the making of
+     its operands from the same inputs (the dense oscillator / chirp
+     basis, the banded windows, the FIR's layout, the band masks) timed
+     with it.  The denoiser
      kernels' other variants (apply without emit_resid, stats from (ampl,
-     phse) = (|c|, angle c) of the captured complex track) run on the
-     same inputs.
+     phse) = (|c|, angle c) of the captured complex track) and the polar
+     output of deconv_full run on the same inputs.
   4. denoiser off: batched_pipeline on 32 bench rows (16 noisy, 16 clean;
      ChunkConf(f0_floor=70), track_denoise=False, use_pallas=True) after
      zeroing the launch counters; its four kernels and the noise draw must
@@ -45,7 +49,8 @@ non-zero without the final "ok" line:
   5. main path, the library default (create_aoptions(f0_floor=70,
      use_pallas=True): denoiser on, spectral gate at decimation 4) on all
      128 rows x 8 s after zeroing the launch counters: all six kernels,
-     fir_frames and noise_bins must have launched, clean rows >= 55.17 dB,
+     fir_frames, noise_bins and sample_cycles must have launched, clean
+     rows >= 55.17 dB,
      noisy rows 0 and 1 within 0.05 dB and clean row 64 at most 0.1 dB
      under the JAX package's values.  Then the step time (median of 5) and peak
      memory, each of the step's two harmonic_analysis calls (the K = 80
@@ -53,8 +58,13 @@ non-zero without the final "ok" line:
      residual and the synthesis: one osc_bank launch each) at full batch,
      framing, window and glue included (median of 10), the analysis and
      the synthesis apart: time (median of 3) and the peak memory each
-     takes above its inputs, and each analysis stage's synchronized time
-     and peak.
+     takes above its inputs, and each analysis and synthesis stage's
+     synchronized time and peak (the synthesis: sample_cycles, the render,
+     _synth_noise split into noise_mod_ola and the shaping before it).
+     Rows 0, 1 and 64 run alone: every sample_cycles call's rows must
+     equal, bit for bit, the same rows of the 128-row run wherever their
+     F0 rows are equal, and the kernel on the bench F0 rows alone must
+     equal its rows in the batch; both runs' SNRs printed.
   6. hm_kernel="matmul" at the library default, all 128 rows x 8 s: the
      main harmonic pass through harmonic_project_mxu (launched), the pins
      of phase 5; prints the SNR change from phase 5, then step and peak.
@@ -95,7 +105,8 @@ run of 20 back-to-back launches: the device time where the host enqueues
 faster than the card runs), beside its bound, and fir_frames beside its
 conv1d yardstick.  The line before the last is
 the kernels' JSON summary: launches from the phase that runs each (5 for
-the six and fir_frames, 6 for harmonic_project_mxu, 7 for
+the six, fir_frames, noise_bins and sample_cycles, 6 for
+harmonic_project_mxu, 7 for
 harmonic_project, 9 for env_render); ms, plain_ms, library_ms and
 bound_ms at the first 2-row call of phase 3; "full_batch" a record per
 call at full batch ("analysis_calls" on harmonic_project_win and
@@ -205,10 +216,19 @@ KERNELS = {
     # equal, the normals within the tolerance
     "noise_bins": ("libllsm2_tpu_torch/csrc/noise_bins.cu",
                    "libllsm2_tpu/models/layer0.py:1163", 1e-6),
+    # not a Pallas kernel: the cycle track (the JAX package's XLA scan);
+    # wrapped |difference| in cycles
+    "sample_cycles": ("libllsm2_tpu_torch/csrc/sample_cycles.cu",
+                      "libllsm2_tpu/ops/harmonics.py:35", 1e-4),
 }
+# sample_cycles against its plain version run on the CPU, which sums in the
+# kernel's order (a float64 running sum a hop): wrapped |difference|, cycles
+SAMPLE_CYCLES_CPU_TOL = 1e-6
 MAIN_SIX = tuple(KERNELS)[:6]     # the library-default path's CUDA kernels
-# ... and its frame-axis FIR and noise draw
-MAIN = MAIN_SIX + ("fir_frames", "noise_bins")
+# ... and its frame-axis FIR, noise draw and cycle track
+MAIN = MAIN_SIX + ("fir_frames", "noise_bins", "sample_cycles")
+BATCH_ROWS = (0, 1, 64)           # phase 5: rows whose cycle tracks must not
+                                  # depend on the batch
 
 
 class PhaseError(Exception):
@@ -259,7 +279,7 @@ def track_scale(torch, name, args, kw, ref):
     return float(torch.max(torch.hypot(args[0], args[1])))
 
 
-def max_err(torch, name, got, ref, scale=1.0):
+def max_err(torch, name, got, ref, scale=1.0, kw=None):
     """Max |error| of a kernel's outputs.  Complex (re, im) pairs count
     |delta re + j delta im|; the denoiser's powers (pp, |c_s|^2, |r|^2)
     count |delta| / scale and its unit rotation factors |delta| x scale,
@@ -267,7 +287,13 @@ def max_err(torch, name, got, ref, scale=1.0):
     error."""
     cplx = lambda a, b: float(torch.max(torch.hypot(a[0] - b[0], a[1] - b[1])))
     if name == "deconv_full":
+        if not (kw or {}).get("return_complex", True):   # (|c|, angle c)
+            got, ref = (torch.view_as_real(torch.polar(*v)).unbind(-1)
+                        for v in (got, ref))
         return cplx(got, ref)
+    if name == "sample_cycles":                     # mod 1, in cycles
+        d = got.double() - ref.double()
+        return float(torch.max(torch.abs(d - torch.round(d))))
     if name == "harmonic_project_mxu":
         # wsum and xsum count relative to their own peak, in track units
         rel = lambda g, r: float(torch.max(torch.abs(g - r))
@@ -300,6 +326,8 @@ def variants(torch, name, args, kw):
     """The non-default variants of a captured denoiser call."""
     if name == "denoise_apply":
         return [("emit_resid=False", args, dict(kw, emit_resid=False))]
+    if name == "deconv_full":
+        return [("polar", args, dict(kw, return_complex=False))]
     if name == "denoise_stats":
         ap = (torch.hypot(args[0], args[1]), torch.atan2(args[1], args[0]))
         return [("(ampl, phse) input", ap + tuple(args[2:]),
@@ -317,7 +345,14 @@ def _tensors(torch, ts):
 
 
 def _nbytes(torch, ts):
-    return sum(t.numel() * t.element_size() for t in _tensors(torch, ts))
+    """Bytes of the tensors; a leading axis of stride 0 (one draw expanded
+    to the batch) counts once."""
+    def stored(t):
+        while t.dim() and t.stride(0) == 0:
+            t = t[0]
+        return t
+    return sum(stored(t).numel() * t.element_size()
+               for t in _tensors(torch, ts))
 
 
 def _shapes(torch, args):
@@ -356,13 +391,36 @@ def kernel_ops(torch, name, args, kw):
         reach = a[5] * a[4]
         span = torch.clamp(2 * torch.ceil(a[2]) + 1, max=2 * reach + 1)
         return 10.0 * a[3] * float(span.sum())
-    if name == "deconv_full":                # ampl [B, N, K], eq [B, N, nq]
+    if name == "deconv_full":   # ampl, phse, cyc, hw, mask, D, nhop, stride
+        # a slot: the banded step (2D+1 taps x 3 complex terms, 24), its
+        # alignment and un-alignment (a sincos and a complex product each,
+        # 2 x 20), the mask (2) and for the polar track sqrt + atan2 (30); a
+        # frame: the taps (10 a tap a point) and the quadrature field (a
+        # sincos a point, 20)
         B, N, K = a[0].shape
-        band = 2 * a[6] + 1
-        return float(B * N) * (24.0 * K * band + 10.0 * band * a[4].shape[-1])
-    if name in ("noise_mod_ola", "env_render"):
+        band, nq = 2 * a[5] + 1, 2 * a[6] // a[7]
+        slot = 24.0 * band + 42.0 + (0.0 if kw.get("return_complex", True)
+                                     else 30.0)
+        return float(B * N) * (K * slot + nq * (10.0 * band + 20.0))
+    if name == "env_render":
         B, N, C, Ke = a[2].shape
         return float(a[0].numel()) * C * (16.0 * Ke + 13.0)
+    if name == "noise_mod_ola":  # cyc, edc, ar, ai, base, re, im, gain, bands
+        # the band iDFT: a segment's samples t and nhop + t share one even
+        # and one odd sum over the band's bins ((-1)^k e^{2 pi j k t / T}),
+        # so nhop samples a frame, 2 FMAs a live bin (a bin in a band); the
+        # shaping, 3 a bin a frame; the envelope render and modulation as
+        # env_render's, C (16 Ke + 13) a sample
+        B, N, C, Ke = a[2].shape
+        live = sum(hi - lo for lo, hi in zip(a[8][::2], a[8][1::2]))
+        nhop = a[7].shape[-1] - 1
+        return (float(B * N) * (nhop * live * 4.0 + 3.0 * a[7].shape[-1])
+                + float(a[0].numel()) * C * (16.0 * Ke + 13.0))
+    if name == "sample_cycles":              # f0, nhop, fs, nx
+        # a sample: its position, lerp and division (8), the offset's add and
+        # mod 1 (3), the within-hop running sum's float64 add (2: the H100's
+        # float64 rate is half its float32 rate)
+        return 13.0 * (a[0].numel() // a[0].shape[-1]) * a[3]
     if name == "denoise_stats":
         return float(a[0].numel()) * (4.0 * len(a[5]) + 4.0 * len(a[6]) + 40.0)
     if name == "denoise_apply":
@@ -393,6 +451,8 @@ def kernel_bytes(torch, name, args, kw, out):
     offsets only each row's live columns [lo, hi)."""
     if name == "noise_bins":                 # two [N, nbin] draws, expanded
         return 2 * 4 * args[3] * args[4]
+    if name == "sample_cycles":              # f0 read, [B, nx] written
+        return _nbytes(torch, args[:1]) + _nbytes(torch, (out,))
     nbytes = _nbytes(torch, args) + _nbytes(torch, kw.values()) \
         + _nbytes(torch, (out,))
     if name == "harmonic_project" and len(args) > 4:
@@ -421,7 +481,8 @@ def library_call(torch, name, args, kw):
     is none: an einsum against the dense oscillator / chirp basis for the
     oscillator bank and the framed projections, one bmm of banded window
     rows for the unframed projection, conv1d with the fixed taps for
-    fir_frames (a pair as one batch).  The making of those operands
+    fir_frames (a pair as one batch), one irfft of each band's masked
+    spectra, then the segments' OLA, for the noise part.  The making of those operands
     (frames, basis, windows, layout) is part of the returned callable, so
     it is timed with the call."""
     import math
@@ -504,6 +565,29 @@ def library_call(torch, name, args, kw):
                           ).reshape(B, N, -1).permute(0, 2, 1).reshape(-1, N)
         return lambda: F.conv1d(torch.cat([cols(v) for v in vs])[:, None],
                                 wt, padding=len(taps) // 2)
+    if name == "noise_mod_ola":
+        from libllsm2_tpu_torch.ops.harmonics import overlap_add_half
+        from libllsm2_tpu_torch.ops.kernels import env_render_ref
+        cyc, edc, ar, ai, base, re, im, gain, bands = args
+        nbin = gain.shape[-1]
+        nhop, C = nbin - 1, edc.shape[-1]
+        T = 2 * nhop
+        k = torch.arange(nbin, device=cyc.device)
+        masks = torch.stack([(k >= lo) & (k < hi) for lo, hi in
+                             zip(bands[::2], bands[1::2])]).to(cyc.dtype)
+        w = torch.sqrt(0.5 - 0.5 * torch.cos(2 * math.pi * (torch.arange(
+            T, device=cyc.device, dtype=cyc.dtype) + 0.5) / T))
+        sc = torch.full((nbin,), math.sqrt(T / 2.0), device=cyc.device)
+        sc[0] = sc[-1] = math.sqrt(float(T))
+
+        def call():
+            # each band's segments by one irfft of its masked spectra
+            spec = torch.complex(re * sc, im * sc) * gain
+            segs = torch.fft.irfft(spec[:, None] * masks[:, None], n=T) * w
+            env, base_s = env_render_ref(cyc, edc, ar, ai, base, nhop)
+            return sum(overlap_add_half(segs[:, c], nhop, cyc.shape[-1])
+                       * (env[:, c] / base_s[:, c]) for c in range(C))
+        return call
     return None
 
 
@@ -516,6 +600,16 @@ def check_kernel(torch, kernels, name, tol, args, kw, label, library=False):
     cmp_kw = dict(kw, bits=True) if name == "noise_bins" else kw
     got, ref = fn(*args, **cmp_kw), ref_fn(*args, **cmp_kw)
     torch.cuda.synchronize()
+    extra = ""
+    if name == "sample_cycles":
+        # the kernel sums in the order of the plain version on the CPU:
+        # held to it there, far inside the twin's float32 drift on the card
+        cpu = ref_fn(args[0].cpu(), *args[1:], **cmp_kw)
+        cpu_err = max_err(torch, name, got.cpu(), cpu)
+        extra = (f" against the plain version on the CPU {cpu_err:.3e} (tol "
+                 f"{SAMPLE_CYCLES_CPU_TOL})")
+        if cpu_err > SAMPLE_CYCLES_CPU_TOL:
+            phase(f"3 {name}[{label}] on the CPU's order", False, extra)
     if isinstance(tol, tuple):                # one tolerance per output
         errs = [float(torch.max(torch.abs(g - r))) for g, r in zip(got, ref)]
         err, ok = max(errs), all(e <= t for e, t in zip(errs, tol))
@@ -524,7 +618,7 @@ def check_kernel(torch, kernels, name, tol, args, kw, label, library=False):
         if isinstance(tol, str):
             scale = track_scale(torch, name, args, kw, ref)
             tol = float(tol.split()[1]) * scale
-        err = max_err(torch, name, got, ref, scale)
+        err = max_err(torch, name, got, ref, scale, kw)
         ok = err <= tol
     ms = cuda_ms(torch, lambda: fn(*args, **kw), 10)
     plain_ms = cuda_ms(torch, lambda: ref_fn(*args, **kw), 10)
@@ -539,7 +633,7 @@ def check_kernel(torch, kernels, name, tol, args, kw, label, library=False):
     shapes = _shapes(torch, args)
     lib = "n/a" if library_ms is None else f"{library_ms:.4f} ms"
     phase(f"3 {name}[{label}]", ok,
-          f"shapes {shapes[:2]} max_abs_err {err:.3e} (tol {tol}) "
+          f"shapes {shapes[:2]} max_abs_err {err:.3e} (tol {tol}){extra} "
           f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms library {lib} "
           f"bound {bound_ms:.4f} ms ({bound_by})")
     return {"call": label, "shapes": shapes[:2], "max_abs_err": err,
@@ -951,9 +1045,9 @@ def phase5_breakdown(torch, mods, opt, sopt, data):
     """Phase 5's two harmonic_analysis calls (analysis_calls) and its two
     harmonic renders (render_calls), then its analysis and synthesis apart:
     time (median of 3) and the peak memory each takes above its inputs,
-    which says which half sets the step's peak, and each analysis stage's
-    synchronized time and peak -> (the analysis-call records, the
-    render-call records)."""
+    which says which half sets the step's peak, and each analysis and
+    synthesis stage's synchronized time and peak (stage_times) -> (the
+    analysis-call records, the render-call records)."""
     harmonics, layer0, corpus, kernels = mods
     x, f0, x_ref, nxv = data
     step = lambda: corpus.batched_pipeline(opt, sopt, x, f0, nxv, x_ref)
@@ -967,14 +1061,51 @@ def phase5_breakdown(torch, mods, opt, sopt, data):
     print(f"5 stages: analyze {ms['analyze']:.2f} ms, peak {peak_a:.3f} GiB "
           f"above its inputs; synthesize {ms['synthesize']:.2f} ms, peak "
           f"{peak_s:.3f} GiB above the chunk (median of 3)", flush=True)
-    # the analysis's own stages (siblings inside _analyze): each call's
-    # time, synchronized before and after (summed over a stage's calls;
-    # median of 3 analyses), and its peak above the memory allocated when
-    # it starts
-    hooks = [(harmonics, "refine_f0"), (harmonics, "harmonic_analysis"),
+    # the analysis's own stages (siblings inside _analyze) and the
+    # synthesis's: each call's time, synchronized before and after (summed
+    # over a stage's calls; median of 3), and its peak above the memory
+    # allocated when it starts (a call inside another resets the outer
+    # call's peak count)
+    hooks = [(harmonics, "refine_f0"), (harmonics, "sample_cycles"),
+             (harmonics, "harmonic_analysis"),
              (layer0, "_deconv_correction"), (layer0, "_track_denoise"),
              render_hook(harmonics, kernels), (layer0, "_band_envelopes"),
              (layer0, "_warped_psd")]
+    ms, peaks = stage_times(torch, hooks, lambda: layer0._analyze(opt, x, f0))
+    print("5 analysis stages, ms (synchronized, median of 3) and peak GiB "
+          "above each call's start: " + ", ".join(
+              f"{k} {ms[k]:.2f} ms {peaks[k]:.3f} GiB" for k in peaks)
+          + f"; the analysis {ms['total']:.2f} ms, of which "
+          f"{ms['total'] - sum(ms[k] for k in peaks):.2f} ms outside them",
+          flush=True)
+    # synthesis: the cycle track, the harmonic render and _synth_noise,
+    # split into its kernel (noise_mod_ola) and the shaping before it (on
+    # a package that builds the band segments apart, _band_segments too)
+    hooks = [(harmonics, "sample_cycles"), render_hook(harmonics, kernels),
+             (layer0, "_synth_noise"), (kernels, "noise_mod_ola")]
+    if hasattr(layer0, "_band_segments"):
+        hooks.append((layer0, "_band_segments"))
+    ms, peaks = stage_times(torch, hooks,
+                            lambda: layer0._synthesize(sopt, chunk))
+    inner = [k for k in ("noise_mod_ola", "_band_segments") if k in ms]
+    top = [k for k in ms if k not in inner and k != "total"]
+    print("5 synthesis stages, ms (synchronized, median of 3) and peak GiB "
+          "above each call's start: " + ", ".join(
+              f"{k} {ms[k]:.2f} ms {peaks[k]:.3f} GiB" for k in peaks)
+          + f"; _synth_noise's shaping (outside "
+          f"{' and '.join(inner)}) {ms['_synth_noise'] - sum(ms[k] for k in inner):.2f}"
+          f" ms; the synthesis {ms['total']:.2f} ms, of which "
+          f"{ms['total'] - sum(ms[k] for k in top):.2f} ms outside them",
+          flush=True)
+    del chunk
+    return calls, renders
+
+
+def stage_times(torch, hooks, run, reps=3):
+    """run() reps times with each hooked (module, name) function timed
+    (synchronized before and after, summed over its calls) and its peak
+    above its start recorded -> ({name: median ms, "total": run's median
+    ms}, {name: peak GiB})."""
     runs, peaks = [], {}
 
     def tracked(name, fn):
@@ -992,24 +1123,64 @@ def phase5_breakdown(torch, mods, opt, sopt, data):
     for mod, name, fn in originals:
         setattr(mod, name, tracked(name, fn))
     try:
-        for _ in range(3):
+        for _ in range(reps):
             runs.append({})
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            layer0._analyze(opt, x, f0)
+            run()
             torch.cuda.synchronize()
             runs[-1]["total"] = (time.perf_counter() - t0) * 1e3
     finally:
         for mod, name, fn in originals:
             setattr(mod, name, fn)
-    ms = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
-    print("5 analysis stages, ms (synchronized, median of 3) and peak GiB "
-          "above each call's start: " + ", ".join(
-              f"{k} {ms[k]:.2f} ms {peaks[k]:.3f} GiB" for k in peaks)
-          + f"; the analysis {ms['total']:.2f} ms, of which "
-          f"{ms['total'] - sum(ms[k] for k in peaks):.2f} ms outside them",
-          flush=True)
-    return calls, renders
+    return ({k: statistics.median(r.get(k, 0.0) for r in runs)
+             for k in runs[0]}, peaks)
+
+
+def batch_rows(torch, kernels, corpus, opt, sopt, data, snr_whole):
+    """Phase 5: rows BATCH_ROWS of the bench batch alone (a batch of those
+    rows) and in the whole batch, every kernels.sample_cycles call's input
+    and output rows compared bit for bit; prints both runs' SNRs of those
+    rows (the whole batch's from the counted run, snr_whole)."""
+    dev = data[0].device
+
+    def record(d, pick):
+        log, fn = [], kernels.sample_cycles
+
+        def rec(f0, *a, **kw):
+            out = fn(f0, *a, **kw)
+            log.append((f0[pick].clone(), out[pick].clone()))
+            return out
+        kernels.sample_cycles = rec
+        try:
+            x, f0, x_ref, nxv = d
+            _, snr, _ = corpus.batched_pipeline(opt, sopt, x, f0, nxv, x_ref)
+        finally:
+            kernels.sample_cycles = fn
+        torch.cuda.synchronize()
+        return log, [round(float(v), 4) for v in snr[pick]]
+
+    rows = torch.tensor(BATCH_ROWS, device=dev)
+    whole, _ = record(data, rows)
+    alone, snr_alone = record(tuple(v[rows] for v in data),
+                              torch.arange(len(BATCH_ROWS), device=dev))
+    same = [(torch.equal(a[0], w[0]), torch.equal(a[1], w[1]))
+            for a, w in zip(alone, whole)]
+    # the kernel on the bench's F0 tracks: each row alone against its row
+    # of the whole batch's call
+    nhop, fs, nx = opt.conf.nhop, opt.conf.fs, data[0].shape[-1]
+    trk = kernels.sample_cycles(data[1], nhop, fs, nx)
+    direct = all(torch.equal(kernels.sample_cycles(data[1][r:r + 1], nhop,
+                                                   fs, nx)[0], trk[r])
+                 for r in BATCH_ROWS)
+    phase("5 cycle tracks alone = in the batch",
+          len(alone) == len(whole) > 0 and direct
+          and all(o for i, o in same if i),
+          f"rows {list(BATCH_ROWS)}: {len(same)} sample_cycles calls of the "
+          f"pipeline, (f0 rows equal, tracks equal) bit for bit: {same}; "
+          f"the kernel on the bench F0 rows alone = in the batch: {direct}; "
+          f"SNR alone {snr_alone} dB, in the {BATCH}-row batch "
+          f"{[round(snr_whole[r], 4) for r in BATCH_ROWS]} dB")
 
 
 def capture_kernel_inputs(kernels, names, run):
@@ -1211,7 +1382,8 @@ def main(argv):
     run_path(torch, kernels, corpus, "4 denoiser off", opt_off, sopt,
              tuple(d[rows] for d in data), NOISY_PINS_DB["denoiser off"],
              ("osc_bank", "harmonic_project_win", "deconv_full",
-              "noise_mod_ola", "noise_bins"), (), noisy_tol=L0_NOISY_TOL_DB)
+              "noise_mod_ola", "noise_bins", "sample_cycles"), (),
+             noisy_tol=L0_NOISY_TOL_DB)
     # phase 5: the main path, the library default, on all 128 rows
     launches, snr5, f = run_path(torch, kernels, corpus, "5 library default",
                                  opt, sopt, data,
@@ -1220,6 +1392,7 @@ def main(argv):
     for name in MAIN:
         summary[name]["launches"] = launches[name]
     full.update(f)
+    batch_rows(torch, kernels, corpus, opt, sopt, data, snr5)
     (summary["harmonic_project_win"]["analysis_calls"],
      summary["osc_bank"]["render_calls"]) = phase5_breakdown(
         torch, (harmonics, layer0, corpus, kernels), opt, sopt, data)

@@ -167,7 +167,6 @@ def _deconv_correction(opt: AnalysisOptions, f0, cyc, ampl, phse, mask,
     dead slots are not exactly zero before the mask."""
     conf = opt.conf
     nhop = conf.nhop
-    B, N, K = ampl.shape
     hh = -(-conf.halfwin_max // nhop)
     D = hh + 1                       # |d| band: window +- OLA half-width
     if D > 128:
@@ -178,17 +177,10 @@ def _deconv_correction(opt: AnalysisOptions, f0, cyc, ampl, phse, mask,
     halfwidth = torch.clamp(conf.rel_winsize * conf.fs / (2.0 * f0s), 2.0,
                             float(conf.halfwin_max))
     # stride-8 midpoint quadrature of the window x crossfade products
+    # (the kernel reads the cycle track at the points and masks)
     stride = max(min(8, nhop), 1)
-    nq = (2 * nhop) // stride
-    C2 = harmonics.frame_hops(cyc, N, nhop, 1, mode="edge")   # [B, N, 2nhop]
-    ang = 2.0 * math.pi * C2[..., stride // 2::stride][..., :nq]
-    c_re, c_im = kernels.deconv_full(ampl, phse, cyc[..., ::nhop][..., :N],
-                                     halfwidth, torch.cos(ang),
-                                     torch.sin(ang), D, nhop, stride)
-    if return_complex:
-        return c_re * mask, c_im * mask
-    return (torch.sqrt(c_re ** 2 + c_im ** 2) * mask,
-            torch.atan2(c_im, c_re) * mask)
+    return kernels.deconv_full(ampl, phse, cyc, halfwidth, mask, D, nhop,
+                               stride, return_complex=return_complex)
 
 
 # ---------------------------------------------------------------------------
@@ -567,27 +559,6 @@ def _render_envelopes(chunk: Chunk, cyc: torch.Tensor, nhop: int,
     return kernels.env_render(cyc, *coefs, nhop=nhop)
 
 
-def _band_segments(shaped_spec: torch.Tensor, masks: torch.Tensor,
-                   w: torch.Tensor, T: int) -> torch.Tensor:
-    """Windowed per-band time segments [B, C, N, T] from the shaped noise
-    spectra [B, N, nbin]: the inverse real DFT as one contraction with the
-    synthesis window and band masks folded into the matrix."""
-    nbin = shaped_spec.shape[-1]
-    dev = shaped_spec.device
-    b = torch.arange(nbin, dtype=torch.int64, device=dev)
-    t = torch.arange(T, dtype=torch.int64, device=dev)
-    # exact cycles mod 1 via integer arithmetic before trig
-    ang = 2.0 * math.pi * (torch.remainder(b[:, None] * t[None, :], T)
-                           .to(FP) / T)
-    wb = torch.full((nbin,), 2.0 / T, dtype=FP, device=dev)
-    wb[0] = wb[-1] = 1.0 / T
-    scale = wb[:, None] * w[None, :]                         # [nbin, T]
-    cos_c = masks[:, :, None] * (torch.cos(ang) * scale)     # [C, nbin, T]
-    sin_c = masks[:, :, None] * (torch.sin(ang) * scale)
-    return (torch.einsum("znb,cbt->zcnt", shaped_spec.real, cos_c)
-            - torch.einsum("znb,cbt->zcnt", shaped_spec.imag, sin_c))
-
-
 def _synth_noise(chunk: Chunk, cyc: torch.Tensor, nhop: int, fs: float,
                  noise_seed: int, bins=None,
                  frame_base: int = 0) -> torch.Tensor:
@@ -607,9 +578,6 @@ def _synth_noise(chunk: Chunk, cyc: torch.Tensor, nhop: int, fs: float,
     T = 2 * nhop
     nbin = T // 2 + 1
     dev = cyc.device
-    # sqrt-Hann WOLA pair: perfect reconstruction at 50% overlap
-    w = torch.sqrt(0.5 - 0.5 * torch.cos(
-        2.0 * math.pi * (torch.arange(T, dtype=FP, device=dev) + 0.5) / T))
     # the PSD axis is warped over the analysis band [0, conf.fs/2]
     f = torch.arange(nbin, dtype=FP, device=dev) * fs / T
     nyq_a = conf.fs / 2.0
@@ -637,18 +605,13 @@ def _synth_noise(chunk: Chunk, cyc: torch.Tensor, nhop: int, fs: float,
                   for v in bins)
         if re.shape != (B, N, nbin) or im.shape != (B, N, nbin):
             raise ValueError(f"bins must be [{B}, {N}, {nbin}] each")
-    scale = torch.full((nbin,), math.sqrt(T / 2.0), dtype=FP, device=dev)
-    scale[0] = scale[-1] = math.sqrt(float(T))
-    # the DC and Nyquist bins are real: their imaginary draws are dropped
-    im_scale = scale.clone()
-    im_scale[0] = im_scale[-1] = 0.0
-    shaped = torch.complex(re * scale, im * im_scale) * gain   # [B, N, nbin]
-    edges = conf.chan_edges
-    masks = torch.stack([((f >= edges[c]) & (f < edges[c + 1])).to(FP)
-                         for c in range(conf.nchannel)])       # [C, nbin]
-    band_segs = _band_segments(shaped, masks, w, T)            # [B, C, N, T]
     edc, ar, ai, base = _env_coefs(chunk, cyc[..., ::nhop][..., :N])
-    return kernels.noise_mod_ola(cyc, edc, ar, ai, base, band_segs)
+    # the kernel shapes the spectra (scale, DC and Nyquist real), takes
+    # each band's windowed inverse DFT and overlap-adds, modulates and sums
+    # the bands
+    return kernels.noise_mod_ola(cyc, edc, ar, ai, base, re, im, gain,
+                                 kernels.band_ranges(nbin, float(fs),
+                                                     tuple(conf.chan_edges)))
 
 
 def synthesize(opt: SynthesisOptions, chunk: Chunk) -> SynthResult:

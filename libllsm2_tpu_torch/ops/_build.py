@@ -40,13 +40,14 @@ SIGNATURES = {
     "llsm_harmonic_project_win": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                   _I, _I, _I, _I, _I, _I, _I, _F, _F, _F,
                                   _F, _I, _P),
-    # ampl, phse, cyc_c, hw, eq_re, eq_im, out_re, out_im, B, N, K, D,
-    # nhop, stride, nq, stream
-    "llsm_deconv_full": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                         _I, _I, _I, _P),
-    # cyc, edc, ar, ai, base, segs, y, B, N, nhop, C, Ke, stream
-    "llsm_noise_mod_ola": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                           _P),
+    # ampl, phse, cyc, hw, mask, out_a, out_b, B, N, K, D, nhop, stride,
+    # polar, stream
+    "llsm_deconv_full": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                         _I, _P),
+    # cyc, edc, ar, ai, base, re, im, spec batch stride, gain, bands (host,
+    # 2 C ints), y, B, N, nhop, C, Ke, stream
+    "llsm_noise_mod_ola": (_P, _P, _P, _P, _P, _P, _P, _L, _P, _P, _P, _I,
+                           _I, _I, _I, _I, _P),
     # a, p, cyc_c, mask, voiced, pp, cs2, r2, guard (bool), cre, cim, csr,
     # csi, B, N, K, taps1 (host), n1, taps2 (host), n2, complex_input, stream
     "llsm_denoise_stats": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -68,6 +69,9 @@ SIGNATURES = {
                         _P),
     # re, im, bits_re, bits_im (or null), seed, frame_base, N, nbin, stream
     "llsm_noise_bins": (_P, _P, _P, _P, _U, _U, _I, _I, _P),
+    # f0, out, hop scratch (float64 [B, nx / nhop]), B, N, nhop, nx, fs,
+    # stream
+    "llsm_sample_cycles": (_P, _P, _P, _I, _I, _I, _I, _F, _P),
 }
 
 _lib = None

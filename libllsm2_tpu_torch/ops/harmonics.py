@@ -30,30 +30,12 @@ def _phase_cycles(kn: torch.Tensor, f_over_fs: torch.Tensor) -> torch.Tensor:
 def sample_cycles(f0: torch.Tensor, nhop: int, fs: float,
                   nx: int) -> torch.Tensor:
     """Fundamental phase in cycles MOD 1 at every sample: f0 [B, N] ->
-    [B, nx], nx a multiple of nhop.
-
-    F0 is linearly interpolated between frame centers (i*nhop) and
-    integrated in two levels: a float32 cumsum within each hop (a few
-    cycles, exact enough) plus a prefix sum of the per-hop totals.  That
-    prefix sum is taken in float64 and reduced mod 1 (the JAX package uses
-    a mod-1 associative scan): a float32 cumsum over 1600 hops would lose
-    ~1e-4 cycles.  Integer cycles are irrelevant downstream."""
-    if nx % nhop:
-        raise ValueError("sample_cycles: nx must be a multiple of nhop")
-    n = f0.shape[-1]
-    dev = f0.device
-    f0s = torch.where(f0 > 0, f0, torch.zeros_like(f0))
-    pos = torch.arange(nx, dtype=FP, device=dev) / nhop
-    i0 = torch.clamp(torch.floor(pos).to(torch.int64), 0, n - 2)
-    t = torch.clamp(pos - i0, 0.0, 1.0)
-    f0_samp = f0s[..., i0] * (1.0 - t) + f0s[..., i0 + 1] * t
-    d = f0_samp / fs
-    within = torch.cumsum(d.reshape(d.shape[:-1] + (-1, nhop)), dim=-1)
-    tot = torch.remainder(within[..., -1], 1.0).to(torch.float64)
-    off = torch.remainder(torch.cumsum(tot, dim=-1), 1.0).to(FP)
-    off = torch.cat([torch.zeros_like(off[..., :1]), off[..., :-1]], dim=-1)
-    c = torch.remainder(off[..., None] + within, 1.0).reshape(d.shape)
-    return torch.cat([torch.zeros_like(c[..., :1]), c[..., :-1]], dim=-1)
+    [B, nx], nx a multiple of nhop: F0 lerped between frame centers
+    (i*nhop), summed in float32 within each hop and in float64 over the
+    hop totals (kernels.sample_cycles_ref).  On the card a kernel sums each
+    row in an order of its own, so a row's track is the same alone and in
+    any batch (kernels.sample_cycles)."""
+    return kernels.sample_cycles(f0, nhop, fs, nx)
 
 
 def frame_hops(x: torch.Tensor, nfrm: int, nhop: int, halfhops: int,

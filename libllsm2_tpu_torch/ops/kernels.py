@@ -29,7 +29,8 @@ from .windows import COSINE_SERIES, window_centered
 LAUNCHES = {"osc_bank": 0, "harmonic_project_win": 0, "deconv_full": 0,
             "noise_mod_ola": 0, "denoise_stats": 0, "denoise_apply": 0,
             "harmonic_project": 0, "harmonic_project_mxu": 0,
-            "fir_frames": 0, "env_render": 0, "noise_bins": 0}
+            "fir_frames": 0, "env_render": 0, "noise_bins": 0,
+            "sample_cycles": 0}
 
 # frames per chunk of the plain versions: bounds their [frames, K, T]
 # temporaries to ~64 MB at any input size
@@ -193,31 +194,69 @@ def harmonic_project_win_ref(x, cyc, hw, max_k, lo, hi, *, nhop, center,
 # 5. amplitude-track deconvolution (pallas_osc.deconv_full_pallas)
 # ---------------------------------------------------------------------------
 
-def deconv_full(ampl: torch.Tensor, phse: torch.Tensor, cyc_c: torch.Tensor,
-                hw: torch.Tensor, eq_re: torch.Tensor, eq_im: torch.Tensor,
-                D: int, nhop: int, stride: int):
+_SMEM_MAX = 227 * 1024       # the H100's shared memory a block, opted in
+
+
+def _deconv_smem(D: int, K: int, nq: int) -> int:
+    """deconv_full.cu's shared memory a block: the 2 D + 1 float4 taps of
+    its 64 frames, 64 + 2 D halo rows of max(K, nq) float2, and a float a
+    halo row and a quadrature point."""
+    FH = 64 + 2 * D
+    return 64 * (2 * D + 1) * 16 + FH * max(K, nq) * 8 + (FH + nq) * 4
+
+
+def deconv_full(ampl: torch.Tensor, phse: torch.Tensor, cyc: torch.Tensor,
+                hw: torch.Tensor, mask: torch.Tensor, D: int, nhop: int,
+                stride: int, *, return_complex: bool = True):
     """Fused amplitude-track deconvolution of a batch of utterances:
-    ampl/phse [B, N, K] (masked), cyc_c [B, N] (mod-1 cycle at the frame
-    centers), hw [B, N] (window halfwidth), eq_re/eq_im [B, N, nq]
-    (e^{2 pi j cyc} at the band-quadrature points of each frame's hop) ->
-    the corrected complex harmonics (re, im) [B, N, K] in the absolute-
-    phase domain.  Frames beyond either end of an utterance are zero."""
-    if not _on_cuda(ampl, phse, cyc_c, hw, eq_re, eq_im):
-        return deconv_full_ref(ampl, phse, cyc_c, hw, eq_re, eq_im, D, nhop,
-                               stride)
+    ampl/phse [B, N, K] (masked), cyc [B, N*nhop] the mod-1 cycle track,
+    hw [B, N] (window halfwidth), mask [B, N, K] -> the corrected complex
+    harmonics in the absolute-phase domain, times the mask: (re, im), or
+    with return_complex=False (|c|, angle c) [B, N, K].  The kernel reads
+    the cycle track at each frame's center and at the stride-quadrature
+    points of its hop pair (edge-clamped, as frame_hops(mode="edge")).
+    Frames beyond either end of an utterance are zero.  D is bounded by
+    the block's shared memory (_deconv_smem): D <= 56 at K = 80."""
+    if not _on_cuda(ampl, phse, cyc, hw, mask):
+        return deconv_full_ref(ampl, phse, cyc, hw, mask, D, nhop, stride,
+                               return_complex=return_complex)
     B, N, K = ampl.shape
-    nq = eq_re.shape[-1]
-    if phse.shape != (B, N, K) or cyc_c.shape != (B, N) or hw.shape != (B, N) \
-            or eq_re.shape != (B, N, nq) or eq_im.shape != (B, N, nq):
+    if phse.shape != (B, N, K) or mask.shape != (B, N, K) \
+            or cyc.shape != (B, N * nhop) or hw.shape != (B, N):
         raise ValueError("deconv_full: shape mismatch")
-    ampl, phse, cyc_c, hw = _f32(ampl), _f32(phse), _f32(cyc_c), _f32(hw)
-    eq_re, eq_im = _f32(eq_re), _f32(eq_im)
-    o_re = torch.empty((B, N, K), dtype=FP, device=ampl.device)
-    o_im = torch.empty((B, N, K), dtype=FP, device=ampl.device)
-    ptrs = (t.data_ptr()
-            for t in (ampl, phse, cyc_c, hw, eq_re, eq_im, o_re, o_im))
-    _launch("deconv_full", *ptrs, B, N, K, int(D), int(nhop), int(stride), nq, _stream(ampl))
-    return o_re, o_im
+    if not (D >= 0 and 0 < stride <= 2 * nhop):
+        raise ValueError(f"deconv_full: D = {D}, stride {stride}")
+    smem = _deconv_smem(D, K, 2 * nhop // stride)
+    if smem > _SMEM_MAX:
+        raise ValueError(f"deconv_full: D = {D} at K = {K} needs {smem} B of "
+                         f"shared memory a block (at most {_SMEM_MAX})")
+    ampl, phse, cyc, hw, mask = map(_f32, (ampl, phse, cyc, hw, mask))
+    o_a = torch.empty((B, N, K), dtype=FP, device=ampl.device)
+    o_b = torch.empty((B, N, K), dtype=FP, device=ampl.device)
+    ptrs = (t.data_ptr() for t in (ampl, phse, cyc, hw, mask, o_a, o_b))
+    _launch("deconv_full", *ptrs, B, N, K, int(D), int(nhop), int(stride),
+            int(not return_complex), _stream(ampl))
+    return o_a, o_b
+
+
+def deconv_full_ref(ampl, phse, cyc, hw, mask, D, nhop, stride, *,
+                    return_complex=True):
+    """Plain version of deconv_full: the quadrature field e^{2 pi j cyc}
+    from frame_hops(mode="edge") and the centre cycles sliced from the
+    track, the banded step (_deconv_step), then the mask and, for the
+    polar track, sqrt / atan2 (the JAX caller, layer0.py:229-246)."""
+    from .harmonics import frame_hops
+    N = ampl.shape[1]
+    nq = (2 * nhop) // stride
+    C2 = frame_hops(cyc, N, nhop, 1, mode="edge")           # [B, N, 2nhop]
+    ang = 2.0 * math.pi * C2[..., stride // 2::stride][..., :nq]
+    c_re, c_im = _deconv_step(ampl, phse, cyc[..., ::nhop][..., :N], hw,
+                              torch.cos(ang), torch.sin(ang), D, nhop,
+                              stride)
+    if return_complex:
+        return c_re * mask, c_im * mask
+    return (torch.sqrt(c_re ** 2 + c_im ** 2) * mask,
+            torch.atan2(c_im, c_re) * mask)
 
 
 def _shift_frames(v: torch.Tensor, d: int) -> torch.Tensor:
@@ -233,8 +272,10 @@ def _shift_frames(v: torch.Tensor, d: int) -> torch.Tensor:
     return out
 
 
-def deconv_full_ref(ampl, phse, cyc_c, hw, eq_re, eq_im, D, nhop, stride):
-    """Plain version of deconv_full (the jnp math of layer0.py:248-299)."""
+def _deconv_step(ampl, phse, cyc_c, hw, eq_re, eq_im, D, nhop, stride):
+    """The banded Neumann step of deconv_full_ref on the centre cycles cyc_c
+    [B, N] and the quadrature field eq [B, N, nq] (the jnp math of
+    layer0.py:248-299) -> the un-aligned (re, im), before the mask."""
     B, N, K = ampl.shape
     nq = eq_re.shape[-1]
     dev = ampl.device
@@ -271,27 +312,125 @@ def deconv_full_ref(ampl, phse, cyc_c, hw, eq_re, eq_im, D, nhop, stride):
 # 4. noise-band OLA + envelope modulation (pallas_osc.noise_mod_ola_pallas)
 # ---------------------------------------------------------------------------
 
+_NOISE_MAX_C = 8
+_NOISE_MAX_KE = 8
+_NOISE_MAX_HOP = 256
+
+
+@functools.lru_cache(maxsize=32)
+def band_ranges(nbin: int, fs: float, edges: tuple) -> tuple:
+    """Each noise band's bins [lo, hi), flattened to 2 C ints (lo = hi for
+    an empty band): bin k at f = k fs / T in float32 (T = 2 (nbin - 1))
+    lies in band c where edges[c] <= f < edges[c + 1]; f rises with k, so a
+    band's bins are one range (the JAX package's band masks,
+    layer0._synth_noise)."""
+    f = torch.arange(nbin, dtype=FP) * fs / (2 * (nbin - 1))
+    out = []
+    for c in range(len(edges) - 1):
+        k = torch.nonzero((f >= edges[c]) & (f < edges[c + 1])).flatten()
+        out += [int(k[0]), int(k[-1]) + 1] if len(k) else [0, 0]
+    return tuple(out)
+
+
 def noise_mod_ola(cyc: torch.Tensor, edc: torch.Tensor, ar: torch.Tensor,
-                  ai: torch.Tensor, base: torch.Tensor,
-                  segs: torch.Tensor) -> torch.Tensor:
-    """Fused noise-band OLA + temporal-envelope modulation + band sum of a
-    batch: cyc [B, N*nhop] mod-1 cycle track; edc/base [B, N, C]; ar/ai
-    [B, N, C, Ke] (rotated, voicing-masked envelope coefficients);
-    segs [B, C, N, 2*nhop] per-band WOLA noise segments -> y [B, N*nhop]
-    = sum_c OLA(segs[:, c]) * max(env_c, 0) / max(base_c, 1e-8)."""
-    if not _on_cuda(cyc, edc, ar, ai, base, segs):
-        return noise_mod_ola_ref(cyc, edc, ar, ai, base, segs)
+                  ai: torch.Tensor, base: torch.Tensor, re: torch.Tensor,
+                  im: torch.Tensor, gain: torch.Tensor,
+                  bands: tuple) -> torch.Tensor:
+    """The noise part of a batch from its spectra: cyc [B, N*nhop] mod-1
+    cycle track; edc/base [B, N, C]; ar/ai [B, N, C, Ke] (rotated,
+    voicing-masked envelope coefficients); re, im [B, N, nbin] the
+    standard-normal spectra (one draw expanded to the batch, or a draw a
+    row), gain [B, N, nbin] the shaping gain, nbin = nhop + 1; bands each
+    band's bins [lo, hi) as 2 C ints (band_ranges) -> y [B, N*nhop] = sum_c OLA(seg_c) max(env_c, 0) /
+    max(base_c, 1e-8), seg_c each frame's windowed inverse real DFT of its
+    band's bins of (re scale, im scale') x gain (DC and Nyquist real).  One
+    launch on the card; no [B, C, N, 2 nhop] segment buffer."""
+    bands = tuple(int(v) for v in bands)
+    if not _on_cuda(cyc, edc, ar, ai, base, re, im, gain):
+        return noise_mod_ola_ref(cyc, edc, ar, ai, base, re, im, gain, bands)
     B, N, C, Ke = ar.shape
-    nhop = segs.shape[-1] // 2
+    nbin = gain.shape[-1]
+    nhop = nbin - 1
     if cyc.shape != (B, N * nhop) or edc.shape != (B, N, C) \
             or base.shape != (B, N, C) or ai.shape != ar.shape \
-            or segs.shape != (B, C, N, 2 * nhop):
+            or gain.shape != (B, N, nbin) or re.shape != gain.shape \
+            or im.shape != gain.shape or len(bands) != 2 * C:
         raise ValueError("noise_mod_ola: shape mismatch")
-    cyc, edc, ar, ai = _f32(cyc), _f32(edc), _f32(ar), _f32(ai)
-    base, segs = _f32(base), _f32(segs)
+    if not all(0 <= lo <= hi <= nbin for lo, hi in zip(bands[::2],
+                                                        bands[1::2])):
+        raise ValueError(f"noise_mod_ola: band ranges {bands} outside "
+                         f"0..{nbin}")
+    if not (1 <= nhop <= _NOISE_MAX_HOP and 1 <= C <= _NOISE_MAX_C
+            and Ke <= _NOISE_MAX_KE):
+        raise ValueError(f"noise_mod_ola: nhop {nhop}, C {C}, Ke {Ke} (at "
+                         f"most {_NOISE_MAX_HOP}, {_NOISE_MAX_C}, "
+                         f"{_NOISE_MAX_KE})")
+    # one draw for the whole batch keeps its [N, nbin] storage: batch
+    # stride 0; otherwise a draw a row
+    if B > 1 and re.stride(0) == 0 and im.stride(0) == 0:
+        spec, bstride = (_f32(re[0]), _f32(im[0])), 0
+    else:
+        spec, bstride = (_f32(re), _f32(im)), N * nbin
+    cyc, edc, ar, ai, base, gain = map(_f32, (cyc, edc, ar, ai, base, gain))
     y = torch.empty((B, N * nhop), dtype=FP, device=cyc.device)
-    ptrs = (t.data_ptr() for t in (cyc, edc, ar, ai, base, segs, y))
-    _launch("noise_mod_ola", *ptrs, B, N, nhop, C, Ke, _stream(cyc))
+    ranges = (ctypes.c_int * (2 * C))(*bands)       # read at the launch
+    _launch("noise_mod_ola", cyc.data_ptr(), edc.data_ptr(), ar.data_ptr(),
+            ai.data_ptr(), base.data_ptr(), spec[0].data_ptr(),
+            spec[1].data_ptr(), bstride, gain.data_ptr(),
+            ctypes.addressof(ranges), y.data_ptr(), B, N, nhop, C, Ke,
+            _stream(cyc))
+    return y
+
+
+def _band_segments(shaped_spec: torch.Tensor, masks: torch.Tensor,
+                   w: torch.Tensor, T: int) -> torch.Tensor:
+    """Windowed per-band time segments [B, C, N, T] from the shaped noise
+    spectra [B, N, nbin]: the inverse real DFT as one contraction with the
+    synthesis window and band masks folded into the matrix (JAX
+    layer0._band_segments, matmul branch)."""
+    nbin = shaped_spec.shape[-1]
+    dev = shaped_spec.device
+    b = torch.arange(nbin, dtype=torch.int64, device=dev)
+    t = torch.arange(T, dtype=torch.int64, device=dev)
+    # exact cycles mod 1 via integer arithmetic before trig
+    ang = 2.0 * math.pi * (torch.remainder(b[:, None] * t[None, :], T)
+                           .to(FP) / T)
+    wb = torch.full((nbin,), 2.0 / T, dtype=FP, device=dev)
+    wb[0] = wb[-1] = 1.0 / T
+    scale = wb[:, None] * w[None, :]                         # [nbin, T]
+    cos_c = masks[:, :, None] * (torch.cos(ang) * scale)     # [C, nbin, T]
+    sin_c = masks[:, :, None] * (torch.sin(ang) * scale)
+    return (torch.einsum("znb,cbt->zcnt", shaped_spec.real, cos_c)
+            - torch.einsum("znb,cbt->zcnt", shaped_spec.imag, sin_c))
+
+
+def noise_mod_ola_ref(cyc, edc, ar, ai, base, re, im, gain, bands):
+    """Plain version of noise_mod_ola: the shaped spectra (the JAX
+    package's layer0.py:1168-1175), the band iDFT (_band_segments) and the
+    OLA + modulation + band sum of the segments (layer0.py:1190-1195)."""
+    from .harmonics import overlap_add_half
+    nbin = gain.shape[-1]
+    nhop = nbin - 1
+    T = 2 * nhop
+    dev = cyc.device
+    scale = torch.full((nbin,), math.sqrt(T / 2.0), dtype=FP, device=dev)
+    scale[0] = scale[-1] = math.sqrt(float(T))
+    # the DC and Nyquist bins are real: their imaginary draws are dropped
+    im_scale = scale.clone()
+    im_scale[0] = im_scale[-1] = 0.0
+    shaped = torch.complex(re * scale, im * im_scale) * gain
+    k = torch.arange(nbin, device=dev)
+    masks = torch.stack([((k >= lo) & (k < hi)).to(FP)
+                         for lo, hi in zip(bands[::2], bands[1::2])])
+    # sqrt-Hann WOLA pair: perfect reconstruction at 50% overlap
+    w = torch.sqrt(0.5 - 0.5 * torch.cos(
+        2.0 * math.pi * (torch.arange(T, dtype=FP, device=dev) + 0.5) / T))
+    segs = _band_segments(shaped, masks, w, T)               # [B, C, N, T]
+    env, base_s = env_render_ref(cyc, edc, ar, ai, base, nhop)
+    y = torch.zeros_like(cyc)
+    for c in range(segs.shape[1]):
+        band_y = overlap_add_half(segs[:, c], nhop, cyc.shape[-1])
+        y = y + band_y * (env[:, c] / base_s[:, c])
     return y
 
 
@@ -353,19 +492,6 @@ def env_render_ref(cyc, edc, ar, ai, base, nhop: int | None = None):
     env = lerp(edc) + torch.sum(lerp(ar) * osc_c - lerp(ai) * osc_s, dim=-1)
     return (torch.clamp(env, min=0.0).transpose(1, 2),
             torch.clamp(lerp(base), min=1e-8).transpose(1, 2))
-
-
-def noise_mod_ola_ref(cyc, edc, ar, ai, base, segs):
-    """Plain version of noise_mod_ola (layer0.py:1190-1195)."""
-    from .harmonics import overlap_add_half
-    nhop = segs.shape[-1] // 2
-    nx = cyc.shape[-1]
-    env, base_s = env_render_ref(cyc, edc, ar, ai, base, nhop)
-    y = torch.zeros_like(cyc)
-    for c in range(segs.shape[1]):
-        band = overlap_add_half(segs[:, c], nhop, nx)
-        y = y + band * (env[:, c] / base_s[:, c])
-    return y
 
 
 # ---------------------------------------------------------------------------
@@ -850,3 +976,57 @@ def harmonic_project_mxu_ref(x, cyc, hw, max_k, nhop, hh, *,
     K = max_k
     return (out[..., 2:2 + K].contiguous(), out[..., 2 + K:].contiguous(),
             out[..., 0].contiguous(), out[..., 1].contiguous())
+
+
+# ---------------------------------------------------------------------------
+# cycle track (libllsm2_tpu/ops/harmonics.py: sample_cycles, an XLA scan;
+# no Pallas kernel)
+# ---------------------------------------------------------------------------
+
+def sample_cycles(f0: torch.Tensor, nhop: int, fs: float,
+                  nx: int) -> torch.Tensor:
+    """Fundamental phase in cycles mod 1 at every sample: f0 [..., N] ->
+    [..., nx], nx a multiple of nhop (see sample_cycles_ref for the
+    arithmetic).  On the card every sum runs in an order set by its row
+    alone, so a row's track does not depend on the rest of its batch."""
+    if nx % nhop:
+        raise ValueError("sample_cycles: nx must be a multiple of nhop")
+    if not _on_cuda(f0):
+        return sample_cycles_ref(f0, nhop, fs, nx)
+    N = f0.shape[-1]
+    if N < 2:
+        raise ValueError(f"sample_cycles: {N} frames (at least 2)")
+    f = _f32(f0).reshape(-1, N)
+    B = f.shape[0]
+    out = torch.empty((B, nx), dtype=FP, device=f.device)
+    hop = torch.empty((B, nx // nhop), dtype=torch.float64, device=f.device)
+    _launch("sample_cycles", f.data_ptr(), out.data_ptr(), hop.data_ptr(),
+            B, N, int(nhop), int(nx), float(fs), _stream(f))
+    return out.reshape(f0.shape[:-1] + (nx,))
+
+
+def sample_cycles_ref(f0: torch.Tensor, nhop: int, fs: float,
+                      nx: int) -> torch.Tensor:
+    """Plain version of sample_cycles.  F0 is linearly interpolated between
+    frame centers (i*nhop) and integrated in two levels: a float32 cumsum
+    within each hop (a few cycles, exact enough) plus a prefix sum of the
+    per-hop totals.  That prefix sum is taken in float64 and reduced mod 1
+    (the JAX package uses a mod-1 associative scan): a float32 cumsum over
+    1600 hops would lose ~1e-4 cycles.  Integer cycles are irrelevant
+    downstream."""
+    if nx % nhop:
+        raise ValueError("sample_cycles: nx must be a multiple of nhop")
+    n = f0.shape[-1]
+    dev = f0.device
+    f0s = torch.where(f0 > 0, f0, torch.zeros_like(f0))
+    pos = torch.arange(nx, dtype=FP, device=dev) / nhop
+    i0 = torch.clamp(torch.floor(pos).to(torch.int64), 0, n - 2)
+    t = torch.clamp(pos - i0, 0.0, 1.0)
+    f0_samp = f0s[..., i0] * (1.0 - t) + f0s[..., i0 + 1] * t
+    d = f0_samp / fs
+    within = torch.cumsum(d.reshape(d.shape[:-1] + (-1, nhop)), dim=-1)
+    tot = torch.remainder(within[..., -1], 1.0).to(torch.float64)
+    off = torch.remainder(torch.cumsum(tot, dim=-1), 1.0).to(FP)
+    off = torch.cat([torch.zeros_like(off[..., :1]), off[..., :-1]], dim=-1)
+    c = torch.remainder(off[..., None] + within, 1.0).reshape(d.shape)
+    return torch.cat([torch.zeros_like(c[..., :1]), c[..., :-1]], dim=-1)

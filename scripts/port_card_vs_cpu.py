@@ -44,7 +44,8 @@ STAGES = [(harmonics, "refine_f0"), (harmonics, "sample_cycles"),
           (harmonics, "harmonic_analysis"), (layer0, "_deconv_correction"),
           (kernels, "denoise_stats"), (layer0, "_denoise_floor_stats"),
           (kernels, "denoise_apply"), (layer0, "_spectral_gate"),
-          (layer0, "_track_denoise"), (kernels, "osc_bank")]
+          (layer0, "_track_denoise"), (kernels, "osc_bank"),
+          (layer0, "_band_envelopes")]
 
 
 def _move(v, dev):

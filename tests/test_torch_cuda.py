@@ -57,6 +57,55 @@ def _render_inputs(K, notch, B=2, Nf=N // 2, nhop=80):
     return cyc, ampl, phse, mask, x
 
 
+def _deconv_inputs(nhop, seed, B=2, Nf=N, K=80):
+    """B utterances for deconv_full at hop nhop: ampl, phse, mask [B, Nf, K]
+    (~10% dead slots, unvoiced (zero) frames at both ends of each row, the
+    amplitudes masked), the mod-1 cycle track cyc [B, Nf*nhop] (its F0
+    different by row) and halfwidths hw [B, Nf] up to 458 samples."""
+    cyc = _win_inputs(nhop, 2 * nhop, seed, B=B, Nf=Nf)[1]
+    rng = np.random.default_rng(seed)
+    mask = (rng.uniform(size=(B, Nf, K)) > 0.1).astype(np.float32)
+    mask[0, :12] = mask[0, -20:] = 0.0
+    mask[-1, :3] = mask[-1, -9:] = 0.0
+    ampl = rng.uniform(0, 1, (B, Nf, K)).astype(np.float32) * mask
+    phse = rng.uniform(-3, 3, (B, Nf, K)).astype(np.float32) * mask
+    hw = rng.uniform(30, 458, (B, Nf)).astype(np.float32)
+    return ampl, phse, cyc, hw, mask
+
+
+def _noise_inputs(nhop, per_row, seed, B=2, Nf=N, C=4, Ke=4):
+    """B utterances for noise_mod_ola at hop nhop (fs = 200 nhop): cyc
+    [B, Nf*nhop] (its F0 different by row), edc/base [B, Nf, C], ar/ai
+    [B, Nf, C, Ke], the standard-normal spectra re, im [B, Nf, nbin] (one
+    [Nf, nbin] draw expanded to the batch, or with per_row a draw a row),
+    gains [B, Nf, nbin] and the band ranges of the default channel edges at
+    that rate -> (cyc, edc, ar, ai, base, re, im, gain), bands, fs."""
+    from libllsm2_tpu_torch.config import ChunkConf
+    cyc = _win_inputs(nhop, 2 * nhop, seed, B=B, Nf=Nf)[1]
+    rng = np.random.default_rng(seed)
+    nbin = nhop + 1
+    edc = rng.uniform(0, 1, (B, Nf, C)).astype(np.float32)
+    ar = rng.uniform(-0.3, 0.3, (B, Nf, C, Ke)).astype(np.float32)
+    ai = rng.uniform(-0.3, 0.3, (B, Nf, C, Ke)).astype(np.float32)
+    base = rng.uniform(0.5, 1.5, (B, Nf, C)).astype(np.float32)
+    shape = (B, Nf, nbin) if per_row else (1, Nf, nbin)
+    re, im = (np.broadcast_to(rng.standard_normal(shape).astype(np.float32),
+                              (B, Nf, nbin)) for _ in range(2))
+    gain = rng.uniform(0, 1, (B, Nf, nbin)).astype(np.float32)
+    fs = 200.0 * nhop
+    bands = kernels.band_ranges(nbin, fs, ChunkConf(fs=fs).chan_edges)
+    return (cyc, edc, ar, ai, base, re, im, gain), bands, fs
+
+
+def _noise_tensors(args, dev="cpu"):
+    """_noise_inputs' arrays as tensors; an expanded draw stays expanded."""
+    ts = [T(np.ascontiguousarray(a)).to(dev) for a in args]
+    for i in (5, 6):
+        if args[i].strides[0] == 0:
+            ts[i] = ts[i][:1].expand_as(ts[7])
+    return ts
+
+
 def _stats_inputs(Nf, K, seed, complex_input):
     """One utterance of denoise_stats inputs (a, p, cyc_c, mask, voiced):
     mod-1 cycles, ~10% dead slots, unvoiced at both ends."""
@@ -113,16 +162,11 @@ def test_cuda_kernels_match_plain_on_card():
     for g, r in zip(kernels.harmonic_project_win(*args, 80, lo, hi, **kw),
                     kernels.harmonic_project_win_ref(*args, 80, lo, hi, **kw)):
         torch.testing.assert_close(g, r, atol=2e-3, rtol=1e-5)
-    a = torch.rand(2, N, 80, device=dev)
-    cyc_c, hw = torch.rand(2, N, device=dev), 30 + 400 * torch.rand(2, N, device=dev)
-    ang = 6.3 * torch.rand(2, N, 20, device=dev)
-    d_args = (a, 6 * a - 3, cyc_c, hw, torch.cos(ang), torch.sin(ang), 7, 80, 8)
+    d_args = tuple(T(a).to(dev) for a in _deconv_inputs(80, 1)) + (7, 80, 8)
     for g, r in zip(kernels.deconv_full(*d_args), kernels.deconv_full_ref(*d_args)):
         torch.testing.assert_close(g, r, atol=5e-4, rtol=0)
-    e = torch.rand(2, N, 4, device=dev)
-    n_args = (torch.rand(2, N * 80, device=dev), e, 0.3 * torch.rand(2, N, 4, 4, device=dev),
-              0.3 * torch.rand(2, N, 4, 4, device=dev), e + 0.5,
-              torch.randn(2, 4, N, 160, device=dev))
+    n_args, bands, _ = _noise_inputs(80, False, 2)
+    n_args = _noise_tensors(n_args, dev) + [bands]
     torch.testing.assert_close(kernels.noise_mod_ola(*n_args),
                                kernels.noise_mod_ola_ref(*n_args),
                                atol=5e-5, rtol=0)
@@ -392,6 +436,107 @@ def test_env_render_kernel_matches_plain_on_card(cut):
     assert env.shape == (B, C, Nf * nhop - cut)
     torch.testing.assert_close(env, env_r, atol=2e-5, rtol=0)
     torch.testing.assert_close(base, base_r, atol=2e-6, rtol=0)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("nhop,polar,Nf", [(80, False, N), (80, True, 301),
+                                           (55, False, N), (160, False, 130)])
+def test_deconv_full_kernel_matches_plain_on_card(nhop, polar, Nf):
+    """The quadrature field, centre cycles and mask from the cycle track in
+    the kernel, at the 16 kHz, 11 kHz and 32 kHz hops, ragged 64-frame
+    tiles: the masked (re, im) within 5e-4 (test_pallas.py's), or the polar
+    track compared as |c| e^{j angle c}."""
+    dev = _card()
+    args = tuple(T(a).to(dev) for a in _deconv_inputs(nhop, nhop, Nf=Nf))
+    kernels.reset_launches()
+    got = kernels.deconv_full(*args, 7, nhop, 8, return_complex=not polar)
+    ref = kernels.deconv_full_ref(*args, 7, nhop, 8, return_complex=not polar)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["deconv_full"] == 1
+    z = (lambda p: torch.polar(*p)) if polar else (lambda p: torch.complex(*p))
+    torch.testing.assert_close(z(got), z(ref), atol=5e-4, rtol=0)
+
+
+@pytest.mark.requires_cuda
+def test_deconv_full_largest_band_on_card():
+    """D = 56, the widest band whose block fits the shared memory at K = 80,
+    against the twin (5e-4); D = 57 is refused by the wrapper, not by a
+    failed launch."""
+    dev = _card()
+    args = tuple(T(a).to(dev) for a in _deconv_inputs(80, 3, Nf=130))
+    got = kernels.deconv_full(*args, 56, 80, 8)
+    ref = kernels.deconv_full_ref(*args, 56, 80, 8)
+    torch.testing.assert_close(torch.complex(*got), torch.complex(*ref),
+                               atol=5e-4, rtol=0)
+    with pytest.raises(ValueError, match="shared memory"):
+        kernels.deconv_full(*args, 57, 80, 8)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("nhop,per_row,Nf", [(80, False, N), (80, True, 301),
+                                             (55, False, N), (160, True, 47)])
+def test_noise_mod_ola_kernel_matches_plain_on_card(nhop, per_row, Nf):
+    """The band iDFT, OLA, modulation and band sum in one launch against
+    the twin's segments, 5e-5 (test_pallas.py's): one draw expanded to the
+    batch (stride 0) and a draw a row, hops 80, 55 (an empty band) and 160,
+    frame counts off the 15-hop tile."""
+    dev = _card()
+    args, bands, _ = _noise_inputs(nhop, per_row, nhop, Nf=Nf)
+    args = _noise_tensors(args, dev) + [bands]
+    kernels.reset_launches()
+    got = kernels.noise_mod_ola(*args)
+    ref = kernels.noise_mod_ola_ref(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["noise_mod_ola"] == 1
+    torch.testing.assert_close(got, ref, atol=5e-5, rtol=0)
+
+
+def _f0_rows(B, Nf, seed):
+    """B F0 tracks of Nf frames, 80-300 Hz, each with unvoiced stretches."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(Nf)[None, :]
+    f0 = 150.0 + 60.0 * np.sin(t / rng.uniform(20, 90, (B, 1))
+                               + rng.uniform(0, 6, (B, 1))) \
+        + rng.uniform(-40, 40, (B, 1))
+    f0[(t % 400) > rng.integers(300, 400, (B, 1))] = 0.0
+    return f0.astype(np.float32)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("nhop", [55, 80, 110, 160])
+def test_sample_cycles_kernel_matches_plain_on_card(nhop):
+    """The cycle-track kernel against its twin over 1600 hops, both mod 1:
+    wrapped |difference| <= 1e-4 cycles from the twin on the card (its
+    float32 scan), <= 1e-6 from the twin on the CPU, which sums in the
+    kernel's order."""
+    dev = _card()
+    f0 = T(_f0_rows(3, 1600, nhop))
+    kernels.reset_launches()
+    got = kernels.sample_cycles(f0.to(dev), nhop, 200.0 * nhop, 1600 * nhop)
+    ref = kernels.sample_cycles_ref(f0.to(dev), nhop, 200.0 * nhop,
+                                    1600 * nhop)
+    cpu = kernels.sample_cycles_ref(f0, nhop, 200.0 * nhop, 1600 * nhop)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["sample_cycles"] == 1
+    wrapped = lambda d: float((d - torch.round(d)).abs().max())
+    assert wrapped(got.double() - ref.double()) <= 1e-4
+    assert wrapped(got.cpu().double() - cpu.double()) <= 1e-6
+    assert float(got.min()) >= 0.0 and float(got.max()) < 1.0
+
+
+@pytest.mark.requires_cuda
+def test_sample_cycles_rows_do_not_depend_on_the_batch_on_card():
+    """A row's cycle track on the card is the same, bit for bit, alone, in
+    a 128-row batch and in that batch permuted."""
+    dev = _card()
+    f0 = T(_f0_rows(128, 1600, 7)).to(dev)
+    perm = torch.randperm(128, generator=torch.Generator().manual_seed(1))
+    whole = kernels.sample_cycles(f0, 80, 16000.0, 128000)
+    permuted = kernels.sample_cycles(f0[perm.to(dev)], 80, 16000.0, 128000)
+    for r in (0, 1, 64, 127):
+        alone = kernels.sample_cycles(f0[r:r + 1], 80, 16000.0, 128000)
+        assert torch.equal(alone[0], whole[r])
+    assert torch.equal(permuted, whole[perm.to(dev)])
 
 
 @pytest.mark.requires_cuda

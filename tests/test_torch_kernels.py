@@ -19,7 +19,8 @@ from libllsm2_tpu_torch.ops import harmonics as thm
 
 torch.set_num_threads(1)
 
-from test_torch_cuda import N, T, _render_inputs, _win_inputs
+from test_torch_cuda import (N, T, _deconv_inputs, _noise_inputs,
+                             _noise_tensors, _render_inputs, _win_inputs)
 
 
 def _frames_np(x, cyc, Nf, nhop, C):
@@ -166,46 +167,89 @@ def test_harmonic_analysis_matches(envelope):
                                        atol=1e-5 * np.abs(x).max())
 
 
-def test_deconv_full_plain_matches_pallas():
+def _jax_eq(cyc, Nf, nhop, stride):
+    """The JAX caller's quadrature field of one utterance's cycle track
+    (layer0.py:229-233): e^{2 pi j cyc} at frame_hops(mode="edge")'s
+    stride points -> (cos, sin) [Nf, nq]."""
+    nq = 2 * nhop // stride
+    C2 = jhm.frame_hops(jnp.asarray(cyc), Nf, nhop, 1, mode="edge")
+    ang = 2.0 * jnp.pi * C2[:, stride // 2::stride][:, :nq]
+    return jnp.cos(ang), jnp.sin(ang)
+
+
+@pytest.mark.parametrize("nhop,polar", [(80, False), (80, True),
+                                        (55, False)])
+def test_deconv_full_plain_matches_pallas(nhop, polar):
     """D = 7 (halfwin_max 458 at an 80-sample hop), two utterances with
     unvoiced (zero) frames at both ends of each: the plain version's frame
-    shifts must stay inside each utterance."""
-    rng = np.random.default_rng(9)
-    B, K, D, nhop, stride = 2, 80, 7, 80, 8
-    nq = 2 * nhop // stride
-    ampl = rng.uniform(0, 1, (B, N, K)).astype(np.float32)
-    ampl[0, :12] = ampl[0, -20:] = 0.0
-    ampl[1, :3] = ampl[1, -9:] = 0.0
-    phse = rng.uniform(-3, 3, (B, N, K)).astype(np.float32)
-    cyc_c = rng.uniform(0, 1, (B, N)).astype(np.float32)
-    hw = rng.uniform(30, 458, (B, N)).astype(np.float32)
-    ang = rng.uniform(0, 2 * np.pi, (B, N, nq))
-    eq_re, eq_im = np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)
-    re, im = kernels.deconv_full(*map(T, (ampl, phse, cyc_c, hw, eq_re, eq_im)),
-                                 D, nhop, stride)
-    z = re.numpy() + 1j * im.numpy()
+    shifts must stay inside each utterance.  JAX's quadrature field comes
+    from frame_hops(..., "edge") of the same cycle track, as its caller
+    makes it; the mask after; polar: (|c|, angle c) compared as |c| e^{j
+    angle c}, as the JAX caller's sqrt / arctan2."""
+    D, stride = 7, 8
+    ampl, phse, cyc, hw, mask = _deconv_inputs(nhop, 9 + nhop)
+    B, Nf, K = ampl.shape
+    got = kernels.deconv_full(*map(T, (ampl, phse, cyc, hw, mask)), D, nhop,
+                              stride, return_complex=not polar)
+    z = (got[0].numpy() * np.exp(1j * got[1].numpy()) if polar
+         else got[0].numpy() + 1j * got[1].numpy())
     for b in range(B):
         rj, ij = pallas_osc.deconv_full_pallas(
-            *(jnp.asarray(a[b]) for a in (ampl, phse, cyc_c, hw, eq_re, eq_im)),
-            D, nhop, stride)
-        np.testing.assert_allclose(z[b], np.asarray(rj) + 1j * np.asarray(ij),
-                                   atol=5e-4)
+            *(jnp.asarray(a[b]) for a in (ampl, phse)),
+            jnp.asarray(cyc[b, ::nhop]), jnp.asarray(hw[b]),
+            *_jax_eq(cyc[b], Nf, nhop, stride), D, nhop, stride)
+        zj = (np.asarray(rj) + 1j * np.asarray(ij)) * mask[b]
+        if polar:
+            zj = np.abs(zj) * np.exp(1j * np.angle(zj))
+        np.testing.assert_allclose(z[b], zj, atol=5e-4)
 
 
-def test_noise_mod_ola_plain_matches_pallas():
-    rng = np.random.default_rng(13)
-    B, C, Ke, nhop = 2, 4, 4, 80
-    cyc = rng.uniform(0, 1, (B, N * nhop)).astype(np.float32)
-    edc = rng.uniform(0, 1, (B, N, C)).astype(np.float32)
-    ar = rng.uniform(-0.3, 0.3, (B, N, C, Ke)).astype(np.float32)
-    ai = rng.uniform(-0.3, 0.3, (B, N, C, Ke)).astype(np.float32)
-    base = rng.uniform(0.5, 1.5, (B, N, C)).astype(np.float32)
-    segs = rng.standard_normal((B, C, N, 2 * nhop)).astype(np.float32)
-    got = kernels.noise_mod_ola(*map(T, (cyc, edc, ar, ai, base, segs)))
-    for b in range(B):
-        ref = pallas_osc.noise_mod_ola_pallas(
-            *(jnp.asarray(a[b]) for a in (cyc, edc, ar, ai, base, segs)))
-        np.testing.assert_allclose(got[b].numpy(), np.asarray(ref), atol=5e-5)
+def _jax_noise(args, band_edges, fs, b):
+    """Utterance b's noise part through the JAX package: its shaped
+    spectrum and band masks (layer0._synth_noise), _band_segments' matmul
+    branch and noise_mod_ola_pallas, in interpret mode."""
+    from libllsm2_tpu.models import layer0 as jl0
+    cyc, edc, ar, ai, base, re, im, gain = (np.asarray(a[b]) for a in args)
+    nbin = gain.shape[-1]
+    Tn = 2 * (nbin - 1)
+    w = jnp.sqrt(0.5 - 0.5 * jnp.cos(2.0 * jnp.pi * (jnp.arange(Tn) + 0.5)
+                                      / Tn)).astype(jnp.float32)
+    im = im.copy()
+    im[:, 0] = im[:, -1] = 0.0
+    scale = np.full((nbin,), np.sqrt(Tn / 2.0))
+    scale[0] = scale[-1] = np.sqrt(float(Tn))
+    spec = (jnp.asarray(re) + 1j * jnp.asarray(im)) * jnp.asarray(scale)
+    f = jnp.arange(nbin) * fs / Tn
+    masks = jnp.stack([((f >= band_edges[c]) & (f < band_edges[c + 1]))
+                       .astype(jnp.float32)
+                       for c in range(len(band_edges) - 1)])
+    segs = jl0._band_segments(spec * jnp.asarray(gain), masks, w, Tn,
+                              "matmul")
+    return np.asarray(pallas_osc.noise_mod_ola_pallas(
+        *(jnp.asarray(a) for a in (cyc, edc, ar, ai, base)), segs))
+
+
+@pytest.mark.parametrize("nhop,per_row,cut", [
+    (80, False, None),       # one draw expanded to the batch (stride 0)
+    (80, True, None),        # injected [B, N, nbin] bins, a draw a row
+    (55, False, None),       # 11 kHz: an empty band, the Nyquist bin in one
+    (80, False, (17, 40))])  # a frame_base-style slice of frames [17, 57)
+def test_noise_mod_ola_plain_matches_pallas(nhop, per_row, cut):
+    """The noise part from its spectra (band iDFT, OLA, modulation, band
+    sum) against the JAX package's _band_segments + noise_mod_ola_pallas
+    of the same spectra, 5e-5 absolute (test_pallas.py's); a slice of the
+    frames renders on its own."""
+    from libllsm2_tpu_torch.config import ChunkConf
+    args, bands, fs = _noise_inputs(nhop, per_row, 13 + nhop)
+    if cut:
+        i0, n = cut
+        args = tuple(a[:, i0 * nhop:(i0 + n) * nhop] if j == 0
+                     else a[:, i0:i0 + n] for j, a in enumerate(args))
+    got = kernels.noise_mod_ola(*_noise_tensors(args), bands)
+    edges = ChunkConf(fs=fs).chan_edges
+    for b in range(2):
+        np.testing.assert_allclose(got[b].numpy(),
+                                   _jax_noise(args, edges, fs, b), atol=5e-5)
 
 
 @pytest.mark.parametrize("B,N,C,ntaps,cplx", [
@@ -313,11 +357,12 @@ def test_cpu_tensors_never_reach_the_kernels(monkeypatch):
     kernels.harmonic_project_win(*map(T, (x, cyc, hw)), 4, T(lo), T(hi),
                                  nhop=20, center=C)
     a = torch.rand(1, 40, 8)
-    kernels.deconv_full(a, a, a[..., 0], a[..., 0] + 30, a[..., :4],
-                        a[..., :4], 2, 8, 4)
+    kernels.deconv_full(a, a, torch.rand(1, 40 * 8), a[..., 0] + 30, a, 2, 8,
+                        4)
     kernels.noise_mod_ola(torch.rand(1, 40 * 8), a[..., :2], a[..., :2, None],
                           a[..., :2, None], a[..., :2] + 1,
-                          torch.rand(1, 2, 40, 16))
+                          *torch.rand(3, 1, 40, 9), (0, 3, 3, 8))
+    kernels.sample_cycles(a[..., 0] * 200, 8, 1600.0, 40 * 8)
     kernels.fir_frames(a, (0.25, 0.5, 0.25))
     kernels.fir_frames((a, torch.complex(a, a)), (0.25, 0.5, 0.25))
     with pytest.raises(ValueError, match="one or a pair"):

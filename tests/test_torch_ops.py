@@ -122,6 +122,26 @@ def test_sample_cycles_frames_segments_match():
     np.testing.assert_array_equal(got[0].numpy(), np.asarray(ref))
 
 
+@pytest.mark.parametrize("nhop", [55, 80, 110, 160])
+def test_sample_cycles_twin_matches_and_rows_stand_alone(nhop):
+    """kernels.sample_cycles_ref (the plain twin of the cycle-track kernel)
+    against the JAX function over 100 hops at each hop size the port
+    renders, and a row's track from a 1-row call equal, bit for bit, to
+    the same row inside a 5-row call."""
+    from libllsm2_tpu_torch.ops import kernels
+    fs, n = 200.0 * nhop, 100
+    f0 = np.stack([jtestsig.make_f0_track(n, 0.005, f0_base=100.0 + 30 * r,
+                                          unvoiced_tail_frac=0.1 * (r % 2))
+                   for r in range(5)]).astype(np.float32)
+    got = kernels.sample_cycles_ref(T(f0), nhop, fs, n * nhop)
+    ref = np.asarray(jax.jit(jhm.sample_cycles, static_argnums=(1, 2, 3))(
+        jnp.asarray(f0[2]), nhop, fs, n * nhop))
+    _cycles_close(got[2].numpy(), ref, 1e-5)
+    for r in (0, 2, 4):
+        alone = kernels.sample_cycles_ref(T(f0[r:r + 1]), nhop, fs, n * nhop)
+        assert torch.equal(alone[0], got[r])
+
+
 @pytest.mark.parametrize("tail", [0.0, 0.3])
 def test_refine_f0_decimated_matches(tail):
     """The port's refine is the JAX package's decimated branch (the one
