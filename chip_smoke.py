@@ -37,23 +37,25 @@ non-zero without the final "ok" line:
      its operands from the same inputs (the dense oscillator / chirp
      basis, the banded windows, the FIR's layout, the band masks) timed
      with it.  The denoiser
-     kernels' other variants (apply without emit_resid, stats from (ampl,
-     phse) = (|c|, angle c) of the captured complex track) and the polar
-     output of deconv_full run on the same inputs.
+     kernels' other variants (apply's polar output, the time gate alone;
+     stats from (ampl, phse) = (|c|, angle c) of the captured complex
+     track), denoise_apply's second launch (denoise_finish: the spectral
+     gate's delta added, un-aligned, polar, masked) on its captured call,
+     and the polar output of deconv_full run on the same inputs.
   4. denoiser off: batched_pipeline on 32 bench rows (16 noisy, 16 clean;
      ChunkConf(f0_floor=70), track_denoise=False, use_pallas=True) after
      zeroing the launch counters; its four kernels and the noise draw must
      have launched, the clean rows must reach 55.17 dB, noisy rows 0 and 1
-     must lie within 0.05 dB of the JAX package's values.  Then the step
-     time (median of 5).
+     must lie within 0.05 dB of the JAX package's values.  Then, after
+     one untimed step, the step time (median of 5; phases 5-7 alike).
   5. main path, the library default (create_aoptions(f0_floor=70,
      use_pallas=True): denoiser on, spectral gate at decimation 4) on all
      128 rows x 8 s after zeroing the launch counters: all six kernels,
      fir_frames, noise_bins and sample_cycles must have launched, clean
      rows >= 55.17 dB,
      noisy rows 0 and 1 within 0.05 dB and clean row 64 at most 0.1 dB
-     under the JAX package's values.  Then the step time (median of 5) and peak
-     memory, each of the step's two harmonic_analysis calls (the K = 80
+     under the JAX package's values (denoise_finish launched too).  Then
+     the step time (median of 5) and peak memory, each of the step's two harmonic_analysis calls (the K = 80
      main pass, the K = 4 envelope pass) and its two harmonic renders (the
      residual and the synthesis: one osc_bank launch each) at full batch,
      framing, window and glue included (median of 10), the analysis and
@@ -61,13 +63,16 @@ non-zero without the final "ok" line:
      takes above its inputs, and each analysis and synthesis stage's
      synchronized time and peak (the synthesis: sample_cycles, the render,
      _synth_noise split into noise_mod_ola and the shaping before it).
-     Rows 0, 1 and 64 run alone: every sample_cycles call's rows must
-     equal, bit for bit, the same rows of the 128-row run wherever their
+     Rows 0, 1 and 64 run alone, each a batch of one: every field of
+     their analysis chunk and their y, y_sin and y_nos must equal, bit for
+     bit, the same rows of the 128-row run, as must every sample_cycles call's rows wherever their
      F0 rows are equal, and the kernel on the bench F0 rows alone must
      equal its rows in the batch; both runs' SNRs printed.
   6. hm_kernel="matmul" at the library default, all 128 rows x 8 s: the
      main harmonic pass through harmonic_project_mxu (launched), the pins
-     of phase 5; prints the SNR change from phase 5, then step and peak.
+     of phase 5; prints harmonic_project_mxu's full-batch time beside its
+     bound and its yardstick, the SNR change from phase 5, then the five
+     steps, their median and the peak.
   7. odd hop: create_aoptions(fs=11000, f0_floor=70, use_pallas=True) and
      create_soptions(fs=11000) on 128 rows x 8 s of the bench fixtures
      made at 11 kHz (hop 55: undecimated refine through harmonic_project,
@@ -102,12 +107,15 @@ non-zero without the final "ok" line:
 Phases 5, 6, 7 and 9 also time every call of each of their kernels in
 the counted run at full batch (median of 10, and a launch's share of a
 run of 20 back-to-back launches: the device time where the host enqueues
-faster than the card runs), beside its bound, and fir_frames beside its
-conv1d yardstick.  The line before the last is
+faster than the card runs), beside its bound and, where one exists, its
+PyTorch yardstick on the same inputs (where its operands do not fit in the
+card's memory, timed on the first 1/2, 1/4, ... of the rows and scaled,
+which the line says).  The line before the last is
 the kernels' JSON summary: launches from the phase that runs each (5 for
 the six, fir_frames, noise_bins and sample_cycles, 6 for
 harmonic_project_mxu, 7 for
-harmonic_project, 9 for env_render); ms, plain_ms, library_ms and
+harmonic_project, 9 for env_render; denoise_apply also "finish_launches"
+and "finish_full_batch" for its second launch); ms, plain_ms, library_ms and
 bound_ms at the first 2-row call of phase 3; "full_batch" a record per
 call at full batch ("analysis_calls" on harmonic_project_win and
 "render_calls" on osc_bank: phase 5's two harmonic_analysis calls and two
@@ -227,8 +235,12 @@ SAMPLE_CYCLES_CPU_TOL = 1e-6
 MAIN_SIX = tuple(KERNELS)[:6]     # the library-default path's CUDA kernels
 # ... and its frame-axis FIR, noise draw and cycle track
 MAIN = MAIN_SIX + ("fir_frames", "noise_bins", "sample_cycles")
-BATCH_ROWS = (0, 1, 64)           # phase 5: rows whose cycle tracks must not
-                                  # depend on the batch
+# denoise_apply's second launch (the finish after the spectral gate), a
+# wrapper of its own in denoise_apply.cu, checked under denoise_apply
+FINISH = "denoise_finish"
+PATH = MAIN + (FINISH,)           # every wrapper the main path launches
+BATCH_ROWS = (0, 1, 64)           # phase 5: rows whose analysis and output
+                                  # must not depend on the batch
 
 
 class PhaseError(Exception):
@@ -276,6 +288,8 @@ def track_scale(torch, name, args, kw, ref):
                    for v in _tensors(torch, args[:1]))
     if name == "denoise_stats" and not kw.get("complex_input"):
         return float(torch.max(torch.abs(args[0])))
+    if name == FINISH:                      # the aligned track, complex
+        return float(torch.max(torch.abs(args[0])))
     return float(torch.max(torch.hypot(args[0], args[1])))
 
 
@@ -312,11 +326,12 @@ def max_err(torch, name, got, ref, scale=1.0, kw=None):
         if not (torch.equal(got[2], ref[2]) and torch.equal(got[3], ref[3])):
             return float("inf")
         got, ref = got[:2], ref[:2]
-    if name == "denoise_apply":
-        errs = [cplx(got[i:i + 2], ref[i:i + 2]) for i in range(0, len(got), 2)]
-        if len(errs) == 3:
-            errs[2] *= scale
-        return max(errs)
+    if name in ("denoise_apply", FINISH):
+        if got[0].is_complex():              # (a, full), aligned
+            return max(float(torch.max(torch.abs(g - r)))
+                       for g, r in zip(got, ref))
+        return float(torch.max(torch.abs(torch.polar(*got)    # (ampl, phse)
+                                         - torch.polar(*ref))))
     got = (got,) if torch.is_tensor(got) else got
     ref = (ref,) if torch.is_tensor(ref) else ref
     return max(float(torch.max(torch.abs(g - r))) for g, r in zip(got, ref))
@@ -325,7 +340,7 @@ def max_err(torch, name, got, ref, scale=1.0, kw=None):
 def variants(torch, name, args, kw):
     """The non-default variants of a captured denoiser call."""
     if name == "denoise_apply":
-        return [("emit_resid=False", args, dict(kw, emit_resid=False))]
+        return [("spectral=False (polar)", args, dict(kw, spectral=False))]
     if name == "deconv_full":
         return [("polar", args, dict(kw, return_complex=False))]
     if name == "denoise_stats":
@@ -388,9 +403,15 @@ def kernel_ops(torch, name, args, kw):
         live = kl.float() if kl is not None else float(K)
         return 10.0 * float(((hi - lo).float() * live).sum())
     if name == "harmonic_project_mxu":       # x, cyc, hw, K, nhop, hh
+        # the banded product W G: 2 FMAs (4) a window sample a column pair
+        # (the K harmonics, the ones and x); G: a complex product and two
+        # multiplies by x (8) a harmonic a sample of the signal; the centre
+        # rotation (6) a harmonic a frame
         reach = a[5] * a[4]
         span = torch.clamp(2 * torch.ceil(a[2]) + 1, max=2 * reach + 1)
-        return 10.0 * a[3] * float(span.sum())
+        B, N = a[2].shape
+        return (4.0 * (a[3] + 1) * float(span.sum())
+                + 8.0 * a[3] * a[0].numel() + 6.0 * a[3] * B * N)
     if name == "deconv_full":   # ampl, phse, cyc, hw, mask, D, nhop, stride
         # a slot: the banded step (2D+1 taps x 3 complex terms, 24), its
         # alignment and un-alignment (a sincos and a complex product each,
@@ -424,7 +445,13 @@ def kernel_ops(torch, name, args, kw):
     if name == "denoise_stats":
         return float(a[0].numel()) * (4.0 * len(a[5]) + 4.0 * len(a[6]) + 40.0)
     if name == "denoise_apply":
-        return float(a[0].numel()) * 40.0
+        # a slot: the fit and gate (~40); the polar mode also un-aligns (a
+        # sincos and a complex product, 20), takes sqrt and atan2 (30) and
+        # masks (2)
+        return float(a[0].numel()) * (40.0 if kw.get("spectral") else 92.0)
+    if name == FINISH:
+        # a slot: the delta's add (2), un-align (20), polar (30), mask (2)
+        return float(a[0].numel()) * 54.0
     if name == "fir_frames":
         n = sum(v.numel() * (2 if v.is_complex() else 1)
                 for v in _tensors(torch, a[:1]))
@@ -643,8 +670,11 @@ def check_kernel(torch, kernels, name, tol, args, kw, label, library=False):
 
 def full_batch(torch, kernels, calls, label):
     """Every captured call of each kernel at full batch, timed alone
-    (median of 10) beside its bound, fir_frames also beside its conv1d
-    yardstick (its operands fit at full batch) -> {name: [record per
+    (median of 10) beside its bound and, where one exists, its PyTorch
+    yardstick (library_call) on the same inputs: where the yardstick's
+    operands do not fit in the card's memory it runs on the first half,
+    quarter, ... of the rows and its time is scaled by the fraction left
+    out; fir_frames also beside its host path -> {name: [record per
     call]}."""
     out = {}
     for name in calls:
@@ -656,14 +686,16 @@ def full_batch(torch, kernels, calls, label):
             run = run_ms(torch, lambda: fn(*args, **kw), 20)
             bound_ms, bound_by = bound(torch, name, args, kw, got)
             del got
-            library_ms = host_ms = None
+            library_ms, scale = library_full(torch, name, args, kw)
+            host_ms = None
             extra = ""
+            if library_ms is not None:
+                extra = f" library {library_ms:.4f} ms" + (
+                    "" if scale == 1 else f" (timed on 1/{scale} of the rows, "
+                    f"x{scale}: its operands do not fit at full batch)")
             if name == "fir_frames":
-                library_ms = cuda_ms(torch, library_call(torch, name, args,
-                                                         kw), 10)
                 host_ms = host_call_ms(torch, lambda: fn(*args, **kw), 50)
-                extra = (f" (host path {host_ms:.4f} ms a call) library "
-                         f"{library_ms:.4f} ms")
+                extra = f" (host path {host_ms:.4f} ms a call)" + extra
             shapes = _shapes(torch, args)
             print(f"full batch {label} {name}[{i}]: shapes {shapes[:2]} "
                   f"kernel {ms:.4f} ms{extra} bound {bound_ms:.4f} ms "
@@ -672,9 +704,47 @@ def full_batch(torch, kernels, calls, label):
             out[name].append({"phase": label, "call": i,
                               "shapes": shapes[:2], "ms": ms, "run_ms": run,
                               "bound_ms": bound_ms, "bound_by": bound_by,
-                              "library_ms": library_ms, "host_ms": host_ms})
+                              "library_ms": library_ms,
+                              "library_row_fraction": None if library_ms
+                              is None else 1.0 / scale, "host_ms": host_ms})
     torch.cuda.empty_cache()
     return out
+
+
+def _first_rows(torch, v, part):
+    """v with each tensor cut to the first 1/part of its leading axis
+    (tuples and lists inside cut too)."""
+    if torch.is_tensor(v):
+        return v[:v.shape[0] // part] if v.dim() else v
+    if isinstance(v, (tuple, list)):
+        return type(v)(_first_rows(torch, u, part) for u in v)
+    return v
+
+
+def library_full(torch, name, args, kw):
+    """-> (ms, scale): the PyTorch yardstick of one call at full batch
+    (median of 10), or where it runs out of device memory on the first
+    1/scale of the rows (scale 2, 4, ...: every input's leading axis cut
+    alike), its time times scale; (None, 1) where there is none."""
+    scale = 1
+    while True:
+        part_args = _first_rows(torch, args, scale)
+        part_kw = {k: _first_rows(torch, v, scale) for k, v in kw.items()}
+        ms = None
+        try:
+            call = library_call(torch, name, part_args, part_kw)
+            if call is None:
+                return None, 1
+            ms = cuda_ms(torch, call, 10)
+        except torch.cuda.OutOfMemoryError:
+            lead = min(t.shape[0] for t in _tensors(torch, args) if t.dim())
+            if lead // (2 * scale) < 1:
+                raise
+        call = None
+        torch.cuda.empty_cache()    # after the handler: its frames are gone
+        if ms is not None:
+            return ms * scale, scale
+        scale *= 2
 
 
 def run_ms(torch, fn, reps):
@@ -796,7 +866,8 @@ def run_path(torch, kernels, corpus, label, opt, sopt, data, pins, need,
     pins (noisy rows within noisy_tol of theirs, clean rows at most
     CLEAN_TOL_DB under theirs, the clean mean >= clean_min unless None);
     time each `timed` kernel at full batch on its first call (full_batch);
-    then the step time (median of 5) and peak memory.  -> (the launch
+    then, after one untimed step, the step time (median of 5) and peak
+    memory.  -> (the launch
     counts, the per-row SNRs, the full-batch records)."""
     x, f0, x_ref, nxv = data
     B = x.shape[0]
@@ -817,6 +888,10 @@ def run_path(torch, kernels, corpus, label, opt, sopt, data, pins, need,
     del calls
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    # one step first: the yardsticks above emptied the allocator's cache,
+    # and the first step after that refills it from cudaMalloc
+    corpus.batched_pipeline(opt, sopt, x, f0, nxv, x_ref)
+    torch.cuda.synchronize()
     steps = []
     for _ in range(5):
         t0 = time.perf_counter()
@@ -934,7 +1009,7 @@ def layer1_round_trip(torch, kernels, mods, opt, sopt, data):
     kernels.reset_launches()
     out, _ = staged(torch, stages)
     launches = dict(kernels.LAUNCHES)
-    phase("9 layer1 launches", all(launches[k] > 0 for k in MAIN),
+    phase("9 layer1 launches", all(launches[k] > 0 for k in PATH),
           str(launches))
     phase("9 layer1 output", tuple(out.y.shape) == tuple(x.shape)
           and bool(torch.isfinite(out.y).all()),
@@ -1137,35 +1212,60 @@ def stage_times(torch, hooks, run, reps=3):
              for k in runs[0]}, peaks)
 
 
-def batch_rows(torch, kernels, corpus, opt, sopt, data, snr_whole):
-    """Phase 5: rows BATCH_ROWS of the bench batch alone (a batch of those
-    rows) and in the whole batch, every kernels.sample_cycles call's input
-    and output rows compared bit for bit; prints both runs' SNRs of those
-    rows (the whole batch's from the counted run, snr_whole)."""
+def batch_rows(torch, mods, opt, sopt, data, snr_whole):
+    """Phase 5: rows BATCH_ROWS of the bench batch, each alone (a batch of
+    one) and in the whole batch: every field of their analysis chunk, their
+    y, y_sin and y_nos, and every kernels.sample_cycles call's input and
+    output rows compared bit for bit; prints both runs' SNRs of those rows
+    (the whole batch's from the counted run, snr_whole)."""
+    from libllsm2_tpu_torch.container import LAYER0_FIELDS
+    kernels, layer0, corpus = mods
     dev = data[0].device
 
     def record(d, pick):
-        log, fn = [], kernels.sample_cycles
+        log, fns = [], (kernels.sample_cycles, layer0._analyze,
+                        layer0._synthesize)
+        got = {}
 
         def rec(f0, *a, **kw):
-            out = fn(f0, *a, **kw)
+            out = fns[0](f0, *a, **kw)
             log.append((f0[pick].clone(), out[pick].clone()))
             return out
+
+        def analyze(*a, **kw):
+            chunk = fns[1](*a, **kw)
+            got.update({k: getattr(chunk, k)[pick].clone()
+                        for k in LAYER0_FIELDS})
+            return chunk
+
+        def synthesize(*a, **kw):
+            out = fns[2](*a, **kw)
+            got.update({k: getattr(out, k)[pick].clone()
+                        for k in ("y", "y_sin", "y_nos")})
+            return out
         kernels.sample_cycles = rec
+        layer0._analyze, layer0._synthesize = analyze, synthesize
         try:
             x, f0, x_ref, nxv = d
             _, snr, _ = corpus.batched_pipeline(opt, sopt, x, f0, nxv, x_ref)
         finally:
-            kernels.sample_cycles = fn
+            kernels.sample_cycles = fns[0]
+            layer0._analyze, layer0._synthesize = fns[1:]
         torch.cuda.synchronize()
-        return log, [round(float(v), 4) for v in snr[pick]]
+        return log, got, [round(float(v), 4) for v in snr[pick]]
 
     rows = torch.tensor(BATCH_ROWS, device=dev)
-    whole, _ = record(data, rows)
-    alone, snr_alone = record(tuple(v[rows] for v in data),
-                              torch.arange(len(BATCH_ROWS), device=dev))
-    same = [(torch.equal(a[0], w[0]), torch.equal(a[1], w[1]))
-            for a, w in zip(alone, whole)]
+    whole, got_whole, _ = record(data, rows)
+    same, fields, snr_alone = [], {k: True for k in got_whole}, []
+    for i, r in enumerate(BATCH_ROWS):   # each row alone: a batch of one
+        alone, got_alone, snr = record(tuple(v[r:r + 1] for v in data),
+                                       torch.zeros(1, dtype=torch.long,
+                                                   device=dev))
+        snr_alone += snr
+        same += [(torch.equal(a[0][0], w[0][i]), torch.equal(a[1][0], w[1][i]))
+                 for a, w in zip(alone, whole)]
+        for k in fields:
+            fields[k] &= torch.equal(got_alone[k][0], got_whole[k][i])
     # the kernel on the bench's F0 tracks: each row alone against its row
     # of the whole batch's call
     nhop, fs, nx = opt.conf.nhop, opt.conf.fs, data[0].shape[-1]
@@ -1173,11 +1273,13 @@ def batch_rows(torch, kernels, corpus, opt, sopt, data, snr_whole):
     direct = all(torch.equal(kernels.sample_cycles(data[1][r:r + 1], nhop,
                                                    fs, nx)[0], trk[r])
                  for r in BATCH_ROWS)
-    phase("5 cycle tracks alone = in the batch",
-          len(alone) == len(whole) > 0 and direct
-          and all(o for i, o in same if i),
-          f"rows {list(BATCH_ROWS)}: {len(same)} sample_cycles calls of the "
-          f"pipeline, (f0 rows equal, tracks equal) bit for bit: {same}; "
+    phase("5 rows alone = in the batch",
+          len(same) == len(BATCH_ROWS) * len(whole) > 0 and direct
+          and all(o for i, o in same if i) and len(fields) == 11
+          and all(fields.values()),
+          f"rows {list(BATCH_ROWS)}: every chunk field and output bit for "
+          f"bit: {fields}; {len(same)} sample_cycles calls of the "
+          f"pipeline, (f0 rows equal, tracks equal): {same}; "
           f"the kernel on the bench F0 rows alone = in the batch: {direct}; "
           f"SNR alone {snr_alone} dB, in the {BATCH}-row batch "
           f"{[round(snr_whole[r], 4) for r in BATCH_ROWS]} dB")
@@ -1333,7 +1435,7 @@ def main(argv):
 
     opt_lp = dataclasses.replace(opt, track_lowpass_hz=30.0)
     captures = [
-        ("", MAIN, lambda: corpus.batched_pipeline(opt, sopt, *two(data))),
+        ("", PATH, lambda: corpus.batched_pipeline(opt, sopt, *two(data))),
         ("lowpass ", ("fir_frames",),
          lambda: corpus.batched_pipeline(opt_lp, sopt, *two(data))),
         ("matmul ", ("harmonic_project_mxu",),
@@ -1346,16 +1448,19 @@ def main(argv):
     for prefix, names, run in captures:
         calls, _ = capture_kernel_inputs(kernels, names, run)
         for name in names:
-            tol = KERNELS[name][2]
+            # the finish is denoise_apply's second launch: its cases there
+            home = "denoise_apply" if name == FINISH else name
+            tol = KERNELS[home][2]
             if not calls[name]:
                 phase(f"3 {name}", False,
                       f"not called by {prefix or 'the main path'}")
             for i, (args, kw) in enumerate(calls[name]):
-                cases[name].append(check_kernel(
-                    torch, kernels, name, tol, args, kw, f"{prefix}{i}",
-                    library=not cases[name]))
+                label = f"finish {i}" if name == FINISH else f"{prefix}{i}"
+                cases[home].append(check_kernel(
+                    torch, kernels, name, tol, args, kw, label,
+                    library=not cases[home]))
                 for label, v_args, v_kw in variants(torch, name, args, kw):
-                    cases[name].append(check_kernel(torch, kernels, name, tol,
+                    cases[home].append(check_kernel(torch, kernels, name, tol,
                                                     v_args, v_kw, label))
         if "noise_mod_ola" in names:
             # env_render on the main path's envelope coefficients: the
@@ -1387,12 +1492,14 @@ def main(argv):
     # phase 5: the main path, the library default, on all 128 rows
     launches, snr5, f = run_path(torch, kernels, corpus, "5 library default",
                                  opt, sopt, data,
-                                 NOISY_PINS_DB["library default"], MAIN, MAIN,
+                                 NOISY_PINS_DB["library default"], PATH, PATH,
                                  noisy_tol=L0_NOISY_TOL_DB)
     for name in MAIN:
         summary[name]["launches"] = launches[name]
+    summary["denoise_apply"]["finish_launches"] = launches[FINISH]
+    summary["denoise_apply"]["finish_full_batch"] = f.pop(FINISH)
     full.update(f)
-    batch_rows(torch, kernels, corpus, opt, sopt, data, snr5)
+    batch_rows(torch, (kernels, layer0, corpus), opt, sopt, data, snr5)
     (summary["harmonic_project_win"]["analysis_calls"],
      summary["osc_bank"]["render_calls"]) = phase5_breakdown(
         torch, (harmonics, layer0, corpus, kernels), opt, sopt, data)

@@ -98,36 +98,94 @@ def _env_decimation(conf: ChunkConf, requested: int, nx: int) -> int:
     return 1
 
 
+# rows a call of the operations whose libraries (cuFFT plans, cuBLAS and
+# PyTorch's reduction configurations) choose their order of sums by the
+# row count: the envelope FFTs, the denoiser's frame sums and the
+# spectral gate's transforms and products run in groups of a fixed row
+# count, the last zero-padded, so every row meets the same order whatever
+# the batch.  A group costs a few launches and a padded row its work in
+# those operations, which grows as the frame count squared (the gate's DFT
+# products), so the count falls with the utterance's length: ROW_GROUP
+# rows up to ROW_GROUP_FRAMES frames (8 s at the 5 ms hop), a quarter as
+# many each time the frames double.  At 8 s on an H100
+# (scripts/port_row_groups.py; PERF.md) groups of 64 rows cost a 128-row
+# batch 0.4 ms over one call and a batch of one no measurable time; groups
+# of 16 cost the 128-row batch 2.8 ms.
+ROW_GROUP = 64
+ROW_GROUP_FRAMES = 1600
+
+
+def _group_rows(nfrm: int) -> int:
+    """Rows a call of the grouped stages for utterances of nfrm frames:
+    ROW_GROUP halved until G nfrm^2 <= ROW_GROUP ROW_GROUP_FRAMES^2, so a
+    batch of one pads at most about the work of ROW_GROUP 8 s rows."""
+    G = ROW_GROUP
+    while G > 1 and G * nfrm * nfrm > ROW_GROUP * ROW_GROUP_FRAMES ** 2:
+        G //= 2
+    return G
+
+
+def _row_groups(fn, t: torch.Tensor, rows: int) -> torch.Tensor:
+    """fn(t) over groups of exactly `rows` rows of t (its leading axis),
+    the last group zero-padded -> fn's output over t's rows, each row the
+    same whatever the batch and its place in it."""
+    outs = []
+    for r0 in range(0, t.shape[0], rows):
+        part = t[r0:r0 + rows]
+        n = part.shape[0]
+        if n < rows:
+            part = torch.cat([part, part.new_zeros((rows - n,)
+                                                   + part.shape[1:])])
+        outs.append(fn(part)[:n])
+    return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+
+def _frame_sums(t: torch.Tensor, rows: int) -> torch.Tensor:
+    """Sums over the frame axis (1) of t [B, N, ...] in groups of `rows`
+    rows."""
+    return _row_groups(lambda a: torch.sum(a, dim=1), t, rows)
+
+
 def _band_envelopes(residual: torch.Tensor, conf: ChunkConf,
-                    decimate: int = 1) -> torch.Tensor:
+                    decimate: int = 1, *,
+                    rows: int | None = None) -> torch.Tensor:
     """Per-channel temporal amplitude envelopes of the residual [B, nx]
     from the FFT-domain analytic signal -> [B, C, nx // decimate].  With
     D > 1 each band's one-sided spectrum is folded into an nfft/D grid (a
     coherent frequency shift, since the band lies in one alias window), so
-    |z| is exactly the full-rate envelope sampled every D samples."""
+    |z| is exactly the full-rate envelope sampled every D samples.  The
+    transforms run in groups of `rows` rows (default _group_rows of the
+    utterance's frames), so a row's envelopes do not depend on its
+    batch."""
     B, nx = residual.shape
     dev = residual.device
+    C = conf.nchannel
     nfft = spectral.next_pow2(nx)
-    X = torch.fft.fft(residual, n=nfft)
+    rows = rows or _group_rows(nx // conf.nhop)
+    # the bands lie in [0, fs/2): the one-sided spectrum is all they read
+    X = _row_groups(lambda r: torch.fft.rfft(r, n=nfft), residual, rows)
     edges = conf.chan_edges
-    envs = []
-    if decimate == 1:
-        f = torch.fft.fftfreq(nfft, 1.0 / conf.fs, device=dev)
-        for c in range(conf.nchannel):
-            m = ((f >= edges[c]) & (f < edges[c + 1])).to(FP)
-            envs.append(torch.abs(torch.fft.ifft(X * m * 2.0))[:, :nx])
-        return torch.stack(envs, dim=1)
     D = decimate
     nfft_d = nfft // D
-    for c in range(conf.nchannel):
-        b_lo = int(-(-edges[c] * nfft // conf.fs))
-        b_hi = min(int(-(-edges[c + 1] * nfft // conf.fs)), nfft // 2 + 1)
-        shift = (b_lo // nfft_d) * nfft_d
-        y = torch.zeros((B, nfft_d), dtype=X.dtype, device=dev)
-        y[:, b_lo - shift:b_hi - shift] = X[:, b_lo:b_hi]
-        z = torch.fft.ifft(2.0 * y) * (1.0 / D)
-        envs.append(torch.abs(z)[:, :nx // D])
-    return torch.stack(envs, dim=1)
+    # every band's spectrum [B, C, nfft_d], one inverse transform for all
+    y = torch.zeros((B, C, nfft_d), dtype=X.dtype, device=dev)
+    if D == 1:
+        f = torch.fft.fftfreq(nfft, 1.0 / conf.fs, device=dev)[:X.shape[1]]
+        for c in range(C):
+            m = ((f >= edges[c]) & (f < edges[c + 1])).to(FP)
+            y[:, c, :X.shape[1]] = X * m * 2.0
+    else:
+        for c in range(C):
+            b_lo = int(-(-edges[c] * nfft // conf.fs))
+            b_hi = min(int(-(-edges[c + 1] * nfft // conf.fs)),
+                       nfft // 2 + 1)
+            shift = (b_lo // nfft_d) * nfft_d
+            y[:, c, b_lo - shift:b_hi - shift] = 2.0 * X[:, b_lo:b_hi]
+    del X
+    z = _row_groups(torch.fft.ifft, y.reshape(B * C, nfft_d), rows)
+    if D > 1:
+        z = z * (1.0 / D)
+    return torch.abs(z).reshape(B, C, nfft_d)[..., :nx // D]
 
 
 def _warped_psd(residual: torch.Tensor, nfrm: int,
@@ -221,17 +279,21 @@ def _track_lowpass(conf: ChunkConf, f0, cyc_c, ampl, phse, mask,
     return torch.abs(cs) * mask, torch.angle(cs) * mask
 
 
-def _denoise_floor_stats(pp, cs2_m, r2, amp2_m, ok):
+def _denoise_floor_stats(pp, cs2_m, r2, amp2_m, ok, *,
+                         rows: int | None = None):
     """Per-utterance floor statistics of the track denoiser: [B, N, K]
     powers and the usable-slot mask ok -> (v [B, K] gate floor, wmul
     [B, K] coherent-fit weights), every sum over one utterance's frames.
     v is the Winsorized mean of pp over usable frames, zeroed with fewer
     than 16 of them, below -35 dB of the slow power, or where the slow
     track keeps under 10% of the raw energy; wmul drops noise-dominated
-    tracks from the fit (JAX layer0.py:329-365 says why)."""
+    tracks from the fit (JAX layer0.py:329-365 says why).  The frame sums
+    run in groups of `rows` rows (default _group_rows(N)): PyTorch splits
+    them by the row count."""
+    rows = rows or _group_rows(pp.shape[1])
     zero = torch.zeros((), dtype=FP, device=pp.device)
-    osum = lambda t: torch.sum(torch.where(ok, t, zero), dim=1)
-    cnt = torch.sum(ok, dim=1).to(FP)
+    osum = lambda t: _frame_sums(torch.where(ok, t, zero), rows)
+    cnt = torch.sum(ok, dim=1).to(FP)              # a count: exact
     n_ok = torch.clamp(cnt, min=1.0)
     v = osum(pp) / n_ok
     for _ in range(3):
@@ -283,7 +345,8 @@ def _gate_dft(N: int, D: int, thop: float, cutoff_hz: float,
 
 
 def _spectral_gate(c_s, full, pp, guard, v, mask, thop: float,
-                   cutoff_hz: float, a_spec: float, decimate: int = 1):
+                   cutoff_hz: float, a_spec: float, decimate: int = 1, *,
+                   rows: int | None = None):
     """Per-frame-frequency-bin noise gate on the slow track (JAX
     layer0.py:368-599, whose docstring gives the reasons): c_s, full
     [B, N, K] complex (slow part; guarded c_s + r_inc), pp [B, N, K], guard
@@ -292,33 +355,36 @@ def _spectral_gate(c_s, full, pp, guard, v, mask, thop: float,
     (probe level, engagement, noise profile, local blend) is taken within
     one utterance.  decimate D > 1 gates at the frame rate / D by DFT
     matmuls and block-lerps the delta back; D = 1 uses FFTs.  The products
-    run in complex64 (fp32, no TF32)."""
+    run in complex64 (fp32, no TF32).  The transforms, products and frame
+    sums, whose order the libraries choose by the row count, run in groups
+    of `rows` rows (default _group_rows(N))."""
     B, N, K = c_s.shape
     D = max(int(decimate), 1)
+    G = rows or _group_rows(N)
+    grouped = lambda fn, t: _row_groups(fn, t, G)
+    power = lambda z: z.real ** 2 + z.imag ** 2
     zero = torch.zeros((), dtype=FP, device=c_s.device)
     czero = torch.zeros((), dtype=c_s.dtype, device=c_s.device)
     if D > 1:
         mats = _gate_dft(N, D, float(thop), float(cutoff_hz), c_s.device)
         sg_d = torch.where(guard[:, ::D], c_s[:, ::D], czero)   # [B, Nd, K]
-        Xs = torch.matmul(mats.Wf, sg_d)                         # [B, NPd, K]
-        X_high = torch.matmul(mats.Whigh, full)
-        lev_k = torch.sum(X_high.real ** 2 + X_high.imag ** 2, dim=1) \
+        Xs = grouped(lambda t: torch.matmul(mats.Wf, t), sg_d)   # [B, NPd, K]
+        lev_k = grouped(lambda t: torch.sum(power(
+            torch.matmul(mats.Whigh, t)), dim=1), full) \
             / (float(max(mats.n_high, 1)) * D)
     else:
         NP = _gate_sizes(N, 1)[0]
         hb = np.abs(np.fft.fftfreq(NP, thop)) > 2.0 * cutoff_hz
-        Xs = torch.fft.fft(torch.where(guard, c_s, czero), n=NP, dim=1)
-        Xfull = torch.fft.fft(full, n=NP, dim=1)
-        Pfull = Xfull.real ** 2 + Xfull.imag ** 2
         hbt = torch.as_tensor(hb, device=c_s.device)[None, :, None]
-        lev_k = torch.sum(torch.where(hbt, Pfull, zero), dim=1) \
-            / float(max(hb.sum(), 1))
-    Ps = Xs.real ** 2 + Xs.imag ** 2
+        fft = lambda t: torch.fft.fft(t, n=NP, dim=1)
+        Xs = grouped(fft, torch.where(guard, c_s, czero))
+        lev_k = grouped(lambda t: torch.sum(torch.where(
+            hbt, power(fft(t)), zero), dim=1), full) / float(max(hb.sum(), 1))
+    Ps = power(Xs)
     # engagement stricter than the time gate's: -15 dB of the slow power
     gd = guard & (mask > 0)
-    n_gd = torch.clamp(torch.sum(gd, dim=1).to(FP), min=1.0)
-    p_bar = torch.sum(torch.where(gd, c_s.real ** 2 + c_s.imag ** 2, zero),
-                      dim=1) / n_gd
+    n_gd = torch.clamp(torch.sum(gd, dim=1).to(FP), min=1.0)   # exact
+    p_bar = _frame_sums(torch.where(gd, power(c_s), zero), G) / n_gd
     engaged = (v > 10.0 ** -1.5 * p_bar) & (mask != 0).any(dim=1)   # [B, K]
     wk = engaged.to(FP)[:, None, :]
     nwk = torch.sum(engaged.to(FP), dim=-1)                        # [B]
@@ -340,13 +406,14 @@ def _spectral_gate(c_s, full, pp, guard, v, mask, thop: float,
     if D > 1:
         # inverse of the gated DIFFERENCE (g - 1) Xs, so transform rounding
         # stays relative to the delta; block-lerp back to the frame rate
-        delta_d = torch.matmul(mats.Wi, (g - 1.0) * Xs)           # [B, Nd, K]
+        delta_d = grouped(lambda t: torch.matmul(mats.Wi, t),
+                          (g - 1.0) * Xs)                        # [B, Nd, K]
         nxt = torch.cat([delta_d[:, 1:], delta_d[:, -1:]], dim=1)
         wts = (torch.arange(D, dtype=FP, device=c_s.device) / D)[:, None]
         up = delta_d[:, :, None] * (1.0 - wts) + nxt[:, :, None] * wts
         s_dn = c_s + up.reshape(B, -1, K)[:, :N]
     else:
-        s_dn = torch.fft.ifft(g * Xs, dim=1)[:, :N]
+        s_dn = grouped(lambda t: torch.fft.ifft(t, dim=1), g * Xs)[:, :N]
 
     # local-noisiness blend: frame-smoothed probe power against the floor
     M = int(round(1.0 / (thop * cutoff_hz))) | 1
@@ -377,7 +444,7 @@ def _track_denoise(conf: ChunkConf, f0, cyc_c, ampl, phse, mask,
     track_denoise; the JAX Pallas branch, layer0.py:648-702): pass A
     (kernels.denoise_stats), the per-utterance floor statistics, pass B
     (kernels.denoise_apply) and, with `spectral`, the per-bin gate on the
-    slow track.  f0, cyc_c [B, N]; ampl, phse, mask [B, N, K] ->
+    slow track, whose delta kernels.denoise_finish adds.  f0, cyc_c [B, N]; ampl, phse, mask [B, N, K] ->
     (ampl, phse).  c_complex: the raw complex track (re, im) from
     _deconv_correction(return_complex=True); ampl and phse are then
     ignored."""
@@ -398,19 +465,15 @@ def _track_denoise(conf: ChunkConf, f0, cyc_c, ampl, phse, mask,
     ok = guard[..., None] & (mask > 0)
     v, wmul = _denoise_floor_stats(pp, cs2 * mask, r2, amp2_m, ok)
     if not spectral:
-        re, im = kernels.denoise_apply(cre, cim, csr, csi, cyc_c, mask, guard,
-                                       v, wmul, float(strength))
-        return torch.sqrt(re * re + im * im) * mask, torch.atan2(im, re) * mask
-    re, im, fullr, fulli, ur, ui = kernels.denoise_apply(
-        cre, cim, csr, csi, cyc_c, mask, guard, v, wmul, float(strength),
-        emit_resid=True)
-    delta = _spectral_gate(torch.complex(csr, csi), torch.complex(fullr, fulli),
-                           pp, guard[..., None], v, mask, conf.thop,
-                           cutoff_hz, a_spec, decimate=spec_decimate)
-    outr = re + delta.real * ur - delta.imag * ui
-    outi = im + delta.real * ui + delta.imag * ur
-    return (torch.sqrt(outr * outr + outi * outi) * mask,
-            torch.atan2(outi, outr) * mask)
+        return kernels.denoise_apply(cre, cim, csr, csi, cyc_c, mask, guard,
+                                     v, wmul, float(strength))
+    # the gated track stays aligned until the finish adds the gate's delta
+    a, full = kernels.denoise_apply(cre, cim, csr, csi, cyc_c, mask, guard,
+                                    v, wmul, float(strength), spectral=True)
+    delta = _spectral_gate(torch.complex(csr, csi), full, pp,
+                           guard[..., None], v, mask, conf.thop, cutoff_hz,
+                           a_spec, decimate=spec_decimate)
+    return kernels.denoise_finish(a, delta, cyc_c, mask)
 
 
 def _moving_sum(v: torch.Tensor, S: int) -> torch.Tensor:

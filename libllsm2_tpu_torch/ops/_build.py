@@ -52,16 +52,18 @@ SIGNATURES = {
     # csi, B, N, K, taps1 (host), n1, taps2 (host), n2, complex_input, stream
     "llsm_denoise_stats": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                            _P, _I, _I, _I, _P, _I, _P, _I, _I, _P),
-    # v, wmul, cre, cim, csr, csi, cyc_c, mask, guard, o_r, o_i, fr, fi,
-    # ur, ui, B, N, K, strength, emit, stream
-    "llsm_denoise_apply": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                           _P, _P, _P, _I, _I, _I, _F, _I, _P),
+    # v, wmul, cre, cim, csr, csi, cyc_c, mask, guard (bool), o0, o1, B, N,
+    # K, strength, polar, stream
+    "llsm_denoise_apply": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                           _I, _I, _F, _I, _P),
+    # a, delta (complex64), cyc_c, mask, ampl, phse, B, N, K, stream
+    "llsm_denoise_finish": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # dc, xw, lo, hi, re, im, R, W, K, stream
     "llsm_harmonic_project": (_P, _P, _P, _P, _P, _P, _L, _I, _I, _P),
     # x, cyc, hw, re, im, wsum, xsum, B, nx, N, K, nhop, reach, c0, c1, c2,
-    # c3, ncoef, stream
+    # c3 (the window's cosine coefficients, zero past its own), stream
     "llsm_harmonic_project_mxu": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                  _I, _I, _F, _F, _F, _F, _I, _P),
+                                  _I, _I, _F, _F, _F, _F, _P),
     # in0, out0, C0, in1, out1, C1, B, N, taps (device), ntaps, stream
     "llsm_fir_frames": (_P, _P, _I, _P, _P, _I, _I, _I, _P, _I, _P),
     # cyc, edc, ar, ai, base, env, base_out, B, N, nhop, nx, C, Ke, stream

@@ -113,15 +113,10 @@ def harmonic_analysis(x, f0, cyc, *, nhop: int, fs: float, max_k: int,
         voiced, halfwidth, torch.full_like(halfwidth, 2.0))
     hh = -(-H // nhop)           # window halfwidth in whole hops
     if mxu and window in COSINE_SERIES:
-        cyc = torch.repeat_interleave(cyc, B // cyc.shape[0], dim=0)
+        if cyc.shape[0] != B:
+            cyc = torch.repeat_interleave(cyc, B // cyc.shape[0], dim=0)
         re, im, wsum, xsum = kernels.harmonic_project_mxu(
             x, cyc, halfwidth_e, max_k, nhop, hh, window=window)
-        ampl = 2.0 * torch.sqrt(re ** 2 + im ** 2)
-        # the kernel projects on the absolute cycle: rotate to the centers
-        cyc_c = cyc[..., ::nhop][..., :N]
-        ang_c = 2.0 * math.pi * _phase_cycles(kharm, cyc_c[..., None])
-        re, im = (re * torch.cos(ang_c) - im * torch.sin(ang_c),
-                  re * torch.sin(ang_c) + im * torch.cos(ang_c))
     else:
         C = hh * nhop            # window center column of a frame
         hw_int = torch.ceil(halfwidth_e).to(torch.int32)
@@ -144,7 +139,7 @@ def harmonic_analysis(x, f0, cyc, *, nhop: int, fs: float, max_k: int,
             re, im = re.reshape(B, N, max_k), im.reshape(B, N, max_k)
             wsum = w.sum(dim=-1).reshape(B, N)
             xsum = xw.sum(dim=-1).reshape(B, N)
-        ampl = 2.0 * torch.sqrt(re ** 2 + im ** 2)
+    ampl = 2.0 * torch.sqrt(re ** 2 + im ** 2)
     wsum = torch.clamp(wsum, min=1e-9)
     ampl = ampl / wsum[..., None]
     phse = torch.atan2(im, re)

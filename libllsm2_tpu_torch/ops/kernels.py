@@ -28,6 +28,7 @@ from .windows import COSINE_SERIES, window_centered
 
 LAUNCHES = {"osc_bank": 0, "harmonic_project_win": 0, "deconv_full": 0,
             "noise_mod_ola": 0, "denoise_stats": 0, "denoise_apply": 0,
+            "denoise_finish": 0,
             "harmonic_project": 0, "harmonic_project_mxu": 0,
             "fir_frames": 0, "env_render": 0, "noise_bins": 0,
             "sample_cycles": 0}
@@ -59,6 +60,12 @@ def _on_cuda(*ts: torch.Tensor) -> bool:
 
 def _f32(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.float32).contiguous()
+
+
+def _aligned(t: torch.Tensor, nbytes: int = 16) -> torch.Tensor:
+    """t, or a copy of it where its data does not start on an nbytes
+    boundary (a view with an offset): for kernels that load vectors."""
+    return t if t.data_ptr() % nbytes == 0 else t.clone()
 
 
 def _i32(t: torch.Tensor) -> torch.Tensor:
@@ -701,53 +708,90 @@ def denoise_stats_ref(a, p, cyc_c, mask, voiced, taps1, taps2, *,
 def denoise_apply(cre: torch.Tensor, cim: torch.Tensor, csr: torch.Tensor,
                   csi: torch.Tensor, cyc_c: torch.Tensor, mask: torch.Tensor,
                   guard: torch.Tensor, v: torch.Tensor, wmul: torch.Tensor,
-                  strength: float, *, emit_resid: bool = False):
+                  strength: float, *, spectral: bool = False):
     """Pass B of the track denoiser: pass A's aligned track (cre, cim) and
     slow track (csr, csi) [B, N, K], cyc_c [B, N], mask [B, N, K], guard
-    [B, N], the per-utterance floor v and fit weights wmul [B, K] -> the
-    gated, un-aligned complex harmonics (re, im) [B, N, K]: the coherent
-    fit weighted by wmul, the Wiener gate g = clip(1 - strength v /
-    |r_inc|^2, 0, 1) on the incoherent residual, the raw track where the
-    guard fails.  emit_resid=True also returns where(guard, c_s + r_inc,
-    0) as (full_r, full_i) and the un-align factors (ur, ui)."""
+    [B, N], the per-utterance floor v and fit weights wmul [B, K].  The
+    gated aligned track a is the coherent fit weighted by wmul plus the
+    Wiener gate g = clip(1 - strength v / |r_inc|^2, 0, 1) on the
+    incoherent residual, the raw track where the guard fails.  Returns
+    (ampl, phse) [B, N, K] of a e^{+2 pi j (k+1) cyc_c}, masked (the time
+    gate alone), or with spectral=True the complex64 pair (a, full), full =
+    where(guard, c_s + r_inc, 0), both in the aligned domain: the spectral
+    gate reads full, and denoise_finish adds its delta to a."""
     if not _on_cuda(cre, cim, csr, csi, cyc_c, mask, guard, v, wmul):
         return denoise_apply_ref(cre, cim, csr, csi, cyc_c, mask, guard, v,
-                                 wmul, strength, emit_resid=emit_resid)
+                                 wmul, strength, spectral=spectral)
     B, N, K = cre.shape
     if any(t.shape != (B, N, K) for t in (cim, csr, csi, mask)) \
             or cyc_c.shape != (B, N) or guard.shape != (B, N) \
             or v.shape != (B, K) or wmul.shape != (B, K):
         raise ValueError("denoise_apply: shape mismatch")
-    ins = tuple(map(_f32, (v, wmul, cre, cim, csr, csi, cyc_c, mask, guard)))
-    outs = tuple(torch.empty((B, N, K), dtype=FP, device=cre.device)
-                 for _ in range(6 if emit_resid else 2))
-    ptrs = [t.data_ptr() for t in ins + outs] + [None] * (6 - len(outs))
+    if K > _DENOISE_MAX_K:
+        raise ValueError(f"denoise_apply: K = {K} > {_DENOISE_MAX_K}")
+    # float4 loads of every [B, N, K] and [B, K] plane
+    ins = tuple(_aligned(_f32(t)) for t in (v, wmul, cre, cim, csr, csi,
+                                             cyc_c, mask))
+    gd = (guard if guard.dtype == torch.bool else guard > 0.5).contiguous()
+    kind = CP if spectral else FP
+    outs = tuple(torch.empty((B, N, K), dtype=kind, device=cre.device)
+                 for _ in range(2))
+    ptrs = [t.data_ptr() for t in ins + (gd,) + outs]
     _launch("denoise_apply", *ptrs, B, N, K, float(strength),
-            int(emit_resid), _stream(cre))
+            int(not spectral), _stream(cre))
     return outs
 
 
 def denoise_apply_ref(cre, cim, csr, csi, cyc_c, mask, guard, v, wmul,
-                      strength, *, emit_resid=False):
+                      strength, *, spectral=False):
     """Plain version of denoise_apply (_denoise_apply_body and its two
-    kernels, pallas_osc.py:1043-1139)."""
+    kernels, pallas_osc.py:1043-1139, with the polar output of the JAX
+    host, layer0.py:680-681)."""
     g = (guard if guard.dtype == torch.bool else guard > 0.5)[..., None]
     rcr, rci, rir, rii = _coherent_fit(cre, cim, csr, csi,
                                        wmul[:, None, :] * mask)
     pw = rir * rir + rii * rii
     gain = torch.clamp(1.0 - strength * v[:, None, :] / (pw + 1e-20),
                        0.0, 1.0)
-    outr = torch.where(g, csr + rcr + gain * rir, cre)
-    outi = torch.where(g, csi + rci + gain * rii, cim)
-    kh = torch.arange(1, cre.shape[-1] + 1, dtype=FP, device=cre.device)
-    ua = 2.0 * math.pi * _phase_cycles(kh, cyc_c[..., None])
-    ur, ui = torch.cos(ua), torch.sin(ua)
-    out = (outr * ur - outi * ui, outr * ui + outi * ur)
-    if not emit_resid:
-        return out
+    a = torch.complex(torch.where(g, csr + rcr + gain * rir, cre),
+                      torch.where(g, csi + rci + gain * rii, cim))
+    if not spectral:
+        return denoise_finish_ref(a, torch.zeros_like(a), cyc_c, mask)
     zero = torch.zeros_like(csr)
-    return out + (torch.where(g, csr + rir, zero),
-                  torch.where(g, csi + rii, zero), ur, ui)
+    return a, torch.complex(torch.where(g, csr + rir, zero),
+                            torch.where(g, csi + rii, zero))
+
+
+def denoise_finish(a: torch.Tensor, delta: torch.Tensor, cyc_c: torch.Tensor,
+                   mask: torch.Tensor):
+    """The second launch of pass B: denoise_apply(spectral=True)'s aligned
+    track a and the spectral gate's delta [B, N, K] complex64, cyc_c
+    [B, N], mask [B, N, K] -> (ampl, phse) [B, N, K] of (a + delta)
+    e^{+2 pi j (k+1) cyc_c}, masked (the JAX host's combine, layer0.py:
+    699-702)."""
+    if not _on_cuda(a, delta, cyc_c, mask):
+        return denoise_finish_ref(a, delta, cyc_c, mask)
+    B, N, K = a.shape
+    if delta.shape != (B, N, K) or mask.shape != (B, N, K) \
+            or cyc_c.shape != (B, N):
+        raise ValueError("denoise_finish: shape mismatch")
+    # float4 loads of the complex planes, float2 of the mask
+    a, delta = (_aligned(t.to(CP).contiguous()) for t in (a, delta))
+    cyc_c, mask = _f32(cyc_c), _aligned(_f32(mask), 8)
+    ampl, phse = (torch.empty((B, N, K), dtype=FP, device=a.device)
+                  for _ in range(2))
+    _launch("denoise_finish", *(t.data_ptr() for t in (a, delta, cyc_c, mask,
+                                                        ampl, phse)),
+            B, N, K, _stream(a))
+    return ampl, phse
+
+
+def denoise_finish_ref(a, delta, cyc_c, mask):
+    """Plain version of denoise_finish."""
+    kh = torch.arange(1, a.shape[-1] + 1, dtype=FP, device=a.device)
+    ua = 2.0 * math.pi * _phase_cycles(kh, cyc_c[..., None])
+    z = (a + delta) * torch.polar(torch.ones_like(ua), ua)
+    return torch.abs(z) * mask, torch.angle(z) * mask
 
 
 # ---------------------------------------------------------------------------
@@ -911,14 +955,14 @@ def harmonic_project_mxu(x: torch.Tensor, cyc: torch.Tensor, hw: torch.Tensor,
                          max_k: int, nhop: int, hh: int, *,
                          window: str = "hanning"):
     """Chirped projection at uniform centers f*nhop without frame buffers:
-    x, cyc [B, nx] the signal and its absolute mod-1 cycle track (unframed);
-    hw [B, N] the window halfwidths; hh the window reach in whole hops ->
-    (re [B, N, K], im [B, N, K], wsum [B, N], xsum [B, N]) with
-    re + j im = sum_n w_f(n) x(n) e^{-2 pi j (k+1) cyc(n)} (NOT relative to
-    the frame center: the caller rotates by e^{+2 pi j (k+1) cyc_c}),
-    wsum = sum_n w_f(n) and xsum = sum_n w_f(n) x(n).  w_f is the
-    cosine-series `window` of halfwidth hw centred at f*nhop, cut at
-    |n - f nhop| <= hh*nhop; x is zero outside each utterance."""
+    x, cyc [B, nx] the signal and its mod-1 cycle track (unframed, nx >=
+    N nhop); hw [B, N] the window halfwidths; hh the window reach in whole
+    hops -> (re [B, N, K], im [B, N, K], wsum [B, N], xsum [B, N]) with
+    re + j im = sum_n w_f(n) x(n) e^{-2 pi j (k+1) (cyc(n) - cyc(f nhop))}
+    (at the frame centre, as harmonic_project_win returns it), wsum =
+    sum_n w_f(n) and xsum = sum_n w_f(n) x(n).  w_f is the cosine-series
+    `window` of halfwidth hw centred at f*nhop, cut at |n - f nhop| <=
+    hh*nhop; x is zero outside each utterance."""
     if window not in COSINE_SERIES:
         raise ValueError(f"harmonic_project_mxu: {window!r} is not a "
                          "cosine-series window")
@@ -927,7 +971,7 @@ def harmonic_project_mxu(x: torch.Tensor, cyc: torch.Tensor, hw: torch.Tensor,
                                         window=window)
     B, nx = x.shape
     N = hw.shape[-1]
-    if cyc.shape != (B, nx) or hw.shape != (B, N):
+    if cyc.shape != (B, nx) or hw.shape != (B, N) or N * nhop > nx:
         raise ValueError("harmonic_project_mxu: shape mismatch")
     coefs = tuple(float(c) for c in COSINE_SERIES[window]) + (0.0,) * 3
     x, cyc, hw = _f32(x), _f32(cyc), _f32(hw)
@@ -938,8 +982,7 @@ def harmonic_project_mxu(x: torch.Tensor, cyc: torch.Tensor, hw: torch.Tensor,
     xs = torch.empty((B, N), dtype=FP, device=dev)
     ptrs = (t.data_ptr() for t in (x, cyc, hw, re, im, ws, xs))
     _launch("harmonic_project_mxu", *ptrs, B, nx, N, max_k, int(nhop),
-            int(hh) * int(nhop), *coefs[:4], len(COSINE_SERIES[window]),
-            _stream(x))
+            int(hh) * int(nhop), *coefs[:4], _stream(x))
     return re, im, ws, xs
 
 
@@ -948,7 +991,9 @@ def harmonic_project_mxu_ref(x, cyc, hw, max_k, nhop, hh, *,
     """Plain version of harmonic_project_mxu: the modulated rows G = [1, x,
     x cos(2 pi k cyc), -x sin(2 pi k cyc)] over each frame chunk's span
     (x zero-padded, cyc edge-padded by hh*nhop per utterance), contracted
-    with the chunk's window rows by torch.einsum in float32."""
+    with the chunk's window rows by torch.einsum in float32, then rotated
+    by e^{+2 pi j k cyc(f nhop)} to the centres (the JAX package's
+    harmonic_analysis, harmonics.py:206-210)."""
     B, nx = x.shape
     N = hw.shape[-1]
     P = hh * nhop
@@ -974,8 +1019,11 @@ def harmonic_project_mxu_ref(x, cyc, hw, max_k, nhop, hh, *,
         w = w * (off.abs() <= P)                   # [B, FC, L]
         out[:, f0:f1] = torch.einsum("bfs,bsc->bfc", w, G)
     K = max_k
-    return (out[..., 2:2 + K].contiguous(), out[..., 2 + K:].contiguous(),
-            out[..., 0].contiguous(), out[..., 1].contiguous())
+    re, im = out[..., 2:2 + K], out[..., 2 + K:]
+    ang = 2.0 * math.pi * _phase_cycles(kh, cyc[..., :N * nhop:nhop, None])
+    cr, sr = torch.cos(ang), torch.sin(ang)
+    return (re * cr - im * sr, re * sr + im * cr, out[..., 0].contiguous(),
+            out[..., 1].contiguous())
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,109 @@
+"""Steps of this checkout's port against the port in another checkout
+(e.g. the parent commit unpacked under build/archive/), both loaded into
+one process on one card and run in alternating pairs, so that both see
+the same card, host and moment.  The cells (chip_smoke.py's phases):
+batched_pipeline on the bench rows x 8 s with the library default
+(phase 5, `batch` rows) and with hm_kernel="matmul" (phase 6), the
+denoiser off on 32 of them (phase 4: rows 0-15 and 64-79), and the public
+analyze() of one 8 s file (row 0, a batch of one).  One untimed step of
+each first, then `pairs` pairs whose order alternates (other first in
+even pairs), each step timed by the host clock around work that ends in
+torch.cuda.synchronize().  Prints every step, each side's median and
+quartiles, and how many pairs each side won.  Imports no jax:
+
+    python3 scripts/port_ab_steps.py OTHER_DIR [pairs=20] [batch=128]
+        [cells=default,matmul,off32,one]
+"""
+import dataclasses
+import importlib
+import importlib.util
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def load(root: Path, alias: str):
+    """The libllsm2_tpu_torch package under root, imported as `alias`."""
+    pkg = root / "libllsm2_tpu_torch"
+    spec = importlib.util.spec_from_file_location(
+        alias, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[alias] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def main(argv):
+    if not argv or not torch.cuda.is_available():
+        print(__doc__ if argv else "FAIL: no CUDA card", flush=True)
+        return 2
+    kw = dict(a.split("=", 1) for a in argv[1:])
+    pairs, B = int(kw.get("pairs", 20)), int(kw.get("batch", 128))
+    cells = kw.get("cells", "default,matmul,off32,one").split(",")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    print(smi.stdout.strip(), flush=True)
+    sides = {"this": load(ROOT, "port_this"),
+             "other": load(Path(argv[0]).resolve(), "port_other")}
+    testsig = importlib.import_module("port_this.utils.testsig")
+    rows = testsig.make_test_utterances(
+        [(i, 0.05 if i < B // 2 else 0.0) for i in range(B)], duration=8.0)
+    x, f0, x_ref = (torch.tensor(np.stack([r[j] for r in rows]),
+                                 dtype=torch.float32, device="cuda")
+                    for j in range(3))
+    nxv = torch.full((B,), x.shape[1], dtype=torch.int64, device="cuda")
+    off_rows = torch.tensor([r for r in list(range(16))
+                             + list(range(B // 2, B // 2 + 16)) if r < B],
+                            device="cuda")
+    for cell in cells:
+        steps = {}
+        for name, pkg in sides.items():
+            opt = pkg.create_aoptions(f0_floor=70.0, use_pallas=True)
+            sopt = dataclasses.replace(pkg.create_soptions(), use_pallas=True)
+            corpus = importlib.import_module(pkg.__name__
+                                             + ".parallel.corpus")
+            if cell == "one":
+                steps[name] = (lambda p=pkg, o=opt: p.analyze(o, x[0], f0[0]))
+            else:
+                args = (x, f0, nxv, x_ref)
+                if cell == "matmul":
+                    opt = dataclasses.replace(opt, hm_kernel="matmul")
+                elif cell == "off32":
+                    opt = dataclasses.replace(opt, track_denoise=False)
+                    args = tuple(a[off_rows] for a in args)
+                steps[name] = (lambda c=corpus, o=opt, s=sopt, a=args:
+                               c.batched_pipeline(o, s, *a))
+            steps[name]()                  # build, warm, fill the cache
+        torch.cuda.synchronize()
+        ms = {name: [] for name in sides}
+        for i in range(pairs):
+            order = ("other", "this") if i % 2 == 0 else ("this", "other")
+            for name in order:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                steps[name]()
+                torch.cuda.synchronize()
+                ms[name].append((time.perf_counter() - t0) * 1e3)
+        wins = sum(a < b for a, b in zip(ms["this"], ms["other"]))
+        for name in sides:
+            q = statistics.quantiles(ms[name], n=4)
+            print(f"{cell} {name}: median {statistics.median(ms[name]):.2f}"
+                  f" ms, quartiles {q[0]:.2f} / {q[2]:.2f} ms; steps "
+                  f"{[round(v, 2) for v in ms[name]]}", flush=True)
+        print(f"{cell}: this checkout faster in {wins} of {pairs} pairs",
+              flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -10,17 +10,19 @@ card and on the CPU, then
   swap    the card run again with one stage at a time computed on the CPU
           (its inputs moved there, its outputs moved back): the stage whose
           swap brings the card's SNR to the CPU's is where they part;
-  batch   the same three rows at their places (0, 1, 64) in the whole
-          bench batch of `batch` rows on the card, every stage call's
-          inputs and outputs for those rows against the three-row run's, in
-          call order: the first call whose inputs are equal and whose
-          outputs differ is where a row's result starts to depend on the
-          batch.
+  batch   each of the three rows alone (a batch of one) and at its place
+          (0, 1, 64) in the whole bench batch of `batch` rows on the card,
+          every stage call's inputs and outputs for that row against the
+          lone run's, in call order: the first call whose inputs are equal
+          and whose outputs differ is where a row's result starts to depend
+          on the batch.
 
 Imports neither jax nor libllsm2_tpu; needs a CUDA card:
 
     python scripts/port_card_vs_cpu.py [duration=8.0] [device=cuda] \
-        [batch=128]
+        [batch=128] [parts=diff,swap]
+
+(parts names the parts before `batch` to run; parts= runs none of them.)
 
 (device=cpu runs the same steps with the CPU in the card's place, which
 checks the script and must show no difference.)
@@ -44,8 +46,9 @@ STAGES = [(harmonics, "refine_f0"), (harmonics, "sample_cycles"),
           (harmonics, "harmonic_analysis"), (layer0, "_deconv_correction"),
           (kernels, "denoise_stats"), (layer0, "_denoise_floor_stats"),
           (kernels, "denoise_apply"), (layer0, "_spectral_gate"),
-          (layer0, "_track_denoise"), (kernels, "osc_bank"),
-          (layer0, "_band_envelopes")]
+          (kernels, "denoise_finish"), (layer0, "_track_denoise"),
+          (kernels, "osc_bank"), (layer0, "_band_envelopes"),
+          (layer0, "_warped_psd")]
 
 
 def _move(v, dev):
@@ -93,7 +96,7 @@ def _compared(name, out):
     pair as re + j im, booleans as 0/1, all on the CPU."""
     out = [out] if torch.is_tensor(out) else list(out)
     out = [t.cpu() for t in out]
-    if name in ("harmonic_analysis", "_track_denoise"):
+    if name in ("harmonic_analysis", "_track_denoise", "denoise_finish"):
         out[:2] = [torch.polar(out[0], out[1])]
     elif name == "_deconv_correction":
         out[:2] = [torch.complex(out[0], out[1])]
@@ -116,6 +119,7 @@ def main():
     kw = dict(a.split("=", 1) for a in sys.argv[1:])
     duration = float(kw.get("duration", 8.0))
     n_batch = int(kw.get("batch", 128))
+    parts = set(filter(None, kw.get("parts", "diff,swap").split(",")))
     card = torch.device(kw.get("device", "cuda"))
     if card.type == "cuda" and not torch.cuda.is_available():
         print("FAIL: no CUDA card", flush=True)
@@ -143,8 +147,18 @@ def main():
     print(f"rows {list(ROWS)}: SNR card {snr_card} dB, CPU {snr_cpu} dB "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
-    # diff: every stage on the card on the CPU run's inputs to it
     orig = {(mod, name): getattr(mod, name) for mod, name in STAGES}
+    if "diff" in parts:
+        diff_part(run, card, cpu, orig)
+    if "swap" in parts:
+        swap_part(run, card, cpu, orig, snr_card, snr_cpu)
+    if n_batch:
+        batch_dependence(run, card, orig, duration, n_batch)
+    return 0
+
+
+def diff_part(run, card, cpu, orig):
+    """The diff part (see the module's docstring)."""
     calls = {}
     for (mod, name), fn in orig.items():
 
@@ -168,7 +182,9 @@ def main():
               f"max |CPU| = {_peak_rel(name, got, out):.3e}", flush=True)
     del calls
 
-    # swap: the card run with one stage on the CPU
+
+def swap_part(run, card, cpu, orig, snr_card, snr_cpu):
+    """The swap part (see the module's docstring)."""
     for (mod, name), fn in orig.items():
 
         def on_cpu(*a, _fn=fn, **k):
@@ -180,9 +196,6 @@ def main():
             setattr(mod, name, fn)
         print(f"swap {name} to the CPU: SNR {snr} dB (card {snr_card}, "
               f"CPU {snr_cpu})", flush=True)
-    if n_batch:
-        batch_dependence(run, card, orig, duration, n_batch)
-    return 0
 
 
 def batch_dependence(run, card, orig, duration, n_batch):
@@ -212,30 +225,33 @@ def batch_dependence(run, card, orig, duration, n_batch):
                 setattr(mod, name, fn)
         return log, [snr[r] for r in rows]
 
-    small, snr_small = record([a[list(ROWS)] for a in big], [0, 1, 2])
     whole, snr_whole = record(big, list(ROWS))
-    print(f"batch: rows {list(ROWS)} alone SNR {snr_small} dB, in the "
-          f"{n_batch}-row batch {snr_whole} dB", flush=True)
-    first = None
-    for i, ((name, ins, out), (name_w, ins_w, out_w)) in enumerate(
-            zip(small, whole)):
-        if name != name_w:
-            print(f"batch: call {i} is {name} alone, {name_w} in the batch: "
-                  "the call sequences part", flush=True)
-            break
-        ta, tb = list(_flat(ins_w)), list(_flat(ins))
-        if [t.shape for t in ta] != [t.shape for t in tb]:
-            same = "not comparable"
-        else:
-            same = ("equal" if all(torch.equal(a, b) for a, b in zip(ta, tb))
-                    else "differ")
-        rel = _peak_rel(name, out_w, out)
-        print(f"batch: call {i} {name}: inputs {same}, outputs max |batch - "
-              f"alone| / max |alone| = {rel:.3e}", flush=True)
-        if first is None and same == "equal" and rel > 0:
-            first = f"call {i} {name}"
-    print(f"batch: the first call with equal inputs and different outputs: "
-          f"{first}", flush=True)
+    for i, r in enumerate(ROWS):
+        small, snr_small = record([a[[r]] for a in big], [0])
+        print(f"batch: row {r} alone (a batch of 1) SNR {snr_small[0]} dB, "
+              f"in the {n_batch}-row batch {snr_whole[i]} dB", flush=True)
+        first = None
+        for j, ((name, ins, out), (name_w, ins_w, out_w)) in enumerate(
+                zip(small, whole)):
+            if name != name_w:
+                print(f"batch: row {r} call {j} is {name} alone, {name_w} "
+                      "in the batch: the call sequences part", flush=True)
+                break
+            ins_w, out_w = (_cut(v, [i], len(ROWS)) for v in (ins_w, out_w))
+            ta, tb = list(_flat(ins_w)), list(_flat(ins))
+            if [t.shape for t in ta] != [t.shape for t in tb]:
+                same = "not comparable"
+            else:
+                same = ("equal" if all(torch.equal(a, b)
+                                       for a, b in zip(ta, tb)) else "differ")
+            rel = _peak_rel(name, out_w, out)
+            print(f"batch: row {r} call {j} {name}: inputs {same}, outputs "
+                  f"max |batch - alone| / max |alone| = {rel:.3e}",
+                  flush=True)
+            if first is None and same == "equal" and rel > 0:
+                first = f"call {j} {name}"
+        print(f"batch: row {r}: the first call with equal inputs and "
+              f"different outputs: {first}", flush=True)
 
 
 if __name__ == "__main__":

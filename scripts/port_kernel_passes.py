@@ -1,13 +1,16 @@
-"""Where the time of two of the port's kernels goes, by compiling passes
+"""Where the time of three of the port's kernels goes, by compiling passes
 out: noise_mod_ola.cu (pass 1, the band iDFT; pass 2, the OLA, envelope
-and band sum) and deconv_full.cu (the tap build; the output pass), each
-built four times from the sources in libllsm2_tpu_torch/csrc with one,
-the other, both or neither pass skipped (their LLSM_SKIP_PASS_A / _B),
-and timed at the bench shape (128 rows x 1600 frames, 16 kHz: hop 80, K
-80, D 7) on random inputs, a launch's share of a run of 20 (CUDA events,
-best of 5).  What is left
-with both passes skipped is the staging: the block's loads into shared
-memory and its tables.  Needs a CUDA card and nvcc; imports no jax:
+and band sum), deconv_full.cu (the tap build; the output pass) and
+harmonic_project_mxu.cu (the making of G and the window rows; the banded
+product), each built four times from the sources in
+libllsm2_tpu_torch/csrc with one, the other, both or neither pass skipped
+(their LLSM_SKIP_PASS_A / _B), and timed at the bench shape (128 rows x
+1600 frames, 16 kHz: hop 80, K 80, D 7; the projection's halfwidths 107-
+458, as F0 70-300 Hz gives them, reach 480) on random inputs, a launch's
+share of a run of 20 (CUDA events, best of 5).  What is left with both
+passes skipped is the staging: the block's loads into shared memory and
+its tables (for the projection, the chunk walk, its barriers and the
+epilogue).  Needs a CUDA card and nvcc; imports no jax:
 
     PYTHONPATH=. python3 scripts/port_kernel_passes.py
 
@@ -30,6 +33,7 @@ PASSES = {
     "noise_mod_ola": ("pass 1 (band iDFT)",
                       "pass 2 (OLA, envelope, band sum)"),
     "deconv_full": ("the tap build", "the output pass"),
+    "harmonic_project_mxu": ("G and the window rows", "the banded product"),
 }
 
 
@@ -101,6 +105,10 @@ def main():
     mask = mask.float()
     hw = 100.0 + 300.0 * r(B, N)
     o_a, o_b = torch.empty_like(ampl), torch.empty_like(ampl)
+    x = torch.randn(B, N * NHOP, generator=g, device=dev)
+    hw_p = 32000.0 / (70.0 + 230.0 * r(B, N))          # F0 70-300 Hz
+    p_re, p_im = torch.empty_like(ampl), torch.empty_like(ampl)
+    p_ws, p_xs = torch.empty_like(hw_p), torch.empty_like(hw_p)
     stream = torch.cuda.current_stream().cuda_stream
     calls = {
         "noise_mod_ola": lambda fn: fn(
@@ -112,6 +120,10 @@ def main():
             ampl.data_ptr(), phse.data_ptr(), cyc.data_ptr(), hw.data_ptr(),
             mask.data_ptr(), o_a.data_ptr(), o_b.data_ptr(), B, N, K, D, NHOP,
             8, 0, stream),
+        "harmonic_project_mxu": lambda fn: fn(
+            x.data_ptr(), cyc.data_ptr(), hw_p.data_ptr(), p_re.data_ptr(),
+            p_im.data_ptr(), p_ws.data_ptr(), p_xs.data_ptr(), B, N * NHOP,
+            N, K, NHOP, 6 * NHOP, 0.5, -0.5, 0.0, 0.0, stream),
     }
     for (name, a, b), fn in libs.items():
         rc = calls[name](fn)

@@ -249,18 +249,111 @@ def test_denoise_stats_kernel_matches_plain_on_card(complex_input, Nf):
 
 
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("emit_resid", [False, True])
-def test_denoise_apply_kernel_matches_plain_on_card(emit_resid):
+@pytest.mark.parametrize("spectral,B,Nf,K", [
+    (False, 2, 1600, 80), (True, 2, 1600, 80), (True, 1, 301, 24),
+    (False, 1, 301, 81), (True, 3, 7, 81), (False, 2, 33, 24)])
+def test_denoise_apply_kernel_matches_plain_on_card(spectral, B, Nf, K):
+    """Both launches of pass B against their twins: the bench shape (K = 80,
+    the float4 layout), K = 24 and 81 (the scalar layout, 81 with a ragged
+    last slot pass), an odd row count (the last block's rows past the end)
+    and B = 1; with spectral, the finish on a random delta too (an odd slot
+    count at K = 81, 3 x 7 frames).  2e-4 absolute, 1e-4 relative (the
+    kernel reduces k cyc mod 1 with the product's rounding error added
+    back); (ampl, phse) compared as ampl e^{j phse}."""
     dev = _card()
-    args = [T(v).to(dev) for v in _apply_inputs(2, 1600, 80, 3)]
+    args = [T(v).to(dev) for v in _apply_inputs(B, Nf, K, 3)]
+    polar = lambda ap: torch.polar(ap[0], ap[1])
     kernels.reset_launches()
-    got = kernels.denoise_apply(*args, 8.0, emit_resid=emit_resid)
-    ref = kernels.denoise_apply_ref(*args, 8.0, emit_resid=emit_resid)
+    got = kernels.denoise_apply(*args, 8.0, spectral=spectral)
+    ref = kernels.denoise_apply_ref(*args, 8.0, spectral=spectral)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["denoise_apply"] == 1
-    assert len(got) == (6 if emit_resid else 2)
+    if not spectral:
+        torch.testing.assert_close(got[0], ref[0], atol=2e-4, rtol=1e-4)
+        torch.testing.assert_close(polar(got), polar(ref), atol=2e-4,
+                                   rtol=1e-4)
+        return
     for g, r in zip(got, ref):
+        assert g.dtype == torch.complex64
         torch.testing.assert_close(g, r, atol=2e-4, rtol=1e-4)
+    gen = torch.Generator(dev).manual_seed(K)
+    delta = 0.1 * torch.randn((B, Nf, K), dtype=torch.complex64, device=dev,
+                              generator=gen)
+    cyc_c, mask = args[4], args[5]
+    fin = kernels.denoise_finish(got[0], delta, cyc_c, mask)
+    fin_ref = kernels.denoise_finish_ref(got[0], delta, cyc_c, mask)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["denoise_finish"] == 1
+    torch.testing.assert_close(fin[0], fin_ref[0], atol=2e-4, rtol=1e-4)
+    torch.testing.assert_close(polar(fin), polar(fin_ref), atol=2e-4,
+                               rtol=1e-4)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("spectral", [False, True])
+def test_denoise_apply_takes_offset_views_on_card(spectral):
+    """Both launches on contiguous views that start one float (or one
+    complex) into their buffers, off the 16-byte boundary their vector
+    loads need: the wrappers copy them to aligned memory, and the results
+    equal the launches on aligned copies bit for bit (K = 80, the float4
+    layout)."""
+    dev = _card()
+    args = [T(v).to(dev) for v in _apply_inputs(2, 301, 80, 5)]
+
+    def offset(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    moved = [offset(t) for t in args]
+    assert all(t.data_ptr() % 16 for t in moved)
+    got = kernels.denoise_apply(*moved, 8.0, spectral=spectral)
+    ref = kernels.denoise_apply(*args, 8.0, spectral=spectral)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    if spectral:
+        gen = torch.Generator(dev).manual_seed(1)
+        delta = torch.randn(ref[0].shape, dtype=torch.complex64, device=dev,
+                            generator=gen)
+        fin = kernels.denoise_finish(offset(ref[0]), offset(delta),
+                                     offset(args[4]), offset(args[5]))
+        fin_ref = kernels.denoise_finish(ref[0], delta, args[4], args[5])
+        for g, r in zip(fin, fin_ref):
+            assert torch.equal(g, r)
+
+
+@pytest.mark.requires_cuda
+def test_denoise_finish_past_2_31_slots_on_card():
+    """The finish on 16778 x 1600 x 80 slots, past 2^31 (its 64-bit index
+    path): the first and the last utterance equal the twin on the same
+    slices (2e-4 absolute, 1e-4 relative, as the bench-shape test).  Needs
+    ~56 GiB of the card's memory."""
+    dev = _card()
+    if torch.cuda.get_device_properties(dev).total_memory < 64 * 2 ** 30:
+        pytest.skip("needs a card with 64 GiB of memory or more")
+    B, Nf, K = 16778, 1600, 80
+    assert B * Nf * K > 2 ** 31
+    gen = torch.Generator(dev).manual_seed(2)
+    a = torch.randn((B, Nf, K), dtype=torch.complex64, device=dev,
+                    generator=gen)
+    delta = 0.1 * torch.randn((B, Nf, K), dtype=torch.complex64, device=dev,
+                              generator=gen)
+    cyc_c = torch.rand((B, Nf), device=dev, generator=gen)
+    mask = (torch.rand((B, Nf, K), device=dev, generator=gen) > 0.1).float()
+    try:
+        ampl, phse = kernels.denoise_finish(a, delta, cyc_c, mask)
+        for b in (0, B - 1):
+            s = slice(b, b + 1)
+            ra, rp = kernels.denoise_finish_ref(a[s], delta[s], cyc_c[s],
+                                                mask[s])
+            torch.testing.assert_close(ampl[s], ra, atol=2e-4, rtol=1e-4)
+            torch.testing.assert_close(torch.polar(ampl[s], phse[s]),
+                                       torch.polar(ra, rp), atol=2e-4,
+                                       rtol=1e-4)
+    finally:
+        del a, delta, mask
+        torch.cuda.empty_cache()
 
 
 @pytest.mark.requires_cuda
@@ -340,15 +433,22 @@ def test_harmonic_project_kernel_matches_plain_on_card(K):
 
 
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("K,nhop,H", [(80, 80, 458), (4, 20, 115)])
-def test_harmonic_project_mxu_kernel_matches_plain_on_card(K, nhop, H):
-    """A batch of 3 utterances of 301 frames (not a multiple of the 16-frame
-    tile), main-pass and envelope-pass widths: kernel against twin within
-    2e-3 x the twin's largest |re + j im| (raw window sums scale with the
-    window), and each utterance's rows equal to the kernel on that
-    utterance alone -- no frame's window reads its neighbour."""
+@pytest.mark.parametrize("K,nhop,H,B", [(80, 80, 458, 3), (4, 20, 115, 3),
+                                        (24, 80, 458, 1), (81, 80, 458, 2)])
+def test_harmonic_project_mxu_kernel_matches_plain_on_card(K, nhop, H, B):
+    """B utterances of 301 frames (not a multiple of the 32-frame tile) at
+    main-pass and envelope-pass widths, K = 80, 4, 24 and 81 (column
+    counts that are not multiples of the 4-column thread tile and rotation
+    chains cut short), the first and last three frames' windows at the
+    largest halfwidth (reaching past both ends of the utterance): kernel
+    against twin within 2e-3 x the twin's largest |re + j im| (raw window
+    sums scale with the window), the window sums 1e-5 relative, and each
+    utterance's rows equal to the kernel on that utterance alone -- no
+    frame's window reads its neighbour."""
     dev = _card()
-    x, cyc, hw = (T(a).to(dev) for a in _mxu_inputs(3, 301, nhop, H, K))
+    x, cyc, hw = _mxu_inputs(B, 301, nhop, H, K)
+    hw[:, :3] = hw[:, -3:] = H
+    x, cyc, hw = (T(a).to(dev) for a in (x, cyc, hw))
     hh = -(-H // nhop)
     kernels.reset_launches()
     got = kernels.harmonic_project_mxu(x, cyc, hw, K, nhop, hh)
@@ -359,10 +459,10 @@ def test_harmonic_project_mxu_kernel_matches_plain_on_card(K, nhop, H):
     torch.testing.assert_close(torch.complex(got[0], got[1]),
                                torch.complex(ref[0], ref[1]),
                                atol=2e-3 * zscale, rtol=0)
-    for g, r in zip(got[2:], ref[2:]):
-        torch.testing.assert_close(g, r, atol=2e-3 * float(r.abs().max()),
-                                   rtol=0)
-    for b in range(3):
+    torch.testing.assert_close(got[2], ref[2], atol=0, rtol=1e-5)
+    torch.testing.assert_close(got[3], ref[3],
+                               atol=2e-3 * float(ref[3].abs().max()), rtol=0)
+    for b in range(B):
         alone = kernels.harmonic_project_mxu(x[b:b + 1], cyc[b:b + 1],
                                              hw[b:b + 1], K, nhop, hh)
         for g, a in zip(got, alone):
@@ -576,3 +676,52 @@ def test_layer1_and_pbp_on_card_match_cpu():
     peak = float(y_cpu.y_sin.abs().max())
     torch.testing.assert_close(y_dev.y_sin.cpu(), y_cpu.y_sin,
                                atol=1e-3 * peak, rtol=0)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("D", [1, 4])
+def test_band_envelopes_rows_do_not_depend_on_the_batch_on_card(D):
+    """The envelope FFTs run in calls of layer0.ROW_GROUP rows: rows 0, 1
+    and 99 of a 100-row batch of 8 s residuals (forward in groups whose
+    last is zero-padded, the 400 band rows back) equal, bit for bit, the
+    same rows alone and in a 3-row batch."""
+    from libllsm2_tpu_torch.config import ChunkConf
+    dev = _card()
+    conf = ChunkConf()
+    res = torch.randn((100, 128000), generator=torch.Generator().manual_seed(D))
+    res = res.to(dev)
+    whole = tl0._band_envelopes(res, conf, D)
+    rows = [0, 1, 99]
+    three = tl0._band_envelopes(res[rows], conf, D)
+    for i, r in enumerate(rows):
+        alone = tl0._band_envelopes(res[r:r + 1], conf, D)
+        assert torch.equal(alone[0], whole[r])
+        assert torch.equal(three[i], whole[r])
+
+
+@pytest.mark.requires_cuda
+def test_analysis_rows_do_not_depend_on_the_batch_on_card():
+    """The library-default analysis and synthesis of 6 bench-like rows (2 s,
+    3 noisy, 3 clean) on the card: rows 0, 1 and 4 alone give, bit for bit,
+    every field of their chunk and y, y_sin, y_nos of the 6-row batch."""
+    import dataclasses
+    from libllsm2_tpu_torch import create_aoptions, create_soptions
+    from libllsm2_tpu_torch.container import LAYER0_FIELDS
+    from libllsm2_tpu_torch.utils import testsig
+    dev = _card()
+    opt = create_aoptions(f0_floor=70.0, use_pallas=True)
+    sopt = dataclasses.replace(create_soptions(), use_pallas=True)
+    utt = testsig.make_test_utterances(
+        [(i, 0.05 if i < 3 else 0.0) for i in range(6)], duration=2.0)
+    x, f0 = (torch.tensor(np.stack([u[j] for u in utt]),
+                          dtype=torch.float32, device=dev) for j in range(2))
+    whole = tl0._analyze(opt, x, f0)
+    y_whole = tl0._synthesize(sopt, whole)
+    for r in (0, 1, 4):
+        alone = tl0._analyze(opt, x[r:r + 1], f0[r:r + 1])
+        for name in LAYER0_FIELDS:
+            assert torch.equal(getattr(alone, name)[0],
+                               getattr(whole, name)[r]), name
+        y_alone = tl0._synthesize(sopt, alone)
+        for i in range(3):
+            assert torch.equal(y_alone[i][0], y_whole[i][r]), i

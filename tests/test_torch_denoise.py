@@ -55,18 +55,57 @@ def test_denoise_stats_plain_matches_pallas(N, complex_input):
     assert ref[0][-8:].any() and not ref[3][-8:].any()
 
 
-@pytest.mark.parametrize("emit_resid", [False, True])
-def test_denoise_apply_plain_matches_pallas(emit_resid):
-    """Two utterances with their own floors v and fit weights wmul."""
-    args = _apply_inputs(2, 300, 24, 7)
-    got = kernels.denoise_apply(*map(T, args), 8.0, emit_resid=emit_resid)
-    assert len(got) == (6 if emit_resid else 2)
-    for b in range(2):
-        ref = pallas_osc.denoise_apply_pallas(
-            *(J(a[b]) for a in args), 8.0, emit_resid=emit_resid)
-        for g, r in zip(got, ref):
-            np.testing.assert_allclose(g[b].numpy(), np.asarray(r),
-                                       atol=2e-5, rtol=1e-5)
+def _apply_against_pallas(spectral, B, Nf, K, seed):
+    """The port's pass B (denoise_apply, and with spectral denoise_finish on
+    a random gate delta, zero on unguarded rows as the gate's) against
+    denoise_apply_pallas and the JAX host's combine, rotation and polar
+    form (layer0.py:680-681 and 699-702), utterance by utterance."""
+    args = _apply_inputs(B, Nf, K, seed)
+    cyc_c, mask, guard = args[4], args[5], args[6]
+    rng = np.random.default_rng(seed + 100)
+    delta = (0.1 * (rng.standard_normal((B, Nf, K))
+                    + 1j * rng.standard_normal((B, Nf, K)))
+             * guard[..., None]).astype(np.complex64)
+    if spectral:
+        a, full = kernels.denoise_apply(*map(T, args), 8.0, spectral=True)
+        assert a.dtype == full.dtype == torch.complex64
+        ampl, phse = kernels.denoise_finish(a, T(delta), T(cyc_c), T(mask))
+    else:
+        ampl, phse = kernels.denoise_apply(*map(T, args), 8.0)
+    for b in range(B):
+        ref = pallas_osc.denoise_apply_pallas(*(J(x[b]) for x in args), 8.0,
+                                              emit_resid=spectral)
+        re, im = ref[0], ref[1]
+        if spectral:
+            ur, ui = ref[4], ref[5]
+            d = J(delta[b])
+            re = re + d.real * ur - d.imag * ui
+            im = im + d.real * ui + d.imag * ur
+            np.testing.assert_allclose(
+                full[b].numpy(), np.asarray(ref[2]) + 1j * np.asarray(ref[3]),
+                atol=2e-5, rtol=1e-5)
+        a_j = np.asarray(jnp.sqrt(re * re + im * im)) * mask[b]
+        p_j = np.asarray(jnp.arctan2(im, re)) * mask[b]
+        np.testing.assert_allclose(ampl[b].numpy(), a_j, atol=2e-5,
+                                   rtol=1e-5)
+        np.testing.assert_allclose(
+            ampl[b].numpy() * np.exp(1j * phse[b].numpy()),
+            a_j * np.exp(1j * p_j), atol=2e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("spectral", [False, True])
+def test_denoise_apply_plain_matches_pallas(spectral):
+    """Two utterances with their own floors v and fit weights wmul; both
+    modes (the time gate alone: (ampl, phse) from the one launch; the
+    spectral mode: the aligned track and full, then the finish)."""
+    _apply_against_pallas(spectral, 2, 300, 24, 7)
+
+
+@pytest.mark.parametrize("spectral", [False, True])
+def test_denoise_apply_plain_matches_pallas_odd_k(spectral):
+    """K = 81 (not a multiple of the kernel's float4 slots), one utterance
+    of 37 frames."""
+    _apply_against_pallas(spectral, 1, 37, 81, 5)
 
 
 @pytest.fixture(scope="module")
@@ -235,8 +274,9 @@ def test_denoise_cpu_tensors_never_reach_the_kernels(monkeypatch):
                                  _stats_inputs(64, 8, 1, True))
     kernels.denoise_stats(a, p, cyc_c, mask, voiced, TAPS1, TAPS2,
                           complex_input=True)
-    kernels.denoise_apply(*map(T, _apply_inputs(1, 64, 8, 2)), 8.0,
-                          emit_resid=True)
+    a, full = kernels.denoise_apply(*map(T, _apply_inputs(1, 64, 8, 2)), 8.0,
+                                    spectral=True)
+    kernels.denoise_finish(a, full, cyc_c, mask)
     assert all(v == 0 for v in kernels.LAUNCHES.values()), kernels.LAUNCHES
     with pytest.raises(ValueError, match="tile"):
         kernels.denoise_stats(a, p, cyc_c, mask, voiced, TAPS1,

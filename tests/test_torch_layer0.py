@@ -266,3 +266,79 @@ def test_denoiser_options_match(change):
     np.testing.assert_allclose(t.ampl[0].numpy(), ja, atol=1e-3 * scale)
     np.testing.assert_allclose(t.ampl[0].numpy() * np.exp(1j * t.phse[0].numpy()),
                                ja * np.exp(1j * jp), atol=1e-3 * scale)
+
+
+def _band_envelopes_ungrouped(residual, conf, D):
+    """_band_envelopes as it was before its transforms ran in row groups:
+    one forward FFT over the whole batch, one inverse FFT a band."""
+    B, nx = residual.shape
+    nfft = tl0.spectral.next_pow2(nx)
+    X = torch.fft.fft(residual, n=nfft)
+    edges = conf.chan_edges
+    envs = []
+    for c in range(conf.nchannel):
+        if D == 1:
+            f = torch.fft.fftfreq(nfft, 1.0 / conf.fs)
+            m = ((f >= edges[c]) & (f < edges[c + 1])).to(torch.float32)
+            envs.append(torch.abs(torch.fft.ifft(X * m * 2.0))[:, :nx])
+            continue
+        nfft_d = nfft // D
+        b_lo = int(-(-edges[c] * nfft // conf.fs))
+        b_hi = min(int(-(-edges[c + 1] * nfft // conf.fs)), nfft // 2 + 1)
+        shift = (b_lo // nfft_d) * nfft_d
+        y = torch.zeros((B, nfft_d), dtype=X.dtype)
+        y[:, b_lo - shift:b_hi - shift] = X[:, b_lo:b_hi]
+        envs.append(torch.abs(torch.fft.ifft(2.0 * y) * (1.0 / D))[:, :nx // D])
+    return torch.stack(envs, dim=1)
+
+
+@pytest.mark.parametrize("D,rows", [(1, 2), (4, 2), (4, 32)])
+def test_band_envelopes_grouped_matches_ungrouped(D, rows):
+    """The envelope transforms in calls of a fixed row count (the last
+    group zero-padded: 5 rows in groups of 2, or one group of 32) give the
+    one-call transforms' values on the CPU to 1e-6 relative."""
+    conf = tpkg.ChunkConf()
+    residual = torch.tensor(np.random.default_rng(D).standard_normal(
+        (5, 4000)).astype(np.float32))
+    got = tl0._band_envelopes(residual, conf, D, rows=rows)
+    ref = _band_envelopes_ungrouped(residual, conf, D)
+    assert got.shape == ref.shape == (5, conf.nchannel, 4000 // D)
+    torch.testing.assert_close(got, ref, atol=1e-6 * float(ref.abs().max()),
+                               rtol=0)
+
+
+@pytest.mark.parametrize("nfrm,rows", [(60, 64), (1600, 64), (1601, 32),
+                                       (3200, 16), (6400, 4), (13000, 1)])
+def test_group_rows_fall_with_the_frame_count(nfrm, rows):
+    """The grouped stages' rows a call: ROW_GROUP up to 8 s (1600 frames),
+    then the largest power of two whose rows times frames squared stays
+    within ROW_GROUP 8 s rows' worth."""
+    assert tl0.ROW_GROUP == 64 and tl0.ROW_GROUP_FRAMES == 1600
+    assert tl0._group_rows(nfrm) == rows
+
+
+@pytest.mark.parametrize("D", [1, 4])
+def test_denoiser_stages_grouped_match_one_call(D):
+    """The floor statistics and the spectral gate with their frame sums,
+    transforms and products in groups of 2 rows (5 rows, the last group
+    zero-padded) give the one-call values on the CPU to 1e-6 of each
+    output's largest magnitude."""
+    rng = np.random.default_rng(D)
+    B, N, K = 5, 150, 24
+    t = lambda *s: torch.tensor(rng.uniform(size=s).astype(np.float32))
+    mask = (t(B, N, K) > 0.1).float()
+    guard = t(B, N) > 0.2
+    pp, cs2, amp2, r2 = t(B, N, K), t(B, N, K), t(B, N, K), 0.1 * t(B, N, K)
+    stats = (pp, cs2 * mask, r2, amp2 * mask, guard[..., None] & (mask > 0))
+    c_s = torch.complex(t(B, N, K) - 0.5, t(B, N, K) - 0.5)
+    full = c_s + 0.3 * torch.complex(t(B, N, K) - 0.5, t(B, N, K) - 0.5)
+    gate = (c_s, full, pp, guard[..., None], 0.2 * t(B, K), mask, 0.005,
+            15.0, 3.0, D)
+    got = (*tl0._denoise_floor_stats(*stats, rows=2),
+           tl0._spectral_gate(*gate, rows=2))
+    ref = (*tl0._denoise_floor_stats(*stats, rows=B),
+           tl0._spectral_gate(*gate, rows=B))
+    assert float(ref[2].abs().max()) > 0.0
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, rtol=0,
+                                   atol=1e-6 * float(r.abs().max()))

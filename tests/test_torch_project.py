@@ -92,8 +92,10 @@ def _analysis_inputs(dur, floor, tail, fs=16000.0):
 
 @pytest.mark.parametrize("dur,floor,tail,with_dc", MXU_SHAPES)
 def test_harmonic_project_mxu_plain_matches_pallas(dur, floor, tail, with_dc):
-    """The twin against the Pallas kernel per utterance, on the main
-    pass's inputs (halfwidths of harmonic_analysis); 2e-3 x the largest
+    """The twin, which returns the sums at the frame centres, against the
+    Pallas kernel per utterance rotated to the centres as the JAX
+    harmonic_analysis rotates it (harmonics.py:206-210), on the main pass's
+    inputs (halfwidths of harmonic_analysis); 2e-3 x the largest
     |re + j im| (test_pallas.py:79-85 in relative form: raw window sums
     scale with the window), the window sums to 1e-5 relative."""
     conf, x, f0, cyc = _analysis_inputs(dur, floor, tail)
@@ -104,18 +106,24 @@ def test_harmonic_project_mxu_plain_matches_pallas(dur, floor, tail, with_dc):
         hw = np.where(f0 > 0, hw, 2.0)
     hw = hw.astype(np.float32)
     hh = -(-H // nhop)
+    N = len(f0[0])
     re, im, ws, xs = kernels.harmonic_project_mxu(T(x), cyc, T(hw), K, nhop,
                                                   hh)
-    assert re.shape == (2, len(f0[0]), K) and ws.shape == (2, len(f0[0]))
+    assert re.shape == (2, N, K) and ws.shape == (2, N)
+    kharm = jnp.arange(1, K + 1, dtype=jnp.float32)
     for b in range(2):
-        rj, ij, wj, xj = map(np.asarray, pallas_osc.harmonic_project_mxu(
-            jnp.asarray(x[b]), jnp.asarray(cyc[b].numpy()), jnp.asarray(hw[b]),
-            K, nhop, hh))
-        zj = rj + 1j * ij
+        cyc_j = jnp.asarray(cyc[b].numpy())
+        rj, ij, wj, xj = pallas_osc.harmonic_project_mxu(
+            jnp.asarray(x[b]), cyc_j, jnp.asarray(hw[b]), K, nhop, hh)
+        ph_c = kharm[None, :] * cyc_j[::nhop][:N][:, None]
+        ang_c = 2.0 * jnp.pi * (ph_c - jnp.round(ph_c))
+        zj = np.asarray(rj * jnp.cos(ang_c) - ij * jnp.sin(ang_c)) \
+            + 1j * np.asarray(rj * jnp.sin(ang_c) + ij * jnp.cos(ang_c))
         scale = float(np.abs(zj).max())
         np.testing.assert_allclose(re[b].numpy() + 1j * im[b].numpy(), zj,
                                    atol=2e-3 * scale)
-        np.testing.assert_allclose(ws[b].numpy(), wj, rtol=1e-5)
+        np.testing.assert_allclose(ws[b].numpy(), np.asarray(wj), rtol=1e-5)
+        xj = np.asarray(xj)
         np.testing.assert_allclose(xs[b].numpy(), xj,
                                    atol=2e-3 * float(np.abs(xj).max()))
 
