@@ -5,8 +5,9 @@
     python3 chip_smoke.py breakdown DIR
 
 The second form runs only phase 5's breakdown (the harmonic_analysis
-calls, the harmonic renders, the analysis / synthesis times and peaks and
-each analysis stage's time and peak) on the
+calls, the harmonic renders, the analysis / synthesis times and peaks,
+each analysis stage's time and peak, then the step's sample_cycles calls
+and env_render on its chunk at full batch beside their bounds) on the
 libllsm2_tpu_torch package in DIR, another checkout such as the parent
 commit's, so that two versions compare on one card; it prints no result
 line.  The first form's phases, one line each; any failure exits
@@ -424,14 +425,18 @@ def kernel_ops(torch, name, args, kw):
                                      else 30.0)
         return float(B * N) * (K * slot + nq * (10.0 * band + 20.0))
     if name == "env_render":
+        # a sample: one sincospif (20) and Ke - 1 rotations (6) shared by
+        # the channels; a channel: the edc and base lerps (4), the two max
+        # (2) and a harmonic's two lerps and two FMAs (8)
         B, N, C, Ke = a[2].shape
-        return float(a[0].numel()) * C * (16.0 * Ke + 13.0)
+        return float(a[0].numel()) * (20.0 + 6.0 * (Ke - 1)
+                                      + C * (8.0 * Ke + 6.0))
     if name == "noise_mod_ola":  # cyc, edc, ar, ai, base, re, im, gain, bands
         # the band iDFT: a segment's samples t and nhop + t share one even
         # and one odd sum over the band's bins ((-1)^k e^{2 pi j k t / T}),
         # so nhop samples a frame, 2 FMAs a live bin (a bin in a band); the
-        # shaping, 3 a bin a frame; the envelope render and modulation as
-        # env_render's, C (16 Ke + 13) a sample
+        # shaping, 3 a bin a frame; the envelope render and modulation, a
+        # rotation ladder a channel: C (16 Ke + 13) a sample
         B, N, C, Ke = a[2].shape
         live = sum(hi - lo for lo, hi in zip(a[8][::2], a[8][1::2]))
         nhop = a[7].shape[-1] - 1
@@ -1176,6 +1181,27 @@ def phase5_breakdown(torch, mods, opt, sopt, data):
     return calls, renders
 
 
+def breakdown_kernels(torch, mods, opt, sopt, data):
+    """The breakdown form's kernel times: a phase-5 step's sample_cycles
+    calls, and env_render on that analysis chunk's envelopes (phase 9's
+    shapes), each at full batch beside its bound (full_batch)."""
+    harmonics, layer0, corpus, kernels = mods
+    x, f0, x_ref, nxv = data
+    calls, _ = capture_kernel_inputs(
+        kernels, ("sample_cycles",),
+        lambda: corpus.batched_pipeline(opt, sopt, x, f0, nxv, x_ref))
+    chunk = layer0._analyze(opt, x, f0)
+    nhop = opt.conf.nhop
+    cyc = harmonics.sample_cycles(chunk.f0, nhop, opt.conf.fs,
+                                  chunk.nfrm * nhop)
+    env, _ = capture_kernel_inputs(
+        kernels, ("env_render",),
+        lambda: layer0._render_envelopes(chunk, cyc, nhop, use_pallas=True))
+    calls.update(env)
+    del chunk, cyc
+    full_batch(torch, kernels, calls, "breakdown")
+
+
 def stage_times(torch, hooks, run, reps=3):
     """run() reps times with each hooked (module, name) function timed
     (synchronized before and after, summed over its calls) and its peak
@@ -1413,8 +1439,9 @@ def main(argv):
     data = fixtures(torch, dev)
     if other:
         print(f"breakdown of the package in {other}", flush=True)
-        phase5_breakdown(torch, (harmonics, layer0, corpus, kernels), opt,
-                         sopt, data)
+        mods = (harmonics, layer0, corpus, kernels)
+        phase5_breakdown(torch, mods, opt, sopt, data)
+        breakdown_kernels(torch, mods, opt, sopt, data)
         return 0
     data11 = fixtures(torch, dev, fs=11000.0)
     print(f"fixtures: {BATCH} x {DURATION} s at 16 and 11 kHz in "

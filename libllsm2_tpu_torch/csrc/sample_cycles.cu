@@ -10,139 +10,327 @@
 //   c[s]     = (off_j + within_j[s]) mod 1;  out[0] = 0, out[s] = c[s - 1]
 //
 // The JAX package has no Pallas kernel here (libllsm2_tpu/ops/harmonics.py:
-// sample_cycles, a mod-1 associative scan under XLA).  The port's plain
-// version takes two torch.cumsum calls, and PyTorch's CUDA scan orders a
-// row's sum by the tensor's shape, so a row's track depended on the other
-// rows of its batch.  Here every sum has an order set by the row alone, in
-// three launches: a thread a hop sums its nhop samples sequentially in
-// float64, rounding each partial to float32, as PyTorch's CPU cumsum does
-// for float32 (the hop totals, mod 1, as float64), so the kernel equals the
-// plain version run on the CPU; a block a row takes the float64 exclusive
-// prefix of its totals by a two-level scan whose tree depends only on the
-// hop count (each thread a contiguous run of hops, one thread over the
-// runs' sums); a thread a hop again sums its samples and adds its offset,
-// staged in shared memory so that the block writes its samples coalesced.
-// The lerp's products and sum are rounded separately (__fmul_rn /
-// __fadd_rn), as the plain version rounds them, so no FMA contraction moves
-// them.  Bound on the H100: the [B, nx] output written once; the two
-// sequential passes over each hop's samples are spread over B x N / 128
-// blocks.
+// sample_cycles, a mod-1 associative scan under XLA).  PyTorch's CUDA scan
+// orders a row's sums by the tensor's shape, so this kernel sums every row
+// in an order set by the row alone: a row's track is the same alone and in
+// any batch, whatever its values.
+//
+// Exactness, which lets a parallel scan give the plain version's bits: a
+// float64 running sum of float32 values is exact when every value has its
+// last bit at or above 2^(e - 52), e the exponent of the largest partial.
+// A hop's partials stay under 16 cycles (nhop f0 / fs <= 160 * 1000 /
+// 16000), so the in-hop sums are exact whenever every positive lerped F0
+// is above ~5e-4 Hz at 16 kHz (the analysis' smallest, at a voicing edge,
+// is ~f0_floor / nhop ~ 0.9 Hz); the hop totals mod 1 are float32 values
+// in [0, 1) summed to under 2^11 per 1600 hops, exact when each is 0 or
+// above ~2^-18.  Exact sums give the same bits in any order, so on such
+// tracks (every analysis track) the kernel equals the plain version run on
+// the CPU, whose cumsum accumulates float32 in float64, bit for bit.  Where
+// a hop mixes a tiny positive F0 with a large one the orders part in the
+// last bits (tests/test_torch_ops.py shows how far); the kernel then stays
+// within 1e-6 cycles of the CPU.
+//
+// Bound on the H100: the [B, nx] output written once (16 M samples at the
+// bench shape).  What costs is each sample's arithmetic (the step's
+// division and float64 conversions, two float64 adds, a floor) and the
+// latency between a block's phases, so the design evaluates each step once
+// and keeps many independent tiles in flight (scripts/port_kernel_passes.py
+// times the steps and the output pass compiled out).  Design: one
+// kernel launch after a memset of its tile words, a block of 4 warps
+// a tile of T <= 128 hops of one row, grid (tiles, rows).
+//   - Steps: L lanes share a hop, each a run of at most 10 consecutive
+//     samples; a lane evaluates each step once, in registers, with the
+//     plain version's float32 operations rounded one by one (__fmul_rn /
+//     __fadd_rn keep FMA contraction out; the division as below).  The
+//     position s / nhop is not divided a sample: below 2^24 samples its
+//     fraction in hop j is fl(j + t / nhop) - j, which depends only on t
+//     and the binade of j (no tie can fall on that grid there), so a
+//     table of those fractions for the tile's binades, made once a block,
+//     gives the plain version's bits; hops past 2^24 samples divide as
+//     the plain version does.
+//   - In-hop sums: the run sums in float64, a Kogge-Stone scan over the L
+//     lanes gives each run its offset, and the float32 partials go to
+//     shared memory.
+//   - Hop offsets: the tile's hop totals mod 1 are scanned by one fixed
+//     tree (a lane's ceil(T / 32) in order, then the warp); the tile
+//     publishes their sum and adds its row predecessors' sums, read in tile
+//     order (lane l takes tiles l, l + 32, ..., then a fixed xor tree),
+//     never in the order they arrive.  Block (x, y) is tile x of row y; blocks
+//     start in linear order, so every tile it waits for has started.
+//   - Output: the tile's samples are consecutive; its threads write them
+//     coalesced, each sample's hop tracked by adding the stride's quotient
+//     and remainder.
 #include "common.cuh"
+
+// LLSM_SKIP_PASS_{A,B} = 1 compiles the steps' lerp and divide (a step is
+// then a table read) or the output pass out, for scripts/port_kernel_passes.py
+// to time what is left; both 0 in the library.
+#ifndef LLSM_SKIP_PASS_A
+#define LLSM_SKIP_PASS_A 0
+#endif
+#ifndef LLSM_SKIP_PASS_B
+#define LLSM_SKIP_PASS_B 0
+#endif
 
 namespace {
 
-constexpr int kHopsBlock = 128;     // hops a block (a thread each)
-constexpr int kScan = 512;          // threads of the prefix scan
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int64_t kExact = int64_t(1) << 24;   // float32 integers end here
+constexpr int kPasses = 4;                     // a block's passes a tile
+constexpr int kMaxTile = kPasses * 32;         // hops a tile, at most
+constexpr int bit_length(int v) { return v ? 1 + bit_length(v >> 1) : 0; }
+constexpr int kBinades = bit_length(kMaxTile - 1) + 1;   // a tile's, at most
 
-// F0 at sample s of row f0r (clamped at 0), divided by fs: the twin's
-// float32 operations.
-__device__ __forceinline__ float f0_over_fs(const float* __restrict__ f0r,
-                                            int s, float nhop_f, int N,
-                                            float fs) {
+// The plain version's lerp at fraction t of frames (a, b), over fs, with
+// rfs = 1 / fs rounded to float64.  fl32(v rfs) is fl32(v / fs) for every
+// float32 v: a quotient of two float32 values is a float32 or lies at
+// least 2^-50 (relative) from every float32 rounding midpoint, and v rfs
+// in float64 is within 2^-52 of it, so the float32 rounding cannot move
+// (no FCHK branch and no slow path, unlike __fdiv_rn).
+__device__ __forceinline__ double step(float a, float b, float t,
+                                       double rfs) {
+  if (LLSM_SKIP_PASS_A) return t;
+  const float v = __fadd_rn(__fmul_rn(a, __fadd_rn(1.0f, -t)),
+                            __fmul_rn(b, t));
+  return (double)__double2float_rn((double)v * rfs);
+}
+
+// F0 at sample s of row f0r (clamped at 0), divided by fs: the plain
+// version's float32 operations, position included.
+__device__ __forceinline__ double f0_over_fs(const float* __restrict__ f0r,
+                                             int64_t s, float nhop_f, int N,
+                                             double rfs) {
   const float pos = __fdiv_rn((float)s, nhop_f);
   const int i0 = min(max((int)floorf(pos), 0), N - 2);
   const float t = fminf(fmaxf(__fadd_rn(pos, -(float)i0), 0.0f), 1.0f);
-  const float a = fmaxf(__ldg(f0r + i0), 0.0f);
-  const float b = fmaxf(__ldg(f0r + i0 + 1), 0.0f);
-  const float v = __fadd_rn(__fmul_rn(a, __fadd_rn(1.0f, -t)),
-                            __fmul_rn(b, t));
-  return __fdiv_rn(v, fs);
+  return step(fmaxf(__ldg(f0r + i0), 0.0f), fmaxf(__ldg(f0r + i0 + 1), 0.0f),
+              t, rfs);
 }
 
-// hop j's total mod 1: tot[b, j]
-__global__ void __launch_bounds__(kHopsBlock)
-hop_totals_kernel(const float* __restrict__ f0, double* __restrict__ tot,
-                  int N, int nhop, int H, float fs) {
-  const int b = blockIdx.y;
-  const int j = blockIdx.x * kHopsBlock + threadIdx.x;
-  if (j >= H) return;
-  const float* f0r = f0 + (int64_t)b * N;
-  const float nhop_f = (float)nhop;
-  double acc = 0.0;
-  for (int t = 0; t < nhop; ++t)
-    acc += (double)f0_over_fs(f0r, j * nhop + t, nhop_f, N, fs);
-  const float w = __double2float_rn(acc);
-  tot[(int64_t)b * H + j] = (double)(w - floorf(w));
-}
+// binade of hop j: j in [2^(c - 1), 2^c), c = 0 for j = 0
+__device__ __forceinline__ int binade(int j) { return 32 - __clz(j); }
 
-// tot[b, :] <- its exclusive prefix sum, mod 1 (float64, fixed order)
-__global__ void __launch_bounds__(kScan)
-hop_offsets_kernel(double* __restrict__ tot, int H) {
-  __shared__ double part[kScan];
-  double* r = tot + (int64_t)blockIdx.x * H;
-  const int per = (H + kScan - 1) / kScan;
-  const int j0 = min((int)threadIdx.x * per, H), j1 = min(j0 + per, H);
-  double s = 0.0;
-  for (int j = j0; j < j1; ++j) s += r[j];
-  part[threadIdx.x] = s;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    double run = 0.0;
-    for (int i = 0; i < kScan; ++i) {
-      const double v = part[i];
-      part[i] = run;
-      run += v;
-    }
-  }
-  __syncthreads();
-  double run = part[threadIdx.x];
-  for (int j = j0; j < j1; ++j) {
-    const double v = r[j];
-    r[j] = run - floor(run);
-    run += v;
-  }
-}
-
-// the samples of a block of hops: out[s + 1] = (off_j + within_j[s]) mod 1
-__global__ void __launch_bounds__(kHopsBlock)
-cycles_kernel(const float* __restrict__ f0, const double* __restrict__ off,
-              float* __restrict__ out, int N, int nhop, int H, float fs) {
-  extern __shared__ float stage[];          // [kHopsBlock, nhop | 1]
-  const int b = blockIdx.y;
-  const int jb = blockIdx.x * kHopsBlock;
-  const int j = jb + threadIdx.x;
-  const float* f0r = f0 + (int64_t)b * N;
+// R: the samples a lane takes in a hop at most (a template, so the steps
+// stay in registers); L = 2^lg >= kWarps lanes share a hop, each a run of
+// ceil(nhop / L) <= R consecutive samples of it; a warp takes 32 / L hops
+// a pass, and a block kPasses passes: a tile of T = kPasses kWarps 32 / L
+// <= 128 hops.  Block (x, y) is tile x of row y, so a tile's predecessors
+// in its row are blocks launched before it.  word[y tiles + x] is the
+// tile's sum of hop totals mod 1, published with its sign bit set (0: not
+// yet; zeroed before the kernel on its stream).
+template <int R>
+__global__ void __launch_bounds__(kThreads)
+sample_cycles_kernel(const float* __restrict__ f0, float* __restrict__ out,
+                     unsigned long long* __restrict__ word, int N, int nhop,
+                     int H, float fs, int lg) {
+  extern __shared__ double smem[];
+  const int L = 1 << lg, G = 32 >> lg, T = kPasses * kWarps * G;
+  double* tots = smem;                          // [T] totals mod 1
+  float* ofs = reinterpret_cast<float*>(tots + T);       // [T] offsets
+  float* part = ofs + T;                        // [T, nhop] partials
+  float* frac = part + T * nhop;                // [kBinades, nhop]
+  const int row = blockIdx.y, k = blockIdx.x;
+  const int j0 = k * T;
+  const float* f0r = f0 + (int64_t)row * N;
   const int64_t nx = (int64_t)H * nhop;
-  float* outr = out + (int64_t)b * nx;
-  if (j < H) {
-    const float nhop_f = (float)nhop;
-    const float o = (float)off[(int64_t)b * H + j];
-    // an odd row stride: the threads of a warp hit different banks
-    float* st = stage + threadIdx.x * (nhop | 1);
+  float* outr = out + (int64_t)row * nx;
+  const float nhop_f = (float)nhop;
+  const double rfs = __drcp_rn((double)fs);
+  // the fractions of s / nhop in hop j: fl(j + t / nhop) - j depends only
+  // on t and j's binade below 2^24 samples (no tie falls on that grid
+  // there); a tile spans binades c0 .. binade(j0 + T - 1), at most
+  // kBinades
+  const int c0 = binade(j0);
+  const int ncl = binade(j0 + T - 1) - c0 + 1;
+  for (int e = threadIdx.x; e < ncl * nhop; e += kThreads) {
+    const int dc = e / nhop, t = e - dc * nhop, c = c0 + dc;
+    const int jc = c ? 1 << (c - 1) : 0;
+    if ((int64_t)jc * nhop + t < kExact)
+      frac[e] = __fadd_rn(__fdiv_rn((float)(jc * nhop + t), nhop_f),
+                          -(float)jc);
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> lg, r = lane & (L - 1);
+  const int run = (nhop + L - 1) >> lg;
+  const int t0 = min(r * run, nhop), t1 = min(t0 + run, nhop);
+  for (int pass = 0; pass < kPasses; ++pass) {
+    const int hh = (pass * kWarps + warp) * G + g, j = j0 + hh;
+    double d[R];
     double acc = 0.0;
-    for (int t = 0; t < nhop; ++t) {
-      acc += (double)f0_over_fs(f0r, j * nhop + t, nhop_f, N, fs);
-      const float c = __fadd_rn(o, __double2float_rn(acc));
-      st[t] = c - floorf(c);
+    if (j < H) {
+      const int64_t s0 = (int64_t)j * nhop;
+      if (s0 + nhop <= kExact) {
+        const int i0 = min(j, N - 2);
+        const float a = fmaxf(__ldg(f0r + i0), 0.0f);
+        const float b = fmaxf(__ldg(f0r + i0 + 1), 0.0f);
+        const float* fr = frac + (binade(j) - c0) * nhop;
+        const bool last = j >= N - 1;           // pos >= N - 1: t = 1
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          d[i] = 0.0;
+          if (t0 + i < t1) {
+            d[i] = step(a, b, last ? 1.0f : fr[t0 + i], rfs);
+            acc += d[i];
+          }
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          d[i] = 0.0;
+          if (t0 + i < t1) {
+            d[i] = f0_over_fs(f0r, s0 + t0 + i, nhop_f, N, rfs);
+            acc += d[i];
+          }
+        }
+      }
+    }
+    // the runs' offsets in the hop: an inclusive scan over its L lanes,
+    // by a tree fixed by the lane
+    double incl = acc;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const double u = __shfl_up_sync(0xffffffffu, incl, o, L);
+      if (o < L && r >= o) incl += u;
+    }
+    double p = __shfl_up_sync(0xffffffffu, incl, 1, L);
+    if (r == 0) p = 0.0;
+    const float w = __double2float_rn(
+        __shfl_sync(0xffffffffu, incl, L - 1, L));
+    if (j < H) {
+      float* ph = part + hh * nhop;
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        if (t0 + i < t1) {
+          p += d[i];
+          ph[t0 + i] = __double2float_rn(p);
+        }
+      }
+    }
+    if (r == 0) tots[hh] = j < H ? (double)(w - floorf(w)) : 0.0;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    // the tile's exclusive prefix of its T hop totals: lane l sums hops
+    // [l per, (l + 1) per) in order, per = ceil(T / 32), then the lanes by
+    // a tree fixed by the lane; the tile's sum is published for the tiles
+    // after it
+    const int per = (T + 31) >> 5;
+    double pre[kPasses], sl = 0.0;
+#pragma unroll
+    for (int q = 0; q < kPasses; ++q) {
+      pre[q] = sl;
+      if (q < per && lane * per + q < T) sl += tots[lane * per + q];
+    }
+    double in = sl;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const double u = __shfl_up_sync(0xffffffffu, in, o);
+      if (lane >= o) in += u;
+    }
+    double ex = __shfl_up_sync(0xffffffffu, in, 1);
+    if (lane == 0) ex = 0.0;
+    unsigned long long* rw = word + (int64_t)row * gridDim.x;
+    if (lane == 31)
+      *(volatile unsigned long long*)(rw + k) =
+          (unsigned long long)__double_as_longlong(in) | (1ull << 63);
+    // the tiles before this one: lane l sums tiles l, l + 32, ... in
+    // order (waiting for each), then the lanes' sums by a fixed tree
+    double c = 0.0;
+    for (int i = lane; i < k; i += 32) {
+      unsigned long long x;
+      while ((x = *(volatile unsigned long long*)(rw + i)) == 0ull) {}
+      c += __longlong_as_double((long long)(x & ~(1ull << 63)));
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) c += __shfl_xor_sync(0xffffffffu, c, o);
+#pragma unroll
+    for (int q = 0; q < kPasses; ++q) {
+      if (q < per && lane * per + q < T) {
+        const double o64 = c + (ex + pre[q]);
+        ofs[lane * per + q] = (float)(o64 - floor(o64));
+      }
     }
   }
   __syncthreads();
-  const int nh = min(kHopsBlock, H - jb);
-  const int64_t s0 = (int64_t)jb * nhop;
-  for (int e = threadIdx.x; e < nh * nhop; e += kHopsBlock) {
-    const int h = e / nhop;
-    if (s0 + e + 1 < nx)
-      outr[s0 + e + 1] = stage[h * (nhop | 1) + e - h * nhop];
+  // the tile's samples are consecutive: write them coalesced, each
+  // sample's hop tracked by adding the stride's quotient and remainder
+  const int64_t st = (int64_t)j0 * nhop;
+  const int dh = kThreads / nhop, dt = kThreads - dh * nhop;
+  int h = threadIdx.x / nhop, t = threadIdx.x - h * nhop;
+  for (int e = threadIdx.x; e < (LLSM_SKIP_PASS_B ? 0 : T * nhop);
+       e += kThreads) {
+    if (st + e + 1 < nx) {
+      const float cv = __fadd_rn(ofs[h], part[e]);
+      outr[st + e + 1] = cv - floorf(cv);
+    }
+    h += dh;
+    t += dt;
+    if (t >= nhop) {
+      t -= nhop;
+      ++h;
+    }
   }
-  if (blockIdx.x == 0 && threadIdx.x == 0) outr[0] = 0.0f;
+  if (k == 0 && threadIdx.x == 0) outr[0] = 0.0f;
+}
+
+template <int R>
+cudaError_t launch(const float* f0, float* out, unsigned long long* word,
+                   int B, int N, int nhop, int H, float fs, int lg,
+                   cudaStream_t st) {
+  const int T = kPasses * kWarps * (32 >> lg);
+  const int tiles = (H + T - 1) / T;
+  cudaError_t e = cudaMemsetAsync(
+      word, 0, (size_t)B * tiles * sizeof(unsigned long long), st);
+  if (e != cudaSuccess) return e;
+  const size_t smem = (size_t)T * (sizeof(double) + sizeof(float)) +
+                      ((size_t)T + kBinades) * nhop * sizeof(float);
+  e = llsm::allow_smem(sample_cycles_kernel<R>, smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid(tiles, B);
+  sample_cycles_kernel<R><<<grid, kThreads, smem, st>>>(f0, out, word, N,
+                                                        nhop, H, fs, lg);
+  return cudaGetLastError();
+}
+
+// lanes a hop: the fewest (at least kWarps, so a tile has at most 128
+// hops) that keep a run within 10 samples
+int lanes_log2(int nhop) {
+  int lg = 0;
+  while ((1 << lg) < kWarps) ++lg;
+  while (lg < 5 && (nhop + (1 << lg) - 1) >> lg > 10) ++lg;
+  return lg;
 }
 
 }  // namespace
 
-extern "C" int llsm_sample_cycles(const float* f0, float* out, double* hop,
-                                  int B, int N, int nhop, int nx, float fs,
-                                  void* stream) {
+// words the caller provides: one a tile of each row (llsm_sample_cycles
+// zeroes them on its stream before the kernel)
+extern "C" int llsm_sample_cycles_words(int B, int nhop, int nx) {
+  if (B <= 0 || nhop <= 0 || nx <= 0) return 1;
+  const int T = kPasses * kWarps * (32 >> lanes_log2(nhop));
+  return B * ((nx / nhop + T - 1) / T);
+}
+
+extern "C" int llsm_sample_cycles(const float* f0, float* out,
+                                  unsigned long long* word, int B, int N,
+                                  int nhop, int nx, float fs, void* stream) {
   if (B <= 0 || nx <= 0) return (int)cudaGetLastError();
-  if (N < 2 || nhop <= 0 || nx % nhop) return (int)cudaErrorInvalidValue;
+  if (N < 2 || nhop <= 0 || nx % nhop || nhop > 32 * 16)
+    return (int)cudaErrorInvalidValue;
+  const int lg = lanes_log2(nhop);
+  const int run = (nhop + (1 << lg) - 1) >> lg;
   const int H = nx / nhop;
-  const size_t smem = (size_t)kHopsBlock * (nhop | 1) * sizeof(float);
-  cudaError_t e = llsm::allow_smem(cycles_kernel, smem);
-  if (e != cudaSuccess) return (int)e;
   cudaStream_t st = (cudaStream_t)stream;
-  dim3 grid((H + kHopsBlock - 1) / kHopsBlock, B);
-  hop_totals_kernel<<<grid, kHopsBlock, 0, st>>>(f0, hop, N, nhop, H, fs);
-  hop_offsets_kernel<<<B, kScan, 0, st>>>(hop, H);
-  cycles_kernel<<<grid, kHopsBlock, smem, st>>>(f0, hop, out, N, nhop, H,
-                                                fs);
-  return (int)cudaGetLastError();
+  cudaError_t e;
+  switch (run) {
+#define LLSM_RUN(n)                                                        \
+    case n: e = launch<n>(f0, out, word, B, N, nhop, H, fs, lg, st); break;
+    LLSM_RUN(1) LLSM_RUN(2) LLSM_RUN(3) LLSM_RUN(4) LLSM_RUN(5) LLSM_RUN(6)
+    LLSM_RUN(7) LLSM_RUN(8) LLSM_RUN(9) LLSM_RUN(10)
+#undef LLSM_RUN
+    default: e = launch<16>(f0, out, word, B, N, nhop, H, fs, lg, st);
+  }
+  return (int)e;
 }

@@ -40,6 +40,10 @@ class SynthResult(NamedTuple):
     fs: float
 
 
+# the ROADMAP Queue 1 item that covers the options still refused, by title
+DSP_KIT = 'Queue 1, "The rest of the DSP kit, and the options still refused",'
+
+
 def _unported(what: str, item: str):
     return NotImplementedError(
         f"{what} is not ported to libllsm2_tpu_torch yet ({item} in "
@@ -49,16 +53,16 @@ def _unported(what: str, item: str):
 def _check_analysis(opt: AnalysisOptions) -> None:
     if not opt.use_pallas:
         raise _unported("use_pallas=False (the JAX package's jnp branches)",
-                        "Queue 1 item 11")
+                        DSP_KIT)
     if opt.hm_method != "czt":
-        raise _unported(f"hm_method={opt.hm_method!r}", "Queue 1 item 11")
+        raise _unported(f"hm_method={opt.hm_method!r}", DSP_KIT)
     if opt.hm_passes != 1:
-        raise _unported(f"hm_passes={opt.hm_passes}", "Queue 1 item 11")
+        raise _unported(f"hm_passes={opt.hm_passes}", DSP_KIT)
     if opt.hm_correction != "deconv":
         raise _unported(f"hm_correction={opt.hm_correction!r}",
-                        "Queue 1 item 11")
+                        DSP_KIT)
     if opt.frame_chunk:
-        raise _unported("frame_chunk > 0", "Queue 1 item 11")
+        raise _unported("frame_chunk > 0", DSP_KIT)
     if _resamples(opt):
         raise ValueError(
             f"_analyze takes x at conf.fs = {opt.conf.fs} Hz, not at "
@@ -229,7 +233,7 @@ def _deconv_correction(opt: AnalysisOptions, f0, cyc, ampl, phse, mask,
     D = hh + 1                       # |d| band: window +- OLA half-width
     if D > 128:
         raise _unported("deconvolution bands wider than 128 frames",
-                        "Queue 1 item 11")
+                        DSP_KIT)
     voiced = f0 > 0.0
     f0s = torch.where(voiced, f0, torch.full_like(f0, 100.0))
     halfwidth = torch.clamp(conf.rel_winsize * conf.fs / (2.0 * f0s), 2.0,
@@ -613,7 +617,7 @@ def _render_envelopes(chunk: Chunk, cyc: torch.Tensor, nhop: int,
     package's use_pallas=False branch is not ported."""
     if not use_pallas:
         raise _unported("use_pallas=False (the JAX package's jnp branches)",
-                        "Queue 1 item 11")
+                        DSP_KIT)
     N = chunk.f0.shape[-1]
     nx = cyc.shape[-1]
     centers = torch.clamp(torch.arange(N, device=cyc.device) * nhop,
@@ -693,9 +697,9 @@ def _synthesize(opt: SynthesisOptions, chunk: Chunk, bins=None) -> SynthResult:
     (at the rendering rate)."""
     if not opt.use_pallas:
         raise _unported("use_pallas=False (the JAX package's jnp branches)",
-                        "Queue 1 item 11")
+                        DSP_KIT)
     if opt.noise_idft != "matmul":
-        raise _unported(f"noise_idft={opt.noise_idft!r}", "Queue 1 item 5")
+        raise _unported(f"noise_idft={opt.noise_idft!r}", DSP_KIT)
     conf = chunk.conf
     fs = opt.fs
     if abs(conf.thop * fs - round(conf.thop * fs)) > 1e-6:

@@ -42,6 +42,10 @@ RD_PHASE_TGRID = 64
 _SCORE_ELEMS = 1 << 27
 
 
+# the ROADMAP Queue 1 item that covers what layer 1 still refuses, by title
+LAYER1_LEFTOVERS = 'Queue 1, "Layer-1 leftovers",'
+
+
 def _unported(what: str, item: str):
     return NotImplementedError(
         f"{what} is not ported to libllsm2_tpu_torch yet ({item} in "
@@ -296,7 +300,7 @@ def chunk_to_layer1(chunk: Chunk, nfft: int | None = None,
     is not ported."""
     if sections:
         raise _unported("sections= (fit_rd_sections, _resonance_dev)",
-                        "Queue 1 item 7")
+                        LAYER1_LEFTOVERS)
     conf = chunk.conf
     nspec = (int(nfft) // 2 + 1) if nfft else conf.nspec
     mask = chunk.hm_mask
@@ -359,9 +363,10 @@ def chunk_to_layer0(chunk: Chunk) -> Chunk:
 
 def fit_rd_sections(*args, **kw):
     """Rd fit under known tract sections: not ported."""
-    raise _unported("fit_rd_sections", "Queue 1 item 7")
+    raise _unported("fit_rd_sections", LAYER1_LEFTOVERS)
 
 
 def fit_rd(*args, **kw):
     """The legacy amplitude-tilt Rd fit: not ported."""
-    raise _unported("fit_rd (the legacy amplitude-tilt fit)", "Queue 1 item 7")
+    raise _unported("fit_rd (the legacy amplitude-tilt fit)",
+                    LAYER1_LEFTOVERS)

@@ -140,10 +140,10 @@ def _pbp_synthesize(opt: SynthesisOptions, chunk: Chunk,
         raise ValueError("PbP synthesis requires layer-1 parameters")
     if not opt.use_pallas:
         raise layer0._unported("use_pallas=False (the JAX package's jnp "
-                               "branches)", "Queue 1 item 11")
+                               "branches)", layer0.DSP_KIT)
     if opt.noise_idft != "matmul":
         raise layer0._unported(f"noise_idft={opt.noise_idft!r}",
-                               "Queue 1 item 5")
+                               layer0.DSP_KIT)
     conf = chunk.conf
     nhop = conf.nhop
     nx = chunk.nfrm * nhop

@@ -31,7 +31,8 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 _U = ctypes.c_uint
-# C entry points: name -> argtypes (every one returns cudaGetLastError())
+# C entry points: name -> argtypes (each returns an int: cudaGetLastError(),
+# or for llsm_sample_cycles_words a count)
 SIGNATURES = {
     # cyc, ampl, phse, mask, x (or null), y, B, N, K, nhop, stream
     "llsm_osc_bank": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
@@ -71,9 +72,11 @@ SIGNATURES = {
                         _P),
     # re, im, bits_re, bits_im (or null), seed, frame_base, N, nbin, stream
     "llsm_noise_bins": (_P, _P, _P, _P, _U, _U, _I, _I, _P),
-    # f0, out, hop scratch (float64 [B, nx / nhop]), B, N, nhop, nx, fs,
-    # stream
+    # f0, out, words (int64 scratch: llsm_sample_cycles_words of them), B,
+    # N, nhop, nx, fs, stream
     "llsm_sample_cycles": (_P, _P, _P, _I, _I, _I, _I, _F, _P),
+    # B, nhop, nx -> how many words llsm_sample_cycles needs
+    "llsm_sample_cycles_words": (_I, _I, _I),
 }
 
 _lib = None

@@ -155,8 +155,22 @@ def refine_f0(x, f0, *, nhop: int, fs: float, halfwin_max: int,
     use_pallas=True branches): on a lowpass-decimated signal where some
     D in 8/4/2 divides the hop and clears f0_ceil (harmonics.py:372-492),
     else at the full rate through the projection kernel
-    (harmonics.py:494-543).  x [B, nx], f0 [B, N] -> [B, N]."""
+    (harmonics.py:494-543).  x [B, nx], f0 [B, N] -> [B, N].
+
+    On the CPU each row is refined by a call of its own, so a row gives
+    the same bits alone and in any batch: PyTorch's CPU library takes the
+    FIR's batched product of strided rows by another routine for one row
+    than for many, and its elementwise loops compute a call's full vectors
+    with SLEEF but the rest (a [B, N] row's tail, a thread's share's edge)
+    with libm, whose atan2 differs in the last bit.  On the card every
+    element takes one path and the products do not depend on the batch."""
     B, N = f0.shape
+    if B > 1 and x.device.type == "cpu":
+        kw = dict(nhop=nhop, fs=fs, halfwin_max=halfwin_max,
+                  rel_winsize=rel_winsize, window=window, iters=iters,
+                  max_rel_dev=max_rel_dev, f0_ceil=f0_ceil)
+        return torch.cat([refine_f0(x[b:b + 1], f0[b:b + 1], **kw)
+                          for b in range(B)])
     nx = x.shape[-1]
     dev = x.device
     H = halfwin_max

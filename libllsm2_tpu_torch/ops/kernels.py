@@ -453,7 +453,8 @@ def env_render(cyc: torch.Tensor, edc: torch.Tensor, ar: torch.Tensor,
     = max(lerp(edc) + sum_k lerp(ar) cos(2 pi k cyc) - lerp(ai) sin(...),
     0), base [B, C, nx] = max(lerp(base), 1e-8)); sample t of frame i
     lerps frames i and i + 1, the last frame holds constant.  nx = N*nhop
-    unless nhop is given: then nx <= N*nhop (the render is cut)."""
+    unless nhop is given: then nx <= N*nhop (the render is cut).  The
+    kernel takes Ke <= 8."""
     if not _on_cuda(cyc, edc, ar, ai, base):
         return env_render_ref(cyc, edc, ar, ai, base, nhop)
     B, N, C, Ke = ar.shape
@@ -463,6 +464,8 @@ def env_render(cyc: torch.Tensor, edc: torch.Tensor, ar: torch.Tensor,
             or edc.shape != (B, N, C) or base.shape != (B, N, C) \
             or ai.shape != ar.shape:
         raise ValueError("env_render: shape mismatch")
+    if not 1 <= Ke <= 8:
+        raise ValueError(f"env_render: {Ke} envelope harmonics (1 to 8)")
     cyc, edc, ar, ai, base = map(_f32, (cyc, edc, ar, ai, base))
     env = torch.empty((B, C, nx), dtype=FP, device=cyc.device)
     base_o = torch.empty_like(env)
@@ -1044,37 +1047,57 @@ def sample_cycles(f0: torch.Tensor, nhop: int, fs: float,
     N = f0.shape[-1]
     if N < 2:
         raise ValueError(f"sample_cycles: {N} frames (at least 2)")
-    f = _f32(f0).reshape(-1, N)
-    B = f.shape[0]
-    out = torch.empty((B, nx), dtype=FP, device=f.device)
-    hop = torch.empty((B, nx // nhop), dtype=torch.float64, device=f.device)
-    _launch("sample_cycles", f.data_ptr(), out.data_ptr(), hop.data_ptr(),
-            B, N, int(nhop), int(nx), float(fs), _stream(f))
-    return out.reshape(f0.shape[:-1] + (nx,))
+    if nhop > 512:
+        raise ValueError(f"sample_cycles: nhop {nhop} > 512")
+    # few tensor operations: a lone call's host time is most of its time
+    f = f0 if f0.dtype == FP and f0.is_contiguous() else _f32(f0)
+    B = f.numel() // N
+    # one allocation: the track, then (8-byte aligned) the kernel's tile
+    # sums as int64, which the C entry zeroes (the call's memset)
+    n = B * nx + (B * nx) % 2
+    buf = torch.empty(n + 2 * _cycle_words(B, int(nhop), int(nx)),
+                      dtype=FP, device=f.device)
+    ptr = buf.data_ptr()
+    _launch("sample_cycles", f.data_ptr(), ptr, ptr + 4 * n, B, N,
+            int(nhop), int(nx), float(fs), _stream(f))
+    return buf[:B * nx].view(f0.shape[:-1] + (nx,))
+
+
+@functools.lru_cache(maxsize=64)
+def _cycle_words(B: int, nhop: int, nx: int) -> int:
+    """The tile words the cycle-track kernel needs for this shape."""
+    return _build.library().llsm_sample_cycles_words(B, nhop, nx)
 
 
 def sample_cycles_ref(f0: torch.Tensor, nhop: int, fs: float,
                       nx: int) -> torch.Tensor:
     """Plain version of sample_cycles.  F0 is linearly interpolated between
-    frame centers (i*nhop) and integrated in two levels: a float32 cumsum
-    within each hop (a few cycles, exact enough) plus a prefix sum of the
-    per-hop totals.  That prefix sum is taken in float64 and reduced mod 1
+    frame centers (i*nhop) and integrated in two levels: a cumsum of the
+    float32 steps within each hop (a few cycles; PyTorch's CPU accumulates
+    it in float64 and rounds each partial to float32) plus a prefix sum of
+    the per-hop totals.  That prefix sum is taken in float64 and reduced mod 1
     (the JAX package uses a mod-1 associative scan): a float32 cumsum over
     1600 hops would lose ~1e-4 cycles.  Integer cycles are irrelevant
     downstream."""
     if nx % nhop:
         raise ValueError("sample_cycles: nx must be a multiple of nhop")
-    n = f0.shape[-1]
-    dev = f0.device
-    f0s = torch.where(f0 > 0, f0, torch.zeros_like(f0))
-    pos = torch.arange(nx, dtype=FP, device=dev) / nhop
-    i0 = torch.clamp(torch.floor(pos).to(torch.int64), 0, n - 2)
-    t = torch.clamp(pos - i0, 0.0, 1.0)
-    f0_samp = f0s[..., i0] * (1.0 - t) + f0s[..., i0 + 1] * t
-    d = f0_samp / fs
+    d = cycle_steps(f0, nhop, fs, nx)
     within = torch.cumsum(d.reshape(d.shape[:-1] + (-1, nhop)), dim=-1)
     tot = torch.remainder(within[..., -1], 1.0).to(torch.float64)
     off = torch.remainder(torch.cumsum(tot, dim=-1), 1.0).to(FP)
     off = torch.cat([torch.zeros_like(off[..., :1]), off[..., :-1]], dim=-1)
     c = torch.remainder(off[..., None] + within, 1.0).reshape(d.shape)
     return torch.cat([torch.zeros_like(c[..., :1]), c[..., :-1]], dim=-1)
+
+
+def cycle_steps(f0: torch.Tensor, nhop: int, fs: float,
+                nx: int) -> torch.Tensor:
+    """The cycles each sample advances, d = F0 / fs, F0 (clamped at 0)
+    lerped between frame centres (i*nhop): f0 [..., N] -> [..., nx] in
+    float32, the operations the kernel repeats (f0_over_fs)."""
+    n = f0.shape[-1]
+    f0s = torch.where(f0 > 0, f0, torch.zeros_like(f0))
+    pos = torch.arange(nx, dtype=FP, device=f0.device) / nhop
+    i0 = torch.clamp(torch.floor(pos).to(torch.int64), 0, n - 2)
+    t = torch.clamp(pos - i0, 0.0, 1.0)
+    return (f0s[..., i0] * (1.0 - t) + f0s[..., i0 + 1] * t) / fs

@@ -1,8 +1,10 @@
-"""Where the time of three of the port's kernels goes, by compiling passes
+"""Where the time of four of the port's kernels goes, by compiling passes
 out: noise_mod_ola.cu (pass 1, the band iDFT; pass 2, the OLA, envelope
-and band sum), deconv_full.cu (the tap build; the output pass) and
+and band sum), deconv_full.cu (the tap build; the output pass),
 harmonic_project_mxu.cu (the making of G and the window rows; the banded
-product), each built four times from the sources in
+product) and sample_cycles.cu (the steps' lerp and divide; the output
+pass, on F0 70-300 Hz with every 7th frame unvoiced), each built four
+times from the sources in
 libllsm2_tpu_torch/csrc with one, the other, both or neither pass skipped
 (their LLSM_SKIP_PASS_A / _B), and timed at the bench shape (128 rows x
 1600 frames, 16 kHz: hop 80, K 80, D 7; the projection's halfwidths 107-
@@ -12,7 +14,7 @@ passes skipped is the staging: the block's loads into shared memory and
 its tables (for the projection, the chunk walk, its barriers and the
 epilogue).  Needs a CUDA card and nvcc; imports no jax:
 
-    PYTHONPATH=. python3 scripts/port_kernel_passes.py
+    PYTHONPATH=. python3 scripts/port_kernel_passes.py [only=name,...]
 
 The variants go to build/dev/ (listed in .gitignore).
 """
@@ -34,15 +36,16 @@ PASSES = {
                       "pass 2 (OLA, envelope, band sum)"),
     "deconv_full": ("the tap build", "the output pass"),
     "harmonic_project_mxu": ("G and the window rows", "the banded product"),
+    "sample_cycles": ("the steps' lerp and divide", "the output pass"),
 }
 
 
-def build_variants():
-    """-> {(name, skip_a, skip_b): loaded library}, one nvcc each, all
-    started together."""
+def build_variants(names):
+    """-> {(name, skip_a, skip_b): loaded library} for the kernels `names`,
+    one nvcc each, all started together."""
     OUT.mkdir(parents=True, exist_ok=True)
     jobs = {}
-    for name in PASSES:
+    for name in names:
         for a in (0, 1):
             for b in (0, 1):
                 so = OUT / f"passes_{name}_{a}{b}.so"
@@ -88,7 +91,9 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True)
     print(smi.stdout.strip(), flush=True)
-    libs = build_variants()
+    kw = dict(a.split("=", 1) for a in sys.argv[1:])
+    names = kw["only"].split(",") if "only" in kw else list(PASSES)
+    libs = build_variants(names)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     r = lambda *s: torch.rand(*s, generator=g, device=dev)
@@ -109,6 +114,11 @@ def main():
     hw_p = 32000.0 / (70.0 + 230.0 * r(B, N))          # F0 70-300 Hz
     p_re, p_im = torch.empty_like(ampl), torch.empty_like(ampl)
     p_ws, p_xs = torch.empty_like(hw_p), torch.empty_like(hw_p)
+    f0 = 70.0 + 230.0 * r(B, N)
+    f0[:, ::7] = 0.0                                   # voicing edges
+    cyc_o = torch.empty(B, N * NHOP, device=dev)
+    # its tile words (at most one a row's 8 hops; the C entry zeroes them)
+    words = torch.empty(B * ((N + 7) // 8), dtype=torch.int64, device=dev)
     stream = torch.cuda.current_stream().cuda_stream
     calls = {
         "noise_mod_ola": lambda fn: fn(
@@ -124,6 +134,9 @@ def main():
             x.data_ptr(), cyc.data_ptr(), hw_p.data_ptr(), p_re.data_ptr(),
             p_im.data_ptr(), p_ws.data_ptr(), p_xs.data_ptr(), B, N * NHOP,
             N, K, NHOP, 6 * NHOP, 0.5, -0.5, 0.0, 0.0, stream),
+        "sample_cycles": lambda fn: fn(
+            f0.data_ptr(), cyc_o.data_ptr(), words.data_ptr(), B, N, NHOP,
+            N * NHOP, 16000.0, stream),
     }
     for (name, a, b), fn in libs.items():
         rc = calls[name](fn)

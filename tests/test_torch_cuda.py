@@ -539,6 +539,36 @@ def test_env_render_kernel_matches_plain_on_card(cut):
 
 
 @pytest.mark.requires_cuda
+@pytest.mark.parametrize("B,Nf,C,Ke,nhop,cut", [
+    (1, 301, 4, 4, 80, 2),      # nx % 4 == 2: the scalar path
+    (2, 301, 4, 4, 80, 44),     # a cut render on the float4 path
+    (2, 2, 4, 4, 80, 0),        # N = 2, one partial tile
+    (1, 130, 1, 1, 80, 0),
+    (2, 130, 5, 3, 55, 0),
+    (2, 130, 4, 6, 80, 3),
+    (3, 64, 4, 4, 160, 0),      # a whole tile
+])
+def test_env_render_kernel_paths_on_card(B, Nf, C, Ke, nhop, cut):
+    """Both of env_render's paths (float4 along samples at C = Ke = 4 with
+    nhop and nx multiples of 4, a sample at a time otherwise) against the
+    twin: env 2e-5, base 2e-6 (test_pallas.py:231)."""
+    dev = _card()
+    g = torch.Generator().manual_seed(B * 1000 + C * 10 + Ke)
+    r = lambda *s: torch.rand(*s, generator=g).to(dev)
+    args = (r(B, Nf * nhop)[:, :Nf * nhop - cut], r(B, Nf, C),
+            0.3 * r(B, Nf, C, Ke) - 0.15, 0.3 * r(B, Nf, C, Ke) - 0.15,
+            r(B, Nf, C) + 0.5)
+    kernels.reset_launches()
+    env, base = kernels.env_render(*args, nhop=nhop)
+    env_r, base_r = kernels.env_render_ref(*args, nhop=nhop)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["env_render"] == 1
+    assert env.shape == (B, C, Nf * nhop - cut)
+    torch.testing.assert_close(env, env_r, atol=2e-5, rtol=0)
+    torch.testing.assert_close(base, base_r, atol=2e-6, rtol=0)
+
+
+@pytest.mark.requires_cuda
 @pytest.mark.parametrize("nhop,polar,Nf", [(80, False, N), (80, True, 301),
                                            (55, False, N), (160, False, 130)])
 def test_deconv_full_kernel_matches_plain_on_card(nhop, polar, Nf):
@@ -622,6 +652,30 @@ def test_sample_cycles_kernel_matches_plain_on_card(nhop):
     assert wrapped(got.double() - ref.double()) <= 1e-4
     assert wrapped(got.cpu().double() - cpu.double()) <= 1e-6
     assert float(got.min()) >= 0.0 and float(got.max()) < 1.0
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("nhop,B,Nf", [(55, 1, 1601), (80, 3, 1600),
+                                       (80, 1, 1633), (110, 2, 97),
+                                       (160, 3, 1601), (40, 3, 1633),
+                                       (400, 2, 301), (80, 1, 210000)])
+def test_sample_cycles_kernel_equals_cpu_twin_on_card(nhop, B, Nf):
+    """On _f0_rows tracks (voicing edges included; their in-hop sums are
+    exact: tests/test_torch_ops.py) the kernel equals the twin run on the
+    CPU bit for bit, for one row, for hop counts that are not a multiple
+    of the kernel's tile and for a row past 2^24 samples (its positions
+    divided, not read from the table); a row whose hop ramps from 1e-11
+    Hz to 1000 Hz (sums not exact) stays within 1e-6 cycles."""
+    dev = _card()
+    fs, nx = 200.0 * nhop, Nf * nhop
+    f0 = T(_f0_rows(B, Nf, nhop))
+    got = kernels.sample_cycles(f0.to(dev), nhop, fs, nx).cpu()
+    assert torch.equal(got, kernels.sample_cycles_ref(f0, nhop, fs, nx))
+    odd = f0[:1].clone()
+    odd[0, 10], odd[0, 11] = 1e-11, 1000.0
+    got = kernels.sample_cycles(odd.to(dev), nhop, fs, nx).cpu().double()
+    d = got - kernels.sample_cycles_ref(odd, nhop, fs, nx).double()
+    assert float((d - torch.round(d)).abs().max()) <= 1e-6
 
 
 @pytest.mark.requires_cuda

@@ -142,6 +142,102 @@ def test_sample_cycles_twin_matches_and_rows_stand_alone(nhop):
         assert torch.equal(alone[0], got[r])
 
 
+def _sums(a):
+    """Float64 sums over a's last axis, taken sequentially, in reverse and
+    pairwise (halves first)."""
+    def pairwise(v):
+        if v.shape[-1] == 1:
+            return v[..., 0]
+        h = v.shape[-1] // 2
+        return pairwise(v[..., :h]) + pairwise(v[..., h:])
+
+    seq, rev = a[..., 0], a[..., -1]
+    for i in range(1, a.shape[-1]):
+        seq, rev = seq + a[..., i], rev + a[..., -1 - i]
+    return seq, rev, pairwise(a)
+
+
+def _sum_orders(d):
+    """Every float64 partial d[..., :m + 1] in _sums' three orders."""
+    parts = [_sums(d[..., :m + 1]) for m in range(d.shape[-1])]
+    return tuple(np.stack(p, axis=-1) for p in zip(*parts))
+
+
+def _exact_sums(d):
+    """Per leading index: True where every partial of the nonnegative
+    float64 rows d[..., :] is exact in float64 (no value has a set bit
+    below 2^(e - 52), e the exponent of the largest partial)."""
+    m, e = np.frexp(d)
+    mi = (m * 2.0 ** 53).astype(np.int64)
+    low = np.where(d > 0, e - 53 + np.log2(np.maximum(mi & -mi, 1)), 1e9)
+    top = np.frexp(d.sum(axis=-1))[1] - 1
+    return low.min(axis=-1) >= top - 52
+
+
+def _bench_f0():
+    """F0 tracks the cycle track meets: the 8 s bench rows 0, 1, 64 after
+    refine_f0 (16 kHz, f0_floor 70) and three _f0_rows tracks with
+    unvoiced stretches (voicing edges ramp to 0 within a hop)."""
+    from test_torch_cuda import _f0_rows
+    conf = tconfig.create_aoptions(f0_floor=70.0).conf
+    rows = ttestsig.make_test_utterances([(0, 0.05), (1, 0.05), (64, 0.0)],
+                                         duration=8.0)
+    f0 = np.stack([r[1] for r in rows]).astype(np.float32)
+    x = np.stack([r[0][:f0.shape[1] * conf.nhop]
+                  for r in rows]).astype(np.float32)
+    ref = thm.refine_f0(T(x), T(f0), nhop=conf.nhop, fs=conf.fs,
+                        halfwin_max=conf.halfwin_max,
+                        rel_winsize=conf.rel_winsize, f0_ceil=conf.f0_ceil)
+    return torch.cat([ref, T(_f0_rows(3, f0.shape[1], 80))])
+
+
+def test_sample_cycles_sums_are_exact_on_the_bench_tracks():
+    """The fact the cycle-track kernel leans on (csrc/sample_cycles.cu):
+    on the bench F0 tracks every hop's float64 partials of the twin's d
+    are exact, so the twin's partials (PyTorch's CPU cumsum, float64 then
+    rounded to float32) equal the same d summed sequentially, in reverse
+    and pairwise, bit for bit, as do the float64 prefix sums of the hop
+    totals mod 1 (every 50th prefix: the 1600 hops' pairwise sums)."""
+    from libllsm2_tpu_torch.ops import kernels
+    nhop, fs = 80, 16000.0
+    f0 = _bench_f0()
+    nx = f0.shape[1] * nhop
+    d = kernels.cycle_steps(f0, nhop, fs, nx).reshape(len(f0), -1, nhop)
+    within = torch.cumsum(d, dim=-1).numpy()
+    d64 = d.double().numpy()
+    assert (d64 == 0).any() and _exact_sums(d64).all()
+    orders = _sum_orders(d64)
+    for part in orders:
+        assert np.array_equal(part.astype(np.float32), within)
+        assert np.array_equal(part, orders[0])
+    tot = np.remainder(within[..., -1], np.float32(1.0)).astype(np.float64)
+    assert _exact_sums(tot).all()
+    seq = np.cumsum(tot, axis=-1)
+    for m in range(0, tot.shape[-1], 50):
+        for part in _sums(tot[:, :m + 1]):
+            assert np.array_equal(part, seq[:, m])
+
+
+def test_sample_cycles_orders_part_where_sums_are_not_exact():
+    """The limit of that fact: a hop ramping from a tiny positive F0 (1e-11
+    Hz, whose d has bits far below the hop's largest partial's last) to
+    1000 Hz.  Its float64 partials are not exact, and the three orders part
+    by up to 4.4e-16 cycles (two units in the last place at ~2.5 cycles);
+    rounded to float32 they agree here, and the kernel is held within 1e-6
+    cycles of the twin on such rows (tests/test_torch_cuda.py)."""
+    from libllsm2_tpu_torch.ops import kernels
+    f0 = torch.tensor([[1e-11, 1000.0, 1000.0]])
+    d = kernels.cycle_steps(f0, 80, 16000.0, 160).reshape(1, 2, 80)
+    d64 = d.double().numpy()
+    assert not _exact_sums(d64)[0, 0] and _exact_sums(d64)[0, 1]
+    seq, rev, pair = _sum_orders(d64)
+    gap = max(np.abs(seq - rev).max(), np.abs(seq - pair).max())
+    assert 0 < gap <= 2 * np.spacing(seq.max())
+    for part in (rev, pair):
+        assert np.abs(part.astype(np.float32) - seq.astype(np.float32)).max() \
+            <= np.spacing(np.float32(seq.max()))
+
+
 @pytest.mark.parametrize("tail", [0.0, 0.3])
 def test_refine_f0_decimated_matches(tail):
     """The port's refine is the JAX package's decimated branch (the one
@@ -164,6 +260,38 @@ def test_refine_f0_decimated_matches(tail):
                                        **kw))
         np.testing.assert_allclose(got[b], ref, rtol=1e-4)
         assert np.all(got[b][f0[b] == 0] == 0)
+
+
+def test_refine_f0_row_alone_equals_its_row_in_a_batch():
+    """refine_f0 on the 0.5 s bench rows of scripts/port_card_vs_cpu.py
+    (batch=66, f0_floor 70): rows 0, 1, 64 and 65 each alone (a batch of
+    one) equal their rows of the 66-row batch bit for bit, at one thread
+    and at four, and stay within the decimated test's rtol 1e-4 of the
+    JAX refine."""
+    conf = tconfig.create_aoptions(f0_floor=70.0).conf
+    rows = ttestsig.make_test_utterances(
+        [(i, 0.05 if i < 64 else 0.0) for i in range(66)], duration=0.5)
+    f0 = np.stack([r[1] for r in rows]).astype(np.float32)
+    nhop, nfrm = conf.nhop, f0.shape[1]
+    x = np.stack([np.pad(r[0], (0, max(nfrm * nhop - len(r[0]), 0)))
+                  [:nfrm * nhop] for r in rows]).astype(np.float32)
+    kw = dict(nhop=nhop, fs=conf.fs, halfwin_max=conf.halfwin_max,
+              rel_winsize=conf.rel_winsize, f0_ceil=conf.f0_ceil)
+    threads = torch.get_num_threads()
+    try:
+        for n in (1, 4):
+            torch.set_num_threads(n)
+            whole = thm.refine_f0(T(x), T(f0), **kw)
+            for r in (0, 1, 64, 65):
+                alone = thm.refine_f0(T(x[r:r + 1]), T(f0[r:r + 1]), **kw)
+                assert torch.equal(alone[0], whole[r]), (n, r)
+    finally:
+        torch.set_num_threads(threads)
+    centers = jnp.arange(nfrm, dtype=jnp.int32) * nhop
+    for r in (0, 64):
+        ref = np.asarray(jhm.refine_f0(jnp.asarray(x[r]), jnp.asarray(f0[r]),
+                                       centers, use_pallas=True, **kw))
+        np.testing.assert_allclose(whole[r].numpy(), ref, rtol=1e-4)
 
 
 @pytest.mark.parametrize("fn,kw", [
