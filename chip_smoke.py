@@ -105,6 +105,30 @@ non-zero without the final "ok" line:
      rows 0 and 1: the SNR of PbP y_sin against the layer-1 sinusoidal
      y_sin within 0.2 dB of the JAX package's.  Prints the PbP ms,
      audio-sec/s and peak.
+ 11. the corpus from files (BASELINE config 5 on one card): 1000 int16
+     WAVs at 16 kHz cut from the bench rows (testsig.write_test_corpus:
+     lengths uniform over 0.5-8 s, half noisy, half of each kind with an
+     F0 sidecar, the rest tracked by ops/f0.py) through run_corpus_files
+     with buckets (200, 400, 800, 1600), batch 64, want_audio=False and
+     the library default, counters zeroed before: the native loader
+     built; every main-path kernel launched; every file yielded once; a
+     second call with the checkpoint yields nothing; the files of the
+     first 400-frame batch equal run_corpus on the same int16-quantized
+     float signals bit for bit (SNR, y, nx); three tracked files alone (a
+     batch of one) equal their batch rows bit for bit (F0 and SNR); the
+     first 16 files hold the JAX package's pins (sidecar rows within 0.05
+     dB, tracked rows voiced alike in >= 99% of frames and within 0.2 dB).
+     Then a warm run, whose SNRs must equal the first's: audio-sec/s from
+     files to SNR, per bucket the step, tracker and assembly ms and the
+     share of the assembly hidden behind the card, the peak; and the
+     tracker alone on 64 x 8 s rows beside its Viterbi.
+ 12. the edits (BASELINE config 4) on phase 10's 128 x 8 s layer-1 chunk:
+     pitch_shift(2.0) -> time_stretch(1.5) -> synthesize_batch, counters
+     zeroed before: osc_bank, noise_mod_ola, noise_bins and sample_cycles
+     launched; 2400 frames, every row's voiced median F0 doubled (+- 1%),
+     a finite output; rows 0/1 hold the JAX package's frame count, median
+     F0 (1e-4 relative) and y_sin rms (0.05 dB).  Then the chain's stages
+     (median of 3) and each of the ten edits once, ms and peak.
 Phases 5, 6, 7 and 9 also time every call of each of their kernels in
 the counted run at full batch (median of 10, and a launch's share of a
 run of 20 back-to-back launches: the device time where the host enqueues
@@ -116,7 +140,8 @@ the kernels' JSON summary: launches from the phase that runs each (5 for
 the six, fir_frames, noise_bins and sample_cycles, 6 for
 harmonic_project_mxu, 7 for
 harmonic_project, 9 for env_render; denoise_apply also "finish_launches"
-and "finish_full_batch" for its second launch); ms, plain_ms, library_ms and
+and "finish_full_batch" for its second launch; "launches_by_phase" the
+counts of phases 11 and 12); ms, plain_ms, library_ms and
 bound_ms at the first 2-row call of phase 3; "full_batch" a record per
 call at full batch ("analysis_calls" on harmonic_project_win and
 "render_calls" on osc_bank: phase 5's two harmonic_analysis calls and two
@@ -132,12 +157,14 @@ float32 matmul and convolution.
 The SNR, rd and PbP pins are the JAX package's own values on the CPU, from
 
     JAX_PLATFORMS=cpu PYTHONPATH=. python scripts/port_jax_pins.py \
-        [only=l0,11k,l1,pbp]
+        [only=l0,11k,l1,pbp,corpus,edits]
 
-(l0: phases 4 and 5; 11k: phases 7 and 8; l1: phase 9; pbp: phase 10).
+(l0: phases 4 and 5; 11k: phases 7 and 8; l1: phase 9; pbp: phase 10;
+corpus: phase 11; edits: phase 12).
 """
 import dataclasses
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -187,6 +214,45 @@ PBP_PINS_DB = {0: 2.5078524906236277, 1: -3.4844267509230527}
 # analysis and chunk_to_layer1 (Rd 0.4 and 1.0; the same script)
 RD_PINS = {0: 0.41814684867858887, 1: 0.9919065237045288}
 RD_PIN_REL_TOL = 0.01
+# phase 11: the corpus from files (BASELINE config 5 on one card)
+CORPUS_FILES, CORPUS_BATCH = 1000, 64
+CORPUS_BUCKETS = (200, 400, 800, 1600)
+CORPUS_ALONE = 3                          # tracked files also run alone
+# the JAX package's run_corpus_files on the first 16 files (batch_size 8),
+# from
+#   JAX_PLATFORMS=cpu PYTHONPATH=. python scripts/port_jax_pins.py only=corpus
+# file -> (SNR dB, None for a sidecar file, else the JAX tracker's voicing
+# over the file's bucket as run lengths, the first unvoiced)
+CORPUS_PINS = {0: (30.440826416015625, None), 1: (42.857200622558594, None),
+               2: (30.40850067138672, [0, 125, 6, 69]),
+               3: (39.040592193603516, [0, 1471, 3, 126]),
+               4: (29.94118881225586, None), 5: (56.96882629394531, None),
+               6: (30.782182693481445, [0, 1505, 5, 90]),
+               7: (40.14470672607422, [0, 105, 5, 90]),
+               8: (30.116289138793945, None), 9: (49.6275749206543, None),
+               10: (29.99997901916504, [0, 365, 4, 31]),
+               11: (39.53449630737305, [0, 913, 4, 683]),
+               12: (29.7045841217041, None), 13: (49.08095932006836, None),
+               14: (29.98853302001953, [0, 287, 4, 109]),
+               15: (39.314510345458984, [0, 1072, 6, 522])}
+CORPUS_SIDECAR_TOL_DB = 0.05
+# a tracked file's frames just past its end see a YIN span of zeros, where
+# the CMNDF degenerates and the Viterbi meets near-ties: one frame there
+# voiced differently (file 10, frame 368 of 400; the port on the CPU makes
+# the same flip, so it is the two FFT libraries' rounding, not the card)
+# moved that file's SNR 0.39 dB through the denoiser's frame filters
+CORPUS_TRACKED_TOL_DB = 0.5
+CORPUS_VOICING_MIN = 0.99                 # share of frames voiced alike
+# phase 12: BASELINE config 4 on phase 10's LF rows 0 and 1, the JAX
+# package's edited frame count, voiced median F0 and y_sin rms, from
+#   JAX_PLATFORMS=cpu PYTHONPATH=. python scripts/port_jax_pins.py only=edits
+EDIT_PINS = {0: dict(nfrm=2400, f0_median=279.9015197753906,
+                     rms=0.40369167166039716),
+             1: dict(nfrm=2400, f0_median=279.93310546875,
+                     rms=0.590258163325809)}
+EDIT_F0_REL_TOL = 1e-4
+EDIT_RMS_TOL_DB = 0.05
+EDIT_DOUBLE_TOL = 0.01                    # every row's median F0 ratio, 2 +- 1%
 RD_CPU_REL_TOL = 1e-3                     # phase 10: card rd against the CPU
 LF_RD = (0.4, 1.0, 1.8, 2.7)              # phase 10: true Rd of row i % 4
 RD_REL_TOL = 0.15                         # tests/test_layer1.py's criterion
@@ -783,6 +849,19 @@ def host_call_ms(torch, fn, reps):
     return (t1 - t0) * 1e3 / reps
 
 
+def synced_ms(torch, fn, reps):
+    """Milliseconds of fn() from a synchronized start to a synchronized end
+    on the host's clock, median of reps."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
 def peak_above(torch, fn):
     """-> (fn(), the peak device memory fn takes above what was allocated
     when it started, GiB)."""
@@ -1050,7 +1129,7 @@ def layer1_round_trip(torch, kernels, mods, opt, sopt, data):
 
 def pbp_phase(torch, kernels, mods, opt, sopt, dev):
     """Phase 10: LF rows -> the library-default analysis -> chunk_to_layer1
-    -> pbp_synthesize -> launches."""
+    -> pbp_synthesize -> (launches, the layer-1 chunk)."""
     from libllsm2_tpu_torch.container import (chunk_from_numpy,
                                               chunk_to_numpy, index_batch)
     layer0, layer1, pbp = mods
@@ -1118,6 +1197,277 @@ def pbp_phase(torch, kernels, mods, opt, sopt, dev):
                                               for k, v in ms.items())
           + f" (median of 3); PbP {B * DURATION / (ms['pbp'] / 1e3):.1f} "
           f"audio-sec/s; peak {peak:.2f} GiB")
+    return launches, l1
+
+
+def corpus_phase(torch, kernels, opt, sopt, rows, dev):
+    """Phase 11, BASELINE config 5 from files on one card: CORPUS_FILES
+    int16 WAVs cut from the bench rows (numpy x, f0) through
+    run_corpus_files (CORPUS_BUCKETS, CORPUS_BATCH, want_audio=False),
+    counters zeroed before -> launches.  Checks: every file yielded once,
+    resume yields nothing, a batch from files equals run_corpus on the
+    quantized signals bit for bit, tracked files alone equal their batch
+    rows, the JAX pins of the first 16 files; then a warm run timed."""
+    import math
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from libllsm2_tpu_torch.ops import f0 as f0mod
+    from libllsm2_tpu_torch.parallel import corpus
+    from libllsm2_tpu_torch.utils import dataio, testsig
+    phase("11 native loader", dataio.native_available(),
+          f"native/llsm_loader.cpp built with g++ into {dataio._SO_PATH}")
+    fs, nhop = opt.conf.fs, opt.conf.nhop
+    xs, f0s = rows
+
+    def run(paths, batch_size=CORPUS_BATCH, **kw):
+        """run_corpus_files with each tracker call's output kept by path ->
+        (the yielded dicts, {path: its F0 row on the card})."""
+        out, tracked, calls = [], {}, []
+        track = f0mod.track_batch
+
+        def hook(*args, **kw_):
+            calls.append(track(*args, **kw_))
+            return calls[-1]
+
+        f0mod.track_batch = hook
+        try:
+            for r in corpus.run_corpus_files(opt, sopt, paths, CORPUS_BUCKETS,
+                                             batch_size, **kw):
+                untracked = [p for p in r["paths"] if not sidecar[p]]
+                if untracked:
+                    tracked.update(zip(untracked, calls.pop()))
+                out.append(r)
+        finally:
+            f0mod.track_batch = track
+        return out, tracked
+
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        paths = testsig.write_test_corpus(
+            d, CORPUS_FILES, lambda i: (xs[testsig.corpus_row(i)],
+                                        f0s[testsig.corpus_row(i)]),
+            fs=fs, nhop=nhop)
+        sidecar = {p: os.path.exists(p[:-4] + ".f0.npy") for p in paths}
+        audio_s = sum(dataio.wav_nsamples(p) for p in paths) / fs
+        print(f"11 corpus: {len(paths)} int16 WAVs at {fs:g} Hz, "
+              f"{audio_s:.1f} s of audio, {sum(sidecar.values())} with an F0 "
+              f"sidecar, written in {time.perf_counter() - t0:.1f} s", flush=True)
+
+        ckpt = {}
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, trk = run(paths, checkpoint=ckpt)
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        phase("11 launches", all(launches[k] > 0 for k in PATH), str(launches))
+        got = [p for r in res for p in r["paths"]]
+        phase("11 every file once", sorted(got) == sorted(paths),
+              f"{len(got)} rows in {len(res)} batches of buckets "
+              f"{sorted({r['bucket'] for r in res})}")
+        snr = {p: float(s) for r in res for p, s in zip(r["paths"], r["snr"])}
+        phase("11 snr finite", all(map(math.isfinite, snr.values())),
+              f"{len(snr)} rows")
+        again = list(corpus.run_corpus_files(opt, sopt, paths, CORPUS_BUCKETS,
+                                             CORPUS_BATCH, checkpoint=ckpt))
+        phase("11 resume", again == [], f"a second call with the checkpoint "
+              f"({len(ckpt['done'])} batches done) yields {len(again)}")
+        for kind, want in (("sidecar", True), ("tracked", False)):
+            v = [s for p, s in snr.items() if sidecar[p] == want]
+            print(f"11 snr of {kind} rows: mean {statistics.fmean(v):.4f} dB, "
+                  f"min {min(v):.4f}, max {max(v):.4f} over {len(v)} files",
+                  flush=True)
+
+        # the JAX package's run_corpus_files on the first 16 files
+        for i, (pin, runs) in CORPUS_PINS.items():
+            p = paths[i]
+            if runs is None:
+                phase(f"11 jax pin file {i} (sidecar)",
+                      abs(snr[p] - pin) <= CORPUS_SIDECAR_TOL_DB,
+                      f"{snr[p]:.4f} dB (JAX {pin:.4f} +- "
+                      f"{CORPUS_SIDECAR_TOL_DB})")
+                continue
+            jv = np.repeat(np.arange(len(runs)) % 2 == 1, runs)
+            tv = (trk[p] > 0).cpu().numpy()
+            agree = float(np.mean(jv == tv)) if len(jv) == len(tv) else 0.0
+            flips = np.flatnonzero(jv != tv).tolist() if agree else []
+            phase(f"11 jax pin file {i} (tracked)",
+                  agree >= CORPUS_VOICING_MIN
+                  and abs(snr[p] - pin) <= CORPUS_TRACKED_TOL_DB,
+                  f"voicing agrees in {agree * 100:.2f}% of {len(tv)} frames "
+                  f"(>= {CORPUS_VOICING_MIN * 100:.0f}%; differs at "
+                  f"{flips}, the file ends at frame "
+                  f"{dataio.wav_nsamples(p) // nhop}); {snr[p]:.4f} dB "
+                  f"(JAX {pin:.4f} +- {CORPUS_TRACKED_TOL_DB})")
+
+        # a batch from files against run_corpus on its quantized signals
+        first = next(r for r in res if r["bucket"] == CORPUS_BUCKETS[1])
+        b, P = first["bucket"], first["paths"]
+        one, _ = run(P, want_audio=True)
+        x16, ln, _ = dataio.load_wav_batch(P, b * nhop, dtype="int16")
+        xq = x16.astype(np.float32) * np.float32(1.0 / 32767.0)
+        ref = list(corpus.run_corpus(
+            opt, sopt, [xq[j, :n] for j, n in enumerate(ln)],
+            [np.load(p[:-4] + ".f0.npy") if sidecar[p] else
+             trk[p].cpu().numpy() for p in P], CORPUS_BUCKETS, CORPUS_BATCH))
+        n_side = sum(sidecar[p] for p in P)
+        y_ref = ref[0]["y"][:len(P)].cpu().numpy()
+        phase("11 files = run_corpus on the quantized signals",
+              len(one) == len(ref) == 1 and one[0]["paths"] == P
+              and ref[0]["indices"] == list(range(len(P)))
+              and np.array_equal(one[0]["snr"], ref[0]["snr"])
+              and np.array_equal(one[0]["snr"], first["snr"])
+              and np.array_equal(one[0]["y"], y_ref)
+              and np.array_equal(one[0]["nx"], ln),
+              f"bucket {b}: {len(P)} rows ({n_side} with a sidecar, the "
+              f"others with their tracked F0), SNR and y bit for bit")
+        del ref, y_ref, one
+
+        # tracked files alone (a batch of one) against their batch rows
+        alone = [p for p in paths if not sidecar[p]][:CORPUS_ALONE]
+        for p in alone:
+            r1, t1 = run([p], batch_size=1)
+            same_f0 = torch.equal(t1[p], trk[p])
+            s1 = float(r1[0]["snr"][0])
+            phase(f"11 tracked {os.path.basename(p)} alone = in its batch",
+                  same_f0 and s1 == snr[p],
+                  f"bucket {r1[0]['bucket']}: F0 ({t1[p].shape[0]} frames, "
+                  f"{int((t1[p] > 0).sum())} voiced) equal: {same_f0}; SNR "
+                  f"alone {s1!r} dB, in the batch {snr[p]!r}")
+
+        # the warm run, timed: files to SNR on the host
+        timings = []
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res2, _ = run(paths, timings=timings)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        snr2 = {p: float(s) for r in res2 for p, s in zip(r["paths"], r["snr"])}
+        phase("11 warm run", snr2 == snr, f"the same {len(snr2)} SNRs bit for "
+              "bit")
+        for bkt in CORPUS_BUCKETS:
+            t = [r for r in timings if r["bucket"] == bkt]
+            # the run's first batch has nothing to hide behind
+            asm = sum(r["assemble_ms"] for r in t if r is not timings[0])
+            wait = sum(r["wait_ms"] for r in t if r is not timings[0])
+            med = lambda k: statistics.median(r[k] for r in t)
+            print(f"11 bucket {bkt} ({bkt * nhop / fs:g} s): {len(t)} batches, "
+                  f"{sum(r['rows'] for r in t)} files; step {med('step_ms'):.2f}"
+                  f" ms, tracker {med('track_ms'):.2f} ms, assemble "
+                  f"{med('assemble_ms'):.2f} ms (median a batch); "
+                  f"{max(0.0, 1.0 - wait / max(asm, 1e-9)) * 100:.1f}% of "
+                  f"the assembly hidden behind the card (waited {wait:.1f} of "
+                  f"{asm:.1f} ms, the run's first batch left out)",
+                  flush=True)
+        print(f"11 tracker: {sum(r['track_ms'] for r in timings):.1f} ms of "
+              f"the {wall * 1e3:.1f} ms run", flush=True)
+
+        # the tracker and its Viterbi alone on a full 8 s batch
+        P = [p for r in res for p in r["paths"]
+             if r["bucket"] == CORPUS_BUCKETS[-1]][:CORPUS_BATCH]
+        b = CORPUS_BUCKETS[-1]
+        x16, _, _ = dataio.load_wav_batch(P, b * nhop, dtype="int16")
+        xq = torch.tensor(x16, device=dev).float() * corpus.PCM16_SCALE
+        cfg = f0mod.F0Config(fs=fs, nhop=nhop, f0_floor=max(60.0,
+                                                           opt.conf.f0_floor))
+        g = torch.Generator(device=dev).manual_seed(0)
+        logobs = torch.rand((len(P), b, cfg.nbins + 1), generator=g,
+                            device=dev)
+        lt = f0mod._tables(cfg, dev)["lt"]
+        tr_ms = synced_ms(torch, lambda: f0mod.track_batch(cfg, xq), 3)
+        vit_ms = synced_ms(torch, lambda: f0mod.viterbi(logobs, lt), 3)
+        print(f"11 tracker on [{len(P)}, {b * nhop}]: {tr_ms:.2f} ms a batch, "
+              f"of which the Viterbi (a loop over {b} frames, host-bound) "
+              f"{vit_ms:.2f} ms (median of 3)", flush=True)
+        del xq, logobs
+        phase("11 corpus from files", True,
+              f"{len(paths)} files, {audio_s:.1f} s of audio: warm run "
+              f"{wall * 1e3:.1f} ms = {audio_s / wall:.1f} audio-sec/s from "
+              f"files to SNR (the first, cold run {cold * 1e3:.1f} ms = "
+              f"{audio_s / cold:.1f}); peak {peak:.2f} GiB")
+    return launches
+
+
+def edits_phase(torch, kernels, mods, l1, sopt):
+    """Phase 12, BASELINE config 4: pitch_shift(2.0) -> time_stretch(1.5) ->
+    synthesize on phase 10's layer-1 chunk, counters zeroed before ->
+    launches; then the chain and each edit timed at the full batch."""
+    import numpy as np
+
+    layer0, edits = mods
+    B, N = l1.f0.shape
+    nhop = l1.conf.nhop
+    chain = lambda: edits.time_stretch(edits.pitch_shift(l1, 2.0), 1.5)
+    kernels.reset_launches()
+    ed = chain()
+    out = layer0.synthesize_batch(sopt, ed)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    phase("12 launches", all(launches[k] > 0 for k in
+                             ("osc_bank", "noise_mod_ola", "noise_bins",
+                              "sample_cycles")), str(launches))
+    n = max(int(round(N * 1.5)), 2)
+    phase("12 output", ed.nfrm == n and tuple(out.y.shape) == (B, n * nhop)
+          and bool(torch.isfinite(out.y).all()),
+          f"{N} -> {ed.nfrm} frames (expected {n}); y {tuple(out.y.shape)} "
+          "finite")
+    # numpy's median (the two middle values averaged), as the pins take it
+    med = lambda f: float(np.median(f[f > 0].cpu().numpy()))
+    ratio = [med(ed.f0[b]) / med(l1.f0[b]) for b in range(B)]
+    worst = max(range(B), key=lambda b: abs(ratio[b] - 2.0))
+    phase("12 f0 doubled", abs(ratio[worst] - 2.0) <= 2.0 * EDIT_DOUBLE_TOL,
+          f"voiced median F0 / the chunk's: {min(ratio):.6f}-{max(ratio):.6f}"
+          f" over {B} rows (2 +- {EDIT_DOUBLE_TOL * 100:g}%)")
+    for row, pin in EDIT_PINS.items():
+        f = med(ed.f0[row])
+        rms = float(torch.sqrt(torch.mean(out.y_sin[row].double() ** 2)))
+        db = 20.0 * math.log10(rms / pin["rms"])
+        phase(f"12 jax pin row {row}", ed.nfrm == pin["nfrm"]
+              and abs(f / pin["f0_median"] - 1.0) <= EDIT_F0_REL_TOL
+              and abs(db) <= EDIT_RMS_TOL_DB,
+              f"nfrm {ed.nfrm} (JAX {pin['nfrm']}); voiced median F0 "
+              f"{f:.4f} Hz (JAX {pin['f0_median']:.4f} +- "
+              f"{EDIT_F0_REL_TOL:g} relative); y_sin rms {db:+.4f} dB from "
+              f"the JAX package's (+- {EDIT_RMS_TOL_DB})")
+    del ed, out
+    stages = [("pitch_shift", lambda _: edits.pitch_shift(l1, 2.0)),
+              ("time_stretch", lambda c: edits.time_stretch(c, 1.5)),
+              ("synthesize", lambda c: layer0.synthesize_batch(sopt, c))]
+    ms, peak = median_stages(torch, stages, 3)
+    total = sum(ms.values())
+    print(f"12 chain on {B} x {N * l1.conf.thop:g} s: " + ", ".join(
+        f"{k} {v:.2f} ms" for k, v in ms.items()) + f" (median of 3); "
+          f"{total:.2f} ms = {B * N * l1.conf.thop / (total / 1e3):.1f} "
+          f"audio-sec/s of input; peak {peak:.2f} GiB", flush=True)
+    other = edits.excerpt(l1, N // 16, N - N // 16)
+    one = {"pitch_shift": lambda: edits.pitch_shift(l1, 2.0),
+           "vibrato": lambda: edits.vibrato(l1),
+           "tremolo": lambda: edits.tremolo(l1),
+           "time_stretch": lambda: edits.time_stretch(l1, 1.5),
+           "formant_shift": lambda: edits.formant_shift(l1, 1.2),
+           "breathiness": lambda: edits.breathiness(l1, 6.0, rd_delta=0.3),
+           "creak": lambda: edits.creak(l1, 0.5),
+           "morph": lambda: edits.morph(l1, other, 0.5),
+           "concat": lambda: edits.concat(l1, other, 8),
+           "excerpt": lambda: edits.excerpt(l1, N // 16, N - N // 16)}
+    times = []
+    for name, fn in one.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, gib = peak_above(torch, fn)
+        torch.cuda.synchronize()
+        times.append(f"{name} {(time.perf_counter() - t0) * 1e3:.2f} ms "
+                     f"{gib:.2f} GiB")
+        del res
+    del other
+    phase("12 edits", True, f"each once on {B} x {N} frames (ms, peak above "
+          "its start): " + ", ".join(times))
     return launches
 
 
@@ -1412,7 +1762,7 @@ def main(argv):
 
     import libllsm2_tpu_torch as lt
     from libllsm2_tpu_torch import create_aoptions, create_soptions
-    from libllsm2_tpu_torch.models import layer0, layer1, pbp
+    from libllsm2_tpu_torch.models import edits, layer0, layer1, pbp
     from libllsm2_tpu_torch.ops import _build, harmonics, kernels
     from libllsm2_tpu_torch.parallel import corpus
 
@@ -1573,11 +1923,21 @@ def main(argv):
           f"env, base {tuple(env.shape)} finite; {launches}")
     summary["env_render"]["launches"] = launches["env_render"]
     full.update(full_batch(torch, kernels, calls, "9"))
+    rows = tuple(d.cpu().numpy() for d in data[:2])     # phase 11's source
     del chunk, cyc, env, base, data, calls
     # phase 10: pulse-by-pulse synthesis of LF rows
-    pbp_phase(torch, kernels, (layer0, layer1, pbp), opt, sopt, dev)
+    _, l1 = pbp_phase(torch, kernels, (layer0, layer1, pbp), opt, sopt, dev)
+    torch.cuda.empty_cache()
+    # phase 11: the corpus from files (BASELINE config 5)
+    by_phase = {"11": corpus_phase(torch, kernels, opt, sopt, rows, dev)}
+    del rows
+    # phase 12: pitch x2, stretch x1.5 on phase 10's chunk (config 4)
+    by_phase["12"] = edits_phase(torch, kernels, (layer0, edits), l1, sopt)
+    del l1
     for name in KERNELS:
         summary[name]["full_batch"] = full[name]
+        summary[name]["launches_by_phase"] = {
+            k: v[name] for k, v in by_phase.items()}
     print(card, flush=True)
 
     print(json.dumps({"kernels": list(summary.values())}), flush=True)

@@ -4,10 +4,14 @@ is the reference its tests compare against.
 
 Ported so far: the layer-0 round trip analyze -> synthesize with the
 library's default options and kernels on (use_pallas=True; track
-denoiser, hm_kernel="matmul", odd hops, 11.025 kHz through resampling),
-the batched pipeline (parallel/corpus.py), the layer-1 codec
-(models/layer1.py: chunk_to_layer1, chunk_to_layer0) and pulse-by-pulse
-synthesis (models/pbp.py: pbp_synthesize), with all ten CUDA kernels
+denoiser, hm_kernel="matmul", odd hops, 11.025 kHz through resampling)
+and its batched form (analyze_batch, synthesize_batch), the corpus
+runners (parallel/corpus.py: batched_pipeline, run_corpus and
+run_corpus_files from WAV files, with the native loader and the F0
+tracker of ops/f0.py), the layer-1 codec (models/layer1.py:
+chunk_to_layer1, chunk_to_layer0), the chunk's phase utilities and the
+parameter-domain edits (models/edits.py) and pulse-by-pulse synthesis
+(models/pbp.py: pbp_synthesize), with all ten CUDA kernels
 (ops/kernels.py).  Entry points run on the card: numpy input goes to
 "cuda" unless the caller passes device="cpu".  Options not ported raise
 NotImplementedError naming their ROADMAP item.
@@ -15,15 +19,18 @@ NotImplementedError naming their ROADMAP item.
 
 from .config import (AnalysisOptions, ChunkConf, SynthesisOptions,
                      create_aoptions, create_soptions)
-from .container import Chunk, chunk_from_numpy, chunk_to_numpy
+from .container import (Chunk, chunk_from_numpy, chunk_to_numpy,
+                        create_chunk, cumulative_cycles, phase_propagate,
+                        phase_shift, phase_sync)
 
 __version__ = "0.1.0"
 
 __all__ = [
     "AnalysisOptions", "ChunkConf", "SynthesisOptions",
     "create_aoptions", "create_soptions",
-    "Chunk", "chunk_from_numpy", "chunk_to_numpy",
-    "analyze", "synthesize",
+    "Chunk", "chunk_from_numpy", "chunk_to_numpy", "create_chunk",
+    "cumulative_cycles", "phase_propagate", "phase_shift", "phase_sync",
+    "analyze", "synthesize", "analyze_batch", "synthesize_batch",
 ]
 
 
@@ -34,4 +41,14 @@ def analyze(*args, **kw):
 
 def synthesize(*args, **kw):
     from .models.layer0 import synthesize as _s
+    return _s(*args, **kw)
+
+
+def analyze_batch(*args, **kw):
+    from .models.layer0 import analyze_batch as _a
+    return _a(*args, **kw)
+
+
+def synthesize_batch(*args, **kw):
+    from .models.layer0 import synthesize_batch as _s
     return _s(*args, **kw)

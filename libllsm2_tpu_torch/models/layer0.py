@@ -721,3 +721,25 @@ def _synthesize(opt: SynthesisOptions, chunk: Chunk, bins=None) -> SynthResult:
     y_sin = kernels.osc_bank(cyc, chunk.ampl, chunk.phse, hm_mask, nhop)
     y_nos = _synth_noise(chunk, cyc, nhop, fs, opt.noise_seed, bins=bins)
     return SynthResult(y=y_sin + y_nos, y_sin=y_sin, y_nos=y_nos, fs=fs)
+
+
+# ---------------------------------------------------------------------------
+# batched entry points (public API over the batched pipeline)
+# ---------------------------------------------------------------------------
+
+def analyze_batch(opt: AnalysisOptions, x, f0, device=None) -> Chunk:
+    """Batched analysis: x [B, nx], f0 [B, nfrm] -> chunk with a leading
+    batch axis; x at conf.fs (no resampling, as the JAX package's
+    analyze_batch).  A tensor x stays on its device; numpy input goes to
+    the card ("cuda"; pass device="cpu" for the CPU -- without a card the
+    default raises)."""
+    if device is None:
+        device = x.device if torch.is_tensor(x) else "cuda"
+    x = torch.as_tensor(x, device=device).to(FP)
+    return _analyze(opt, x, torch.as_tensor(f0, device=x.device).to(FP))
+
+
+def synthesize_batch(opt: SynthesisOptions, chunk: Chunk) -> SynthResult:
+    """Batched synthesis of a chunk with a leading batch axis, on the
+    chunk's device."""
+    return _synthesize(opt, chunk)

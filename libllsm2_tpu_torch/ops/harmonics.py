@@ -163,7 +163,9 @@ def refine_f0(x, f0, *, nhop: int, fs: float, halfwin_max: int,
     than for many, and its elementwise loops compute a call's full vectors
     with SLEEF but the rest (a [B, N] row's tail, a thread's share's edge)
     with libm, whose atan2 differs in the last bit.  On the card every
-    element takes one path and the products do not depend on the batch."""
+    element takes one path, and the FIR's product, whose order cuBLAS
+    chooses by its row count, runs in calls of 2 layer0._group_rows(N)
+    rows."""
     B, N = f0.shape
     if B > 1 and x.device.type == "cpu":
         kw = dict(nhop=nhop, fs=fs, halfwin_max=halfwin_max,
@@ -205,11 +207,25 @@ def refine_f0(x, f0, *, nhop: int, fs: float, halfwin_max: int,
     hq = torch.as_tensor(np.pad(h_t, (0, Qh * D - ntaps)).reshape(Qh, D),
                          dtype=FP, device=dev)
     padL, padR = g, Qh * D - g
-    xp_f = F.pad(x.to(FP), (padL, padR))
-    Bm = xp_f[..., : ((nx + padL + padR) // D) * D].reshape(B, -1, D)
-    xd = torch.zeros((B, nxd), dtype=FP, device=dev)
-    for q in range(Qh):
-        xd = xd + Bm[:, q:q + nxd, :] @ hq[q]
+
+    def fir(xx):
+        xp_f = F.pad(xx.to(FP), (padL, padR))
+        Bm = xp_f[..., : ((nx + padL + padR) // D) * D].reshape(
+            xx.shape[0], -1, D)
+        xd = torch.zeros((xx.shape[0], nxd), dtype=FP, device=dev)
+        for q in range(Qh):
+            xd = xd + Bm[:, q:q + nxd, :] @ hq[q]
+        return xd
+
+    if x.device.type == "cpu":
+        xd = fir(x)                     # one row a call (above)
+    else:
+        # a row alone differed from its row of a 64-row batch by 1.2e-7
+        # (cuBLAS picks the product's order by the rows of the call); twice
+        # the stages' group, so the 128-row bench batch is one call as it
+        # was before the grouping
+        from ..models.layer0 import _group_rows, _row_groups
+        xd = _row_groups(fir, x, 2 * _group_rows(N))
     nhop_d = nhop // D
     H_d = -(-H // D)
     delta_d = max(delta // D, 1)

@@ -47,3 +47,23 @@ def interp(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor) -> torch.Tensor:
     y = torch.where(safe, f0 + step * (f1 - f0), f0)
     y = torch.where(x < xp[..., :1], fp[..., :1], y)
     return torch.where(x > xp[..., -1:], fp[..., -1:], y)
+
+
+def fetch_frame(x: torch.Tensor, center: int, halfwidth: int) -> torch.Tensor:
+    """x[..., center - halfwidth : center + halfwidth + 1] with zero padding
+    outside the signal (reference: ciglet.h -> fetch_frame) -> [..., 2
+    halfwidth + 1]."""
+    xp = torch.nn.functional.pad(x, (halfwidth, halfwidth + 1))
+    return xp[..., center:center + 2 * halfwidth + 1]
+
+
+def fetch_frames(x: torch.Tensor, centers: torch.Tensor,
+                 halfwidth: int) -> torch.Tensor:
+    """Batched fetch_frame at integer centers [M] -> [..., M, 2 halfwidth +
+    1] (a gather).  At uniform centers i*nhop, ops.harmonics.frame_hops
+    gives the same frames as a strided view, without the gather: the F0
+    tracker (ops/f0.py) cuts its frames from it."""
+    xp = torch.nn.functional.pad(x, (halfwidth, halfwidth + 1))
+    idx = (torch.as_tensor(centers, device=x.device)[:, None]
+           + torch.arange(2 * halfwidth + 1, device=x.device))
+    return xp[..., idx]

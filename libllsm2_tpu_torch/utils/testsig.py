@@ -200,3 +200,39 @@ def make_test_utterances(rows, duration=1.0, fs=16000.0, thop=0.005):
             for x, x_harm in (_add_noise(src, fs, seed, level,
                                          (2500.0, 7000.0))
                               for seed, level in rows)]
+
+
+def corpus_row(i: int, half: int = 64) -> int:
+    """The bench row that file i of write_test_corpus is cut from: even
+    files from the noisy rows [0, half), odd ones from the clean rows
+    [half, 2 half), in turn."""
+    return (i // 2) % half + (half if i % 2 else 0)
+
+
+def write_test_corpus(dirpath, n_files: int, row, fs: float = 16000.0,
+                      nhop: int = 80, seed: int = 0, min_s: float = 0.5,
+                      max_s: float = 8.0):
+    """Write a seeded corpus of n_files int16 WAVs (utils.audio.wavwrite)
+    to dirpath for the corpus runner (BASELINE config 5): file i is a cut
+    of row(i) -> (x [nx], f0 [nx // nhop]) (bench rows: corpus_row(i)),
+    its length drawn uniformly over [min_s, max_s] seconds and its start a
+    whole number of hops into the row, drawn after it.  Files 4k and 4k+1
+    get an F0 sidecar (``<name>.f0.npy``, the row's track over the file's
+    frames), 4k+2 and 4k+3 none.  The draws do not depend on n_files, so a
+    smaller corpus is the first files of a larger one.  -> list of paths."""
+    import os
+
+    from .audio import wavwrite
+    rng = np.random.default_rng(seed)
+    paths = []
+    for i in range(n_files):
+        x, f0 = row(i)
+        n = int(round(rng.uniform(min_s, max_s) * fs))
+        s = int(rng.integers(0, (len(x) - n) // nhop + 1)) * nhop
+        p = os.path.join(str(dirpath), f"utt{i:05d}.wav")
+        wavwrite(p, np.asarray(x[s:s + n], np.float32), fs)
+        if i % 4 < 2:
+            np.save(p[:-4] + ".f0.npy",
+                    np.asarray(f0[s // nhop:(s + n) // nhop], np.float32))
+        paths.append(p)
+    return paths

@@ -21,10 +21,24 @@ with the Pallas kernels in interpret mode:
   PbP       the same analysis of LF rows 0 and 1 (synth_lf_speech, Rd 0.4
             and 1.0, seeds 0 and 1, make_f0_track's default contour), then
             chunk_to_layer1 -> pbp_synthesize: the SNR of PbP y_sin against
-            the layer-1 sinusoidal y_sin (synthesize(chunk_to_layer0(l1))).
+            the layer-1 sinusoidal y_sin (synthesize(chunk_to_layer0(l1)));
+  corpus    run_corpus_files (chip_smoke.py phase 11) on the first 16 files
+            of phase 11's corpus (libllsm2_tpu_torch.utils.testsig
+            .write_test_corpus, cut from the 8 s bench rows), with the
+            16 kHz options above, buckets (200, 400, 800, 1600) and
+            batch_size 8: each file's SNR, and for a file without an F0
+            sidecar the voicing of the JAX tracker's track (ops.f0.track on
+            the file's int16 row padded to its bucket, as run_corpus_files
+            tracks it) as run lengths, unvoiced first;
+  edits     BASELINE config 4 on LF rows 0 and 1 (as PbP): chunk_to_layer1,
+            pitch_shift(2.0), time_stretch(1.5), synthesize: the edited
+            chunk's frame count, its median voiced F0 and the rms of y_sin.
 
     JAX_PLATFORMS=cpu python scripts/port_jax_pins.py [duration=8.0] \
-        [only=l0,11k,l1,pbp]
+        [only=l0,11k,l1,pbp,corpus,edits]
+
+CPU time of the two parts added last, on an 8-core x86 host: corpus 49.3 s,
+edits 42.1 s.
 """
 import dataclasses
 import sys
@@ -145,10 +159,72 @@ def pbp_rows(duration):
     return out
 
 
+def _runs(voiced):
+    """Run lengths of a boolean track, the first run unvoiced (maybe 0)."""
+    edges = np.flatnonzero(np.diff(voiced.astype(np.int8))) + 1
+    runs = np.diff(np.concatenate([[0], edges, [len(voiced)]])).tolist()
+    return ([0] + runs) if voiced[0] else runs
+
+
+def corpus_files(n_files=16, batch_size=8):
+    import os
+    import tempfile
+
+    from libllsm2_tpu.ops import f0 as f0mod
+    from libllsm2_tpu.utils import dataio
+    from libllsm2_tpu_torch.utils import testsig as tts
+
+    opt, sopt = _opts16()
+    need = sorted({tts.corpus_row(i) for i in range(n_files)})
+    made = tts.make_test_utterances(
+        [(r, 0.05 if r < 64 else 0.0) for r in need], duration=8.0)
+    rows = {r: (m[0].astype(np.float32), m[1].astype(np.float32))
+            for r, m in zip(need, made)}
+    buckets = (200, 400, 800, 1600)
+    nhop = opt.conf.nhop
+    cfg = f0mod.F0Config(fs=opt.conf.fs, nhop=nhop,
+                         f0_floor=max(60.0, opt.conf.f0_floor))
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        paths = tts.write_test_corpus(
+            d, n_files, lambda i: rows[tts.corpus_row(i)])
+        for r in corpus.run_corpus_files(opt, sopt, paths, buckets,
+                                         batch_size=batch_size):
+            for p, snr in zip(r["paths"], np.asarray(r["snr"]).tolist()):
+                i = paths.index(p)
+                runs = None
+                if not os.path.exists(p[:-4] + ".f0.npy"):
+                    x, _, _ = dataio.load_wav_batch([p], r["bucket"] * nhop,
+                                                    dtype="int16")
+                    tr = np.asarray(f0mod.track(cfg, jnp.asarray(
+                        x[0].astype(np.float32) * np.float32(1.0 / 32767.0))))
+                    runs = _runs(tr > 0)
+                out[i] = (snr, runs)
+    return dict(sorted(out.items()))
+
+
+def edit_chain(duration):
+    from libllsm2_tpu.models import edits
+    opt, sopt = _opts16()
+    nfrm = int(round(duration / opt.conf.thop))
+    out = {}
+    for i in (0, 1):
+        f0 = testsig.make_f0_track(nfrm, opt.conf.thop)
+        x, f0 = testsig.synth_lf_speech(f0, rd=LF_RD[i % 4], seed=i)
+        l1 = layer1.chunk_to_layer1(layer0.analyze(
+            opt, x.astype(np.float32), f0.astype(np.float32)))
+        ed = edits.time_stretch(edits.pitch_shift(l1, 2.0), 1.5)
+        y = np.asarray(layer0.synthesize(sopt, ed).y_sin, np.float64)
+        f = np.asarray(ed.f0)
+        out[i] = dict(nfrm=int(ed.nfrm), f0_median=float(np.median(f[f > 0])),
+                      rms=float(np.sqrt(np.mean(y ** 2))))
+    return out
+
+
 def main():
     kw = dict(a.split("=", 1) for a in sys.argv[1:])
     duration = float(kw.get("duration", 8.0))
-    only = kw.get("only", "l0,11k,l1,pbp").split(",")
+    only = kw.get("only", "l0,11k,l1,pbp,corpus,edits").split(",")
     if "l0" in only:
         t0 = time.perf_counter()
         print(f"16 kHz batched_pipeline at {duration} s:",
@@ -170,6 +246,16 @@ def main():
         t0 = time.perf_counter()
         print(f"PbP against the layer-1 sinusoidal render at {duration} s:",
               pbp_rows(duration), f"({time.perf_counter() - t0:.1f} s)",
+              flush=True)
+    if "corpus" in only:
+        t0 = time.perf_counter()
+        print("run_corpus_files on the first 16 files of the phase-11 corpus "
+              "(snr, tracked voicing runs):", corpus_files(),
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    if "edits" in only:
+        t0 = time.perf_counter()
+        print(f"pitch x2, stretch x1.5 of LF rows 0/1 at {duration} s:",
+              edit_chain(duration), f"({time.perf_counter() - t0:.1f} s)",
               flush=True)
 
 if __name__ == "__main__":

@@ -779,3 +779,105 @@ def test_analysis_rows_do_not_depend_on_the_batch_on_card():
         y_alone = tl0._synthesize(sopt, alone)
         for i in range(3):
             assert torch.equal(y_alone[i][0], y_whole[i][r]), i
+
+
+@pytest.mark.requires_cuda
+def test_f0_tracker_rows_do_not_depend_on_the_batch_on_card():
+    """ops/f0.py on the card: rows 0, 1 and 69 of a 70-row batch of 4 s
+    bench-like rows (two row groups, the last padded) equal, bit for bit,
+    the same rows alone and in a 3-row batch; the track agrees with the
+    CPU's on voicing in >= 99% of frames and on voiced F0 within 1e-3
+    relative."""
+    from libllsm2_tpu_torch.ops import f0 as tf0
+    from libllsm2_tpu_torch.utils import testsig
+    dev = _card()
+    utt = testsig.make_test_utterances(
+        [(i, 0.05 * (i % 2)) for i in range(70)], duration=4.0)
+    x = torch.tensor(np.stack([u[0] for u in utt]), dtype=torch.float32)
+    cfg = tf0.F0Config(f0_floor=70.0)
+    whole = tf0.track_batch(cfg, x.to(dev))
+    rows = [0, 1, 69]
+    three = tf0.track_batch(cfg, x[rows].to(dev))
+    for i, r in enumerate(rows):
+        assert torch.equal(tf0.track(cfg, x[r].to(dev)), whole[r])
+        assert torch.equal(three[i], whole[r])
+    cpu = tf0.track_batch(cfg, x[:2], device="cpu")
+    got = whole[:2].cpu()
+    assert float(((got > 0) == (cpu > 0)).float().mean()) >= 0.99
+    v = (got > 0) & (cpu > 0)
+    assert float(torch.max(torch.abs(got[v] / cpu[v] - 1.0))) <= 1e-3
+
+
+@pytest.mark.requires_cuda
+def test_run_corpus_files_equals_run_corpus_on_card(tmp_path):
+    """run_corpus_files on the card on 10 WAVs cut from 2 s bench-like rows
+    (half with an F0 sidecar, the rest tracked; buckets (200, 400), batch
+    8): every file once, and the rows of each batch equal run_corpus on the
+    same int16-quantized float signals (x_i16 * float32(1 / 32767)) with
+    the sidecar F0 and, for tracked files, the tracker's F0 on the padded
+    row, bit for bit: SNR and y."""
+    import dataclasses
+    import os
+    from libllsm2_tpu_torch import create_aoptions, create_soptions
+    from libllsm2_tpu_torch.ops import f0 as tf0
+    from libllsm2_tpu_torch.parallel import corpus
+    from libllsm2_tpu_torch.utils import dataio, testsig
+    dev = _card()
+    opt = create_aoptions(f0_floor=70.0, use_pallas=True)
+    sopt = dataclasses.replace(create_soptions(), use_pallas=True)
+    utt = testsig.make_test_utterances(
+        [(i, 0.05 if i < 4 else 0.0) for i in range(8)], duration=2.0)
+    rows = {r: (u[0].astype(np.float32), u[1].astype(np.float32))
+            for r, u in enumerate(utt)}
+    paths = testsig.write_test_corpus(
+        tmp_path, 10, lambda i: rows[testsig.corpus_row(i, half=4)],
+        min_s=0.5, max_s=2.0)
+    buckets = (200, 400)
+    got = list(corpus.run_corpus_files(opt, sopt, paths, buckets, 8,
+                                       want_audio=True))
+    assert sorted(p for r in got for p in r["paths"]) == sorted(paths)
+    cfg = tf0.F0Config(fs=opt.conf.fs, nhop=80, f0_floor=70.0)
+    for r in got:
+        P, b = r["paths"], r["bucket"]
+        x16, ln, _ = dataio.load_wav_batch(P, b * 80, dtype="int16")
+        xq = x16.astype(np.float32) * np.float32(1.0 / 32767.0)
+        tracked = tf0.track_batch(cfg, torch.tensor(xq, device=dev)).cpu()
+        f0s = [np.load(p[:-4] + ".f0.npy")
+               if os.path.exists(p[:-4] + ".f0.npy") else tracked[j].numpy()
+               for j, p in enumerate(P)]
+        ref = list(corpus.run_corpus(opt, sopt,
+                                     [xq[j, :n] for j, n in enumerate(ln)],
+                                     f0s, buckets, 8))
+        assert len(ref) == 1 and ref[0]["bucket"] == b
+        np.testing.assert_array_equal(r["snr"], ref[0]["snr"])
+        np.testing.assert_array_equal(r["y"], ref[0]["y"][:len(P)].cpu()
+                                      .numpy())
+        np.testing.assert_array_equal(r["nx"], ln)
+
+
+@pytest.mark.requires_cuda
+def test_refine_f0_rows_do_not_depend_on_the_batch_on_card():
+    """harmonics.refine_f0 on the card (its decimating FIR's product in
+    calls of 2 layer0._group_rows(N) rows): rows 0, 1 and 63 of a 64-row
+    batch of 8 s bench-like rows, with zeroed tails of different lengths,
+    equal bit for bit the same rows alone and in the first 3 rows of a
+    128-row batch."""
+    from libllsm2_tpu_torch.ops import harmonics
+    from libllsm2_tpu_torch.utils import testsig
+    dev = _card()
+    utt = testsig.make_test_utterances(
+        [(i, 0.05 * (i % 2)) for i in range(64)], duration=8.0)
+    x = torch.tensor(np.stack([u[0] for u in utt]), dtype=torch.float32)
+    f0 = torch.tensor(np.stack([u[1] for u in utt]), dtype=torch.float32)
+    for r in range(64):
+        x[r, 128000 - 977 * r:] = 0.0
+    x, f0 = x.to(dev), f0.to(dev)
+    kw = dict(nhop=80, fs=16000.0, halfwin_max=458, rel_winsize=4.0,
+              f0_ceil=600.0)
+    whole = harmonics.refine_f0(x, f0, **kw)
+    big = harmonics.refine_f0(torch.cat([x[[0, 1, 63]], x]),
+                              torch.cat([f0[[0, 1, 63]], f0]), **kw)
+    for i, r in enumerate((0, 1, 63)):
+        alone = harmonics.refine_f0(x[r:r + 1], f0[r:r + 1], **kw)
+        assert torch.equal(alone[0], whole[r])
+        assert torch.equal(big[i], whole[r])
