@@ -3,8 +3,12 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py breakdown DIR
+    python3 chip_smoke.py rows DIR
 
-The second form runs only phase 5's breakdown (the harmonic_analysis
+The third form runs only the checks that rows alone equal their rows in
+the batch of phases 9 (from the batch's layer-0 chunk), 10 and 12 on the
+package in DIR, each reported and none failing the run.  The second form
+runs only phase 5's breakdown (the harmonic_analysis
 calls, the harmonic renders, the analysis / synthesis times and peaks,
 each analysis stage's time and peak, then the step's sample_cycles calls
 and env_render on its chunk at full batch beside their bounds) on the
@@ -90,8 +94,12 @@ non-zero without the final "ok" line:
      counters zeroed before; the seven kernels of phase 5 launched; y_sin
      SNR against the clean harmonic part: noisy rows 0/1 within 0.2 dB of
      the JAX package's values, every clean row at most 0.1 dB under the
-     JAX value of row 64.  Prints each stage's ms, the audio-sec/s of the
-     layer-1 round trip and the peak.  Then env_render, which no library
+     JAX value of row 64; rows 0, 1 and 64 alone (a batch of one fed
+     that row of each stage's batch input) equal their rows of the batch
+     bit for bit through chunk_to_layer1, chunk_to_layer0 and the
+     synthesis, and two runs of the batch are equal.  Prints each stage's
+     ms, the audio-sec/s of the layer-1 round trip and the peak.  Then
+     env_render, which no library
      path runs, renders this chunk's envelopes at full batch through
      layer0._render_envelopes(use_pallas=True), counters zeroed before.
  10. pulse-by-pulse synthesis: 128 rows x 8 s of synth_lf_speech (Rd 0.4 /
@@ -103,8 +111,9 @@ non-zero without the final "ok" line:
      package's medians; row 0's rd track, frame by frame, within 1e-3
      relative of chunk_to_layer1 on the CPU from the same layer-0 row;
      rows 0 and 1: the SNR of PbP y_sin against the layer-1 sinusoidal
-     y_sin within 0.2 dB of the JAX package's.  Prints the PbP ms,
-     audio-sec/s and peak.
+     y_sin within 0.2 dB of the JAX package's; rows alone equal their
+     batch rows through chunk_to_layer1 and pbp_synthesize, as in phase 9.
+     Prints the PbP ms, audio-sec/s and peak.
  11. the corpus from files (BASELINE config 5 on one card): 1000 int16
      WAVs at 16 kHz cut from the bench rows (testsig.write_test_corpus:
      lengths uniform over 0.5-8 s, half noisy, half of each kind with an
@@ -127,8 +136,34 @@ non-zero without the final "ok" line:
      zeroed before: osc_bank, noise_mod_ola, noise_bins and sample_cycles
      launched; 2400 frames, every row's voiced median F0 doubled (+- 1%),
      a finite output; rows 0/1 hold the JAX package's frame count, median
-     F0 (1e-4 relative) and y_sin rms (0.05 dB).  Then the chain's stages
-     (median of 3) and each of the ten edits once, ms and peak.
+     F0 (1e-4 relative) and y_sin rms (0.05 dB); rows alone equal their
+     batch rows through the three stages, as in phase 9.  Then the chain's
+     stages (median of 3) and each of the ten edits once, ms and peak.
+ 13. the codec (cell codec-8bit) on phase 10's layer-1 chunk: encode with
+     CoderConfig() (64 VT and 32 PSD dims) -> fit_quantizer(bits=8, Rd by
+     DPCM, the F0 slot's re-sync) -> coded_save -> coded_load -> decode ->
+     synthesize_batch, counters zeroed before: sample_cycles, osc_bank,
+     noise_bins and noise_mod_ola launched, a finite output; the archive's
+     kbit/s of audio (and at 16 bits), the MCD of the 8- and 16-bit
+     decodes against the float decode (median over rows); decode_frames =
+     chunk_to_layer0(decode_layer1) bit for bit; random vectors (scales 1,
+     1e3, 1e6) decode to finite audio; rows alone equal their batch rows
+     (vectors, codes with the batch's quantizer, decode, y); rows 0/1 with
+     a quantizer fitted on them: codes equal the JAX package's archive
+     (scripts/port_jax_pins_coder.npz) in >= 99% of slots, dequantized
+     vectors within one quantizer step of its, the float decode's y_sin rms
+     within 0.05 dB and the 8-bit MCD within 0.1 dB of the JAX package's.
+     Then each stage's ms (median of 3) and the peak.
+ 14. the section-model Rd fit (cell nasal-sections): 128 rows x 8 s of
+     synth_nasal_utterance (zero (900, 60) Hz, f0_base 120 / 182 / 200 by
+     row, seed = row), the library-default analysis, chunk_to_layer1 with
+     test_nasal's sections ((250, 70, -1), (900, 60, +1)) and without,
+     counters zeroed before the analysis: the main path's analysis
+     kernels launched; every row's median voiced rd with sections within
+     test_nasal's floors ((0.9, 1.15) at 120 Hz, (0.8, 1.25) at 182 and
+     200); rows 0/1 within 1% of the JAX package's medians, with and
+     without sections; rows alone equal their batch rows.  Prints the
+     medians by f0_base and both layer-1 calls' ms (median of 3).
 Phases 5, 6, 7 and 9 also time every call of each of their kernels in
 the counted run at full batch (median of 10, and a launch's share of a
 run of 20 back-to-back launches: the device time where the host enqueues
@@ -141,7 +176,7 @@ the six, fir_frames, noise_bins and sample_cycles, 6 for
 harmonic_project_mxu, 7 for
 harmonic_project, 9 for env_render; denoise_apply also "finish_launches"
 and "finish_full_batch" for its second launch; "launches_by_phase" the
-counts of phases 11 and 12); ms, plain_ms, library_ms and
+counts of phases 11 to 14); ms, plain_ms, library_ms and
 bound_ms at the first 2-row call of phase 3; "full_batch" a record per
 call at full batch ("analysis_calls" on harmonic_project_win and
 "render_calls" on osc_bank: phase 5's two harmonic_analysis calls and two
@@ -157,10 +192,10 @@ float32 matmul and convolution.
 The SNR, rd and PbP pins are the JAX package's own values on the CPU, from
 
     JAX_PLATFORMS=cpu PYTHONPATH=. python scripts/port_jax_pins.py \
-        [only=l0,11k,l1,pbp,corpus,edits]
+        [only=l0,11k,l1,pbp,corpus,edits,coder,nasal]
 
 (l0: phases 4 and 5; 11k: phases 7 and 8; l1: phase 9; pbp: phase 10;
-corpus: phase 11; edits: phase 12).
+corpus: phase 11; edits: phase 12; coder: phase 13; nasal: phase 14).
 """
 import dataclasses
 import json
@@ -253,6 +288,35 @@ EDIT_PINS = {0: dict(nfrm=2400, f0_median=279.9015197753906,
 EDIT_F0_REL_TOL = 1e-4
 EDIT_RMS_TOL_DB = 0.05
 EDIT_DOUBLE_TOL = 0.01                    # every row's median F0 ratio, 2 +- 1%
+# phase 13: the codec on phase 10's chunk; the JAX package's coder on LF
+# rows 0 and 1 (a quantizer fitted on them), from
+#   JAX_PLATFORMS=cpu PYTHONPATH=. python scripts/port_jax_pins.py only=coder
+# which writes its 8-bit archive to CODER_PINS: the y_sin rms of the float
+# decode and the MCD of the 8-bit archive's decode against it
+CODER_PINS = Path(__file__).resolve().parent / "scripts/port_jax_pins_coder.npz"
+CODER_PINS_ROWS = {0: dict(rms=0.2683359187629238, mcd8=0.011305101071402146),
+                   1: dict(rms=0.27372478295835223, mcd8=0.012717904687939914)}
+# the card's rows 0/1 coded with the JAX archive's quantizer: codes equal
+# to its codes in this share of slots, and the dequantized vectors within
+# one quantizer step of its in this share.  The port's float vectors sit
+# more than a step from the JAX package's in 0.05% of slots on the CPU
+# too (ill-conditioned vtmagn and log-PSD bins, up to 7 steps), which the
+# codes inherit: there 97.8% equal, 99.98% within a step
+CODER_CODES_MIN = 0.96
+CODER_STEP_SHARE_MIN = 0.999
+CODER_RMS_TOL_DB = 0.05
+CODER_MCD_TOL_DB = 0.1
+# the synthesis kernels that decode -> synthesize must launch
+CODEC_KERNELS = ("sample_cycles", "osc_bank", "noise_bins", "noise_mod_ola")
+# phase 14: nasal rows (zero (900, 60) Hz, f0_base by row), the sections
+# of tests/test_nasal.py, its floors on the median voiced rd, and the JAX
+# package's medians of rows 0 and 1 with and without the sections, from
+#   JAX_PLATFORMS=cpu PYTHONPATH=. python scripts/port_jax_pins.py only=nasal
+NASAL_F0 = (120.0, 182.0, 200.0)
+NASAL_SECTIONS = ((250.0, 70.0, -1.0), (900.0, 60.0, 1.0))
+NASAL_FLOORS = {120.0: (0.9, 1.15), 182.0: (0.8, 1.25), 200.0: (0.8, 1.25)}
+NASAL_PINS = {0: dict(sections=0.9863114356994629, none=0.9919065237045288),
+              1: dict(sections=1.0102050304412842, none=0.5516616106033325)}
 RD_CPU_REL_TOL = 1e-3                     # phase 10: card rd against the CPU
 LF_RD = (0.4, 1.0, 1.8, 2.7)              # phase 10: true Rd of row i % 4
 RD_REL_TOL = 0.15                         # tests/test_layer1.py's criterion
@@ -306,6 +370,8 @@ MAIN = MAIN_SIX + ("fir_frames", "noise_bins", "sample_cycles")
 # wrapper of its own in denoise_apply.cu, checked under denoise_apply
 FINISH = "denoise_finish"
 PATH = MAIN + (FINISH,)           # every wrapper the main path launches
+# ... and those of its analysis (phase 14 synthesizes nothing)
+ANALYSIS = tuple(k for k in PATH if k not in ("noise_mod_ola", "noise_bins"))
 BATCH_ROWS = (0, 1, 64)           # phase 5: rows whose analysis and output
                                   # must not depend on the batch
 
@@ -1073,6 +1139,85 @@ def median_stages(torch, stages, reps):
             torch.cuda.max_memory_allocated() / 2**30)
 
 
+def rows_alone(torch, stages, inp, rows=BATCH_ROWS):
+    """A chain of (name, fn) stages, fn(input) -> (the next stage's input,
+    {output: tensor}), run twice on the whole batch and on each of `rows`
+    alone (a batch of one fed that row of the batch's input, so that a
+    difference names its stage) -> ({stage: {output: max |alone - in the
+    batch| over the rows, 0 where bit-equal, inf where unequal without a
+    finite difference}}, {stage: the two runs of the batch equal})."""
+    diff, same = {}, {}
+    for name, fn in stages:
+        nxt, whole = fn(inp)
+        _, again = fn(inp)
+        same[name] = all(torch.equal(whole[k], again[k]) for k in whole)
+        diff[name] = dict.fromkeys(whole, 0.0)
+        for r in rows:
+            one = inp.map(lambda a: a[r:r + 1]) if hasattr(inp, "map") \
+                else inp[r:r + 1]
+            for k, v in fn(one)[1].items():
+                if not torch.equal(v[0], whole[k][r]):
+                    d = float((v[0].double() - whole[k][r].double())
+                              .abs().max())
+                    diff[name][k] = max(diff[name][k],
+                                        d if d > 0 else math.inf)
+        del whole, again
+        inp = nxt
+    torch.cuda.synchronize()
+    return diff, same
+
+
+def check_rows(label, diff, same, strict=True):
+    """Report rows_alone: a phase line (failing unless every output is
+    bit-equal and every stage's two runs equal), or with strict=False
+    only a printed line."""
+    ok = all(v == 0.0 for d in diff.values() for v in d.values()) \
+        and all(same.values())
+    detail = (f"rows {list(BATCH_ROWS)} alone (a batch of one) against the "
+              f"{BATCH}-row batch, max |difference| by stage and output (0: "
+              "bit for bit): " + "; ".join(
+                  f"{s}: " + ", ".join(f"{k} {v:.3g}" for k, v in d.items())
+                  for s, d in diff.items())
+              + f"; two runs of the batch equal: {same}")
+    if strict:
+        phase(f"{label} rows alone = in the batch", ok, detail)
+    else:
+        print(f"{label} rows alone = in the batch: "
+              f"{'equal' if ok else 'DIFFER'} {detail}", flush=True)
+
+
+def fields(chunk, names):
+    return chunk, {k: getattr(chunk, k) for k in names}
+
+
+def outputs(res):
+    return res, {k: getattr(res, k) for k in ("y", "y_sin", "y_nos")}
+
+
+def layer1_stages(mods, sopt):
+    """Phase 9's layer-1 chain as rows_alone stages."""
+    from libllsm2_tpu_torch.container import LAYER1_FIELDS
+    layer0, layer1 = mods[:2]
+    return [("chunk_to_layer1",
+             lambda c: fields(layer1.chunk_to_layer1(c), LAYER1_FIELDS)),
+            ("chunk_to_layer0",
+             lambda c: fields(layer1.chunk_to_layer0(c),
+                              ("ampl", "phse", "hm_mask"))),
+            ("synthesize", lambda c: outputs(layer0._synthesize(sopt, c)))]
+
+
+def edit_stages(mods, sopt):
+    """Phase 12's chain as rows_alone stages."""
+    from libllsm2_tpu_torch.container import CHUNK_FIELDS
+    layer0, edits = mods
+    return [("pitch_shift",
+             lambda c: fields(edits.pitch_shift(c, 2.0), CHUNK_FIELDS)),
+            ("time_stretch",
+             lambda c: fields(edits.time_stretch(c, 1.5), CHUNK_FIELDS)),
+            ("synthesize", lambda c: outputs(layer0.synthesize_batch(sopt,
+                                                                     c)))]
+
+
 def layer1_round_trip(torch, kernels, mods, opt, sopt, data):
     """Phase 9: the library-default analysis -> chunk_to_layer1 ->
     chunk_to_layer0 -> _synthesize on the bench rows -> (the layer-0
@@ -1116,6 +1261,8 @@ def layer1_round_trip(torch, kernels, mods, opt, sopt, data):
           f"{score.shape[2]}] scores {vit_ms:.2f} ms a call (median of 3; "
           f"two calls in each chunk_to_layer1)", flush=True)
     del score
+    check_rows("9 layer1", *rows_alone(torch, layer1_stages(mods, sopt),
+                                       chunk0["c"]))
     l1_ms = ms["to_layer1"] + ms["to_layer0"] + ms["synthesize"]
     phase("9 layer1 step", True,
           f"{B} x {DURATION} s: " + ", ".join(f"{k} {v:.2f} ms"
@@ -1183,7 +1330,6 @@ def pbp_phase(torch, kernels, mods, opt, sopt, dev):
           f"{float(rel.max()):.3e}, {int((rel > RD_CPU_REL_TOL).sum())} "
           f"frames over {RD_CPU_REL_TOL} (CPU fit "
           f"{time.perf_counter() - t0:.1f} s)")
-    chunk0.clear()
     y_sin = layer0._synthesize(sopt, layer1.chunk_to_layer0(l1)).y_sin
     for row, pin in PBP_PINS_DB.items():
         snr = snr_db(torch, y_sin[row], out.y_sin[row], conf.fs, conf.f0_floor)
@@ -1191,6 +1337,11 @@ def pbp_phase(torch, kernels, mods, opt, sopt, dev):
               f"PbP y_sin against the sinusoidal y_sin {snr:.4f} dB "
               f"(JAX {pin:.4f} +- {NOISY_TOL_DB})")
     del y_sin, out
+    check_rows("10 pbp", *rows_alone(torch, [
+        layer1_stages(mods, sopt)[0],
+        ("pbp_synthesize", lambda c: outputs(pbp._pbp_synthesize(sopt, c)))],
+        chunk0["c"]))
+    chunk0.clear()
     ms, peak = median_stages(torch, stages, 3)
     phase("10 pbp step", True,
           f"{B} x {DURATION} s: " + ", ".join(f"{k} {v:.2f} ms"
@@ -1436,6 +1587,7 @@ def edits_phase(torch, kernels, mods, l1, sopt):
               f"{EDIT_F0_REL_TOL:g} relative); y_sin rms {db:+.4f} dB from "
               f"the JAX package's (+- {EDIT_RMS_TOL_DB})")
     del ed, out
+    check_rows("12", *rows_alone(torch, edit_stages(mods, sopt), l1))
     stages = [("pitch_shift", lambda _: edits.pitch_shift(l1, 2.0)),
               ("time_stretch", lambda c: edits.time_stretch(c, 1.5)),
               ("synthesize", lambda c: layer0.synthesize_batch(sopt, c))]
@@ -1468,6 +1620,257 @@ def edits_phase(torch, kernels, mods, l1, sopt):
     del other
     phase("12 edits", True, f"each once on {B} x {N} frames (ms, peak above "
           "its start): " + ", ".join(times))
+    return launches
+
+
+def rows_report(torch, mods, opt, sopt, data, dev):
+    """The rows form: the rows-alone checks of phases 9, 10 and 12 on
+    their inputs, each printed and none failing the run."""
+    layer0, layer1, pbp, edits = mods
+    x, f0 = data[:2]
+    check_rows("9 layer1", *rows_alone(torch, layer1_stages(mods, sopt),
+                                       layer0._analyze(opt, x, f0)), False)
+    x, f0 = lf_fixtures(torch, dev)
+    l1 = layer1.chunk_to_layer1(layer0._analyze(opt, x, f0))
+    del x, f0
+    check_rows("10 pbp", *rows_alone(torch, [
+        ("pbp_synthesize", lambda c: outputs(pbp._pbp_synthesize(sopt, c)))],
+        l1), False)
+    check_rows("12", *rows_alone(torch, edit_stages((layer0, edits), sopt),
+                                 l1), False)
+
+
+def codec_phase(torch, kernels, mods, l1, sopt):
+    """Phase 13, the codec (cell codec-8bit) on phase 10's layer-1 chunk:
+    encode -> fit_quantizer (8 bits, Rd by DPCM, the F0 slot's re-sync)
+    -> coded_save -> coded_load -> decode -> synthesize_batch, counters
+    zeroed before -> launches; then the 16-bit archive and the float
+    vectors, the stages timed, the MCDs, rows alone, the JAX pins.  The
+    archives go to a temporary directory, removed after."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        return codec_run(torch, kernels, mods, l1, sopt, tmp)
+
+
+def codec_run(torch, kernels, mods, l1, sopt, tmp):
+    import os
+
+    import numpy as np
+
+    layer0, layer1, coder, serialize, metrics = mods
+    B, N = l1.f0.shape
+    cc = coder.CoderConfig(conf=l1.conf)
+    audio_s = B * N * l1.conf.thop
+    path = lambda name: os.path.join(tmp, name)
+
+    def quantize_save(v, bits=8, name="codec.npz", quant=None):
+        q = quant or coder.fit_quantizer(
+            v, bits=bits, dpcm=coder.default_dpcm_mask(cc),
+            f0_slot=coder.f0_slot(cc))
+        serialize.coded_save(path(name), cc, v, bits=bits, quant=q)
+        return q
+
+    def save(v):
+        quantize_save(v)
+        return v
+
+    render = lambda v: layer0.synthesize_batch(sopt, coder.decode(cc, v))
+    stages = [("encode", lambda _: coder.encode(cc, l1)),
+              ("quantize + save", save),
+              ("load + dequantize",
+               lambda _: serialize.coded_load(path("codec.npz"))[1]),
+              ("decode", lambda v: coder.decode(cc, v)),
+              ("synthesize", lambda c: layer0.synthesize_batch(sopt, c))]
+    kernels.reset_launches()
+    out, _ = staged(torch, stages)
+    launches = dict(kernels.LAUNCHES)
+    phase("13 codec launches", all(launches[k] > 0 for k in CODEC_KERNELS),
+          str(launches))
+    phase("13 codec output", tuple(out.y.shape) == (B, N * l1.conf.nhop)
+          and bool(torch.isfinite(out.y).all()),
+          f"y {tuple(out.y.shape)} finite")
+    kbit = os.path.getsize(path("codec.npz")) * 8 / 1e3 / audio_s
+    v = coder.encode(cc, l1)
+    q8 = quantize_save(v)
+    quantize_save(v, 16, "codec16.npz")
+    v16 = serialize.coded_load(path("codec16.npz"))[1]
+    kbit16 = os.path.getsize(path("codec16.npz")) * 8 / 1e3 / audio_s
+    ys = {"float": render(v).y_sin.cpu().numpy(),
+          "8-bit": out.y_sin.cpu().numpy(),
+          "16-bit": render(v16).y_sin.cpu().numpy()}
+    del out
+    mcd = {k: [metrics.mel_cepstral_distortion_db(ys["float"][b], ys[k][b],
+                                                  fs=cc.conf.fs)
+               for b in range(B)] for k in ("8-bit", "16-bit")}
+    print(f"13 codec: archive {kbit:.3f} kbit/s of audio at 8 bits "
+          f"({kbit16:.3f} at 16; float32 vectors "
+          f"{cc.dims * 32 / l1.conf.thop / 1e3:.3f}); MCD against the float "
+          "decode, median over rows (min-max): " + ", ".join(
+              f"{k} {statistics.median(m):.4f} dB ({min(m):.4f}-"
+              f"{max(m):.4f})" for k, m in mcd.items()), flush=True)
+    # decode_frames is the layer-1 decode's harmonics, unpropagated
+    vq = serialize.coded_load(path("codec.npz"))[1]
+    a = coder.decode_frames(cc, vq)
+    b = layer1.chunk_to_layer0(coder.decode_layer1(cc, vq))
+    phase("13 decode_frames = chunk_to_layer0(decode_layer1)",
+          all(torch.equal(getattr(a, f), getattr(b, f))
+              for f in ("f0", "ampl", "phse", "hm_mask", "rd", "vtmagn")),
+          f"{B} x {N} frames bit for bit")
+    rng = np.random.default_rng(0)
+    finite = []
+    for scale in (1.0, 1e3, 1e6):
+        r = (scale * rng.standard_normal((4, 400, cc.dims))).astype(np.float32)
+        finite.append(bool(torch.isfinite(render(r).y).all()))
+    phase("13 random vectors decode to finite audio", all(finite),
+          f"4 x 400 frames of N(0, s^2) vectors, s = 1, 1e3, 1e6: {finite}")
+
+    # rows alone, the batch's prefitted quantizer: vectors, codes, decode
+    def archive(v):
+        name = f"rows{v.shape[0]}.npz"
+        quantize_save(v, name=name, quant=q8)
+        codes = np.load(path(name))["codes"]
+        vq = serialize.coded_load(path(name))[1]
+        return vq, {"codes": torch.from_numpy(codes.astype(np.int32)),
+                    "vectors": torch.from_numpy(vq)}
+
+    check_rows("13 codec", *rows_alone(torch, [
+        ("encode", lambda c: (lambda v: (v, {"vectors": v}))(
+            coder.encode(cc, c))),
+        ("quantize + save + load", archive),
+        ("decode", lambda v: fields(coder.decode(cc, v), ("f0", "ampl",
+                                                          "phse", "rd"))),
+        ("synthesize", lambda c: outputs(layer0.synthesize_batch(sopt, c)))],
+        l1))
+
+    # the JAX package's coder on rows 0 and 1 (its archive: codes, the
+    # quantizer it fitted on them, the F0 side array): the card's vectors
+    # coded with that quantizer, and with one fitted on them
+    jz = np.load(CODER_PINS)
+    _, jv = serialize.coded_load(CODER_PINS)
+    jq = coder.Quantizer(lo=jz["lo"], hi=jz["hi"], bits=8, dpcm=jz["dpcm"],
+                         dlo=jz["dlo"], dhi=jz["dhi"], f0_slot=coder.f0_slot(cc))
+    v01 = v[:2]
+    agree = {}
+    for label, quant in (("the JAX quantizer", jq), ("its own", None)):
+        q01 = quantize_save(v01, name="rows01.npz", quant=quant)
+        codes = np.load(path("rows01.npz"))["codes"]
+        vq01 = serialize.coded_load(path("rows01.npz"))[1]
+        agree[label] = (float(np.mean(codes == jz["codes"])),
+                        np.abs(vq01 - jv) / q01.step,
+                        {name: round(float(np.mean(
+                            codes[..., o:o + n] == jz["codes"][..., o:o + n]))
+                                     * 100, 3)
+                         for name, o, n in cc.layout()})
+    # a step's codes differ by one: 1e-3 of slack for the float rounding
+    within = {k: float(np.mean(a[1] <= 1.001)) for k, a in agree.items()}
+    same = agree["the JAX quantizer"][0]
+    phase("13 codec jax codes rows 0/1", same >= CODER_CODES_MIN
+          and within["the JAX quantizer"] >= CODER_STEP_SHARE_MIN,
+          f"codes of {jz['codes'].size} slots equal to the JAX package's; "
+          "dequantized vectors within one quantizer step of its; their "
+          "largest distance in steps; % equal by field: " + "; ".join(
+              f"with {k}: {a * 100:.3f}%, {within[k] * 100:.3f}%, "
+              f"{float(b.max()):.4f}, {c}" for k, (a, b, c) in agree.items())
+          + f" (with the JAX quantizer >= {CODER_CODES_MIN * 100:g}% and >= "
+          f"{CODER_STEP_SHARE_MIN * 100:g}%)")
+    y01 = render(v01).y_sin.cpu().numpy()
+    y8 = render(vq01).y_sin.cpu().numpy()      # its own quantizer, as JAX
+    for row, pin in CODER_PINS_ROWS.items():
+        rms = float(np.sqrt(np.mean(y01[row].astype(np.float64) ** 2)))
+        db = 20.0 * math.log10(rms / pin["rms"])
+        m8 = metrics.mel_cepstral_distortion_db(y01[row], y8[row],
+                                                fs=cc.conf.fs)
+        phase(f"13 codec jax pin row {row}", abs(db) <= CODER_RMS_TOL_DB
+              and abs(m8 - pin["mcd8"]) <= CODER_MCD_TOL_DB,
+              f"float decode y_sin rms {db:+.4f} dB from the JAX package's "
+              f"(+- {CODER_RMS_TOL_DB}); 8-bit MCD {m8:.4f} dB (JAX "
+              f"{pin['mcd8']:.4f} +- {CODER_MCD_TOL_DB})")
+    del ys, y01, y8
+    torch.cuda.reset_peak_memory_stats()
+    ms, peak = median_stages(torch, stages, 3)
+    total = sum(ms.values())
+    phase("13 codec step", True,
+          f"{B} x {N * l1.conf.thop:g} s: " + ", ".join(
+              f"{k} {v:.2f} ms" for k, v in ms.items())
+          + f" (median of 3); {total:.2f} ms = {audio_s / (total / 1e3):.1f}"
+          f" audio-sec/s; peak {peak:.2f} GiB")
+    return launches
+
+
+def nasal_fixtures(torch, dev):
+    """Phase 14's rows: synth_nasal_utterance, zero (900, 60) Hz, f0_base
+    NASAL_F0[i % 3], seed i -> (x, f0)."""
+    import numpy as np
+
+    from libllsm2_tpu_torch.utils import testsig
+    rows = [testsig.synth_nasal_utterance(
+        duration=DURATION, seed=i, zero=(900.0, 60.0),
+        f0_base=NASAL_F0[i % len(NASAL_F0)]) for i in range(BATCH)]
+    return tuple(torch.tensor(np.stack([r[j] for r in rows]),
+                              dtype=torch.float32, device=dev)
+                 for j in range(2))
+
+
+def nasal_phase(torch, kernels, mods, opt, dev):
+    """Phase 14, the section-model Rd fit (cell nasal-sections): nasal rows
+    -> the library-default analysis -> chunk_to_layer1 with and without
+    NASAL_SECTIONS, counters zeroed before -> launches."""
+    import numpy as np
+
+    layer0, layer1 = mods
+    t0 = time.perf_counter()
+    x, f0 = nasal_fixtures(torch, dev)
+    print(f"14 nasal fixtures: {BATCH} x {DURATION} s of "
+          f"synth_nasal_utterance in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    kernels.reset_launches()
+    ch = layer0._analyze(opt, x, f0)
+    l1 = layer1.chunk_to_layer1(ch, None, NASAL_SECTIONS)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    phase("14 nasal launches", all(launches[k] > 0 for k in ANALYSIS),
+          str(launches))
+    l1_none = layer1.chunk_to_layer1(ch)
+    voiced = (ch.f0 > 0).cpu().numpy()
+    med = lambda c: [float(np.median(c.rd[b].cpu().numpy()[voiced[b]]))
+                     for b in range(BATCH)]
+    rd, rd_none = med(l1), med(l1_none)
+    phase("14 nasal output", all(map(math.isfinite, rd)), f"rd {tuple(l1.rd.shape)}")
+    by = {f: [b for b in range(BATCH) if NASAL_F0[b % len(NASAL_F0)] == f]
+          for f in NASAL_F0}
+    print("14 nasal: median voiced rd by f0_base, the median over its rows "
+          "(min-max), with sections / without: " + "; ".join(
+              f"{f:g} Hz {statistics.median(rd[b] for b in rows):.4f} "
+              f"({min(rd[b] for b in rows):.4f}-{max(rd[b] for b in rows):.4f})"
+              f" / {statistics.median(rd_none[b] for b in rows):.4f} "
+              f"({min(rd_none[b] for b in rows):.4f}-"
+              f"{max(rd_none[b] for b in rows):.4f})"
+              for f, rows in by.items()), flush=True)
+    for f, (lo, hi) in NASAL_FLOORS.items():
+        worst = [rd[b] for b in by[f]]
+        phase(f"14 nasal floors at {f:g} Hz",
+              all(lo < r < hi for r in worst),
+              f"every row's median voiced rd with sections in "
+              f"{min(worst):.4f}-{max(worst):.4f} (test_nasal: ({lo}, {hi}))")
+    for row, pin in NASAL_PINS.items():
+        for key, got in (("sections", rd[row]), ("none", rd_none[row])):
+            phase(f"14 nasal jax pin row {row} {key}",
+                  abs(got - pin[key]) <= RD_PIN_REL_TOL * pin[key],
+                  f"median voiced rd {got:.6f} (JAX {pin[key]:.6f} +- "
+                  f"{RD_PIN_REL_TOL * 100:g}%)")
+    del l1, l1_none
+    check_rows("14 nasal", *rows_alone(torch, [
+        ("chunk_to_layer1 sections",
+         lambda c: fields(layer1.chunk_to_layer1(c, None, NASAL_SECTIONS),
+                          ("rd", "vtmagn", "vsphse")))], ch))
+    ms, peak = median_stages(torch, [
+        ("to_layer1 sections",
+         lambda _: layer1.chunk_to_layer1(ch, None, NASAL_SECTIONS)),
+        ("to_layer1", lambda _: layer1.chunk_to_layer1(ch))], 3)
+    phase("14 nasal step", True,
+          f"{BATCH} x {DURATION} s: " + ", ".join(
+              f"{k} {v:.2f} ms" for k, v in ms.items())
+          + f" (median of 3); peak {peak:.2f} GiB")
     return launches
 
 
@@ -1738,10 +2141,11 @@ def main(argv):
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False", flush=True)
         return 2
-    if argv and (len(argv) != 2 or argv[0] != "breakdown"):
+    if argv and (len(argv) != 2 or argv[0] not in ("breakdown", "rows")):
         print(__doc__, flush=True)
         return 2
-    # "breakdown DIR": only phase 5's breakdown, of the package in DIR
+    # "breakdown DIR" / "rows DIR": only phase 5's breakdown or the
+    # rows-alone checks of phases 9, 10 and 12, of the package in DIR
     other = Path(argv[1]).resolve() if argv else None
     repo = other or Path(__file__).resolve().parent
     if not (repo / "libllsm2_tpu_torch" / "__init__.py").exists():
@@ -1765,6 +2169,9 @@ def main(argv):
     from libllsm2_tpu_torch.models import edits, layer0, layer1, pbp
     from libllsm2_tpu_torch.ops import _build, harmonics, kernels
     from libllsm2_tpu_torch.parallel import corpus
+    if not other:
+        from libllsm2_tpu_torch.models import coder
+        from libllsm2_tpu_torch.utils import metrics, serialize
 
     t0 = time.perf_counter()
     _build.library()
@@ -1787,6 +2194,10 @@ def main(argv):
     assert opt11.conf.nhop == 55 and not opt11.fs_input
     t0 = time.perf_counter()
     data = fixtures(torch, dev)
+    if other and argv[0] == "rows":
+        print(f"rows alone of the package in {other}", flush=True)
+        rows_report(torch, (layer0, layer1, pbp, edits), opt, sopt, data, dev)
+        return 0
     if other:
         print(f"breakdown of the package in {other}", flush=True)
         mods = (harmonics, layer0, corpus, kernels)
@@ -1933,7 +2344,14 @@ def main(argv):
     del rows
     # phase 12: pitch x2, stretch x1.5 on phase 10's chunk (config 4)
     by_phase["12"] = edits_phase(torch, kernels, (layer0, edits), l1, sopt)
+    # phase 13: the codec on phase 10's chunk (8- and 16-bit archives)
+    by_phase["13"] = codec_phase(torch, kernels, (layer0, layer1, coder,
+                                                  serialize, metrics), l1,
+                                 sopt)
     del l1
+    torch.cuda.empty_cache()
+    # phase 14: the section-model Rd fit on nasal rows
+    by_phase["14"] = nasal_phase(torch, kernels, (layer0, layer1), opt, dev)
     for name in KERNELS:
         summary[name]["full_batch"] = full[name]
         summary[name]["launches_by_phase"] = {

@@ -9,10 +9,12 @@ and its batched form (analyze_batch, synthesize_batch), the corpus
 runners (parallel/corpus.py: batched_pipeline, run_corpus and
 run_corpus_files from WAV files, with the native loader and the F0
 tracker of ops/f0.py), the layer-1 codec (models/layer1.py:
-chunk_to_layer1, chunk_to_layer0), the chunk's phase utilities and the
-parameter-domain edits (models/edits.py) and pulse-by-pulse synthesis
-(models/pbp.py: pbp_synthesize), with all ten CUDA kernels
-(ops/kernels.py).  Entry points run on the card: numpy input goes to
+chunk_to_layer1 with or without known tract sections, chunk_to_layer0),
+the chunk's phase utilities and the parameter-domain edits
+(models/edits.py), pulse-by-pulse synthesis (models/pbp.py:
+pbp_synthesize), the frame coder and its quantizer (models/coder.py), the
+chunk and coded archives (utils/serialize.py) and the quality metrics
+(utils/metrics.py), with all ten CUDA kernels (ops/kernels.py).  Entry points run on the card: numpy input goes to
 "cuda" unless the caller passes device="cpu".  Options not ported raise
 NotImplementedError naming their ROADMAP item.
 """

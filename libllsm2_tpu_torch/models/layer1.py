@@ -29,6 +29,7 @@ import torch
 from ..container import Chunk, index_batch
 from ..fp import CP, FP
 from ..ops import interp, lf, spectral
+from . import layer0
 
 SPEED_OF_SOUND = 343.0
 RD_GRID_SIZE = 64
@@ -40,16 +41,6 @@ RD_PHASE_HARMONICS = 12
 RD_PHASE_TGRID = 64
 # elements of fit_rd_phase's [rows, N, G, T] complex score per row group
 _SCORE_ELEMS = 1 << 27
-
-
-# the ROADMAP Queue 1 item that covers what layer 1 still refuses, by title
-LAYER1_LEFTOVERS = 'Queue 1, "Layer-1 leftovers",'
-
-
-def _unported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to libllsm2_tpu_torch yet ({item} in "
-        "ROADMAP.md)")
 
 
 def _rd_grid(device=None) -> torch.Tensor:
@@ -92,11 +83,20 @@ def lip_radiation_logmag(f, lip_radius: float) -> torch.Tensor:
                                  / SPEED_OF_SOUND, min=1e-12))
 
 
+def minphase_rows(logmag: torch.Tensor) -> torch.Tensor:
+    """spectral.minphase_phase of log magnitudes [B, N, nspec] in calls of
+    layer0._group_rows(N) rows, the last zero-padded: cuFFT plans follow
+    the transform count, so a row's phase does not depend on its batch."""
+    return layer0._row_groups(spectral.minphase_phase, logmag,
+                              layer0._group_rows(logmag.shape[-2]))
+
+
 def _pseudo_mp(logmag: torch.Tensor) -> torch.Tensor:
-    """Minimum phase on the harmonic-index pseudo-grid: logmag at harmonics
-    1..K as a uniform spectrum (bin 0 repeats k = 1) -> phase at 1..K."""
+    """Minimum phase on the harmonic-index pseudo-grid: logmag [B, N, K] at
+    harmonics 1..K as a uniform spectrum (bin 0 repeats k = 1) -> phase at
+    1..K."""
     M = torch.cat([logmag[..., :1], logmag], dim=-1)
-    return spectral.minphase_phase(M)[..., 1:]
+    return minphase_rows(M)[..., 1:]
 
 
 @functools.lru_cache(maxsize=8)
@@ -153,6 +153,25 @@ def _wrap(ph: torch.Tensor) -> torch.Tensor:
 def _take(a: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
     """a[..., i] along the last axis with i of a's leading shape."""
     return torch.gather(a, -1, i[..., None])[..., 0]
+
+
+def _resonance_dev(f0: torch.Tensor, K: int, fc: float, bw: float,
+                   fs: float, sign: float) -> torch.Tensor:
+    """Phase-deviation contribution, at the harmonics of f0 [B, N], of an
+    under-resolved second-order section: the section's true phase minus
+    the minimum phase of its harmonic-sampled log magnitude (what
+    _pseudo_mp recovers on its own) -> [B, N, K].  sign -1: a resonance
+    (pole pair, e.g. a sharp F1 between harmonics); +1: an antiformant
+    (zero pair, the nasal side-branch null).  It tends to zero where the
+    sampling resolves the section (JAX layer1._resonance_dev)."""
+    kh = torch.arange(1, K + 1, dtype=FP, device=f0.device)
+    fk = kh * torch.clamp(f0, min=1.0)[..., None]
+    r = torch.exp(torch.tensor(-math.pi * bw / fs, dtype=FP))
+    c1 = 2.0 * r * torch.cos(torch.tensor(2.0 * math.pi * fc / fs, dtype=FP))
+    z1 = torch.polar(torch.ones_like(fk), (-2.0 * math.pi) * fk / fs)
+    H = 1.0 - c1.to(f0.device) * z1 + (r * r).to(f0.device) * z1 * z1
+    zlm = torch.log(torch.clamp(torch.abs(H), min=1e-9))
+    return sign * (torch.angle(H) - _pseudo_mp(zlm))
 
 
 def _fit_weights(log_ampl, mask, f0, fcap: float):
@@ -296,11 +315,10 @@ def chunk_to_layer1(chunk: Chunk, nfft: int | None = None,
     [B, N, K]) to a layer-0 chunk (reference: layer1.c ->
     llsm_chunk_tolayer1(chunk, nfft)).  nfft sets the envelope resolution
     (nfft // 2 + 1 bins; default conf.nspec); chunk_to_layer0 reads it back
-    from vtmagn's shape.  sections (known tract sections for the Rd fit)
-    is not ported."""
-    if sections:
-        raise _unported("sections= (fit_rd_sections, _resonance_dev)",
-                        LAYER1_LEFTOVERS)
+    from vtmagn's shape.  sections: ((fc_hz, bw_hz, sign), ...) known sharp
+    tract sections for the Rd fit (sign -1 a pole, +1 a zero;
+    fit_rd_sections), which recover Rd where a sharp F1 or antiformant
+    falls between harmonics (sustained nasals at f0 above ~180 Hz)."""
     conf = chunk.conf
     nspec = (int(nfft) // 2 + 1) if nfft else conf.nspec
     mask = chunk.hm_mask
@@ -312,7 +330,12 @@ def chunk_to_layer1(chunk: Chunk, nfft: int | None = None,
     lip_logmag = lip_radiation_logmag(fk, conf.lip_radius)
     # masked slots hold the last valid value, so the pseudo-grid minimum
     # phase does not see the LOG_FLOOR cliff
-    rd = fit_rd_phase(_hold_last(log_ampl, mask), chunk.phse, mask, chunk.f0)
+    held = _hold_last(log_ampl, mask)
+    if sections:
+        rd = fit_rd_sections(held, chunk.phse, mask, chunk.f0, conf.fs,
+                             sections)
+    else:
+        rd = fit_rd_phase(held, chunk.phse, mask, chunk.f0)
     rd = torch.where(voiced, rd, torch.ones_like(rd))
     src_logmag, src_phase = _source_at_harmonics(rd, fk.shape[-1])
 
@@ -333,8 +356,7 @@ def chunk_to_layer1(chunk: Chunk, nfft: int | None = None,
                          torch.full_like(vtmagn, LOG_FLOOR))
 
     # voice-source phase: measured - VT minimum phase - LF phase - radiation
-    vt_phase_k = interp.interp1_uniform(
-        spectral.minphase_phase(vtmagn), pos_k)
+    vt_phase_k = interp.interp1_uniform(minphase_rows(vtmagn), pos_k)
     vsphse = _wrap(chunk.phse - vt_phase_k - src_phase - 0.5 * math.pi) * mask
     return chunk.replace(rd=rd, vtmagn=vtmagn, vsphse=vsphse)
 
@@ -354,19 +376,49 @@ def chunk_to_layer0(chunk: Chunk) -> Chunk:
     nspec = chunk.vtmagn.shape[-1]
     pos = fk / (conf.fs / 2.0) * (nspec - 1)
     vt_k = interp.interp1_uniform(chunk.vtmagn, pos)
-    vt_phase_k = interp.interp1_uniform(
-        spectral.minphase_phase(chunk.vtmagn), pos)
+    vt_phase_k = interp.interp1_uniform(minphase_rows(chunk.vtmagn), pos)
     ampl = torch.exp(vt_k + src_logmag + lip_logmag) * mask
     phse = _wrap(vt_phase_k + src_phase + 0.5 * math.pi + chunk.vsphse) * mask
     return chunk.replace(ampl=ampl, phse=phse, hm_mask=mask)
 
 
-def fit_rd_sections(*args, **kw):
-    """Rd fit under known tract sections: not ported."""
-    raise _unported("fit_rd_sections", LAYER1_LEFTOVERS)
+def fit_rd_sections(log_ampl: torch.Tensor, phse: torch.Tensor,
+                    mask: torch.Tensor, f0: torch.Tensor, fs: float,
+                    sections, smooth: float = 10.0) -> torch.Tensor:
+    """Rd fit under known parametric tract sections (JAX
+    layer1.fit_rd_sections, whose docstring gives the measurements): the
+    under-resolution contamination of each section (_resonance_dev) is
+    subtracted from the measured phase deviation before fit_rd_phase.
+    log_ampl, phse, mask [B, N, K], f0 [B, N]; sections: iterable of
+    (fc_hz, bw_hz, sign), sign -1 a pole (resonance), +1 a zero
+    (antiformant) -> rd [B, N].  Blind selection of sections was measured
+    unreliable in the JAX package and is not offered."""
+    K = log_ampl.shape[-1]
+    corr = torch.zeros_like(log_ampl)
+    for fc, bw, sign in sections:
+        corr = corr + _resonance_dev(f0, K, float(fc), float(bw), fs,
+                                     float(sign))
+    return fit_rd_phase(log_ampl, phse, mask, f0, smooth=smooth,
+                        dev_corr=corr)
 
 
-def fit_rd(*args, **kw):
-    """The legacy amplitude-tilt Rd fit: not ported."""
-    raise _unported("fit_rd (the legacy amplitude-tilt fit)",
-                    LAYER1_LEFTOVERS)
+def fit_rd(log_ampl: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """The legacy amplitude-tilt Rd fit (JAX layer1.fit_rd): log_ampl,
+    mask [B, N, K], the lip radiation's tilt already divided out -> rd
+    [B, N], by a grid search of the first RD_FIT_HARMONICS harmonics' tilt
+    over the Rd tables and a parabolic refinement.  Formant structure
+    biases it low on resonant material, which is why chunk_to_layer1 uses
+    fit_rd_phase."""
+    grid, src_logmag, _ = _source_tables(log_ampl.shape[-1],
+                                         device=log_ampl.device)
+    KR = RD_FIT_HARMONICS
+    d = (log_ampl - log_ampl[..., :1])[..., :KR]              # [B, N, KR]
+    s = (src_logmag - src_logmag[:, :1])[:, :KR]              # [G, KR]
+    kr = torch.arange(1, KR + 1, dtype=FP, device=log_ampl.device)
+    wgt = mask[..., :KR] / kr
+    err = torch.sum(wgt[..., None, :] * (d[..., None, :] - s) ** 2, dim=-1)
+    kf, _ = spectral.qifft(-err, torch.argmin(err, dim=-1))
+    knots = torch.arange(RD_GRID_SIZE, dtype=FP, device=log_ampl.device)
+    B, N = kf.shape
+    return torch.exp(interp.interp(kf.reshape(1, -1), knots[None],
+                                   torch.log(grid)[None]).reshape(B, N))

@@ -4,15 +4,20 @@ one process on one card and run in alternating pairs, so that both see
 the same card, host and moment.  The cells (chip_smoke.py's phases):
 batched_pipeline on the bench rows x 8 s with the library default
 (phase 5, `batch` rows) and with hm_kernel="matmul" (phase 6), the
-denoiser off on 32 of them (phase 4: rows 0-15 and 64-79), and the public
-analyze() of one 8 s file (row 0, a batch of one).  One untimed step of
+denoiser off on 32 of them (phase 4: rows 0-15 and 64-79), the public
+analyze() of one 8 s file (row 0, a batch of one), the layer-1 round trip
+chunk_to_layer1 -> chunk_to_layer0 -> synthesis of the bench rows' chunk
+(phase 9), pbp_synthesize of the LF rows' layer-1 chunk (phase 10) and
+the edit chain pitch_shift(2.0) -> time_stretch(1.5) -> synthesize_batch
+on it (phase 12); each side analyzes (and fits layer 1) once, untimed,
+with its own package.  One untimed step of
 each first, then `pairs` pairs whose order alternates (other first in
 even pairs), each step timed by the host clock around work that ends in
 torch.cuda.synchronize().  Prints every step, each side's median and
 quartiles, and how many pairs each side won.  Imports no jax:
 
     python3 scripts/port_ab_steps.py OTHER_DIR [pairs=20] [batch=128]
-        [cells=default,matmul,off32,one]
+        [cells=default,matmul,off32,one,layer1,pbp,edits]
 """
 import dataclasses
 import importlib
@@ -46,7 +51,8 @@ def main(argv):
         return 2
     kw = dict(a.split("=", 1) for a in argv[1:])
     pairs, B = int(kw.get("pairs", 20)), int(kw.get("batch", 128))
-    cells = kw.get("cells", "default,matmul,off32,one").split(",")
+    cells = kw.get("cells", "default,matmul,off32,one,layer1,pbp,edits"
+                   ).split(",")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -65,6 +71,14 @@ def main(argv):
     off_rows = torch.tensor([r for r in list(range(16))
                              + list(range(B // 2, B // 2 + 16)) if r < B],
                             device="cuda")
+    if {"pbp", "edits"} & set(cells):
+        nfrm = x.shape[1] // 80
+        lf = [testsig.synth_lf_speech(testsig.make_f0_track(nfrm, 0.005),
+                                      rd=(0.4, 1.0, 1.8, 2.7)[i % 4], seed=i)
+              for i in range(B)]
+        lx, lf0 = (torch.tensor(np.stack([r[j] for r in lf]),
+                                dtype=torch.float32, device="cuda")
+                   for j in range(2))
     for cell in cells:
         steps = {}
         for name, pkg in sides.items():
@@ -72,7 +86,23 @@ def main(argv):
             sopt = dataclasses.replace(pkg.create_soptions(), use_pallas=True)
             corpus = importlib.import_module(pkg.__name__
                                              + ".parallel.corpus")
-            if cell == "one":
+            mod = lambda m: importlib.import_module(f"{pkg.__name__}.models."
+                                                    + m)
+            l0, l1 = mod("layer0"), mod("layer1")
+            if cell == "layer1":
+                ch = l0._analyze(opt, x, f0)
+                steps[name] = (lambda l0=l0, l1=l1, c=ch, s=sopt:
+                               l0._synthesize(s, l1.chunk_to_layer0(
+                                   l1.chunk_to_layer1(c))))
+            elif cell in ("pbp", "edits"):
+                c1 = l1.chunk_to_layer1(l0._analyze(opt, lx, lf0))
+                pbp, edits = mod("pbp"), mod("edits")
+                steps[name] = (
+                    (lambda p=pbp, c=c1, s=sopt: p._pbp_synthesize(s, c))
+                    if cell == "pbp" else
+                    (lambda e=edits, l0=l0, c=c1, s=sopt: l0.synthesize_batch(
+                        s, e.time_stretch(e.pitch_shift(c, 2.0), 1.5))))
+            elif cell == "one":
                 steps[name] = (lambda p=pkg, o=opt: p.analyze(o, x[0], f0[0]))
             else:
                 args = (x, f0, nxv, x_ref)

@@ -32,13 +32,26 @@ with the Pallas kernels in interpret mode:
             tracks it) as run lengths, unvoiced first;
   edits     BASELINE config 4 on LF rows 0 and 1 (as PbP): chunk_to_layer1,
             pitch_shift(2.0), time_stretch(1.5), synthesize: the edited
-            chunk's frame count, its median voiced F0 and the rms of y_sin.
+            chunk's frame count, its median voiced F0 and the rms of y_sin;
+  coder     the codec (chip_smoke.py phase 13) on LF rows 0 and 1 (as PbP):
+            chunk_to_layer1, encode with CoderConfig() (64 VT and 32 PSD
+            dims), a quantizer fitted on the two rows (8 bits, Rd by DPCM,
+            the F0 slot's voicing re-sync), its coded_save archive written
+            to CODER_PINS (codes, ranges and the 16-bit F0 side array; the
+            card compares its own codes with them), the y_sin rms of
+            synthesize(decode(vectors)) and the mel-cepstral distortion of
+            the 8-bit and 16-bit archives' decodes against it;
+  nasal     the section-model Rd fit (chip_smoke.py phase 14) on nasal rows
+            0 and 1 (synth_nasal_utterance, zero (900, 60) Hz, f0_base 120
+            and 182 Hz, seed = row): the median voiced rd of
+            chunk_to_layer1 with the sections ((250, 70, -1), (900, 60,
+            +1)) and without.
 
     JAX_PLATFORMS=cpu python scripts/port_jax_pins.py [duration=8.0] \
-        [only=l0,11k,l1,pbp,corpus,edits]
+        [only=l0,11k,l1,pbp,corpus,edits,coder,nasal]
 
-CPU time of the two parts added last, on an 8-core x86 host: corpus 49.3 s,
-edits 42.1 s.
+CPU time of the parts added last, on an 8-core x86 host: corpus 49.3 s,
+edits 42.1 s, coder 32.2 s, nasal 4.8 s (run after coder in one process).
 """
 import dataclasses
 import sys
@@ -58,6 +71,10 @@ from libllsm2_tpu.utils import testsig  # noqa: E402
 
 ROWS = {0: 0.05, 1: 0.05, 64: 0.0}      # bench row -> noise level
 LF_RD = (0.4, 1.0, 1.8, 2.7)            # chip_smoke.py phase 10: Rd of row i % 4
+NASAL_F0 = (120.0, 182.0, 200.0)        # chip_smoke.py phase 14: f0_base of row i % 3
+NASAL_SECTIONS = ((250.0, 70.0, -1.0), (900.0, 60.0, 1.0))
+# the JAX coder's 8-bit archive of LF rows 0 and 1 (part coder)
+CODER_PINS = "scripts/port_jax_pins_coder.npz"
 
 
 def snr_db(ref, y, fs, f0_floor):
@@ -221,10 +238,64 @@ def edit_chain(duration):
     return out
 
 
+def _lf_layer1(duration, rows=(0, 1)):
+    opt, sopt = _opts16()
+    nfrm = int(round(duration / opt.conf.thop))
+    out = []
+    for i in rows:
+        f0 = testsig.make_f0_track(nfrm, opt.conf.thop)
+        x, f0 = testsig.synth_lf_speech(f0, rd=LF_RD[i % 4], seed=i)
+        out.append(layer1.chunk_to_layer1(layer0.analyze(
+            opt, x.astype(np.float32), f0.astype(np.float32))))
+    return out
+
+
+def coder_rows(duration):
+    from libllsm2_tpu.models import coder
+    from libllsm2_tpu.utils import metrics, serialize
+    _, sopt = _opts16()
+    l1s = _lf_layer1(duration)
+    cc = coder.CoderConfig(conf=l1s[0].conf)
+    v = np.stack([np.asarray(coder.encode(cc, l1)) for l1 in l1s])
+    q = coder.fit_quantizer(v, bits=8, dpcm=coder.default_dpcm_mask(cc),
+                            f0_slot=coder.f0_slot(cc))
+    serialize.coded_save(CODER_PINS, cc, v, bits=8, quant=q)
+    render = lambda vec: np.asarray(layer0.synthesize(
+        sopt, coder.decode(cc, vec)).y_sin, np.float64)
+    out = {}
+    with __import__("tempfile").TemporaryDirectory() as d:
+        path = d + "/v16.npz"
+        serialize.coded_save(path, cc, v, bits=16)
+        v16 = serialize.coded_load(path)[1]
+    v8 = serialize.coded_load(CODER_PINS)[1]
+    for i in range(len(l1s)):
+        y = render(v[i])
+        out[i] = dict(rms=float(np.sqrt(np.mean(y ** 2))), **{
+            f"mcd{b}": metrics.mel_cepstral_distortion_db(
+                y, render(vb[i]), fs=cc.conf.fs) for b, vb in ((8, v8),
+                                                               (16, v16))})
+    return out
+
+
+def nasal_rows(duration):
+    opt, _ = _opts16()
+    out = {}
+    for i in (0, 1):
+        x, f0 = testsig.synth_nasal_utterance(
+            duration=duration, seed=i, zero=(900.0, 60.0),
+            f0_base=NASAL_F0[i % 3])
+        ch = layer0.analyze(opt, x.astype(np.float32), f0.astype(np.float32))
+        v = np.asarray(f0) > 0
+        out[i] = {k: float(np.median(np.asarray(
+            layer1.chunk_to_layer1(ch, None, secs).rd)[v]))
+            for k, secs in (("sections", NASAL_SECTIONS), ("none", None))}
+    return out
+
+
 def main():
     kw = dict(a.split("=", 1) for a in sys.argv[1:])
     duration = float(kw.get("duration", 8.0))
-    only = kw.get("only", "l0,11k,l1,pbp,corpus,edits").split(",")
+    only = kw.get("only", "l0,11k,l1,pbp,corpus,edits,coder,nasal").split(",")
     if "l0" in only:
         t0 = time.perf_counter()
         print(f"16 kHz batched_pipeline at {duration} s:",
@@ -257,6 +328,17 @@ def main():
         print(f"pitch x2, stretch x1.5 of LF rows 0/1 at {duration} s:",
               edit_chain(duration), f"({time.perf_counter() - t0:.1f} s)",
               flush=True)
+    if "coder" in only:
+        t0 = time.perf_counter()
+        print(f"the codec on LF rows 0/1 at {duration} s (y_sin rms of the "
+              "float decode; MCD of the 8- and 16-bit archives' decodes; "
+              f"the 8-bit archive in {CODER_PINS}):", coder_rows(duration),
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    if "nasal" in only:
+        t0 = time.perf_counter()
+        print(f"median voiced rd of nasal rows 0/1 at {duration} s, with "
+              "and without sections:", nasal_rows(duration),
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
 if __name__ == "__main__":
     main()

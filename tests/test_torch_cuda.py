@@ -698,9 +698,12 @@ def test_layer1_and_pbp_on_card_match_cpu():
     """A 0.5 s LF utterance analyzed on the CPU, then layer 1 and PbP on
     the card against the same calls on the CPU: rd within 1e-3 relative
     (an in-model source, where the Rd score has a clear peak), the
-    regenerated harmonics within 1e-4 x scale, PbP y_sin within 1e-3 x
-    peak (index_add_ on the card adds in no fixed order), and the noise
-    part through noise_mod_ola."""
+    regenerated harmonics within 1e-4 x scale, PbP y_sin within 2e-4 x
+    peak (the pulses add in one order on both and their onsets are summed
+    exactly; the LF spectra's float32 transcendentals round otherwise on
+    the two devices: 1.1e-4 measured on an H100, 2.1e-4 when the card
+    summed the cycle count in float32 and added pulses by index_add_),
+    and the noise part through noise_mod_ola."""
     from libllsm2_tpu_torch import create_aoptions, create_soptions
     from libllsm2_tpu_torch.models import layer1 as tl1, pbp as tpbp
     from libllsm2_tpu_torch.utils import testsig
@@ -728,8 +731,57 @@ def test_layer1_and_pbp_on_card_match_cpu():
     assert kernels.LAUNCHES["noise_mod_ola"] == 1
     y_cpu = tpbp.pbp_synthesize(sopt, l1_cpu)
     peak = float(y_cpu.y_sin.abs().max())
+    print("pbp y_sin card - cpu: max |difference| / peak "
+          f"{float((y_dev.y_sin.cpu() - y_cpu.y_sin).abs().max()) / peak:.3e}")
     torch.testing.assert_close(y_dev.y_sin.cpu(), y_cpu.y_sin,
-                               atol=1e-3 * peak, rtol=0)
+                               atol=2e-4 * peak, rtol=0)
+
+
+@pytest.mark.requires_cuda
+def test_layer1_pbp_and_edits_rows_do_not_depend_on_the_batch_on_card():
+    """66 LF rows of 1 s (Rd 0.4 / 1.0 / 1.8 / 2.7 by row) analyzed on the
+    card, then chunk_to_layer1, chunk_to_layer0, pbp_synthesize and the
+    edit chain pitch_shift(2.0) -> time_stretch(1.5) -> synthesize_batch:
+    rows 0, 1 and 64, each alone (a batch of one fed that row of the
+    stage's batch input), equal their rows of the batch bit for bit, field
+    by field and in y, y_sin and y_nos; two runs of the batch are equal."""
+    import dataclasses
+    from libllsm2_tpu_torch import create_aoptions, create_soptions
+    from libllsm2_tpu_torch.container import CHUNK_FIELDS, LAYER1_FIELDS
+    from libllsm2_tpu_torch.models import edits, layer1 as tl1, pbp as tpbp
+    from libllsm2_tpu_torch.utils import testsig
+    dev = _card()
+    opt = create_aoptions(f0_floor=70.0, use_pallas=True)
+    sopt = dataclasses.replace(create_soptions(), use_pallas=True)
+    f0 = testsig.make_f0_track(200, 0.005)
+    utt = [testsig.synth_lf_speech(f0, rd=(0.4, 1.0, 1.8, 2.7)[i % 4],
+                                   seed=i) for i in range(66)]
+    x, f0 = (torch.tensor(np.stack([u[j] for u in utt]),
+                          dtype=torch.float32, device=dev) for j in range(2))
+    ys = ("y", "y_sin", "y_nos")
+    chains = [
+        [(tl1.chunk_to_layer1, LAYER1_FIELDS),
+         (tl1.chunk_to_layer0, ("ampl", "phse", "hm_mask")),
+         (lambda c: tl0._synthesize(sopt, c), ys)],
+        [(tl1.chunk_to_layer1, ()),
+         (lambda c: tpbp._pbp_synthesize(sopt, c), ys)],
+        [(tl1.chunk_to_layer1, ()),
+         (lambda c: edits.pitch_shift(c, 2.0), CHUNK_FIELDS),
+         (lambda c: edits.time_stretch(c, 1.5), CHUNK_FIELDS),
+         (lambda c: tl0.synthesize_batch(sopt, c), ys)]]
+    for chain in chains:
+        inp = tl0._analyze(opt, x, f0)
+        for fn, names in chain:
+            whole, again = fn(inp), fn(inp)
+            for name in names:
+                assert torch.equal(getattr(whole, name),
+                                   getattr(again, name)), name
+            for r in (0, 1, 64):
+                alone = fn(inp.map(lambda a: a[r:r + 1]))
+                for name in names:
+                    assert torch.equal(getattr(alone, name)[0],
+                                       getattr(whole, name)[r]), (r, name)
+            inp = whole
 
 
 @pytest.mark.requires_cuda

@@ -202,8 +202,8 @@ def test_chunk_to_layer1_matches(lf_ref):
 
 def test_public_single_chunk_api(lf_ref):
     """chunk_to_layer1 / chunk_to_layer0 on a chunk without a batch axis
-    give the batched rows; a layer-0 chunk refuses chunk_to_layer0 and the
-    unported sections= fit raises naming the ROADMAP."""
+    give the batched rows, with and without sections=; a layer-0 chunk
+    refuses chunk_to_layer0."""
     ch, _ = lf_ref
     single = _carry(ch, batch=False)
     l1 = tpkg.models.chunk_to_layer1(single)
@@ -214,8 +214,10 @@ def test_public_single_chunk_api(lf_ref):
     assert back.ampl.shape == single.ampl.shape
     with pytest.raises(ValueError, match="layer-1"):
         tl1.chunk_to_layer0(single)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tl1.chunk_to_layer1(single, sections=((250.0, 60.0, -1),))
+    secs = ((250.0, 60.0, -1),)
+    np.testing.assert_array_equal(
+        tl1.chunk_to_layer1(single, sections=secs).rd.numpy(),
+        tl1.chunk_to_layer1(_carry(ch), sections=secs).rd[0].numpy())
 
 
 @pytest.fixture(scope="module")

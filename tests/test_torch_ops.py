@@ -17,6 +17,7 @@ from libllsm2_tpu.ops import interp as jinterp
 from libllsm2_tpu.ops import spectral as jspectral
 from libllsm2_tpu.ops import warp as jwarp
 from libllsm2_tpu.ops import windows as jwindows
+from libllsm2_tpu.utils import metrics as jmetrics
 from libllsm2_tpu.utils import testsig as jtestsig
 
 from libllsm2_tpu_torch import config as tconfig
@@ -25,6 +26,7 @@ from libllsm2_tpu_torch.ops import interp as tinterp
 from libllsm2_tpu_torch.ops import spectral as tspectral
 from libllsm2_tpu_torch.ops import warp as twarp
 from libllsm2_tpu_torch.ops import windows as twindows
+from libllsm2_tpu_torch.utils import metrics as tmetrics
 from libllsm2_tpu_torch.utils import testsig as ttestsig
 
 torch.set_num_threads(1)
@@ -309,6 +311,87 @@ def test_fixture_copies_are_exact(fn, kw):
         np.testing.assert_array_equal(g, r)
 
 
+@pytest.mark.parametrize("fn,kw", [
+    ("make_hard_f0_track", dict(nfrm=160, thop=0.005, register="male",
+                                jitter=0.01, seed=2, unvoiced_tail_frac=0.15)),
+    ("make_hard_f0_track", dict(nfrm=160, thop=0.005, register="child")),
+    ("synth_hard_utterance", dict(duration=0.3, register="female", seed=3)),
+    ("synth_hard_utterance", dict(duration=0.3, register="male", seed=1,
+                                  noise_level=0.0, jitter=0.0, burst=False)),
+    ("synth_voiced_fricative", dict(duration=0.3, seed=3, return_parts=True)),
+])
+def test_hard_and_fricative_fixture_copies_are_exact(fn, kw):
+    """The port's copies of the pure-numpy hardened and voiced-fricative
+    fixtures give the JAX package's arrays bit for bit."""
+    test_fixture_copies_are_exact(fn, kw)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(zero=(900.0, 60.0), f0_base=200.0,
+                                             rd=0.6, seed=4)])
+def test_synth_nasal_utterance_copy_matches(kw):
+    """The nasal fixture, whose pulse shape comes from each package's LF
+    model: the F0 track equal, the signal within 1e-6 of the unit peak (as
+    test_synth_lf_speech_copy_matches)."""
+    xj, fj = jtestsig.synth_nasal_utterance(duration=0.3, **kw)
+    xt, ft = ttestsig.synth_nasal_utterance(duration=0.3, **kw)
+    np.testing.assert_array_equal(ft, fj)
+    np.testing.assert_allclose(xt, xj, atol=1e-6)
+
+
+@pytest.mark.parametrize("name", ["snr_db", "log_spectral_distance_db",
+                                  "mel_cepstral_distortion_db",
+                                  "band_energy_error_db"])
+def test_metrics_copy_matches(name):
+    """Each metric of the port's copy equals the JAX package's on seeded
+    signals (numpy in both), bit for bit."""
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal(8000)
+    y = x + 0.1 * rng.standard_normal(8000)
+    fn = getattr(tmetrics, name), getattr(jmetrics, name)
+    assert fn[0](x, y) == fn[1](x, y)
+    assert fn[0](x, 0.5 * y) == fn[1](x, 0.5 * y)
+    np.testing.assert_array_equal(
+        tmetrics._mel_filterbank(16000.0, 400, 40, 50.0, 8000.0),
+        jmetrics._mel_filterbank(16000.0, 400, 40, 50.0, 8000.0))
+
+
+def _speechlike(fs=16000, dur=2.0, seed=0):
+    from scipy import signal as sps
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(fs * dur)) / fs
+    src = sps.square(2 * np.pi * 120 * t) + 0.05 * rng.standard_normal(len(t))
+    b, a = sps.butter(2, [500 / (fs / 2), 2500 / (fs / 2)], "bandpass")
+    return sps.lfilter(b, a, src)
+
+
+def test_mcd_anchors_hold_on_the_copy():
+    """tests/test_metrics.py's anchors on the port's MCD: 0 for identical
+    signals, gain-invariant, -40 dB noise under 2.5 dB, -20 dB noise in
+    (3, 8) dB and worse, unrelated noise 2 dB worse still; a small formant
+    shift under 2 dB and a large one over twice that."""
+    from scipy import signal as sps
+    fs = 16000
+    mcd = lambda a, b: tmetrics.mel_cepstral_distortion_db(a, b, fs)
+    x = _speechlike(fs)
+    rng = np.random.default_rng(1)
+    assert mcd(x, x) == 0.0 and mcd(x, 2.0 * x) < 1e-9
+    near = mcd(x, x + 0.01 * np.std(x) * rng.standard_normal(len(x)))
+    deg = mcd(x, x + 0.1 * np.std(x) * rng.standard_normal(len(x)))
+    bad = mcd(x, np.std(x) * rng.standard_normal(len(x)))
+    assert near < 2.5 and 3.0 < deg < 8.0 and deg > near and bad > deg + 2.0
+    rng = np.random.default_rng(2)
+    t = np.arange(fs * 2) / fs
+    src = sps.square(2 * np.pi * 120 * t) + 0.05 * rng.standard_normal(len(t))
+
+    def formants(lo, hi):
+        b, a = sps.butter(2, [lo / (fs / 2), hi / (fs / 2)], "bandpass")
+        return sps.lfilter(b, a, src)
+
+    ref = formants(500, 2500)
+    small, big = mcd(ref, formants(550, 2600)), mcd(ref, formants(900, 4000))
+    assert small < 2.0 and big > 2.0 * small, (small, big)
+
+
 @pytest.mark.parametrize("fs", [16000.0, 11000.0])
 def test_batched_fixture_rows_are_exact(fs):
     """make_test_utterances (one harmonic synthesis for many rows) gives
@@ -350,7 +433,9 @@ def test_import_pulls_in_no_jax():
     code = ("import sys, libllsm2_tpu_torch\n"
             "from libllsm2_tpu_torch.models import layer0\n"
             "from libllsm2_tpu_torch.parallel import corpus\n"
-            "from libllsm2_tpu_torch.utils import testsig\n"
+            "from libllsm2_tpu_torch.utils import metrics, serialize, "
+            "testsig\n"
+            "from libllsm2_tpu_torch.models import coder\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m.startswith('libllsm2_tpu.') "
             "or m == 'libllsm2_tpu']\n"

@@ -18,7 +18,8 @@ from libllsm2_tpu.models import pbp as jpbp
 from libllsm2_tpu.utils import testsig as jts
 
 import libllsm2_tpu_torch as tpkg
-from libllsm2_tpu_torch.container import CHUNK_FIELDS, chunk_from_numpy
+from libllsm2_tpu_torch.container import (CHUNK_FIELDS, LAYER1_FIELDS,
+                                          chunk_from_numpy)
 from libllsm2_tpu_torch.models import layer1 as tl1
 from libllsm2_tpu_torch.models import pbp as tpbp
 from libllsm2_tpu_torch.ops import kernels
@@ -104,6 +105,63 @@ def test_pbp_rows_independent_of_grouping(ref, monkeypatch):
     out = tpkg.models.pbp_synthesize(_sopt(tpkg), single)
     assert out.y_sin.shape == whole[1].shape
     np.testing.assert_allclose(out.y_sin.numpy(), whole[1].numpy(), atol=1e-6)
+
+
+def test_overlap_add_matches_a_plain_sum():
+    """_overlap_add on 3 rows of random pulses at random onsets (one row
+    without pulses, one whose last pulses are invalid): equal to
+    a plain loop of adds within float32 rounding of the order, each row alone
+    bit for bit its row of the 3-row call, the tail (invalid pulses) left
+    out of the rows' samples."""
+    rng = np.random.default_rng(5)
+    nfft, P, L = 64, 40, 1200
+    gaps = rng.integers(9, 30, (3, P))
+    onset = torch.tensor(np.cumsum(gaps, axis=1) - gaps[:, :1])
+    valid = torch.ones((3, P), dtype=torch.bool)
+    valid[1] = False
+    valid[2, 30:] = False
+    valid[2, 12] = False
+    start = torch.where(valid, onset, torch.full_like(onset, L))
+    pulses = torch.tensor(rng.standard_normal((3, P, nfft)), dtype=torch.float32)
+    m, count = tpbp._overlap_classes(onset, valid, nfft)
+    assert int(m[0]) == -(-nfft // int(gaps[0, 1:].min()))
+    y = torch.zeros((3, L + nfft))
+    tpbp._overlap_add(y, pulses, start, m, count)
+    ref = torch.zeros((3, L + nfft))
+    for b in range(3):
+        for p in range(P):
+            if valid[b, p]:
+                ref[b, onset[b, p]:onset[b, p] + nfft] += pulses[b, p]
+    torch.testing.assert_close(y[:, :L], ref[:, :L], rtol=0, atol=1e-5)
+    for b in range(3):
+        one = torch.zeros((1, L + nfft))
+        tpbp._overlap_add(one, pulses[b:b + 1], start[b:b + 1], m[b:b + 1],
+                          count[b:b + 1])
+        assert torch.equal(one[0, :L], y[b, :L])
+
+
+def test_rows_alone_equal_their_batch_rows_on_cpu(ref):
+    """chunk_to_layer1, chunk_to_layer0 and pbp_synthesize on the CPU on a
+    4-row batch (the fixture's rows twice, in other places): each row
+    alone (a batch of one, fed that row of the stage's batch input) gives
+    its batch row bit for bit, every field and y, y_sin, y_nos."""
+    _, chunk = ref
+    l0 = chunk.map(lambda a: a[[0, 1, 1, 0]]).replace(rd=None, vtmagn=None,
+                                                      vsphse=None)
+    l1 = tl1.chunk_to_layer1(l0)
+    back = tl1.chunk_to_layer0(l1)
+    out = tpbp._pbp_synthesize(_sopt(tpkg), l1)
+    for r in range(4):
+        row = lambda c: c.map(lambda a: a[r:r + 1])
+        stages = ((tl1.chunk_to_layer1(row(l0)), l1, LAYER1_FIELDS),
+                  (tl1.chunk_to_layer0(row(l1)), back,
+                   ("ampl", "phse", "hm_mask")),
+                  (tpbp._pbp_synthesize(_sopt(tpkg), row(l1)), out,
+                   ("y", "y_sin", "y_nos")))
+        for alone, whole, names in stages:
+            for name in names:
+                assert torch.equal(getattr(alone, name)[0],
+                                   getattr(whole, name)[r]), (r, name)
 
 
 def test_pbp_refuses_layer0_chunks_and_runs_no_kernel_on_cpu(ref):
