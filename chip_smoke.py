@@ -164,6 +164,32 @@ non-zero without the final "ok" line:
      200); rows 0/1 within 1% of the JAX package's medians, with and
      without sections; rows alone equal their batch rows.  Prints the
      medians by f0_base and both layer-1 calls' ms (median of 3).
+ 15. streaming (cell stream-serve), libllsm2_tpu_torch/runtime on the
+     library default.  15a, live analysis: runtime.rtanalyze.RTAnalyzer
+     (blocks of 64 hops with 48 of halo: each block one layer0._analyze
+     call of 160 frames at a batch of one) over bench rows 0, 1 and 64 fed
+     997 samples and 13 F0 frames at a time, counters zeroed before ->
+     the analysis kernels launched; every row's frame count the offline
+     one; with the denoiser on, the ampl SNR against the port's offline
+     analysis with the denoiser off >= 20 dB and, rows 0/1, against the
+     one with it on within 0.5 dB of the JAX package's; with it off,
+     test_rtanalyze.py's floors against the offline analysis.  Prints the
+     ms a block (median), one stream's audio-sec/s and the latency.  15b,
+     serving: runtime.rtserve.StreamPool(64 streams, feed_block=16) over
+     the port's offline chunks of bench rows 0-31 and 64-95, fed 7 frames
+     at a time: one render a tick; streams 0, 1 and 32 equal a solo
+     stream_chunk(block=16) bit for bit; every stream's y against the
+     offline y_sin > 15 dB; row 0 fed frame by frame within 2e-5 of
+     feed_many.  Prints the median ms a tick (host assembly, render and
+     its copies, commit), streams x realtime, the latency (feed_block + 1
+     hops) and the peak.  15c, PbP serving: 4 of phase 10's layer-1 rows in
+     a PbP pool (feed_block=16), each stream equal to its solo bit for bit;
+     rows 0/1 against offline pbp_synthesize within 0.5 dB of the JAX
+     package's; test_runtime.py's 0.6 s PbP stream > 35 dB against offline
+     PbP.  15d, the codec stream: phase 13's float vectors of rows 0/1
+     decoded 16 frames at a time (decode_frames) into
+     RTSynthesizer(phase_mode="propagate"), > 25 dB against the offline
+     decode's y_sin over the middle 80%.
 Phases 5, 6, 7 and 9 also time every call of each of their kernels in
 the counted run at full batch (median of 10, and a launch's share of a
 run of 20 back-to-back launches: the device time where the host enqueues
@@ -176,7 +202,7 @@ the six, fir_frames, noise_bins and sample_cycles, 6 for
 harmonic_project_mxu, 7 for
 harmonic_project, 9 for env_render; denoise_apply also "finish_launches"
 and "finish_full_batch" for its second launch; "launches_by_phase" the
-counts of phases 11 to 14); ms, plain_ms, library_ms and
+counts of phases 11 to 15); ms, plain_ms, library_ms and
 bound_ms at the first 2-row call of phase 3; "full_batch" a record per
 call at full batch ("analysis_calls" on harmonic_project_win and
 "render_calls" on osc_bank: phase 5's two harmonic_analysis calls and two
@@ -192,10 +218,11 @@ float32 matmul and convolution.
 The SNR, rd and PbP pins are the JAX package's own values on the CPU, from
 
     JAX_PLATFORMS=cpu PYTHONPATH=. python scripts/port_jax_pins.py \
-        [only=l0,11k,l1,pbp,corpus,edits,coder,nasal]
+        [only=l0,11k,l1,pbp,corpus,edits,coder,nasal,stream]
 
 (l0: phases 4 and 5; 11k: phases 7 and 8; l1: phase 9; pbp: phase 10;
-corpus: phase 11; edits: phase 12; coder: phase 13; nasal: phase 14).
+corpus: phase 11; edits: phase 12; coder: phase 13; nasal: phase 14;
+stream: phase 15, ~1 min on the CPU).
 """
 import dataclasses
 import json
@@ -317,6 +344,36 @@ NASAL_SECTIONS = ((250.0, 70.0, -1.0), (900.0, 60.0, 1.0))
 NASAL_FLOORS = {120.0: (0.9, 1.15), 182.0: (0.8, 1.25), 200.0: (0.8, 1.25)}
 NASAL_PINS = {0: dict(sections=0.9863114356994629, none=0.9919065237045288),
               1: dict(sections=1.0102050304412842, none=0.5516616106033325)}
+# phase 15: streaming (cell stream-serve).  15a: RTAnalyzer with its
+# default blocks on bench rows 0, 1 and 64; tests/test_rtanalyze.py's floors
+# with the denoiser off; with it on the ampl SNR against the offline
+# analysis with it off (>= 20 dB), and rows 0/1 against the offline
+# analysis with it on within 0.5 dB of the JAX package's, from
+#   JAX_PLATFORMS=cpu PYTHONPATH=. python scripts/port_jax_pins.py only=stream
+STREAM_BLOCK, STREAM_HALO = 64, 48
+STREAM_ROWS = (0, 1, 64)
+STREAM_SNR_FLOORS = {"ampl": 45.0, "psd": 35.0, "edc": 35.0, "eenv_a": 30.0}
+STREAM_DENOISE_MIN_DB = 20.0
+STREAM_PINS_DB = {0: 45.59350604145286, 1: 46.05091183924507}
+STREAM_PIN_TOL_DB = 0.5
+# 15b: scripts/bench_serve.py's default pool on the port's offline chunks of
+# bench rows 0-31 and 64-95, fed 7 frames at a time (test_rtserve's drain);
+# streams 0, 1 and 32 (bench rows 0, 1, 64) held to solo renders
+POOL_STREAMS, POOL_BLOCK, POOL_FEED = 64, 16, 7
+POOL_ROWS = list(range(32)) + list(range(N_NOISY, N_NOISY + 32))
+POOL_SOLO = (0, 1, 32)
+POOL_SNR_MIN_DB = 15.0                    # tests/test_runtime.py
+FEED_TOL = 2e-5                           # feed against feed_many
+# 15c: PbP serving of phase 10's LF rows 0-3, rows 0/1 against offline
+# PbP within STREAM_PIN_TOL_DB of the JAX package's (only=stream: its
+# test_runtime floor of 35 dB, set on a 0.6 s harmonic fixture, does not
+# hold for the JAX package on 8 s LF rows: the offline render's float32
+# time base drifts), and test_runtime's own fixture > 35 dB; 15d: the
+# codec stream
+PBP_POOL_STREAMS = 4                      # each checked against a solo run
+PBP_STREAM_PINS_DB = {0: 28.15873515682718, 1: 28.73481982682412}
+PBP_SNR_MIN_DB = 35.0                     # tests/test_runtime.py
+CODEC_STREAM_MIN_DB = 25.0                # tests/test_coder.py
 RD_CPU_REL_TOL = 1e-3                     # phase 10: card rd against the CPU
 LF_RD = (0.4, 1.0, 1.8, 2.7)              # phase 10: true Rd of row i % 4
 RD_REL_TOL = 0.15                         # tests/test_layer1.py's criterion
@@ -1645,8 +1702,9 @@ def codec_phase(torch, kernels, mods, l1, sopt):
     encode -> fit_quantizer (8 bits, Rd by DPCM, the F0 slot's re-sync)
     -> coded_save -> coded_load -> decode -> synthesize_batch, counters
     zeroed before -> launches; then the 16-bit archive and the float
-    vectors, the stages timed, the MCDs, rows alone, the JAX pins.  The
-    archives go to a temporary directory, removed after."""
+    vectors, the stages timed, the MCDs, rows alone, the JAX pins ->
+    (launches, the float vectors of rows 0 and 1).  The archives go to a
+    temporary directory, removed after."""
     import tempfile
     with tempfile.TemporaryDirectory() as tmp:
         return codec_run(torch, kernels, mods, l1, sopt, tmp)
@@ -1794,7 +1852,7 @@ def codec_run(torch, kernels, mods, l1, sopt, tmp):
               f"{k} {v:.2f} ms" for k, v in ms.items())
           + f" (median of 3); {total:.2f} ms = {audio_s / (total / 1e3):.1f}"
           f" audio-sec/s; peak {peak:.2f} GiB")
-    return launches
+    return launches, v01
 
 
 def nasal_fixtures(torch, dev):
@@ -2087,6 +2145,286 @@ def capture_kernel_inputs(kernels, names, run):
     return calls, result
 
 
+def stream_feed(torch, rta, x, f0, block_ms):
+    """Feed one stream to an RTAnalyzer in 997-sample / 13-frame pieces
+    (tests/test_rtanalyze.py's misaligned feed), then flush -> the streamed
+    chunk.  Appends each feed's synchronized ms that completed a block to
+    block_ms."""
+    from libllsm2_tpu_torch.runtime.rtanalyze import concat_frames
+    outs = []
+    for k in range(max(len(x) // 997, len(f0) // 13) + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = rta.feed(x[997 * k:997 * (k + 1)], f0[13 * k:13 * (k + 1)])
+        torch.cuda.synchronize()
+        if got is not None:
+            block_ms.append((time.perf_counter() - t0) * 1e3)
+            outs.append(got)
+    tail = rta.flush()
+    return concat_frames(outs + ([tail] if tail is not None else []))
+
+
+def ampl_snr(ref, got):
+    """tests/test_rtanalyze.py's SNR of two ampl arrays (numpy), dB."""
+    import numpy as np
+    ref, got = np.asarray(ref, np.float64), np.asarray(got, np.float64)
+    return float(10.0 * np.log10(np.sum(ref ** 2)
+                                 / max(np.sum((ref - got) ** 2), 1e-30)))
+
+
+def stream_floors(st, off):
+    """tests/test_rtanalyze.py::test_stream_equals_offline's measures of a
+    streamed chunk against the offline one (numpy field dicts) -> {name:
+    (value, floor, ok)}."""
+    import numpy as np
+    w = off["ampl"] * off["hm_mask"]
+    dph = np.angle(np.exp(1j * (st["phse"] - off["phse"])))
+    we = off["eenv_a"]
+    dpe = np.angle(np.exp(1j * (st["eenv_p"] - off["eenv_p"])))
+    f0_err = float(np.max(np.abs(st["f0"] - off["f0"])))
+    out = {"f0 max err": (f0_err, 1e-3, f0_err <= 1e-3)}
+    for name, floor in STREAM_SNR_FLOORS.items():
+        v = ampl_snr(off[name], st[name])
+        out[f"{name} snr"] = (v, floor, v >= floor)
+    for name, v, lim in (
+            ("phse err", float(np.sum(w * np.abs(dph)) / np.sum(w)), 0.05),
+            ("eenv_p err", float(np.sum(we * np.abs(dpe)) / np.sum(we)), 0.1)):
+        out[name] = (v, lim, v < lim)
+    return out
+
+
+def stream_analysis_phase(torch, kernels, mods, opt, rows):
+    """Phase 15a, live analysis: RTAnalyzer (blocks of STREAM_BLOCK hops,
+    STREAM_HALO of halo) over rows 0, 1 and 64 with the library default,
+    counters zeroed before -> launches; the streamed frames against the
+    port's offline analysis on the card; then with the denoiser off
+    against test_rtanalyze's floors."""
+    import numpy as np
+
+    from libllsm2_tpu_torch.container import chunk_to_numpy, index_batch
+    from libllsm2_tpu_torch.runtime.rtanalyze import RTAnalyzer
+    layer0, = mods
+    x, f0 = rows
+    conf = opt.conf
+    block_ms = []
+    kernels.reset_launches()
+    streamed = [stream_feed(torch, RTAnalyzer(opt, STREAM_BLOCK, STREAM_HALO),
+                            x[i], f0[i], block_ms)
+                for i in range(len(STREAM_ROWS))]
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    phase("15a stream launches", all(launches[k] > 0 for k in ANALYSIS),
+          f"the block analysis's kernels {ANALYSIS} launched: {launches}")
+    opt_off = dataclasses.replace(opt, track_denoise=False)
+    xt, ft = (torch.from_numpy(a).cuda() for a in (x, f0))
+    off, off_nd = (layer0._analyze(o, xt, ft) for o in (opt, opt_off))
+    nfrm = f0.shape[1]
+    phase("15a stream frames", all(s.nfrm == nfrm for s in streamed),
+          f"{[s.nfrm for s in streamed]} frames, offline {nfrm}")
+    for i, row in enumerate(STREAM_ROWS):
+        st = chunk_to_numpy(streamed[i])
+        snr_on = ampl_snr(index_batch(off, i).ampl.cpu().numpy(), st["ampl"])
+        snr_off = ampl_snr(index_batch(off_nd, i).ampl.cpu().numpy(),
+                           st["ampl"])
+        pin = STREAM_PINS_DB.get(row)
+        ok = snr_off >= STREAM_DENOISE_MIN_DB and (
+            pin is None or abs(snr_on - pin) <= STREAM_PIN_TOL_DB)
+        phase(f"15a stream denoiser on row {row}", ok,
+              f"ampl snr against the offline analysis {snr_on:.4f} dB"
+              + (f" (JAX {pin:.4f} +- {STREAM_PIN_TOL_DB})" if pin else "")
+              + f", against the offline analysis with the denoiser off "
+              f"{snr_off:.4f} dB (>= {STREAM_DENOISE_MIN_DB})")
+    for i, row in enumerate(STREAM_ROWS):
+        st = chunk_to_numpy(stream_feed(
+            torch, RTAnalyzer(opt_off, STREAM_BLOCK, STREAM_HALO), x[i], f0[i],
+            []))
+        res = stream_floors(st, chunk_to_numpy(index_batch(off_nd, i)))
+        phase(f"15a stream denoiser off row {row}",
+              all(ok for _, _, ok in res.values()),
+              "; ".join(f"{k} {v:.4g} ({'<=' if 'err' in k else '>='} "
+                        f"{lim:g})" for k, (v, lim, _) in res.items()))
+    ms = statistics.median(block_ms)
+    blk_s = STREAM_BLOCK * conf.thop
+    lat = STREAM_BLOCK + 2 * STREAM_HALO
+    phase("15a live analysis", True,
+          f"{len(block_ms)} blocks of {STREAM_BLOCK + 2 * STREAM_HALO} "
+          f"frames ({(STREAM_BLOCK + 2 * STREAM_HALO) * conf.nhop} samples,"
+          f" a batch of one): {ms:.2f} ms a block (median; min "
+          f"{min(block_ms):.2f}, max {max(block_ms):.2f}) = "
+          f"{blk_s / (ms / 1e3):.1f} audio-sec/s of one stream; latency "
+          f"{lat} hops = {lat * conf.thop * 1e3:g} ms")
+    return launches
+
+
+def drain_pool(pool, frames, timings):
+    """Feed each stream POOL_FEED frames at a time, servicing as they come
+    (tests/test_rtserve.py's drain), then end every stream -> each stream's
+    audio (numpy) and the rendered streams of each tick."""
+    import numpy as np
+    outs = [[] for _ in frames]
+    per_tick = []
+    for p in range(0, max(map(len, frames)), POOL_FEED):
+        for s, fr in enumerate(frames):
+            if p < len(fr):
+                pool.feed(s, fr[p:p + POOL_FEED])
+        while True:
+            n = pool.service(timings)
+            if not n:
+                break
+            per_tick.append(n)
+        for s in range(len(frames)):
+            outs[s].append(pool.fetch(s, pool.readable(s)))
+    ticks = pool.dispatches
+    for s in range(len(frames)):
+        pool.end_stream(s)
+        outs[s].append(pool.fetch(s, pool.readable(s)))
+    return [np.concatenate(o) for o in outs], per_tick, ticks
+
+
+def tick_report(label, pool, timings, per_tick, conf, peak):
+    """Print a pool's tick times (median ms: assembly, render, commit),
+    its streams x realtime and latency."""
+    tot = [sum(t.values()) for t in timings]
+    med = {k: statistics.median(t[k] for t in timings)
+           for k in ("assemble", "render", "commit")}
+    audio = sum(per_tick) * pool.feed_block * conf.thop
+    full = statistics.median(t for t, n in zip(tot, per_tick)
+                             if n == pool.n_streams)
+    tick_audio = pool.n_streams * pool.feed_block * conf.thop
+    phase(f"{label} serving", True,
+          f"{len(timings)} ticks, {pool.n_streams} streams x "
+          f"{pool.feed_block} hops: {statistics.median(tot):.2f} ms a tick "
+          f"(median; assembly {med['assemble']:.2f}, render "
+          f"{med['render']:.2f}, commit {med['commit']:.2f}); ticks with "
+          f"every stream due {full:.2f} ms = {tick_audio / (full / 1e3):.1f}"
+          f" x realtime; all ticks {audio / (sum(tot) / 1e3):.1f} "
+          f"audio-sec/s; latency {pool.feed_block + 1} hops = "
+          f"{(pool.feed_block + 1) * conf.thop * 1e3:g} ms; peak "
+          f"{peak:.3f} GiB")
+
+
+def stream_serve_phase(torch, mods, opt, sopt, rows):
+    """Phase 15b, serving: StreamPool(POOL_STREAMS, feed_block=POOL_BLOCK)
+    over the port's offline chunks of POOL_ROWS."""
+    import numpy as np
+
+    from libllsm2_tpu_torch.container import index_batch
+    from libllsm2_tpu_torch.runtime import rtsynth
+    from libllsm2_tpu_torch.runtime.rtserve import StreamPool
+    layer0, metrics = mods
+    x, f0 = (torch.from_numpy(a).cuda() for a in rows)
+    chunk = layer0._analyze(opt, x, f0)
+    y_off = layer0._synthesize(sopt, chunk).y_sin.cpu().numpy()
+    chunks = [index_batch(chunk, s) for s in range(len(POOL_ROWS))]
+    frames = [rtsynth.RTSynthesizer.chunk_frames_np(c) for c in chunks]
+    pool = StreamPool(sopt, opt.conf, n_streams=POOL_STREAMS,
+                      feed_block=POOL_BLOCK)
+    timings = []
+    (y, per_tick, ticks), peak = peak_above(
+        torch, lambda: drain_pool(pool, frames, timings))
+    phase("15b one render a tick", ticks == len(timings),
+          f"{ticks} renders in {len(timings)} ticks")
+    for s in POOL_SOLO:
+        so = dataclasses.replace(sopt, noise_seed=sopt.noise_seed + s)
+        solo = rtsynth.stream_chunk(so, chunks[s], block=POOL_BLOCK)
+        phase(f"15b stream {s} = solo", np.array_equal(y[s], solo),
+              f"{len(y[s])} samples bit for bit against stream_chunk("
+              f"block={POOL_BLOCK}) with noise seed {so.noise_seed}")
+    snr = [metrics.snr_db(y_off[s], y[s]) for s in range(len(POOL_ROWS))]
+    phase("15b streams against offline y_sin", min(snr) > POOL_SNR_MIN_DB,
+          f"min {min(snr):.4f} dB (> {POOL_SNR_MIN_DB}), median "
+          f"{statistics.median(snr):.4f}, rows 0/1 {snr[0]:.4f} / "
+          f"{snr[1]:.4f}")
+    frame = rtsynth.stream_chunk(sopt, chunks[0])
+    err = float(np.max(np.abs(frame - y[0]))) if frame.shape == y[0].shape \
+        else math.inf
+    phase("15b row 0 frame by frame = feed_many", err <= FEED_TOL,
+          f"max |diff| {err:.3g} (<= {FEED_TOL})")
+    tick_report("15b", pool, timings, per_tick, opt.conf, peak)
+
+
+def stream_pbp_phase(torch, mods, opt, sopt, l1):
+    """Phase 15c, PbP serving: StreamPool(PBP_POOL_STREAMS, synth_mode=
+    "pbp") over phase 10's layer-1 rows; then test_runtime.py's PbP
+    stream on the card."""
+    import numpy as np
+
+    from libllsm2_tpu_torch.container import index_batch
+    from libllsm2_tpu_torch.runtime import rtsynth
+    from libllsm2_tpu_torch.runtime.rtserve import StreamPool
+    from libllsm2_tpu_torch.utils import testsig
+    layer0, layer1, pbp, metrics = mods
+    chunks = [index_batch(l1, s) for s in range(PBP_POOL_STREAMS)]
+    frames = [rtsynth.RTSynthesizer.chunk_frames_np(c) for c in chunks]
+    pool = StreamPool(sopt, l1.conf, n_streams=PBP_POOL_STREAMS,
+                      feed_block=POOL_BLOCK, synth_mode="pbp")
+    timings = []
+    (y, per_tick, ticks), peak = peak_above(
+        torch, lambda: drain_pool(pool, frames, timings))
+    phase("15c one frame and one pulse render a tick",
+          ticks == 2 * len(timings), f"{ticks} renders in {len(timings)} "
+          "ticks")
+    same = []
+    for s, c in enumerate(chunks):
+        so = dataclasses.replace(sopt, noise_seed=sopt.noise_seed + s)
+        same.append(np.array_equal(y[s], rtsynth.stream_chunk(
+            so, c, block=POOL_BLOCK, synth_mode="pbp")))
+    phase("15c every stream = solo", all(same),
+          f"{sum(same)} of {len(same)} streams bit for bit against "
+          f"stream_chunk(block={POOL_BLOCK}, synth_mode='pbp')")
+    y_off = pbp.pbp_synthesize(sopt, l1.map(lambda a: a[:2])).y_sin
+    for s, pin in PBP_STREAM_PINS_DB.items():
+        snr = metrics.snr_db(y_off[s].cpu().numpy(), y[s])
+        phase(f"15c stream {s} against offline pbp",
+              abs(snr - pin) <= STREAM_PIN_TOL_DB,
+              f"y_sin snr {snr:.4f} dB (JAX {pin:.4f} +- "
+              f"{STREAM_PIN_TOL_DB})")
+    # tests/test_runtime.py::test_stream_pbp_matches_offline on the card
+    x, f0 = testsig.make_test_utterance(duration=0.6)
+    ch = layer1.chunk_to_layer1(layer0.analyze(
+        opt, x.astype(np.float32), f0.astype(np.float32)))
+    snr = metrics.snr_db(pbp.pbp_synthesize(sopt, ch).y_sin.cpu().numpy(),
+                         rtsynth.stream_chunk(sopt, ch, synth_mode="pbp"))
+    phase("15c test_runtime's pbp stream", snr > PBP_SNR_MIN_DB,
+          f"0.6 s make_test_utterance: y_sin snr {snr:.4f} dB against "
+          f"offline pbp (> {PBP_SNR_MIN_DB})")
+    tick_report("15c", pool, timings, per_tick, l1.conf, peak)
+
+
+def stream_codec_phase(torch, mods, sopt, conf, v01):
+    """Phase 15d, codec stream: phase 13's vectors of rows 0 and 1 decoded
+    in blocks of 16 frames (decode_frames) into RTSynthesizer(phase_mode=
+    "propagate") against the offline decode -> synthesize."""
+    import numpy as np
+
+    from libllsm2_tpu_torch.runtime import rtsynth
+    layer0, coder = mods
+    cc = coder.CoderConfig(conf=conf)
+    for row in range(v01.shape[0]):
+        v = v01[row]
+        y_off = layer0.synthesize(sopt, coder.decode(cc, v)).y_sin
+        y_off = y_off.cpu().numpy()
+        rt = rtsynth.RTSynthesizer(sopt, conf, capacity_frames=v.shape[0] + 8,
+                                   phase_mode="propagate")
+        out = []
+        t0 = time.perf_counter()
+        for s in range(0, v.shape[0], 16):
+            rt.feed_many(coder.decode_frames(cc, v[s:s + 16]))
+            out.append(rt.fetch(rt.readable()))
+        rt.flush()
+        out.append(rt.fetch(rt.readable()))
+        ms = (time.perf_counter() - t0) * 1e3
+        y_st = np.concatenate(out)
+        n = min(len(y_off), len(y_st))
+        lo, hi = int(0.1 * n), int(0.9 * n)
+        snr = 10.0 * math.log10(float(np.sum(y_off[lo:hi] ** 2)) / max(float(
+            np.sum((y_off[lo:hi] - y_st[lo:hi]) ** 2)), 1e-12))
+        phase(f"15d codec stream row {row}", snr > CODEC_STREAM_MIN_DB,
+              f"y_sin snr against the offline decode {snr:.4f} dB (> "
+              f"{CODEC_STREAM_MIN_DB}); {v.shape[0]} frames decoded and "
+              f"streamed in {ms:.1f} ms")
+
+
 def snr_db(torch, ref, y, fs, f0_floor):
     """Phase 8's SNR (scripts/port_jax_pins.py's): y against ref over the
     common length, minus an OLA margin of min(2 fs / f0_floor, n / 4) at
@@ -2335,6 +2673,7 @@ def main(argv):
     summary["env_render"]["launches"] = launches["env_render"]
     full.update(full_batch(torch, kernels, calls, "9"))
     rows = tuple(d.cpu().numpy() for d in data[:2])     # phase 11's source
+    pool_rows = tuple(r[POOL_ROWS] for r in rows)       # phase 15's
     del chunk, cyc, env, base, data, calls
     # phase 10: pulse-by-pulse synthesis of LF rows
     _, l1 = pbp_phase(torch, kernels, (layer0, layer1, pbp), opt, sopt, dev)
@@ -2345,13 +2684,26 @@ def main(argv):
     # phase 12: pitch x2, stretch x1.5 on phase 10's chunk (config 4)
     by_phase["12"] = edits_phase(torch, kernels, (layer0, edits), l1, sopt)
     # phase 13: the codec on phase 10's chunk (8- and 16-bit archives)
-    by_phase["13"] = codec_phase(torch, kernels, (layer0, layer1, coder,
-                                                  serialize, metrics), l1,
-                                 sopt)
+    by_phase["13"], v01 = codec_phase(torch, kernels, (layer0, layer1, coder,
+                                                       serialize, metrics),
+                                      l1, sopt)
+    l1_pool = l1.map(lambda a: a[:PBP_POOL_STREAMS].clone())
     del l1
     torch.cuda.empty_cache()
     # phase 14: the section-model Rd fit on nasal rows
     by_phase["14"] = nasal_phase(torch, kernels, (layer0, layer1), opt, dev)
+    torch.cuda.empty_cache()
+    # phase 15: streaming -- live analysis, serving, PbP serving, the codec
+    # stream
+    by_phase["15"] = stream_analysis_phase(
+        torch, kernels, (layer0,), opt,
+        tuple(r[[POOL_ROWS.index(i) for i in STREAM_ROWS]]
+              for r in pool_rows))
+    stream_serve_phase(torch, (layer0, metrics), opt, sopt, pool_rows)
+    stream_pbp_phase(torch, (layer0, layer1, pbp, metrics), opt, sopt,
+                     l1_pool)
+    stream_codec_phase(torch, (layer0, coder), sopt, l1_pool.conf, v01)
+    del pool_rows, l1_pool, v01
     for name in KERNELS:
         summary[name]["full_batch"] = full[name]
         summary[name]["launches_by_phase"] = {

@@ -14,8 +14,11 @@ the chunk's phase utilities and the parameter-domain edits
 (models/edits.py), pulse-by-pulse synthesis (models/pbp.py:
 pbp_synthesize), the frame coder and its quantizer (models/coder.py), the
 chunk and coded archives (utils/serialize.py) and the quality metrics
-(utils/metrics.py), with all ten CUDA kernels (ops/kernels.py).  Entry points run on the card: numpy input goes to
-"cuda" unless the caller passes device="cpu".  Options not ported raise
+(utils/metrics.py), the streaming runtime (runtime/: the native OLA
+ring, RTSynthesizer and stream_chunk, the block analyzer RTAnalyzer and
+the multi-stream StreamPool, which coder.decode_frames feeds), with all
+ten CUDA kernels (ops/kernels.py).  Entry points run on the card: numpy
+input goes to "cuda" unless the caller passes device="cpu".  Options not ported raise
 NotImplementedError naming their ROADMAP item.
 """
 

@@ -26,3 +26,14 @@ def warped_band_matrix(npsd: int, nbin: int, fs: float, warp_const: float,
     onehot = (band[None, :] == torch.arange(npsd)[:, None]).to(FP)
     counts = torch.clamp(onehot.sum(dim=1, keepdim=True), min=1.0)
     return (onehot / counts).to(device)
+
+
+def unwarp_interp_positions(nbin: int, npsd: int, fs: float,
+                            warp_const: float) -> torch.Tensor:
+    """Fractional positions into the npsd warped-bin array for each of nbin
+    linear rfft bins spanning [0, fs/2] (synthesis-side PSD unwarping by
+    interpolation), in float32 on the CPU."""
+    f = torch.arange(nbin, dtype=FP) * (fs / 2.0) / (nbin - 1)
+    wmax = warp_frequency(fs / 2.0, warp_const)
+    return torch.clamp(warp_frequency(f, warp_const) / wmax * npsd - 0.5,
+                       0.0, npsd - 1.0)

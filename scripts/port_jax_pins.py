@@ -45,10 +45,19 @@ with the Pallas kernels in interpret mode:
             0 and 1 (synth_nasal_utterance, zero (900, 60) Hz, f0_base 120
             and 182 Hz, seed = row): the median voiced rd of
             chunk_to_layer1 with the sections ((250, 70, -1), (900, 60,
-            +1)) and without.
+            +1)) and without;
+  stream    runtime.rtanalyze.RTAnalyzer (chip_smoke.py phase 15a: blocks of
+            64 hops with 48 of halo, fed 997 samples and 13 F0 frames at a
+            time) with the 16 kHz options above on bench rows 0 and 1: the
+            SNR of the streamed frames' ampl against the offline analysis's
+            (denoiser on), and against the offline analysis with the
+            denoiser off; then PbP streaming (chip_smoke.py phase 15c:
+            stream_chunk(block=16, synth_mode="pbp")) of LF rows 0 and 1
+            (as PbP): the SNR (utils.metrics.snr_db) of its output against
+            pbp_synthesize's y_sin, whole and second by second.
 
     JAX_PLATFORMS=cpu python scripts/port_jax_pins.py [duration=8.0] \
-        [only=l0,11k,l1,pbp,corpus,edits,coder,nasal]
+        [only=l0,11k,l1,pbp,corpus,edits,coder,nasal,stream]
 
 CPU time of the parts added last, on an 8-core x86 host: corpus 49.3 s,
 edits 42.1 s, coder 32.2 s, nasal 4.8 s (run after coder in one process).
@@ -73,6 +82,7 @@ ROWS = {0: 0.05, 1: 0.05, 64: 0.0}      # bench row -> noise level
 LF_RD = (0.4, 1.0, 1.8, 2.7)            # chip_smoke.py phase 10: Rd of row i % 4
 NASAL_F0 = (120.0, 182.0, 200.0)        # chip_smoke.py phase 14: f0_base of row i % 3
 NASAL_SECTIONS = ((250.0, 70.0, -1.0), (900.0, 60.0, 1.0))
+STREAM_BLOCK, STREAM_HALO = 64, 48        # chip_smoke.py phase 15a
 # the JAX coder's 8-bit archive of LF rows 0 and 1 (part coder)
 CODER_PINS = "scripts/port_jax_pins_coder.npz"
 
@@ -292,10 +302,58 @@ def nasal_rows(duration):
     return out
 
 
+def ampl_snr(ref, got):
+    """10 log10(sum ref^2 / sum (ref - got)^2) over two ampl arrays (the
+    SNR of tests/test_rtanalyze.py)."""
+    ref, got = np.asarray(ref, np.float64), np.asarray(got, np.float64)
+    return float(10.0 * np.log10(np.sum(ref ** 2)
+                                 / max(np.sum((ref - got) ** 2), 1e-30)))
+
+
+def stream_rows(duration):
+    from libllsm2_tpu.runtime.rtanalyze import RTAnalyzer, concat_frames
+    opt, _ = _opts16()
+    out = {}
+    for i in (0, 1):
+        x, f0 = testsig.make_test_utterance(duration=duration, seed=i,
+                                            noise_level=ROWS[i])
+        x, f0 = x.astype(np.float32), f0.astype(np.float32)
+        rta = RTAnalyzer(opt, block_hops=STREAM_BLOCK, halo_hops=STREAM_HALO)
+        outs = []
+        for k in range(0, max(len(x) // 997, len(f0) // 13) + 1):
+            got = rta.feed(x[997 * k:997 * (k + 1)], f0[13 * k:13 * (k + 1)])
+            if got is not None:
+                outs.append(got)
+        tail = rta.flush()
+        st = concat_frames(outs + ([tail] if tail is not None else []))
+        off = layer0.analyze(opt, x, f0)
+        off_nd = layer0.analyze(dataclasses.replace(opt, track_denoise=False),
+                                x, f0)
+        out[i] = dict(nfrm=int(st.nfrm), snr=ampl_snr(off.ampl, st.ampl),
+                      snr_denoiser_off=ampl_snr(off_nd.ampl, st.ampl))
+    return out
+
+
+def stream_pbp_rows(duration):
+    from libllsm2_tpu.runtime import rtsynth
+    from libllsm2_tpu.utils import metrics
+    _, sopt = _opts16()
+    out = {}
+    for i, l1 in enumerate(_lf_layer1(duration)):
+        y_off = np.asarray(pbp.pbp_synthesize(sopt, l1).y_sin)
+        y = rtsynth.stream_chunk(sopt, l1, block=16, synth_mode="pbp")
+        fs = int(l1.conf.fs)
+        out[i] = dict(snr=metrics.snr_db(y_off, y), per_second=[
+            round(metrics.snr_db(y_off[a:a + fs], y[a:a + fs], trim=0.0), 2)
+            for a in range(0, len(y_off) - fs + 1, fs)])
+    return out
+
+
 def main():
     kw = dict(a.split("=", 1) for a in sys.argv[1:])
     duration = float(kw.get("duration", 8.0))
-    only = kw.get("only", "l0,11k,l1,pbp,corpus,edits,coder,nasal").split(",")
+    only = kw.get("only", "l0,11k,l1,pbp,corpus,edits,coder,nasal,stream"
+                  ).split(",")
     if "l0" in only:
         t0 = time.perf_counter()
         print(f"16 kHz batched_pipeline at {duration} s:",
@@ -338,6 +396,19 @@ def main():
         t0 = time.perf_counter()
         print(f"median voiced rd of nasal rows 0/1 at {duration} s, with "
               "and without sections:", nasal_rows(duration),
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    if "stream" in only:
+        t0 = time.perf_counter()
+        print(f"RTAnalyzer (block {STREAM_BLOCK}, halo {STREAM_HALO}) on "
+              f"bench rows 0/1 at {duration} s, ampl SNR of the streamed "
+              "frames against the offline analysis, denoiser on (and "
+              "against the offline analysis with it off):",
+              stream_rows(duration), f"({time.perf_counter() - t0:.1f} s)",
+              flush=True)
+        t0 = time.perf_counter()
+        print(f"PbP stream_chunk(block=16) of LF rows 0/1 at {duration} s, "
+              "y_sin SNR against pbp_synthesize:", stream_pbp_rows(duration),
               f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
 if __name__ == "__main__":

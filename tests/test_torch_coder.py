@@ -172,6 +172,36 @@ def test_with_phase_coder_near_lossless(l1chunk):
     assert e_phase < 0.25 * e_nophase, (e_phase, e_nophase)
 
 
+@pytest.mark.parametrize("with_phase", PHASE)
+def test_streaming_vector_decode_matches_offline(l1chunk, with_phase):
+    """test_coder.py's two streaming cases on the port: vectors decoded
+    block by block (decode_frames, 16 frames) into an RTSynthesizer --
+    propagate mode for the phase-less coder, absolute mode for with_phase
+    (its frames carry the absolute phases) -- render the offline decode's
+    harmonic audio within 25 dB over the middle 80%."""
+    from libllsm2_tpu_torch.runtime import rtsynth
+    x, l1 = l1chunk
+    cc = tcoder.CoderConfig(conf=l1.conf, with_phase=with_phase)
+    v = tcoder.encode(cc, l1)
+    sopt = _sopt()
+    y_off = tl0.synthesize(sopt, tcoder.decode(cc, v)).y_sin.numpy()
+    rt = rtsynth.RTSynthesizer(
+        sopt, l1.conf, capacity_frames=l1.nfrm + 8, device="cpu",
+        phase_mode="absolute" if with_phase else "propagate")
+    out = []
+    for s in range(0, v.shape[0], 16):
+        rt.feed_many(tcoder.decode_frames(cc, v[s:s + 16]))
+        out.append(rt.fetch(rt.readable()))
+    rt.flush()
+    out.append(rt.fetch(rt.readable()))
+    y_st = np.concatenate(out)
+    n = min(len(y_off), len(y_st))
+    lo, hi = int(0.1 * n), int(0.9 * n)
+    num = float(np.sum(y_off[lo:hi] ** 2))
+    den = float(np.sum((y_off[lo:hi] - y_st[lo:hi]) ** 2))
+    assert 10.0 * np.log10(num / max(den, 1e-12)) > 25.0
+
+
 def test_decode_random_vectors_never_nan(l1chunk):
     """Arbitrary model outputs at scales 1, 1e3 and 1e6 decode to finite
     audio (decode_layer1's clamps)."""

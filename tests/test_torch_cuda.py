@@ -933,3 +933,51 @@ def test_refine_f0_rows_do_not_depend_on_the_batch_on_card():
         alone = harmonics.refine_f0(x[r:r + 1], f0[r:r + 1], **kw)
         assert torch.equal(alone[0], whole[r])
         assert torch.equal(big[i], whole[r])
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("synth_mode", ["harmonic", "pbp"])
+def test_stream_pool_equals_solo_on_card(synth_mode):
+    """runtime.rtserve.StreamPool on the card: 5 streams of 1 s bench-like
+    rows (the library-default analysis; layer 1 for PbP) fed 7 frames at a
+    time, each equal bit for bit to its solo stream_chunk(block=16) on the
+    card, which lies within 2e-5 (PbP 2e-4) of the same stream on the
+    CPU."""
+    import dataclasses
+    from libllsm2_tpu_torch import create_aoptions, create_soptions
+    from libllsm2_tpu_torch.models import layer1
+    from libllsm2_tpu_torch.runtime import rtsynth
+    from libllsm2_tpu_torch.runtime.rtserve import StreamPool
+    from libllsm2_tpu_torch.utils import testsig
+    dev = _card()
+    opt = create_aoptions(f0_floor=70.0, use_pallas=True)
+    sopt = create_soptions()
+    utt = testsig.make_test_utterances(
+        [(i, 0.05 * (i % 2)) for i in range(5)], duration=1.0)
+    chunks = [tl0.analyze(opt, u[0].astype(np.float32),
+                          u[1].astype(np.float32), device=dev) for u in utt]
+    if synth_mode == "pbp":
+        chunks = [layer1.chunk_to_layer1(c) for c in chunks]
+    frames = [rtsynth.RTSynthesizer.chunk_frames_np(c) for c in chunks]
+    pool = StreamPool(sopt, opt.conf, n_streams=5, feed_block=16,
+                      synth_mode=synth_mode, device=dev)
+    outs = [[] for _ in chunks]
+    for p in range(0, max(map(len, frames)), 7):
+        for s, fr in enumerate(frames):
+            if p < len(fr):
+                pool.feed(s, fr[p:p + 7])
+        while pool.service():
+            pass
+        for s in range(5):
+            outs[s].append(pool.fetch(s, pool.readable(s)))
+    for s in range(5):
+        pool.end_stream(s)
+        outs[s].append(pool.fetch(s, pool.readable(s)))
+    tol = 2e-5 if synth_mode == "harmonic" else 2e-4
+    for s, c in enumerate(chunks):
+        so = dataclasses.replace(sopt, noise_seed=sopt.noise_seed + s)
+        solo = rtsynth.stream_chunk(so, c, block=16, synth_mode=synth_mode)
+        assert np.array_equal(np.concatenate(outs[s]), solo), s
+        cpu = rtsynth.stream_chunk(so, c.map(lambda a: a.cpu()), block=16,
+                                   synth_mode=synth_mode)
+        np.testing.assert_allclose(solo, cpu, atol=tol)

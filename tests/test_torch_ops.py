@@ -436,6 +436,8 @@ def test_import_pulls_in_no_jax():
             "from libllsm2_tpu_torch.utils import metrics, serialize, "
             "testsig\n"
             "from libllsm2_tpu_torch.models import coder\n"
+            "from libllsm2_tpu_torch.runtime import native, rtanalyze, "
+            "rtserve, rtsynth\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m.startswith('libllsm2_tpu.') "
             "or m == 'libllsm2_tpu']\n"
