@@ -190,6 +190,35 @@ non-zero without the final "ok" line:
      decoded 16 frames at a time (decode_frames) into
      RTSynthesizer(phase_mode="propagate"), > 25 dB against the offline
      decode's y_sin over the middle 80%.
+ 16. the rest of the DSP kit and every option (cell dsp-kit), on the bench
+     rows.  16a, the library default create_aoptions(f0_floor=70) /
+     create_soptions() (use_pallas=False: the JAX package's jnp branches
+     in plain PyTorch, on the card), counters zeroed before: only the
+     noise draw and the cycle track launched, none of the Pallas
+     counterparts; a finite output on the card; rows 0/1 within 0.05 dB
+     and row 64 at most 0.1 dB under the JAX package's use_pallas=False
+     values; the step (median of 3 after a warm-up), the analysis and
+     synthesis ms and peaks, and the kernel path's step beside it (the
+     ratio: what the kernels save); rows 0, 1 and 64 alone equal their
+     batch rows bit for bit through analyze and synthesize.  16b, with the
+     kernels on: hm_method="pp", hm_passes=2, hm_correction="none" and
+     frame_chunk=64 in turn, counters zeroed before each: their kernels
+     launched (deconv_full skipped but for frame_chunk), rows 0/1 within
+     0.05 dB of the JAX package's (Pallas in interpret mode), step (median
+     of 3) and peak; the pp run's denoise_stats call takes polar input and
+     is held to its twin at full batch (a case of denoise_stats); the
+     frame_chunk chunk equals the unchunked one within 1e-6 of each
+     field's peak and its main projection peaks lower; pp's rows alone
+     equal the batch.  16c, noise_idft="fft" with the kernels on (the band
+     segments by paired inverse FFTs into noise_mod_ola_seg, the segment-
+     input entry of noise_mod_ola.cu, launched once) and off: y_nos within
+     1e-5 x its rms of the matmul path; noise_mod_ola_seg against its twin
+     (5e-5) and timed at full batch beside its bound.  16d, the leaf kit on
+     the card against the CPU (1e-4 of the output's peak; the
+     instantaneous-frequency detector on 8 rows on the CPU, LPC on the rows
+     plus seeded white noise at 0.1 of their rms, which conditions it),
+     each op's time; the biquad, a Python loop of a few launches a sample,
+     at 1 s and 8 s on one row and on 128, each timed once.
 Phases 5, 6, 7 and 9 also time every call of each of their kernels in
 the counted run at full batch (median of 10, and a launch's share of a
 run of 20 back-to-back launches: the device time where the host enqueues
@@ -200,10 +229,12 @@ which the line says).  The line before the last is
 the kernels' JSON summary: launches from the phase that runs each (5 for
 the six, fir_frames, noise_bins and sample_cycles, 6 for
 harmonic_project_mxu, 7 for
-harmonic_project, 9 for env_render; denoise_apply also "finish_launches"
-and "finish_full_batch" for its second launch; "launches_by_phase" the
-counts of phases 11 to 15); ms, plain_ms, library_ms and
-bound_ms at the first 2-row call of phase 3; "full_batch" a record per
+harmonic_project, 9 for env_render, 16c for noise_mod_ola_seg;
+denoise_apply also "finish_launches" and "finish_full_batch" for its
+second launch; "launches_by_phase" the counts of phases 11 to 16); ms,
+plain_ms, library_ms and bound_ms at the first 2-row call of phase 3
+(noise_mod_ola_seg: its full-batch call of 16c; denoise_stats also has
+16b's full-batch polar case among its "cases"); "full_batch" a record per
 call at full batch ("analysis_calls" on harmonic_project_win and
 "render_calls" on osc_bank: phase 5's two harmonic_analysis calls and two
 renders).  bound_ms is the larger of the bytes the
@@ -218,11 +249,11 @@ float32 matmul and convolution.
 The SNR, rd and PbP pins are the JAX package's own values on the CPU, from
 
     JAX_PLATFORMS=cpu PYTHONPATH=. python scripts/port_jax_pins.py \
-        [only=l0,11k,l1,pbp,corpus,edits,coder,nasal,stream]
+        [only=l0,11k,l1,pbp,corpus,edits,coder,nasal,stream,dspkit]
 
 (l0: phases 4 and 5; 11k: phases 7 and 8; l1: phase 9; pbp: phase 10;
 corpus: phase 11; edits: phase 12; coder: phase 13; nasal: phase 14;
-stream: phase 15, ~1 min on the CPU).
+stream: phase 15, ~1 min on the CPU; dspkit: phase 16, ~70 s).
 """
 import dataclasses
 import json
@@ -417,6 +448,39 @@ KERNELS = {
     "sample_cycles": ("libllsm2_tpu_torch/csrc/sample_cycles.cu",
                       "libllsm2_tpu/ops/harmonics.py:35", 1e-4),
 }
+# phase 16: the segment-input entry of noise_mod_ola.cu (noise_idft="fft"),
+# a wrapper of its own; source, TPU kernel it replaces, tolerance
+SEG_KERNEL = ("libllsm2_tpu_torch/csrc/noise_mod_ola.cu",
+              "libllsm2_tpu/ops/pallas_osc.py:457", 5e-5)
+# the only kernels use_pallas=False launches (no Pallas twin: the JAX
+# package draws the noise and sums the cycle track in jnp under both)
+PLAIN_KERNELS = ("noise_bins", "sample_cycles")
+# the JAX package's values with use_pallas=False on the CPU, from
+#   JAX_PLATFORMS=cpu PYTHONPATH=. python scripts/port_jax_pins.py only=dspkit
+# phase 16a: batched_pipeline SNR of bench rows 0, 1 (noisy) and 64 (clean)
+DSPKIT_PINS_DB = {0: 40.049285888671875, 1: 40.597862243652344,
+                  64: 54.843502044677734}
+# phase 16b: each analysis option with the kernels on (JAX: Pallas in
+# interpret mode), rows 0 and 1
+DSPKIT_OPTIONS = {"pp": dict(hm_method="pp"), "passes 2": dict(hm_passes=2),
+                  "correction none": dict(hm_correction="none"),
+                  "frame_chunk 64": dict(frame_chunk=64)}
+DSPKIT_OPTION_PINS_DB = {
+    "pp": {0: 28.651866912841797, 1: 28.702089309692383},
+    "passes 2": {0: 40.068843841552734, 1: 40.620819091796875},
+    "correction none": {0: 40.09574508666992, 1: 40.535396575927734},
+    "frame_chunk 64": {0: 40.05961608886719, 1: 40.60990905761719}}
+_RENDER = ("osc_bank", "harmonic_project_win", "denoise_stats",
+           "denoise_apply", "noise_mod_ola")
+DSPKIT_OPTION_KERNELS = {"pp": _RENDER, "passes 2": _RENDER,
+                         "correction none": _RENDER,
+                         "frame_chunk 64": _RENDER + ("deconv_full",)}
+DSPKIT_STEP_REPS = 3              # 16a: median of 3 after a warm-up
+DSPKIT_OPTION_REPS = 3
+FRAME_CHUNK_TOL = 1e-6            # 16b: chunked / unchunked, of each field's peak
+NOISE_IDFT_TOL = 1e-5             # 16c: y_nos rms error, of its rms
+LEAF_TOL = 1e-4                   # 16d: card / CPU, of the output's peak
+LEAF_CPU_ROWS = 8                 # 16d: rows run on the CPU where it is slow
 # sample_cycles against its plain version run on the CPU, which sums in the
 # kernel's order (a float64 running sum a hop): wrapped |difference|, cycles
 SAMPLE_CYCLES_CPU_TOL = 1e-6
@@ -631,6 +695,12 @@ def kernel_ops(torch, name, args, kw):
         nhop = a[7].shape[-1] - 1
         return (float(B * N) * (nhop * live * 4.0 + 3.0 * a[7].shape[-1])
                 + float(a[0].numel()) * C * (16.0 * Ke + 13.0))
+    if name == "noise_mod_ola_seg":          # cyc, edc, ar, ai, base, segs
+        # a sample: one sincospif (20); a channel: the envelope's lerps and
+        # rotation ladder (8 Ke + 4), the OLA add, the base lerp, the max,
+        # divide and FMA (6)
+        C, Ke = a[2].shape[-2:]
+        return float(a[0].numel()) * (20.0 + C * (8.0 * Ke + 10.0))
     if name == "sample_cycles":              # f0, nhop, fs, nx
         # a sample: its position, lerp and division (8), the offset's add and
         # mod 1 (3), the within-hop running sum's float64 add (2: the H100's
@@ -2474,6 +2544,289 @@ def public_11025(torch, kernels, lt, dev):
     phase("8 launches", launches["harmonic_project"] > 0, str(launches))
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the rest of the DSP kit and every option of the JAX package
+# ---------------------------------------------------------------------------
+
+def plain_launches_ok(launches):
+    """use_pallas=False launches only the noise draw and the cycle track:
+    -> (ok, the launched kernels)."""
+    launched = {k for k, v in launches.items() if v}
+    return launched <= set(PLAIN_KERNELS) and bool(launched), launched
+
+
+def steps_ms(torch, fn, reps):
+    """fn() once to warm up, then reps synchronized runs -> (median ms,
+    [ms, ...])."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), times
+
+
+def library_default_phase(torch, kernels, mods, data, opts):
+    """16a: the library default (opt, sopt: use_pallas=False) at full width
+    on the bench rows, beside the kernel path (opt_k, sopt_k) -> the
+    counted run's launches."""
+    layer0, corpus = mods
+    x, f0, x_ref, nxv = data
+    B = x.shape[0]
+    opt, sopt, opt_k, sopt_k = opts
+    kernels.reset_launches()
+    y, snr, _ = corpus.batched_pipeline(opt, sopt, x, f0, nxv, x_ref)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    ok, launched = plain_launches_ok(launches)
+    phase("16a library default launches", ok,
+          f"launched {sorted(launched)} only (allowed: {PLAIN_KERNELS}; "
+          f"none of the Pallas counterparts); {launches}")
+    phase("16a library default output", tuple(y.shape) == tuple(x.shape)
+          and y.device.type == "cuda" and bool(torch.isfinite(y).all()),
+          f"y {tuple(y.shape)} on {y.device}, finite")
+    snr = snr.cpu().tolist()
+    check_snr("16a library default", snr, DSPKIT_PINS_DB, None,
+              L0_NOISY_TOL_DB)
+    del y
+    step = lambda o, so: corpus.batched_pipeline(o, so, x, f0, nxv, x_ref)
+    torch.cuda.reset_peak_memory_stats()
+    plain_ms, plain_runs = steps_ms(torch, lambda: step(opt, sopt),
+                                    DSPKIT_STEP_REPS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    chunk, peak_a = peak_above(torch, lambda: layer0._analyze(opt, x, f0))
+    _, peak_s = peak_above(torch, lambda: layer0._synthesize(sopt, chunk))
+    ms_a = synced_ms(torch, lambda: layer0._analyze(opt, x, f0), 1)
+    ms_s = synced_ms(torch, lambda: layer0._synthesize(sopt, chunk), 1)
+    kernel_ms, kernel_runs = steps_ms(torch, lambda: step(opt_k, sopt_k),
+                                      DSPKIT_STEP_REPS)
+    phase("16a library default step", True,
+          f"{B} x {DURATION} s use_pallas=False: median {plain_ms:.2f} ms of "
+          f"{[round(t, 2) for t in plain_runs]} ms, "
+          f"{B * DURATION / plain_ms * 1e3:.1f} audio-sec/s, peak {peak:.2f} "
+          f"GiB; analysis {ms_a:.2f} ms (peak {peak_a:.2f} GiB above its "
+          f"inputs), synthesis {ms_s:.2f} ms ({peak_s:.2f} GiB); the kernel "
+          f"path (use_pallas=True) median {kernel_ms:.2f} ms of "
+          f"{[round(t, 2) for t in kernel_runs]} ms: the kernels save "
+          f"x{plain_ms / kernel_ms:.1f}")
+    del chunk
+    torch.cuda.empty_cache()
+    check_rows("16a library default", *rows_alone(
+        torch, [("analyze", lambda a: fields(layer0._analyze(opt, a[0], a[1]),
+                                             ("f0", "ampl", "phse", "hm_mask",
+                                              "psd", "edc", "eenv_a",
+                                              "eenv_p"))),
+                ("synthesize", lambda c: outputs(layer0._synthesize(sopt, c)))],
+        _Rows((x, f0))))
+    torch.cuda.empty_cache()
+    return launches
+
+
+class _Rows(tuple):
+    """A tuple of batch tensors that rows_alone can cut to one row."""
+
+    def map(self, fn):
+        return _Rows(fn(t) for t in self)
+
+
+def analysis_options_phase(torch, kernels, mods, data, opt_k, sopt_k):
+    """16b: the analysis options with the kernels on, on the bench rows ->
+    ({option: launches}, the polar denoise_stats calls' cases, frame
+    chunk ok)."""
+    harmonics, layer0, corpus = mods
+    x, f0, x_ref, nxv = data
+    B = x.shape[0]
+    conf = opt_k.conf
+    out = {}
+    polar = None
+    for label, change in DSPKIT_OPTIONS.items():
+        opt = dataclasses.replace(opt_k, **change)
+        kernels.reset_launches()
+        names = ("denoise_stats",) if polar is None else ()
+        calls, (y, snr, _) = capture_kernel_inputs(
+            kernels, names,
+            lambda: corpus.batched_pipeline(opt, sopt_k, x, f0, nxv, x_ref))
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        need = DSPKIT_OPTION_KERNELS[label]
+        skip = () if "deconv_full" in need else ("deconv_full",)
+        phase(f"16b {label} launches", all(launches[k] > 0 for k in need)
+              and all(launches[k] == 0 for k in skip),
+              f"{need} launched, {skip or 'nothing'} skipped: {launches}")
+        phase(f"16b {label} output", tuple(y.shape) == tuple(x.shape)
+              and bool(torch.isfinite(y).all()), f"y {tuple(y.shape)} finite")
+        snr = snr.cpu().tolist()
+        for row, pin in DSPKIT_OPTION_PINS_DB[label].items():
+            phase(f"16b {label} snr row {row}",
+                  abs(snr[row] - pin) <= L0_NOISY_TOL_DB,
+                  f"{snr[row]:.4f} dB (JAX {pin:.4f} +- {L0_NOISY_TOL_DB})")
+        del y
+        if names:
+            polar = calls["denoise_stats"]
+            phase(f"16b {label} denoiser input", len(polar) == 1 and
+                  not polar[0][1].get("complex_input", False),
+                  "denoise_stats called once with polar (ampl, phse) input")
+        torch.cuda.reset_peak_memory_stats()
+        ms, runs = steps_ms(torch, lambda: corpus.batched_pipeline(
+            opt, sopt_k, x, f0, nxv, x_ref), DSPKIT_OPTION_REPS)
+        print(f"16b {label}: {B} x {DURATION} s step median {ms:.2f} ms of "
+              f"{[round(t, 2) for t in runs]} ms; peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+              f"launches {launches}", flush=True)
+        out[label] = launches
+    # frame_chunk: the chunk equals the unchunked one; the chunked main
+    # projection peaks lower
+    opt_fc = dataclasses.replace(opt_k, **DSPKIT_OPTIONS["frame_chunk 64"])
+    a, b = layer0._analyze(opt_k, x, f0), layer0._analyze(opt_fc, x, f0)
+    err = {k: float((getattr(a, k) - getattr(b, k)).abs().max()
+                    / getattr(a, k).abs().max().clamp(min=1e-30))
+           for k in ("ampl", "psd", "edc", "eenv_a")}
+    err["phse"] = float((torch.polar(a.ampl, a.phse)
+                         - torch.polar(b.ampl, b.phse)).abs().max()
+                        / a.ampl.abs().max())
+    del a, b
+    cyc = harmonics.sample_cycles(f0, conf.nhop, conf.fs, x.shape[-1])
+    kw = dict(nhop=conf.nhop, fs=conf.fs, max_k=conf.maxnhar,
+              halfwin_max=conf.halfwin_max, rel_winsize=conf.rel_winsize,
+              fnyq=conf.fnyq)
+    _, p_whole = peak_above(torch, lambda: harmonics.harmonic_analysis(
+        x, f0, cyc, **kw))
+    _, p_chunk = peak_above(torch, lambda: harmonics.harmonic_analysis(
+        x, f0, cyc, frame_chunk=64, **kw))
+    phase("16b frame_chunk = unchunked", max(err.values()) <= FRAME_CHUNK_TOL
+          and p_chunk < p_whole,
+          f"max |difference| / field peak {err} (tol {FRAME_CHUNK_TOL}); the "
+          f"main projection's peak above its inputs {p_chunk:.3f} GiB chunked "
+          f"against {p_whole:.3f} GiB whole")
+    del cyc
+    opt_pp = dataclasses.replace(opt_k, **DSPKIT_OPTIONS["pp"])
+    check_rows("16b pp", *rows_alone(
+        torch, [("analyze", lambda r: fields(
+            layer0._analyze(opt_pp, r[0], r[1]),
+            ("f0", "ampl", "phse", "hm_mask", "psd", "edc", "eenv_a",
+             "eenv_p")))], _Rows((x, f0))))
+    torch.cuda.empty_cache()
+    return out, polar
+
+
+def synthesis_phase(torch, kernels, mods, data, opt_k, sopt_k):
+    """16c: noise_idft="fft" with the kernels on and off against the
+    matmul path, and the segment-input noise_mod_ola entry against its
+    twin -> (its cases, full-batch records, launches)."""
+    layer0, = mods
+    x, f0 = data[:2]
+    chunk = layer0._analyze(opt_k, x, f0)
+    launches = {}
+    calls = None
+    for up in (True, False):
+        so = dataclasses.replace(sopt_k, use_pallas=up)
+        ref = layer0._synthesize(so, chunk).y_nos
+        kernels.reset_launches()
+        fft = dataclasses.replace(so, noise_idft="fft")
+        if up:
+            calls, got = capture_kernel_inputs(
+                kernels, ("noise_mod_ola_seg",),
+                lambda: layer0._synthesize(fft, chunk))
+            got = got.y_nos
+        else:
+            got = layer0._synthesize(fft, chunk).y_nos
+        torch.cuda.synchronize()
+        launches[up] = dict(kernels.LAUNCHES)
+        rms = float(torch.sqrt(torch.mean(ref.double() ** 2)))
+        err = float(torch.sqrt(torch.mean((got.double() - ref.double()) ** 2)))
+        ms, _ = steps_ms(torch, lambda: layer0._synthesize(fft, chunk), 3)
+        ms_m, _ = steps_ms(torch, lambda: layer0._synthesize(so, chunk), 3)
+        phase(f"16c noise_idft=fft use_pallas={up}",
+              err <= NOISE_IDFT_TOL * rms and (
+                  launches[up]["noise_mod_ola_seg"] == 1 if up
+                  else plain_launches_ok(launches[up])[0]),
+              f"y_nos rms error {err:.3e} against the matmul path's (tol "
+              f"{NOISE_IDFT_TOL} x rms {rms:.4f}); synthesis {ms:.2f} ms "
+              f"(matmul {ms_m:.2f} ms); launches {launches[up]}")
+    cases = []
+    for i, (args, kw) in enumerate(calls["noise_mod_ola_seg"]):
+        cases.append(check_kernel(torch, kernels, "noise_mod_ola_seg",
+                                  SEG_KERNEL[2], args, kw, f"fft {i}",
+                                  library=not cases))
+    full = full_batch(torch, kernels, calls, "16c")
+    del chunk, calls
+    torch.cuda.empty_cache()
+    return cases, full["noise_mod_ola_seg"], launches[True]
+
+
+def leaf_ops_phase(torch, x):
+    """16d: the leaf DSP kit on the card against the CPU on the bench rows
+    x [B, nx] (a subset of rows on the CPU where a call there is slow, as
+    each line says), each op's time on the card; biquad, a loop over the
+    samples, timed at 1 s and 8 s on one row and on all rows."""
+    import numpy as np
+    from libllsm2_tpu_torch.ops import filters, spectral, stft
+    B, nx = x.shape
+    xc = x.cpu()
+    fir = filters.fir1_bandpass(127, 300.0, 3400.0, 16000.0)
+    b, a = (0.0675, 0.135, 0.0675), (1.0, -1.143, 0.4128)
+    hw = torch.full((B, nx // 80), 200.0)
+    centers = torch.arange(nx // 80) * 80
+    freqs = torch.full((B, nx // 80), 150.0)
+    win = torch.tensor(np.hanning(1024), dtype=torch.float32)
+    # LPC of a harmonic frame is ill-conditioned (a 1e-6 change of the
+    # input moves its order-16 coefficients by ~20%): white noise at 0.1 of
+    # each row's rms, seeded and the same on both devices, conditions it
+    seg = xc[:, :1024]
+    noisy = (seg + 0.1 * seg.std(dim=-1, keepdim=True) * torch.randn(
+        seg.shape, generator=torch.Generator().manual_seed(0))) * win
+    ops = [
+        ("czt", lambda v: spectral.czt(v, 2048, 1.0 / 4096), B),
+        ("iczt", lambda v: spectral.iczt(spectral.czt(v[..., :8192], 8192,
+                                                      1.0 / 8192),
+                                         1.0 / 8192), B),
+        ("stft/istft", lambda v: stft.istft(stft.stft(v, 512, 128), 512, 128,
+                                            v.shape[-1]), B),
+        ("fftfilt", lambda v: filters.fftfilt(fir.to(v.device), v), B),
+        ("lpc_from_signal", lambda v: filters.lpc_from_signal(
+            noisy[:v.shape[0]].to(v.device), 16)[0], B),
+        ("instantaneous_frequency", lambda v: spectral.instantaneous_frequency(
+            v, centers.to(v.device), freqs[:v.shape[0]].to(v.device),
+            fs=16000.0, halfwidth=hw[:v.shape[0]].to(v.device),
+            halfwin_max=256), LEAF_CPU_ROWS),
+        ("biquad 1 s", lambda v: filters.biquad(v[..., :16000], b, a), B),
+    ]
+    for name, fn, rows in ops:
+        got = fn(x)
+        ref = fn(xc[:rows])
+        torch.cuda.synchronize()
+        got = got[:rows].cpu()
+        err = float((got - ref).abs().max() / ref.abs().max().clamp(min=1e-30))
+        ms = (once_ms(torch, lambda: fn(x)) if name.startswith("biquad")
+              else cuda_ms(torch, lambda: fn(x), 5))
+        phase(f"16d {name}", err <= LEAF_TOL, f"{B} x {nx / 16000.0} s rows: "
+              f"card against the CPU (rows 0-{rows - 1}) max |difference| / "
+              f"peak {err:.3e} (tol {LEAF_TOL}); {ms:.3f} ms on the card")
+    # the biquad is a loop of a few launches a sample whatever the rows:
+    # each length and batch timed once (no warm-up run: ~6 s at 8 s)
+    for secs in (1, 8):
+        for rows in (1, B):
+            v = x[:rows, :secs * 16000]
+            ms = once_ms(torch, lambda: filters.biquad(v, b, a))
+            print(f"16d biquad {secs} s x {rows} row(s): {ms:.1f} ms on the "
+                  f"card (a step a sample: {secs * 16000} steps)", flush=True)
+
+
+def once_ms(torch, fn):
+    """Milliseconds of one run of fn() by CUDA events, no warm-up."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
 def main(argv):
     import torch
     if not torch.cuda.is_available():
@@ -2704,10 +3057,45 @@ def main(argv):
                      l1_pool)
     stream_codec_phase(torch, (layer0, coder), sopt, l1_pool.conf, v01)
     del pool_rows, l1_pool, v01
+    torch.cuda.empty_cache()
+    # phase 16: the library default (use_pallas=False), the analysis
+    # options, noise_idft="fft" and the leaf DSP kit, on the bench rows
+    t0 = time.perf_counter()
+    data = fixtures(torch, dev)
+    opt_plain, sopt_plain = create_aoptions(f0_floor=70.0), create_soptions()
+    assert not (opt_plain.use_pallas or sopt_plain.use_pallas)
+    by_phase["16a"] = library_default_phase(
+        torch, kernels, (layer0, corpus), data,
+        (opt_plain, sopt_plain, opt, sopt))
+    options, polar = analysis_options_phase(
+        torch, kernels, (harmonics, layer0, corpus), data, opt, sopt)
+    by_phase.update({f"16b {k}": v for k, v in options.items()})
+    stats = summary["denoise_stats"]
+    for i, (args, kw) in enumerate(polar):
+        stats["cases"].append(check_kernel(
+            torch, kernels, "denoise_stats", KERNELS["denoise_stats"][2],
+            args, kw, f"16b pp, polar input at full batch {i}"))
+    stats["max_abs_err"] = max(c["max_abs_err"] for c in stats["cases"])
+    del polar
+    seg_cases, seg_full, by_phase["16c"] = synthesis_phase(
+        torch, kernels, (layer0,), data, opt, sopt)
+    leaf_ops_phase(torch, data[0])
+    del data
+    print(f"16: {time.perf_counter() - t0:.1f} s", flush=True)
     for name in KERNELS:
         summary[name]["full_batch"] = full[name]
         summary[name]["launches_by_phase"] = {
             k: v[name] for k, v in by_phase.items()}
+    # the segment-input entry: its launches from 16c's counted run
+    name = "noise_mod_ola_seg"
+    summary[name] = {
+        "name": name, "route": "cuda", "source": SEG_KERNEL[0],
+        "replaces": SEG_KERNEL[1], "launches": by_phase["16c"][name],
+        "max_abs_err": max(c["max_abs_err"] for c in seg_cases),
+        **{k: seg_cases[0][k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms")},
+        "cases": seg_cases, "full_batch": seg_full,
+        "launches_by_phase": {k: v[name] for k, v in by_phase.items()}}
     print(card, flush=True)
 
     print(json.dumps({"kernels": list(summary.values())}), flush=True)

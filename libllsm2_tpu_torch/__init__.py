@@ -2,11 +2,15 @@
 Hopper GPUs.  It imports torch and never jax; the JAX package beside it
 is the reference its tests compare against.
 
-Ported so far: the layer-0 round trip analyze -> synthesize with the
-library's default options and kernels on (use_pallas=True; track
-denoiser, hm_kernel="matmul", odd hops, 11.025 kHz through resampling)
-and its batched form (analyze_batch, synthesize_batch), the corpus
-runners (parallel/corpus.py: batched_pipeline, run_corpus and
+Ported so far: the layer-0 round trip analyze -> synthesize with every
+option of the JAX package (the library default use_pallas=False runs its
+jnp branches in plain PyTorch on the card; use_pallas=True the
+hand-written kernels: track denoiser, HMPP peak-picking, Gauss-Seidel
+passes, chunked framing, hm_kernel="matmul", noise_idft="fft", odd hops,
+11.025 kHz through resampling) and its batched form (analyze_batch,
+synthesize_batch), the DSP kit (ops/: filters, stft, the chirp-Z
+transform, the instantaneous-frequency detector, interpolation), the
+corpus runners (parallel/corpus.py: batched_pipeline, run_corpus and
 run_corpus_files from WAV files, with the native loader and the F0
 tracker of ops/f0.py), the layer-1 codec (models/layer1.py:
 chunk_to_layer1 with or without known tract sections, chunk_to_layer0),
@@ -18,8 +22,9 @@ chunk and coded archives (utils/serialize.py) and the quality metrics
 ring, RTSynthesizer and stream_chunk, the block analyzer RTAnalyzer and
 the multi-stream StreamPool, which coder.decode_frames feeds), with all
 ten CUDA kernels (ops/kernels.py).  Entry points run on the card: numpy
-input goes to "cuda" unless the caller passes device="cpu".  Options not ported raise
-NotImplementedError naming their ROADMAP item.
+input goes to "cuda" unless the caller passes device="cpu".  What is not
+ported (several devices, orbax checkpoints) raises NotImplementedError
+naming its ROADMAP item.
 """
 
 from .config import (AnalysisOptions, ChunkConf, SynthesisOptions,

@@ -4,7 +4,8 @@ A copy of libllsm2_tpu/config.py (the port must not import the JAX
 package, whose __init__ imports jax).  Same fields, defaults and derived
 properties; tests/test_torch_ops.py holds the two copies equal.  In the
 port, ``use_pallas=True`` means "run the hand-written CUDA kernels"
-(ops/kernels.py).  Reference: llsm.h -> llsm_aoptions / llsm_soptions /
+(ops/kernels.py), and False "run the JAX package's jnp branches in plain
+PyTorch".  Reference: llsm.h -> llsm_aoptions / llsm_soptions /
 LLSM_CONF_* conf-container entries.
 """
 from __future__ import annotations
@@ -81,14 +82,16 @@ class ChunkConf:
 @dataclasses.dataclass(frozen=True)
 class AnalysisOptions:
     """Analysis configuration (reference: llsm.h -> llsm_aoptions).  The
-    port runs hm_method="czt", hm_passes=1, hm_correction="deconv",
-    frame_chunk=0, use_pallas=True, with any hm_kernel ("matmul" runs the
-    main harmonic pass through the unframed projection kernel, any other
-    value the rotation kernel, as in the JAX package), any fs_input
-    (layer0.analyze resamples from it), and any setting of the track
-    denoiser (track_denoise, its spectral gate at any decimation) and of
-    track_lowpass_hz; models/layer0.py raises NotImplementedError for any
-    other value of those five."""
+    port runs every value the JAX package accepts: hm_method "czt" or
+    "pp" (FFT peak-picking), any hm_passes (Gauss-Seidel re-analysis of
+    the residual), hm_correction "deconv" or "none", frame_chunk (the
+    projection frame_chunk frames a call), any hm_kernel ("matmul" runs
+    the main harmonic pass through the unframed projection kernel), any
+    fs_input (layer0.analyze resamples from it), every setting of the
+    track denoiser and of track_lowpass_hz, and use_pallas: True runs the
+    hand-written CUDA kernels where the JAX package runs its Pallas
+    kernels, False (the default, as in the JAX package) its jnp branches
+    in plain PyTorch, on the tensors' device."""
 
     conf: ChunkConf = ChunkConf()
     fs_input: float = 0.0        # input-signal rate if != conf.fs (0 = conf.fs)
@@ -102,6 +105,7 @@ class AnalysisOptions:
     f0_refine_smooth: int = 9    # frames: apply only the moving average of the
                                  # refine correction (0 = raw)
     use_pallas: bool = False     # port: run the hand-written CUDA kernels
+                                 # (False: the jnp branches in plain torch)
     hm_kernel: str = "rotation"  # "rotation" | "matmul" projection kernel
     frame_chunk: int = 0         # >0: chunk the projection over frames
     env_decimate: int = 4        # band-envelope analysis decimation D (power of
@@ -134,7 +138,9 @@ class SynthesisOptions:
     fs: float = 16000.0          # output sample rate
     noise_seed: int = 0x5eed     # seed of the noise component's torch.Generator
     use_pallas: bool = False     # port: run the hand-written CUDA kernels
-    noise_idft: str = "matmul"   # band iDFTs as matmuls ("fft": not ported)
+                                 # (False: the jnp branches in plain torch)
+    noise_idft: str = "matmul"   # band iDFTs as matmuls, or "fft": paired
+                                 # inverse FFTs (the reference path)
     pbp_oversample: int = 4      # PbP pulse-spectrum grid oversampling
 
 

@@ -338,3 +338,96 @@ extern "C" int llsm_noise_mod_ola(const float* cyc, const float* edc,
       Ke, bd);
   return (int)cudaGetLastError();
 }
+
+// ---------------------------------------------------------------------------
+// The segment-input entry: OLA, envelope modulation and band sum of given
+// windowed band segments seg [B, C, N, T] (the noise_idft="fft" path, whose
+// channel-paired inverse FFTs make the segments outside the kernel):
+//   y[b, i nhop + t] = sum_c (seg[b, c, i, nhop + t]
+//                             + (i + 1 < N ? seg[b, c, i + 1, t] : 0))
+//                      max(env_c, 0) / max(lerp(base_c), 1e-8)
+// with env_c as above (envelope_sample).  Replaces the same
+// noise_mod_ola_pallas (libllsm2_tpu/ops/pallas_osc.py), which the JAX
+// package feeds the FFT branch's segments.  Bound on the H100: the bytes
+// of the segments, read once (each sample of a segment feeds one output
+// sample), against the envelope's C (Ke + 1) lerp-and-rotate steps a
+// sample.  Design: one block per (tile of kHops hops, utterance) stages
+// its kFrames frames' coefficients in shared memory; a thread a sample,
+// consecutive threads on consecutive samples, so the segment loads and
+// the stores are coalesced.
+namespace {
+
+constexpr int kSegThreads = 256;
+
+__global__ void __launch_bounds__(kSegThreads)
+noise_seg_kernel(const float* __restrict__ cyc, const float* __restrict__ edc,
+                 const float* __restrict__ ar, const float* __restrict__ ai,
+                 const float* __restrict__ base,
+                 const float* __restrict__ seg, float* __restrict__ y, int N,
+                 int nhop, int C, int Ke) {
+  extern __shared__ float sm[];
+  const int CK = C * Ke, T = 2 * nhop;
+  float* s_edc = sm;                        // [kFrames, C]
+  float* s_base = s_edc + kFrames * C;      // [kFrames, C]
+  float* s_ar = s_base + kFrames * C;       // [kFrames, C, Ke]
+  float* s_ai = s_ar + kFrames * CK;        // [kFrames, C, Ke]
+  const int b = blockIdx.y;
+  const int f0 = blockIdx.x * kHops;
+  const int64_t row0 = (int64_t)b * N;
+  for (int idx = threadIdx.x; idx < kFrames * C; idx += blockDim.x) {
+    const int64_t fr = row0 + min(f0 + idx / C, N - 1);
+    const int c = idx % C;
+    s_edc[idx] = __ldg(edc + fr * C + c);
+    s_base[idx] = __ldg(base + fr * C + c);
+  }
+  for (int idx = threadIdx.x; idx < kFrames * CK; idx += blockDim.x) {
+    const int64_t fr = row0 + min(f0 + idx / CK, N - 1);
+    const int q = idx % CK;
+    s_ar[idx] = __ldg(ar + fr * CK + q);
+    s_ai[idx] = __ldg(ai + fr * CK + q);
+  }
+  __syncthreads();
+
+  const int nh = min(kHops, N - f0);
+  const float inv_hop = 1.0f / (float)nhop;
+  const float* sb = seg + (int64_t)b * C * N * T;
+  for (int idx = threadIdx.x; idx < nh * nhop; idx += blockDim.x) {
+    const int i = idx / nhop, t = idx - i * nhop;
+    const bool partner = f0 + i + 1 < N;
+    const int64_t g = (row0 + f0 + i) * nhop + t;
+    float s1, c1;
+    sincospif(2.0f * llsm::frac_c(__ldg(cyc + g)), &s1, &c1);
+    const float sv = (float)t * inv_hop;
+    float acc = 0.0f;
+    for (int c = 0; c < C; ++c) {
+      const float env = llsm::envelope_sample(
+          s_edc[i * C + c], s_edc[(i + 1) * C + c], s_ar + i * CK + c * Ke,
+          s_ar + (i + 1) * CK + c * Ke, s_ai + i * CK + c * Ke,
+          s_ai + (i + 1) * CK + c * Ke, Ke, sv, c1, s1);
+      const float* sc = sb + ((int64_t)c * N + f0 + i) * T;
+      float ola = __ldg(sc + nhop + t);
+      if (partner) ola += __ldg(sc + T + t);
+      const float b0 = s_base[i * C + c];
+      const float bl = fmaf(s_base[(i + 1) * C + c] - b0, sv, b0);
+      acc = fmaf(ola, __fdividef(fmaxf(env, 0.0f), fmaxf(bl, 1e-8f)), acc);
+    }
+    y[g] = acc;
+  }
+}
+
+}  // namespace
+
+extern "C" int llsm_noise_mod_ola_seg(const float* cyc, const float* edc,
+                                      const float* ar, const float* ai,
+                                      const float* base, const float* seg,
+                                      float* y, int B, int N, int nhop, int C,
+                                      int Ke, void* stream) {
+  if (B <= 0 || N <= 0) return (int)cudaGetLastError();
+  if (nhop <= 0 || C <= 0 || C > kMaxC || Ke < 0 || Ke > kMaxKe)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)kFrames * (2 * C + 2 * C * Ke) * sizeof(float);
+  dim3 grid((N + kHops - 1) / kHops, B);
+  noise_seg_kernel<<<grid, kSegThreads, smem, (cudaStream_t)stream>>>(
+      cyc, edc, ar, ai, base, seg, y, N, nhop, C, Ke);
+  return (int)cudaGetLastError();
+}

@@ -2,19 +2,25 @@
 synthesis (counterpart of libllsm2_tpu/models/layer0.py; reference:
 layer0.c -> llsm_analyze / llsm_synthesize).
 
-Analysis: F0 refine, one batched pitch-synchronous chirped projection
-over all frames, the analytic amplitude-track deconvolution, the
-harmonic-track denoiser (or the opt-in track lowpass), a residual
-render, band envelopes by FFT with their envelope projection, and a
-warped periodogram.  Synthesis: an oscillator bank with overlap-add for
-the harmonic part, and a WOLA noise shaper for the noise part.  The
-kernels of the path are in ops/kernels.py.
+Analysis: F0 refine, the harmonic pass (the chirped pitch-synchronous
+projection, or FFT peak-picking with hm_method="pp"), the analytic
+amplitude-track deconvolution and/or Gauss-Seidel re-analysis passes, the
+harmonic-track denoiser (or the opt-in track lowpass), a residual render,
+band envelopes by FFT with their envelope projection, and a warped
+periodogram.  Synthesis: an oscillator bank with overlap-add for the
+harmonic part, and a WOLA noise shaper for the noise part.
+
+Every option of the JAX package runs.  use_pallas=True runs the
+hand-written kernels of ops/kernels.py where the JAX package runs its
+Pallas kernels; use_pallas=False runs the JAX package's jnp branches in
+plain PyTorch, on the tensors' device, and launches none of them but the
+noise draw (kernels.noise_bins) and the cycle track
+(kernels.sample_cycles), which the JAX package computes in jnp under
+both settings.
 
 The private ``_analyze`` / ``_synthesize`` / ``_synth_noise`` take a
 leading batch axis where the JAX package maps single utterances with
-``jax.vmap``.  Options outside the ported configuration (see
-config.AnalysisOptions) raise NotImplementedError naming the ROADMAP item
-that brings them.
+``jax.vmap``.
 """
 from __future__ import annotations
 
@@ -30,6 +36,7 @@ from ..config import AnalysisOptions, ChunkConf, SynthesisOptions
 from ..container import Chunk, index_batch
 from ..fp import FP
 from ..ops import harmonics, interp, kernels, resample, spectral, warp
+from ..ops.windows import window_centered
 
 
 class SynthResult(NamedTuple):
@@ -40,10 +47,6 @@ class SynthResult(NamedTuple):
     fs: float
 
 
-# the ROADMAP Queue 1 item that covers the options still refused, by title
-DSP_KIT = 'Queue 1, "The rest of the DSP kit, and the options still refused",'
-
-
 def _unported(what: str, item: str):
     return NotImplementedError(
         f"{what} is not ported to libllsm2_tpu_torch yet ({item} in "
@@ -51,18 +54,7 @@ def _unported(what: str, item: str):
 
 
 def _check_analysis(opt: AnalysisOptions) -> None:
-    if not opt.use_pallas:
-        raise _unported("use_pallas=False (the JAX package's jnp branches)",
-                        DSP_KIT)
-    if opt.hm_method != "czt":
-        raise _unported(f"hm_method={opt.hm_method!r}", DSP_KIT)
-    if opt.hm_passes != 1:
-        raise _unported(f"hm_passes={opt.hm_passes}", DSP_KIT)
-    if opt.hm_correction != "deconv":
-        raise _unported(f"hm_correction={opt.hm_correction!r}",
-                        DSP_KIT)
-    if opt.frame_chunk:
-        raise _unported("frame_chunk > 0", DSP_KIT)
+    """_analyze takes x at conf.fs: refuse an opt that would resample."""
     if _resamples(opt):
         raise ValueError(
             f"_analyze takes x at conf.fs = {opt.conf.fs} Hz, not at "
@@ -226,23 +218,60 @@ def _deconv_correction(opt: AnalysisOptions, f0, cyc, ampl, phse, mask,
     k +- 1 AM-sideband coupling X).  f0 [B, N], cyc [B, nx], ampl/phse/mask
     [B, N, K] -> corrected (ampl, phse), or with return_complex the masked
     complex track (re, im): the banded step mixes neighbour frames, so
-    dead slots are not exactly zero before the mask."""
+    dead slots are not exactly zero before the mask.  With the kernels on
+    and a band of at most 128 frames, kernels.deconv_full; otherwise the
+    JAX package's jnp branch (layer0.py:248-299)."""
     conf = opt.conf
     nhop = conf.nhop
     hh = -(-conf.halfwin_max // nhop)
     D = hh + 1                       # |d| band: window +- OLA half-width
-    if D > 128:
-        raise _unported("deconvolution bands wider than 128 frames",
-                        DSP_KIT)
     voiced = f0 > 0.0
     f0s = torch.where(voiced, f0, torch.full_like(f0, 100.0))
     halfwidth = torch.clamp(conf.rel_winsize * conf.fs / (2.0 * f0s), 2.0,
                             float(conf.halfwin_max))
     # stride-8 midpoint quadrature of the window x crossfade products
-    # (the kernel reads the cycle track at the points and masks)
     stride = max(min(8, nhop), 1)
-    return kernels.deconv_full(ampl, phse, cyc, halfwidth, mask, D, nhop,
-                               stride, return_complex=return_complex)
+    if opt.use_pallas and D <= 128:
+        # the kernel reads the cycle track at the points and masks
+        return kernels.deconv_full(ampl, phse, cyc, halfwidth, mask, D, nhop,
+                                   stride, return_complex=return_complex)
+    N = ampl.shape[1]
+    K = ampl.shape[-1]
+    dev = ampl.device
+    nq = (2 * nhop) // stride
+    r = -nhop + (torch.arange(nq, dtype=FP, device=dev) + 0.5) * stride
+    w_ola = 0.5 + 0.5 * torch.cos(math.pi * r / nhop)
+    d_off = torch.arange(-D, D + 1, dtype=FP, device=dev)
+    n_abs = d_off[:, None] * nhop + r                       # [2D+1, nq]
+    P = window_centered("hanning", n_abs, halfwidth[..., None, None]) * w_ola
+    # rows sum to wsum_i / stride: the row normalization is the 1/wsum
+    tot = torch.clamp(torch.sum(P, dim=(-2, -1), keepdim=True), min=1e-9)
+    Pn = P / tot                                            # [B, N, 2D+1, nq]
+    T_band = torch.sum(Pn, dim=-1)                          # [B, N, 2D+1]
+    # k-independent AM-sideband coupling from the absolute cycle values at
+    # the quadrature points
+    C2 = harmonics.frame_hops(cyc, N, nhop, 1, mode="edge")
+    ang = 2.0 * math.pi * C2[..., stride // 2::stride][..., :nq]
+    eq = torch.polar(torch.ones_like(ang), ang)             # [B, N, nq]
+    X_band = torch.stack([
+        torch.sum(Pn[:, :, j] * kernels._shift_frames(eq, d), dim=-1)
+        for j, d in enumerate(range(-D, D + 1))], dim=-1)   # [B, N, 2D+1]
+    c, align = _aligned_track(ampl, phse, cyc[..., ::nhop][..., :N])
+    # one row shift a band of c, c'_{k+1} and c'_{k-1} together
+    zero = torch.zeros_like(c[..., :1])
+    cat = torch.cat([c, torch.cat([c[..., 1:], zero], dim=-1),
+                     torch.cat([zero, c[..., :-1]], dim=-1)], dim=-1)
+    Sm = torch.zeros_like(c)
+    Xc_band = X_band.conj()
+    for j, d in enumerate(range(-D, D + 1)):
+        sh = kernels._shift_frames(cat, d)
+        Sm = Sm + T_band[..., j:j + 1] * sh[..., :K] \
+            + X_band[..., j:j + 1] * sh[..., K:2 * K] \
+            + Xc_band[..., j:j + 1] * sh[..., 2 * K:]
+    c2 = (2.0 * c - Sm) * align.conj()
+    if return_complex:
+        return c2.real * mask, c2.imag * mask
+    return torch.abs(c2) * mask, torch.angle(c2) * mask
 
 
 # ---------------------------------------------------------------------------
@@ -256,19 +285,45 @@ def _hann_taps(M: int) -> tuple:
     return tuple((w / w.sum()).tolist())
 
 
-def _aligned_track(ampl, phse, cyc_c):
-    """Phase-aligned complex tracks c'_k = a e^{j phi} e^{-2 pi j k cyc_c}
-    [B, N, K] and the alignment field e^{-2 pi j k cyc_c} (mod-1
-    phases)."""
-    kh = torch.arange(1, ampl.shape[-1] + 1, dtype=FP, device=ampl.device)
+def _align_field(cyc_c, K: int):
+    """e^{-2 pi j k cyc_c} [B, N, K] for k = 1..K (mod-1 phases)."""
+    kh = torch.arange(1, K + 1, dtype=FP, device=cyc_c.device)
     ph = kh * cyc_c[..., None]
     ph = ph - torch.round(ph)
-    align = torch.polar(torch.ones_like(ph), -2.0 * math.pi * ph)
+    return torch.polar(torch.ones_like(ph), -2.0 * math.pi * ph)
+
+
+def _aligned_track(ampl, phse, cyc_c):
+    """Phase-aligned complex tracks c'_k = a e^{j phi} e^{-2 pi j k cyc_c}
+    [B, N, K] and the alignment field e^{-2 pi j k cyc_c}."""
+    align = _align_field(cyc_c, ampl.shape[-1])
     return torch.polar(ampl, phse) * align, align
 
 
+def _aligned_track_c(cr, ci, cyc_c):
+    """_aligned_track from the raw complex track (re, im): the complex
+    handoff's variant (JAX layer0.py:160-168)."""
+    align = _align_field(cyc_c, cr.shape[-1])
+    return torch.complex(cr, ci) * align, align
+
+
+def _fir(use_pallas: bool, v, taps):
+    """Zero-edged FIR along the frame axis of v or of each tensor of the
+    pair v: kernels.fir_frames, or with the kernels off the JAX package's
+    shift-and-add chain in tap order (its jnp `fir`)."""
+    if use_pallas:
+        return kernels.fir_frames(v, taps)
+    if not torch.is_tensor(v):
+        return tuple(_fir(False, u, taps) for u in v)
+    h = len(taps) // 2
+    out = torch.zeros_like(v)
+    for j, t in enumerate(kernels._taps32(taps)):
+        out = out + t * kernels._shift_frames(v, j - h)
+    return out
+
+
 def _track_lowpass(conf: ChunkConf, f0, cyc_c, ampl, phse, mask,
-                   cutoff_hz: float):
+                   cutoff_hz: float, use_pallas: bool = True):
     """Opt-in track lowpass (AnalysisOptions.track_lowpass_hz): Hann FIR of
     each harmonic's aligned complex track along frames, applied only where
     the whole filter support is voiced.  f0, cyc_c [B, N]; ampl, phse,
@@ -278,7 +333,7 @@ def _track_lowpass(conf: ChunkConf, f0, cyc_c, ampl, phse, mask,
     w = _hann_taps(M)
     c, align = _aligned_track(ampl, phse, cyc_c)
     voiced = (f0 > 0).to(FP)[..., None]
-    guard, c_f = kernels.fir_frames((voiced, c), w)
+    guard, c_f = _fir(use_pallas, (voiced, c), w)
     cs = torch.where(guard > 0.999, c_f, c) * align.conj()  # guard [B, N, 1]
     return torch.abs(cs) * mask, torch.angle(cs) * mask
 
@@ -350,7 +405,7 @@ def _gate_dft(N: int, D: int, thop: float, cutoff_hz: float,
 
 def _spectral_gate(c_s, full, pp, guard, v, mask, thop: float,
                    cutoff_hz: float, a_spec: float, decimate: int = 1, *,
-                   rows: int | None = None):
+                   rows: int | None = None, use_pallas: bool = True):
     """Per-frame-frequency-bin noise gate on the slow track (JAX
     layer0.py:368-599, whose docstring gives the reasons): c_s, full
     [B, N, K] complex (slow part; guarded c_s + r_inc), pp [B, N, K], guard
@@ -361,7 +416,8 @@ def _spectral_gate(c_s, full, pp, guard, v, mask, thop: float,
     matmuls and block-lerps the delta back; D = 1 uses FFTs.  The products
     run in complex64 (fp32, no TF32).  The transforms, products and frame
     sums, whose order the libraries choose by the row count, run in groups
-    of `rows` rows (default _group_rows(N))."""
+    of `rows` rows (default _group_rows(N)).  The local-noisiness blend's
+    frame FIRs run through _fir(use_pallas)."""
     B, N, K = c_s.shape
     D = max(int(decimate), 1)
     G = rows or _group_rows(N)
@@ -429,11 +485,11 @@ def _spectral_gate(c_s, full, pp, guard, v, mask, thop: float,
             a, (0, 0, 0, Nb * BB - N)).reshape(B, Nb, BB, K).mean(dim=2)
         MB = max(int(round(M / BB)), 1) | 1
         wb = _hann_taps(MB)
-        num, den = kernels.fir_frames((bmean(pp * okf), bmean(okf)), wb)
+        num, den = _fir(use_pallas, (bmean(pp * okf), bmean(okf)), wb)
         lp = torch.repeat_interleave(num / torch.clamp(den, min=1e-9), BB,
                                      dim=1)[:, :N]
     else:
-        num, den = kernels.fir_frames((pp * okf, okf), _hann_taps(M))
+        num, den = _fir(use_pallas, (pp * okf, okf), _hann_taps(M))
         lp = num / torch.clamp(den, min=1e-9)
     w_loc = torch.clamp(3.0 * lp / torch.clamp(v[:, None, :], min=1e-30)
                         - 0.5, 0.0, 1.0)
@@ -443,19 +499,27 @@ def _spectral_gate(c_s, full, pp, guard, v, mask, thop: float,
 def _track_denoise(conf: ChunkConf, f0, cyc_c, ampl, phse, mask,
                    cutoff_hz: float, strength: float, *,
                    spectral: bool = False, a_spec: float = 3.0,
-                   spec_decimate: int = 1, c_complex=None):
+                   spec_decimate: int = 1, c_complex=None,
+                   use_pallas: bool = True):
     """The dynamics-adaptive harmonic-track denoiser (AnalysisOptions.
-    track_denoise; the JAX Pallas branch, layer0.py:648-702): pass A
-    (kernels.denoise_stats), the per-utterance floor statistics, pass B
-    (kernels.denoise_apply) and, with `spectral`, the per-bin gate on the
-    slow track, whose delta kernels.denoise_finish adds.  f0, cyc_c [B, N]; ampl, phse, mask [B, N, K] ->
-    (ampl, phse).  c_complex: the raw complex track (re, im) from
-    _deconv_correction(return_complex=True); ampl and phse are then
-    ignored."""
+    track_denoise).  use_pallas (the JAX Pallas branch, layer0.py:648-702):
+    pass A (kernels.denoise_stats), the per-utterance floor statistics,
+    pass B (kernels.denoise_apply) and, with `spectral`, the per-bin gate
+    on the slow track, whose delta kernels.denoise_finish adds;
+    use_pallas=False: the jnp branch (_track_denoise_plain).  f0, cyc_c
+    [B, N]; ampl, phse, mask [B, N, K] -> (ampl, phse).  c_complex: the
+    raw complex track (re, im) from _deconv_correction(return_complex=
+    True); ampl and phse are then ignored."""
     frame_rate = 1.0 / conf.thop
     M = int(round(frame_rate / cutoff_hz)) | 1          # odd tap count
     Mp = int(round(frame_rate / (2.0 * cutoff_hz))) | 1
     taps1, taps2 = _hann_taps(M), _hann_taps(Mp)
+    if not use_pallas:
+        return _track_denoise_plain(conf, f0, cyc_c, ampl, phse, mask,
+                                    cutoff_hz, strength, taps1, taps2,
+                                    spectral=spectral, a_spec=a_spec,
+                                    spec_decimate=spec_decimate,
+                                    c_complex=c_complex)
     voiced = (f0 > 0).to(FP)
     if c_complex is not None:
         (pp, cs2, r2, guard, cre, cim, csr, csi) = kernels.denoise_stats(
@@ -480,11 +544,79 @@ def _track_denoise(conf: ChunkConf, f0, cyc_c, ampl, phse, mask,
     return kernels.denoise_finish(a, delta, cyc_c, mask)
 
 
+def _coherent_fit(c_s, r, wgt):
+    """Per-frame weighted least-squares fit across k of the fast residual
+    r ~ (m0 + m1 k) c_s, weights wgt [B, N, K] (layer0.py:722-735 and
+    :763-775) -> the coherent part [B, N, K]."""
+    kh = torch.arange(1, c_s.shape[-1] + 1, dtype=FP, device=c_s.device)
+    p = (c_s.real ** 2 + c_s.imag ** 2) * wgt
+    cr = c_s.conj() * r * wgt
+    a00 = torch.sum(p, dim=-1)
+    a01 = torch.sum(kh * p, dim=-1)
+    a11 = torch.sum(kh * kh * p, dim=-1)
+    b0 = torch.sum(cr, dim=-1)
+    b1 = torch.sum(kh * cr, dim=-1)
+    det = a00 * a11 - a01 * a01
+    den = det + (1e-5 * a00 * a11 + 1e-12)
+    m0 = (a11 * b0 - a01 * b1) / den
+    m1 = (a00 * b1 - a01 * b0) / den
+    return (m0[..., None] + m1[..., None] * kh) * c_s
+
+
+def _track_denoise_plain(conf: ChunkConf, f0, cyc_c, ampl, phse, mask,
+                         cutoff_hz: float, strength: float, taps1, taps2, *,
+                         spectral: bool, a_spec: float, spec_decimate: int,
+                         c_complex):
+    """The track denoiser's jnp branch (JAX layer0.py:703-789): slow track
+    by the Hann FIR along frames, the voicing guard, the coherent fit, the
+    probe-band power, the floor statistics, the weighted fit and the
+    Wiener gate, then with `spectral` the per-bin gate's delta, in the
+    JAX package's order; the FIRs are shift-and-add chains (_fir(False))."""
+    if c_complex is not None:
+        c, align = _aligned_track_c(c_complex[0], c_complex[1], cyc_c)
+    else:
+        c, align = _aligned_track(ampl, phse, cyc_c)
+    m = mask.to(FP)
+    c_s = _fir(False, c, taps1)
+    guard = _fir(False, (f0 > 0).to(FP)[..., None], taps1) > 0.999  # [B, N, 1]
+    r = c - c_s
+    power = lambda z: z.real ** 2 + z.imag ** 2
+    r_inc = r - _coherent_fit(c_s, r, m)
+    r_probe = r_inc - _fir(False, r_inc, taps2)
+    pp = power(r_probe)
+    ok = guard & (m > 0)
+    v, wmul = _denoise_floor_stats(pp, power(c_s) * m, power(r), power(c) * m,
+                                   ok)
+    # second, weighted fit (wmul drops noise-dominated tracks)
+    r_coh = _coherent_fit(c_s, r, m * wmul[:, None, :])
+    r_inc = r - r_coh
+    g = torch.clamp(1.0 - strength * v[:, None, :] / (power(r_inc) + 1e-20),
+                    0.0, 1.0)
+    out = c_s + r_coh + g * r_inc
+    if spectral:
+        czero = torch.zeros((), dtype=c.dtype, device=c.device)
+        out = out + _spectral_gate(c_s, torch.where(guard, c_s + r_inc, czero),
+                                   pp, guard, v, mask, conf.thop, cutoff_hz,
+                                   a_spec, decimate=spec_decimate,
+                                   use_pallas=False)
+    out = torch.where(guard, out, c) * align.conj()
+    return torch.abs(out) * mask, torch.angle(out) * mask
+
+
 def _moving_sum(v: torch.Tensor, S: int) -> torch.Tensor:
     """jnp.convolve(v, ones(S), mode="same") along the last axis, as a
     zero-padded windowed sum (no cuDNN, so no TF32 on the card)."""
     vp = torch.nn.functional.pad(v, (S // 2, (S - 1) // 2))
     return vp.unfold(-1, S, 1).sum(dim=-1)
+
+
+def _residual(use_pallas: bool, cyc, ampl, phse, mask, nhop: int, x):
+    """x minus the harmonic render of (ampl, phse, mask): one
+    kernels.osc_bank launch, or the plain oscillator bank and its OLA."""
+    if use_pallas:
+        return kernels.osc_bank(cyc, ampl, phse, mask, nhop, x)
+    segs = harmonics.oscillator_bank(cyc, ampl, phse, mask, nhop=nhop)
+    return x - harmonics.overlap_add_half(segs, nhop, x.shape[-1])
 
 
 def analyze(opt: AnalysisOptions, x, f0, device=None) -> Chunk:
@@ -525,7 +657,8 @@ def _analyze(opt: AnalysisOptions, x: torch.Tensor,
     if opt.f0_refine:
         f0_ref = harmonics.refine_f0(
             x, f0, nhop=nhop, fs=conf.fs, halfwin_max=conf.halfwin_max,
-            rel_winsize=conf.rel_winsize, f0_ceil=conf.f0_ceil)
+            rel_winsize=conf.rel_winsize, f0_ceil=conf.f0_ceil,
+            use_pallas=opt.use_pallas)
         S = opt.f0_refine_smooth
         if S > 1:
             # voicing-masked moving average of the refine CORRECTION
@@ -539,31 +672,47 @@ def _analyze(opt: AnalysisOptions, x: torch.Tensor,
 
     cyc = harmonics.sample_cycles(f0, nhop, conf.fs, nx)
 
-    # harmonic pass: zoomed chirped projection
-    ampl, phse, mask = harmonics.harmonic_analysis(
-        x, f0, cyc, nhop=nhop, fs=conf.fs, max_k=conf.maxnhar,
-        halfwin_max=conf.halfwin_max, rel_winsize=conf.rel_winsize,
-        fnyq=conf.fnyq, mxu=opt.hm_kernel == "matmul")
+    # harmonic pass: zoomed chirped projection, or FFT peak-picking
+    hkw = dict(nhop=nhop, fs=conf.fs, max_k=conf.maxnhar,
+               halfwin_max=conf.halfwin_max, rel_winsize=conf.rel_winsize,
+               fnyq=conf.fnyq)
+    project = functools.partial(
+        harmonics.harmonic_analysis, **hkw, mxu=opt.hm_kernel == "matmul",
+        use_pallas=opt.use_pallas, frame_chunk=opt.frame_chunk)
+    if opt.hm_method == "pp":
+        ampl, phse, mask = harmonics.harmonic_peak_pick(x, f0, **hkw)
+    else:
+        ampl, phse, mask = project(x, f0, cyc)
 
     # residual: deconvolve the track smoothing (handing the complex track
-    # to the denoiser), denoise, subtract the harmonic part
+    # to the denoiser) or re-analyze the residual (Gauss-Seidel passes),
+    # denoise, subtract the harmonic part
     cplx = None
     if _complex_handoff(opt):
         cplx = _deconv_correction(opt, f0, cyc, ampl, phse, mask,
                                   return_complex=True)
-    else:
+    elif (opt.hm_correction == "deconv" and opt.hm_passes <= 1
+          and opt.hm_method == "czt"):
         ampl, phse = _deconv_correction(opt, f0, cyc, ampl, phse, mask)
+    for _ in range(max(opt.hm_passes - 1, 0)):
+        da, dp, _ = project(_residual(opt.use_pallas, cyc, ampl, phse, mask,
+                                      nhop, x), f0, cyc)
+        z = torch.polar(ampl, phse) + torch.polar(da, dp)
+        ampl, phse = torch.abs(z) * mask, torch.angle(z) * mask
     cyc_c = cyc[..., ::nhop][..., :nfrm].contiguous()   # read by 2 kernels
+    # the denoisers run after the passes, which would re-project the noise
     if opt.track_denoise and opt.track_lowpass_hz <= 0.0:
         ampl, phse = _track_denoise(
             conf, f0, cyc_c, ampl, phse, mask, opt.track_denoise_hz,
             opt.track_denoise_strength, spectral=opt.track_denoise_spectral,
             a_spec=opt.track_spectral_strength,
-            spec_decimate=opt.track_spectral_decimate, c_complex=cplx)
+            spec_decimate=opt.track_spectral_decimate, c_complex=cplx,
+            use_pallas=opt.use_pallas)
     if opt.track_lowpass_hz > 0.0:
         ampl, phse = _track_lowpass(conf, f0, cyc_c, ampl, phse, mask,
-                                    opt.track_lowpass_hz)
-    residual = kernels.osc_bank(cyc, ampl, phse, mask, nhop, x)
+                                    opt.track_lowpass_hz,
+                                    use_pallas=opt.use_pallas)
+    residual = _residual(opt.use_pallas, cyc, ampl, phse, mask, nhop, x)
 
     # noise pass: band envelopes (at the decimated rate fs/D) + warped PSD
     D = _env_decimation(conf, opt.env_decimate, nx)
@@ -575,7 +724,8 @@ def _analyze(opt: AnalysisOptions, x: torch.Tensor,
         cyc[:, ::D],
         nhop=nhop // D, fs=conf.fs / D, max_k=Ke,
         halfwin_max=-(-conf.halfwin_max // D), rel_winsize=conf.rel_winsize,
-        fnyq=min(conf.fnyq, 0.4 * conf.fs / D), with_dc=True)
+        fnyq=min(conf.fnyq, 0.4 * conf.fs / D), with_dc=True,
+        use_pallas=opt.use_pallas, frame_chunk=opt.frame_chunk)
     edc = torch.clamp(edc, min=0.0).reshape(B, Cn, nfrm).transpose(1, 2)
     eenv_a = ea.reshape(B, Cn, nfrm, Ke).transpose(1, 2)   # [B, N, C, Ke]
     eenv_p = ep.reshape(B, Cn, nfrm, Ke).transpose(1, 2)
@@ -612,27 +762,94 @@ def _render_envelopes(chunk: Chunk, cyc: torch.Tensor, nhop: int,
     """Per-channel temporal envelopes and their baselines (env, base
     [B, C, nx], nx = cyc.shape[-1]) of a batched chunk, rendered per
     sample from the frames' envelope coefficients (reference: layer0.c
-    noise synthesis -- envelope reconstruction).  Renders through
-    kernels.env_render, a cut render (nx < N * nhop) included; the JAX
-    package's use_pallas=False branch is not ported."""
-    if not use_pallas:
-        raise _unported("use_pallas=False (the JAX package's jnp branches)",
-                        DSP_KIT)
+    noise synthesis -- envelope reconstruction).  use_pallas renders
+    through kernels.env_render (a cut render, nx < N * nhop, included);
+    otherwise the JAX package's jnp lerp (layer0.py:1008-1041), a row at a
+    time."""
     N = chunk.f0.shape[-1]
     nx = cyc.shape[-1]
     centers = torch.clamp(torch.arange(N, device=cyc.device) * nhop,
                           max=nx - 1)
     coefs = _env_coefs(chunk, cyc[..., centers])
-    return kernels.env_render(cyc, *coefs, nhop=nhop)
+    if use_pallas:
+        return kernels.env_render(cyc, *coefs, nhop=nhop)
+    return harmonics.each_row(
+        lambda c, e, ar, ai, b: _lerp_envelopes(c[0], e[0], ar[0], ai[0],
+                                                b[0], nhop), cyc, *coefs)
+
+
+def _lerp_envelopes(cyc, edc, ar, ai, base, nhop: int):
+    """One row of the jnp envelope render: the coefficients lerped between
+    frames i and i + 1 over frame i's samples (the last frame constant),
+    the envelope harmonics by a rotation ladder from e^{2 pi j cyc} ->
+    (env, base) [1, C, nx]."""
+    N = edc.shape[0]
+    nx = cyc.shape[-1]
+    t = torch.arange(nhop, dtype=FP, device=cyc.device) / nhop
+
+    def lerp(a):  # [N, ...] -> [nx, ...]
+        tt = t.reshape((1, nhop) + (1,) * (a.dim() - 1))
+        out = a[:-1, None] + tt * (a[1:] - a[:-1])[:, None]
+        out = out.reshape(((N - 1) * nhop,) + a.shape[1:])
+        tail = a[-1:].expand((nhop,) + a.shape[1:])
+        return torch.cat([out, tail])[:nx]
+
+    ph1 = 2.0 * math.pi * (cyc - torch.round(cyc))
+    c1, s1 = torch.cos(ph1), torch.sin(ph1)
+    osc_c, osc_s = [c1], [s1]
+    for _ in range(ar.shape[-1] - 1):
+        osc_c.append(osc_c[-1] * c1 - osc_s[-1] * s1)
+        osc_s.append(osc_c[-2] * s1 + osc_s[-1] * c1)
+    osc_c = torch.stack(osc_c, dim=-1)[:, None, :]          # [nx, 1, Ke]
+    osc_s = torch.stack(osc_s, dim=-1)[:, None, :]
+    env = lerp(edc) + torch.sum(lerp(ar) * osc_c - lerp(ai) * osc_s, dim=-1)
+    return (torch.clamp(env, min=0.0).T[None],
+            torch.clamp(lerp(base), min=1e-8).T[None])
+
+
+def _band_segments(shaped: torch.Tensor, masks: torch.Tensor,
+                   w: torch.Tensor, T: int, idft: str) -> torch.Tensor:
+    """Windowed per-band time segments [B, C, N, T] from the shaped noise
+    spectra [B, N, nbin] (JAX layer0.py:1044-1100), a row at a time:
+    idft="matmul" the inverse DFT as a contraction with the window and
+    band masks folded in (kernels._band_segments); "fft" the reference
+    path, two bands' real inverse transforms in one complex inverse FFT
+    (the bands are disjoint: band c0 in the real part, c1 in the
+    imaginary part), a last odd band by an irfft."""
+    if idft == "matmul":
+        return harmonics.each_row(
+            lambda z: kernels._band_segments(z, masks, w, T), shaped)
+    if idft != "fft":
+        raise ValueError(f"noise_idft must be 'matmul' or 'fft', not {idft!r}")
+    # the Hermitian spectrum of T bins from its nbin = T/2 + 1 one-sided
+    full = lambda z: torch.cat([z, z[..., 1:-1].flip(-1).conj()], dim=-1)
+
+    def row(z):
+        z = z[0]                                           # [N, nbin]
+        segs = []
+        for c in range(0, masks.shape[0] - 1, 2):
+            pair = torch.fft.ifft(full(z * masks[c]) + 1j * full(z * masks[c + 1]),
+                                  n=T)
+            segs += [pair.real * w, pair.imag * w]
+        if masks.shape[0] % 2:
+            segs.append(torch.fft.irfft(z * masks[-1], n=T) * w)
+        return torch.stack(segs)[None]
+
+    return harmonics.each_row(row, shaped)
 
 
 def _synth_noise(chunk: Chunk, cyc: torch.Tensor, nhop: int, fs: float,
-                 noise_seed: int, bins=None,
-                 frame_base: int = 0) -> torch.Tensor:
+                 noise_seed: int, bins=None, frame_base: int = 0, *,
+                 use_pallas: bool = True,
+                 idft: str = "matmul") -> torch.Tensor:
     """Noise component of a batched chunk [B, N, ...] -> [B, N*nhop]: each
     frame's white-noise spectrum is shaped by sqrt(PSD), band-split,
     windowed back to time, overlap-added and modulated by the temporal
-    envelopes (reference: layer0.c noise synthesis).
+    envelopes (reference: layer0.c noise synthesis).  With use_pallas and
+    idft="matmul" one kernels.noise_mod_ola launch does all past the
+    shaping gain; with idft="fft" the FFT branch's segments go to
+    kernels.noise_mod_ola_seg; with the kernels off, the JAX package's
+    jnp tail (layer0.py:1190-1195).
 
     Frame i's standard-normal spectrum is keyed by (noise_seed,
     frame_base + i) and drawn as the JAX package draws it
@@ -673,12 +890,34 @@ def _synth_noise(chunk: Chunk, cyc: torch.Tensor, nhop: int, fs: float,
         if re.shape != (B, N, nbin) or im.shape != (B, N, nbin):
             raise ValueError(f"bins must be [{B}, {N}, {nbin}] each")
     edc, ar, ai, base = _env_coefs(chunk, cyc[..., ::nhop][..., :N])
-    # the kernel shapes the spectra (scale, DC and Nyquist real), takes
-    # each band's windowed inverse DFT and overlap-adds, modulates and sums
-    # the bands
-    return kernels.noise_mod_ola(cyc, edc, ar, ai, base, re, im, gain,
-                                 kernels.band_ranges(nbin, float(fs),
-                                                     tuple(conf.chan_edges)))
+    bands = kernels.band_ranges(nbin, float(fs), tuple(conf.chan_edges))
+    if use_pallas and idft == "matmul":
+        # the kernel shapes the spectra (scale, DC and Nyquist real), takes
+        # each band's windowed inverse DFT and overlap-adds, modulates and
+        # sums the bands
+        return kernels.noise_mod_ola(cyc, edc, ar, ai, base, re, im, gain,
+                                     bands)
+    # the shaped spectra: variance-T bins, DC and Nyquist real
+    scale = torch.full((nbin,), math.sqrt(T / 2.0), dtype=FP, device=dev)
+    scale[0] = scale[-1] = math.sqrt(float(T))
+    im_scale = scale.clone()
+    im_scale[0] = im_scale[-1] = 0.0
+    shaped = torch.complex(re * scale, im * im_scale) * gain
+    k = torch.arange(nbin, device=dev)
+    masks = torch.stack([((k >= lo) & (k < hi)).to(FP)
+                         for lo, hi in zip(bands[::2], bands[1::2])])
+    # sqrt-Hann WOLA pair: perfect reconstruction at 50% overlap
+    w = torch.sqrt(0.5 - 0.5 * torch.cos(
+        2.0 * math.pi * (torch.arange(T, dtype=FP, device=dev) + 0.5) / T))
+    segs = _band_segments(shaped, masks, w, T, idft)         # [B, C, N, T]
+    if use_pallas:
+        return kernels.noise_mod_ola_seg(cyc, edc, ar, ai, base, segs)
+    env, base_s = _render_envelopes(chunk, cyc, nhop)
+    y = torch.zeros_like(cyc)
+    for c in range(segs.shape[1]):
+        band = harmonics.overlap_add_half(segs[:, c], nhop, cyc.shape[-1])
+        y = y + band * (env[:, c] / base_s[:, c])
+    return y
 
 
 def synthesize(opt: SynthesisOptions, chunk: Chunk) -> SynthResult:
@@ -695,11 +934,6 @@ def _synthesize(opt: SynthesisOptions, chunk: Chunk, bins=None) -> SynthResult:
     masked); a rate with a non-integral hop renders at the nearest rate
     with an integral hop and resamples to opt.fs.  bins: see _synth_noise
     (at the rendering rate)."""
-    if not opt.use_pallas:
-        raise _unported("use_pallas=False (the JAX package's jnp branches)",
-                        DSP_KIT)
-    if opt.noise_idft != "matmul":
-        raise _unported(f"noise_idft={opt.noise_idft!r}", DSP_KIT)
     conf = chunk.conf
     fs = opt.fs
     if abs(conf.thop * fs - round(conf.thop * fs)) > 1e-6:
@@ -718,8 +952,13 @@ def _synthesize(opt: SynthesisOptions, chunk: Chunk, bins=None) -> SynthResult:
     kharm = torch.arange(1, K + 1, dtype=FP, device=cyc.device)
     f0s = torch.where(chunk.f0 > 0, chunk.f0, torch.full_like(chunk.f0, 100.0))
     hm_mask = chunk.hm_mask * (kharm * f0s[..., None] < 0.5 * fs)
-    y_sin = kernels.osc_bank(cyc, chunk.ampl, chunk.phse, hm_mask, nhop)
-    y_nos = _synth_noise(chunk, cyc, nhop, fs, opt.noise_seed, bins=bins)
+    if opt.use_pallas:
+        y_sin = kernels.osc_bank(cyc, chunk.ampl, chunk.phse, hm_mask, nhop)
+    else:
+        y_sin = harmonics.overlap_add_half(harmonics.oscillator_bank(
+            cyc, chunk.ampl, chunk.phse, hm_mask, nhop=nhop), nhop, nx)
+    y_nos = _synth_noise(chunk, cyc, nhop, fs, opt.noise_seed, bins=bins,
+                         use_pallas=opt.use_pallas, idft=opt.noise_idft)
     return SynthResult(y=y_sin + y_nos, y_sin=y_sin, y_nos=y_nos, fs=fs)
 
 

@@ -8,7 +8,9 @@ row of a batched spectral synthesis (the frames' combined LF x minimum-
 phase tract spectra, lerped to the onset, x lip radiation x a fractional
 delay -> irfft), added into the output at its onset in an order that
 depends on the row alone (_overlap_add).  The noise part is layer-0's
-(layer0._synth_noise, so kernels.noise_mod_ola runs).  The JAX package's
+(layer0._synth_noise: with the kernels on, kernels.noise_mod_ola runs, or
+noise_mod_ola_seg with noise_idft="fft"; with use_pallas=False the JAX
+package's jnp tail).  The JAX package's
 comments give the measured reasons for the lerp of combined spectra, the
 linear envelope upsampling and the guard.
 """
@@ -206,19 +208,14 @@ def _pbp_synthesize(opt: SynthesisOptions, chunk: Chunk,
     spectra, as layer0._synth_noise takes them."""
     if not chunk.has_layer1:
         raise ValueError("PbP synthesis requires layer-1 parameters")
-    if not opt.use_pallas:
-        raise layer0._unported("use_pallas=False (the JAX package's jnp "
-                               "branches)", layer0.DSP_KIT)
-    if opt.noise_idft != "matmul":
-        raise layer0._unported(f"noise_idft={opt.noise_idft!r}",
-                               layer0.DSP_KIT)
     conf = chunk.conf
     nhop = conf.nhop
     nx = chunk.nfrm * nhop
     y_sin = _pbp_sin(chunk, max(int(opt.pbp_oversample), 1))
     cyc = harmonics.sample_cycles(chunk.f0, nhop, conf.fs, nx)
     y_nos = layer0._synth_noise(chunk, cyc, nhop, conf.fs, opt.noise_seed,
-                                bins=bins)
+                                bins=bins, use_pallas=opt.use_pallas,
+                                idft=opt.noise_idft)
     return layer0.SynthResult(y=y_sin + y_nos, y_sin=y_sin, y_nos=y_nos,
                               fs=conf.fs)
 

@@ -49,6 +49,9 @@ SIGNATURES = {
     # 2 C ints), y, B, N, nhop, C, Ke, stream
     "llsm_noise_mod_ola": (_P, _P, _P, _P, _P, _P, _P, _L, _P, _P, _P, _I,
                            _I, _I, _I, _I, _P),
+    # cyc, edc, ar, ai, base, segs, y, B, N, nhop, C, Ke, stream
+    "llsm_noise_mod_ola_seg": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               _I, _P),
     # a, p, cyc_c, mask, voiced, pp, cs2, r2, guard (bool), cre, cim, csr,
     # csi, B, N, K, taps1 (host), n1, taps2 (host), n2, complex_input, stream
     "llsm_denoise_stats": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

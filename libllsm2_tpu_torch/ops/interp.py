@@ -1,5 +1,6 @@
 """Interpolation primitives (counterpart of libllsm2_tpu/ops/interp.py;
-reference: ciglet.h -> interp1)."""
+reference: ciglet.h -> interp1): linear on a uniform grid or at knots,
+Catmull-Rom on a uniform grid, frame fetching."""
 from __future__ import annotations
 
 import numpy as np
@@ -22,6 +23,34 @@ def interp1_uniform(fp: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     f0 = torch.gather(fp, -1, i0)
     f1 = torch.gather(fp, -1, i0 + 1)
     return f0 + (f1 - f0) * frac
+
+
+def catmull_rom_uniform(fp: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """Cubic Catmull-Rom interpolation of fp (last axis on the uniform grid
+    0..len-1) at fractional positions pos, clamped at the edges; leading
+    axes broadcast as in interp1_uniform."""
+    n = fp.shape[-1]
+    lead = torch.broadcast_shapes(fp.shape[:-1], pos.shape[:-1])
+    pos = torch.clamp(pos, 0.0, n - 1.0)
+    i1 = torch.clamp(torch.floor(pos).to(torch.int64), 0, n - 2)
+    t = pos - i1
+    fp = fp.expand(lead + (n,))
+    take = lambda i: torch.gather(fp, -1, torch.clamp(i, 0, n - 1)
+                                  .expand(lead + i.shape[-1:]))
+    p0, p1, p2, p3 = take(i1 - 1), take(i1), take(i1 + 1), take(i1 + 2)
+    a = 2.0 * p1
+    b = p2 - p0
+    c = 2.0 * p0 - 5.0 * p1 + 4.0 * p2 - p3
+    d = -p0 + 3.0 * p1 - 3.0 * p2 + p3
+    return 0.5 * (a + b * t + c * t * t + d * t * t * t)
+
+
+def interp1(xp: torch.Tensor, fp: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Piecewise-linear interpolation with edge clamping at knots xp
+    (increasing) with values fp (reference: ciglet.h -> interp1; the JAX
+    package's jnp.interp), over the last axis with leading axes broadcast
+    (interp)."""
+    return interp(x, xp, fp)
 
 
 def interp(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor) -> torch.Tensor:

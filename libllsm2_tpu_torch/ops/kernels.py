@@ -27,7 +27,7 @@ from . import _build
 from .windows import COSINE_SERIES, window_centered
 
 LAUNCHES = {"osc_bank": 0, "harmonic_project_win": 0, "deconv_full": 0,
-            "noise_mod_ola": 0, "denoise_stats": 0, "denoise_apply": 0,
+            "noise_mod_ola": 0, "noise_mod_ola_seg": 0, "denoise_stats": 0, "denoise_apply": 0,
             "denoise_finish": 0,
             "harmonic_project": 0, "harmonic_project_mxu": 0,
             "fir_frames": 0, "env_render": 0, "noise_bins": 0,
@@ -414,8 +414,7 @@ def _band_segments(shaped_spec: torch.Tensor, masks: torch.Tensor,
 def noise_mod_ola_ref(cyc, edc, ar, ai, base, re, im, gain, bands):
     """Plain version of noise_mod_ola: the shaped spectra (the JAX
     package's layer0.py:1168-1175), the band iDFT (_band_segments) and the
-    OLA + modulation + band sum of the segments (layer0.py:1190-1195)."""
-    from .harmonics import overlap_add_half
+    OLA + modulation + band sum of the segments (noise_mod_ola_seg_ref)."""
     nbin = gain.shape[-1]
     nhop = nbin - 1
     T = 2 * nhop
@@ -433,6 +432,42 @@ def noise_mod_ola_ref(cyc, edc, ar, ai, base, re, im, gain, bands):
     w = torch.sqrt(0.5 - 0.5 * torch.cos(
         2.0 * math.pi * (torch.arange(T, dtype=FP, device=dev) + 0.5) / T))
     segs = _band_segments(shaped, masks, w, T)               # [B, C, N, T]
+    return noise_mod_ola_seg_ref(cyc, edc, ar, ai, base, segs)
+
+
+def noise_mod_ola_seg(cyc: torch.Tensor, edc: torch.Tensor, ar: torch.Tensor,
+                      ai: torch.Tensor, base: torch.Tensor,
+                      segs: torch.Tensor) -> torch.Tensor:
+    """The noise part of a batch from given windowed band segments (the
+    noise_idft="fft" path): cyc [B, N*nhop]; edc/base [B, N, C]; ar/ai
+    [B, N, C, Ke] as noise_mod_ola takes them; segs [B, C, N, 2 nhop] ->
+    y [B, N*nhop] = sum_c OLA(segs[:, c]) max(env_c, 0) / max(base_c,
+    1e-8).  One launch on the card."""
+    if not _on_cuda(cyc, edc, ar, ai, base, segs):
+        return noise_mod_ola_seg_ref(cyc, edc, ar, ai, base, segs)
+    B, N, C, Ke = ar.shape
+    T = segs.shape[-1]
+    nhop = T // 2
+    if cyc.shape != (B, N * nhop) or edc.shape != (B, N, C) \
+            or base.shape != (B, N, C) or ai.shape != ar.shape \
+            or segs.shape != (B, C, N, T) or T != 2 * nhop:
+        raise ValueError("noise_mod_ola_seg: shape mismatch")
+    if not (1 <= C <= _NOISE_MAX_C and Ke <= _NOISE_MAX_KE):
+        raise ValueError(f"noise_mod_ola_seg: C {C}, Ke {Ke} (at most "
+                         f"{_NOISE_MAX_C}, {_NOISE_MAX_KE})")
+    cyc, edc, ar, ai, base, segs = map(_f32, (cyc, edc, ar, ai, base, segs))
+    y = torch.empty((B, N * nhop), dtype=FP, device=cyc.device)
+    ptrs = (t.data_ptr() for t in (cyc, edc, ar, ai, base, segs, y))
+    _launch("noise_mod_ola_seg", *ptrs, B, N, nhop, C, Ke, _stream(cyc))
+    return y
+
+
+def noise_mod_ola_seg_ref(cyc, edc, ar, ai, base, segs):
+    """Plain version of noise_mod_ola_seg: each band's OLA times its
+    envelope over its baseline (layer0.py:1190-1195), the envelopes by
+    env_render_ref."""
+    from .harmonics import overlap_add_half
+    nhop = segs.shape[-1] // 2
     env, base_s = env_render_ref(cyc, edc, ar, ai, base, nhop)
     y = torch.zeros_like(cyc)
     for c in range(segs.shape[1]):

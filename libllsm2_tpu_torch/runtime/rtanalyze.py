@@ -10,7 +10,8 @@ frames analyzed with `halo_hops` frames of real context on both sides
 reproduces the offline result for its central frames (the envelope tail
 leaks ~1/(pi halo nhop) relative amplitude: -80 dB at the defaults).
 Each block is one layer0._analyze call of a batch of one, of one shape
-for the whole stream, on the card's kernels.
+for the whole stream, with any option the offline analysis takes (the
+card's kernels with use_pallas=True, the plain branches without).
 
 Every phase the analysis emits is referenced at its own frame's centre
 against that frame's own cycle count, so it does not depend on where the
@@ -74,7 +75,7 @@ class RTAnalyzer:
 
     def __init__(self, opt: AnalysisOptions, block_hops: int = 64,
                  halo_hops: int = 48, device=None):
-        layer0._check_analysis(opt)   # refuses what the port does not run
+        layer0._check_analysis(opt)   # x at conf.fs: no resampling here
         self.opt = opt
         self.nhop = opt.conf.nhop
         self.block = int(block_hops)

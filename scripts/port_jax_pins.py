@@ -54,10 +54,17 @@ with the Pallas kernels in interpret mode:
             denoiser off; then PbP streaming (chip_smoke.py phase 15c:
             stream_chunk(block=16, synth_mode="pbp")) of LF rows 0 and 1
             (as PbP): the SNR (utils.metrics.snr_db) of its output against
-            pbp_synthesize's y_sin, whole and second by second.
+            pbp_synthesize's y_sin, whole and second by second;
+  dspkit    chip_smoke.py phase 16: batched_pipeline with the library
+            default create_aoptions(f0_floor=70) and create_soptions()
+            (use_pallas=False: the jnp branches) on bench rows 0, 1 (noisy)
+            and 64 (clean); then create_aoptions(f0_floor=70,
+            use_pallas=True) with hm_method="pp", hm_passes=2,
+            hm_correction="none" and frame_chunk=64 in turn (the Pallas
+            kernels in interpret mode) on rows 0 and 1.
 
     JAX_PLATFORMS=cpu python scripts/port_jax_pins.py [duration=8.0] \
-        [only=l0,11k,l1,pbp,corpus,edits,coder,nasal,stream]
+        [only=l0,11k,l1,pbp,corpus,edits,coder,nasal,stream,dspkit]
 
 CPU time of the parts added last, on an 8-core x86 host: corpus 49.3 s,
 edits 42.1 s, coder 32.2 s, nasal 4.8 s (run after coder in one process).
@@ -349,11 +356,46 @@ def stream_pbp_rows(duration):
     return out
 
 
+def _bench_rows(duration, rows):
+    data = [testsig.make_test_utterance(duration=duration, seed=i,
+                                        noise_level=ROWS[i],
+                                        return_parts=True) for i in rows]
+    x, f0, x_ref = (np.stack([r[j] for r in data]).astype(np.float32)
+                    for j in range(3))
+    nxv = np.full((len(rows),), x.shape[1], np.int32)
+    return tuple(jnp.asarray(a) for a in (x, f0, nxv, x_ref))
+
+
+def dspkit_rows(duration):
+    """chip_smoke.py phase 16a / 16b pins: batched_pipeline SNRs of the
+    library default (use_pallas=False) on rows 0, 1 and 64, and of each
+    analysis option with the kernels on on rows 0 and 1."""
+    out = {}
+    _, snr, _ = corpus.batched_pipeline(
+        create_aoptions(f0_floor=70.0), create_soptions(),
+        *_bench_rows(duration, list(ROWS)))
+    out["library default"] = dict(zip(ROWS, np.asarray(snr).tolist()))
+    print(f"  library default: {out['library default']}", flush=True)
+    opt, sopt = _opts16()
+    for label, change in (("pp", dict(hm_method="pp")),
+                          ("passes 2", dict(hm_passes=2)),
+                          ("correction none", dict(hm_correction="none")),
+                          ("frame_chunk 64", dict(frame_chunk=64))):
+        t0 = time.perf_counter()
+        _, snr, _ = corpus.batched_pipeline(
+            dataclasses.replace(opt, **change), sopt,
+            *_bench_rows(duration, [0, 1]))
+        out[label] = dict(zip((0, 1), np.asarray(snr).tolist()))
+        print(f"  {label}: {out[label]} ({time.perf_counter() - t0:.1f} s)",
+              flush=True)
+    return out
+
+
 def main():
     kw = dict(a.split("=", 1) for a in sys.argv[1:])
     duration = float(kw.get("duration", 8.0))
-    only = kw.get("only", "l0,11k,l1,pbp,corpus,edits,coder,nasal,stream"
-                  ).split(",")
+    only = kw.get("only", "l0,11k,l1,pbp,corpus,edits,coder,nasal,stream,"
+                  "dspkit").split(",")
     if "l0" in only:
         t0 = time.perf_counter()
         print(f"16 kHz batched_pipeline at {duration} s:",
@@ -410,6 +452,12 @@ def main():
         print(f"PbP stream_chunk(block=16) of LF rows 0/1 at {duration} s, "
               "y_sin SNR against pbp_synthesize:", stream_pbp_rows(duration),
               f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    if "dspkit" in only:
+        t0 = time.perf_counter()
+        print(f"phase 16 at {duration} s (the library default on rows 0/1/64, "
+              "then each analysis option with the kernels on rows 0/1):",
+              dspkit_rows(duration), f"({time.perf_counter() - t0:.1f} s)",
+              flush=True)
 
 if __name__ == "__main__":
     main()

@@ -621,6 +621,96 @@ def test_noise_mod_ola_kernel_matches_plain_on_card(nhop, per_row, Nf):
     torch.testing.assert_close(got, ref, atol=5e-5, rtol=0)
 
 
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("nhop,Nf,C", [(80, N, 4), (55, 301, 4),
+                                       (160, 47, 3)])
+def test_noise_mod_ola_seg_kernel_matches_plain_on_card(nhop, Nf, C):
+    """The segment-input entry (noise_idft="fft"): OLA, modulation and
+    band sum of given [B, C, N, 2 nhop] segments in one launch against
+    its twin, 5e-5 as the fused entry; frame counts off the 15-hop tile,
+    an odd channel count."""
+    dev = _card()
+    args, _, _ = _noise_inputs(nhop, True, nhop + 1, Nf=Nf, C=C)
+    cyc, edc, ar, ai, base = _noise_tensors(args, dev)[:5]
+    segs = torch.randn((2, C, Nf, 2 * nhop), device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(nhop))
+    kernels.reset_launches()
+    got = kernels.noise_mod_ola_seg(cyc, edc, ar, ai, base, segs)
+    ref = kernels.noise_mod_ola_seg_ref(cyc, edc, ar, ai, base, segs)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["noise_mod_ola_seg"] == 1
+    torch.testing.assert_close(got, ref, atol=5e-5, rtol=0)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("change", [dict(hm_method="pp"),
+                                    dict(hm_passes=2),
+                                    dict(hm_correction="none")])
+def test_polar_denoise_stats_on_a_library_path_on_card(change):
+    """The analysis options whose denoiser takes polar input (no complex
+    handoff: HMPP, Gauss-Seidel passes, no correction) on two 2 s rows:
+    each call of denoise_stats there has complex_input False and matches
+    its twin within 2e-3 of the track's peak (test_pallas.py's)."""
+    import dataclasses
+    from libllsm2_tpu_torch import create_aoptions
+    from libllsm2_tpu_torch.utils import testsig
+    dev = _card()
+    opt = dataclasses.replace(create_aoptions(f0_floor=70.0, use_pallas=True),
+                              **change)
+    utt = testsig.make_test_utterances([(0, 0.05), (1, 0.05)], duration=2.0)
+    x, f0 = (torch.tensor(np.stack([u[j] for u in utt]),
+                          dtype=torch.float32, device=dev) for j in range(2))
+    calls = []
+    orig = kernels.denoise_stats
+
+    def hook(*args, **kw):
+        calls.append((args, kw))
+        return orig(*args, **kw)
+
+    kernels.denoise_stats = hook
+    try:
+        tl0._analyze(opt, x, f0)
+    finally:
+        kernels.denoise_stats = orig
+    assert len(calls) == 1 and not calls[0][1].get("complex_input", False)
+    args, kw = calls[0]
+    got = kernels.denoise_stats(*args, **kw)
+    ref = kernels.denoise_stats_ref(*args, **kw)
+    scale = float(args[0].abs().max())
+    assert torch.equal(got[3], ref[3])
+    for g, r in zip(got[:3], ref[:3]):
+        torch.testing.assert_close(g / scale, r / scale, atol=2e-3, rtol=0)
+    for g, r in zip(got[4:], ref[4:]):
+        torch.testing.assert_close(g, r, atol=2e-3 * scale, rtol=0)
+
+
+@pytest.mark.requires_cuda
+def test_plain_branches_launch_no_pallas_counterpart_on_card():
+    """use_pallas=False on the card: analyze -> synthesize of two 1 s rows
+    runs on the card (the output is a CUDA tensor), launches only the
+    noise draw and the cycle track, and its rows equal the CPU's within
+    1e-3 of the largest amplitude."""
+    from libllsm2_tpu_torch import create_aoptions, create_soptions
+    from libllsm2_tpu_torch.utils import testsig
+    dev = _card()
+    opt, sopt = create_aoptions(f0_floor=70.0), create_soptions()
+    utt = testsig.make_test_utterances([(0, 0.05), (64, 0.0)], duration=1.0)
+    x, f0 = (torch.tensor(np.stack([u[j] for u in utt]), dtype=torch.float32)
+             for j in range(2))
+    kernels.reset_launches()
+    ch = tl0._analyze(opt, x.to(dev), f0.to(dev))
+    out = tl0._synthesize(sopt, ch)
+    torch.cuda.synchronize()
+    assert out.y.device.type == "cuda"
+    assert {k for k, v in kernels.LAUNCHES.items() if v} == {
+        "sample_cycles", "noise_bins"}
+    cpu = tl0._analyze(opt, x, f0)
+    scale = float(cpu.ampl.abs().max())
+    torch.testing.assert_close(torch.polar(ch.ampl, ch.phse).cpu(),
+                               torch.polar(cpu.ampl, cpu.phse),
+                               atol=1e-3 * scale, rtol=0)
+
+
 def _f0_rows(B, Nf, seed):
     """B F0 tracks of Nf frames, 80-300 Hz, each with unvoiced stretches."""
     rng = np.random.default_rng(seed)

@@ -306,7 +306,8 @@ def test_env_render_plain_matches_pallas(nfrm, cut):
     against the JAX Pallas render, on a batch of two chunks with an
     unvoiced run, as test_pallas.py:231: env 2e-5, base 2e-6 absolute.
     With a render `cut` samples short of N*nhop the JAX package takes its
-    plain render and the port the same wrapper."""
+    plain render and the port the same wrapper.  Then the jnp branch
+    (use_pallas=False) of both packages, alike."""
     from libllsm2_tpu import ChunkConf, create_chunk
     from libllsm2_tpu.models import layer0 as jl0
     from libllsm2_tpu_torch.container import chunk_from_numpy
@@ -341,8 +342,17 @@ def test_env_render_plain_matches_pallas(nfrm, cut):
                                    atol=2e-5)
         np.testing.assert_allclose(base[b].numpy(), np.asarray(base_j),
                                    atol=2e-6)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tl0._render_envelopes(tch, cyc, nhop)      # the jnp branch
+    # the jnp branch (use_pallas=False) against the JAX package's, alike
+    env, base = tl0._render_envelopes(tch, cyc, nhop)
+    for b in range(2):
+        jch = dataclasses.replace(create_chunk(conf, nfrm), **{
+            f: jnp.asarray(v) for f, v in rows[b].items()})
+        env_j, base_j = jl0._render_envelopes(
+            jch, jnp.asarray(cyc[b].numpy()), centers, nx, nhop)
+        np.testing.assert_allclose(env[b].numpy(), np.asarray(env_j),
+                                   atol=2e-5)
+        np.testing.assert_allclose(base[b].numpy(), np.asarray(base_j),
+                                   atol=2e-6)
 
 
 def test_cpu_tensors_never_reach_the_kernels(monkeypatch):

@@ -243,10 +243,25 @@ def test_public_single_utterance_api(ref):
     dict(use_pallas=False), dict(hm_method="pp"), dict(hm_passes=2),
     dict(hm_correction="none"), dict(frame_chunk=32)])
 def test_unported_options_raise(ref, change):
-    """Options outside the ported slice raise, naming a ROADMAP item."""
-    opt = dataclasses.replace(ref["topt"], **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tl0._analyze(opt, torch.tensor(ref["x"][:1]), torch.tensor(ref["f0"][:1]))
+    """The options the port once refused (the plain branches, HMPP,
+    Gauss-Seidel passes, no correction, chunked framing) now run through
+    _analyze, with the denoiser off and on, and give the JAX package's
+    chunk on the noisy fixture (its Pallas branch in interpret mode, or
+    its jnp branch for use_pallas=False): ampl and the complex track
+    within 1e-3 of the largest amplitude, as test_denoiser_options_match
+    holds them."""
+    jopt = dataclasses.replace(ref["jopt"], **change)
+    topt = dataclasses.replace(ref["topt"], **change)
+    j = jl0._analyze_jit(jopt, jnp.asarray(ref["x"][0]),
+                         jnp.asarray(ref["f0"][0]))
+    t = tl0._analyze(topt, torch.tensor(ref["x"][:1]),
+                     torch.tensor(ref["f0"][:1]))
+    ja, jp = np.asarray(j.ampl), np.asarray(j.phse)
+    scale = float(np.abs(ja).max())
+    np.testing.assert_allclose(t.ampl[0].numpy(), ja, atol=1e-3 * scale)
+    np.testing.assert_allclose(
+        t.ampl[0].numpy() * np.exp(1j * t.phse[0].numpy()),
+        ja * np.exp(1j * jp), atol=1e-3 * scale)
 
 
 @pytest.mark.parametrize("change", [

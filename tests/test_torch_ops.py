@@ -338,6 +338,45 @@ def test_synth_nasal_utterance_copy_matches(kw):
     np.testing.assert_allclose(xt, xj, atol=1e-6)
 
 
+@pytest.mark.parametrize("fn,kw", [
+    ("synth_outofmodel_utterance", dict(source="rosenberg", duration=0.3)),
+    ("synth_outofmodel_utterance", dict(source="klatt", duration=0.3,
+                                        reverb_rt60=0.1, clip_frac=0.2)),
+    ("synth_outofmodel_utterance", dict(source="triangle", duration=0.3,
+                                        fs=48000.0)),
+    ("make_octave_trap", dict(duration=0.3, f0_base=200.0)),
+    ("synth_consonant_cluster", dict(duration=0.4, return_parts=True)),
+    ("synth_whisper_utterance", dict(duration=0.3, seed=2)),
+])
+def test_oracle_fixture_copies_are_exact(fn, kw):
+    """The port's copies of the pure-numpy oracle fixtures (out-of-model
+    sources, octave trap, consonant cluster, whisper) give the JAX
+    package's arrays bit for bit."""
+    test_fixture_copies_are_exact(fn, kw)
+
+
+@pytest.mark.parametrize("fn,kw", [
+    ("synth_creaky_utterance", dict(duration=0.3)),
+    ("synth_creaky_utterance", dict(duration=0.3, alt_amp=1.0,
+                                    alt_period=0.0)),
+    ("synth_rd_transition_utterance", dict(duration=0.3)),
+    ("synth_diphthong_utterance", dict(duration=0.4)),
+    ("synth_two_speaker_mixture", dict(duration=0.3)),
+])
+def test_lf_oracle_fixture_copies_match(fn, kw):
+    """The oracle fixtures whose pulse shape comes from each package's LF
+    model: the F0 (and Rd) tracks equal, every signal within 1e-6 of the
+    unit peak, as test_synth_nasal_utterance_copy_matches."""
+    ref = getattr(jtestsig, fn)(**kw)
+    got = getattr(ttestsig, fn)(**kw)
+    tracks = (1, 2) if fn == "synth_rd_transition_utterance" else (1,)
+    for i, (g, r) in enumerate(zip(got, ref)):
+        if i in tracks:
+            np.testing.assert_array_equal(g, r)
+        else:
+            np.testing.assert_allclose(g, r, atol=1e-6)
+
+
 @pytest.mark.parametrize("name", ["snr_db", "log_spectral_distance_db",
                                   "mel_cepstral_distortion_db",
                                   "band_energy_error_db"])

@@ -165,11 +165,25 @@ def test_rows_alone_equal_their_batch_rows_on_cpu(ref):
 
 
 def test_pbp_refuses_layer0_chunks_and_runs_no_kernel_on_cpu(ref):
-    _, chunk = ref
+    """A layer-0 chunk is refused; the library default (use_pallas=False,
+    the jnp noise tail) and noise_idft="fft" render row 0 as the JAX
+    package does, each drawing its own noise (the port's draw equals
+    jax.random's within 1e-6): y_sin as test_pbp_y_sin_matches, y_nos
+    within 1e-4 absolute as layer 0's; and no kernel runs on the CPU."""
+    rows, chunk = ref
     with pytest.raises(ValueError, match="layer-1"):
         tpbp.pbp_synthesize(_sopt(tpkg), chunk.replace(rd=None))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpbp.pbp_synthesize(tpkg.create_soptions(), chunk)
+    row0 = chunk.replace(**{f: getattr(chunk, f)[0] for f in CHUNK_FIELDS})
+    for change in (dict(), dict(noise_idft="fft")):
+        jout = jpbp.pbp_synthesize(
+            dataclasses.replace(jpkg.create_soptions(), **change), rows[0][0])
+        out = tpbp.pbp_synthesize(
+            dataclasses.replace(tpkg.create_soptions(), **change), row0)
+        yj = np.asarray(jout.y_sin)
+        np.testing.assert_allclose(out.y_sin.numpy(), yj,
+                                   atol=1e-3 * np.abs(yj).max())
+        np.testing.assert_allclose(out.y_nos.numpy(), np.asarray(jout.y_nos),
+                                   atol=1e-4)
     kernels.reset_launches()
     tl1.chunk_to_layer0(chunk)
     tpbp._pbp_synthesize(_sopt(tpkg), chunk)

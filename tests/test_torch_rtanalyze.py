@@ -147,7 +147,21 @@ def test_concat_frames_layer1_none_and_extras(signal):
         trta.concat_frames([parts[0], other])
 
 
-def test_unported_options_raise():
-    opt = dataclasses.replace(_opt(tpkg, False), use_pallas=False)
-    with pytest.raises(NotImplementedError):
-        trta.RTAnalyzer(opt, device="cpu")
+def test_unported_options_raise(signal):
+    """RTAnalyzer with use_pallas=False (the plain branches, which it once
+    refused) against the JAX package's RTAnalyzer with its jnp branches,
+    denoiser off, on the first 0.5 s: every field within 1e-3 of its
+    largest value, as test_stream_matches_jax holds the kernel
+    path."""
+    x, f0 = signal
+    x, f0 = x[:8000], f0[:100]
+    got = _stream(trta, dataclasses.replace(_opt(tpkg, False),
+                                            use_pallas=False), x, f0,
+                  device="cpu")
+    ref = _stream(jrta, dataclasses.replace(_opt(jpkg, False),
+                                            use_pallas=False), x, f0)
+    assert got.nfrm == ref.nfrm == len(f0)
+    for f in ("ampl", "psd", "edc", "eenv_a"):
+        r = np.asarray(getattr(ref, f))
+        np.testing.assert_allclose(getattr(got, f).numpy(), r,
+                                   atol=1e-3 * np.abs(r).max())
