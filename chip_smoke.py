@@ -219,6 +219,47 @@ non-zero without the final "ok" line:
      plus seeded white noise at 0.1 of their rms, which conditions it),
      each op's time; the biquad, a Python loop of a few launches a sample,
      at 1 s and 8 s on one row and on 128, each timed once.
+ 17. the learned models (cell tts-train-serve), every model at its
+     default widths.  17a, the TTS corpus: ttsdata.build_corpus(24,
+     seed=0) (224 frames an utterance) with create_aoptions(use_pallas=
+     True), counters zeroed before -> the analysis kernels launched, the
+     corpus seconds; one utterance with the library default timed.  17b,
+     the acoustic model, 400 steps with the F0 slot weighted 4 (ms a step,
+     median; first and last loss, < 0.2x; peak), test_acoustic's floors on
+     held-out sentences (F0 median error < 0.05, correlation > 0.85, vowel
+     identity > 0.75), the unseen sentence [aa s iy sil] served through
+     decode_frames -> RTSynthesizer(phase_mode="propagate") with
+     test_tts_serving_render's floors, and rendered offline through
+     coder.decode -> layer0.synthesize with the kernels (counters zeroed
+     before: osc_bank, noise_bins, noise_mod_ola, sample_cycles
+     launched).  17c, the AE (lr 3e-3, 100 steps) and the VQ codec (lr
+     2e-3, 220 steps) at full batch on phase 13's coder vectors (128 x
+     1600): ms a step, test_neural's floors (loss < 0.3x after 60 steps,
+     F0 median error < 0.15) and test_vq's (recon < 0.4x, >= 8 codes
+     used a group, voicing agreement > 0.9, F0 median error < 0.05), the
+     token render's MCD against the float render on rows 0/1 (< 2.5 dB,
+     both through the kernels, counted).  17d, the JAX package's weights
+     (scripts/port_jax_pins_learned.npz) through params_from_jax on the
+     card: forwards within 2e-2 of scale, >= 99% of the VQ tokens equal,
+     5 steps' losses within 2e-2 relative.  17e, abs_refine on
+     test_abs's weakened analysis: its floors and the JAX package's
+     snr_after within 0.05 dB; then bench row 64 at 8 s alone (100 steps,
+     lr 0.1): ms a step, the peak, the SNR before and after.
+ 18. the single-device edges (cell cli-fp64).  18a, a subprocess with
+     LLSM_FP64=1 on the card: test_fp64's fixture with every chunk field
+     and output float64, the SNR >= 45 dB and within 0.01 dB of the JAX
+     package's float64 value, use_pallas refused, no kernel launched, the
+     noise drawn on the card (and a bench row's draw there within 2 ulps
+     of the host's, JAX's bits, at <= 1e-4 of its normals); then one
+     128 x 8 s library-default step in float64 (ms, peak) beside phase
+     16a's float32 one.  18b, test_cli's commands through
+     libllsm2_tpu_torch.cli on the card with its checks, a 44.1 kHz round
+     trip (resampled on the card) and `batch` on 8 files cut from the
+     bench rows as phase 11 cuts them.  18c,
+     utils.profiling.device_trace around one phase-5 step: the trace holds
+     layer0's five llsm.* ranges; the card's busy share of the step (the
+     union of its kernel intervals in the trace over the step's
+     unprofiled time by CUDA events).
 Phases 5, 6, 7 and 9 also time every call of each of their kernels in
 the counted run at full batch (median of 10, and a launch's share of a
 run of 20 back-to-back launches: the device time where the host enqueues
@@ -231,7 +272,7 @@ the six, fir_frames, noise_bins and sample_cycles, 6 for
 harmonic_project_mxu, 7 for
 harmonic_project, 9 for env_render, 16c for noise_mod_ola_seg;
 denoise_apply also "finish_launches" and "finish_full_batch" for its
-second launch; "launches_by_phase" the counts of phases 11 to 16); ms,
+second launch; "launches_by_phase" the counts of phases 11 to 17); ms,
 plain_ms, library_ms and bound_ms at the first 2-row call of phase 3
 (noise_mod_ola_seg: its full-batch call of 16c; denoise_stats also has
 16b's full-batch polar case among its "cases"); "full_batch" a record per
@@ -249,11 +290,13 @@ float32 matmul and convolution.
 The SNR, rd and PbP pins are the JAX package's own values on the CPU, from
 
     JAX_PLATFORMS=cpu PYTHONPATH=. python scripts/port_jax_pins.py \
-        [only=l0,11k,l1,pbp,corpus,edits,coder,nasal,stream,dspkit]
+        [only=l0,11k,l1,pbp,corpus,edits,coder,nasal,stream,dspkit,
+              learned,fp64]
 
 (l0: phases 4 and 5; 11k: phases 7 and 8; l1: phase 9; pbp: phase 10;
 corpus: phase 11; edits: phase 12; coder: phase 13; nasal: phase 14;
-stream: phase 15, ~1 min on the CPU; dspkit: phase 16, ~70 s).
+stream: phase 15, ~1 min on the CPU; dspkit: phase 16, ~70 s; learned:
+phase 17d-e and its npz, ~25 s; fp64: phase 18a, ~10 s).
 """
 import dataclasses
 import json
@@ -484,6 +527,22 @@ LEAF_CPU_ROWS = 8                 # 16d: rows run on the CPU where it is slow
 # sample_cycles against its plain version run on the CPU, which sums in the
 # kernel's order (a float64 running sum a hop): wrapped |difference|, cycles
 SAMPLE_CYCLES_CPU_TOL = 1e-6
+# phase 17 (cell tts-train-serve)
+TTS_UTTS, TTS_FRAMES, TTS_STEPS = 24, 224, 400   # train_tts_demo's defaults
+AE_LR, AE_STEPS = 3e-3, 100               # tests/test_neural.py's lr, steps
+VQ_LR, VQ_STEPS = 2e-3, 220               # tests/test_vq.py's
+LEARNED_PINS = (Path(__file__).resolve().parent
+                / "scripts/port_jax_pins_learned.npz")
+LEARNED_STEPS = 5                         # the losses the pins hold
+LEARNED_FWD_TOL = 2e-2      # of scale: bfloat16 operands (tests' tolerance)
+LEARNED_LOSS_RTOL = 2e-2    # tests/test_torch_learned.py's trajectories
+LEARNED_TOKENS_MIN = 0.99
+ABS_SNR_PIN_DB = 56.965209437981905       # JAX, test_abs's snr_after (CPU)
+ABS_SNR_TOL_DB = 0.05       # the port on the CPU: 56.9643 (gap 0.0009 dB)
+# phase 18 (cell cli-fp64)
+FP64_SNR_PIN_DB = 56.320644984409434      # JAX float64, test_fp64 (CPU)
+FP64_SNR_TOL_DB = 0.01
+CLI_BATCH_FILES = 8
 MAIN_SIX = tuple(KERNELS)[:6]     # the library-default path's CUDA kernels
 # ... and its frame-axis FIR, noise draw and cycle track
 MAIN = MAIN_SIX + ("fir_frames", "noise_bins", "sample_cycles")
@@ -2571,8 +2630,8 @@ def steps_ms(torch, fn, reps):
 
 def library_default_phase(torch, kernels, mods, data, opts):
     """16a: the library default (opt, sopt: use_pallas=False) at full width
-    on the bench rows, beside the kernel path (opt_k, sopt_k) -> the
-    counted run's launches."""
+    on the bench rows, beside the kernel path (opt_k, sopt_k) -> (the
+    counted run's launches, the step's median ms, its peak GiB)."""
     layer0, corpus = mods
     x, f0, x_ref, nxv = data
     B = x.shape[0]
@@ -2622,7 +2681,7 @@ def library_default_phase(torch, kernels, mods, data, opts):
                 ("synthesize", lambda c: outputs(layer0._synthesize(sopt, c)))],
         _Rows((x, f0))))
     torch.cuda.empty_cache()
-    return launches
+    return launches, plain_ms, peak
 
 
 class _Rows(tuple):
@@ -2815,6 +2874,660 @@ def leaf_ops_phase(torch, x):
                   f"card (a step a sample: {secs * 16000} steps)", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phases 17 and 18: the learned models (cell tts-train-serve) and the
+# single-device edges (cell cli-fp64)
+# ---------------------------------------------------------------------------
+
+def _slot(cc, name):
+    for n, off, size in cc.layout():
+        if n == name:
+            return slice(off, off + size)
+    raise KeyError(name)
+
+
+def _train_steps(torch, step, n):
+    """n synchronized calls of step() -> (losses, median ms a step)."""
+    losses, times = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        loss = step()
+        losses.append(float(loss))            # synchronizes
+        times.append((time.perf_counter() - t0) * 1e3)
+    return losses, statistics.median(times)
+
+
+def _f0_rel_err(np, f0_in, f0_out):
+    v = f0_in > 0
+    return float(np.median(np.abs(f0_out[v] - f0_in[v]) / f0_in[v]))
+
+
+def _sentence(np, seq, durs):
+    """A phone sentence's model inputs (ids [1, N], feats [1, N, 2])."""
+    N = sum(durs)
+    ids = np.zeros((1, N), np.int32)
+    feats = np.zeros((1, N, 2), np.float32)
+    a = 0
+    for pi, d in zip(seq, durs):
+        ids[0, a:a + d] = pi
+        feats[0, a:a + d, 0] = (np.arange(d) + 0.5) / d
+        a += d
+    feats[0, :, 1] = np.arange(N) / (N - 1)
+    return ids, feats
+
+
+def tts_phase(torch, kernels, dev, opt_k, sopt_k):
+    """17a-b (cell tts-train-serve): the TTS corpus through the kernels,
+    the acoustic model trained on the card at its default widths, its
+    held-out floors, the served and the offline render -> {"17a":
+    launches, "17b": launches of the offline render}."""
+    import numpy as np
+    from scipy import signal as sps
+
+    from libllsm2_tpu_torch import create_aoptions, create_soptions
+    from libllsm2_tpu_torch.models import acoustic, coder, layer0, neural
+    from libllsm2_tpu_torch.runtime import rtsynth
+    from libllsm2_tpu_torch.utils import ttsdata
+    out = {}
+    # 17a: the corpus, the kernels on, counters zeroed before
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    corp = ttsdata.build_corpus(TTS_UTTS, opt=opt_k, seed=0, device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    out["17a"] = launches = dict(kernels.LAUNCHES)
+    cc = corp["cc"]
+    phase("17a corpus launches", all(launches[k] > 0 for k in ANALYSIS),
+          f"{sorted(k for k in ANALYSIS)} launched: {launches}")
+    B, N, D = corp["targets"].shape
+    phase("17a corpus", (B, N, D) == (TTS_UTTS, TTS_FRAMES, cc.dims)
+          and np.isfinite(corp["targets"]).all(),
+          f"{TTS_UTTS} utterances x {N} frames, {D}-dim targets finite; "
+          f"built in {secs:.2f} s ({secs / TTS_UTTS * 1e3:.1f} ms an "
+          "utterance: render on the host, analysis on the card, kernels "
+          "on)")
+    t0 = time.perf_counter()
+    ttsdata.build_corpus(1, seed=0, device=dev)          # library default
+    torch.cuda.synchronize()
+    print(f"17a one utterance with the library default (use_pallas=False): "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms", flush=True)
+
+    # 17b: the acoustic model at its default widths, the demo's 400 steps
+    norm = neural.Normalizer(corp["targets"].reshape(-1, D))
+    cfg = acoustic.AcousticConfig(dims=D, n_phones=ttsdata.N_PHONES)
+    params = acoustic.init_params(cfg, torch.Generator().manual_seed(0),
+                                  device=dev)
+    opt_state = acoustic.make_optimizer(cfg, params)
+    batch = tuple(torch.tensor(a, device=dev) for a in (
+        corp["ids"], corp["feats"],
+        norm.fwd(corp["targets"]).astype(np.float32), corp["mask"]))
+    w = torch.ones(D, device=dev)
+    w[_slot(cc, "f0")] = 4.0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = _train_steps(torch, lambda: acoustic.train_step(
+        cfg, params, opt_state, batch, w)[2], TTS_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    phase("17b acoustic training", losses[-1] < 0.2 * losses[0],
+          f"{TTS_STEPS} steps on {B} x {N} frames (hidden {cfg.hidden}, "
+          f"dilations {cfg.dilations}): {ms:.3f} ms a step (median), loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.5f} (< 0.2x), peak {peak:.3f} "
+          "GiB")
+    held = ttsdata.build_corpus(2, opt=opt_k, seed=99, total_frames=192,
+                                n_seg=(5, 8), dur=(16, 34), device=dev)
+    pred = acoustic.predict_vectors(cfg, params, held["ids"], held["feats"],
+                                    norm)
+    f0_pred, f0_true = pred[..., _slot(cc, "f0")][..., 0], held["f0"]
+    v = f0_true > 0
+    err = _f0_rel_err(np, f0_true, f0_pred)
+    c = float(np.corrcoef(f0_pred[v], f0_true[v])[0, 1])
+    phase("17b held-out F0", v.sum() > 50 and err < 0.05 and c > 0.85,
+          f"{int(v.sum())} voiced frames: median relative error {err:.4f} "
+          f"(< 0.05), correlation {c:.4f} (> 0.85)")
+    sl = _slot(cc, "vtmagn")
+    feat = lambda a: a[..., sl] - a[..., sl].mean(axis=-1, keepdims=True)
+    vowels = [i for i, ph in enumerate(ttsdata.PHONE_SET)
+              if ph.kind == "vowel"]
+    pos = corp["feats"][..., 0]
+    cents = {p: feat(corp["targets"][(corp["ids"] == p) & (pos > 0.3)
+                                     & (pos < 0.7)]).mean(axis=0)
+             for p in vowels}
+    held = ttsdata.build_corpus(2, opt=opt_k, seed=123, total_frames=192,
+                                device=dev)
+    pred = acoustic.predict_vectors(cfg, params, held["ids"], held["feats"],
+                                    norm)
+    mid = (held["feats"][..., 0] > 0.3) & (held["feats"][..., 0] < 0.7)
+    hits = tot = 0
+    for p in vowels:
+        for vec in feat(pred[(held["ids"] == p) & mid]):
+            d = {q: np.linalg.norm(vec - c) for q, c in cents.items()}
+            hits += min(d, key=d.get) == p
+            tot += 1
+    phase("17b held-out vowel identity", tot > 30 and hits / tot > 0.75,
+          f"{hits} of {tot} mid-vowel frames nearest their own vowel "
+          f"({hits / max(tot, 1):.4f} > 0.75)")
+
+    # serving: an unseen sentence through decode_frames -> RTSynthesizer
+    fs, nhop = cc.conf.fs, cc.conf.nhop
+    ids, feats = _sentence(np, [1, 6, 2, 0], [56, 40, 56, 40])
+    Ns = ids.shape[1]
+    pred = acoustic.predict_vectors(cfg, params, ids, feats, norm,
+                                    unvoiced_below=cc.conf.f0_floor)[0]
+    rt = rtsynth.RTSynthesizer(create_soptions(), cc.conf,
+                               capacity_frames=Ns + 8,
+                               phase_mode="propagate", device=dev)
+    t0 = time.perf_counter()
+    ys = []
+    for s in range(0, Ns, 16):
+        rt.feed_many(coder.decode_frames(cc, pred[s:s + 16], device=dev))
+        ys.append(rt.fetch(rt.readable()))
+    rt.flush()
+    ys.append(rt.fetch(rt.readable()))
+    serve_ms = (time.perf_counter() - t0) * 1e3
+    y = np.concatenate(ys)
+    mid = slice(20 * nhop, 48 * nhop)
+    f0m = float(np.median(pred[20:48, 0]))
+    seg = y[mid] - y[mid].mean()
+    lag = int(round(fs / max(f0m, 1.0)))
+    r = np.correlate(seg, seg, "full")[len(seg) - 1:]
+    per = float(r[lag - 2:lag + 3].max() / max(r[0], 1e-12))
+    f, P = sps.welch(y[(56 + 8) * nhop:(56 + 36) * nhop], fs=fs, nperseg=512)
+    cent = float((f * P).sum() / max(P.sum(), 1e-12))
+    quiet = float(np.std(y[(Ns - 24) * nhop:(Ns - 4) * nhop])
+                  / max(np.std(y[mid]), 1e-12))
+    phase("17b served sentence", np.isfinite(y).all() and f0m > 80.0
+          and per > 0.4 and cent > 2500.0 and quiet < 0.1,
+          f"[aa s iy sil] {Ns} frames in {serve_ms:.1f} ms (16-frame blocks): "
+          f"'aa' periodicity {per:.3f} at F0 {f0m:.1f} Hz (> 0.4, > 80 Hz), "
+          f"'s' centroid {cent:.0f} Hz (> 2500), silence {quiet:.4f} of the "
+          "vowel's std (< 0.1)")
+    kernels.reset_launches()
+    res = layer0.synthesize(sopt_k, coder.decode(cc, pred, device=dev))
+    torch.cuda.synchronize()
+    out["17b"] = launches = dict(kernels.LAUNCHES)
+    phase("17b offline render", all(launches[k] > 0 for k in CODEC_KERNELS)
+          and res.y.shape[-1] == Ns * nhop
+          and bool(torch.isfinite(res.y).all()),
+          f"coder.decode -> layer0.synthesize (kernels on): y "
+          f"{tuple(res.y.shape)} finite; {launches}")
+    return out
+
+
+def learned_codec_phase(torch, kernels, vec, cc, sopt_k):
+    """17c: the AE and the VQ codec at their default widths on the coder
+    vectors vec [B, N, dims] (phase 13's chunk) at full batch; the token
+    render's MCD on rows 0/1 through the kernels -> launches of that
+    render."""
+    import numpy as np
+
+    from libllsm2_tpu_torch.models import coder, layer0, neural, vq
+    from libllsm2_tpu_torch.utils import metrics
+    B, N, D = vec.shape
+    data = vec.reshape(-1, D).cpu().numpy()
+    norm = neural.Normalizer(data)
+    dn = torch.tensor(norm.fwd(data).astype(np.float32), device=vec.device)
+    gen = lambda: torch.Generator().manual_seed(0)
+
+    cfg = neural.AEConfig(dims=D, lr=AE_LR)
+    params = neural.init_params(cfg, gen(), device=vec.device)
+    opt_state = neural.make_optimizer(cfg, params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = _train_steps(torch, lambda: neural.train_step(
+        cfg, params, opt_state, dn)[2], AE_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    recon = norm.inv(neural.forward(cfg, params, dn).detach().cpu().numpy())
+    err = _f0_rel_err(np, data[:, 0], recon[:, 0])
+    phase("17c AE", losses[59] < 0.3 * losses[0] and err < 0.15,
+          f"{B * N} vectors at full batch (hidden {cfg.hidden}, latent "
+          f"{cfg.latent}, depth {cfg.depth}, lr {cfg.lr}): {ms:.3f} ms a "
+          f"step (median of {AE_STEPS}), loss {losses[0]:.4f} -> "
+          f"{losses[59]:.4f} after 60 steps (< 0.3x), F0 median relative "
+          f"error {err:.4f} after {AE_STEPS} (< 0.15); peak {peak:.3f} GiB")
+    del params, opt_state, recon
+    cfg = vq.VQConfig(dims=D, lr=VQ_LR)
+    params = vq.init_params(cfg, gen(), device=vec.device)
+    opt_state = vq.make_optimizer(cfg, params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    recs, ms = _train_steps(torch, lambda: vq.train_step(
+        cfg, params, opt_state, dn)[2], VQ_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    tokens = vq.encode_tokens(cfg, params, dn)
+    used = [len(torch.unique(tokens[:, g])) for g in range(cfg.groups)]
+    back = norm.inv(vq.decode_tokens(cfg, params, tokens).cpu().numpy())
+    voiced = data[:, 0] > 0
+    agree = float(((back[:, 0] > 50.0) == voiced).mean())
+    m = voiced & (back[:, 0] > 50.0)
+    rel = float(np.median(np.abs(back[m, 0] - data[m, 0]) / data[m, 0]))
+    phase("17c VQ", recs[-1] < 0.4 * recs[0] and min(used) >= 8
+          and agree > 0.9 and rel < 0.05,
+          f"{cfg.groups} x {cfg.codebook} codes ({cfg.bits_per_frame} bits "
+          f"a frame), hidden {cfg.hidden}, latent {cfg.latent}, lr "
+          f"{cfg.lr}: {ms:.3f} ms a step (median of {VQ_STEPS}), recon "
+          f"{recs[0]:.4f} -> {recs[-1]:.4f} (< 0.4x), codes used a group "
+          f"{used} (>= 8), voicing agreement {agree:.4f} (> 0.9), F0 median "
+          f"relative error {rel:.4f} (< 0.05); peak {peak:.3f} GiB")
+    # the token render against the float render, rows 0/1, kernels on
+    v01 = data.reshape(B, N, D)[:2]
+    back01 = back.reshape(B, N, D)[:2].astype(np.float32)
+    kernels.reset_launches()
+    y_ref = layer0.synthesize_batch(sopt_k, coder.decode(
+        cc, v01, device=vec.device)).y_sin.cpu().numpy()
+    y_vq = layer0.synthesize_batch(sopt_k, coder.decode(
+        cc, back01, device=vec.device)).y_sin.cpu().numpy()
+    launches = dict(kernels.LAUNCHES)
+    mcd = [metrics.mel_cepstral_distortion_db(y_ref[b], y_vq[b],
+                                              fs=cc.conf.fs)
+           for b in range(2)]
+    phase("17c VQ token render", max(mcd) < 2.5
+          and all(launches[k] > 0 for k in CODEC_KERNELS),
+          f"MCD of rows 0/1 {mcd[0]:.4f} / {mcd[1]:.4f} dB (< 2.5) against "
+          f"the float decode, both rendered through the kernels: {launches}")
+    return launches
+
+
+def learned_pins(np):
+    """LEARNED_PINS -> (arrays, {model: JAX pytree}) with each leaf its
+    8-bit codes times its scale, in float32."""
+    with np.load(LEARNED_PINS) as z:
+        arrays = {k: z[k] for k in z.files}
+    trees = {}
+    for k, a in arrays.items():
+        if "/" not in k or k.endswith("@scale"):
+            continue
+        node = trees
+        *parents, leaf = k.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = a.astype(np.float32) * arrays[k + "@scale"]
+    return arrays, trees
+
+
+def jax_weights_check(torch, dev):
+    """17d: the JAX package's weights (scripts/port_jax_pins_learned.npz)
+    through params_from_jax on `dev`: forwards within LEARNED_FWD_TOL of
+    scale, tokens >= LEARNED_TOKENS_MIN equal, LEARNED_STEPS AdamW steps'
+    losses within LEARNED_LOSS_RTOL of JAX's."""
+    import numpy as np
+
+    from libllsm2_tpu_torch.models import acoustic, neural, vq
+    from libllsm2_tpu_torch.utils import ttsdata
+    z, trees = learned_pins(np)
+    x = torch.tensor(z["x"], device=dev)
+    D = x.shape[-1]
+    report = []
+
+    def close(name, got, ref, rows=None):
+        got = got.detach().cpu().numpy()
+        if rows is not None:
+            got, ref = got[rows], ref[rows]
+        err = float(np.abs(got - ref).max() / np.abs(ref).max())
+        report.append(f"{name} forward {err:.2e}")
+        return err <= LEARNED_FWD_TOL
+
+    def trained(step, cfg, model, opt, *args):
+        losses = [float(step(cfg, model, opt, *args)[2])
+                  for _ in range(LEARNED_STEPS)]
+        return losses
+
+    def losses_ok(name, got):
+        ref = z[name + "_losses"]
+        rel = float(np.max(np.abs(np.asarray(got) - ref) / np.abs(ref)))
+        report.append(f"{name} losses {rel:.2e}")
+        return rel <= LEARNED_LOSS_RTOL
+
+    ok = True
+    cfg = neural.AEConfig(dims=D)
+    m = neural.params_from_jax(cfg, trees["ae"], device=dev)
+    ok &= close("ae", neural.forward(cfg, m, x), z["ae_forward"])
+    ok &= losses_ok("ae", trained(neural.train_step, cfg, m,
+                                  neural.make_optimizer(cfg, m), x))
+    cfg = vq.VQConfig(dims=D)
+    m = vq.params_from_jax(cfg, trees["vq"], device=dev)
+    tok = vq.encode_tokens(cfg, m, x).cpu().numpy()
+    same = float((tok == z["vq_tokens"]).mean())
+    report.append(f"vq tokens {same * 100:.3f}% equal")
+    ok &= same >= LEARNED_TOKENS_MIN
+    rows = (tok == z["vq_tokens"]).all(axis=-1)
+    ok &= close("vq", vq.forward(cfg, m, x)[0], z["vq_forward"], rows)
+    ok &= losses_ok("vq", trained(vq.train_step, cfg, m,
+                                  vq.make_optimizer(cfg, m), x))
+    cfg = acoustic.AcousticConfig(dims=D, n_phones=ttsdata.N_PHONES)
+    m = acoustic.params_from_jax(cfg, trees["acoustic"], device=dev)
+    batch = tuple(torch.tensor(z[k], device=dev)
+                  for k in ("ids", "feats", "targets", "mask"))
+    ok &= close("acoustic", acoustic.forward(cfg, m, *batch[:2]),
+                z["acoustic_forward"])
+    w = torch.ones(D, device=dev)
+    w[0] = 4.0
+    ok &= losses_ok("acoustic", trained(acoustic.train_step, cfg, m,
+                                        acoustic.make_optimizer(cfg, m),
+                                        batch, w))
+    return bool(ok), "; ".join(report)
+
+
+def abs_phase(torch, data, dev):
+    """17e: abs_refine on tests/test_abs.py's weakened analysis (floors and
+    the JAX package's snr_after), then bench row 64 at 8 s alone."""
+    import numpy as np
+
+    from libllsm2_tpu_torch import create_aoptions, create_soptions
+    from libllsm2_tpu_torch.models import abs as absmod
+    from libllsm2_tpu_torch.models import layer0
+    from libllsm2_tpu_torch.utils import testsig
+    weak = dataclasses.replace(create_aoptions(), hm_passes=1,
+                               hm_correction="none")
+    sopt = create_soptions()
+
+    def snr(ref, c):
+        y = layer0.synthesize(sopt, c).y_sin.cpu().numpy()
+        n = min(len(ref), len(y))
+        lo, hi = int(0.05 * n), int(0.95 * n)
+        e = ref[lo:hi] - y[lo:hi]
+        return float(10 * np.log10(np.sum(ref[lo:hi] ** 2)
+                                   / max(np.sum(e ** 2), 1e-20)))
+    x, f0, xh = testsig.synth_hard_utterance(
+        duration=0.6, register="female", seed=3, jitter=0.01, shimmer=0.1,
+        noise_level=0.0, burst=False, unvoiced_tail_frac=0.0)
+    chunk = layer0.analyze(weak, x, f0, device=dev)
+    before = snr(xh, chunk)
+    refined, losses = absmod.abs_refine(sopt, chunk, x, n_steps=100, lr=0.1)
+    after = snr(xh, refined)
+    losses = losses.cpu().numpy()
+    zero = float((refined.ampl * (1 - chunk.hm_mask)).abs().max())
+    phase("17e abs floors", losses[-1] < 0.95 * losses[0]
+          and after > before + 6.0 and zero == 0.0
+          and abs(after - ABS_SNR_PIN_DB) <= ABS_SNR_TOL_DB,
+          f"test_abs fixture: loss {losses[0]:.6f} -> {losses[-1]:.6f} "
+          f"(< 0.95x), SNR {before:.4f} -> {after:.4f} dB (+6 dB; JAX "
+          f"{ABS_SNR_PIN_DB:.4f} +- {ABS_SNR_TOL_DB}), masked slots max "
+          f"{zero}")
+    # bench row 64 (clean) at 8 s alone, from the weak analysis
+    x64, f064, ref64 = (d[64] for d in data[:3])
+    chunk = layer0.analyze(weak, x64, f064)
+    before = snr(ref64.cpu().numpy(), chunk)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    refined, losses = absmod.abs_refine(sopt, chunk, x64, n_steps=100,
+                                        lr=0.1)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / 100
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    after = snr(ref64.cpu().numpy(), refined)
+    phase("17e abs bench row 64", bool(torch.isfinite(losses).all())
+          and after > before,
+          f"{DURATION} s, {chunk.nfrm} frames x {chunk.ampl.shape[-1]} "
+          f"harmonics, 100 steps at lr 0.1: {ms:.2f} ms a step, peak "
+          f"{peak:.3f} GiB; SNR {before:.4f} -> {after:.4f} dB")
+
+
+FP64_CHILD = r'''
+import json, sys, time
+import numpy as np
+import torch
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as cs
+import libllsm2_tpu_torch as lt
+from libllsm2_tpu_torch import fp
+from libllsm2_tpu_torch.models import layer0
+from libllsm2_tpu_torch.ops import kernels
+from libllsm2_tpu_torch.parallel import corpus
+from libllsm2_tpu_torch.utils import testsig
+out = {"fp64": fp.FP64}
+dev = torch.device("cuda", 0)
+draws, noise_bins_ref = [], kernels.noise_bins_ref
+
+
+def draw(*a, **k):
+    re_im = noise_bins_ref(*a, **k)
+    draws.append(str(re_im[0].device))
+    return re_im
+
+
+kernels.noise_bins_ref = draw
+x, f0 = testsig.make_test_utterance(duration=0.5)
+kernels.reset_launches()
+c = layer0.analyze(lt.create_aoptions(), x, f0)
+o = layer0.synthesize(lt.create_soptions(), c)
+out["dtypes"] = sorted({str(getattr(c, k).dtype) for k in
+                        ("f0", "ampl", "phse", "hm_mask", "psd", "edc",
+                         "eenv_a", "eenv_p")} |
+                       {str(getattr(o, k).dtype) for k in ("y", "y_sin")})
+out["device"] = str(o.y.device)
+y = o.y_sin.cpu().numpy()
+n = len(y)
+lo, hi = int(0.1 * n), int(0.9 * n)
+out["snr"] = float(10 * np.log10(np.sum(x[lo:hi] ** 2)
+                                 / np.sum((x[lo:hi] - y[lo:hi]) ** 2)))
+torch.cuda.synchronize()
+out["launches"] = dict(kernels.LAUNCHES)
+refused = 0
+for make in (lt.create_aoptions, lt.create_soptions):
+    try:
+        make(use_pallas=True)
+    except ValueError:
+        refused += 1
+out["refused"] = refused
+out["draw_devices"] = sorted(set(draws))
+# the draw at a bench row's size on the card against the host's (libm's
+# log there, the card's correctly rounded one: an ulp apart at times)
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+card = noise_bins_ref(0x5eed, 0, 1, 1600, 81, dev, dtype=torch.float64)
+torch.cuda.synchronize()
+out["draw_ms"] = (time.perf_counter() - t0) * 1e3
+host = noise_bins_ref(0x5eed, 0, 1, 1600, 81, "cpu", dtype=torch.float64)
+g = torch.stack([v[0] for v in card]).cpu().numpy().view(np.int64)
+h = torch.stack([v[0] for v in host]).numpy().view(np.int64)
+out["draw_n"], out["draw_unequal"] = int(g.size), int((g != h).sum())
+out["draw_max_ulp"] = int(np.abs(g - h).max())
+data = tuple(d.double() if d.is_floating_point() else d
+             for d in cs.fixtures(torch, dev))
+opt, sopt = lt.create_aoptions(f0_floor=70.0), lt.create_soptions()
+kernels.reset_launches()
+yb, snrb, _ = corpus.batched_pipeline(opt, sopt, *data[:2], data[3], data[2])
+torch.cuda.synchronize()
+out["step_launches"] = dict(kernels.LAUNCHES)
+out["step_dtype"] = str(yb.dtype)
+out["step_snr01"] = [float(v) for v in snrb[:2].cpu()]
+del yb
+torch.cuda.reset_peak_memory_stats()
+t0 = time.perf_counter()
+corpus.batched_pipeline(opt, sopt, *data[:2], data[3], data[2])
+torch.cuda.synchronize()
+out["step_ms"] = (time.perf_counter() - t0) * 1e3
+out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+print(json.dumps(out))
+'''
+
+
+def fp64_phase(torch, plain_ms, plain_peak):
+    """18a (cell cli-fp64): a subprocess with LLSM_FP64=1 on the card:
+    tests/test_fp64.py's fixture (float64 fields and output, the SNR
+    floor and the JAX package's float64 pin, use_pallas refused, no kernel
+    launched), then one 128 x 8 s bench step in float64 beside phase
+    16a's float32 plain step."""
+    import os
+    env = dict(os.environ, LLSM_FP64="1")
+    repo = str(Path(__file__).resolve().parent)
+    r = subprocess.run([sys.executable, "-c", FP64_CHILD, repo], env=env,
+                       capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        phase("18a fp64", False, r.stderr[-3000:])
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    launched = {k: v for k, v in out["launches"].items() if v}
+    phase("18a fp64 round trip", out["fp64"]
+          and out["dtypes"] == ["torch.float64"]
+          and out["device"].startswith("cuda") and out["snr"] >= 45.0
+          and abs(out["snr"] - FP64_SNR_PIN_DB) <= FP64_SNR_TOL_DB
+          and out["refused"] == 2 and not launched
+          and out["draw_devices"] == [out["device"]],
+          f"dtypes {out['dtypes']} on {out['device']}, the noise drawn on "
+          f"{out['draw_devices']}; y_sin SNR "
+          f"{out['snr']:.4f} dB (>= 45; JAX float64 {FP64_SNR_PIN_DB:.4f} +- "
+          f"{FP64_SNR_TOL_DB}); use_pallas refused by {out['refused']} of 2 "
+          f"constructors; kernels launched: {launched or 'none'}")
+    phase("18a fp64 noise draw on the card", out["draw_max_ulp"] <= 2
+          and out["draw_unequal"] <= 1e-4 * out["draw_n"],
+          f"1600 frames x 81 bins x (re, im) in {out['draw_ms']:.2f} ms: "
+          f"{out['draw_unequal']} of {out['draw_n']} normals differ from "
+          f"the host's (JAX's x64 bits) by <= {out['draw_max_ulp']} ulp "
+          f"(<= 2 and <= 1e-4 of them)")
+    launched = {k: v for k, v in out["step_launches"].items() if v}
+    phase("18a fp64 bench step", out["step_dtype"] == "torch.float64"
+          and not launched,
+          f"{BATCH} x {DURATION} s library default in float64: "
+          f"{out['step_ms']:.2f} ms, peak {out['peak_gib']:.2f} GiB "
+          f"(phase 16a float32: {plain_ms:.2f} ms, peak {plain_peak:.2f} "
+          f"GiB; x{out['step_ms'] / plain_ms:.2f}); noisy rows 0/1 SNR "
+          f"{out['step_snr01'][0]:.4f} / {out['step_snr01'][1]:.4f} dB; "
+          f"kernels launched: {launched or 'none'}")
+
+
+def cli_phase(torch, rows8):
+    """18b: every command of tests/test_cli.py through
+    libllsm2_tpu_torch.cli on the card on a generated WAV, with its checks,
+    and `batch` on 8 files cut from the bench rows as phase 11 cuts them
+    (rows8: the first 8 files' rows, (x, f0) numpy); and a round trip of
+    a 44.1 kHz file, which the CLI resamples (on the card) before its
+    analysis."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from libllsm2_tpu_torch import cli
+    from libllsm2_tpu_torch.ops import resample
+    from libllsm2_tpu_torch.utils import audio, testsig
+
+    def std_of(path, seconds=None):
+        y, fs = audio.wavread(path)
+        ok = np.isfinite(y).all() and float(np.std(y)) > 1e-3
+        if seconds is not None:
+            ok = ok and abs(len(y) / fs - seconds) < 0.02
+        return ok
+
+    with tempfile.TemporaryDirectory() as d:
+        p = os.path.join(d, "in.wav")
+        x, _ = testsig.make_test_utterance(duration=0.4, seed=3)
+        audio.wavwrite(p, x.astype(np.float32), 16000)
+        j = lambda name: os.path.join(d, name)
+        ms = {}
+
+        def run(args):
+            t0 = time.perf_counter()
+            cli.main(args)
+            torch.cuda.synchronize()
+            ms[args[0] + ("" if args[0] not in ms else " 2")] = \
+                (time.perf_counter() - t0) * 1e3
+        run(["roundtrip", p, j("rt.wav")])
+        ok = std_of(j("rt.wav"), 0.4)
+        run(["pitch-shift", p, j("ps.wav"), "--ratio", "1.5"])
+        ok &= std_of(j("ps.wav"))
+        run(["track-f0", p, j("f0.txt")])
+        f0 = np.loadtxt(j("f0.txt"))
+        v = f0[f0 > 0]
+        ok &= len(v) > 0.8 * len(f0) and 100 < np.median(v) < 200
+        run(["code", p, j("c.npz")])
+        run(["decode", j("c.npz"), j("dec.wav")])
+        ok &= std_of(j("dec.wav"))
+        run(["code", p, j("cq.npz"), "--bits", "8"])
+        with np.load(j("cq.npz")) as z:
+            ok &= "__coded__" in z.files and z["codes"].dtype == np.uint8
+        run(["decode", j("cq.npz"), j("decq.wav")])
+        ok &= std_of(j("decq.wav"))
+        x44, _ = testsig.make_test_utterance(duration=0.4, fs=44100.0,
+                                             seed=3)
+        audio.wavwrite(j("in44.wav"), x44.astype(np.float32), 44100)
+        seen, resample_to = [], resample.resample_to
+
+        def spy(t, *a, **k):
+            seen.append(t.device.type)
+            return resample_to(t, *a, **k)
+        resample.resample_to = spy
+        try:
+            run(["roundtrip", j("in44.wav"), j("rt44.wav")])
+        finally:
+            resample.resample_to = resample_to
+        ok &= std_of(j("rt44.wav"), 0.4) and set(seen) == {"cuda"}
+        bdir = j("batchin")
+        os.makedirs(bdir)
+        paths = testsig.write_test_corpus(bdir, 8, lambda i: rows8[i])
+        run(["batch", bdir, j("report.json"), "--batch-size", "8"])
+        with open(j("report.json")) as f:
+            rep = json.load(f)
+        ok &= rep["n_files"] == len(paths) and rep["n_failed"] == 0 \
+            and rep["mean_snr_db"] > 15.0
+    phase("18b cli", bool(ok),
+          "test_cli's commands on the card: " + ", ".join(
+              f"{k} {v:.0f} ms" for k, v in ms.items())
+          + f" (roundtrip 2: a 44.1 kHz file, resampled on "
+          f"{sorted(set(seen))})"
+          + f"; batch of {rep['n_files']} bench files: mean SNR "
+          f"{rep['mean_snr_db']} dB, {rep['x_realtime']}x realtime")
+
+
+def _union_us(intervals):
+    total, end = 0.0, -math.inf
+    for a, b in sorted(intervals):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
+def profile_phase(torch, corpus, opt, sopt, data):
+    """18c: utils.profiling.device_trace around one phase-5 step: the
+    trace holds layer0's five llsm.* ranges; the card's busy share of the
+    step = the union of its kernel intervals in the trace over the step's
+    wall time unprofiled (CUDA events, the median of 3 steps): the
+    profiler's host cost per operation stretches the traced span, not the
+    kernels.  The traced span's share is printed beside it."""
+    import tempfile
+
+    from libllsm2_tpu_torch.utils import profiling
+    x, f0, x_ref, nxv = data
+    step = lambda: corpus.batched_pipeline(opt, sopt, x, f0, nxv, x_ref)
+    step()
+    wall = sorted(once_ms(torch, step) for _ in range(3))[1]
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        with profiling.device_trace(d):
+            with profiling.named_scope("chip_smoke.step"):
+                step()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        with open(Path(d) / "trace.json") as f:
+            events = json.load(f)["traceEvents"]
+    spans = [e for e in events if e.get("ph") == "X"]
+    names = {e.get("name") for e in spans}
+    scopes = ("llsm.analyze.harmonic", "llsm.analyze.residual",
+              "llsm.analyze.noise", "llsm.synth.harmonic", "llsm.synth.noise")
+    missing = [s for s in scopes if s not in names]
+    host = [e for e in spans if e.get("name") == "chip_smoke.step"]
+    kern = [(e["ts"], e["ts"] + e["dur"]) for e in spans
+            if e.get("cat") == "kernel"]
+    detail = f"trace of {len(spans)} spans, {len(kern)} kernels"
+    if host and kern:
+        start = host[0]["ts"]
+        stop = max(host[0]["ts"] + host[0]["dur"], max(b for _, b in kern))
+        busy = _union_us([(max(a, start), min(b, stop)) for a, b in kern
+                          if b > start and a < stop])
+        share = busy / 1e3 / wall
+        detail += (f"; kernels busy {busy / 1e3:.2f} ms of the step's "
+                   f"{wall:.2f} ms unprofiled = {share * 100:.2f}%, idle "
+                   f"{(1 - share) * 100:.2f}% (the traced span "
+                   f"{(stop - start) / 1e3:.2f} ms, {wall_ms:.2f} ms with "
+                   f"the profiler on: busy {busy / (stop - start) * 100:.2f}% "
+                   f"of it)")
+    else:
+        detail += "; no kernel events: busy share not measured"
+    phase("18c profile", not missing and bool(host),
+          f"the five scopes {'present' if not missing else missing}; "
+          + detail)
+
+
 def once_ms(torch, fn):
     """Milliseconds of one run of fn() by CUDA events, no warm-up."""
     torch.cuda.synchronize()
@@ -2862,7 +3575,7 @@ def main(argv):
     from libllsm2_tpu_torch.parallel import corpus
     if not other:
         from libllsm2_tpu_torch.models import coder
-        from libllsm2_tpu_torch.utils import metrics, serialize
+        from libllsm2_tpu_torch.utils import metrics, serialize, testsig
 
     t0 = time.perf_counter()
     _build.library()
@@ -3027,6 +3740,8 @@ def main(argv):
     full.update(full_batch(torch, kernels, calls, "9"))
     rows = tuple(d.cpu().numpy() for d in data[:2])     # phase 11's source
     pool_rows = tuple(r[POOL_ROWS] for r in rows)       # phase 15's
+    rows8 = [tuple(r[testsig.corpus_row(i)] for r in rows)   # phase 18b's
+             for i in range(CLI_BATCH_FILES)]
     del chunk, cyc, env, base, data, calls
     # phase 10: pulse-by-pulse synthesis of LF rows
     _, l1 = pbp_phase(torch, kernels, (layer0, layer1, pbp), opt, sopt, dev)
@@ -3040,6 +3755,8 @@ def main(argv):
     by_phase["13"], v01 = codec_phase(torch, kernels, (layer0, layer1, coder,
                                                        serialize, metrics),
                                       l1, sopt)
+    cc13 = coder.CoderConfig(conf=l1.conf)              # phase 17c's vectors
+    vec13 = coder.encode(cc13, l1)
     l1_pool = l1.map(lambda a: a[:PBP_POOL_STREAMS].clone())
     del l1
     torch.cuda.empty_cache()
@@ -3064,7 +3781,7 @@ def main(argv):
     data = fixtures(torch, dev)
     opt_plain, sopt_plain = create_aoptions(f0_floor=70.0), create_soptions()
     assert not (opt_plain.use_pallas or sopt_plain.use_pallas)
-    by_phase["16a"] = library_default_phase(
+    by_phase["16a"], plain_ms, plain_peak = library_default_phase(
         torch, kernels, (layer0, corpus), data,
         (opt_plain, sopt_plain, opt, sopt))
     options, polar = analysis_options_phase(
@@ -3080,8 +3797,25 @@ def main(argv):
     seg_cases, seg_full, by_phase["16c"] = synthesis_phase(
         torch, kernels, (layer0,), data, opt, sopt)
     leaf_ops_phase(torch, data[0])
-    del data
     print(f"16: {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    # phase 17: the learned models (cell tts-train-serve)
+    t0 = time.perf_counter()
+    by_phase.update(tts_phase(torch, kernels, dev, opt, sopt))
+    by_phase["17c"] = learned_codec_phase(torch, kernels, vec13, cc13, sopt)
+    del vec13
+    torch.cuda.empty_cache()
+    phase("17d JAX weights on the card", *jax_weights_check(torch, dev))
+    abs_phase(torch, data, dev)
+    print(f"17: {time.perf_counter() - t0:.1f} s", flush=True)
+    # phase 18: float64, the CLI and the profiler (cell cli-fp64)
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    fp64_phase(torch, plain_ms, plain_peak)
+    cli_phase(torch, rows8)
+    profile_phase(torch, corpus, opt, sopt, data)
+    del data
+    print(f"18: {time.perf_counter() - t0:.1f} s", flush=True)
     for name in KERNELS:
         summary[name]["full_batch"] = full[name]
         summary[name]["launches_by_phase"] = {

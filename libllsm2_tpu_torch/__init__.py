@@ -20,11 +20,16 @@ pbp_synthesize), the frame coder and its quantizer (models/coder.py), the
 chunk and coded archives (utils/serialize.py) and the quality metrics
 (utils/metrics.py), the streaming runtime (runtime/: the native OLA
 ring, RTSynthesizer and stream_chunk, the block analyzer RTAnalyzer and
-the multi-stream StreamPool, which coder.decode_frames feeds), with all
-ten CUDA kernels (ops/kernels.py).  Entry points run on the card: numpy
-input goes to "cuda" unless the caller passes device="cpu".  What is not
-ported (several devices, orbax checkpoints) raises NotImplementedError
-naming its ROADMAP item.
+the multi-stream StreamPool, which coder.decode_frames feeds), the
+learned models (models/neural.py, vq.py, acoustic.py: nn.Modules trained
+with torch.optim, params_from_jax for the JAX package's weights;
+models/abs.py: analysis by synthesis; utils/ttsdata.py: the TTS corpus),
+the float64 mode (LLSM_FP64=1, fp.py), the CLI (python -m
+libllsm2_tpu_torch.cli) and the profiler hooks (utils/profiling.py), with
+all ten CUDA kernels (ops/kernels.py).  Entry points run on the card:
+numpy input goes to "cuda" unless the caller passes device="cpu".  What is
+not ported (several devices, orbax checkpoints, tensor parallelism)
+raises NotImplementedError naming its ROADMAP item.
 """
 
 from .config import (AnalysisOptions, ChunkConf, SynthesisOptions,

@@ -144,6 +144,16 @@ class SynthesisOptions:
     pbp_oversample: int = 4      # PbP pulse-spectrum grid oversampling
 
 
+def _check_fp64(kw: dict) -> None:
+    """The kernels are float32: LLSM_FP64=1 refuses them, as the JAX
+    package refuses its Mosaic kernels (config.py:291-294, 310-313)."""
+    from .fp import FP64
+    if FP64 and kw.get("use_pallas"):
+        raise ValueError("use_pallas is unavailable under LLSM_FP64=1 "
+                         "(the CUDA kernels are float32-only; the float64 "
+                         "mode runs the plain branches)")
+
+
 def create_aoptions(fs: float = 16000.0, **kw) -> AnalysisOptions:
     """Reference-parity constructor (llsm_create_aoptions).  For a rate
     with a non-integral hop the internal rate becomes the nearest rate
@@ -151,6 +161,7 @@ def create_aoptions(fs: float = 16000.0, **kw) -> AnalysisOptions:
     conf_fields = {f.name for f in dataclasses.fields(ChunkConf)}
     conf_kw = {k: v for k, v in kw.items() if k in conf_fields}
     opt_kw = {k: v for k, v in kw.items() if k not in conf_fields}
+    _check_fp64(opt_kw)
     thop = conf_kw.get("thop", ChunkConf.thop)
     fs_input = 0.0
     if abs(thop * fs - round(thop * fs)) > 1e-6:
@@ -165,4 +176,5 @@ def create_aoptions(fs: float = 16000.0, **kw) -> AnalysisOptions:
 
 def create_soptions(fs: float = 16000.0, **kw) -> SynthesisOptions:
     """Reference-parity constructor (llsm_create_soptions)."""
+    _check_fp64(kw)
     return SynthesisOptions(fs=fs, **kw)

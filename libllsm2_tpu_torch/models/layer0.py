@@ -34,9 +34,10 @@ import torch
 
 from ..config import AnalysisOptions, ChunkConf, SynthesisOptions
 from ..container import Chunk, index_batch
-from ..fp import FP
+from ..fp import CP, FP, FP64
 from ..ops import harmonics, interp, kernels, resample, spectral, warp
 from ..ops.windows import window_centered
+from ..utils.profiling import named_scope
 
 
 class SynthResult(NamedTuple):
@@ -392,7 +393,9 @@ def _gate_dft(N: int, D: int, thop: float, cutoff_hz: float,
     NP, Nd, NPd = _gate_sizes(N, D)
     f_np = np.fft.fftfreq(NP, thop)
     high_n = np.where(np.abs(f_np) > 2.0 * cutoff_hz)[0][::2]
-    mat = lambda a: torch.as_tensor(a.astype(np.complex64), device=device)
+    # complex64 entries (the JAX package's), in CP arithmetic
+    mat = lambda a: torch.as_tensor(a.astype(np.complex64),
+                                    device=device).to(CP)
     return _GateDFT(
         Wf=mat(np.exp((-2j * np.pi / NPd)
                       * np.outer(np.arange(NPd), np.arange(Nd)))),
@@ -679,57 +682,65 @@ def _analyze(opt: AnalysisOptions, x: torch.Tensor,
     project = functools.partial(
         harmonics.harmonic_analysis, **hkw, mxu=opt.hm_kernel == "matmul",
         use_pallas=opt.use_pallas, frame_chunk=opt.frame_chunk)
-    if opt.hm_method == "pp":
-        ampl, phse, mask = harmonics.harmonic_peak_pick(x, f0, **hkw)
-    else:
-        ampl, phse, mask = project(x, f0, cyc)
+    with named_scope("llsm.analyze.harmonic"):
+        if opt.hm_method == "pp":
+            ampl, phse, mask = harmonics.harmonic_peak_pick(x, f0, **hkw)
+        else:
+            ampl, phse, mask = project(x, f0, cyc)
 
     # residual: deconvolve the track smoothing (handing the complex track
     # to the denoiser) or re-analyze the residual (Gauss-Seidel passes),
     # denoise, subtract the harmonic part
-    cplx = None
-    if _complex_handoff(opt):
-        cplx = _deconv_correction(opt, f0, cyc, ampl, phse, mask,
-                                  return_complex=True)
-    elif (opt.hm_correction == "deconv" and opt.hm_passes <= 1
-          and opt.hm_method == "czt"):
-        ampl, phse = _deconv_correction(opt, f0, cyc, ampl, phse, mask)
-    for _ in range(max(opt.hm_passes - 1, 0)):
-        da, dp, _ = project(_residual(opt.use_pallas, cyc, ampl, phse, mask,
-                                      nhop, x), f0, cyc)
-        z = torch.polar(ampl, phse) + torch.polar(da, dp)
-        ampl, phse = torch.abs(z) * mask, torch.angle(z) * mask
-    cyc_c = cyc[..., ::nhop][..., :nfrm].contiguous()   # read by 2 kernels
-    # the denoisers run after the passes, which would re-project the noise
-    if opt.track_denoise and opt.track_lowpass_hz <= 0.0:
-        ampl, phse = _track_denoise(
-            conf, f0, cyc_c, ampl, phse, mask, opt.track_denoise_hz,
-            opt.track_denoise_strength, spectral=opt.track_denoise_spectral,
-            a_spec=opt.track_spectral_strength,
-            spec_decimate=opt.track_spectral_decimate, c_complex=cplx,
-            use_pallas=opt.use_pallas)
-    if opt.track_lowpass_hz > 0.0:
-        ampl, phse = _track_lowpass(conf, f0, cyc_c, ampl, phse, mask,
-                                    opt.track_lowpass_hz,
-                                    use_pallas=opt.use_pallas)
-    residual = _residual(opt.use_pallas, cyc, ampl, phse, mask, nhop, x)
+    with named_scope("llsm.analyze.residual"):
+        cplx = None
+        if _complex_handoff(opt):
+            cplx = _deconv_correction(opt, f0, cyc, ampl, phse, mask,
+                                      return_complex=True)
+        elif (opt.hm_correction == "deconv" and opt.hm_passes <= 1
+              and opt.hm_method == "czt"):
+            ampl, phse = _deconv_correction(opt, f0, cyc, ampl, phse, mask)
+        for _ in range(max(opt.hm_passes - 1, 0)):
+            da, dp, _ = project(_residual(opt.use_pallas, cyc, ampl, phse,
+                                          mask, nhop, x), f0, cyc)
+            z = torch.polar(ampl, phse) + torch.polar(da, dp)
+            ampl, phse = torch.abs(z) * mask, torch.angle(z) * mask
+        # read by 2 kernels
+        cyc_c = cyc[..., ::nhop][..., :nfrm].contiguous()
+        # the denoisers run after the passes, which would re-project the
+        # noise
+        if opt.track_denoise and opt.track_lowpass_hz <= 0.0:
+            ampl, phse = _track_denoise(
+                conf, f0, cyc_c, ampl, phse, mask, opt.track_denoise_hz,
+                opt.track_denoise_strength,
+                spectral=opt.track_denoise_spectral,
+                a_spec=opt.track_spectral_strength,
+                spec_decimate=opt.track_spectral_decimate, c_complex=cplx,
+                use_pallas=opt.use_pallas)
+        if opt.track_lowpass_hz > 0.0:
+            ampl, phse = _track_lowpass(conf, f0, cyc_c, ampl, phse, mask,
+                                        opt.track_lowpass_hz,
+                                        use_pallas=opt.use_pallas)
+        residual = _residual(opt.use_pallas, cyc, ampl, phse, mask, nhop, x)
 
     # noise pass: band envelopes (at the decimated rate fs/D) + warped PSD
-    D = _env_decimation(conf, opt.env_decimate, nx)
-    envs = _band_envelopes(residual, conf, D)              # [B, C, nx/D]
-    Cn, Ke = conf.nchannel, conf.maxnhar_e
-    # each channel's row of envs reads its utterance's cycle track
-    ea, ep, _, edc = harmonics.harmonic_analysis(
-        envs.reshape(B * Cn, -1), torch.repeat_interleave(f0, Cn, dim=0),
-        cyc[:, ::D],
-        nhop=nhop // D, fs=conf.fs / D, max_k=Ke,
-        halfwin_max=-(-conf.halfwin_max // D), rel_winsize=conf.rel_winsize,
-        fnyq=min(conf.fnyq, 0.4 * conf.fs / D), with_dc=True,
-        use_pallas=opt.use_pallas, frame_chunk=opt.frame_chunk)
-    edc = torch.clamp(edc, min=0.0).reshape(B, Cn, nfrm).transpose(1, 2)
-    eenv_a = ea.reshape(B, Cn, nfrm, Ke).transpose(1, 2)   # [B, N, C, Ke]
-    eenv_p = ep.reshape(B, Cn, nfrm, Ke).transpose(1, 2)
-    psd = _warped_psd(residual, nfrm, conf)
+    with named_scope("llsm.analyze.noise"):
+        D = _env_decimation(conf, opt.env_decimate, nx)
+        envs = _band_envelopes(residual, conf, D)          # [B, C, nx/D]
+        Cn, Ke = conf.nchannel, conf.maxnhar_e
+        # each channel's row of envs reads its utterance's cycle track
+        ea, ep, _, edc = harmonics.harmonic_analysis(
+            envs.reshape(B * Cn, -1),
+            torch.repeat_interleave(f0, Cn, dim=0), cyc[:, ::D],
+            nhop=nhop // D, fs=conf.fs / D, max_k=Ke,
+            halfwin_max=-(-conf.halfwin_max // D),
+            rel_winsize=conf.rel_winsize,
+            fnyq=min(conf.fnyq, 0.4 * conf.fs / D), with_dc=True,
+            use_pallas=opt.use_pallas, frame_chunk=opt.frame_chunk)
+        edc = torch.clamp(edc, min=0.0).reshape(B, Cn, nfrm)
+        edc = edc.transpose(1, 2)
+        eenv_a = ea.reshape(B, Cn, nfrm, Ke).transpose(1, 2)  # [B, N, C, Ke]
+        eenv_p = ep.reshape(B, Cn, nfrm, Ke).transpose(1, 2)
+        psd = _warped_psd(residual, nfrm, conf)
     return Chunk(f0=f0, ampl=ampl, phse=phse, hm_mask=mask, psd=psd,
                  edc=edc.contiguous(), eenv_a=eenv_a.contiguous(),
                  eenv_p=eenv_p.contiguous(), conf=conf)
@@ -881,7 +892,11 @@ def _synth_noise(chunk: Chunk, cyc: torch.Tensor, nhop: int, fs: float,
                                               / (nyq_a - edge0))))
         gain = gain * taper
 
-    if bins is None:
+    if bins is None and FP64:
+        # JAX's x64 draw (the plain version, chosen by the knob)
+        re, im = kernels.noise_bins_ref(noise_seed, frame_base, B, N, nbin,
+                                        dev, dtype=torch.float64)
+    elif bins is None:
         re, im = kernels.noise_bins(noise_seed, frame_base, B, N, nbin, dev)
     else:
         re, im = (v.to(dev, FP) if torch.is_tensor(v) else
@@ -952,13 +967,17 @@ def _synthesize(opt: SynthesisOptions, chunk: Chunk, bins=None) -> SynthResult:
     kharm = torch.arange(1, K + 1, dtype=FP, device=cyc.device)
     f0s = torch.where(chunk.f0 > 0, chunk.f0, torch.full_like(chunk.f0, 100.0))
     hm_mask = chunk.hm_mask * (kharm * f0s[..., None] < 0.5 * fs)
-    if opt.use_pallas:
-        y_sin = kernels.osc_bank(cyc, chunk.ampl, chunk.phse, hm_mask, nhop)
-    else:
-        y_sin = harmonics.overlap_add_half(harmonics.oscillator_bank(
-            cyc, chunk.ampl, chunk.phse, hm_mask, nhop=nhop), nhop, nx)
-    y_nos = _synth_noise(chunk, cyc, nhop, fs, opt.noise_seed, bins=bins,
-                         use_pallas=opt.use_pallas, idft=opt.noise_idft)
+    with named_scope("llsm.synth.harmonic"):
+        if opt.use_pallas:
+            y_sin = kernels.osc_bank(cyc, chunk.ampl, chunk.phse, hm_mask,
+                                     nhop)
+        else:
+            y_sin = harmonics.overlap_add_half(harmonics.oscillator_bank(
+                cyc, chunk.ampl, chunk.phse, hm_mask, nhop=nhop), nhop, nx)
+    with named_scope("llsm.synth.noise"):
+        y_nos = _synth_noise(chunk, cyc, nhop, fs, opt.noise_seed,
+                             bins=bins, use_pallas=opt.use_pallas,
+                             idft=opt.noise_idft)
     return SynthResult(y=y_sin + y_nos, y_sin=y_sin, y_nos=y_nos, fs=fs)
 
 

@@ -7,6 +7,10 @@ build takes seconds.  The library goes to ``build/kernels/`` beside the
 package (listed in .gitignore), named by a hash of the sources and flags,
 so an edited source rebuilds and an unchanged one is reused.  Nothing
 here runs at import time.
+
+This build cache is the port's only cache: the JAX package's
+utils/cache.py wires XLA's persistent compile cache, which PyTorch's eager
+ops do not have, so the port has no counterpart of that module.
 """
 from __future__ import annotations
 

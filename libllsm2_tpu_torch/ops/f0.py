@@ -120,14 +120,18 @@ def _tables(cfg: F0Config, device) -> dict:
 
 @contextlib.contextmanager
 def _fp32_matmul():
-    """float32 products without TF32 on the card, whatever the caller set
-    (the JAX package asks for Precision.HIGHEST)."""
-    prev = torch.backends.cuda.matmul.allow_tf32
+    """float32 products and convolutions without TF32 on the card,
+    whatever the caller set (the JAX package asks for Precision.HIGHEST, or
+    rounds operands to bfloat16 and accumulates in float32)."""
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev
 
 
 def _difference_function(frames: torch.Tensor, tau_max: int,

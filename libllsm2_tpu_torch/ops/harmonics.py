@@ -21,7 +21,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..fp import FP
+from ..fp import FP, FP64
 from . import kernels
 from .windows import COSINE_SERIES, window_centered
 
@@ -65,7 +65,10 @@ def sample_cycles(f0: torch.Tensor, nhop: int, fs: float,
     (i*nhop), summed in float32 within each hop and in float64 over the
     hop totals (kernels.sample_cycles_ref).  On the card a kernel sums each
     row in an order of its own, so a row's track is the same alone and in
-    any batch (kernels.sample_cycles)."""
+    any batch (kernels.sample_cycles).  Under LLSM_FP64=1 the plain version
+    sums in float64 on every device, as the JAX package's jnp does."""
+    if FP64:
+        return kernels.sample_cycles_ref(f0, nhop, fs, nx)
     return kernels.sample_cycles(f0, nhop, fs, nx)
 
 

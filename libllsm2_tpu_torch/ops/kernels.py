@@ -18,11 +18,12 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from fractions import Fraction
 
 import numpy as np
 import torch
 
-from ..fp import CP, FP
+from ..fp import CP, FP, FP64
 from . import _build
 from .windows import COSINE_SERIES, window_centered
 
@@ -44,13 +45,17 @@ def reset_launches() -> None:
 
 
 def _on_cuda(*ts: torch.Tensor) -> bool:
-    """True for CUDA tensors, False for CPU ones; raises otherwise or on a
-    device mismatch."""
+    """True for CUDA tensors, False for CPU ones; raises otherwise, on a
+    device mismatch, or under LLSM_FP64=1 on float64 input."""
     dev = ts[0].device
     for t in ts:
         if t.device != dev:
             raise ValueError(f"tensors on different devices: {t.device} "
                              f"vs {dev}")
+    if FP64 and any(t.dtype in (torch.float64, torch.complex128) for t in ts):
+        # on the CPU too: the plain versions are the kernels' float32 twins
+        raise TypeError("the CUDA kernels are float32: under LLSM_FP64=1 "
+                        "the plain branches run instead (use_pallas=False)")
     if dev.type == "cuda":
         return True
     if dev.type == "cpu":
@@ -883,11 +888,19 @@ def _normal_from_bits(bits: torch.Tensor) -> torch.Tensor:
 
 
 def noise_bins_ref(seed: int, frame_base: int, B: int, N: int, nbin: int,
-                   device=None, *, bits: bool = False):
+                   device=None, *, bits: bool = False,
+                   dtype: torch.dtype = torch.float32):
     """Plain version of noise_bins: threefry in int64 tensors masked to 32
     bits.  bits=True also returns the two [N, nbin] int32 bit tensors (the
-    uint32 draws, wrapped) that the normals come from."""
+    uint32 draws, wrapped) that the normals come from.  dtype=float64 draws
+    what jax.random.normal(k, (nbin,), float64) draws under x64 (the JAX
+    package's LLSM_FP64=1 noise), bit for bit: 64 bits a normal, XLA's
+    float64 erf_inv, on `device` as every other draw; on a CUDA device
+    within a few ulps (_log_c)."""
     dev = torch.device("cpu") if device is None else torch.device(device)
+    wide = dtype == torch.float64
+    if wide and bits:
+        raise ValueError("noise_bins_ref: bits=True draws float32")
     i64 = dict(dtype=torch.int64, device=dev)
     frame = (frame_base + torch.arange(N, **i64)) & _U32
     zero = torch.zeros_like(frame)
@@ -899,11 +912,206 @@ def noise_bins_ref(seed: int, frame_base: int, B: int, N: int, nbin: int,
     for k0, k1 in keys:
         b0, b1 = _threefry(k0[:, None], k1[:, None], torch.zeros_like(col),
                            col)
+        if wide:
+            out.append(_normal64_from_bits(b0, b1).expand(B, N, nbin))
+            continue
         raw.append(b0 ^ b1)
         out.append(_normal_from_bits(raw[-1]).expand(B, N, nbin))
     if bits:
         return tuple(out) + tuple(r.to(torch.int32) for r in raw)
     return tuple(out)
+
+
+# XLA's float64 erf_inv (M. Giles' double-precision polynomials): in
+# w - 3.125 (w < 6.25), sqrt(w) - 3.25 (w < 16), sqrt(w) - 5, highest power
+# first; and its log1p's small-argument rational (Cephes), |x| < sqrt(2)-1
+_ERFINV64 = (
+    (-3.6444120640178196996e-21, -1.685059138182016589e-19,
+     1.2858480715256400167e-18, 1.115787767802518096e-17,
+     -1.333171662854620906e-16, 2.0972767875968561637e-17,
+     6.6376381343583238325e-15, -4.0545662729752068639e-14,
+     -8.1519341976054721522e-14, 2.6335093153082322977e-12,
+     -1.2975133253453532498e-11, -5.4154120542946279317e-11,
+     1.051212273321532285e-09, -4.1126339803469836976e-09,
+     -2.9070369957882005086e-08, 4.2347877827932403518e-07,
+     -1.3654692000834678645e-06, -1.3882523362786468719e-05,
+     0.0001867342080340571352, -0.00074070253416626697512,
+     -0.0060336708714301490533, 0.24015818242558961693,
+     1.6536545626831027356),
+    (2.2137376921775787049e-09, 9.0756561938885390979e-08,
+     -2.7517406297064545428e-07, 1.8239629214389227755e-08,
+     1.5027403968909827627e-06, -4.013867526981545969e-06,
+     2.9234449089955446044e-06, 1.2475304481671778723e-05,
+     -4.7318229009055733981e-05, 6.8284851459573175448e-05,
+     2.4031110387097893999e-05, -0.0003550375203628474796,
+     0.00095328937973738049703, -0.0016882755560235047313,
+     0.0024914420961078508066, -0.0037512085075692412107,
+     0.005370914553590063617, 1.0052589676941592334,
+     3.0838856104922207635),
+    (-2.7109920616438573243e-11, -2.5556418169965252055e-10,
+     1.5076572693500548083e-09, -3.7894654401267369937e-09,
+     7.6157012080783393804e-09, -1.4960026627149240478e-08,
+     2.9147953450901080826e-08, -6.7711997758452339498e-08,
+     2.2900482228026654717e-07, -9.9298272942317002539e-07,
+     4.5260625972231537039e-06, -1.9681778105531670567e-05,
+     7.5995277030017761139e-05, -0.00021503011930044477347,
+     -0.00013871931833623122026, 1.0103004648645343977,
+     4.8499064014085844221))
+_LOG1P_NUM = (4.5270000862445199635215E-5, 4.9854102823193375972212E-1,
+              6.5787325942061044846969E0, 2.9911919328553073277375E1,
+              6.0949667980987787057556E1, 5.7112963590585538103336E1,
+              2.0039553499201281259648E1)
+_LOG1P_DEN = (1.0, 1.5062909083469192043167E1, 8.3047565967967209469434E1,
+              2.2176239823732856465394E2, 3.0909872225312059774938E2,
+              2.1642788614495947685003E2, 6.0118660497603843919306E1)
+
+
+# ln 2 as three doubles; 1/n! (n = 0..10) as double-doubles
+_LN2 = (0.6931471805599453, 2.3190468138462996e-17, 5.707708438416212e-34)
+_INV_FACT = tuple((float(f), float(f - Fraction(float(f))))
+                  for f in (Fraction(1, math.factorial(n)) for n in range(11)))
+
+
+def _two_sum(a, b):
+    """a + b = s + e exactly."""
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
+def _two_prod(a, b):
+    """a * b = p + e exactly (Dekker's split; float64 tensors)."""
+    p = a * b
+
+    def split(v):
+        t = 134217729.0 * v                   # 2^27 + 1
+        hi = t - (t - v)
+        return hi, v - hi
+    ah, al = split(a)
+    bh, bl = split(b)
+    return p, ((ah * bh - p) + ah * bl + al * bh) + al * bl
+
+
+def _fma(a, b, c):
+    """a * b + c with one rounding, as XLA's CPU code contracts it."""
+    p, pe = _two_prod(a, b)
+    s = p + c
+    bb = s - p
+    return s + (((p - (s - bb)) + (c - bb)) + pe)
+
+
+def _dd_add(ah, al, bh, bl):
+    s, e = _two_sum(ah, bh)
+    e = e + (al + bl)
+    h = s + e
+    return h, e - (h - s)
+
+
+def _dd_mul(ah, al, bh, bl):
+    p, e = _two_prod(ah, bh)
+    e = e + (ah * bl + al * bh)
+    h = p + e
+    return h, e - (h - p)
+
+
+def _exp_dd(h, l):
+    """exp(h + l) as a double-double, to ~2^-96 relative: h + l less
+    k ln 2 (exact in its leading part), over 2^8, a Taylor sum to degree
+    10, squared eight times, times 2^k."""
+    k = torch.round(h / _LN2[0])
+    p, pe = _two_prod(k, _LN2[0])
+    th, tl = _two_sum(h - p, -pe)                 # h - p is exact
+    q, qe = _two_prod(k, _LN2[1])
+    th, tl = _dd_add(th, tl, -q, -qe)
+    th, tl = _dd_add(th, tl, l, -k * _LN2[2])
+    th, tl = th / 256.0, tl / 256.0
+    eh, el = (torch.full_like(th, c) for c in _INV_FACT[-1])
+    for ch, cl in reversed(_INV_FACT[:-1]):
+        eh, el = _dd_add(*_dd_mul(eh, el, th, tl), ch, cl)
+    for _ in range(8):
+        eh, el = _dd_mul(eh, el, eh, el)
+    scale = ((k.to(torch.int64) + 1023) << 52).view(torch.float64)
+    return eh * scale, el * scale
+
+
+def _log_rn(y):
+    """Correctly rounded log of positive y, on y's device: torch.log is
+    within an ulp on the CPU and the card alike; of it and its two
+    neighbours, keep the one the midpoints, tested against exp in
+    double-double, select."""
+    r = torch.log(y)
+    dn = torch.nextafter(r, torch.full_like(r, -math.inf))
+    up = torch.nextafter(r, torch.full_like(r, math.inf))
+    eh, el = _exp_dd(torch.stack((r, r)),
+                     torch.stack(((dn - r) * 0.5, (up - r) * 0.5)))
+    below = (y - eh[0]) < el[0]          # log y < the midpoint of dn, r
+    above = (y - eh[1]) > el[1]          # log y > the midpoint of r, up
+    return torch.where(below, dn, torch.where(above, up, r))
+
+
+def _log_c(y):
+    """The C library's log, which XLA's CPU code calls: libm itself on
+    host tensors; elsewhere the correctly rounded log, which libm's
+    (< 0.52 ulp) misses by an ulp at ~3e-4 of arguments."""
+    if y.device.type == "cpu":
+        return torch.from_numpy(np.frompyfunc(math.log, 1, 1)(
+            y.numpy()).astype(np.float64))
+    return _log_rn(y)
+
+
+def _sqrt_rn(w):
+    """Correctly rounded sqrt (PyTorch's vectorized CPU sqrt is not)."""
+    r = torch.sqrt(w)
+    cands = (torch.nextafter(r, torch.zeros_like(r)), r,
+             torch.nextafter(r, torch.full_like(r, math.inf)))
+    err = [((w - p) - e).abs() for p, e in (_two_prod(c, c) for c in cands)]
+    out = torch.where(err[0] < err[1], cands[0], r)
+    return torch.where((err[2] < err[1]) & (err[2] < err[0]), cands[2], out)
+
+
+def _log1p_xla(x):
+    """XLA's float64 log1p: the Cephes rational for |x| < sqrt(2) - 1,
+    else the C library's log(1 + x)."""
+    def horner(cs):
+        p = torch.full_like(x, cs[0])
+        for c in cs[1:]:
+            p = _fma(p, x, torch.full_like(x, c))
+        return p
+    x2 = x * x
+    small = (x * x2) * (horner(_LOG1P_NUM) / horner(_LOG1P_DEN))
+    small = x + _fma(torch.full_like(x, -0.5), x2, small)
+    large = _log_c(x + 1.0)
+    return torch.where(x.abs() < 0.41421356237309504880, small, large)
+
+
+def _normal64_from_bits(b0: torch.Tensor, b1: torch.Tensor) -> torch.Tensor:
+    """jax.random.normal's float64 step from two 32-bit words (the high
+    and low halves of its 64 bits): u in (-1, 1) from the top 52 bits, then
+    sqrt(2) erf_inv(u), each product-and-add one rounding (fused)."""
+    bits = (b0 << 32) | b1
+    f = (((bits >> 12) & ((1 << 52) - 1)) | 0x3FF0000000000000).view(
+        torch.float64) - 1.0
+    lo = float(np.nextafter(-1.0, 0.0))
+    u = torch.clamp(f * 2.0 + lo, min=lo)      # (1 - lo) rounds to 2
+    w = -_log1p_xla(u * (-u))
+    lt6, lt16 = w < 6.25, w < 16.0
+    w = torch.where(lt6, w - 3.125,
+                    _sqrt_rn(w) - torch.where(lt16, 3.25, 5.0).to(w.dtype))
+    c625, c16, chi = _ERFINV64
+
+    def coef(i):
+        c = torch.full_like(w, c625[i])
+        if i < len(c16):
+            c = torch.where(lt6, c, c16[i])
+        if i < len(chi):
+            c = torch.where(lt16, c, chi[i])
+        return c
+    p = coef(0)
+    for i in range(1, len(c625)):
+        q = _fma(p, w, coef(i))
+        p = q if i < len(chi) else torch.where(
+            lt16 if i < len(c16) else lt6, q, p)
+    return math.sqrt(2.0) * (p * u)
 
 
 def noise_bins(seed: int, frame_base: int, B: int, N: int, nbin: int,
@@ -917,6 +1125,9 @@ def noise_bins(seed: int, frame_base: int, B: int, N: int, nbin: int,
     one [N, nbin] draw each, expanded (not copied) to [B, N, nbin].
     device "cpu" runs noise_bins_ref; a CUDA device launches the kernel."""
     device = torch.device(device)
+    if FP64:
+        raise TypeError("noise_bins draws float32: under LLSM_FP64=1 the "
+                        "draw is noise_bins_ref(dtype=torch.float64)")
     if device.type == "cpu":
         return noise_bins_ref(seed, frame_base, B, N, nbin, device, bits=bits)
     if device.type != "cuda":

@@ -3,7 +3,8 @@
 one process on one card and run in alternating pairs, so that both see
 the same card, host and moment.  The cells (chip_smoke.py's phases):
 batched_pipeline on the bench rows x 8 s with the library default
-(phase 5, `batch` rows) and with hm_kernel="matmul" (phase 6), the
+(phase 5, `batch` rows), with hm_kernel="matmul" (phase 6) and with the
+library's own default, use_pallas=False (phase 16a: `plain`), the
 denoiser off on 32 of them (phase 4: rows 0-15 and 64-79), the public
 analyze() of one 8 s file (row 0, a batch of one), the layer-1 round trip
 chunk_to_layer1 -> chunk_to_layer0 -> synthesis of the bench rows' chunk
@@ -17,7 +18,7 @@ torch.cuda.synchronize().  Prints every step, each side's median and
 quartiles, and how many pairs each side won.  Imports no jax:
 
     python3 scripts/port_ab_steps.py OTHER_DIR [pairs=20] [batch=128]
-        [cells=default,matmul,off32,one,layer1,pbp,edits]
+        [cells=default,matmul,off32,one,layer1,pbp,edits,plain]
 """
 import dataclasses
 import importlib
@@ -108,6 +109,9 @@ def main(argv):
                 args = (x, f0, nxv, x_ref)
                 if cell == "matmul":
                     opt = dataclasses.replace(opt, hm_kernel="matmul")
+                elif cell == "plain":
+                    opt = pkg.create_aoptions(f0_floor=70.0)
+                    sopt = pkg.create_soptions()
                 elif cell == "off32":
                     opt = dataclasses.replace(opt, track_denoise=False)
                     args = tuple(a[off_rows] for a in args)

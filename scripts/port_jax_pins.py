@@ -55,6 +55,19 @@ with the Pallas kernels in interpret mode:
             stream_chunk(block=16, synth_mode="pbp")) of LF rows 0 and 1
             (as PbP): the SNR (utils.metrics.snr_db) of its output against
             pbp_synthesize's y_sin, whole and second by second;
+  learned   chip_smoke.py phase 17d-e: the JAX package's AE, VQ codec and
+            acoustic model at default widths (118-dim coder vectors; the
+            acoustic model over ttsdata's 8 phones), initialized from
+            PRNGKey(0) and snapped to 8-bit codes times a scale a leaf
+            (which both packages then start from; the file stays under 1
+            MB), a seeded input batch, each model's forward on it, 5 AdamW
+            steps' losses (default compute dtype) and the VQ's tokens,
+            written to LEARNED_PINS; then abs_refine on
+            tests/test_abs.py's weakened analysis (100 steps, lr 0.1): the
+            harmonic SNR before and after;
+  fp64      chip_smoke.py phase 18a: tests/test_fp64.py's round trip in the
+            JAX package under LLSM_FP64=1 (a subprocess): the SNR of
+            y_sin over the middle 80%;
   dspkit    chip_smoke.py phase 16: batched_pipeline with the library
             default create_aoptions(f0_floor=70) and create_soptions()
             (use_pallas=False: the jnp branches) on bench rows 0, 1 (noisy)
@@ -64,10 +77,12 @@ with the Pallas kernels in interpret mode:
             kernels in interpret mode) on rows 0 and 1.
 
     JAX_PLATFORMS=cpu python scripts/port_jax_pins.py [duration=8.0] \
-        [only=l0,11k,l1,pbp,corpus,edits,coder,nasal,stream,dspkit]
+        [only=l0,11k,l1,pbp,corpus,edits,coder,nasal,stream,dspkit,
+              learned,fp64]
 
 CPU time of the parts added last, on an 8-core x86 host: corpus 49.3 s,
-edits 42.1 s, coder 32.2 s, nasal 4.8 s (run after coder in one process).
+edits 42.1 s, coder 32.2 s, nasal 4.8 s (run after coder in one process);
+learned ~25 s, fp64 ~15 s.
 """
 import dataclasses
 import sys
@@ -92,6 +107,9 @@ NASAL_SECTIONS = ((250.0, 70.0, -1.0), (900.0, 60.0, 1.0))
 STREAM_BLOCK, STREAM_HALO = 64, 48        # chip_smoke.py phase 15a
 # the JAX coder's 8-bit archive of LF rows 0 and 1 (part coder)
 CODER_PINS = "scripts/port_jax_pins_coder.npz"
+# the JAX learned models' weights, inputs and outputs (part learned)
+LEARNED_PINS = "scripts/port_jax_pins_learned.npz"
+LEARNED_STEPS = 5
 
 
 def snr_db(ref, y, fs, f0_floor):
@@ -391,11 +409,127 @@ def dspkit_rows(duration):
     return out
 
 
+def _int8_tree(tree, out, prefix):
+    """Snap a parameter pytree to 8-bit codes times a float32 scale a
+    leaf (s = max |w| / 127), the weights both packages then start from;
+    store the codes (int8) and scales in out under prefix/path."""
+    def leaf(path, a):
+        a = np.asarray(a, np.float32)
+        s = np.float32(max(float(np.abs(a).max()), 1e-30) / 127.0)
+        codes = np.round(a / s).astype(np.int8)
+        name = prefix + "/" + "/".join(str(k.key) for k in path)
+        out[name], out[name + "@scale"] = codes, np.asarray(s)
+        return jnp.asarray(codes.astype(np.float32) * s)
+    return jax.tree_util.tree_map_with_path(leaf, tree)
+
+
+def _train(step, cfg, params, opt, *args):
+    state, losses = opt.init(params), []
+    for _ in range(LEARNED_STEPS):
+        params, state, loss = step(cfg, params, state, *args)
+        losses.append(float(loss))
+    return np.asarray(losses, np.float32)
+
+
+def learned_models():
+    """Part learned: LEARNED_PINS and abs_refine's SNRs."""
+    from libllsm2_tpu.models import abs as absmod
+    from libllsm2_tpu.models import acoustic, coder, neural, vq
+    from libllsm2_tpu.utils import ttsdata
+
+    dims = coder.CoderConfig(conf=create_aoptions().conf).dims
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((128, dims)).astype(np.float32)
+    B, N = 2, 64
+    ids = rng.integers(0, ttsdata.N_PHONES, (B, N)).astype(np.int32)
+    feats = rng.uniform(0.0, 1.0, (B, N, 2)).astype(np.float32)
+    tgt = rng.standard_normal((B, N, dims)).astype(np.float32)
+    mask = (np.arange(N)[None, :] < np.array([64, 41])[:, None]
+            ).astype(np.float32)
+    out = dict(x=x, ids=ids, feats=feats, targets=tgt, mask=mask)
+    key = jax.random.PRNGKey(0)
+
+    ae = neural.AEConfig(dims=dims)
+    p = _int8_tree(neural.init_params(ae, key), out, "ae")
+    out["ae_forward"] = np.asarray(neural.forward(ae, p, jnp.asarray(x)))
+    out["ae_losses"] = _train(neural.train_step, ae, p,
+                              neural.make_optimizer(ae), jnp.asarray(x))
+
+    vc = vq.VQConfig(dims=dims)
+    p = _int8_tree(vq.init_params(vc, key), out, "vq")
+    out["vq_forward"] = np.asarray(vq.forward(vc, p, jnp.asarray(x))[0])
+    out["vq_tokens"] = np.asarray(vq.encode_tokens(vc, p, jnp.asarray(x)))
+    out["vq_losses"] = _train(vq.train_step, vc, p, vq.make_optimizer(vc),
+                              jnp.asarray(x))
+
+    ac = acoustic.AcousticConfig(dims=dims, n_phones=ttsdata.N_PHONES)
+    p = _int8_tree(acoustic.init_params(ac, key), out, "acoustic")
+    out["acoustic_forward"] = np.asarray(acoustic.forward(
+        ac, p, jnp.asarray(ids), jnp.asarray(feats)))
+    w = np.ones(dims, np.float32)
+    w[0] = 4.0
+    out["acoustic_losses"] = _train(
+        acoustic.train_step, ac, p, acoustic.make_optimizer(ac),
+        tuple(jnp.asarray(a) for a in (ids, feats, tgt, mask)),
+        jnp.asarray(w))
+    np.savez_compressed(LEARNED_PINS, **out)
+
+    # abs_refine on tests/test_abs.py's weakened analysis
+    xa, f0, xh = testsig.synth_hard_utterance(
+        duration=0.6, register="female", seed=3, jitter=0.01, shimmer=0.1,
+        noise_level=0.0, burst=False, unvoiced_tail_frac=0.0)
+    opt = dataclasses.replace(create_aoptions(), hm_passes=1,
+                              hm_correction="none")
+    sopt = create_soptions()
+    chunk = layer0.analyze(opt, xa, f0)
+
+    def snr(c):
+        y = np.asarray(layer0.synthesize(sopt, c).y_sin)
+        n = min(len(xh), len(y))
+        lo, hi = int(0.05 * n), int(0.95 * n)
+        e = xh[lo:hi] - y[lo:hi]
+        return float(10 * np.log10(np.sum(xh[lo:hi] ** 2)
+                                   / max(np.sum(e ** 2), 1e-20)))
+    refined, losses = absmod.abs_refine(sopt, chunk, xa, n_steps=100,
+                                        lr=0.1)
+    return {"losses": {k: out[k].tolist() for k in
+                       ("ae_losses", "vq_losses", "acoustic_losses")},
+            "abs_snr_before": snr(chunk), "abs_snr_after": snr(refined),
+            "abs_loss_first_last": (float(losses[0]), float(losses[-1]))}
+
+
+FP64_SCRIPT = """
+import numpy as np
+from libllsm2_tpu import create_aoptions, create_soptions, fp
+from libllsm2_tpu.models import layer0
+from libllsm2_tpu.utils import testsig
+assert fp.FP64
+x, f0 = testsig.make_test_utterance(duration=0.5)
+y = np.asarray(layer0.synthesize(create_soptions(), layer0.analyze(
+    create_aoptions(), x, f0)).y_sin)
+n = len(y)
+lo, hi = int(0.1 * n), int(0.9 * n)
+e = x[lo:hi] - y[lo:hi]
+print(repr(float(10 * np.log10(np.sum(x[lo:hi] ** 2) / np.sum(e ** 2)))))
+"""
+
+
+def fp64_round_trip():
+    """Part fp64: tests/test_fp64.py's SNR, the JAX package in float64."""
+    import os
+    import subprocess
+    env = dict(os.environ, LLSM_FP64="1", JAX_PLATFORMS="cpu",
+               PYTHONPATH=os.getcwd())
+    r = subprocess.run([sys.executable, "-c", FP64_SCRIPT], env=env,
+                       capture_output=True, text=True, check=True)
+    return float(r.stdout.strip().splitlines()[-1])
+
+
 def main():
     kw = dict(a.split("=", 1) for a in sys.argv[1:])
     duration = float(kw.get("duration", 8.0))
     only = kw.get("only", "l0,11k,l1,pbp,corpus,edits,coder,nasal,stream,"
-                  "dspkit").split(",")
+                  "dspkit,learned,fp64").split(",")
     if "l0" in only:
         t0 = time.perf_counter()
         print(f"16 kHz batched_pipeline at {duration} s:",
@@ -457,6 +591,17 @@ def main():
         print(f"phase 16 at {duration} s (the library default on rows 0/1/64, "
               "then each analysis option with the kernels on rows 0/1):",
               dspkit_rows(duration), f"({time.perf_counter() - t0:.1f} s)",
+              flush=True)
+    if "learned" in only:
+        t0 = time.perf_counter()
+        print(f"the learned models at default widths ({LEARNED_PINS}: "
+              f"weights, inputs, forwards, {LEARNED_STEPS} steps' losses, "
+              "tokens) and abs_refine's SNRs:", learned_models(),
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    if "fp64" in only:
+        t0 = time.perf_counter()
+        print("the float64 round trip of tests/test_fp64.py, y_sin SNR:",
+              fp64_round_trip(), f"({time.perf_counter() - t0:.1f} s)",
               flush=True)
 
 if __name__ == "__main__":
