@@ -260,6 +260,48 @@ non-zero without the final "ok" line:
      layer0's five llsm.* ranges; the card's busy share of the step (the
      union of its kernel intervals in the trace over the step's
      unprofiled time by CUDA events).
+ 19. several ranks (cell multi-device): 4 ranks of torch.distributed as
+     child processes (mesh_rank: python -c MESH_CHILD), a FileStore
+     rendezvous in a temporary directory, the backend by
+     distributed.choose_backend (gloo: the 4 ranks share the one card),
+     each loading the library phase 2 built; each rank prints its device,
+     backend, launches, ms, peaks and the bytes its collectives moved, and
+     a failed check in any rank fails the run.  19a, the frame-sharded
+     round trip (parallel.seqparallel) of two 64 s utterances (seed 0 with
+     noise 0.05, seed 64 clean; 12800 frames, 3200 a rank) at phase 5's
+     options, launch counters zeroed before: every kernel of the path
+     launched in every rank and every captured call held against its
+     plain version (phase 3's tolerances); against this process's
+     one-process run on the card: hm_mask equal, f0 within 1e-4 relative
+     (the largest difference and the rows printed: the refine's FIR
+     products, which cuBLAS orders by the block's shape, move it by an
+     ulp here and there, and with it the tracks, whose differences are
+     printed), the round trip's y_sin SNR within 0.05 dB of the
+     one-process round trip's and of the JAX package's one-process value,
+     and no more than 0.05 dB under its sharded one (MESH_PINS_DB, which
+     says why); then every stage after the refinement against one
+     process fed the sharded F0 (f0_refine off): hm_mask equal, ampl
+     2e-6, the complex track 1e-5 and psd 1e-5 on rows [10:-10], edc
+     5e-3, the envelope coefficients 8e-3 (1e-3 on rows [4:-4]), and the
+     render of the sharded chunk against the one-process render of it
+     (y_sin 2e-4, y 2e-3); each rank's analysis and synthesis ms and
+     peaks.  19b,
+     batched_pipeline(mesh=) over the 128 x 8 s bench rows, 32 a rank:
+     every rank's y rows and the gathered snr bit for bit the one-process
+     batch's, mean_snr within 1e-5 dB; the step ms and the gather's bytes.
+     19c, StreamPool(mesh=) with 64 streams over the 4 ranks as phase 15b:
+     each rank holds its 16 streams to their solo renders bit for bit and
+     every rank's streams are the same; ms a tick.  19d, at the default
+     widths on phase 17c's normalized coder vectors: the AE on a (batch 2,
+     model 2) tensor-parallel mesh against the data-parallel run and the
+     one-process run (5-step losses, 2e-2 relative), the trunk over 4
+     pipeline stages (forward within 2e-5 of forward_reference, 5 steps'
+     losses 1e-4 relative of one process), the MoE over 4 expert ranks
+     (forward within 2e-5 of moe_forward_reference); ms a step.  19e,
+     19a's clean chunk saved by the 4 ranks with chunk_save_orbax (a
+     torch.distributed.checkpoint directory) and loaded here: equal.  The
+     ranks also report which collectives gloo ran on CUDA tensors itself
+     (the meshes stage through the host those it refuses).
 Phases 5, 6, 7 and 9 also time every call of each of their kernels in
 the counted run at full batch (median of 10, and a launch's share of a
 run of 20 back-to-back launches: the device time where the host enqueues
@@ -272,7 +314,8 @@ the six, fir_frames, noise_bins and sample_cycles, 6 for
 harmonic_project_mxu, 7 for
 harmonic_project, 9 for env_render, 16c for noise_mod_ola_seg;
 denoise_apply also "finish_launches" and "finish_full_batch" for its
-second launch; "launches_by_phase" the counts of phases 11 to 17); ms,
+second launch; "launches_by_phase" the counts of phases 11 to 17 and
+of 19, summed over its ranks' 19a runs); ms,
 plain_ms, library_ms and bound_ms at the first 2-row call of phase 3
 (noise_mod_ola_seg: its full-batch call of 16c; denoise_stats also has
 16b's full-batch polar case among its "cases"); "full_batch" a record per
@@ -291,12 +334,13 @@ The SNR, rd and PbP pins are the JAX package's own values on the CPU, from
 
     JAX_PLATFORMS=cpu PYTHONPATH=. python scripts/port_jax_pins.py \
         [only=l0,11k,l1,pbp,corpus,edits,coder,nasal,stream,dspkit,
-              learned,fp64]
+              learned,fp64,mesh]
 
 (l0: phases 4 and 5; 11k: phases 7 and 8; l1: phase 9; pbp: phase 10;
 corpus: phase 11; edits: phase 12; coder: phase 13; nasal: phase 14;
 stream: phase 15, ~1 min on the CPU; dspkit: phase 16, ~70 s; learned:
-phase 17d-e and its npz, ~25 s; fp64: phase 18a, ~10 s).
+phase 17d-e and its npz, ~25 s; fp64: phase 18a, ~10 s; mesh: phase 19a,
+~130 s).
 """
 import dataclasses
 import json
@@ -543,6 +587,38 @@ ABS_SNR_TOL_DB = 0.05       # the port on the CPU: 56.9643 (gap 0.0009 dB)
 FP64_SNR_PIN_DB = 56.320644984409434      # JAX float64, test_fp64 (CPU)
 FP64_SNR_TOL_DB = 0.01
 CLI_BATCH_FILES = 8
+# phase 19 (cell multi-device): ranks of torch.distributed as child
+# processes sharing the one card (gloo)
+MESH_RANKS = 4
+MESH_SECONDS = 64.0                       # 19a: 12800 frames, 3200 a rank
+MESH_SEEDS = {0: 0.05, 64: 0.0}           # 19a: seed -> noise level
+# the JAX package's round trip of 19a's utterances on the CPU, y_sin SNR
+# against the clean part: (frame-sharded on 4 devices, one process), from
+# scripts/port_jax_pins.py only=mesh.  Its sharded value sits 0.087 dB
+# under its one-process one on the clean utterance (float32 cycle offsets
+# and the refine's edge ringing, which the port's seqparallel repairs), so
+# the port is held to the one-process value and to no less than the
+# sharded one
+MESH_PINS_DB = {0: (40.92445755004883, 40.92669677734375),
+                64: (57.315425872802734, 57.402801513671875)}
+MESH_PINS_SECONDS = 64.0                  # the utterances the pins hold
+MESH_SNR_TOL_DB = 0.05
+MESH_EDGE = 10                            # rows at each global edge
+MESH_F0_RTOL = 1e-4
+# tests/test_parallel.py's tolerances (ampl, the complex track and psd on
+# rows [MESH_EDGE:-MESH_EDGE]; env_inner on rows [4:-4])
+MESH_TOL = {"ampl": 2e-6, "cplx": 1e-5, "psd": 1e-5, "edc": 5e-3,
+            "env": 8e-3, "env_inner": 1e-3, "y_sin": 2e-4, "y": 2e-3}
+MESH_MEAN_TOL_DB = 1e-5
+MESH_TRAIN_STEPS = 5
+MESH_LOSS_RTOL = 2e-2                     # test_neural.py's TP against DP
+MESH_PP_RTOL = 1e-4                       # test_pp_ep.py's
+MESH_FWD_TOL = 2e-5
+MESH_PP_ROWS, MESH_EP_ROWS = 4096, 1024   # 19d: coder vectors a batch
+MESH_REPS = 3                             # 19a: kernel / twin timing reps
+MESH_TIMEOUT_S = 600
+MESH_FIELDS = ("f0", "ampl", "phse", "hm_mask", "psd", "edc", "eenv_a",
+               "eenv_p")
 MAIN_SIX = tuple(KERNELS)[:6]     # the library-default path's CUDA kernels
 # ... and its frame-axis FIR, noise draw and cycle track
 MAIN = MAIN_SIX + ("fir_frames", "noise_bins", "sample_cycles")
@@ -941,9 +1017,11 @@ def library_call(torch, name, args, kw):
     return None
 
 
-def check_kernel(torch, kernels, name, tol, args, kw, label, library=False):
+def check_kernel(torch, kernels, name, tol, args, kw, label, library=False,
+                 prefix="3", reps=10):
     """Kernel against its plain version on one call's inputs -> case (with
-    the bound and, if library, the one-call PyTorch yardstick's time)."""
+    the bound and, if library, the one-call PyTorch yardstick's time); the
+    phase line is "{prefix} name[label]", each time the median of reps."""
     fn = getattr(kernels, name)
     ref_fn = getattr(kernels, name + "_ref")
     # the noise draw is compared on its bits too
@@ -959,7 +1037,8 @@ def check_kernel(torch, kernels, name, tol, args, kw, label, library=False):
         extra = (f" against the plain version on the CPU {cpu_err:.3e} (tol "
                  f"{SAMPLE_CYCLES_CPU_TOL})")
         if cpu_err > SAMPLE_CYCLES_CPU_TOL:
-            phase(f"3 {name}[{label}] on the CPU's order", False, extra)
+            phase(f"{prefix} {name}[{label}] on the CPU's order", False,
+                  extra)
     if isinstance(tol, tuple):                # one tolerance per output
         errs = [float(torch.max(torch.abs(g - r))) for g, r in zip(got, ref)]
         err, ok = max(errs), all(e <= t for e, t in zip(errs, tol))
@@ -970,8 +1049,8 @@ def check_kernel(torch, kernels, name, tol, args, kw, label, library=False):
             tol = float(tol.split()[1]) * scale
         err = max_err(torch, name, got, ref, scale, kw)
         ok = err <= tol
-    ms = cuda_ms(torch, lambda: fn(*args, **kw), 10)
-    plain_ms = cuda_ms(torch, lambda: ref_fn(*args, **kw), 10)
+    ms = cuda_ms(torch, lambda: fn(*args, **kw), reps)
+    plain_ms = cuda_ms(torch, lambda: ref_fn(*args, **kw), reps)
     bound_ms, bound_by = bound(torch, name, args, kw, got)
     library_ms = None
     if library:
@@ -982,7 +1061,7 @@ def check_kernel(torch, kernels, name, tol, args, kw, label, library=False):
             torch.cuda.empty_cache()
     shapes = _shapes(torch, args)
     lib = "n/a" if library_ms is None else f"{library_ms:.4f} ms"
-    phase(f"3 {name}[{label}]", ok,
+    phase(f"{prefix} {name}[{label}]", ok,
           f"shapes {shapes[:2]} max_abs_err {err:.3e} (tol {tol}){extra} "
           f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms library {lib} "
           f"bound {bound_ms:.4f} ms ({bound_by})")
@@ -3528,6 +3607,558 @@ def profile_phase(torch, corpus, opt, sopt, data):
           + detail)
 
 
+MESH_CHILD = r'''
+import sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as cs
+cs.mesh_rank(*sys.argv[2:])
+'''
+
+
+def _sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _digest(np, arrays):
+    """sha256 of the arrays' bytes, in order (ranks compare results)."""
+    import hashlib
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()[:16]
+
+
+def _chunk_arrays(chunk):
+    return {k: getattr(chunk, k).detach().cpu().numpy() for k in MESH_FIELDS}
+
+
+def _mesh_round_trip(seqparallel, opt, sopt, x, f0, mesh):
+    chunk = seqparallel.analyze_frame_sharded(opt, x, f0, mesh)
+    return chunk, seqparallel.synthesize_frame_sharded(sopt, chunk, mesh)
+
+
+def mesh_rank(tmp, rank, world):
+    """One rank of phase 19, in a child process (python -c MESH_CHILD REPO
+    TMP RANK WORLD): joins the others through a FileStore in TMP on the
+    backend distributed.choose_backend picks (gloo: the ranks share one
+    card), loads the kernel library phase 2 built, runs 19a-19e on
+    TMP's inputs (TMP/cfg.json: device, pool streams, rows), prints its
+    lines and writes TMP/rank{RANK}.json (and rank 0 its arrays).  A
+    failed check raises: the process exits non-zero."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from libllsm2_tpu_torch import create_aoptions, create_soptions
+    from libllsm2_tpu_torch.container import index_batch
+    from libllsm2_tpu_torch.models import layer0, neural
+    from libllsm2_tpu_torch.ops import _build, kernels
+    from libllsm2_tpu_torch.parallel import corpus, distributed, expert
+    from libllsm2_tpu_torch.parallel import mesh as ml
+    from libllsm2_tpu_torch.parallel import pipeline, seqparallel
+    from libllsm2_tpu_torch.runtime import rtsynth
+    from libllsm2_tpu_torch.runtime.rtserve import StreamPool
+    from libllsm2_tpu_torch.utils import serialize
+    t0 = time.perf_counter()
+    rank, world = int(rank), int(world)
+    with open(f"{tmp}/cfg.json") as f:
+        cfg = json.load(f)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    backend = distributed.choose_backend(world)
+    distributed.initialize_multihost(f"file://{tmp}/store", world, rank,
+                                     timeout_s=600)
+    on_card = cfg["device"] == "cuda"
+    dev = ml.local_device(None if on_card else "cpu")
+    if on_card:
+        torch.cuda.set_device(dev)
+        _build.library()
+    say = lambda msg: print(f"19 rank {rank}: {msg}", flush=True)
+    name = torch.cuda.get_device_name(dev) if on_card else "cpu"
+    say(f"{name} {dev}, backend {dist.get_backend()} (rule: {backend} for "
+        f"{world} ranks on {torch.cuda.device_count() if on_card else 0} "
+        f"card(s)), up in {time.perf_counter() - t0:.1f} s")
+    out = {"rank": rank, "device": str(dev), "name": name,
+           "backend": dist.get_backend()}
+    opt = create_aoptions(f0_floor=70.0, use_pallas=True)
+    sopt = dataclasses.replace(create_soptions(), use_pallas=True)
+
+    def timed(fn):
+        _sync(torch, dev)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(dev)
+        t = time.perf_counter()
+        res = fn()
+        _sync(torch, dev)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30 if on_card \
+            else float("nan")
+        return res, (time.perf_counter() - t) * 1e3, peak
+
+    # 19a: the frame-sharded round trip of two long utterances
+    mf = ml.make_mesh(world, frame_parallel=world, device=dev)
+    z = np.load(f"{tmp}/utts.npz")
+    launches = dict.fromkeys(kernels.LAUNCHES, 0)
+    out["19a"] = {}
+    chunks = {}
+    for seed in MESH_SEEDS:
+        x, f0 = z[f"x{seed}"], z[f"f0{seed}"]
+        kernels.reset_launches()
+        mf.reset_counts()
+        calls, (chunk, res) = capture_kernel_inputs(
+            kernels, PATH, lambda: _mesh_round_trip(seqparallel, opt, sopt,
+                                                    x, f0, mf))
+        _sync(torch, dev)
+        for k, v in kernels.LAUNCHES.items():
+            launches[k] += v
+        rec = {"moved": dict(mf.moved), "staged": mf.staged,
+               "launches": {k: v for k, v in kernels.LAUNCHES.items() if v}}
+        missing = [k for k in PATH if not calls[k]]
+        phase(f"19a rank {rank} seed {seed} kernels", not missing,
+              f"every wrapper of the path called (missing: {missing}); "
+              f"launches {rec['launches']}")
+        if on_card:
+            for k in PATH:
+                home = "denoise_apply" if k == FINISH else k
+                for i, (args, kw) in enumerate(calls[k]):
+                    check_kernel(torch, kernels, k, KERNELS[home][2], args,
+                                 kw, f"rank {rank} seed {seed} call {i}",
+                                 prefix="19a", reps=cfg["reps"])
+        del calls
+        # timed runs, each stage alone (a second run: the first one above
+        # paid the first-call costs), and the same result again
+        c2, rec["analysis_ms"], rec["analysis_peak_gib"] = timed(
+            lambda: seqparallel.analyze_frame_sharded(opt, x, f0, mf))
+        r2, rec["synthesis_ms"], rec["synthesis_peak_gib"] = timed(
+            lambda: seqparallel.synthesize_frame_sharded(sopt, c2, mf))
+        arrays = _chunk_arrays(chunk)
+        ys = {k: getattr(res, k).cpu().numpy() for k in ("y", "y_sin",
+                                                          "y_nos")}
+        again = list(_chunk_arrays(c2).values()) + [r2.y.cpu().numpy()]
+        rec["digest"] = _digest(np, list(arrays.values()) + [ys["y"]])
+        phase(f"19a rank {rank} seed {seed} repeat", _digest(np, again)
+              == rec["digest"], "a second run gives the same chunk and y")
+        if rank == 0:
+            np.savez(f"{tmp}/chunk{seed}.npz", **arrays, **ys)
+        out["19a"][str(seed)] = rec
+        chunks[seed] = chunk
+        say(f"19a seed {seed}: {len(f0)} frames, {len(f0) // world} a rank: "
+            f"analysis {rec['analysis_ms']:.2f} ms (peak "
+            f"{rec['analysis_peak_gib']:.3f} GiB), synthesis "
+            f"{rec['synthesis_ms']:.2f} ms (peak "
+            f"{rec['synthesis_peak_gib']:.3f} GiB); moved {rec['moved']} B, "
+            f"staged through the host {rec['staged']} B")
+    out["launches"] = launches
+    say(f"19a launches (both seeds): "
+        f"{ {k: v for k, v in launches.items() if v} }")
+
+    # 19b: the data-parallel corpus step on the bench rows
+    m = ml.make_mesh(world, device=dev)
+    bx, bf0, bref = (np.load(f"{tmp}/bench_{k}.npy", mmap_mode="r")
+                     for k in ("x", "f0", "ref"))
+    per = bx.shape[0] // world
+    rows = slice(rank * per, (rank + 1) * per)
+    xs, f0s, xr = (torch.from_numpy(np.ascontiguousarray(a[rows])).to(dev)
+                   for a in (bx, bf0, bref))
+    nxv = torch.full((per,), bx.shape[1], dtype=torch.int64, device=dev)
+    step = lambda: corpus.batched_pipeline(opt, sopt, xs, f0s, nxv, xr,
+                                           mesh=m)
+    kernels.reset_launches()
+    m.reset_counts()
+    (y, snr, mean), _, peak = timed(step)
+    rec = {"launches": {k: v for k, v in kernels.LAUNCHES.items() if v},
+           "moved": dict(m.moved), "snr": snr.cpu().numpy().tolist(),
+           "mean": float(mean), "peak_gib": peak}
+    np.save(f"{tmp}/bp_y{rank}.npy", y.cpu().numpy())
+    rec["step_ms"] = statistics.median(timed(step)[1] for _ in range(3))
+    out["19b"] = rec
+    say(f"19b: {per} of {bx.shape[0]} rows x {bx.shape[1]} samples: step "
+        f"{rec['step_ms']:.2f} ms (median of 3), peak {peak:.3f} GiB; "
+        f"gathers moved {rec['moved']} B")
+
+    # 19c: the pool, its streams' rows rendered by their ranks
+    pr = list(range(cfg["pool_streams"] // 2)) + list(
+        range(bx.shape[0] // 2, bx.shape[0] // 2 + cfg["pool_streams"] // 2))
+    chunk = layer0._analyze(opt, *(torch.from_numpy(
+        np.ascontiguousarray(a[pr])).to(dev) for a in (bx, bf0)))
+    streams = [index_batch(chunk, s) for s in range(len(pr))]
+    frames = [rtsynth.RTSynthesizer.chunk_frames_np(c) for c in streams]
+    pool = StreamPool(sopt, opt.conf, n_streams=len(pr),
+                      feed_block=POOL_BLOCK, mesh=m)
+    timings = []
+    ys, per_tick, ticks = drain_pool(pool, frames, timings)
+    mine = range(rank * len(pr) // world, (rank + 1) * len(pr) // world)
+    bad = []
+    for s in mine:
+        so = dataclasses.replace(sopt, noise_seed=sopt.noise_seed + s)
+        if not np.array_equal(ys[s], rtsynth.stream_chunk(
+                so, streams[s], block=POOL_BLOCK)):
+            bad.append(s)
+    phase(f"19c rank {rank} streams = solo", not bad,
+          f"streams {mine.start}-{mine.stop - 1} (this rank's) bit for bit "
+          f"against stream_chunk(block={POOL_BLOCK}); unequal: {bad}")
+    tot = [sum(t.values()) for t in timings]
+    out["19c"] = {"digest": _digest(np, ys), "ticks": ticks,
+                  "tick_ms": statistics.median(tot),
+                  "render_ms": statistics.median(t["render"]
+                                                 for t in timings)}
+    say(f"19c: {len(pr)} streams x {POOL_BLOCK} hops, {ticks} ticks: "
+        f"{out['19c']['tick_ms']:.2f} ms a tick (median; render and gather "
+        f"{out['19c']['render_ms']:.2f})")
+    del chunk, streams, frames, pool, xs, f0s, xr
+
+    # 19d: model parallelism at the default widths on the coder vectors
+    v = np.load(f"{tmp}/vectors.npy", mmap_mode="r")
+    D = v.shape[1]
+    gen = lambda s: torch.Generator().manual_seed(s)
+    steps = MESH_TRAIN_STEPS
+    rec = {}
+    ae = neural.AEConfig(dims=D, lr=AE_LR)
+    params = neural.init_params(ae, gen(0), device=dev)
+    opt_s = neural.make_optimizer(ae, params)
+    xb = ml.shard_rows(v, m)
+    rec["dp"] = _train_steps(torch, lambda: neural.train_step(
+        ae, params, opt_s, xb, mesh=m)[2], steps)
+    tm = ml.make_tp_mesh(world, model_parallel=2, device=dev)
+    params = neural.shard_params_tp(ae, neural.init_params(ae, gen(0), dev),
+                                    tm)
+    opt_s = neural.make_optimizer(ae, params)
+    xb = ml.shard_batch(v, tm)
+    rec["tp"] = _train_steps(torch, lambda: neural.train_step(
+        ae, params, opt_s, xb, mesh=tm)[2], steps)
+    trunk = pipeline.TrunkConfig(dims=D)
+    pm = ml.make_pipe_mesh(world, device=dev)
+    ps = pipeline.shard_params_pp(pipeline.init_trunk_params(
+        trunk, gen(1), device=dev), pm)
+    xb = torch.from_numpy(np.ascontiguousarray(v[:cfg["pp_rows"]])).to(dev)
+    fwd = pipeline.pp_forward(trunk, ps, xb, pm).detach().cpu().numpy()
+    opt_s = pipeline.make_optimizer(trunk, ps)
+    rec["pp"] = _train_steps(torch, lambda: pipeline.train_step_pp(
+        trunk, ps, opt_s, xb, pm)[2], steps)
+    moe = expert.MoEConfig(dims=D)
+    em = ml.make_expert_mesh(world, device=dev)
+    es = expert.shard_params_ep(moe, expert.init_moe_params(
+        moe, gen(2), device=dev), em)
+    xb = ml.shard_rows(v[:cfg["ep_rows"]], em, ml.EXPERT_AXIS)
+    y, aux = expert.moe_forward_ep(moe, es, xb, em, capacity=xb.shape[0])
+    ep_fwd = ml.all_gather(y.detach(), em, ml.EXPERT_AXIS).cpu().numpy()
+    opt_s = expert.make_optimizer(moe, es)
+    rec["ep"] = _train_steps(torch, lambda: expert.train_step_ep(
+        moe, es, opt_s, xb, em)[2], steps)
+    rec["ep_aux"] = float(aux)
+    if rank == 0:
+        np.savez(f"{tmp}/models.npz", pp_fwd=fwd, ep_fwd=ep_fwd)
+    out["19d"] = rec
+    say("19d: ms a step (median of {}): DP AE {:.3f}, TP AE {:.3f}, PP "
+        "trunk {:.3f}, EP MoE {:.3f}".format(
+            steps, *(rec[k][1] for k in ("dp", "tp", "pp", "ep"))))
+
+    # 19e: the clean chunk of 19a, saved by every rank (its frame rows)
+    (_, ck_ms, _) = timed(lambda: serialize.chunk_save_orbax(
+        f"{tmp}/ckpt", chunks[list(MESH_SEEDS)[-1]], mesh=mf))
+    out["19e_ms"] = ck_ms
+
+    # which collectives gloo ran on the CUDA tensors itself (the meshes
+    # stage through the host those it refuses)
+    out["gloo_cuda"] = {op: ("runs on CUDA tensors" if v else
+                             "refused: staged through the host")
+                        for g in (mf, m, tm, pm, em)
+                        for op, v in g.gloo_cuda.items()}
+    dist.barrier()
+    with open(f"{tmp}/rank{rank}.json", "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def mesh_phase(torch, mods, data, vec, dev):
+    """Phase 19 (cell multi-device): 4 ranks as child processes on the one
+    card (mesh_rank), then the checks of their results here against this
+    process's one-process runs on the card -> the ranks' kernel launches of
+    19a, summed."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from libllsm2_tpu_torch import create_aoptions, create_soptions
+    from libllsm2_tpu_torch.models import layer0, neural
+    from libllsm2_tpu_torch.parallel import (corpus, expert, pipeline,
+                                             seqparallel)
+    from libllsm2_tpu_torch.utils import serialize, testsig
+    layer0, = mods
+    opt = create_aoptions(f0_floor=70.0, use_pallas=True)
+    sopt = dataclasses.replace(create_soptions(), use_pallas=True)
+    on_card = dev.type == "cuda"
+    tmp = tempfile.mkdtemp(prefix="llsm_mesh_")
+    try:
+        t0 = time.perf_counter()
+        # the harmonic part, the same for both seeds, synthesized once
+        rows = testsig.make_test_utterances(list(MESH_SEEDS.items()),
+                                            duration=MESH_SECONDS)
+        utts = {seed: [np.asarray(a, np.float32) for a in r]
+                for seed, r in zip(MESH_SEEDS, rows)}
+        np.savez(f"{tmp}/utts.npz", **{f"{k}{seed}": a for seed, u in
+                                       utts.items()
+                                       for k, a in zip(("x", "f0"), u)})
+        for k, a in zip(("x", "f0", "ref"), (data[0], data[1], data[2])):
+            np.save(f"{tmp}/bench_{k}.npy", a.cpu().numpy())
+        B, N, D = vec.shape
+        flat = vec.reshape(-1, D).cpu().numpy()
+        vn = neural.Normalizer(flat).fwd(flat).astype(np.float32)
+        np.save(f"{tmp}/vectors.npy", vn)
+        cfg = dict(device=dev.type, reps=MESH_REPS,
+                   pool_streams=min(POOL_STREAMS, data[0].shape[0]),
+                   pp_rows=MESH_PP_ROWS, ep_rows=MESH_EP_ROWS)
+        with open(f"{tmp}/cfg.json", "w") as f:
+            json.dump(cfg, f)
+        repo = str(Path(__file__).resolve().parent)
+        t1 = time.perf_counter()
+        procs = []
+        for r in range(MESH_RANKS):
+            log = open(f"{tmp}/out{r}.txt", "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, "-c", MESH_CHILD, repo, tmp, str(r),
+                 str(MESH_RANKS)], stdout=log, stderr=subprocess.STDOUT),
+                log))
+        deadline = time.monotonic() + MESH_TIMEOUT_S
+        rcs = []
+        for p, log in procs:
+            try:
+                rcs.append(p.wait(timeout=max(deadline - time.monotonic(),
+                                              1.0)))
+            except subprocess.TimeoutExpired:
+                rcs.append(None)
+            log.close()
+        for p, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        ranks_s = time.perf_counter() - t1
+        for r in range(MESH_RANKS):
+            with open(f"{tmp}/out{r}.txt") as f:
+                text = f.read()
+            if rcs[r] == 0:
+                print(text, end="", flush=True)
+            else:
+                print(f"19 rank {r} exited {rcs[r]}:\n{text[-6000:]}",
+                      flush=True)
+        phase("19 ranks", all(rc == 0 for rc in rcs),
+              f"{MESH_RANKS} ranks exited {rcs} after {ranks_s:.1f} s "
+              f"(inputs written in {t1 - t0:.1f} s)")
+        res = []
+        for r in range(MESH_RANKS):
+            with open(f"{tmp}/rank{r}.json") as f:
+                res.append(json.load(f))
+        phase("19 ranks on the card", all(
+            o["device"].startswith(dev.type) for o in res),
+              f"devices {[o['device'] for o in res]} ({res[0]['name']}), "
+              f"backend {[o['backend'] for o in res]}; gloo's collectives "
+              f"on CUDA tensors: {res[0]['gloo_cuda'] or 'none (CPU)'}")
+
+        # 19a against this process's runs of the same utterances: the
+        # whole analysis, then every stage after the F0 refinement fed the
+        # sharded run's F0 (the refine's FIR products, which cuBLAS orders
+        # by the block's shape, move F0 by an ulp here and there)
+        edge = MESH_EDGE
+        inner = slice(edge, -edge)
+        cz = lambda a, p: a * np.exp(1j * p.astype(np.float64))
+        no_refine = dataclasses.replace(opt, f0_refine=False)
+        for seed, (x, f0, x_ref) in utts.items():
+            nl = len(f0) // MESH_RANKS
+            ha = seqparallel._halos(opt, nl)[0]
+            got = np.load(f"{tmp}/chunk{seed}.npz")
+            phase(f"19a seed {seed} ranks agree", len({
+                o["19a"][str(seed)]["digest"] for o in res}) == 1,
+                  "every rank returned the same chunk and y")
+            ref = layer0.analyze(opt, x, f0, device=dev)
+            out_ref = layer0.synthesize(sopt, ref)
+            r = _chunk_arrays(ref)
+            f0_rel = np.abs(got["f0"] - r["f0"]) / np.maximum(
+                np.abs(r["f0"]), 1e-6)
+            rows = np.nonzero(f0_rel)[0]
+            ref_t = torch.tensor(x_ref, device=dev)
+            snr = snr_db(torch, ref_t, torch.tensor(got["y_sin"], device=dev),
+                         opt.conf.fs, opt.conf.f0_floor)
+            snr1 = snr_db(torch, ref_t, out_ref.y_sin, opt.conf.fs,
+                          opt.conf.f0_floor)
+            pin = MESH_PINS_DB[seed] if MESH_SECONDS == MESH_PINS_SECONDS \
+                else None
+            whole = {"ampl": np.abs(got["ampl"] - r["ampl"]).max(),
+                     "cplx": np.abs(cz(got["ampl"], got["phse"])
+                                    - cz(r["ampl"], r["phse"])).max(),
+                     "psd": np.abs(got["psd"] - r["psd"]).max()}
+            mask_eq = np.array_equal(got["hm_mask"], r["hm_mask"])
+            phase(f"19a seed {seed} against one process", mask_eq
+                  and f0_rel.max() <= MESH_F0_RTOL
+                  and abs(snr - snr1) <= MESH_SNR_TOL_DB
+                  and (pin is None or (abs(snr - pin[1]) <= MESH_SNR_TOL_DB
+                                       and snr >= pin[0] - MESH_SNR_TOL_DB)),
+                  f"hm_mask equal {mask_eq}; f0 equal "
+                  f"{np.array_equal(got['f0'], r['f0'])}: largest relative "
+                  f"difference {f0_rel.max():.3e} (<= {MESH_F0_RTOL}) in "
+                  f"{len(rows)} of {len(f0_rel)} rows (the refine's FIR: "
+                  f"a {nl + 2 * ha}-frame block's product against the "
+                  f"whole track's); so ampl {whole['ampl']:.3e}, complex "
+                  f"{whole['cplx']:.3e}, psd {whole['psd']:.3e}; y_sin SNR "
+                  f"sharded {snr:.4f} dB, one process {snr1:.4f} dB (+- "
+                  f"{MESH_SNR_TOL_DB}); JAX one process, sharded (the "
+                  f"floor, - {MESH_SNR_TOL_DB}): "
+                  + ("n/a" if pin is None else
+                     f"{pin[1]:.4f}, {pin[0]:.4f}"))
+            # every stage after the refinement, fed the sharded F0
+            ref = _chunk_arrays(layer0.analyze(no_refine, x, got["f0"],
+                                               device=dev))
+            errs = {
+                "ampl": np.abs(got["ampl"] - ref["ampl"])[inner].max(),
+                "cplx": np.abs(cz(got["ampl"], got["phse"])
+                               - cz(ref["ampl"], ref["phse"]))[inner].max(),
+                "psd": np.abs(got["psd"] - ref["psd"])[inner].max(),
+                "edc": np.abs(got["edc"] - ref["edc"]).max(),
+                "env": np.abs(cz(got["eenv_a"], got["eenv_p"])
+                              - cz(ref["eenv_a"], ref["eenv_p"])).max(),
+                "env_inner": np.abs(cz(got["eenv_a"], got["eenv_p"])
+                                    - cz(ref["eenv_a"], ref["eenv_p"]))
+                [4:-4].max()}
+            # the render of the sharded chunk, here in one process
+            chunk = layer0.Chunk(**{k: torch.tensor(got[k], device=dev)
+                                    for k in MESH_FIELDS}, conf=opt.conf)
+            one = layer0.synthesize(sopt, chunk)
+            errs["y_sin"] = float(np.abs(got["y_sin"]
+                                         - one.y_sin.cpu().numpy()).max())
+            errs["y"] = float(np.abs(got["y"] - one.y.cpu().numpy()).max())
+            phase(f"19a seed {seed} stages after the refinement", all(
+                errs[k] <= MESH_TOL[k] for k in MESH_TOL) and np.array_equal(
+                    got["hm_mask"], ref["hm_mask"]),
+                  "against one process fed the sharded F0 (f0_refine off; "
+                  f"ampl, complex, psd on rows [{edge}:-{edge}], the render "
+                  "of the sharded chunk): " + ", ".join(
+                      f"{k} {errs[k]:.3e} (<= {MESH_TOL[k]})"
+                      for k in MESH_TOL))
+            recs = [o["19a"][str(seed)] for o in res]
+            print(f"19a seed {seed} ranks: analysis ms "
+                  f"{[round(q['analysis_ms'], 2) for q in recs]}, synthesis "
+                  f"ms {[round(q['synthesis_ms'], 2) for q in recs]}, peaks "
+                  f"GiB {[round(q['analysis_peak_gib'], 3) for q in recs]} / "
+                  f"{[round(q['synthesis_peak_gib'], 3) for q in recs]}; "
+                  f"bytes moved a rank {[sum(q['moved'].values()) for q in recs]}"
+                  f" (staged {[q['staged'] for q in recs]})", flush=True)
+            del ref, out_ref, chunk, one
+        launches = {k: sum(o["launches"][k] for o in res)
+                    for k in res[0]["launches"]}
+        # (the wrappers count launches of the card's kernels only)
+        missing = [k for k in PATH if on_card
+                   and not all(o["launches"][k] for o in res)]
+        phase("19a launches", not missing,
+              f"every rank launched every kernel of the path (missing: "
+              f"{missing}); summed over ranks: "
+              f"{ {k: v for k, v in launches.items() if v} }")
+
+        # 19b against this process's 128-row batch
+        y, snr, mean = corpus.batched_pipeline(opt, sopt, *data[:2], data[3],
+                                               data[2])
+        y, snr = y.cpu().numpy(), snr.cpu().numpy()
+        per = y.shape[0] // MESH_RANKS
+        rows_eq = all(np.array_equal(
+            np.load(f"{tmp}/bp_y{r}.npy"), y[r * per:(r + 1) * per])
+            for r in range(MESH_RANKS))
+        snr_eq = all(np.array_equal(np.asarray(o["19b"]["snr"], np.float32),
+                                    snr) for o in res)
+        means = [o["19b"]["mean"] for o in res]
+        step1 = statistics.median(
+            once_ms(torch, lambda: corpus.batched_pipeline(
+                opt, sopt, *data[:2], data[3], data[2])) if on_card else 0.0
+            for _ in range(3))
+        phase("19b data-parallel corpus", rows_eq and snr_eq and all(
+            abs(m_ - float(mean)) <= MESH_MEAN_TOL_DB for m_ in means),
+              f"{MESH_RANKS} x {per} rows: every rank's y rows and the "
+              f"gathered snr bit for bit the one-process batch's ({rows_eq},"
+              f" {snr_eq}); mean_snr {means[0]:.6f} dB (one process "
+              f"{float(mean):.6f} +- {MESH_MEAN_TOL_DB}); step ms a rank "
+              f"{[round(o['19b']['step_ms'], 2) for o in res]} (one process,"
+              f" {y.shape[0]} rows: {step1:.2f}); gathers "
+              f"{res[0]['19b']['moved']} B a rank; launches "
+              f"{res[0]['19b']['launches']}")
+        del y
+
+        # 19c: every rank holds every stream alike
+        phase("19c pool", len({o["19c"]["digest"] for o in res}) == 1,
+              f"{cfg['pool_streams']} streams over {MESH_RANKS} ranks: every "
+              f"rank's every stream the same (each rank held its own "
+              f"streams to their solo renders); {res[0]['19c']['ticks']} "
+              f"ticks, ms a tick {[round(o['19c']['tick_ms'], 2) for o in res]}"
+              f" (render and gather "
+              f"{[round(o['19c']['render_ms'], 2) for o in res]})")
+
+        # 19d against this process's runs
+        flat = torch.tensor(vn, device=dev)
+        gen = lambda s: torch.Generator().manual_seed(s)
+        ae = neural.AEConfig(dims=D, lr=AE_LR)
+        params = neural.init_params(ae, gen(0), device=dev)
+        opt_s = neural.make_optimizer(ae, params)
+        ref_ae, ae_ms = _train_steps(torch, lambda: neural.train_step(
+            ae, params, opt_s, flat)[2], MESH_TRAIN_STEPS)
+        trunk = pipeline.TrunkConfig(dims=D)
+        tp = pipeline.init_trunk_params(trunk, gen(1), device=dev)
+        xb = flat[:MESH_PP_ROWS]
+        fwd = pipeline.forward_reference(trunk, tp, xb).detach().cpu().numpy()
+        opt_s = pipeline.make_optimizer(trunk, tp)
+        ref_pp, pp_ms = _train_steps(torch, lambda: neural.optimizer_step(
+            opt_s, lambda: torch.mean((pipeline.forward_reference(
+                trunk, tp, xb) - xb) ** 2)).detach(), MESH_TRAIN_STEPS)
+        moe = expert.MoEConfig(dims=D)
+        mp_ = expert.init_moe_params(moe, gen(2), device=dev)
+        with torch.no_grad():
+            ep_ref = expert.moe_forward_reference(
+                moe, mp_, flat[:MESH_EP_ROWS], MESH_EP_ROWS).cpu().numpy()
+        got = np.load(f"{tmp}/models.npz")
+        d = res[0]["19d"]
+        close = lambda a, b, rtol: bool(np.allclose(a, b, rtol=rtol, atol=0))
+        # test_pp_ep.py's tolerance: rtol and atol MESH_FWD_TOL
+        fwd_err = float(np.max(np.abs(got["pp_fwd"] - fwd)
+                               / (1.0 + np.abs(fwd))))
+        ep_err = float(np.max(np.abs(got["ep_fwd"] - ep_ref)
+                              / (1.0 + np.abs(ep_ref))))
+        phase("19d model parallelism", close(d["tp"][0], d["dp"][0],
+                                             MESH_LOSS_RTOL)
+              and close(d["dp"][0], ref_ae, MESH_LOSS_RTOL)
+              and fwd_err <= MESH_FWD_TOL and close(d["pp"][0], ref_pp,
+                                                    MESH_PP_RTOL)
+              and ep_err <= MESH_FWD_TOL and all(
+                  o["19d"]["dp"][0] == d["dp"][0] for o in res),
+              f"AE (hidden {ae.hidden}) 5-step losses TP (batch 2, model 2) "
+              f"{[round(q, 5) for q in d['tp'][0]]}, DP (4) "
+              f"{[round(q, 5) for q in d['dp'][0]]}, one process "
+              f"{[round(q, 5) for q in ref_ae]} (rtol {MESH_LOSS_RTOL}); "
+              f"trunk (hidden {trunk.hidden}, {trunk.n_blocks} blocks, 4 "
+              f"stages) forward max err {fwd_err:.2e} (of 1 + |ref|; <= "
+              f"{MESH_FWD_TOL}), "
+              f"losses {[round(q, 6) for q in d['pp'][0]]} vs "
+              f"{[round(q, 6) for q in ref_pp]} (rtol {MESH_PP_RTOL}); MoE "
+              f"({moe.n_experts} experts over 4 ranks) forward max err "
+              f"{ep_err:.2e} (of 1 + |ref|), aux {d['ep_aux']:.4f}; ms a "
+              f"step: DP "
+              f"{d['dp'][1]:.3f}, TP {d['tp'][1]:.3f}, PP {d['pp'][1]:.3f}, "
+              f"EP {d['ep'][1]:.3f}; one process: AE {ae_ms:.3f}, trunk "
+              f"{pp_ms:.3f}")
+        del flat, params, tp, mp_
+
+        # 19e: the checkpoint written by the ranks, loaded here
+        back = serialize.chunk_load_orbax(f"{tmp}/ckpt", device=dev)
+        got = np.load(f"{tmp}/chunk{list(MESH_SEEDS)[-1]}.npz")
+        same = all(np.array_equal(getattr(back, k).cpu().numpy(), got[k])
+                   for k in MESH_FIELDS) and back.conf == opt.conf
+        phase("19e checkpoint", same,
+              f"the {back.nfrm}-frame chunk written by {MESH_RANKS} ranks "
+              f"(torch.distributed.checkpoint, each its frame rows, ms "
+              f"{[round(o['19e_ms'], 1) for o in res]}) loaded by one "
+              f"process: every field and the conf equal")
+        print(f"19: {time.perf_counter() - t0:.1f} s", flush=True)
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def once_ms(torch, fn):
     """Milliseconds of one run of fn() by CUDA events, no warm-up."""
     torch.cuda.synchronize()
@@ -3654,6 +4285,13 @@ def main(argv):
                 for label, v_args, v_kw in variants(torch, name, args, kw):
                     cases[home].append(check_kernel(torch, kernels, name, tol,
                                                     v_args, v_kw, label))
+        if "noise_bins" in names:
+            # a frame-sharded render's first shard draws frames -2 and -1
+            # (seqparallel: frame_base = -2): the same call from -2
+            args, kw = calls["noise_bins"][0]
+            cases["noise_bins"].append(check_kernel(
+                torch, kernels, "noise_bins", KERNELS["noise_bins"][2],
+                (args[0], -2) + tuple(args[2:]), kw, "frame_base -2"))
         if "noise_mod_ola" in names:
             # env_render on the main path's envelope coefficients: the
             # first five arguments of its noise_mod_ola call
@@ -3803,7 +4441,6 @@ def main(argv):
     t0 = time.perf_counter()
     by_phase.update(tts_phase(torch, kernels, dev, opt, sopt))
     by_phase["17c"] = learned_codec_phase(torch, kernels, vec13, cc13, sopt)
-    del vec13
     torch.cuda.empty_cache()
     phase("17d JAX weights on the card", *jax_weights_check(torch, dev))
     abs_phase(torch, data, dev)
@@ -3814,8 +4451,11 @@ def main(argv):
     fp64_phase(torch, plain_ms, plain_peak)
     cli_phase(torch, rows8)
     profile_phase(torch, corpus, opt, sopt, data)
-    del data
     print(f"18: {time.perf_counter() - t0:.1f} s", flush=True)
+    # phase 19: 4 ranks on the card (cell multi-device)
+    torch.cuda.empty_cache()
+    by_phase["19"] = mesh_phase(torch, (layer0,), data, vec13, dev)
+    del data, vec13
     for name in KERNELS:
         summary[name]["full_batch"] = full[name]
         summary[name]["launches_by_phase"] = {

@@ -25,11 +25,13 @@ learned models (models/neural.py, vq.py, acoustic.py: nn.Modules trained
 with torch.optim, params_from_jax for the JAX package's weights;
 models/abs.py: analysis by synthesis; utils/ttsdata.py: the TTS corpus),
 the float64 mode (LLSM_FP64=1, fp.py), the CLI (python -m
-libllsm2_tpu_torch.cli) and the profiler hooks (utils/profiling.py), with
-all ten CUDA kernels (ops/kernels.py).  Entry points run on the card:
-numpy input goes to "cuda" unless the caller passes device="cpu".  What is
-not ported (several devices, orbax checkpoints, tensor parallelism)
-raises NotImplementedError naming its ROADMAP item.
+libllsm2_tpu_torch.cli), the profiler hooks (utils/profiling.py) and
+several devices (parallel/: meshes over torch.distributed ranks,
+frame-sharded analysis and synthesis, the data-parallel corpus and pool,
+tensor-, pipeline- and expert-parallel training, sharded checkpoints),
+with all ten CUDA kernels (ops/kernels.py): everything the JAX package
+does.  Entry points run on the card: numpy input goes to "cuda" unless
+the caller passes device="cpu".
 """
 
 from .config import (AnalysisOptions, ChunkConf, SynthesisOptions,

@@ -8,6 +8,12 @@
 //   off_j    = (sum over hops j' < j of (within_j' total mod 1)) mod 1, the
 //              prefix sum taken in float64
 //   c[s]     = (off_j + within_j[s]) mod 1;  out[0] = 0, out[s] = c[s - 1]
+// A frame shard's block (parallel.seqparallel) passes the global index of
+// its first hop, start, and each row's float64 base, the exact sum of the
+// hop totals before it: positions are then the whole track's, s + start
+// nhop (negative ones, in the first shard's halo, take the exact path
+// below), off_j starts from base, out[0] = base mod 1, and the block's
+// samples get the whole track's bits.
 //
 // The JAX package has no Pallas kernel here (libllsm2_tpu/ops/harmonics.py:
 // sample_cycles, a mod-1 associative scan under XLA).  PyTorch's CUDA scan
@@ -98,12 +104,14 @@ __device__ __forceinline__ double step(float a, float b, float t,
 
 // F0 at sample s of row f0r (clamped at 0), divided by fs: the plain
 // version's float32 operations, position included.
+// s is the sample's index in the whole track, start its row's first hop.
 __device__ __forceinline__ double f0_over_fs(const float* __restrict__ f0r,
                                              int64_t s, float nhop_f, int N,
-                                             double rfs) {
+                                             double rfs, int start) {
   const float pos = __fdiv_rn((float)s, nhop_f);
-  const int i0 = min(max((int)floorf(pos), 0), N - 2);
-  const float t = fminf(fmaxf(__fadd_rn(pos, -(float)i0), 0.0f), 1.0f);
+  const int i0 = min(max((int)floorf(pos) - start, 0), N - 2);
+  const float t = fminf(fmaxf(__fadd_rn(pos, -(float)(i0 + start)), 0.0f),
+                        1.0f);
   return step(fmaxf(__ldg(f0r + i0), 0.0f), fmaxf(__ldg(f0r + i0 + 1), 0.0f),
               t, rfs);
 }
@@ -122,8 +130,9 @@ __device__ __forceinline__ int binade(int j) { return 32 - __clz(j); }
 template <int R>
 __global__ void __launch_bounds__(kThreads)
 sample_cycles_kernel(const float* __restrict__ f0, float* __restrict__ out,
-                     unsigned long long* __restrict__ word, int N, int nhop,
-                     int H, float fs, int lg) {
+                     unsigned long long* __restrict__ word,
+                     const double* __restrict__ base, int start, int N,
+                     int nhop, int H, float fs, int lg) {
   extern __shared__ double smem[];
   const int L = 1 << lg, G = 32 >> lg, T = kPasses * kWarps * G;
   double* tots = smem;                          // [T] totals mod 1
@@ -139,10 +148,11 @@ sample_cycles_kernel(const float* __restrict__ f0, float* __restrict__ out,
   const double rfs = __drcp_rn((double)fs);
   // the fractions of s / nhop in hop j: fl(j + t / nhop) - j depends only
   // on t and j's binade below 2^24 samples (no tie falls on that grid
-  // there); a tile spans binades c0 .. binade(j0 + T - 1), at most
-  // kBinades
-  const int c0 = binade(j0);
-  const int ncl = binade(j0 + T - 1) - c0 + 1;
+  // there); a tile spans binades c0 .. binade(j0 + T - 1) of its hops'
+  // indices in the whole track (negative ones take the exact path), at
+  // most kBinades
+  const int c0 = binade(max(start + j0, 0));
+  const int ncl = binade(max(start + j0 + T - 1, 0)) - c0 + 1;
   for (int e = threadIdx.x; e < ncl * nhop; e += kThreads) {
     const int dc = e / nhop, t = e - dc * nhop, c = c0 + dc;
     const int jc = c ? 1 << (c - 1) : 0;
@@ -160,12 +170,12 @@ sample_cycles_kernel(const float* __restrict__ f0, float* __restrict__ out,
     double d[R];
     double acc = 0.0;
     if (j < H) {
-      const int64_t s0 = (int64_t)j * nhop;
-      if (s0 + nhop <= kExact) {
+      const int64_t s0 = (int64_t)(start + j) * nhop;
+      if (s0 >= 0 && s0 + nhop <= kExact) {
         const int i0 = min(j, N - 2);
         const float a = fmaxf(__ldg(f0r + i0), 0.0f);
         const float b = fmaxf(__ldg(f0r + i0 + 1), 0.0f);
-        const float* fr = frac + (binade(j) - c0) * nhop;
+        const float* fr = frac + (binade(start + j) - c0) * nhop;
         const bool last = j >= N - 1;           // pos >= N - 1: t = 1
 #pragma unroll
         for (int i = 0; i < R; ++i) {
@@ -180,7 +190,7 @@ sample_cycles_kernel(const float* __restrict__ f0, float* __restrict__ out,
         for (int i = 0; i < R; ++i) {
           d[i] = 0.0;
           if (t0 + i < t1) {
-            d[i] = f0_over_fs(f0r, s0 + t0 + i, nhop_f, N, rfs);
+            d[i] = f0_over_fs(f0r, s0 + t0 + i, nhop_f, N, rfs, start);
             acc += d[i];
           }
         }
@@ -245,6 +255,9 @@ sample_cycles_kernel(const float* __restrict__ f0, float* __restrict__ out,
     }
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) c += __shfl_xor_sync(0xffffffffu, c, o);
+    // the row's base joins its predecessors' sum (every sum here is exact
+    // on analysis tracks, so its place in the order does not matter)
+    if (base) c += base[row];
 #pragma unroll
     for (int q = 0; q < kPasses; ++q) {
       if (q < per && lane * per + q < T) {
@@ -272,13 +285,14 @@ sample_cycles_kernel(const float* __restrict__ f0, float* __restrict__ out,
       ++h;
     }
   }
-  if (k == 0 && threadIdx.x == 0) outr[0] = 0.0f;
+  if (k == 0 && threadIdx.x == 0)
+    outr[0] = base ? (float)(base[row] - floor(base[row])) : 0.0f;
 }
 
 template <int R>
 cudaError_t launch(const float* f0, float* out, unsigned long long* word,
-                   int B, int N, int nhop, int H, float fs, int lg,
-                   cudaStream_t st) {
+                   const double* base, int start, int B, int N, int nhop,
+                   int H, float fs, int lg, cudaStream_t st) {
   const int T = kPasses * kWarps * (32 >> lg);
   const int tiles = (H + T - 1) / T;
   cudaError_t e = cudaMemsetAsync(
@@ -289,8 +303,8 @@ cudaError_t launch(const float* f0, float* out, unsigned long long* word,
   e = llsm::allow_smem(sample_cycles_kernel<R>, smem);
   if (e != cudaSuccess) return e;
   dim3 grid(tiles, B);
-  sample_cycles_kernel<R><<<grid, kThreads, smem, st>>>(f0, out, word, N,
-                                                        nhop, H, fs, lg);
+  sample_cycles_kernel<R><<<grid, kThreads, smem, st>>>(
+      f0, out, word, base, start, N, nhop, H, fs, lg);
   return cudaGetLastError();
 }
 
@@ -314,8 +328,10 @@ extern "C" int llsm_sample_cycles_words(int B, int nhop, int nx) {
 }
 
 extern "C" int llsm_sample_cycles(const float* f0, float* out,
-                                  unsigned long long* word, int B, int N,
-                                  int nhop, int nx, float fs, void* stream) {
+                                  unsigned long long* word,
+                                  const double* base, int start, int B,
+                                  int N, int nhop, int nx, float fs,
+                                  void* stream) {
   if (B <= 0 || nx <= 0) return (int)cudaGetLastError();
   if (N < 2 || nhop <= 0 || nx % nhop || nhop > 32 * 16)
     return (int)cudaErrorInvalidValue;
@@ -326,11 +342,14 @@ extern "C" int llsm_sample_cycles(const float* f0, float* out,
   cudaError_t e;
   switch (run) {
 #define LLSM_RUN(n)                                                        \
-    case n: e = launch<n>(f0, out, word, B, N, nhop, H, fs, lg, st); break;
+    case n:                                                                \
+      e = launch<n>(f0, out, word, base, start, B, N, nhop, H, fs, lg, st); \
+      break;
     LLSM_RUN(1) LLSM_RUN(2) LLSM_RUN(3) LLSM_RUN(4) LLSM_RUN(5) LLSM_RUN(6)
     LLSM_RUN(7) LLSM_RUN(8) LLSM_RUN(9) LLSM_RUN(10)
 #undef LLSM_RUN
-    default: e = launch<16>(f0, out, word, B, N, nhop, H, fs, lg, st);
+    default:
+      e = launch<16>(f0, out, word, base, start, B, N, nhop, H, fs, lg, st);
   }
   return (int)e;
 }

@@ -88,15 +88,16 @@ def forward(cfg: AcousticConfig, params: AcousticModel, ids, feats):
 
 
 def loss_fn(cfg: AcousticConfig, params: AcousticModel, batch,
-            dim_weights=None):
+            dim_weights=None, mesh=None):
     """Masked MSE in normalized coder space.  batch = (ids, feats,
     targets, mask); dim_weights [dims] optionally emphasizes slots
-    (e.g. F0) whose errors matter more downstream."""
+    (e.g. F0) whose errors matter more downstream.  mesh: batch holds
+    this rank's rows; the loss is the whole batch's (neural.masked_mse)."""
     ids, feats, targets, mask = batch
     err = (forward(cfg, params, ids, feats) - targets) ** 2
     if dim_weights is not None:
         err = err * dim_weights
-    return neural.masked_mse(err, mask, cfg.dims)
+    return neural.masked_mse(err, mask, cfg.dims, mesh)
 
 
 def make_optimizer(cfg: AcousticConfig,
@@ -105,11 +106,13 @@ def make_optimizer(cfg: AcousticConfig,
 
 
 def train_step(cfg: AcousticConfig, params: AcousticModel, opt_state, batch,
-               dim_weights=None):
+               dim_weights=None, mesh=None):
     """One step on `batch` (tensors on the module's device) -> (params,
-    opt_state, loss before the update)."""
+    opt_state, loss before the update).  mesh: data-parallel over its
+    batch axis, as neural.train_step."""
     loss = neural.optimizer_step(
-        opt_state, lambda: loss_fn(cfg, params, batch, dim_weights))
+        opt_state, lambda: loss_fn(cfg, params, batch, dim_weights, mesh),
+        mesh)
     return params, opt_state, loss.detach()
 
 

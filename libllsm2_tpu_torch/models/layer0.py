@@ -48,12 +48,6 @@ class SynthResult(NamedTuple):
     fs: float
 
 
-def _unported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to libllsm2_tpu_torch yet ({item} in "
-        "ROADMAP.md)")
-
-
 def _check_analysis(opt: AnalysisOptions) -> None:
     """_analyze takes x at conf.fs: refuse an opt that would resample."""
     if _resamples(opt):

@@ -18,6 +18,15 @@ signatures, params / opt_state being the module and its optimizer:
     params = init_params(cfg, torch.Generator().manual_seed(0))
     opt_state = make_optimizer(cfg, params)
     params, opt_state, loss = train_step(cfg, params, opt_state, batch)
+
+Several devices (parallel.mesh): train_step(..., mesh=) is data-parallel
+over the mesh's batch axis (each rank passes its rows; the loss is the
+global batch's, its numerator and count all-reduced, and the gradients
+all-reduced, so the replicated parameters stay equal on every rank).
+shard_params_tp(cfg, params, mesh) keeps this rank's slices of a
+Megatron-style tensor-parallel layout over the mesh's model axis
+(tp_param_specs): the row-parallel products all-reduce their partial
+sums, and train_step on the sharded module is tensor- and data-parallel.
 """
 from __future__ import annotations
 
@@ -30,6 +39,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.f0 import _fp32_matmul
+from ..parallel.mesh import (BATCH_AXIS, MODEL_AXIS, all_gather,
+                             all_reduce_grads, psum, pvary)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,19 +132,38 @@ def forward(cfg: AEConfig, params: AutoEncoder, x):
         return params(x)
 
 
-def masked_mse(err: torch.Tensor, mask, dims: int) -> torch.Tensor:
-    """Mean of err [..., dims] over the frames where mask [...] is set."""
+def _global_sum(t: torch.Tensor, mesh) -> torch.Tensor:
+    """The sum of t over this rank's rows, and with a mesh over every
+    rank's (each rank's rows counted once: averaging the ranks' own means
+    would weigh their counts wrongly)."""
+    s = torch.sum(t)
+    return s if mesh is None else psum(s, mesh, BATCH_AXIS)
+
+
+def global_mean(t: torch.Tensor, mesh=None) -> torch.Tensor:
+    """torch.mean(t) over the whole batch (t this rank's rows with a mesh)."""
+    if mesh is None:
+        return torch.mean(t)
+    n = torch.tensor(float(t.numel()), dtype=t.dtype, device=t.device)
+    return _global_sum(t, mesh) / _global_sum(n, mesh)
+
+
+def masked_mse(err: torch.Tensor, mask, dims: int, mesh=None) -> torch.Tensor:
+    """Mean of err [..., dims] over the frames where mask [...] is set (with
+    a mesh: over the whole batch's frames)."""
     if mask is None:
-        return torch.mean(err)
-    return torch.sum(err * mask[..., None]) / torch.clamp(
-        torch.sum(mask) * dims, min=1.0)
+        return global_mean(err, mesh)
+    count = _global_sum(mask.detach(), mesh) * dims
+    return _global_sum(err * mask[..., None], mesh) / torch.clamp(count,
+                                                                  min=1.0)
 
 
-def loss_fn(cfg: AEConfig, params: AutoEncoder, batch, mask=None):
+def loss_fn(cfg: AEConfig, params: AutoEncoder, batch, mask=None,
+            mesh=None):
     """Masked MSE in the normalized coder space; batch [B, N, dims] or
-    [B, dims]."""
+    [B, dims] (this rank's rows with a mesh)."""
     pred = forward(cfg, params, batch)
-    return masked_mse((pred - batch) ** 2, mask, batch.shape[-1])
+    return masked_mse((pred - batch) ** 2, mask, batch.shape[-1], mesh)
 
 
 def make_optimizer(cfg, params: nn.Module) -> torch.optim.AdamW:
@@ -144,41 +174,117 @@ def make_optimizer(cfg, params: nn.Module) -> torch.optim.AdamW:
                              weight_decay=1e-5)
 
 
-def optimizer_step(opt_state: torch.optim.Optimizer, loss_of) -> torch.Tensor:
-    """One update: the gradient of loss_of() (products without TF32),
-    then the optimizer's step; returns the loss before the update."""
+def optimizer_step(opt_state: torch.optim.Optimizer, loss_of,
+                   mesh=None) -> torch.Tensor:
+    """One update: the gradient of loss_of() (products without TF32; with
+    a mesh, summed over its batch axis: loss_of() is then the global loss,
+    each rank's gradient its own rows' part), then the optimizer's step;
+    returns the loss before the update."""
     opt_state.zero_grad(set_to_none=True)
     with _fp32_matmul():
         out = loss_of()
         (out[0] if isinstance(out, tuple) else out).backward()
+    if mesh is not None:
+        all_reduce_grads([p for g in opt_state.param_groups
+                          for p in g["params"]], mesh, BATCH_AXIS)
     opt_state.step()
     return out
 
 
 def train_step(cfg: AEConfig, params: AutoEncoder, opt_state, batch,
-               mask=None):
+               mask=None, mesh=None):
     """One training step on `batch` (on the module's device) -> (params,
     opt_state, loss before the update); params and opt_state update in
-    place and are returned for the JAX package's call shape."""
+    place and are returned for the JAX package's call shape.  mesh:
+    data-parallel over its batch axis (batch and mask this rank's rows;
+    the loss the global batch's); a module from shard_params_tp is also
+    tensor-parallel over its model axis."""
     loss = optimizer_step(opt_state,
-                          lambda: loss_fn(cfg, params, batch, mask))
+                          lambda: loss_fn(cfg, params, batch, mask, mesh),
+                          mesh)
     return params, opt_state, loss.detach()
 
 
 def tp_param_specs(cfg: AEConfig):
-    """The JAX package's tensor-parallel layout: not ported."""
-    from ..models import layer0
-    from ..parallel import corpus
-    raise layer0._unported("neural.tp_param_specs (tensor parallelism)",
-                           corpus.MULTI_DEVICE)
+    """Megatron-style tensor-parallel layout over a (batch, model) mesh
+    (parallel.mesh.make_tp_mesh), as the JAX package's PartitionSpecs:
+    {module name: {"weight": (dim, axis) or None, "bias": ...}} on
+    nn.Linear's [out, in] weight.  Column-parallel entry layers (enc_in,
+    dec_in) shard the hidden OUT dimension, their bias with it;
+    row-parallel residual and exit layers shard the hidden IN dimension,
+    their partial sums all-reduced over the model axis, their bias
+    replicated (None)."""
+    col = {"weight": (0, MODEL_AXIS), "bias": (0, MODEL_AXIS)}
+    row = {"weight": (1, MODEL_AXIS), "bias": None}
+    specs = {"enc_in": col, "enc_out": row, "dec_in": col, "dec_out": row}
+    for i in range(cfg.depth):
+        specs[f"enc_res.{i}"] = row
+        specs[f"dec_res.{i}"] = row
+    return specs
 
 
-def shard_params_tp(cfg: AEConfig, params, mesh):
-    """The JAX package's tensor-parallel placement: not ported."""
-    from ..models import layer0
-    from ..parallel import corpus
-    raise layer0._unported("neural.shard_params_tp (tensor parallelism)",
-                           corpus.MULTI_DEVICE)
+class TPAutoEncoder(nn.Module):
+    """This rank's slices of an AutoEncoder under tp_param_specs, and the
+    tensor-parallel forward: the column-parallel entry takes the replicated
+    input through pvary (its gradient summed over the model axis) and its
+    hidden shards are all-gathered into the residual stream; each row-parallel product takes
+    this rank's slice of the stream (pvary: its gradient summed over the
+    model axis) and all-reduces its partial sum (psum), Megatron's f/g
+    pair."""
+
+    def __init__(self, cfg: AEConfig, model: AutoEncoder, mesh):
+        super().__init__()
+        self.cfg, self.mesh = cfg, mesh
+        m, i = mesh.shape[MODEL_AXIS], mesh.index(MODEL_AXIS)
+        if cfg.hidden % m:
+            raise ValueError(f"hidden {cfg.hidden} does not split over {m} "
+                             "ranks of the model axis")
+        self.width = cfg.hidden // m
+        self.cols = slice(i * self.width, (i + 1) * self.width)
+        specs = tp_param_specs(cfg)
+        for name, spec in specs.items():
+            src = model.get_submodule(name)
+            layer = nn.Linear(1, 1)
+            for pname in ("weight", "bias"):
+                v = getattr(src, pname).detach()
+                if spec[pname] is not None:
+                    v = v.narrow(spec[pname][0], i * self.width, self.width)
+                setattr(layer, pname, nn.Parameter(v.clone().to(
+                    mesh.device)))
+            self.add_module(name.replace(".", "_"), layer)
+
+    def _row(self, layer: nn.Linear, h: torch.Tensor) -> torch.Tensor:
+        dt = self.cfg.compute_dtype
+        rnd = lambda t: t.to(dt).to(torch.float32)
+        hs = pvary(h, self.mesh, MODEL_AXIS)[..., self.cols]
+        part = F.linear(rnd(hs), rnd(layer.weight))
+        return psum(part, self.mesh, MODEL_AXIS) + layer.bias
+
+    def _side(self, first: str, res: str, last: str, x):
+        dt = self.cfg.compute_dtype
+        # the replicated input enters the column-parallel product (f)
+        x = pvary(x, self.mesh, MODEL_AXIS)
+        h = all_gather(gelu(dense(getattr(self, first), x, dt)), self.mesh,
+                       MODEL_AXIS, dim=-1)
+        for i in range(self.cfg.depth):
+            h = h + gelu(self._row(getattr(self, f"{res}_{i}"), h))
+        return self._row(getattr(self, last), h)
+
+    def encode(self, x: torch.Tensor) -> torch.Tensor:
+        return self._side("enc_in", "enc_res", "enc_out", x)
+
+    def decode(self, z: torch.Tensor) -> torch.Tensor:
+        return self._side("dec_in", "dec_res", "dec_out", z)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.decode(self.encode(x))
+
+
+def shard_params_tp(cfg: AEConfig, params: AutoEncoder, mesh) -> TPAutoEncoder:
+    """This rank's slices of `params` under tp_param_specs on mesh.device
+    (make the optimizer from the result, as the JAX package shards before
+    optimizer.init)."""
+    return TPAutoEncoder(cfg, params, mesh)
 
 
 def load_linear(layer: nn.Linear, p) -> None:

@@ -94,20 +94,22 @@ def _nearest(cfg: VQConfig, codebook, z):
     return idx.to(torch.int32), zq.reshape(z.shape)
 
 
-def forward(cfg: VQConfig, params: VQModel, x):
-    """x [..., dims] (normalized coder space) -> (recon, commit, codebk)."""
+def forward(cfg: VQConfig, params: VQModel, x, mesh=None):
+    """x [..., dims] (normalized coder space) -> (recon, commit, codebk);
+    with a mesh x is this rank's rows and the two means the whole
+    batch's."""
     z = neural.encode(cfg.ae, params.ae, x)
     _, zq = _nearest(cfg, params.codebook, z)
-    commit = torch.mean((z - zq.detach()) ** 2)
-    codebk = torch.mean((z.detach() - zq) ** 2)
+    commit = neural.global_mean((z - zq.detach()) ** 2, mesh)
+    codebk = neural.global_mean((z.detach() - zq) ** 2, mesh)
     z_st = z + (zq - z).detach()                         # straight-through
     recon = neural.decode(cfg.ae, params.ae, z_st)
     return recon, commit, codebk
 
 
-def loss_fn(cfg: VQConfig, params: VQModel, batch, mask=None):
-    recon, commit, codebk = forward(cfg, params, batch)
-    rec = neural.masked_mse((recon - batch) ** 2, mask, cfg.dims)
+def loss_fn(cfg: VQConfig, params: VQModel, batch, mask=None, mesh=None):
+    recon, commit, codebk = forward(cfg, params, batch, mesh)
+    rec = neural.masked_mse((recon - batch) ** 2, mask, cfg.dims, mesh)
     return rec + cfg.beta * commit + codebk, rec
 
 
@@ -116,11 +118,12 @@ def make_optimizer(cfg: VQConfig, params: VQModel) -> torch.optim.AdamW:
 
 
 def train_step(cfg: VQConfig, params: VQModel, opt_state, batch,
-               mask=None):
+               mask=None, mesh=None):
     """One step -> (params, opt_state, reconstruction loss before the
-    update); params and opt_state update in place."""
+    update); params and opt_state update in place.  mesh: data-parallel
+    over its batch axis, as neural.train_step."""
     _, rec = neural.optimizer_step(
-        opt_state, lambda: loss_fn(cfg, params, batch, mask))
+        opt_state, lambda: loss_fn(cfg, params, batch, mask, mesh), mesh)
     return params, opt_state, rec.detach()
 
 

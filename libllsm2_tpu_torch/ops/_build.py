@@ -79,9 +79,9 @@ SIGNATURES = {
                         _P),
     # re, im, bits_re, bits_im (or null), seed, frame_base, N, nbin, stream
     "llsm_noise_bins": (_P, _P, _P, _P, _U, _U, _I, _I, _P),
-    # f0, out, words (int64 scratch: llsm_sample_cycles_words of them), B,
-    # N, nhop, nx, fs, stream
-    "llsm_sample_cycles": (_P, _P, _P, _I, _I, _I, _I, _F, _P),
+    # f0, out, words (int64 scratch: llsm_sample_cycles_words of them),
+    # base (a float64 a row, or null), start, B, N, nhop, nx, fs, stream
+    "llsm_sample_cycles": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     # B, nhop, nx -> how many words llsm_sample_cycles needs
     "llsm_sample_cycles_words": (_I, _I, _I),
 }

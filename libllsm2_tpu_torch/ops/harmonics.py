@@ -58,18 +58,21 @@ def _phase_cycles(kn: torch.Tensor, f_over_fs: torch.Tensor) -> torch.Tensor:
     return ph - torch.round(ph)
 
 
-def sample_cycles(f0: torch.Tensor, nhop: int, fs: float,
-                  nx: int) -> torch.Tensor:
+def sample_cycles(f0: torch.Tensor, nhop: int, fs: float, nx: int,
+                  base: torch.Tensor | None = None,
+                  start: int = 0) -> torch.Tensor:
     """Fundamental phase in cycles MOD 1 at every sample: f0 [B, N] ->
     [B, nx], nx a multiple of nhop: F0 lerped between frame centers
     (i*nhop), summed in float32 within each hop and in float64 over the
     hop totals (kernels.sample_cycles_ref).  On the card a kernel sums each
     row in an order of its own, so a row's track is the same alone and in
     any batch (kernels.sample_cycles).  Under LLSM_FP64=1 the plain version
-    sums in float64 on every device, as the JAX package's jnp does."""
+    sums in float64 on every device, as the JAX package's jnp does.  base
+    and start: a frame shard's block of a longer track
+    (kernels.sample_cycles_ref)."""
     if FP64:
-        return kernels.sample_cycles_ref(f0, nhop, fs, nx)
-    return kernels.sample_cycles(f0, nhop, fs, nx)
+        return kernels.sample_cycles_ref(f0, nhop, fs, nx, base, start)
+    return kernels.sample_cycles(f0, nhop, fs, nx, base, start)
 
 
 def frame_hops(x: torch.Tensor, nfrm: int, nhop: int, halfhops: int,
@@ -323,7 +326,7 @@ def _plain_analysis(x, cyc, halfwidth, *, nhop: int, H: int, max_k: int,
 def refine_f0(x, f0, *, nhop: int, fs: float, halfwin_max: int,
               rel_winsize: float, window: str = "hanning", iters: int = 2,
               max_rel_dev: float = 0.05, f0_ceil: float = 600.0,
-              use_pallas: bool = True):
+              use_pallas: bool = True, bounds=None):
     """Refine F0 by the fundamental's phase slope.  use_pallas (the JAX
     package's Pallas branches): on a lowpass-decimated signal where some
     D in 8/4/2 divides the hop and clears f0_ceil (harmonics.py:372-492),
@@ -340,7 +343,13 @@ def refine_f0(x, f0, *, nhop: int, fs: float, halfwin_max: int,
     with libm, whose atan2 differs in the last bit.  On the card every
     element takes one path, and the FIR's product, whose order cuBLAS
     chooses by its row count, runs in calls of 2 layer0._group_rows(N)
-    rows."""
+    rows.
+
+    bounds: (lo, hi), the samples of x that lie within the signal (a frame
+    shard's block with halos: the halo past the signal's edge is zeros).
+    The decimating FIR's output outside them is zeroed, as the FIR of the
+    whole signal never computes it and the probes read zero padding
+    there."""
     B, N = f0.shape
     if not use_pallas:
         return _refine_f0_plain(x, f0, nhop=nhop, fs=fs, halfwin_max=halfwin_max,
@@ -405,6 +414,10 @@ def refine_f0(x, f0, *, nhop: int, fs: float, halfwin_max: int,
         # was before the grouping
         from ..models.layer0 import _group_rows, _row_groups
         xd = _row_groups(fir, x, 2 * _group_rows(N))
+    if bounds is not None:
+        keep = torch.arange(nxd, device=dev) * D
+        xd = torch.where((keep >= bounds[0]) & (keep < bounds[1]), xd,
+                         torch.zeros_like(xd))
     nhop_d = nhop // D
     H_d = -(-H // D)
     delta_d = max(delta // D, 1)

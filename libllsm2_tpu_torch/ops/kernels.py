@@ -1132,15 +1132,18 @@ def noise_bins(seed: int, frame_base: int, B: int, N: int, nbin: int,
         return noise_bins_ref(seed, frame_base, B, N, nbin, device, bits=bits)
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
-    if N < 0 or nbin < 0 or not 0 <= frame_base <= _U32 - N:
+    # frame_base is JAX's int32 frame index: a negative base (the first
+    # shard of a frame-sharded render draws frames -2, -1) wraps to uint32,
+    # as the twin's mask and the kernel's uint32 sum do
+    if N < 0 or nbin < 0 or not -(1 << 31) <= frame_base < (1 << 31):
         raise ValueError("noise_bins: bad frame range or bin count")
     out = [torch.empty((N, nbin), dtype=FP, device=device) for _ in range(2)]
     if bits:
         out += [torch.empty((N, nbin), dtype=torch.int32, device=device)
                 for _ in range(2)]
     ptrs = [t.data_ptr() for t in out] + [None] * (4 - len(out))
-    _launch("noise_bins", *ptrs, int(seed) & _U32, int(frame_base), N, nbin,
-            torch.cuda.current_stream(device).cuda_stream)
+    _launch("noise_bins", *ptrs, int(seed) & _U32, int(frame_base) & _U32,
+            N, nbin, torch.cuda.current_stream(device).cuda_stream)
     return tuple(t.expand(B, N, nbin) for t in out[:2]) + tuple(out[2:])
 
 
@@ -1280,16 +1283,18 @@ def harmonic_project_mxu_ref(x, cyc, hw, max_k, nhop, hh, *,
 # no Pallas kernel)
 # ---------------------------------------------------------------------------
 
-def sample_cycles(f0: torch.Tensor, nhop: int, fs: float,
-                  nx: int) -> torch.Tensor:
+def sample_cycles(f0: torch.Tensor, nhop: int, fs: float, nx: int,
+                  base: torch.Tensor | None = None,
+                  start: int = 0) -> torch.Tensor:
     """Fundamental phase in cycles mod 1 at every sample: f0 [..., N] ->
     [..., nx], nx a multiple of nhop (see sample_cycles_ref for the
-    arithmetic).  On the card every sum runs in an order set by its row
-    alone, so a row's track does not depend on the rest of its batch."""
+    arithmetic, base and start).  On the card every sum runs in an order
+    set by its row alone, so a row's track does not depend on the rest of
+    its batch."""
     if nx % nhop:
         raise ValueError("sample_cycles: nx must be a multiple of nhop")
     if not _on_cuda(f0):
-        return sample_cycles_ref(f0, nhop, fs, nx)
+        return sample_cycles_ref(f0, nhop, fs, nx, base, start)
     N = f0.shape[-1]
     if N < 2:
         raise ValueError(f"sample_cycles: {N} frames (at least 2)")
@@ -1304,7 +1309,10 @@ def sample_cycles(f0: torch.Tensor, nhop: int, fs: float,
     buf = torch.empty(n + 2 * _cycle_words(B, int(nhop), int(nx)),
                       dtype=FP, device=f.device)
     ptr = buf.data_ptr()
-    _launch("sample_cycles", f.data_ptr(), ptr, ptr + 4 * n, B, N,
+    if base is not None:
+        base = base.to(f.device, torch.float64).reshape(B).contiguous()
+    _launch("sample_cycles", f.data_ptr(), ptr, ptr + 4 * n,
+            None if base is None else base.data_ptr(), int(start), B, N,
             int(nhop), int(nx), float(fs), _stream(f))
     return buf[:B * nx].view(f0.shape[:-1] + (nx,))
 
@@ -1315,35 +1323,72 @@ def _cycle_words(B: int, nhop: int, nx: int) -> int:
     return _build.library().llsm_sample_cycles_words(B, nhop, nx)
 
 
-def sample_cycles_ref(f0: torch.Tensor, nhop: int, fs: float,
-                      nx: int) -> torch.Tensor:
+def sample_cycles_ref(f0: torch.Tensor, nhop: int, fs: float, nx: int,
+                      base: torch.Tensor | None = None,
+                      start: int = 0) -> torch.Tensor:
     """Plain version of sample_cycles.  F0 is linearly interpolated between
     frame centers (i*nhop) and integrated in two levels: a cumsum of the
-    float32 steps within each hop (a few cycles; PyTorch's CPU accumulates
-    it in float64 and rounds each partial to float32) plus a prefix sum of
+    float32 steps within each hop (a few cycles; accumulated in float64,
+    each partial rounded to float32) plus a prefix sum of
     the per-hop totals.  That prefix sum is taken in float64 and reduced mod 1
     (the JAX package uses a mod-1 associative scan): a float32 cumsum over
     1600 hops would lose ~1e-4 cycles.  Integer cycles are irrelevant
-    downstream."""
+    downstream.
+
+    A frame shard's block of a longer track (parallel.seqparallel) gives
+    start, the whole track's index of its first frame (negative in the
+    first shard's halo), and base [...] (float64), each row's cycles
+    before its first sample: the exact sum of the whole track's hop totals
+    before it (cycle_totals).  Positions are then the whole track's, the
+    prefix sum starts from base, and the block's samples are the whole
+    track's bit for bit."""
     if nx % nhop:
         raise ValueError("sample_cycles: nx must be a multiple of nhop")
-    d = cycle_steps(f0, nhop, fs, nx)
-    within = torch.cumsum(d.reshape(d.shape[:-1] + (-1, nhop)), dim=-1)
+    d = cycle_steps(f0, nhop, fs, nx, start)
+    # each partial summed in float64 and rounded, on every device (the
+    # CPU's float32 cumsum does so itself; a CUDA one would drift)
+    within = torch.cumsum(d.reshape(d.shape[:-1] + (-1, nhop)).to(
+        torch.float64), dim=-1).to(d.dtype)
     tot = torch.remainder(within[..., -1], 1.0).to(torch.float64)
-    off = torch.remainder(torch.cumsum(tot, dim=-1), 1.0).to(FP)
-    off = torch.cat([torch.zeros_like(off[..., :1]), off[..., :-1]], dim=-1)
+    pre = torch.cumsum(tot, dim=-1)
+    b = None if base is None else torch.as_tensor(
+        base, dtype=torch.float64, device=d.device).reshape(d.shape[:-1])
+    if b is not None:
+        pre = b[..., None] + pre
+    off = torch.remainder(pre, 1.0).to(FP)
+    first = torch.zeros_like(off[..., :1]) if b is None else \
+        torch.remainder(b, 1.0).to(FP)[..., None]
+    off = torch.cat([first, off[..., :-1]], dim=-1)
     c = torch.remainder(off[..., None] + within, 1.0).reshape(d.shape)
-    return torch.cat([torch.zeros_like(c[..., :1]), c[..., :-1]], dim=-1)
+    return torch.cat([first, c[..., :-1]], dim=-1)
 
 
-def cycle_steps(f0: torch.Tensor, nhop: int, fs: float,
-                nx: int) -> torch.Tensor:
+def cycle_totals(f0: torch.Tensor, nhop: int, fs: float, nx: int,
+                 start: int = 0) -> torch.Tensor:
+    """Each hop's cycles mod 1 as sample_cycles sums them: f0 [..., N] ->
+    [..., nx / nhop] float64, the float32 steps (cycle_steps) summed in
+    float64 (exact on analysis tracks, whatever the order), rounded to
+    float32, reduced mod 1.  Their float64 sums are exact too: the base a
+    frame shard gives sample_cycles."""
+    d = cycle_steps(f0, nhop, fs, nx, start).to(torch.float64)
+    w = torch.sum(d.reshape(d.shape[:-1] + (-1, nhop)), dim=-1).to(FP)
+    return torch.remainder(w, 1.0).to(torch.float64)
+
+
+def cycle_steps(f0: torch.Tensor, nhop: int, fs: float, nx: int,
+                start: int = 0) -> torch.Tensor:
     """The cycles each sample advances, d = F0 / fs, F0 (clamped at 0)
     lerped between frame centres (i*nhop): f0 [..., N] -> [..., nx] in
-    float32, the operations the kernel repeats (f0_over_fs)."""
+    float32, the operations the kernel repeats (f0_over_fs).  start: the
+    whole track's index of frame 0 (a frame shard's block), whose sample
+    positions the float32 lerp takes."""
     n = f0.shape[-1]
     f0s = torch.where(f0 > 0, f0, torch.zeros_like(f0))
-    pos = torch.arange(nx, dtype=FP, device=f0.device) / nhop
-    i0 = torch.clamp(torch.floor(pos).to(torch.int64), 0, n - 2)
-    t = torch.clamp(pos - i0, 0.0, 1.0)
-    return (f0s[..., i0] * (1.0 - t) + f0s[..., i0 + 1] * t) / fs
+    # the divisors as tensors on the device: PyTorch's CUDA divides by a
+    # host scalar as a product with its reciprocal, which rounds otherwise
+    div = lambda v: torch.tensor(v, dtype=f0s.dtype, device=f0.device)
+    pos = torch.arange(start * nhop, start * nhop + nx, dtype=FP,
+                       device=f0.device) / div(nhop)
+    i0 = torch.clamp(torch.floor(pos).to(torch.int64) - start, 0, n - 2)
+    t = torch.clamp(pos - (i0 + start), 0.0, 1.0)
+    return (f0s[..., i0] * (1.0 - t) + f0s[..., i0 + 1] * t) / div(fs)

@@ -5,8 +5,11 @@ analysis + synthesis on one card).
 A batch of same-bucket utterances runs as batched tensors on one device.
 Mixed lengths are handled by bucketing to a few frame counts, with
 length masks for the metrics; a row's result does not depend on its
-batch (layer0's row groups), so padding rows change nothing.  Sharding a
-corpus over several devices (the JAX package's `mesh`) is not ported.
+batch (layer0's row groups), so padding rows change nothing.  With a
+mesh (parallel.mesh.make_mesh) the batch is data-parallel over its batch
+axis: each rank runs its batch_size / n rows on its own device, and the
+SNRs (and, where the caller gets it, the audio) are all-gathered, so
+every rank yields the same dicts.
 """
 from __future__ import annotations
 
@@ -21,9 +24,8 @@ import torch
 from ..config import AnalysisOptions, SynthesisOptions
 from ..fp import FP
 from ..models import layer0
+from .mesh import BATCH_AXIS, all_gather, shard_batch
 
-# the ROADMAP Queue 1 item that brings sharding over devices, by title
-MULTI_DEVICE = 'Queue 1, "Multi-device",'
 # int16 PCM -> float: the float32 value of 1 / 32767, as the JAX package
 # multiplies (a Python float equal to it, so no rounding on the way)
 PCM16_SCALE = float(np.float32(1.0 / 32767.0))
@@ -87,11 +89,19 @@ def _pipeline(opt: AnalysisOptions, sopt: SynthesisOptions, x, f0, nx_valid,
 
 def batched_pipeline(opt: AnalysisOptions, sopt: SynthesisOptions,
                      x: torch.Tensor, f0: torch.Tensor, nx_valid: torch.Tensor,
-                     x_ref: torch.Tensor | None = None):
+                     x_ref: torch.Tensor | None = None, mesh=None):
     """Batched analyze+synthesize: x [B, nx], f0 [B, N], nx_valid [B];
     x_ref [B, nx] (optional) = clean harmonic reference for the SNR.
-    Returns (y [B, nx], snr [B], mean_snr)."""
+    Returns (y [B, nx], snr [B], mean_snr).
+
+    mesh: data-parallel over its batch axis.  The inputs are then this
+    rank's rows (mesh.shard_batch of the global batch, as the JAX package
+    shards them before its call); y stays this rank's rows (no gather, as
+    the JAX output keeps its sharding), snr is the global batch's,
+    all-gathered, and mean_snr its mean."""
     y, snr = _pipeline(opt, sopt, x, f0, nx_valid, x_ref)
+    if mesh is not None:
+        snr = all_gather(snr, mesh, BATCH_AXIS)
     return y, snr, torch.mean(snr)
 
 
@@ -111,10 +121,16 @@ def make_buckets(lengths: Sequence[int], bucket_frames: Sequence[int]
     return {b: idx for b, idx in buckets.items() if idx}
 
 
-def _check_mesh(mesh) -> None:
-    if mesh is not None:
-        raise layer0._unported("mesh= (a corpus sharded over devices)",
-                               MULTI_DEVICE)
+def _placement(mesh, batch_size: int, device):
+    """(device, rows -> this rank's rows on it) of a corpus run."""
+    if mesh is None:
+        dev = torch.device("cuda" if device is None else device)
+        return dev, lambda *a: tuple(torch.as_tensor(v).to(dev) for v in a)
+    n = mesh.shape[BATCH_AXIS]
+    if batch_size % n:
+        raise ValueError(f"batch_size {batch_size} does not split over "
+                         f"{n} ranks of the batch axis")
+    return mesh.device, lambda *a: shard_batch(a, mesh)
 
 
 def _retrying(fn, max_retries: int):
@@ -146,10 +162,11 @@ def run_corpus(opt: AnalysisOptions, sopt: SynthesisOptions,
     pairs so an interrupted run resumes without recomputation.  Transient
     per-batch failures (is_transient_error) are retried up to max_retries
     times before re-raising.  The batches run on `device`, the card unless
-    the caller passes device="cpu" (no fallback); `mesh` (sharding over
-    devices) is not ported."""
-    _check_mesh(mesh)
-    device = torch.device("cuda" if device is None else device)
+    the caller passes device="cpu" (no fallback).  mesh: data-parallel
+    over its batch axis (batch_size a multiple of its size), each rank on
+    mesh.device; every rank must pass the same corpus and yields the same
+    dicts, y all-gathered."""
+    device, place = _placement(mesh, batch_size, device)
     nhop = opt.conf.nhop
     buckets = make_buckets([len(f) for f in f0s], bucket_frames)
     done = checkpoint.setdefault("done", set()) \
@@ -172,24 +189,26 @@ def run_corpus(opt: AnalysisOptions, sopt: SynthesisOptions,
                 x[j, :nsamp] = signals[i][:nsamp]
                 f0[j, :nf] = f0s[i][:nf]
                 nxv[j] = nsamp
-            xj, f0j, nxj = (torch.from_numpy(a).to(device)
-                            for a in (x, f0, nxv))
+            xj, f0j, nxj = place(x, f0, nxv)
             y, snr, _ = _retrying(
-                lambda: batched_pipeline(opt, sopt, xj, f0j, nxj),
+                lambda: batched_pipeline(opt, sopt, xj, f0j, nxj, mesh=mesh),
                 max_retries)
+            if mesh is not None:
+                y = all_gather(y, mesh, BATCH_AXIS)
             done.add(key)
             yield {"bucket": b, "indices": sel,
                    "snr": snr.cpu().numpy()[:len(sel)], "y": y}
 
 
 def _batched_pipeline_pcm16(opt: AnalysisOptions, sopt: SynthesisOptions,
-                            want_audio: bool, x_i16, f0, nx_valid):
+                            want_audio: bool, x_i16, f0, nx_valid, mesh=None):
     """batched_pipeline on int16 PCM rows: the float conversion happens on
     the device (half the host->device bytes of float rows), exactly as the
     JAX package converts (x * float32(1 / 32767)), and the [B, nx] audio
     is dropped unless requested."""
     x = x_i16.to(FP) * PCM16_SCALE
-    y, snr, mean_snr = batched_pipeline(opt, sopt, x, f0, nx_valid)
+    y, snr, mean_snr = batched_pipeline(opt, sopt, x, f0, nx_valid,
+                                        mesh=mesh)
     return (y if want_audio else None), snr, mean_snr
 
 
@@ -219,17 +238,17 @@ def run_corpus_files(opt: AnalysisOptions, sopt: SynthesisOptions,
     rows are in `paths` order within each bucket.  Set want_audio=True to
     get the resynthesized audio rows (numpy [n, bucket * nhop]) and their
     valid lengths (costs the device->host transfer).  The batches run on
-    `device`, the card unless the caller passes device="cpu"; `mesh` is not
-    ported.  timings (optional): a list to which each batch appends
+    `device`, the card unless the caller passes device="cpu".  mesh: as
+    run_corpus's (each rank tracks and runs its rows; the audio rows
+    all-gathered).  timings (optional): a list to which each batch appends
     {"bucket", "rows", "assemble_ms" (the worker's load and assembly),
     "wait_ms" (how long the step loop waited for it), "track_ms" (the
     copy to the device and the tracker), "step_ms" (the pipeline, to the
     batch's SNR on the host)}."""
-    _check_mesh(mesh)
     from ..ops import f0 as f0mod
     from ..utils import dataio
 
-    device = torch.device("cuda" if device is None else device)
+    device, _ = _placement(mesh, batch_size, device)
     pin = device.type == "cuda"
     nhop = opt.conf.nhop
     lengths = [dataio.wav_nsamples(p) for p in paths]
@@ -285,6 +304,12 @@ def run_corpus_files(opt: AnalysisOptions, sopt: SynthesisOptions,
             t1 = time.perf_counter()
             if k + 1 < len(plan):
                 fut = pool.submit(assemble, plan[k + 1])
+            nx_all = nxv
+            if mesh is not None:          # this rank's rows of the batch
+                n = batch_size // mesh.shape[BATCH_AXIS]
+                r0 = mesh.index(BATCH_AXIS) * n
+                xh, f0np, nxv = xh[r0:r0 + n], f0np[r0:r0 + n], nxv[r0:r0 + n]
+                untracked = [j - r0 for j in untracked if r0 <= j < r0 + n]
             xj = xh.to(device, non_blocking=pin)
             f0j = torch.from_numpy(f0np).to(device)
             nxj = torch.from_numpy(nxv).to(device)
@@ -295,15 +320,17 @@ def run_corpus_files(opt: AnalysisOptions, sopt: SynthesisOptions,
             t2 = time.perf_counter()
             y, snr, _ = _retrying(
                 lambda: _batched_pipeline_pcm16(opt, sopt, bool(want_audio),
-                                                xj, f0j, nxj),
+                                                xj, f0j, nxj, mesh=mesh),
                 max_retries)
             done.add((b, start))
             out = {"bucket": b, "indices": sel,
                    "paths": [paths[i] for i in sel],
                    "snr": snr.cpu().numpy()[:len(sel)]}
             if want_audio:
+                if mesh is not None:
+                    y = all_gather(y, mesh, BATCH_AXIS)
                 out["y"] = y[:len(sel)].cpu().numpy()
-                out["nx"] = nxv[:len(sel)]
+                out["nx"] = nx_all[:len(sel)]
             if timings is not None:
                 timings.append({"bucket": b, "rows": len(sel),
                                 "assemble_ms": asm_ms,

@@ -15,6 +15,13 @@ same frames with the same derived noise seed (noise_seed + s): the pool
 renders its frames in the solo path's groups of feed_block rows and its
 pulses in groups of the solo pulse budget (rtsynth's module docstring).
 
+With a mesh (parallel.mesh) the tick's render is data-parallel over the
+mesh's first axis: every rank keeps every stream's host state and is fed
+the same frames, renders the due streams among its n_streams / n ones
+(and its share of the pulse groups), and the rendered rows are
+all-gathered, so every rank commits every ring and fetch(s) works for
+every stream on every rank.
+
 Latency: feed_block + 1 hops (the service granularity plus one lookahead
 frame).
 
@@ -30,11 +37,12 @@ import dataclasses
 import time
 
 import numpy as np
+import torch
 
 from ..config import ChunkConf, SynthesisOptions
-from ..models import layer0
-from ..parallel.corpus import MULTI_DEVICE
-from .rtsynth import RTSynthesizer, _pulses_host, _render_host
+from ..parallel.mesh import all_gather
+from .rtsynth import (RTSynthesizer, _pulses_host, _render_frames,
+                      _render_host, _render_pulses, _stage)
 
 
 class StreamPool:
@@ -49,16 +57,27 @@ class StreamPool:
       feed_block: hops rendered a stream a service tick.
       capacity_frames, phase_mode, synth_mode: each stream's
         RTSynthesizer's.
-      mesh: not ported (a row-sharded render over several devices).
-      device: where the renders run ("cuda" unless given).
+      mesh: a parallel.mesh.Mesh: the render is sharded over its first
+        axis (n_streams a multiple of its size; each rank renders its
+        streams' rows on mesh.device).
+      device: where the renders run ("cuda" unless given; mesh.device
+        with a mesh).
     """
 
     def __init__(self, sopt: SynthesisOptions, conf: ChunkConf,
                  n_streams: int, feed_block: int = 16,
                  capacity_frames: int = 256, phase_mode: str = "absolute",
                  synth_mode: str = "harmonic", mesh=None, device=None):
+        self.mesh = mesh
+        self._ndev, self._rank = 1, 0
         if mesh is not None:
-            raise layer0._unported("StreamPool(mesh=...)", MULTI_DEVICE)
+            self._axis = mesh.axis_names[0]
+            self._ndev = mesh.shape[self._axis]
+            self._rank = mesh.index(self._axis)
+            if int(n_streams) % self._ndev:
+                raise ValueError(f"n_streams={n_streams} must divide over "
+                                 f"{self._ndev} ranks")
+            device = mesh.device
         self.conf = conf
         self.n_streams = int(n_streams)
         self.feed_block = int(feed_block)
@@ -140,15 +159,17 @@ class StreamPool:
                         "pooled streams must share one spectral grid")
             budget = self.streams[0]._pulse_budget()
             flat = [j for pj in jobs for j in pj]
+            # groups of the solo budget, as many as a multiple of the ranks
+            groups = -(-len(flat) // budget)
+            groups = -(-groups // self._ndev) * self._ndev
             pulse_rows = RTSynthesizer._pack_pulse_jobs(
-                self.conf, flat, -(-len(flat) // budget) * budget)
+                self.conf, flat, groups * budget)
         t1 = time.perf_counter()
-        segs = _render_host(self.conf, ins, MB, self.device)
+        segs = self._render(ins, due, MB)
         self.dispatches += 1
         pulses = None
         if pulse_rows is not None:
-            pulses = _pulses_host(self.conf, pulse_rows, os0, budget,
-                                  self.device)
+            pulses = self._pulses(pulse_rows, os0, budget)
             self.dispatches += 1
         t2 = time.perf_counter()
         p0 = 0
@@ -165,6 +186,46 @@ class StreamPool:
                                 render=(t2 - t1) * 1e3,
                                 commit=(t3 - t2) * 1e3))
         return len(per)
+
+    def _render(self, ins: dict, due, MB: int) -> np.ndarray:
+        """The due streams' segments (host), each stream's MB rows rendered
+        as the solo path renders them; with a mesh each rank renders its
+        own streams' rows and the rows are all-gathered."""
+        fields = RTSynthesizer._FIELDS
+        if self.mesh is None:
+            return _render_host(self.conf, ins, MB, self.device)
+        per = self.n_streams // self._ndev
+        owner = [s // per for s in due]
+        mine = [j for j, r in enumerate(owner) if r == self._rank]
+        rows = np.concatenate([np.arange(j * MB, (j + 1) * MB)
+                               for j in mine]).astype(np.int64) \
+            if mine else np.zeros((0,), np.int64)
+        width = per * MB
+        out = torch.zeros((width, 2 * self.streams[0].nhop),
+                          dtype=torch.float32, device=self.device)
+        if mine:
+            out[:len(rows)] = _render_frames(self.conf, *_stage(
+                [ins[k][rows] for k in fields], self.device), rows=MB)
+        gathered = all_gather(out, self.mesh, self._axis).cpu().numpy()
+        segs = np.empty((len(due) * MB, gathered.shape[1]), np.float32)
+        for r in range(self._ndev):
+            js = [j for j, o in enumerate(owner) if o == r]
+            for n, j in enumerate(js):
+                segs[j * MB:(j + 1) * MB] = gathered[r * width + n * MB:
+                                                     r * width + (n + 1) * MB]
+        return segs
+
+    def _pulses(self, args, os_: int, budget: int) -> np.ndarray:
+        """The pooled pulse rows (host), in groups of `budget` rows; with a
+        mesh each rank renders its share of the groups, all-gathered."""
+        if self.mesh is None:
+            return _pulses_host(self.conf, args, os_, budget, self.device)
+        share = len(args[0]) // self._ndev
+        r0 = self._rank * share
+        mine = _render_pulses(self.conf, *_stage(
+            [a[r0:r0 + share] for a in args], self.device), int(os_),
+            rows=budget)
+        return all_gather(mine, self.mesh, self._axis).cpu().numpy()
 
     def end_stream(self, s: int) -> None:
         """Flush stream s: render a sub-block remainder (solo renders: the

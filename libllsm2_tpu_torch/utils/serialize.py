@@ -6,6 +6,12 @@ vectors compact quantized archives; the files are the JAX package's,
 byte for byte in layout, so an archive written by either package loads in
 the other.  Loaded chunks go to the card unless the caller passes
 device="cpu".
+
+The sharded checkpoints (chunk_save_orbax / chunk_load_orbax, named after
+the JAX package's counterparts so a reader finds them) are
+torch.distributed.checkpoint directories, not orbax ones: the card's
+machine has no orbax, so the JAX package's orbax directories do not load
+in the port, nor the port's in JAX.  The npz archives cross both ways.
 """
 from __future__ import annotations
 
@@ -60,20 +66,59 @@ def chunk_load(path: str, device=None) -> Chunk:
     return Chunk(conf=conf, extras=extras or None, **kw)
 
 
-def chunk_save_orbax(path: str, chunk: Chunk) -> None:
-    """The JAX package's sharded (orbax) checkpoint: not ported."""
-    from ..parallel import corpus
-    from ..models import layer0
-    raise layer0._unported("chunk_save_orbax (sharded checkpoints)",
-                           corpus.MULTI_DEVICE)
+def chunk_save_orbax(path: str, chunk: Chunk, mesh=None) -> None:
+    """Sharded checkpoint of a chunk (no batch axis) in a
+    torch.distributed.checkpoint directory at `path` (the counterpart of
+    the JAX package's orbax checkpoint; the formats do not cross).
+
+    Every rank of the world calls it with the same chunk (SPMD).  With a
+    mesh whose frame axis has S > 1 ranks, each rank writes its block of
+    N / S frame rows of every field (ranks that hold the same block write
+    it once); without one, the whole chunk is written once.  The conf
+    rides along as JSON."""
+    import torch.distributed as dist
+    import torch.distributed.checkpoint as dcp
+
+    from ..parallel.mesh import FRAME_AXIS
+
+    n, i = 1, 0
+    if mesh is not None and FRAME_AXIS in mesh.shape:
+        n, i = mesh.shape[FRAME_AXIS], mesh.index(FRAME_AXIS)
+    N = chunk.nfrm
+    if N % n:
+        raise ValueError(f"{N} frames do not split over {n} shards")
+    r0, nl = i * (N // n), N // n
+    state = {"__conf__": json.dumps(dataclasses.asdict(chunk.conf))}
+    for name in _ARRAY_FIELDS:
+        v = getattr(chunk, name)
+        if v is not None:
+            # the frame axis is the chunk's first: rows r0 .. r0 + nl
+            state[f"{name}/{r0}"] = v[r0:r0 + nl].detach().cpu().contiguous()
+    dcp.save(state, checkpoint_id=path, no_dist=not dist.is_initialized())
 
 
-def chunk_load_orbax(path: str) -> Chunk:
-    """The JAX package's sharded (orbax) checkpoint: not ported."""
-    from ..parallel import corpus
-    from ..models import layer0
-    raise layer0._unported("chunk_load_orbax (sharded checkpoints)",
-                           corpus.MULTI_DEVICE)
+def chunk_load_orbax(path: str, device=None) -> Chunk:
+    """Load a chunk_save_orbax directory in one process (whatever the
+    world it was written by) onto `device` (default the card)."""
+    import torch.distributed.checkpoint as dcp
+
+    device = "cuda" if device is None else device
+    meta = dcp.FileSystemReader(path).read_metadata().state_dict_metadata
+    state = {"__conf__": ""}
+    for key, m in meta.items():
+        if key != "__conf__":
+            state[key] = torch.empty(tuple(m.size), dtype=m.properties.dtype)
+    dcp.load(state, checkpoint_id=path, no_dist=True)
+    conf = _conf(json.loads(state.pop("__conf__")))
+    parts = {}
+    for key, v in state.items():
+        name, r0 = key.rsplit("/", 1)
+        parts.setdefault(name, []).append((int(r0), v))
+    kw = {name: (torch.cat([v for _, v in sorted(parts[name],
+                                                 key=lambda p: p[0])])
+                 .to(device) if name in parts else None)
+          for name in _ARRAY_FIELDS}
+    return Chunk(conf=conf, **kw)
 
 
 def _f0_step16(q, s: int) -> float:

@@ -74,21 +74,35 @@ with the Pallas kernels in interpret mode:
             and 64 (clean); then create_aoptions(f0_floor=70,
             use_pallas=True) with hm_method="pp", hm_passes=2,
             hm_correction="none" and frame_chunk=64 in turn (the Pallas
-            kernels in interpret mode) on rows 0 and 1.
+            kernels in interpret mode) on rows 0 and 1;
+  mesh      chip_smoke.py phase 19a: parallel.seqparallel's frame-sharded
+            analysis and synthesis over make_mesh(4, frame_parallel=4) (4
+            virtual CPU devices) with the 16 kHz options above, on two
+            64 s utterances (make_test_utterance, seed 0 with noise 0.05
+            and seed 64 clean): the SNR of y_sin against the clean harmonic
+            part (snr_db below), and the same through the one-process
+            analyze -> synthesize.
 
     JAX_PLATFORMS=cpu python scripts/port_jax_pins.py [duration=8.0] \
         [only=l0,11k,l1,pbp,corpus,edits,coder,nasal,stream,dspkit,
-              learned,fp64]
+              learned,fp64,mesh] [mesh_seconds=64]
 
 CPU time of the parts added last, on an 8-core x86 host: corpus 49.3 s,
 edits 42.1 s, coder 32.2 s, nasal 4.8 s (run after coder in one process);
-learned ~25 s, fp64 ~15 s.
+learned ~25 s, fp64 ~15 s; mesh 127 s at 64 s.
 """
 import dataclasses
+import os
 import sys
 import time
 
-import jax
+# part mesh shards over 4 virtual CPU devices (set before jax loads)
+if "xla_force_host_platform_device_count" not in os.environ.get("XLA_FLAGS",
+                                                                ""):
+    os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") +
+                               " --xla_force_host_platform_device_count=4")
+
+import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
 
@@ -525,11 +539,34 @@ def fp64_round_trip():
     return float(r.stdout.strip().splitlines()[-1])
 
 
+def mesh_rows(seconds):
+    """chip_smoke.py phase 19a's utterances through the JAX package's
+    frame-sharded analysis and synthesis on 4 devices, and through its
+    one-process analyze -> synthesize -> {seed: (sharded SNR, one-process
+    SNR)}."""
+    from libllsm2_tpu.parallel import mesh as meshlib, seqparallel
+    opt, sopt = _opts16()
+    m = meshlib.make_mesh(4, frame_parallel=4)
+    out = {}
+    for seed, nl in ((0, 0.05), (64, 0.0)):
+        x, f0, x_ref = testsig.make_test_utterance(
+            duration=seconds, seed=seed, noise_level=nl, return_parts=True)
+        ref = np.asarray(x_ref, np.float32)
+        chunk = seqparallel.analyze_frame_sharded(opt, x, f0, m)
+        y = np.asarray(seqparallel.synthesize_frame_sharded(sopt, chunk,
+                                                            m).y_sin)
+        y1 = np.asarray(layer0.synthesize(sopt, layer0.analyze(
+            opt, x, f0)).y_sin)
+        out[seed] = tuple(float(snr_db(ref, v, opt.conf.fs,
+                                       opt.conf.f0_floor)) for v in (y, y1))
+    return out
+
+
 def main():
     kw = dict(a.split("=", 1) for a in sys.argv[1:])
     duration = float(kw.get("duration", 8.0))
     only = kw.get("only", "l0,11k,l1,pbp,corpus,edits,coder,nasal,stream,"
-                  "dspkit,learned,fp64").split(",")
+                  "dspkit,learned,fp64,mesh").split(",")
     if "l0" in only:
         t0 = time.perf_counter()
         print(f"16 kHz batched_pipeline at {duration} s:",
@@ -603,6 +640,12 @@ def main():
         print("the float64 round trip of tests/test_fp64.py, y_sin SNR:",
               fp64_round_trip(), f"({time.perf_counter() - t0:.1f} s)",
               flush=True)
+    if "mesh" in only:
+        t0 = time.perf_counter()
+        secs = float(kw.get("mesh_seconds", 64.0))
+        print(f"round trip at {secs} s, y_sin SNR (frame-sharded on 4 "
+              "devices, one process):", mesh_rows(secs),
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
 if __name__ == "__main__":
     main()

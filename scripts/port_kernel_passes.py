@@ -135,8 +135,8 @@ def main():
             p_im.data_ptr(), p_ws.data_ptr(), p_xs.data_ptr(), B, N * NHOP,
             N, K, NHOP, 6 * NHOP, 0.5, -0.5, 0.0, 0.0, stream),
         "sample_cycles": lambda fn: fn(
-            f0.data_ptr(), cyc_o.data_ptr(), words.data_ptr(), B, N, NHOP,
-            N * NHOP, 16000.0, stream),
+            f0.data_ptr(), cyc_o.data_ptr(), words.data_ptr(), None, 0, B,
+            N, NHOP, N * NHOP, 16000.0, stream),
     }
     for (name, a, b), fn in libs.items():
         rc = calls[name](fn)

@@ -6,6 +6,7 @@ files with and without F0 sidecars, its guards, and the loader's arrays.
 The JAX runs use the Pallas branch in interpret mode.  Inputs are made
 from seeds with numpy; each test states its tolerance."""
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -18,6 +19,7 @@ from libllsm2_tpu.utils import testsig
 
 import libllsm2_tpu_torch as tpkg
 from libllsm2_tpu_torch.parallel import corpus as tcorpus
+from libllsm2_tpu_torch.parallel import mesh as tmesh
 from libllsm2_tpu_torch.utils import audio as taudio
 from libllsm2_tpu_torch.utils import dataio as tdataio
 
@@ -253,8 +255,8 @@ def test_run_corpus_files_equals_run_corpus_on_quantized_signals(wav_corpus):
 
 def test_run_corpus_files_guards(wav_corpus, tmp_path):
     """A file at another rate is refused with a clear ValueError (the rate
-    guard); mesh= raises NotImplementedError naming its ROADMAP item, in
-    both runners."""
+    guard); a mesh whose batch axis does not split batch_size is refused
+    with a ValueError, in both runners; a one-rank mesh runs as no mesh."""
     opt, sopt = _opts(tpkg)
     xb, _ = testsig.make_test_utterance(duration=0.3, seed=99)
     bad = str(tmp_path / "bad.wav")
@@ -262,13 +264,20 @@ def test_run_corpus_files_guards(wav_corpus, tmp_path):
     with pytest.raises(ValueError, match="sample rate"):
         list(tcorpus.run_corpus_files(opt, sopt, [bad], bucket_frames=(64,),
                                       batch_size=1, device="cpu"))
-    with pytest.raises(NotImplementedError, match="Multi-device"):
+    four = types.SimpleNamespace(shape={"batch": 4})
+    with pytest.raises(ValueError, match="does not split"):
         list(tcorpus.run_corpus_files(opt, sopt, wav_corpus[0][:1],
-                                      mesh=object(), device="cpu"))
+                                      batch_size=6, mesh=four, device="cpu"))
     sigs, f0s = _small_corpus()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        list(tcorpus.run_corpus(opt, sopt, sigs, f0s, mesh=object(),
-                                device="cpu"))
+    with pytest.raises(ValueError, match="does not split"):
+        list(tcorpus.run_corpus(opt, sopt, sigs, f0s, batch_size=6,
+                                mesh=four, device="cpu"))
+    one = tmesh.make_mesh(1, device="cpu")
+    kw = dict(bucket_frames=(64,), batch_size=2)
+    for a, b in zip(tcorpus.run_corpus(opt, sopt, sigs, f0s, mesh=one, **kw),
+                    tcorpus.run_corpus(opt, sopt, sigs, f0s, device="cpu",
+                                       **kw)):
+        np.testing.assert_array_equal(a["snr"], b["snr"])
     if not torch.cuda.is_available():
         with pytest.raises((AssertionError, RuntimeError)):
             list(tcorpus.run_corpus(opt, sopt, sigs, f0s, bucket_frames=(64,)))

@@ -136,8 +136,9 @@ def test_stft_dct_hilbert_match():
                 jstft.hilbert_envelope(jnp.asarray(X))) <= 1e-5
 
 
-# tests/test_dspkit.py's oracles on the port (its orbax and plotting cases
-# belong to the checkpoint and plotting items of ROADMAP Queue 1)
+# tests/test_dspkit.py's oracles on the port (its orbax round trip is
+# tests/test_torch_mesh_models.py's test_orbax_roundtrip, on the port's
+# torch.distributed.checkpoint directories)
 
 def test_fir1_bandpass_response():
     h = filters.fir1_bandpass(127, 1000.0, 3000.0, 16000.0).numpy()

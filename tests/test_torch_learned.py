@@ -146,11 +146,29 @@ def test_ae_trajectory_matches_jax():
 
 
 def test_ae_mesh_entries_raise():
-    _, tc = _ae("float32")
-    for fn in (lambda: tnn.tp_param_specs(tc),
-               lambda: tnn.shard_params_tp(tc, None, None)):
-        with pytest.raises(NotImplementedError, match="Multi-device"):
-            fn()
+    """The tensor-parallel entries, once refused, now run:
+    tp_param_specs shards what the JAX package's PartitionSpecs shard (its
+    [in, out] w's model axis at nn.Linear's other dimension), and
+    shard_params_tp on a one-rank mesh gives the module's forward."""
+    from libllsm2_tpu.parallel import mesh as jmesh
+    from libllsm2_tpu_torch.parallel import mesh as tmesh
+
+    jc, tc = _ae("float32")
+    specs = tnn.tp_param_specs(tc)
+    for name, spec in jnn.tp_param_specs(jc).items():
+        t = specs[name.replace("_res", "_res.")]
+        w_dim = list(spec["w"]).index(jmesh.MODEL_AXIS)
+        assert t["weight"] == (1 - w_dim, tmesh.MODEL_AXIS)
+        assert t["bias"] == (None if spec["b"] == jax.sharding.PartitionSpec()
+                             else (0, tmesh.MODEL_AXIS))
+    model = tnn.init_params(tc, torch.Generator().manual_seed(0), "cpu")
+    tp = tnn.shard_params_tp(tc, model, tmesh.make_tp_mesh(1, 1, "cpu"))
+    x = torch.tensor(np.random.default_rng(0).standard_normal((8, DIMS)),
+                     dtype=torch.float32)
+    with torch.no_grad():
+        np.testing.assert_allclose(tnn.forward(tc, tp, x).numpy(),
+                                   tnn.forward(tc, model, x).numpy(),
+                                   rtol=1e-6, atol=1e-6)
 
 
 # --- the VQ codec ----------------------------------------------------------

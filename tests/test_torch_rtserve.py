@@ -5,6 +5,7 @@ noise seed.  Three voices of synth_lf_speech at the small verification
 conf, analyzed by the port; then the pool against the JAX package's on
 one carried-across voice."""
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -154,8 +155,10 @@ def test_pool_matches_jax_pool(voices):
 
 def test_refusals(voices):
     c = tl1.chunk_to_layer1(voices[0][0])
-    with pytest.raises(NotImplementedError, match="Multi-device"):
-        StreamPool(SOPT, OPT.conf, n_streams=2, mesh=object(), device="cpu")
+    four = types.SimpleNamespace(axis_names=("batch",), shape={"batch": 4},
+                                 index=lambda axis: 0, device="cpu")
+    with pytest.raises(ValueError, match="divide"):
+        StreamPool(SOPT, OPT.conf, n_streams=2, mesh=four)
     pool = StreamPool(SOPT, OPT.conf, n_streams=2, feed_block=16,
                       synth_mode="pbp", device="cpu")
     pool.streams[1].sopt = dataclasses.replace(SOPT, pbp_oversample=2)
