@@ -29,7 +29,9 @@ non-zero without the final "ok" line:
      (noise_bins, held to its twin's bits exactly and its normals within
      1e-6) and its cycle track (sample_cycles, within 1e-4 cycles mod 1
      of its twin on the card and 1e-6 of its twin on the CPU, which sums
-     in the kernel's order; the analysis's and the synthesis's calls), the
+     in the kernel's order; the analysis's and the synthesis's calls), its
+     F0 refine (refine_f0_dec: the decimating FIR and the phase probes in
+     one call, within 1e-4 relative of its twin), the
      track lowpass's FIR
      pair (track_lowpass_hz=30: a voicing column and a complex track), env_render on the envelope
      coefficients of the main path's noise_mod_ola call, the unframed
@@ -56,7 +58,8 @@ non-zero without the final "ok" line:
   5. main path, the library default (create_aoptions(f0_floor=70,
      use_pallas=True): denoiser on, spectral gate at decimation 4) on all
      128 rows x 8 s after zeroing the launch counters: all six kernels,
-     fir_frames, noise_bins and sample_cycles must have launched, clean
+     fir_frames, noise_bins, sample_cycles and refine_f0_dec must have
+     launched (refine_f0_dec also held to its twin at full batch), clean
      rows >= 55.17 dB,
      noisy rows 0 and 1 within 0.05 dB and clean row 64 at most 0.1 dB
      under the JAX package's values (denoise_finish launched too).  Then
@@ -72,7 +75,8 @@ non-zero without the final "ok" line:
      their analysis chunk and their y, y_sin and y_nos must equal, bit for
      bit, the same rows of the 128-row run, as must every sample_cycles call's rows wherever their
      F0 rows are equal, and the kernel on the bench F0 rows alone must
-     equal its rows in the batch; both runs' SNRs printed.
+     equal its rows in the batch, as must refine_f0 on the bench rows;
+     both runs' SNRs printed.
   6. hm_kernel="matmul" at the library default, all 128 rows x 8 s: the
      main harmonic pass through harmonic_project_mxu (launched), the pins
      of phase 5; prints harmonic_project_mxu's full-batch time beside its
@@ -272,11 +276,11 @@ non-zero without the final "ok" line:
      options, launch counters zeroed before: every kernel of the path
      launched in every rank and every captured call held against its
      plain version (phase 3's tolerances); against this process's
-     one-process run on the card: hm_mask equal, f0 within 1e-4 relative
-     (the largest difference and the rows printed: the refine's FIR
-     products, which cuBLAS orders by the block's shape, move it by an
-     ulp here and there, and with it the tracks, whose differences are
-     printed), the round trip's y_sin SNR within 0.05 dB of the
+     one-process run on the card: hm_mask, f0, ampl, the complex track
+     and psd equal bit for bit (the refine kernel sums each frame in an
+     order of its own, and the last block's cycle track ends at the
+     signal's end as the one-process lerp does), the round trip's
+     y_sin SNR within 0.05 dB of the
      one-process round trip's and of the JAX package's one-process value,
      and no more than 0.05 dB under its sharded one (MESH_PINS_DB, which
      says why); then every stage after the refinement against one
@@ -310,7 +314,7 @@ PyTorch yardstick on the same inputs (where its operands do not fit in the
 card's memory, timed on the first 1/2, 1/4, ... of the rows and scaled,
 which the line says).  The line before the last is
 the kernels' JSON summary: launches from the phase that runs each (5 for
-the six, fir_frames, noise_bins and sample_cycles, 6 for
+the six, fir_frames, noise_bins, sample_cycles and refine_f0_dec, 6 for
 harmonic_project_mxu, 7 for
 harmonic_project, 9 for env_render, 16c for noise_mod_ola_seg;
 denoise_apply also "finish_launches" and "finish_full_batch" for its
@@ -534,6 +538,11 @@ KERNELS = {
     # wrapped |difference| in cycles
     "sample_cycles": ("libllsm2_tpu_torch/csrc/sample_cycles.cu",
                       "libllsm2_tpu/ops/harmonics.py:35", 1e-4),
+    # not a Pallas kernel: the decimated F0 refine (the JAX package's jnp,
+    # which XLA fuses); relative |error| of the F0 track, a frame voiced in
+    # one and not the other an infinite one
+    "refine_f0_dec": ("libllsm2_tpu_torch/csrc/refine_f0.cu",
+                      "libllsm2_tpu/ops/harmonics.py:372", 1e-4),
 }
 # phase 16: the segment-input entry of noise_mod_ola.cu (noise_idft="fft"),
 # a wrapper of its own; source, TPU kernel it replaces, tolerance
@@ -604,7 +613,6 @@ MESH_PINS_DB = {0: (40.92445755004883, 40.92669677734375),
 MESH_PINS_SECONDS = 64.0                  # the utterances the pins hold
 MESH_SNR_TOL_DB = 0.05
 MESH_EDGE = 10                            # rows at each global edge
-MESH_F0_RTOL = 1e-4
 # tests/test_parallel.py's tolerances (ampl, the complex track and psd on
 # rows [MESH_EDGE:-MESH_EDGE]; env_inner on rows [4:-4])
 MESH_TOL = {"ampl": 2e-6, "cplx": 1e-5, "psd": 1e-5, "edc": 5e-3,
@@ -620,8 +628,9 @@ MESH_TIMEOUT_S = 600
 MESH_FIELDS = ("f0", "ampl", "phse", "hm_mask", "psd", "edc", "eenv_a",
                "eenv_p")
 MAIN_SIX = tuple(KERNELS)[:6]     # the library-default path's CUDA kernels
-# ... and its frame-axis FIR, noise draw and cycle track
-MAIN = MAIN_SIX + ("fir_frames", "noise_bins", "sample_cycles")
+# ... and its frame-axis FIR, noise draw, cycle track and F0 refine
+MAIN = MAIN_SIX + ("fir_frames", "noise_bins", "sample_cycles",
+                   "refine_f0_dec")
 # denoise_apply's second launch (the finish after the spectral gate), a
 # wrapper of its own in denoise_apply.cu, checked under denoise_apply
 FINISH = "denoise_finish"
@@ -630,6 +639,8 @@ PATH = MAIN + (FINISH,)           # every wrapper the main path launches
 ANALYSIS = tuple(k for k in PATH if k not in ("noise_mod_ola", "noise_bins"))
 BATCH_ROWS = (0, 1, 64)           # phase 5: rows whose analysis and output
                                   # must not depend on the batch
+# kernels held to their plain version at full batch as well (phase 5)
+FULL_CHECKED = ("refine_f0_dec",)
 
 
 class PhaseError(Exception):
@@ -697,6 +708,11 @@ def max_err(torch, name, got, ref, scale=1.0, kw=None):
     if name == "sample_cycles":                     # mod 1, in cycles
         d = got.double() - ref.double()
         return float(torch.max(torch.abs(d - torch.round(d))))
+    if name == "refine_f0_dec":                     # relative, voiced frames
+        if not torch.equal(got == 0, ref == 0):
+            return float("inf")
+        return float(torch.max(torch.abs(got - ref)
+                               / torch.clamp(torch.abs(ref), min=1e-6)))
     if name == "harmonic_project_mxu":
         # wsum and xsum count relative to their own peak, in track units
         rel = lambda g, r: float(torch.max(torch.abs(g - r))
@@ -841,6 +857,27 @@ def kernel_ops(torch, name, args, kw):
         # mod 1 (3), the within-hop running sum's float64 add (2: the H100's
         # float64 rate is half its float32 rate)
         return 13.0 * (a[0].numel() // a[0].shape[-1]) * a[3]
+    if name == "refine_f0_dec":              # x, f0, taps; D, ..., window
+        # the FIR: an FMA a tap an output; a voiced frame (the others write
+        # 0): each of its iters x 2 probes takes, a sample of its window's
+        # support (2 ceil(hw) + 1, hw from the input F0), the window (a
+        # division and 4, each cosine term 22; mltsine one sine), the phase
+        # mod 1 (3) and its sincos (20), two FMAs (4); the last probe's
+        # double angle 8 more
+        from libllsm2_tpu_torch.ops.kernels import _refine_dims
+        from libllsm2_tpu_torch.ops.windows import COSINE_SERIES
+        x, f0 = a[0], a[1]
+        dm = _refine_dims(x.shape[-1], kw["D"], kw["nhop"], kw["fs"],
+                          kw["halfwin_max"])
+        terms = len(COSINE_SERIES.get(kw["window"], (0, 0))) - 1
+        sample = 4.0 + 22.0 * terms + 3.0 + 20.0 + 4.0
+        f0v = f0[f0 > 0].double()
+        hw = torch.clamp(kw["rel_winsize"] * dm["fs_d"] / (2.0 * f0v), 2.0,
+                         float(dm["H_d"]))
+        support = float(torch.clamp(2 * torch.ceil(hw) + 1,
+                                    max=dm["Wf"]).sum())
+        return (2.0 * len(a[2]) * x.shape[0] * dm["nxd"]
+                + support * (2 * kw["iters"] * sample + 8.0))
     if name == "denoise_stats":
         return float(a[0].numel()) * (4.0 * len(a[5]) + 4.0 * len(a[6]) + 40.0)
     if name == "denoise_apply":
@@ -1084,6 +1121,15 @@ def full_batch(torch, kernels, calls, label):
         out[name] = []
         for i, (args, kw) in enumerate(calls[name]):
             got = fn(*args, **kw)
+            full_err = None
+            if name in FULL_CHECKED:
+                # its twin fits at full batch: held to it there too
+                tol = KERNELS[name][2]
+                full_err = max_err(torch, name, got, getattr(
+                    kernels, name + "_ref")(*args, **kw), kw=kw)
+                phase(f"{label} {name}[{i}] at full batch", full_err <= tol,
+                      f"shapes {_shapes(torch, args)[:2]} against its plain "
+                      f"version: max err {full_err:.3e} (tol {tol})")
             ms = cuda_ms(torch, lambda: fn(*args, **kw), 10)
             run = run_ms(torch, lambda: fn(*args, **kw), 20)
             bound_ms, bound_by = bound(torch, name, args, kw, got)
@@ -1108,7 +1154,8 @@ def full_batch(torch, kernels, calls, label):
                               "bound_ms": bound_ms, "bound_by": bound_by,
                               "library_ms": library_ms,
                               "library_row_fraction": None if library_ms
-                              is None else 1.0 / scale, "host_ms": host_ms})
+                              is None else 1.0 / scale, "host_ms": host_ms,
+                              "max_abs_err": full_err})
     torch.cuda.empty_cache()
     return out
 
@@ -2318,14 +2365,24 @@ def batch_rows(torch, mods, opt, sopt, data, snr_whole):
     direct = all(torch.equal(kernels.sample_cycles(data[1][r:r + 1], nhop,
                                                    fs, nx)[0], trk[r])
                  for r in BATCH_ROWS)
+    # the refine (one launch of refine_f0.cu, no row groups) likewise
+    from libllsm2_tpu_torch.ops import harmonics
+    conf = opt.conf
+    rkw = dict(nhop=nhop, fs=fs, halfwin_max=conf.halfwin_max,
+               rel_winsize=conf.rel_winsize, f0_ceil=conf.f0_ceil)
+    ref_b = harmonics.refine_f0(data[0], data[1], **rkw)
+    refine = all(torch.equal(harmonics.refine_f0(
+        data[0][r:r + 1], data[1][r:r + 1], **rkw)[0], ref_b[r])
+        for r in BATCH_ROWS)
     phase("5 rows alone = in the batch",
           len(same) == len(BATCH_ROWS) * len(whole) > 0 and direct
-          and all(o for i, o in same if i) and len(fields) == 11
+          and refine and all(o for i, o in same if i) and len(fields) == 11
           and all(fields.values()),
           f"rows {list(BATCH_ROWS)}: every chunk field and output bit for "
           f"bit: {fields}; {len(same)} sample_cycles calls of the "
           f"pipeline, (f0 rows equal, tracks equal): {same}; "
           f"the kernel on the bench F0 rows alone = in the batch: {direct}; "
+          f"refine_f0 on the bench rows alone = in the batch: {refine}; "
           f"SNR alone {snr_alone} dB, in the {BATCH}-row batch "
           f"{[round(snr_whole[r], 4) for r in BATCH_ROWS]} dB")
 
@@ -3957,9 +4014,8 @@ def mesh_phase(torch, mods, data, vec, dev):
               f"on CUDA tensors: {res[0]['gloo_cuda'] or 'none (CPU)'}")
 
         # 19a against this process's runs of the same utterances: the
-        # whole analysis, then every stage after the F0 refinement fed the
-        # sharded run's F0 (the refine's FIR products, which cuBLAS orders
-        # by the block's shape, move F0 by an ulp here and there)
+        # whole analysis (F0 and with it the tracks are one process's bits),
+        # then every stage after the F0 refinement fed the sharded run's F0
         edge = MESH_EDGE
         inner = slice(edge, -edge)
         cz = lambda a, p: a * np.exp(1j * p.astype(np.float64))
@@ -3977,6 +4033,9 @@ def mesh_phase(torch, mods, data, vec, dev):
             f0_rel = np.abs(got["f0"] - r["f0"]) / np.maximum(
                 np.abs(r["f0"]), 1e-6)
             rows = np.nonzero(f0_rel)[0]
+            f0_eq = np.array_equal(got["f0"], r["f0"])
+            ampl_eq = np.array_equal(got["ampl"], r["ampl"])
+            ampl_rows = np.nonzero((got["ampl"] != r["ampl"]).any(-1))[0]
             ref_t = torch.tensor(x_ref, device=dev)
             snr = snr_db(torch, ref_t, torch.tensor(got["y_sin"], device=dev),
                          opt.conf.fs, opt.conf.f0_floor)
@@ -3990,17 +4049,20 @@ def mesh_phase(torch, mods, data, vec, dev):
                      "psd": np.abs(got["psd"] - r["psd"]).max()}
             mask_eq = np.array_equal(got["hm_mask"], r["hm_mask"])
             phase(f"19a seed {seed} against one process", mask_eq
-                  and f0_rel.max() <= MESH_F0_RTOL
+                  and f0_eq and ampl_eq and whole["cplx"] == 0
+                  and whole["psd"] == 0
                   and abs(snr - snr1) <= MESH_SNR_TOL_DB
                   and (pin is None or (abs(snr - pin[1]) <= MESH_SNR_TOL_DB
                                        and snr >= pin[0] - MESH_SNR_TOL_DB)),
-                  f"hm_mask equal {mask_eq}; f0 equal "
-                  f"{np.array_equal(got['f0'], r['f0'])}: largest relative "
-                  f"difference {f0_rel.max():.3e} (<= {MESH_F0_RTOL}) in "
-                  f"{len(rows)} of {len(f0_rel)} rows (the refine's FIR: "
-                  f"a {nl + 2 * ha}-frame block's product against the "
-                  f"whole track's); so ampl {whole['ampl']:.3e}, complex "
-                  f"{whole['cplx']:.3e}, psd {whole['psd']:.3e}; y_sin SNR "
+                  f"hm_mask equal {mask_eq}; f0 equal (bit for bit) {f0_eq}:"
+                  f" largest relative difference {f0_rel.max():.3e} in "
+                  f"{len(rows)} of {len(f0_rel)} rows (a {nl + 2 * ha}-"
+                  f"frame block's refine against the whole track's); ampl "
+                  f"equal {ampl_eq} (max |difference| {whole['ampl']:.3e} "
+                  f"in {len(ampl_rows)} rows {ampl_rows[:8].tolist()}"
+                  f"{'...' if len(ampl_rows) > 8 else ''}),"
+                  f" complex {whole['cplx']:.3e}, psd {whole['psd']:.3e}; "
+                  f"y_sin SNR "
                   f"sharded {snr:.4f} dB, one process {snr1:.4f} dB (+- "
                   f"{MESH_SNR_TOL_DB}); JAX one process, sharded (the "
                   f"floor, - {MESH_SNR_TOL_DB}): "

@@ -84,6 +84,14 @@ SIGNATURES = {
     "llsm_sample_cycles": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     # B, nhop, nx -> how many words llsm_sample_cycles needs
     "llsm_sample_cycles_words": (_I, _I, _I),
+    # x, f0, taps (device), xd (scratch [B, nx / D]), out, B, nx, N, D, g,
+    # ntaps, nhop_d, C, Wf, delta_d, iters, H_d, fs_d, dt_d, 2 pi dt_d,
+    # rel_winsize fs_d, 1 - max_rel_dev, 1 + max_rel_dev, pass_hz, lo, hi,
+    # a0, a1, a2, a3 (the window's cosine coefficients), ncoef (0:
+    # mltsine), stream
+    "llsm_refine_f0_dec": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                           _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F,
+                           _L, _L, _F, _F, _F, _F, _I, _P),
 }
 
 _lib = None

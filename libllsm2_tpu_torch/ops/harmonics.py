@@ -15,6 +15,7 @@ arguments are reduced to cycles mod 1 before trig.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -340,10 +341,9 @@ def refine_f0(x, f0, *, nhop: int, fs: float, halfwin_max: int,
     FIR's batched product of strided rows by another routine for one row
     than for many, and its elementwise loops compute a call's full vectors
     with SLEEF but the rest (a [B, N] row's tail, a thread's share's edge)
-    with libm, whose atan2 differs in the last bit.  On the card every
-    element takes one path, and the FIR's product, whose order cuBLAS
-    chooses by its row count, runs in calls of 2 layer0._group_rows(N)
-    rows.
+    with libm, whose atan2 differs in the last bit.  On the card the
+    decimated branch is one launch of kernels.refine_f0_dec, which sums
+    every row and frame in an order of its own: no row groups, no padding.
 
     bounds: (lo, hi), the samples of x that lie within the signal (a frame
     shard's block with halos: the halo past the signal's edge is zeros).
@@ -358,28 +358,34 @@ def refine_f0(x, f0, *, nhop: int, fs: float, halfwin_max: int,
     if B > 1 and x.device.type == "cpu":
         kw = dict(nhop=nhop, fs=fs, halfwin_max=halfwin_max,
                   rel_winsize=rel_winsize, window=window, iters=iters,
-                  max_rel_dev=max_rel_dev, f0_ceil=f0_ceil)
+                  max_rel_dev=max_rel_dev, f0_ceil=f0_ceil, bounds=bounds)
         return torch.cat([refine_f0(x[b:b + 1], f0[b:b + 1], **kw)
                           for b in range(B)])
-    nx = x.shape[-1]
-    dev = x.device
-    H = halfwin_max
-    voiced = f0 > 0.0
-    delta = max(H // 8, 2)
-    D = 1
-    for cand in (8, 4, 2):
-        if nhop % cand == 0 and nx % cand == 0 \
-                and 0.45 * fs / cand > 1.1 * f0_ceil:
-            D = cand
-            break
+    D, h_t, g, pass_hz = refine_decimation(nhop, x.shape[-1], fs, f0_ceil)
     if D == 1:
-        return _refine_f0_full_rate(x, f0, nhop=nhop, fs=fs, halfwin_max=H,
+        return _refine_f0_full_rate(x, f0, nhop=nhop, fs=fs,
+                                    halfwin_max=halfwin_max,
                                     rel_winsize=rel_winsize, window=window,
                                     iters=iters, max_rel_dev=max_rel_dev)
+    return kernels.refine_f0_dec(
+        x, f0, h_t, D=D, g=g, nhop=nhop, fs=fs, halfwin_max=halfwin_max,
+        rel_winsize=rel_winsize, window=window, iters=iters,
+        max_rel_dev=max_rel_dev, pass_hz=pass_hz, bounds=bounds)
+
+
+@functools.lru_cache(maxsize=64)
+def refine_decimation(nhop: int, nx: int, fs: float, f0_ceil: float):
+    """The decimated refine's factor and lowpass (harmonics.py:372-397):
+    -> (D, taps, g, pass_hz), D the first of 8, 4, 2 dividing the hop and
+    nx whose band clears f0_ceil (else 1 and no FIR), taps a tuple of the
+    float64 windowed-sinc lowpass with passband pass_hz = 1.12 f0_ceil and
+    linear phase (integer group delay g).  Made once per shape and rate."""
+    for D in (8, 4, 2):
+        if nhop % D == 0 and nx % D == 0 and 0.45 * fs / D > 1.1 * f0_ceil:
+            break
+    else:
+        return 1, None, 0, 0.0
     fs_d = fs / D
-    nxd = nx // D
-    # polyphase decimating FIR: windowed-sinc lowpass with passband
-    # 1.12*f0_ceil, linear phase (integer group delay g)
     pass_hz = 1.12 * f0_ceil
     stop_hz = fs_d - pass_hz
     beta = 0.1102 * (65.0 - 8.7)
@@ -390,82 +396,7 @@ def refine_f0(x, f0, *, nhop: int, fs: float, halfwin_max: int,
     n_t = np.arange(ntaps) - g
     fc = 0.5 * (pass_hz + stop_hz) / fs
     h_t = 2.0 * fc * np.sinc(2.0 * fc * n_t) * np.kaiser(ntaps, beta)
-    h_t = h_t / h_t.sum()
-    Qh = -(-ntaps // D)
-    hq = torch.as_tensor(np.pad(h_t, (0, Qh * D - ntaps)).reshape(Qh, D),
-                         dtype=FP, device=dev)
-    padL, padR = g, Qh * D - g
-
-    def fir(xx):
-        xp_f = F.pad(xx.to(FP), (padL, padR))
-        Bm = xp_f[..., : ((nx + padL + padR) // D) * D].reshape(
-            xx.shape[0], -1, D)
-        xd = torch.zeros((xx.shape[0], nxd), dtype=FP, device=dev)
-        for q in range(Qh):
-            xd = xd + Bm[:, q:q + nxd, :] @ hq[q]
-        return xd
-
-    if x.device.type == "cpu":
-        xd = fir(x)                     # one row a call (above)
-    else:
-        # a row alone differed from its row of a 64-row batch by 1.2e-7
-        # (cuBLAS picks the product's order by the rows of the call); twice
-        # the stages' group, so the 128-row bench batch is one call as it
-        # was before the grouping
-        from ..models.layer0 import _group_rows, _row_groups
-        xd = _row_groups(fir, x, 2 * _group_rows(N))
-    if bounds is not None:
-        keep = torch.arange(nxd, device=dev) * D
-        xd = torch.where((keep >= bounds[0]) & (keep < bounds[1]), xd,
-                         torch.zeros_like(xd))
-    nhop_d = nhop // D
-    H_d = -(-H // D)
-    delta_d = max(delta // D, 1)
-    dt_d = 2.0 * delta_d * D / fs
-    hh = -(-(H_d + delta_d) // nhop_d)
-    Wf = 2 * hh * nhop_d
-    C = hh * nhop_d
-    fr = frame_hops(xd, N, nhop_d, hh)                     # [B, N, Wf]
-    col = torch.arange(Wf, dtype=FP, device=dev)
-
-    def probe(coff, f0s, halfwidth_d, with_double=False):
-        noff_f = col - coff
-        w = window_centered(window, noff_f, halfwidth_d[..., None])
-        xw = fr * w
-        arg = 2.0 * math.pi * _phase_cycles(noff_f, (f0s / fs_d)[..., None])
-        c, s = torch.cos(arg), torch.sin(arg)
-        re = torch.sum(c * xw, dim=-1)
-        im = torch.sum(-s * xw, dim=-1)
-        if not with_double:
-            return torch.atan2(im, re), re * re + im * im
-        # harmonic-2 power from the same frames via the double angle
-        re2 = torch.sum((2.0 * c * c - 1.0) * xw, dim=-1)
-        im2 = torch.sum(-2.0 * s * c * xw, dim=-1)
-        return (torch.atan2(im, re), re * re + im * im,
-                re2 * re2 + im2 * im2)
-
-    f0s = torch.where(voiced, f0, torch.full_like(f0, 100.0))
-    p1 = p2 = torch.zeros_like(f0s)
-    for it in range(iters):
-        halfwidth_d = torch.clamp(rel_winsize * fs_d / (2.0 * f0s), 2.0,
-                                  float(H_d))
-        ph_m, _ = probe(C - delta_d, f0s, halfwidth_d)
-        if it == iters - 1:
-            ph_p, p1, p2 = probe(C + delta_d, f0s, halfwidth_d,
-                                 with_double=True)
-        else:
-            ph_p, p1 = probe(C + delta_d, f0s, halfwidth_d)
-        expected = 2.0 * math.pi * f0s * dt_d
-        err = ph_p - ph_m - expected
-        err = torch.atan2(torch.sin(err), torch.cos(err))
-        f0_new = f0s + err / (2.0 * math.pi * dt_d)
-        f0s = torch.minimum(torch.maximum(f0_new, f0 * (1 - max_rel_dev) - 1.0),
-                            f0 * (1 + max_rel_dev) + 1.0)
-    # fundamental-presence gate: keep the supplied track where harmonic 1
-    # is buried under harmonic 2 (period-doubled sources)
-    gate_ok = (p1 > 0.0625 * p2) | (2.0 * f0s >= pass_hz)
-    f0s = torch.where(gate_ok, f0s, f0)
-    return torch.where(voiced, f0s, torch.zeros_like(f0s))
+    return D, tuple(h_t / h_t.sum()), g, pass_hz
 
 
 def _refine_f0_full_rate(x, f0, *, nhop: int, fs: float, halfwin_max: int,

@@ -32,7 +32,7 @@ LAUNCHES = {"osc_bank": 0, "harmonic_project_win": 0, "deconv_full": 0,
             "denoise_finish": 0,
             "harmonic_project": 0, "harmonic_project_mxu": 0,
             "fir_frames": 0, "env_render": 0, "noise_bins": 0,
-            "sample_cycles": 0}
+            "sample_cycles": 0, "refine_f0_dec": 0}
 
 # frames per chunk of the plain versions: bounds their [frames, K, T]
 # temporaries to ~64 MB at any input size
@@ -1392,3 +1392,138 @@ def cycle_steps(f0: torch.Tensor, nhop: int, fs: float, nx: int,
     i0 = torch.clamp(torch.floor(pos).to(torch.int64) - start, 0, n - 2)
     t = torch.clamp(pos - (i0 + start), 0.0, 1.0)
     return (f0s[..., i0] * (1.0 - t) + f0s[..., i0 + 1] * t) / div(fs)
+
+
+# ---------------------------------------------------------------------------
+# decimated F0 refinement (libllsm2_tpu/ops/harmonics.py:372-468, jnp that
+# XLA fuses; no Pallas kernel)
+# ---------------------------------------------------------------------------
+
+def _refine_dims(nx: int, D: int, nhop: int, fs: float, H: int) -> dict:
+    """The decimated refine's sizes (harmonics.py:379-427): the decimated
+    length and hop, the window's and the probes' reach in decimated
+    samples, the probe spacing in seconds, the frame's half span C and
+    width Wf."""
+    nhop_d = nhop // D
+    H_d = -(-H // D)
+    delta_d = max(max(H // 8, 2) // D, 1)
+    hh = -(-(H_d + delta_d) // nhop_d)
+    return dict(nxd=nx // D, nhop_d=nhop_d, H_d=H_d, delta_d=delta_d,
+                dt_d=2.0 * delta_d * D / fs, fs_d=fs / D, C=hh * nhop_d,
+                hh=hh, Wf=2 * hh * nhop_d)
+
+
+def refine_f0_dec(x: torch.Tensor, f0: torch.Tensor, taps, *, D: int,
+                  g: int, nhop: int, fs: float, halfwin_max: int,
+                  rel_winsize: float, window: str, iters: int,
+                  max_rel_dev: float, pass_hz: float, bounds=None):
+    """The decimated F0 refine: x [B, nx] lowpassed by the FIR `taps` (a
+    sequence of float64 host values, applied as float32, group delay g;
+    harmonics.refine_decimation makes it) and decimated
+    by D, then `iters` iterations of the two phase probes of each frame
+    and the fundamental-presence gate -> f0 [B, N] (refine_f0_dec_ref says
+    the arithmetic).  bounds (lo, hi): the samples of x within the signal;
+    the FIR's output outside them is zero.  On the card one launch sums
+    every row and frame in an order of its own, so a row's F0 is the same
+    alone, in any batch and in a frame shard's block."""
+    if window != "mltsine" and window not in COSINE_SERIES:
+        raise ValueError(f"refine_f0_dec: unknown window {window!r}")
+    if not _on_cuda(x, f0):
+        return refine_f0_dec_ref(
+            x, f0, taps, D=D, g=g, nhop=nhop, fs=fs, halfwin_max=halfwin_max,
+            rel_winsize=rel_winsize, window=window, iters=iters,
+            max_rel_dev=max_rel_dev, pass_hz=pass_hz, bounds=bounds)
+    B, nx = x.shape
+    N = f0.shape[-1]
+    if f0.shape != (B, N) or nx % D or nhop % D:
+        raise ValueError("refine_f0_dec: shape mismatch (x [B, nx], f0 "
+                         "[B, N], D dividing nx and nhop)")
+    t = _taps32(taps)
+    dm = _refine_dims(nx, D, nhop, fs, halfwin_max)
+    coefs = (0.0,) * 4 if window == "mltsine" else \
+        tuple(float(c) for c in COSINE_SERIES[window]) + (0.0,) * 3
+    ncoef = 0 if window == "mltsine" else len(COSINE_SERIES[window])
+    lo, hi = (0, nx) if bounds is None else (int(bounds[0]), int(bounds[1]))
+    x, f0 = _f32(x), _f32(f0)
+    xd = torch.empty((B, dm["nxd"]), dtype=FP, device=x.device)
+    out = torch.empty_like(f0)
+    _launch("refine_f0_dec", x.data_ptr(), f0.data_ptr(),
+            _taps_on(t, x.device).data_ptr(), xd.data_ptr(), out.data_ptr(),
+            B, nx, N, int(D), int(g), len(t), dm["nhop_d"], dm["C"],
+            dm["Wf"], dm["delta_d"], int(iters), float(dm["H_d"]),
+            dm["fs_d"], dm["dt_d"], 2.0 * math.pi * dm["dt_d"],
+            rel_winsize * dm["fs_d"], 1 - max_rel_dev, 1 + max_rel_dev,
+            float(pass_hz), lo, hi, *coefs[:4], ncoef, _stream(x))
+    return out
+
+
+def refine_f0_dec_ref(x, f0, taps, *, D, g, nhop, fs, halfwin_max,
+                      rel_winsize, window, iters, max_rel_dev, pass_hz,
+                      bounds=None):
+    """Plain version of refine_f0_dec (the JAX package's jnp,
+    harmonics.py:399-468): the polyphase FIR as Qh products of the [B,
+    nxd + Qh, D] sample blocks with the taps' rows, the frames of
+    harmonics.frame_hops, and each probe as PyTorch sums over the frame's
+    Wf samples.  On the CPU refine_f0 calls it a row at a time."""
+    from .harmonics import frame_hops
+    nx = x.shape[-1]
+    dev = x.device
+    dm = _refine_dims(nx, D, nhop, fs, halfwin_max)
+    nxd, fs_d, H_d, delta_d = dm["nxd"], dm["fs_d"], dm["H_d"], dm["delta_d"]
+    C, Wf, dt_d = dm["C"], dm["Wf"], dm["dt_d"]
+    h_t = np.asarray(taps, dtype=np.float64)
+    Qh = -(-len(h_t) // D)
+    hq = torch.as_tensor(np.pad(h_t, (0, Qh * D - len(h_t))).reshape(Qh, D),
+                         dtype=FP, device=dev)
+    padL, padR = g, Qh * D - g
+    xp_f = torch.nn.functional.pad(x.to(FP), (padL, padR))
+    Bm = xp_f[..., : ((nx + padL + padR) // D) * D].reshape(x.shape[0], -1, D)
+    xd = torch.zeros((x.shape[0], nxd), dtype=FP, device=dev)
+    for q in range(Qh):
+        xd = xd + Bm[:, q:q + nxd, :] @ hq[q]
+    if bounds is not None:
+        keep = torch.arange(nxd, device=dev) * D
+        xd = torch.where((keep >= bounds[0]) & (keep < bounds[1]), xd,
+                         torch.zeros_like(xd))
+    fr = frame_hops(xd, f0.shape[-1], dm["nhop_d"], dm["hh"])  # [B, N, Wf]
+    col = torch.arange(Wf, dtype=FP, device=dev)
+
+    def probe(coff, f0s, halfwidth_d, with_double=False):
+        noff_f = col - coff
+        w = window_centered(window, noff_f, halfwidth_d[..., None])
+        xw = fr * w
+        arg = 2.0 * math.pi * _phase_cycles(noff_f, (f0s / fs_d)[..., None])
+        c, s = torch.cos(arg), torch.sin(arg)
+        re = torch.sum(c * xw, dim=-1)
+        im = torch.sum(-s * xw, dim=-1)
+        if not with_double:
+            return torch.atan2(im, re), re * re + im * im
+        # harmonic-2 power from the same frames via the double angle
+        re2 = torch.sum((2.0 * c * c - 1.0) * xw, dim=-1)
+        im2 = torch.sum(-2.0 * s * c * xw, dim=-1)
+        return (torch.atan2(im, re), re * re + im * im,
+                re2 * re2 + im2 * im2)
+
+    voiced = f0 > 0.0
+    f0s = torch.where(voiced, f0, torch.full_like(f0, 100.0))
+    p1 = p2 = torch.zeros_like(f0s)
+    for it in range(iters):
+        halfwidth_d = torch.clamp(rel_winsize * fs_d / (2.0 * f0s), 2.0,
+                                  float(H_d))
+        ph_m, _ = probe(C - delta_d, f0s, halfwidth_d)
+        if it == iters - 1:
+            ph_p, p1, p2 = probe(C + delta_d, f0s, halfwidth_d,
+                                 with_double=True)
+        else:
+            ph_p, p1 = probe(C + delta_d, f0s, halfwidth_d)
+        expected = 2.0 * math.pi * f0s * dt_d
+        err = ph_p - ph_m - expected
+        err = torch.atan2(torch.sin(err), torch.cos(err))
+        f0_new = f0s + err / (2.0 * math.pi * dt_d)
+        f0s = torch.minimum(torch.maximum(f0_new, f0 * (1 - max_rel_dev) - 1.0),
+                            f0 * (1 + max_rel_dev) + 1.0)
+    # fundamental-presence gate: keep the supplied track where harmonic 1
+    # is buried under harmonic 2 (period-doubled sources)
+    gate_ok = (p1 > 0.0625 * p2) | (2.0 * f0s >= pass_hz)
+    f0s = torch.where(gate_ok, f0s, f0)
+    return torch.where(voiced, f0s, torch.zeros_like(f0s))

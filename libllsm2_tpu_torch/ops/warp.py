@@ -1,6 +1,7 @@
 """Frequency-axis warping for the noise PSD (counterpart of
-libllsm2_tpu/ops/warp.py; reference: dsputils.c -> llsm_warp_frequency).
-The warped axis compresses high frequencies logarithmically."""
+libllsm2_tpu/ops/warp.py; reference: dsputils.c -> llsm_warp_frequency
+and its inverse).  The warped axis compresses high frequencies
+logarithmically."""
 from __future__ import annotations
 
 import torch
@@ -11,6 +12,20 @@ from ..fp import FP
 def warp_frequency(f, warp_const):
     """Linear frequency [Hz] -> warped coordinate (float32)."""
     return warp_const * torch.log1p(torch.as_tensor(f, dtype=FP) / warp_const)
+
+
+def unwarp_frequency(fw, warp_const):
+    """Warped coordinate -> linear frequency [Hz] (exact inverse, float32)."""
+    return warp_const * torch.expm1(torch.as_tensor(fw, dtype=FP) / warp_const)
+
+
+def warped_bin_centers(npsd: int, fnyq: float, warp_const: float,
+                       device="cpu") -> torch.Tensor:
+    """Linear-frequency centers [Hz] of npsd bins uniform on the warped axis
+    spanning [0, fnyq], in float32."""
+    wmax = warp_frequency(fnyq, warp_const)
+    wc = (torch.arange(npsd, device=device) + 0.5) * (wmax.to(device) / npsd)
+    return unwarp_frequency(wc, warp_const)
 
 
 def warped_band_matrix(npsd: int, nbin: int, fs: float, warp_const: float,

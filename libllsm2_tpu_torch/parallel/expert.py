@@ -25,7 +25,7 @@ from torch import nn
 from ..models import neural
 from ..models.neural import _fp32_matmul, dense, gelu
 from .mesh import (EXPERT_AXIS, Mesh, all_reduce_grads, all_to_all, pmean,
-                   psum)
+                   psum, shard_stacked)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,21 +121,28 @@ def moe_forward_reference(cfg: MoEConfig, params: MoE, x, capacity: int):
         return dense(params.exit, h, dt)
 
 
+def ep_param_shardings(cfg: MoEConfig, mesh: Mesh) -> dict:
+    """The MoE's layout on an ("expert",) mesh in the JAX package's tree
+    ({group: {leaf: (dim, axis) or None}}, as neural.tp_param_specs):
+    experts split on their stacked leading axis, everything else
+    replicated (None)."""
+    split = (0, EXPERT_AXIS)
+    return {"entry": {"w": None, "b": None}, "gate": None,
+            "experts": {"w": split, "b": split},
+            "exit": {"w": None, "b": None}}
+
+
 def shard_params_ep(cfg: MoEConfig, params: MoE, mesh: Mesh) -> MoE:
     """This rank's experts (n_experts / n a rank, contiguous) and the
-    replicated rest, on mesh.device (make the optimizer from the
-    result)."""
-    n, i = mesh.shape[EXPERT_AXIS], mesh.index(EXPERT_AXIS)
+    replicated rest under ep_param_shardings, on mesh.device (make the
+    optimizer from the result)."""
+    n = mesh.shape[EXPERT_AXIS]
     if cfg.n_experts % n:
         raise ValueError(f"{cfg.n_experts} experts do not split over {n} "
                          "ranks")
-    k = cfg.n_experts // n
     local = MoE(cfg, torch.Generator().manual_seed(0))
     local.load_state_dict(params.state_dict())
-    local.experts_w = nn.Parameter(
-        params.experts_w.detach()[i * k:(i + 1) * k].clone())
-    local.experts_b = nn.Parameter(
-        params.experts_b.detach()[i * k:(i + 1) * k].clone())
+    shard_stacked(local, params, ep_param_shardings(cfg, mesh), mesh)
     return local.to(mesh.device)
 
 

@@ -166,15 +166,55 @@ def _world(n: Optional[int]) -> int:
         if n is None else int(n)
 
 
-def shard_rows(v, mesh: Mesh, axis: str = BATCH_AXIS):
+def batch_sharding(mesh: Mesh) -> dict:
+    """Layout of [B, ...] arrays, {dim: the mesh axis it splits over}: the
+    batch over the batch axis (the JAX package's NamedSharding(mesh,
+    P("batch")))."""
+    return {0: BATCH_AXIS}
+
+
+def batch_frame_sharding(mesh: Mesh) -> dict:
+    """Layout of [B, N, ...] arrays: batch x frame split."""
+    return {0: BATCH_AXIS, 1: FRAME_AXIS}
+
+
+def replicated(mesh: Mesh) -> dict:
+    """Layout of arrays every rank holds whole."""
+    return {}
+
+
+def local_block(v, mesh: Mesh, layout: dict):
+    """This rank's block of v (a tensor or numpy array) under `layout`
+    ({dim: axis}, each dim split evenly over its mesh axis)."""
+    for dim, axis in layout.items():
+        n, i = mesh.shape[axis], mesh.index(axis)
+        if v.shape[dim] % n:
+            raise ValueError(f"{v.shape[dim]} entries of dim {dim} do not "
+                             f"split over {n} ranks")
+        r = v.shape[dim] // n
+        v = v[(slice(None),) * dim + (slice(i * r, (i + 1) * r),)]
+    return v
+
+
+def shard_rows(v, mesh: Mesh, axis: Optional[str] = None):
     """This rank's block of rows of v (a tensor or numpy array, leading axis
-    split evenly over `axis`), as a tensor on the mesh's device."""
-    n, i = mesh.shape[axis], mesh.index(axis)
-    if v.shape[0] % n:
-        raise ValueError(f"{v.shape[0]} rows do not split over {n} ranks")
-    r = v.shape[0] // n
-    v = v[i * r:(i + 1) * r]
-    return torch.as_tensor(v).to(mesh.device)
+    split evenly over `axis`, by default batch_sharding's), as a tensor on
+    the mesh's device."""
+    layout = batch_sharding(mesh) if axis is None else {0: axis}
+    return torch.as_tensor(local_block(v, mesh, layout)).to(mesh.device)
+
+
+def shard_stacked(local, params, specs: dict, mesh: Mesh) -> None:
+    """Set local's stacked parameters (attribute group_leaf) to this rank's
+    block of params' under specs; the rest stays as loaded."""
+    with torch.no_grad():
+        for group, leaves in specs.items():
+            for leaf, spec in (leaves or {}).items():
+                if spec is not None:
+                    name = f"{group}_{leaf}"
+                    v = local_block(getattr(params, name).detach(), mesh,
+                                    {spec[0]: spec[1]})
+                    setattr(local, name, torch.nn.Parameter(v.clone()))
 
 
 def shard_batch(tree, mesh: Mesh):

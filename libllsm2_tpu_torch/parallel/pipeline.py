@@ -25,7 +25,7 @@ from torch import nn
 
 from ..models import neural
 from ..models.neural import _fp32_matmul, dense, gelu
-from .mesh import PIPE_AXIS, Mesh, ppermute, psum, pvary
+from .mesh import PIPE_AXIS, Mesh, ppermute, psum, pvary, shard_stacked
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,23 +91,29 @@ def forward_reference(cfg: TrunkConfig, params: Trunk, x: torch.Tensor):
         return dense(params.exit, params.apply_blocks(h), dt)
 
 
+def pp_param_shardings(mesh: Mesh) -> dict:
+    """The trunk's layout on a ("pipe",) mesh in the JAX package's tree
+    ({group: {leaf: (dim, axis) or None}}, as neural.tp_param_specs): the
+    blocks' stacked leading axis splits into stages; the boundary layers
+    replicate (None)."""
+    staged = (0, PIPE_AXIS)
+    return {"entry": {"w": None, "b": None},
+            "blocks": {"w": staged, "b": staged},
+            "exit": {"w": None, "b": None}}
+
+
 def shard_params_pp(params: Trunk, mesh: Mesh) -> Trunk:
-    """This rank's stage of the trunk on mesh.device: its contiguous
-    n_blocks / n_stages blocks, the boundary layers replicated (make the
-    optimizer from the result)."""
+    """This rank's stage of the trunk on mesh.device under
+    pp_param_shardings: its contiguous n_blocks / n_stages blocks, the
+    boundary layers replicated (make the optimizer from the result)."""
     cfg = params.cfg
-    S, s = mesh.shape[PIPE_AXIS], mesh.index(PIPE_AXIS)
+    S = mesh.shape[PIPE_AXIS]
     if cfg.n_blocks % S:
         raise ValueError(f"{cfg.n_blocks} blocks do not split over {S} "
                          "stages")
-    per = cfg.n_blocks // S
     stage = Trunk(cfg, torch.Generator().manual_seed(0))
     stage.load_state_dict(params.state_dict())
-    with torch.no_grad():
-        stage.blocks_w = nn.Parameter(
-            params.blocks_w.detach()[s * per:(s + 1) * per].clone())
-        stage.blocks_b = nn.Parameter(
-            params.blocks_b.detach()[s * per:(s + 1) * per].clone())
+    shard_stacked(stage, params, pp_param_shardings(mesh), mesh)
     stage = stage.to(mesh.device)
     stage.mesh = mesh
     return stage

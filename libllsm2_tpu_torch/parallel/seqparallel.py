@@ -89,26 +89,27 @@ def _shard_cycles(mesh: Mesh, f0_ext: torch.Tensor, nhop: int, fs: float,
     bit for bit (the JAX package sums the mod-1 offsets in float32, ~1e-7
     cycles off: at harmonic 80 that moved the complex tracks by ~4e-5 on
     the CPU).  At the global edges the one-process pipeline (i)
-    holds F0 constant over the LAST frame and (ii) edge-replicates the
-    track beyond the signal; both are reproduced here."""
+    holds F0 constant over the LAST frame (its lerp's last segment ends
+    there: F0 exactly, where a lerp into an edge-replicated halo rounds)
+    and (ii) edge-replicates the track beyond the signal; the last block
+    therefore stops at the signal's end, and both are reproduced bit for
+    bit."""
     n, i = mesh.shape[FRAME_AXIS], mesh.index(FRAME_AXIS)
     last = i == n - 1
     n_ext = f0_ext.shape[0]
-    core_s, core_e = hb * nhop, (hb + nl) * nhop
-    f0_cyc = f0_ext
-    if last:        # the right halo's F0 edge-replicated for the lerp
-        f0_cyc = f0_ext.clone()
-        f0_cyc[hb + nl:] = f0_ext[hb + nl - 1]
+    n_cyc = hb + nl if last else n_ext
+    core_s = hb * nhop
+    f0_cyc = f0_ext[:n_cyc]
     start = i * nl - hb                 # the block's first frame, globally
-    tot = kernels.cycle_totals(f0_cyc, nhop, fs, n_ext * nhop, start)
+    tot = kernels.cycle_totals(f0_cyc, nhop, fs, n_cyc * nhop, start)
     tots = all_gather(torch.sum(tot[hb:hb + nl])[None], mesh, FRAME_AXIS)
     base = torch.remainder(torch.sum(tots[:i]) - torch.sum(tot[:hb]), 1.0)
-    cyc = harmonics.sample_cycles(f0_cyc[None], nhop, fs, n_ext * nhop,
+    cyc = harmonics.sample_cycles(f0_cyc[None], nhop, fs, n_cyc * nhop,
                                   base=base[None], start=start)[0]
     if i == 0:
         cyc[:core_s] = cyc[core_s].clone()
     if last:
-        cyc[core_e:] = cyc[core_e - 1].clone()
+        cyc = torch.cat([cyc, cyc[-1:].expand((n_ext - n_cyc) * nhop)])
     return cyc
 
 

@@ -999,11 +999,11 @@ def test_run_corpus_files_equals_run_corpus_on_card(tmp_path):
 
 @pytest.mark.requires_cuda
 def test_refine_f0_rows_do_not_depend_on_the_batch_on_card():
-    """harmonics.refine_f0 on the card (its decimating FIR's product in
-    calls of 2 layer0._group_rows(N) rows): rows 0, 1 and 63 of a 64-row
-    batch of 8 s bench-like rows, with zeroed tails of different lengths,
-    equal bit for bit the same rows alone and in the first 3 rows of a
-    128-row batch."""
+    """harmonics.refine_f0 on the card (one launch of refine_f0.cu, which
+    sums every row and frame in an order of its own): rows 0, 1 and 63 of
+    a 64-row batch of 8 s bench-like rows, with zeroed tails of different
+    lengths, equal bit for bit the same rows alone and in the first 3 rows
+    of a 128-row batch."""
     from libllsm2_tpu_torch.ops import harmonics
     from libllsm2_tpu_torch.utils import testsig
     dev = _card()
@@ -1023,6 +1023,104 @@ def test_refine_f0_rows_do_not_depend_on_the_batch_on_card():
         alone = harmonics.refine_f0(x[r:r + 1], f0[r:r + 1], **kw)
         assert torch.equal(alone[0], whole[r])
         assert torch.equal(big[i], whole[r])
+
+
+def _refine_rows(B, seconds, dev):
+    """B bench-like rows (noisy and clean alternating) -> (x [B, nx], f0
+    [B, N]) on dev."""
+    from libllsm2_tpu_torch.utils import testsig
+    utt = testsig.make_test_utterances(
+        [(i, 0.05 * (i % 2)) for i in range(B)], duration=seconds)
+    return tuple(torch.tensor(np.stack([u[j] for u in utt]),
+                              dtype=torch.float32, device=dev)
+                 for j in range(2))
+
+
+def _dec_args(nx, window="hanning"):
+    from libllsm2_tpu_torch.ops import harmonics
+    D, taps, g, pass_hz = harmonics.refine_decimation(80, nx, 16000.0, 600.0)
+    return taps, dict(D=D, g=g, nhop=80, fs=16000.0, halfwin_max=458,
+                      rel_winsize=4.0, window=window, iters=2,
+                      max_rel_dev=0.05, pass_hz=pass_hz)
+
+
+def _f0_rel(got, ref):
+    """Largest relative |difference| of two F0 tracks; a frame voiced in
+    one and not the other is infinite."""
+    if not torch.equal(got == 0, ref == 0):
+        return float("inf")
+    return float(((got - ref).abs() / ref.abs().clamp(min=1e-6)).max())
+
+
+@pytest.mark.requires_cuda
+def test_refine_f0_dec_matches_twin_on_card():
+    """kernels.refine_f0_dec at the main path's shape (128 rows x 8 s, D =
+    8, 97 taps, Wf = 140): within 1e-4 relative of its twin on the card,
+    one launch counted; harmonics.refine_f0 on card tensors reaches
+    neither the twin nor layer0._row_groups."""
+    from libllsm2_tpu_torch.ops import harmonics
+    dev = _card()
+    x, f0 = _refine_rows(128, 8.0, dev)
+    taps, kw = _dec_args(x.shape[1])
+    n0 = kernels.LAUNCHES["refine_f0_dec"]
+    got = kernels.refine_f0_dec(x, f0, taps, **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["refine_f0_dec"] == n0 + 1
+    ref = kernels.refine_f0_dec_ref(x, f0, taps, **kw)
+    assert _f0_rel(got, ref) <= 1e-4
+    twin, groups = kernels.refine_f0_dec_ref, tl0._row_groups
+
+    def refuse(*a, **k):
+        raise AssertionError("refine_f0 on the card left the kernel")
+    kernels.refine_f0_dec_ref = tl0._row_groups = refuse
+    try:
+        out = harmonics.refine_f0(x, f0, nhop=80, fs=16000.0,
+                                  halfwin_max=458, rel_winsize=4.0,
+                                  f0_ceil=600.0)
+    finally:
+        kernels.refine_f0_dec_ref, tl0._row_groups = twin, groups
+    assert torch.equal(out, got)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("window", ["hanning", "hamming", "blackman",
+                                    "blackman_harris", "nuttall98",
+                                    "mltsine"])
+def test_refine_f0_dec_windows_on_card(window):
+    """Every window window_centered takes: the kernel within 1e-4 relative
+    of its twin on 4 rows of 2 s."""
+    dev = _card()
+    x, f0 = _refine_rows(4, 2.0, dev)
+    taps, kw = _dec_args(x.shape[1], window)
+    got = kernels.refine_f0_dec(x, f0, taps, **kw)
+    assert _f0_rel(got, kernels.refine_f0_dec_ref(x, f0, taps, **kw)) <= 1e-4
+
+
+@pytest.mark.requires_cuda
+def test_refine_f0_block_with_bounds_equals_one_process_on_card():
+    """A frame shard's hop-aligned blocks of an 8 s row (400 frames each,
+    24 frames of halo, zeros past the signal's edges fenced off by bounds,
+    as parallel.seqparallel cuts them) refine their core frames to the
+    one-process F0 bit for bit."""
+    from libllsm2_tpu_torch.ops import harmonics
+    dev = _card()
+    x, f0 = _refine_rows(2, 8.0, dev)
+    kw = dict(nhop=80, fs=16000.0, halfwin_max=458, rel_winsize=4.0,
+              f0_ceil=600.0)
+    whole = harmonics.refine_f0(x, f0, **kw)
+    N, h, nl = f0.shape[1], 24, 400
+    F = torch.nn.functional
+    for r in range(2):
+        for a in range(0, N, nl):
+            lo_f, hi_f = a - h, a + nl + h
+            pad_l, pad_r = max(-lo_f, 0), max(hi_f - N, 0)
+            xb = F.pad(x[r, max(lo_f, 0) * 80:min(hi_f, N) * 80],
+                       (pad_l * 80, pad_r * 80))
+            fb = F.pad(f0[r, max(lo_f, 0):min(hi_f, N)], (pad_l, pad_r))
+            bounds = (pad_l * 80, xb.shape[0] - pad_r * 80)
+            block = harmonics.refine_f0(xb[None], fb[None], bounds=bounds,
+                                        **kw)[0]
+            assert torch.equal(block[h:h + nl], whole[r, a:a + nl]), (r, a)
 
 
 @pytest.mark.requires_cuda

@@ -449,3 +449,28 @@ def test_shard_cycle_base_gives_the_whole_track():
                                          base, lo)
         core = got[(a - lo) * nhop:(b - lo) * nhop]
         assert torch.equal(core, whole[a * nhop:b * nhop]), (a, b)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_shard_cycles_edges_equal_the_whole_track(seed):
+    """seqparallel._shard_cycles on a one-rank frame mesh (the block is the
+    first and the last, zero F0 halos on both sides) gives the whole
+    track's samples bit for bit in its core and the edge samples beyond,
+    on 10 random 50-frame F0 tracks: the last block stops at the signal's
+    end, so its last hop holds F0 as the one-process lerp does.  (A lerp
+    into an edge-replicated F0 halo, f (1 - t) + f t, rounds: it moved a
+    quarter of such tracks' last hop by an ulp.)"""
+    from libllsm2_tpu_torch.ops import kernels as tkernels
+
+    rng = np.random.default_rng(seed)
+    nhop, fs, hb, N = 80, 16000.0, 22, 50
+    m = tmesh.make_mesh(1, frame_parallel=1, device="cpu")
+    for _ in range(10):
+        f0 = torch.tensor(rng.uniform(80.0, 300.0, N).astype(np.float32))
+        whole = tkernels.sample_cycles_ref(f0, nhop, fs, N * nhop)
+        ext = torch.nn.functional.pad(f0, (hb, hb))
+        got = tsp._shard_cycles(m, ext, nhop, fs, hb, N)
+        assert got.shape == (ext.shape[0] * nhop,)
+        assert torch.equal(got[hb * nhop:(hb + N) * nhop], whole)
+        assert torch.all(got[:hb * nhop] == whole[0])
+        assert torch.all(got[(hb + N) * nhop:] == whole[-1])

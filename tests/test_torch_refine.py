@@ -1,0 +1,295 @@
+"""The decimated F0 refine's kernel wrapper and plain twin
+(kernels.refine_f0_dec / refine_f0_dec_ref) against the JAX package, and
+the last public names of the port (warp, the mesh layouts, the
+subpackage namespaces) against the JAX package's (CPU, float32)."""
+import ast
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from libllsm2_tpu import config as jconfig
+from libllsm2_tpu.ops import harmonics as jhm
+from libllsm2_tpu.ops import warp as jwarp
+from libllsm2_tpu.utils import testsig as jtestsig
+
+from libllsm2_tpu_torch import config as tconfig
+from libllsm2_tpu_torch.ops import harmonics as thm
+from libllsm2_tpu_torch.ops import kernels
+from libllsm2_tpu_torch.ops import warp as twarp
+from libllsm2_tpu_torch.utils import testsig as ttestsig
+
+torch.set_num_threads(1)
+
+T = lambda a: torch.tensor(np.asarray(a, np.float32))
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def _dec_kw(conf, nx):
+    """refine_f0_dec's arguments for conf's refine of nx samples."""
+    D, taps, g, pass_hz = thm.refine_decimation(conf.nhop, nx, conf.fs,
+                                                conf.f0_ceil)
+    assert D > 1
+    return taps, dict(D=D, g=g, nhop=conf.nhop, fs=conf.fs,
+                      halfwin_max=conf.halfwin_max,
+                      rel_winsize=conf.rel_winsize, window="hanning",
+                      iters=2, max_rel_dev=0.05, pass_hz=pass_hz)
+
+
+def _rows(conf, tail, duration=0.4):
+    rows = [jtestsig.make_test_utterance(duration=duration, seed=s,
+                                         noise_level=nl,
+                                         unvoiced_tail_frac=tail)
+            for s, nl in ((0, 0.0), (3, 0.05))]
+    nfrm = len(rows[0][1])
+    x = np.stack([r[0][:nfrm * conf.nhop] for r in rows]).astype(np.float32)
+    f0 = np.stack([r[1] for r in rows]).astype(np.float32)
+    return x, f0
+
+
+@pytest.mark.parametrize("tail", [0.0, 0.3])
+def test_refine_f0_dec_ref_matches_jax_decimated(tail):
+    """The twin, called directly on test_torch_ops.py's decimated-refine
+    fixtures, is the JAX package's decimated branch within rtol 1e-4;
+    unvoiced frames stay 0."""
+    conf = jconfig.ChunkConf(f0_floor=90.0)
+    x, f0 = _rows(conf, tail)
+    taps, kw = _dec_kw(conf, x.shape[1])
+    centers = jnp.arange(f0.shape[1], dtype=jnp.int32) * conf.nhop
+    for b in range(2):
+        got = kernels.refine_f0_dec_ref(T(x[b:b + 1]), T(f0[b:b + 1]), taps,
+                                        **kw)[0].numpy()
+        ref = np.asarray(jhm.refine_f0(
+            jnp.asarray(x[b]), jnp.asarray(f0[b]), centers, fs=conf.fs,
+            halfwin_max=conf.halfwin_max, rel_winsize=conf.rel_winsize,
+            f0_ceil=conf.f0_ceil, use_pallas=True, nhop=conf.nhop))
+        np.testing.assert_allclose(got, ref, rtol=1e-4)
+        assert np.all(got[f0[b] == 0] == 0)
+
+
+@pytest.mark.parametrize("where", ["first", "middle", "last"])
+def test_refine_f0_dec_ref_block_with_bounds_equals_whole_row(where):
+    """A frame shard's hop-aligned block of a 1.5 s bench row (f0_floor
+    70), with 10 frames of halo on each side (zeros past the signal's
+    edges, fenced off by bounds), refines its core frames to the whole
+    row's F0 through the twin on the CPU within 1e-6 relative: the CPU's
+    sums of a shorter row and its SLEEF / libm tails move a frame or two
+    by an ulp (1.2e-7).  On the card the kernel gives the bits
+    (tests/test_torch_cuda.py)."""
+    conf = tconfig.create_aoptions(f0_floor=70.0).conf
+    nhop = conf.nhop
+    (x, f0, _), = ttestsig.make_test_utterances([(1, 0.05)], duration=1.5)
+    N = len(f0)
+    x = np.pad(x, (0, max(N * nhop - len(x), 0)))[:N * nhop]
+    taps, kw = _dec_kw(conf, N * nhop)
+    whole = kernels.refine_f0_dec_ref(T(x[None]), T(f0[None]), taps, **kw)[0]
+    h = 10
+    a, b = {"first": (0, 60), "middle": (60, 120), "last": (120, N)}[where]
+    lo_f, hi_f = a - h, b + h
+    pad_l, pad_r = max(-lo_f, 0), max(hi_f - N, 0)
+    xb = np.pad(x[max(lo_f, 0) * nhop:min(hi_f, N) * nhop],
+                (pad_l * nhop, pad_r * nhop))
+    fb = np.pad(f0[max(lo_f, 0):min(hi_f, N)], (pad_l, pad_r))
+    bounds = (pad_l * nhop, len(xb) - pad_r * nhop)
+    _, kw_b = _dec_kw(conf, len(xb))
+    block = kernels.refine_f0_dec_ref(T(xb[None]), T(fb[None]), taps,
+                                      bounds=bounds, **kw_b)[0]
+    np.testing.assert_allclose(block[h:h + b - a].numpy(),
+                               whole[a:b].numpy(), rtol=1e-6, atol=0)
+    assert torch.equal(block[h:h + b - a] == 0, whole[a:b] == 0)
+
+
+def test_refine_f0_dec_cpu_runs_the_twin_and_launches_nothing(monkeypatch):
+    """CPU tensors reach the plain twin, whatever the batch: no library is
+    built and no launch counted; refine_f0 on the CPU calls the twin once
+    a row; a window the kernel lacks is refused on every device."""
+    conf = jconfig.ChunkConf(f0_floor=90.0)
+    x, f0 = _rows(conf, 0.0)
+    taps, kw = _dec_kw(conf, x.shape[1])
+
+    def no_build():
+        raise AssertionError("the CPU path built the kernel library")
+    monkeypatch.setattr(kernels._build, "library", no_build)
+    calls = []
+    twin = kernels.refine_f0_dec_ref
+    monkeypatch.setattr(kernels, "refine_f0_dec_ref",
+                        lambda *a, **k: calls.append(a[0].shape) or
+                        twin(*a, **k))
+    before = dict(kernels.LAUNCHES)
+    got = kernels.refine_f0_dec(T(x), T(f0), taps, **kw)
+    assert torch.equal(got, twin(T(x), T(f0), taps, **kw))
+    thm.refine_f0(T(x), T(f0), nhop=conf.nhop, fs=conf.fs,
+                  halfwin_max=conf.halfwin_max, rel_winsize=conf.rel_winsize,
+                  f0_ceil=conf.f0_ceil)
+    assert kernels.LAUNCHES == before
+    assert calls == [(2, x.shape[1]), (1, x.shape[1]), (1, x.shape[1])]
+    with pytest.raises(ValueError, match="window"):
+        kernels.refine_f0_dec(T(x), T(f0), taps, **dict(kw, window="kaiser"))
+
+
+@pytest.mark.parametrize("warp_const", [766.0, 15000.0])
+def test_unwarp_frequency_and_warped_bin_centers(warp_const):
+    """unwarp_frequency inverts warp_frequency (tests/test_ops.py's
+    round-trip oracle) and matches the JAX package's; warped_bin_centers
+    matches its, lies in [0, fnyq] and warps to uniform centres."""
+    f = np.linspace(0.0, 8000.0, 100).astype(np.float32)
+    back = twarp.unwarp_frequency(twarp.warp_frequency(f, warp_const),
+                                  warp_const).numpy()
+    np.testing.assert_allclose(back, f, rtol=1e-5, atol=1e-2)
+    fw = np.linspace(0.0, 3000.0, 57).astype(np.float32)
+    np.testing.assert_allclose(
+        twarp.unwarp_frequency(fw, warp_const).numpy(),
+        np.asarray(jwarp.unwarp_frequency(jnp.asarray(fw), warp_const)),
+        rtol=2e-6)
+    for npsd, fnyq in ((32, 6000.0), (64, 8000.0)):
+        got = twarp.warped_bin_centers(npsd, fnyq, warp_const).numpy()
+        ref = np.asarray(jwarp.warped_bin_centers(npsd, fnyq, warp_const))
+        np.testing.assert_allclose(got, ref, rtol=2e-6)
+        assert got.dtype == np.float32 and 0 < got[0] < got[-1] < fnyq
+        step = np.diff(twarp.warp_frequency(got, warp_const).numpy())
+        np.testing.assert_allclose(step, step.mean(), rtol=1e-4)
+
+
+def _layout(spec):
+    """A JAX PartitionSpec as the port's {dim: axis} layout."""
+    return {d: a for d, a in enumerate(spec) if a is not None}
+
+
+def _param_spec(sharding):
+    """A JAX NamedSharding of a stacked parameter as the port's (dim, axis)
+    or None."""
+    spec = tuple(sharding.spec)
+    assert len(spec) <= 1
+    return (0, spec[0]) if spec and spec[0] is not None else None
+
+
+def test_mesh_layouts_match_jax():
+    """batch_sharding, batch_frame_sharding and replicated split what the
+    JAX package's NamedShardings split; shard_rows / shard_batch read
+    batch_sharding and local_block any layout."""
+    from jax.sharding import Mesh as JMesh
+
+    from libllsm2_tpu.parallel import mesh as jmesh
+    from libllsm2_tpu_torch.parallel import mesh as tmesh
+    jm = JMesh(np.array(jax.devices()[:1]).reshape(1, 1),
+               (jmesh.BATCH_AXIS, jmesh.FRAME_AXIS))
+    m = tmesh.make_mesh(1, device="cpu")
+    for name in ("batch_sharding", "batch_frame_sharding", "replicated"):
+        assert getattr(tmesh, name)(m) == _layout(
+            getattr(jmesh, name)(jm).spec), name
+    v = np.arange(24.0).reshape(4, 6)
+    assert torch.equal(tmesh.shard_rows(v, m), torch.as_tensor(v))
+    assert torch.equal(tmesh.shard_batch({"v": v}, m)["v"], torch.as_tensor(v))
+    assert np.array_equal(tmesh.local_block(v, m, {0: "batch", 1: "frame"}),
+                          v)
+
+
+def test_pp_ep_param_shardings_match_jax():
+    """pp_param_shardings and ep_param_shardings give the JAX package's
+    trees, each leaf's split ((dim, axis) or None) that of its
+    NamedSharding, as tp_param_specs is held to its PartitionSpecs."""
+    from jax.sharding import Mesh as JMesh
+
+    from libllsm2_tpu.parallel import expert as jexpert
+    from libllsm2_tpu.parallel import pipeline as jpipeline
+    from libllsm2_tpu_torch.parallel import expert as texpert
+    from libllsm2_tpu_torch.parallel import pipeline as tpipeline
+    dev = np.array(jax.devices()[:1])
+    cases = [
+        (tpipeline.pp_param_shardings(None),
+         jpipeline.pp_param_shardings(JMesh(dev, ("pipe",)))),
+        (texpert.ep_param_shardings(texpert.MoEConfig(dims=8), None),
+         jexpert.ep_param_shardings(jexpert.MoEConfig(dims=8),
+                                    JMesh(dev, ("expert",))))]
+    for got, ref in cases:
+        assert got.keys() == ref.keys()
+        for group, leaves in ref.items():
+            if isinstance(leaves, dict):
+                assert got[group] == {k: _param_spec(v)
+                                      for k, v in leaves.items()}, group
+            else:
+                assert got[group] == _param_spec(leaves), group
+
+
+def test_pp_ep_sharding_reads_the_layouts():
+    """shard_params_pp / shard_params_ep on a one-rank mesh keep every
+    parameter (the layouts' only split axis has one rank)."""
+    from libllsm2_tpu_torch.parallel import expert as texpert
+    from libllsm2_tpu_torch.parallel import mesh as tmesh
+    from libllsm2_tpu_torch.parallel import pipeline as tpipeline
+    gen = lambda s: torch.Generator().manual_seed(s)
+    trunk = tpipeline.init_trunk_params(tpipeline.TrunkConfig(dims=8),
+                                        gen(0), device="cpu")
+    moe_cfg = texpert.MoEConfig(dims=8)
+    moe = texpert.init_moe_params(moe_cfg, gen(1), device="cpu")
+    staged = tpipeline.shard_params_pp(trunk, tmesh.make_pipe_mesh(
+        1, device="cpu"))
+    local = texpert.shard_params_ep(moe_cfg, moe, tmesh.make_expert_mesh(
+        1, device="cpu"))
+    for whole, part in ((trunk, staged), (moe, local)):
+        ref = whole.state_dict()
+        for k, v in part.state_dict().items():
+            assert torch.equal(v, ref[k]), k
+
+
+def _top_names(path, defs_only):
+    """Top-level public names of a module's source: its defs, classes and
+    assignments, and unless defs_only its imports too."""
+    out = set()
+    for n in ast.parse(path.read_text()).body:
+        if isinstance(n, (ast.FunctionDef, ast.ClassDef)):
+            out.add(n.name)
+        elif isinstance(n, ast.Assign):
+            for t in n.targets:
+                out |= {e.id for e in ast.walk(t) if isinstance(e, ast.Name)}
+        elif isinstance(n, ast.AnnAssign) and isinstance(n.target, ast.Name):
+            out.add(n.target.id)
+        elif not defs_only and isinstance(n, (ast.Import, ast.ImportFrom)):
+            out |= {(a.asname or a.name).split(".")[0] for a in n.names}
+    return {s for s in out if not s.startswith("_")}
+
+
+def test_every_public_name_has_a_counterpart():
+    """Each JAX module has a port module defining or importing its
+    top-level public defs, classes and constants, and each subpackage's
+    __init__ all the names the JAX package's imports, but pallas_osc
+    (its kernels are csrc/, ops.kernels in the namespace) and utils/cache
+    (XLA's compile cache: the port's build cache is ops/_build.py)."""
+    jroot, troot = ROOT / "libllsm2_tpu", ROOT / "libllsm2_tpu_torch"
+    missing = {}
+    for p in sorted(jroot.rglob("*.py")):
+        rel = p.relative_to(jroot)
+        q = troot / rel
+        if str(rel) in ("ops/pallas_osc.py", "utils/cache.py"):
+            assert not q.exists()
+            continue
+        assert q.exists(), rel
+        want = _top_names(p, p.name != "__init__.py") - {"pallas_osc",
+                                                          "cache"}
+        lack = want - _top_names(q, False)
+        if lack:
+            missing[str(rel)] = sorted(lack)
+    assert not missing, missing
+
+
+def test_subpackage_namespaces():
+    """models exports abs_refine and its submodules as the JAX package's;
+    ops and utils import theirs, kernels in place of pallas_osc."""
+    import libllsm2_tpu_torch.models as tmodels
+    import libllsm2_tpu_torch.ops as tops
+    import libllsm2_tpu_torch.utils as tutils
+    from libllsm2_tpu_torch.models import abs as tabs
+    assert tmodels.abs_refine is tabs.abs_refine
+    for mod, names in ((tmodels, ("abs", "coder", "edits", "layer0",
+                                  "layer1", "pbp")),
+                       (tops, ("f0", "filters", "harmonics", "interp",
+                               "kernels", "lf", "resample", "spectral",
+                               "stft", "warp", "windows")),
+                       (tutils, ("audio", "dataio", "metrics", "plotting",
+                                 "profiling", "serialize", "testsig"))):
+        for name in names:
+            assert getattr(mod, name).__name__ == f"{mod.__name__}.{name}"
+    assert not hasattr(tops, "pallas_osc") and not hasattr(tutils, "cache")
