@@ -31,7 +31,8 @@ non-zero without the final "ok" line:
      of its twin on the card and 1e-6 of its twin on the CPU, which sums
      in the kernel's order; the analysis's and the synthesis's calls), its
      F0 refine (refine_f0_dec: the decimating FIR and the phase probes in
-     one call, within 1e-4 relative of its twin), the
+     one launch, a thread or 16 lanes a frame, within 1e-4 relative of
+     its twin), the
      track lowpass's FIR
      pair (track_lowpass_hz=30: a voicing column and a complex track), env_render on the envelope
      coefficients of the main path's noise_mod_ola call, the unframed
@@ -59,8 +60,11 @@ non-zero without the final "ok" line:
      use_pallas=True): denoiser on, spectral gate at decimation 4) on all
      128 rows x 8 s after zeroing the launch counters: all six kernels,
      fir_frames, noise_bins, sample_cycles and refine_f0_dec must have
-     launched (refine_f0_dec also held to its twin at full batch), clean
-     rows >= 55.17 dB,
+     launched (refine_f0_dec also held to its twin at full batch, on row
+     0 alone and on a 160-frame block of it, RTAnalyzer's size; its line
+     prints its full-batch and 2-row times, bound, ratio and pass split,
+     the passes compiled out by refine_f0.cu's LLSM_SKIP_PASS variants),
+     clean rows >= 55.17 dB,
      noisy rows 0 and 1 within 0.05 dB and clean row 64 at most 0.1 dB
      under the JAX package's values (denoise_finish launched too).  Then
      the step time (median of 5) and peak memory, each of the step's two harmonic_analysis calls (the K = 80
@@ -641,6 +645,9 @@ BATCH_ROWS = (0, 1, 64)           # phase 5: rows whose analysis and output
                                   # must not depend on the batch
 # kernels held to their plain version at full batch as well (phase 5)
 FULL_CHECKED = ("refine_f0_dec",)
+# phase 5: the refine on row 0 alone and on its frames [a, b), a block of
+# RTAnalyzer's 160 frames
+REFINE_BLOCK = (800, 960)
 
 
 class PhaseError(Exception):
@@ -859,25 +866,25 @@ def kernel_ops(torch, name, args, kw):
         return 13.0 * (a[0].numel() // a[0].shape[-1]) * a[3]
     if name == "refine_f0_dec":              # x, f0, taps; D, ..., window
         # the FIR: an FMA a tap an output; a voiced frame (the others write
-        # 0): each of its iters x 2 probes takes, a sample of its window's
-        # support (2 ceil(hw) + 1, hw from the input F0), the window (a
-        # division and 4, each cosine term 22; mltsine one sine), the phase
-        # mod 1 (3) and its sincos (20), two FMAs (4); the last probe's
-        # double angle 8 more
+        # 0): each of its iters iterations takes, a column of its window's
+        # support (|noff| <= hw: 2 floor(hw) + 1 columns, hw from the input
+        # F0), the window (4, each cosine term 22; mltsine one sine), the
+        # phase mod 1 (3) and its sincos (20) once for both probes, and two
+        # FMAs a probe (4 each); the last iteration's double angle 8 more
         from libllsm2_tpu_torch.ops.kernels import _refine_dims
         from libllsm2_tpu_torch.ops.windows import COSINE_SERIES
         x, f0 = a[0], a[1]
         dm = _refine_dims(x.shape[-1], kw["D"], kw["nhop"], kw["fs"],
                           kw["halfwin_max"])
         terms = len(COSINE_SERIES.get(kw["window"], (0, 0))) - 1
-        sample = 4.0 + 22.0 * terms + 3.0 + 20.0 + 4.0
+        column = 4.0 + 22.0 * terms + 3.0 + 20.0 + 2 * 4.0
         f0v = f0[f0 > 0].double()
         hw = torch.clamp(kw["rel_winsize"] * dm["fs_d"] / (2.0 * f0v), 2.0,
                          float(dm["H_d"]))
-        support = float(torch.clamp(2 * torch.ceil(hw) + 1,
+        support = float(torch.clamp(2 * torch.floor(hw) + 1,
                                     max=dm["Wf"]).sum())
         return (2.0 * len(a[2]) * x.shape[0] * dm["nxd"]
-                + support * (2 * kw["iters"] * sample + 8.0))
+                + support * (kw["iters"] * column + 8.0))
     if name == "denoise_stats":
         return float(a[0].numel()) * (4.0 * len(a[5]) + 4.0 * len(a[6]) + 40.0)
     if name == "denoise_apply":
@@ -2385,6 +2392,61 @@ def batch_rows(torch, mods, opt, sopt, data, snr_whole):
           f"refine_f0 on the bench rows alone = in the batch: {refine}; "
           f"SNR alone {snr_alone} dB, in the {BATCH}-row batch "
           f"{[round(snr_whole[r], 4) for r in BATCH_ROWS]} dB")
+
+
+def refine_phase(torch, kernels, harmonics, opt, data, rec, full):
+    """Phase 5, refine_f0_dec beyond the pipeline's calls: row 0 alone (a
+    batch of one, 1600 frames) and its frames REFINE_BLOCK (a 160-frame
+    block, as RTAnalyzer's) held to the twin (check_kernel, cases added to
+    rec); then the pass split at full batch on the bench rows: refine_f0.cu
+    built four times by _build.variants (LLSM_SKIP_PASS_A: the decimation
+    into shared memory compiled out, _B: the probes; the variants of
+    scripts/port_kernel_passes.py), a launch's share of a run of 20 each;
+    one line with the full-batch (full: phase 5's records) and 2-row
+    times, the bound and the ratio."""
+    from libllsm2_tpu_torch.ops import _build
+    name = "refine_f0_dec"
+    conf = opt.conf
+    x, f0 = data[0], data[1]
+    D, taps, g, pass_hz = harmonics.refine_decimation(
+        conf.nhop, x.shape[-1], conf.fs, conf.f0_ceil)
+    kw = dict(D=D, g=g, nhop=conf.nhop, fs=conf.fs,
+              halfwin_max=conf.halfwin_max, rel_winsize=conf.rel_winsize,
+              window="hanning", iters=2, max_rel_dev=0.05, pass_hz=pass_hz)
+    a, b = REFINE_BLOCK
+    for label, xa, fa in (("B = 1", x[:1], f0[:1]),
+                          (f"{b - a}-frame block", x[:1, a * conf.nhop:
+                                                         b * conf.nhop],
+                           f0[:1, a:b])):
+        rec["cases"].append(check_kernel(
+            torch, kernels, name, KERNELS[name][2],
+            (xa.contiguous(), fa.contiguous(), taps), kw, label, prefix="5"))
+    rec["max_abs_err"] = max(c["max_abs_err"] for c in rec["cases"])
+    what = {(0, 0): "nothing", (0, 1): "the probes",
+            (1, 0): "the decimation", (1, 1): "both"}
+    t0 = time.perf_counter()
+    libs = _build.variants([("refine_f0", {"LLSM_SKIP_PASS_A": sa,
+                                           "LLSM_SKIP_PASS_B": sb})
+                            for sa, sb in what])
+    built = time.perf_counter() - t0
+    out = torch.empty_like(f0)
+    args = kernels._refine_launch_args(x, f0, taps, out, **kw)
+    split, rcs = {}, []
+    for (sa, sb), lib in zip(what, libs):
+        fn = lib.llsm_refine_f0_dec
+        rcs.append(fn(*args))
+        split[what[sa, sb]] = run_ms(torch, lambda: fn(*args), 20)
+    f = full[name][0]
+    rec["passes"] = split
+    phase(f"5 {name}", not any(rcs) and f["bound_ms"] > 0,
+          f"full batch {f['ms']:.4f} ms (run {f['run_ms']:.4f}), 2 rows "
+          f"{rec['ms']:.4f} ms, bound {f['bound_ms']:.4f} ms "
+          f"({f['bound_by']}): {f['ms'] / f['bound_ms']:.2f}x its bound "
+          f"(run {f['run_ms'] / f['bound_ms']:.2f}x); passes at full batch "
+          f"(refine_f0.cu's LLSM_SKIP_PASS variants, built in "
+          f"{built:.1f} s; a launch in a run of 20), skipping "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in split.items())
+          + f"; launch codes {rcs}")
 
 
 def capture_kernel_inputs(kernels, names, run):
@@ -4392,6 +4454,8 @@ def main(argv):
     summary["denoise_apply"]["finish_full_batch"] = f.pop(FINISH)
     full.update(f)
     batch_rows(torch, (kernels, layer0, corpus), opt, sopt, data, snr5)
+    refine_phase(torch, kernels, harmonics, opt, data,
+                 summary["refine_f0_dec"], full)
     (summary["harmonic_project_win"]["analysis_calls"],
      summary["osc_bank"]["render_calls"]) = phase5_breakdown(
         torch, (harmonics, layer0, corpus, kernels), opt, sopt, data)

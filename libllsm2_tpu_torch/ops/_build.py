@@ -84,14 +84,14 @@ SIGNATURES = {
     "llsm_sample_cycles": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     # B, nhop, nx -> how many words llsm_sample_cycles needs
     "llsm_sample_cycles_words": (_I, _I, _I),
-    # x, f0, taps (device), xd (scratch [B, nx / D]), out, B, nx, N, D, g,
-    # ntaps, nhop_d, C, Wf, delta_d, iters, H_d, fs_d, dt_d, 2 pi dt_d,
-    # rel_winsize fs_d, 1 - max_rel_dev, 1 + max_rel_dev, pass_hz, lo, hi,
-    # a0, a1, a2, a3 (the window's cosine coefficients), ncoef (0:
-    # mltsine), stream
-    "llsm_refine_f0_dec": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                           _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F,
-                           _L, _L, _F, _F, _F, _F, _I, _P),
+    # x, f0, taps (device), out, B, nx, N, D, g, ntaps, nhop_d, C, Wf,
+    # delta_d, iters, H_d, fs_d, dt_d, 2 pi dt_d, rel_winsize fs_d,
+    # 1 - max_rel_dev, 1 + max_rel_dev, pass_hz, lo, hi, a0, a1, a2, a3 (the
+    # window's cosine coefficients), ncoef (0: mltsine), F, G, P, PQ
+    # (kernels._refine_geometry), stream
+    "llsm_refine_f0_dec": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                           _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _L,
+                           _L, _F, _F, _F, _F, _I, _I, _I, _I, _I, _P),
 }
 
 _lib = None
@@ -125,20 +125,63 @@ def _run_all(cmds) -> str:
     return "".join(errs)
 
 
+def _digest(flags, paths) -> str:
+    """A hash of the flags and of the files' names and bytes."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    for p in paths:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument types of every C entry point the library has."""
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name, None)
+        if fn is not None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def variants(specs) -> list:
+    """One loaded library each of specs [(source stem, {macro: value})]:
+    that source of csrc/ alone, built with NVCC_FLAGS and the macros as -D
+    defines (a kernel's LLSM_SKIP_PASS_A / _B, say), into BUILD_DIR under a
+    hash of the source, the headers, the flags and the defines, so an
+    unchanged variant is reused; the missing ones by one nvcc each, all
+    started together."""
+    headers = sorted(CSRC.glob("*.cuh"))
+    outs, cmds = [], []
+    for stem, macros in specs:
+        src = CSRC / f"{stem}.cu"
+        flags = NVCC_FLAGS + tuple(f"-D{k}={v}" for k, v in
+                                   sorted(macros.items()))
+        out = BUILD_DIR / f"{stem}_{_digest(flags, [src, *headers])}.so"
+        outs.append(out)
+        if not out.exists():
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmds.append((tmp, out, [_nvcc(), *flags, "-shared", "-o",
+                                    str(tmp), str(src)]))
+    if cmds:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        _run_all([cmd for _, _, cmd in cmds])
+        for tmp, out, _ in cmds:
+            os.replace(tmp, out)
+    return [_bind(ctypes.CDLL(str(out))) for out in outs]
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
     global _lib
     if _lib is not None:
         return _lib
     sources = sorted(CSRC.glob("*.cu"))
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sorted(CSRC.glob("*.cu*")):
-        h.update(p.name.encode())
-        h.update(p.read_bytes())
-    out = BUILD_DIR / f"libllsm2_kernels_{h.hexdigest()[:16]}.so"
+    digest = _digest(NVCC_FLAGS, sorted(CSRC.glob("*.cu*")))
+    out = BUILD_DIR / f"libllsm2_kernels_{digest}.so"
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
+        tag = f"{digest}.{os.getpid()}"
         objs = [BUILD_DIR / f"{s.stem}.{tag}.o" for s in sources]
         nvcc = _nvcc()
         try:
@@ -152,11 +195,7 @@ def library() -> ctypes.CDLL:
         finally:
             for o in objs:
                 o.unlink(missing_ok=True)
-    lib = ctypes.CDLL(str(out))
-    for name, argtypes in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+    lib = _bind(ctypes.CDLL(str(out)))
     lib.ptxas_report = out.with_suffix(".ptxas.txt")
     _lib = lib
     return lib

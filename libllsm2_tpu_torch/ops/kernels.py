@@ -1413,6 +1413,46 @@ def _refine_dims(nx: int, D: int, nhop: int, fs: float, H: int) -> dict:
                 hh=hh, Wf=2 * hh * nhop_d)
 
 
+# (frames, lanes a frame) of a refine block, preferred first: a thread a
+# frame where the batch fills the card, else 16 lanes a frame (a frame's
+# sums are 16 partials added in one order either way)
+_REFINE_BLOCKS = ((128, 1), (8, 16), (4, 16), (2, 16))
+_REFINE_SMEM_MAX = 232448        # the H100's shared memory a block may use
+
+
+def _refine_geometry(B: int, N: int, D: int, ntaps: int, dm: dict,
+                     sms: int = 132) -> dict:
+    """refine_f0.cu's launch: F frames of one row a block, G lanes a frame
+    (the first of _REFINE_BLOCKS that gives two blocks to each of the
+    card's `sms` SMs, else the last), T = F G threads, which stage the S =
+    (F - 1) nhop_d + Wf decimated samples their windows read (G = 1:
+    staged sample i at (i mod nhop_d) P + i // nhop_d, so a warp's frames
+    read one column on consecutive words; G = 16: in a row, words = S),
+    their FIR fed x in chunks of Q = 2T outputs, chunk sample i at (i mod
+    D) PQ + i // D (PQ = 32 / D mod 32: a warp's staging writes on
+    distinct banks), two chunks in flight; smem: the block's shared bytes
+    (taps, two chunks, staged samples, the column table)."""
+    for F, G in _REFINE_BLOCKS:
+        if B * -(-N // F) >= 2 * sms:
+            break
+    nd, Wf = dm["nhop_d"], dm["Wf"]
+    T = F * G
+    S = (F - 1) * nd + Wf
+    P = -(-S // nd) if G == 1 else 0
+    words = nd * P if G == 1 else S
+    Q = 2 * T
+    PQ = Q + -(-ntaps // D) - 1
+    PQ += (32 // D - PQ) % 32
+    smem = 4 * (-(-ntaps // 4) * 4 + 2 * D * PQ + words + Wf)
+    return dict(F=F, G=G, T=T, S=S, P=P, words=words, Q=Q, PQ=PQ, smem=smem,
+                grid=(-(-N // F), B))
+
+
+@functools.lru_cache(maxsize=8)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def refine_f0_dec(x: torch.Tensor, f0: torch.Tensor, taps, *, D: int,
                   g: int, nhop: int, fs: float, halfwin_max: int,
                   rel_winsize: float, window: str, iters: int,
@@ -1424,37 +1464,49 @@ def refine_f0_dec(x: torch.Tensor, f0: torch.Tensor, taps, *, D: int,
     and the fundamental-presence gate -> f0 [B, N] (refine_f0_dec_ref says
     the arithmetic).  bounds (lo, hi): the samples of x within the signal;
     the FIR's output outside them is zero.  On the card one launch sums
-    every row and frame in an order of its own, so a row's F0 is the same
+    every frame in an order of its own (F frames of a row a block, a thread
+    or 16 lanes a frame: _refine_geometry), so a row's F0 is the same
     alone, in any batch and in a frame shard's block."""
+    kw = dict(D=D, g=g, nhop=nhop, fs=fs, halfwin_max=halfwin_max,
+              rel_winsize=rel_winsize, window=window, iters=iters,
+              max_rel_dev=max_rel_dev, pass_hz=pass_hz, bounds=bounds)
     if window != "mltsine" and window not in COSINE_SERIES:
         raise ValueError(f"refine_f0_dec: unknown window {window!r}")
     if not _on_cuda(x, f0):
-        return refine_f0_dec_ref(
-            x, f0, taps, D=D, g=g, nhop=nhop, fs=fs, halfwin_max=halfwin_max,
-            rel_winsize=rel_winsize, window=window, iters=iters,
-            max_rel_dev=max_rel_dev, pass_hz=pass_hz, bounds=bounds)
+        return refine_f0_dec_ref(x, f0, taps, **kw)
+    x, f0 = _f32(x), _f32(f0)
+    out = torch.empty_like(f0)
+    _launch("refine_f0_dec", *_refine_launch_args(x, f0, taps, out, **kw))
+    return out
+
+
+def _refine_launch_args(x, f0, taps, out, *, D, g, nhop, fs, halfwin_max,
+                        rel_winsize, window, iters, max_rel_dev, pass_hz,
+                        bounds=None) -> tuple:
+    """llsm_refine_f0_dec's arguments for refine_f0_dec on the card's
+    contiguous float32 x [B, nx] and f0 [B, N], writing out [B, N]."""
     B, nx = x.shape
     N = f0.shape[-1]
-    if f0.shape != (B, N) or nx % D or nhop % D:
+    if f0.shape != (B, N) or D not in (2, 4, 8) or nx % D or nhop % D:
         raise ValueError("refine_f0_dec: shape mismatch (x [B, nx], f0 "
-                         "[B, N], D dividing nx and nhop)")
+                         "[B, N], D of 2, 4 or 8 dividing nx and nhop)")
     t = _taps32(taps)
     dm = _refine_dims(nx, D, nhop, fs, halfwin_max)
+    geo = _refine_geometry(B, N, D, len(t), dm, _sm_count(x.device))
+    if geo["smem"] > _REFINE_SMEM_MAX:
+        raise ValueError(f"refine_f0_dec: {geo['smem']} bytes of shared "
+                         "memory a block (Wf or the taps too long)")
     coefs = (0.0,) * 4 if window == "mltsine" else \
         tuple(float(c) for c in COSINE_SERIES[window]) + (0.0,) * 3
     ncoef = 0 if window == "mltsine" else len(COSINE_SERIES[window])
     lo, hi = (0, nx) if bounds is None else (int(bounds[0]), int(bounds[1]))
-    x, f0 = _f32(x), _f32(f0)
-    xd = torch.empty((B, dm["nxd"]), dtype=FP, device=x.device)
-    out = torch.empty_like(f0)
-    _launch("refine_f0_dec", x.data_ptr(), f0.data_ptr(),
-            _taps_on(t, x.device).data_ptr(), xd.data_ptr(), out.data_ptr(),
-            B, nx, N, int(D), int(g), len(t), dm["nhop_d"], dm["C"],
-            dm["Wf"], dm["delta_d"], int(iters), float(dm["H_d"]),
+    return (x.data_ptr(), f0.data_ptr(), _taps_on(t, x.device).data_ptr(),
+            out.data_ptr(), B, nx, N, int(D), int(g), len(t), dm["nhop_d"],
+            dm["C"], dm["Wf"], dm["delta_d"], int(iters), float(dm["H_d"]),
             dm["fs_d"], dm["dt_d"], 2.0 * math.pi * dm["dt_d"],
             rel_winsize * dm["fs_d"], 1 - max_rel_dev, 1 + max_rel_dev,
-            float(pass_hz), lo, hi, *coefs[:4], ncoef, _stream(x))
-    return out
+            float(pass_hz), lo, hi, *coefs[:4], ncoef, geo["F"], geo["G"],
+            geo["P"], geo["PQ"], _stream(x))
 
 
 def refine_f0_dec_ref(x, f0, taps, *, D, g, nhop, fs, halfwin_max,

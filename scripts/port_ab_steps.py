@@ -6,8 +6,13 @@ batched_pipeline on the bench rows x 8 s with the library default
 (phase 5, `batch` rows), with hm_kernel="matmul" (phase 6) and with the
 library's own default, use_pallas=False (phase 16a: `plain`), the
 denoiser off on 32 of them (phase 4: rows 0-15 and 64-79), the public
-analyze() of one 8 s file (row 0, a batch of one), the layer-1 round trip
-chunk_to_layer1 -> chunk_to_layer0 -> synthesis of the bench rows' chunk
+analyze() of one 8 s file (row 0, a batch of one), harmonics.refine_f0
+alone on the bench rows' x and F0 (`refine`: all of them and row 0 alone,
+the main path's decimated refine, one kernel launch), the analysis of one
+RTAnalyzer block (`rta`: layer0._analyze on row 0's frames 800-959, a
+batch of one, as RTAnalyzer runs each 160-frame block), the layer-1
+round trip chunk_to_layer1 -> chunk_to_layer0 -> synthesis of the bench
+rows' chunk
 (phase 9), pbp_synthesize of the LF rows' layer-1 chunk (phase 10) and
 the edit chain pitch_shift(2.0) -> time_stretch(1.5) -> synthesize_batch
 on it (phase 12); each side analyzes (and fits layer 1) once, untimed,
@@ -18,7 +23,7 @@ torch.cuda.synchronize().  Prints every step, each side's median and
 quartiles, and how many pairs each side won.  Imports no jax:
 
     python3 scripts/port_ab_steps.py OTHER_DIR [pairs=20] [batch=128]
-        [cells=default,matmul,off32,one,layer1,pbp,edits,plain]
+        [cells=default,matmul,off32,one,refine,rta,layer1,pbp,edits,plain]
 """
 import dataclasses
 import importlib
@@ -80,7 +85,11 @@ def main(argv):
         lx, lf0 = (torch.tensor(np.stack([r[j] for r in lf]),
                                 dtype=torch.float32, device="cuda")
                    for j in range(2))
-    for cell in cells:
+    # (cell, rows): refine runs the batch, then one row alone
+    runs = [r for cell in cells for r in (
+        [(cell, B), (cell, 1)] if cell == "refine" else [(cell, None)])]
+    for cell, rows in runs:
+        label = cell if rows is None else f"{cell} {rows} x 8 s"
         steps = {}
         for name, pkg in sides.items():
             opt = pkg.create_aoptions(f0_floor=70.0, use_pallas=True)
@@ -105,6 +114,16 @@ def main(argv):
                         s, e.time_stretch(e.pitch_shift(c, 2.0), 1.5))))
             elif cell == "one":
                 steps[name] = (lambda p=pkg, o=opt: p.analyze(o, x[0], f0[0]))
+            elif cell == "rta":
+                steps[name] = (lambda l0=l0, o=opt: l0._analyze(
+                    o, x[:1, 800 * 80:960 * 80], f0[:1, 800:960]))
+            elif cell == "refine":
+                hm = importlib.import_module(pkg.__name__ + ".ops.harmonics")
+                c = opt.conf
+                steps[name] = (lambda hm=hm, c=c, r=rows: hm.refine_f0(
+                    x[:r], f0[:r], nhop=c.nhop, fs=c.fs,
+                    halfwin_max=c.halfwin_max, rel_winsize=c.rel_winsize,
+                    f0_ceil=c.f0_ceil))
             else:
                 args = (x, f0, nxv, x_ref)
                 if cell == "matmul":
@@ -129,12 +148,14 @@ def main(argv):
                 torch.cuda.synchronize()
                 ms[name].append((time.perf_counter() - t0) * 1e3)
         wins = sum(a < b for a, b in zip(ms["this"], ms["other"]))
+        nd = 4 if cell == "refine" else 2        # its steps are ~0.1-1 ms
         for name in sides:
             q = statistics.quantiles(ms[name], n=4)
-            print(f"{cell} {name}: median {statistics.median(ms[name]):.2f}"
-                  f" ms, quartiles {q[0]:.2f} / {q[2]:.2f} ms; steps "
-                  f"{[round(v, 2) for v in ms[name]]}", flush=True)
-        print(f"{cell}: this checkout faster in {wins} of {pairs} pairs",
+            print(f"{label} {name}: median "
+                  f"{statistics.median(ms[name]):.{nd}f} ms, quartiles "
+                  f"{q[0]:.{nd}f} / {q[2]:.{nd}f} ms; steps "
+                  f"{[round(v, nd) for v in ms[name]]}", flush=True)
+        print(f"{label}: this checkout faster in {wins} of {pairs} pairs",
               flush=True)
     return 0
 

@@ -1,34 +1,54 @@
-"""Where the time of four of the port's kernels goes, by compiling passes
+"""Where the time of five of the port's kernels goes, by compiling passes
 out: noise_mod_ola.cu (pass 1, the band iDFT; pass 2, the OLA, envelope
 and band sum), deconv_full.cu (the tap build; the output pass),
 harmonic_project_mxu.cu (the making of G and the window rows; the banded
-product) and sample_cycles.cu (the steps' lerp and divide; the output
-pass, on F0 70-300 Hz with every 7th frame unvoiced), each built four
-times from the sources in
+product), sample_cycles.cu (the steps' lerp and divide; the output
+pass) and refine_f0.cu (the decimation into shared memory; the probes),
+the last two on F0 70-300 Hz with every 7th frame unvoiced, each built
+four times from the sources in
 libllsm2_tpu_torch/csrc with one, the other, both or neither pass skipped
 (their LLSM_SKIP_PASS_A / _B), and timed at the bench shape (128 rows x
 1600 frames, 16 kHz: hop 80, K 80, D 7; the projection's halfwidths 107-
-458, as F0 70-300 Hz gives them, reach 480) on random inputs, a launch's
-share of a run of 20 (CUDA events, best of 5).  What is left with both
-passes skipped is the staging: the block's loads into shared memory and
-its tables (for the projection, the chunk walk, its barriers and the
-epilogue).  Needs a CUDA card and nvcc; imports no jax:
+458, as F0 70-300 Hz gives them, reach 480; the refine's decimation 8,
+97 taps) on random inputs, a launch's share of a run of 20 (CUDA events,
+best of 5).  What is left with both passes skipped is the staging: the
+block's loads into shared memory and its tables (for the projection, the
+chunk walk, its barriers and the epilogue).  Needs a CUDA card and nvcc;
+imports no jax:
 
     PYTHONPATH=. python3 scripts/port_kernel_passes.py [only=name,...]
+        [split=DIR,...]
 
-The variants go to build/dev/ (listed in .gitignore).
+split= instead times each CUDA kernel of kernels.refine_f0_dec, by its
+name in a torch.profiler trace, of the package in each DIR (a checkout,
+e.g. the parent commit unpacked under build/archive/), at the bench shape
+on the bench rows' x and F0 and on random x with F0 70-300 Hz (every 7th
+frame unvoiced), then on the bench rows at the smaller shapes the port
+also runs: 16 rows, 2 rows (chip_smoke's phase 3), row 0 alone (a one-file
+analyze()), its frames 800-959 (a RTAnalyzer block of 160 frames) and
+rows 0 and 1 end to end as one 3200-frame row (a frame shard's block in
+chip_smoke's phase 19a): the split between a version's kernels, and its
+device time at each shape.
+
+The variants go to build/kernels/ beside the library (listed in
+.gitignore), each under a hash of its source and defines.
 """
 import ctypes
+import importlib
+import importlib.util
+import json
+import re
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from libllsm2_tpu_torch.config import ChunkConf
-from libllsm2_tpu_torch.ops import _build, kernels
+from libllsm2_tpu_torch.ops import _build, harmonics, kernels
 
-OUT = Path(__file__).resolve().parents[1] / "build" / "dev"
 B, N, NHOP, C, KE, K, D = 128, 1600, 80, 4, 4, 80, 7
 # source -> what its LLSM_SKIP_PASS_A and LLSM_SKIP_PASS_B compile out
 PASSES = {
@@ -37,34 +57,23 @@ PASSES = {
     "deconv_full": ("the tap build", "the output pass"),
     "harmonic_project_mxu": ("G and the window rows", "the banded product"),
     "sample_cycles": ("the steps' lerp and divide", "the output pass"),
+    "refine_f0": ("the decimation into shared memory", "the probes"),
 }
+# C entry of a source, where its name is not llsm_<source>
+ENTRIES = {"refine_f0": "llsm_refine_f0_dec"}
+SPLIT_REPS = 20
 
 
 def build_variants(names):
-    """-> {(name, skip_a, skip_b): loaded library} for the kernels `names`,
-    one nvcc each, all started together."""
-    OUT.mkdir(parents=True, exist_ok=True)
-    jobs = {}
-    for name in names:
-        for a in (0, 1):
-            for b in (0, 1):
-                so = OUT / f"passes_{name}_{a}{b}.so"
-                cmd = [_build._nvcc(), *_build.ARCH, "-std=c++17", "-O3",
-                       "-Xcompiler", "-fPIC", "-shared", f"-I{_build.CSRC}",
-                       f"-DLLSM_SKIP_PASS_A={a}", f"-DLLSM_SKIP_PASS_B={b}",
-                       "-o", str(so), str(_build.CSRC / f"{name}.cu")]
-                jobs[(name, a, b)] = (so, subprocess.Popen(
-                    cmd, stderr=subprocess.PIPE, text=True))
-    libs = {}
-    for key, (so, proc) in jobs.items():
-        _, err = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed for {key}:\n{err}")
-        lib = ctypes.CDLL(str(so))
-        fn = getattr(lib, "llsm_" + key[0])
-        fn.argtypes = _build.SIGNATURES["llsm_" + key[0]]
-        libs[key] = fn
-    return libs
+    """-> {(name, skip_a, skip_b): C entry} for the kernels `names`, built
+    by _build.variants (its cache under build/kernels/; the missing ones
+    one nvcc each, all started together)."""
+    keys = [(name, a, b) for name in names for a in (0, 1) for b in (0, 1)]
+    libs = _build.variants([(name, {"LLSM_SKIP_PASS_A": a,
+                                    "LLSM_SKIP_PASS_B": b})
+                            for name, a, b in keys])
+    return {key: getattr(lib, ENTRIES.get(key[0], "llsm_" + key[0]))
+            for key, lib in zip(keys, libs)}
 
 
 def run_ms(fn, reps=20):
@@ -83,6 +92,83 @@ def run_ms(fn, reps=20):
     return best
 
 
+def refine_args(nx):
+    """-> (taps, keyword arguments) of the bench shape's decimated refine
+    (16 kHz, hop 80, f0_floor 70: the main path's)."""
+    conf = ChunkConf(f0_floor=70.0)
+    D, taps, g, pass_hz = harmonics.refine_decimation(conf.nhop, nx, conf.fs,
+                                                      conf.f0_ceil)
+    return taps, dict(D=D, g=g, nhop=conf.nhop, fs=conf.fs,
+                      halfwin_max=conf.halfwin_max,
+                      rel_winsize=conf.rel_winsize, window="hanning",
+                      iters=2, max_rel_dev=0.05, pass_hz=pass_hz)
+
+
+def load(root: Path, alias: str):
+    """The libllsm2_tpu_torch package under root, imported as `alias`."""
+    pkg = root / "libllsm2_tpu_torch"
+    spec = importlib.util.spec_from_file_location(
+        alias, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[alias] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def split(dirs, f0_rand):
+    """Each refine_f0_dec kernel's device time of the packages in dirs,
+    SPLIT_REPS calls traced by utils.profiling.device_trace, on the bench
+    rows and on random x with F0 f0_rand."""
+    from libllsm2_tpu_torch.utils import profiling, testsig
+    dev = torch.device("cuda")
+    rows = testsig.make_test_utterances(
+        [(i, 0.05 if i < B // 2 else 0.0) for i in range(B)], duration=8.0)
+    bench = tuple(torch.tensor(np.stack([r[j] for r in rows]),
+                               dtype=torch.float32, device=dev)
+                  for j in range(2))
+    g = torch.Generator(device=dev).manual_seed(1)
+    rand = (torch.randn(B, N * NHOP, generator=g, device=dev), f0_rand)
+    x, f0 = bench
+    shapes = (("bench rows", bench), ("F0 70-300 Hz", rand),
+              ("16 bench rows", (x[:16], f0[:16])),
+              ("2 bench rows", (x[:2], f0[:2])),
+              ("bench row 0 alone", (x[:1], f0[:1])),
+              ("160 frames of row 0", (x[:1, 800 * NHOP:960 * NHOP],
+                                       f0[:1, 800:960])),
+              ("rows 0-1 as one 3200-frame row",
+               (x[:2].reshape(1, -1), f0[:2].reshape(1, -1))))
+    for i, d in enumerate(dirs):
+        pkg = load(Path(d).resolve(), f"port_split{i}")
+        kmod = importlib.import_module(pkg.__name__ + ".ops.kernels")
+        for label, (xs, fs) in shapes:
+            xs, fs = xs.contiguous(), fs.contiguous()
+            taps, kw = refine_args(xs.shape[1])
+            call = lambda: kmod.refine_f0_dec(xs, fs, taps, **kw)
+            call()
+            torch.cuda.synchronize()
+            with tempfile.TemporaryDirectory() as tmp:
+                with profiling.device_trace(tmp):
+                    for _ in range(SPLIT_REPS):
+                        call()
+                with open(Path(tmp) / "trace.json") as fh:
+                    events = json.load(fh)["traceEvents"]
+            us = {}
+            for e in events:
+                if e.get("ph") == "X" and e.get("cat") == "kernel":
+                    name = e["name"].replace("(anonymous namespace)::", "")
+                    m = re.search(r"(\w+(?:<[^()]*>)?)\(", name)
+                    name = m.group(1) if m else name
+                    us[name] = us.get(name, 0.0) + e["dur"]
+            total = sum(us.values())
+            parts = "; ".join(f"{name}: {v / SPLIT_REPS / 1e3:.4f} ms "
+                              f"({100 * v / total:.1f}%)"
+                              for name, v in sorted(us.items()))
+            print(f"split {d} refine_f0_dec on the {label} "
+                  f"{tuple(fs.shape)}: "
+                  f"{total / SPLIT_REPS / 1e3:.4f} ms a call of kernel "
+                  f"time: {parts}", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("FAIL: no CUDA card", flush=True)
@@ -92,6 +178,12 @@ def main():
                          text=True)
     print(smi.stdout.strip(), flush=True)
     kw = dict(a.split("=", 1) for a in sys.argv[1:])
+    if "split" in kw:
+        g = torch.Generator(device="cuda").manual_seed(0)
+        f0 = 70.0 + 230.0 * torch.rand(B, N, generator=g, device="cuda")
+        f0[:, ::7] = 0.0
+        split(kw["split"].split(","), f0)
+        return 0
     names = kw["only"].split(",") if "only" in kw else list(PASSES)
     libs = build_variants(names)
     dev = torch.device("cuda")
@@ -119,6 +211,9 @@ def main():
     cyc_o = torch.empty(B, N * NHOP, device=dev)
     # its tile words (at most one a row's 8 hops; the C entry zeroes them)
     words = torch.empty(B * ((N + 7) // 8), dtype=torch.int64, device=dev)
+    taps, rk = refine_args(N * NHOP)
+    f0_r = torch.empty_like(f0)
+    refine = kernels._refine_launch_args(x, f0, taps, f0_r, **rk)
     stream = torch.cuda.current_stream().cuda_stream
     calls = {
         "noise_mod_ola": lambda fn: fn(
@@ -137,6 +232,7 @@ def main():
         "sample_cycles": lambda fn: fn(
             f0.data_ptr(), cyc_o.data_ptr(), words.data_ptr(), None, 0, B,
             N, NHOP, N * NHOP, 16000.0, stream),
+        "refine_f0": lambda fn: fn(*refine),
     }
     for (name, a, b), fn in libs.items():
         rc = calls[name](fn)

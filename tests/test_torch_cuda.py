@@ -999,8 +999,10 @@ def test_run_corpus_files_equals_run_corpus_on_card(tmp_path):
 
 @pytest.mark.requires_cuda
 def test_refine_f0_rows_do_not_depend_on_the_batch_on_card():
-    """harmonics.refine_f0 on the card (one launch of refine_f0.cu, which
-    sums every row and frame in an order of its own): rows 0, 1 and 63 of
+    """harmonics.refine_f0 on the card (one launch of refine_f0.cu: a block
+    a run of frames of one row, a thread a frame summing in an order of
+    its frame's alone, the block's width chosen by the batch): rows 0, 1
+    and 63 of
     a 64-row batch of 8 s bench-like rows, with zeroed tails of different
     lengths, equal bit for bit the same rows alone and in the first 3 rows
     of a 128-row batch."""
@@ -1055,8 +1057,9 @@ def _f0_rel(got, ref):
 @pytest.mark.requires_cuda
 def test_refine_f0_dec_matches_twin_on_card():
     """kernels.refine_f0_dec at the main path's shape (128 rows x 8 s, D =
-    8, 97 taps, Wf = 140): within 1e-4 relative of its twin on the card,
-    one launch counted; harmonics.refine_f0 on card tensors reaches
+    8, 97 taps, Wf = 140; one launch that decimates into shared memory and
+    probes a thread a frame): within 1e-4 relative of its twin on the
+    card, one launch counted; harmonics.refine_f0 on card tensors reaches
     neither the twin nor layer0._row_groups."""
     from libllsm2_tpu_torch.ops import harmonics
     dev = _card()
@@ -1087,8 +1090,9 @@ def test_refine_f0_dec_matches_twin_on_card():
                                     "blackman_harris", "nuttall98",
                                     "mltsine"])
 def test_refine_f0_dec_windows_on_card(window):
-    """Every window window_centered takes: the kernel within 1e-4 relative
-    of its twin on 4 rows of 2 s."""
+    """Every window window_centered takes (the kernel's window is a
+    template argument, its support the frame's integer offsets |noff| <=
+    hw): the kernel within 1e-4 relative of its twin on 4 rows of 2 s."""
     dev = _card()
     x, f0 = _refine_rows(4, 2.0, dev)
     taps, kw = _dec_args(x.shape[1], window)
@@ -1096,12 +1100,66 @@ def test_refine_f0_dec_windows_on_card(window):
     assert _f0_rel(got, kernels.refine_f0_dec_ref(x, f0, taps, **kw)) <= 1e-4
 
 
+def _refine_case(case, dev):
+    """(x [B, nx], f0 [B, N], window) of a refine_f0_dec card case."""
+    if case == "edges":               # first and last frames voiced
+        x, f0 = _refine_rows(2, 2.0, dev)
+        f0[:, :3] = torch.where(f0[:, :3] > 0, f0[:, :3], 120.0)
+        f0[:, -3:] = torch.where(f0[:, -3:] > 0, f0[:, -3:], 180.0)
+        return x, f0, "hanning"
+    if case == "ragged":              # N = 1563: no block width divides it
+        x, f0 = _refine_rows(3, 8.0, dev)
+        return x[:, :1563 * 80], f0[:, :1563], "hanning"
+    if case == "rtanalyzer":          # B = 1, N = 160: a RTAnalyzer block
+        x, f0 = _refine_rows(1, 8.0, dev)
+        return x[:, 800 * 80:960 * 80], f0[:, 800:960], "hanning"
+    x, f0 = _refine_rows(4, 2.0, dev)
+    if case == "voicing":             # a row unvoiced, a row alternating
+        f0[0] = 0.0
+        f0[1, ::2] = 0.0
+        return x, f0, "hanning"
+    return x, f0, "mltsine"
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("case", ["edges", "ragged", "rtanalyzer", "voicing",
+                                  "mltsine"])
+def test_refine_f0_dec_cases_on_card(case):
+    """kernels.refine_f0_dec on the first and last frames of a row, on N =
+    1563 frames (a multiple of no block width), on one 160-frame row (a
+    RTAnalyzer block), on an unvoiced and an alternating row and with the
+    mltsine window: within 1e-4 relative of its twin, voicing equal, and
+    each row alone (a batch of one: 16 lanes a frame) bit for bit equal to
+    its row in the batch and in a batch of >= 128 rows (a thread a
+    frame)."""
+    dev = _card()
+    x, f0, window = _refine_case(case, dev)
+    taps, kw = _dec_args(x.shape[1], window)
+    got = kernels.refine_f0_dec(x, f0, taps, **kw)
+    ref = kernels.refine_f0_dec_ref(x, f0, taps, **kw)
+    assert _f0_rel(got, ref) <= 1e-4
+    B = x.shape[0]
+    reps = -(-128 // B)
+    big = kernels.refine_f0_dec(x.repeat(reps, 1), f0.repeat(reps, 1), taps,
+                                **kw)
+    for r in range(B):
+        alone = kernels.refine_f0_dec(x[r:r + 1], f0[r:r + 1], taps, **kw)
+        assert torch.equal(alone[0], got[r]), r
+        assert torch.equal(big[r + B * (reps - 1)], got[r]), r
+    if case == "edges":
+        assert bool((got[:, [0, 1, -2, -1]] > 0).all())
+    if case == "voicing":
+        assert bool((got[0] == 0).all()) and bool((got[1, ::2] == 0).all())
+        assert bool((got[1, 1::2] > 0).any())
+
+
 @pytest.mark.requires_cuda
 def test_refine_f0_block_with_bounds_equals_one_process_on_card():
     """A frame shard's hop-aligned blocks of an 8 s row (400 frames each,
     24 frames of halo, zeros past the signal's edges fenced off by bounds,
     as parallel.seqparallel cuts them) refine their core frames to the
-    one-process F0 bit for bit."""
+    one-process F0 bit for bit: each frame decimates its window's samples
+    from x itself, in the block that holds it, whatever the block."""
     from libllsm2_tpu_torch.ops import harmonics
     dev = _card()
     x, f0 = _refine_rows(2, 8.0, dev)

@@ -130,6 +130,86 @@ def test_refine_f0_dec_cpu_runs_the_twin_and_launches_nothing(monkeypatch):
         kernels.refine_f0_dec(T(x), T(f0), taps, **dict(kw, window="kaiser"))
 
 
+# the rates and floors the library takes (thop 0.005): (fs, f0_floor)
+REFINE_CONFS = [(16000.0, 70.0), (16000.0, 40.0), (11025.0, 40.0),
+                (22050.0, 40.0), (44100.0, 40.0), (48000.0, 40.0)]
+
+
+def _refine_conf(fs, f0_floor, N=1600):
+    """-> (conf, D, ntaps, _refine_dims) of conf's refine of N frames."""
+    conf = tconfig.ChunkConf(fs=fs, f0_floor=f0_floor, thop=0.005)
+    nx = N * conf.nhop
+    D, taps, g, _ = thm.refine_decimation(conf.nhop, nx, conf.fs,
+                                          conf.f0_ceil)
+    if D == 1:
+        return conf, D, 0, None
+    return conf, D, len(taps), kernels._refine_dims(nx, D, conf.nhop,
+                                                    conf.fs,
+                                                    conf.halfwin_max)
+
+
+@pytest.mark.parametrize("fs,f0_floor", REFINE_CONFS)
+def test_refine_probes_stay_inside_the_frame(fs, f0_floor):
+    """Every conf the library accepts: where the refine decimates (D > 1)
+    no probe column falls left of the frame (C - delta >= H_d) and at most
+    the +delta probe's last column, where the window weighs 0, past its
+    right end (C + delta + H_d <= Wf); 11025 Hz (hop 55) is not decimated
+    and takes the full-rate path."""
+    conf, D, ntaps, dm = _refine_conf(fs, f0_floor)
+    if fs == 11025.0:
+        assert D == 1 and conf.nhop == 55
+        return
+    assert D in (2, 4, 8) and ntaps % 2 == 1
+    assert dm["C"] - dm["delta_d"] >= dm["H_d"]
+    assert dm["C"] + dm["delta_d"] + dm["H_d"] <= dm["Wf"]
+    assert dm["Wf"] == 2 * dm["C"] and dm["C"] % dm["nhop_d"] == 0
+
+
+@pytest.mark.parametrize("fs,f0_floor", REFINE_CONFS)
+def test_refine_geometry_covers_every_frame(fs, f0_floor):
+    """kernels._refine_geometry for the same confs, at a RTAnalyzer block
+    (B = 1, N = 160), a ragged batch (2 x 1563) and the bench batch (128 x
+    1600; a thread a frame there, 16 lanes a frame at the two small
+    shapes): each block's staged decimated samples cover its frames'
+    windows, the staged table and the x chunk's rows hold every slot once
+    (and the column table points each frame's column at its sample), the
+    C entry's checks hold, and the block's shared bytes stay <= 227 KB."""
+    for B, N in ((1, 160), (2, 1563), (128, 1600)):
+        conf, D, ntaps, dm = _refine_conf(fs, f0_floor, N)
+        if fs == 11025.0:                 # the full-rate path: no launch
+            assert D == 1
+            return
+        geo = kernels._refine_geometry(B, N, D, ntaps, dm)
+        F, G, T, S, P, Q, PQ = (geo[k] for k in ("F", "G", "T", "S", "P",
+                                                   "Q", "PQ"))
+        nd, Wf, C = dm["nhop_d"], dm["Wf"], dm["C"]
+        assert (F, G) in kernels._REFINE_BLOCKS and T == F * G
+        assert T % 32 == 0 and T <= 128 and Q == 2 * T
+        assert geo["grid"] == (-(-N // F), B)
+        assert (G == 1) == (B == 128)         # a thread a frame at the bench
+        assert geo["smem"] <= 227 * 1024
+        assert PQ >= Q + -(-ntaps // D) - 1 and PQ % 32 == (32 // D) % 32
+        for n0 in range(0, N, F):
+            m0 = n0 * nd - C
+            n = np.arange(n0, min(n0 + F, N))
+            assert (n * nd - C >= m0).all()
+            assert (n * nd - C + Wf <= m0 + S).all()
+        # the staged table (the kernel's slot()) and frame f's column c,
+        # fr[col[c]] with fr = xs + f (G = 1) or xs + f nhop_d (G = 16)
+        i, c, f = np.arange(S), np.arange(Wf), np.arange(F)[:, None]
+        if G == 1:
+            slot, col, fr = (i % nd) * P + i // nd, (c % nd) * P + c // nd, f
+        else:
+            slot, col, fr = i, c, f * nd
+        assert len(np.unique(slot)) == S and slot.max() < geo["words"]
+        assert (fr + col == slot[f * nd + c]).all()
+        i = np.arange((Q - 1) * D + ntaps)
+        xslot = (i % D) * PQ + i // D
+        assert len(np.unique(xslot)) == len(i) and xslot.max() < D * PQ
+        o, t = np.arange(Q)[:, None], np.arange(ntaps)
+        assert ((t % D) * PQ + o + t // D == xslot[o * D + t]).all()
+
+
 @pytest.mark.parametrize("warp_const", [766.0, 15000.0])
 def test_unwarp_frequency_and_warped_bin_centers(warp_const):
     """unwarp_frequency inverts warp_frequency (tests/test_ops.py's
