@@ -11,7 +11,8 @@ package in DIR, each reported and none failing the run.  The second form
 runs only phase 5's breakdown (the harmonic_analysis
 calls, the harmonic renders, the analysis / synthesis times and peaks,
 each analysis stage's time and peak, then the step's sample_cycles calls
-and env_render on its chunk at full batch beside their bounds) on the
+and env_render on its chunk at full batch beside their bounds) and phase
+7's analysis stages (the refine's time and peak first) on the
 libllsm2_tpu_torch package in DIR, another checkout such as the parent
 commit's, so that two versions compare on one card; it prints no result
 line.  The first form's phases, one line each; any failure exits
@@ -32,13 +33,19 @@ non-zero without the final "ok" line:
      in the kernel's order; the analysis's and the synthesis's calls), its
      F0 refine (refine_f0_dec: the decimating FIR and the phase probes in
      one launch, a thread or 16 lanes a frame, within 1e-4 relative of
-     its twin), the
+     its twin), the full-rate F0 refine of phase 7's path at 2 rows
+     (refine_f0_full: the copy of x into shared memory and every probe in
+     one launch, within 1e-4 relative of its twin), the
      track lowpass's FIR
      pair (track_lowpass_hz=30: a voicing column and a complex track), env_render on the envelope
      coefficients of the main path's noise_mod_ola call, the unframed
      projection of phase 6's hm_kernel="matmul", the plain projection of
-     phase 7's refine probes (K = 1) and of one harmonic_analysis with the
-     mltsine window (K = 80) -- runs kernel and plain PyTorch version on them on the card, checks
+     one harmonic_analysis with the mltsine window (K = 80) and, at K = 1,
+     of the full-rate refine's first probe on phase 7's 128 rows (the
+     twin's framing, [204800, 631]: no path launches harmonic_project at
+     K = 1 since refine_f0_full took those calls; also timed at full batch
+     beside its bound and yardstick)
+     -- runs kernel and plain PyTorch version on them on the card, checks
      the maximum error against each tolerance, and times both (median of
      10, CUDA events) and, where PyTorch computes the same function in
      one contraction, convolution or FFT, that call with the making of
@@ -88,15 +95,23 @@ non-zero without the final "ok" line:
      steps, their median and the peak.
   7. odd hop: create_aoptions(fs=11000, f0_floor=70, use_pallas=True) and
      create_soptions(fs=11000) on 128 rows x 8 s of the bench fixtures
-     made at 11 kHz (hop 55: undecimated refine through harmonic_project,
-     envelope decimation 1); harmonic_project and the six kernels of
-     phase 5 launched; noisy rows 0/1 within 0.2 dB and clean row 64 at
-     most 0.1 dB under the JAX package's values.  Then step and peak.
+     made at 11 kHz (hop 55: the undecimated refine, one launch of
+     refine_f0_full, envelope decimation 1); refine_f0_full launched once,
+     harmonic_project never, and the six kernels of phase 5 launched;
+     noisy rows 0/1 within 0.2 dB and clean row 64 at most 0.1 dB under
+     the JAX package's values.  Then step and peak; refine_f0_full held
+     to its twin at full batch, on row 0 alone and on rows 0 and 1 as one
+     3200-frame row, harmonics.refine_f0 on rows 0, 1 and 64 alone equal
+     to their rows of the batch bit for bit, its line with the full-batch
+     and 2-row times, bound, ratio and pass split (the copy into shared
+     memory or the probes compiled out); the analysis's stages, the
+     refine's time and peak first (the breakdown form prints these too).
   8. an 11.025 kHz file through the public analyze -> synthesize (numpy
      input, on the card by default; resampled to 11000 Hz, output
      rendered there and resampled back), one noisy and one clean 1 s row
      made at 11025 Hz: output length round(nfrm thop fs), finite, y_sin
-     SNR within 0.1 dB of the JAX package's.
+     SNR within 0.1 dB of the JAX package's; refine_f0_full launched,
+     harmonic_project never.
   9. layer-1 round trip on the 128 x 8 s bench rows: the library-default
      analysis, then chunk_to_layer1 -> chunk_to_layer0 -> _synthesize,
      counters zeroed before; the seven kernels of phase 5 launched; y_sin
@@ -319,8 +334,9 @@ card's memory, timed on the first 1/2, 1/4, ... of the rows and scaled,
 which the line says).  The line before the last is
 the kernels' JSON summary: launches from the phase that runs each (5 for
 the six, fir_frames, noise_bins, sample_cycles and refine_f0_dec, 6 for
-harmonic_project_mxu, 7 for
-harmonic_project, 9 for env_render, 16c for noise_mod_ola_seg;
+harmonic_project_mxu, 7 for refine_f0_full and harmonic_project (0:
+its K = 1 case is phase 3's), 9 for env_render, 16c for
+noise_mod_ola_seg;
 denoise_apply also "finish_launches" and "finish_full_batch" for its
 second launch; "launches_by_phase" the counts of phases 11 to 17 and
 of 19, summed over its ranks' 19a runs); ms,
@@ -547,6 +563,11 @@ KERNELS = {
     # one and not the other an infinite one
     "refine_f0_dec": ("libllsm2_tpu_torch/csrc/refine_f0.cu",
                       "libllsm2_tpu/ops/harmonics.py:372", 1e-4),
+    # the full-rate F0 refine: the K = 1 calls of harmonic_project_pallas
+    # (JAX harmonics.py:494-543) and the framing around them, one launch;
+    # relative |error| as refine_f0_dec's
+    "refine_f0_full": ("libllsm2_tpu_torch/csrc/refine_f0.cu",
+                       "libllsm2_tpu/ops/pallas_osc.py:1388", 1e-4),
 }
 # phase 16: the segment-input entry of noise_mod_ola.cu (noise_idft="fft"),
 # a wrapper of its own; source, TPU kernel it replaces, tolerance
@@ -643,8 +664,8 @@ PATH = MAIN + (FINISH,)           # every wrapper the main path launches
 ANALYSIS = tuple(k for k in PATH if k not in ("noise_mod_ola", "noise_bins"))
 BATCH_ROWS = (0, 1, 64)           # phase 5: rows whose analysis and output
                                   # must not depend on the batch
-# kernels held to their plain version at full batch as well (phase 5)
-FULL_CHECKED = ("refine_f0_dec",)
+# kernels held to their plain version at full batch as well (phases 5, 7)
+FULL_CHECKED = ("refine_f0_dec", "refine_f0_full")
 # phase 5: the refine on row 0 alone and on its frames [a, b), a block of
 # RTAnalyzer's 160 frames
 REFINE_BLOCK = (800, 960)
@@ -715,7 +736,7 @@ def max_err(torch, name, got, ref, scale=1.0, kw=None):
     if name == "sample_cycles":                     # mod 1, in cycles
         d = got.double() - ref.double()
         return float(torch.max(torch.abs(d - torch.round(d))))
-    if name == "refine_f0_dec":                     # relative, voiced frames
+    if name in ("refine_f0_dec", "refine_f0_full"):  # relative, voiced frames
         if not torch.equal(got == 0, ref == 0):
             return float("inf")
         return float(torch.max(torch.abs(got - ref)
@@ -885,6 +906,22 @@ def kernel_ops(torch, name, args, kw):
                                     max=dm["Wf"]).sum())
         return (2.0 * len(a[2]) * x.shape[0] * dm["nxd"]
                 + support * (kw["iters"] * column + 8.0))
+    if name == "refine_f0_full":             # x, f0; nhop, ..., window
+        # no FIR; a voiced frame (the others write 0): each of its iters
+        # iterations takes, a column of its support (2 floor(hw) + 1
+        # columns, as the kernel walks them; hw from the input F0, which the
+        # refine moves by at most max_rel_dev and 1 Hz), the window (4, each
+        # cosine term 22; mltsine one sine), the phase mod 1 (3) and its
+        # sincos (20) once for both probes, and two FMAs a probe (4 each);
+        # the gate the same column for its one probe at 2 f0
+        from libllsm2_tpu_torch.ops.windows import COSINE_SERIES
+        terms = len(COSINE_SERIES.get(kw["window"], (0, 0))) - 1
+        column = 4.0 + 22.0 * terms + 3.0 + 20.0
+        f0v = a[1][a[1] > 0].double()
+        hw = torch.clamp(kw["rel_winsize"] * kw["fs"] / (2.0 * f0v), 2.0,
+                         float(kw["halfwin_max"]))
+        support = float((2 * torch.floor(hw) + 1).sum())
+        return support * (kw["iters"] * (column + 8.0) + column + 4.0)
     if name == "denoise_stats":
         return float(a[0].numel()) * (4.0 * len(a[5]) + 4.0 * len(a[6]) + 40.0)
     if name == "denoise_apply":
@@ -2219,12 +2256,8 @@ def phase5_breakdown(torch, mods, opt, sopt, data):
     # over a stage's calls; median of 3), and its peak above the memory
     # allocated when it starts (a call inside another resets the outer
     # call's peak count)
-    hooks = [(harmonics, "refine_f0"), (harmonics, "sample_cycles"),
-             (harmonics, "harmonic_analysis"),
-             (layer0, "_deconv_correction"), (layer0, "_track_denoise"),
-             render_hook(harmonics, kernels), (layer0, "_band_envelopes"),
-             (layer0, "_warped_psd")]
-    ms, peaks = stage_times(torch, hooks, lambda: layer0._analyze(opt, x, f0))
+    ms, peaks = stage_times(torch, analysis_hooks(harmonics, layer0, kernels),
+                            lambda: layer0._analyze(opt, x, f0))
     print("5 analysis stages, ms (synchronized, median of 3) and peak GiB "
           "above each call's start: " + ", ".join(
               f"{k} {ms[k]:.2f} ms {peaks[k]:.3f} GiB" for k in peaks)
@@ -2447,6 +2480,118 @@ def refine_phase(torch, kernels, harmonics, opt, data, rec, full):
           f"{built:.1f} s; a launch in a run of 20), skipping "
           + ", ".join(f"{k} {v:.4f} ms" for k, v in split.items())
           + f"; launch codes {rcs}")
+
+
+def refine_full_kw(conf):
+    """kernels.refine_f0_full's keyword arguments for conf's refine (the
+    library's: hanning, 2 iterations, 5%)."""
+    return dict(nhop=conf.nhop, fs=conf.fs, halfwin_max=conf.halfwin_max,
+                rel_winsize=conf.rel_winsize, window="hanning", iters=2,
+                max_rel_dev=0.05)
+
+
+def refine_k1_operands(torch, kernels, conf, data):
+    """harmonic_project's arguments (dc, xw, 1, lo, hi) of the full-rate
+    refine's first probe (centres n nhop - delta, the input F0) on data's
+    rows, framed as refine_f0_full_ref frames them: [B N, 2 H + 1]."""
+    x, f0 = data[0], data[1]
+    H = conf.halfwin_max
+    dm = kernels._refine_full_dims(conf.nhop, conf.fs, H)
+    f0s = torch.where(f0 > 0, f0, torch.full_like(f0, 100.0))
+    hw = torch.clamp(conf.rel_winsize * conf.fs / (2.0 * f0s), 2.0, float(H))
+    cts = torch.arange(f0.shape[1], device=x.device) * conf.nhop - dm["delta"]
+    dc, xw, lo, hi = kernels._refine_full_frames(
+        kernels._refine_full_pad(x, H), cts, f0s, hw, H=H, fs=conf.fs,
+        window="hanning")
+    return dc, xw, 1, lo, hi
+
+
+def refine_full_phase(torch, kernels, harmonics, opt, data, rec, full):
+    """Phase 7, refine_f0_full beyond the pipeline's call: row 0 alone (a
+    batch of one, 1600 frames) and rows 0 and 1 end to end as one
+    3200-frame row held to the twin (check_kernel, cases added to rec);
+    refine_f0 on rows BATCH_ROWS alone equal to their rows of the batch
+    bit for bit; then the pass split at full batch (refine_f0.cu built
+    four times by _build.variants, as in refine_phase: LLSM_SKIP_PASS_A
+    compiles the copy into shared memory out, _B the probes), a launch's
+    share of a run of 20 each; one line with the full-batch (full: phase
+    7's records) and 2-row times, the bound and the ratio."""
+    from libllsm2_tpu_torch.ops import _build
+    name = "refine_f0_full"
+    conf = opt.conf
+    x, f0 = data[0], data[1]
+    kw = refine_full_kw(conf)
+    for label, xa, fa in (("B = 1", x[:1], f0[:1]),
+                          ("3200-frame row", x[:2].reshape(1, -1),
+                           f0[:2].reshape(1, -1))):
+        rec["cases"].append(check_kernel(
+            torch, kernels, name, KERNELS[name][2],
+            (xa.contiguous(), fa.contiguous()), kw, label, prefix="7"))
+    rec["max_abs_err"] = max(c["max_abs_err"] for c in rec["cases"])
+    rkw = dict(nhop=conf.nhop, fs=conf.fs, halfwin_max=conf.halfwin_max,
+               rel_winsize=conf.rel_winsize, f0_ceil=conf.f0_ceil)
+    whole = harmonics.refine_f0(x, f0, **rkw)
+    alone = [torch.equal(harmonics.refine_f0(x[r:r + 1], f0[r:r + 1],
+                                             **rkw)[0], whole[r])
+             for r in BATCH_ROWS]
+    phase("7 refine_f0 rows alone = in the batch", all(alone),
+          f"rows {list(BATCH_ROWS)}: {alone}")
+    what = {(0, 0): "nothing", (0, 1): "the probes",
+            (1, 0): "the copy into shared memory", (1, 1): "both"}
+    t0 = time.perf_counter()
+    libs = _build.variants([("refine_f0", {"LLSM_SKIP_PASS_A": sa,
+                                           "LLSM_SKIP_PASS_B": sb})
+                            for sa, sb in what])
+    built = time.perf_counter() - t0
+    out = torch.empty_like(f0)
+    args = kernels._refine_full_launch_args(x, f0, out, **kw)
+    split, rcs = {}, []
+    for (sa, sb), lib in zip(what, libs):
+        fn = lib.llsm_refine_f0_full
+        rcs.append(fn(*args))
+        split[what[sa, sb]] = run_ms(torch, lambda: fn(*args), 20)
+    f = full[name][0]
+    rec["passes"] = split
+    phase(f"7 {name}", not any(rcs) and f["bound_ms"] > 0,
+          f"full batch {f['ms']:.4f} ms (run {f['run_ms']:.4f}), 2 rows "
+          f"{rec['ms']:.4f} ms, bound {f['bound_ms']:.4f} ms "
+          f"({f['bound_by']}): {f['ms'] / f['bound_ms']:.2f}x its bound "
+          f"(run {f['run_ms'] / f['bound_ms']:.2f}x); passes at full batch "
+          f"(refine_f0.cu's LLSM_SKIP_PASS variants, {built:.1f} s to "
+          f"load or build; a launch in a run of 20), skipping "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in split.items())
+          + f"; launch codes {rcs}")
+
+
+def analysis_hooks(harmonics, layer0, kernels):
+    """(module, name) of each analysis stage stage_times reads."""
+    return [(harmonics, "refine_f0"), (harmonics, "sample_cycles"),
+            (harmonics, "harmonic_analysis"),
+            (layer0, "_deconv_correction"), (layer0, "_track_denoise"),
+            render_hook(harmonics, kernels), (layer0, "_band_envelopes"),
+            (layer0, "_warped_psd")]
+
+
+def phase7_breakdown(torch, mods, opt, data):
+    """Phase 7's analysis on its rows, stage by stage (stage_times: each
+    stage's synchronized time, median of 3, and its peak above its
+    start), the refine's own line first, and the analysis's peak above
+    its inputs."""
+    harmonics, layer0, _, kernels = mods
+    x, f0 = data[0], data[1]
+    run = lambda: layer0._analyze(opt, x, f0)
+    ms, peaks = stage_times(torch, analysis_hooks(harmonics, layer0,
+                                                  kernels), run)
+    peak = peak_above(torch, run)[1]
+    print(f"7 refine: refine_f0 {ms['refine_f0']:.2f} ms (synchronized, "
+          f"median of 3), peak {peaks['refine_f0']:.3f} GiB above its "
+          f"start; x {tuple(x.shape)} at {opt.conf.fs} Hz, hop "
+          f"{opt.conf.nhop}", flush=True)
+    print("7 analysis stages, ms (synchronized, median of 3) and peak GiB "
+          "above each call's start: " + ", ".join(
+              f"{k} {ms[k]:.2f} ms {peaks[k]:.3f} GiB" for k in peaks)
+          + f"; the analysis {ms['total']:.2f} ms, peak {peak:.3f} GiB "
+          f"above its inputs", flush=True)
 
 
 def capture_kernel_inputs(kernels, names, run):
@@ -2798,7 +2943,8 @@ def public_11025(torch, kernels, lt, dev):
               abs(snr - pin) <= PUBLIC_TOL_DB,
               f"{snr:.4f} dB (JAX {pin:.4f} +- {PUBLIC_TOL_DB})")
     launches = dict(kernels.LAUNCHES)
-    phase("8 launches", launches["harmonic_project"] > 0, str(launches))
+    phase("8 launches", launches["refine_f0_full"] > 0
+          and launches["harmonic_project"] == 0, str(launches))
 
 
 # ---------------------------------------------------------------------------
@@ -4362,6 +4508,8 @@ def main(argv):
         mods = (harmonics, layer0, corpus, kernels)
         phase5_breakdown(torch, mods, opt, sopt, data)
         breakdown_kernels(torch, mods, opt, sopt, data)
+        del data
+        phase7_breakdown(torch, mods, opt11, fixtures(torch, dev, fs=11000.0))
         return 0
     data11 = fixtures(torch, dev, fs=11000.0)
     print(f"fixtures: {BATCH} x {DURATION} s at 16 and 11 kHz in "
@@ -4387,7 +4535,7 @@ def main(argv):
          lambda: corpus.batched_pipeline(opt_lp, sopt, *two(data))),
         ("matmul ", ("harmonic_project_mxu",),
          lambda: corpus.batched_pipeline(opt_mxu, sopt, *two(data))),
-        ("refine K=1 ", ("harmonic_project",),
+        ("11k ", ("refine_f0_full",),
          lambda: corpus.batched_pipeline(opt11, sopt11, *two(data11))),
         ("mltsine K=80 ", ("harmonic_project",), mltsine),
     ]
@@ -4425,6 +4573,16 @@ def main(argv):
                     args[:5], {}, f"noise_mod_ola {i}",
                     library=not cases["env_render"]))
         del calls
+    # harmonic_project at K = 1 on the full-rate refine's first probe at
+    # full batch ([B N, 2 H + 1], the twin's framing), which no path
+    # launches since refine_f0_full took its calls
+    k1 = refine_k1_operands(torch, kernels, opt11.conf, data11)
+    cases["harmonic_project"].append(check_kernel(
+        torch, kernels, "harmonic_project", KERNELS["harmonic_project"][2],
+        k1, {}, "K=1 full shape", library=True))
+    full = full_batch(torch, kernels, {"harmonic_project": [(k1, {})]}, "3")
+    del k1
+    torch.cuda.empty_cache()
     summary = {name: {"name": name, "route": "cuda", "source": source,
                       "replaces": replaces, "launches": 0,
                       "max_abs_err": max(c["max_abs_err"]
@@ -4434,7 +4592,6 @@ def main(argv):
                           "library_ms")},
                       "cases": cases[name]}
                for name, (source, replaces, _) in KERNELS.items()}
-    full = {}
 
     # phase 4: the denoiser-off path on 32 rows
     rows = torch.tensor(OFF_ROWS, device=dev)
@@ -4476,10 +4633,19 @@ def main(argv):
     # phase 7: odd hop at 11 kHz, all 128 rows
     launches, _, f = run_path(torch, kernels, corpus, "7 odd hop", opt11,
                               sopt11, data11, ODD_HOP_PINS_DB,
-                              ("harmonic_project",) + MAIN_SIX,
-                              ("harmonic_project",), clean_min=None)
-    summary["harmonic_project"]["launches"] = launches["harmonic_project"]
+                              ("refine_f0_full",) + MAIN_SIX,
+                              ("refine_f0_full",), clean_min=None)
+    phase("7 refine launches", launches["refine_f0_full"] == 1
+          and launches["harmonic_project"] == 0,
+          f"refine_f0_full {launches['refine_f0_full']} (1), "
+          f"harmonic_project {launches['harmonic_project']} (0)")
+    for name in ("refine_f0_full", "harmonic_project"):
+        summary[name]["launches"] = launches[name]
     full.update(f)
+    refine_full_phase(torch, kernels, harmonics, opt11, data11,
+                      summary["refine_f0_full"], full)
+    phase7_breakdown(torch, (harmonics, layer0, corpus, kernels), opt11,
+                     data11)
     del data11
     # phase 8: an 11.025 kHz file through the public API
     public_11025(torch, kernels, lt, dev)

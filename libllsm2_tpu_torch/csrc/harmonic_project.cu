@@ -6,9 +6,11 @@
 // representative of the cycle offset (reduced mod 1 here before any trig).
 //
 // Replaces libllsm2_tpu/ops/pallas_osc.py: harmonic_project_pallas
-// (_proj_kernel).  Its callers are the non-decimated F0-refine probe
-// (K = 1, five calls per analysis on [B*N, 2*halfwin_max + 1]) and the
-// harmonic analysis with a window outside the cosine series (K = maxnhar).
+// (_proj_kernel).  Its caller is the harmonic analysis with a window
+// outside the cosine series or at given centres (K = maxnhar).  The
+// non-decimated F0 refine's probes (K = 1, five calls per analysis on
+// [B*N, 2*halfwin_max + 1]) now run in refine_f0.cu's full-rate kernel;
+// the K <= 8 path below stays for any small K.
 // Bound on the H100: at K = 1, the bytes of the two [R, W] inputs (8 a
 // live column, one sincospif each); at K = maxnhar, the arithmetic of
 // the live (column x harmonic) rectangle.  Design: K <= 8 runs one warp

@@ -74,12 +74,43 @@
 //   rintf (torch's half-to-even) before sincospif, the window the cosine
 //   series (its cosines as cospif; the series' length a template argument,
 //   as D) or mltsine's sinpif.
+//
+// The full-rate refine (harmonics.refine_f0 where no D in 8/4/2 divides
+// the hop, e.g. 11 kHz at hop 55; kernels.refine_f0_full) is a second
+// kernel here, refine_full_kernel.  It replaces the JAX package's
+// full-rate probes (libllsm2_tpu/ops/harmonics.py:494-543), whose five
+// harmonic_project_pallas K = 1 calls (pallas_osc.py:1388 -> :1417) each
+// projected a [B N, 2 H + 1] tensor of gathered, windowed frames and
+// cycle offsets built around the call:
+//   probe(c, f, hw) = sum_{|noff| <= hw} w(noff / hw) x[c + noff]
+//                     e^{-2 pi i ((noff f / fs) mod 1)}, x zero outside
+//                     [0, nx), hw = clamp(rel_winsize fs / (2 f0s), 2, H)
+//   each of `iters` iterations takes the probes at n nhop -+ delta (delta
+//   = max(H / 8, 2)) at f = f0s and moves f0s by their wrapped phase error
+//   over 2 delta samples, clamped as above; then the gate: a probe at n
+//   nhop + delta and f = 2 f0s with hw from the final f0s, and a frame
+//   keeps f0s only where the last +delta probe's power exceeds 1/16 of
+//   the gate's.  No pass_hz clause (nothing is lowpassed).
+// Bound on the H100: operations -- a window and a sincos a column of the
+// support an iteration (shared by both probes, two FMAs each) and a
+// window and sincos a column for the gate; x is read once, under a tenth
+// of that.  Design: the decimated kernel's with D = 1 and no FIR.  A
+// block takes F frames of one row (kernels._refine_geometry), copies the
+// (F - 1) nhop + 2 (H + delta) + 1 samples they read from x into shared
+// memory by cp.async (zero past the row's ends: the zero padding the
+// plain version reads), in a row: with a thread a frame, a warp's frames
+// read one column at a stride of nhop words, on 32 distinct banks when
+// nhop is odd (the geometry gives an even hop 16 lanes a frame, whose
+// lanes read consecutive words).  Each column's window and phasor serve
+// both probes; the gate has its own at 2 f0s.  Every probe sum is 16
+// fixed-order partials as above, so F, G, the batch and the block enter
+// no sum.  No [B, N, W] tensor is made.
 #include "common.cuh"
 
 // LLSM_SKIP_PASS_{A,B} = 1 compiles the decimation into shared memory
-// (pass A: the staged samples are zeros) or the probes (pass B: each frame
-// writes its input F0) out, for the pass timings of
-// scripts/port_kernel_passes.py; the library leaves both 0.
+// (pass A: the staged samples are zeros; the full-rate kernel's copy) or
+// the probes (pass B: each frame writes its input F0) out, for the pass
+// timings of scripts/port_kernel_passes.py; the library leaves both 0.
 #ifndef LLSM_SKIP_PASS_A
 #define LLSM_SKIP_PASS_A 0
 #endif
@@ -346,6 +377,166 @@ Kernel pick(int ncoef) {
   }
 }
 
+// The full-rate iteration's four sums: the -delta probe's (re, im) and
+// the +delta probe's.
+struct Quad {
+  float rm, im, rp, ip;
+};
+
+__device__ __forceinline__ Quad operator+(const Quad& a, const Quad& b) {
+  return {a.rm + b.rm, a.im + b.im, a.rp + b.rp, a.ip + b.ip};
+}
+
+// Partial l's first column at or after k0: the columns noff = l mod
+// kParts, in increasing noff.
+__device__ __forceinline__ int first_col(int k0, int l) {
+  const int k = (k0 & ~(kParts - 1)) + l;
+  return k < k0 ? k + kParts : k;
+}
+
+// Column k's window weight w(k / hw) (rhw = 1 / hw) and phasor (c, s) of
+// its phase k d cycles reduced mod 1.
+template <int NCOEF>
+__device__ __forceinline__ void column(const Probe& p, int k, float rhw,
+                                       float d, float& w, float& c,
+                                       float& s) {
+  const float nf = (float)k;
+  w = window_u<NCOEF>(p, fmaf(nf * rhw, 0.5f, 0.5f));
+  const float q = nf * d;
+  sincospif(2.0f * (q - rintf(q)), &s, &c);
+}
+
+// Probe's fields at the full rate (D = 1): Wf = 2 C + 1, C = H + delta,
+// delta_d = delta, H_d = H, fs_d = fs, dt_d = 2 delta / fs; pass_hz unused.
+template <int NCOEF>
+__global__ void __launch_bounds__(kMaxThreads)
+refine_full_kernel(const float* __restrict__ x, const float* __restrict__ f0,
+                   float* __restrict__ out, int nx, int N, int nhop, int G,
+                   Probe p) {
+  extern __shared__ __align__(16) float sm[];
+  const int T = blockDim.x, t = threadIdx.x;
+  const int gs = __ffs(G) - 1;             // G = 1 or kParts: log2 G
+  const int F = T >> gs, f = t >> gs, j = t & (G - 1);
+  const int b = blockIdx.y;
+  const int n0 = blockIdx.x * F, n = n0 + f;
+  const int S = (F - 1) * nhop + p.Wf;
+#if LLSM_SKIP_PASS_A
+  for (int i = t; i < S; i += T) sm[i] = 0.0f;
+#else
+  // staged sample i is x[n0 nhop - C + i] (0 past the row's ends)
+  const long long m0 = (long long)n0 * nhop - p.C;
+  const float* xb = x + (long long)b * nx;
+  for (int i = t; i < S; i += T) {
+    const long long s = m0 + i;
+    const bool in = s >= 0 && s < nx;
+    cp_async4(sm + i, in ? xb + s : xb, in);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+#endif
+  __syncthreads();
+  const bool valid = n < N;
+  const long long idx = (long long)b * N + n;
+  const float f0v = valid ? f0[idx] : 0.0f;
+#if LLSM_SKIP_PASS_B
+  if (valid && j == 0) out[idx] = f0v;
+#else
+  const bool voiced = f0v > 0.0f;
+  // T is a multiple of 32: every warp is whole here, and a group's lanes
+  // leave together
+  if (!__any_sync(0xffffffffu, voiced)) {
+    if (valid && j == 0) out[idx] = 0.0f;
+    return;
+  }
+  // x[n nhop - delta + k] at xm[k] and x[n nhop + delta + k] at xp[k],
+  // |k| <= H
+  const float* xm = sm + f * nhop + (p.C - p.delta_d);
+  const float* xp = xm + 2 * p.delta_d;
+  float f0s = voiced ? f0v : 100.0f, p1 = 0.0f;
+  for (int it = 0; it < p.iters; ++it) {
+    const float hw = fminf(fmaxf(p.rel_fs / (2.0f * f0s), 2.0f), p.H_d);
+    const float d = f0s / p.fs_d, rhw = 1.0f / hw;
+    const int R = voiced ? (int)hw : -1;   // the support |noff| <= hw
+    // the lanes walk the warp's widest support together
+    const int Rw = __reduce_max_sync(0xffffffffu, R);
+    auto partial = [&](int l) {
+      Quad a{};
+      for (int k = first_col(-Rw, l); k <= Rw; k += kParts) {
+        if (abs(k) > R) continue;
+        float w, c, s;
+        column<NCOEF>(p, k, rhw, d, w, c, s);
+        const float vm = xm[k] * w, vp = xp[k] * w;
+        a.rm = fmaf(c, vm, a.rm);
+        a.im = fmaf(-s, vm, a.im);
+        a.rp = fmaf(c, vp, a.rp);
+        a.ip = fmaf(-s, vp, a.ip);
+      }
+      return a;
+    };
+    Quad tot{};
+    if (G == 1) {                          // the partials in order
+      tot = partial(0);
+      for (int l = 1; l < kParts; ++l) tot = tot + partial(l);
+    } else {                               // lane l sums partial l
+      tot = partial(j);
+      tot = {group_chain(tot.rm), group_chain(tot.im), group_chain(tot.rp),
+             group_chain(tot.ip)};
+    }
+    const float ph_m = atan2f(tot.im, tot.rm), ph_p = atan2f(tot.ip, tot.rp);
+    p1 = tot.rp * tot.rp + tot.ip * tot.ip;
+    float err = ph_p - ph_m - (kTwoPi * f0s) * p.dt_d;
+    err = atan2f(sinf(err), cosf(err));
+    const float f0_new = f0s + err / p.two_pi_dt;
+    f0s = fminf(fmaxf(f0_new, f0v * p.lo_mul - 1.0f), f0v * p.hi_mul + 1.0f);
+  }
+  // the gate: the +delta probe at 2 f0s, its window from the final f0s
+  const float hw = fminf(fmaxf(p.rel_fs / (2.0f * f0s), 2.0f), p.H_d);
+  const float d = (2.0f * f0s) / p.fs_d, rhw = 1.0f / hw;
+  const int R = voiced ? (int)hw : -1;
+  const int Rw = __reduce_max_sync(0xffffffffu, R);
+  auto partial = [&](int l) {
+    float2 a = make_float2(0.0f, 0.0f);
+    for (int k = first_col(-Rw, l); k <= Rw; k += kParts) {
+      if (abs(k) > R) continue;
+      float w, c, s;
+      column<NCOEF>(p, k, rhw, d, w, c, s);
+      const float v = xp[k] * w;
+      a.x = fmaf(c, v, a.x);
+      a.y = fmaf(-s, v, a.y);
+    }
+    return a;
+  };
+  float2 g2;
+  if (G == 1) {
+    g2 = partial(0);
+    for (int l = 1; l < kParts; ++l) {
+      const float2 v = partial(l);
+      g2.x += v.x;
+      g2.y += v.y;
+    }
+  } else {
+    g2 = partial(j);
+    g2 = make_float2(group_chain(g2.x), group_chain(g2.y));
+  }
+  const float p2 = g2.x * g2.x + g2.y * g2.y;
+  const bool keep = p1 > 0.0625f * p2;
+  if (valid && j == 0) out[idx] = voiced ? (keep ? f0s : f0v) : 0.0f;
+#endif
+}
+
+using FullKernel = void (*)(const float*, const float*, float*, int, int,
+                            int, int, Probe);
+
+FullKernel pick_full(int ncoef) {
+  switch (ncoef) {
+    case 0: return refine_full_kernel<0>;
+    case 2: return refine_full_kernel<2>;
+    case 3: return refine_full_kernel<3>;
+    case 4: return refine_full_kernel<4>;
+    default: return nullptr;
+  }
+}
+
 }  // namespace
 
 // F, G, P, PQ: kernels._refine_geometry's frames a block, lanes a frame,
@@ -377,5 +568,33 @@ extern "C" int llsm_refine_f0_dec(
   const dim3 grid((unsigned)((N + F - 1) / F), (unsigned)B);
   k<<<grid, T, smem, (cudaStream_t)stream>>>(x, f0, taps, out, nx, N, ntaps,
                                              g, nhop_d, G, P, PQ, lo, hi, p);
+  return (int)cudaGetLastError();
+}
+
+// The full-rate refine: F, G kernels._refine_geometry's frames a block and
+// lanes a frame (D = 1); H the window's largest halfwidth, delta the
+// probes' offset, dt = 2 delta / fs, rel_fs = rel_winsize fs
+extern "C" int llsm_refine_f0_full(
+    const float* x, const float* f0, float* out, int B, int nx, int N,
+    int nhop, int H, int delta, int iters, float fs, float dt,
+    float two_pi_dt, float rel_fs, float lo_mul, float hi_mul, float a0,
+    float a1, float a2, float a3, int ncoef, int F, int G, void* stream) {
+  const FullKernel k = pick_full(ncoef);
+  const int T = F * G;
+  const long long C = (long long)H + delta, Wf = 2 * C + 1;
+  const long long S = (long long)(F - 1) * nhop + Wf;
+  if (!k || nhop < 1 || H < 0 || delta < 1 || F < 1 ||
+      (G != 1 && G != kParts) || T % 32 || T > kMaxThreads || B > 65535 ||
+      S > (1 << 20))
+    return (int)cudaErrorInvalidValue;
+  if (B <= 0 || N <= 0) return (int)cudaGetLastError();
+  const size_t smem = (size_t)S * sizeof(float);
+  cudaError_t e = llsm::allow_smem(k, smem);
+  if (e != cudaSuccess) return (int)e;
+  const Probe p{(int)Wf, (int)C,  delta,  iters,  (float)H, fs,  dt,
+                two_pi_dt, rel_fs, lo_mul, hi_mul, 0.0f,     a0,  a1,
+                a2,        a3};
+  const dim3 grid((unsigned)((N + F - 1) / F), (unsigned)B);
+  k<<<grid, T, smem, (cudaStream_t)stream>>>(x, f0, out, nx, N, nhop, G, p);
   return (int)cudaGetLastError();
 }

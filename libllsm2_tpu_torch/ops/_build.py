@@ -92,6 +92,11 @@ SIGNATURES = {
     "llsm_refine_f0_dec": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                            _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _L,
                            _L, _F, _F, _F, _F, _I, _I, _I, _I, _I, _P),
+    # x, f0, out, B, nx, N, nhop, H, delta, iters, fs, dt, 2 pi dt,
+    # rel_winsize fs, 1 - max_rel_dev, 1 + max_rel_dev, a0, a1, a2, a3,
+    # ncoef, F, G (kernels._refine_geometry at D = 1), stream
+    "llsm_refine_f0_full": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F,
+                            _F, _F, _F, _F, _F, _F, _F, _F, _I, _I, _I, _P),
 }
 
 _lib = None

@@ -341,15 +341,17 @@ def refine_f0(x, f0, *, nhop: int, fs: float, halfwin_max: int,
     FIR's batched product of strided rows by another routine for one row
     than for many, and its elementwise loops compute a call's full vectors
     with SLEEF but the rest (a [B, N] row's tail, a thread's share's edge)
-    with libm, whose atan2 differs in the last bit.  On the card the
-    decimated branch is one launch of kernels.refine_f0_dec, which sums
-    every row and frame in an order of its own: no row groups, no padding.
+    with libm, whose atan2 differs in the last bit.  On the card each
+    branch is one launch, kernels.refine_f0_dec or (no D) kernels.
+    refine_f0_full, which sums every row and frame in an order of its own:
+    no row groups, no padding.
 
     bounds: (lo, hi), the samples of x that lie within the signal (a frame
     shard's block with halos: the halo past the signal's edge is zeros).
     The decimating FIR's output outside them is zeroed, as the FIR of the
     whole signal never computes it and the probes read zero padding
-    there."""
+    there.  The full-rate branch ignores it: its probes read x itself,
+    whose halo past the signal's edge is the zero padding they read."""
     B, N = f0.shape
     if not use_pallas:
         return _refine_f0_plain(x, f0, nhop=nhop, fs=fs, halfwin_max=halfwin_max,
@@ -363,10 +365,10 @@ def refine_f0(x, f0, *, nhop: int, fs: float, halfwin_max: int,
                           for b in range(B)])
     D, h_t, g, pass_hz = refine_decimation(nhop, x.shape[-1], fs, f0_ceil)
     if D == 1:
-        return _refine_f0_full_rate(x, f0, nhop=nhop, fs=fs,
-                                    halfwin_max=halfwin_max,
-                                    rel_winsize=rel_winsize, window=window,
-                                    iters=iters, max_rel_dev=max_rel_dev)
+        return kernels.refine_f0_full(x, f0, nhop=nhop, fs=fs,
+                                      halfwin_max=halfwin_max,
+                                      rel_winsize=rel_winsize, window=window,
+                                      iters=iters, max_rel_dev=max_rel_dev)
     return kernels.refine_f0_dec(
         x, f0, h_t, D=D, g=g, nhop=nhop, fs=fs, halfwin_max=halfwin_max,
         rel_winsize=rel_winsize, window=window, iters=iters,
@@ -397,59 +399,6 @@ def refine_decimation(nhop: int, nx: int, fs: float, f0_ceil: float):
     fc = 0.5 * (pass_hz + stop_hz) / fs
     h_t = 2.0 * fc * np.sinc(2.0 * fc * n_t) * np.kaiser(ntaps, beta)
     return D, tuple(h_t / h_t.sum()), g, pass_hz
-
-
-def _refine_f0_full_rate(x, f0, *, nhop: int, fs: float, halfwin_max: int,
-                         rel_winsize: float, window: str, iters: int,
-                         max_rel_dev: float):
-    """refine_f0 without decimation (harmonics.py:494-543): each probe
-    projects left-aligned frames (window centred at ceil(halfwidth)) onto
-    the fundamental with harmonic_project at K = 1; the presence gate is a
-    fifth probe at 2 f0.  x [B, nx], f0 [B, N] -> [B, N]."""
-    B, N = f0.shape
-    dev = x.device
-    H = halfwin_max
-    W = 2 * H + 1
-    voiced = f0 > 0.0
-    xp = F.pad(x.to(FP), (H + W, H + W + 1))
-    delta = max(H // 8, 2)
-    dt = 2.0 * delta / fs
-    centers = torch.arange(N, device=dev) * nhop
-    col = torch.arange(W, device=dev)
-
-    def probe(cts, f0s, halfwidth):
-        # the basis phase reference shifts by (H - hw) per frame; the
-        # update only uses ph_p - ph_m at equal halfwidth, so it cancels
-        hw_int = torch.ceil(halfwidth).to(torch.int64)          # [B, N]
-        noff = (col - hw_int[..., None]).to(FP)                 # [B, N, W]
-        idx = (cts + W + H - hw_int)[..., None] + col
-        frames = torch.gather(xp, 1, idx.reshape(B, -1)).reshape(B, N, W)
-        xw = frames * window_centered(window, noff, halfwidth[..., None])
-        dc = _phase_cycles(noff, (f0s / fs)[..., None])
-        re, im = kernels.harmonic_project(
-            dc.reshape(B * N, W), xw.reshape(B * N, W), 1,
-            torch.zeros_like(hw_int).reshape(-1), (2 * hw_int + 1).reshape(-1))
-        re, im = re.reshape(B, N), im.reshape(B, N)
-        return torch.atan2(im, re), re * re + im * im
-
-    f0s = torch.where(voiced, f0, torch.full_like(f0, 100.0))
-    p1 = torch.zeros_like(f0s)
-    for _ in range(iters):
-        halfwidth = torch.clamp(rel_winsize * fs / (2.0 * f0s), 2.0, float(H))
-        ph_m, _ = probe(centers - delta, f0s, halfwidth)
-        ph_p, p1 = probe(centers + delta, f0s, halfwidth)
-        expected = 2.0 * math.pi * f0s * dt
-        err = ph_p - ph_m - expected
-        err = torch.atan2(torch.sin(err), torch.cos(err))
-        f0_new = f0s + err / (2.0 * math.pi * dt)
-        f0s = torch.minimum(torch.maximum(f0_new, f0 * (1 - max_rel_dev) - 1.0),
-                            f0 * (1 + max_rel_dev) + 1.0)
-    # fundamental-presence gate, measured by its own probe at 2 f0 (not the
-    # decimated branch's double-angle fold)
-    hw_g = torch.clamp(rel_winsize * fs / (2.0 * f0s), 2.0, float(H))
-    _, p2 = probe(centers + delta, 2.0 * f0s, hw_g)
-    f0s = torch.where(p1 > 0.0625 * p2, f0s, f0)
-    return torch.where(voiced, f0s, torch.zeros_like(f0s))
 
 
 def _refine_f0_plain(x, f0, *, nhop: int, fs: float, halfwin_max: int,

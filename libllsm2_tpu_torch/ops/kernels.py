@@ -32,7 +32,7 @@ LAUNCHES = {"osc_bank": 0, "harmonic_project_win": 0, "deconv_full": 0,
             "denoise_finish": 0,
             "harmonic_project": 0, "harmonic_project_mxu": 0,
             "fir_frames": 0, "env_render": 0, "noise_bins": 0,
-            "sample_cycles": 0, "refine_f0_dec": 0}
+            "sample_cycles": 0, "refine_f0_dec": 0, "refine_f0_full": 0}
 
 # frames per chunk of the plain versions: bounds their [frames, K, T]
 # temporaries to ~64 MB at any input size
@@ -1431,13 +1431,24 @@ def _refine_geometry(B: int, N: int, D: int, ntaps: int, dm: dict,
     their FIR fed x in chunks of Q = 2T outputs, chunk sample i at (i mod
     D) PQ + i // D (PQ = 32 / D mod 32: a warp's staging writes on
     distinct banks), two chunks in flight; smem: the block's shared bytes
-    (taps, two chunks, staged samples, the column table)."""
-    for F, G in _REFINE_BLOCKS:
+    (taps, two chunks, staged samples, the column table).  D = 1 (the
+    full-rate kernel, dm from _refine_full_dims): no FIR, the S samples of
+    x in a row (words = S, P = Q = PQ = 0), smem those alone; a thread a
+    frame only at an odd hop, where a warp's frames reading one column at
+    a stride of nhop words fall on 32 banks (an even hop takes the 16-lane
+    blocks, whose lanes read consecutive words)."""
+    blocks = _REFINE_BLOCKS
+    if D == 1 and dm["nhop_d"] % 2 == 0:
+        blocks = tuple(b for b in blocks if b[1] > 1)
+    for F, G in blocks:
         if B * -(-N // F) >= 2 * sms:
             break
     nd, Wf = dm["nhop_d"], dm["Wf"]
     T = F * G
     S = (F - 1) * nd + Wf
+    if D == 1:
+        return dict(F=F, G=G, T=T, S=S, P=0, words=S, Q=0, PQ=0, smem=4 * S,
+                    grid=(-(-N // F), B))
     P = -(-S // nd) if G == 1 else 0
     words = nd * P if G == 1 else S
     Q = 2 * T
@@ -1496,17 +1507,23 @@ def _refine_launch_args(x, f0, taps, out, *, D, g, nhop, fs, halfwin_max,
     if geo["smem"] > _REFINE_SMEM_MAX:
         raise ValueError(f"refine_f0_dec: {geo['smem']} bytes of shared "
                          "memory a block (Wf or the taps too long)")
-    coefs = (0.0,) * 4 if window == "mltsine" else \
-        tuple(float(c) for c in COSINE_SERIES[window]) + (0.0,) * 3
-    ncoef = 0 if window == "mltsine" else len(COSINE_SERIES[window])
     lo, hi = (0, nx) if bounds is None else (int(bounds[0]), int(bounds[1]))
     return (x.data_ptr(), f0.data_ptr(), _taps_on(t, x.device).data_ptr(),
             out.data_ptr(), B, nx, N, int(D), int(g), len(t), dm["nhop_d"],
             dm["C"], dm["Wf"], dm["delta_d"], int(iters), float(dm["H_d"]),
             dm["fs_d"], dm["dt_d"], 2.0 * math.pi * dm["dt_d"],
             rel_winsize * dm["fs_d"], 1 - max_rel_dev, 1 + max_rel_dev,
-            float(pass_hz), lo, hi, *coefs[:4], ncoef, geo["F"], geo["G"],
-            geo["P"], geo["PQ"], _stream(x))
+            float(pass_hz), lo, hi, *_window_coefs(window), geo["F"],
+            geo["G"], geo["P"], geo["PQ"], _stream(x))
+
+
+def _window_coefs(window: str) -> tuple:
+    """The refine kernels' window arguments: its four cosine-series
+    coefficients (zero past its own) and their count, 0 for mltsine."""
+    if window == "mltsine":
+        return (0.0,) * 4 + (0,)
+    c = tuple(float(v) for v in COSINE_SERIES[window])
+    return (c + (0.0,) * 3)[:4] + (len(c),)
 
 
 def refine_f0_dec_ref(x, f0, taps, *, D, g, nhop, fs, halfwin_max,
@@ -1579,3 +1596,136 @@ def refine_f0_dec_ref(x, f0, taps, *, D, g, nhop, fs, halfwin_max,
     gate_ok = (p1 > 0.0625 * p2) | (2.0 * f0s >= pass_hz)
     f0s = torch.where(gate_ok, f0s, f0)
     return torch.where(voiced, f0s, torch.zeros_like(f0s))
+
+
+# ---------------------------------------------------------------------------
+# full-rate F0 refinement (libllsm2_tpu/ops/harmonics.py:494-543: its five
+# harmonic_project_pallas K = 1 probes, pallas_osc.py:1388)
+# ---------------------------------------------------------------------------
+
+def _refine_full_dims(nhop: int, fs: float, H: int) -> dict:
+    """The full-rate refine's sizes (harmonics.py:494-502): the probes'
+    offset delta and spacing dt in seconds, a frame's half span C = H +
+    delta and width Wf = 2 C + 1 (the samples its two probes read), in
+    _refine_geometry's names (nhop_d = nhop)."""
+    delta = max(H // 8, 2)
+    C = H + delta
+    return dict(nhop_d=nhop, delta=delta, dt=2.0 * delta / fs, C=C,
+                Wf=2 * C + 1)
+
+
+def refine_f0_full(x: torch.Tensor, f0: torch.Tensor, *, nhop: int,
+                   fs: float, halfwin_max: int, rel_winsize: float,
+                   window: str, iters: int, max_rel_dev: float):
+    """The full-rate F0 refine: `iters` iterations of the two phase probes
+    at each frame centre -+ delta on x itself, then the fundamental-
+    presence gate, a probe at 2 f0 -> f0 [B, N] (refine_f0_full_ref says
+    the arithmetic).  On the card one launch of refine_f0.cu's full-rate
+    kernel: F frames of a row a block (_refine_geometry at D = 1), a thread
+    or 16 lanes a frame, each sum in an order of its frame's alone, so a
+    row's F0 is the same alone and in any batch; no [B, N, W] tensor."""
+    kw = dict(nhop=nhop, fs=fs, halfwin_max=halfwin_max,
+              rel_winsize=rel_winsize, window=window, iters=iters,
+              max_rel_dev=max_rel_dev)
+    if window != "mltsine" and window not in COSINE_SERIES:
+        raise ValueError(f"refine_f0_full: unknown window {window!r}")
+    if not _on_cuda(x, f0):
+        return refine_f0_full_ref(x, f0, **kw)
+    x, f0 = _f32(x), _f32(f0)
+    out = torch.empty_like(f0)
+    _launch("refine_f0_full", *_refine_full_launch_args(x, f0, out, **kw))
+    return out
+
+
+def _refine_full_launch_args(x, f0, out, *, nhop, fs, halfwin_max,
+                             rel_winsize, window, iters,
+                             max_rel_dev) -> tuple:
+    """llsm_refine_f0_full's arguments for refine_f0_full on the card's
+    contiguous float32 x [B, nx] and f0 [B, N], writing out [B, N]."""
+    B, nx = x.shape
+    N = f0.shape[-1]
+    if f0.shape != (B, N) or nhop < 1 or halfwin_max < 0:
+        raise ValueError("refine_f0_full: shape mismatch (x [B, nx], f0 "
+                         "[B, N], nhop >= 1)")
+    dm = _refine_full_dims(nhop, fs, halfwin_max)
+    geo = _refine_geometry(B, N, 1, 0, dm, _sm_count(x.device))
+    if geo["smem"] > _REFINE_SMEM_MAX:
+        raise ValueError(f"refine_f0_full: {geo['smem']} bytes of shared "
+                         "memory a block (the hop or halfwin_max too long)")
+    return (x.data_ptr(), f0.data_ptr(), out.data_ptr(), B, nx, N, int(nhop),
+            int(halfwin_max), dm["delta"], int(iters), float(fs), dm["dt"],
+            2.0 * math.pi * dm["dt"], rel_winsize * fs, 1 - max_rel_dev,
+            1 + max_rel_dev, *_window_coefs(window), geo["F"], geo["G"],
+            _stream(x))
+
+
+def refine_f0_full_ref(x, f0, *, nhop, fs, halfwin_max, rel_winsize, window,
+                       iters, max_rel_dev):
+    """Plain version of refine_f0_full (the JAX package's Pallas branch,
+    harmonics.py:494-543): each probe gathers left-aligned frames (window
+    centred at ceil(halfwidth)) of x zero-padded, windows them and projects
+    them onto the fundamental with harmonic_project_ref at K = 1; the
+    presence gate is a fifth probe at 2 f0.  x [B, nx], f0 [B, N] -> [B,
+    N].  On the CPU harmonics.refine_f0 calls it a row at a time."""
+    B, N = f0.shape
+    H = halfwin_max
+    voiced = f0 > 0.0
+    xp = _refine_full_pad(x, H)
+    dm = _refine_full_dims(nhop, fs, H)
+    delta, dt = dm["delta"], dm["dt"]
+    centers = torch.arange(N, device=x.device) * nhop
+
+    def probe(cts, f0s, halfwidth):
+        dc, xw, lo, hi = _refine_full_frames(xp, cts, f0s, halfwidth, H=H,
+                                             fs=fs, window=window)
+        re, im = harmonic_project_ref(dc, xw, 1, lo, hi)
+        re, im = re.reshape(B, N), im.reshape(B, N)
+        return torch.atan2(im, re), re * re + im * im
+
+    f0s = torch.where(voiced, f0, torch.full_like(f0, 100.0))
+    p1 = torch.zeros_like(f0s)
+    for _ in range(iters):
+        halfwidth = torch.clamp(rel_winsize * fs / (2.0 * f0s), 2.0, float(H))
+        ph_m, _ = probe(centers - delta, f0s, halfwidth)
+        ph_p, p1 = probe(centers + delta, f0s, halfwidth)
+        expected = 2.0 * math.pi * f0s * dt
+        err = ph_p - ph_m - expected
+        err = torch.atan2(torch.sin(err), torch.cos(err))
+        f0_new = f0s + err / (2.0 * math.pi * dt)
+        f0s = torch.minimum(torch.maximum(f0_new, f0 * (1 - max_rel_dev) - 1.0),
+                            f0 * (1 + max_rel_dev) + 1.0)
+    # fundamental-presence gate, measured by its own probe at 2 f0 (not the
+    # decimated branch's double-angle fold)
+    hw_g = torch.clamp(rel_winsize * fs / (2.0 * f0s), 2.0, float(H))
+    _, p2 = probe(centers + delta, 2.0 * f0s, hw_g)
+    f0s = torch.where(p1 > 0.0625 * p2, f0s, f0)
+    return torch.where(voiced, f0s, torch.zeros_like(f0s))
+
+
+def _refine_full_pad(x, H: int):
+    """x [B, nx] zero-padded for refine_f0_full_ref's gathers: 3 H + 1
+    samples before it and 3 H + 2 after."""
+    W = 2 * H + 1
+    return torch.nn.functional.pad(x.to(FP), (H + W, H + W + 1))
+
+
+def _refine_full_frames(xp, cts, f0s, halfwidth, *, H: int, fs: float,
+                        window: str):
+    """One full-rate probe's harmonic_project operands (harmonics.py:
+    500-513): frames of the padded xp (_refine_full_pad) at centres cts [N]
+    (or [B, N]) + noff, left-aligned (the window centred at column ceil(hw),
+    so the basis phase reference shifts by H - hw a frame; the update only
+    uses ph_p - ph_m at equal halfwidth, so it cancels) -> (dc, xw [B N,
+    2 H + 1], lo, hi [B N]), each frame's live columns [0, 2 ceil(hw) +
+    1)."""
+    B, N = f0s.shape
+    W = 2 * H + 1
+    col = torch.arange(W, device=xp.device)
+    hw_int = torch.ceil(halfwidth).to(torch.int64)              # [B, N]
+    noff = (col - hw_int[..., None]).to(FP)                     # [B, N, W]
+    idx = (cts + W + H - hw_int)[..., None] + col
+    frames = torch.gather(xp, 1, idx.reshape(B, -1)).reshape(B, N, W)
+    xw = frames * window_centered(window, noff, halfwidth[..., None])
+    dc = _phase_cycles(noff, (f0s / fs)[..., None])
+    return (dc.reshape(B * N, W), xw.reshape(B * N, W),
+            torch.zeros_like(hw_int).reshape(-1), (2 * hw_int + 1).reshape(-1))

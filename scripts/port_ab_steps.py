@@ -8,7 +8,11 @@ library's own default, use_pallas=False (phase 16a: `plain`), the
 denoiser off on 32 of them (phase 4: rows 0-15 and 64-79), the public
 analyze() of one 8 s file (row 0, a batch of one), harmonics.refine_f0
 alone on the bench rows' x and F0 (`refine`: all of them and row 0 alone,
-the main path's decimated refine, one kernel launch), the analysis of one
+the main path's decimated refine, one kernel launch), the same bench
+rows made at 11 kHz (hop 55, the full-rate refine) through
+batched_pipeline at fs 11000 (phase 7: `11k`) and through
+harmonics.refine_f0 alone (`refine11`: all of them and row 0 alone),
+the analysis of one
 RTAnalyzer block (`rta`: layer0._analyze on row 0's frames 800-959, a
 batch of one, as RTAnalyzer runs each 160-frame block), the layer-1
 round trip chunk_to_layer1 -> chunk_to_layer0 -> synthesis of the bench
@@ -23,7 +27,8 @@ torch.cuda.synchronize().  Prints every step, each side's median and
 quartiles, and how many pairs each side won.  Imports no jax:
 
     python3 scripts/port_ab_steps.py OTHER_DIR [pairs=20] [batch=128]
-        [cells=default,matmul,off32,one,refine,rta,layer1,pbp,edits,plain]
+        [cells=default,matmul,off32,one,refine,rta,layer1,pbp,edits,plain,
+               11k,refine11]
 """
 import dataclasses
 import importlib
@@ -74,6 +79,15 @@ def main(argv):
                                  dtype=torch.float32, device="cuda")
                     for j in range(3))
     nxv = torch.full((B,), x.shape[1], dtype=torch.int64, device="cuda")
+    if {"11k", "refine11"} & set(cells):
+        rows11 = testsig.make_test_utterances(
+            [(i, 0.05 if i < B // 2 else 0.0) for i in range(B)],
+            duration=8.0, fs=11000.0)
+        x11, f011, xr11 = (torch.tensor(np.stack([r[j] for r in rows11]),
+                                        dtype=torch.float32, device="cuda")
+                           for j in range(3))
+        nxv11 = torch.full((B,), x11.shape[1], dtype=torch.int64,
+                           device="cuda")
     off_rows = torch.tensor([r for r in list(range(16))
                              + list(range(B // 2, B // 2 + 16)) if r < B],
                             device="cuda")
@@ -85,9 +99,10 @@ def main(argv):
         lx, lf0 = (torch.tensor(np.stack([r[j] for r in lf]),
                                 dtype=torch.float32, device="cuda")
                    for j in range(2))
-    # (cell, rows): refine runs the batch, then one row alone
+    # (cell, rows): refine and refine11 run the batch, then one row alone
     runs = [r for cell in cells for r in (
-        [(cell, B), (cell, 1)] if cell == "refine" else [(cell, None)])]
+        [(cell, B), (cell, 1)] if cell in ("refine", "refine11")
+        else [(cell, None)])]
     for cell, rows in runs:
         label = cell if rows is None else f"{cell} {rows} x 8 s"
         steps = {}
@@ -117,13 +132,17 @@ def main(argv):
             elif cell == "rta":
                 steps[name] = (lambda l0=l0, o=opt: l0._analyze(
                     o, x[:1, 800 * 80:960 * 80], f0[:1, 800:960]))
-            elif cell == "refine":
+            elif cell in ("refine", "refine11"):
                 hm = importlib.import_module(pkg.__name__ + ".ops.harmonics")
-                c = opt.conf
-                steps[name] = (lambda hm=hm, c=c, r=rows: hm.refine_f0(
-                    x[:r], f0[:r], nhop=c.nhop, fs=c.fs,
-                    halfwin_max=c.halfwin_max, rel_winsize=c.rel_winsize,
-                    f0_ceil=c.f0_ceil))
+                xs, fs0 = (x, f0) if cell == "refine" else (x11, f011)
+                c = (opt if cell == "refine" else pkg.create_aoptions(
+                    fs=11000.0, f0_floor=70.0, use_pallas=True)).conf
+                steps[name] = (lambda hm=hm, c=c, r=rows, xs=xs, fs0=fs0:
+                               hm.refine_f0(
+                                   xs[:r], fs0[:r], nhop=c.nhop, fs=c.fs,
+                                   halfwin_max=c.halfwin_max,
+                                   rel_winsize=c.rel_winsize,
+                                   f0_ceil=c.f0_ceil))
             else:
                 args = (x, f0, nxv, x_ref)
                 if cell == "matmul":
@@ -134,6 +153,12 @@ def main(argv):
                 elif cell == "off32":
                     opt = dataclasses.replace(opt, track_denoise=False)
                     args = tuple(a[off_rows] for a in args)
+                elif cell == "11k":
+                    opt = pkg.create_aoptions(fs=11000.0, f0_floor=70.0,
+                                              use_pallas=True)
+                    sopt = dataclasses.replace(
+                        pkg.create_soptions(fs=11000.0), use_pallas=True)
+                    args = (x11, f011, nxv11, xr11)
                 steps[name] = (lambda c=corpus, o=opt, s=sopt, a=args:
                                c.batched_pipeline(o, s, *a))
             steps[name]()                  # build, warm, fill the cache
@@ -148,7 +173,7 @@ def main(argv):
                 torch.cuda.synchronize()
                 ms[name].append((time.perf_counter() - t0) * 1e3)
         wins = sum(a < b for a, b in zip(ms["this"], ms["other"]))
-        nd = 4 if cell == "refine" else 2        # its steps are ~0.1-1 ms
+        nd = 4 if cell.startswith("refine") else 2   # ~0.1-1 ms steps
         for name in sides:
             q = statistics.quantiles(ms[name], n=4)
             print(f"{label} {name}: median "

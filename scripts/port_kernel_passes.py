@@ -28,7 +28,12 @@ also runs: 16 rows, 2 rows (chip_smoke's phase 3), row 0 alone (a one-file
 analyze()), its frames 800-959 (a RTAnalyzer block of 160 frames) and
 rows 0 and 1 end to end as one 3200-frame row (a frame shard's block in
 chip_smoke's phase 19a): the split between a version's kernels, and its
-device time at each shape.
+device time at each shape.  Then, the same way, every CUDA kernel that
+harmonics.refine_f0 runs at 11 kHz (hop 55: the full-rate refine, one
+launch of refine_f0_full or, in a version before it, the framing glue and
+harmonic_project's five K = 1 launches) on the bench rows made at 11 kHz
+(all 128, 16, 2, row 0 alone, rows 0 and 1 as one 3200-frame row), and
+kernels.noise_bins at the bench shape (one [1600, 81] draw a call).
 
 The variants go to build/kernels/ beside the library (listed in
 .gitignore), each under a hash of its source and defines.
@@ -118,8 +123,9 @@ def load(root: Path, alias: str):
 def split(dirs, f0_rand):
     """Each refine_f0_dec kernel's device time of the packages in dirs,
     SPLIT_REPS calls traced by utils.profiling.device_trace, on the bench
-    rows and on random x with F0 f0_rand."""
-    from libllsm2_tpu_torch.utils import profiling, testsig
+    rows and on random x with F0 f0_rand; then the full-rate refine's
+    kernels and noise_bins' (the docstring says at which shapes)."""
+    from libllsm2_tpu_torch.utils import testsig
     dev = torch.device("cuda")
     rows = testsig.make_test_utterances(
         [(i, 0.05 if i < B // 2 else 0.0) for i in range(B)], duration=8.0)
@@ -137,36 +143,65 @@ def split(dirs, f0_rand):
                                        f0[:1, 800:960])),
               ("rows 0-1 as one 3200-frame row",
                (x[:2].reshape(1, -1), f0[:2].reshape(1, -1))))
+    rows11 = testsig.make_test_utterances(
+        [(i, 0.05 if i < B // 2 else 0.0) for i in range(B)], duration=8.0,
+        fs=11000.0)
+    x11, f11 = (torch.tensor(np.stack([r[j] for r in rows11]),
+                             dtype=torch.float32, device=dev)
+                for j in range(2))
+    shapes11 = (("bench rows at 11 kHz", (x11, f11)),
+                ("16 rows at 11 kHz", (x11[:16], f11[:16])),
+                ("2 rows at 11 kHz", (x11[:2], f11[:2])),
+                ("row 0 alone at 11 kHz", (x11[:1], f11[:1])),
+                ("rows 0-1 as one 3200-frame row at 11 kHz",
+                 (x11[:2].reshape(1, -1), f11[:2].reshape(1, -1))))
+    conf11 = ChunkConf(fs=11000.0, f0_floor=70.0)
+    rkw11 = dict(nhop=conf11.nhop, fs=conf11.fs,
+                 halfwin_max=conf11.halfwin_max,
+                 rel_winsize=conf11.rel_winsize, f0_ceil=conf11.f0_ceil)
     for i, d in enumerate(dirs):
         pkg = load(Path(d).resolve(), f"port_split{i}")
         kmod = importlib.import_module(pkg.__name__ + ".ops.kernels")
+        hmod = importlib.import_module(pkg.__name__ + ".ops.harmonics")
         for label, (xs, fs) in shapes:
             xs, fs = xs.contiguous(), fs.contiguous()
             taps, kw = refine_args(xs.shape[1])
-            call = lambda: kmod.refine_f0_dec(xs, fs, taps, **kw)
-            call()
-            torch.cuda.synchronize()
-            with tempfile.TemporaryDirectory() as tmp:
-                with profiling.device_trace(tmp):
-                    for _ in range(SPLIT_REPS):
-                        call()
-                with open(Path(tmp) / "trace.json") as fh:
-                    events = json.load(fh)["traceEvents"]
-            us = {}
-            for e in events:
-                if e.get("ph") == "X" and e.get("cat") == "kernel":
-                    name = e["name"].replace("(anonymous namespace)::", "")
-                    m = re.search(r"(\w+(?:<[^()]*>)?)\(", name)
-                    name = m.group(1) if m else name
-                    us[name] = us.get(name, 0.0) + e["dur"]
-            total = sum(us.values())
-            parts = "; ".join(f"{name}: {v / SPLIT_REPS / 1e3:.4f} ms "
-                              f"({100 * v / total:.1f}%)"
-                              for name, v in sorted(us.items()))
-            print(f"split {d} refine_f0_dec on the {label} "
-                  f"{tuple(fs.shape)}: "
-                  f"{total / SPLIT_REPS / 1e3:.4f} ms a call of kernel "
-                  f"time: {parts}", flush=True)
+            report(d, "refine_f0_dec", label, fs.shape,
+                   lambda: kmod.refine_f0_dec(xs, fs, taps, **kw))
+        for label, (xs, fs) in shapes11:
+            xs, fs = xs.contiguous(), fs.contiguous()
+            report(d, "refine_f0 (full rate)", label, fs.shape,
+                   lambda: hmod.refine_f0(xs, fs, **rkw11))
+        report(d, "noise_bins", "bench shape", (B, N, NHOP + 1),
+               lambda: kmod.noise_bins(0, 0, B, N, NHOP + 1, dev))
+
+
+def report(d, what, label, shape, call):
+    """Each CUDA kernel's device time in SPLIT_REPS calls of call(), by its
+    name in a utils.profiling.device_trace of them, printed a line."""
+    from libllsm2_tpu_torch.utils import profiling
+    call()
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.device_trace(tmp):
+            for _ in range(SPLIT_REPS):
+                call()
+        with open(Path(tmp) / "trace.json") as fh:
+            events = json.load(fh)["traceEvents"]
+    us = {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") == "kernel":
+            name = e["name"].replace("(anonymous namespace)::", "")
+            m = re.search(r"(\w+(?:<[^()]*>)?)\(", name)
+            name = m.group(1) if m else name
+            us[name] = us.get(name, 0.0) + e["dur"]
+    total = sum(us.values())
+    parts = "; ".join(f"{name}: {v / SPLIT_REPS / 1e3:.4f} ms "
+                      f"({100 * v / max(total, 1e-30):.1f}%)"
+                      for name, v in sorted(us.items()))
+    print(f"split {d} {what} on the {label} {tuple(shape)}: "
+          f"{total / SPLIT_REPS / 1e3:.4f} ms a call of kernel time: "
+          f"{parts}", flush=True)
 
 
 def main():

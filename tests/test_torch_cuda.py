@@ -409,9 +409,9 @@ def _mxu_inputs(B, Nf, nhop, H, seed):
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("K", [1, 4, 80])
 def test_harmonic_project_kernel_matches_plain_on_card(K):
-    """K = 1 (the refine probe: one warp per row), K = 4 (the same kernel
-    rotating) and K = 80 (one block per row), with each row's live columns
-    [lo, hi); 2e-3 absolute (test_pallas.py:46)."""
+    """K = 1 (the full-rate refine probe's shape: one warp per row), K = 4
+    (the same kernel rotating) and K = 80 (one block per row), with each
+    row's live columns [lo, hi); 2e-3 absolute (test_pallas.py:46)."""
     dev = _card()
     rng = np.random.default_rng(K)
     W = 631
@@ -1151,6 +1151,137 @@ def test_refine_f0_dec_cases_on_card(case):
     if case == "voicing":
         assert bool((got[0] == 0).all()) and bool((got[1, ::2] == 0).all())
         assert bool((got[1, 1::2] > 0).any())
+
+
+def _full_rows(B, seconds, dev):
+    """B bench-like rows at 11 kHz (hop 55: the full-rate refine; noisy and
+    clean alternating) -> (x [B, nx], f0 [B, N]) on dev."""
+    from libllsm2_tpu_torch.utils import testsig
+    utt = testsig.make_test_utterances(
+        [(i, 0.05 * (i % 2)) for i in range(B)], duration=seconds,
+        fs=11000.0)
+    return tuple(torch.tensor(np.stack([u[j] for u in utt]),
+                              dtype=torch.float32, device=dev)
+                 for j in range(2))
+
+
+# refine_f0_full's arguments at 11 kHz, f0_floor 70 (H = 315, delta = 39)
+FULL_KW = dict(nhop=55, fs=11000.0, halfwin_max=315, rel_winsize=4.0,
+               window="hanning", iters=2, max_rel_dev=0.05)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("case", ["2 rows", "16 rows", "3200 frames"])
+def test_refine_f0_full_matches_twin_on_card(case):
+    """kernels.refine_f0_full (one launch: F frames of a row a block, a
+    thread or 16 lanes a frame) on 2 and 16 rows of 8 s at 11 kHz and on
+    one row of 3200 frames: within 1e-4 relative of its twin on the card,
+    voicing equal, one launch counted; harmonics.refine_f0 on card
+    tensors at hop 55 reaches the kernel, never the twin."""
+    from libllsm2_tpu_torch.ops import harmonics
+    dev = _card()
+    B = {"2 rows": 2, "16 rows": 16, "3200 frames": 2}[case]
+    x, f0 = _full_rows(B, 8.0, dev)
+    if case == "3200 frames":
+        x, f0 = x.reshape(1, -1), f0.reshape(1, -1)
+    n0 = kernels.LAUNCHES["refine_f0_full"]
+    got = kernels.refine_f0_full(x, f0, **FULL_KW)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["refine_f0_full"] == n0 + 1
+    assert _f0_rel(got, kernels.refine_f0_full_ref(x, f0, **FULL_KW)) <= 1e-4
+    twin = kernels.refine_f0_full_ref
+
+    def refuse(*a, **k):
+        raise AssertionError("refine_f0 on the card left the kernel")
+    kernels.refine_f0_full_ref = refuse
+    try:
+        out = harmonics.refine_f0(x, f0, nhop=55, fs=11000.0,
+                                  halfwin_max=315, rel_winsize=4.0,
+                                  f0_ceil=600.0)
+    finally:
+        kernels.refine_f0_full_ref = twin
+    assert torch.equal(out, got)
+
+
+def _full_case(case, dev):
+    """(x [B, nx], f0 [B, N], window) of a refine_f0_full card case."""
+    x, f0 = _full_rows(4, 2.0, dev)
+    if case == "edges":       # voiced within H + delta of both ends
+        f0[:, :8] = torch.where(f0[:, :8] > 0, f0[:, :8], 120.0)
+        f0[:, -8:] = torch.where(f0[:, -8:] > 0, f0[:, -8:], 180.0)
+    elif case == "voicing":   # a row unvoiced, a row alternating
+        f0[0] = 0.0
+        f0[1, ::2] = 0.0
+    elif case == "floor and ceiling":   # hw = H; hw near its least
+        f0[0, 50:150] = 62.0
+        f0[1, 50:150] = 590.0
+    return x, f0, case if case in ("mltsine", "blackman_harris") else "hanning"
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("case", ["edges", "voicing", "floor and ceiling",
+                                  "mltsine", "blackman_harris"])
+def test_refine_f0_full_cases_on_card(case):
+    """kernels.refine_f0_full on frames voiced within H + delta of both
+    ends of a row (probes reading the zero padding), on an unvoiced and an
+    alternating row (unvoiced frames give 0), at F0 62 Hz (hw = H) and 590
+    Hz, and with mltsine and blackman_harris: within 1e-4 relative of its
+    twin, voicing equal, and each row alone (a batch of one: 16 lanes a
+    frame) bit for bit equal to its row in the batch and in a batch of
+    128 rows (a thread a frame)."""
+    dev = _card()
+    x, f0, window = _full_case(case, dev)
+    kw = dict(FULL_KW, window=window)
+    got = kernels.refine_f0_full(x, f0, **kw)
+    assert _f0_rel(got, kernels.refine_f0_full_ref(x, f0, **kw)) <= 1e-4
+    big = kernels.refine_f0_full(x.repeat(32, 1), f0.repeat(32, 1), **kw)
+    for r in range(4):
+        alone = kernels.refine_f0_full(x[r:r + 1], f0[r:r + 1], **kw)
+        assert torch.equal(alone[0], got[r]), r
+        assert torch.equal(big[r + 4 * 31], got[r]), r
+    if case == "edges":
+        assert bool((got[:, [0, 1, -2, -1]] > 0).all())
+    if case == "voicing":
+        assert bool((got[0] == 0).all()) and bool((got[1, ::2] == 0).all())
+        assert bool((got[1, 1::2] > 0).any())
+
+
+@pytest.mark.requires_cuda
+def test_refine_f0_full_every_block_gives_the_same_bits_on_card():
+    """Every (F, G) of kernels._REFINE_BLOCKS, forced through the C entry
+    on 16 rows of 2 s at 11 kHz, gives the same F0 bits: no block width or
+    lane count enters a sum."""
+    dev = _card()
+    x, f0 = _full_rows(16, 2.0, dev)
+    lib = kernels._build.library()
+    outs = []
+    for F, G in kernels._REFINE_BLOCKS:
+        out = torch.empty_like(f0)
+        args = list(kernels._refine_full_launch_args(x, f0, out, **FULL_KW))
+        args[-3:-1] = [F, G]
+        assert lib.llsm_refine_f0_full(*args) == 0, (F, G)
+        torch.cuda.synchronize()
+        outs.append(out)
+    for (F, G), out in zip(kernels._REFINE_BLOCKS[1:], outs[1:]):
+        assert torch.equal(out, outs[0]), (F, G)
+
+
+@pytest.mark.requires_cuda
+def test_refine_f0_full_refuses_what_it_cannot_launch_on_card():
+    """A launch the C entry refuses (3 lanes a frame) raises from
+    kernels._launch, counting nothing; a window too long for a block's
+    shared memory raises from the wrapper before any launch."""
+    dev = _card()
+    x, f0 = _full_rows(2, 1.0, dev)
+    out = torch.empty_like(f0)
+    args = list(kernels._refine_full_launch_args(x, f0, out, **FULL_KW))
+    args[-2] = 3
+    n0 = kernels.LAUNCHES["refine_f0_full"]
+    with pytest.raises(RuntimeError, match="refine_f0_full"):
+        kernels._launch("refine_f0_full", *args)
+    with pytest.raises(ValueError, match="shared"):
+        kernels.refine_f0_full(x, f0, **dict(FULL_KW, halfwin_max=60000))
+    assert kernels.LAUNCHES["refine_f0_full"] == n0
 
 
 @pytest.mark.requires_cuda

@@ -1,5 +1,6 @@
-"""The decimated F0 refine's kernel wrapper and plain twin
-(kernels.refine_f0_dec / refine_f0_dec_ref) against the JAX package, and
+"""The decimated and the full-rate F0 refine's kernel wrappers and plain
+twins (kernels.refine_f0_dec / refine_f0_dec_ref, refine_f0_full /
+refine_f0_full_ref) against the JAX package, their launch geometry, and
 the last public names of the port (warp, the mesh layouts, the
 subpackage namespaces) against the JAX package's (CPU, float32)."""
 import ast
@@ -130,6 +131,153 @@ def test_refine_f0_dec_cpu_runs_the_twin_and_launches_nothing(monkeypatch):
         kernels.refine_f0_dec(T(x), T(f0), taps, **dict(kw, window="kaiser"))
 
 
+def _full_rows(window_f0=True):
+    """Two 0.4 s rows at 11 kHz (hop 55: the full-rate branch), the second
+    noisy with its last 30% unvoiced; with window_f0, row 0's F0 set to
+    62 Hz on frames 5-11 (hw clamped to H = 315) and 590 Hz on frames
+    20-25 (near f0_ceil), and its first and last 3 frames voiced."""
+    conf = jconfig.ChunkConf(fs=11000.0, fnyq=5500.0, f0_floor=70.0)
+    rows = [jtestsig.make_test_utterance(duration=0.4, fs=conf.fs, seed=s,
+                                         noise_level=nl,
+                                         unvoiced_tail_frac=tail)
+            for s, nl, tail in ((0, 0.0, 0.0), (3, 0.05, 0.3))]
+    nfrm = len(rows[0][1])
+    x = np.stack([r[0][:nfrm * conf.nhop] for r in rows]).astype(np.float32)
+    f0 = np.stack([r[1] for r in rows]).astype(np.float32)
+    if window_f0:
+        f0[0, 5:12] = 62.0
+        f0[0, 20:26] = 590.0
+        f0[0, :3] = 130.0
+        f0[0, -3:] = 140.0
+    return conf, x, f0
+
+
+def _full_kw(conf, window="hanning"):
+    return dict(nhop=conf.nhop, fs=conf.fs, halfwin_max=conf.halfwin_max,
+                rel_winsize=conf.rel_winsize, window=window, iters=2,
+                max_rel_dev=0.05)
+
+
+@pytest.mark.parametrize("window", ["hanning", "blackman_harris", "mltsine"])
+def test_refine_f0_full_ref_matches_jax_full_rate(window):
+    """The full-rate twin, called directly, against the JAX package's
+    full-rate branch (harmonic_project_pallas at K = 1 in interpret mode)
+    at fs 11000 (hop 55, odd: no decimation), with unvoiced frames, F0 at
+    the floor (hw = H) and near f0_ceil, voiced frames at both edges, and
+    a cosine-series window or mltsine: rtol 1e-4 (test_torch_ops.py's
+    refine tolerance; the twin's float32 sums in PyTorch's order against
+    the Pallas kernel's); unvoiced frames stay 0."""
+    conf, x, f0 = _full_rows()
+    assert thm.refine_decimation(conf.nhop, x.shape[1], conf.fs,
+                                 conf.f0_ceil)[0] == 1
+    kw = _full_kw(conf, window)
+    centers = jnp.arange(f0.shape[1], dtype=jnp.int32) * conf.nhop
+    assert conf.halfwin_max == 315
+    for b in range(2):
+        got = kernels.refine_f0_full_ref(T(x[b:b + 1]), T(f0[b:b + 1]),
+                                         **kw)[0].numpy()
+        ref = np.asarray(jhm.refine_f0(
+            jnp.asarray(x[b]), jnp.asarray(f0[b]), centers, fs=conf.fs,
+            halfwin_max=conf.halfwin_max, rel_winsize=conf.rel_winsize,
+            window=window, f0_ceil=conf.f0_ceil, use_pallas=True,
+            nhop=conf.nhop))
+        np.testing.assert_allclose(got, ref, rtol=1e-4)
+        assert np.all(got[f0[b] == 0] == 0)
+        assert np.all(got[f0[b] > 0] > 0)
+
+
+def test_refine_f0_full_cpu_runs_the_twin_and_launches_nothing(monkeypatch):
+    """CPU tensors reach the full-rate twin: no library is built and no
+    launch counted; refine_f0 on the CPU at 11 kHz takes the full-rate
+    branch and calls the twin once a row; a window the kernel lacks is
+    refused on every device."""
+    conf, x, f0 = _full_rows(window_f0=False)
+    kw = _full_kw(conf)
+
+    def no_build():
+        raise AssertionError("the CPU path built the kernel library")
+    monkeypatch.setattr(kernels._build, "library", no_build)
+    calls = []
+    twin = kernels.refine_f0_full_ref
+    monkeypatch.setattr(kernels, "refine_f0_full_ref",
+                        lambda *a, **k: calls.append(a[0].shape) or
+                        twin(*a, **k))
+    before = dict(kernels.LAUNCHES)
+    got = kernels.refine_f0_full(T(x), T(f0), **kw)
+    assert torch.equal(got, twin(T(x), T(f0), **kw))
+    out = thm.refine_f0(T(x), T(f0), nhop=conf.nhop, fs=conf.fs,
+                        halfwin_max=conf.halfwin_max,
+                        rel_winsize=conf.rel_winsize, f0_ceil=conf.f0_ceil)
+    # a row a call against one call of both rows: the CPU's vector tails
+    # (SLEEF or libm) differ by an ulp (harmonics.refine_f0 says why)
+    torch.testing.assert_close(out, got, rtol=1e-6, atol=0)
+    assert kernels.LAUNCHES == before
+    assert calls == [(2, x.shape[1]), (1, x.shape[1]), (1, x.shape[1])]
+    with pytest.raises(ValueError, match="window"):
+        kernels.refine_f0_full(T(x), T(f0), **dict(kw, window="kaiser"))
+
+
+def _check_full_geometry(B, N, nhop, H, sms=132):
+    """kernels._refine_geometry at D = 1 for B rows of N frames at hop
+    nhop and halfwin_max H: a listed block of whole warps, a thread a frame
+    only at an odd hop and where the batch gives two blocks an SM, each
+    block's S = (F - 1) nhop + 2 (H + delta) + 1 staged samples covering
+    both probes' reach around each of its frames, and smem = 4 S bytes
+    within the card's 227 KB -> the geometry."""
+    dm = kernels._refine_full_dims(nhop, 11000.0, H)
+    delta, C, Wf = dm["delta"], dm["C"], dm["Wf"]
+    assert delta == max(H // 8, 2) and C == H + delta and Wf == 2 * C + 1
+    geo = kernels._refine_geometry(B, N, 1, 0, dm, sms)
+    F, G, T, S = (geo[k] for k in ("F", "G", "T", "S"))
+    assert (F, G) in kernels._REFINE_BLOCKS and T == F * G
+    assert T % 32 == 0 and T <= 128
+    assert geo["grid"] == (-(-N // F), B)
+    assert (G == 1) == (nhop % 2 == 1 and B * -(-N // 128) >= 2 * sms)
+    assert S == (F - 1) * nhop + Wf and geo["words"] == S
+    assert geo["smem"] == 4 * S <= 227 * 1024
+    for n0 in range(0, N, F):
+        m0 = n0 * nhop - C                 # the block's staged sample 0
+        n = np.arange(n0, min(n0 + F, N))
+        assert (n * nhop - delta - H >= m0).all()
+        assert (n * nhop + delta + H < m0 + S).all()
+    return geo
+
+
+@pytest.mark.parametrize("B,N,nhop,H,want", [
+    (128, 1600, 55, 315, (128, 1, 30776)),     # phase 7: S = 127 55 + 709
+    (2, 1600, 55, 315, (8, 16, 4376)),         # phase 3's 2 rows
+    (1, 200, 55, 315, (2, 16, 3056)),          # phase 8: a 1 s file
+    (1, 160, 55, 315, (2, 16, 3056)),          # a RTAnalyzer block
+    (128, 1600, 56, 315, (8, 16, 4404)),       # an even hop: 16 lanes
+    (64, 1563, 45, 550, (128, 1, 27808))])     # 9 kHz at f0_floor 40
+def test_refine_full_geometry_and_shared_memory(B, N, nhop, H, want):
+    """The D = 1 geometry and its shared bytes, counted by hand: (F, G,
+    smem) for the 11 kHz bench batch (a thread a frame), 2 rows, a 1 s
+    file and a RTAnalyzer block (16 lanes a frame), an even hop (16 lanes
+    a frame at any batch) and a longer window; the wrapper's launch
+    arguments carry F and G."""
+    geo = _check_full_geometry(B, N, nhop, H)
+    assert (geo["F"], geo["G"], geo["smem"]) == want
+
+
+def test_kernel_ops_counts_the_full_rate_refine():
+    """chip_smoke.kernel_ops for refine_f0_full on a hand-counted case:
+    hanning (one cosine term: a column 4 + 22 + 3 + 20 = 49 operations),
+    fs 1000, rel_winsize 4, H 30, F0 (0, 100, 200) Hz: hw 20 and 10, so
+    41 + 21 = 62 columns, each 2 iterations x (49 + 8) and the gate's 49 +
+    4: 62 x 167 operations; the unvoiced frame none."""
+    import chip_smoke
+    x = torch.zeros(1, 300)
+    f0 = torch.tensor([[0.0, 100.0, 200.0]])
+    kw = dict(nhop=100, fs=1000.0, halfwin_max=30, rel_winsize=4.0,
+              window="hanning", iters=2, max_rel_dev=0.05)
+    assert chip_smoke.kernel_ops(torch, "refine_f0_full", (x, f0),
+                                 kw) == 62 * 167
+    f0 = torch.tensor([[10.0, 100.0, 0.0]])        # hw 200 clamps to H 30
+    assert chip_smoke.kernel_ops(torch, "refine_f0_full", (x, f0),
+                                 kw) == (61 + 41) * 167
+
+
 # the rates and floors the library takes (thop 0.005): (fs, f0_floor)
 REFINE_CONFS = [(16000.0, 70.0), (16000.0, 40.0), (11025.0, 40.0),
                 (22050.0, 40.0), (44100.0, 40.0), (48000.0, 40.0)]
@@ -173,12 +321,15 @@ def test_refine_geometry_covers_every_frame(fs, f0_floor):
     shapes): each block's staged decimated samples cover its frames'
     windows, the staged table and the x chunk's rows hold every slot once
     (and the column table points each frame's column at its sample), the
-    C entry's checks hold, and the block's shared bytes stay <= 227 KB."""
+    C entry's checks hold, and the block's shared bytes stay <= 227 KB;
+    at 11025 Hz (hop 55, no decimation) the full-rate kernel's geometry
+    (_check_full_geometry)."""
     for B, N in ((1, 160), (2, 1563), (128, 1600)):
         conf, D, ntaps, dm = _refine_conf(fs, f0_floor, N)
-        if fs == 11025.0:                 # the full-rate path: no launch
+        if fs == 11025.0:                 # the full-rate kernel's geometry
             assert D == 1
-            return
+            _check_full_geometry(B, N, conf.nhop, conf.halfwin_max)
+            continue
         geo = kernels._refine_geometry(B, N, D, ntaps, dm)
         F, G, T, S, P, Q, PQ = (geo[k] for k in ("F", "G", "T", "S", "P",
                                                    "Q", "PQ"))
