@@ -114,22 +114,24 @@ non-zero without the final "ok" line:
      harmonic_project never.
   9. layer-1 round trip on the 128 x 8 s bench rows: the library-default
      analysis, then chunk_to_layer1 -> chunk_to_layer0 -> _synthesize,
-     counters zeroed before; the seven kernels of phase 5 launched; y_sin
+     counters zeroed before; the seven kernels of phase 5 and viterbi_scan
+     (the Rd path, twice in chunk_to_layer1) launched; y_sin
      SNR against the clean harmonic part: noisy rows 0/1 within 0.2 dB of
      the JAX package's values, every clean row at most 0.1 dB under the
      JAX value of row 64; rows 0, 1 and 64 alone (a batch of one fed
      that row of each stage's batch input) equal their rows of the batch
      bit for bit through chunk_to_layer1, chunk_to_layer0 and the
      synthesis, and two runs of the batch are equal.  Prints each stage's
-     ms, the audio-sec/s of the layer-1 round trip and the peak.  Then
+     ms, the audio-sec/s of the layer-1 round trip and the peak, and
+     _rd_viterbi alone on [128, 1600, 64] uniform scores.  Then
      env_render, which no library
      path runs, renders this chunk's envelopes at full batch through
      layer0._render_envelopes(use_pallas=True), counters zeroed before.
  10. pulse-by-pulse synthesis: 128 rows x 8 s of synth_lf_speech (Rd 0.4 /
      1.0 / 1.8 / 2.7 by row, make_f0_track's contour, aspiration seed =
      row), the library-default analysis -> chunk_to_layer1 ->
-     pbp_synthesize, counters zeroed before: noise_mod_ola and fir_frames
-     launched; each row's median voiced rd within 15% of its truth (the
+     pbp_synthesize, counters zeroed before: noise_mod_ola, fir_frames and
+     viterbi_scan launched; each row's median voiced rd within 15% of its truth (the
      JAX suite's criterion) and rows 0 and 1 within 1% of the JAX
      package's medians; row 0's rd track, frame by frame, within 1e-3
      relative of chunk_to_layer1 on the CPU from the same layer-0 row;
@@ -143,7 +145,8 @@ non-zero without the final "ok" line:
      F0 sidecar, the rest tracked by ops/f0.py) through run_corpus_files
      with buckets (200, 400, 800, 1600), batch 64, want_audio=False and
      the library default, counters zeroed before: the native loader
-     built; every main-path kernel launched; every file yielded once; a
+     built; every main-path kernel and viterbi_scan (the tracker's path)
+     launched; every file yielded once; a
      second call with the checkpoint yields nothing; the files of the
      first 400-frame batch equal run_corpus on the same int16-quantized
      float signals bit for bit (SNR, y, nx); three tracked files alone (a
@@ -153,7 +156,15 @@ non-zero without the final "ok" line:
      Then a warm run, whose SNRs must equal the first's: audio-sec/s from
      files to SNR, per bucket the step, tracker and assembly ms and the
      share of the assembly hidden behind the card, the peak; and the
-     tracker alone on 64 x 8 s rows beside its Viterbi.
+     tracker alone on 64 x 8 s rows beside its Viterbi (f0.viterbi on
+     [64, 1600, 97] uniform scores).  11v: viterbi_scan against its twin
+     on the card, paths and last scores equal bit for bit (tolerance 0),
+     on phase 9's first captured Rd call ([128, 1600, 64]) and the
+     tracker's call on a 64-file 8 s batch ([64, 1600, 97]), on both
+     rounded to multiples of 1/8 (the tracker's transitions too: tied
+     candidates), on row 0 alone and on rows 0-1; each one's kernel time
+     (median of 10, and a launch's share of a run of 20), its bound and
+     ratio, and the twin's time.
  12. the edits (BASELINE config 4) on phase 10's 128 x 8 s layer-1 chunk:
      pitch_shift(2.0) -> time_stretch(1.5) -> synthesize_batch, counters
      zeroed before: osc_bank, noise_mod_ola, noise_bins and sample_cycles
@@ -182,7 +193,7 @@ non-zero without the final "ok" line:
      row, seed = row), the library-default analysis, chunk_to_layer1 with
      test_nasal's sections ((250, 70, -1), (900, 60, +1)) and without,
      counters zeroed before the analysis: the main path's analysis
-     kernels launched; every row's median voiced rd with sections within
+     kernels and viterbi_scan launched; every row's median voiced rd with sections within
      test_nasal's floors ((0.9, 1.15) at 120 Hz, (0.8, 1.25) at 182 and
      200); rows 0/1 within 1% of the JAX package's medians, with and
      without sections; rows alone equal their batch rows.  Prints the
@@ -245,8 +256,8 @@ non-zero without the final "ok" line:
  17. the learned models (cell tts-train-serve), every model at its
      default widths.  17a, the TTS corpus: ttsdata.build_corpus(24,
      seed=0) (224 frames an utterance) with create_aoptions(use_pallas=
-     True), counters zeroed before -> the analysis kernels launched, the
-     corpus seconds; one utterance with the library default timed.  17b,
+     True), counters zeroed before -> the analysis kernels and
+     viterbi_scan (its layer-1 fit) launched, the corpus seconds; one utterance with the library default timed.  17b,
      the acoustic model, 400 steps with the F0 slot weighted 4 (ms a step,
      median; first and last loss, < 0.2x; peak), test_acoustic's floors on
      held-out sentences (F0 median error < 0.05, correlation > 0.85, vowel
@@ -335,13 +346,14 @@ which the line says).  The line before the last is
 the kernels' JSON summary: launches from the phase that runs each (5 for
 the six, fir_frames, noise_bins, sample_cycles and refine_f0_dec, 6 for
 harmonic_project_mxu, 7 for refine_f0_full and harmonic_project (0:
-its K = 1 case is phase 3's), 9 for env_render, 16c for
-noise_mod_ola_seg;
+its K = 1 case is phase 3's), 9 for env_render and viterbi_scan, 16c
+for noise_mod_ola_seg;
 denoise_apply also "finish_launches" and "finish_full_batch" for its
 second launch; "launches_by_phase" the counts of phases 11 to 17 and
 of 19, summed over its ranks' 19a runs); ms,
 plain_ms, library_ms and bound_ms at the first 2-row call of phase 3
-(noise_mod_ola_seg: its full-batch call of 16c; denoise_stats also has
+(noise_mod_ola_seg: its full-batch call of 16c; viterbi_scan: 11v's
+first case, phase 9's full-batch Rd call; denoise_stats also has
 16b's full-batch polar case among its "cases"); "full_batch" a record per
 call at full batch ("analysis_calls" on harmonic_project_win and
 "render_calls" on osc_bank: phase 5's two harmonic_analysis calls and two
@@ -568,7 +580,15 @@ KERNELS = {
     # relative |error| as refine_f0_dec's
     "refine_f0_full": ("libllsm2_tpu_torch/csrc/refine_f0.cu",
                        "libllsm2_tpu/ops/pallas_osc.py:1388", 1e-4),
+    # not a Pallas kernel: both Viterbis, each a lax.scan forward and a
+    # reverse lax.scan backtrace in the JAX package (the F0 tracker's and
+    # layer 1's Rd path); a path that differs is an infinite error, then
+    # the |difference| of the last scores
+    "viterbi_scan": ("libllsm2_tpu_torch/csrc/viterbi.cu",
+                     "libllsm2_tpu/ops/f0.py:213, "
+                     "libllsm2_tpu/models/layer1.py:165", 0.0),
 }
+VITERBI = "viterbi_scan"
 # phase 16: the segment-input entry of noise_mod_ola.cu (noise_idft="fft"),
 # a wrapper of its own; source, TPU kernel it replaces, tolerance
 SEG_KERNEL = ("libllsm2_tpu_torch/csrc/noise_mod_ola.cu",
@@ -736,6 +756,10 @@ def max_err(torch, name, got, ref, scale=1.0, kw=None):
     if name == "sample_cycles":                     # mod 1, in cycles
         d = got.double() - ref.double()
         return float(torch.max(torch.abs(d - torch.round(d))))
+    if name == VITERBI:                      # (path, last scores)
+        if not torch.equal(got[0], ref[0]):
+            return float("inf")
+        got, ref = got[1], ref[1]
     if name in ("refine_f0_dec", "refine_f0_full"):  # relative, voiced frames
         if not torch.equal(got == 0, ref == 0):
             return float("inf")
@@ -936,6 +960,11 @@ def kernel_ops(torch, name, args, kw):
         n = sum(v.numel() * (2 if v.is_complex() else 1)
                 for v in _tensors(torch, a[:1]))
         return 2.0 * len(a[1]) * n
+    if name == "viterbi_scan":               # obs, lt, renorm
+        # each step, each (from, to) pair: the candidate's add and its
+        # compare against the running maximum
+        B, N, S = a[0].shape
+        return 2.0 * B * (N - 1) * S * S
     raise KeyError(name)
 
 
@@ -955,7 +984,8 @@ def kernel_bytes(torch, name, args, kw, out):
     """Bytes one call must move: every input read once (harmonic_project_
     win's x and cyc once a row, not once a frame), every output written
     once; of harmonic_project's pre-windowed [R, W] frames and cycle
-    offsets only each row's live columns [lo, hi)."""
+    offsets only each row's live columns [lo, hi); viterbi_scan's byte
+    backpointers written once as well."""
     if name == "noise_bins":                 # two [N, nbin] draws, expanded
         return 2 * 4 * args[3] * args[4]
     if name == "sample_cycles":              # f0 read, [B, nx] written
@@ -966,6 +996,9 @@ def kernel_bytes(torch, name, args, kw, out):
         lo, hi = args[3], args[4]
         R, W = args[0].shape
         nbytes -= 2 * 4 * (R * W - float((hi - lo).sum()))
+    if name == "viterbi_scan":               # and the uint8 backpointers
+        B, N, S = args[0].shape
+        nbytes += B * (N - 1) * S
     return nbytes
 
 
@@ -1577,7 +1610,7 @@ def edit_stages(mods, sopt):
 def layer1_round_trip(torch, kernels, mods, opt, sopt, data):
     """Phase 9: the library-default analysis -> chunk_to_layer1 ->
     chunk_to_layer0 -> _synthesize on the bench rows -> (the layer-0
-    chunk, launches)."""
+    chunk, launches, the first viterbi_scan call's (args, kw))."""
     layer0, layer1 = mods
     x, f0, x_ref, _ = data
     B = x.shape[0]
@@ -1592,10 +1625,11 @@ def layer1_round_trip(torch, kernels, mods, opt, sopt, data):
               ("to_layer0", layer1.chunk_to_layer0),
               ("synthesize", lambda c: layer0._synthesize(sopt, c))]
     kernels.reset_launches()
-    out, _ = staged(torch, stages)
+    calls, (out, _) = capture_kernel_inputs(kernels, (VITERBI,),
+                                            lambda: staged(torch, stages))
     launches = dict(kernels.LAUNCHES)
-    phase("9 layer1 launches", all(launches[k] > 0 for k in PATH),
-          str(launches))
+    phase("9 layer1 launches", all(launches[k] > 0 for k in
+                                   PATH + (VITERBI,)), str(launches))
     phase("9 layer1 output", tuple(out.y.shape) == tuple(x.shape)
           and bool(torch.isfinite(out.y).all()),
           f"y {tuple(out.y.shape)} finite")
@@ -1615,7 +1649,8 @@ def layer1_round_trip(torch, kernels, mods, opt, sopt, data):
     vit_ms = cuda_ms(torch, lambda: layer1._rd_viterbi(score, voiced, 10.0), 3)
     print(f"9 layer1: _rd_viterbi on [{B}, {score.shape[1]}, "
           f"{score.shape[2]}] scores {vit_ms:.2f} ms a call (median of 3; "
-          f"two calls in each chunk_to_layer1)", flush=True)
+          f"two calls in each chunk_to_layer1, one viterbi_scan launch "
+          f"each)", flush=True)
     del score
     check_rows("9 layer1", *rows_alone(torch, layer1_stages(mods, sopt),
                                        chunk0["c"]))
@@ -1627,7 +1662,7 @@ def layer1_round_trip(torch, kernels, mods, opt, sopt, data):
           f"{B * DURATION / (l1_ms / 1e3):.1f} audio-sec/s; with the analysis "
           f"{B * DURATION / (sum(ms.values()) / 1e3):.1f} audio-sec/s; peak "
           f"{peak:.2f} GiB")
-    return chunk0["c"], launches
+    return chunk0["c"], launches, calls[VITERBI][0]
 
 
 def pbp_phase(torch, kernels, mods, opt, sopt, dev):
@@ -1654,8 +1689,8 @@ def pbp_phase(torch, kernels, mods, opt, sopt, dev):
     (l1, out), _ = staged(torch, stages)
     launches = dict(kernels.LAUNCHES)
     phase("10 pbp launches", launches["noise_mod_ola"] > 0
-          and launches["fir_frames"] > 0 and launches["noise_bins"] > 0,
-          str(launches))
+          and launches["fir_frames"] > 0 and launches["noise_bins"] > 0
+          and launches[VITERBI] > 0, str(launches))
     phase("10 pbp output", tuple(out.y.shape) == tuple(x.shape)
           and bool(torch.isfinite(out.y).all()),
           f"y {tuple(out.y.shape)} finite")
@@ -1711,10 +1746,12 @@ def corpus_phase(torch, kernels, opt, sopt, rows, dev):
     """Phase 11, BASELINE config 5 from files on one card: CORPUS_FILES
     int16 WAVs cut from the bench rows (numpy x, f0) through
     run_corpus_files (CORPUS_BUCKETS, CORPUS_BATCH, want_audio=False),
-    counters zeroed before -> launches.  Checks: every file yielded once,
-    resume yields nothing, a batch from files equals run_corpus on the
-    quantized signals bit for bit, tracked files alone equal their batch
-    rows, the JAX pins of the first 16 files; then a warm run timed."""
+    counters zeroed before -> (launches, the tracker's viterbi_scan call
+    (args, kw) on a full batch of 8 s files).  Checks: every file yielded
+    once, resume yields nothing, a batch from files equals run_corpus on
+    the quantized signals bit for bit, tracked files alone equal their
+    batch rows, the JAX pins of the first 16 files; then a warm run
+    timed."""
     import math
     import os
     import tempfile
@@ -1771,7 +1808,8 @@ def corpus_phase(torch, kernels, opt, sopt, rows, dev):
         torch.cuda.synchronize()
         cold = time.perf_counter() - t0
         launches = dict(kernels.LAUNCHES)
-        phase("11 launches", all(launches[k] > 0 for k in PATH), str(launches))
+        phase("11 launches", all(launches[k] > 0 for k in PATH + (VITERBI,)),
+              str(launches))
         got = [p for r in res for p in r["paths"]]
         phase("11 every file once", sorted(got) == sorted(paths),
               f"{len(got)} rows in {len(res)} batches of buckets "
@@ -1890,15 +1928,63 @@ def corpus_phase(torch, kernels, opt, sopt, rows, dev):
         tr_ms = synced_ms(torch, lambda: f0mod.track_batch(cfg, xq), 3)
         vit_ms = synced_ms(torch, lambda: f0mod.viterbi(logobs, lt), 3)
         print(f"11 tracker on [{len(P)}, {b * nhop}]: {tr_ms:.2f} ms a batch, "
-              f"of which the Viterbi (a loop over {b} frames, host-bound) "
-              f"{vit_ms:.2f} ms (median of 3)", flush=True)
+              f"of which the Viterbi (one viterbi_scan launch over {b} "
+              f"frames) {vit_ms:.2f} ms (median of 3)", flush=True)
+        # the tracker's own observations of this batch, for phase 11v
+        calls, _ = capture_kernel_inputs(
+            kernels, (VITERBI,), lambda: f0mod.track_batch(cfg, xq))
         del xq, logobs
         phase("11 corpus from files", True,
               f"{len(paths)} files, {audio_s:.1f} s of audio: warm run "
               f"{wall * 1e3:.1f} ms = {audio_s / wall:.1f} audio-sec/s from "
               f"files to SNR (the first, cold run {cold * 1e3:.1f} ms = "
               f"{audio_s / cold:.1f}); peak {peak:.2f} GiB")
-    return launches
+    return launches, calls[VITERBI][0]
+
+
+def viterbi_phase(torch, kernels, rd_call, f0_call):
+    """Phase 11v: viterbi_scan against its twin on the card, paths and last
+    scores equal bit for bit, on phase 9's first captured Rd call ([128,
+    1600, 64], no renormalization) and phase 11's tracker call ([64, 1600,
+    97], renormalized), on both rounded to multiples of 1/8 (the tracker's
+    transitions too: tied candidates), on row 0 of each alone and on rows
+    0-1 -> (cases, the full-batch records).  Each case's kernel and twin
+    times are medians of 10, beside its bound."""
+    eighths = lambda t: torch.round(t * 8.0) / 8.0
+    (rd_obs, rd_lt, rd_renorm), _ = rd_call
+    (f0_obs, f0_lt, f0_renorm), _ = f0_call
+    runs = [("9 rd", (rd_obs, rd_lt, rd_renorm)),
+            ("11 tracker", (f0_obs, f0_lt, f0_renorm)),
+            ("9 rd in eighths", (eighths(rd_obs), rd_lt, rd_renorm)),
+            ("11 tracker in eighths", (eighths(f0_obs), eighths(f0_lt),
+                                       f0_renorm)),
+            ("9 rd row 0", (rd_obs[:1], rd_lt, rd_renorm)),
+            ("11 tracker row 0", (f0_obs[:1], f0_lt, f0_renorm)),
+            ("9 rd 2 rows", (rd_obs[:2], rd_lt, rd_renorm)),
+            ("11 tracker 2 rows", (f0_obs[:2], f0_lt, f0_renorm))]
+    cases, full = [], []
+    for label, args in runs:
+        case = check_kernel(torch, kernels, VITERBI, KERNELS[VITERBI][2],
+                            args, {"scores": True}, label, prefix="11v")
+        run = run_ms(torch, lambda: kernels.viterbi_scan(*args), 20)
+        B, N, S = args[0].shape
+        print(f"11v {label}: [{B}, {N}, {S}] kernel {case['ms']:.4f} ms "
+              f"(run {run:.4f}) = {case['ms'] / case['bound_ms']:.1f}x its "
+              f"{case['bound_ms']:.4f} ms bound ({case['bound_by']}; the "
+              f"kernel's floor is a chain of {N - 1} dependent steps and "
+              f"{N - 1} dependent backtrace loads, which the bound does "
+              f"not count); twin {case['plain_ms']:.4f} ms", flush=True)
+        case["run_ms"] = run
+        cases.append(case)
+        if label in ("9 rd", "11 tracker"):
+            full.append({"phase": label.split()[0], "call": 0,
+                         "shapes": case["shapes"], "ms": case["ms"],
+                         "run_ms": run, "bound_ms": case["bound_ms"],
+                         "bound_by": case["bound_by"], "library_ms": None,
+                         "library_row_fraction": None, "host_ms": None,
+                         "max_abs_err": case["max_abs_err"]})
+    torch.cuda.empty_cache()
+    return cases, full
 
 
 def edits_phase(torch, kernels, mods, l1, sopt):
@@ -2185,8 +2271,8 @@ def nasal_phase(torch, kernels, mods, opt, dev):
     l1 = layer1.chunk_to_layer1(ch, None, NASAL_SECTIONS)
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
-    phase("14 nasal launches", all(launches[k] > 0 for k in ANALYSIS),
-          str(launches))
+    phase("14 nasal launches", all(launches[k] > 0 for k in
+                                   ANALYSIS + (VITERBI,)), str(launches))
     l1_none = layer1.chunk_to_layer1(ch)
     voiced = (ch.f0 > 0).cpu().numpy()
     med = lambda c: [float(np.median(c.rd[b].cpu().numpy()[voiced[b]]))
@@ -3281,8 +3367,9 @@ def tts_phase(torch, kernels, dev, opt_k, sopt_k):
     secs = time.perf_counter() - t0
     out["17a"] = launches = dict(kernels.LAUNCHES)
     cc = corp["cc"]
-    phase("17a corpus launches", all(launches[k] > 0 for k in ANALYSIS),
-          f"{sorted(k for k in ANALYSIS)} launched: {launches}")
+    phase("17a corpus launches", all(launches[k] > 0 for k in
+                                     ANALYSIS + (VITERBI,)),
+          f"{sorted(ANALYSIS + (VITERBI,))} launched: {launches}")
     B, N, D = corp["targets"].shape
     phase("17a corpus", (B, N, D) == (TTS_UTTS, TTS_FRAMES, cc.dims)
           and np.isfinite(corp["targets"]).all(),
@@ -4591,7 +4678,8 @@ def main(argv):
                          ("ms", "plain_ms", "bound_ms", "bound_by",
                           "library_ms")},
                       "cases": cases[name]}
-               for name, (source, replaces, _) in KERNELS.items()}
+               for name, (source, replaces, _) in KERNELS.items()
+               if name != VITERBI}
 
     # phase 4: the denoiser-off path on 32 rows
     rows = torch.tensor(OFF_ROWS, device=dev)
@@ -4650,8 +4738,8 @@ def main(argv):
     # phase 8: an 11.025 kHz file through the public API
     public_11025(torch, kernels, lt, dev)
     # phase 9: the layer-1 round trip on the bench rows
-    chunk, _ = layer1_round_trip(torch, kernels, (layer0, layer1), opt, sopt,
-                                 data)
+    chunk, l9, rd_call = layer1_round_trip(torch, kernels, (layer0, layer1),
+                                           opt, sopt, data)
     # env_render, which no library path runs: the full-batch chunk's
     # envelopes through layer0._render_envelopes(use_pallas=True)
     nx = chunk.nfrm * conf.nhop
@@ -4677,8 +4765,21 @@ def main(argv):
     _, l1 = pbp_phase(torch, kernels, (layer0, layer1, pbp), opt, sopt, dev)
     torch.cuda.empty_cache()
     # phase 11: the corpus from files (BASELINE config 5)
-    by_phase = {"11": corpus_phase(torch, kernels, opt, sopt, rows, dev)}
+    launches, f0_call = corpus_phase(torch, kernels, opt, sopt, rows, dev)
+    by_phase = {"11": launches}
     del rows
+    # phase 11v: viterbi_scan against its twin on the calls of 9 and 11
+    vit_cases, full[VITERBI] = viterbi_phase(torch, kernels, rd_call,
+                                             f0_call)
+    source, replaces, _ = KERNELS[VITERBI]
+    summary[VITERBI] = {
+        "name": VITERBI, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": l9[VITERBI],
+        "max_abs_err": max(c["max_abs_err"] for c in vit_cases),
+        **{k: vit_cases[0][k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms")},
+        "cases": vit_cases}
+    del rd_call, f0_call
     # phase 12: pitch x2, stretch x1.5 on phase 10's chunk (config 4)
     by_phase["12"] = edits_phase(torch, kernels, (layer0, edits), l1, sopt)
     # phase 13: the codec on phase 10's chunk (8- and 16-bit archives)

@@ -27,8 +27,8 @@ import numpy as np
 import torch
 
 from ..container import Chunk, index_batch
-from ..fp import CP, FP
-from ..ops import interp, lf, spectral
+from ..fp import CP, FP, FP64
+from ..ops import interp, kernels, lf, spectral
 from . import layer0
 
 SPEED_OF_SOUND = 343.0
@@ -121,9 +121,12 @@ def _rd_viterbi(score: torch.Tensor, voiced: torch.Tensor,
     """Continuity-regularized Rd grid path per utterance: maximize
     sum_n score[n, g_n] - lam sum_n (log rd[g_n] - log rd[g_{n-1}])^2 by
     Viterbi.  score [B, N, G], voiced [B, N] -> grid indices [B, N]
-    (int64).  Unvoiced frames observe nothing.  A loop over frames on
-    [B, G] state; ties go to the first maximum, as jnp.argmax's."""
-    B, N, G = score.shape
+    (int64).  Unvoiced frames observe nothing.  Ties go to the first
+    maximum, as jnp.argmax's.  On the card the forward scan and the
+    backtrace are one launch of kernels.viterbi_scan with lt = -pen
+    (c + (-pen) has the bits of c - pen); under LLSM_FP64=1 its plain twin
+    runs."""
+    G = score.shape[-1]
     dev = score.device
     dstep = (torch.log(torch.tensor(RD_MAX, dtype=FP))
              - torch.log(torch.tensor(RD_MIN, dtype=FP))) / (G - 1)
@@ -131,19 +134,9 @@ def _rd_viterbi(score: torch.Tensor, voiced: torch.Tensor,
     di = (ar[:, None] - ar[None, :]).to(FP)
     pen = lam * (di * dstep.to(dev)) ** 2                   # [G(prev), G]
     obs = torch.where(voiced[..., None], score, torch.zeros_like(score))
-    cost = obs[:, 0]
-    bp = torch.empty((B, max(N - 1, 0), G), dtype=torch.int64, device=dev)
-    for n in range(1, N):
-        best, arg = torch.max(cost[:, :, None] - pen, dim=1)
-        cost = best + obs[:, n]
-        bp[:, n - 1] = arg
-    path = torch.empty((B, N), dtype=torch.int64, device=dev)
-    g = torch.argmax(cost, dim=-1)
-    path[:, N - 1] = g
-    for n in range(N - 2, -1, -1):
-        g = torch.gather(bp[:, n], 1, g[:, None])[:, 0]
-        path[:, n] = g
-    return path
+    if FP64:
+        return kernels.viterbi_scan_ref(obs, -pen, False)
+    return kernels.viterbi_scan(obs, -pen, False)
 
 
 def _wrap(ph: torch.Tensor) -> torch.Tensor:

@@ -16,9 +16,8 @@ is plain PyTorch: the per-frame front end is batched tensor code, run in
 calls of exactly ``layer0._group_rows(N)`` utterances (the FFTs, the comb
 product and the frame reductions order their sums by the rows of a
 call), so an utterance's track does not depend on its batch.  The
-Viterbi is a loop over frames on a [B, nbins + 1] state (a few small
-launches a frame: host-bound on the card) and its backtrace a host loop
-over the decisions.
+Viterbi, forward scan and backtrace, runs on the card in one launch of
+kernels.viterbi_scan (a block a row).
 """
 from __future__ import annotations
 
@@ -29,7 +28,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..fp import FP
+from ..fp import FP, FP64
+from . import kernels
 from .harmonics import frame_hops
 
 
@@ -226,26 +226,13 @@ def _observations(cfg: F0Config, x: torch.Tensor):
 def viterbi(logobs: torch.Tensor, lt: torch.Tensor) -> torch.Tensor:
     """The most likely state path [B, N] (int64) of per-frame log scores
     logobs [B, N, S] under log transitions lt [S, S] (from row, to
-    column): a forward loop over frames that renormalizes each step's
-    scores to a maximum of 0 (the JAX package's lax.scan, op for op), ties
-    to the first maximum; the backtrace on the host."""
-    B, N, S = logobs.shape
-    score = logobs[:, 0] - torch.amax(logobs[:, 0], dim=-1, keepdim=True)
-    back = torch.empty((max(N - 1, 0), B, S), dtype=torch.int64,
-                       device=logobs.device)
-    best = torch.empty((B, S), dtype=FP, device=logobs.device)
-    for t in range(1, N):
-        torch.max(score[:, :, None] + lt, dim=1, out=(best, back[t - 1]))
-        score = best + logobs[:, t]
-        score = score - torch.amax(score, dim=-1, keepdim=True)
-    last = torch.argmax(score, dim=-1)
-    bk = back.to(torch.int16).cpu().numpy()
-    path = np.empty((N, B), np.int64)
-    path[N - 1] = last.cpu().numpy()
-    rows = np.arange(B)
-    for t in range(N - 2, -1, -1):
-        path[t] = bk[t, rows, path[t + 1]]
-    return torch.as_tensor(path.T.copy(), device=logobs.device)
+    column), each step's scores renormalized to a maximum of 0 (the JAX
+    package's lax.scan, op for op), ties to the first maximum.  On the card
+    the forward scan and the backtrace are one launch of
+    kernels.viterbi_scan; under LLSM_FP64=1 its plain twin runs."""
+    if FP64:
+        return kernels.viterbi_scan_ref(logobs, lt, True)
+    return kernels.viterbi_scan(logobs, lt, True)
 
 
 def _track(cfg: F0Config, x: torch.Tensor) -> torch.Tensor:

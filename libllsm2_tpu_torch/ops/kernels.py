@@ -32,7 +32,8 @@ LAUNCHES = {"osc_bank": 0, "harmonic_project_win": 0, "deconv_full": 0,
             "denoise_finish": 0,
             "harmonic_project": 0, "harmonic_project_mxu": 0,
             "fir_frames": 0, "env_render": 0, "noise_bins": 0,
-            "sample_cycles": 0, "refine_f0_dec": 0, "refine_f0_full": 0}
+            "sample_cycles": 0, "refine_f0_dec": 0, "refine_f0_full": 0,
+            "viterbi_scan": 0}
 
 # frames per chunk of the plain versions: bounds their [frames, K, T]
 # temporaries to ~64 MB at any input size
@@ -1729,3 +1730,83 @@ def _refine_full_frames(xp, cts, f0s, halfwidth, *, H: int, fs: float,
     dc = _phase_cycles(noff, (f0s / fs)[..., None])
     return (dc.reshape(B * N, W), xw.reshape(B * N, W),
             torch.zeros_like(hw_int).reshape(-1), (2 * hw_int + 1).reshape(-1))
+
+
+# ---------------------------------------------------------------------------
+# Viterbi scan (libllsm2_tpu/ops/f0.py:203-222 and models/layer1.py:161-172:
+# a lax.scan forward and a reverse lax.scan backtrace; no Pallas kernel)
+# ---------------------------------------------------------------------------
+
+# dynamic shared memory an H100 block can opt into; the reduction words of
+# viterbi.cu (kMaxWarps)
+_SMEM_MAX = 232448
+_VITERBI_WARPS = 8
+
+
+def _viterbi_geometry(N: int, S: int) -> tuple:
+    """viterbi.cu's shared memory for N frames of S states -> (bytes, lt in
+    shared memory, backpointers in shared memory): the two score rows and
+    the reduction words always, then lt [S, S] where it fits, then the
+    (N - 1) S byte backpointers where they fit beside it."""
+    smem = 4 * (2 * S + _VITERBI_WARPS)
+    lt_smem = smem + 4 * S * S <= _SMEM_MAX
+    smem += 4 * S * S if lt_smem else 0
+    bp_smem = smem + (N - 1) * S <= _SMEM_MAX
+    return smem + ((N - 1) * S if bp_smem else 0), lt_smem, bp_smem
+
+
+def viterbi_scan(obs: torch.Tensor, lt: torch.Tensor, renorm: bool, *,
+                 scores: bool = False):
+    """The most likely state path [B, N] (int64) of each row of per-frame
+    log scores obs [B, N, S] under log transitions lt [S, S] (from row, to
+    column): score_0 = obs[:, 0], score_t[j] = max_i (score_{t-1}[i] +
+    lt[i, j]) + obs[:, t, j], with renorm each score_t (score_0 too) less
+    its row maximum; ties go to the first maximum at every step and at the
+    end.  With scores, (path, the last step's scores [B, S]).  On the card
+    one launch of viterbi.cu (S <= 256), the backtrace in the kernel; its
+    scores and path are the plain version's bit for bit."""
+    if not _on_cuda(obs, lt):
+        return viterbi_scan_ref(obs, lt, renorm, scores=scores)
+    B, N, S = obs.shape
+    if tuple(lt.shape) != (S, S) or N < 1 or not 1 <= S <= 256:
+        raise ValueError(f"viterbi_scan: obs {tuple(obs.shape)}, lt "
+                         f"{tuple(lt.shape)} (S <= 256 states, N >= 1)")
+    obs, lt = _f32(obs), _f32(lt)
+    _, lt_smem, bp_smem = _viterbi_geometry(N, S)
+    path = torch.empty((B, N), dtype=torch.int64, device=obs.device)
+    final = torch.empty((B, S), dtype=torch.float32, device=obs.device)
+    bp = None if bp_smem else torch.empty((B, N - 1, S), dtype=torch.uint8,
+                                          device=obs.device)
+    _launch("viterbi_scan", obs.data_ptr(), lt.data_ptr(), path.data_ptr(),
+            final.data_ptr(), None if bp is None else bp.data_ptr(), B, N, S,
+            int(bool(renorm)), int(lt_smem), int(bp_smem), _stream(obs))
+    return (path, final) if scores else path
+
+
+def viterbi_scan_ref(obs: torch.Tensor, lt: torch.Tensor, renorm: bool, *,
+                     scores: bool = False):
+    """Plain version of viterbi_scan, in obs's dtype on its device: a loop
+    over frames of torch.max over the candidates score + lt (the JAX
+    scans' operations, in their order), then a gather loop back along the
+    decisions."""
+    B, N, S = obs.shape
+    if N < 1:
+        raise ValueError("viterbi_scan: no frames")
+
+    def renormed(s):
+        return s - torch.amax(s, dim=-1, keepdim=True) if renorm else s
+
+    score = renormed(obs[:, 0])
+    back = torch.empty((N - 1, B, S), dtype=torch.int64, device=obs.device)
+    best = torch.empty((B, S), dtype=torch.result_type(obs, lt),
+                       device=obs.device)
+    for t in range(1, N):
+        torch.max(score[:, :, None] + lt, dim=1, out=(best, back[t - 1]))
+        score = renormed(best + obs[:, t])
+    path = torch.empty((B, N), dtype=torch.int64, device=obs.device)
+    g = torch.argmax(score, dim=-1)
+    path[:, N - 1] = g
+    for t in range(N - 2, -1, -1):
+        g = torch.gather(back[t], 1, g[:, None])[:, 0]
+        path[:, t] = g
+    return (path, score) if scores else path

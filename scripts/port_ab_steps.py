@@ -17,10 +17,16 @@ RTAnalyzer block (`rta`: layer0._analyze on row 0's frames 800-959, a
 batch of one, as RTAnalyzer runs each 160-frame block), the layer-1
 round trip chunk_to_layer1 -> chunk_to_layer0 -> synthesis of the bench
 rows' chunk
-(phase 9), pbp_synthesize of the LF rows' layer-1 chunk (phase 10) and
+(phase 9) and its chunk_to_layer1 alone (`to_layer1`), pbp_synthesize of
+the LF rows' layer-1 chunk (phase 10) and
 the edit chain pitch_shift(2.0) -> time_stretch(1.5) -> synthesize_batch
-on it (phase 12); each side analyzes (and fits layer 1) once, untimed,
-with its own package.  One untimed step of
+on it (phase 12), chunk_to_layer1 with and without phase 14's sections on
+its nasal rows (`nasal`), the F0 tracker on the first 64 bench rows
+(`tracker`, phase 11's tracker alone) and the two Viterbis alone on
+uniform random scores from seed 0, as phases 9 and 11 time them
+(`rdviterbi`: layer1._rd_viterbi on [batch, 1600, 64] with the chunk's
+voicing; `viterbi`: f0.viterbi on [64, 1600, 97]); each side analyzes
+(and fits layer 1) once, untimed, with its own package.  One untimed step of
 each first, then `pairs` pairs whose order alternates (other first in
 even pairs), each step timed by the host clock around work that ends in
 torch.cuda.synchronize().  Prints every step, each side's median and
@@ -28,7 +34,7 @@ quartiles, and how many pairs each side won.  Imports no jax:
 
     python3 scripts/port_ab_steps.py OTHER_DIR [pairs=20] [batch=128]
         [cells=default,matmul,off32,one,refine,rta,layer1,pbp,edits,plain,
-               11k,refine11]
+               11k,refine11,to_layer1,nasal,tracker,rdviterbi,viterbi]
 """
 import dataclasses
 import importlib
@@ -99,6 +105,18 @@ def main(argv):
         lx, lf0 = (torch.tensor(np.stack([r[j] for r in lf]),
                                 dtype=torch.float32, device="cuda")
                    for j in range(2))
+    if "nasal" in cells:
+        nas = [testsig.synth_nasal_utterance(
+            duration=8.0, seed=i, zero=(900.0, 60.0),
+            f0_base=(120.0, 182.0, 200.0)[i % 3]) for i in range(B)]
+        nx_, nf0 = (torch.tensor(np.stack([r[j] for r in nas]),
+                                 dtype=torch.float32, device="cuda")
+                    for j in range(2))
+    g = torch.Generator(device="cuda").manual_seed(0)
+    if "rdviterbi" in cells:
+        rd_score = torch.rand((B, 1600, 64), generator=g, device="cuda")
+    if "viterbi" in cells:
+        logobs = torch.rand((64, 1600, 97), generator=g, device="cuda")
     # (cell, rows): refine and refine11 run the batch, then one row alone
     runs = [r for cell in cells for r in (
         [(cell, B), (cell, 1)] if cell in ("refine", "refine11")
@@ -119,6 +137,27 @@ def main(argv):
                 steps[name] = (lambda l0=l0, l1=l1, c=ch, s=sopt:
                                l0._synthesize(s, l1.chunk_to_layer0(
                                    l1.chunk_to_layer1(c))))
+            elif cell == "to_layer1":
+                ch = l0._analyze(opt, x, f0)
+                steps[name] = lambda l1=l1, c=ch: l1.chunk_to_layer1(c)
+            elif cell == "nasal":
+                ch = l0._analyze(opt, nx_, nf0)
+                sections = ((250.0, 70.0, -1.0), (900.0, 60.0, 1.0))
+                steps[name] = (lambda l1=l1, c=ch, sec=sections:
+                               (l1.chunk_to_layer1(c, None, sec),
+                                l1.chunk_to_layer1(c)))
+            elif cell == "rdviterbi":
+                voiced = l0._analyze(opt, x, f0).f0 > 0
+                steps[name] = (lambda l1=l1, v=voiced:
+                               l1._rd_viterbi(rd_score, v, 10.0))
+            elif cell in ("tracker", "viterbi"):
+                f0m = importlib.import_module(pkg.__name__ + ".ops.f0")
+                cfg = f0m.F0Config(fs=16000.0, nhop=80, f0_floor=70.0)
+                lt = f0m._tables(cfg, "cuda")["lt"]
+                steps[name] = (
+                    (lambda f0m=f0m, c=cfg: f0m.track_batch(c, x[:64]))
+                    if cell == "tracker" else
+                    (lambda f0m=f0m, lt=lt: f0m.viterbi(logobs, lt)))
             elif cell in ("pbp", "edits"):
                 c1 = l1.chunk_to_layer1(l0._analyze(opt, lx, lf0))
                 pbp, edits = mod("pbp"), mod("edits")

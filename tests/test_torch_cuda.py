@@ -1358,3 +1358,84 @@ def test_stream_pool_equals_solo_on_card(synth_mode):
         cpu = rtsynth.stream_chunk(so, c.map(lambda a: a.cpu()), block=16,
                                    synth_mode=synth_mode)
         np.testing.assert_allclose(solo, cpu, atol=tol)
+
+
+def _viterbi_inputs(B, N, S, seed, eighths):
+    """obs [B, N, S] in [-20, 0) and lt [S, S] in [-6, 0), both in
+    multiples of 1/8 with `eighths` (tied candidates)."""
+    rng = np.random.default_rng(seed)
+    obs = rng.uniform(-20.0, 0.0, (B, N, S))
+    lt = rng.uniform(-6.0, 0.0, (S, S))
+    if eighths:
+        obs, lt = np.round(obs * 8.0) / 8.0, np.round(lt * 8.0) / 8.0
+    return T(obs.astype(np.float32)), T(lt.astype(np.float32))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("B,N,S,renorm,eighths", [
+    (3, 300, 97, True, False), (3, 300, 64, False, False),
+    (4, 257, 97, True, True), (4, 257, 64, False, True),      # ties
+    (2, 1, 97, True, False), (2, 1, 64, False, True),         # N = 1
+    (2, 2, 64, False, False), (2, 2, 97, True, True),         # N = 2
+    (2, 120, 256, True, True), (2, 120, 256, False, False),   # lt in HBM
+    (2, 3000, 97, True, False),                # backpointers in HBM
+    (1, 1600, 97, True, False), (5, 40, 1, True, False),
+    (3, 50, 33, False, True)])
+def test_viterbi_scan_kernel_equals_twin_on_card(B, N, S, renorm, eighths):
+    """kernels.viterbi_scan (one launch, counted) against its twin on the
+    card and on the CPU: paths and last scores equal bit for bit, with
+    and without renormalization, ties, N = 1 and 2, S = 256 (lt in device
+    memory), 3000 frames (backpointers in device memory), one state; the
+    first and last rows alone equal their rows in the batch."""
+    dev = _card()
+    obs, lt = (t.to(dev) for t in _viterbi_inputs(B, N, S, N + S, eighths))
+    n0 = kernels.LAUNCHES["viterbi_scan"]
+    path, score = kernels.viterbi_scan(obs, lt, renorm, scores=True)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["viterbi_scan"] == n0 + 1
+    ref_path, ref_score = kernels.viterbi_scan_ref(obs, lt, renorm,
+                                                   scores=True)
+    assert torch.equal(path, ref_path) and torch.equal(score, ref_score)
+    cpu_path, cpu_score = kernels.viterbi_scan_ref(obs.cpu(), lt.cpu(),
+                                                   renorm, scores=True)
+    assert torch.equal(path.cpu(), cpu_path)
+    assert torch.equal(score.cpu(), cpu_score)
+    for r in (0, B - 1):
+        p, s = kernels.viterbi_scan(obs[r:r + 1], lt, renorm, scores=True)
+        assert torch.equal(p[0], path[r]) and torch.equal(s[0], score[r])
+
+
+@pytest.mark.requires_cuda
+def test_viterbi_callers_launch_the_kernel_on_card():
+    """f0.viterbi and layer1._rd_viterbi on card tensors launch the kernel
+    once each and never reach the twin, and give the CPU's paths; the
+    wrapper refuses S > 256 and lt of another shape."""
+    from libllsm2_tpu_torch.models import layer1 as tl1
+    from libllsm2_tpu_torch.ops import f0 as tf0
+    dev = _card()
+    rng = np.random.default_rng(9)
+    logobs = T(rng.uniform(-30.0, 0.0, (2, 400, 97)).astype(np.float32))
+    lt = tf0._tables(tf0.F0Config(), "cpu")["lt"]
+    score = T(rng.uniform(0.0, 1.0, (2, 400, 64)).astype(np.float32))
+    voiced = T(rng.uniform(size=(2, 400)) > 0.2)
+    twin = kernels.viterbi_scan_ref
+
+    def refuse(*a, **k):
+        raise AssertionError("a card path reached the twin")
+    n0 = kernels.LAUNCHES["viterbi_scan"]
+    kernels.viterbi_scan_ref = refuse
+    try:
+        p_f0 = tf0.viterbi(logobs.to(dev), lt.to(dev))
+        p_rd = tl1._rd_viterbi(score.to(dev), voiced.to(dev), 10.0)
+    finally:
+        kernels.viterbi_scan_ref = twin
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["viterbi_scan"] == n0 + 2
+    assert torch.equal(p_f0.cpu(), tf0.viterbi(logobs, lt))
+    assert torch.equal(p_rd.cpu(), tl1._rd_viterbi(score, voiced, 10.0))
+    obs = torch.zeros((1, 4, 257), device=dev)
+    with pytest.raises(ValueError):
+        kernels.viterbi_scan(obs, torch.zeros((257, 257), device=dev), True)
+    with pytest.raises(ValueError):
+        kernels.viterbi_scan(obs[..., :8], torch.zeros((8, 9), device=dev),
+                             True)

@@ -1,0 +1,315 @@
+"""The port's Viterbi scan (kernels.viterbi_scan, csrc/viterbi.cu) on the
+CPU, where the wrapper runs its plain twin: the twin's paths against the
+JAX package's two scans (the F0 tracker's renormalized lax.scan and
+backtrace, layer 1's _rd_viterbi) exactly, ties included; the twin against
+the two loops it replaced in ops/f0.py and models/layer1.py, bit for bit;
+rows alone against their rows in a batch; the FP64 route; the launch
+geometry and chip_smoke's operation count by hand.  Inputs are made from
+seeds with numpy."""
+import os
+import subprocess
+import sys
+import textwrap
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from libllsm2_tpu.models import layer1 as jl1
+
+from libllsm2_tpu_torch.models import layer1 as tl1
+from libllsm2_tpu_torch.ops import f0 as tf0
+from libllsm2_tpu_torch.ops import kernels
+# the JAX tracker's Viterbi (libllsm2_tpu/ops/f0.py:203-222), op for op
+from test_torch_f0 import _jax_viterbi
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+T = lambda a: torch.tensor(np.asarray(a))
+LAM = 10.0                      # layer 1's continuity weight (smooth)
+
+
+def _tracker_lt(S):
+    """The tracker's log transitions for S = nbins + 1 states."""
+    return tf0._tables(tf0.F0Config(nbins=S - 1), "cpu")["lt"]
+
+
+def _rd_pen(G, lam=LAM):
+    """_rd_viterbi's penalty [G, G] (models/layer1.py), float32."""
+    dstep = (torch.log(torch.tensor(tl1.RD_MAX, dtype=torch.float32))
+             - torch.log(torch.tensor(tl1.RD_MIN, dtype=torch.float32))) \
+        / (G - 1)
+    ar = torch.arange(G)
+    di = (ar[:, None] - ar[None, :]).to(torch.float32)
+    return lam * (di * dstep) ** 2
+
+
+def _eighths(rng, shape, lo, hi):
+    """Uniform values in [lo, hi) rounded to multiples of 1/8: ties many."""
+    return (np.round(rng.uniform(lo, hi, shape) * 8.0) / 8.0).astype(
+        np.float32)
+
+
+def _ties(obs, lt, renorm):
+    """Steps of the plain recursion (float32, numpy) whose maximum over the
+    candidates is reached by more than one source state, in all rows."""
+    n = 0
+    for row in obs:
+        s = row[0] - row[0].max() if renorm else row[0]
+        for t in range(1, len(row)):
+            cand = s[:, None] + lt
+            n += int((cand == cand.max(axis=0)).sum(axis=0).__gt__(1).sum())
+            s = cand.max(axis=0) + row[t]
+            if renorm:
+                s = s - s.max()
+    return n
+
+
+@pytest.mark.parametrize("N", [1, 2, 37, 400])
+@pytest.mark.parametrize("renorm", [True, False])
+@pytest.mark.parametrize("S", [64, 97])
+def test_twin_equals_the_jax_scans_with_ties(S, renorm, N):
+    """Scores in multiples of 1/8 (tied candidates, counted at N = 400), 3
+    rows, paths equal exactly.  With renorm: the twin against the JAX
+    tracker's scan under its transitions for nbins = S - 1, rounded to
+    eighths too.  Without: the twin on the voiced-masked scores under
+    -pen, and the port's _rd_viterbi, against JAX's _rd_viterbi on the
+    same scores and voicing (S grid points, lam 10)."""
+    rng = np.random.default_rng(1000 * S + 10 * N + renorm)
+    B = 3
+    if renorm:
+        lt = torch.round(_tracker_lt(S) * 8.0) / 8.0
+        obs = _eighths(rng, (B, N, S), -30.0, 0.0)
+        got = kernels.viterbi_scan(T(obs), lt, True).numpy()
+        for b in range(B):
+            ref = _jax_viterbi(jnp.asarray(obs[b]), jnp.asarray(lt.numpy()))
+            np.testing.assert_array_equal(got[b], ref)
+    else:
+        lt = -_rd_pen(S)
+        score = _eighths(rng, (B, N, S), 0.0, 1.0)
+        voiced = rng.uniform(size=(B, N)) > 0.2
+        obs = np.where(voiced[..., None], score, 0.0).astype(np.float32)
+        got = kernels.viterbi_scan(T(obs), lt, False).numpy()
+        np.testing.assert_array_equal(
+            tl1._rd_viterbi(T(score), T(voiced), LAM).numpy(), got)
+        for b in range(B):
+            ref = jl1._rd_viterbi(jnp.asarray(score[b]),
+                                  jnp.asarray(voiced[b]), LAM)
+            np.testing.assert_array_equal(got[b], np.asarray(ref))
+    if N == 400:
+        assert _ties(obs, lt.numpy(), renorm) > 0
+
+
+# the two loops this kernel replaced (ops/f0.py viterbi and models/
+# layer1.py _rd_viterbi before it), as they were, returning their last
+# scores beside the path
+
+def _parent_f0_viterbi(logobs, lt):
+    B, N, S = logobs.shape
+    score = logobs[:, 0] - torch.amax(logobs[:, 0], dim=-1, keepdim=True)
+    back = torch.empty((max(N - 1, 0), B, S), dtype=torch.int64,
+                       device=logobs.device)
+    best = torch.empty((B, S), dtype=torch.float32, device=logobs.device)
+    for t in range(1, N):
+        torch.max(score[:, :, None] + lt, dim=1, out=(best, back[t - 1]))
+        score = best + logobs[:, t]
+        score = score - torch.amax(score, dim=-1, keepdim=True)
+    last = torch.argmax(score, dim=-1)
+    bk = back.to(torch.int16).cpu().numpy()
+    path = np.empty((N, B), np.int64)
+    path[N - 1] = last.cpu().numpy()
+    rows = np.arange(B)
+    for t in range(N - 2, -1, -1):
+        path[t] = bk[t, rows, path[t + 1]]
+    return torch.as_tensor(path.T.copy(), device=logobs.device), score
+
+
+def _parent_rd_viterbi(score, voiced, lam):
+    B, N, G = score.shape
+    dev = score.device
+    dstep = (torch.log(torch.tensor(tl1.RD_MAX, dtype=torch.float32))
+             - torch.log(torch.tensor(tl1.RD_MIN, dtype=torch.float32))) \
+        / (G - 1)
+    ar = torch.arange(G, device=dev)
+    di = (ar[:, None] - ar[None, :]).to(torch.float32)
+    pen = lam * (di * dstep.to(dev)) ** 2                   # [G(prev), G]
+    obs = torch.where(voiced[..., None], score, torch.zeros_like(score))
+    cost = obs[:, 0]
+    bp = torch.empty((B, max(N - 1, 0), G), dtype=torch.int64, device=dev)
+    for n in range(1, N):
+        best, arg = torch.max(cost[:, :, None] - pen, dim=1)
+        cost = best + obs[:, n]
+        bp[:, n - 1] = arg
+    path = torch.empty((B, N), dtype=torch.int64, device=dev)
+    g = torch.argmax(cost, dim=-1)
+    path[:, N - 1] = g
+    for n in range(N - 2, -1, -1):
+        g = torch.gather(bp[:, n], 1, g[:, None])[:, 0]
+        path[:, n] = g
+    return path, cost
+
+
+def _tracker_logobs(B, duration):
+    """The tracker's own observations [B, N, 97] of B noisy bench-like
+    utterances (ops/f0.py's front end)."""
+    from libllsm2_tpu_torch.utils import testsig
+    utt = testsig.make_test_utterances([(i, 0.05 * (i % 2)) for i in
+                                        range(B)], duration=duration)
+    x = torch.tensor(np.stack([u[0] for u in utt]), dtype=torch.float32)
+    return tf0._observations(tf0.F0Config(f0_floor=70.0), x)[0]
+
+
+@pytest.mark.parametrize("kind", ["tracker", "uniform", "eighths"])
+def test_twin_equals_the_loops_it_replaced(kind):
+    """The twin against the parent's two loops, copied above: paths and
+    last scores equal bit for bit, renormalized under the tracker's
+    transitions (its own observations of 3 utterances of 2 s, uniform
+    scores, or scores in eighths) and without, under -pen on layer-1-like
+    scores with unvoiced runs (uniform or in eighths; the tracker kind
+    feeds its observations less their row minimum)."""
+    rng = np.random.default_rng(7)
+    lt = _tracker_lt(97)
+    if kind == "tracker":
+        logobs = _tracker_logobs(3, 2.0)
+    elif kind == "uniform":
+        logobs = T(rng.uniform(-40.0, 0.0, (3, 300, 97)).astype(np.float32))
+    else:
+        logobs = T(_eighths(rng, (3, 300, 97), -30.0, 0.0))
+    path, score = kernels.viterbi_scan(logobs, lt, True, scores=True)
+    ref_path, ref_score = _parent_f0_viterbi(logobs, lt)
+    assert torch.equal(path, ref_path)
+    assert torch.equal(score, ref_score)
+    assert torch.equal(tf0.viterbi(logobs, lt), ref_path)
+
+    B, N, _ = logobs.shape
+    rd = (logobs[..., :64] - logobs[..., :64].amin(-1, keepdim=True)) / 40.0
+    voiced = torch.tensor(rng.uniform(size=(B, N)) > 0.15)
+    voiced[0, N // 3:N // 2] = False
+    obs = torch.where(voiced[..., None], rd, torch.zeros_like(rd))
+    path, score = kernels.viterbi_scan(obs, -_rd_pen(64), False, scores=True)
+    ref_path, ref_score = _parent_rd_viterbi(rd, voiced, LAM)
+    assert torch.equal(path, ref_path)
+    assert torch.equal(score, ref_score)
+    assert torch.equal(tl1._rd_viterbi(rd, voiced, LAM), ref_path)
+
+
+@pytest.mark.parametrize("renorm", [True, False])
+def test_rows_alone_equal_their_rows_in_a_batch(renorm):
+    """Rows 0, 2 and 4 of a 5-row batch alone (a batch of one) give the
+    same path and last scores as in the batch, bit for bit."""
+    rng = np.random.default_rng(3 + renorm)
+    obs = T(_eighths(rng, (5, 211, 97), -20.0, 0.0))
+    lt = _tracker_lt(97) if renorm else -_rd_pen(97)
+    path, score = kernels.viterbi_scan(obs, lt, renorm, scores=True)
+    for r in (0, 2, 4):
+        p, s = kernels.viterbi_scan(obs[r:r + 1], lt, renorm, scores=True)
+        assert torch.equal(p[0], path[r]) and torch.equal(s[0], score[r])
+
+
+def test_cpu_tensors_take_the_twin_and_launch_nothing():
+    """On CPU tensors the wrapper, f0.viterbi and _rd_viterbi run the twin
+    and count no launch; the twin refuses zero frames."""
+    rng = np.random.default_rng(5)
+    obs = T(rng.uniform(-5, 0, (2, 30, 97)).astype(np.float32))
+    lt = _tracker_lt(97)
+    before = dict(kernels.LAUNCHES)
+    assert torch.equal(tf0.viterbi(obs, lt),
+                       kernels.viterbi_scan_ref(obs, lt, True))
+    voiced = torch.ones((2, 30), dtype=torch.bool)
+    assert tl1._rd_viterbi(obs[..., :64], voiced, LAM).shape == (2, 30)
+    assert kernels.LAUNCHES == before
+    with pytest.raises(ValueError):
+        kernels.viterbi_scan(obs[:, :0], lt, True)
+
+
+FP64_ROUTE = textwrap.dedent("""
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    import jax.numpy as jnp
+    import numpy as np
+    import torch
+    torch.set_num_threads(1)
+    from libllsm2_tpu.models import layer1 as jl1
+    from libllsm2_tpu_torch import fp
+    from libllsm2_tpu_torch.models import layer1 as tl1
+    from libllsm2_tpu_torch.ops import f0 as tf0
+    from libllsm2_tpu_torch.ops import kernels
+    from test_torch_f0 import _jax_viterbi
+
+    assert fp.FP64 and jnp.zeros(1).dtype == jnp.float64
+
+    def refuse(*a, **k):
+        raise AssertionError("the FP64 route reached the kernel's wrapper")
+    kernels.viterbi_scan = refuse
+    rng = np.random.default_rng(2)
+    logobs = rng.uniform(-30.0, 0.0, (2, 120, 97))
+    lt = tf0._tables(tf0.F0Config(), "cpu")["lt"]
+    got = tf0.viterbi(torch.tensor(logobs), lt).numpy()
+    for b in range(2):
+        ref = _jax_viterbi(jnp.asarray(logobs[b]), jnp.asarray(lt.numpy()))
+        assert np.array_equal(got[b], ref), b
+    score = rng.uniform(0.0, 1.0, (2, 120, 64))
+    voiced = rng.uniform(size=(2, 120)) > 0.2
+    got = tl1._rd_viterbi(torch.tensor(score), torch.tensor(voiced),
+                          10.0).numpy()
+    for b in range(2):
+        ref = jl1._rd_viterbi(jnp.asarray(score[b]), jnp.asarray(voiced[b]),
+                              10.0)
+        assert np.asarray(ref).dtype.kind == "i"
+        assert np.array_equal(got[b], np.asarray(ref)), b
+    path, last = kernels.viterbi_scan_ref(torch.tensor(logobs), lt, True,
+                                          scores=True)
+    assert last.dtype == torch.float64
+    assert all(v == 0 for v in kernels.LAUNCHES.values()), kernels.LAUNCHES
+    print("FP64-VITERBI-OK")
+""")
+
+
+def test_fp64_routes_to_the_twin():
+    """Under LLSM_FP64=1 (a subprocess: the knob is read at import),
+    f0.viterbi and _rd_viterbi take the twin explicitly, never the
+    kernel's wrapper (which would refuse float64), in float64, and their
+    paths equal the JAX package's float64 scans."""
+    env = dict(os.environ, LLSM_FP64="1", JAX_PLATFORMS="cpu",
+               PYTHONPATH=os.pathsep.join([REPO, os.path.join(REPO,
+                                                              "tests")]))
+    out = subprocess.run([sys.executable, "-c", FP64_ROUTE], env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert "FP64-VITERBI-OK" in out.stdout, out.stderr[-3000:]
+
+
+@pytest.mark.parametrize("N,S,geometry", [
+    # 4 (2 S + 8) score and reduction bytes, then lt, then the backpointers
+    (1600, 97, (808 + 37636 + 1599 * 97, True, True)),
+    (1600, 64, (544 + 16384 + 1599 * 64, True, True)),
+    (1, 97, (808 + 37636, True, True)),
+    (2, 2, (48 + 16 + 2, True, True)),
+    (6000, 97, (808 + 37636, True, False)),     # 582 KB: device memory
+    (2, 256, (2080 + 256, False, True)),        # lt 256 KB: device memory
+    (1200, 256, (2080, False, False)),          # neither fits
+])
+def test_viterbi_geometry_by_hand(N, S, geometry):
+    """kernels._viterbi_geometry: lt in shared memory where S^2 floats fit
+    in the H100's 232448 bytes, the backpointers where they fit beside
+    it."""
+    assert kernels._viterbi_geometry(N, S) == geometry
+    assert geometry[0] <= kernels._SMEM_MAX
+
+
+def test_chip_smoke_counts_viterbi_by_hand():
+    """chip_smoke.kernel_ops for viterbi_scan: B (N - 1) S^2 x 2 (an add
+    and a compare a candidate), 2 x 99 x 97^2 x 2 at [2, 100, 97] and 0
+    at N = 1; kernel_bytes: obs, lt and the path once, and the uint8
+    backpointers, 2 x 99 x 97 bytes."""
+    import chip_smoke
+    obs, lt = torch.zeros(2, 100, 97), torch.zeros(97, 97)
+    assert chip_smoke.kernel_ops(torch, "viterbi_scan", (obs, lt, True),
+                                 {}) == 2 * 99 * 97 * 97 * 2
+    assert chip_smoke.kernel_ops(torch, "viterbi_scan",
+                                 (obs[:, :1], lt, True), {}) == 0
+    path = torch.zeros(2, 100, dtype=torch.int64)
+    assert chip_smoke.kernel_bytes(torch, "viterbi_scan", (obs, lt, True),
+                                   {}, path) \
+        == 4 * 2 * 100 * 97 + 4 * 97 * 97 + 8 * 2 * 100 + 2 * 99 * 97
