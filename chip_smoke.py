@@ -162,9 +162,12 @@ non-zero without the final "ok" line:
      on phase 9's first captured Rd call ([128, 1600, 64]) and the
      tracker's call on a 64-file 8 s batch ([64, 1600, 97]), on both
      rounded to multiples of 1/8 (the tracker's transitions too: tied
-     candidates), on row 0 alone and on rows 0-1; each one's kernel time
-     (median of 10, and a launch's share of a run of 20), its bound and
-     ratio, and the twin's time.
+     candidates), on row 0 alone and on rows 0-1, on both with -inf
+     entries and tied frames (an unvoiced stretch), on the tracker's rows
+     joined into 3200-frame rows (backpointers in device memory); each
+     one's kernel time (median of 10, and a launch's share of a run of
+     20), its bound and ratio, cycles a step at the SM clock, and the
+     twin's time.
  12. the edits (BASELINE config 4) on phase 10's 128 x 8 s layer-1 chunk:
      pitch_shift(2.0) -> time_stretch(1.5) -> synthesize_batch, counters
      zeroed before: osc_bank, noise_mod_ola, noise_bins and sample_cycles
@@ -759,7 +762,9 @@ def max_err(torch, name, got, ref, scale=1.0, kw=None):
     if name == VITERBI:                      # (path, last scores)
         if not torch.equal(got[0], ref[0]):
             return float("inf")
-        got, ref = got[1], ref[1]
+        # equal scores (-inf ones too) count 0
+        return float(torch.max(torch.where(got[1] == ref[1], 0.0,
+                                           torch.abs(got[1] - ref[1]))))
     if name in ("refine_f0_dec", "refine_f0_full"):  # relative, voiced frames
         if not torch.equal(got == 0, ref == 0):
             return float("inf")
@@ -1942,17 +1947,59 @@ def corpus_phase(torch, kernels, opt, sopt, rows, dev):
     return launches, calls[VITERBI][0]
 
 
+def sm_clock_mhz(torch):
+    """-> (the SM clock in MHz, its source): the clock_rate that
+    torch.cuda.get_device_properties reports (kHz), where this PyTorch has
+    it, else nvidia-smi's clocks.max.sm."""
+    khz = getattr(torch.cuda.get_device_properties(0), "clock_rate", None)
+    if khz:
+        return khz / 1e3, "torch.cuda.get_device_properties"
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    return float(smi.stdout.split()[0]), "nvidia-smi clocks.max.sm"
+
+
+def viterbi_special_cases(torch, rd_obs, f0_obs):
+    """Phase 11v's inputs that the captured calls lack: phase 9's Rd scores
+    in eighths with 10% -inf entries (frames of one row all -inf among
+    them) and an unvoiced stretch (frames 400-599 all zero, as _rd_viterbi
+    masks them: every candidate of a frame tied before the penalty); the
+    tracker's in eighths with 10% -inf entries (never the unvoiced state,
+    so no renormalized frame is all -inf) and frames 400-599 each one
+    constant (all tied); the tracker's 64 rows joined in pairs into 32
+    rows of 3200 frames, whose backpointers go to device memory."""
+    g = torch.Generator(device=rd_obs.device).manual_seed(11)
+    eighths = lambda t: torch.round(t * 8.0) / 8.0
+    rd = eighths(rd_obs)
+    rd[torch.rand(rd.shape, generator=g, device=rd.device) < 0.1] = \
+        -float("inf")
+    rd[0, 1000:1003] = -float("inf")
+    rd[:, 400:600] = 0.0
+    tr = eighths(f0_obs)
+    hole = torch.rand(tr.shape, generator=g, device=tr.device) < 0.1
+    hole[..., -1] = False
+    tr[hole] = -float("inf")
+    tr[:, 400:600] = tr[:, 400:600, -1:]
+    B, N, S = f0_obs.shape
+    return rd, tr, f0_obs[:B // 2 * 2].reshape(B // 2, 2 * N, S)
+
+
 def viterbi_phase(torch, kernels, rd_call, f0_call):
     """Phase 11v: viterbi_scan against its twin on the card, paths and last
     scores equal bit for bit, on phase 9's first captured Rd call ([128,
     1600, 64], no renormalization) and phase 11's tracker call ([64, 1600,
     97], renormalized), on both rounded to multiples of 1/8 (the tracker's
-    transitions too: tied candidates), on row 0 of each alone and on rows
-    0-1 -> (cases, the full-batch records).  Each case's kernel and twin
-    times are medians of 10, beside its bound."""
+    transitions too: tied candidates), on row 0 of each alone, on rows
+    0-1, on both with -inf entries and tied frames, and on the tracker's
+    rows joined into 3200-frame rows (the backpointers in device memory:
+    viterbi_special_cases) -> (cases, the full-batch records).  Each case's
+    kernel and twin times are medians of 10, beside its bound and the
+    kernel's cycles a step at the SM clock."""
     eighths = lambda t: torch.round(t * 8.0) / 8.0
     (rd_obs, rd_lt, rd_renorm), _ = rd_call
     (f0_obs, f0_lt, f0_renorm), _ = f0_call
+    rd_inf, f0_inf, f0_long = viterbi_special_cases(torch, rd_obs, f0_obs)
     runs = [("9 rd", (rd_obs, rd_lt, rd_renorm)),
             ("11 tracker", (f0_obs, f0_lt, f0_renorm)),
             ("9 rd in eighths", (eighths(rd_obs), rd_lt, rd_renorm)),
@@ -1961,20 +2008,34 @@ def viterbi_phase(torch, kernels, rd_call, f0_call):
             ("9 rd row 0", (rd_obs[:1], rd_lt, rd_renorm)),
             ("11 tracker row 0", (f0_obs[:1], f0_lt, f0_renorm)),
             ("9 rd 2 rows", (rd_obs[:2], rd_lt, rd_renorm)),
-            ("11 tracker 2 rows", (f0_obs[:2], f0_lt, f0_renorm))]
+            ("11 tracker 2 rows", (f0_obs[:2], f0_lt, f0_renorm)),
+            ("9 rd with -inf and an unvoiced stretch",
+             (rd_inf, rd_lt, rd_renorm)),
+            ("11 tracker with -inf and tied frames",
+             (f0_inf, eighths(f0_lt), f0_renorm)),
+            ("11 tracker rows joined in pairs (backpointers in device "
+             "memory)", (f0_long, f0_lt, f0_renorm))]
+    mhz, clock_src = sm_clock_mhz(torch)
     cases, full = [], []
     for label, args in runs:
+        B, N, S = args[0].shape
+        geo = kernels._viterbi_geometry(N, S)
         case = check_kernel(torch, kernels, VITERBI, KERNELS[VITERBI][2],
                             args, {"scores": True}, label, prefix="11v")
         run = run_ms(torch, lambda: kernels.viterbi_scan(*args), 20)
-        B, N, S = args[0].shape
+        cycles = case["ms"] / max(N - 1, 1) * mhz * 1e3
         print(f"11v {label}: [{B}, {N}, {S}] kernel {case['ms']:.4f} ms "
               f"(run {run:.4f}) = {case['ms'] / case['bound_ms']:.1f}x its "
               f"{case['bound_ms']:.4f} ms bound ({case['bound_by']}; the "
               f"kernel's floor is a chain of {N - 1} dependent steps and "
               f"{N - 1} dependent backtrace loads, which the bound does "
-              f"not count); twin {case['plain_ms']:.4f} ms", flush=True)
+              f"not count) = {cycles:.0f} cycles a step at {mhz:.0f} MHz "
+              f"({clock_src}); P {geo[0]} lanes a state, C {geo[1]}, lt "
+              f"mode {geo[3]}, backpointers in "
+              f"{'shared' if geo[4] else 'device'} memory; twin "
+              f"{case['plain_ms']:.4f} ms", flush=True)
         case["run_ms"] = run
+        case["cycles_a_step"] = cycles
         cases.append(case)
         if label in ("9 rd", "11 tracker"):
             full.append({"phase": label.split()[0], "call": 0,
@@ -1983,6 +2044,7 @@ def viterbi_phase(torch, kernels, rd_call, f0_call):
                          "bound_by": case["bound_by"], "library_ms": None,
                          "library_row_fraction": None, "host_ms": None,
                          "max_abs_err": case["max_abs_err"]})
+    del rd_inf, f0_inf, f0_long
     torch.cuda.empty_cache()
     return cases, full
 

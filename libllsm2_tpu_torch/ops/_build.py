@@ -98,8 +98,9 @@ SIGNATURES = {
     "llsm_refine_f0_full": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F,
                             _F, _F, _F, _F, _F, _F, _F, _F, _I, _I, _I, _P),
     # obs, lt, path, final scores, backpointer scratch (or null), B, N, S,
-    # renorm, lt_smem, bp_smem (kernels._viterbi_geometry), stream
-    "llsm_viterbi_scan": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # renorm, P, C, lt_mode, bp_smem (kernels._viterbi_geometry), stream
+    "llsm_viterbi_scan": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                          _I, _P),
 }
 
 _lib = None

@@ -1737,22 +1737,49 @@ def _refine_full_frames(xp, cts, f0s, halfwidth, *, H: int, fs: float,
 # a lax.scan forward and a reverse lax.scan backtrace; no Pallas kernel)
 # ---------------------------------------------------------------------------
 
-# dynamic shared memory an H100 block can opt into; the reduction words of
-# viterbi.cu (kMaxWarps)
-_SMEM_MAX = 232448
-_VITERBI_WARPS = 8
+# viterbi.cu's slots of the warps' maxima a step (kMaxWarps) and rows of
+# its observations' ring (kRing)
+_VITERBI_WARPS = 32
+_VITERBI_RING = 16
+# viterbi.cu's source states a lane with lt in registers: 52 = 4 ceil(97 /
+# 8) fits the F0 tracker's 97 states at 2 lanes (104 slots, not 128)
+_VITERBI_CHUNKS = (4, 8, 16, 32, 52, 64)
 
 
 def _viterbi_geometry(N: int, S: int) -> tuple:
-    """viterbi.cu's shared memory for N frames of S states -> (bytes, lt in
-    shared memory, backpointers in shared memory): the two score rows and
-    the reduction words always, then lt [S, S] where it fits, then the
-    (N - 1) S byte backpointers where they fit beside it."""
-    smem = 4 * (2 * S + _VITERBI_WARPS)
-    lt_smem = smem + 4 * S * S <= _SMEM_MAX
-    smem += 4 * S * S if lt_smem else 0
+    """viterbi.cu's launch for N frames of S <= 256 states -> (P lanes a
+    state, C source states a lane, threads, lt mode, backpointers in shared
+    memory, shared bytes).  Up to S = 128: P = 2 (the fastest of the P
+    tried on the H100 at both paths' shapes, PERF.md §6) and C the least
+    of _VITERBI_CHUNKS with 2 C >= S, lt's column slice in registers (lt
+    mode 0); past it P = 4, C = 64, lt in shared memory where its S^2
+    floats fit (mode 1), else in device memory (2).  The shared bytes: the
+    two score rows [2, P C], the maxima [2, 32] and the observations' ring
+    [16, S] always, then lt in mode 1, then the (N - 1) S byte backpointers
+    where they fit beside them."""
+    if S <= 128:
+        P, lt_mode = 2, 0
+        C = next(c for c in _VITERBI_CHUNKS if 2 * c >= S)
+    else:
+        P, C, lt_mode = 4, 64, None
+    smem = 4 * (2 * P * C + 2 * _VITERBI_WARPS + _VITERBI_RING * S)
+    if lt_mode is None:
+        lt_mode = 1 if smem + 4 * S * S <= _SMEM_MAX else 2
+    smem += 4 * S * S if lt_mode == 1 else 0
     bp_smem = smem + (N - 1) * S <= _SMEM_MAX
-    return smem + ((N - 1) * S if bp_smem else 0), lt_smem, bp_smem
+    return (P, C, (P * S + 31) // 32 * 32, lt_mode, bp_smem,
+            smem + ((N - 1) * S if bp_smem else 0))
+
+
+def _viterbi_launch_args(obs, lt, renorm: bool, path, final, bp):
+    """viterbi.cu's C call on contiguous float32 obs [B, N, S] and lt, into
+    path [B, N], final [B, S] and bp (a [B, N - 1, S] uint8 scratch where
+    the backpointers do not fit in shared memory, else None)."""
+    B, N, S = obs.shape
+    P, C, _, lt_mode, bp_smem, _ = _viterbi_geometry(N, S)
+    return (obs.data_ptr(), lt.data_ptr(), path.data_ptr(), final.data_ptr(),
+            None if bp is None else bp.data_ptr(), B, N, S, int(bool(renorm)),
+            P, C, lt_mode, int(bp_smem), _stream(obs))
 
 
 def viterbi_scan(obs: torch.Tensor, lt: torch.Tensor, renorm: bool, *,
@@ -1763,8 +1790,9 @@ def viterbi_scan(obs: torch.Tensor, lt: torch.Tensor, renorm: bool, *,
     lt[i, j]) + obs[:, t, j], with renorm each score_t (score_0 too) less
     its row maximum; ties go to the first maximum at every step and at the
     end.  With scores, (path, the last step's scores [B, S]).  On the card
-    one launch of viterbi.cu (S <= 256), the backtrace in the kernel; its
-    scores and path are the plain version's bit for bit."""
+    one launch of viterbi.cu (S <= 256; _viterbi_geometry's lanes a
+    state), the backtrace in the kernel; its scores and path are the plain
+    version's bit for bit (NaN inputs aside)."""
     if not _on_cuda(obs, lt):
         return viterbi_scan_ref(obs, lt, renorm, scores=scores)
     B, N, S = obs.shape
@@ -1772,14 +1800,13 @@ def viterbi_scan(obs: torch.Tensor, lt: torch.Tensor, renorm: bool, *,
         raise ValueError(f"viterbi_scan: obs {tuple(obs.shape)}, lt "
                          f"{tuple(lt.shape)} (S <= 256 states, N >= 1)")
     obs, lt = _f32(obs), _f32(lt)
-    _, lt_smem, bp_smem = _viterbi_geometry(N, S)
+    bp_smem = _viterbi_geometry(N, S)[4]
     path = torch.empty((B, N), dtype=torch.int64, device=obs.device)
     final = torch.empty((B, S), dtype=torch.float32, device=obs.device)
     bp = None if bp_smem else torch.empty((B, N - 1, S), dtype=torch.uint8,
                                           device=obs.device)
-    _launch("viterbi_scan", obs.data_ptr(), lt.data_ptr(), path.data_ptr(),
-            final.data_ptr(), None if bp is None else bp.data_ptr(), B, N, S,
-            int(bool(renorm)), int(lt_smem), int(bp_smem), _stream(obs))
+    _launch("viterbi_scan",
+            *_viterbi_launch_args(obs, lt, renorm, path, final, bp))
     return (path, final) if scores else path
 
 

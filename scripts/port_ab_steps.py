@@ -25,7 +25,8 @@ its nasal rows (`nasal`), the F0 tracker on the first 64 bench rows
 (`tracker`, phase 11's tracker alone) and the two Viterbis alone on
 uniform random scores from seed 0, as phases 9 and 11 time them
 (`rdviterbi`: layer1._rd_viterbi on [batch, 1600, 64] with the chunk's
-voicing; `viterbi`: f0.viterbi on [64, 1600, 97]); each side analyzes
+voicing; `viterbi`: f0.viterbi on [64, 1600, 97]; each all rows, then
+row 0 alone); each side analyzes
 (and fits layer 1) once, untimed, with its own package.  One untimed step of
 each first, then `pairs` pairs whose order alternates (other first in
 even pairs), each step timed by the host clock around work that ends in
@@ -117,9 +118,11 @@ def main(argv):
         rd_score = torch.rand((B, 1600, 64), generator=g, device="cuda")
     if "viterbi" in cells:
         logobs = torch.rand((64, 1600, 97), generator=g, device="cuda")
-    # (cell, rows): refine and refine11 run the batch, then one row alone
+    # (cell, rows): refine, refine11 and the two Viterbis run the batch,
+    # then one row alone
     runs = [r for cell in cells for r in (
-        [(cell, B), (cell, 1)] if cell in ("refine", "refine11")
+        [(cell, min(B, 64) if cell == "viterbi" else B), (cell, 1)]
+        if cell in ("refine", "refine11", "viterbi", "rdviterbi")
         else [(cell, None)])]
     for cell, rows in runs:
         label = cell if rows is None else f"{cell} {rows} x 8 s"
@@ -148,8 +151,8 @@ def main(argv):
                                 l1.chunk_to_layer1(c)))
             elif cell == "rdviterbi":
                 voiced = l0._analyze(opt, x, f0).f0 > 0
-                steps[name] = (lambda l1=l1, v=voiced:
-                               l1._rd_viterbi(rd_score, v, 10.0))
+                steps[name] = (lambda l1=l1, v=voiced, r=rows:
+                               l1._rd_viterbi(rd_score[:r], v[:r], 10.0))
             elif cell in ("tracker", "viterbi"):
                 f0m = importlib.import_module(pkg.__name__ + ".ops.f0")
                 cfg = f0m.F0Config(fs=16000.0, nhop=80, f0_floor=70.0)
@@ -157,7 +160,8 @@ def main(argv):
                 steps[name] = (
                     (lambda f0m=f0m, c=cfg: f0m.track_batch(c, x[:64]))
                     if cell == "tracker" else
-                    (lambda f0m=f0m, lt=lt: f0m.viterbi(logobs, lt)))
+                    (lambda f0m=f0m, lt=lt, r=rows:
+                     f0m.viterbi(logobs[:r], lt)))
             elif cell in ("pbp", "edits"):
                 c1 = l1.chunk_to_layer1(l0._analyze(opt, lx, lf0))
                 pbp, edits = mod("pbp"), mod("edits")
@@ -212,7 +216,8 @@ def main(argv):
                 torch.cuda.synchronize()
                 ms[name].append((time.perf_counter() - t0) * 1e3)
         wins = sum(a < b for a, b in zip(ms["this"], ms["other"]))
-        nd = 4 if cell.startswith("refine") else 2   # ~0.1-1 ms steps
+        nd = 4 if cell.startswith("refine") or cell.endswith("viterbi") \
+            else 2                                    # ~0.1-1 ms steps
         for name in sides:
             q = statistics.quantiles(ms[name], n=4)
             print(f"{label} {name}: median "

@@ -1,4 +1,4 @@
-"""Where the time of five of the port's kernels goes, by compiling passes
+"""Where the time of six of the port's kernels goes, by compiling passes
 out: noise_mod_ola.cu (pass 1, the band iDFT; pass 2, the OLA, envelope
 and band sum), deconv_full.cu (the tap build; the output pass),
 harmonic_project_mxu.cu (the making of G and the window rows; the banded
@@ -35,6 +35,14 @@ harmonic_project's five K = 1 launches) on the bench rows made at 11 kHz
 (all 128, 16, 2, row 0 alone, rows 0 and 1 as one 3200-frame row), and
 kernels.noise_bins at the bench shape (one [1600, 81] draw a call).
 
+only=viterbi times viterbi.cu (the two Viterbi scans, one launch) built
+with and without its backtrace (LLSM_SKIP_PASS_B: the walk back along the
+backpointers compiled out, the final argmax kept), at the tracker's
+[64, 1600, 97] (renormalized, its transitions) and layer 1's Rd
+[128, 1600, 64] (lt = -pen, lam 10) on uniform random scores, all rows and
+row 0 alone: the forward and backtrace split and the cycles a step at the
+SM clock.
+
 The variants go to build/kernels/ beside the library (listed in
 .gitignore), each under a hash of its source and defines.
 """
@@ -42,6 +50,7 @@ import ctypes
 import importlib
 import importlib.util
 import json
+import math
 import re
 import subprocess
 import sys
@@ -64,6 +73,11 @@ PASSES = {
     "sample_cycles": ("the steps' lerp and divide", "the output pass"),
     "refine_f0": ("the decimation into shared memory", "the probes"),
 }
+# viterbi.cu's shapes: (label, B, N, S, renorm)
+VITERBI_SHAPES = (("tracker", 64, 1600, 97, True),
+                  ("tracker row 0", 1, 1600, 97, True),
+                  ("Rd", 128, 1600, 64, False),
+                  ("Rd row 0", 1, 1600, 64, False))
 # C entry of a source, where its name is not llsm_<source>
 ENTRIES = {"refine_f0": "llsm_refine_f0_dec"}
 SPLIT_REPS = 20
@@ -95,6 +109,48 @@ def run_ms(fn, reps=20):
         end.synchronize()
         best = min(best, start.elapsed_time(end) / reps)
     return best
+
+
+def viterbi_passes():
+    """viterbi.cu with and without its backtrace at VITERBI_SHAPES, a line
+    each (the docstring says how)."""
+    import chip_smoke
+    from libllsm2_tpu_torch.models import layer1
+    from libllsm2_tpu_torch.ops import f0 as f0mod
+    full = _build.library().llsm_viterbi_scan
+    fwd = _build.variants([("viterbi", {"LLSM_SKIP_PASS_B": 1})])[0]
+    fwd = fwd.llsm_viterbi_scan
+    mhz, src = chip_smoke.sm_clock_mhz(torch)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    tracker_lt = f0mod._tables(f0mod.F0Config(f0_floor=70.0), dev)["lt"]
+    G = 64
+    dstep = (math.log(layer1.RD_MAX) - math.log(layer1.RD_MIN)) / (G - 1)
+    ar = torch.arange(G, device=dev, dtype=torch.float32)
+    rd_lt = -(10.0 * ((ar[:, None] - ar[None, :]) * dstep) ** 2)
+    for label, B, N, S, renorm in VITERBI_SHAPES:
+        obs = torch.rand((B, N, S), generator=g, device=dev)
+        lt = (tracker_lt if renorm else rd_lt).contiguous()
+        geo = kernels._viterbi_geometry(N, S)
+        path = torch.empty((B, N), dtype=torch.int64, device=dev)
+        final = torch.empty((B, S), device=dev)
+        bp = None if geo[4] else torch.empty((B, N - 1, S),
+                                             dtype=torch.uint8, device=dev)
+        args = kernels._viterbi_launch_args(obs, lt, renorm, path, final, bp)
+        ms = {}
+        for name, fn in (("whole", full), ("forward", fwd)):
+            rc = fn(*args)
+            if rc:
+                raise RuntimeError(f"viterbi {label}: cudaError {rc}")
+            ms[name] = run_ms(lambda: fn(*args))
+        cyc = lambda t: t / (N - 1) * mhz * 1e3
+        print(f"viterbi {label} [{B}, {N}, {S}] P {geo[0]} C {geo[1]} "
+              f"threads {geo[2]} lt mode {geo[3]}: whole {ms['whole']:.4f} "
+              f"ms a launch in a run of 20 = {cyc(ms['whole']):.0f} cycles "
+              f"a step; forward (backtrace compiled out) "
+              f"{ms['forward']:.4f} ms = {cyc(ms['forward']):.0f} cycles a "
+              f"step; backtrace {ms['whole'] - ms['forward']:.4f} ms (at "
+              f"{mhz:.0f} MHz, {src})", flush=True)
 
 
 def refine_args(nx):
@@ -219,7 +275,10 @@ def main():
         f0[:, ::7] = 0.0
         split(kw["split"].split(","), f0)
         return 0
-    names = kw["only"].split(",") if "only" in kw else list(PASSES)
+    names = kw["only"].split(",") if "only" in kw else [*PASSES, "viterbi"]
+    if "viterbi" in names:
+        viterbi_passes()
+        names.remove("viterbi")
     libs = build_variants(names)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)

@@ -1405,6 +1405,45 @@ def test_viterbi_scan_kernel_equals_twin_on_card(B, N, S, renorm, eighths):
         assert torch.equal(p[0], path[r]) and torch.equal(s[0], score[r])
 
 
+def _viterbi_inf_inputs(B, N, S, renorm, seed):
+    """_viterbi_inputs in eighths with 10% -inf entries and frames 5-14
+    all tied: with renorm each of those frames one constant, the last
+    state never -inf (no renormalized frame all -inf); without, those
+    frames all zero (an unvoiced stretch as layer1._rd_viterbi masks it)."""
+    obs, lt = _viterbi_inputs(B, N, S, seed, True)
+    g = torch.Generator().manual_seed(seed)
+    hole = torch.rand(obs.shape, generator=g) < 0.1
+    if renorm:
+        hole[..., -1] = False
+    obs[hole] = -float("inf")
+    obs[:, 5:15] = obs[:, 5:15, -1:] if renorm else 0.0
+    return obs, lt
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("B,N,S,renorm", [
+    (4, 300, 97, True), (4, 300, 64, False),
+    (2, 3000, 97, True), (2, 3000, 64, False),   # backpointers in HBM
+    (2, 120, 200, True), (2, 120, 256, False),   # lt in shared / HBM
+    (3, 90, 12, True), (3, 90, 24, False),       # 8, 16 and 64 slots a
+    (3, 90, 120, True)])                         # lane in registers
+def test_viterbi_scan_kernel_inf_and_ties_on_card(B, N, S, renorm):
+    """-inf entries and all-tied frames, inside viterbi.cu's contract:
+    paths and last scores (the -inf ones too) equal the twin's on the card
+    and on the CPU bit for bit, also where the backpointers go to device
+    memory, where lt is in shared or device memory, and at the lt-in-
+    registers kernels the other card tests leave out."""
+    dev = _card()
+    obs, lt = _viterbi_inf_inputs(B, N, S, renorm, 7 * N + S)
+    path, score = kernels.viterbi_scan(obs.to(dev), lt.to(dev), renorm,
+                                       scores=True)
+    cpu_path, cpu_score = kernels.viterbi_scan_ref(obs, lt, renorm,
+                                                   scores=True)
+    assert torch.isfinite(cpu_score).any(-1).all() or not renorm
+    assert torch.equal(path.cpu(), cpu_path)
+    assert torch.equal(score.cpu(), cpu_score)
+
+
 @pytest.mark.requires_cuda
 def test_viterbi_callers_launch_the_kernel_on_card():
     """f0.viterbi and layer1._rd_viterbi on card tensors launch the kernel

@@ -281,21 +281,170 @@ def test_fp64_routes_to_the_twin():
 
 
 @pytest.mark.parametrize("N,S,geometry", [
-    # 4 (2 S + 8) score and reduction bytes, then lt, then the backpointers
-    (1600, 97, (808 + 37636 + 1599 * 97, True, True)),
-    (1600, 64, (544 + 16384 + 1599 * 64, True, True)),
-    (1, 97, (808 + 37636, True, True)),
-    (2, 2, (48 + 16 + 2, True, True)),
-    (6000, 97, (808 + 37636, True, False)),     # 582 KB: device memory
-    (2, 256, (2080 + 256, False, True)),        # lt 256 KB: device memory
-    (1200, 256, (2080, False, False)),          # neither fits
+    # (P, C, threads, lt mode, backpointers in shared memory, bytes): 4 (2
+    # P C + 64 + 16 S) score, maxima and ring bytes, then lt in mode 1,
+    # then the backpointers
+    (1600, 97, (2, 52, 224, 0, True, 7296 + 1599 * 97)),
+    (1600, 64, (2, 32, 128, 0, True, 4864 + 1599 * 64)),
+    (1, 97, (2, 52, 224, 0, True, 7296)),
+    (2, 2, (2, 4, 32, 0, True, 448 + 2)),
+    (100, 12, (2, 8, 32, 0, True, 1152 + 99 * 12)),     # each C in
+    (100, 24, (2, 16, 64, 0, True, 2048 + 99 * 24)),    # registers
+    (100, 120, (2, 64, 256, 0, True, 8960 + 99 * 120)),
+    (6000, 97, (2, 52, 224, 0, False, 7296)),   # 582 KB: device memory
+    (2, 200, (4, 64, 800, 1, True, 15104 + 160000 + 200)),  # lt in shared
+    (400, 200, (4, 64, 800, 1, False, 15104 + 160000)),     # bp in HBM
+    (2, 256, (4, 64, 1024, 2, True, 18688 + 256)),  # lt 256 KB: HBM
+    (1200, 256, (4, 64, 1024, 2, False, 18688)),    # neither fits
 ])
 def test_viterbi_geometry_by_hand(N, S, geometry):
-    """kernels._viterbi_geometry: lt in shared memory where S^2 floats fit
-    in the H100's 232448 bytes, the backpointers where they fit beside
-    it."""
+    """kernels._viterbi_geometry: 2 lanes a state and lt's column slice
+    in registers up to S = 128 (mode 0; 52 slots a lane for the tracker's
+    97 states), past it 4 lanes and lt in shared memory where S^2
+    floats fit in the H100's 232448 bytes (mode 1), else in device memory
+    (2); the backpointers in shared memory where they fit beside the
+    rest."""
     assert kernels._viterbi_geometry(N, S) == geometry
-    assert geometry[0] <= kernels._SMEM_MAX
+    assert geometry[-1] <= kernels._SMEM_MAX
+
+
+def _merge(va, ia, vb, ib):
+    """viterbi.cu's take_max: b where vb > va, or vb == va and ib < ia."""
+    take = (vb > va) | ((vb == va) & (ib < ia))
+    return torch.where(take, vb, va), torch.where(take, ib, ia)
+
+
+def _butterfly(v, i, lanes):
+    """Lanes (axis 1) merged by xor 1, 2, 4, ... as __shfl_xor_sync does;
+    every lane must end with the same (value, index)."""
+    off = 1
+    while off < lanes:
+        perm = torch.arange(lanes) ^ off
+        v, i = _merge(v, i, v[:, perm], i[:, perm])
+        off *= 2
+    assert torch.equal(v, v[:, :1].expand_as(v))
+    assert torch.equal(i, i[:, :1].expand_as(i))
+    return v[:, 0], i[:, 0]
+
+
+def _kernel_order_scan(obs, lt, renorm, P):
+    """A plain-torch model of viterbi.cu's order, float32: lane p of a
+    destination covers the source states i = 4 (m P + p) + e (m < C / 4,
+    e < 4; the scores padded to P C with -inf, lt with zero rows), each e
+    a partial maximum over ascending m with a strict >, the partials
+    merged (0, 1), (2, 3), then the pair, then the P lanes by xor; with
+    renorm the previous raw scores less their maximum at read time; the
+    final argmax as warp 0 takes it (lane l the states l, l + 32, ... in
+    ascending order, then 32 lanes by xor); then the backtrace.  C is the
+    kernel's where P is the kernel's P at S, else the least multiple of 4
+    with P C >= S.  -> (path [B, N], last scores [B, S])."""
+    B, N, S = obs.shape
+    geo = kernels._viterbi_geometry(N, S)
+    C = geo[1] if geo[0] == P else -(-S // (4 * P)) * 4
+    M, SP = C // 4, P * C
+    lt_pad = torch.zeros((SP, S), dtype=torch.float32)
+    lt_pad[:S] = lt
+    p_of = torch.arange(P)[None, :, None, None]
+    e_of = torch.arange(4)[None, None, :, None]
+    pad = torch.full((B, SP - S), -float("inf"))
+    renormed = lambda r: r - torch.amax(r, -1, keepdim=True) if renorm else r
+    raw, back = obs[:, 0], []
+    for t in range(1, N):
+        cand = (torch.cat([renormed(raw), pad], 1)[:, :, None]
+                + lt_pad).reshape(B, M, P, 4, S)
+        bv, bm = cand[:, 0], torch.zeros((B, P, 4, S), dtype=torch.int64)
+        for mm in range(1, M):
+            take = cand[:, mm] > bv
+            bv = torch.where(take, cand[:, mm], bv)
+            bm = torch.where(take, mm, bm)
+        bi = 4 * (bm * P + p_of) + e_of
+        v01 = _merge(bv[:, :, 0], bi[:, :, 0], bv[:, :, 1], bi[:, :, 1])
+        v23 = _merge(bv[:, :, 2], bi[:, :, 2], bv[:, :, 3], bi[:, :, 3])
+        best, arg = _butterfly(*_merge(*v01, *v23), P)
+        assert int(arg.max()) < S
+        back.append(arg)
+        raw = best + obs[:, t]
+    final = renormed(raw)
+    lanes = torch.full((B, 32 * -(-S // 32)), -float("inf"))
+    lanes[:, :S] = final
+    lanes = lanes.reshape(B, -1, 32)
+    lv, lj = lanes[:, 0], torch.arange(32).expand(B, 32).clone()
+    lj[:, S:] = 1 << 30
+    for r in range(1, lanes.shape[1]):
+        take = lanes[:, r] > lv
+        lv = torch.where(take, lanes[:, r], lv)
+        lj = torch.where(take, 32 * r + torch.arange(32), lj)
+    _, g = _butterfly(lv, lj, 32)
+    path = torch.empty((B, N), dtype=torch.int64)
+    path[:, N - 1] = g
+    for t in range(N - 2, -1, -1):
+        g = torch.gather(back[t], 1, g[:, None])[:, 0]
+        path[:, t] = g
+    return path, final
+
+
+def _order_inputs(S, renorm, seed, B=2, N=40):
+    """Scores in eighths (ties) with -inf entries (10%; every frame keeps
+    finite ones) and all-tied rows: with renorm obs in [-12, 0) whose frames
+    8-11 are one constant each and lt in eighths with -inf off its
+    diagonal (10%); without, layer 1's scores in [0, 1) with -inf entries,
+    voicing with an unvoiced stretch (frames 10-19: all-zero rows once
+    masked) -> (obs, lt, score, voiced), score and voiced None with
+    renorm."""
+    rng = np.random.default_rng(seed)
+    if renorm:
+        obs = _eighths(rng, (B, N, S), -12.0, 0.0)
+        obs[:, 8:12] = obs[:, 8:12, :1]
+        obs[rng.uniform(size=obs.shape) < 0.1] = -np.inf
+        obs[:, :, 0] = np.where(np.isinf(obs[:, :, 0]), -1.0, obs[:, :, 0])
+        lt = _eighths(rng, (S, S), -4.0, 0.0)
+        off = (rng.uniform(size=(S, S)) < 0.1) & ~np.eye(S, dtype=bool)
+        lt[off] = -np.inf
+        return T(obs), T(lt), None, None
+    score = _eighths(rng, (B, N, S), 0.0, 1.0)
+    score[rng.uniform(size=score.shape) < 0.1] = -np.inf
+    score[:, :, 0] = np.where(np.isinf(score[:, :, 0]), 0.5, score[:, :, 0])
+    voiced = rng.uniform(size=(B, N)) > 0.2
+    voiced[:, 10:20] = False
+    obs = np.where(voiced[..., None], score, 0.0).astype(np.float32)
+    return T(obs), -_rd_pen(S), T(score), T(voiced)
+
+
+@pytest.mark.parametrize("renorm", [True, False])
+@pytest.mark.parametrize("S", [2, 64, 97, 256])
+@pytest.mark.parametrize("P", [1, 2, 4, 8])
+def test_kernel_order_equals_the_twin_and_the_jax_scans(P, S, renorm):
+    """The model of viterbi.cu's lane and partial order above, at P lanes
+    a state, on scores in eighths with ties, -inf entries and all-tied
+    rows: paths and last scores equal kernels.viterbi_scan_ref's bit for
+    bit, and its paths the JAX package's (the tracker's renormalized scan
+    under the same lt; _rd_viterbi on the same scores and voicing, lt =
+    -pen); without renorm also under an lt in eighths with -inf entries,
+    as the tracker's inputs, against the twin."""
+    obs, lt, score, voiced = _order_inputs(S, renorm, 100 * S + 10 * P
+                                           + renorm)
+    path, final = _kernel_order_scan(obs, lt, renorm, P)
+    ref_path, ref_final = kernels.viterbi_scan_ref(obs, lt, renorm,
+                                                   scores=True)
+    assert torch.isfinite(ref_final).any(-1).all()
+    assert torch.equal(path, ref_path) and torch.equal(final, ref_final)
+    for b in range(obs.shape[0]):
+        if renorm:
+            ref = _jax_viterbi(jnp.asarray(obs[b].numpy()),
+                               jnp.asarray(lt.numpy()))
+        else:
+            ref = np.asarray(jl1._rd_viterbi(jnp.asarray(score[b].numpy()),
+                                             jnp.asarray(voiced[b].numpy()),
+                                             LAM))
+        np.testing.assert_array_equal(path[b].numpy(), ref)
+    if not renorm:
+        tracker_obs, tracker_lt, _, _ = _order_inputs(S, True, S + P)
+        path, final = _kernel_order_scan(tracker_obs, tracker_lt, False, P)
+        ref_path, ref_final = kernels.viterbi_scan_ref(
+            tracker_obs, tracker_lt, False, scores=True)
+        assert torch.equal(path, ref_path) and torch.equal(final, ref_final)
+    if S > 2:
+        assert _ties(obs.numpy(), lt.numpy(), renorm) > 0
 
 
 def test_chip_smoke_counts_viterbi_by_hand():
