@@ -339,6 +339,31 @@ non-zero without the final "ok" line:
      torch.distributed.checkpoint directory) and loaded here: equal.  The
      ranks also report which collectives gloo ran on CUDA tensors itself
      (the meshes stage through the host those it refuses).
+ 20. the wide configurations (cell wide), past the first kernels' shape
+     limits, each kernel held to its twin on the path's calls at 2 rows
+     (phase 3's tolerances) and the counted run's launches checked.  20a,
+     creaky voice's conf (tests/test_creaky.py: maxnhar=160, fnyq=6000)
+     at phase 5's options on the 128 x 8 s bench rows: the denoiser's
+     kernels at K = 160 (the wide denoise_stats and denoise_apply, the
+     finish), harmonic_project_win (its groups of 80), deconv_full,
+     osc_bank and noise_mod_ola launched; noisy rows 0/1 within 0.05 dB
+     and clean row 64 at most 0.1 dB under the JAX package's values;
+     every kernel of the run timed at full batch beside its bound; rows 0
+     and 64 alone equal their batch rows as in phase 5.  20b, 48 kHz at a
+     10 ms hop (tests/test_edgecases.py's conf at its sweep's hop: fnyq
+     12000, chanfreq (3000, 6000, 9000), nspec 513) on the bench rows
+     resampled to 48 kHz on the card (ops.resample.resample_to; every
+     second F0 frame; 128 x 384000 samples): noise_mod_ola at nhop = 480
+     (the wide kernel), the pins, times and rows alone as 20a.  20c,
+     denoise_stats on phase 5's full-batch call ([128, 1600, 80]) with the
+     taps of a 2 ms hop (33 + 17) and of track_denoise_hz=5 at 5 ms (41 +
+     21): the wide kernel against its twin.  20d, viterbi_scan against its
+     twin, paths and last scores bit for bit, at S = 257 (renormalized),
+     512 (not) and 1025 (renormalized) on seeded scores in eighths with
+     -inf entries under the tracker's transitions at that S ([64, 1600,
+     S], row 0 alone, rows 0 and 1 joined into one 3200-frame row); then
+     the tracker with F0Config(nbins=384) on 64 bench rows: one launch,
+     its call against the twin bit for bit, a finite track.
 Phases 5, 6, 7 and 9 also time every call of each of their kernels in
 the counted run at full batch (median of 10, and a launch's share of a
 run of 20 back-to-back launches: the device time where the host enqueues
@@ -352,12 +377,13 @@ harmonic_project_mxu, 7 for refine_f0_full and harmonic_project (0:
 its K = 1 case is phase 3's), 9 for env_render and viterbi_scan, 16c
 for noise_mod_ola_seg;
 denoise_apply also "finish_launches" and "finish_full_batch" for its
-second launch; "launches_by_phase" the counts of phases 11 to 17 and
-of 19, summed over its ranks' 19a runs); ms,
+second launch; "launches_by_phase" the counts of phases 11 to 17, of
+19, summed over its ranks' 19a runs, and of 20a, 20b and 20d); ms,
 plain_ms, library_ms and bound_ms at the first 2-row call of phase 3
 (noise_mod_ola_seg: its full-batch call of 16c; viterbi_scan: 11v's
 first case, phase 9's full-batch Rd call; denoise_stats also has
-16b's full-batch polar case among its "cases"); "full_batch" a record per
+16b's full-batch polar case among its "cases"; phase 20's cases and
+full-batch records join each kernel's); "full_batch" a record per
 call at full batch ("analysis_calls" on harmonic_project_win and
 "render_calls" on osc_bank: phase 5's two harmonic_analysis calls and two
 renders).  bound_ms is the larger of the bytes the
@@ -373,13 +399,13 @@ The SNR, rd and PbP pins are the JAX package's own values on the CPU, from
 
     JAX_PLATFORMS=cpu PYTHONPATH=. python scripts/port_jax_pins.py \
         [only=l0,11k,l1,pbp,corpus,edits,coder,nasal,stream,dspkit,
-              learned,fp64,mesh]
+              learned,fp64,mesh,wide]
 
 (l0: phases 4 and 5; 11k: phases 7 and 8; l1: phase 9; pbp: phase 10;
 corpus: phase 11; edits: phase 12; coder: phase 13; nasal: phase 14;
 stream: phase 15, ~1 min on the CPU; dspkit: phase 16, ~70 s; learned:
 phase 17d-e and its npz, ~25 s; fp64: phase 18a, ~10 s; mesh: phase 19a,
-~130 s).
+~130 s; wide: phase 20a-b).
 """
 import dataclasses
 import json
@@ -675,6 +701,18 @@ MESH_REPS = 3                             # 19a: kernel / twin timing reps
 MESH_TIMEOUT_S = 600
 MESH_FIELDS = ("f0", "ampl", "phse", "hm_mask", "psd", "edc", "eenv_a",
                "eenv_p")
+# phase 20 (cell wide): the JAX package's batched_pipeline SNRs of bench
+# rows 0, 1 (noisy) and 64 (clean) at creaky voice's conf and at 48 kHz with
+# a 10 ms hop, from
+#   JAX_PLATFORMS=cpu PYTHONPATH=. python scripts/port_jax_pins.py only=wide
+WIDE_PINS_DB = {"creaky": {0: 40.427391052246094, 1: 40.932682037353516,
+                           64: 54.8484001159668},
+                "48 kHz": {0: 38.91567611694336, 1: 39.449703216552734,
+                           64: 48.93970489501953}}
+WIDE_TAPS = {"2 ms hop": (33, 17), "5 Hz at 5 ms": (41, 21)}   # 20c
+WIDE_STATES = ((257, True), (512, False), (1025, True))        # 20d
+WIDE_VITERBI_ROWS = 64
+WIDE_TRACKER_NBINS = 384
 MAIN_SIX = tuple(KERNELS)[:6]     # the library-default path's CUDA kernels
 # ... and its frame-axis FIR, noise draw, cycle track and F0 refine
 MAIN = MAIN_SIX + ("fir_frames", "noise_bins", "sample_cycles",
@@ -989,8 +1027,9 @@ def kernel_bytes(torch, name, args, kw, out):
     """Bytes one call must move: every input read once (harmonic_project_
     win's x and cyc once a row, not once a frame), every output written
     once; of harmonic_project's pre-windowed [R, W] frames and cycle
-    offsets only each row's live columns [lo, hi); viterbi_scan's byte
-    backpointers written once as well."""
+    offsets only each row's live columns [lo, hi); viterbi_scan's
+    backpointers (a byte each, two past 256 states) written once as
+    well."""
     if name == "noise_bins":                 # two [N, nbin] draws, expanded
         return 2 * 4 * args[3] * args[4]
     if name == "sample_cycles":              # f0 read, [B, nx] written
@@ -1001,9 +1040,9 @@ def kernel_bytes(torch, name, args, kw, out):
         lo, hi = args[3], args[4]
         R, W = args[0].shape
         nbytes -= 2 * 4 * (R * W - float((hi - lo).sum()))
-    if name == "viterbi_scan":               # and the uint8 backpointers
+    if name == "viterbi_scan":               # and the backpointers
         B, N, S = args[0].shape
-        nbytes += B * (N - 1) * S
+        nbytes += B * (N - 1) * S * (1 if S <= 256 else 2)
     return nbytes
 
 
@@ -2492,12 +2531,14 @@ def stage_times(torch, hooks, run, reps=3):
              for k in runs[0]}, peaks)
 
 
-def batch_rows(torch, mods, opt, sopt, data, snr_whole):
-    """Phase 5: rows BATCH_ROWS of the bench batch, each alone (a batch of
-    one) and in the whole batch: every field of their analysis chunk, their
-    y, y_sin and y_nos, and every kernels.sample_cycles call's input and
-    output rows compared bit for bit; prints both runs' SNRs of those rows
-    (the whole batch's from the counted run, snr_whole)."""
+def batch_rows(torch, mods, opt, sopt, data, snr_whole, rows=BATCH_ROWS,
+               label="5"):
+    """Phase 5 (and 20 with its options and rows): rows of the bench batch,
+    each alone (a batch of one) and in the whole batch: every field of
+    their analysis chunk, their y, y_sin and y_nos, and every
+    kernels.sample_cycles call's input and output rows compared bit for
+    bit; prints both runs' SNRs of those rows (the whole batch's from the
+    counted run, snr_whole)."""
     from libllsm2_tpu_torch.container import LAYER0_FIELDS
     kernels, layer0, corpus = mods
     dev = data[0].device
@@ -2534,10 +2575,9 @@ def batch_rows(torch, mods, opt, sopt, data, snr_whole):
         torch.cuda.synchronize()
         return log, got, [round(float(v), 4) for v in snr[pick]]
 
-    rows = torch.tensor(BATCH_ROWS, device=dev)
-    whole, got_whole, _ = record(data, rows)
+    whole, got_whole, _ = record(data, torch.tensor(rows, device=dev))
     same, fields, snr_alone = [], {k: True for k in got_whole}, []
-    for i, r in enumerate(BATCH_ROWS):   # each row alone: a batch of one
+    for i, r in enumerate(rows):   # each row alone: a batch of one
         alone, got_alone, snr = record(tuple(v[r:r + 1] for v in data),
                                        torch.zeros(1, dtype=torch.long,
                                                    device=dev))
@@ -2552,7 +2592,7 @@ def batch_rows(torch, mods, opt, sopt, data, snr_whole):
     trk = kernels.sample_cycles(data[1], nhop, fs, nx)
     direct = all(torch.equal(kernels.sample_cycles(data[1][r:r + 1], nhop,
                                                    fs, nx)[0], trk[r])
-                 for r in BATCH_ROWS)
+                 for r in rows)
     # the refine (one launch of refine_f0.cu, no row groups) likewise
     from libllsm2_tpu_torch.ops import harmonics
     conf = opt.conf
@@ -2561,18 +2601,18 @@ def batch_rows(torch, mods, opt, sopt, data, snr_whole):
     ref_b = harmonics.refine_f0(data[0], data[1], **rkw)
     refine = all(torch.equal(harmonics.refine_f0(
         data[0][r:r + 1], data[1][r:r + 1], **rkw)[0], ref_b[r])
-        for r in BATCH_ROWS)
-    phase("5 rows alone = in the batch",
-          len(same) == len(BATCH_ROWS) * len(whole) > 0 and direct
+        for r in rows)
+    phase(f"{label} rows alone = in the batch",
+          len(same) == len(rows) * len(whole) > 0 and direct
           and refine and all(o for i, o in same if i) and len(fields) == 11
           and all(fields.values()),
-          f"rows {list(BATCH_ROWS)}: every chunk field and output bit for "
+          f"rows {list(rows)}: every chunk field and output bit for "
           f"bit: {fields}; {len(same)} sample_cycles calls of the "
           f"pipeline, (f0 rows equal, tracks equal): {same}; "
           f"the kernel on the bench F0 rows alone = in the batch: {direct}; "
           f"refine_f0 on the bench rows alone = in the batch: {refine}; "
           f"SNR alone {snr_alone} dB, in the {BATCH}-row batch "
-          f"{[round(snr_whole[r], 4) for r in BATCH_ROWS]} dB")
+          f"{[round(snr_whole[r], 4) for r in rows]} dB")
 
 
 def refine_phase(torch, kernels, harmonics, opt, data, rec, full):
@@ -4578,6 +4618,175 @@ def mesh_phase(torch, mods, data, vec, dev):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def wide_cases(torch, kernels, calls, prefix):
+    """Each captured call of each kernel against its plain version, as
+    phase 3 holds them (the finish under denoise_apply) -> {kernel:
+    [case]}."""
+    out = {}
+    for name, recs in calls.items():
+        home = "denoise_apply" if name == FINISH else name
+        for i, (args, kw) in enumerate(recs):
+            out.setdefault(home, []).append(check_kernel(
+                torch, kernels, name, KERNELS[home][2], args, kw,
+                f"{name} {i}" if name == FINISH else str(i), prefix=prefix))
+    return out
+
+
+def wide_path(torch, mods, label, opt, sopt, data, pins):
+    """Phase 20a / 20b: the path's kernels against their twins on its calls
+    at 2 rows, then the counted run at full batch (run_path: launches,
+    pins, full-batch times beside the bounds, the step) and rows 0 and 64
+    alone -> (cases, launches, full-batch records, by kernel each 2-row
+    call's tensor arguments' shapes)."""
+    kernels, layer0, corpus = mods
+    names = MAIN_SIX + (FINISH,)
+    two = tuple(d[:2] for d in data)
+    calls, _ = capture_kernel_inputs(
+        kernels, names, lambda: corpus.batched_pipeline(opt, sopt, *(
+            two[i] for i in (0, 1, 3, 2))))
+    for name in names:
+        if not calls[name]:
+            phase(f"{label} {name}", False, "not called at 2 rows")
+    shapes = {name: [[tuple(a.shape) for a in c[0] if torch.is_tensor(a)]
+                     for c in calls[name]] for name in names}
+    cases = wide_cases(torch, kernels, calls, label.split()[0])
+    del calls
+    launches, snr, full = run_path(torch, kernels, corpus, label, opt, sopt,
+                                   data, pins, names, names, clean_min=None,
+                                   noisy_tol=L0_NOISY_TOL_DB)
+    batch_rows(torch, mods, opt, sopt, data, snr, rows=(0, N_NOISY),
+               label=label.split()[0])
+    torch.cuda.empty_cache()
+    return cases, launches, full, shapes
+
+
+def wide_viterbi(torch, kernels, f0mod, x):
+    """Phase 20d: viterbi_scan against its twin past 256 states, then the
+    tracker at nbins = WIDE_TRACKER_NBINS on bench rows x -> (cases, the
+    tracker run's launches)."""
+    dev = x.device
+    g = torch.Generator(device=dev).manual_seed(20)
+    cases = []
+    for S, renorm in WIDE_STATES:
+        obs = torch.round(torch.rand((WIDE_VITERBI_ROWS, 1600, S),
+                                     generator=g, device=dev) * -96.0) / 8.0
+        obs[torch.rand(obs.shape, generator=g, device=dev) < 0.1] = \
+            -float("inf")
+        obs[..., 0] = -1.0          # no frame all -inf
+        lt = f0mod._tables(f0mod.F0Config(nbins=S - 1), dev)["lt"]
+        geo = kernels._viterbi_geometry(1600, S)
+        for label, o in (("", obs), (" row 0", obs[:1]),
+                         (" rows 0-1 joined (3200 frames)",
+                          obs[:2].reshape(1, 3200, S))):
+            case = check_kernel(torch, kernels, VITERBI, KERNELS[VITERBI][2],
+                                (o, lt, renorm), {"scores": True},
+                                f"S {S}{label}", prefix="20d", reps=3)
+            case["geometry"] = list(geo)
+            cases.append(case)
+        del obs
+    torch.cuda.empty_cache()
+    cfg = f0mod.F0Config(fs=16000.0, nhop=80, f0_floor=70.0,
+                         nbins=WIDE_TRACKER_NBINS)
+    kernels.reset_launches()
+    calls, f0 = capture_kernel_inputs(
+        kernels, (VITERBI,), lambda: f0mod.track_batch(cfg, x))
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    S = calls[VITERBI][0][0][0].shape[-1]
+    phase("20d tracker nbins 384", launches[VITERBI] == len(calls[VITERBI])
+          >= 1 and S == WIDE_TRACKER_NBINS + 1
+          and bool(torch.isfinite(f0).all() and (f0 >= 0).all()),
+          f"f0 {tuple(f0.shape)} finite, {float((f0 > 0).float().mean()):.4f}"
+          f" voiced; {launches[VITERBI]} viterbi_scan launch(es) at S {S}")
+    args, kw = calls[VITERBI][0]
+    cases.append(check_kernel(torch, kernels, VITERBI, KERNELS[VITERBI][2],
+                              args, dict(kw, scores=True),
+                              "tracker nbins 384", prefix="20d", reps=3))
+    return cases, launches
+
+
+def wide_phase(torch, mods, opt, sopt, data, summary, full, by_phase):
+    """Phase 20 (cell wide): 20a creaky voice's conf, 20b 48 kHz at a 10 ms
+    hop, 20c the denoiser's wide taps, 20d the Viterbi past 256 states;
+    each case joins its kernel's cases in summary, each full-batch record
+    its kernel's in full, each counted run's launches by_phase."""
+    from libllsm2_tpu_torch import create_aoptions, create_soptions
+    from libllsm2_tpu_torch.ops import f0 as f0mod
+    from libllsm2_tpu_torch.ops import resample
+    kernels, layer0, corpus = mods
+    dev = data[0].device
+
+    def join(cases, f=None):
+        for name, cs in cases.items():
+            rec = summary[name]
+            rec["cases"] += cs
+            rec["max_abs_err"] = max(c["max_abs_err"] for c in rec["cases"])
+        for name, recs in (f or {}).items():
+            if name == FINISH:
+                summary["denoise_apply"]["finish_full_batch"] += recs
+            else:
+                full[name] = full.get(name, []) + recs
+
+    # 20a: creaky voice's conf, K = 160
+    opt_c = dataclasses.replace(opt, conf=dataclasses.replace(
+        opt.conf, maxnhar=160, fnyq=6000.0))
+    cases, by_phase["20a"], f, shapes = wide_path(
+        torch, mods, "20a creaky", opt_c, sopt, data, WIDE_PINS_DB["creaky"])
+    ks = [sh[0][-1] for name in ("denoise_stats", "denoise_apply", FINISH)
+          for sh in shapes[name]]
+    phase("20a K = 160", ks and all(k == 160 for k in ks),
+          f"K of the denoiser's calls at 2 rows {ks}; denoise_stats's "
+          f"geometry (chunk, shared bytes) "
+          f"{kernels._denoise_geometry(160, 13, 7)}")
+    join(cases, f)
+    # 20b: 48 kHz at a 10 ms hop, the rows resampled on the card
+    x, f0, x_ref, nxv = data
+    x48, ref48 = (resample.resample_to(v, 16000.0, 48000.0)
+                  for v in (x, x_ref))
+    data48 = (x48, f0[:, ::2].contiguous(), ref48,
+              torch.full_like(nxv, x48.shape[-1]))
+    del x48, ref48
+    opt48 = create_aoptions(fs=48000.0, thop=0.01, fnyq=12000.0,
+                            chanfreq=(3000.0, 6000.0, 9000.0), nspec=513,
+                            f0_floor=70.0, use_pallas=True)
+    sopt48 = dataclasses.replace(create_soptions(fs=48000.0), use_pallas=True)
+    assert opt48.conf.nhop == 480
+    cases, by_phase["20b"], f, shapes = wide_path(
+        torch, mods, "20b 48 kHz", opt48, sopt48, data48,
+        WIDE_PINS_DB["48 kHz"])
+    nbins = [sh[7][-1] for sh in shapes["noise_mod_ola"]]   # the gains
+    bands = kernels.band_ranges(481, 48000.0, tuple(opt48.conf.chan_edges))
+    phase("20b nhop 480", nbins and all(n == 481 for n in nbins),
+          f"bins of noise_mod_ola's calls at 2 rows {nbins}; geometry "
+          f"(frames a block, slots, shared bytes) "
+          f"{kernels._noise_geometry(480, 4, 4, bands)}")
+    join(cases, f)
+    del data48
+    torch.cuda.empty_cache()
+    # 20c: denoise_stats on phase 5's full-batch call with wide taps
+    calls, _ = capture_kernel_inputs(
+        kernels, ("denoise_stats",),
+        lambda: corpus.batched_pipeline(opt, sopt, x, f0, nxv, x_ref))
+    args, kw = calls["denoise_stats"][0]
+    del calls
+    cases = []
+    for label, (n1, n2) in WIDE_TAPS.items():
+        taps = (layer0._hann_taps(n1), layer0._hann_taps(n2))
+        cases.append(check_kernel(
+            torch, kernels, "denoise_stats", KERNELS["denoise_stats"][2],
+            args[:5] + taps, kw, f"{label}: {n1} + {n2} taps, geometry "
+            f"{kernels._denoise_geometry(args[0].shape[-1], n1, n2)}",
+            prefix="20c"))
+    del args
+    join({"denoise_stats": cases})
+    torch.cuda.empty_cache()
+    # 20d: the Viterbi past 256 states, then the tracker at nbins 384
+    cases, by_phase["20d"] = wide_viterbi(torch, kernels, f0mod,
+                                          x[:WIDE_VITERBI_ROWS])
+    join({VITERBI: cases})
+    torch.cuda.empty_cache()
+
+
 def once_ms(torch, fn):
     """Milliseconds of one run of fn() by CUDA events, no warm-up."""
     torch.cuda.synchronize()
@@ -4910,7 +5119,14 @@ def main(argv):
     # phase 19: 4 ranks on the card (cell multi-device)
     torch.cuda.empty_cache()
     by_phase["19"] = mesh_phase(torch, (layer0,), data, vec13, dev)
-    del data, vec13
+    del vec13
+    # phase 20: the wide configurations (cell wide)
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    wide_phase(torch, (kernels, layer0, corpus), opt, sopt, data, summary,
+               full, by_phase)
+    print(f"20: {time.perf_counter() - t0:.1f} s", flush=True)
+    del data
     for name in KERNELS:
         summary[name]["full_batch"] = full[name]
         summary[name]["launches_by_phase"] = {

@@ -29,8 +29,12 @@
 // so it is read once.  The seven fit sums are reduced by one 4-step xor
 // shuffle each inside the half warp (no shared memory, no barrier).  K
 // not a multiple of 4, or outside (64, 80], takes the scalar layout
-// (k = lane + 16 t, up to 8 slots a lane: K <= 128).  Launch B takes two
-// slots a thread by float4 loads of the complex planes.
+// (k = lane + 16 t, up to 8 slots a lane: K <= 128).  Past K = 128
+// (creaky voice's K = 160) denoise_apply_wide_kernel keeps that layout and
+// order but loops over the slots twice instead of holding the row in
+// registers: once for the sums, once (reading the row again) for the gate
+// and the stores.  Launch B takes two slots a thread by float4 loads of
+// the complex planes; it has no limit on K.
 #include "common.cuh"
 
 namespace {
@@ -202,6 +206,84 @@ denoise_apply_kernel(const float* __restrict__ v, const float* __restrict__ wm,
   }
 }
 
+// K > 128: denoise_apply_kernel's scalar layout (slot t of lane l is k =
+// l + 16 t), each slot read from device memory for the sums and again for
+// the gate
+template <bool POLAR>
+__global__ void __launch_bounds__(kRows * kLanes)
+denoise_apply_wide_kernel(
+    const float* __restrict__ v, const float* __restrict__ wm,
+    const float* __restrict__ cre, const float* __restrict__ cim,
+    const float* __restrict__ csr, const float* __restrict__ csi,
+    const float* __restrict__ cyc_c, const float* __restrict__ mask,
+    const unsigned char* __restrict__ guard, float* __restrict__ o0,
+    float* __restrict__ o1, int64_t rows, int N, int K, float strength) {
+  const int l = threadIdx.x & (kLanes - 1);
+  const int64_t row0 = (int64_t)blockIdx.x * kRows + (threadIdx.x / kLanes);
+  const bool live = row0 < rows;
+  const int64_t row = live ? row0 : 0;
+  const int64_t b = row / N;
+  const int64_t base = row * K;
+  const bool g = guard[row] != 0;
+  const float cy = cyc_c[row];
+
+  float a00 = 0.0f, a01 = 0.0f, a11 = 0.0f;
+  float b0r = 0.0f, b0i = 0.0f, b1r = 0.0f, b1i = 0.0f;
+  for (int k = l; k < K; k += kLanes) {
+    const float sr = csr[base + k], si = csi[base + k];
+    const float kh = (float)(k + 1);
+    const float w = wm[b * K + k] * mask[base + k];
+    const float rr = cre[base + k] - sr, ri = cim[base + k] - si;
+    const float pw = (sr * sr + si * si) * w;
+    const float crr = (sr * rr + si * ri) * w;
+    const float cri = (sr * ri - si * rr) * w;
+    a00 += pw;
+    a01 += kh * pw;
+    a11 += kh * kh * pw;
+    b0r += crr;
+    b0i += cri;
+    b1r += kh * crr;
+    b1i += kh * cri;
+  }
+  a00 = half_allsum(a00);
+  a01 = half_allsum(a01);
+  a11 = half_allsum(a11);
+  b0r = half_allsum(b0r);
+  b0i = half_allsum(b0i);
+  b1r = half_allsum(b1r);
+  b1i = half_allsum(b1i);
+  if (!live) return;
+  const float det = a00 * a11 - a01 * a01;
+  const float inv = 1.0f / (det + 1e-5f * a00 * a11 + 1e-12f);
+  const float m0r = (a11 * b0r - a01 * b1r) * inv;
+  const float m0i = (a11 * b0i - a01 * b1i) * inv;
+  const float m1r = (a00 * b1r - a01 * b0r) * inv;
+  const float m1i = (a00 * b1i - a01 * b0i) * inv;
+  for (int k = l; k < K; k += kLanes) {
+    const float cr = cre[base + k], ci = cim[base + k];
+    const float sr = csr[base + k], si = csi[base + k];
+    const float kh = (float)(k + 1);
+    const float wr = m0r + m1r * kh, wi = m0i + m1i * kh;
+    const float rcr = wr * sr - wi * si, rci = wr * si + wi * sr;
+    const float rir = (cr - sr) - rcr, rii = (ci - si) - rci;
+    const float pw = rir * rir + rii * rii;
+    const float gain =
+        fminf(fmaxf(1.0f - strength * v[b * K + k] / (pw + 1e-20f), 0.0f),
+              1.0f);
+    const float ar = g ? sr + rcr + gain * rir : cr;
+    const float ai = g ? si + rci + gain * rii : ci;
+    if (POLAR) {
+      const float2 ap = unalign_polar(ar, ai, kh, cy, mask[base + k]);
+      o0[base + k] = ap.x;
+      o1[base + k] = ap.y;
+    } else {
+      reinterpret_cast<float2*>(o0)[base + k] = make_float2(ar, ai);
+      reinterpret_cast<float2*>(o1)[base + k] =
+          g ? make_float2(sr + rir, si + rii) : make_float2(0.0f, 0.0f);
+    }
+  }
+}
+
 // I: the slot index type, 32-bit below 2^31 slots (its divisions are the
 // cheap ones), 64-bit above
 template <typename I>
@@ -270,9 +352,20 @@ extern "C" int llsm_denoise_apply(const float* v, const float* wm,
                                   float* o1, int B, int N, int K,
                                   float strength, int polar, void* stream) {
   if (B <= 0 || N <= 0 || K <= 0) return (int)cudaGetLastError();
-  if (K > 8 * kLanes) return (int)cudaErrorInvalidValue;
   const int64_t rows = (int64_t)B * N;
   const cudaStream_t st = (cudaStream_t)stream;
+  if (K > 8 * kLanes) {
+    const unsigned blocks = (unsigned)((rows + kRows - 1) / kRows);
+    if (polar)
+      denoise_apply_wide_kernel<true><<<blocks, kRows * kLanes, 0, st>>>(
+          v, wm, cre, cim, csr, csi, cyc_c, mask, guard, o0, o1, rows, N, K,
+          strength);
+    else
+      denoise_apply_wide_kernel<false><<<blocks, kRows * kLanes, 0, st>>>(
+          v, wm, cre, cim, csr, csi, cyc_c, mask, guard, o0, o1, rows, N, K,
+          strength);
+    return (int)cudaGetLastError();
+  }
   if (K % 4 == 0 && K > 64 && K <= 80)   // the 16 kHz default, K = 80
     return (int)launch_apply<5, 1>(polar, v, wm, cre, cim, csr, csi, cyc_c,
                                    mask, guard, o0, o1, rows, N, K, strength,

@@ -25,6 +25,11 @@
 // code a sample at a time with scalar loads and stores.  Threads walk the
 // tile's (frame, run) pairs in order, the pair advanced by adding the
 // stride's quotient and remainder (one divide a thread, none a sample).
+// Past Ke = 8 (maxnhar_e >= 9) env_render_wide_kernel takes a sample a
+// thread, its ladder a rotation at a time inside each channel's sum
+// (common.cuh's envelope_sample, as noise_mod_ola.cu renders it): no
+// register arrays sized by Ke, so any Ke whose coefficients fit in shared
+// memory.
 #include "common.cuh"
 
 namespace {
@@ -161,6 +166,59 @@ env_render_kernel(const float* __restrict__ cyc, const float* __restrict__ edc,
   }
 }
 
+// Ke > kMaxKe: a sample a thread, coefficients staged per frame as
+// env_render_kernel stages them (here as (a_i, a_{i+1}) pairs), each
+// channel's envelope by envelope_sample
+__global__ void __launch_bounds__(kThreads)
+env_render_wide_kernel(const float* __restrict__ cyc,
+                       const float* __restrict__ edc,
+                       const float* __restrict__ ar,
+                       const float* __restrict__ ai,
+                       const float* __restrict__ base,
+                       float* __restrict__ env, float* __restrict__ base_o,
+                       int N, int nhop, int64_t nx, int C, int Ke) {
+  const int CK = C * Ke;
+  extern __shared__ float sm[];
+  float* s_e = sm;                                // [kFrames + 1, C]
+  float* s_b = s_e + (kFrames + 1) * C;
+  float* s_r = s_b + (kFrames + 1) * C;           // [kFrames + 1, C, Ke]
+  float* s_i = s_r + (kFrames + 1) * CK;
+  const int b = blockIdx.y;
+  const int f0 = blockIdx.x * kFrames;
+  const int64_t row0 = (int64_t)b * N;
+  for (int idx = threadIdx.x; idx < (kFrames + 1) * C; idx += kThreads) {
+    const int64_t fr = row0 + min(f0 + idx / C, N - 1);
+    s_e[idx] = edc[fr * C + idx % C];
+    s_b[idx] = base[fr * C + idx % C];
+  }
+  for (int idx = threadIdx.x; idx < (kFrames + 1) * CK; idx += kThreads) {
+    const int64_t fr = row0 + min(f0 + idx / CK, N - 1);
+    s_r[idx] = ar[fr * CK + idx % CK];
+    s_i[idx] = ai[fr * CK + idx % CK];
+  }
+  __syncthreads();
+  const float inv_hop = 1.0f / (float)nhop;
+  const float* cycr = cyc + (int64_t)b * nx;
+  for (int e = threadIdx.x; e < kFrames * nhop; e += kThreads) {
+    const int r = e / nhop, t = e - r * nhop;
+    const int64_t g = (int64_t)(f0 + r) * nhop + t;
+    if (g >= nx) break;
+    const float sv = (float)t * inv_hop;
+    float s1, c1;
+    sincospif(2.0f * llsm::frac_c(cycr[g]), &s1, &c1);
+    for (int c = 0; c < C; ++c) {
+      const int rc = r * C + c;
+      const float v = llsm::envelope_sample(
+          s_e[rc], s_e[rc + C], s_r + rc * Ke, s_r + (rc + C) * Ke,
+          s_i + rc * Ke, s_i + (rc + C) * Ke, Ke, sv, c1, s1);
+      const float b0 = s_b[rc];
+      const int64_t o = ((int64_t)b * C + c) * nx + g;
+      __stcs(env + o, fmaxf(v, 0.0f));
+      __stcs(base_o + o, fmaxf(b0 + (s_b[rc + C] - b0) * sv, 1e-8f));
+    }
+  }
+}
+
 template <int CT, int KT, int V>
 cudaError_t launch(const float* cyc, const float* edc, const float* ar,
                    const float* ai, const float* base, float* env,
@@ -185,9 +243,20 @@ extern "C" int llsm_env_render(const float* cyc, const float* edc,
                                int Ke, void* stream) {
   if (B <= 0 || N <= 0 || nhop <= 0 || nx <= 0 || C <= 0)
     return (int)cudaGetLastError();
-  if ((int64_t)nx > (int64_t)N * nhop || Ke < 1 || Ke > kMaxKe)
+  if ((int64_t)nx > (int64_t)N * nhop || Ke < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  if (Ke > kMaxKe) {
+    const size_t smem =
+        (size_t)(kFrames + 1) * 2 * (C + C * Ke) * sizeof(float);
+    cudaError_t e = llsm::allow_smem(env_render_wide_kernel, smem);
+    if (e != cudaSuccess) return (int)e;
+    const int64_t tile = (int64_t)kFrames * nhop;
+    dim3 grid((unsigned)((nx + tile - 1) / tile), B);
+    env_render_wide_kernel<<<grid, kThreads, smem, st>>>(
+        cyc, edc, ar, ai, base, env, base_o, N, nhop, (int64_t)nx, C, Ke);
+    return (int)cudaGetLastError();
+  }
   const bool aligned = ((uintptr_t)cyc | (uintptr_t)env |
                         (uintptr_t)base_o) % 16 == 0;
   if (C == 4 && Ke == 4 && nhop % 4 == 0 && nx % 4 == 0 && aligned)

@@ -38,6 +38,16 @@
 // of both passes is there because shared-memory loads, not arithmetic,
 // bound a layout of one t and one sample a thread (a load a bin a frame,
 // ~90 loads a sample).  No 64-bit division.
+//
+// noise_mod_kernel takes nhop <= 256 (a pass-1 thread a sample pair of a
+// frame group), C <= 8 bands and Ke <= 8 (its band table is a kernel
+// argument).  Past any of them (48 kHz at a 10 ms hop: nhop = 480)
+// noise_wide_kernel runs the same two passes with F frames a block (F - 1
+// output hops; kernels._noise_geometry takes the largest F of 16, 12, 8, 4
+// whose [F, C, nhop] (E, O) buffer and staged spectra fit in shared
+// memory), each thread looping over pass 1's sample pairs, and the band
+// table (each band's bins, first even bin, first slot and slot count) in
+// shared memory, made from the 2 C band ranges in device memory.
 #include "common.cuh"
 
 // LLSM_SKIP_PASS_{A,B} = 1 compiles pass 1 or pass 2 out, for the pass
@@ -295,17 +305,254 @@ noise_mod_kernel(const float* __restrict__ cyc, const float* __restrict__ edc,
   }
 }
 
+constexpr int kWideThreads = 512;
+
+// nhop > 256, C > 8 or Ke > 8: noise_mod_kernel's passes at F frames a
+// block (F - 1 output hops, F a multiple of kGroup), L staged slots a frame;
+// bands [2 C] in device memory.  Dynamic shared memory as noise_mod_kernel's
+// at F frames, then the band table [5, C] ints.
+__global__ void __launch_bounds__(kWideThreads)
+noise_wide_kernel(const float* __restrict__ cyc, const float* __restrict__ edc,
+                  const float* __restrict__ ar, const float* __restrict__ ai,
+                  const float* __restrict__ base,
+                  const float* __restrict__ re, const float* __restrict__ im,
+                  int64_t spec_bstride, const float* __restrict__ gain,
+                  const int* __restrict__ bands, float* __restrict__ y,
+                  int N, int nhop, int C, int Ke, int L, int F) {
+  extern __shared__ float sm[];
+  const int T = 2 * nhop, nbin = nhop + 1, CK = C * Ke, H = F - 1;
+  float2* spec = reinterpret_cast<float2*>(sm);       // [F, L]
+  float2* eo = spec + F * L;                           // [F, C, nhop]
+  float* tc = reinterpret_cast<float*>(eo + F * C * nhop);  // [T]
+  float* ts = tc + T;                                  // [T]
+  float* win = ts + T;                                 // [T]
+  float* s_edc = win + T;                              // [F, C]
+  float* s_base = s_edc + F * C;
+  float* s_ar = s_base + F * C;                        // [F, C, Ke]
+  float* s_ai = s_ar + F * CK;
+  int* s_bin = reinterpret_cast<int*>(s_ai + F * CK);  // [L]
+  int* b_lo = s_bin + L;                               // [C] each
+  int* b_hi = b_lo + C;
+  int* b_base = b_hi + C;
+  int* b_off = b_base + C;
+  int* b_plen = b_off + C;
+  const int b = blockIdx.y;
+  const int f0 = blockIdx.x * H;
+  const int64_t row0 = (int64_t)b * N;
+
+  if (threadIdx.x == 0) {
+    int off = 0;
+    for (int c = 0; c < C; ++c) {
+      const int lo = bands[2 * c], hi = bands[2 * c + 1];
+      b_lo[c] = lo;
+      b_hi[c] = hi;
+      b_base[c] = lo & ~1;
+      b_off[c] = off;
+      b_plen[c] = hi > lo ? ((hi - b_base[c] + 1) & ~1) : 0;
+      off += b_plen[c];
+    }
+  }
+  for (int m = threadIdx.x; m < T; m += blockDim.x) {
+    float sn, c;
+    sincospif(__fdiv_rn(2.0f * (float)m, (float)T), &sn, &c);
+    tc[m] = c;
+    ts[m] = sn;
+    win[m] = sqrtf(0.5f - 0.5f * cospif(__fdiv_rn(2.0f * (float)m + 1.0f,
+                                                  (float)T)));
+  }
+  for (int idx = threadIdx.x; idx < F * C; idx += blockDim.x) {
+    const int64_t fr = row0 + min(f0 + idx / C, N - 1);
+    const int c = idx % C;
+    s_edc[idx] = __ldg(edc + fr * C + c);
+    s_base[idx] = __ldg(base + fr * C + c);
+  }
+  for (int idx = threadIdx.x; idx < F * CK; idx += blockDim.x) {
+    const int64_t fr = row0 + min(f0 + idx / CK, N - 1);
+    const int q = idx % CK;
+    s_ar[idx] = __ldg(ar + fr * CK + q);
+    s_ai[idx] = __ldg(ai + fr * CK + q);
+  }
+  __syncthreads();
+  for (int slot = threadIdx.x; slot < L; slot += blockDim.x) {
+    int c = 0;
+    while (c + 1 < C && slot >= b_off[c + 1]) ++c;
+    const int k = b_base[c] + slot - b_off[c];
+    s_bin[slot] = (k >= b_lo[c] && k < b_hi[c]) ? k : -1;
+  }
+  __syncthreads();
+  const float ends = 1.0f / sqrtf((float)T);
+  const float mid = sqrtf(2.0f / (float)T);
+  for (int idx = threadIdx.x; idx < F * L; idx += blockDim.x) {
+    const int j = idx / L, slot = idx - j * L;
+    const int f = f0 + j, k = s_bin[slot];
+    float2 v = make_float2(0.0f, 0.0f);
+    if (f < N && k >= 0) {
+      const int64_t o = spec_bstride * b + (int64_t)f * nbin + k;
+      const float g = __ldg(gain + (row0 + f) * nbin + k);
+      const bool edge = k == 0 || k == nbin - 1;
+      v.x = __ldg(re + o) * g * (edge ? ends : mid);
+      v.y = edge ? 0.0f : __ldg(im + o) * g * mid;
+    }
+    spec[idx] = v;
+  }
+  __syncthreads();
+
+  // pass 1 as noise_mod_kernel's, each thread looping over the (frame
+  // group, sample pair) items
+  const int half = (nhop + 1) >> 1;
+  for (int w = threadIdx.x; !LLSM_SKIP_PASS_A && w < (F / kGroup) * half;
+       w += blockDim.x) {
+    const int g = w / half, ta = w - g * half;
+    const bool has_b = ta + half < nhop;
+    const int tb = has_b ? ta + half : ta;
+    const float rar = tc[ta], rai = ts[ta];
+    const float rbr = tc[tb], rbi = ts[tb];
+    const int stepa = (kRestart * ta) % T, stepb = (kRestart * tb) % T;
+    const float2* sp = spec + g * kGroup * L;
+    for (int c = 0; c < C; ++c) {
+      float ea[kGroup], oa[kGroup], eb[kGroup], ob[kGroup];
+#pragma unroll
+      for (int q = 0; q < kGroup; ++q) ea[q] = oa[q] = eb[q] = ob[q] = 0.0f;
+      int ma = (int)(((int64_t)b_base[c] * ta) % T);
+      int mb = (int)(((int64_t)b_base[c] * tb) % T);
+      const int off = b_off[c], plen = b_plen[c];
+      for (int s0 = 0; s0 < plen; s0 += kRestart) {
+        float zar = tc[ma], zai = ts[ma], zbr = tc[mb], zbi = ts[mb];
+        const int n = min(kRestart, plen - s0);
+        for (int p = 0; p < n; p += 2) {
+          const int sl = off + s0 + p;
+#pragma unroll
+          for (int q = 0; q < kGroup; ++q) {
+            const float2 v = sp[q * L + sl];
+            ea[q] = fmaf(v.x, zar, fmaf(-v.y, zai, ea[q]));
+            eb[q] = fmaf(v.x, zbr, fmaf(-v.y, zbi, eb[q]));
+          }
+          rotate(zar, zai, rar, rai);
+          rotate(zbr, zbi, rbr, rbi);
+#pragma unroll
+          for (int q = 0; q < kGroup; ++q) {
+            const float2 v = sp[q * L + sl + 1];
+            oa[q] = fmaf(v.x, zar, fmaf(-v.y, zai, oa[q]));
+            ob[q] = fmaf(v.x, zbr, fmaf(-v.y, zbi, ob[q]));
+          }
+          rotate(zar, zai, rar, rai);
+          rotate(zbr, zbi, rbr, rbi);
+        }
+        ma += stepa;
+        if (ma >= T) ma -= T;
+        mb += stepb;
+        if (mb >= T) mb -= T;
+      }
+#pragma unroll
+      for (int q = 0; q < kGroup; ++q) {
+        float2* e = eo + ((g * kGroup + q) * C + c) * nhop;
+        e[ta] = make_float2(ea[q], oa[q]);
+        if (has_b) e[tb] = make_float2(eb[q], ob[q]);
+      }
+    }
+  }
+  __syncthreads();
+
+  // pass 2 as noise_mod_kernel's
+  const int nh = min(H, N - f0);
+  const int q4 = (nhop + kSamples - 1) / kSamples;
+  const float inv_hop = 1.0f / (float)nhop;
+  for (int idx = threadIdx.x; !LLSM_SKIP_PASS_B && idx < nh * q4;
+       idx += blockDim.x) {
+    const int i = idx / q4, t0 = idx - i * q4;
+    const bool partner = f0 + i + 1 < N;
+    const int64_t g0 = (row0 + f0 + i) * nhop;
+    float c1[kSamples], s1[kSamples], sv[kSamples], acc[kSamples];
+    float wa[kSamples], wb[kSamples];
+    int tt[kSamples];
+#pragma unroll
+    for (int r = 0; r < kSamples; ++r) {
+      const int t = t0 + r * q4;
+      tt[r] = t < nhop ? t : t0;
+      sincospif(2.0f * llsm::frac_c(cyc[g0 + tt[r]]), &s1[r], &c1[r]);
+      sv[r] = (float)tt[r] * inv_hop;
+      wa[r] = win[nhop + tt[r]];
+      wb[r] = partner ? win[tt[r]] : 0.0f;
+      acc[r] = 0.0f;
+    }
+    for (int c = 0; c < C; ++c) {
+      const float e0 = s_edc[i * C + c], de = s_edc[(i + 1) * C + c] - e0;
+      const float b0 = s_base[i * C + c], db = s_base[(i + 1) * C + c] - b0;
+      float env[kSamples], zr[kSamples], zi[kSamples];
+#pragma unroll
+      for (int r = 0; r < kSamples; ++r) {
+        env[r] = fmaf(de, sv[r], e0);
+        zr[r] = c1[r];
+        zi[r] = s1[r];
+      }
+      const float* a0 = s_ar + i * CK + c * Ke;
+      const float* p0 = s_ai + i * CK + c * Ke;
+      for (int k = 0; k < Ke; ++k) {
+        const float a = a0[k], da = a0[CK + k] - a;
+        const float p = p0[k], dp = p0[CK + k] - p;
+#pragma unroll
+        for (int r = 0; r < kSamples; ++r) {
+          env[r] += fmaf(da, sv[r], a) * zr[r] - fmaf(dp, sv[r], p) * zi[r];
+          rotate(zr[r], zi[r], c1[r], s1[r]);
+        }
+      }
+      const float2* e = eo + (i * C + c) * nhop;
+#pragma unroll
+      for (int r = 0; r < kSamples; ++r) {
+        const float2 cur = e[tt[r]];
+        float ola = wa[r] * (cur.x - cur.y);
+        if (partner) {
+          const float2 nxt = e[C * nhop + tt[r]];
+          ola = fmaf(wb[r], nxt.x + nxt.y, ola);
+        }
+        const float bl = fmaf(db, sv[r], b0);
+        acc[r] = fmaf(ola, __fdividef(fmaxf(env[r], 0.0f), fmaxf(bl, 1e-8f)),
+                      acc[r]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kSamples; ++r)
+      if (t0 + r * q4 < nhop) y[g0 + t0 + r * q4] = acc[r];
+  }
+}
+
 }  // namespace
 
 // bands: 2 C ints on the host, each band's bin range [lo, hi) (lo = hi for
-// an empty band).
+// an empty band), and the same in device memory (bands_d, read by the wide
+// kernel); F: the wide kernel's frames a block (kernels._noise_geometry),
+// 0 for noise_mod_kernel.
 extern "C" int llsm_noise_mod_ola(const float* cyc, const float* edc,
                                   const float* ar, const float* ai,
                                   const float* base, const float* re,
                                   const float* im, long long spec_bstride,
                                   const float* gain, const int* bands,
-                                  float* y, int B, int N, int nhop, int C,
-                                  int Ke, void* stream) {
+                                  const int* bands_d, float* y, int B, int N,
+                                  int nhop, int C, int Ke, int F,
+                                  void* stream) {
+  if (F > 0) {
+    if (nhop <= 0 || C <= 0 || Ke < 0 || F % kGroup || !bands_d)
+      return (int)cudaErrorInvalidValue;
+    if (B <= 0 || N <= 0) return (int)cudaGetLastError();
+    int L = 0;
+    for (int c = 0; c < C; ++c) {
+      const int lo = bands[2 * c], hi = bands[2 * c + 1];
+      L += hi > lo ? ((hi - (lo & ~1) + 1) & ~1) : 0;
+    }
+    const int T = 2 * nhop;
+    const size_t smem = (size_t)F * L * sizeof(float2) +
+                        (size_t)F * C * nhop * sizeof(float2) +
+                        (size_t)3 * T * sizeof(float) +
+                        (size_t)F * (2 * C + 2 * C * Ke) * sizeof(float) +
+                        (size_t)(L + 5 * C) * sizeof(int);
+    cudaError_t e = llsm::allow_smem(noise_wide_kernel, smem);
+    if (e != cudaSuccess) return (int)e;
+    dim3 grid((N + F - 2) / (F - 1), B);
+    noise_wide_kernel<<<grid, kWideThreads, smem, (cudaStream_t)stream>>>(
+        cyc, edc, ar, ai, base, re, im, (int64_t)spec_bstride, gain, bands_d,
+        y, N, nhop, C, Ke, L, F);
+    return (int)cudaGetLastError();
+  }
   if (B <= 0 || N <= 0) return (int)cudaGetLastError();
   if (nhop <= 0 || kGroups * ((nhop + 1) / 2) > kMaxThreads || C <= 0 ||
       C > kMaxC || Ke < 0 ||
@@ -423,9 +670,10 @@ extern "C" int llsm_noise_mod_ola_seg(const float* cyc, const float* edc,
                                       float* y, int B, int N, int nhop, int C,
                                       int Ke, void* stream) {
   if (B <= 0 || N <= 0) return (int)cudaGetLastError();
-  if (nhop <= 0 || C <= 0 || C > kMaxC || Ke < 0 || Ke > kMaxKe)
-    return (int)cudaErrorInvalidValue;
+  if (nhop <= 0 || C <= 0 || Ke < 0) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)kFrames * (2 * C + 2 * C * Ke) * sizeof(float);
+  cudaError_t e = llsm::allow_smem(noise_seg_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
   dim3 grid((N + kHops - 1) / kHops, B);
   noise_seg_kernel<<<grid, kSegThreads, smem, (cudaStream_t)stream>>>(
       cyc, edc, ar, ai, base, seg, y, N, nhop, C, Ke);

@@ -45,9 +45,12 @@
 // kernel launch after a memset of its tile words, a block of 4 warps
 // a tile of T <= 128 hops of one row, grid (tiles, rows).
 //   - Steps: L lanes share a hop, each a run of at most 10 consecutive
-//     samples; a lane evaluates each step once, in registers, with the
-//     plain version's float32 operations rounded one by one (__fmul_rn /
-//     __fadd_rn keep FMA contraction out; the division as below).  The
+//     samples (up to nhop = 320; past it 32 lanes with runs of up to 16,
+//     32 or 64 samples, the last two for nhop > 512, at most 2048: 48 kHz
+//     at a 20 ms hop is 960); a lane evaluates each step once, in
+//     registers, with the plain version's float32 operations rounded one
+//     by one (__fmul_rn / __fadd_rn keep FMA contraction out; the
+//     division as below).  The
 //     position s / nhop is not divided a sample: below 2^24 samples its
 //     fraction in hop j is fl(j + t / nhop) - j, which depends only on t
 //     and the binade of j (no tie can fall on that grid there), so a
@@ -333,7 +336,7 @@ extern "C" int llsm_sample_cycles(const float* f0, float* out,
                                   int N, int nhop, int nx, float fs,
                                   void* stream) {
   if (B <= 0 || nx <= 0) return (int)cudaGetLastError();
-  if (N < 2 || nhop <= 0 || nx % nhop || nhop > 32 * 16)
+  if (N < 2 || nhop <= 0 || nx % nhop || nhop > 32 * 64)
     return (int)cudaErrorInvalidValue;
   const int lg = lanes_log2(nhop);
   const int run = (nhop + (1 << lg) - 1) >> lg;
@@ -349,7 +352,14 @@ extern "C" int llsm_sample_cycles(const float* f0, float* out,
     LLSM_RUN(7) LLSM_RUN(8) LLSM_RUN(9) LLSM_RUN(10)
 #undef LLSM_RUN
     default:
-      e = launch<16>(f0, out, word, base, start, B, N, nhop, H, fs, lg, st);
+      // past 16 samples a lane (nhop > 512: 48 kHz at a 20 ms hop) the
+      // runs of 32 or 64 samples
+      if (run <= 16)
+        e = launch<16>(f0, out, word, base, start, B, N, nhop, H, fs, lg, st);
+      else if (run <= 32)
+        e = launch<32>(f0, out, word, base, start, B, N, nhop, H, fs, lg, st);
+      else
+        e = launch<64>(f0, out, word, base, start, B, N, nhop, H, fs, lg, st);
   }
   return (int)e;
 }

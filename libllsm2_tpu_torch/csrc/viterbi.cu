@@ -54,6 +54,18 @@
 // (155 KB at 1600 x 97), else in device memory; after the last barrier
 // warp 0 takes the final argmax and thread 0 walks the backpointers.  No
 // host synchronisation: the wrapper allocates, launches once and returns.
+//
+// Past S = 256 (a tracker with nbins >= 256) a state no longer fits a lane
+// group of the block nor a backpointer a byte: viterbi_wide_kernel (lt mode
+// 3) takes one lane a state, min(1024, S rounded up to 32) threads, each
+// thread the destinations j = tid + r threads; a destination covers every
+// source state in the four partial maxima i = 4 m + e of the kernel above
+// at P = 1 (so the same order model holds), lt read from device memory
+// (S^2 floats, 4.2 MB at S = 1025, stay in L2), the observations read a
+// step at a time, the backpointers uint16.  Its limit is shared memory:
+// the two score rows, 8 C bytes (C = S rounded up to 4), and the warps'
+// maxima fit up to S = 29024 (kernels._VITERBI_MAX_STATES).  It is written
+// to be right, not fast: S^2 candidates a step on one SM.
 #include "common.cuh"
 
 namespace {
@@ -327,25 +339,165 @@ Kernel pick(int C, int lt_mode, int bp_smem, int renorm) {
   return nullptr;
 }
 
+// lt mode 3, S > 256: one lane a state, a thread the destinations j = tid,
+// tid + blockDim.x, ...; C = S rounded up to 4 source states a lane in the
+// four partial maxima of viterbi_kernel at P = 1; BP the backpointers' type
+// (uint16).  Dynamic shared memory: the two score rows [2][C], the warps'
+// maxima [2][kMaxWarps], then the backpointers [(N - 1) * S] if BP_SMEM.
+template <typename BP, bool BP_SMEM, bool RENORM>
+__global__ void __launch_bounds__(kMaxThreads)
+    viterbi_wide_kernel(const float* __restrict__ obs,
+                        const float* __restrict__ lt,
+                        long long* __restrict__ path,
+                        float* __restrict__ final_score, BP* bp_g, int N,
+                        int S, int C) {
+  extern __shared__ __align__(16) float smem[];
+  float* s = smem;                               // [2][C]
+  int* red = reinterpret_cast<int*>(s + 2 * C);  // [2][kMaxWarps] keys
+  BP* bp_s = reinterpret_cast<BP*>(red + 2 * kMaxWarps);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int T = blockDim.x, b = blockIdx.x;
+  const float* o = obs + (long long)b * N * S;
+  BP* bp = BP_SMEM ? bp_s : bp_g + (long long)b * (N - 1) * S;
+
+  for (int k = tid; k < 2 * C; k += T) s[k] = -INFINITY;
+  for (int k = tid; k < 2 * kMaxWarps; k += T) red[k] = fkey(-INFINITY);
+  __syncthreads();
+  int kmax = fkey(-INFINITY);
+  for (int j = tid; j < S; j += T) {
+    const float v = o[j];
+    s[j] = v;
+    kmax = max(kmax, fkey(v));
+  }
+  if (RENORM) {
+    kmax = __reduce_max_sync(kFull, kmax);
+    if (lane == 0) red[warp] = kmax;
+  }
+  __syncthreads();
+
+  for (int t = 1; t < N; ++t) {
+    const int cur = (t - 1) & 1, nxt = t & 1;
+    const float4* sp4 = reinterpret_cast<const float4*>(s + cur * C);
+    const float m = RENORM ? row_max(red + cur * kMaxWarps, lane) : 0.0f;
+    kmax = fkey(-INFINITY);
+    for (int j = tid; j < S; j += T) {
+      const float ob = __ldg(o + (long long)t * S + j);
+      float bv[4];
+      int bi[4];
+      for (int mm = 0; mm < C / 4; ++mm) {
+        const float4 q = sp4[mm];
+        const float qs[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * mm + e;
+          const float sc = RENORM ? __fsub_rn(qs[e], m) : qs[e];
+          const float l = i < S ? __ldg(lt + (long long)i * S + j) : 0.0f;
+          const float c = __fadd_rn(sc, l);
+          if (mm == 0) {
+            bv[e] = c;
+            bi[e] = i;
+          } else {
+            take_gt(bv[e], bi[e], c, i);
+          }
+        }
+      }
+      take_max(bv[0], bi[0], bv[1], bi[1]);
+      take_max(bv[2], bi[2], bv[3], bi[3]);
+      take_max(bv[0], bi[0], bv[2], bi[2]);
+      const float v = __fadd_rn(bv[0], ob);
+      s[nxt * C + j] = v;
+      bp[(long long)(t - 1) * S + j] = (BP)bi[0];
+      kmax = max(kmax, fkey(v));
+    }
+    if (RENORM) {
+      kmax = __reduce_max_sync(kFull, kmax);
+      if (lane == 0) red[nxt * kMaxWarps + warp] = kmax;
+    }
+    __syncthreads();
+  }
+
+  // as viterbi_kernel: the last scores out, the final argmax by warp 0,
+  // the backtrace by thread 0
+  const int last = (N - 1) & 1;
+  const float* sf = s + last * C;
+  const float mf = RENORM ? row_max(red + last * kMaxWarps, lane) : 0.0f;
+  for (int j = tid; j < S; j += T)
+    final_score[(long long)b * S + j] = RENORM ? __fsub_rn(sf[j], mf) : sf[j];
+  if (warp == 0) {
+    float bv = -INFINITY;
+    int g = 1 << 30;
+    for (int k = lane; k < S; k += 32) {
+      const float f = RENORM ? __fsub_rn(sf[k], mf) : sf[k];
+      if (k == lane || f > bv) {
+        bv = f;
+        g = k;
+      }
+    }
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float vb = __shfl_xor_sync(kFull, bv, off);
+      const int ib = __shfl_xor_sync(kFull, g, off);
+      take_max(bv, g, vb, ib);
+    }
+    if (lane == 0) {
+      long long* pb = path + (long long)b * N;
+      pb[N - 1] = g;
+      for (int t = N - 2; !LLSM_SKIP_PASS_B && t >= 0; --t) {
+        g = bp[(long long)t * S + g];
+        pb[t] = g;
+      }
+    }
+  }
+}
+
+using WideKernel = void (*)(const float*, const float*, long long*, float*,
+                            uint16_t*, int, int, int);
+
+WideKernel pick_wide(int bp_smem, int renorm) {
+  if (bp_smem)
+    return renorm ? viterbi_wide_kernel<uint16_t, true, true>
+                  : viterbi_wide_kernel<uint16_t, true, false>;
+  return renorm ? viterbi_wide_kernel<uint16_t, false, true>
+                : viterbi_wide_kernel<uint16_t, false, false>;
+}
+
 }  // namespace
 
 // obs [B, N, S], lt [S, S], path [B, N] int64, final_score [B, S], bp (a
-// [B, N - 1, S] uint8 scratch where bp_smem is 0, else null); P lanes a
-// state, C source states a lane, lt_mode and bp_smem as
-// kernels._viterbi_geometry chose them
+// [B, N - 1, S] scratch of bp_bytes-wide backpointers where bp_smem is 0,
+// else null); P lanes a state, C source states a lane, lt_mode, bp_smem
+// and bp_bytes as kernels._viterbi_geometry chose them: modes 0-2 (S <=
+// 256) viterbi_kernel with uint8 backpointers, mode 3 (S > 256)
+// viterbi_wide_kernel with uint16
 extern "C" int llsm_viterbi_scan(const float* obs, const float* lt,
                                  long long* path, float* final_score,
-                                 unsigned char* bp, int B, int N, int S,
-                                 int renorm, int P, int C, int lt_mode,
-                                 int bp_smem, void* stream) {
+                                 void* bp, int B, int N, int S, int renorm,
+                                 int P, int C, int lt_mode, int bp_smem,
+                                 int bp_bytes, void* stream) {
+  if (N < 1 || S < 1 || (!bp_smem && N > 1 && !bp))
+    return (int)cudaErrorInvalidValue;
+  if (lt_mode == 3) {
+    const int threads = min(kMaxThreads, (S + 31) / 32 * 32);
+    const size_t smem = (size_t)(2 * C + 2 * kMaxWarps) * sizeof(float) +
+                        (bp_smem ? (size_t)(N - 1) * S * sizeof(uint16_t)
+                                 : 0);
+    if (S <= kMaxStates || S > 65536 || P != 1 || C % 4 || C < S ||
+        bp_bytes != 2)
+      return (int)cudaErrorInvalidValue;
+    if (B <= 0) return (int)cudaGetLastError();
+    const WideKernel k = pick_wide(bp_smem, renorm);
+    cudaError_t e = llsm::allow_smem(k, smem);
+    if (e != cudaSuccess) return (int)e;
+    k<<<B, threads, smem, (cudaStream_t)stream>>>(
+        obs, lt, path, final_score, static_cast<uint16_t*>(bp), N, S, C);
+    return (int)cudaGetLastError();
+  }
   int log2P = 0;
   while ((1 << log2P) < P) ++log2P;
   const int threads = (P * S + 31) / 32 * 32;
   const Kernel k = pick(C, lt_mode, bp_smem, renorm);
-  if (N < 1 || S < 1 || S > kMaxStates || P < 1 || P > 32 ||
-      (1 << log2P) != P || P * C < S || !k ||
-      threads > max_threads(C, lt_mode) ||
-      (!bp_smem && N > 1 && !bp))
+  if (S > kMaxStates || P < 1 || P > 32 || (1 << log2P) != P || P * C < S ||
+      !k || threads > max_threads(C, lt_mode) || bp_bytes != 1)
     return (int)cudaErrorInvalidValue;
   if (B <= 0) return (int)cudaGetLastError();
   const size_t smem =
@@ -354,7 +506,8 @@ extern "C" int llsm_viterbi_scan(const float* obs, const float* lt,
                       (bp_smem ? (size_t)(N - 1) * S : 0);
   cudaError_t e = llsm::allow_smem(k, smem);
   if (e != cudaSuccess) return (int)e;
-  k<<<B, threads, smem, (cudaStream_t)stream>>>(obs, lt, path, final_score,
-                                                bp, N, S, P, log2P);
+  k<<<B, threads, smem, (cudaStream_t)stream>>>(
+      obs, lt, path, final_score, static_cast<unsigned char*>(bp), N, S, P,
+      log2P);
   return (int)cudaGetLastError();
 }

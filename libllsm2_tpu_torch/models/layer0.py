@@ -179,20 +179,34 @@ def _band_envelopes(residual: torch.Tensor, conf: ChunkConf,
     return torch.abs(z).reshape(B, C, nfft_d)[..., :nx // D]
 
 
-def _warped_psd(residual: torch.Tensor, nfrm: int,
-                conf: ChunkConf) -> torch.Tensor:
+# the longest periodogram whose FFT and band product gave each row the
+# same bits alone and in a batch on the H100 (512 points: 16 kHz at a 5 ms
+# hop, chip_smoke.py phase 5); at 48 kHz (2048 points, a 1025-bin product)
+# they did not (phase 20b), so longer ones run in row groups
+PSD_UNGROUPED_NFFT = 512
+
+
+def _warped_psd(residual: torch.Tensor, nfrm: int, conf: ChunkConf,
+                rows: int | None = None) -> torch.Tensor:
     """Per-frame PSD of the residual [B, nx] on the warped axis
-    [B, N, npsd] (reference: dsputils.c warped PSD estimation)."""
+    [B, N, npsd] (reference: dsputils.c warped PSD estimation); with
+    `rows`, periodograms longer than PSD_UNGROUPED_NFFT take their FFTs
+    and band product in groups of that many rows (_row_groups), so a
+    row's PSD does not depend on its batch."""
     nhop = conf.nhop
     winlen = 4 * nhop
     nfft = spectral.next_pow2(winlen)
-    frames = harmonics.frame_hops(residual, nfrm, nhop, 2)
     # np.hanning is the SYMMETRIC window, as jnp.hanning
     w = torch.as_tensor(np.hanning(winlen), dtype=FP, device=residual.device)
-    pgram = spectral.periodogram(frames, w, nfft)          # [B, N, nbin]
     band_mat = warp.warped_band_matrix(conf.npsd, nfft // 2 + 1, conf.fs,
                                        conf.noswarp, device=residual.device)
-    return pgram @ band_mat.T
+
+    def psd(r):
+        frames = harmonics.frame_hops(r, nfrm, nhop, 2)
+        return spectral.periodogram(frames, w, nfft) @ band_mat.T
+    if rows is None or nfft <= PSD_UNGROUPED_NFFT:
+        return psd(residual)
+    return _row_groups(psd, residual, rows)
 
 
 def _complex_handoff(opt: AnalysisOptions) -> bool:
@@ -734,7 +748,7 @@ def _analyze(opt: AnalysisOptions, x: torch.Tensor,
         edc = edc.transpose(1, 2)
         eenv_a = ea.reshape(B, Cn, nfrm, Ke).transpose(1, 2)  # [B, N, C, Ke]
         eenv_p = ep.reshape(B, Cn, nfrm, Ke).transpose(1, 2)
-        psd = _warped_psd(residual, nfrm, conf)
+        psd = _warped_psd(residual, nfrm, conf, rows=_group_rows(nfrm))
     return Chunk(f0=f0, ampl=ampl, phse=phse, hm_mask=mask, psd=psd,
                  edc=edc.contiguous(), eenv_a=eenv_a.contiguous(),
                  eenv_p=eenv_p.contiguous(), conf=conf)

@@ -50,16 +50,20 @@ SIGNATURES = {
     "llsm_deconv_full": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                          _I, _P),
     # cyc, edc, ar, ai, base, re, im, spec batch stride, gain, bands (host,
-    # 2 C ints), y, B, N, nhop, C, Ke, stream
-    "llsm_noise_mod_ola": (_P, _P, _P, _P, _P, _P, _P, _L, _P, _P, _P, _I,
-                           _I, _I, _I, _I, _P),
+    # 2 C ints), bands (device, or null), y, B, N, nhop, C, Ke, F
+    # (kernels._noise_geometry), stream
+    "llsm_noise_mod_ola": (_P, _P, _P, _P, _P, _P, _P, _L, _P, _P, _P, _P,
+                           _I, _I, _I, _I, _I, _I, _P),
     # cyc, edc, ar, ai, base, segs, y, B, N, nhop, C, Ke, stream
     "llsm_noise_mod_ola_seg": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                _I, _P),
     # a, p, cyc_c, mask, voiced, pp, cs2, r2, guard (bool), cre, cim, csr,
-    # csi, B, N, K, taps1 (host), n1, taps2 (host), n2, complex_input, stream
+    # csi, B, N, K, taps1 (host), n1, taps2 (host), n2, taps1, taps2
+    # (device, or null), kc (kernels._denoise_geometry), complex_input,
+    # stream
     "llsm_denoise_stats": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                           _P, _I, _I, _I, _P, _I, _P, _I, _I, _P),
+                           _P, _I, _I, _I, _P, _I, _P, _I, _P, _P, _I, _I,
+                           _P),
     # v, wmul, cre, cim, csr, csi, cyc_c, mask, guard (bool), o0, o1, B, N,
     # K, strength, polar, stream
     "llsm_denoise_apply": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
@@ -98,9 +102,10 @@ SIGNATURES = {
     "llsm_refine_f0_full": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F,
                             _F, _F, _F, _F, _F, _F, _F, _F, _I, _I, _I, _P),
     # obs, lt, path, final scores, backpointer scratch (or null), B, N, S,
-    # renorm, P, C, lt_mode, bp_smem (kernels._viterbi_geometry), stream
+    # renorm, P, C, lt_mode, bp_smem, bp_bytes (kernels._viterbi_geometry),
+    # stream
     "llsm_viterbi_scan": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                          _I, _P),
+                          _I, _I, _P),
 }
 
 _lib = None

@@ -325,9 +325,43 @@ def _deconv_step(ampl, phse, cyc_c, hw, eq_re, eq_im, D, nhop, stride):
 # 4. noise-band OLA + envelope modulation (pallas_osc.noise_mod_ola_pallas)
 # ---------------------------------------------------------------------------
 
+# noise_mod_ola.cu's first kernel: nhop <= 256, C <= 8, Ke <= 8, 16 frames a
+# block; the wide kernel the rest at 16, 12, 8 or 4 frames a block
 _NOISE_MAX_C = 8
 _NOISE_MAX_KE = 8
 _NOISE_MAX_HOP = 256
+_NOISE_FRAMES = (16, 12, 8, 4)
+
+
+@functools.lru_cache(maxsize=64)
+def _noise_geometry(nhop: int, C: int, Ke: int, bands: tuple) -> tuple:
+    """noise_mod_ola.cu's launch -> (F, the wide kernel's frames a block, 0
+    for the first kernel; L, the staged slots a frame; shared bytes).  L
+    sums each band's slots, from its first even bin, an even count
+    (band_ranges' [lo, hi) each).  Shared memory at F frames: the staged
+    spectra [F, L] and (E, O) [F, C, nhop] float2, the three [2 nhop]
+    tables, the coefficients [F, 2 C (Ke + 1)] floats and the slots' bins
+    [L] ints; the wide kernel's band table [5, C] ints too.  The first
+    kernel (F = 16) where nhop <= 256, C <= 8 and Ke <= 8; else the
+    largest F of _NOISE_FRAMES that fits; None where none does."""
+    L = sum((hi - (lo & ~1) + 1) & ~1 if hi > lo else 0
+            for lo, hi in zip(bands[::2], bands[1::2]))
+
+    def smem(F, table):
+        return (8 * F * L + 8 * F * C * nhop + 12 * 2 * nhop
+                + 4 * F * 2 * C * (Ke + 1) + 4 * L + 4 * table)
+    if nhop <= _NOISE_MAX_HOP and C <= _NOISE_MAX_C and Ke <= _NOISE_MAX_KE:
+        return 0, L, smem(16, 0)
+    for F in _NOISE_FRAMES:
+        if smem(F, 5 * C) <= _SMEM_MAX:
+            return F, L, smem(F, 5 * C)
+    return None
+
+
+@functools.lru_cache(maxsize=32)
+def _bands_on(bands: tuple, device: torch.device) -> torch.Tensor:
+    """The band ranges as int32 on `device`, made once per tuple."""
+    return torch.tensor(bands, dtype=torch.int32, device=device)
 
 
 @functools.lru_cache(maxsize=32)
@@ -357,7 +391,9 @@ def noise_mod_ola(cyc: torch.Tensor, edc: torch.Tensor, ar: torch.Tensor,
     band's bins [lo, hi) as 2 C ints (band_ranges) -> y [B, N*nhop] = sum_c OLA(seg_c) max(env_c, 0) /
     max(base_c, 1e-8), seg_c each frame's windowed inverse real DFT of its
     band's bins of (re scale, im scale') x gain (DC and Nyquist real).  One
-    launch on the card; no [B, C, N, 2 nhop] segment buffer."""
+    launch on the card (any nhop, C and Ke whose 4-frame block fits in
+    shared memory: _noise_geometry); no [B, C, N, 2 nhop] segment
+    buffer."""
     bands = tuple(int(v) for v in bands)
     if not _on_cuda(cyc, edc, ar, ai, base, re, im, gain):
         return noise_mod_ola_ref(cyc, edc, ar, ai, base, re, im, gain, bands)
@@ -373,11 +409,11 @@ def noise_mod_ola(cyc: torch.Tensor, edc: torch.Tensor, ar: torch.Tensor,
                                                         bands[1::2])):
         raise ValueError(f"noise_mod_ola: band ranges {bands} outside "
                          f"0..{nbin}")
-    if not (1 <= nhop <= _NOISE_MAX_HOP and 1 <= C <= _NOISE_MAX_C
-            and Ke <= _NOISE_MAX_KE):
-        raise ValueError(f"noise_mod_ola: nhop {nhop}, C {C}, Ke {Ke} (at "
-                         f"most {_NOISE_MAX_HOP}, {_NOISE_MAX_C}, "
-                         f"{_NOISE_MAX_KE})")
+    geo = _noise_geometry(nhop, C, Ke, bands) if nhop >= 1 and C >= 1 \
+        else None
+    if geo is None:
+        raise ValueError(f"noise_mod_ola: nhop {nhop}, C {C}, Ke {Ke}: the "
+                         "(E, O) buffer of 4 frames overflows shared memory")
     # one draw for the whole batch keeps its [N, nbin] storage: batch
     # stride 0; otherwise a draw a row
     if B > 1 and re.stride(0) == 0 and im.stride(0) == 0:
@@ -387,11 +423,12 @@ def noise_mod_ola(cyc: torch.Tensor, edc: torch.Tensor, ar: torch.Tensor,
     cyc, edc, ar, ai, base, gain = map(_f32, (cyc, edc, ar, ai, base, gain))
     y = torch.empty((B, N * nhop), dtype=FP, device=cyc.device)
     ranges = (ctypes.c_int * (2 * C))(*bands)       # read at the launch
+    ranges_d = _bands_on(bands, cyc.device).data_ptr() if geo[0] else None
     _launch("noise_mod_ola", cyc.data_ptr(), edc.data_ptr(), ar.data_ptr(),
             ai.data_ptr(), base.data_ptr(), spec[0].data_ptr(),
             spec[1].data_ptr(), bstride, gain.data_ptr(),
-            ctypes.addressof(ranges), y.data_ptr(), B, N, nhop, C, Ke,
-            _stream(cyc))
+            ctypes.addressof(ranges), ranges_d, y.data_ptr(), B, N, nhop, C,
+            Ke, geo[0], _stream(cyc))
     return y
 
 
@@ -458,9 +495,9 @@ def noise_mod_ola_seg(cyc: torch.Tensor, edc: torch.Tensor, ar: torch.Tensor,
             or base.shape != (B, N, C) or ai.shape != ar.shape \
             or segs.shape != (B, C, N, T) or T != 2 * nhop:
         raise ValueError("noise_mod_ola_seg: shape mismatch")
-    if not (1 <= C <= _NOISE_MAX_C and Ke <= _NOISE_MAX_KE):
-        raise ValueError(f"noise_mod_ola_seg: C {C}, Ke {Ke} (at most "
-                         f"{_NOISE_MAX_C}, {_NOISE_MAX_KE})")
+    if C < 1 or 4 * 16 * 2 * C * (Ke + 1) > _SMEM_MAX:
+        raise ValueError(f"noise_mod_ola_seg: C {C}, Ke {Ke}: the "
+                         "coefficients of 16 frames overflow shared memory")
     cyc, edc, ar, ai, base, segs = map(_f32, (cyc, edc, ar, ai, base, segs))
     y = torch.empty((B, N * nhop), dtype=FP, device=cyc.device)
     ptrs = (t.data_ptr() for t in (cyc, edc, ar, ai, base, segs, y))
@@ -494,8 +531,9 @@ def env_render(cyc: torch.Tensor, edc: torch.Tensor, ar: torch.Tensor,
     = max(lerp(edc) + sum_k lerp(ar) cos(2 pi k cyc) - lerp(ai) sin(...),
     0), base [B, C, nx] = max(lerp(base), 1e-8)); sample t of frame i
     lerps frames i and i + 1, the last frame holds constant.  nx = N*nhop
-    unless nhop is given: then nx <= N*nhop (the render is cut).  The
-    kernel takes Ke <= 8."""
+    unless nhop is given: then nx <= N*nhop (the render is cut).  Ke <= 8
+    takes env_render.cu's first kernel (one rotation ladder a sample for
+    every channel), more its wide kernel (a ladder a channel)."""
     if not _on_cuda(cyc, edc, ar, ai, base):
         return env_render_ref(cyc, edc, ar, ai, base, nhop)
     B, N, C, Ke = ar.shape
@@ -505,8 +543,10 @@ def env_render(cyc: torch.Tensor, edc: torch.Tensor, ar: torch.Tensor,
             or edc.shape != (B, N, C) or base.shape != (B, N, C) \
             or ai.shape != ar.shape:
         raise ValueError("env_render: shape mismatch")
-    if not 1 <= Ke <= 8:
-        raise ValueError(f"env_render: {Ke} envelope harmonics (1 to 8)")
+    if Ke < 1 or 4 * 2 * 33 * C * (Ke + 1) > _SMEM_MAX:
+        raise ValueError(f"env_render: C {C}, Ke {Ke}: at least one "
+                         "envelope harmonic, and 33 frames' coefficients "
+                         "in shared memory")
     cyc, edc, ar, ai, base = map(_f32, (cyc, edc, ar, ai, base))
     env = torch.empty((B, C, nx), dtype=FP, device=cyc.device)
     base_o = torch.empty_like(env)
@@ -550,11 +590,48 @@ def env_render_ref(cyc, edc, ar, ai, base, nhop: int | None = None):
 #       pallas_osc.denoise_apply_pallas)
 # ---------------------------------------------------------------------------
 
-# frames per block of csrc/denoise_stats.cu (its kTile); the FIR halo
-# h1 + 2 h2 must stay under it, as under the TPU kernel's frame block
+# frames per block of csrc/denoise_stats.cu (its kTile); its first kernel
+# takes K <= 128 and at most 31 taps each with h1 + 2 h2 under the tile,
+# the wide kernel the rest in chunks of at most 128 columns
 _DENOISE_TILE = 64
 _DENOISE_MAX_TAPS = 31
 _DENOISE_MAX_K = 128
+
+
+@functools.lru_cache(maxsize=64)
+def _denoise_frame_block(N: int) -> int:
+    """The Pallas denoiser's frame block at N frames (pallas_osc.py:
+    1176-1179): FRAME_BLOCK = 128, or where that does not divide N the
+    largest multiple of 8 in [64, min(512, N)] that does.  Its FIR halo h1
+    + 2 h2 must stay under the block; denoise_stats takes what it takes."""
+    if N % 128:
+        for cand in range(min(512, N) // 8 * 8, 63, -8):
+            if N % cand == 0:
+                return cand
+    return 128
+
+
+@functools.lru_cache(maxsize=64)
+def _denoise_geometry(K: int, n1: int, n2: int) -> tuple:
+    """denoise_stats.cu's launch for K columns and n1 + n2 taps -> (KC, the
+    wide kernel's chunk of columns, 0 for the first kernel; shared bytes).
+    The first kernel: K <= 128, n1 and n2 <= 31, h1 + 2 h2 < 64; its two
+    float2 tracks of the tile and halo, [RA + R, K], with RA = 64 + 2 (h1
+    + h2) and R = 64 + 2 h2, then vo [RA] and the taps.  Else the widest
+    KC, a multiple of 16 up to min(128, K rounded up to 16), whose tracks
+    [RA + R, KC] fit beside the rows' sums and fit [R, 11], vo and the
+    taps; None where not even KC = 16 fits."""
+    h1, h2 = n1 // 2, n2 // 2
+    RA, R = _DENOISE_TILE + 2 * (h1 + h2), _DENOISE_TILE + 2 * h2
+    if K <= _DENOISE_MAX_K and max(n1, n2) <= _DENOISE_MAX_TAPS \
+            and h1 + 2 * h2 < _DENOISE_TILE:
+        return 0, 8 * (RA + R) * K + 4 * (RA + n1 + n2)
+    rest = 4 * (11 * R + RA + n1 + n2)
+    for kc in range(min(128, -(-K // 16) * 16), 0, -16):
+        smem = 8 * (RA + R) * kc + rest
+        if smem <= _SMEM_MAX:
+            return kc, smem
+    return None
 
 
 @functools.lru_cache(maxsize=64)
@@ -672,22 +749,23 @@ def denoise_stats(a: torch.Tensor, p: torch.Tensor, cyc_c: torch.Tensor,
     guard [B, N] (bool), the aligned track c and its slow part c_s, all
     [B, N, K].  Frames beyond either end of an utterance enter as zeros;
     their intermediates (c_s, r_inc = -c_s) reach the probe FIR of the
-    last h2 frames, as in the Pallas kernel."""
+    last h2 frames, as in the Pallas kernel.  Any K; taps whose halo h1 +
+    2 h2 stays under the Pallas kernel's frame block at N frames
+    (_denoise_frame_block), on the card and the CPU alike."""
     t1, t2 = _taps32(taps1), _taps32(taps2)
-    if max(len(t1), len(t2)) > _DENOISE_MAX_TAPS \
-            or len(t1) // 2 + 2 * (len(t2) // 2) >= _DENOISE_TILE:
-        raise ValueError(f"denoise_stats: {len(t1)} + {len(t2)} taps: at "
-                         f"most {_DENOISE_MAX_TAPS} each, their halo h1 + 2 "
-                         f"h2 under the {_DENOISE_TILE}-frame tile")
+    B, N, K = a.shape
+    block = _denoise_frame_block(N)
+    if len(t1) // 2 + 2 * (len(t2) // 2) >= block:
+        raise ValueError(f"denoise_stats: {len(t1)} + {len(t2)} taps: their "
+                         f"halo h1 + 2 h2 must stay under the {block}-frame "
+                         f"block of the Pallas kernel at N = {N}")
     if not _on_cuda(a, p, cyc_c, mask, voiced):
         return denoise_stats_ref(a, p, cyc_c, mask, voiced, t1, t2,
                                  complex_input=complex_input)
-    B, N, K = a.shape
     if p.shape != (B, N, K) or mask.shape != (B, N, K) \
             or cyc_c.shape != (B, N) or voiced.shape != (B, N):
         raise ValueError("denoise_stats: shape mismatch")
-    if K > _DENOISE_MAX_K:
-        raise ValueError(f"denoise_stats: K = {K} > {_DENOISE_MAX_K}")
+    kc, _ = _denoise_geometry(K, len(t1), len(t2))
     a, p, cyc_c, mask, voiced = map(_f32, (a, p, cyc_c, mask, voiced))
     dev = a.device
     # the five outputs that live through pass B as views of one allocation;
@@ -699,10 +777,12 @@ def denoise_stats(a: torch.Tensor, p: torch.Tensor, cyc_c: torch.Tensor,
     gd = torch.empty((B, N), dtype=torch.bool, device=dev)
     ptrs = (t.data_ptr() for t in (a, p, cyc_c, mask, voiced, pp, cs2, r2,
                                    gd, cre, cim, csr, csi))
+    taps_d = (_taps_on(t1, dev).data_ptr(), _taps_on(t2, dev).data_ptr()) \
+        if kc else (None, None)
     _launch("denoise_stats", *ptrs, B, N, K,
             ctypes.addressof(_taps_host(t1)), len(t1),
-            ctypes.addressof(_taps_host(t2)), len(t2), int(complex_input),
-            _stream(a))
+            ctypes.addressof(_taps_host(t2)), len(t2), *taps_d, kc,
+            int(complex_input), _stream(a))
     return pp, cs2, r2, gd, cre, cim, csr, csi
 
 
@@ -771,8 +851,6 @@ def denoise_apply(cre: torch.Tensor, cim: torch.Tensor, csr: torch.Tensor,
             or cyc_c.shape != (B, N) or guard.shape != (B, N) \
             or v.shape != (B, K) or wmul.shape != (B, K):
         raise ValueError("denoise_apply: shape mismatch")
-    if K > _DENOISE_MAX_K:
-        raise ValueError(f"denoise_apply: K = {K} > {_DENOISE_MAX_K}")
     # float4 loads of every [B, N, K] and [B, K] plane
     ins = tuple(_aligned(_f32(t)) for t in (v, wmul, cre, cim, csr, csi,
                                              cyc_c, mask))
@@ -1284,6 +1362,10 @@ def harmonic_project_mxu_ref(x, cyc, hw, max_k, nhop, hh, *,
 # no Pallas kernel)
 # ---------------------------------------------------------------------------
 
+# sample_cycles.cu: 32 lanes a hop at most, each a run of up to 64 samples
+_CYCLE_MAX_HOP = 32 * 64
+
+
 def sample_cycles(f0: torch.Tensor, nhop: int, fs: float, nx: int,
                   base: torch.Tensor | None = None,
                   start: int = 0) -> torch.Tensor:
@@ -1299,8 +1381,8 @@ def sample_cycles(f0: torch.Tensor, nhop: int, fs: float, nx: int,
     N = f0.shape[-1]
     if N < 2:
         raise ValueError(f"sample_cycles: {N} frames (at least 2)")
-    if nhop > 512:
-        raise ValueError(f"sample_cycles: nhop {nhop} > 512")
+    if nhop > _CYCLE_MAX_HOP:
+        raise ValueError(f"sample_cycles: nhop {nhop} > {_CYCLE_MAX_HOP}")
     # few tensor operations: a lone call's host time is most of its time
     f = f0 if f0.dtype == FP and f0.is_contiguous() else _f32(f0)
     B = f.numel() // N
@@ -1437,27 +1519,33 @@ def _refine_geometry(B: int, N: int, D: int, ntaps: int, dm: dict,
     x in a row (words = S, P = Q = PQ = 0), smem those alone; a thread a
     frame only at an odd hop, where a warp's frames reading one column at
     a stride of nhop words fall on 32 banks (an even hop takes the 16-lane
-    blocks, whose lanes read consecutive words)."""
+    blocks, whose lanes read consecutive words).  A block whose shared
+    bytes overflow the card's is passed over (44.1 kHz at a 10 ms hop: 128
+    frames of hop 441 and their 4961-sample windows), so the smaller
+    blocks take those shapes."""
     blocks = _REFINE_BLOCKS
     if D == 1 and dm["nhop_d"] % 2 == 0:
         blocks = tuple(b for b in blocks if b[1] > 1)
-    for F, G in blocks:
-        if B * -(-N // F) >= 2 * sms:
-            break
     nd, Wf = dm["nhop_d"], dm["Wf"]
-    T = F * G
-    S = (F - 1) * nd + Wf
-    if D == 1:
-        return dict(F=F, G=G, T=T, S=S, P=0, words=S, Q=0, PQ=0, smem=4 * S,
-                    grid=(-(-N // F), B))
-    P = -(-S // nd) if G == 1 else 0
-    words = nd * P if G == 1 else S
-    Q = 2 * T
-    PQ = Q + -(-ntaps // D) - 1
-    PQ += (32 // D - PQ) % 32
-    smem = 4 * (-(-ntaps // 4) * 4 + 2 * D * PQ + words + Wf)
-    return dict(F=F, G=G, T=T, S=S, P=P, words=words, Q=Q, PQ=PQ, smem=smem,
-                grid=(-(-N // F), B))
+
+    def block(F, G):
+        T = F * G
+        S = (F - 1) * nd + Wf
+        if D == 1:
+            return dict(F=F, G=G, T=T, S=S, P=0, words=S, Q=0, PQ=0,
+                        smem=4 * S, grid=(-(-N // F), B))
+        P = -(-S // nd) if G == 1 else 0
+        words = nd * P if G == 1 else S
+        Q = 2 * T
+        PQ = Q + -(-ntaps // D) - 1
+        PQ += (32 // D - PQ) % 32
+        smem = 4 * (-(-ntaps // 4) * 4 + 2 * D * PQ + words + Wf)
+        return dict(F=F, G=G, T=T, S=S, P=P, words=words, Q=Q, PQ=PQ,
+                    smem=smem, grid=(-(-N // F), B))
+    geos = [block(F, G) for F, G in blocks]
+    fits = [g for g in geos if g["smem"] <= _REFINE_SMEM_MAX] or geos[-1:]
+    return next((g for g in fits if B * -(-N // g["F"]) >= 2 * sms),
+                fits[-1])
 
 
 @functools.lru_cache(maxsize=8)
@@ -1746,17 +1834,33 @@ _VITERBI_RING = 16
 _VITERBI_CHUNKS = (4, 8, 16, 32, 52, 64)
 
 
+# the most states viterbi.cu takes: past 256 (lt mode 3) its two score rows
+# of S rounded up to 4 floats and the 32 warps' maxima fill the H100's
+# shared memory at (232448 / 4 - 64) / 2 states (uint16 backpointers would
+# go to 65536)
+_VITERBI_MAX_STATES = (_SMEM_MAX // 4 - 2 * _VITERBI_WARPS) // 2
+
+
 def _viterbi_geometry(N: int, S: int) -> tuple:
-    """viterbi.cu's launch for N frames of S <= 256 states -> (P lanes a
-    state, C source states a lane, threads, lt mode, backpointers in shared
-    memory, shared bytes).  Up to S = 128: P = 2 (the fastest of the P
-    tried on the H100 at both paths' shapes, PERF.md §6) and C the least
-    of _VITERBI_CHUNKS with 2 C >= S, lt's column slice in registers (lt
-    mode 0); past it P = 4, C = 64, lt in shared memory where its S^2
+    """viterbi.cu's launch for N frames of S states -> (P lanes a state, C
+    source states a lane, threads, lt mode, backpointers in shared memory,
+    shared bytes, bytes a backpointer).  Up to S = 128: P = 2 (the fastest
+    of the P tried on the H100 at both paths' shapes, PERF.md §6) and C the
+    least of _VITERBI_CHUNKS with 2 C >= S, lt's column slice in registers
+    (lt mode 0); past it P = 4, C = 64, lt in shared memory where its S^2
     floats fit (mode 1), else in device memory (2).  The shared bytes: the
     two score rows [2, P C], the maxima [2, 32] and the observations' ring
     [16, S] always, then lt in mode 1, then the (N - 1) S byte backpointers
-    where they fit beside them."""
+    where they fit beside them.  Past S = 256 (mode 3, viterbi_wide_kernel)
+    P = 1, C = S rounded up to 4, min(1024, S rounded up to 32) threads
+    (each thread several destination states), lt in device memory, no
+    ring, the backpointers uint16: 2 (N - 1) S bytes where they fit."""
+    if S > 256:
+        C = -(-S // 4) * 4
+        smem = 4 * (2 * C + 2 * _VITERBI_WARPS)
+        bp_smem = smem + 2 * (N - 1) * S <= _SMEM_MAX
+        return (1, C, min(1024, -(-S // 32) * 32), 3, bp_smem,
+                smem + (2 * (N - 1) * S if bp_smem else 0), 2)
     if S <= 128:
         P, lt_mode = 2, 0
         C = next(c for c in _VITERBI_CHUNKS if 2 * c >= S)
@@ -1768,18 +1872,28 @@ def _viterbi_geometry(N: int, S: int) -> tuple:
     smem += 4 * S * S if lt_mode == 1 else 0
     bp_smem = smem + (N - 1) * S <= _SMEM_MAX
     return (P, C, (P * S + 31) // 32 * 32, lt_mode, bp_smem,
-            smem + ((N - 1) * S if bp_smem else 0))
+            smem + ((N - 1) * S if bp_smem else 0), 1)
+
+
+def _viterbi_scratch(B: int, N: int, S: int, device):
+    """viterbi.cu's backpointer scratch: None where _viterbi_geometry keeps
+    them in shared memory, else [B, N - 1, S] uint8 (uint16 past 256
+    states)."""
+    geo = _viterbi_geometry(N, S)
+    if geo[4]:
+        return None
+    kind = torch.uint8 if geo[6] == 1 else torch.int16
+    return torch.empty((B, N - 1, S), dtype=kind, device=device)
 
 
 def _viterbi_launch_args(obs, lt, renorm: bool, path, final, bp):
     """viterbi.cu's C call on contiguous float32 obs [B, N, S] and lt, into
-    path [B, N], final [B, S] and bp (a [B, N - 1, S] uint8 scratch where
-    the backpointers do not fit in shared memory, else None)."""
+    path [B, N], final [B, S] and bp (_viterbi_scratch)."""
     B, N, S = obs.shape
-    P, C, _, lt_mode, bp_smem, _ = _viterbi_geometry(N, S)
+    P, C, _, lt_mode, bp_smem, _, bp_bytes = _viterbi_geometry(N, S)
     return (obs.data_ptr(), lt.data_ptr(), path.data_ptr(), final.data_ptr(),
             None if bp is None else bp.data_ptr(), B, N, S, int(bool(renorm)),
-            P, C, lt_mode, int(bp_smem), _stream(obs))
+            P, C, lt_mode, int(bp_smem), bp_bytes, _stream(obs))
 
 
 def viterbi_scan(obs: torch.Tensor, lt: torch.Tensor, renorm: bool, *,
@@ -1790,21 +1904,21 @@ def viterbi_scan(obs: torch.Tensor, lt: torch.Tensor, renorm: bool, *,
     lt[i, j]) + obs[:, t, j], with renorm each score_t (score_0 too) less
     its row maximum; ties go to the first maximum at every step and at the
     end.  With scores, (path, the last step's scores [B, S]).  On the card
-    one launch of viterbi.cu (S <= 256; _viterbi_geometry's lanes a
-    state), the backtrace in the kernel; its scores and path are the plain
-    version's bit for bit (NaN inputs aside)."""
+    one launch of viterbi.cu (S <= _VITERBI_MAX_STATES; _viterbi_geometry's
+    lanes a state), the backtrace in the kernel; its scores and path are
+    the plain version's bit for bit (NaN inputs aside)."""
     if not _on_cuda(obs, lt):
         return viterbi_scan_ref(obs, lt, renorm, scores=scores)
     B, N, S = obs.shape
-    if tuple(lt.shape) != (S, S) or N < 1 or not 1 <= S <= 256:
+    if tuple(lt.shape) != (S, S) or N < 1 \
+            or not 1 <= S <= _VITERBI_MAX_STATES:
         raise ValueError(f"viterbi_scan: obs {tuple(obs.shape)}, lt "
-                         f"{tuple(lt.shape)} (S <= 256 states, N >= 1)")
+                         f"{tuple(lt.shape)} (S <= {_VITERBI_MAX_STATES} "
+                         "states, N >= 1)")
     obs, lt = _f32(obs), _f32(lt)
-    bp_smem = _viterbi_geometry(N, S)[4]
     path = torch.empty((B, N), dtype=torch.int64, device=obs.device)
     final = torch.empty((B, S), dtype=torch.float32, device=obs.device)
-    bp = None if bp_smem else torch.empty((B, N - 1, S), dtype=torch.uint8,
-                                          device=obs.device)
+    bp = _viterbi_scratch(B, N, S, obs.device)
     _launch("viterbi_scan",
             *_viterbi_launch_args(obs, lt, renorm, path, final, bp))
     return (path, final) if scores else path

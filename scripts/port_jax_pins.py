@@ -81,11 +81,19 @@ with the Pallas kernels in interpret mode:
             64 s utterances (make_test_utterance, seed 0 with noise 0.05
             and seed 64 clean): the SNR of y_sin against the clean harmonic
             part (snr_db below), and the same through the one-process
-            analyze -> synthesize.
+            analyze -> synthesize;
+  wide      chip_smoke.py phase 20: batched_pipeline with the 16 kHz options
+            above at creaky voice's conf (maxnhar=160, fnyq=6000: the
+            denoiser at K = 160) on bench rows 0, 1 (noisy) and 64 (clean);
+            then create_aoptions(fs=48000, thop=0.01, fnyq=12000,
+            chanfreq=(3000, 6000, 9000), nspec=513, f0_floor=70,
+            use_pallas=True) with create_soptions(fs=48000, use_pallas=True)
+            (noise hop 480) on the same rows resampled to 48 kHz by
+            ops.resample.resample_to, with every second F0 frame.
 
     JAX_PLATFORMS=cpu python scripts/port_jax_pins.py [duration=8.0] \
         [only=l0,11k,l1,pbp,corpus,edits,coder,nasal,stream,dspkit,
-              learned,fp64,mesh] [mesh_seconds=64]
+              learned,fp64,mesh,wide] [mesh_seconds=64]
 
 CPU time of the parts added last, on an 8-core x86 host: corpus 49.3 s,
 edits 42.1 s, coder 32.2 s, nasal 4.8 s (run after coder in one process);
@@ -423,6 +431,45 @@ def dspkit_rows(duration):
     return out
 
 
+def wide_opts():
+    """chip_smoke.py phase 20's options: (creaky voice's analysis options,
+    the 48 kHz / 10 ms hop analysis and synthesis options)."""
+    opt, _ = _opts16()
+    creaky = dataclasses.replace(opt, conf=dataclasses.replace(
+        opt.conf, maxnhar=160, fnyq=6000.0))
+    opt48 = create_aoptions(fs=48000.0, thop=0.01, fnyq=12000.0,
+                            chanfreq=(3000.0, 6000.0, 9000.0), nspec=513,
+                            f0_floor=70.0, use_pallas=True)
+    sopt48 = dataclasses.replace(create_soptions(fs=48000.0), use_pallas=True)
+    return creaky, opt48, sopt48
+
+
+def wide_rows(duration):
+    """chip_smoke.py phase 20a / 20b pins: batched_pipeline SNRs of bench
+    rows 0, 1 and 64 at creaky voice's conf, and at 48 kHz with a 10 ms hop
+    on the rows resampled to 48 kHz (every second F0 frame)."""
+    from libllsm2_tpu.ops.resample import resample_to
+    creaky, opt48, sopt48 = wide_opts()
+    _, sopt = _opts16()
+    x, f0, nxv, x_ref = _bench_rows(duration, list(ROWS))
+    out = {}
+    t0 = time.perf_counter()
+    _, snr, _ = corpus.batched_pipeline(creaky, sopt, x, f0, nxv, x_ref)
+    out["creaky"] = dict(zip(ROWS, np.asarray(snr).tolist()))
+    print(f"  creaky: {out['creaky']} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    t0 = time.perf_counter()
+    x48, ref48 = (jnp.stack([resample_to(r, 16000.0, 48000.0) for r in a])
+                  for a in (x, x_ref))
+    nxv48 = jnp.full(nxv.shape, x48.shape[-1], nxv.dtype)
+    _, snr, _ = corpus.batched_pipeline(opt48, sopt48, x48, f0[:, ::2],
+                                        nxv48, ref48)
+    out["48 kHz"] = dict(zip(ROWS, np.asarray(snr).tolist()))
+    print(f"  48 kHz: {out['48 kHz']} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    return out
+
+
 def _int8_tree(tree, out, prefix):
     """Snap a parameter pytree to 8-bit codes times a float32 scale a
     leaf (s = max |w| / 127), the weights both packages then start from;
@@ -566,7 +613,7 @@ def main():
     kw = dict(a.split("=", 1) for a in sys.argv[1:])
     duration = float(kw.get("duration", 8.0))
     only = kw.get("only", "l0,11k,l1,pbp,corpus,edits,coder,nasal,stream,"
-                  "dspkit,learned,fp64,mesh").split(",")
+                  "dspkit,learned,fp64,mesh,wide").split(",")
     if "l0" in only:
         t0 = time.perf_counter()
         print(f"16 kHz batched_pipeline at {duration} s:",
@@ -646,6 +693,12 @@ def main():
         print(f"round trip at {secs} s, y_sin SNR (frame-sharded on 4 "
               "devices, one process):", mesh_rows(secs),
               f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    if "wide" in only:
+        t0 = time.perf_counter()
+        print(f"phase 20 at {duration} s (creaky voice's K = 160, then 48 kHz "
+              "at a 10 ms hop), batched_pipeline SNR of rows 0/1/64:",
+              wide_rows(duration), f"({time.perf_counter() - t0:.1f} s)",
+              flush=True)
 
 if __name__ == "__main__":
     main()

@@ -134,8 +134,7 @@ def viterbi_passes():
         geo = kernels._viterbi_geometry(N, S)
         path = torch.empty((B, N), dtype=torch.int64, device=dev)
         final = torch.empty((B, S), device=dev)
-        bp = None if geo[4] else torch.empty((B, N - 1, S),
-                                             dtype=torch.uint8, device=dev)
+        bp = kernels._viterbi_scratch(B, N, S, dev)
         args = kernels._viterbi_launch_args(obs, lt, renorm, path, final, bp)
         ms = {}
         for name, fn in (("whole", full), ("forward", fwd)):
@@ -313,8 +312,8 @@ def main():
         "noise_mod_ola": lambda fn: fn(
             cyc.data_ptr(), edc.data_ptr(), ar.data_ptr(), ai.data_ptr(),
             base.data_ptr(), re.data_ptr(), im.data_ptr(), 0,
-            gain.data_ptr(), ctypes.addressof(ranges), y.data_ptr(), B, N,
-            NHOP, C, KE, stream),
+            gain.data_ptr(), ctypes.addressof(ranges), None, y.data_ptr(),
+            B, N, NHOP, C, KE, 0, stream),
         "deconv_full": lambda fn: fn(
             ampl.data_ptr(), phse.data_ptr(), cyc.data_ptr(), hw.data_ptr(),
             mask.data_ptr(), o_a.data_ptr(), o_b.data_ptr(), B, N, K, D, NHOP,

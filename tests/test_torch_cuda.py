@@ -547,11 +547,14 @@ def test_env_render_kernel_matches_plain_on_card(cut):
     (2, 130, 5, 3, 55, 0),
     (2, 130, 4, 6, 80, 3),
     (3, 64, 4, 4, 160, 0),      # a whole tile
+    (2, 130, 4, 9, 80, 0),      # Ke past 8: the wide kernel
+    (1, 70, 3, 12, 480, 5),     # and at 48 kHz's 10 ms hop, cut
 ])
 def test_env_render_kernel_paths_on_card(B, Nf, C, Ke, nhop, cut):
-    """Both of env_render's paths (float4 along samples at C = Ke = 4 with
-    nhop and nx multiples of 4, a sample at a time otherwise) against the
-    twin: env 2e-5, base 2e-6 (test_pallas.py:231)."""
+    """Each of env_render's paths (float4 along samples at C = Ke = 4 with
+    nhop and nx multiples of 4, a sample at a time otherwise, and past Ke
+    = 8 the wide kernel) against the twin: env 2e-5, base 2e-6
+    (test_pallas.py:231)."""
     dev = _card()
     g = torch.Generator().manual_seed(B * 1000 + C * 10 + Ke)
     r = lambda *s: torch.rand(*s, generator=g).to(dev)
@@ -723,12 +726,13 @@ def _f0_rows(B, Nf, seed):
 
 
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("nhop", [55, 80, 110, 160])
+@pytest.mark.parametrize("nhop", [55, 80, 110, 160, 960, 2048])
 def test_sample_cycles_kernel_matches_plain_on_card(nhop):
     """The cycle-track kernel against its twin over 1600 hops, both mod 1:
     wrapped |difference| <= 1e-4 cycles from the twin on the card (its
     float32 scan), <= 1e-6 from the twin on the CPU, which sums in the
-    kernel's order."""
+    kernel's order; hops 960 and 2048 past the 16-sample runs of 32 lanes
+    (runs of 32 and 64)."""
     dev = _card()
     f0 = T(_f0_rows(3, 1600, nhop))
     kernels.reset_launches()
@@ -1447,8 +1451,10 @@ def test_viterbi_scan_kernel_inf_and_ties_on_card(B, N, S, renorm):
 @pytest.mark.requires_cuda
 def test_viterbi_callers_launch_the_kernel_on_card():
     """f0.viterbi and layer1._rd_viterbi on card tensors launch the kernel
-    once each and never reach the twin, and give the CPU's paths; the
-    wrapper refuses S > 256 and lt of another shape."""
+    once each and never reach the twin, and give the CPU's paths; past
+    256 states (uint16 backpointers, one lane a state) the kernel equals
+    the twin at S = 257 and 512; the wrapper refuses lt of another
+    shape."""
     from libllsm2_tpu_torch.models import layer1 as tl1
     from libllsm2_tpu_torch.ops import f0 as tf0
     dev = _card()
@@ -1472,9 +1478,159 @@ def test_viterbi_callers_launch_the_kernel_on_card():
     assert kernels.LAUNCHES["viterbi_scan"] == n0 + 2
     assert torch.equal(p_f0.cpu(), tf0.viterbi(logobs, lt))
     assert torch.equal(p_rd.cpu(), tl1._rd_viterbi(score, voiced, 10.0))
+    for S in (257, 512):
+        obs = T(np.round(rng.uniform(-12.0, 0.0, (2, 300, S)) * 8.0) / 8.0)
+        lt = T(np.round(rng.uniform(-4.0, 0.0, (S, S)) * 8.0) / 8.0)
+        for renorm in (True, False):
+            got = kernels.viterbi_scan(obs.to(dev), lt.to(dev), renorm,
+                                       scores=True)
+            ref = kernels.viterbi_scan_ref(obs, lt, renorm, scores=True)
+            assert all(torch.equal(g.cpu(), r) for g, r in zip(got, ref))
     obs = torch.zeros((1, 4, 257), device=dev)
-    with pytest.raises(ValueError):
-        kernels.viterbi_scan(obs, torch.zeros((257, 257), device=dev), True)
     with pytest.raises(ValueError):
         kernels.viterbi_scan(obs[..., :8], torch.zeros((8, 9), device=dev),
                              True)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("K,n1,n2,complex_input", [
+    (160, 13, 7, True), (160, 13, 7, False), (80, 33, 17, True),
+    (80, 41, 21, False), (200, 101, 51, True)])
+def test_denoise_stats_wide_kernel_matches_plain_on_card(K, n1, n2,
+                                                         complex_input):
+    """denoise_stats past the first kernel's K <= 128 and 31-tap limits
+    (creaky voice's K = 160; a 2 ms hop's 33 + 17 taps; 5 Hz at a 5 ms
+    hop's 41 + 21; K = 200 with 101 + 51 taps, two chunks and a halo
+    past the 64-frame tile): the wide kernel, one launch, against the twin
+    within the bench shape's tolerance, on 1600 frames and 301 (a ragged
+    tile)."""
+    dev = _card()
+    t1, t2 = tuple(tl0._hann_taps(n1)), tuple(tl0._hann_taps(n2))
+    assert kernels._denoise_geometry(K, n1, n2)[0] > 0
+    for Nf in (1600, 301):
+        ins = [np.stack(v) for v in zip(*(
+            _stats_inputs(Nf, K, s, complex_input) for s in (1, 2)))]
+        args = [T(v).to(dev) for v in ins]
+        kernels.reset_launches()
+        got = kernels.denoise_stats(*args, t1, t2,
+                                    complex_input=complex_input)
+        ref = kernels.denoise_stats_ref(*args, t1, t2,
+                                        complex_input=complex_input)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["denoise_stats"] == 1
+        for name, g, r in zip(STATS_NAMES, got, ref):
+            if name == "guard":
+                assert torch.equal(g, r)
+            else:
+                torch.testing.assert_close(g, r, atol=2e-4, rtol=1e-3,
+                                           msg=name)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("spectral,K", [(True, 160), (False, 160),
+                                        (True, 203), (False, 129)])
+def test_denoise_apply_wide_kernel_matches_plain_on_card(spectral, K):
+    """denoise_apply past K = 128 (the wide kernel, the scalar layout read
+    twice) and denoise_finish at the same K, against their twins within
+    test_denoise_apply_kernel_matches_plain_on_card's tolerances."""
+    dev = _card()
+    args = [T(v).to(dev) for v in _apply_inputs(2, 301, K, 5)]
+    polar = lambda ap: torch.polar(ap[0], ap[1])
+    kernels.reset_launches()
+    got = kernels.denoise_apply(*args, 8.0, spectral=spectral)
+    ref = kernels.denoise_apply_ref(*args, 8.0, spectral=spectral)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["denoise_apply"] == 1
+    if not spectral:
+        torch.testing.assert_close(polar(got), polar(ref), atol=2e-4,
+                                   rtol=1e-4)
+        return
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, atol=2e-4, rtol=1e-4)
+    delta = 0.1 * torch.randn((2, 301, K), dtype=torch.complex64, device=dev,
+                              generator=torch.Generator(dev).manual_seed(K))
+    fin = kernels.denoise_finish(got[0], delta, args[4], args[5])
+    fin_ref = kernels.denoise_finish_ref(got[0], delta, args[4], args[5])
+    torch.testing.assert_close(polar(fin), polar(fin_ref), atol=2e-4,
+                               rtol=1e-4)
+
+
+def _wide_noise_inputs(nhop, C, Ke, Nf, seed):
+    """_noise_inputs at hop nhop with C bands of equal width up to fs / 2
+    (fs = 100 nhop) and Ke envelope harmonics -> (tensors, bands)."""
+    args, _, _ = _noise_inputs(nhop, False, seed, Nf=Nf, C=C, Ke=Ke)
+    fs = 100.0 * nhop
+    edges = tuple(fs / 2 * c / C for c in range(C)) + (fs / 2 + 1.0,)
+    return args, kernels.band_ranges(nhop + 1, fs, edges)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("nhop,C,Ke,Nf", [(480, 4, 4, 130), (80, 9, 9, 301),
+                                          (480, 9, 9, 47), (882, 4, 12, 31)])
+def test_noise_mod_ola_wide_kernel_matches_plain_on_card(nhop, C, Ke, Nf):
+    """noise_mod_ola past the first kernel's nhop <= 256, C <= 8, Ke <= 8
+    (48 kHz at a 10 ms hop: nhop 480; nine bands; nine and twelve envelope
+    harmonics; 44.1 kHz at a 20 ms hop): the wide kernel, one launch,
+    against the twin within 5e-5; the segment entry at the same C and Ke
+    too."""
+    dev = _card()
+    args, bands = _wide_noise_inputs(nhop, C, Ke, Nf, nhop + C)
+    assert kernels._noise_geometry(nhop, C, Ke, bands)[0] > 0
+    ts = _noise_tensors(args, dev)
+    kernels.reset_launches()
+    got = kernels.noise_mod_ola(*ts, bands)
+    ref = kernels.noise_mod_ola_ref(*ts, bands)
+    segs = torch.randn((2, C, Nf, 2 * nhop), device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(C))
+    got_s = kernels.noise_mod_ola_seg(*ts[:5], segs)
+    ref_s = kernels.noise_mod_ola_seg_ref(*ts[:5], segs)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["noise_mod_ola"] == 1
+    assert kernels.LAUNCHES["noise_mod_ola_seg"] == 1
+    torch.testing.assert_close(got, ref, atol=5e-5, rtol=0)
+    torch.testing.assert_close(got_s, ref_s, atol=5e-5, rtol=0)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("S,N,renorm", [(257, 3200, True), (512, 400, False),
+                                        (1025, 200, True)])
+def test_viterbi_wide_kernel_matches_plain_on_card(S, N, renorm):
+    """viterbi_scan past 256 states (one lane a state, uint16
+    backpointers; at 3200 frames in device memory) against its twin, paths
+    and last scores bit for bit, on scores in eighths with -inf entries."""
+    dev = _card()
+    rng = np.random.default_rng(S)
+    obs = np.round(rng.uniform(-12.0, 0.0, (2, N, S)) * 8.0) / 8.0
+    obs[rng.uniform(size=obs.shape) < 0.1] = -np.inf
+    obs[..., 0] = -1.0
+    lt = np.round(rng.uniform(-4.0, 0.0, (S, S)) * 8.0) / 8.0
+    obs, lt = T(obs.astype(np.float32)), T(lt.astype(np.float32))
+    kernels.reset_launches()
+    got = kernels.viterbi_scan(obs.to(dev), lt.to(dev), renorm, scores=True)
+    ref = kernels.viterbi_scan_ref(obs, lt, renorm, scores=True)
+    assert kernels.LAUNCHES["viterbi_scan"] == 1
+    assert all(torch.equal(g.cpu(), r) for g, r in zip(got, ref))
+
+
+@pytest.mark.requires_cuda
+def test_refine_f0_full_past_the_128_frame_block_on_card():
+    """44.1 kHz at a 10 ms hop (hop 441, f0_floor 40: H = 2205): 128 frames
+    a block would overflow shared memory, so _refine_geometry takes 8
+    frames of 16 lanes; refine_f0_full on 64 rows of 2 s against its twin
+    within 1e-4 relative, voicing equal, one launch."""
+    from libllsm2_tpu_torch.utils import testsig
+    dev = _card()
+    utt = testsig.make_test_utterances(
+        [(i, 0.05 * (i % 2)) for i in range(64)], duration=2.0, fs=44100.0,
+        thop=0.01)
+    x, f0 = (torch.tensor(np.stack([u[j] for u in utt]), dtype=torch.float32,
+                          device=dev) for j in range(2))
+    kw = dict(nhop=441, fs=44100.0, halfwin_max=2205, rel_winsize=4.0,
+              window="hanning", iters=2, max_rel_dev=0.05)
+    dm = kernels._refine_full_dims(441, 44100.0, 2205)
+    assert kernels._refine_geometry(64, f0.shape[1], 1, 0, dm)["G"] == 16
+    n0 = kernels.LAUNCHES["refine_f0_full"]
+    got = kernels.refine_f0_full(x, f0, **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["refine_f0_full"] == n0 + 1
+    assert _f0_rel(got, kernels.refine_f0_full_ref(x, f0, **kw)) <= 1e-4

@@ -278,6 +278,24 @@ def test_denoise_cpu_tensors_never_reach_the_kernels(monkeypatch):
                                     spectral=True)
     kernels.denoise_finish(a, full, cyc_c, mask)
     assert all(v == 0 for v in kernels.LAUNCHES.values()), kernels.LAUNCHES
-    with pytest.raises(ValueError, match="tile"):
-        kernels.denoise_stats(a, p, cyc_c, mask, voiced, TAPS1,
-                              tuple(tl0._hann_taps(33)))
+    # a 2 ms hop's 33 + 17 taps: the Pallas kernel takes them (h1 + 2 h2 =
+    # 32 under its 64-frame block at N = 64), and so does the port, with
+    # the JAX package's results
+    t33, t17 = tuple(tl0._hann_taps(33)), tuple(tl0._hann_taps(17))
+    inputs = _stats_inputs(64, 8, 1, True)
+    ref = pallas_osc.denoise_stats_pallas(*map(J, inputs), t33, t17,
+                                          complex_input=True)
+    got = kernels.denoise_stats(*(T(v)[None] for v in inputs), t33, t17,
+                                complex_input=True)
+    for name, g, r in zip(STATS_NAMES, got, ref):
+        np.testing.assert_allclose(g[0].numpy(), np.asarray(r), atol=2e-5,
+                                   rtol=1e-4, err_msg=name)
+    # past the Pallas kernel's own limit (h1 + 2 h2 = 16 + 48 = 64, its
+    # block at N = 64) both refuse
+    t49 = tuple(tl0._hann_taps(49))
+    with pytest.raises(AssertionError, match="halo"):
+        pallas_osc.denoise_stats_pallas(*map(J, inputs), t33, t49,
+                                        complex_input=True)
+    with pytest.raises(ValueError, match="64-frame block"):
+        kernels.denoise_stats(a, p, cyc_c, mask, voiced, t33, t49)
+    assert all(v == 0 for v in kernels.LAUNCHES.values()), kernels.LAUNCHES

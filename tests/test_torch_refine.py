@@ -524,3 +524,33 @@ def test_subpackage_namespaces():
         for name in names:
             assert getattr(mod, name).__name__ == f"{mod.__name__}.{name}"
     assert not hasattr(tops, "pallas_osc") and not hasattr(tutils, "cache")
+
+
+@pytest.mark.parametrize("B,nhop,H,D,want", [
+    # 44.1 kHz at a 10 ms hop, f0_floor 40: the full-rate kernel's 128
+    # frames would stage 127 441 + 4961 samples, 243872 bytes
+    (128, 441, 2205, 1, (8, 16, 4 * (7 * 441 + 4961))),
+    (128, 441, 1260, 1, (8, 16, 4 * (7 * 441 + 2 * (1260 + 157) + 1))),
+    # 44.1 kHz at 20 ms (hop 882, decimated by 2): 128 frames overflow too
+    (128, 882, 2205, 2, (8, 16, None)),
+    (128, 55, 315, 1, (128, 1, 30776))])     # phase 7's, as before
+def test_refine_geometry_passes_over_blocks_past_shared_memory(B, nhop, H,
+                                                               D, want):
+    """kernels._refine_geometry takes the first block that gives two
+    blocks an SM among those whose shared bytes fit the card's 232448
+    (hop 441 at 44.1 kHz: 8 frames of 16 lanes, not 128 of one), so the
+    wrappers take the shape; shapes whose first choice fits keep it."""
+    N, fs = 800, 100.0 * nhop
+    if D == 1:
+        dm = kernels._refine_full_dims(nhop, fs, H)
+        ntaps = 0
+    else:
+        dm = kernels._refine_dims(N * nhop, D, nhop, fs, H)
+        ntaps = 127
+    geo = kernels._refine_geometry(B, N, D, ntaps, dm)
+    assert (geo["F"], geo["G"]) == want[:2]
+    assert geo["smem"] <= kernels._REFINE_SMEM_MAX
+    if want[2] is not None:
+        assert geo["smem"] == want[2]
+    if want[:2] != (128, 1):     # the 128-frame block's samples alone
+        assert 4 * (127 * dm["nhop_d"] + dm["Wf"]) > kernels._REFINE_SMEM_MAX

@@ -281,31 +281,43 @@ def test_fp64_routes_to_the_twin():
 
 
 @pytest.mark.parametrize("N,S,geometry", [
-    # (P, C, threads, lt mode, backpointers in shared memory, bytes): 4 (2
-    # P C + 64 + 16 S) score, maxima and ring bytes, then lt in mode 1,
-    # then the backpointers
-    (1600, 97, (2, 52, 224, 0, True, 7296 + 1599 * 97)),
-    (1600, 64, (2, 32, 128, 0, True, 4864 + 1599 * 64)),
-    (1, 97, (2, 52, 224, 0, True, 7296)),
-    (2, 2, (2, 4, 32, 0, True, 448 + 2)),
-    (100, 12, (2, 8, 32, 0, True, 1152 + 99 * 12)),     # each C in
-    (100, 24, (2, 16, 64, 0, True, 2048 + 99 * 24)),    # registers
-    (100, 120, (2, 64, 256, 0, True, 8960 + 99 * 120)),
-    (6000, 97, (2, 52, 224, 0, False, 7296)),   # 582 KB: device memory
-    (2, 200, (4, 64, 800, 1, True, 15104 + 160000 + 200)),  # lt in shared
-    (400, 200, (4, 64, 800, 1, False, 15104 + 160000)),     # bp in HBM
-    (2, 256, (4, 64, 1024, 2, True, 18688 + 256)),  # lt 256 KB: HBM
-    (1200, 256, (4, 64, 1024, 2, False, 18688)),    # neither fits
+    # (P, C, threads, lt mode, backpointers in shared memory, bytes, bytes a
+    # backpointer): 4 (2 P C + 64 + 16 S) score, maxima and ring bytes,
+    # then lt in mode 1, then the backpointers
+    (1600, 97, (2, 52, 224, 0, True, 7296 + 1599 * 97, 1)),
+    (1600, 64, (2, 32, 128, 0, True, 4864 + 1599 * 64, 1)),
+    (1, 97, (2, 52, 224, 0, True, 7296, 1)),
+    (2, 2, (2, 4, 32, 0, True, 448 + 2, 1)),
+    (100, 12, (2, 8, 32, 0, True, 1152 + 99 * 12, 1)),     # each C in
+    (100, 24, (2, 16, 64, 0, True, 2048 + 99 * 24, 1)),    # registers
+    (100, 120, (2, 64, 256, 0, True, 8960 + 99 * 120, 1)),
+    (6000, 97, (2, 52, 224, 0, False, 7296, 1)),   # 582 KB: device memory
+    (2, 200, (4, 64, 800, 1, True, 15104 + 160000 + 200, 1)),  # lt in shared
+    (400, 200, (4, 64, 800, 1, False, 15104 + 160000, 1)),     # bp in HBM
+    (2, 256, (4, 64, 1024, 2, True, 18688 + 256, 1)),  # lt 256 KB: HBM
+    (1200, 256, (4, 64, 1024, 2, False, 18688, 1)),    # neither fits
+    # past 256 states (mode 3): one lane a state, C = S rounded up to 4,
+    # 4 (2 C + 64) bytes, then 2 (N - 1) S of uint16 backpointers
+    (300, 257, (1, 260, 288, 3, True, 2336 + 2 * 299 * 257, 2)),
+    (3200, 257, (1, 260, 288, 3, False, 2336, 2)),   # 1.6 MB: HBM
+    (2, 512, (1, 512, 512, 3, True, 4352 + 2 * 512, 2)),
+    (1600, 512, (1, 512, 512, 3, False, 4352, 2)),
+    (40, 1025, (1, 1028, 1024, 3, True, 8480 + 2 * 39 * 1025, 2)),
+    (1600, 1025, (1, 1028, 1024, 3, False, 8480, 2)),
+    (1, 29024, (1, 29024, 1024, 3, True, 232448, 2)),   # the most states
 ])
 def test_viterbi_geometry_by_hand(N, S, geometry):
     """kernels._viterbi_geometry: 2 lanes a state and lt's column slice
     in registers up to S = 128 (mode 0; 52 slots a lane for the tracker's
     97 states), past it 4 lanes and lt in shared memory where S^2
     floats fit in the H100's 232448 bytes (mode 1), else in device memory
-    (2); the backpointers in shared memory where they fit beside the
-    rest."""
+    (2); past 256 states one lane a state (mode 3, the wide kernel),
+    uint16 backpointers, up to _VITERBI_MAX_STATES = 29024, whose two
+    score rows fill shared memory; the backpointers in shared memory
+    where they fit beside the rest."""
     assert kernels._viterbi_geometry(N, S) == geometry
-    assert geometry[-1] <= kernels._SMEM_MAX
+    assert geometry[5] <= kernels._SMEM_MAX
+    assert kernels._VITERBI_MAX_STATES == 29024
 
 
 def _merge(va, ia, vb, ib):
@@ -411,11 +423,13 @@ def _order_inputs(S, renorm, seed, B=2, N=40):
 
 
 @pytest.mark.parametrize("renorm", [True, False])
-@pytest.mark.parametrize("S", [2, 64, 97, 256])
+@pytest.mark.parametrize("S", [2, 64, 97, 256, 257, 512, 1025])
 @pytest.mark.parametrize("P", [1, 2, 4, 8])
 def test_kernel_order_equals_the_twin_and_the_jax_scans(P, S, renorm):
     """The model of viterbi.cu's lane and partial order above, at P lanes
-    a state, on scores in eighths with ties, -inf entries and all-tied
+    a state (past 256 states the wide kernel's is P = 1, C = S rounded up
+    to 4: a thread's destinations each take the four partials over every
+    source state), on scores in eighths with ties, -inf entries and all-tied
     rows: paths and last scores equal kernels.viterbi_scan_ref's bit for
     bit, and its paths the JAX package's (the tracker's renormalized scan
     under the same lt; _rd_viterbi on the same scores and voicing, lt =

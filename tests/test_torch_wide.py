@@ -1,0 +1,302 @@
+"""The configurations past the first CUDA kernels' shape limits, on the CPU
+against the JAX package (its Pallas branch in interpret mode), at small
+sizes from numpy seeds: analyze -> synthesize with use_pallas=True at a 2 ms
+hop (the denoiser's 33 + 17 taps), at creaky voice's K = 160 and at 48 kHz
+with a 10 ms hop (noise hop 480); the noise kernel's twin against
+noise_mod_ola_pallas at nine bands, nine envelope harmonics and hop 480;
+the Viterbi twin against the JAX scans past 256 states; the envelope
+render's twin past Ke = 8 and the cycle track's past a 512-sample hop
+against the JAX package; and the wide kernels' launch geometry by hand
+(the denoiser's K chunks, the noise kernel's frames a block and its band
+table in shared memory).
+Tolerances: the chunk fields as test_torch_layer0.py holds them (ampl and
+the complex track 1e-3 of the peak), y_sin 1e-3, the noise 5e-5 (1e-4
+through the whole synthesis), SNR 0.05 dB, the Viterbi paths exactly.
+test_torch_cuda.py holds each wide kernel against its twin on a card."""
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import libllsm2_tpu as jpkg
+from libllsm2_tpu.models import layer0 as jl0
+from libllsm2_tpu.models import layer1 as jl1
+
+import libllsm2_tpu_torch as tpkg
+from libllsm2_tpu_torch.container import (LAYER0_FIELDS, chunk_from_numpy,
+                                          chunk_to_numpy)
+from libllsm2_tpu_torch.models import layer0 as tl0
+from libllsm2_tpu_torch.ops import kernels
+from libllsm2_tpu_torch.utils import testsig
+from test_torch_cuda import _noise_tensors, _wide_noise_inputs
+from test_torch_f0 import _jax_viterbi
+from test_torch_kernels import _jax_noise
+from test_torch_layer0 import _jax_bins
+from test_torch_viterbi import LAM, _order_inputs
+
+torch.set_num_threads(1)
+
+SMALL = dict(maxnhar=24, npsd=32, nspec=65, f0_floor=90.0, fnyq=6000.0)
+# name -> (ChunkConf keywords, seconds): a 2 ms hop (track_denoise_hz = 15
+# gives 33 + 17 denoiser taps), creaky voice's tests/test_creaky.py conf
+# (K = 160), tests/test_edgecases.py's 48 kHz conf at the 10 ms hop of its
+# sweep (nhop 480)
+CASES = {
+    "hop 2 ms": (dict(SMALL, thop=0.002), 0.3),
+    "K 160": (dict(SMALL, maxnhar=160), 0.3),
+    "48 kHz 10 ms": (dict(fs=48000.0, thop=0.01, fnyq=12000.0,
+                          chanfreq=(3000.0, 6000.0, 9000.0), nspec=513),
+                     0.6),
+}
+
+
+def _opts(pkg, conf):
+    opt = dataclasses.replace(pkg.create_aoptions(),
+                              conf=pkg.ChunkConf(**conf), use_pallas=True)
+    return opt, dataclasses.replace(pkg.create_soptions(fs=opt.conf.fs),
+                                    use_pallas=True)
+
+
+@pytest.fixture(scope="module", params=list(CASES))
+def case(request):
+    """A noisy and a clean row through both packages' analysis, the port's
+    a batch of two."""
+    conf, seconds = CASES[request.param]
+    topt, tsopt = _opts(tpkg, conf)
+    jopt, jsopt = _opts(jpkg, conf)
+    fs, thop = topt.conf.fs, topt.conf.thop
+    rows = testsig.make_test_utterances([(0, 0.05), (1, 0.0)],
+                                        duration=seconds, fs=fs, thop=thop)
+    x, f0, x_harm = (np.stack([r[j] for r in rows]).astype(np.float32)
+                     for j in range(3))
+    jchunks = [jl0._analyze_jit(jopt, jnp.asarray(x[i]), jnp.asarray(f0[i]))
+               for i in range(2)]
+    tchunk = tl0._analyze(topt, torch.tensor(x), torch.tensor(f0))
+    return dict(name=request.param, x=x, f0=f0, x_harm=x_harm, topt=topt,
+                tsopt=tsopt, jopt=jopt, jsopt=jsopt, jchunks=jchunks,
+                tchunk=tchunk)
+
+
+def test_wide_confs_reach_the_lifted_limits(case):
+    """Each case is past a limit of the first kernels: the denoiser's
+    taps, its K, or the noise kernel's hop."""
+    conf = case["topt"].conf
+    if case["name"] == "hop 2 ms":
+        # _track_denoise's tap counts: round(frame rate / (1 or 2) 15 Hz) | 1
+        rate, hz = 1.0 / conf.thop, case["topt"].track_denoise_hz
+        M, Mp = int(round(rate / hz)) | 1, int(round(rate / (2 * hz))) | 1
+        assert conf.nhop == 32 and (M, Mp) == (33, 17)
+        assert M > kernels._DENOISE_MAX_TAPS
+    elif case["name"] == "K 160":
+        assert conf.maxnhar == 160 > kernels._DENOISE_MAX_K
+    else:
+        assert conf.nhop == 480 > kernels._NOISE_MAX_HOP
+
+
+@pytest.mark.parametrize("row", [0, 1])
+def test_wide_analysis_matches(case, row):
+    """The port's analysis chunk against the JAX package's: f0 1e-4
+    relative, the mask exactly, ampl 1e-3, the complex tracks 1e-3 of
+    their peaks, psd and edc 1e-3 relative above 1e-5 of their peaks (the
+    residual's quiet noise channels carry the float32 rounding of a 160-
+    or 48 kHz-harmonic render: ~5e-6 of the peak apart)."""
+    j = case["jchunks"][row]
+    t = {f: v[row] for f, v in chunk_to_numpy(case["tchunk"]).items()}
+    np.testing.assert_allclose(t["f0"], np.asarray(j.f0), rtol=1e-4)
+    np.testing.assert_array_equal(t["hm_mask"], np.asarray(j.hm_mask))
+    ja, jp = np.asarray(j.ampl), np.asarray(j.phse)
+    assert t["ampl"].shape == ja.shape
+    np.testing.assert_allclose(t["ampl"], ja, atol=1e-3)
+    np.testing.assert_allclose(t["ampl"] * np.exp(1j * t["phse"]),
+                               ja * np.exp(1j * jp),
+                               atol=1e-3 * float(np.abs(ja).max()))
+    je = np.asarray(j.eenv_a)
+    np.testing.assert_allclose(
+        t["eenv_a"] * np.exp(1j * t["eenv_p"]),
+        je * np.exp(1j * np.asarray(j.eenv_p)),
+        atol=1e-3 * float(np.abs(je).max()))
+    for f in ("psd", "edc"):
+        jv = np.asarray(getattr(j, f))
+        np.testing.assert_allclose(t[f], jv, rtol=1e-3,
+                                   atol=1e-5 * float(np.abs(jv).max()))
+
+
+@pytest.mark.parametrize("row", [0, 1])
+def test_wide_synthesis_matches(case, row):
+    """The JAX chunk carried across and synthesized by the port with the
+    JAX noise bins injected: y_sin 1e-3, y_nos 1e-4, y 1e-3 of the JAX
+    synthesis."""
+    j = case["jchunks"][row]
+    chunk = chunk_from_numpy({f: np.asarray(getattr(j, f))[None]
+                              for f in LAYER0_FIELDS}, case["topt"].conf,
+                             device="cpu")
+    nbin = case["topt"].conf.nhop + 1
+    bins = _jax_bins(case["jsopt"].noise_seed, chunk.nfrm, nbin)
+    out = tl0._synthesize(case["tsopt"], chunk,
+                          bins=(bins[0][None], bins[1][None]))
+    jout = jl0._synthesize_jit(case["jsopt"], j)
+    for name, atol in (("y_sin", 1e-3), ("y_nos", 1e-4), ("y", 1e-3)):
+        np.testing.assert_allclose(getattr(out, name)[0].numpy(),
+                                   np.asarray(getattr(jout, name)),
+                                   atol=atol, err_msg=name)
+
+
+def _snr(ref, y, fs):
+    lo, hi = int(0.1 * len(ref)), int(0.9 * len(ref))
+    e = ref[lo:hi] - y[lo:hi]
+    return 10.0 * np.log10(np.sum(ref[lo:hi] ** 2)
+                           / max(float(np.sum(e ** 2)), 1e-20))
+
+
+def test_wide_round_trip_snr_matches(case):
+    """analyze -> synthesize through each package alone (the port a batch
+    of two on its own chunk, its own noise draw): y_sin finite, of the
+    input's length, and its SNR against the clean harmonic part within
+    0.05 dB of the JAX package's, row by row."""
+    out = tl0._synthesize(case["tsopt"], case["tchunk"])
+    fs = case["topt"].conf.fs
+    assert out.y_sin.shape == case["x"].shape
+    assert bool(torch.isfinite(out.y).all())
+    for row in range(2):
+        jy = np.asarray(jl0._synthesize_jit(case["jsopt"],
+                                            case["jchunks"][row]).y_sin)
+        ref = case["x_harm"][row]
+        assert abs(_snr(ref, out.y_sin[row].numpy(), fs)
+                   - _snr(ref, jy, fs)) <= 0.05
+
+
+@pytest.mark.parametrize("nhop,C,Ke,Nf", [(480, 4, 4, 12), (80, 9, 9, 40),
+                                          (480, 9, 9, 9)])
+def test_noise_twin_matches_pallas_past_the_first_kernel(nhop, C, Ke, Nf):
+    """noise_mod_ola (its twin on the CPU) against the JAX package's band
+    iDFT and noise_mod_ola_pallas (interpret mode) at hop 480, nine bands
+    and nine envelope harmonics, where the card runs the wide kernel:
+    5e-5 absolute (test_pallas.py's)."""
+    args, bands = _wide_noise_inputs(nhop, C, Ke, Nf, nhop + C)
+    assert kernels._noise_geometry(nhop, C, Ke, bands)[0] > 0
+    got = kernels.noise_mod_ola(*_noise_tensors(args), bands)
+    fs = 100.0 * nhop
+    edges = tuple(fs / 2 * c / C for c in range(C)) + (fs / 2 + 1.0,)
+    for b in range(2):
+        np.testing.assert_allclose(got[b].numpy(),
+                                   _jax_noise(args, edges, fs, b), atol=5e-5)
+
+
+@pytest.mark.parametrize("S", [257, 512])
+@pytest.mark.parametrize("renorm", [True, False])
+def test_viterbi_twin_matches_the_jax_scans_past_256_states(S, renorm):
+    """viterbi_scan (its twin on the CPU) against the JAX tracker's
+    renormalized scan and layer 1's _rd_viterbi on S states, scores in
+    eighths with ties and -inf entries: paths equal (tolerance 0)."""
+    obs, lt, score, voiced = _order_inputs(S, renorm, S + renorm, N=60)
+    path = kernels.viterbi_scan(obs, lt, renorm)
+    for b in range(obs.shape[0]):
+        if renorm:
+            ref = _jax_viterbi(jnp.asarray(obs[b].numpy()),
+                               jnp.asarray(lt.numpy()))
+        else:
+            ref = jl1._rd_viterbi(jnp.asarray(score[b].numpy()),
+                                  jnp.asarray(voiced[b].numpy()), LAM)
+        np.testing.assert_array_equal(path[b].numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("K,n1,n2,geometry", [
+    # the first kernel: [RA + R, K] float2 tracks, RA = 64 + 2 (h1 + h2), R
+    # = 64 + 2 h2, then vo [RA] and the taps
+    (80, 13, 7, (0, 8 * (82 + 70) * 80 + 4 * (82 + 20))),
+    # the wide kernel: KC columns a chunk, then the rows' sums and fit
+    # [R, 11], vo [RA] and the taps
+    (160, 13, 7, (128, 8 * (82 + 70) * 128 + 4 * (11 * 70 + 82 + 20))),
+    (129, 13, 7, (128, 8 * (82 + 70) * 128 + 4 * (11 * 70 + 82 + 20))),
+    (80, 33, 17, (80, 8 * (112 + 80) * 80 + 4 * (11 * 80 + 112 + 50))),
+    (80, 41, 21, (80, 8 * (124 + 84) * 80 + 4 * (11 * 84 + 124 + 62))),
+    (160, 41, 21, (128, 8 * (124 + 84) * 128 + 4 * (11 * 84 + 124 + 62))),
+    # h1 + 2 h2 = 100: 128, 112, 96 columns overflow 232448 bytes
+    (200, 101, 51, (80, 8 * (214 + 114) * 80 + 4 * (11 * 114 + 214 + 152))),
+    # the Pallas kernel's widest halo, h1 + 2 h2 = 510 at its 512 block
+    (80, 1, 511, (16, 8 * (574 + 574) * 16 + 4 * (11 * 574 + 574 + 512))),
+])
+def test_denoise_geometry_by_hand(K, n1, n2, geometry):
+    """kernels._denoise_geometry: the first kernel up to K = 128 and 31
+    taps with h1 + 2 h2 < 64; past them the wide kernel with the widest
+    chunk of columns (a multiple of 16, at most 128) that fits the H100's
+    shared memory, so K = 160 runs in chunks of 128 and 32."""
+    assert kernels._denoise_geometry(K, n1, n2) == geometry
+    assert geometry[1] <= kernels._SMEM_MAX
+
+
+@pytest.mark.parametrize("N,block", [(1600, 400), (4000, 400), (150, 128),
+                                     (1536, 128), (64, 64), (1000, 200)])
+def test_denoise_frame_block_is_the_pallas_kernels(N, block):
+    """The tap limit the port shares with the JAX package: the Pallas
+    denoiser's frame block at N frames (pallas_osc.py:1176-1179)."""
+    assert kernels._denoise_frame_block(N) == block
+
+
+@pytest.mark.parametrize("nhop,C,Ke,bands,geometry", [
+    # 16 kHz default: the first kernel, 16 frames; L = 4 bands' even slots
+    (80, 4, 4, (0, 15, 15, 30, 30, 45, 45, 81),
+     (0, 16 + 16 + 16 + 38,
+      8 * 16 * 86 + 8 * 16 * 4 * 80 + 24 * 80 + 4 * 16 * 8 * 5 + 4 * 86)),
+    # 48 kHz at 10 ms: nhop 480; 12 and 16 frames overflow, 8 fit; the band
+    # table [5, C] ints too
+    (480, 4, 4, (0, 60, 60, 120, 120, 180, 180, 480),
+     (8, 480, 8 * 8 * 480 + 8 * 8 * 4 * 480 + 24 * 480 + 4 * 8 * 8 * 5
+      + 4 * 480 + 4 * 20)),
+    # nine bands of 9 bins (odd ranges: slots from each band's even bin)
+    (80, 9, 9, (0, 9, 9, 18, 18, 27, 27, 36, 36, 45, 45, 54, 54, 63, 63, 72,
+                72, 81),
+     (16, 10 + 10 + 10 + 10 + 10 + 10 + 10 + 10 + 10,
+      8 * 16 * 90 + 8 * 16 * 9 * 80 + 24 * 80 + 4 * 16 * 18 * 10 + 4 * 90
+      + 4 * 45)),
+])
+def test_noise_geometry_by_hand(nhop, C, Ke, bands, geometry):
+    """kernels._noise_geometry: (frames a block, 0 for the first kernel;
+    staged slots a frame, each band's from its first even bin, an even
+    count; shared bytes: spectra [F, L] and (E, O) [F, C, nhop] float2,
+    three [2 nhop] tables, coefficients [F, 2 C (Ke + 1)], the slots' bins
+    [L], and the wide kernel's band table [5, C])."""
+    assert kernels._noise_geometry(nhop, C, Ke, bands) == geometry
+    assert geometry[2] <= kernels._SMEM_MAX
+
+
+@pytest.mark.parametrize("C,Ke,nhop", [(4, 9, 80), (3, 12, 480)])
+def test_env_render_twin_matches_pallas_past_8_harmonics(C, Ke, nhop):
+    """env_render (its twin on the CPU) against env_render_pallas
+    (interpret mode) at Ke = 9 and 12, where the card runs the wide
+    kernel: env 2e-5, base 2e-6 (test_pallas.py:231)."""
+    from libllsm2_tpu.ops import pallas_osc
+    rng = np.random.default_rng(Ke)
+    nfrm = 24
+    cyc = (np.cumsum(rng.uniform(0.0, 0.02, nfrm * nhop)) % 1.0).astype(
+        np.float32)
+    edc = rng.uniform(0, 1, (nfrm, C)).astype(np.float32)
+    ar = rng.uniform(-0.15, 0.15, (nfrm, C, Ke)).astype(np.float32)
+    ai = rng.uniform(-0.15, 0.15, (nfrm, C, Ke)).astype(np.float32)
+    base = rng.uniform(0.5, 1.5, (nfrm, C)).astype(np.float32)
+    env, bs = kernels.env_render(*(torch.tensor(a)[None] for a in
+                                   (cyc, edc, ar, ai, base)))
+    jenv, jbs = pallas_osc.env_render_pallas(*map(jnp.asarray,
+                                                  (cyc, edc, ar, ai, base)))
+    np.testing.assert_allclose(env[0].numpy(), np.asarray(jenv), atol=2e-5)
+    np.testing.assert_allclose(bs[0].numpy(), np.asarray(jbs), atol=2e-6)
+
+
+@pytest.mark.parametrize("nhop", [960, 2048])
+def test_cycle_track_twin_matches_jax_past_a_512_sample_hop(nhop):
+    """sample_cycles (its twin on the CPU) against the JAX package's at
+    hops 960 (48 kHz at 20 ms) and 2048, where the card runs 32 lanes with
+    runs of 32 and 64 samples: within 1e-5 cycles mod 1."""
+    import jax
+    from libllsm2_tpu.ops import harmonics as jhm
+    fs, n = 100.0 * nhop, 60
+    f0 = testsig.make_f0_track(n, 0.01, unvoiced_tail_frac=0.1).astype(
+        np.float32)
+    got = kernels.sample_cycles(torch.tensor(f0)[None], nhop, fs,
+                                n * nhop)[0].numpy().astype(np.float64)
+    ref = np.asarray(jax.jit(jhm.sample_cycles, static_argnums=(1, 2, 3))(
+        jnp.asarray(f0), nhop, fs, n * nhop)).astype(np.float64)
+    d = got - ref
+    assert float(np.abs(d - np.round(d)).max()) <= 1e-5
