@@ -363,7 +363,20 @@ non-zero without the final "ok" line:
      -inf entries under the tracker's transitions at that S ([64, 1600,
      S], row 0 alone, rows 0 and 1 joined into one 3200-frame row); then
      the tracker with F0Config(nbins=384) on 64 bench rows: one launch,
-     its call against the twin bit for bit, a finite track.
+     its call against the twin bit for bit, a finite track (S 257 to 2048
+     run viterbi.cu's grid kernel).  20e, full band (maxnhar = fs / 2 /
+     f0_floor at phase 5's options with f0_floor 40): 48 kHz at the 5 ms
+     hop (K = 600, D = 11; the bench rows resampled on the card, every F0
+     frame) and 16 kHz at a 2 ms hop (K = 200, D = 26, fnyq 8000; the
+     bench rows made at that hop), each as 20a (launches, the kernels
+     against their twins at 2 rows, pins, full-batch times, the step and
+     its peak, rows 0 and 64 alone), deconv_full past its first kernel's
+     shared memory (its wide kernel, checked by the geometry and K); the
+     pins are the JAX package's with its windowed projection in float64
+     (port_jax_pins.py only=proj64), noisy rows within 0.05 dB.  20f,
+     at full batch against their twins: env_render at Ke 9 and 12, the
+     cycle track at hops 960 and 2048 (48 kHz) and noise_mod_ola_seg at 9
+     channels of 9 envelope harmonics.
 Phases 5, 6, 7 and 9 also time every call of each of their kernels in
 the counted run at full batch (median of 10, and a launch's share of a
 run of 20 back-to-back launches: the device time where the host enqueues
@@ -378,9 +391,11 @@ its K = 1 case is phase 3's), 9 for env_render and viterbi_scan, 16c
 for noise_mod_ola_seg;
 denoise_apply also "finish_launches" and "finish_full_batch" for its
 second launch; "launches_by_phase" the counts of phases 11 to 17, of
-19, summed over its ranks' 19a runs, and of 20a, 20b and 20d); ms,
+19, summed over its ranks' 19a runs, and of 20a, 20b, 20d and 20e); ms,
 plain_ms, library_ms and bound_ms at the first 2-row call of phase 3
-(noise_mod_ola_seg: its full-batch call of 16c; viterbi_scan: 11v's
+(noise_mod_ola_seg: its full-batch call of 16c; deconv_full_wide,
+deconv_full's second path: 20e's first 2-row call, its launches those
+of 20e's counted runs; viterbi_scan: 11v's
 first case, phase 9's full-batch Rd call; denoise_stats also has
 16b's full-batch polar case among its "cases"; phase 20's cases and
 full-batch records join each kernel's); "full_batch" a record per
@@ -399,13 +414,14 @@ The SNR, rd and PbP pins are the JAX package's own values on the CPU, from
 
     JAX_PLATFORMS=cpu PYTHONPATH=. python scripts/port_jax_pins.py \
         [only=l0,11k,l1,pbp,corpus,edits,coder,nasal,stream,dspkit,
-              learned,fp64,mesh,wide]
+              learned,fp64,mesh,wide,proj64]
 
 (l0: phases 4 and 5; 11k: phases 7 and 8; l1: phase 9; pbp: phase 10;
 corpus: phase 11; edits: phase 12; coder: phase 13; nasal: phase 14;
 stream: phase 15, ~1 min on the CPU; dspkit: phase 16, ~70 s; learned:
 phase 17d-e and its npz, ~25 s; fp64: phase 18a, ~10 s; mesh: phase 19a,
-~130 s; wide: phase 20a-b).
+~130 s; wide: phase 20a-b; proj64: phase 20e, with the JAX package's
+windowed projection in float64, ~3 min).
 """
 import dataclasses
 import json
@@ -709,6 +725,26 @@ WIDE_PINS_DB = {"creaky": {0: 40.427391052246094, 1: 40.932682037353516,
                            64: 54.8484001159668},
                 "48 kHz": {0: 38.91567611694336, 1: 39.449703216552734,
                            64: 48.93970489501953}}
+# phase 20e (cell wide, full band): maxnhar = fs / 2 / f0_floor at phase
+# 5's options with f0_floor 40 -> (create_aoptions keywords, the fixtures'
+# hop), and the JAX package's batched_pipeline SNRs of bench rows 0, 1
+# (noisy) and 64 (clean) there with its windowed harmonic projection
+# computed in float64: the card's projection takes each harmonic's phase
+# directly, where the JAX kernel's float32 rotation recurrence over K = 600
+# harmonics moves the 48 kHz noisy rows by 0.13-0.14 dB (PERF.md §6), from
+#   JAX_PLATFORMS=cpu PYTHONPATH=. python scripts/port_jax_pins.py \
+#       only=proj64
+FULLBAND = {"48 kHz": (dict(fs=48000.0, f0_floor=40.0, maxnhar=600), 0.005),
+            "16 kHz 2 ms": (dict(thop=0.002, f0_floor=40.0, maxnhar=200,
+                                 fnyq=8000.0), 0.002)}
+FULLBAND_PINS_DB = {"48 kHz": {0: 38.343997955322266, 1: 38.714813232421875,
+                               64: 57.403690338134766},
+                    "16 kHz 2 ms": {0: 39.95677947998047,
+                                    1: 40.462425231933594,
+                                    64: 64.54426574707031}}
+# deconv_full's second path (deconv_full.cu's wide kernel), a record of its
+# own in the kernels line
+DECONV_WIDE = "deconv_full_wide"
 WIDE_TAPS = {"2 ms hop": (33, 17), "5 Hz at 5 ms": (41, 21)}   # 20c
 WIDE_STATES = ((257, True), (512, False), (1025, True))        # 20d
 WIDE_VITERBI_ROWS = 64
@@ -1262,6 +1298,8 @@ def full_batch(torch, kernels, calls, label):
                 extra = f" library {library_ms:.4f} ms" + (
                     "" if scale == 1 else f" (timed on 1/{scale} of the rows, "
                     f"x{scale}: its operands do not fit at full batch)")
+            elif scale == 0:
+                extra = " library: its operands do not fit even at one row"
             if name == "fir_frames":
                 host_ms = host_call_ms(torch, lambda: fn(*args, **kw), 50)
                 extra = f" (host path {host_ms:.4f} ms a call)" + extra
@@ -1274,8 +1312,9 @@ def full_batch(torch, kernels, calls, label):
                               "shapes": shapes[:2], "ms": ms, "run_ms": run,
                               "bound_ms": bound_ms, "bound_by": bound_by,
                               "library_ms": library_ms,
-                              "library_row_fraction": None if library_ms
-                              is None else 1.0 / scale, "host_ms": host_ms,
+                              "library_row_fraction": None if not scale
+                              or library_ms is None else 1.0 / scale,
+                              "host_ms": host_ms,
                               "max_abs_err": full_err})
     torch.cuda.empty_cache()
     return out
@@ -1295,7 +1334,10 @@ def library_full(torch, name, args, kw):
     """-> (ms, scale): the PyTorch yardstick of one call at full batch
     (median of 10), or where it runs out of device memory on the first
     1/scale of the rows (scale 2, 4, ...: every input's leading axis cut
-    alike), its time times scale; (None, 1) where there is none."""
+    alike), its time times scale; (None, 1) where there is none, (None,
+    0) where even one row's operands do not fit the card (the projection's
+    [N, K, 2 center] basis at full band: 34 GiB a row at 48 kHz, K =
+    600)."""
     scale = 1
     while True:
         part_args = _first_rows(torch, args, scale)
@@ -1309,7 +1351,9 @@ def library_full(torch, name, args, kw):
         except torch.cuda.OutOfMemoryError:
             lead = min(t.shape[0] for t in _tensors(torch, args) if t.dim())
             if lead // (2 * scale) < 1:
-                raise
+                call = None
+                torch.cuda.empty_cache()
+                return None, 0
         call = None
         torch.cuda.empty_cache()    # after the handler: its frames are gone
         if ms is not None:
@@ -1503,7 +1547,7 @@ def check_snr(label, snr, pins, clean_min, noisy_tol=NOISY_TOL_DB):
         if row < n_noisy:
             phase(f"{label} noisy snr row {row}",
                   abs(snr[row] - pin) <= noisy_tol,
-                  f"{snr[row]:.4f} dB (pin {pin} +- {noisy_tol})")
+                  f"{snr[row]:.6f} dB (pin {pin} +- {noisy_tol})")
         else:
             phase(f"{label} clean snr row {row}",
                   snr[row] >= pin - CLEAN_TOL_DB,
@@ -1512,16 +1556,17 @@ def check_snr(label, snr, pins, clean_min, noisy_tol=NOISY_TOL_DB):
           f" dB over {n_noisy} rows", flush=True)
 
 
-def fixtures(torch, dev, fs=16000.0):
-    """The bench fixtures at rate fs (bench.py's rows): rows [0, N_NOISY)
-    with breath noise 0.05, the rest clean; the harmonic part, which no
-    row's seed changes, is synthesized once (numpy, float64)."""
+def fixtures(torch, dev, fs=16000.0, thop=0.005):
+    """The bench fixtures at rate fs and F0 hop thop (bench.py's rows):
+    rows [0, N_NOISY) with breath noise 0.05, the rest clean; the harmonic
+    part, which no row's seed changes, is synthesized once (numpy,
+    float64)."""
     import numpy as np
 
     from libllsm2_tpu_torch.utils import testsig
     rows = testsig.make_test_utterances(
         [(i, 0.05 if i < N_NOISY else 0.0) for i in range(BATCH)],
-        duration=DURATION, fs=fs)
+        duration=DURATION, fs=fs, thop=thop)
     x, f0, x_ref = (torch.tensor(np.stack([r[j] for r in rows]),
                                  dtype=torch.float32, device=dev)
                     for j in range(3))
@@ -4705,11 +4750,103 @@ def wide_viterbi(torch, kernels, f0mod, x):
     return cases, launches
 
 
+def fullband_phase(torch, mods, data, join, by_phase):
+    """Phase 20e (cell wide, full band): wide_path at each of FULLBAND's
+    configurations, 48 kHz at the 5 ms hop (K = 600; the bench rows
+    resampled on the card, every F0 frame) and 16 kHz at a 2 ms hop (K =
+    200, D = 26; the bench rows made at that hop), where deconv_full runs
+    its wide kernel; every other kernel's cases and full-batch records
+    joined (join), the counted runs' launches by_phase -> (the wide
+    deconvolution's cases, its full-batch records)."""
+    from libllsm2_tpu_torch import create_aoptions, create_soptions
+    from libllsm2_tpu_torch.ops import resample
+    kernels = mods[0]
+    dev = data[0].device
+    cases_w, full_w = [], []
+    for label, (kw, thop) in FULLBAND.items():
+        opt = create_aoptions(use_pallas=True, **kw)
+        sopt = dataclasses.replace(create_soptions(fs=opt.conf.fs),
+                                   use_pallas=True)
+        if opt.conf.fs == 16000.0:
+            d = fixtures(torch, dev, thop=thop)
+        else:
+            x, f0, x_ref, nxv = data
+            x48, ref48 = (resample.resample_to(v, 16000.0, opt.conf.fs)
+                          for v in (x, x_ref))
+            d = (x48, f0, ref48, torch.full_like(nxv, x48.shape[-1]))
+            del x48, ref48
+        conf = opt.conf
+        D = -(-conf.halfwin_max // conf.nhop) + 1   # layer0._deconv_correction
+        nq = 2 * conf.nhop // min(8, conf.nhop)
+        first = kernels._deconv_smem(D, conf.maxnhar, nq)
+        geo = kernels._deconv_geometry(D, conf.maxnhar, nq, d[0].shape[0],
+                                       d[1].shape[1], kernels._sm_count(dev))
+        phase(f"20e {label} deconv_full wide",
+              first > kernels._SMEM_MAX and geo is not None and geo[1] > 0,
+              f"K {conf.maxnhar}, D {D}, nq {nq}: the first kernel's block "
+              f"{first} B > {kernels._SMEM_MAX}; the wide kernel's (frames a "
+              f"block, columns a chunk, blocks a tile, bytes) {geo}")
+        cases, by_phase[f"20e {label}"], f, shapes = wide_path(
+            torch, mods, f"20e {label}", opt, sopt, d,
+            FULLBAND_PINS_DB[label])
+        ks = [sh[0][-1] for sh in shapes["deconv_full"]]
+        phase(f"20e {label} K", ks and all(k == conf.maxnhar for k in ks),
+              f"K of deconv_full's calls at 2 rows {ks}")
+        cases_w += cases.pop("deconv_full")
+        full_w += f.pop("deconv_full")
+        join(cases, f)
+        del d
+        torch.cuda.empty_cache()
+    return cases_w, full_w
+
+
+def wide_shapes(torch, kernels, dev):
+    """Phase 20f: the wide kernels that no counted run of phase 20 takes,
+    at full batch against their twins (each timed beside its bound):
+    env_render past Ke = 8 (Ke 9 at 16 kHz, Ke 12 with 3 channels at 48
+    kHz / 10 ms), the cycle track past a 512-sample hop (48 kHz at 20 ms,
+    hop 960, and hop 2048) and noise_mod_ola_seg at 9 channels of 9
+    envelope harmonics -> {kernel: [case]}."""
+    g = torch.Generator(device=dev).manual_seed(22)
+    r = lambda *shape: torch.rand(shape, generator=g, device=dev)
+    B = BATCH
+
+    def envelope(N, nhop, C, Ke):
+        cyc = torch.remainder(torch.cumsum(r(B, N * nhop) * 0.02, -1), 1.0)
+        return (cyc, r(B, N, C), (r(B, N, C, Ke) - 0.5) * 0.3,
+                (r(B, N, C, Ke) - 0.5) * 0.3, 0.5 + r(B, N, C))
+
+    out = {"env_render": [], "sample_cycles": [], "noise_mod_ola_seg": []}
+    for N, nhop, C, Ke in ((1600, 80, 4, 9), (800, 480, 3, 12)):
+        out["env_render"].append(check_kernel(
+            torch, kernels, "env_render", KERNELS["env_render"][2],
+            envelope(N, nhop, C, Ke), {}, f"C {C} Ke {Ke} hop {nhop}",
+            prefix="20f"))
+    for nhop in (960, 2048):
+        N = int(DURATION * 48000.0) // nhop
+        f0 = 70.0 + 230.0 * r(B, N)
+        f0[:, ::7] = 0.0
+        out["sample_cycles"].append(check_kernel(
+            torch, kernels, "sample_cycles", KERNELS["sample_cycles"][2],
+            (f0, nhop, 48000.0, N * nhop), {}, f"hop {nhop} at 48 kHz",
+            prefix="20f"))
+    args = envelope(1600, 80, 9, 9) + ((r(B, 9, 1600, 160) - 0.5),)
+    out["noise_mod_ola_seg"].append(check_kernel(
+        torch, kernels, "noise_mod_ola_seg", SEG_KERNEL[2], args, {},
+        "C 9 Ke 9", prefix="20f"))
+    del args
+    torch.cuda.empty_cache()
+    return out
+
+
 def wide_phase(torch, mods, opt, sopt, data, summary, full, by_phase):
     """Phase 20 (cell wide): 20a creaky voice's conf, 20b 48 kHz at a 10 ms
-    hop, 20c the denoiser's wide taps, 20d the Viterbi past 256 states;
-    each case joins its kernel's cases in summary, each full-batch record
-    its kernel's in full, each counted run's launches by_phase."""
+    hop, 20c the denoiser's wide taps, 20d the Viterbi past 256 states,
+    20e full band (deconv_full's wide kernel: its record DECONV_WIDE in
+    summary), 20f the wide shapes no counted run takes; each case joins
+    its kernel's cases in summary, each full-batch record its kernel's in
+    full, each counted run's launches by_phase -> 20f's noise_mod_ola_seg
+    cases."""
     from libllsm2_tpu_torch import create_aoptions, create_soptions
     from libllsm2_tpu_torch.ops import f0 as f0mod
     from libllsm2_tpu_torch.ops import resample
@@ -4785,6 +4922,25 @@ def wide_phase(torch, mods, opt, sopt, data, summary, full, by_phase):
                                           x[:WIDE_VITERBI_ROWS])
     join({VITERBI: cases})
     torch.cuda.empty_cache()
+    # 20e: full band, deconv_full's wide kernel
+    cases, f = fullband_phase(torch, mods, data, join, by_phase)
+    source, replaces, _ = KERNELS["deconv_full"]
+    summary[DECONV_WIDE] = {
+        "name": DECONV_WIDE, "route": "cuda", "source": source,
+        "replaces": replaces,
+        "launches": sum(v["deconv_full"] for k, v in by_phase.items()
+                        if k.startswith("20e")),
+        "max_abs_err": max(c["max_abs_err"] for c in cases),
+        **{k: cases[0][k] for k in ("ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms")},
+        "cases": cases, "full_batch": f,
+        "launches_by_phase": {k: v["deconv_full"] for k, v in by_phase.items()
+                              if k.startswith("20e")}}
+    # 20f: the wide shapes no counted run takes
+    extra = wide_shapes(torch, kernels, dev)
+    seg = extra.pop("noise_mod_ola_seg")
+    join(extra)
+    return seg
 
 
 def once_ms(torch, fn):
@@ -5123,8 +5279,8 @@ def main(argv):
     # phase 20: the wide configurations (cell wide)
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
-    wide_phase(torch, (kernels, layer0, corpus), opt, sopt, data, summary,
-               full, by_phase)
+    seg_cases += wide_phase(torch, (kernels, layer0, corpus), opt, sopt,
+                            data, summary, full, by_phase)
     print(f"20: {time.perf_counter() - t0:.1f} s", flush=True)
     del data
     for name in KERNELS:

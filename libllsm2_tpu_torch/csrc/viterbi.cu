@@ -65,7 +65,36 @@
 // step at a time, the backpointers uint16.  Its limit is shared memory:
 // the two score rows, 8 C bytes (C = S rounded up to 4), and the warps'
 // maxima fit up to S = 29024 (kernels._VITERBI_MAX_STATES).  It is written
-// to be right, not fast: S^2 candidates a step on one SM.
+// to be right, not fast: S^2 candidates a step on one SM.  It now runs
+// only past 2048 states (nbins >= 2048).
+//
+// From 257 to 2048 states (lt mode 4) viterbi_grid_kernel takes the card:
+// a step is a max-plus product of the rows' scores [B, S] with lt [S, S],
+// so each block owns a slice of kGridJ = 16 destination states for the
+// rows of its row groups, every step, and keeps lt's column slice in
+// shared memory for the whole launch (read once, where the one-block-a-
+// row kernel read all of lt from L2 for every row and step).  Its blocks
+// (at most one an SM) run in one cooperative launch and meet at one
+// grid-wide barrier a step (an arrival counter in device memory); between
+// barriers the block copies its rows' previous raw scores from L2 into
+// shared memory (cp.async.cg), and a warp takes 8 rows x the block's 16
+// destinations over a part of the source states (a thread 2 rows x 2
+// destinations; 8 or 16 warps, the parts' maxima merged in part order).
+// The candidates come in groups of 8 source states: the group's maximum
+// by a tree of fmaxf, then one compare with the running best (a strict >
+// over ascending groups: the first group that reaches the maximum), and
+// after the last group the first state of that group whose candidate
+// equals it: the maximum and its lowest index, as the plain loop's,
+// with ~1.25 compare instructions a candidate where a compare and two
+// moves were 3.  With renorm each row's maximum is an atomicMax of
+// order-preserving unsigned keys over the blocks' partial maxima (exact
+// in any order), in three rotating buffers; the candidates read (score_i
+// - m) + lt_ij, the plain loop's two roundings.  Backpointers uint16 in
+// device memory; after the last barrier warp 0 of a block takes a row's
+// final argmax and thread 0 its backtrace.  Bound: the max-plus product's
+// B S^2 (N - 1) adds and compares; what sets a step is the ALU pipe's
+// compares, the scores' L2 traffic (4 B S^2 / 16 bytes a step) and the
+// barrier, whose fixed cost a step sets a row alone's time.
 #include "common.cuh"
 
 namespace {
@@ -82,7 +111,11 @@ constexpr int kRing = 16;
 constexpr int kAhead = 8;
 
 // LLSM_SKIP_PASS_B = 1 compiles the backtrace's walk out (the final argmax
-// stays), for scripts/port_kernel_passes.py's split
+// stays), for scripts/port_kernel_passes.py's split; LLSM_SKIP_PASS_A = 1
+// the grid kernel's candidates (its staging, merges and barriers stay)
+#ifndef LLSM_SKIP_PASS_A
+#define LLSM_SKIP_PASS_A 0
+#endif
 #ifndef LLSM_SKIP_PASS_B
 #define LLSM_SKIP_PASS_B 0
 #endif
@@ -461,6 +494,317 @@ WideKernel pick_wide(int bp_smem, int renorm) {
                 : viterbi_wide_kernel<uint16_t, false, false>;
 }
 
+// ---------------------------------------------------------------------------
+// lt mode 4: viterbi_grid_kernel (see the header)
+
+constexpr int kGridJ = 16;           // destination states a block
+constexpr int kGridG = 8;            // source states a group
+constexpr int kGridRows = 8;         // rows a warp
+constexpr int kGridMaxWarps = 16;
+
+// A float as an unsigned of the same order (not NaN; -0 below +0), and
+// back; 0 is below every key, so a zeroed buffer starts every maximum.
+__device__ __forceinline__ unsigned ukey(float f) {
+  const unsigned b = __float_as_uint(f);
+  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+}
+__device__ __forceinline__ float ufval(unsigned k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+
+__device__ __forceinline__ void cp_async16_cg(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src));
+}
+
+// Every block of the cooperative grid arrives (the counter's target is
+// (barrier number) x (blocks)) before any goes on; what each block wrote
+// before it is visible to all after it: the release add after the block's
+// barrier, the acquire load before the next (no fence around them).
+__device__ __forceinline__ void grid_barrier(unsigned* ctr, unsigned target) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    asm volatile("red.release.gpu.global.add.u32 [%0], 1;\n" ::"l"(ctr)
+                 : "memory");
+    unsigned v;
+    do {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+                   : "=r"(v)
+                   : "l"(ctr)
+                   : "memory");
+    } while (v < target);
+  }
+  __syncthreads();
+}
+
+// One group's 8 candidates of one (row, destination): their maximum by a
+// tree of fmaxf, taken by the running best where it is greater.
+__device__ __forceinline__ void take_group(float& best, int& g,
+                                           const float* s, const float* l,
+                                           int i) {
+  float c[kGridG];
+#pragma unroll
+  for (int e = 0; e < kGridG; ++e) c[e] = __fadd_rn(s[e], l[e]);
+  const float m = fmaxf(fmaxf(fmaxf(c[0], c[1]), fmaxf(c[2], c[3])),
+                        fmaxf(fmaxf(c[4], c[5]), fmaxf(c[6], c[7])));
+  take_gt(best, g, m, i);
+}
+
+// Dynamic shared memory: lt's column slice transposed, ltT [kGridJ][Sp + 4]
+// (zero past S), then the rows of raw scores [Rb][Sp + 4] (row strides of
+// Sp + 4 floats: a warp's 4 rows or 8 destinations read by one float4
+// instruction fall on distinct banks), then where P > 1 the partial maxima
+// [P][Rb][kGridJ] (value, index).  A block's warps are Wr row warps (8 rows
+// each, Rb = 8 Wr) times P parts of the source states (part p the groups g
+// = p, p + P, ...), warp w = p Wr + its row warp.  Device memory (work):
+// the raw scores [2][B][Sp] (-inf past S), the row maxima's keys [3][B],
+// the barrier's counter.
+template <bool RENORM>
+__global__ void __launch_bounds__(32 * kGridMaxWarps, 1)
+    viterbi_grid_kernel(const float* __restrict__ obs,
+                        const float* __restrict__ lt,
+                        long long* __restrict__ path,
+                        float* __restrict__ final_score, uint16_t* bp,
+                        float* scores, unsigned* rowmax, unsigned* ctr, int B,
+                        int N, int S, int Sp, int Wr) {
+  extern __shared__ __align__(16) float smem[];
+  const int LS = Sp + 4;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int T = blockDim.x, nw = T >> 5, P = nw / Wr, Rb = kGridRows * Wr;
+  const int rw = warp % Wr, part = warp / Wr;   // row warp, source part
+  float* ltT = smem;
+  float* srows = smem + kGridJ * LS;
+  float* pval = srows + Rb * LS;                 // [P][Rb][kGridJ]
+  int* pidx = reinterpret_cast<int*>(pval + P * Rb * kGridJ);
+  const int j0 = blockIdx.x * kGridJ;
+  const unsigned G = gridDim.x * gridDim.y;
+  const int lr = lane >> 3, lj = lane & 7;     // rows lr, lr + 4; dests lj,
+                                               // lj + 8 of the row warp
+  for (int k = tid; k < kGridJ * Sp; k += T) {
+    const int i = k / kGridJ, jj = k - i * kGridJ, j = j0 + jj;
+    ltT[jj * LS + i] = (i < S && j < S) ? lt[(long long)i * S + j] : 0.0f;
+  }
+  const long long BS = (long long)B * Sp;
+
+  // step 0: the raw scores (and -inf past S in both buffers), the maxima
+  for (int rg = blockIdx.y; rg * Rb < B; rg += gridDim.y) {
+    if (part != 0) continue;
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+      const int r = rg * Rb + rw * kGridRows + lr + 4 * a;
+      unsigned key = 0;
+#pragma unroll
+      for (int d = 0; d < 2; ++d) {
+        const int j = j0 + lj + 8 * d;
+        if (r < B && j < Sp) {
+          if (j < S) {
+            const float v = obs[(long long)r * N * S + j];
+            scores[(long long)r * Sp + j] = v;
+            key = max(key, ukey(v));
+          } else {
+            scores[(long long)r * Sp + j] = -INFINITY;
+            scores[BS + (long long)r * Sp + j] = -INFINITY;
+          }
+        }
+      }
+      if (RENORM) {
+#pragma unroll
+        for (int o = 1; o < 8; o <<= 1)
+          key = max(key, __shfl_xor_sync(kFull, key, o));
+        if (lj == 0 && r < B) atomicMax(rowmax + r, key);
+      }
+    }
+  }
+  grid_barrier(ctr, G);
+
+  for (int t = 1; t < N; ++t) {
+    const float* prev = scores + ((t - 1) & 1) * BS;
+    float* next = scores + (t & 1) * BS;
+    const unsigned* mprev = rowmax + ((t - 1) % 3) * B;
+    unsigned* mnext = rowmax + (t % 3) * B;
+    if (RENORM && blockIdx.x == 0) {   // read at step t - 1, written at t + 1
+      unsigned* mfree = rowmax + ((t + 1) % 3) * B;
+      for (int rg = blockIdx.y; rg * Rb < B; rg += gridDim.y)
+        for (int k = tid; k < Rb && rg * Rb + k < B; k += T)
+          mfree[rg * Rb + k] = 0u;
+    }
+    for (int rg = blockIdx.y; rg * Rb < B; rg += gridDim.y) {
+      const int r0 = rg * Rb;                      // the block's first row
+      for (int rr = warp; rr < Rb && r0 + rr < B; rr += nw) {
+        const float* src = prev + (long long)(r0 + rr) * Sp;
+        for (int c = lane * 4; c < Sp; c += 128)
+          cp_async16_cg(srows + rr * LS + c, src + c);
+      }
+      asm volatile("cp.async.commit_group;\n" ::);
+      int rows[2];
+      float m[2], ob[2][2];
+#pragma unroll
+      for (int a = 0; a < 2; ++a) {
+        rows[a] = r0 + rw * kGridRows + lr + 4 * a;
+        const bool live = rows[a] < B;
+        m[a] = RENORM && live ? ufval(__ldcg(mprev + rows[a])) : 0.0f;
+#pragma unroll
+        for (int d = 0; d < 2; ++d) {
+          const int j = j0 + lj + 8 * d;
+          ob[a][d] = part == 0 && live && j < S
+                         ? __ldg(obs + ((long long)rows[a] * N + t) * S + j)
+                         : 0.0f;
+        }
+      }
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+      __syncthreads();
+
+      const int rl = rw * kGridRows + lr;          // local rows rl, rl + 4
+      const float* sr[2] = {srows + rl * LS, srows + (rl + 4) * LS};
+      const float* lc[2] = {ltT + lj * LS, ltT + (lj + 8) * LS};
+      float best[2][2];
+      int grp[2][2];
+#pragma unroll
+      for (int a = 0; a < 2; ++a)
+#pragma unroll
+        for (int d = 0; d < 2; ++d) {
+          best[a][d] = -INFINITY;
+          grp[a][d] = kGridG * part;
+        }
+      for (int i = kGridG * part; !LLSM_SKIP_PASS_A && i < Sp;
+           i += kGridG * P) {
+        float sv[2][kGridG], lv[2][kGridG];
+#pragma unroll
+        for (int a = 0; a < 2; ++a) {
+          const float4 x = *reinterpret_cast<const float4*>(sr[a] + i);
+          const float4 y = *reinterpret_cast<const float4*>(sr[a] + i + 4);
+          const float q[kGridG] = {x.x, x.y, x.z, x.w, y.x, y.y, y.z, y.w};
+#pragma unroll
+          for (int e = 0; e < kGridG; ++e)
+            sv[a][e] = RENORM ? __fsub_rn(q[e], m[a]) : q[e];
+        }
+#pragma unroll
+        for (int d = 0; d < 2; ++d) {
+          const float4 x = *reinterpret_cast<const float4*>(lc[d] + i);
+          const float4 y = *reinterpret_cast<const float4*>(lc[d] + i + 4);
+          const float q[kGridG] = {x.x, x.y, x.z, x.w, y.x, y.y, y.z, y.w};
+#pragma unroll
+          for (int e = 0; e < kGridG; ++e) lv[d][e] = q[e];
+        }
+#pragma unroll
+        for (int a = 0; a < 2; ++a)
+#pragma unroll
+          for (int d = 0; d < 2; ++d)
+            take_group(best[a][d], grp[a][d], sv[a], lv[d], i);
+      }
+
+      // the first state of each best group that reaches its maximum: the
+      // part's (value, lowest index), merged over the parts in order
+      int bi[2][2];
+#pragma unroll
+      for (int a = 0; a < 2; ++a)
+#pragma unroll
+        for (int d = 0; d < 2; ++d) {
+          const int g0 = grp[a][d];
+          bi[a][d] = g0;
+          for (int e = 0; g0 < Sp && e < kGridG; ++e) {
+            const float sc = RENORM ? __fsub_rn(sr[a][g0 + e], m[a])
+                                    : sr[a][g0 + e];
+            const float c = __fadd_rn(sc, lc[d][g0 + e]);
+            if (c == best[a][d]) {
+              best[a][d] = c;
+              bi[a][d] = g0 + e;
+              break;
+            }
+          }
+          if (P > 1) {
+            const int o = (part * Rb + rl + 4 * a) * kGridJ + lj + 8 * d;
+            pval[o] = best[a][d];
+            pidx[o] = bi[a][d];
+          }
+        }
+      if (P > 1) __syncthreads();
+      if (part == 0) {
+        // the new raw scores, the backpointers, the rows' partial maxima
+#pragma unroll
+        for (int a = 0; a < 2; ++a) {
+          unsigned key = 0;
+#pragma unroll
+          for (int d = 0; d < 2; ++d) {
+            float bv = best[a][d];
+            int bk = bi[a][d];
+            for (int q = 1; q < P; ++q) {
+              const int o = (q * Rb + rl + 4 * a) * kGridJ + lj + 8 * d;
+              take_max(bv, bk, pval[o], pidx[o]);
+            }
+            const int j = j0 + lj + 8 * d;
+            if (rows[a] < B && j < S) {
+              const float v = __fadd_rn(bv, ob[a][d]);
+              next[(long long)rows[a] * Sp + j] = v;
+              bp[((long long)rows[a] * (N - 1) + t - 1) * S + j] =
+                  (uint16_t)bk;
+              key = max(key, ukey(v));
+            }
+          }
+          if (RENORM) {
+#pragma unroll
+            for (int o = 1; o < 8; o <<= 1)
+              key = max(key, __shfl_xor_sync(kFull, key, o));
+            if (lj == 0 && rows[a] < B) atomicMax(mnext + rows[a], key);
+          }
+        }
+      }
+      __syncthreads();           // the rows and partials are read
+    }
+    grid_barrier(ctr, (unsigned)(t + 1) * G);
+  }
+
+  // the last scores out, renormalised; a row's final argmax by warp 0 of
+  // block (row mod blocks), its backtrace by that warp's lane 0
+  const float* last = scores + ((N - 1) & 1) * BS;
+  const unsigned* mlast = rowmax + ((N - 1) % 3) * B;
+  for (int rg = blockIdx.y; rg * Rb < B; rg += gridDim.y)
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+      const int r = rg * Rb + rw * kGridRows + lr + 4 * a;
+      if (part != 0 || r >= B) continue;
+      const float mf = RENORM ? ufval(__ldcg(mlast + r)) : 0.0f;
+#pragma unroll
+      for (int d = 0; d < 2; ++d) {
+        const int j = j0 + lj + 8 * d;
+        if (j < S) {
+          const float raw = __ldcg(last + (long long)r * Sp + j);
+          final_score[(long long)r * S + j] = RENORM ? __fsub_rn(raw, mf)
+                                                     : raw;
+        }
+      }
+    }
+  if (warp != 0) return;
+  for (int r = blockIdx.y * gridDim.x + blockIdx.x; r < B; r += G) {
+    const float mf = RENORM ? ufval(__ldcg(mlast + r)) : 0.0f;
+    float bv = -INFINITY;
+    int g = 1 << 30;
+    for (int k = lane; k < S; k += 32) {
+      const float raw = __ldcg(last + (long long)r * Sp + k);
+      const float f = RENORM ? __fsub_rn(raw, mf) : raw;
+      if (k == lane || f > bv) {
+        bv = f;
+        g = k;
+      }
+    }
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float vb = __shfl_xor_sync(kFull, bv, off);
+      const int ib = __shfl_xor_sync(kFull, g, off);
+      take_max(bv, g, vb, ib);
+    }
+    if (lane == 0) {
+      long long* pb = path + (long long)r * N;
+      pb[N - 1] = g;
+      for (int t = N - 2; !LLSM_SKIP_PASS_B && t >= 0; --t) {
+        g = __ldcg(bp + ((long long)r * (N - 1) + t) * S + g);
+        pb[t] = g;
+      }
+    }
+  }
+}
+
 }  // namespace
 
 // obs [B, N, S], lt [S, S], path [B, N] int64, final_score [B, S], bp (a
@@ -468,14 +812,53 @@ WideKernel pick_wide(int bp_smem, int renorm) {
 // else null); P lanes a state, C source states a lane, lt_mode, bp_smem
 // and bp_bytes as kernels._viterbi_geometry chose them: modes 0-2 (S <=
 // 256) viterbi_kernel with uint8 backpointers, mode 3 (S > 256)
-// viterbi_wide_kernel with uint16
+// viterbi_wide_kernel with uint16, mode 4 (256 < S <= 2048)
+// viterbi_grid_kernel: C = S rounded up to 8, `warps` warps a block of
+// which row_warps take rows (the rest parts of the source states),
+// ceil(S / 16) x row_blocks blocks (kernels._viterbi_grid), work the
+// device scratch of its raw scores, row maxima and barrier counter
+// (zeroed here but the scores)
 extern "C" int llsm_viterbi_scan(const float* obs, const float* lt,
                                  long long* path, float* final_score,
-                                 void* bp, int B, int N, int S, int renorm,
-                                 int P, int C, int lt_mode, int bp_smem,
-                                 int bp_bytes, void* stream) {
+                                 void* bp, void* work, int B, int N, int S,
+                                 int renorm, int P, int C, int lt_mode,
+                                 int bp_smem, int bp_bytes, int warps,
+                                 int row_warps, int row_blocks,
+                                 void* stream) {
   if (N < 1 || S < 1 || (!bp_smem && N > 1 && !bp))
     return (int)cudaErrorInvalidValue;
+  if (lt_mode == 4) {
+    if (S <= kMaxStates || P != 1 || C % kGridG || C < S || bp_bytes != 2 ||
+        bp_smem || warps < 1 || warps > kGridMaxWarps || row_warps < 1 ||
+        warps % row_warps || row_blocks < 1 || !work)
+      return (int)cudaErrorInvalidValue;
+    if (B <= 0) return (int)cudaGetLastError();
+    cudaStream_t st = (cudaStream_t)stream;
+    float* scores = static_cast<float*>(work);
+    unsigned* rowmax =
+        reinterpret_cast<unsigned*>(scores + 2 * (long long)B * C);
+    unsigned* ctr = rowmax + 3 * B;
+    cudaError_t e =
+        cudaMemsetAsync(rowmax, 0, (3 * (size_t)B + 1) * sizeof(unsigned), st);
+    if (e != cudaSuccess) return (int)e;
+    // kernels._viterbi_grid mirrors the bytes
+    const int Rb = kGridRows * row_warps, parts = warps / row_warps;
+    const size_t smem =
+        (size_t)(kGridJ + Rb) * (C + 4) * sizeof(float) +
+        (parts > 1 ? (size_t)parts * Rb * kGridJ * 2 * sizeof(float) : 0);
+    auto k = renorm ? viterbi_grid_kernel<true> : viterbi_grid_kernel<false>;
+    e = llsm::allow_smem(k, smem);
+    if (e != cudaSuccess) return (int)e;
+    uint16_t* bp16 = static_cast<uint16_t*>(bp);
+    int Sp = C, Wr = row_warps;
+    void* args[] = {&obs,   &lt,   &path, &final_score, &bp16, &scores,
+                    &rowmax, &ctr, &B,    &N,           &S,    &Sp, &Wr};
+    dim3 grid((S + kGridJ - 1) / kGridJ, row_blocks);
+    e = cudaLaunchCooperativeKernel((const void*)k, grid, dim3(32 * warps),
+                                    args, smem, st);
+    if (e != cudaSuccess) return (int)e;
+    return (int)cudaGetLastError();
+  }
   if (lt_mode == 3) {
     const int threads = min(kMaxThreads, (S + 31) / 32 * 32);
     const size_t smem = (size_t)(2 * C + 2 * kMaxWarps) * sizeof(float) +

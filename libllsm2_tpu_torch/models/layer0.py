@@ -182,7 +182,9 @@ def _band_envelopes(residual: torch.Tensor, conf: ChunkConf,
 # the longest periodogram whose FFT and band product gave each row the
 # same bits alone and in a batch on the H100 (512 points: 16 kHz at a 5 ms
 # hop, chip_smoke.py phase 5); at 48 kHz (2048 points, a 1025-bin product)
-# they did not (phase 20b), so longer ones run in row groups
+# they did not (phase 20b), nor at 16 kHz with a 2 ms hop (128 points but
+# 4000 frames, phase 20e), so longer ones, and tracks past ROW_GROUP_FRAMES
+# (the 1600 frames phase 5 holds), run in row groups
 PSD_UNGROUPED_NFFT = 512
 
 
@@ -190,9 +192,10 @@ def _warped_psd(residual: torch.Tensor, nfrm: int, conf: ChunkConf,
                 rows: int | None = None) -> torch.Tensor:
     """Per-frame PSD of the residual [B, nx] on the warped axis
     [B, N, npsd] (reference: dsputils.c warped PSD estimation); with
-    `rows`, periodograms longer than PSD_UNGROUPED_NFFT take their FFTs
-    and band product in groups of that many rows (_row_groups), so a
-    row's PSD does not depend on its batch."""
+    `rows`, periodograms longer than PSD_UNGROUPED_NFFT or tracks longer
+    than ROW_GROUP_FRAMES take their FFTs and band product in groups of
+    that many rows (_row_groups), so a row's PSD does not depend on its
+    batch."""
     nhop = conf.nhop
     winlen = 4 * nhop
     nfft = spectral.next_pow2(winlen)
@@ -204,7 +207,8 @@ def _warped_psd(residual: torch.Tensor, nfrm: int, conf: ChunkConf,
     def psd(r):
         frames = harmonics.frame_hops(r, nfrm, nhop, 2)
         return spectral.periodogram(frames, w, nfft) @ band_mat.T
-    if rows is None or nfft <= PSD_UNGROUPED_NFFT:
+    if rows is None or (nfft <= PSD_UNGROUPED_NFFT
+                        and nfrm <= ROW_GROUP_FRAMES):
         return psd(residual)
     return _row_groups(psd, residual, rows)
 

@@ -46,9 +46,10 @@ SIGNATURES = {
                                   _I, _I, _I, _I, _I, _I, _I, _F, _F, _F,
                                   _F, _I, _P),
     # ampl, phse, cyc, hw, mask, out_a, out_b, B, N, K, D, nhop, stride,
-    # polar, stream
+    # polar, FT, KC (0: the first kernel), chunk blocks
+    # (kernels._deconv_geometry), stream
     "llsm_deconv_full": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                         _I, _P),
+                         _I, _I, _I, _I, _P),
     # cyc, edc, ar, ai, base, re, im, spec batch stride, gain, bands (host,
     # 2 C ints), bands (device, or null), y, B, N, nhop, C, Ke, F
     # (kernels._noise_geometry), stream
@@ -101,11 +102,12 @@ SIGNATURES = {
     # ncoef, F, G (kernels._refine_geometry at D = 1), stream
     "llsm_refine_f0_full": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F,
                             _F, _F, _F, _F, _F, _F, _F, _F, _I, _I, _I, _P),
-    # obs, lt, path, final scores, backpointer scratch (or null), B, N, S,
-    # renorm, P, C, lt_mode, bp_smem, bp_bytes (kernels._viterbi_geometry),
-    # stream
-    "llsm_viterbi_scan": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                          _I, _I, _P),
+    # obs, lt, path, final scores, backpointer scratch (or null), the grid
+    # kernel's work (or null), B, N, S, renorm, P, C, lt_mode, bp_smem,
+    # bp_bytes (kernels._viterbi_geometry), warps, row warps, row blocks
+    # (kernels._viterbi_grid; 0 but in lt mode 4), stream
+    "llsm_viterbi_scan": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                          _I, _I, _I, _I, _I, _I, _P),
 }
 
 _lib = None

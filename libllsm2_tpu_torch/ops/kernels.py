@@ -211,11 +211,54 @@ _SMEM_MAX = 227 * 1024       # the H100's shared memory a block, opted in
 
 
 def _deconv_smem(D: int, K: int, nq: int) -> int:
-    """deconv_full.cu's shared memory a block: the 2 D + 1 float4 taps of
-    its 64 frames, 64 + 2 D halo rows of max(K, nq) float2, and a float a
-    halo row and a quadrature point."""
+    """deconv_full.cu's first kernel's shared memory a block: the 2 D + 1
+    float4 taps of its 64 frames, 64 + 2 D halo rows of max(K, nq) float2,
+    and a float a halo row and a quadrature point."""
     FH = 64 + 2 * D
     return 64 * (2 * D + 1) * 16 + FH * max(K, nq) * 8 + (FH + nq) * 4
+
+
+# deconv_full.cu's wide kernel: frame tiles tried in order, the widest chunk
+# of columns, and the narrowest chunk taken before a smaller frame tile
+_DECONV_TILES = (64, 32, 16, 8)
+_DECONV_MAX_KC = 128
+_DECONV_MIN_KC = 16
+
+
+def _deconv_geometry(D: int, K: int, nq: int, B: int = 1, N: int = 1,
+                     sms: int = 132):
+    """deconv_full.cu's launch for a band of D frames, K harmonics and nq
+    quadrature points -> (FT frames a block, KC columns a chunk, chunk
+    blocks a tile, shared bytes).  The first kernel (KC = 0, FT = 64, one
+    block a tile) where its block fits the H100's shared memory
+    (_deconv_smem); else the wide kernel at the first frame tile of
+    _DECONV_TILES whose taps [FT, 2 D + 1] float4 and FH + nq floats (FH =
+    FT + 2 D) leave room for a chunk [FH, KC + 2] float2 of at least
+    min(K, 16) columns; KC the widest that fits, at most 128, then evened
+    out over the chunks (K = 600: 5 chunks of 120); the field [FH, nq]
+    float2 staged in the chunk's place where it fits there, else computed
+    by the tap build from the cycle track.  A tile's chunks share one
+    block, which builds the taps once, where the grid of B rows of N
+    frames has at least two blocks an SM; else each chunk has a block of
+    its own (a row alone: more blocks, the taps rebuilt a chunk).  None
+    where nothing fits (a band far past D = 128)."""
+    smem = _deconv_smem(D, K, nq)
+    if smem <= _SMEM_MAX:
+        return 64, 0, 1, smem
+    nb = 2 * D + 1
+    for FT in _DECONV_TILES:
+        FH = FT + 2 * D
+        fixed = FT * nb * 16 + (FH + nq) * 4
+        room = (_SMEM_MAX - fixed) // (8 * FH)
+        kc = min(_DECONV_MAX_KC, K, room - 2)
+        if kc < min(K, _DECONV_MIN_KC):
+            continue
+        n = -(-K // kc)
+        KC = -(-K // n)
+        cols = max(KC + 2, nq) if max(KC + 2, nq) <= room else KC + 2
+        blocks = 1 if B * -(-N // FT) >= 2 * sms else n
+        return FT, KC, blocks, fixed + 8 * FH * cols
+    return None
 
 
 def deconv_full(ampl: torch.Tensor, phse: torch.Tensor, cyc: torch.Tensor,
@@ -228,8 +271,9 @@ def deconv_full(ampl: torch.Tensor, phse: torch.Tensor, cyc: torch.Tensor,
     with return_complex=False (|c|, angle c) [B, N, K].  The kernel reads
     the cycle track at each frame's center and at the stride-quadrature
     points of its hop pair (edge-clamped, as frame_hops(mode="edge")).
-    Frames beyond either end of an utterance are zero.  D is bounded by
-    the block's shared memory (_deconv_smem): D <= 56 at K = 80."""
+    Frames beyond either end of an utterance are zero.  Any K and any D up
+    to 128 (the JAX branch's band) run on the card: past the first
+    kernel's shared memory the wide kernel chunks K (_deconv_geometry)."""
     if not _on_cuda(ampl, phse, cyc, hw, mask):
         return deconv_full_ref(ampl, phse, cyc, hw, mask, D, nhop, stride,
                                return_complex=return_complex)
@@ -239,16 +283,18 @@ def deconv_full(ampl: torch.Tensor, phse: torch.Tensor, cyc: torch.Tensor,
         raise ValueError("deconv_full: shape mismatch")
     if not (D >= 0 and 0 < stride <= 2 * nhop):
         raise ValueError(f"deconv_full: D = {D}, stride {stride}")
-    smem = _deconv_smem(D, K, 2 * nhop // stride)
-    if smem > _SMEM_MAX:
-        raise ValueError(f"deconv_full: D = {D} at K = {K} needs {smem} B of "
-                         f"shared memory a block (at most {_SMEM_MAX})")
+    geo = _deconv_geometry(D, K, 2 * nhop // stride, B, N,
+                           _sm_count(ampl.device))
+    if geo is None:
+        raise ValueError(f"deconv_full: D = {D}: no frame tile's taps and "
+                         "chunk of columns fit a block's shared memory "
+                         f"({_SMEM_MAX} B)")
     ampl, phse, cyc, hw, mask = map(_f32, (ampl, phse, cyc, hw, mask))
     o_a = torch.empty((B, N, K), dtype=FP, device=ampl.device)
     o_b = torch.empty((B, N, K), dtype=FP, device=ampl.device)
     ptrs = (t.data_ptr() for t in (ampl, phse, cyc, hw, mask, o_a, o_b))
     _launch("deconv_full", *ptrs, B, N, K, int(D), int(nhop), int(stride),
-            int(not return_complex), _stream(ampl))
+            int(not return_complex), *map(int, geo[:3]), _stream(ampl))
     return o_a, o_b
 
 
@@ -1834,11 +1880,20 @@ _VITERBI_RING = 16
 _VITERBI_CHUNKS = (4, 8, 16, 32, 52, 64)
 
 
-# the most states viterbi.cu takes: past 256 (lt mode 3) its two score rows
+# the most states viterbi.cu takes: past 2048 (lt mode 3) its two score rows
 # of S rounded up to 4 floats and the 32 warps' maxima fill the H100's
 # shared memory at (232448 / 4 - 64) / 2 states (uint16 backpointers would
 # go to 65536)
 _VITERBI_MAX_STATES = (_SMEM_MAX // 4 - 2 * _VITERBI_WARPS) // 2
+# viterbi_grid_kernel (lt mode 4, 256 < S <= 2048): destination states a
+# block (kGridJ), source states a group (kGridG), rows a warp (kGridRows),
+# row warps a block tried; its ceil(S / 16) <= 128 slices need one block
+# an SM
+_VITERBI_GRID_J = 16
+_VITERBI_GRID_G = 8
+_VITERBI_GRID_ROWS = 8
+_VITERBI_GRID_WARPS = (1, 2, 4)
+_VITERBI_GRID_MAX_STATES = 2048
 
 
 def _viterbi_geometry(N: int, S: int) -> tuple:
@@ -1851,10 +1906,16 @@ def _viterbi_geometry(N: int, S: int) -> tuple:
     floats fit (mode 1), else in device memory (2).  The shared bytes: the
     two score rows [2, P C], the maxima [2, 32] and the observations' ring
     [16, S] always, then lt in mode 1, then the (N - 1) S byte backpointers
-    where they fit beside them.  Past S = 256 (mode 3, viterbi_wide_kernel)
-    P = 1, C = S rounded up to 4, min(1024, S rounded up to 32) threads
-    (each thread several destination states), lt in device memory, no
-    ring, the backpointers uint16: 2 (N - 1) S bytes where they fit."""
+    where they fit beside them.  From 257 to 2048 states (mode 4,
+    viterbi_grid_kernel) P = 1, C = S rounded up to 8 (the source states a
+    thread takes, in groups of 8), the backpointers uint16 in device
+    memory, and threads and bytes None: the grid is _viterbi_grid's.  Past 2048 (mode 3, viterbi_wide_kernel) P = 1, C = S rounded
+    up to 4, min(1024, S rounded up to 32) threads (each thread several
+    destination states), lt in device memory, no ring, the backpointers
+    uint16: 2 (N - 1) S bytes where they fit."""
+    if 256 < S <= _VITERBI_GRID_MAX_STATES:
+        C = -(-S // _VITERBI_GRID_G) * _VITERBI_GRID_G
+        return 1, C, None, 4, False, None, 2
     if S > 256:
         C = -(-S // 4) * 4
         smem = 4 * (2 * C + 2 * _VITERBI_WARPS)
@@ -1875,15 +1936,60 @@ def _viterbi_geometry(N: int, S: int) -> tuple:
             smem + ((N - 1) * S if bp_smem else 0), 1)
 
 
+def _viterbi_grid(B: int, S: int, sms: int = 132) -> tuple:
+    """viterbi_grid_kernel's cooperative grid for B rows of S states (lt
+    mode 4) on a card of `sms` SMs -> (warps a block, row warps, destination
+    slices, row blocks, shared bytes).  A block owns 16 destination states
+    (ceil(S / 16) slices) and takes row groups of 8 rows a row warp; the
+    slices x row blocks blocks are at most one an SM, so a block whose
+    slice has more row groups than row blocks walks them in turn.  Row
+    warps: the fewest of 1, 2 and 4 that make the fewest such passes a
+    step and whose lt slice and rows ([16 + 8 row warps, C + 4] floats)
+    fit shared memory; the block's other warps split the source states
+    into P parts (8 warps a block, 16 at 4 row warps: the fastest of 1-16
+    warps at 257 / 385 / 512 / 1025 states, 1 and 64 rows, on the H100;
+    P halved until the parts' maxima [P, 8 row warps, 16] (value, index)
+    fit beside the rows)."""
+    C = -(-S // _VITERBI_GRID_G) * _VITERBI_GRID_G
+    slices = -(-S // _VITERBI_GRID_J)
+    if slices > sms:
+        raise ValueError(f"viterbi_scan: {S} states need {slices} blocks, "
+                         f"more than the card's {sms} SMs")
+    best = None
+    for wr in _VITERBI_GRID_WARPS:
+        rows = _VITERBI_GRID_ROWS * wr
+        smem = 4 * (_VITERBI_GRID_J + rows) * (C + 4)
+        if smem > _SMEM_MAX:
+            break
+        groups = -(-B // rows)
+        row_blocks = min(groups, sms // slices)
+        passes = -(-groups // row_blocks)
+        if best is None or passes < best[0]:
+            best = (passes, wr, row_blocks, smem)
+    _, wr, row_blocks, smem = best
+    rows = _VITERBI_GRID_ROWS * wr
+    parts = max(8, 4 * wr) // wr
+    while parts > 1 and smem + 8 * parts * rows * _VITERBI_GRID_J > _SMEM_MAX:
+        parts //= 2
+    if parts > 1:
+        smem += 8 * parts * rows * _VITERBI_GRID_J
+    return wr * parts, wr, slices, row_blocks, smem
+
+
 def _viterbi_scratch(B: int, N: int, S: int, device):
-    """viterbi.cu's backpointer scratch: None where _viterbi_geometry keeps
-    them in shared memory, else [B, N - 1, S] uint8 (uint16 past 256
-    states)."""
+    """viterbi.cu's scratch: None where _viterbi_geometry keeps the
+    backpointers in shared memory, else [B, N - 1, S] uint8 (uint16 past
+    256 states); in lt mode 4 (bp, work), work the int32 words of the grid
+    kernel's raw scores [2, B, C], row maxima [3, B] and barrier counter."""
     geo = _viterbi_geometry(N, S)
     if geo[4]:
         return None
     kind = torch.uint8 if geo[6] == 1 else torch.int16
-    return torch.empty((B, N - 1, S), dtype=kind, device=device)
+    bp = torch.empty((B, N - 1, S), dtype=kind, device=device)
+    if geo[3] != 4:
+        return bp
+    return bp, torch.empty(2 * B * geo[1] + 3 * B + 1, dtype=torch.int32,
+                           device=device)
 
 
 def _viterbi_launch_args(obs, lt, renorm: bool, path, final, bp):
@@ -1891,9 +1997,15 @@ def _viterbi_launch_args(obs, lt, renorm: bool, path, final, bp):
     path [B, N], final [B, S] and bp (_viterbi_scratch)."""
     B, N, S = obs.shape
     P, C, _, lt_mode, bp_smem, _, bp_bytes = _viterbi_geometry(N, S)
+    work, warps, row_warps, rows = None, 0, 0, 0
+    if lt_mode == 4:
+        bp, work = bp
+        warps, row_warps, _, rows, _ = _viterbi_grid(B, S,
+                                                     _sm_count(obs.device))
+    ptr = lambda t: None if t is None else t.data_ptr()
     return (obs.data_ptr(), lt.data_ptr(), path.data_ptr(), final.data_ptr(),
-            None if bp is None else bp.data_ptr(), B, N, S, int(bool(renorm)),
-            P, C, lt_mode, int(bp_smem), bp_bytes, _stream(obs))
+            ptr(bp), ptr(work), B, N, S, int(bool(renorm)), P, C, lt_mode,
+            int(bp_smem), bp_bytes, warps, row_warps, rows, _stream(obs))
 
 
 def viterbi_scan(obs: torch.Tensor, lt: torch.Tensor, renorm: bool, *,
@@ -1905,8 +2017,9 @@ def viterbi_scan(obs: torch.Tensor, lt: torch.Tensor, renorm: bool, *,
     its row maximum; ties go to the first maximum at every step and at the
     end.  With scores, (path, the last step's scores [B, S]).  On the card
     one launch of viterbi.cu (S <= _VITERBI_MAX_STATES; _viterbi_geometry's
-    lanes a state), the backtrace in the kernel; its scores and path are
-    the plain version's bit for bit (NaN inputs aside)."""
+    lanes a state; from 257 to 2048 states one cooperative launch over the
+    card's SMs, _viterbi_grid), the backtrace in the kernel; its scores and
+    path are the plain version's bit for bit (NaN inputs aside)."""
     if not _on_cuda(obs, lt):
         return viterbi_scan_ref(obs, lt, renorm, scores=scores)
     B, N, S = obs.shape

@@ -26,7 +26,12 @@ its nasal rows (`nasal`), the F0 tracker on the first 64 bench rows
 uniform random scores from seed 0, as phases 9 and 11 time them
 (`rdviterbi`: layer1._rd_viterbi on [batch, 1600, 64] with the chunk's
 voicing; `viterbi`: f0.viterbi on [64, 1600, 97]; each all rows, then
-row 0 alone); each side analyzes
+row 0 alone), kernels.viterbi_scan past 256 states as chip_smoke's phase
+20d runs it (`wide257`, `wide512`, `wide1025`: seeded scores in eighths
+with -inf entries under the tracker's transitions at S = nbins + 1,
+renormalized at 257 and 1025; [64, 1600, S], row 0 alone, then rows 0
+and 1 joined into one 3200-frame row) and the tracker at nbins 384 on the
+first 64 bench rows (`tracker384`); each side analyzes
 (and fits layer 1) once, untimed, with its own package.  One untimed step of
 each first, then `pairs` pairs whose order alternates (other first in
 even pairs), each step timed by the host clock around work that ends in
@@ -35,7 +40,8 @@ quartiles, and how many pairs each side won.  Imports no jax:
 
     python3 scripts/port_ab_steps.py OTHER_DIR [pairs=20] [batch=128]
         [cells=default,matmul,off32,one,refine,rta,layer1,pbp,edits,plain,
-               11k,refine11,to_layer1,nasal,tracker,rdviterbi,viterbi]
+               11k,refine11,to_layer1,nasal,tracker,rdviterbi,viterbi,
+               wide257,wide512,wide1025,tracker384]
 """
 import dataclasses
 import importlib
@@ -118,14 +124,26 @@ def main(argv):
         rd_score = torch.rand((B, 1600, 64), generator=g, device="cuda")
     if "viterbi" in cells:
         logobs = torch.rand((64, 1600, 97), generator=g, device="cuda")
+    wide = {}
+    for cell in cells:
+        if cell.startswith("wide"):
+            S = int(cell[4:])
+            o = torch.round(torch.rand((64, 1600, S), generator=g,
+                                       device="cuda") * -96.0) / 8.0
+            o[torch.rand(o.shape, generator=g, device="cuda") < 0.1] = \
+                -float("inf")
+            o[..., 0] = -1.0
+            wide[cell] = (o, S != 512)
     # (cell, rows): refine, refine11 and the two Viterbis run the batch,
-    # then one row alone
+    # then one row alone; the wide Viterbis also rows 0 and 1 joined (-1)
     runs = [r for cell in cells for r in (
         [(cell, min(B, 64) if cell == "viterbi" else B), (cell, 1)]
         if cell in ("refine", "refine11", "viterbi", "rdviterbi")
+        else [(cell, 64), (cell, 1), (cell, -1)] if cell in wide
         else [(cell, None)])]
     for cell, rows in runs:
-        label = cell if rows is None else f"{cell} {rows} x 8 s"
+        label = cell if rows is None else (f"{cell} 1 x 16 s" if rows < 0
+                                           else f"{cell} {rows} x 8 s")
         steps = {}
         for name, pkg in sides.items():
             opt = pkg.create_aoptions(f0_floor=70.0, use_pallas=True)
@@ -153,6 +171,20 @@ def main(argv):
                 voiced = l0._analyze(opt, x, f0).f0 > 0
                 steps[name] = (lambda l1=l1, v=voiced, r=rows:
                                l1._rd_viterbi(rd_score[:r], v[:r], 10.0))
+            elif cell in wide:
+                f0m = importlib.import_module(pkg.__name__ + ".ops.f0")
+                kern = importlib.import_module(pkg.__name__ + ".ops.kernels")
+                o, renorm = wide[cell]
+                lt = f0m._tables(f0m.F0Config(nbins=o.shape[-1] - 1),
+                                 "cuda")["lt"]
+                o = o[:2].reshape(1, 3200, -1) if rows < 0 else o[:rows]
+                steps[name] = (lambda k=kern, o=o, lt=lt, rn=renorm:
+                               k.viterbi_scan(o, lt, rn))
+            elif cell == "tracker384":
+                f0m = importlib.import_module(pkg.__name__ + ".ops.f0")
+                cfg = f0m.F0Config(fs=16000.0, nhop=80, f0_floor=70.0,
+                                   nbins=384)
+                steps[name] = lambda f0m=f0m, c=cfg: f0m.track_batch(c, x[:64])
             elif cell in ("tracker", "viterbi"):
                 f0m = importlib.import_module(pkg.__name__ + ".ops.f0")
                 cfg = f0m.F0Config(fs=16000.0, nhop=80, f0_floor=70.0)
@@ -217,7 +249,7 @@ def main(argv):
                 ms[name].append((time.perf_counter() - t0) * 1e3)
         wins = sum(a < b for a, b in zip(ms["this"], ms["other"]))
         nd = 4 if cell.startswith("refine") or cell.endswith("viterbi") \
-            else 2                                    # ~0.1-1 ms steps
+            or cell in wide else 2                    # ~0.1-1 ms steps
         for name in sides:
             q = statistics.quantiles(ms[name], n=4)
             print(f"{label} {name}: median "

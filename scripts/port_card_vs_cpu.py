@@ -10,6 +10,9 @@ card and on the CPU, then
   swap    the card run again with one stage at a time computed on the CPU
           (its inputs moved there, its outputs moved back): the stage whose
           swap brings the card's SNR to the CPU's is where they part;
+  proj64  the CPU run again with the harmonic projection's plain version
+          (kernels.harmonic_project_win_ref) fed float64 inputs and its
+          outputs rounded to float32: what a more exact projection gives;
   batch   each of the three rows alone (a batch of one) and at its place
           (0, 1, 64) in the whole bench batch of `batch` rows on the card,
           every stage call's inputs and outputs for that row against the
@@ -17,10 +20,15 @@ card and on the CPU, then
           and whose outputs differ is where a row's result starts to depend
           on the batch.
 
+conf=fullband48 and conf=fullband16 take chip_smoke.py's phase 20e
+configurations instead (48 kHz at K = 600, the rows resampled on the CPU
+by ops.resample.resample_to before either run; 16 kHz at a 2 ms hop at K
+= 200, the rows made at that hop), without the batch part.
+
 Imports neither jax nor libllsm2_tpu; needs a CUDA card:
 
     python scripts/port_card_vs_cpu.py [duration=8.0] [device=cuda] \
-        [batch=128] [parts=diff,swap]
+        [batch=128] [parts=diff,swap] [conf=default]
 
 (parts names the parts before `batch` to run; parts= runs none of them.)
 
@@ -41,6 +49,12 @@ from libllsm2_tpu_torch.parallel import corpus
 from libllsm2_tpu_torch.utils import testsig
 
 ROWS = {0: 0.05, 1: 0.05, 64: 0.0}      # bench row -> noise level
+# conf= -> (create_aoptions keywords, the rows' F0 hop); chip_smoke.py's
+# phase 5 and phase 20e (FULLBAND)
+CONFS = {"default": (dict(f0_floor=70.0), 0.005),
+         "fullband48": (dict(fs=48000.0, f0_floor=40.0, maxnhar=600), 0.005),
+         "fullband16": (dict(thop=0.002, f0_floor=40.0, maxnhar=200,
+                             fnyq=8000.0), 0.002)}
 N_NOISY = 64                            # bench rows [0, 64) are noisy
 STAGES = [(harmonics, "refine_f0"), (harmonics, "sample_cycles"),
           (harmonics, "harmonic_analysis"), (layer0, "_deconv_correction"),
@@ -128,12 +142,19 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     torch.set_num_threads(8)
     cpu = torch.device("cpu")
-    opt = create_aoptions(f0_floor=70.0, use_pallas=True)
-    sopt = dataclasses.replace(create_soptions(), use_pallas=True)
+    conf_kw, thop = CONFS[kw.get("conf", "default")]
+    opt = create_aoptions(use_pallas=True, **conf_kw)
+    sopt = dataclasses.replace(create_soptions(fs=opt.conf.fs),
+                               use_pallas=True)
     rows = testsig.make_test_utterances(list(ROWS.items()),
-                                        duration=duration)
+                                        duration=duration, thop=thop)
     data = [np.stack([r[j] for r in rows]).astype(np.float32)
             for j in range(3)]
+    if opt.conf.fs != 16000.0:
+        from libllsm2_tpu_torch.ops import resample
+        for j in (0, 2):
+            data[j] = resample.resample_to(torch.tensor(data[j]), 16000.0,
+                                           opt.conf.fs).numpy()
 
     def run(dev, data=data):
         x, f0, x_ref = (torch.tensor(a, device=dev) for a in data)
@@ -152,7 +173,9 @@ def main():
         diff_part(run, card, cpu, orig)
     if "swap" in parts:
         swap_part(run, card, cpu, orig, snr_card, snr_cpu)
-    if n_batch:
+    if "proj64" in parts:
+        proj64_part(run, cpu)
+    if n_batch and kw.get("conf", "default") == "default":
         batch_dependence(run, card, orig, duration, n_batch)
     return 0
 
@@ -196,6 +219,22 @@ def swap_part(run, card, cpu, orig, snr_card, snr_cpu):
             setattr(mod, name, fn)
         print(f"swap {name} to the CPU: SNR {snr} dB (card {snr_card}, "
               f"CPU {snr_cpu})", flush=True)
+
+
+def proj64_part(run, cpu):
+    """The proj64 part (see the module's docstring)."""
+    ref = kernels.harmonic_project_win_ref
+
+    def ref64(x, cyc, hw, max_k, lo, hi, **k):
+        out = ref(x.double(), cyc.double(), hw.double(), max_k, lo, hi, **k)
+        return tuple(o.float() for o in out)
+    kernels.harmonic_project_win_ref = ref64
+    try:
+        snr = run(cpu)
+    finally:
+        kernels.harmonic_project_win_ref = ref
+    print(f"proj64: the CPU run with a float64 projection: SNR {snr} dB",
+          flush=True)
 
 
 def batch_dependence(run, card, orig, duration, n_batch):

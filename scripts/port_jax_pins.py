@@ -89,11 +89,38 @@ with the Pallas kernels in interpret mode:
             chanfreq=(3000, 6000, 9000), nspec=513, f0_floor=70,
             use_pallas=True) with create_soptions(fs=48000, use_pallas=True)
             (noise hop 480) on the same rows resampled to 48 kHz by
-            ops.resample.resample_to, with every second F0 frame.
+            ops.resample.resample_to, with every second F0 frame;
+  fullband  chip_smoke.py phase 20e: batched_pipeline at full band, the
+            16 kHz options above with f0_floor=40 and maxnhar = fs / 2 /
+            f0_floor: create_aoptions(fs=48000, f0_floor=40, maxnhar=600)
+            (fnyq 24000, the 5 ms hop; deconv_full at K = 600, D = 11) on
+            the bench rows resampled to 48 kHz as in part wide, with every
+            F0 frame; then create_aoptions(thop=0.002, f0_floor=40,
+            maxnhar=200, fnyq=8000) (K = 200, D = 26) on the same rows
+            made at a 2 ms hop (make_test_utterance(thop=0.002)); then
+            rows 0, 1 and 64 again with each sample of x times 1 + 2^-23
+            u, u uniform in [-1, 1) from seed 0 (within a float32 ulp:
+            how far rounding alone moves each row's SNR);
+  proj64    chip_smoke.py phase 20e's pins: part fullband's rows through
+            the JAX package in float32 with its windowed harmonic
+            projection (harmonic_project_win_pallas) computed in float64
+            instead (numpy through jax.pure_callback, each harmonic's
+            phase taken directly, as the card's kernel takes it);
+  cyc64     the same with the cycle track (harmonics.sample_cycles) in
+            float64 too: how far the cycle track's float32 rounding moves
+            the rows (no pin reads it);
+  fullband64  rows 0, 1 and 64 of part fullband through the JAX package
+            under LLSM_FP64=1 (a subprocess; its plain branches,
+            use_pallas=False, in float64; no pin reads it);
+  fullbandmean  chip_smoke.py phase 20e's means: the same on all 128 bench
+            rows (chunks of 16; ~20 min on the CPU), the mean SNR of the
+            64 noisy and of the 64 clean rows.
 
     JAX_PLATFORMS=cpu python scripts/port_jax_pins.py [duration=8.0] \
         [only=l0,11k,l1,pbp,corpus,edits,coder,nasal,stream,dspkit,
-              learned,fp64,mesh,wide] [mesh_seconds=64]
+              learned,fp64,mesh,wide,fullband,proj64,cyc64,fullband64,
+              fullbandmean]
+        [mesh_seconds=64]
 
 CPU time of the parts added last, on an 8-core x86 host: corpus 49.3 s,
 edits 42.1 s, coder 32.2 s, nasal 4.8 s (run after coder in one process);
@@ -396,10 +423,11 @@ def stream_pbp_rows(duration):
     return out
 
 
-def _bench_rows(duration, rows):
+def _bench_rows(duration, rows, thop=0.005):
     data = [testsig.make_test_utterance(duration=duration, seed=i,
-                                        noise_level=ROWS[i],
-                                        return_parts=True) for i in rows]
+                                        noise_level=0.05 if i < 64 else 0.0,
+                                        thop=thop, return_parts=True)
+            for i in rows]
     x, f0, x_ref = (np.stack([r[j] for r in data]).astype(np.float32)
                     for j in range(3))
     nxv = np.full((len(rows),), x.shape[1], np.int32)
@@ -467,6 +495,160 @@ def wide_rows(duration):
     out["48 kHz"] = dict(zip(ROWS, np.asarray(snr).tolist()))
     print(f"  48 kHz: {out['48 kHz']} ({time.perf_counter() - t0:.1f} s)",
           flush=True)
+    return out
+
+
+def fullband_opts(use_pallas=True):
+    """chip_smoke.py phase 20e's options: {label: (analysis options,
+    synthesis options, the fixtures' hop)}; use_pallas=False (the float64
+    run) takes the plain branches."""
+    opts = {}
+    for label, kw, thop in (
+            ("48 kHz", dict(fs=48000.0, f0_floor=40.0, maxnhar=600), 0.005),
+            ("16 kHz 2 ms", dict(thop=0.002, f0_floor=40.0, maxnhar=200,
+                                 fnyq=8000.0), 0.002)):
+        opt = create_aoptions(use_pallas=use_pallas, **kw)
+        sopt = create_soptions(fs=opt.conf.fs)
+        if use_pallas:
+            sopt = dataclasses.replace(sopt, use_pallas=True)
+        opts[label] = (opt, sopt, thop)
+    return opts
+
+
+def _fullband_batch(label, duration, rows, thop):
+    """Bench rows `rows` at phase 20e's configuration `label`: (x, f0, nxv,
+    x_ref), the 48 kHz rows resampled, every F0 frame."""
+    from libllsm2_tpu.ops.resample import resample_to
+    if label != "48 kHz":
+        return _bench_rows(duration, rows, thop=thop)
+    x, f0, nxv, x_ref = _bench_rows(duration, rows)
+    x, x_ref = (jnp.stack([resample_to(r, 16000.0, 48000.0) for r in a])
+                for a in (x, x_ref))
+    return x, f0, jnp.full(nxv.shape, x.shape[-1], nxv.dtype), x_ref
+
+
+def fullband_rows(duration):
+    """chip_smoke.py phase 20e: batched_pipeline SNRs of bench rows 0, 1
+    and 64 at full band: 48 kHz (the rows resampled, every F0 frame) and
+    16 kHz at a 2 ms hop (the rows made at that hop); then with each
+    sample of x times 1 + 2^-23 u, u uniform in [-1, 1) from seed 0."""
+    out = {}
+    for label, (opt, sopt, thop) in fullband_opts().items():
+        t0 = time.perf_counter()
+        x, f0, nxv, x_ref = _fullband_batch(label, duration, list(ROWS),
+                                            thop)
+        u = np.random.default_rng(0).uniform(-1.0, 1.0, x.shape)
+        eps = jnp.asarray((1.0 + 2.0 ** -23 * u).astype(np.float32))
+        for tag, xs in (("", x), (" x (1 + 2^-23 u)", x * eps)):
+            _, snr, _ = corpus.batched_pipeline(opt, sopt, xs, f0, nxv,
+                                                x_ref)
+            out[label + tag] = dict(zip(ROWS, np.asarray(snr).tolist()))
+            print(f"  {label}{tag}: {out[label + tag]} "
+                  f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    return out
+
+
+def _project_win64(dc, frames, hw, max_k, lo, hi, *, center,
+                   window="hanning", kl=None, **_):
+    """pallas_osc.harmonic_project_win_pallas's outputs computed in float64
+    (numpy, through jax.pure_callback) and rounded to float32: (re, im)
+    [N, max_k] = sum_w frames win e^{-2 pi j (k+1) dc}, wsum and xsum [N],
+    each harmonic's phase taken directly (no rotation recurrence) over the
+    window's support; slots at or past kl (the caller masks them) zero."""
+    from libllsm2_tpu.ops.windows import COSINE_SERIES
+    coefs = COSINE_SERIES[window]
+    del lo, hi                      # the window's own support is exact
+
+    def host(dc, frames, hw, kl):
+        dc, fr = np.asarray(dc, np.float64), np.asarray(frames, np.float64)
+        N, W = dc.shape
+        re = np.zeros((N, max_k)), np.zeros((N, max_k))
+        ws, xs = np.zeros(N), np.zeros(N)
+        noff = np.arange(W, dtype=np.float64) - center
+        for n in range(N):
+            u = (noff / float(hw[n]) + 1.0) * 0.5
+            sup = (u >= 0.0) & (u <= 1.0)
+            w = sum(c * np.cos(2.0 * np.pi * m * u[sup])
+                    for m, c in enumerate(coefs))
+            xw = fr[n, sup] * w
+            ws[n], xs[n] = w.sum(), xw.sum()
+            k = int(min(max(kl[n], 0), max_k))
+            if k:
+                ang = 2.0 * np.pi * np.outer(dc[n, sup],
+                                             np.arange(1, k + 1))
+                re[0][n, :k] = xw @ np.cos(ang)
+                re[1][n, :k] = -(xw @ np.sin(ang))
+        return tuple(a.astype(np.float32) for a in (*re, ws, xs))
+
+    N = dc.shape[0]
+    kl = jnp.full((N,), max_k, jnp.int32) if kl is None else kl
+    shapes = (jax.ShapeDtypeStruct((N, max_k), jnp.float32),) * 2 + (
+        jax.ShapeDtypeStruct((N,), jnp.float32),) * 2
+    return jax.pure_callback(host, shapes, dc, frames, hw, kl,
+                             vmap_method="sequential")
+
+
+def _sample_cycles64(f0, nhop, fs, nx):
+    """harmonics.sample_cycles computed in float64 (numpy, through
+    jax.pure_callback): the same interpolated F0 summed sample by sample,
+    mod 1, rounded to float32."""
+    def host(f0):
+        f0 = np.asarray(f0, np.float64)
+        n = f0.shape[0]
+        f0s = np.where(f0 > 0, f0, 0.0)
+        pos = np.arange(nx, dtype=np.float64) / nhop
+        i0 = np.clip(np.floor(pos).astype(np.int64), 0, n - 2)
+        t = np.clip(pos - i0, 0.0, 1.0)
+        d = (f0s[i0] * (1.0 - t) + f0s[i0 + 1] * t) / fs
+        c = np.concatenate([[0.0], np.cumsum(d)[:-1]]) % 1.0
+        return c.astype(np.float32)
+
+    return jax.pure_callback(host, jax.ShapeDtypeStruct((nx,), jnp.float32),
+                             f0, vmap_method="sequential")
+
+
+def fullband_proj64(duration, cycles=False):
+    """Part proj64: part fullband's rows through the JAX package in float32
+    with the windowed harmonic projection (harmonic_project_win_pallas)
+    computed in float64 (_project_win64) -> {label: {row: SNR}}."""
+    from libllsm2_tpu.ops import harmonics, pallas_osc
+    out = {}
+    orig = pallas_osc.harmonic_project_win_pallas, harmonics.sample_cycles
+    pallas_osc.harmonic_project_win_pallas = _project_win64
+    if cycles:
+        harmonics.sample_cycles = _sample_cycles64
+    try:
+        for label, (opt, sopt, thop) in fullband_opts().items():
+            t0 = time.perf_counter()
+            _, snr, _ = corpus.batched_pipeline(
+                opt, sopt, *_fullband_batch(label, duration, list(ROWS),
+                                            thop))
+            out[label] = dict(zip(ROWS, np.asarray(snr).tolist()))
+            print(f"  {label}: {out[label]} "
+                  f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    finally:
+        pallas_osc.harmonic_project_win_pallas, harmonics.sample_cycles = orig
+    return out
+
+
+def fullband_means(duration, chunk=16):
+    """chip_smoke.py phase 20e: batched_pipeline SNRs of all 128 bench rows
+    at each full-band configuration, in chunks of `chunk` rows -> {label:
+    (noisy rows' mean, clean rows' mean, every row's SNR)}."""
+    out = {}
+    for label, (opt, sopt, thop) in fullband_opts().items():
+        t0 = time.perf_counter()
+        snr = []
+        for r0 in range(0, 128, chunk):
+            rows = list(range(r0, r0 + chunk))
+            _, s, _ = corpus.batched_pipeline(
+                opt, sopt, *_fullband_batch(label, duration, rows, thop))
+            snr += np.asarray(s).tolist()
+        out[label] = (float(np.mean(snr[:64])), float(np.mean(snr[64:])),
+                      snr)
+        print(f"  {label}: noisy mean {out[label][0]}, clean mean "
+              f"{out[label][1]} ({time.perf_counter() - t0:.1f} s)",
+              flush=True)
     return out
 
 
@@ -575,6 +757,42 @@ print(repr(float(10 * np.log10(np.sum(x[lo:hi] ** 2) / np.sum(e ** 2)))))
 """
 
 
+FULLBAND64_SCRIPT = """
+import sys
+import numpy as np
+sys.argv = ["port_jax_pins.py"]
+import port_jax_pins as pins
+from libllsm2_tpu import fp
+from libllsm2_tpu.parallel import corpus
+assert fp.FP64
+duration = float(sys.stdin.readline())
+for label, (opt, sopt, thop) in pins.fullband_opts(use_pallas=False).items():
+    _, snr, _ = corpus.batched_pipeline(
+        opt, sopt, *pins._fullband_batch(label, duration, list(pins.ROWS),
+                                         thop))
+    print(repr((label, np.asarray(snr).tolist())), flush=True)
+"""
+
+
+def fullband_rows64(duration):
+    """Part fullband64: part fullband's rows through the JAX package in
+    float64 (LLSM_FP64=1, its plain branches) -> {label: {row: SNR}}."""
+    import ast
+    import os
+    import subprocess
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, LLSM_FP64="1", JAX_PLATFORMS="cpu",
+               PYTHONPATH=os.pathsep.join((os.getcwd(), here)))
+    r = subprocess.run([sys.executable, "-c", FULLBAND64_SCRIPT], env=env,
+                       input=f"{duration}\n", capture_output=True, text=True,
+                       check=True)
+    out = {}
+    for line in r.stdout.strip().splitlines():
+        label, snr = ast.literal_eval(line)
+        out[label] = dict(zip(ROWS, snr))
+    return out
+
+
 def fp64_round_trip():
     """Part fp64: tests/test_fp64.py's SNR, the JAX package in float64."""
     import os
@@ -613,7 +831,7 @@ def main():
     kw = dict(a.split("=", 1) for a in sys.argv[1:])
     duration = float(kw.get("duration", 8.0))
     only = kw.get("only", "l0,11k,l1,pbp,corpus,edits,coder,nasal,stream,"
-                  "dspkit,learned,fp64,mesh,wide").split(",")
+                  "dspkit,learned,fp64,mesh,wide,fullband,proj64").split(",")
     if "l0" in only:
         t0 = time.perf_counter()
         print(f"16 kHz batched_pipeline at {duration} s:",
@@ -699,6 +917,35 @@ def main():
               "at a 10 ms hop), batched_pipeline SNR of rows 0/1/64:",
               wide_rows(duration), f"({time.perf_counter() - t0:.1f} s)",
               flush=True)
+    if "fullband" in only:
+        t0 = time.perf_counter()
+        print(f"phase 20e at {duration} s (full band: 48 kHz at K = 600, then "
+              "16 kHz at a 2 ms hop at K = 200), batched_pipeline SNR of "
+              "rows 0/1/64:", fullband_rows(duration),
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    if "fullband64" in only:
+        t0 = time.perf_counter()
+        print(f"phase 20e at {duration} s in float64 (LLSM_FP64=1, the plain "
+              "branches), batched_pipeline SNR of rows 0/1/64:",
+              fullband_rows64(duration),
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    if "proj64" in only:
+        t0 = time.perf_counter()
+        print(f"phase 20e at {duration} s with the windowed projection in "
+              "float64, batched_pipeline SNR of rows 0/1/64:",
+              fullband_proj64(duration),
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    if "cyc64" in only:
+        t0 = time.perf_counter()
+        print(f"phase 20e at {duration} s with the windowed projection and "
+              "the cycle track in float64, batched_pipeline SNR of rows "
+              "0/1/64:", fullband_proj64(duration, cycles=True),
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    if "fullbandmean" in only:
+        t0 = time.perf_counter()
+        print(f"phase 20e at {duration} s on all 128 bench rows, (noisy mean, "
+              "clean mean, every row's SNR):", fullband_means(duration),
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
 if __name__ == "__main__":
     main()

@@ -19,6 +19,8 @@ imports no jax:
     PYTHONPATH=. python3 scripts/port_kernel_passes.py [only=name,...]
         [split=DIR,...]
 
+(name: a source of PASSES below, viterbi or deconv_wide.)
+
 split= instead times each CUDA kernel of kernels.refine_f0_dec, by its
 name in a torch.profiler trace, of the package in each DIR (a checkout,
 e.g. the parent commit unpacked under build/archive/), at the bench shape
@@ -41,7 +43,20 @@ backpointers compiled out, the final argmax kept), at the tracker's
 [64, 1600, 97] (renormalized, its transitions) and layer 1's Rd
 [128, 1600, 64] (lt = -pen, lam 10) on uniform random scores, all rows and
 row 0 alone: the forward and backtrace split and the cycles a step at the
-SM clock.
+SM clock; then past 256 states, where the grid kernel runs (lt mode 4:
+[64, 1600, 257] and [64, 1600, 1025] renormalized, [64, 1600, 512] not,
+under the tracker's transitions at S = nbins + 1, all rows and row 0
+alone), also built without its candidates (LLSM_SKIP_PASS_A: the max-plus
+product compiled out; the staging of the scores, the merges, the
+writes, the row maxima and the grid barriers kept): a step's fixed cost.
+
+only=deconv_wide times deconv_full.cu's wide kernel at the full-band
+shapes of chip_smoke.py's phase 20e on random inputs (48 kHz at the 5 ms
+hop: [128, 1600, 600], D 11, hop 240; 16 kHz at a 2 ms hop: [128, 4000,
+200], D 26, hop 32; halfwidths up to the band's), at its geometry's
+chunk width with the taps built once a tile (one block a tile walking
+its chunks) and rebuilt a chunk (a block a chunk), all rows and row 0
+alone, then with the tap build and the output pass compiled out in turn.
 
 The variants go to build/kernels/ beside the library (listed in
 .gitignore), each under a hash of its source and defines.
@@ -77,7 +92,12 @@ PASSES = {
 VITERBI_SHAPES = (("tracker", 64, 1600, 97, True),
                   ("tracker row 0", 1, 1600, 97, True),
                   ("Rd", 128, 1600, 64, False),
-                  ("Rd row 0", 1, 1600, 64, False))
+                  ("Rd row 0", 1, 1600, 64, False),
+                  ("S 257", 64, 1600, 257, True),
+                  ("S 257 row 0", 1, 1600, 257, True),
+                  ("S 512", 64, 1600, 512, False),
+                  ("S 1025", 64, 1600, 1025, True),
+                  ("S 1025 row 0", 1, 1600, 1025, True))
 # C entry of a source, where its name is not llsm_<source>
 ENTRIES = {"refine_f0": "llsm_refine_f0_dec"}
 SPLIT_REPS = 20
@@ -118,8 +138,9 @@ def viterbi_passes():
     from libllsm2_tpu_torch.models import layer1
     from libllsm2_tpu_torch.ops import f0 as f0mod
     full = _build.library().llsm_viterbi_scan
-    fwd = _build.variants([("viterbi", {"LLSM_SKIP_PASS_B": 1})])[0]
-    fwd = fwd.llsm_viterbi_scan
+    fwd, fixed = (lib.llsm_viterbi_scan for lib in _build.variants(
+        [("viterbi", {"LLSM_SKIP_PASS_B": 1}),
+         ("viterbi", {"LLSM_SKIP_PASS_A": 1})]))
     mhz, src = chip_smoke.sm_clock_mhz(torch)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
@@ -131,25 +152,85 @@ def viterbi_passes():
     for label, B, N, S, renorm in VITERBI_SHAPES:
         obs = torch.rand((B, N, S), generator=g, device=dev)
         lt = (tracker_lt if renorm else rd_lt).contiguous()
+        if S > 256:
+            lt = f0mod._tables(f0mod.F0Config(nbins=S - 1), dev)["lt"]
         geo = kernels._viterbi_geometry(N, S)
         path = torch.empty((B, N), dtype=torch.int64, device=dev)
         final = torch.empty((B, S), device=dev)
         bp = kernels._viterbi_scratch(B, N, S, dev)
         args = kernels._viterbi_launch_args(obs, lt, renorm, path, final, bp)
         ms = {}
-        for name, fn in (("whole", full), ("forward", fwd)):
+        variants = (("whole", full), ("forward", fwd)) + (
+            (("fixed", fixed),) if geo[3] == 4 else ())
+        for name, fn in variants:
             rc = fn(*args)
             if rc:
                 raise RuntimeError(f"viterbi {label}: cudaError {rc}")
-            ms[name] = run_ms(lambda: fn(*args))
+            ms[name] = run_ms(lambda: fn(*args), 20 if S <= 256 else 3)
         cyc = lambda t: t / (N - 1) * mhz * 1e3
+        grid = (f" grid {kernels._viterbi_grid(B, S)}" if geo[3] == 4
+                else f" threads {geo[2]}")
+        fixed_ms = "" if "fixed" not in ms else (
+            f"; without its candidates {ms['fixed']:.4f} ms = "
+            f"{cyc(ms['fixed']):.0f} cycles a step")
         print(f"viterbi {label} [{B}, {N}, {S}] P {geo[0]} C {geo[1]} "
-              f"threads {geo[2]} lt mode {geo[3]}: whole {ms['whole']:.4f} "
-              f"ms a launch in a run of 20 = {cyc(ms['whole']):.0f} cycles "
-              f"a step; forward (backtrace compiled out) "
-              f"{ms['forward']:.4f} ms = {cyc(ms['forward']):.0f} cycles a "
-              f"step; backtrace {ms['whole'] - ms['forward']:.4f} ms (at "
+              f"lt mode {geo[3]}{grid}: whole "
+              f"{ms['whole']:.4f} ms a launch in a run = "
+              f"{cyc(ms['whole']):.0f} cycles a step; forward (backtrace "
+              f"compiled out) {ms['forward']:.4f} ms = "
+              f"{cyc(ms['forward']):.0f} cycles a step; backtrace "
+              f"{ms['whole'] - ms['forward']:.4f} ms{fixed_ms} (at "
               f"{mhz:.0f} MHz, {src})", flush=True)
+
+
+# deconv_full's full-band shapes: (label, B, N, K, D, nhop)
+DECONV_WIDE_SHAPES = (("48 kHz", 128, 1600, 600, 11, 240),
+                      ("16 kHz 2 ms", 128, 4000, 200, 26, 32))
+
+
+def deconv_wide():
+    """deconv_full.cu's wide kernel at DECONV_WIDE_SHAPES (the docstring
+    says how), a line each."""
+    libs = build_variants(["deconv_full"])
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    r = lambda *s: torch.rand(*s, generator=g, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    for label, Bw, Nw, Kw, Dw, hop in DECONV_WIDE_SHAPES:
+        ampl, phse = r(Bw, Nw, Kw), 6.0 * r(Bw, Nw, Kw) - 3.0
+        mask = (r(Bw, Nw, Kw) > 0.1).float()
+        cyc = torch.remainder(torch.cumsum(r(Bw, Nw * hop) * 0.02, -1), 1.0)
+        hw = 30.0 + r(Bw, Nw) * (Dw - 1) * hop
+        o_a, o_b = torch.empty_like(ampl), torch.empty_like(ampl)
+        FT, KC, _, smem = kernels._deconv_geometry(Dw, Kw, 2 * hop // 8, Bw,
+                                                   Nw)
+        n = -(-Kw // KC)
+
+        def call(fn, rows, blocks):
+            ptrs = [t.data_ptr() for t in (ampl, phse, cyc, hw, mask, o_a,
+                                           o_b)]
+            rc = fn(*ptrs, rows, Nw, Kw, Dw, hop, 8, 0, FT, KC, blocks,
+                    stream)
+            if rc:
+                raise RuntimeError(f"deconv_full {label}: cudaError {rc}")
+
+        ms = {}
+        for rows in (Bw, 1):
+            for blocks in (1, n):
+                ms[rows, blocks] = run_ms(lambda: call(libs[
+                    "deconv_full", 0, 0], rows, blocks))
+        skips = {f"without {what}": run_ms(lambda: call(libs[key], Bw, 1))
+                 for key, what in ((("deconv_full", 1, 0), "the tap build"),
+                                   (("deconv_full", 0, 1), "the output pass"))}
+        print(f"deconv_wide {label} [{Bw}, {Nw}, {Kw}] D {Dw} hop {hop}: "
+              f"{FT} frames a block, chunks of {KC} ({n}), {smem} B; taps "
+              f"once a tile {ms[Bw, 1]:.4f} ms, a block a chunk "
+              f"{ms[Bw, n]:.4f} ms; row 0 alone {ms[1, 1]:.4f} / "
+              f"{ms[1, n]:.4f} ms; " + "; ".join(
+                  f"{k} {v:.4f} ms" for k, v in skips.items())
+              + " (a launch in a run of 20)", flush=True)
+        del ampl, phse, mask, cyc, o_a, o_b
+        torch.cuda.empty_cache()
 
 
 def refine_args(nx):
@@ -278,6 +359,11 @@ def main():
     if "viterbi" in names:
         viterbi_passes()
         names.remove("viterbi")
+    if "deconv_wide" in names:
+        deconv_wide()
+        names.remove("deconv_wide")
+    if not names:
+        return 0
     libs = build_variants(names)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
@@ -317,7 +403,7 @@ def main():
         "deconv_full": lambda fn: fn(
             ampl.data_ptr(), phse.data_ptr(), cyc.data_ptr(), hw.data_ptr(),
             mask.data_ptr(), o_a.data_ptr(), o_b.data_ptr(), B, N, K, D, NHOP,
-            8, 0, stream),
+            8, 0, 64, 0, 1, stream),
         "harmonic_project_mxu": lambda fn: fn(
             x.data_ptr(), cyc.data_ptr(), hw_p.data_ptr(), p_re.data_ptr(),
             p_im.data_ptr(), p_ws.data_ptr(), p_xs.data_ptr(), B, N * NHOP,

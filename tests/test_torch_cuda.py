@@ -592,17 +592,79 @@ def test_deconv_full_kernel_matches_plain_on_card(nhop, polar, Nf):
 
 @pytest.mark.requires_cuda
 def test_deconv_full_largest_band_on_card():
-    """D = 56, the widest band whose block fits the shared memory at K = 80,
-    against the twin (5e-4); D = 57 is refused by the wrapper, not by a
-    failed launch."""
+    """D = 56, the widest band whose first-kernel block fits the shared
+    memory at K = 80, against the twin (5e-4); D = 57 runs the wide kernel
+    (two chunks of 40 columns) against the twin too; only a band far past
+    the JAX branch's D <= 128 is refused, by the wrapper, not by a failed
+    launch."""
     dev = _card()
     args = tuple(T(a).to(dev) for a in _deconv_inputs(80, 3, Nf=130))
-    got = kernels.deconv_full(*args, 56, 80, 8)
-    ref = kernels.deconv_full_ref(*args, 56, 80, 8)
-    torch.testing.assert_close(torch.complex(*got), torch.complex(*ref),
-                               atol=5e-4, rtol=0)
+    assert kernels._deconv_geometry(56, 80, 20)[1] == 0
+    assert kernels._deconv_geometry(57, 80, 20)[1] == 40
+    for D in (56, 57):
+        got = kernels.deconv_full(*args, D, 80, 8)
+        ref = kernels.deconv_full_ref(*args, D, 80, 8)
+        torch.testing.assert_close(torch.complex(*got), torch.complex(*ref),
+                                   atol=5e-4, rtol=0)
     with pytest.raises(ValueError, match="shared memory"):
-        kernels.deconv_full(*args, 57, 80, 8)
+        kernels.deconv_full(*args, 1000, 80, 8)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("polar", [False, True])
+def test_deconv_full_wide_kernel_equals_the_first_on_card(polar,
+                                                         monkeypatch):
+    """The wide kernel forced onto a shape the first kernel takes (K = 80,
+    D = 7, ragged 64-frame tiles): chunks of 16, 24, 17 and 80 columns,
+    frame tiles of 64, 32, 16 and 8, the taps built once a tile or a chunk
+    a block -- every output the first kernel's bits."""
+    dev = _card()
+    args = tuple(T(a).to(dev) for a in _deconv_inputs(80, 11, Nf=N))
+    kw = dict(return_complex=not polar)
+    ref = kernels.deconv_full(*args, 7, 80, 8, **kw)
+    for geo in ((64, 16, 1), (32, 24, 4), (16, 17, 2), (8, 80, 1)):
+        monkeypatch.setattr(kernels, "_deconv_geometry",
+                            lambda *a, geo=geo: (*geo, 0))
+        n0 = kernels.LAUNCHES["deconv_full"]
+        got = kernels.deconv_full(*args, 7, 80, 8, **kw)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["deconv_full"] == n0 + 1
+        assert all(torch.equal(g, r) for g, r in zip(got, ref)), geo
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("K,D,nhop,Nf", [
+    (200, 26, 32, 400),    # 16 kHz, 2 ms hop, f0_floor 40: full band
+    (342, 16, 96, 200),    # 48 kHz, 2 ms hop, f0_floor 70
+    (600, 11, 240, 200),   # 48 kHz, 5 ms hop, f0_floor 40
+    (80, 113, 16, 300),    # 32-frame tiles: 64 frames' taps fill a block
+    (80, 128, 16, 300),    # the JAX branch's widest band
+    (120, 128, 480, 300),  # the field computed by the tap build
+])
+def test_deconv_full_wide_kernel_matches_plain_on_card(K, D, nhop, Nf):
+    """deconv_full past the first kernel's shared memory (full-band K, or D
+    past 56): the wide kernel, one launch, against the twin, the masked
+    (re, im) within 5e-4 and the polar track as |c| e^{j angle c}; a row
+    alone (a block a chunk) equals its row of the batch (a block a tile)
+    bit for bit."""
+    dev = _card()
+    ampl, phse, cyc, hw, mask = _deconv_inputs(nhop, K + D, Nf=Nf, K=K)
+    hw = np.random.default_rng(D).uniform(30, (D - 1) * nhop, hw.shape)
+    args = tuple(T(a).to(dev) for a in (ampl, phse, cyc,
+                                        hw.astype(np.float32), mask))
+    assert kernels._deconv_geometry(D, K, 2 * nhop // 8)[1] > 0
+    for polar in (True, False):
+        z = (lambda p: torch.polar(*p)) if polar else \
+            (lambda p: torch.complex(*p))
+        n0 = kernels.LAUNCHES["deconv_full"]
+        got = kernels.deconv_full(*args, D, nhop, 8, return_complex=not polar)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["deconv_full"] == n0 + 1
+        ref = kernels.deconv_full_ref(*args, D, nhop, 8,
+                                      return_complex=not polar)
+        torch.testing.assert_close(z(got), z(ref), atol=5e-4, rtol=0)
+    row = kernels.deconv_full(*(a[1:] for a in args), D, nhop, 8)
+    assert all(torch.equal(r[0], g[1]) for r, g in zip(row, got))
 
 
 @pytest.mark.requires_cuda
@@ -1593,11 +1655,14 @@ def test_noise_mod_ola_wide_kernel_matches_plain_on_card(nhop, C, Ke, Nf):
 
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("S,N,renorm", [(257, 3200, True), (512, 400, False),
-                                        (1025, 200, True)])
+                                        (1025, 200, True), (2049, 60, True),
+                                        (2049, 2, False)])
 def test_viterbi_wide_kernel_matches_plain_on_card(S, N, renorm):
-    """viterbi_scan past 256 states (one lane a state, uint16
-    backpointers; at 3200 frames in device memory) against its twin, paths
-    and last scores bit for bit, on scores in eighths with -inf entries."""
+    """viterbi_scan past 256 states (uint16 backpointers: the grid kernel
+    to 2048 states, at 3200 frames too; past it one lane a state, the
+    backpointers in device memory or, at 2 frames, in shared memory)
+    against its twin, paths and last scores bit for bit, on scores in
+    eighths with -inf entries."""
     dev = _card()
     rng = np.random.default_rng(S)
     obs = np.round(rng.uniform(-12.0, 0.0, (2, N, S)) * 8.0) / 8.0
@@ -1634,3 +1699,32 @@ def test_refine_f0_full_past_the_128_frame_block_on_card():
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["refine_f0_full"] == n0 + 1
     assert _f0_rel(got, kernels.refine_f0_full_ref(x, f0, **kw)) <= 1e-4
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("S,renorm", [(257, True), (385, True),
+                                      (512, False), (1025, True)])
+@pytest.mark.parametrize("B,N", [(1, 400), (64, 100), (1, 3200)])
+def test_viterbi_grid_kernel_matches_plain_on_card(S, renorm, B, N):
+    """The grid kernel (lt mode 4: one cooperative launch, 16 destination
+    states a block, its grid from _viterbi_grid) against the twin on the
+    card, paths and last scores bit for bit, on the tracker's transitions
+    at S = nbins + 1 and scores in eighths with -inf entries and tied
+    frames: a row alone, 64 rows (one pass of 2 or 4 row warps) and a
+    3200-frame row; rows 0 and B - 1 of the batch alone equal their rows."""
+    from libllsm2_tpu_torch.ops import f0 as tf0
+    dev = _card()
+    obs, _ = _viterbi_inf_inputs(B, N, S, renorm, S + N + B)
+    lt = tf0._tables(tf0.F0Config(nbins=S - 1), dev)["lt"]
+    obs = obs.to(dev)
+    assert kernels._viterbi_geometry(N, S)[3] == 4
+    n0 = kernels.LAUNCHES["viterbi_scan"]
+    path, score = kernels.viterbi_scan(obs, lt, renorm, scores=True)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["viterbi_scan"] == n0 + 1
+    ref_path, ref_score = kernels.viterbi_scan_ref(obs, lt, renorm,
+                                                   scores=True)
+    assert torch.equal(path, ref_path) and torch.equal(score, ref_score)
+    for r in {0, B - 1}:
+        p, s = kernels.viterbi_scan(obs[r:r + 1], lt, renorm, scores=True)
+        assert torch.equal(p[0], path[r]) and torch.equal(s[0], score[r])

@@ -296,14 +296,19 @@ def test_fp64_routes_to_the_twin():
     (400, 200, (4, 64, 800, 1, False, 15104 + 160000, 1)),     # bp in HBM
     (2, 256, (4, 64, 1024, 2, True, 18688 + 256, 1)),  # lt 256 KB: HBM
     (1200, 256, (4, 64, 1024, 2, False, 18688, 1)),    # neither fits
-    # past 256 states (mode 3): one lane a state, C = S rounded up to 4,
+    # 257 to 2048 states (mode 4, the grid kernel): C = S rounded up to 8,
+    # the uint16 backpointers in device memory at any N; threads and bytes
+    # are the grid's (_viterbi_grid)
+    (300, 257, (1, 264, None, 4, False, None, 2)),
+    (3200, 257, (1, 264, None, 4, False, None, 2)),
+    (2, 512, (1, 512, None, 4, False, None, 2)),
+    (1600, 1025, (1, 1032, None, 4, False, None, 2)),
+    (1, 2048, (1, 2048, None, 4, False, None, 2)),
+    # past 2048 states (mode 3): one lane a state, C = S rounded up to 4,
     # 4 (2 C + 64) bytes, then 2 (N - 1) S of uint16 backpointers
-    (300, 257, (1, 260, 288, 3, True, 2336 + 2 * 299 * 257, 2)),
-    (3200, 257, (1, 260, 288, 3, False, 2336, 2)),   # 1.6 MB: HBM
-    (2, 512, (1, 512, 512, 3, True, 4352 + 2 * 512, 2)),
-    (1600, 512, (1, 512, 512, 3, False, 4352, 2)),
-    (40, 1025, (1, 1028, 1024, 3, True, 8480 + 2 * 39 * 1025, 2)),
-    (1600, 1025, (1, 1028, 1024, 3, False, 8480, 2)),
+    (2, 2049, (1, 2052, 1024, 3, True, 16672 + 2 * 2049, 2)),
+    (300, 2049, (1, 2052, 1024, 3, False, 16672, 2)),   # 1.2 MB: HBM
+    (20, 4000, (1, 4000, 1024, 3, True, 32256 + 2 * 19 * 4000, 2)),
     (1, 29024, (1, 29024, 1024, 3, True, 232448, 2)),   # the most states
 ])
 def test_viterbi_geometry_by_hand(N, S, geometry):
@@ -311,13 +316,43 @@ def test_viterbi_geometry_by_hand(N, S, geometry):
     in registers up to S = 128 (mode 0; 52 slots a lane for the tracker's
     97 states), past it 4 lanes and lt in shared memory where S^2
     floats fit in the H100's 232448 bytes (mode 1), else in device memory
-    (2); past 256 states one lane a state (mode 3, the wide kernel),
-    uint16 backpointers, up to _VITERBI_MAX_STATES = 29024, whose two
-    score rows fill shared memory; the backpointers in shared memory
-    where they fit beside the rest."""
+    (2); from 257 to 2048 states the grid kernel (mode 4: groups of 8
+    source states, its grid from _viterbi_grid); past 2048 one lane a
+    state (mode 3, the one-block-a-row kernel), uint16 backpointers, up to
+    _VITERBI_MAX_STATES = 29024, whose two score rows fill shared memory;
+    the backpointers in shared memory where they fit beside the rest."""
     assert kernels._viterbi_geometry(N, S) == geometry
-    assert geometry[5] <= kernels._SMEM_MAX
+    for smem in ([geometry[5]] if geometry[3] != 4 else
+                 [kernels._viterbi_grid(B, S)[4] for B in (1, 64)]):
+        assert smem <= kernels._SMEM_MAX
     assert kernels._VITERBI_MAX_STATES == 29024
+
+
+@pytest.mark.parametrize("B,S,grid", [
+    # (warps, row warps, slices, row blocks, bytes): 2 row warps and 4 row
+    # blocks make one pass of 64 rows; 8 warps, so 4 parts of the source
+    # states; the parts' maxima 4 x 16 x 16 x 8 bytes
+    (64, 257, (8, 2, 17, 4, 4 * 32 * 268 + 4 * 16 * 16 * 8)),
+    (64, 385, (8, 2, 25, 4, 4 * 32 * 396 + 4 * 16 * 16 * 8)),
+    (64, 512, (8, 2, 32, 4, 4 * 32 * 516 + 4 * 16 * 16 * 8)),
+    # 65 slices leave 2 row blocks: 4 row warps make one pass; 16 warps
+    (64, 1025, (16, 4, 65, 2, 4 * 48 * 1036 + 4 * 32 * 16 * 8)),
+    (128, 1025, (16, 4, 65, 2, 4 * 48 * 1036 + 4 * 32 * 16 * 8)),
+    # a row alone: one row warp, 8 parts
+    (1, 1025, (8, 1, 65, 1, 4 * 24 * 1036 + 8 * 8 * 16 * 8)),
+    (1, 257, (8, 1, 17, 1, 4 * 24 * 268 + 8 * 8 * 16 * 8)),
+    # 128 slices: one row block; 2 row warps' rows would overflow
+    (64, 2048, (8, 1, 128, 1, 4 * 24 * 2052 + 8 * 8 * 16 * 8)),
+])
+def test_viterbi_grid_by_hand(B, S, grid):
+    """kernels._viterbi_grid: 16 destination states a block, at most one
+    block an SM (132), the fewest passes over the row groups a step with
+    the fewest row warps, the other warps parts of the source states."""
+    assert kernels._viterbi_grid(B, S) == grid
+    assert grid[4] <= kernels._SMEM_MAX
+    assert grid[2] * grid[3] <= 132
+    with pytest.raises(ValueError, match="SMs"):
+        kernels._viterbi_grid(B, 2048, sms=114)
 
 
 def _merge(va, ia, vb, ib):
@@ -339,6 +374,78 @@ def _butterfly(v, i, lanes):
     return v[:, 0], i[:, 0]
 
 
+def _grid_order_scan(obs, lt, renorm, parts):
+    """A plain-torch model of viterbi_grid_kernel's order (lt mode 4),
+    float32: the source states in groups of 8 (the scores padded to C = S
+    rounded up to 8 with -inf, lt with zero rows); part p of `parts` takes
+    the groups p, p + parts, ... in ascending order, each group's maximum
+    taken by the part's running best where it is greater (a strict >; the
+    best group starts at the part's first), then the first state of the
+    best group whose candidate equals that maximum (value and index); the
+    parts merged in order by (value, then lowest index); with renorm the
+    previous raw scores less their maximum at read time -> (path, last
+    scores) as _kernel_order_scan."""
+    B, N, S = obs.shape
+    C = -(-S // 8) * 8
+    G = C // 8
+    lt_pad = torch.zeros((C, S), dtype=torch.float32)
+    lt_pad[:S] = lt
+    pad = torch.full((B, C - S), -float("inf"))
+    renormed = lambda r: r - torch.amax(r, -1, keepdim=True) if renorm else r
+    raw, back = obs[:, 0], []
+    for t in range(1, N):
+        grp = (torch.cat([renormed(raw), pad], 1)[:, :, None]
+               + lt_pad).reshape(B, G, 8, S)
+        gmax = torch.amax(grp, 2)                              # [B, G, S]
+        merged = None
+        for p in range(parts):
+            best = torch.full((B, S), -float("inf"))
+            bg = torch.full((B, S), p, dtype=torch.int64)
+            for g in range(p, G, parts):
+                take = gmax[:, g] > best
+                best = torch.where(take, gmax[:, g], best)
+                bg = torch.where(take, g, bg)
+            if p < G:
+                sel = torch.gather(grp, 1, bg[:, None, None, :].expand(
+                    B, 1, 8, S))[:, 0]                         # [B, 8, S]
+                e = torch.argmax((sel == best[:, None]).to(torch.int8), 1)
+                best = torch.gather(sel, 1, e[:, None])[:, 0]
+                idx = 8 * bg + e
+            else:                                   # a part with no group
+                idx = torch.full((B, S), 8 * p, dtype=torch.int64)
+            merged = (best, idx) if merged is None else _merge(*merged, best,
+                                                               idx)
+        best, arg = merged
+        assert int(arg.max()) < S
+        back.append(arg)
+        raw = best + obs[:, t]
+    return _final_and_backtrace(renormed(raw), back)
+
+
+def _final_and_backtrace(final, back):
+    """viterbi.cu's final argmax (lane l of warp 0 the states l, l + 32,
+    ... in ascending order, then 32 lanes by xor) and the backtrace along
+    back -> (path, final)."""
+    B, S = final.shape
+    N = len(back) + 1
+    lanes = torch.full((B, 32 * -(-S // 32)), -float("inf"))
+    lanes[:, :S] = final
+    lanes = lanes.reshape(B, -1, 32)
+    lv, lj = lanes[:, 0], torch.arange(32).expand(B, 32).clone()
+    lj[:, S:] = 1 << 30
+    for r in range(1, lanes.shape[1]):
+        take = lanes[:, r] > lv
+        lv = torch.where(take, lanes[:, r], lv)
+        lj = torch.where(take, 32 * r + torch.arange(32), lj)
+    _, g = _butterfly(lv, lj, 32)
+    path = torch.empty((B, N), dtype=torch.int64)
+    path[:, N - 1] = g
+    for t in range(N - 2, -1, -1):
+        g = torch.gather(back[t], 1, g[:, None])[:, 0]
+        path[:, t] = g
+    return path, final
+
+
 def _kernel_order_scan(obs, lt, renorm, P):
     """A plain-torch model of viterbi.cu's order, float32: lane p of a
     destination covers the source states i = 4 (m P + p) + e (m < C / 4,
@@ -349,9 +456,13 @@ def _kernel_order_scan(obs, lt, renorm, P):
     final argmax as warp 0 takes it (lane l the states l, l + 32, ... in
     ascending order, then 32 lanes by xor); then the backtrace.  C is the
     kernel's where P is the kernel's P at S, else the least multiple of 4
-    with P C >= S.  -> (path [B, N], last scores [B, S])."""
+    with P C >= S.  Where S takes the grid kernel (lt mode 4: 257 to 2048
+    states), its model with P parts of the source states
+    (_grid_order_scan).  -> (path [B, N], last scores [B, S])."""
     B, N, S = obs.shape
     geo = kernels._viterbi_geometry(N, S)
+    if geo[3] == 4:
+        return _grid_order_scan(obs, lt, renorm, P)
     C = geo[1] if geo[0] == P else -(-S // (4 * P)) * 4
     M, SP = C // 4, P * C
     lt_pad = torch.zeros((SP, S), dtype=torch.float32)
@@ -376,23 +487,7 @@ def _kernel_order_scan(obs, lt, renorm, P):
         assert int(arg.max()) < S
         back.append(arg)
         raw = best + obs[:, t]
-    final = renormed(raw)
-    lanes = torch.full((B, 32 * -(-S // 32)), -float("inf"))
-    lanes[:, :S] = final
-    lanes = lanes.reshape(B, -1, 32)
-    lv, lj = lanes[:, 0], torch.arange(32).expand(B, 32).clone()
-    lj[:, S:] = 1 << 30
-    for r in range(1, lanes.shape[1]):
-        take = lanes[:, r] > lv
-        lv = torch.where(take, lanes[:, r], lv)
-        lj = torch.where(take, 32 * r + torch.arange(32), lj)
-    _, g = _butterfly(lv, lj, 32)
-    path = torch.empty((B, N), dtype=torch.int64)
-    path[:, N - 1] = g
-    for t in range(N - 2, -1, -1):
-        g = torch.gather(back[t], 1, g[:, None])[:, 0]
-        path[:, t] = g
-    return path, final
+    return _final_and_backtrace(renormed(raw), back)
 
 
 def _order_inputs(S, renorm, seed, B=2, N=40):
@@ -423,14 +518,16 @@ def _order_inputs(S, renorm, seed, B=2, N=40):
 
 
 @pytest.mark.parametrize("renorm", [True, False])
-@pytest.mark.parametrize("S", [2, 64, 97, 256, 257, 512, 1025])
+@pytest.mark.parametrize("S", [2, 64, 97, 256, 257, 385, 512, 1025])
 @pytest.mark.parametrize("P", [1, 2, 4, 8])
 def test_kernel_order_equals_the_twin_and_the_jax_scans(P, S, renorm):
     """The model of viterbi.cu's lane and partial order above, at P lanes
-    a state (past 256 states the wide kernel's is P = 1, C = S rounded up
-    to 4: a thread's destinations each take the four partials over every
-    source state), on scores in eighths with ties, -inf entries and all-tied
-    rows: paths and last scores equal kernels.viterbi_scan_ref's bit for
+    a state (from 257 states the grid kernel's: groups of 8 source states
+    in P parts, as _viterbi_grid takes 8 parts for a row alone and 4 for
+    64 rows; 385 the tracker's at nbins 384), on scores in eighths with
+    ties, -inf entries and all-tied rows (57 groups at 1025 states, so
+    each part's groups interleave): paths and last scores equal
+    kernels.viterbi_scan_ref's bit for
     bit, and its paths the JAX package's (the tracker's renormalized scan
     under the same lt; _rd_viterbi on the same scores and voicing, lt =
     -pen); without renorm also under an lt in eighths with -inf entries,

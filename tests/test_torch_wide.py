@@ -1,14 +1,16 @@
 """The configurations past the first CUDA kernels' shape limits, on the CPU
 against the JAX package (its Pallas branch in interpret mode), at small
 sizes from numpy seeds: analyze -> synthesize with use_pallas=True at a 2 ms
-hop (the denoiser's 33 + 17 taps), at creaky voice's K = 160 and at 48 kHz
-with a 10 ms hop (noise hop 480); the noise kernel's twin against
+hop (the denoiser's 33 + 17 taps), at creaky voice's K = 160, at 48 kHz
+with a 10 ms hop (noise hop 480) and at full band with a 2 ms hop (the
+deconvolution at K = 200, D = 26); the deconvolution's twin against
+deconv_full_pallas at full-band shapes; the noise kernel's twin against
 noise_mod_ola_pallas at nine bands, nine envelope harmonics and hop 480;
 the Viterbi twin against the JAX scans past 256 states; the envelope
 render's twin past Ke = 8 and the cycle track's past a 512-sample hop
 against the JAX package; and the wide kernels' launch geometry by hand
 (the denoiser's K chunks, the noise kernel's frames a block and its band
-table in shared memory).
+table in shared memory, the deconvolution's frame tile and K chunks).
 Tolerances: the chunk fields as test_torch_layer0.py holds them (ampl and
 the complex track 1e-3 of the peak), y_sin 1e-3, the noise 5e-5 (1e-4
 through the whole synthesis), SNR 0.05 dB, the Viterbi paths exactly.
@@ -32,7 +34,8 @@ from libllsm2_tpu_torch.ops import kernels
 from libllsm2_tpu_torch.utils import testsig
 from test_torch_cuda import _noise_tensors, _wide_noise_inputs
 from test_torch_f0 import _jax_viterbi
-from test_torch_kernels import _jax_noise
+from test_torch_cuda import _deconv_inputs
+from test_torch_kernels import _jax_eq, _jax_noise
 from test_torch_layer0 import _jax_bins
 from test_torch_viterbi import LAM, _order_inputs
 
@@ -49,6 +52,10 @@ CASES = {
     "48 kHz 10 ms": (dict(fs=48000.0, thop=0.01, fnyq=12000.0,
                           chanfreq=(3000.0, 6000.0, 9000.0), nspec=513),
                      0.6),
+    # full band at 16 kHz with a 2 ms hop: maxnhar = fs / 2 / f0_floor, the
+    # deconvolution's band D = 26 (halfwin_max 800) at K = 200
+    "full band": (dict(SMALL, thop=0.002, f0_floor=40.0, maxnhar=200,
+                       fnyq=8000.0), 0.3),
 }
 
 
@@ -91,6 +98,13 @@ def test_wide_confs_reach_the_lifted_limits(case):
         assert M > kernels._DENOISE_MAX_TAPS
     elif case["name"] == "K 160":
         assert conf.maxnhar == 160 > kernels._DENOISE_MAX_K
+    elif case["name"] == "full band":
+        # layer0._deconv_correction's band and quadrature points
+        D = -(-conf.halfwin_max // conf.nhop) + 1
+        nq = 2 * conf.nhop // min(8, conf.nhop)
+        assert (conf.maxnhar, D, nq) == (200, 26, 8)
+        assert kernels._deconv_smem(D, 200, nq) == 240368 > kernels._SMEM_MAX
+        assert kernels._deconv_geometry(D, 200, nq)[:2] == (64, 100)
     else:
         assert conf.nhop == 480 > kernels._NOISE_MAX_HOP
 
@@ -300,3 +314,97 @@ def test_cycle_track_twin_matches_jax_past_a_512_sample_hop(nhop):
         jnp.asarray(f0), nhop, fs, n * nhop)).astype(np.float64)
     d = got - ref
     assert float(np.abs(d - np.round(d)).max()) <= 1e-5
+
+
+@pytest.mark.parametrize("K,D,nhop", [(600, 11, 240), (342, 16, 96)])
+def test_deconv_twin_matches_pallas_at_full_band(K, D, nhop):
+    """deconv_full (its twin on the CPU) against deconv_full_pallas
+    (interpret mode) at full-band shapes the card's first kernel refuses:
+    K = 600, D = 11, nq = 60 (48 kHz, 5 ms hop, f0_floor 40) and K = 342,
+    D = 16, nq = 24 (48 kHz, 2 ms hop, f0_floor 70), halfwidths up to the
+    band's (D - 1) nhop, over a few frames: 5e-4 (test_pallas.py's)."""
+    from libllsm2_tpu.ops import pallas_osc
+    stride, Nf = 8, 2 * D + 3
+    nq = 2 * nhop // stride
+    assert kernels._deconv_smem(D, K, nq) > kernels._SMEM_MAX
+    ampl, phse, cyc, hw, mask = _deconv_inputs(nhop, K + D, B=1, Nf=Nf, K=K)
+    hw = np.random.default_rng(D).uniform(30, (D - 1) * nhop, hw.shape)
+    hw = hw.astype(np.float32)
+    got = kernels.deconv_full(*map(torch.tensor, (ampl, phse, cyc, hw, mask)),
+                              D, nhop, stride)
+    rj, ij = pallas_osc.deconv_full_pallas(
+        *(jnp.asarray(a[0]) for a in (ampl, phse)),
+        jnp.asarray(cyc[0, ::nhop]), jnp.asarray(hw[0]),
+        *_jax_eq(cyc[0], Nf, nhop, stride), D, nhop, stride)
+    zj = (np.asarray(rj) + 1j * np.asarray(ij)) * mask[0]
+    np.testing.assert_allclose(got[0][0].numpy() + 1j * got[1][0].numpy(),
+                               zj, atol=5e-4)
+
+
+def _deconv_bytes(FT, D, nq, cols):
+    """deconv_full.cu's wide block: taps, chunk (or field) columns, and a
+    float a halo row and a quadrature point."""
+    FH = FT + 2 * D
+    return FT * (2 * D + 1) * 16 + FH * cols * 8 + (FH + nq) * 4
+
+
+@pytest.mark.parametrize("D,K,nq,B,N,geometry", [
+    # the first kernel where its 64-frame block fits
+    (7, 80, 20, 128, 1600, (64, 0, 1, 64 * 15 * 16 + 78 * 80 * 8 + 98 * 4)),
+    (56, 80, 20, 1, 1600, (64, 0, 1, 229136)),
+    (11, 160, 20, 128, 1600, (64, 0, 1, 134056)),
+    # 48 kHz full band: 5 chunks of 120 (128 fit); taps once a tile at full
+    # batch, a block a chunk for a row alone
+    (11, 600, 60, 128, 1600, (64, 120, 1, _deconv_bytes(64, 11, 60, 122))),
+    (11, 600, 60, 1, 1600, (64, 120, 5, _deconv_bytes(64, 11, 60, 122))),
+    (11, 551, 55, 128, 1600, (64, 111, 1, _deconv_bytes(64, 11, 55, 113))),
+    (16, 342, 24, 128, 4000, (64, 114, 1, _deconv_bytes(64, 16, 24, 116))),
+    (26, 200, 8, 128, 4000, (64, 100, 1, _deconv_bytes(64, 26, 8, 102))),
+    # D past 56 at K = 80: 77 columns fit, two chunks of 40
+    (57, 80, 20, 1, 300, (64, 40, 2, _deconv_bytes(64, 57, 20, 42))),
+    # the taps of 64 frames fill the block at D = 113: 32-frame tiles
+    (113, 80, 20, 1, 300, (32, 40, 2, 204024)),
+    (128, 80, 20, 128, 1600, (32, 40, 1, _deconv_bytes(32, 128, 20, 42))),
+    # 48 kHz at a 10 ms hop with D = 128: the field's [288, 120] rows do not
+    # fit beside the taps, so the tap build computes it
+    (128, 600, 120, 1, 300, (32, 40, 15, _deconv_bytes(32, 128, 120, 42))),
+    # nothing fits far past the JAX branch's D <= 128
+    (1000, 80, 20, 1, 300, None),
+])
+def test_deconv_geometry_by_hand(D, K, nq, B, N, geometry):
+    """kernels._deconv_geometry: the first kernel where its 64-frame block
+    fits the H100's shared memory; past it the wide kernel's frame tile
+    (64, else 32 where the taps of 64 frames alone fill the block), the
+    widest chunk of at most 128 columns evened out over K, one block a tile
+    where B N / FT tiles give two blocks an SM (else a block a chunk), the
+    field staged where it fits; a refusal only where nothing fits."""
+    assert kernels._deconv_geometry(D, K, nq, B, N) == geometry
+    if geometry is not None:
+        assert geometry[3] <= kernels._SMEM_MAX
+
+
+@pytest.mark.parametrize("thop,fs,seconds,grouped", [
+    (0.005, 16000.0, 8.0, False),    # phase 5: 512 points, 1600 frames
+    (0.005, 11000.0, 8.0, False),    # phase 7
+    (0.002, 16000.0, 8.0, True),     # 20e: 128 points but 4000 frames
+    (0.005, 48000.0, 8.0, True),     # 20e: 1024 points
+    (0.005, 16000.0, 10.0, True),    # 2000 frames
+])
+def test_warped_psd_row_groups(monkeypatch, thop, fs, seconds, grouped):
+    """layer0._warped_psd with rows: row groups (layer0._row_groups) past
+    a 512-point periodogram or past 1600 frames, one call otherwise (the
+    card gave a row alone other PSD bits than its row in a batch at 16 kHz
+    with a 2 ms hop's 4000 frames); grouped or not, the same values on the
+    CPU."""
+    conf = tpkg.ChunkConf(fs=fs, thop=thop)
+    N = int(round(seconds / thop))
+    x = torch.tensor(np.random.default_rng(N).standard_normal(
+        (2, N * conf.nhop)).astype(np.float32))
+    calls = []
+    groups = tl0._row_groups
+    monkeypatch.setattr(tl0, "_row_groups", lambda *a: calls.append(1)
+                        or groups(*a))
+    got = tl0._warped_psd(x, N, conf, rows=tl0._group_rows(N))
+    assert bool(calls) == grouped
+    np.testing.assert_allclose(got.numpy(), tl0._warped_psd(x, N, conf)
+                               .numpy(), rtol=1e-5, atol=1e-12)
