@@ -371,7 +371,10 @@ non-zero without the final "ok" line:
      bench rows made at that hop), each as 20a (launches, the kernels
      against their twins at 2 rows, pins, full-batch times, the step and
      its peak, rows 0 and 64 alone), deconv_full past its first kernel's
-     shared memory (its wide kernel, checked by the geometry and K); the
+     shared memory (its wide path, checked by the geometry and K);
+     deconv_full and denoise_stats, whose wide paths were redesigned for
+     the card, also held to their twins at full batch, each time beside
+     its bound on a line of its own; the
      pins are the JAX package's with its windowed projection in float64
      (port_jax_pins.py only=proj64), noisy rows within 0.05 dB.  20f,
      at full batch against their twins: env_render at Ke 9 and 12, the
@@ -395,10 +398,13 @@ second launch; "launches_by_phase" the counts of phases 11 to 17, of
 plain_ms, library_ms and bound_ms at the first 2-row call of phase 3
 (noise_mod_ola_seg: its full-batch call of 16c; deconv_full_wide,
 deconv_full's second path: 20e's first 2-row call, its launches those
-of 20e's counted runs; viterbi_scan: 11v's
+of 20e's counted runs; denoise_stats_wide, denoise_stats's second path:
+20a's first 2-row call, its cases and full-batch records 20a's, 20c's
+and 20e's, its launches those of 20a's and 20e's counted runs;
+viterbi_scan: 11v's
 first case, phase 9's full-batch Rd call; denoise_stats also has
-16b's full-batch polar case among its "cases"; phase 20's cases and
-full-batch records join each kernel's); "full_batch" a record per
+16b's full-batch polar case among its "cases"; phase 20's other cases
+and full-batch records join each kernel's); "full_batch" a record per
 call at full batch ("analysis_calls" on harmonic_project_win and
 "render_calls" on osc_bank: phase 5's two harmonic_analysis calls and two
 renders).  bound_ms is the larger of the bytes the
@@ -742,9 +748,10 @@ FULLBAND_PINS_DB = {"48 kHz": {0: 38.343997955322266, 1: 38.714813232421875,
                     "16 kHz 2 ms": {0: 39.95677947998047,
                                     1: 40.462425231933594,
                                     64: 64.54426574707031}}
-# deconv_full's second path (deconv_full.cu's wide kernel), a record of its
-# own in the kernels line
+# deconv_full's and denoise_stats's second paths (past their first
+# kernels' limits), a record each of their own in the kernels line
 DECONV_WIDE = "deconv_full_wide"
+DENOISE_WIDE = "denoise_stats_wide"
 WIDE_TAPS = {"2 ms hop": (33, 17), "5 Hz at 5 ms": (41, 21)}   # 20c
 WIDE_STATES = ((257, True), (512, False), (1025, True))        # 20d
 WIDE_VITERBI_ROWS = 64
@@ -761,7 +768,8 @@ PATH = MAIN + (FINISH,)           # every wrapper the main path launches
 ANALYSIS = tuple(k for k in PATH if k not in ("noise_mod_ola", "noise_bins"))
 BATCH_ROWS = (0, 1, 64)           # phase 5: rows whose analysis and output
                                   # must not depend on the batch
-# kernels held to their plain version at full batch as well (phases 5, 7)
+# kernels held to their plain version at full batch as well (phases 5, 7;
+# phase 20e adds the two whose wide paths were redesigned for the card)
 FULL_CHECKED = ("refine_f0_dec", "refine_f0_full")
 # phase 5: the refine on row 0 alone and on its frames [a, b), a block of
 # RTAnalyzer's 160 frames
@@ -949,14 +957,15 @@ def kernel_ops(torch, name, args, kw):
         return (4.0 * (a[3] + 1) * float(span.sum())
                 + 8.0 * a[3] * a[0].numel() + 6.0 * a[3] * B * N)
     if name == "deconv_full":   # ampl, phse, cyc, hw, mask, D, nhop, stride
-        # a slot: the banded step (2D+1 taps x 3 complex terms, 24), its
-        # alignment and un-alignment (a sincos and a complex product each,
-        # 2 x 20), the mask (2) and for the polar track sqrt + atan2 (30); a
-        # frame: the taps (10 a tap a point) and the quadrature field (a
-        # sincos a point, 20)
+        # a slot: the banded step (2D+1 taps x 6 FMAs, 12 a tap), the
+        # input's c_{k+1} +- c_{k-1} (4 adds, once a slot: every tap that
+        # reaches it shares them), its alignment and un-alignment (a sincos
+        # and a complex product each, 2 x 20), the mask (2) and for the
+        # polar track sqrt + atan2 (30); a frame: the taps (10 a tap a
+        # point) and the quadrature field (a sincos a point, 20)
         B, N, K = a[0].shape
         band, nq = 2 * a[5] + 1, 2 * a[6] // a[7]
-        slot = 24.0 * band + 42.0 + (0.0 if kw.get("return_complex", True)
+        slot = 12.0 * band + 46.0 + (0.0 if kw.get("return_complex", True)
                                      else 30.0)
         return float(B * N) * (K * slot + nq * (10.0 * band + 20.0))
     if name == "env_render":
@@ -1264,14 +1273,14 @@ def check_kernel(torch, kernels, name, tol, args, kw, label, library=False,
             "bound_by": bound_by, "library_ms": library_ms}
 
 
-def full_batch(torch, kernels, calls, label):
+def full_batch(torch, kernels, calls, label, checked=FULL_CHECKED):
     """Every captured call of each kernel at full batch, timed alone
     (median of 10) beside its bound and, where one exists, its PyTorch
     yardstick (library_call) on the same inputs: where the yardstick's
     operands do not fit in the card's memory it runs on the first half,
     quarter, ... of the rows and its time is scaled by the fraction left
-    out; fir_frames also beside its host path -> {name: [record per
-    call]}."""
+    out; fir_frames also beside its host path; the kernels in `checked`
+    held to their plain versions as well -> {name: [record per call]}."""
     out = {}
     for name in calls:
         fn = getattr(kernels, name)
@@ -1279,11 +1288,15 @@ def full_batch(torch, kernels, calls, label):
         for i, (args, kw) in enumerate(calls[name]):
             got = fn(*args, **kw)
             full_err = None
-            if name in FULL_CHECKED:
+            if name in checked:
                 # its twin fits at full batch: held to it there too
-                tol = KERNELS[name][2]
-                full_err = max_err(torch, name, got, getattr(
-                    kernels, name + "_ref")(*args, **kw), kw=kw)
+                tol, scale = KERNELS[name][2], 1.0
+                ref = getattr(kernels, name + "_ref")(*args, **kw)
+                if isinstance(tol, str):
+                    scale = track_scale(torch, name, args, kw, ref)
+                    tol = float(tol.split()[1]) * scale
+                full_err = max_err(torch, name, got, ref, scale, kw=kw)
+                del ref
                 phase(f"{label} {name}[{i}] at full batch", full_err <= tol,
                       f"shapes {_shapes(torch, args)[:2]} against its plain "
                       f"version: max err {full_err:.3e} (tol {tol})")
@@ -1486,13 +1499,15 @@ def render_calls(torch, harmonics, kernels, run):
 
 
 def run_path(torch, kernels, corpus, label, opt, sopt, data, pins, need,
-             timed, clean_min=CLEAN_MIN_DB, noisy_tol=NOISY_TOL_DB):
+             timed, clean_min=CLEAN_MIN_DB, noisy_tol=NOISY_TOL_DB,
+             checked=FULL_CHECKED):
     """Drive batched_pipeline once with the launch counters zeroed just
     before and read just after, capturing the inputs of the kernels in
     `timed`; check the kernels in `need` launched, the output and the SNR
     pins (noisy rows within noisy_tol of theirs, clean rows at most
     CLEAN_TOL_DB under theirs, the clean mean >= clean_min unless None);
-    time each `timed` kernel at full batch on its first call (full_batch);
+    time each `timed` kernel at full batch on its first call (full_batch,
+    holding those in `checked` to their plain versions there);
     then, after one untimed step, the step time (median of 5) and peak
     memory.  -> (the launch
     counts, the per-row SNRs, the full-batch records)."""
@@ -1511,7 +1526,7 @@ def run_path(torch, kernels, corpus, label, opt, sopt, data, pins, need,
     snr = snr.cpu().tolist()
     check_snr(label, snr, pins, clean_min, noisy_tol)
     del y
-    full = full_batch(torch, kernels, calls, label.split()[0])
+    full = full_batch(torch, kernels, calls, label.split()[0], checked)
     del calls
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -4677,12 +4692,14 @@ def wide_cases(torch, kernels, calls, prefix):
     return out
 
 
-def wide_path(torch, mods, label, opt, sopt, data, pins):
-    """Phase 20a / 20b: the path's kernels against their twins on its calls
-    at 2 rows, then the counted run at full batch (run_path: launches,
-    pins, full-batch times beside the bounds, the step) and rows 0 and 64
-    alone -> (cases, launches, full-batch records, by kernel each 2-row
-    call's tensor arguments' shapes)."""
+def wide_path(torch, mods, label, opt, sopt, data, pins,
+              checked=FULL_CHECKED):
+    """Phase 20a / 20b / 20e: the path's kernels against their twins on its
+    calls at 2 rows, then the counted run at full batch (run_path:
+    launches, pins, full-batch times beside the bounds, those in `checked`
+    against their twins, the step) and rows 0 and 64 alone -> (cases,
+    launches, full-batch records, by kernel each 2-row call's tensor
+    arguments' shapes)."""
     kernels, layer0, corpus = mods
     names = MAIN_SIX + (FINISH,)
     two = tuple(d[:2] for d in data)
@@ -4698,7 +4715,7 @@ def wide_path(torch, mods, label, opt, sopt, data, pins):
     del calls
     launches, snr, full = run_path(torch, kernels, corpus, label, opt, sopt,
                                    data, pins, names, names, clean_min=None,
-                                   noisy_tol=L0_NOISY_TOL_DB)
+                                   noisy_tol=L0_NOISY_TOL_DB, checked=checked)
     batch_rows(torch, mods, opt, sopt, data, snr, rows=(0, N_NOISY),
                label=label.split()[0])
     torch.cuda.empty_cache()
@@ -4754,15 +4771,18 @@ def fullband_phase(torch, mods, data, join, by_phase):
     """Phase 20e (cell wide, full band): wide_path at each of FULLBAND's
     configurations, 48 kHz at the 5 ms hop (K = 600; the bench rows
     resampled on the card, every F0 frame) and 16 kHz at a 2 ms hop (K =
-    200, D = 26; the bench rows made at that hop), where deconv_full runs
-    its wide kernel; every other kernel's cases and full-batch records
-    joined (join), the counted runs' launches by_phase -> (the wide
-    deconvolution's cases, its full-batch records)."""
+    200, D = 26; the bench rows made at that hop), where deconv_full and
+    denoise_stats run their wide paths (each held to its twin and timed
+    beside its bound at full batch); every other kernel's cases and
+    full-batch records joined (join: the denoiser's as its wide path's),
+    the counted runs' launches by_phase -> (the wide deconvolution's
+    cases, its full-batch records)."""
     from libllsm2_tpu_torch import create_aoptions, create_soptions
     from libllsm2_tpu_torch.ops import resample
     kernels = mods[0]
     dev = data[0].device
     cases_w, full_w = [], []
+    redesigned = ("deconv_full", "denoise_stats")
     for label, (kw, thop) in FULLBAND.items():
         opt = create_aoptions(use_pallas=True, **kw)
         sopt = dataclasses.replace(create_soptions(fs=opt.conf.fs),
@@ -4779,19 +4799,29 @@ def fullband_phase(torch, mods, data, join, by_phase):
         D = -(-conf.halfwin_max // conf.nhop) + 1   # layer0._deconv_correction
         nq = 2 * conf.nhop // min(8, conf.nhop)
         first = kernels._deconv_smem(D, conf.maxnhar, nq)
-        geo = kernels._deconv_geometry(D, conf.maxnhar, nq, d[0].shape[0],
-                                       d[1].shape[1], kernels._sm_count(dev))
+        geo = kernels._deconv_geometry(D, conf.maxnhar, nq)
         phase(f"20e {label} deconv_full wide",
               first > kernels._SMEM_MAX and geo is not None and geo[1] > 0,
               f"K {conf.maxnhar}, D {D}, nq {nq}: the first kernel's block "
-              f"{first} B > {kernels._SMEM_MAX}; the wide kernel's (frames a "
-              f"block, columns a chunk, blocks a tile, bytes) {geo}")
+              f"{first} B > {kernels._SMEM_MAX}; the wide path's (frames a "
+              f"block, columns a chunk, chunks, bytes, frames a tap-build "
+              f"block, field staged) {geo}")
         cases, by_phase[f"20e {label}"], f, shapes = wide_path(
             torch, mods, f"20e {label}", opt, sopt, d,
-            FULLBAND_PINS_DB[label])
+            FULLBAND_PINS_DB[label], checked=FULL_CHECKED + redesigned)
         ks = [sh[0][-1] for sh in shapes["deconv_full"]]
         phase(f"20e {label} K", ks and all(k == conf.maxnhar for k in ks),
               f"K of deconv_full's calls at 2 rows {ks}")
+        # the two wide paths redesigned for the card, at full batch
+        for name in redesigned:
+            for rec in f[name]:
+                phase(f"20e {label} {name} wide at full batch",
+                      rec["max_abs_err"] is not None and rec["bound_ms"] > 0,
+                      f"shapes {rec['shapes']}: {rec['ms']:.4f} ms (run "
+                      f"{rec['run_ms']:.4f}) against its bound "
+                      f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}): "
+                      f"{rec['ms'] / rec['bound_ms']:.2f}x; its plain "
+                      f"version: max err {rec['max_abs_err']:.3e}")
         cases_w += cases.pop("deconv_full")
         full_w += f.pop("deconv_full")
         join(cases, f)
@@ -4842,16 +4872,19 @@ def wide_shapes(torch, kernels, dev):
 def wide_phase(torch, mods, opt, sopt, data, summary, full, by_phase):
     """Phase 20 (cell wide): 20a creaky voice's conf, 20b 48 kHz at a 10 ms
     hop, 20c the denoiser's wide taps, 20d the Viterbi past 256 states,
-    20e full band (deconv_full's wide kernel: its record DECONV_WIDE in
-    summary), 20f the wide shapes no counted run takes; each case joins
-    its kernel's cases in summary, each full-batch record its kernel's in
-    full, each counted run's launches by_phase -> 20f's noise_mod_ola_seg
-    cases."""
+    20e full band (deconv_full's wide path: its record DECONV_WIDE in
+    summary), 20f the wide shapes no counted run takes; denoise_stats's
+    cases and full-batch records of 20a, 20c and 20e (its wide path) go to
+    the record DENOISE_WIDE, each other case joins its kernel's cases in
+    summary, each full-batch record its kernel's in full, each counted
+    run's launches by_phase -> 20f's noise_mod_ola_seg cases."""
     from libllsm2_tpu_torch import create_aoptions, create_soptions
     from libllsm2_tpu_torch.ops import f0 as f0mod
     from libllsm2_tpu_torch.ops import resample
     kernels, layer0, corpus = mods
     dev = data[0].device
+
+    wide_ds = {"cases": [], "full_batch": []}
 
     def join(cases, f=None):
         for name, cs in cases.items():
@@ -4864,6 +4897,12 @@ def wide_phase(torch, mods, opt, sopt, data, summary, full, by_phase):
             else:
                 full[name] = full.get(name, []) + recs
 
+    def join_wide(cases, f=None):
+        """join, denoise_stats's cases and records its wide path's"""
+        wide_ds["cases"] += cases.pop("denoise_stats", [])
+        wide_ds["full_batch"] += (f or {}).pop("denoise_stats", [])
+        join(cases, f)
+
     # 20a: creaky voice's conf, K = 160
     opt_c = dataclasses.replace(opt, conf=dataclasses.replace(
         opt.conf, maxnhar=160, fnyq=6000.0))
@@ -4873,9 +4912,9 @@ def wide_phase(torch, mods, opt, sopt, data, summary, full, by_phase):
           for sh in shapes[name]]
     phase("20a K = 160", ks and all(k == 160 for k in ks),
           f"K of the denoiser's calls at 2 rows {ks}; denoise_stats's "
-          f"geometry (chunk, shared bytes) "
+          f"geometry (chunk, columns a walk, shared bytes of each launch) "
           f"{kernels._denoise_geometry(160, 13, 7)}")
-    join(cases, f)
+    join_wide(cases, f)
     # 20b: 48 kHz at a 10 ms hop, the rows resampled on the card
     x, f0, x_ref, nxv = data
     x48, ref48 = (resample.resample_to(v, 16000.0, 48000.0)
@@ -4915,7 +4954,7 @@ def wide_phase(torch, mods, opt, sopt, data, summary, full, by_phase):
             f"{kernels._denoise_geometry(args[0].shape[-1], n1, n2)}",
             prefix="20c"))
     del args
-    join({"denoise_stats": cases})
+    join_wide({"denoise_stats": cases})
     torch.cuda.empty_cache()
     # 20d: the Viterbi past 256 states, then the tracker at nbins 384
     cases, by_phase["20d"] = wide_viterbi(torch, kernels, f0mod,
@@ -4923,7 +4962,7 @@ def wide_phase(torch, mods, opt, sopt, data, summary, full, by_phase):
     join({VITERBI: cases})
     torch.cuda.empty_cache()
     # 20e: full band, deconv_full's wide kernel
-    cases, f = fullband_phase(torch, mods, data, join, by_phase)
+    cases, f = fullband_phase(torch, mods, data, join_wide, by_phase)
     source, replaces, _ = KERNELS["deconv_full"]
     summary[DECONV_WIDE] = {
         "name": DECONV_WIDE, "route": "cuda", "source": source,
@@ -4936,6 +4975,19 @@ def wide_phase(torch, mods, opt, sopt, data, summary, full, by_phase):
         "cases": cases, "full_batch": f,
         "launches_by_phase": {k: v["deconv_full"] for k, v in by_phase.items()
                               if k.startswith("20e")}}
+    # the wide denoiser: 20a's, 20c's and 20e's calls
+    wide = {k: v["denoise_stats"] for k, v in by_phase.items()
+            if k == "20a" or k.startswith("20e")}
+    cs = wide_ds["cases"]
+    source, replaces, _ = KERNELS["denoise_stats"]
+    summary[DENOISE_WIDE] = {
+        "name": DENOISE_WIDE, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": sum(wide.values()),
+        "max_abs_err": max(c["max_abs_err"] for c in cs),
+        **{k: cs[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms")},
+        "cases": cs, "full_batch": wide_ds["full_batch"],
+        "launches_by_phase": wide}
     # 20f: the wide shapes no counted run takes
     extra = wide_shapes(torch, kernels, dev)
     seg = extra.pop("noise_mod_ola_seg")

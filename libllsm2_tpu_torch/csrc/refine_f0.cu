@@ -131,24 +131,9 @@ struct Probe {
   float a0, a1, a2, a3;             // cosine-series coefficients
 };
 
-// 4 bytes from global src to shared dst without the registers; zero where
-// !in (src-size 0)
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool in) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   (unsigned)__cvta_generic_to_shared(dst)),
-               "l"(src), "r"(in ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// Wait until at most N of this thread's committed groups are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
+using llsm::cp_async4;
+using llsm::cp_async_commit;
+using llsm::cp_async_wait;
 
 // windows.window_eval(name, u) inside the support: a0 + sum_m a_m cos(2 pi
 // m u) over NCOEF terms, or sin(pi u) for mltsine (NCOEF = 0)

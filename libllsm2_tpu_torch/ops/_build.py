@@ -45,11 +45,11 @@ SIGNATURES = {
     "llsm_harmonic_project_win": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                   _I, _I, _I, _I, _I, _I, _I, _F, _F, _F,
                                   _F, _I, _P),
-    # ampl, phse, cyc, hw, mask, out_a, out_b, B, N, K, D, nhop, stride,
-    # polar, FT, KC (0: the first kernel), chunk blocks
-    # (kernels._deconv_geometry), stream
-    "llsm_deconv_full": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                         _I, _I, _I, _I, _P),
+    # ampl, phse, cyc, hw, mask, out_a, out_b, taps (the wide path's
+    # scratch, or null), B, N, K, D, nhop, stride, polar, FT, KC (0: the
+    # first kernel), TT, stage (kernels._deconv_geometry), stream
+    "llsm_deconv_full": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                         _I, _I, _I, _I, _I, _I, _P),
     # cyc, edc, ar, ai, base, re, im, spec batch stride, gain, bands (host,
     # 2 C ints), bands (device, or null), y, B, N, nhop, C, Ke, F
     # (kernels._noise_geometry), stream
@@ -60,11 +60,11 @@ SIGNATURES = {
                                _I, _P),
     # a, p, cyc_c, mask, voiced, pp, cs2, r2, guard (bool), cre, cim, csr,
     # csi, B, N, K, taps1 (host), n1, taps2 (host), n2, taps1, taps2
-    # (device, or null), kc (kernels._denoise_geometry), complex_input,
-    # stream
+    # (device, or null), kc, cw (kernels._denoise_geometry), the wide
+    # path's scratch part, edge (or null), complex_input, stream
     "llsm_denoise_stats": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                            _P, _I, _I, _I, _P, _I, _P, _I, _P, _P, _I, _I,
-                           _P),
+                           _P, _P, _I, _P),
     # v, wmul, cre, cim, csr, csi, cyc_c, mask, guard (bool), o0, o1, B, N,
     # K, strength, polar, stream
     "llsm_denoise_apply": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,

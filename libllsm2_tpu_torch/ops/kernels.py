@@ -218,46 +218,74 @@ def _deconv_smem(D: int, K: int, nq: int) -> int:
     return 64 * (2 * D + 1) * 16 + FH * max(K, nq) * 8 + (FH + nq) * 4
 
 
-# deconv_full.cu's wide kernel: frame tiles tried in order, the widest chunk
-# of columns, and the narrowest chunk taken before a smaller frame tile
+# deconv_full.cu's wide path: the output kernel's frame tiles (8 warps of
+# KF frames) tried in order, its widest chunk of columns (32 lanes of two),
+# the narrowest chunk taken before a smaller frame tile, and the bytes a
+# block that leave room for two blocks an SM (the H100's 228 KiB an SM, 1
+# KiB of each block's reserved)
 _DECONV_TILES = (64, 32, 16, 8)
-_DECONV_MAX_KC = 128
+_DECONV_MAX_KC = 64
 _DECONV_MIN_KC = 16
+_SMEM_TWO = 228 * 1024 // 2 - 1024
 
 
-def _deconv_geometry(D: int, K: int, nq: int, B: int = 1, N: int = 1,
-                     sms: int = 132):
+def _deconv_wide_smem(FT: int, D: int, KC: int) -> int:
+    """deconv_full.cu's wide output kernel's shared memory a block: the
+    taps [FT, 2 D + 1] float4 of its FT frames, its chunk of KC columns
+    with a halo column each side [FH, KC + 4] float2 (FH = FT + 2 D), and
+    a float a halo row."""
+    FH = FT + 2 * D
+    return FT * (2 * D + 1) * 16 + FH * (KC + 4) * 8 + FH * 4
+
+
+def _deconv_taps_tile(D: int, nq: int):
+    """deconv_full.cu's tap build (the wide path's first launch) -> (TT
+    frames a block, stage, shared bytes): the first tile of _DECONV_TILES
+    whose unscaled taps [TT, 2 D + 1] float4 and crossfade [nq] float fit
+    a block, with the quadrature field [TT + 2 D, nq + 1] float2 staged
+    beside them (stage 1) where it fits too, else computed by the tap
+    build; None where no tile fits."""
+    nb = 2 * D + 1
+    for TT in _DECONV_TILES:
+        fixed = TT * nb * 16 + nq * 4
+        field = (TT + 2 * D) * (nq + 1) * 8
+        if fixed + field <= _SMEM_MAX:
+            return TT, 1, fixed + field
+        if fixed <= _SMEM_MAX:
+            return TT, 0, fixed
+    return None
+
+
+def _deconv_geometry(D: int, K: int, nq: int):
     """deconv_full.cu's launch for a band of D frames, K harmonics and nq
-    quadrature points -> (FT frames a block, KC columns a chunk, chunk
-    blocks a tile, shared bytes).  The first kernel (KC = 0, FT = 64, one
-    block a tile) where its block fits the H100's shared memory
-    (_deconv_smem); else the wide kernel at the first frame tile of
-    _DECONV_TILES whose taps [FT, 2 D + 1] float4 and FH + nq floats (FH =
-    FT + 2 D) leave room for a chunk [FH, KC + 2] float2 of at least
-    min(K, 16) columns; KC the widest that fits, at most 128, then evened
-    out over the chunks (K = 600: 5 chunks of 120); the field [FH, nq]
-    float2 staged in the chunk's place where it fits there, else computed
-    by the tap build from the cycle track.  A tile's chunks share one
-    block, which builds the taps once, where the grid of B rows of N
-    frames has at least two blocks an SM; else each chunk has a block of
-    its own (a row alone: more blocks, the taps rebuilt a chunk).  None
-    where nothing fits (a band far past D = 128)."""
+    quadrature points -> (FT frames a block, KC columns a chunk, chunks,
+    shared bytes, TT frames a tap-build block, stage), which the wrapper
+    passes to the C entry.  The first kernel (FT = 64, KC = 0, one chunk;
+    TT = stage = 0) where its block fits the H100's shared memory
+    (_deconv_smem); else the wide path: the taps built into device memory
+    (_deconv_taps_tile), then the output kernel at the first frame tile of
+    _DECONV_TILES whose block with a chunk of at least min(K, 16) columns
+    fits in _SMEM_TWO bytes (two blocks an SM), else in the block's whole
+    shared memory; KC the widest even chunk that fits, at most 64, then
+    evened out over the chunks (K = 600: 10 chunks of 60, K = 200 at D =
+    26: 4 of 50).  None where nothing fits (a band far past D = 128)."""
     smem = _deconv_smem(D, K, nq)
     if smem <= _SMEM_MAX:
-        return 64, 0, 1, smem
-    nb = 2 * D + 1
-    for FT in _DECONV_TILES:
-        FH = FT + 2 * D
-        fixed = FT * nb * 16 + (FH + nq) * 4
-        room = (_SMEM_MAX - fixed) // (8 * FH)
-        kc = min(_DECONV_MAX_KC, K, room - 2)
-        if kc < min(K, _DECONV_MIN_KC):
-            continue
-        n = -(-K // kc)
-        KC = -(-K // n)
-        cols = max(KC + 2, nq) if max(KC + 2, nq) <= room else KC + 2
-        blocks = 1 if B * -(-N // FT) >= 2 * sms else n
-        return FT, KC, blocks, fixed + 8 * FH * cols
+        return 64, 0, 1, smem, 0, 0
+    tt = _deconv_taps_tile(D, nq)
+    if tt is None:
+        return None
+    for budget in (_SMEM_TWO, _SMEM_MAX):
+        for FT in _DECONV_TILES:
+            FH = FT + 2 * D
+            room = (budget - _deconv_wide_smem(FT, D, 0)) // (8 * FH)
+            kc = min(_DECONV_MAX_KC, K + K % 2, room // 2 * 2)
+            if kc < max(2, min(K, _DECONV_MIN_KC)):
+                continue
+            n = -(-K // kc)
+            KC = -(-K // n)
+            KC += KC % 2
+            return FT, KC, n, _deconv_wide_smem(FT, D, KC), *tt[:2]
     return None
 
 
@@ -273,7 +301,9 @@ def deconv_full(ampl: torch.Tensor, phse: torch.Tensor, cyc: torch.Tensor,
     points of its hop pair (edge-clamped, as frame_hops(mode="edge")).
     Frames beyond either end of an utterance are zero.  Any K and any D up
     to 128 (the JAX branch's band) run on the card: past the first
-    kernel's shared memory the wide kernel chunks K (_deconv_geometry)."""
+    kernel's shared memory the wide path chunks K (_deconv_geometry): its
+    taps go through a device scratch [B, N rounded up to 64, 2 D + 1]
+    float4, allocated here."""
     if not _on_cuda(ampl, phse, cyc, hw, mask):
         return deconv_full_ref(ampl, phse, cyc, hw, mask, D, nhop, stride,
                                return_complex=return_complex)
@@ -283,8 +313,7 @@ def deconv_full(ampl: torch.Tensor, phse: torch.Tensor, cyc: torch.Tensor,
         raise ValueError("deconv_full: shape mismatch")
     if not (D >= 0 and 0 < stride <= 2 * nhop):
         raise ValueError(f"deconv_full: D = {D}, stride {stride}")
-    geo = _deconv_geometry(D, K, 2 * nhop // stride, B, N,
-                           _sm_count(ampl.device))
+    geo = _deconv_geometry(D, K, 2 * nhop // stride)
     if geo is None:
         raise ValueError(f"deconv_full: D = {D}: no frame tile's taps and "
                          "chunk of columns fit a block's shared memory "
@@ -292,9 +321,12 @@ def deconv_full(ampl: torch.Tensor, phse: torch.Tensor, cyc: torch.Tensor,
     ampl, phse, cyc, hw, mask = map(_f32, (ampl, phse, cyc, hw, mask))
     o_a = torch.empty((B, N, K), dtype=FP, device=ampl.device)
     o_b = torch.empty((B, N, K), dtype=FP, device=ampl.device)
-    ptrs = (t.data_ptr() for t in (ampl, phse, cyc, hw, mask, o_a, o_b))
-    _launch("deconv_full", *ptrs, B, N, K, int(D), int(nhop), int(stride),
-            int(not return_complex), *map(int, geo[:3]), _stream(ampl))
+    taps = None if not geo[1] else torch.empty(
+        (B, -(-N // 64) * 64, 2 * D + 1, 4), dtype=FP, device=ampl.device)
+    ptrs = [t.data_ptr() for t in (ampl, phse, cyc, hw, mask, o_a, o_b)]
+    _launch("deconv_full", *ptrs, None if taps is None else taps.data_ptr(),
+            B, N, K, int(D), int(nhop), int(stride), int(not return_complex),
+            *(int(g) for g in geo[:2] + geo[4:]), _stream(ampl))
     return o_a, o_b
 
 
@@ -638,7 +670,7 @@ def env_render_ref(cyc, edc, ar, ai, base, nhop: int | None = None):
 
 # frames per block of csrc/denoise_stats.cu (its kTile); its first kernel
 # takes K <= 128 and at most 31 taps each with h1 + 2 h2 under the tile,
-# the wide kernel the rest in chunks of at most 128 columns
+# the wide path the rest in chunks of at most 128 columns
 _DENOISE_TILE = 64
 _DENOISE_MAX_TAPS = 31
 _DENOISE_MAX_K = 128
@@ -660,23 +692,38 @@ def _denoise_frame_block(N: int) -> int:
 @functools.lru_cache(maxsize=64)
 def _denoise_geometry(K: int, n1: int, n2: int) -> tuple:
     """denoise_stats.cu's launch for K columns and n1 + n2 taps -> (KC, the
-    wide kernel's chunk of columns, 0 for the first kernel; shared bytes).
-    The first kernel: K <= 128, n1 and n2 <= 31, h1 + 2 h2 < 64; its two
-    float2 tracks of the tile and halo, [RA + R, K], with RA = 64 + 2 (h1
-    + h2) and R = 64 + 2 h2, then vo [RA] and the taps.  Else the widest
-    KC, a multiple of 16 up to min(128, K rounded up to 16), whose tracks
-    [RA + R, KC] fit beside the rows' sums and fit [R, 11], vo and the
-    taps; None where not even KC = 16 fits."""
+    wide path's chunk of columns, and cw, the columns its launches walk at
+    a time, which the wrapper passes to the C entry, both 0 for the first
+    kernel; shared bytes a block of its first launch, or the first
+    kernel's; of its second, 0 for the first kernel).  The first kernel:
+    K <= 128, n1 and n2 <= 31, h1 +
+    2 h2 < 64; its two float2 tracks of the tile and halo, [RA + R, K],
+    with RA = 64 + 2 (h1 + h2) and R = 64 + 2 h2, then vo [RA] and the
+    taps.  Else the wide path, in chunks of KC columns: the fit's sums add
+    a frame's columns chunk by chunk, so KC is part of the result's bits,
+    and it stays the chunk of the one-block kernel the path replaced: the
+    widest multiple of 16 up to min(128, K rounded up to 16) whose tracks
+    [RA + R, KC] float2 fit beside [R, 11] sums and fit, vo and the taps;
+    None where not even KC = 16 fits.  Each launch walks a chunk cw
+    columns at a time, 64 or, where a halo fills shared memory, 32 or 16:
+    its first stages [64 + 2 h1, cw] float2, vo [64 + 2 h1] and taps1;
+    its second r_inc [R, cw] float2, the fit [R, 4] and taps2."""
     h1, h2 = n1 // 2, n2 // 2
     RA, R = _DENOISE_TILE + 2 * (h1 + h2), _DENOISE_TILE + 2 * h2
     if K <= _DENOISE_MAX_K and max(n1, n2) <= _DENOISE_MAX_TAPS \
             and h1 + 2 * h2 < _DENOISE_TILE:
-        return 0, 8 * (RA + R) * K + 4 * (RA + n1 + n2)
+        return 0, 0, 8 * (RA + R) * K + 4 * (RA + n1 + n2), 0
     rest = 4 * (11 * R + RA + n1 + n2)
+    SR = _DENOISE_TILE + 2 * h1
     for kc in range(min(128, -(-K // 16) * 16), 0, -16):
-        smem = 8 * (RA + R) * kc + rest
-        if smem <= _SMEM_MAX:
-            return kc, smem
+        if 8 * (RA + R) * kc + rest <= _SMEM_MAX:
+            break
+    else:
+        return None
+    for cw in (64, 32, 16):
+        smem = (8 * SR * cw + 4 * (SR + n1), 8 * R * cw + 4 * (4 * R + n2))
+        if max(smem) <= _SMEM_MAX:
+            return (kc, cw, *smem)
     return None
 
 
@@ -811,7 +858,7 @@ def denoise_stats(a: torch.Tensor, p: torch.Tensor, cyc_c: torch.Tensor,
     if p.shape != (B, N, K) or mask.shape != (B, N, K) \
             or cyc_c.shape != (B, N) or voiced.shape != (B, N):
         raise ValueError("denoise_stats: shape mismatch")
-    kc, _ = _denoise_geometry(K, len(t1), len(t2))
+    kc, cw = _denoise_geometry(K, len(t1), len(t2))[:2]
     a, p, cyc_c, mask, voiced = map(_f32, (a, p, cyc_c, mask, voiced))
     dev = a.device
     # the five outputs that live through pass B as views of one allocation;
@@ -825,10 +872,18 @@ def denoise_stats(a: torch.Tensor, p: torch.Tensor, cyc_c: torch.Tensor,
                                    gd, cre, cim, csr, csi))
     taps_d = (_taps_on(t1, dev).data_ptr(), _taps_on(t2, dev).data_ptr()) \
         if kc else (None, None)
+    # the wide path's scratch: each frame's partial fit sums a chunk, and
+    # the slow track of the h2 frames beyond each end of an utterance
+    part = edge = None
+    if kc:
+        part = torch.empty((B, N, -(-K // kc), 7), dtype=FP, device=dev)
+        edge = torch.empty((B, 2 * (len(t2) // 2), K, 2), dtype=FP,
+                           device=dev)
     _launch("denoise_stats", *ptrs, B, N, K,
             ctypes.addressof(_taps_host(t1)), len(t1),
-            ctypes.addressof(_taps_host(t2)), len(t2), *taps_d, kc,
-            int(complex_input), _stream(a))
+            ctypes.addressof(_taps_host(t2)), len(t2), *taps_d, kc, cw,
+            *(None if t is None or not t.numel() else t.data_ptr()
+              for t in (part, edge)), int(complex_input), _stream(a))
     return pp, cs2, r2, gd, cre, cim, csr, csi
 
 

@@ -31,7 +31,17 @@ row 0 alone), kernels.viterbi_scan past 256 states as chip_smoke's phase
 with -inf entries under the tracker's transitions at S = nbins + 1,
 renormalized at 257 and 1025; [64, 1600, S], row 0 alone, then rows 0
 and 1 joined into one 3200-frame row) and the tracker at nbins 384 on the
-first 64 bench rows (`tracker384`); each side analyzes
+first 64 bench rows (`tracker384`), and full-band analysis as
+chip_smoke.py's phase 20e runs it (`full48`: batched_pipeline at 48 kHz
+with the 5 ms hop, maxnhar 600, f0_floor 40, on the bench rows resampled
+to 48 kHz on the card; `full16`: 16 kHz at a 2 ms hop, maxnhar 200, fnyq
+8000, f0_floor 40, on the bench rows made at that hop): for these two the
+sides' analysis chunks are compared field by field once, and each pair's
+outputs (y and the SNRs) bit for bit, a line a pair; `kern48` and
+`kern16` time the two kernels whose wide paths the full band runs,
+deconv_full and denoise_stats, alone on the inputs of their calls in
+that analysis (captured once from this checkout's, at full batch), ten
+calls a step, each pair's outputs compared bit for bit; each side analyzes
 (and fits layer 1) once, untimed, with its own package.  One untimed step of
 each first, then `pairs` pairs whose order alternates (other first in
 even pairs), each step timed by the host clock around work that ends in
@@ -41,7 +51,8 @@ quartiles, and how many pairs each side won.  Imports no jax:
     python3 scripts/port_ab_steps.py OTHER_DIR [pairs=20] [batch=128]
         [cells=default,matmul,off32,one,refine,rta,layer1,pbp,edits,plain,
                11k,refine11,to_layer1,nasal,tracker,rdviterbi,viterbi,
-               wide257,wide512,wide1025,tracker384]
+               wide257,wide512,wide1025,tracker384,full48,full16,
+               kern48,kern16]
 """
 import dataclasses
 import importlib
@@ -119,6 +130,23 @@ def main(argv):
         nx_, nf0 = (torch.tensor(np.stack([r[j] for r in nas]),
                                  dtype=torch.float32, device="cuda")
                     for j in range(2))
+    full = {}
+    if {"full48", "kern48"} & set(cells):
+        rs = importlib.import_module("port_this.ops.resample")
+        x48, r48 = (rs.resample_to(v, 16000.0, 48000.0) for v in (x, x_ref))
+        full["full48"] = (dict(fs=48000.0, f0_floor=40.0, maxnhar=600),
+                          (x48, f0, torch.full_like(nxv, x48.shape[1]), r48))
+    if {"full16", "kern16"} & set(cells):
+        rows16 = testsig.make_test_utterances(
+            [(i, 0.05 if i < B // 2 else 0.0) for i in range(B)],
+            duration=8.0, thop=0.002)
+        x16, f016, xr16 = (torch.tensor(np.stack([r[j] for r in rows16]),
+                                        dtype=torch.float32, device="cuda")
+                           for j in range(3))
+        full["full16"] = (dict(thop=0.002, f0_floor=40.0, maxnhar=200,
+                               fnyq=8000.0),
+                          (x16, f016, torch.full_like(nxv, x16.shape[1]),
+                           xr16))
     g = torch.Generator(device="cuda").manual_seed(0)
     if "rdviterbi" in cells:
         rd_score = torch.rand((B, 1600, 64), generator=g, device="cuda")
@@ -136,7 +164,25 @@ def main(argv):
             wide[cell] = (o, S != 512)
     # (cell, rows): refine, refine11 and the two Viterbis run the batch,
     # then one row alone; the wide Viterbis also rows 0 and 1 joined (-1)
+    # the kern cells: the two kernels' calls in this checkout's full-band
+    # analysis, captured once
+    captured = {}
+    for cell in ("kern48", "kern16"):
+        if cell in cells:
+            import chip_smoke
+            kw, args = full["full" + cell[4:]]
+            pkg = sides["this"]
+            kmod = importlib.import_module(pkg.__name__ + ".ops.kernels")
+            l0 = importlib.import_module(pkg.__name__ + ".models.layer0")
+            opt = pkg.create_aoptions(use_pallas=True, **kw)
+            calls, _ = chip_smoke.capture_kernel_inputs(
+                kmod, ("deconv_full", "denoise_stats"),
+                lambda: l0._analyze(opt, args[0], args[1]))
+            for name, recs in calls.items():
+                captured[f"{cell} {name}"] = recs[0]
     runs = [r for cell in cells for r in (
+        [(f"{cell} {k}", None) for k in ("deconv_full", "denoise_stats")]
+        if cell in ("kern48", "kern16") else
         [(cell, min(B, 64) if cell == "viterbi" else B), (cell, 1)]
         if cell in ("refine", "refine11", "viterbi", "rdviterbi")
         else [(cell, 64), (cell, 1), (cell, -1)] if cell in wide
@@ -144,7 +190,7 @@ def main(argv):
     for cell, rows in runs:
         label = cell if rows is None else (f"{cell} 1 x 16 s" if rows < 0
                                            else f"{cell} {rows} x 8 s")
-        steps = {}
+        steps, chunks = {}, {}
         for name, pkg in sides.items():
             opt = pkg.create_aoptions(f0_floor=70.0, use_pallas=True)
             sopt = dataclasses.replace(pkg.create_soptions(), use_pallas=True)
@@ -180,6 +226,20 @@ def main(argv):
                 o = o[:2].reshape(1, 3200, -1) if rows < 0 else o[:rows]
                 steps[name] = (lambda k=kern, o=o, lt=lt, rn=renorm:
                                k.viterbi_scan(o, lt, rn))
+            elif cell in captured:
+                kern = importlib.import_module(pkg.__name__ + ".ops.kernels")
+                fn = getattr(kern, cell.split()[1])
+                a, k = captured[cell]
+                steps[name] = (lambda fn=fn, a=a, k=k:
+                               [fn(*a, **k) for _ in range(10)][-1])
+            elif cell in full:
+                kw, args = full[cell]
+                opt = pkg.create_aoptions(use_pallas=True, **kw)
+                sopt = dataclasses.replace(
+                    pkg.create_soptions(fs=opt.conf.fs), use_pallas=True)
+                chunks[name] = l0._analyze(opt, args[0], args[1])
+                steps[name] = (lambda c=corpus, o=opt, s=sopt, a=args:
+                               c.batched_pipeline(o, s, *a))
             elif cell == "tracker384":
                 f0m = importlib.import_module(pkg.__name__ + ".ops.f0")
                 cfg = f0m.F0Config(fs=16000.0, nhop=80, f0_floor=70.0,
@@ -238,18 +298,36 @@ def main(argv):
                                c.batched_pipeline(o, s, *a))
             steps[name]()                  # build, warm, fill the cache
         torch.cuda.synchronize()
+        if chunks:
+            fields = [f.name for f in dataclasses.fields(chunks["this"])
+                      if torch.is_tensor(getattr(chunks["this"], f.name))]
+            diff = [f for f in fields if not torch.equal(
+                getattr(chunks["this"], f), getattr(chunks["other"], f))]
+            print(f"{label}: analysis chunks equal bit for bit in "
+                  f"{len(fields) - len(diff)} of {len(fields)} fields; "
+                  f"differ: {diff}", flush=True)
+            chunks.clear()
         ms = {name: [] for name in sides}
         for i in range(pairs):
             order = ("other", "this") if i % 2 == 0 else ("this", "other")
+            outs = {}
             for name in order:
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                steps[name]()
+                outs[name] = steps[name]()
                 torch.cuda.synchronize()
                 ms[name].append((time.perf_counter() - t0) * 1e3)
+            if cell in full or cell in captured:
+                n = 2 if cell in full else None
+                same = all(torch.equal(a, b) for a, b in
+                           zip(outs["this"][:n], outs["other"][:n]))
+                what = "y and SNRs" if cell in full else "outputs"
+                print(f"{label} pair {i}: {what} equal bit for bit {same}",
+                      flush=True)
+            del outs
         wins = sum(a < b for a, b in zip(ms["this"], ms["other"]))
         nd = 4 if cell.startswith("refine") or cell.endswith("viterbi") \
-            or cell in wide else 2                    # ~0.1-1 ms steps
+            or cell in wide or cell in captured else 2  # ~0.1-1 ms steps
         for name in sides:
             q = statistics.quantiles(ms[name], n=4)
             print(f"{label} {name}: median "

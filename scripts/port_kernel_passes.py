@@ -19,7 +19,7 @@ imports no jax:
     PYTHONPATH=. python3 scripts/port_kernel_passes.py [only=name,...]
         [split=DIR,...]
 
-(name: a source of PASSES below, viterbi or deconv_wide.)
+(name: a source of PASSES below, viterbi, deconv_wide or denoise_wide.)
 
 split= instead times each CUDA kernel of kernels.refine_f0_dec, by its
 name in a torch.profiler trace, of the package in each DIR (a checkout,
@@ -50,13 +50,19 @@ alone), also built without its candidates (LLSM_SKIP_PASS_A: the max-plus
 product compiled out; the staging of the scores, the merges, the
 writes, the row maxima and the grid barriers kept): a step's fixed cost.
 
-only=deconv_wide times deconv_full.cu's wide kernel at the full-band
+only=deconv_wide times deconv_full.cu's wide path at the full-band
 shapes of chip_smoke.py's phase 20e on random inputs (48 kHz at the 5 ms
 hop: [128, 1600, 600], D 11, hop 240; 16 kHz at a 2 ms hop: [128, 4000,
-200], D 26, hop 32; halfwidths up to the band's), at its geometry's
-chunk width with the taps built once a tile (one block a tile walking
-its chunks) and rebuilt a chunk (a block a chunk), all rows and row 0
-alone, then with the tap build and the output pass compiled out in turn.
+200], D 26, hop 32; halfwidths up to the band's), all rows and row 0
+alone, then built without its tap build (LLSM_SKIP_PASS_A: the first
+launch left out), without its output pass (LLSM_SKIP_PASS_B: the walk
+and the epilogue compiled out, the staging kept) and without both.
+only=denoise_wide times denoise_stats.cu's wide path the same way at
+20e's shapes ([128, 1600, 600] with 13 + 7 taps, [128, 4000, 200] with
+33 + 17), 20a's K 160 and 20c's 33 + 17 taps at K 80, built without its
+first launch (LLSM_SKIP_PASS_A: the rows' staging, slow tracks, outputs
+and partial sums) and without its second (LLSM_SKIP_PASS_B: the fit and
+the probe).
 
 The variants go to build/kernels/ beside the library (listed in
 .gitignore), each under a hash of its source and defines.
@@ -186,50 +192,80 @@ def viterbi_passes():
 # deconv_full's full-band shapes: (label, B, N, K, D, nhop)
 DECONV_WIDE_SHAPES = (("48 kHz", 128, 1600, 600, 11, 240),
                       ("16 kHz 2 ms", 128, 4000, 200, 26, 32))
+# denoise_stats's wide shapes: (label, B, N, K, n1, n2), chip_smoke.py's
+# phase 20e, 20a and 20c
+DENOISE_WIDE_SHAPES = (("48 kHz", 128, 1600, 600, 13, 7),
+                       ("16 kHz 2 ms", 128, 4000, 200, 33, 17),
+                       ("creaky K 160", 128, 1600, 160, 13, 7),
+                       ("33 + 17 taps", 128, 1600, 80, 33, 17))
+
+
+def with_library(lib, fn):
+    """fn() with kernels' launches going to the variant library lib."""
+    keep = _build.library
+    _build.library = lambda: lib
+    try:
+        return fn()
+    finally:
+        _build.library = keep
+
+
+def wide_variants(source, label, call, names):
+    """Times call() (all rows; then row 0 alone with the whole build) with
+    the library and with source's variants that leave out each pass (one
+    line); names: what LLSM_SKIP_PASS_A and _B leave out."""
+    libs = _build.variants([(source, {"LLSM_SKIP_PASS_A": a,
+                                      "LLSM_SKIP_PASS_B": b})
+                            for a, b in ((1, 0), (0, 1), (1, 1))])
+    whole = run_ms(lambda: call(128))
+    alone = run_ms(lambda: call(1))
+    parts = [f"without {what} {run_ms(lambda: with_library(lib, lambda: call(128))):.4f} ms"
+             for lib, what in zip(libs, names + (" and ".join(names),))]
+    print(f"{label}: whole {whole:.4f} ms, row 0 alone {alone:.4f} ms; "
+          + "; ".join(parts) + " (a launch in a run of 20)", flush=True)
 
 
 def deconv_wide():
-    """deconv_full.cu's wide kernel at DECONV_WIDE_SHAPES (the docstring
+    """deconv_full.cu's wide path at DECONV_WIDE_SHAPES (the docstring
     says how), a line each."""
-    libs = build_variants(["deconv_full"])
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     r = lambda *s: torch.rand(*s, generator=g, device=dev)
-    stream = torch.cuda.current_stream().cuda_stream
     for label, Bw, Nw, Kw, Dw, hop in DECONV_WIDE_SHAPES:
-        ampl, phse = r(Bw, Nw, Kw), 6.0 * r(Bw, Nw, Kw) - 3.0
         mask = (r(Bw, Nw, Kw) > 0.1).float()
+        ampl, phse = r(Bw, Nw, Kw) * mask, (6.0 * r(Bw, Nw, Kw) - 3.0) * mask
         cyc = torch.remainder(torch.cumsum(r(Bw, Nw * hop) * 0.02, -1), 1.0)
         hw = 30.0 + r(Bw, Nw) * (Dw - 1) * hop
-        o_a, o_b = torch.empty_like(ampl), torch.empty_like(ampl)
-        FT, KC, _, smem = kernels._deconv_geometry(Dw, Kw, 2 * hop // 8, Bw,
-                                                   Nw)
-        n = -(-Kw // KC)
+        geo = kernels._deconv_geometry(Dw, Kw, 2 * hop // 8)
+        wide_variants(
+            "deconv_full", f"deconv_wide {label} [{Bw}, {Nw}, {Kw}] D {Dw} "
+            f"hop {hop}, geometry {geo}",
+            lambda rows: kernels.deconv_full(
+                *(t[:rows] for t in (ampl, phse, cyc, hw, mask)), Dw, hop, 8),
+            ("the tap build", "the output pass"))
+        del ampl, phse, mask, cyc, hw
+        torch.cuda.empty_cache()
 
-        def call(fn, rows, blocks):
-            ptrs = [t.data_ptr() for t in (ampl, phse, cyc, hw, mask, o_a,
-                                           o_b)]
-            rc = fn(*ptrs, rows, Nw, Kw, Dw, hop, 8, 0, FT, KC, blocks,
-                    stream)
-            if rc:
-                raise RuntimeError(f"deconv_full {label}: cudaError {rc}")
 
-        ms = {}
-        for rows in (Bw, 1):
-            for blocks in (1, n):
-                ms[rows, blocks] = run_ms(lambda: call(libs[
-                    "deconv_full", 0, 0], rows, blocks))
-        skips = {f"without {what}": run_ms(lambda: call(libs[key], Bw, 1))
-                 for key, what in ((("deconv_full", 1, 0), "the tap build"),
-                                   (("deconv_full", 0, 1), "the output pass"))}
-        print(f"deconv_wide {label} [{Bw}, {Nw}, {Kw}] D {Dw} hop {hop}: "
-              f"{FT} frames a block, chunks of {KC} ({n}), {smem} B; taps "
-              f"once a tile {ms[Bw, 1]:.4f} ms, a block a chunk "
-              f"{ms[Bw, n]:.4f} ms; row 0 alone {ms[1, 1]:.4f} / "
-              f"{ms[1, n]:.4f} ms; " + "; ".join(
-                  f"{k} {v:.4f} ms" for k, v in skips.items())
-              + " (a launch in a run of 20)", flush=True)
-        del ampl, phse, mask, cyc, o_a, o_b
+def denoise_wide():
+    """denoise_stats.cu's wide path at DENOISE_WIDE_SHAPES (the docstring
+    says how), a line each."""
+    from libllsm2_tpu_torch.models import layer0
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    r = lambda *s: torch.rand(*s, generator=g, device=dev)
+    for label, Bw, Nw, Kw, n1, n2 in DENOISE_WIDE_SHAPES:
+        args = (r(Bw, Nw, Kw), (r(Bw, Nw, Kw) - 0.5) * 6.0, r(Bw, Nw) - 0.5,
+                (r(Bw, Nw, Kw) > 0.1).float(), (r(Bw, Nw) > 0.3).float())
+        taps = (layer0._hann_taps(n1), layer0._hann_taps(n2))
+        geo = kernels._denoise_geometry(Kw, n1, n2)
+        wide_variants(
+            "denoise_stats", f"denoise_wide {label} [{Bw}, {Nw}, {Kw}] "
+            f"{n1} + {n2} taps, geometry {geo}",
+            lambda rows: kernels.denoise_stats(
+                *(t[:rows] for t in args), *taps),
+            ("pass 1 (the rows)", "pass 2 (the fit and the probe)"))
+        del args
         torch.cuda.empty_cache()
 
 
@@ -362,6 +398,9 @@ def main():
     if "deconv_wide" in names:
         deconv_wide()
         names.remove("deconv_wide")
+    if "denoise_wide" in names:
+        denoise_wide()
+        names.remove("denoise_wide")
     if not names:
         return 0
     libs = build_variants(names)
@@ -402,8 +441,8 @@ def main():
             B, N, NHOP, C, KE, 0, stream),
         "deconv_full": lambda fn: fn(
             ampl.data_ptr(), phse.data_ptr(), cyc.data_ptr(), hw.data_ptr(),
-            mask.data_ptr(), o_a.data_ptr(), o_b.data_ptr(), B, N, K, D, NHOP,
-            8, 0, 64, 0, 1, stream),
+            mask.data_ptr(), o_a.data_ptr(), o_b.data_ptr(), None, B, N, K,
+            D, NHOP, 8, 0, 64, 0, stream),
         "harmonic_project_mxu": lambda fn: fn(
             x.data_ptr(), cyc.data_ptr(), hw_p.data_ptr(), p_re.data_ptr(),
             p_im.data_ptr(), p_ws.data_ptr(), p_xs.data_ptr(), B, N * NHOP,

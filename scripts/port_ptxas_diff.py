@@ -3,7 +3,9 @@ chip_smoke.py's phase 2 prints them) in this checkout against another
 checkout's, e.g. the parent commit unpacked under build/archive/: both
 libraries are built here (ops/_build.py, one nvcc per source), then the
 instances of the other checkout whose registers and spills are the same
-here, those that differ, and the instances only this checkout has.  Needs
+here, those that differ, those it alone has (kernels replaced here) and
+the instances only this checkout has; exits 1 where an instance both
+have differs.  Needs
 nvcc (run it on a card's machine); imports no jax:
 
     PYTHONPATH=. python3 scripts/port_ptxas_diff.py OTHER_DIR
@@ -33,12 +35,15 @@ def main(argv):
         return 2
     mine, other = usage(Path(".").resolve()), usage(Path(argv[0]).resolve())
     same = [k for k in other if mine.get(k) == other[k]]
-    diff = {k: (other[k], mine.get(k)) for k in other
-            if mine.get(k) != other[k]}
+    diff = {k: (other[k], mine[k]) for k in other
+            if k in mine and mine[k] != other[k]}
+    gone = {k: v for k, v in other.items() if k not in mine}
     new = {k: v for k, v in mine.items() if k not in other}
     print(f"{len(same)} of {len(other)} kernel instances of {argv[0]} have "
           f"the same registers and spills here; differ (there, here): "
           f"{diff}", flush=True)
+    print(f"only there, replaced here (registers, spill bytes): {gone}",
+          flush=True)
     print(f"only here (registers, spill bytes): {new}", flush=True)
     return 0 if not diff else 1
 

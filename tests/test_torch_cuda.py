@@ -614,22 +614,31 @@ def test_deconv_full_largest_band_on_card():
 @pytest.mark.parametrize("polar", [False, True])
 def test_deconv_full_wide_kernel_equals_the_first_on_card(polar,
                                                          monkeypatch):
-    """The wide kernel forced onto a shape the first kernel takes (K = 80,
-    D = 7, ragged 64-frame tiles): chunks of 16, 24, 17 and 80 columns,
-    frame tiles of 64, 32, 16 and 8, the taps built once a tile or a chunk
-    a block -- every output the first kernel's bits."""
+    """The wide path forced onto a shape the first kernel takes (K = 80,
+    D = 7, ragged 64-frame tiles): chunks of 16, 24, 18, 64 and 2 columns
+    (the last chunk short: 8 of 24, 8 of 18), output tiles of 64, 32, 16
+    and 8 frames, the taps through device memory, built at tiles of 64,
+    32, 16 and 8 frames with the quadrature field staged or computed by
+    the tap build -- every output the first kernel's bits, one launch
+    counted a call; a row alone under a forced geometry equals its row of
+    the batch."""
     dev = _card()
     args = tuple(T(a).to(dev) for a in _deconv_inputs(80, 11, Nf=N))
     kw = dict(return_complex=not polar)
     ref = kernels.deconv_full(*args, 7, 80, 8, **kw)
-    for geo in ((64, 16, 1), (32, 24, 4), (16, 17, 2), (8, 80, 1)):
+    for FT, KC, TT, stage in ((64, 16, 64, 1), (32, 24, 32, 0),
+                              (16, 18, 16, 1), (8, 64, 8, 0),
+                              (64, 2, 64, 0)):
+        geo = (FT, KC, 0, 0, TT, stage)
         monkeypatch.setattr(kernels, "_deconv_geometry",
-                            lambda *a, geo=geo: (*geo, 0))
+                            lambda *a, geo=geo: geo)
         n0 = kernels.LAUNCHES["deconv_full"]
         got = kernels.deconv_full(*args, 7, 80, 8, **kw)
         torch.cuda.synchronize()
         assert kernels.LAUNCHES["deconv_full"] == n0 + 1
         assert all(torch.equal(g, r) for g, r in zip(got, ref)), geo
+    row = kernels.deconv_full(*(a[1:] for a in args), 7, 80, 8, **kw)
+    assert all(torch.equal(r[0], g[1]) for r, g in zip(row, ref))
 
 
 @pytest.mark.requires_cuda
@@ -640,13 +649,15 @@ def test_deconv_full_wide_kernel_equals_the_first_on_card(polar,
     (80, 113, 16, 300),    # 32-frame tiles: 64 frames' taps fill a block
     (80, 128, 16, 300),    # the JAX branch's widest band
     (120, 128, 480, 300),  # the field computed by the tap build
+    (200, 26, 32, 4000),   # a 4000-frame row: 16 kHz at a 2 ms hop, 8 s
+    (201, 26, 32, 70),     # an odd K, the last chunk short; two tiles
 ])
 def test_deconv_full_wide_kernel_matches_plain_on_card(K, D, nhop, Nf):
     """deconv_full past the first kernel's shared memory (full-band K, or D
-    past 56): the wide kernel, one launch, against the twin, the masked
-    (re, im) within 5e-4 and the polar track as |c| e^{j angle c}; a row
-    alone (a block a chunk) equals its row of the batch (a block a tile)
-    bit for bit."""
+    past 56): the wide path (the taps into device memory, then the output
+    in chunks), one launch counted, against the twin, the masked (re, im)
+    within 5e-4 and the polar track as |c| e^{j angle c}; a row alone
+    equals its row of the batch bit for bit."""
     dev = _card()
     ampl, phse, cyc, hw, mask = _deconv_inputs(nhop, K + D, Nf=Nf, K=K)
     hw = np.random.default_rng(D).uniform(30, (D - 1) * nhop, hw.shape)
@@ -1557,19 +1568,27 @@ def test_viterbi_callers_launch_the_kernel_on_card():
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("K,n1,n2,complex_input", [
     (160, 13, 7, True), (160, 13, 7, False), (80, 33, 17, True),
-    (80, 41, 21, False), (200, 101, 51, True)])
+    (80, 41, 21, False), (200, 101, 51, True), (600, 13, 7, False),
+    (200, 33, 17, True)])
 def test_denoise_stats_wide_kernel_matches_plain_on_card(K, n1, n2,
                                                          complex_input):
     """denoise_stats past the first kernel's K <= 128 and 31-tap limits
     (creaky voice's K = 160; a 2 ms hop's 33 + 17 taps; 5 Hz at a 5 ms
-    hop's 41 + 21; K = 200 with 101 + 51 taps, two chunks and a halo
-    past the 64-frame tile): the wide kernel, one launch, against the twin
-    within the bench shape's tolerance, on 1600 frames and 301 (a ragged
-    tile)."""
+    hop's 41 + 21; K = 200 with 101 + 51 taps, three chunks of 80, 80 and
+    40 and a halo past the 64-frame tile; full band's K = 600 at 48 kHz,
+    five chunks, the last of 88, and K = 200 with 33 + 17 taps at 16 kHz
+    with a 2 ms hop, 128 + 72): the wide path, one launch counted, against
+    the twin within the bench shape's tolerance, on 1600 frames, 301 (a
+    ragged tile) and for 16 kHz at 2 ms a 4000-frame row; a row alone
+    equals its row of the batch bit for bit.  Past K = 200 the absolute
+    tolerance grows with K: the twin rotates harmonic k by a float32
+    product k cyc, whose rounding (~k 2^-24 cycles) the kernel's
+    compensated product (common.cuh's kmul_c) does not make."""
     dev = _card()
     t1, t2 = tuple(tl0._hann_taps(n1)), tuple(tl0._hann_taps(n2))
     assert kernels._denoise_geometry(K, n1, n2)[0] > 0
-    for Nf in (1600, 301):
+    atol = 2e-4 * max(1.0, K / 200)
+    for Nf in (1600, 301) + ((4000,) if (K, n1) == (200, 33) else ()):
         ins = [np.stack(v) for v in zip(*(
             _stats_inputs(Nf, K, s, complex_input) for s in (1, 2)))]
         args = [T(v).to(dev) for v in ins]
@@ -1584,8 +1603,48 @@ def test_denoise_stats_wide_kernel_matches_plain_on_card(K, n1, n2,
             if name == "guard":
                 assert torch.equal(g, r)
             else:
-                torch.testing.assert_close(g, r, atol=2e-4, rtol=1e-3,
+                torch.testing.assert_close(g, r, atol=atol, rtol=1e-3,
                                            msg=name)
+        row = kernels.denoise_stats(*(a[1:] for a in args), t1, t2,
+                                    complex_input=complex_input)
+        for name, r, g in zip(STATS_NAMES, row, got):
+            assert torch.equal(r[0], g[1]), (Nf, name)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("K,n1,n2", [(80, 13, 7), (128, 13, 7),
+                                     (37, 31, 15), (80, 3, 31)])
+def test_denoise_stats_wide_path_equals_the_first_on_card(K, n1, n2,
+                                                          monkeypatch):
+    """The wide path forced onto shapes the first kernel takes (one chunk
+    of K rounded up to 16 columns, walked 32 at a time; h1 + 2 h2 up to
+    63; a ragged tile): the slow and aligned tracks, both powers and the
+    guard are denoise_stats_kernel's bits.  pp is the wide kernel's own:
+    the one-block wide kernel this path replaced contracted r_inc's
+    products otherwise than the first kernel (its bits, which the path
+    keeps, are held by chip_smoke.py's phase 20 and
+    scripts/port_ab_steps.py), so pp is held to the first kernel within
+    the bench shape's tolerance."""
+    dev = _card()
+    t1, t2 = tuple(tl0._hann_taps(n1)), tuple(tl0._hann_taps(n2))
+    assert kernels._denoise_geometry(K, n1, n2)[0] == 0
+    for complex_input in (False, True):
+        ins = [np.stack(v) for v in zip(*(
+            _stats_inputs(301, K, s, complex_input) for s in (1, 2)))]
+        args = [T(v).to(dev) for v in ins]
+        ref = kernels.denoise_stats(*args, t1, t2,
+                                    complex_input=complex_input)
+        kc = -(-K // 16) * 16
+        monkeypatch.setattr(kernels, "_denoise_geometry",
+                            lambda *a, kc=kc: (kc, 32, 0, 0))
+        got = kernels.denoise_stats(*args, t1, t2,
+                                    complex_input=complex_input)
+        monkeypatch.undo()
+        for name, g, r in zip(STATS_NAMES, got, ref):
+            if name == "pp":
+                torch.testing.assert_close(g, r, atol=2e-4, rtol=1e-3)
+            else:
+                assert torch.equal(g, r), name
 
 
 @pytest.mark.requires_cuda

@@ -104,7 +104,7 @@ def test_wide_confs_reach_the_lifted_limits(case):
         nq = 2 * conf.nhop // min(8, conf.nhop)
         assert (conf.maxnhar, D, nq) == (200, 26, 8)
         assert kernels._deconv_smem(D, 200, nq) == 240368 > kernels._SMEM_MAX
-        assert kernels._deconv_geometry(D, 200, nq)[:2] == (64, 100)
+        assert kernels._deconv_geometry(D, 200, nq)[:3] == (64, 50, 4)
     else:
         assert conf.nhop == 480 > kernels._NOISE_MAX_HOP
 
@@ -216,29 +216,50 @@ def test_viterbi_twin_matches_the_jax_scans_past_256_states(S, renorm):
         np.testing.assert_array_equal(path[b].numpy(), np.asarray(ref))
 
 
+def _denoise_wide_bytes(n1, n2, cw=64):
+    """denoise_stats.cu's wide path's walk width and shared bytes a block:
+    cw, then its first launch's cw staged columns [64 + 2 h1, cw] float2,
+    vo [64 + 2 h1] and taps1; its second's r_inc [R, cw] float2 (R = 64 +
+    2 h2), the fit [R, 4] and taps2."""
+    SR, R = 64 + 2 * (n1 // 2), 64 + 2 * (n2 // 2)
+    return cw, 8 * SR * cw + 4 * (SR + n1), 8 * R * cw + 4 * (4 * R + n2)
+
+
 @pytest.mark.parametrize("K,n1,n2,geometry", [
     # the first kernel: [RA + R, K] float2 tracks, RA = 64 + 2 (h1 + h2), R
     # = 64 + 2 h2, then vo [RA] and the taps
-    (80, 13, 7, (0, 8 * (82 + 70) * 80 + 4 * (82 + 20))),
-    # the wide kernel: KC columns a chunk, then the rows' sums and fit
-    # [R, 11], vo [RA] and the taps
-    (160, 13, 7, (128, 8 * (82 + 70) * 128 + 4 * (11 * 70 + 82 + 20))),
-    (129, 13, 7, (128, 8 * (82 + 70) * 128 + 4 * (11 * 70 + 82 + 20))),
-    (80, 33, 17, (80, 8 * (112 + 80) * 80 + 4 * (11 * 80 + 112 + 50))),
-    (80, 41, 21, (80, 8 * (124 + 84) * 80 + 4 * (11 * 84 + 124 + 62))),
-    (160, 41, 21, (128, 8 * (124 + 84) * 128 + 4 * (11 * 84 + 124 + 62))),
-    # h1 + 2 h2 = 100: 128, 112, 96 columns overflow 232448 bytes
-    (200, 101, 51, (80, 8 * (214 + 114) * 80 + 4 * (11 * 114 + 214 + 152))),
-    # the Pallas kernel's widest halo, h1 + 2 h2 = 510 at its 512 block
-    (80, 1, 511, (16, 8 * (574 + 574) * 16 + 4 * (11 * 574 + 574 + 512))),
+    (80, 13, 7, (0, 0, 8 * (82 + 70) * 80 + 4 * (82 + 20), 0)),
+    (128, 31, 15, (0, 0, 8 * (108 + 78) * 128 + 4 * (108 + 46), 0)),
+    # the wide path: KC columns a chunk (the fit sums' chunk, as the
+    # one-block kernel chose it), the columns a walk, then each launch's
+    # bytes
+    (160, 13, 7, (128, *_denoise_wide_bytes(13, 7))),
+    (129, 13, 7, (128, *_denoise_wide_bytes(13, 7))),
+    (80, 33, 17, (80, *_denoise_wide_bytes(33, 17))),
+    (80, 41, 21, (80, *_denoise_wide_bytes(41, 21))),
+    (160, 41, 21, (128, *_denoise_wide_bytes(41, 21))),
+    # 20e: full band at 48 kHz (K 600, 13 + 7 taps: five chunks, the last
+    # of 88) and at 16 kHz with a 2 ms hop (K 200, 33 + 17: 128 + 72)
+    (600, 13, 7, (128, *_denoise_wide_bytes(13, 7))),
+    (200, 33, 17, (128, *_denoise_wide_bytes(33, 17))),
+    # h1 + 2 h2 = 100: one block's 128, 112, 96 columns overflowed 232448
+    # bytes, so the sums run in chunks of 80
+    (200, 101, 51, (80, *_denoise_wide_bytes(101, 51))),
+    # the Pallas kernel's widest halo, h1 + 2 h2 = 510 at its 512 block:
+    # 574 rows of r_inc fit 32 columns at a time, not 64
+    (80, 1, 511, (16, *_denoise_wide_bytes(1, 511, 32))),
+    # a one-tap probe: no frame beyond the ends reaches it
+    (140, 13, 1, (128, *_denoise_wide_bytes(13, 1))),
 ])
 def test_denoise_geometry_by_hand(K, n1, n2, geometry):
     """kernels._denoise_geometry: the first kernel up to K = 128 and 31
-    taps with h1 + 2 h2 < 64; past them the wide kernel with the widest
-    chunk of columns (a multiple of 16, at most 128) that fits the H100's
-    shared memory, so K = 160 runs in chunks of 128 and 32."""
+    taps with h1 + 2 h2 < 64; past them the wide path in chunks of the
+    columns (a multiple of 16, at most 128) that the one-block kernel it
+    replaced chose (its fit sums' order), so K = 160 runs in chunks of 128
+    and 32, and two launches, each walking a chunk 64 columns at a time
+    (32 or 16 where the halo's rows fill the H100's shared memory)."""
     assert kernels._denoise_geometry(K, n1, n2) == geometry
-    assert geometry[1] <= kernels._SMEM_MAX
+    assert max(geometry[2:]) <= kernels._SMEM_MAX
 
 
 @pytest.mark.parametrize("N,block", [(1600, 400), (4000, 400), (150, 128),
@@ -341,46 +362,80 @@ def test_deconv_twin_matches_pallas_at_full_band(K, D, nhop):
                                zj, atol=5e-4)
 
 
-def _deconv_bytes(FT, D, nq, cols):
-    """deconv_full.cu's wide block: taps, chunk (or field) columns, and a
-    float a halo row and a quadrature point."""
+def _deconv_bytes(FT, D, KC):
+    """deconv_full.cu's wide output block: the taps of FT frames, the chunk
+    of KC columns with a halo column each side (and two unread, for the
+    float4 loads) of FT + 2 D halo rows, and a float a halo row."""
     FH = FT + 2 * D
-    return FT * (2 * D + 1) * 16 + FH * cols * 8 + (FH + nq) * 4
+    return FT * (2 * D + 1) * 16 + FH * (KC + 4) * 8 + FH * 4
 
 
-@pytest.mark.parametrize("D,K,nq,B,N,geometry", [
+@pytest.mark.parametrize("D,K,nq,geometry", [
     # the first kernel where its 64-frame block fits
-    (7, 80, 20, 128, 1600, (64, 0, 1, 64 * 15 * 16 + 78 * 80 * 8 + 98 * 4)),
-    (56, 80, 20, 1, 1600, (64, 0, 1, 229136)),
-    (11, 160, 20, 128, 1600, (64, 0, 1, 134056)),
-    # 48 kHz full band: 5 chunks of 120 (128 fit); taps once a tile at full
-    # batch, a block a chunk for a row alone
-    (11, 600, 60, 128, 1600, (64, 120, 1, _deconv_bytes(64, 11, 60, 122))),
-    (11, 600, 60, 1, 1600, (64, 120, 5, _deconv_bytes(64, 11, 60, 122))),
-    (11, 551, 55, 128, 1600, (64, 111, 1, _deconv_bytes(64, 11, 55, 113))),
-    (16, 342, 24, 128, 4000, (64, 114, 1, _deconv_bytes(64, 16, 24, 116))),
-    (26, 200, 8, 128, 4000, (64, 100, 1, _deconv_bytes(64, 26, 8, 102))),
-    # D past 56 at K = 80: 77 columns fit, two chunks of 40
-    (57, 80, 20, 1, 300, (64, 40, 2, _deconv_bytes(64, 57, 20, 42))),
-    # the taps of 64 frames fill the block at D = 113: 32-frame tiles
-    (113, 80, 20, 1, 300, (32, 40, 2, 204024)),
-    (128, 80, 20, 128, 1600, (32, 40, 1, _deconv_bytes(32, 128, 20, 42))),
-    # 48 kHz at a 10 ms hop with D = 128: the field's [288, 120] rows do not
-    # fit beside the taps, so the tap build computes it
-    (128, 600, 120, 1, 300, (32, 40, 15, _deconv_bytes(32, 128, 120, 42))),
+    (7, 80, 20, (64, 0, 1, 64 * 15 * 16 + 78 * 80 * 8 + 98 * 4, 0, 0)),
+    (56, 80, 20, (64, 0, 1, 229136, 0, 0)),
+    (11, 160, 20, (64, 0, 1, 134056, 0, 0)),
+    # 48 kHz full band: 10 chunks of 60 (64 fit), three blocks an SM
+    (11, 600, 60, (64, 60, 10, _deconv_bytes(64, 11, 60), 64, 1)),
+    (11, 551, 55, (64, 62, 9, _deconv_bytes(64, 11, 62), 64, 1)),
+    (16, 342, 24, (64, 58, 6, _deconv_bytes(64, 16, 58), 64, 1)),
+    # 16 kHz at a 2 ms hop: 60 columns leave two blocks an SM, so 4 chunks
+    # of 50
+    (26, 200, 8, (64, 50, 4, _deconv_bytes(64, 26, 50), 64, 1)),
+    # an odd K: the chunk rounded up to even
+    (26, 201, 8, (64, 52, 4, _deconv_bytes(64, 26, 52), 64, 1)),
+    # D past 56 at K = 80: 64 frames' taps leave no room for 16 columns in
+    # half the SM, 32 frames do: two chunks of 40
+    (57, 80, 20, (32, 40, 2, _deconv_bytes(32, 57, 40), 64, 1)),
+    # the taps of 32 frames fill half the SM past D = 113: 16-frame tiles
+    (113, 80, 20, (16, 20, 4, _deconv_bytes(16, 113, 20), 32, 1)),
+    (128, 80, 20, (16, 16, 5, _deconv_bytes(16, 128, 16), 32, 1)),
+    (128, 600, 120, (16, 18, 34, _deconv_bytes(16, 128, 18), 32, 0)),
+    # one harmonic
+    (128, 1, 120, (16, 2, 1, _deconv_bytes(16, 128, 2), 32, 0)),
     # nothing fits far past the JAX branch's D <= 128
-    (1000, 80, 20, 1, 300, None),
+    (1000, 80, 20, None),
 ])
-def test_deconv_geometry_by_hand(D, K, nq, B, N, geometry):
+def test_deconv_geometry_by_hand(D, K, nq, geometry):
     """kernels._deconv_geometry: the first kernel where its 64-frame block
-    fits the H100's shared memory; past it the wide kernel's frame tile
-    (64, else 32 where the taps of 64 frames alone fill the block), the
-    widest chunk of at most 128 columns evened out over K, one block a tile
-    where B N / FT tiles give two blocks an SM (else a block a chunk), the
-    field staged where it fits; a refusal only where nothing fits."""
-    assert kernels._deconv_geometry(D, K, nq, B, N) == geometry
+    fits the H100's shared memory; past it the wide path's output kernel
+    at the frame tile (64, 32, 16, 8) whose block leaves room for two an SM
+    with a chunk of min(K, 16) columns or more, the widest even chunk of
+    at most 64 evened out over K; its tap build at the widest tile whose
+    taps fit a block, the quadrature field staged beside them where it
+    fits too (past D = 113 at nq 20 the taps of 64 frames alone fill a
+    block; at nq 120 the field of 32 frames and a 256-frame halo does not
+    fit beside their taps); a refusal only where nothing fits."""
+    assert kernels._deconv_geometry(D, K, nq) == geometry
     if geometry is not None:
         assert geometry[3] <= kernels._SMEM_MAX
+        if geometry[1]:
+            FT, KC, n, _, TT, stage = geometry
+            assert n * KC >= K > (n - 1) * KC and KC % 2 == 0 and KC <= 64
+            nb = 2 * D + 1
+            taps = TT * nb * 16 + nq * 4 \
+                + stage * (TT + 2 * D) * (nq + 1) * 8
+            assert taps <= kernels._SMEM_MAX
+            assert TT == 64 or (2 * TT) * nb * 16 + nq * 4 \
+                > kernels._SMEM_MAX
+            assert stage or taps + (TT + 2 * D) * (nq + 1) * 8 \
+                > kernels._SMEM_MAX
+
+
+@pytest.mark.parametrize("return_complex", [True, False])
+def test_chip_smoke_counts_deconv_full_by_hand(return_complex):
+    """chip_smoke.kernel_ops for deconv_full at [2, 5, 3], D 2, hop 8,
+    stride 4 (5 taps, 4 quadrature points): a slot's 5 taps of 6 FMAs (12
+    a tap), its 4 adds of c_{k+1} +- c_{k-1}, the alignment and
+    un-alignment (40) and the mask (2), 30 more for the polar track; a
+    frame's taps (10 a tap a point) and field (20 a point)."""
+    import chip_smoke
+    ampl, cyc, hw = torch.zeros(2, 5, 3), torch.zeros(2, 40), torch.ones(2, 5)
+    slot = 12 * 5 + 4 + 40 + 2 + (0 if return_complex else 30)
+    assert chip_smoke.kernel_ops(
+        torch, "deconv_full", (ampl, ampl, cyc, hw, ampl, 2, 8, 4),
+        {"return_complex": return_complex}) \
+        == 2 * 5 * (3 * slot + 4 * (10 * 5 + 20))
 
 
 @pytest.mark.parametrize("thop,fs,seconds,grouped", [
