@@ -348,13 +348,17 @@ non-zero without the final "ok" line:
      finish), harmonic_project_win (its groups of 80), deconv_full,
      osc_bank and noise_mod_ola launched; noisy rows 0/1 within 0.05 dB
      and clean row 64 at most 0.1 dB under the JAX package's values;
-     every kernel of the run timed at full batch beside its bound; rows 0
-     and 64 alone equal their batch rows as in phase 5.  20b, 48 kHz at a
+     every kernel of the run timed at full batch beside its bound (the wide
+     denoise_apply also held to its twin there and printed with its
+     geometry and ratio); rows 0 and 64 alone equal their batch rows as in
+     phase 5.  20b, 48 kHz at a
      10 ms hop (tests/test_edgecases.py's conf at its sweep's hop: fnyq
      12000, chanfreq (3000, 6000, 9000), nspec 513) on the bench rows
      resampled to 48 kHz on the card (ops.resample.resample_to; every
      second F0 frame; 128 x 384000 samples): noise_mod_ola at nhop = 480
-     (the wide kernel), the pins, times and rows alone as 20a.  20c,
+     (the wide kernel: its geometry, two blocks an SM, and at full batch
+     its twin, time, bound and ratio), the pins, times and rows alone as
+     20a.  20c,
      denoise_stats on phase 5's full-batch call ([128, 1600, 80]) with the
      taps of a 2 ms hop (33 + 17) and of track_denoise_hz=5 at 5 ms (41 +
      21): the wide kernel against its twin.  20d, viterbi_scan against its
@@ -372,9 +376,9 @@ non-zero without the final "ok" line:
      against their twins at 2 rows, pins, full-batch times, the step and
      its peak, rows 0 and 64 alone), deconv_full past its first kernel's
      shared memory (its wide path, checked by the geometry and K);
-     deconv_full and denoise_stats, whose wide paths were redesigned for
-     the card, also held to their twins at full batch, each time beside
-     its bound on a line of its own; the
+     deconv_full, denoise_stats and denoise_apply, whose wide paths were
+     redesigned for the card, also held to their twins at full batch,
+     each time beside its bound on a line of its own; the
      pins are the JAX package's with its windowed projection in float64
      (port_jax_pins.py only=proj64), noisy rows within 0.05 dB.  20f,
      at full batch against their twins: env_render at Ke 9 and 12, the
@@ -769,7 +773,7 @@ ANALYSIS = tuple(k for k in PATH if k not in ("noise_mod_ola", "noise_bins"))
 BATCH_ROWS = (0, 1, 64)           # phase 5: rows whose analysis and output
                                   # must not depend on the batch
 # kernels held to their plain version at full batch as well (phases 5, 7;
-# phase 20e adds the two whose wide paths were redesigned for the card)
+# phase 20 adds those whose wide paths were redesigned for the card)
 FULL_CHECKED = ("refine_f0_dec", "refine_f0_full")
 # phase 5: the refine on row 0 alone and on its frames [a, b), a block of
 # RTAnalyzer's 160 frames
@@ -4782,7 +4786,7 @@ def fullband_phase(torch, mods, data, join, by_phase):
     kernels = mods[0]
     dev = data[0].device
     cases_w, full_w = [], []
-    redesigned = ("deconv_full", "denoise_stats")
+    redesigned = ("deconv_full", "denoise_stats", "denoise_apply")
     for label, (kw, thop) in FULLBAND.items():
         opt = create_aoptions(use_pallas=True, **kw)
         sopt = dataclasses.replace(create_soptions(fs=opt.conf.fs),
@@ -4812,22 +4816,35 @@ def fullband_phase(torch, mods, data, join, by_phase):
         ks = [sh[0][-1] for sh in shapes["deconv_full"]]
         phase(f"20e {label} K", ks and all(k == conf.maxnhar for k in ks),
               f"K of deconv_full's calls at 2 rows {ks}")
-        # the two wide paths redesigned for the card, at full batch
-        for name in redesigned:
-            for rec in f[name]:
-                phase(f"20e {label} {name} wide at full batch",
-                      rec["max_abs_err"] is not None and rec["bound_ms"] > 0,
-                      f"shapes {rec['shapes']}: {rec['ms']:.4f} ms (run "
-                      f"{rec['run_ms']:.4f}) against its bound "
-                      f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}): "
-                      f"{rec['ms'] / rec['bound_ms']:.2f}x; its plain "
-                      f"version: max err {rec['max_abs_err']:.3e}")
+        # the three wide paths redesigned for the card, at full batch
+        K, rows = conf.maxnhar, BATCH * d[1].shape[-1]
+        redesigned_lines(f"20e {label}", f, {
+            "deconv_full": "", "denoise_stats": "",
+            "denoise_apply": "geometry (warps, blocks, pairs a warp, "
+            f"stage, bytes) "
+            f"{kernels._apply_geometry(K, rows, kernels._sm_count(dev))}"})
         cases_w += cases.pop("deconv_full")
         full_w += f.pop("deconv_full")
         join(cases, f)
         del d
         torch.cuda.empty_cache()
     return cases_w, full_w
+
+
+def redesigned_lines(label, full, geometry):
+    """A phase line for each full-batch record of the kernels in
+    `geometry` ({name: its launch's geometry, or ""}), whose wide paths
+    were redesigned for the card: its time beside its bound and the
+    ratio, its plain version's max error at full batch."""
+    for name, geo in geometry.items():
+        for rec in full[name]:
+            phase(f"{label} {name} wide at full batch",
+                  rec["max_abs_err"] is not None and rec["bound_ms"] > 0,
+                  f"shapes {rec['shapes']}{', ' + geo if geo else ''}: "
+                  f"{rec['ms']:.4f} ms (run {rec['run_ms']:.4f}) against "
+                  f"its bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}):"
+                  f" {rec['ms'] / rec['bound_ms']:.2f}x; its plain version: "
+                  f"max err {rec['max_abs_err']:.3e}")
 
 
 def wide_shapes(torch, kernels, dev):
@@ -4907,13 +4924,18 @@ def wide_phase(torch, mods, opt, sopt, data, summary, full, by_phase):
     opt_c = dataclasses.replace(opt, conf=dataclasses.replace(
         opt.conf, maxnhar=160, fnyq=6000.0))
     cases, by_phase["20a"], f, shapes = wide_path(
-        torch, mods, "20a creaky", opt_c, sopt, data, WIDE_PINS_DB["creaky"])
+        torch, mods, "20a creaky", opt_c, sopt, data, WIDE_PINS_DB["creaky"],
+        checked=FULL_CHECKED + ("denoise_apply",))
     ks = [sh[0][-1] for name in ("denoise_stats", "denoise_apply", FINISH)
           for sh in shapes[name]]
     phase("20a K = 160", ks and all(k == 160 for k in ks),
           f"K of the denoiser's calls at 2 rows {ks}; denoise_stats's "
           f"geometry (chunk, columns a walk, shared bytes of each launch) "
           f"{kernels._denoise_geometry(160, 13, 7)}")
+    redesigned_lines("20a", f, {
+        "denoise_apply": "geometry (warps, blocks, pairs a warp, stage, "
+        f"bytes) "
+        f"{kernels._apply_geometry(160, BATCH * 1600, kernels._sm_count(dev))}"})
     join_wide(cases, f)
     # 20b: 48 kHz at a 10 ms hop, the rows resampled on the card
     x, f0, x_ref, nxv = data
@@ -4929,13 +4951,16 @@ def wide_phase(torch, mods, opt, sopt, data, summary, full, by_phase):
     assert opt48.conf.nhop == 480
     cases, by_phase["20b"], f, shapes = wide_path(
         torch, mods, "20b 48 kHz", opt48, sopt48, data48,
-        WIDE_PINS_DB["48 kHz"])
+        WIDE_PINS_DB["48 kHz"], checked=FULL_CHECKED + ("noise_mod_ola",))
     nbins = [sh[7][-1] for sh in shapes["noise_mod_ola"]]   # the gains
     bands = kernels.band_ranges(481, 48000.0, tuple(opt48.conf.chan_edges))
-    phase("20b nhop 480", nbins and all(n == 481 for n in nbins),
+    geo = kernels._noise_geometry(480, 4, 4, bands)
+    phase("20b nhop 480", nbins and all(n == 481 for n in nbins)
+          and geo[0] > 0 and 2 * (geo[2] + 1024) <= 233472,
           f"bins of noise_mod_ola's calls at 2 rows {nbins}; geometry "
-          f"(frames a block, slots, shared bytes) "
-          f"{kernels._noise_geometry(480, 4, 4, bands)}")
+          f"(frames a block, slots, shared bytes, threads) {geo}: two "
+          f"blocks an SM")
+    redesigned_lines("20b", f, {"noise_mod_ola": f"geometry {geo}"})
     join(cases, f)
     del data48
     torch.cuda.empty_cache()

@@ -42,12 +42,13 @@
 // noise_mod_kernel takes nhop <= 256 (a pass-1 thread a sample pair of a
 // frame group), C <= 8 bands and Ke <= 8 (its band table is a kernel
 // argument).  Past any of them (48 kHz at a 10 ms hop: nhop = 480)
-// noise_wide_kernel runs the same two passes with F frames a block (F - 1
-// output hops; kernels._noise_geometry takes the largest F of 16, 12, 8, 4
-// whose [F, C, nhop] (E, O) buffer and staged spectra fit in shared
-// memory), each thread looping over pass 1's sample pairs, and the band
-// table (each band's bins, first even bin, first slot and slot count) in
-// shared memory, made from the 2 C band ranges in device memory.
+// noise_wide_kernel runs the same arithmetic, every bit the same, laid out
+// otherwise: a thread a sample pair of all F frames of its block (F - 1
+// output hops; kernels._noise_geometry takes F = 16, 8 or 4 and the
+// threads), one band at a time, its OLA and envelope finished in the same
+// thread, so no (E, O) buffer; the band table (each band's bins, first even
+// bin, first slot and slot count) in shared memory, made from the 2 C band
+// ranges in device memory.
 #include "common.cuh"
 
 // LLSM_SKIP_PASS_{A,B} = 1 compiles pass 1 or pass 2 out, for the pass
@@ -305,28 +306,66 @@ noise_mod_kernel(const float* __restrict__ cyc, const float* __restrict__ edc,
   }
 }
 
-constexpr int kWideThreads = 512;
+// nhop > 256, C > 8 or Ke > 8 (48 kHz at a 10 ms hop: nhop = 480):
+// noise_mod_kernel's arithmetic at F frames a block (F - 1 output hops),
+// every output bit the same, laid out for a block of up to kWideThreads
+// threads and two blocks an SM.  A thread takes a sample pair (ta, tb =
+// ta + half) of ALL F frames, one band at a time: pass 1 sums the band's
+// (E, O) of the F frames in registers (each rotation of the two z chains
+// feeds 8 F FMAs; a slot pair of a frame is one 16-byte load, the F
+// frames' at fixed offsets from one address: the spectra are staged slot
+// pair by slot pair, [L / 2, F + 1] float4, the pad keeping the staging's
+// stores free of bank conflicts), then the same thread finishes the
+// band's OLA, envelope and modulation for its F - 1 hops at both samples
+// and adds them, band after band in c order, to y accumulators it keeps in
+// shared memory.  No (E, O) buffer and no barrier after the staging.  The
+// staging as noise_mod_kernel's (spectra pre-scaled, each band's bins from
+// an even bin, zero-padded; the coefficients; the three tables), plus the
+// band table made from the 2 C band ranges in device memory.  Dynamic
+// shared memory (kernels._noise_geometry): spectra [L / 2, F + 1] float4,
+// the three [2 nhop] tables, the accumulators [F - 1, 2, threads], the
+// coefficients [F, 2 C (Ke + 1)], the slots' bins [L] and the band table
+// [5, C] ints.
+constexpr int kWideThreads = 256;
 
-// nhop > 256, C > 8 or Ke > 8: noise_mod_kernel's passes at F frames a
-// block (F - 1 output hops, F a multiple of kGroup), L staged slots a frame;
-// bands [2 C] in device memory.  Dynamic shared memory as noise_mod_kernel's
-// at F frames, then the band table [5, C] ints.
-__global__ void __launch_bounds__(kWideThreads)
+// z e^{j t} with the products fused as the compiled noise_mod_kernel fuses
+// rotate()'s (its SASS), so the wide kernel keeps its bits: the real part
+// fma(zr, rr, -zi ri); the imaginary fma(zi, rr, zr ri) in pass 1 after an
+// even slot (rotate_e), fma(zr, ri, zi rr) after an odd slot and in pass 2
+// (rotate_o)
+__device__ __forceinline__ void rotate_e(float& zr, float& zi, float rr,
+                                         float ri) {
+  const float nr = __fmaf_rn(zr, rr, -__fmul_rn(zi, ri));
+  zi = __fmaf_rn(zi, rr, __fmul_rn(zr, ri));
+  zr = nr;
+}
+
+__device__ __forceinline__ void rotate_o(float& zr, float& zi, float rr,
+                                         float ri) {
+  const float nr = __fmaf_rn(zr, rr, -__fmul_rn(zi, ri));
+  zi = __fmaf_rn(zr, ri, __fmul_rn(zi, rr));
+  zr = nr;
+}
+
+template <int F>
+__global__ void __launch_bounds__(kWideThreads, 2)
 noise_wide_kernel(const float* __restrict__ cyc, const float* __restrict__ edc,
                   const float* __restrict__ ar, const float* __restrict__ ai,
                   const float* __restrict__ base,
                   const float* __restrict__ re, const float* __restrict__ im,
                   int64_t spec_bstride, const float* __restrict__ gain,
                   const int* __restrict__ bands, float* __restrict__ y,
-                  int N, int nhop, int C, int Ke, int L, int F) {
-  extern __shared__ float sm[];
-  const int T = 2 * nhop, nbin = nhop + 1, CK = C * Ke, H = F - 1;
-  float2* spec = reinterpret_cast<float2*>(sm);       // [F, L]
-  float2* eo = spec + F * L;                           // [F, C, nhop]
-  float* tc = reinterpret_cast<float*>(eo + F * C * nhop);  // [T]
+                  int N, int nhop, int C, int Ke, int L) {
+  extern __shared__ float4 sm4[];
+  constexpr int H = F - 1, FP = F + 1;
+  const int T = 2 * nhop, nbin = nhop + 1, CK = C * Ke, L2 = L / 2;
+  const int nt = blockDim.x, tid = threadIdx.x;
+  float4* spec = sm4;                                  // [L / 2, F + 1]
+  float* tc = reinterpret_cast<float*>(spec + L2 * FP);  // [T]
   float* ts = tc + T;                                  // [T]
   float* win = ts + T;                                 // [T]
-  float* s_edc = win + T;                              // [F, C]
+  float* acc = win + T;                                // [H, 2, nt]
+  float* s_edc = acc + H * 2 * nt;                     // [F, C]
   float* s_base = s_edc + F * C;
   float* s_ar = s_base + F * C;                        // [F, C, Ke]
   float* s_ai = s_ar + F * CK;
@@ -340,7 +379,7 @@ noise_wide_kernel(const float* __restrict__ cyc, const float* __restrict__ edc,
   const int f0 = blockIdx.x * H;
   const int64_t row0 = (int64_t)b * N;
 
-  if (threadIdx.x == 0) {
+  if (tid == 0) {
     int off = 0;
     for (int c = 0; c < C; ++c) {
       const int lo = bands[2 * c], hi = bands[2 * c + 1];
@@ -352,7 +391,7 @@ noise_wide_kernel(const float* __restrict__ cyc, const float* __restrict__ edc,
       off += b_plen[c];
     }
   }
-  for (int m = threadIdx.x; m < T; m += blockDim.x) {
+  for (int m = tid; m < T; m += nt) {
     float sn, c;
     sincospif(__fdiv_rn(2.0f * (float)m, (float)T), &sn, &c);
     tc[m] = c;
@@ -360,20 +399,20 @@ noise_wide_kernel(const float* __restrict__ cyc, const float* __restrict__ edc,
     win[m] = sqrtf(0.5f - 0.5f * cospif(__fdiv_rn(2.0f * (float)m + 1.0f,
                                                   (float)T)));
   }
-  for (int idx = threadIdx.x; idx < F * C; idx += blockDim.x) {
+  for (int idx = tid; idx < F * C; idx += nt) {
     const int64_t fr = row0 + min(f0 + idx / C, N - 1);
     const int c = idx % C;
     s_edc[idx] = __ldg(edc + fr * C + c);
     s_base[idx] = __ldg(base + fr * C + c);
   }
-  for (int idx = threadIdx.x; idx < F * CK; idx += blockDim.x) {
+  for (int idx = tid; idx < F * CK; idx += nt) {
     const int64_t fr = row0 + min(f0 + idx / CK, N - 1);
     const int q = idx % CK;
     s_ar[idx] = __ldg(ar + fr * CK + q);
     s_ai[idx] = __ldg(ai + fr * CK + q);
   }
   __syncthreads();
-  for (int slot = threadIdx.x; slot < L; slot += blockDim.x) {
+  for (int slot = tid; slot < L; slot += nt) {
     int c = 0;
     while (c + 1 < C && slot >= b_off[c + 1]) ++c;
     const int k = b_base[c] + slot - b_off[c];
@@ -382,146 +421,187 @@ noise_wide_kernel(const float* __restrict__ cyc, const float* __restrict__ edc,
   __syncthreads();
   const float ends = 1.0f / sqrtf((float)T);
   const float mid = sqrtf(2.0f / (float)T);
-  for (int idx = threadIdx.x; idx < F * L; idx += blockDim.x) {
-    const int j = idx / L, slot = idx - j * L;
-    const int f = f0 + j, k = s_bin[slot];
-    float2 v = make_float2(0.0f, 0.0f);
-    if (f < N && k >= 0) {
-      const int64_t o = spec_bstride * b + (int64_t)f * nbin + k;
-      const float g = __ldg(gain + (row0 + f) * nbin + k);
-      const bool edge = k == 0 || k == nbin - 1;
-      v.x = __ldg(re + o) * g * (edge ? ends : mid);
-      v.y = edge ? 0.0f : __ldg(im + o) * g * mid;
+  if (L2 > 0) {   // a thread a slot pair of a frame; every load made (at a
+                  // clamped index where the slot is empty), so the unrolled
+                  // iterations' loads are in flight together
+    const int dj = nt / L2, ds = nt - dj * L2;
+    int j = tid / L2, sp = tid - j * L2;
+#pragma unroll 4
+    for (int idx = tid; idx < F * L2; idx += nt) {
+      const int f = min(f0 + j, N - 1);
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int kb = s_bin[2 * sp + e], k = max(kb, 0);
+        const int64_t o = spec_bstride * b + (int64_t)f * nbin + k;
+        const float g = __ldg(gain + (row0 + f) * nbin + k);
+        const float vr = __ldg(re + o), vi = __ldg(im + o);
+        const bool live = f0 + j < N && kb >= 0;
+        const bool edge = k == 0 || k == nbin - 1;
+        v[2 * e] = live ? vr * g * (edge ? ends : mid) : 0.0f;
+        v[2 * e + 1] = live && !edge ? vi * g * mid : 0.0f;
+      }
+      spec[sp * FP + j] = make_float4(v[0], v[1], v[2], v[3]);
+      j += dj;
+      sp += ds;
+      if (sp >= L2) {
+        sp -= L2;
+        ++j;
+      }
     }
-    spec[idx] = v;
   }
   __syncthreads();
 
-  // pass 1 as noise_mod_kernel's, each thread looping over the (frame
-  // group, sample pair) items
   const int half = (nhop + 1) >> 1;
-  for (int w = threadIdx.x; !LLSM_SKIP_PASS_A && w < (F / kGroup) * half;
-       w += blockDim.x) {
-    const int g = w / half, ta = w - g * half;
+  const int nh = min(H, N - f0);
+  const float inv_hop = 1.0f / (float)nhop;
+  for (int ta = tid; ta < half; ta += nt) {
     const bool has_b = ta + half < nhop;
-    const int tb = has_b ? ta + half : ta;
-    const float rar = tc[ta], rai = ts[ta];
+    const int tb = has_b ? ta + half : ta;    // odd nhop: a duplicate
+    const int tt[2] = {ta, tb};
+    const float rar = tc[ta], rai = ts[ta];   // e^{2 pi j t / T}
     const float rbr = tc[tb], rbi = ts[tb];
     const int stepa = (kRestart * ta) % T, stepb = (kRestart * tb) % T;
-    const float2* sp = spec + g * kGroup * L;
+    const float sv[2] = {(float)ta * inv_hop, (float)tb * inv_hop};
+    const float wa[2] = {win[nhop + ta], win[nhop + tb]};
+    const float wb[2] = {win[ta], win[tb]};
+    for (int i = 0; i < 2 * H; ++i) acc[i * nt + tid] = 0.0f;
     for (int c = 0; c < C; ++c) {
-      float ea[kGroup], oa[kGroup], eb[kGroup], ob[kGroup];
+      // pass 1: the band's (E, O) of the F frames at ta and tb
+      float ea[F], oa[F], eb[F], ob[F];
 #pragma unroll
-      for (int q = 0; q < kGroup; ++q) ea[q] = oa[q] = eb[q] = ob[q] = 0.0f;
+      for (int q = 0; q < F; ++q) ea[q] = oa[q] = eb[q] = ob[q] = 0.0f;
       int ma = (int)(((int64_t)b_base[c] * ta) % T);
       int mb = (int)(((int64_t)b_base[c] * tb) % T);
       const int off = b_off[c], plen = b_plen[c];
-      for (int s0 = 0; s0 < plen; s0 += kRestart) {
+      for (int s0 = 0; !LLSM_SKIP_PASS_A && s0 < plen; s0 += kRestart) {
         float zar = tc[ma], zai = ts[ma], zbr = tc[mb], zbi = ts[mb];
         const int n = min(kRestart, plen - s0);
-        for (int p = 0; p < n; p += 2) {
-          const int sl = off + s0 + p;
+        const float4* sp = spec + ((off + s0) >> 1) * FP;
+        for (int p = 0; p < n; p += 2, sp += FP) {
+          // z of the odd slot: one rotation past the even slot's
+          float yar = zar, yai = zai, ybr = zbr, ybi = zbi;
+          rotate_e(yar, yai, rar, rai);
+          rotate_e(ybr, ybi, rbr, rbi);
 #pragma unroll
-          for (int q = 0; q < kGroup; ++q) {
-            const float2 v = sp[q * L + sl];
+          for (int q = 0; q < F; ++q) {
+            const float4 v = sp[q];
             ea[q] = fmaf(v.x, zar, fmaf(-v.y, zai, ea[q]));
             eb[q] = fmaf(v.x, zbr, fmaf(-v.y, zbi, eb[q]));
+            oa[q] = fmaf(v.z, yar, fmaf(-v.w, yai, oa[q]));
+            ob[q] = fmaf(v.z, ybr, fmaf(-v.w, ybi, ob[q]));
           }
-          rotate(zar, zai, rar, rai);
-          rotate(zbr, zbi, rbr, rbi);
-#pragma unroll
-          for (int q = 0; q < kGroup; ++q) {
-            const float2 v = sp[q * L + sl + 1];
-            oa[q] = fmaf(v.x, zar, fmaf(-v.y, zai, oa[q]));
-            ob[q] = fmaf(v.x, zbr, fmaf(-v.y, zbi, ob[q]));
-          }
-          rotate(zar, zai, rar, rai);
-          rotate(zbr, zbi, rbr, rbi);
+          zar = yar;
+          zai = yai;
+          zbr = ybr;
+          zbi = ybi;
+          rotate_o(zar, zai, rar, rai);
+          rotate_o(zbr, zbi, rbr, rbi);
         }
         ma += stepa;
         if (ma >= T) ma -= T;
         mb += stepb;
         if (mb >= T) mb -= T;
       }
+      if (LLSM_SKIP_PASS_B) {   // keeps pass 1's sums
+        float sink = 0.0f;
 #pragma unroll
-      for (int q = 0; q < kGroup; ++q) {
-        float2* e = eo + ((g * kGroup + q) * C + c) * nhop;
-        e[ta] = make_float2(ea[q], oa[q]);
-        if (has_b) e[tb] = make_float2(eb[q], ob[q]);
+        for (int q = 0; q < F; ++q) sink += ea[q] + oa[q] + eb[q] + ob[q];
+        if (sink == 1e30f) y[0] = sink;
+        continue;
+      }
+      // pass 2: the band's OLA, envelope and modulation of each hop at
+      // both samples, added to the accumulators; each hop's cycles loaded
+      // a hop ahead
+      float cy[2] = {cyc[(row0 + f0) * nhop + ta],
+                     cyc[(row0 + f0) * nhop + tb]};
+#pragma unroll
+      for (int i = 0; i < H; ++i) {
+        if (i >= nh) break;
+        const bool partner = f0 + i + 1 < N;
+        float c1[2], s1[2], env[2], zr[2], zi[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          sincospif(2.0f * llsm::frac_c(cy[r]), &s1[r], &c1[r]);
+        if (i + 1 < nh) {
+          const int64_t g1 = (row0 + f0 + i + 1) * nhop;
+          cy[0] = cyc[g1 + ta];
+          cy[1] = cyc[g1 + tb];
+        }
+        const float e0 = s_edc[i * C + c], de = s_edc[(i + 1) * C + c] - e0;
+        const float b0 = s_base[i * C + c];
+        const float db = s_base[(i + 1) * C + c] - b0;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          env[r] = fmaf(de, sv[r], e0);
+          zr[r] = c1[r];
+          zi[r] = s1[r];
+        }
+        const float* a0 = s_ar + i * CK + c * Ke;
+        const float* p0 = s_ai + i * CK + c * Ke;
+        for (int k = 0; k < Ke; ++k) {
+          const float a = a0[k], da = a0[CK + k] - a;
+          const float p = p0[k], dp = p0[CK + k] - p;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {   // fused as noise_mod_kernel's
+            env[r] = __fadd_rn(env[r],
+                               __fmaf_rn(fmaf(da, sv[r], a), zr[r],
+                                         -__fmul_rn(fmaf(dp, sv[r], p),
+                                                    zi[r])));
+            rotate_o(zr[r], zi[r], c1[r], s1[r]);
+          }
+        }
+        const float cur[2][2] = {{ea[i], oa[i]}, {eb[i], ob[i]}};
+        const float nxt[2][2] = {{ea[i + 1], oa[i + 1]},
+                                 {eb[i + 1], ob[i + 1]}};
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float ola = __fmul_rn(wa[r], __fsub_rn(cur[r][0], cur[r][1]));
+          if (partner)
+            ola = fmaf(wb[r], __fadd_rn(nxt[r][0], nxt[r][1]), ola);
+          const float bl = fmaf(db, sv[r], b0);
+          float* a_ = acc + (2 * i + r) * nt + tid;
+          *a_ = fmaf(ola, __fdividef(fmaxf(env[r], 0.0f), fmaxf(bl, 1e-8f)),
+                     *a_);
+        }
       }
     }
+    for (int i = 0; i < nh; ++i) {
+      const int64_t g0 = (row0 + f0 + i) * nhop;
+      y[g0 + ta] = acc[2 * i * nt + tid];
+      if (has_b) y[g0 + tb] = acc[(2 * i + 1) * nt + tid];
+    }
   }
-  __syncthreads();
+}
 
-  // pass 2 as noise_mod_kernel's
-  const int nh = min(H, N - f0);
-  const int q4 = (nhop + kSamples - 1) / kSamples;
-  const float inv_hop = 1.0f / (float)nhop;
-  for (int idx = threadIdx.x; !LLSM_SKIP_PASS_B && idx < nh * q4;
-       idx += blockDim.x) {
-    const int i = idx / q4, t0 = idx - i * q4;
-    const bool partner = f0 + i + 1 < N;
-    const int64_t g0 = (row0 + f0 + i) * nhop;
-    float c1[kSamples], s1[kSamples], sv[kSamples], acc[kSamples];
-    float wa[kSamples], wb[kSamples];
-    int tt[kSamples];
-#pragma unroll
-    for (int r = 0; r < kSamples; ++r) {
-      const int t = t0 + r * q4;
-      tt[r] = t < nhop ? t : t0;
-      sincospif(2.0f * llsm::frac_c(cyc[g0 + tt[r]]), &s1[r], &c1[r]);
-      sv[r] = (float)tt[r] * inv_hop;
-      wa[r] = win[nhop + tt[r]];
-      wb[r] = partner ? win[tt[r]] : 0.0f;
-      acc[r] = 0.0f;
-    }
-    for (int c = 0; c < C; ++c) {
-      const float e0 = s_edc[i * C + c], de = s_edc[(i + 1) * C + c] - e0;
-      const float b0 = s_base[i * C + c], db = s_base[(i + 1) * C + c] - b0;
-      float env[kSamples], zr[kSamples], zi[kSamples];
-#pragma unroll
-      for (int r = 0; r < kSamples; ++r) {
-        env[r] = fmaf(de, sv[r], e0);
-        zr[r] = c1[r];
-        zi[r] = s1[r];
-      }
-      const float* a0 = s_ar + i * CK + c * Ke;
-      const float* p0 = s_ai + i * CK + c * Ke;
-      for (int k = 0; k < Ke; ++k) {
-        const float a = a0[k], da = a0[CK + k] - a;
-        const float p = p0[k], dp = p0[CK + k] - p;
-#pragma unroll
-        for (int r = 0; r < kSamples; ++r) {
-          env[r] += fmaf(da, sv[r], a) * zr[r] - fmaf(dp, sv[r], p) * zi[r];
-          rotate(zr[r], zi[r], c1[r], s1[r]);
-        }
-      }
-      const float2* e = eo + (i * C + c) * nhop;
-#pragma unroll
-      for (int r = 0; r < kSamples; ++r) {
-        const float2 cur = e[tt[r]];
-        float ola = wa[r] * (cur.x - cur.y);
-        if (partner) {
-          const float2 nxt = e[C * nhop + tt[r]];
-          ola = fmaf(wb[r], nxt.x + nxt.y, ola);
-        }
-        const float bl = fmaf(db, sv[r], b0);
-        acc[r] = fmaf(ola, __fdividef(fmaxf(env[r], 0.0f), fmaxf(bl, 1e-8f)),
-                      acc[r]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kSamples; ++r)
-      if (t0 + r * q4 < nhop) y[g0 + t0 + r * q4] = acc[r];
-  }
+template <int F>
+cudaError_t launch_wide(const float* cyc, const float* edc, const float* ar,
+                        const float* ai, const float* base, const float* re,
+                        const float* im, int64_t spec_bstride,
+                        const float* gain, const int* bands_d, float* y,
+                        int B, int N, int nhop, int C, int Ke, int L,
+                        int threads, cudaStream_t st) {
+  const int T = 2 * nhop;
+  const size_t smem = (size_t)(L / 2) * (F + 1) * sizeof(float4) +
+                      (size_t)3 * T * sizeof(float) +
+                      (size_t)(F - 1) * 2 * threads * sizeof(float) +
+                      (size_t)F * (2 * C + 2 * C * Ke) * sizeof(float) +
+                      (size_t)(L + 5 * C) * sizeof(int);
+  cudaError_t e = llsm::allow_smem(noise_wide_kernel<F>, smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid((N + F - 2) / (F - 1), B);
+  noise_wide_kernel<F><<<grid, threads, smem, st>>>(
+      cyc, edc, ar, ai, base, re, im, spec_bstride, gain, bands_d, y, N,
+      nhop, C, Ke, L);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // bands: 2 C ints on the host, each band's bin range [lo, hi) (lo = hi for
 // an empty band), and the same in device memory (bands_d, read by the wide
-// kernel); F: the wide kernel's frames a block (kernels._noise_geometry),
-// 0 for noise_mod_kernel.
+// kernel); F, wide_threads: the wide kernel's frames and threads a block
+// (kernels._noise_geometry), F = 0 for noise_mod_kernel.
 extern "C" int llsm_noise_mod_ola(const float* cyc, const float* edc,
                                   const float* ar, const float* ai,
                                   const float* base, const float* re,
@@ -529,9 +609,10 @@ extern "C" int llsm_noise_mod_ola(const float* cyc, const float* edc,
                                   const float* gain, const int* bands,
                                   const int* bands_d, float* y, int B, int N,
                                   int nhop, int C, int Ke, int F,
-                                  void* stream) {
+                                  int wide_threads, void* stream) {
   if (F > 0) {
-    if (nhop <= 0 || C <= 0 || Ke < 0 || F % kGroup || !bands_d)
+    if (nhop <= 0 || C <= 0 || Ke < 0 || !bands_d || wide_threads <= 0 ||
+        wide_threads > kWideThreads)
       return (int)cudaErrorInvalidValue;
     if (B <= 0 || N <= 0) return (int)cudaGetLastError();
     int L = 0;
@@ -539,19 +620,23 @@ extern "C" int llsm_noise_mod_ola(const float* cyc, const float* edc,
       const int lo = bands[2 * c], hi = bands[2 * c + 1];
       L += hi > lo ? ((hi - (lo & ~1) + 1) & ~1) : 0;
     }
-    const int T = 2 * nhop;
-    const size_t smem = (size_t)F * L * sizeof(float2) +
-                        (size_t)F * C * nhop * sizeof(float2) +
-                        (size_t)3 * T * sizeof(float) +
-                        (size_t)F * (2 * C + 2 * C * Ke) * sizeof(float) +
-                        (size_t)(L + 5 * C) * sizeof(int);
-    cudaError_t e = llsm::allow_smem(noise_wide_kernel, smem);
-    if (e != cudaSuccess) return (int)e;
-    dim3 grid((N + F - 2) / (F - 1), B);
-    noise_wide_kernel<<<grid, kWideThreads, smem, (cudaStream_t)stream>>>(
-        cyc, edc, ar, ai, base, re, im, (int64_t)spec_bstride, gain, bands_d,
-        y, N, nhop, C, Ke, L, F);
-    return (int)cudaGetLastError();
+    const cudaStream_t st = (cudaStream_t)stream;
+    switch (F) {
+      case 16:
+        return (int)launch_wide<16>(cyc, edc, ar, ai, base, re, im,
+                                    (int64_t)spec_bstride, gain, bands_d, y,
+                                    B, N, nhop, C, Ke, L, wide_threads, st);
+      case 8:
+        return (int)launch_wide<8>(cyc, edc, ar, ai, base, re, im,
+                                   (int64_t)spec_bstride, gain, bands_d, y,
+                                   B, N, nhop, C, Ke, L, wide_threads, st);
+      case 4:
+        return (int)launch_wide<4>(cyc, edc, ar, ai, base, re, im,
+                                   (int64_t)spec_bstride, gain, bands_d, y,
+                                   B, N, nhop, C, Ke, L, wide_threads, st);
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
   }
   if (B <= 0 || N <= 0) return (int)cudaGetLastError();
   if (nhop <= 0 || kGroups * ((nhop + 1) / 2) > kMaxThreads || C <= 0 ||

@@ -51,10 +51,10 @@ SIGNATURES = {
     "llsm_deconv_full": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _I, _I, _I, _I, _I, _I, _P),
     # cyc, edc, ar, ai, base, re, im, spec batch stride, gain, bands (host,
-    # 2 C ints), bands (device, or null), y, B, N, nhop, C, Ke, F
+    # 2 C ints), bands (device, or null), y, B, N, nhop, C, Ke, F, threads
     # (kernels._noise_geometry), stream
     "llsm_noise_mod_ola": (_P, _P, _P, _P, _P, _P, _P, _L, _P, _P, _P, _P,
-                           _I, _I, _I, _I, _I, _I, _P),
+                           _I, _I, _I, _I, _I, _I, _I, _P),
     # cyc, edc, ar, ai, base, segs, y, B, N, nhop, C, Ke, stream
     "llsm_noise_mod_ola_seg": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                _I, _P),
@@ -66,9 +66,10 @@ SIGNATURES = {
                            _P, _I, _I, _I, _P, _I, _P, _I, _P, _P, _I, _I,
                            _P, _P, _I, _P),
     # v, wmul, cre, cim, csr, csi, cyc_c, mask, guard (bool), o0, o1, B, N,
-    # K, strength, polar, stream
+    # K, strength, polar, warps, blocks, per, stage
+    # (kernels._apply_geometry), stream
     "llsm_denoise_apply": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                           _I, _I, _F, _I, _P),
+                           _I, _I, _F, _I, _I, _I, _I, _I, _P),
     # a, delta (complex64), cyc_c, mask, ampl, phse, B, N, K, stream
     "llsm_denoise_finish": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # dc, xw, lo, hi, re, im, R, W, K, stream

@@ -404,36 +404,49 @@ def _deconv_step(ampl, phse, cyc_c, hw, eq_re, eq_im, D, nhop, stride):
 # ---------------------------------------------------------------------------
 
 # noise_mod_ola.cu's first kernel: nhop <= 256, C <= 8, Ke <= 8, 16 frames a
-# block; the wide kernel the rest at 16, 12, 8 or 4 frames a block
+# block; the wide kernel the rest at 16, 8 or 4 frames a block of up to 256
+# threads
 _NOISE_MAX_C = 8
 _NOISE_MAX_KE = 8
 _NOISE_MAX_HOP = 256
-_NOISE_FRAMES = (16, 12, 8, 4)
+_NOISE_FRAMES = (16, 8, 4)
+_NOISE_WIDE_THREADS = 256
+_SM_SMEM = 233472            # the H100's shared memory an SM (228 KB)
+_BLOCK_RESERVED = 1024       # what the card keeps of it for each block
 
 
 @functools.lru_cache(maxsize=64)
 def _noise_geometry(nhop: int, C: int, Ke: int, bands: tuple) -> tuple:
     """noise_mod_ola.cu's launch -> (F, the wide kernel's frames a block, 0
-    for the first kernel; L, the staged slots a frame; shared bytes).  L
-    sums each band's slots, from its first even bin, an even count
-    (band_ranges' [lo, hi) each).  Shared memory at F frames: the staged
-    spectra [F, L] and (E, O) [F, C, nhop] float2, the three [2 nhop]
-    tables, the coefficients [F, 2 C (Ke + 1)] floats and the slots' bins
-    [L] ints; the wide kernel's band table [5, C] ints too.  The first
-    kernel (F = 16) where nhop <= 256, C <= 8 and Ke <= 8; else the
-    largest F of _NOISE_FRAMES that fits; None where none does."""
+    for the first kernel; L, the staged slots a frame; shared bytes;
+    threads a block of the wide kernel, 0 for the first).  L sums each
+    band's slots, from its first even bin, an even count (band_ranges'
+    [lo, hi) each).  The first kernel (F = 16) where nhop <= 256, C <= 8
+    and Ke <= 8: the staged spectra [16, L] and (E, O) [16, C, nhop]
+    float2, the three [2 nhop] tables, the coefficients [16, 2 C (Ke + 1)]
+    floats and the slots' bins [L] ints.  Else the wide kernel: a thread
+    a sample pair of every frame of the block (threads: the pairs rounded
+    up to a warp, at most 256, each thread looping past them), the spectra
+    [L / 2, F + 1] float4 (slot pairs, a pad frame), the tables, the y
+    accumulators [F - 1, 2, threads], the coefficients, the slots' bins
+    and the band table [5, C] ints; the largest F of _NOISE_FRAMES whose
+    block leaves room for two an SM, else the largest that fits one; None
+    where none does."""
     L = sum((hi - (lo & ~1) + 1) & ~1 if hi > lo else 0
             for lo, hi in zip(bands[::2], bands[1::2]))
-
-    def smem(F, table):
-        return (8 * F * L + 8 * F * C * nhop + 12 * 2 * nhop
-                + 4 * F * 2 * C * (Ke + 1) + 4 * L + 4 * table)
     if nhop <= _NOISE_MAX_HOP and C <= _NOISE_MAX_C and Ke <= _NOISE_MAX_KE:
-        return 0, L, smem(16, 0)
-    for F in _NOISE_FRAMES:
-        if smem(F, 5 * C) <= _SMEM_MAX:
-            return F, L, smem(F, 5 * C)
-    return None
+        return (0, L, 8 * 16 * L + 8 * 16 * C * nhop + 12 * 2 * nhop
+                + 4 * 16 * 2 * C * (Ke + 1) + 4 * L, 0)
+    threads = min(_NOISE_WIDE_THREADS, -(-((nhop + 1) // 2) // 32) * 32)
+
+    def smem(F):
+        return (8 * (F + 1) * L + 12 * 2 * nhop + 4 * (F - 1) * 2 * threads
+                + 4 * F * 2 * C * (Ke + 1) + 4 * (L + 5 * C))
+    fits = [F for F in _NOISE_FRAMES if smem(F) <= _SMEM_MAX]
+    two = [F for F in fits
+           if 2 * (smem(F) + _BLOCK_RESERVED) <= _SM_SMEM]
+    F = (two or fits or [None])[0]
+    return None if F is None else (F, L, smem(F), threads)
 
 
 @functools.lru_cache(maxsize=32)
@@ -471,7 +484,7 @@ def noise_mod_ola(cyc: torch.Tensor, edc: torch.Tensor, ar: torch.Tensor,
     band's bins of (re scale, im scale') x gain (DC and Nyquist real).  One
     launch on the card (any nhop, C and Ke whose 4-frame block fits in
     shared memory: _noise_geometry); no [B, C, N, 2 nhop] segment
-    buffer."""
+    buffer and, past the first kernel, no (E, O) buffer."""
     bands = tuple(int(v) for v in bands)
     if not _on_cuda(cyc, edc, ar, ai, base, re, im, gain):
         return noise_mod_ola_ref(cyc, edc, ar, ai, base, re, im, gain, bands)
@@ -491,7 +504,7 @@ def noise_mod_ola(cyc: torch.Tensor, edc: torch.Tensor, ar: torch.Tensor,
         else None
     if geo is None:
         raise ValueError(f"noise_mod_ola: nhop {nhop}, C {C}, Ke {Ke}: the "
-                         "(E, O) buffer of 4 frames overflows shared memory")
+                         "staged spectra of 4 frames overflow shared memory")
     # one draw for the whole batch keeps its [N, nbin] storage: batch
     # stride 0; otherwise a draw a row
     if B > 1 and re.stride(0) == 0 and im.stride(0) == 0:
@@ -506,7 +519,7 @@ def noise_mod_ola(cyc: torch.Tensor, edc: torch.Tensor, ar: torch.Tensor,
             ai.data_ptr(), base.data_ptr(), spec[0].data_ptr(),
             spec[1].data_ptr(), bstride, gain.data_ptr(),
             ctypes.addressof(ranges), ranges_d, y.data_ptr(), B, N, nhop, C,
-            Ke, geo[0], _stream(cyc))
+            Ke, geo[0], geo[3], _stream(cyc))
     return y
 
 
@@ -930,6 +943,34 @@ def denoise_stats_ref(a, p, cyc_c, mask, voiced, taps1, taps2, *,
             csr, csi)
 
 
+_APPLY_BLOCKS_SM = 16         # the wide denoise_apply's blocks an SM at most
+
+
+@functools.lru_cache(maxsize=64)
+def _apply_geometry(K: int, rows: int, sms: int = 132) -> tuple:
+    """denoise_apply.cu's launch of B N = rows rows of K slots -> (warps a
+    block, 0 for the first kernel (K <= 128); blocks; row pairs a warp, a
+    contiguous run; stage, 1 where each pair is staged in shared memory;
+    shared bytes a block).  The wide kernel (K > 128): a warp two rows at a
+    time (half a warp a row), a block one warp, its buffer the 5 planes'
+    two rows (row_floats(K): K + 3 floats rounded up to 16 modulo 32) and
+    each row's utterance's v and wmul (odd16(K) floats each); as many
+    blocks as the SMs hold at once, at most 16 an SM (shared memory), each
+    an even share of the pairs.  Past a block's shared memory (K > ~4100)
+    no staging, four warps a block."""
+    if K <= 128:
+        return (0, 0, 0, 0, 0)
+    odd16 = lambda n: (n + 15) // 32 * 32 + 16
+    nbytes = 4 * (2 * 5 * odd16(K + 3) + 4 * odd16(K))
+    stage = int(nbytes <= _SMEM_MAX)
+    W, nbytes = (1, nbytes) if stage else (4, 0)
+    per_sm = min(_APPLY_BLOCKS_SM, _SM_SMEM // (nbytes + _BLOCK_RESERVED))
+    pairs = (rows + 1) // 2
+    blocks = max(1, min(-(-pairs // W), sms * per_sm))
+    per = -(-pairs // (blocks * W))
+    return (W, -(-pairs // (W * per)), per, stage, nbytes)
+
+
 def denoise_apply(cre: torch.Tensor, cim: torch.Tensor, csr: torch.Tensor,
                   csi: torch.Tensor, cyc_c: torch.Tensor, mask: torch.Tensor,
                   guard: torch.Tensor, v: torch.Tensor, wmul: torch.Tensor,
@@ -960,8 +1001,9 @@ def denoise_apply(cre: torch.Tensor, cim: torch.Tensor, csr: torch.Tensor,
     outs = tuple(torch.empty((B, N, K), dtype=kind, device=cre.device)
                  for _ in range(2))
     ptrs = [t.data_ptr() for t in ins + (gd,) + outs]
+    W, blocks, per, stage, _ = _apply_geometry(K, B * N, _sm_count(cre.device))
     _launch("denoise_apply", *ptrs, B, N, K, float(strength),
-            int(not spectral), _stream(cre))
+            int(not spectral), W, blocks, per, stage, _stream(cre))
     return outs
 
 

@@ -35,13 +35,20 @@ first 64 bench rows (`tracker384`), and full-band analysis as
 chip_smoke.py's phase 20e runs it (`full48`: batched_pipeline at 48 kHz
 with the 5 ms hop, maxnhar 600, f0_floor 40, on the bench rows resampled
 to 48 kHz on the card; `full16`: 16 kHz at a 2 ms hop, maxnhar 200, fnyq
-8000, f0_floor 40, on the bench rows made at that hop): for these two the
-sides' analysis chunks are compared field by field once, and each pair's
+8000, f0_floor 40, on the bench rows made at that hop) and 48 kHz at a
+10 ms hop as chip_smoke.py's phase 20b runs it (`h10_48`: fnyq 12000,
+noise channels at 3 / 6 / 9 kHz, f0_floor 70, the bench rows resampled to
+48 kHz on the card, every other F0 frame): for these three the sides'
+analysis chunks are compared field by field once, and each pair's
 outputs (y and the SNRs) bit for bit, a line a pair; `kern48` and
-`kern16` time the two kernels whose wide paths the full band runs,
-deconv_full and denoise_stats, alone on the inputs of their calls in
-that analysis (captured once from this checkout's, at full batch), ten
-calls a step, each pair's outputs compared bit for bit; each side analyzes
+`kern16` time the three kernels whose wide paths the full band runs,
+deconv_full, denoise_stats and denoise_apply, alone on the inputs of
+their calls in that analysis (captured once from this checkout's, at full
+batch), ten calls a step, each pair's outputs compared bit for bit;
+`kernnoise48` the same for noise_mod_ola (its wide kernel) on its call in
+h10_48's synthesis, `kern160` for denoise_apply on its call in the
+analysis of phase 20a's creaky-voice conf (maxnhar 160, fnyq 6000, the
+bench rows); each side analyzes
 (and fits layer 1) once, untimed, with its own package.  One untimed step of
 each first, then `pairs` pairs whose order alternates (other first in
 even pairs), each step timed by the host clock around work that ends in
@@ -52,7 +59,7 @@ quartiles, and how many pairs each side won.  Imports no jax:
         [cells=default,matmul,off32,one,refine,rta,layer1,pbp,edits,plain,
                11k,refine11,to_layer1,nasal,tracker,rdviterbi,viterbi,
                wide257,wide512,wide1025,tracker384,full48,full16,
-               kern48,kern16]
+               kern48,kern16,h10_48,kernnoise48,kern160]
 """
 import dataclasses
 import importlib
@@ -67,6 +74,8 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
+# the kernels whose wide paths full-band analysis runs (kern48, kern16)
+KERN_WIDE = ("deconv_full", "denoise_stats", "denoise_apply")
 
 
 def load(root: Path, alias: str):
@@ -131,11 +140,16 @@ def main(argv):
                                  dtype=torch.float32, device="cuda")
                     for j in range(2))
     full = {}
-    if {"full48", "kern48"} & set(cells):
+    if {"full48", "kern48", "h10_48", "kernnoise48"} & set(cells):
         rs = importlib.import_module("port_this.ops.resample")
         x48, r48 = (rs.resample_to(v, 16000.0, 48000.0) for v in (x, x_ref))
+        nxv48 = torch.full_like(nxv, x48.shape[1])
         full["full48"] = (dict(fs=48000.0, f0_floor=40.0, maxnhar=600),
-                          (x48, f0, torch.full_like(nxv, x48.shape[1]), r48))
+                          (x48, f0, nxv48, r48))
+        full["h10_48"] = (dict(fs=48000.0, thop=0.01, fnyq=12000.0,
+                               chanfreq=(3000.0, 6000.0, 9000.0), nspec=513,
+                               f0_floor=70.0),
+                          (x48, f0[:, ::2].contiguous(), nxv48, r48))
     if {"full16", "kern16"} & set(cells):
         rows16 = testsig.make_test_utterances(
             [(i, 0.05 if i < B // 2 else 0.0) for i in range(B)],
@@ -164,25 +178,37 @@ def main(argv):
             wide[cell] = (o, S != 512)
     # (cell, rows): refine, refine11 and the two Viterbis run the batch,
     # then one row alone; the wide Viterbis also rows 0 and 1 joined (-1)
-    # the kern cells: the two kernels' calls in this checkout's full-band
-    # analysis, captured once
+    # the kern cells: the wide kernels' calls in this checkout's full-band
+    # analysis (kernnoise48: in its 48 kHz / 10 ms synthesis), captured once
     captured = {}
-    for cell in ("kern48", "kern16"):
+    kern_cells = {"kern48": ("full48", KERN_WIDE), "kern16": ("full16",
+                                                              KERN_WIDE),
+                  "kernnoise48": ("h10_48", ("noise_mod_ola",)),
+                  "kern160": ("creaky", ("denoise_apply",))}
+    if "kern160" in cells:
+        full["creaky"] = (dict(f0_floor=70.0, maxnhar=160, fnyq=6000.0),
+                          (x, f0, nxv, x_ref))
+    for cell, (source, names) in kern_cells.items():
         if cell in cells:
             import chip_smoke
-            kw, args = full["full" + cell[4:]]
+            kw, args = full[source]
             pkg = sides["this"]
             kmod = importlib.import_module(pkg.__name__ + ".ops.kernels")
             l0 = importlib.import_module(pkg.__name__ + ".models.layer0")
+            corpus = importlib.import_module(pkg.__name__
+                                             + ".parallel.corpus")
             opt = pkg.create_aoptions(use_pallas=True, **kw)
-            calls, _ = chip_smoke.capture_kernel_inputs(
-                kmod, ("deconv_full", "denoise_stats"),
-                lambda: l0._analyze(opt, args[0], args[1]))
+            sopt = dataclasses.replace(pkg.create_soptions(fs=opt.conf.fs),
+                                       use_pallas=True)
+            run = ((lambda: corpus.batched_pipeline(opt, sopt, *args))
+                   if cell == "kernnoise48" else
+                   (lambda: l0._analyze(opt, args[0], args[1])))
+            calls, _ = chip_smoke.capture_kernel_inputs(kmod, names, run)
             for name, recs in calls.items():
                 captured[f"{cell} {name}"] = recs[0]
     runs = [r for cell in cells for r in (
-        [(f"{cell} {k}", None) for k in ("deconv_full", "denoise_stats")]
-        if cell in ("kern48", "kern16") else
+        [(f"{cell} {k}", None) for k in kern_cells[cell][1]]
+        if cell in kern_cells else
         [(cell, min(B, 64) if cell == "viterbi" else B), (cell, 1)]
         if cell in ("refine", "refine11", "viterbi", "rdviterbi")
         else [(cell, 64), (cell, 1), (cell, -1)] if cell in wide

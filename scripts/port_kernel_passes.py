@@ -19,7 +19,8 @@ imports no jax:
     PYTHONPATH=. python3 scripts/port_kernel_passes.py [only=name,...]
         [split=DIR,...]
 
-(name: a source of PASSES below, viterbi, deconv_wide or denoise_wide.)
+(name: a source of PASSES below, viterbi, deconv_wide, denoise_wide,
+noise_wide or apply_wide.)
 
 split= instead times each CUDA kernel of kernels.refine_f0_dec, by its
 name in a torch.profiler trace, of the package in each DIR (a checkout,
@@ -62,7 +63,15 @@ only=denoise_wide times denoise_stats.cu's wide path the same way at
 33 + 17), 20a's K 160 and 20c's 33 + 17 taps at K 80, built without its
 first launch (LLSM_SKIP_PASS_A: the rows' staging, slow tracks, outputs
 and partial sums) and without its second (LLSM_SKIP_PASS_B: the fit and
-the probe).
+the probe).  only=noise_wide times noise_mod_ola.cu's wide kernel at
+chip_smoke.py's phase 20b (48 kHz at a 10 ms hop: gains [128, 800, 481],
+4 bands, 4 envelope harmonics, one draw for the batch) the same way,
+built without pass 1 (LLSM_SKIP_PASS_A: the band iDFT) and without pass 2
+(LLSM_SKIP_PASS_B: the OLA, envelope and band sum); only=apply_wide
+denoise_apply.cu's wide kernel at 20e's shapes ([128, 1600, 600] and
+[128, 4000, 200]) and 20a's K 160, spectral (the main path's) and at
+[128, 1600, 600] polar, built without its fit sums (LLSM_SKIP_PASS_A)
+and without its gate and stores (LLSM_SKIP_PASS_B).
 
 The variants go to build/kernels/ beside the library (listed in
 .gitignore), each under a hash of its source and defines.
@@ -269,6 +278,67 @@ def denoise_wide():
         torch.cuda.empty_cache()
 
 
+# noise_mod_ola's wide shape: (label, B, N, nhop, C, Ke, fs, channel edges)
+NOISE_WIDE_SHAPES = (("20b 48 kHz 10 ms", 128, 800, 480, 4, 4, 48000.0,
+                      (0.0, 3000.0, 6000.0, 9000.0, 24000.0)),)
+# denoise_apply's wide shapes: (label, B, N, K, spectral)
+APPLY_WIDE_SHAPES = (("48 kHz", 128, 1600, 600, True),
+                     ("16 kHz 2 ms", 128, 4000, 200, True),
+                     ("creaky K 160", 128, 1600, 160, True),
+                     ("48 kHz polar", 128, 1600, 600, False))
+
+
+def noise_wide():
+    """noise_mod_ola.cu's wide kernel at NOISE_WIDE_SHAPES (the docstring
+    says how), a line each."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    r = lambda *s: torch.rand(*s, generator=g, device=dev)
+    for label, Bw, Nw, hop, Cw, Kw, fs, edges in NOISE_WIDE_SHAPES:
+        nbin = hop + 1
+        cyc = torch.remainder(torch.cumsum(r(Bw, Nw * hop) * 0.02, -1), 1.0)
+        args = (cyc, r(Bw, Nw, Cw), r(Bw, Nw, Cw, Kw) - 0.5,
+                r(Bw, Nw, Cw, Kw) - 0.5, r(Bw, Nw, Cw) + 0.5,
+                torch.randn(1, Nw, nbin, generator=g, device=dev).expand(
+                    Bw, Nw, nbin),
+                torch.randn(1, Nw, nbin, generator=g, device=dev).expand(
+                    Bw, Nw, nbin), r(Bw, Nw, nbin))
+        bands = kernels.band_ranges(nbin, fs, edges)
+        geo = kernels._noise_geometry(hop, Cw, Kw, bands)
+        wide_variants(
+            "noise_mod_ola", f"noise_wide {label} gains [{Bw}, {Nw}, {nbin}] "
+            f"C {Cw} Ke {Kw}, geometry {geo}",
+            lambda rows: kernels.noise_mod_ola(
+                *(t[:rows] for t in args), bands),
+            ("pass 1 (band iDFT)", "pass 2 (OLA, envelope, band sum)"))
+        del args, cyc
+        torch.cuda.empty_cache()
+
+
+def apply_wide():
+    """denoise_apply.cu's wide kernel at APPLY_WIDE_SHAPES (the docstring
+    says how), a line each."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    r = lambda *s: torch.rand(*s, generator=g, device=dev)
+    for label, Bw, Nw, Kw, spectral in APPLY_WIDE_SHAPES:
+        cre, cim = r(Bw, Nw, Kw) - 0.5, r(Bw, Nw, Kw) - 0.5
+        args = (cre, cim, cre + 0.3 * (r(Bw, Nw, Kw) - 0.5),
+                cim + 0.3 * (r(Bw, Nw, Kw) - 0.5), r(Bw, Nw),
+                (r(Bw, Nw, Kw) > 0.1).float(), r(Bw, Nw) > 0.2,
+                0.05 * r(Bw, Kw), r(Bw, Kw))
+        geo = kernels._apply_geometry(Kw, Bw * Nw, kernels._sm_count(dev))
+        wide_variants(
+            "denoise_apply", f"apply_wide {label} [{Bw}, {Nw}, {Kw}] "
+            f"spectral {spectral}, geometry {geo}",
+            lambda rows: kernels.denoise_apply(
+                *(t[:rows] for t in args[:7]),
+                *(t[:rows] for t in args[7:]), 8.0, spectral=spectral),
+            ("the fit sums", "the gate and stores"))
+        del args, cre, cim
+        torch.cuda.empty_cache()
+
+
 def refine_args(nx):
     """-> (taps, keyword arguments) of the bench shape's decimated refine
     (16 kHz, hop 80, f0_floor 70: the main path's)."""
@@ -401,6 +471,12 @@ def main():
     if "denoise_wide" in names:
         denoise_wide()
         names.remove("denoise_wide")
+    if "noise_wide" in names:
+        noise_wide()
+        names.remove("noise_wide")
+    if "apply_wide" in names:
+        apply_wide()
+        names.remove("apply_wide")
     if not names:
         return 0
     libs = build_variants(names)
@@ -438,7 +514,7 @@ def main():
             cyc.data_ptr(), edc.data_ptr(), ar.data_ptr(), ai.data_ptr(),
             base.data_ptr(), re.data_ptr(), im.data_ptr(), 0,
             gain.data_ptr(), ctypes.addressof(ranges), None, y.data_ptr(),
-            B, N, NHOP, C, KE, 0, stream),
+            B, N, NHOP, C, KE, 0, 0, stream),
         "deconv_full": lambda fn: fn(
             ampl.data_ptr(), phse.data_ptr(), cyc.data_ptr(), hw.data_ptr(),
             mask.data_ptr(), o_a.data_ptr(), o_b.data_ptr(), None, B, N, K,

@@ -1,6 +1,8 @@
 """The wide paths of deconv_full and denoise_stats (the full-band
 deconvolution and the track denoiser's pass A past the first kernels'
-limits) of this checkout against another checkout's (e.g. the parent
+limits), noise_mod_ola and denoise_apply (past hop 256, 8 bands or 8
+envelope harmonics; past K 128) of this checkout against another
+checkout's (e.g. the parent
 commit unpacked under build/archive/), both loaded into one process on
 one card, on uniform random inputs from seed 0: every output bit for
 bit at the full-band shapes of chip_smoke.py's phase 20e ([128, 1600,
@@ -15,15 +17,33 @@ chunks of 2-64 columns and tap-build tiles of 64-8 frames with the
 quadrature field staged or not, every output the first kernel's bits;
 the denoiser with one chunk walked 32 columns at a time, every output
 the first kernel's bits but pp (the wide path's r_inc products round
-otherwise; its largest difference printed).  Prints a line
-a case and, last, the cases that failed; exits 1 if any did.  Imports
-no jax:
+otherwise; its largest difference printed).  what=noise: noise_mod_ola
+at phase 20b's gains [128, 800, 481] (4 bands, 4 envelope harmonics, one
+draw for the batch, and a draw a row), the card tests' (480, 9, 9),
+(80, 9, 9) and (882, 4, 12), odd hops (481, 333), a row of 5 frames,
+fewer than a block's; then the wide kernel forced onto hop 80, 4 bands
+and 4 harmonics (frames and threads a block by monkeypatching
+_noise_geometry) against the first kernel, the other checkout's wide
+kernel first (where it differs, this one must be no further off; the
+largest difference printed).  what=apply: denoise_apply at 20e's [128,
+1600, 600] and [128, 4000, 200] and 20a's K 160, spectral and polar, K
+129 and 203, one row of 301 frames; then the wide kernel forced onto K
+100, 127 and 128 (warps, blocks, pairs a warp and staging by
+monkeypatching _apply_geometry) against the first kernel's scalar
+layout, the other checkout's wide kernel first (its source built with
+nvcc into build/dev/ with its C entry's K > 128 test made K > 0: where it
+differs from the first kernel, this one must equal it and be no further
+off; the largest difference printed).  Prints a line a case and, last, the cases that failed; exits 1
+if any did.  Imports no jax:
 
-    python3 scripts/port_wide_bits.py OTHER_DIR [what=deconv,denoise]
+    python3 scripts/port_wide_bits.py OTHER_DIR
+        [what=deconv,denoise,noise,apply]
 """
+import ctypes
 import importlib
 import importlib.util
 import statistics
+import subprocess
 import sys
 from pathlib import Path
 
@@ -50,6 +70,27 @@ DENOISE_CASES = (("48k", 128, 1600, 600, 13, 7),
                  ("tiny", 2, 5, 150, 13, 17),
                  ("h0", 2, 130, 140, 13, 1))
 DENOISE_FORCED = ((80, 13, 7), (128, 13, 7), (37, 31, 15), (80, 3, 31))
+# (label, B, N, nhop, C, Ke, per-row draws); bands of equal width up to
+# fs / 2 (fs = 100 nhop) but for 20b, whose are its channel edges'
+NOISE_CASES = (("20b", 128, 800, 480, 4, 4, False),
+               ("20b draw a row", 128, 800, 480, 4, 4, True),
+               ("480 9 9", 2, 47, 480, 9, 9, False),
+               ("80 9 9", 2, 301, 80, 9, 9, True),
+               ("882 4 12", 2, 31, 882, 4, 12, False),
+               ("odd 481", 2, 130, 481, 4, 4, True),
+               ("odd 333", 3, 77, 333, 5, 3, False),
+               ("5 frames", 2, 5, 480, 4, 4, False))
+NOISE_20B_EDGES = (0.0, 3000.0, 6000.0, 9000.0, 24000.0)
+# the wide kernels forced onto hop 80, C 4, Ke 4: frames a block (the
+# other checkout's 16, 12, 8, 4; this one's 16, 8, 4 with 64 or 32 threads)
+NOISE_FORCED_OTHER = (16, 12, 8, 4)
+NOISE_FORCED = ((16, 64), (8, 64), (4, 64), (16, 32), (8, 32))
+# (label, B, N, K)
+APPLY_CASES = (("20e 48k", 128, 1600, 600), ("20e 16k2ms", 128, 4000, 200),
+               ("20a", 128, 1600, 160), ("K129", 2, 301, 129),
+               ("K203", 2, 301, 203), ("B1", 1, 301, 160))
+# (warps, pairs a warp, stage) forced onto K 100, 127, 128
+APPLY_FORCED = ((1, 3, 1), (2, 1, 1), (4, 7, 1), (4, 2, 0))
 
 
 def load(root: Path, alias: str):
@@ -188,6 +229,187 @@ def denoise(kt, ko, layer0, r, bad):
                 bad.append(("denoise forced", K, n1, n2, ci))
 
 
+def noise(kt, ko, r, bad):
+    """The wide noise kernel against the other side's, then forced onto
+    the first kernel's shape against the first kernel."""
+    def inputs(B, N, nhop, C, Ke, per_row, seed=None):
+        nbin = nhop + 1
+        cyc = torch.remainder(torch.cumsum(r(B, N * nhop) * 0.02, -1), 1.0)
+        draw = lambda: (torch.randn(B, N, nbin, device="cuda") if per_row
+                        else torch.randn(1, N, nbin, device="cuda").expand(
+                            B, N, nbin))
+        return (cyc, r(B, N, C), r(B, N, C, Ke) - 0.5, r(B, N, C, Ke) - 0.5,
+                r(B, N, C) + 0.5, draw(), draw(), r(B, N, nbin))
+
+    def bands_of(nhop, C, label):
+        fs = 48000.0 if label.startswith("20b") else 100.0 * nhop
+        edges = NOISE_20B_EDGES if label.startswith("20b") else tuple(
+            fs / 2 * c / C for c in range(C)) + (fs / 2 + 1.0,)
+        return kt.band_ranges(nhop + 1, fs, edges)
+
+    torch.manual_seed(1)
+    for label, B, N, nhop, C, Ke, per_row in NOISE_CASES:
+        args = inputs(B, N, nhop, C, Ke, per_row)
+        bands = bands_of(nhop, C, label)
+        got = kt.noise_mod_ola(*args, bands)
+        ok = torch.equal(got, ko.noise_mod_ola(*args, bands))
+        print(f"noise {label} geometry "
+              f"{kt._noise_geometry(nhop, C, Ke, bands)}: equal {ok}",
+              flush=True)
+        if not ok:
+            bad.append(("noise", label))
+        if B > 3:
+            row = kt.noise_mod_ola(*(a[1:2] for a in args), bands)
+            ok = torch.equal(row[0], got[1])
+            print(f"noise {label} row alone equal {ok}", flush=True)
+            if not ok:
+                bad.append(("noise row alone", label))
+            if not per_row:
+                for _ in range(2):
+                    tt = cuda_ms(lambda: kt.noise_mod_ola(*args, bands))
+                    to = cuda_ms(lambda: ko.noise_mod_ola(*args, bands))
+                    print(f"noise {label} ms this {tt:.4f} other {to:.4f}",
+                          flush=True)
+        del args, got
+        torch.cuda.empty_cache()
+    args = inputs(2, 301, 80, 4, 4, True)
+    bands = bands_of(80, 4, "")
+    ref = kt.noise_mod_ola(*args, bands)
+    assert kt._noise_geometry(80, 4, 4, bands)[0] == 0
+    keep_o, keep_t = ko._noise_geometry, kt._noise_geometry
+    worst = 0.0
+    for F in NOISE_FORCED_OTHER:
+        ko._noise_geometry = lambda *a, F=F: (F,) + keep_t(*a)[1:3]
+        try:
+            got = ko.noise_mod_ola(*args, bands)
+        finally:
+            ko._noise_geometry = keep_o
+        d = float((got - ref).abs().max())
+        worst = max(worst, d)
+        print(f"noise forced, the other checkout's wide kernel at {F} "
+              f"frames: the first kernel's bits {torch.equal(got, ref)}; "
+              f"within {d:.3e}", flush=True)
+    for F, threads in NOISE_FORCED:
+        kt._noise_geometry = lambda *a, g=(F, threads): (
+            g[0], *keep_t(*a)[1:3], g[1])
+        try:
+            got = kt.noise_mod_ola(*args, bands)
+        finally:
+            kt._noise_geometry = keep_t
+        d = float((got - ref).abs().max())
+        ok = torch.equal(got, ref)
+        print(f"noise forced (frames, threads) {(F, threads)}: the first "
+              f"kernel's bits {ok}; within {d:.3e}", flush=True)
+        if not ok and d > worst:
+            bad.append(("noise forced", F, threads))
+
+
+def other_apply_wide(other: Path, build):
+    """The other checkout's denoise_apply.cu with its wide kernel launched
+    at every K (its C entry's K > 128 test made K > 0), built by nvcc
+    (build: this checkout's ops._build) -> its llsm_denoise_apply, bound
+    with the other checkout's argument types."""
+    csrc = other / "libllsm2_tpu_torch" / "csrc"
+    src = (csrc / "denoise_apply.cu").read_text()
+    test = "if (K > 8 * kLanes) {"
+    if src.count(test) != 1:
+        sys.exit("port_wide_bits.py: the other checkout's denoise_apply.cu "
+                 "has no single wide-kernel test to force")
+    out = ROOT / "build" / "dev"
+    out.mkdir(parents=True, exist_ok=True)
+    cu, so = out / "apply_wide_other.cu", out / "apply_wide_other.so"
+    cu.write_text(src.replace(test, "if (K > 0) {"))
+    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-I", str(csrc),
+                    "-shared", "-o", str(so), str(cu)], check=True,
+                   capture_output=True)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn = ctypes.CDLL(str(so)).llsm_denoise_apply
+    fn.argtypes = (P,) * 11 + (I, I, I, ctypes.c_float, I, P)
+    fn.restype = I
+    return fn
+
+
+def apply(kt, ko, r, bad, other, build):
+    """The wide denoise_apply against the other side's, then forced onto
+    the first kernel's shapes against the first kernel."""
+    def inputs(B, N, K):
+        cre, cim = r(B, N, K) - 0.5, r(B, N, K) - 0.5
+        return (cre, cim, cre + 0.3 * (r(B, N, K) - 0.5),
+                cim + 0.3 * (r(B, N, K) - 0.5), r(B, N),
+                (r(B, N, K) > 0.1).float(), r(B, N) > 0.2,
+                0.05 * r(B, K), r(B, K))
+
+    for label, B, N, K in APPLY_CASES:
+        args = inputs(B, N, K)
+        for spectral in (True, False):
+            got = kt.denoise_apply(*args, 8.0, spectral=spectral)
+            eq = equal(got, ko.denoise_apply(*args, 8.0, spectral=spectral))
+            print(f"apply {label} spectral {spectral} geometry "
+                  f"{kt._apply_geometry(K, B * N)}: equal {all(eq)} {eq}",
+                  flush=True)
+            if not all(eq):
+                bad.append(("apply", label, spectral))
+            if B > 3:
+                row = kt.denoise_apply(*(a[1:2] for a in args), 8.0,
+                                       spectral=spectral)
+                ok = all(torch.equal(x[0], y[1]) for x, y in zip(row, got))
+                print(f"apply {label} spectral {spectral} row alone equal "
+                      f"{ok}", flush=True)
+                if not ok:
+                    bad.append(("apply row alone", label, spectral))
+            if B > 3 and spectral:
+                for _ in range(2):
+                    tt = cuda_ms(lambda: kt.denoise_apply(*args, 8.0,
+                                                          spectral=True))
+                    to = cuda_ms(lambda: ko.denoise_apply(*args, 8.0,
+                                                          spectral=True))
+                    print(f"apply {label} ms this {tt:.4f} other {to:.4f}",
+                          flush=True)
+            del got
+        del args
+        torch.cuda.empty_cache()
+    keep = kt._apply_geometry
+    wide_other = other_apply_wide(other, build)
+    for K in (100, 127, 128):
+        args = inputs(2, 301, K)
+        pairs = 301
+        for spectral in (True, False):
+            ref = kt.denoise_apply(*args, 8.0, spectral=spectral)
+            kind = torch.complex64 if spectral else torch.float32
+            theirs = [torch.empty((2, 301, K), dtype=kind, device="cuda")
+                      for _ in range(2)]
+            rc = wide_other(*(t.data_ptr() for t in (args[7], args[8])
+                              + args[:6] + (args[6],) + tuple(theirs)),
+                            2, 301, K, 8.0, int(not spectral),
+                            torch.cuda.current_stream().cuda_stream)
+            torch.cuda.synchronize()
+            if rc:
+                raise RuntimeError(f"the other wide kernel: cudaError {rc}")
+            d_other = max(float((x - y).abs().max())
+                          for x, y in zip(theirs, ref))
+            print(f"apply forced K {K} spectral {spectral}, the other "
+                  f"checkout's wide kernel: the first kernel's bits "
+                  f"{all(equal(theirs, ref))}; within {d_other:.3e}",
+                  flush=True)
+            for W, per, stage in APPLY_FORCED:
+                odd16 = lambda n: (n + 15) // 32 * 32 + 16
+                nbytes = stage * W * 4 * (10 * odd16(K + 3) + 4 * odd16(K))
+                g = (W, -(-pairs // (W * per)), per, stage, nbytes)
+                kt._apply_geometry = lambda *a, g=g: g
+                try:
+                    got = kt.denoise_apply(*args, 8.0, spectral=spectral)
+                finally:
+                    kt._apply_geometry = keep
+                eq = equal(got, ref)
+                same = all(equal(got, theirs))
+                d = max(float((x - y).abs().max()) for x, y in zip(got, ref))
+                print(f"apply forced K {K} spectral {spectral} geometry {g}: "
+                      f"the first kernel's bits {all(eq)}; within {d:.3e}; "
+                      f"the other wide kernel's bits {same}", flush=True)
+                if not all(eq) and not (same and d <= d_other):
+                    bad.append(("apply forced", K, spectral, g))
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("port_wide_bits.py: needs a CUDA card")
@@ -198,6 +420,7 @@ def main():
     load(ROOT, "p_this")
     load(Path(argv[0]).resolve(), "p_other")
     kt = importlib.import_module("p_this.ops.kernels")
+    build = importlib.import_module("p_this.ops._build")
     ko = importlib.import_module("p_other.ops.kernels")
     layer0 = importlib.import_module("p_this.models.layer0")
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -208,6 +431,10 @@ def main():
         deconv(kt, ko, r, bad)
     if "denoise" in what:
         denoise(kt, ko, layer0, r, bad)
+    if "noise" in what:
+        noise(kt, ko, r, bad)
+    if "apply" in what:
+        apply(kt, ko, r, bad, Path(argv[0]).resolve(), build)
     print("failed:", bad, flush=True)
     sys.exit(1 if bad else 0)
 

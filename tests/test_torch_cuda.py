@@ -1651,8 +1651,9 @@ def test_denoise_stats_wide_path_equals_the_first_on_card(K, n1, n2,
 @pytest.mark.parametrize("spectral,K", [(True, 160), (False, 160),
                                         (True, 203), (False, 129)])
 def test_denoise_apply_wide_kernel_matches_plain_on_card(spectral, K):
-    """denoise_apply past K = 128 (the wide kernel, the scalar layout read
-    twice) and denoise_finish at the same K, against their twins within
+    """denoise_apply past K = 128 (the wide kernel: each row pair staged
+    once in a one-warp block's shared memory) and denoise_finish at the
+    same K, against their twins within
     test_denoise_apply_kernel_matches_plain_on_card's tolerances."""
     dev = _card()
     args = [T(v).to(dev) for v in _apply_inputs(2, 301, K, 5)]
@@ -1676,6 +1677,94 @@ def test_denoise_apply_wide_kernel_matches_plain_on_card(spectral, K):
                                rtol=1e-4)
 
 
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("K", [600, 1500])
+def test_denoise_apply_wide_staging_equals_device_reads_on_card(
+        K, monkeypatch):
+    """At full band's K 600 and at K 1500 the wide denoise_apply staged in
+    shared memory (its default) equals, bit for bit and in both modes, the
+    same kernel forced to read every slot from device memory (no staging:
+    the reads of the kernel it replaced); past a block's shared memory (K
+    5000) it reads from device memory, and a row alone equals its row of
+    the batch there."""
+    dev = _card()
+    args = [T(v).to(dev) for v in _apply_inputs(2, 65, K, 11)]
+    W, blocks, per, stage, _ = kernels._apply_geometry(K, 130)
+    assert stage == 1
+    for spectral in (True, False):
+        staged = kernels.denoise_apply(*args, 8.0, spectral=spectral)
+        geo = (4, -(-65 // (4 * per)), per, 0, 0)
+        monkeypatch.setattr(kernels, "_apply_geometry",
+                            lambda *a, geo=geo: geo)
+        direct = kernels.denoise_apply(*args, 8.0, spectral=spectral)
+        monkeypatch.undo()
+        assert all(torch.equal(a, b) for a, b in zip(staged, direct))
+    args = [T(v).to(dev) for v in _apply_inputs(2, 9, 5000, 12)]
+    assert kernels._apply_geometry(5000, 18)[3] == 0
+    got = kernels.denoise_apply(*args, 8.0, spectral=True)
+    row = kernels.denoise_apply(*(a[1:] for a in args), 8.0, spectral=True)
+    assert all(torch.equal(r[0], g[1]) for r, g in zip(row, got))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("spectral", [True, False])
+def test_denoise_apply_wide_rows_alone_on_card(spectral):
+    """The wide denoise_apply on an odd row count (the last pair's second
+    row past the end), rows crossing utterances inside a warp's run (N
+    odd), and a row alone equal to its row of the batch bit for bit."""
+    dev = _card()
+    args = [T(v).to(dev) for v in _apply_inputs(3, 77, 203, 9)]
+    assert kernels._apply_geometry(203, 3 * 77)[0] > 0
+    got = kernels.denoise_apply(*args, 8.0, spectral=spectral)
+    ref = kernels.denoise_apply_ref(*args, 8.0, spectral=spectral)
+    if spectral:
+        for g, r in zip(got, ref):
+            torch.testing.assert_close(g, r, atol=2e-4, rtol=1e-4)
+    else:
+        torch.testing.assert_close(torch.polar(*got), torch.polar(*ref),
+                                   atol=2e-4, rtol=1e-4)
+    row = kernels.denoise_apply(*(a[1:2] for a in args), 8.0,
+                                spectral=spectral)
+    assert all(torch.equal(r[0], g[1]) for r, g in zip(row, got))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("K", [100, 127, 128])
+def test_denoise_apply_wide_kernel_forced_onto_the_first_on_card(
+        K, monkeypatch):
+    """The wide denoise_apply forced onto shapes the first kernel takes
+    (its scalar layout, NP4 = 0): one-warp blocks of 1 and 3 pairs a warp,
+    two- and four-warp blocks, and no staging -- every forced launch gives
+    the same bits, one launch counted each, within the bench shape's
+    tolerance of the first kernel.  The wide kernel's own bits, which the
+    one it replaced had (its products fused otherwise than the first
+    kernel's, up to 3e-7 apart), are held bit for bit against that kernel
+    by scripts/port_wide_bits.py what=apply."""
+    dev = _card()
+    args = [T(v).to(dev) for v in _apply_inputs(2, 301, K, 7)]
+    assert kernels._apply_geometry(K, 602)[0] == 0
+    odd16 = lambda n: (n + 15) // 32 * 32 + 16
+    warp = 4 * (10 * odd16(K + 3) + 4 * odd16(K))
+    for spectral in (True, False):
+        first = kernels.denoise_apply(*args, 8.0, spectral=spectral)
+        seen = None
+        for W, per, stage in ((1, 1, 1), (1, 3, 1), (2, 2, 1), (4, 7, 1),
+                              (4, 2, 0)):
+            geo = (W, -(-301 // (W * per)), per, stage, stage * W * warp)
+            monkeypatch.setattr(kernels, "_apply_geometry",
+                                lambda *a, geo=geo: geo)
+            n0 = kernels.LAUNCHES["denoise_apply"]
+            got = kernels.denoise_apply(*args, 8.0, spectral=spectral)
+            torch.cuda.synchronize()
+            monkeypatch.undo()
+            assert kernels.LAUNCHES["denoise_apply"] == n0 + 1
+            if seen is None:
+                seen = got
+            assert all(torch.equal(g, s) for g, s in zip(got, seen)), geo
+            for g, f in zip(got, first):
+                torch.testing.assert_close(g, f, atol=2e-4, rtol=1e-4)
+
+
 def _wide_noise_inputs(nhop, C, Ke, Nf, seed):
     """_noise_inputs at hop nhop with C bands of equal width up to fs / 2
     (fs = 100 nhop) and Ke envelope harmonics -> (tensors, bands)."""
@@ -1687,11 +1776,14 @@ def _wide_noise_inputs(nhop, C, Ke, Nf, seed):
 
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("nhop,C,Ke,Nf", [(480, 4, 4, 130), (80, 9, 9, 301),
-                                          (480, 9, 9, 47), (882, 4, 12, 31)])
+                                          (480, 9, 9, 47), (882, 4, 12, 31),
+                                          (481, 4, 4, 130), (480, 4, 4, 5),
+                                          (2048, 4, 4, 9)])
 def test_noise_mod_ola_wide_kernel_matches_plain_on_card(nhop, C, Ke, Nf):
     """noise_mod_ola past the first kernel's nhop <= 256, C <= 8, Ke <= 8
     (48 kHz at a 10 ms hop: nhop 480; nine bands; nine and twelve envelope
-    harmonics; 44.1 kHz at a 20 ms hop): the wide kernel, one launch,
+    harmonics; 44.1 kHz at a 20 ms hop; an odd hop; 5 frames, fewer than a
+    block's; hop 2048, 8 frames a block): the wide kernel, one launch,
     against the twin within 5e-5; the segment entry at the same C and Ke
     too."""
     dev = _card()
@@ -1710,6 +1802,36 @@ def test_noise_mod_ola_wide_kernel_matches_plain_on_card(nhop, C, Ke, Nf):
     assert kernels.LAUNCHES["noise_mod_ola_seg"] == 1
     torch.testing.assert_close(got, ref, atol=5e-5, rtol=0)
     torch.testing.assert_close(got_s, ref_s, atol=5e-5, rtol=0)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("per_row", [False, True])
+def test_noise_mod_ola_wide_kernel_equals_the_first_on_card(per_row,
+                                                           monkeypatch):
+    """The wide noise kernel forced onto a shape the first kernel takes
+    (hop 80, 4 bands, 4 envelope harmonics, 301 frames: a ragged last
+    block): 16, 8 and 4 frames a block with 64 or 32 threads (a thread
+    looping over two sample pairs) -- every output the first kernel's
+    bits, one launch counted each; a row alone under a forced geometry
+    equals its row of the batch."""
+    dev = _card()
+    args, bands, _ = _noise_inputs(80, per_row, 17, Nf=301)
+    ts = _noise_tensors(args, dev)
+    assert kernels._noise_geometry(80, 4, 4, bands)[0] == 0
+    ref = kernels.noise_mod_ola(*ts, bands)
+    keep = kernels._noise_geometry
+    for F, threads in ((16, 64), (8, 64), (4, 64), (16, 32), (8, 32)):
+        geo = (F, *keep(80, 4, 4, bands)[1:3], threads)
+        monkeypatch.setattr(kernels, "_noise_geometry",
+                            lambda *a, geo=geo: geo)
+        n0 = kernels.LAUNCHES["noise_mod_ola"]
+        got = kernels.noise_mod_ola(*ts, bands)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["noise_mod_ola"] == n0 + 1
+        assert torch.equal(got, ref), geo
+    row = kernels.noise_mod_ola(*(t[1:] for t in ts), bands)
+    monkeypatch.undo()
+    assert torch.equal(row[0], ref[1])
 
 
 @pytest.mark.requires_cuda

@@ -271,30 +271,130 @@ def test_denoise_frame_block_is_the_pallas_kernels(N, block):
 
 
 @pytest.mark.parametrize("nhop,C,Ke,bands,geometry", [
-    # 16 kHz default: the first kernel, 16 frames; L = 4 bands' even slots
+    # 16 kHz default: the first kernel, 16 frames; L = 4 bands' even slots;
+    # its threads are the C entry's own (0)
     (80, 4, 4, (0, 15, 15, 30, 30, 45, 45, 81),
      (0, 16 + 16 + 16 + 38,
-      8 * 16 * 86 + 8 * 16 * 4 * 80 + 24 * 80 + 4 * 16 * 8 * 5 + 4 * 86)),
-    # 48 kHz at 10 ms: nhop 480; 12 and 16 frames overflow, 8 fit; the band
-    # table [5, C] ints too
+      8 * 16 * 86 + 8 * 16 * 4 * 80 + 24 * 80 + 4 * 16 * 8 * 5 + 4 * 86, 0)),
+    # 48 kHz at 10 ms: nhop 480; 16 frames, a thread a sample pair (240
+    # pairs: 256 threads), no (E, O) buffer: spectra [L / 2, 17] float4,
+    # the three tables, the accumulators [15, 2, 256], the coefficients,
+    # the slots' bins and the band table [5, C] ints
     (480, 4, 4, (0, 60, 60, 120, 120, 180, 180, 480),
-     (8, 480, 8 * 8 * 480 + 8 * 8 * 4 * 480 + 24 * 480 + 4 * 8 * 8 * 5
-      + 4 * 480 + 4 * 20)),
-    # nine bands of 9 bins (odd ranges: slots from each band's even bin)
+     (16, 480, 16 * 240 * 17 + 24 * 480 + 4 * 15 * 2 * 256 + 4 * 16 * 8 * 5
+      + 4 * (480 + 20), 256)),
+    # nine bands of 9 bins (odd ranges: slots from each band's even bin):
+    # 40 pairs, 64 threads
     (80, 9, 9, (0, 9, 9, 18, 18, 27, 27, 36, 36, 45, 45, 54, 54, 63, 63, 72,
                 72, 81),
      (16, 10 + 10 + 10 + 10 + 10 + 10 + 10 + 10 + 10,
-      8 * 16 * 90 + 8 * 16 * 9 * 80 + 24 * 80 + 4 * 16 * 18 * 10 + 4 * 90
-      + 4 * 45)),
+      16 * 45 * 17 + 24 * 80 + 4 * 15 * 2 * 64 + 4 * 16 * 18 * 10
+      + 4 * (90 + 45), 64)),
 ])
 def test_noise_geometry_by_hand(nhop, C, Ke, bands, geometry):
     """kernels._noise_geometry: (frames a block, 0 for the first kernel;
     staged slots a frame, each band's from its first even bin, an even
-    count; shared bytes: spectra [F, L] and (E, O) [F, C, nhop] float2,
-    three [2 nhop] tables, coefficients [F, 2 C (Ke + 1)], the slots' bins
-    [L], and the wide kernel's band table [5, C])."""
+    count; shared bytes; threads a block of the wide kernel).  The first
+    kernel's bytes: spectra [F, L] and (E, O) [F, C, nhop] float2, three
+    [2 nhop] tables, coefficients [F, 2 C (Ke + 1)], the slots' bins [L];
+    the wide kernel's: spectra [L / 2, F + 1] float4, tables, y
+    accumulators [F - 1, 2, threads], coefficients, bins and the band
+    table [5, C]."""
     assert kernels._noise_geometry(nhop, C, Ke, bands) == geometry
     assert geometry[2] <= kernels._SMEM_MAX
+
+
+def _equal_bands(nhop, C):
+    fs = 100.0 * nhop
+    edges = tuple(fs / 2 * c / C for c in range(C)) + (fs / 2 + 1.0,)
+    return kernels.band_ranges(nhop + 1, fs, edges)
+
+
+@pytest.mark.parametrize("nhop,C,Ke", [
+    (257, 4, 4), (480, 4, 4), (480, 9, 9), (80, 9, 9), (80, 4, 9),
+    (333, 5, 3), (481, 4, 4), (882, 4, 12), (960, 3, 12), (2048, 4, 4)])
+def test_noise_wide_geometry_fits(nhop, C, Ke):
+    """The wide kernel's launch past the first kernel's limits: 16, 8 or
+    4 frames a block, a warp multiple of threads, at most 256, one a
+    sample pair (half = ceil(nhop / 2)) up to 256; its shared bytes as
+    counted by hand, within the H100's 227 KB a block; two blocks an SM
+    wherever some F leaves room for them, and then the largest such F."""
+    bands = _equal_bands(nhop, C)
+    F, L, nbytes, threads = kernels._noise_geometry(nhop, C, Ke, bands)
+    half = (nhop + 1) // 2
+    assert F in (16, 8, 4)
+    assert threads % 32 == 0 and min(half, 256) <= threads <= 256
+    assert nbytes == (8 * (F + 1) * L + 24 * nhop + 8 * (F - 1) * threads
+                      + 8 * F * C * (Ke + 1) + 4 * (L + 5 * C))
+    assert nbytes <= kernels._SMEM_MAX
+
+    def two(f):
+        return 2 * (nbytes - 8 * (F + 1) * L - 8 * (F - 1) * threads
+                    - 8 * F * C * (Ke + 1) + 8 * (f + 1) * L
+                    + 8 * (f - 1) * threads + 8 * f * C * (Ke + 1)
+                    + 1024) <= 233472
+    pairs = [f for f in (16, 8, 4) if two(f)]
+    assert F == (pairs[0] if pairs else F)
+
+
+def test_noise_geometry_gives_20b_two_blocks_an_sm():
+    """At chip_smoke.py's phase 20b (48 kHz at a 10 ms hop, its channel
+    edges) the wide kernel runs 16 frames a block (15 hops, not the
+    parent's 7 of 8) and two blocks fit an SM's 228 KB."""
+    bands = kernels.band_ranges(481, 48000.0,
+                                (0.0, 3000.0, 6000.0, 9000.0, 24000.0))
+    assert bands == (0, 60, 60, 120, 120, 180, 180, 480)
+    F, L, nbytes, threads = kernels._noise_geometry(480, 4, 4, bands)
+    assert (F, L, threads) == (16, 480, 256)
+    assert 2 * (nbytes + 1024) <= 233472
+
+
+def _apply_warp_bytes(K):
+    """The wide denoise_apply's buffer a warp: 5 planes of two rows
+    row_floats(K) apart (K + 3 rounded up to 16 modulo 32, so the two half
+    warps' rows start 16 banks apart), then v and wmul of each half warp's
+    utterance (odd16(K) floats each)."""
+    odd16 = lambda n: (n + 15) // 32 * 32 + 16
+    return 4 * (2 * 5 * odd16(K + 3) + 4 * odd16(K))
+
+
+@pytest.mark.parametrize("K,rows,geometry", [
+    # the first kernel up to K = 128
+    (80, 204800, (0, 0, 0, 0, 0)),
+    (128, 7, (0, 0, 0, 0, 0)),
+    # 20e 48 kHz: rows 624 floats apart; six one-warp blocks an SM
+    (600, 204800, (1, 788, 130, 1, 4 * (10 * 624 + 4 * 624))),
+    # 20e 16 kHz at 2 ms and 20a creaky voice: sixteen blocks an SM
+    (200, 512000, (1, 2099, 122, 1, 4 * (10 * 208 + 4 * 208))),
+    (160, 204800, (1, 2090, 49, 1, 4 * (10 * 176 + 4 * 176))),
+    # a row alone at 48 kHz: 800 pairs, two a warp
+    (600, 1600, (1, 400, 2, 1, _apply_warp_bytes(600))),
+    (129, 602, (1, 301, 1, 1, _apply_warp_bytes(129))),
+    (1500, 204800, (1, 264, 388, 1, _apply_warp_bytes(1500))),
+    # past one warp's buffer in a block: no staging, four warps a block
+    (5000, 10, (4, 2, 1, 0, 0)),
+])
+def test_apply_geometry_by_hand(K, rows, geometry):
+    """kernels._apply_geometry: (warps a block, 0 for the first kernel;
+    blocks; row pairs a warp; stage; shared bytes) on a 132-SM H100."""
+    assert kernels._apply_geometry(K, rows, 132) == geometry
+
+
+@pytest.mark.parametrize("K", [129, 160, 203, 600, 2000, 5000])
+@pytest.mark.parametrize("rows", [1, 301, 204800, 512000])
+def test_apply_geometry_covers_every_pair(K, rows):
+    """Every row pair of the wide denoise_apply falls to exactly one warp
+    (blocks x warps x pairs a warp covers them and no block is idle), the
+    blocks fit the card at once (shared memory, at most 16 an SM) and the
+    shared bytes are the warp's buffer and within 227 KB a block."""
+    W, blocks, per, stage, nbytes = kernels._apply_geometry(K, rows, 132)
+    pairs = (rows + 1) // 2
+    assert W in (1, 4) and blocks >= 1 and per >= 1
+    assert blocks * W * per >= pairs > (blocks - 1) * W * per
+    assert nbytes == stage * W * _apply_warp_bytes(K)
+    assert nbytes <= kernels._SMEM_MAX
+    per_sm = min(16, 233472 // (nbytes + 1024))
+    assert blocks <= 132 * per_sm
 
 
 @pytest.mark.parametrize("C,Ke,nhop", [(4, 9, 80), (3, 12, 480)])
