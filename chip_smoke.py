@@ -358,7 +358,11 @@ non-zero without the final "ok" line:
      second F0 frame; 128 x 384000 samples): noise_mod_ola at nhop = 480
      (the wide kernel: its geometry, two blocks an SM, and at full batch
      its twin, time, bound and ratio), the pins, times and rows alone as
-     20a.  20c,
+     20a.  20g, the same at a 20 ms hop (hop 960, every fourth F0 frame):
+     the cycle track past a 512-sample hop (its long-hop kernel) in the
+     analysis and the synthesis, two launches, held to its twin at full
+     batch there and timed beside its bound; pins from port_jax_pins.py
+     only=h20, rows 0, 1 and 64 alone as 20a.  20c,
      denoise_stats on phase 5's full-batch call ([128, 1600, 80]) with the
      taps of a 2 ms hop (33 + 17) and of track_denoise_hz=5 at 5 ms (41 +
      21): the wide kernel against its twin.  20d, viterbi_scan against its
@@ -398,7 +402,8 @@ its K = 1 case is phase 3's), 9 for env_render and viterbi_scan, 16c
 for noise_mod_ola_seg;
 denoise_apply also "finish_launches" and "finish_full_batch" for its
 second launch; "launches_by_phase" the counts of phases 11 to 17, of
-19, summed over its ranks' 19a runs, and of 20a, 20b, 20d and 20e); ms,
+19, summed over its ranks' 19a runs, and of 20a, 20b, 20d, 20e and
+20g); ms,
 plain_ms, library_ms and bound_ms at the first 2-row call of phase 3
 (noise_mod_ola_seg: its full-batch call of 16c; deconv_full_wide,
 deconv_full's second path: 20e's first 2-row call, its launches those
@@ -731,10 +736,14 @@ MESH_FIELDS = ("f0", "ampl", "phse", "hm_mask", "psd", "edc", "eenv_a",
 # rows 0, 1 (noisy) and 64 (clean) at creaky voice's conf and at 48 kHz with
 # a 10 ms hop, from
 #   JAX_PLATFORMS=cpu PYTHONPATH=. python scripts/port_jax_pins.py only=wide
+# and with a 20 ms hop (phase 20g) from only=h20
 WIDE_PINS_DB = {"creaky": {0: 40.427391052246094, 1: 40.932682037353516,
                            64: 54.8484001159668},
                 "48 kHz": {0: 38.91567611694336, 1: 39.449703216552734,
-                           64: 48.93970489501953}}
+                           64: 48.93970489501953},
+                "48 kHz 20 ms": {0: 33.830360412597656,
+                                 1: 34.028926849365234,
+                                 64: 36.950321197509766}}
 # phase 20e (cell wide, full band): maxnhar = fs / 2 / f0_floor at phase
 # 5's options with f0_floor 40 -> (create_aoptions keywords, the fixtures'
 # hop), and the JAX package's batched_pipeline SNRs of bench rows 0, 1
@@ -4697,15 +4706,15 @@ def wide_cases(torch, kernels, calls, prefix):
 
 
 def wide_path(torch, mods, label, opt, sopt, data, pins,
-              checked=FULL_CHECKED):
-    """Phase 20a / 20b / 20e: the path's kernels against their twins on its
-    calls at 2 rows, then the counted run at full batch (run_path:
-    launches, pins, full-batch times beside the bounds, those in `checked`
-    against their twins, the step) and rows 0 and 64 alone -> (cases,
-    launches, full-batch records, by kernel each 2-row call's tensor
-    arguments' shapes)."""
+              checked=FULL_CHECKED, extra=(), rows=(0, N_NOISY)):
+    """Phase 20a / 20b / 20e / 20g: the path's kernels (the main six, the
+    finish and `extra`) against their twins on its calls at 2 rows, then
+    the counted run at full batch (run_path: launches, pins, full-batch
+    times beside the bounds, those in `checked` against their twins, the
+    step) and `rows` alone -> (cases, launches, full-batch records, by
+    kernel each 2-row call's tensor arguments' shapes)."""
     kernels, layer0, corpus = mods
-    names = MAIN_SIX + (FINISH,)
+    names = MAIN_SIX + (FINISH,) + tuple(extra)
     two = tuple(d[:2] for d in data)
     calls, _ = capture_kernel_inputs(
         kernels, names, lambda: corpus.batched_pipeline(opt, sopt, *(
@@ -4720,7 +4729,7 @@ def wide_path(torch, mods, label, opt, sopt, data, pins,
     launches, snr, full = run_path(torch, kernels, corpus, label, opt, sopt,
                                    data, pins, names, names, clean_min=None,
                                    noisy_tol=L0_NOISY_TOL_DB, checked=checked)
-    batch_rows(torch, mods, opt, sopt, data, snr, rows=(0, N_NOISY),
+    batch_rows(torch, mods, opt, sopt, data, snr, rows=rows,
                label=label.split()[0])
     torch.cuda.empty_cache()
     return cases, launches, full, shapes
@@ -4962,7 +4971,28 @@ def wide_phase(torch, mods, opt, sopt, data, summary, full, by_phase):
           f"blocks an SM")
     redesigned_lines("20b", f, {"noise_mod_ola": f"geometry {geo}"})
     join(cases, f)
+    # 20g: 48 kHz at a 20 ms hop (hop 960: the cycle track's long-hop
+    # kernel, in the analysis and the synthesis), every fourth F0 frame
+    data20 = (data48[0], f0[:, ::4].contiguous()) + data48[2:]
     del data48
+    opt20 = create_aoptions(fs=48000.0, thop=0.02, fnyq=12000.0,
+                            chanfreq=(3000.0, 6000.0, 9000.0), nspec=513,
+                            f0_floor=70.0, use_pallas=True)
+    assert opt20.conf.nhop == 960
+    cases, by_phase["20g"], f, _ = wide_path(
+        torch, mods, "20g 48 kHz 20 ms", opt20, sopt48, data20,
+        WIDE_PINS_DB["48 kHz 20 ms"],
+        checked=FULL_CHECKED + ("sample_cycles",), extra=("sample_cycles",),
+        rows=BATCH_ROWS)
+    n_cyc = by_phase["20g"]["sample_cycles"]
+    phase("20g long cycle track", n_cyc == 2,
+          f"nhop {opt20.conf.nhop} > 512: {n_cyc} sample_cycles launches "
+          f"(analysis and synthesis) in the counted run, each a launch of "
+          f"the long-hop kernel, {kernels._cycle_words(BATCH, 960, 384000)} "
+          f"scratch words")
+    redesigned_lines("20g", f, {"sample_cycles": ""})
+    join(cases, f)
+    del data20
     torch.cuda.empty_cache()
     # 20c: denoise_stats on phase 5's full-batch call with wide taps
     calls, _ = capture_kernel_inputs(

@@ -51,8 +51,9 @@
 // ranges in device memory.
 #include "common.cuh"
 
-// LLSM_SKIP_PASS_{A,B} = 1 compiles pass 1 or pass 2 out, for the pass
-// timings of scripts/port_kernel_passes.py; the library leaves both 0.
+// LLSM_SKIP_PASS_{A,B} = 1 compiles pass 1 or pass 2 out (in the segment
+// entry the envelope or the segment loads), for the pass timings of
+// scripts/port_kernel_passes.py; the library leaves both 0.
 #ifndef LLSM_SKIP_PASS_A
 #define LLSM_SKIP_PASS_A 0
 #endif
@@ -678,73 +679,347 @@ extern "C" int llsm_noise_mod_ola(const float* cyc, const float* edc,
 //   y[b, i nhop + t] = sum_c (seg[b, c, i, nhop + t]
 //                             + (i + 1 < N ? seg[b, c, i + 1, t] : 0))
 //                      max(env_c, 0) / max(lerp(base_c), 1e-8)
-// with env_c as above (envelope_sample).  Replaces the same
-// noise_mod_ola_pallas (libllsm2_tpu/ops/pallas_osc.py), which the JAX
-// package feeds the FFT branch's segments.  Bound on the H100: the bytes
-// of the segments, read once (each sample of a segment feeds one output
-// sample), against the envelope's C (Ke + 1) lerp-and-rotate steps a
-// sample.  Design: one block per (tile of kHops hops, utterance) stages
-// its kFrames frames' coefficients in shared memory; a thread a sample,
-// consecutive threads on consecutive samples, so the segment loads and
-// the stores are coalesced.
+// with env_c as above (envelope_sample's operations, in its order).
+// Replaces the same noise_mod_ola_pallas (libllsm2_tpu/ops/pallas_osc.py),
+// which the JAX package feeds the FFT branch's segments.
+//
+// Bound on the H100: the bytes of the segments, read once (each sample of a
+// segment feeds one output sample: 524 MB at 16 kHz, [128, 4, 1600, 160]),
+// against the envelope's C (Ke + 1) lerp-and-accumulate steps and Ke
+// rotations a sample.  Design: a block of kSegThreads threads takes a tile of
+// H hops of one row (H = 32, or 15 where 33 frames' coefficients would
+// overflow shared memory: the wrapper admits any C and Ke whose 16 frames
+// fit) and stages its H + 1 frames' coefficients in shared memory; a thread
+// takes kSegS = 4 consecutive samples of a hop (VEC, nhop a multiple of 4:
+// 16-byte loads of the segments and the cycle track and 16-byte stores; else
+// single loads, a hop's last run cut at its end), its runs stepping through
+// the tile by the block's stride, the hop tracked by adding the stride's
+// quotient and remainder (no divide a sample).
+//   - The rotation ladder z^k = e^{2 pi j k cyc}, k = 1..Ke, is made once
+//     a sample and used by every band (made a band at a time it would
+//     cost C Ke rotations where Ke do); past kSegKC harmonics it is
+//     made in chunks of kSegChunk, bands kSegCG at a time, their envelopes
+//     in registers between chunks.
+//   - Each band's coefficients are read from shared memory once a thread
+//     (4 samples), their differences taken once, their lerps a sample.
+//   - Where VEC, the next band's segment samples, and after the last band
+//     the next run's first band and cycle samples, are loaded while this
+//     band's envelope is made (not in the chunked layout, whose registers
+//     go to the envelopes, nor with single loads, which time faster
+//     without).
+// Every product is spelled out as nvcc contracts envelope_sample's loop
+// (its SASS): a term fma(rl, wr, -(il wi)) added to the envelope, the
+// rotation (fma(wr, c1, -(wi s1)), fma(wr, s1, wi c1)), the lerps fma(a1
+// - a0, s, a0), so the outputs keep the bits of a band-at-a-time render.
+// LLSM_SKIP_PASS_A = 1 compiles the envelope out (the ladder and the
+// lerps: an envelope of 1), LLSM_SKIP_PASS_B = 1 the segment loads (an OLA
+// of 1), for scripts/port_kernel_passes.py (only=seg).
 namespace {
 
-constexpr int kSegThreads = 256;
+constexpr int kSegThreads = 128;
+constexpr int kSegHops = 32;   // hops a tile where their frames fit
+constexpr int kSegS = 4;       // samples a thread
+constexpr int kSegKC = 8;      // harmonics of a ladder in registers
+constexpr int kSegChunk = 4;   // harmonics of a chunk past kSegKC
+constexpr int kSegCG = 4;      // bands a group past kSegKC
 
-__global__ void __launch_bounds__(kSegThreads)
+// blocks an SM each instance is compiled for: the most whose register
+// budget holds it without spilling (5: 102 registers, 4: 128, 3: 170)
+constexpr int seg_min_blocks(bool vec, int KC, bool chunked) {
+  return chunked ? 4 : KC <= 4 ? (vec ? 5 : 4) : (vec ? 4 : 3);
+}
+
+// n <= 4 floats from p to v (16 bytes where VEC: n = 4), 0 past n
+template <bool VEC>
+__device__ __forceinline__ void seg_load4(float* v, const float* p, int n) {
+  if (VEC) {
+    const float4 u = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = u.x; v[1] = u.y; v[2] = u.z; v[3] = u.w;
+  } else {
+#pragma unroll
+    for (int s = 0; s < kSegS; ++s) v[s] = s < n ? __ldg(p + s) : 0.0f;
+  }
+}
+
+// band c's two segment runs at the thread's n samples: seg[c, i, nhop + t
+// + s] and, where frame i + 1 exists, seg[c, i + 1, t + s] (else 0)
+template <bool VEC>
+__device__ __forceinline__ void seg_load(float* lo, float* hi,
+                                         const float* sc, int nhop, int T,
+                                         bool partner, int n) {
+#pragma unroll
+  for (int s = 0; s < kSegS; ++s) lo[s] = hi[s] = 0.0f;
+  if (LLSM_SKIP_PASS_B) return;
+  seg_load4<VEC>(lo, sc + nhop, n);
+  if (partner) seg_load4<VEC>(hi, sc + T, n);
+}
+
+// z <- z e^{2 pi j cyc}, as nvcc compiles envelope_sample's rotation
+__device__ __forceinline__ void seg_rotate(float& wr, float& wi, float c1,
+                                           float s1) {
+  const float nwr = __fmaf_rn(wr, c1, -__fmul_rn(wi, s1));
+  wi = __fmaf_rn(wr, s1, __fmul_rn(wi, c1));
+  wr = nwr;
+}
+
+// env += sum over the ladder's harmonics k0 .. k0 + n - 1 of lerp(ar)
+// Re z^k - lerp(ai) Im z^k at the 4 samples; ar0 / ai0 frame i's
+// coefficients of the band, ar1 / ai1 frame i + 1's
+template <int KC>
+__device__ __forceinline__ void seg_terms(float* env, float (*wr)[KC],
+                                          float (*wi)[KC],
+                                          const float* ar0, const float* ar1,
+                                          const float* ai0, const float* ai1,
+                                          int k0, int n, const float* sv) {
+#pragma unroll
+  for (int k = 0; k < KC; ++k) {
+    if (k >= n) break;
+    const float a0 = ar0[k0 + k], da = __fsub_rn(ar1[k0 + k], a0);
+    const float b0 = ai0[k0 + k], db = __fsub_rn(ai1[k0 + k], b0);
+#pragma unroll
+    for (int s = 0; s < kSegS; ++s) {
+      const float rl = __fmaf_rn(sv[s], da, a0);
+      const float il = __fmaf_rn(sv[s], db, b0);
+      env[s] = __fadd_rn(env[s], __fmaf_rn(rl, wr[s][k],
+                                           -__fmul_rn(il, wi[s][k])));
+    }
+  }
+}
+
+// acc += OLA max(env, 0) / max(lerp(base), 1e-8) at the 4 samples
+__device__ __forceinline__ void seg_accumulate(float* acc, const float* lo,
+                                               const float* hi,
+                                               const float* env, float b0,
+                                               float b1, const float* sv) {
+#pragma unroll
+  for (int s = 0; s < kSegS; ++s) {
+    const float ola = LLSM_SKIP_PASS_B ? 1.0f : __fadd_rn(lo[s], hi[s]);
+    const float e = LLSM_SKIP_PASS_A ? 1.0f : env[s];
+    const float bl = fmaf(b1 - b0, sv[s], b0);
+    acc[s] = fmaf(ola, __fdividef(fmaxf(e, 0.0f), fmaxf(bl, 1e-8f)), acc[s]);
+  }
+}
+
+// VEC: nhop % 4 == 0; the ladder in registers to KC harmonics (Ke <= KC),
+// or CHUNKED in chunks of KC (Ke > kSegKC)
+template <bool VEC, int KC, bool CHUNKED>
+__global__ void __launch_bounds__(kSegThreads,
+                                  seg_min_blocks(VEC, KC, CHUNKED))
 noise_seg_kernel(const float* __restrict__ cyc, const float* __restrict__ edc,
                  const float* __restrict__ ar, const float* __restrict__ ai,
                  const float* __restrict__ base,
                  const float* __restrict__ seg, float* __restrict__ y, int N,
-                 int nhop, int C, int Ke) {
+                 int nhop, int C, int Ke, int H) {
+  constexpr int S = kSegS;
+  constexpr bool PF = !CHUNKED && VEC;
   extern __shared__ float sm[];
-  const int CK = C * Ke, T = 2 * nhop;
-  float* s_edc = sm;                        // [kFrames, C]
-  float* s_base = s_edc + kFrames * C;      // [kFrames, C]
-  float* s_ar = s_base + kFrames * C;       // [kFrames, C, Ke]
-  float* s_ai = s_ar + kFrames * CK;        // [kFrames, C, Ke]
+  const int CK = C * Ke, T = 2 * nhop, F = H + 1;
+  float* s_edc = sm;                        // [F, C]
+  float* s_base = s_edc + F * C;            // [F, C]
+  float* s_ar = s_base + F * C;             // [F, C, Ke]
+  float* s_ai = s_ar + F * CK;              // [F, C, Ke]
   const int b = blockIdx.y;
-  const int f0 = blockIdx.x * kHops;
+  const int f0 = blockIdx.x * H;
   const int64_t row0 = (int64_t)b * N;
-  for (int idx = threadIdx.x; idx < kFrames * C; idx += blockDim.x) {
+  for (int idx = threadIdx.x; idx < F * C; idx += kSegThreads) {
     const int64_t fr = row0 + min(f0 + idx / C, N - 1);
     const int c = idx % C;
     s_edc[idx] = __ldg(edc + fr * C + c);
     s_base[idx] = __ldg(base + fr * C + c);
   }
-  for (int idx = threadIdx.x; idx < kFrames * CK; idx += blockDim.x) {
+  for (int idx = threadIdx.x; idx < F * CK; idx += kSegThreads) {
     const int64_t fr = row0 + min(f0 + idx / CK, N - 1);
     const int q = idx % CK;
     s_ar[idx] = __ldg(ar + fr * CK + q);
     s_ai[idx] = __ldg(ai + fr * CK + q);
   }
-  __syncthreads();
 
-  const int nh = min(kHops, N - f0);
+  // runs of 4 samples: nq a hop, the last cut at the hop's end
+  const int nh = min(H, N - f0), nq = (nhop + S - 1) / S, items = nh * nq;
   const float inv_hop = 1.0f / (float)nhop;
   const float* sb = seg + (int64_t)b * C * N * T;
-  for (int idx = threadIdx.x; idx < nh * nhop; idx += blockDim.x) {
-    const int i = idx / nhop, t = idx - i * nhop;
-    const bool partner = f0 + i + 1 < N;
-    const int64_t g = (row0 + f0 + i) * nhop + t;
-    float s1, c1;
-    sincospif(2.0f * llsm::frac_c(__ldg(cyc + g)), &s1, &c1);
-    const float sv = (float)t * inv_hop;
-    float acc = 0.0f;
-    for (int c = 0; c < C; ++c) {
-      const float env = llsm::envelope_sample(
-          s_edc[i * C + c], s_edc[(i + 1) * C + c], s_ar + i * CK + c * Ke,
-          s_ar + (i + 1) * CK + c * Ke, s_ai + i * CK + c * Ke,
-          s_ai + (i + 1) * CK + c * Ke, Ke, sv, c1, s1);
-      const float* sc = sb + ((int64_t)c * N + f0 + i) * T;
-      float ola = __ldg(sc + nhop + t);
-      if (partner) ola += __ldg(sc + T + t);
-      const float b0 = s_base[i * C + c];
-      const float bl = fmaf(s_base[(i + 1) * C + c] - b0, sv, b0);
-      acc = fmaf(ola, __fdividef(fmaxf(env, 0.0f), fmaxf(bl, 1e-8f)), acc);
-    }
-    y[g] = acc;
+  const int64_t g0 = (row0 + f0) * nhop;
+  const int64_t bstride = (int64_t)N * T;
+  // the thread's first run (hop i, samples q S ...), then the block's
+  // stride as a quotient and remainder of hops
+  int i = threadIdx.x / nq, q = threadIdx.x - i * nq;
+  const int di = kSegThreads / nq, dq = kSegThreads - di * nq;
+  // a run's cycle samples and band 0's segment runs are loaded one run
+  // ahead (PF), each band's next one band ahead
+  float lo[S], hi[S], cv[S];
+  if (PF && threadIdx.x < items) {
+    const int n = min(S, nhop - q * S);
+    seg_load<VEC>(lo, hi, sb + ((int64_t)f0 + i) * T + q * S, nhop, T,
+                  f0 + i + 1 < N, n);
+    seg_load4<VEC>(cv, cyc + g0 + (int64_t)i * nhop + q * S, n);
   }
+  __syncthreads();
+  for (int e = threadIdx.x; e < items; e += kSegThreads) {
+    const int t = q * S, n = min(S, nhop - t);
+    const bool partner = f0 + i + 1 < N;
+    const float* sf = sb + ((int64_t)f0 + i) * T + t;   // band 0, frame i
+    const float* e0 = s_edc + i * C;
+    const float* bs0 = s_base + i * C;
+    const float* ar0 = s_ar + i * CK;
+    const float* ai0 = s_ai + i * CK;
+    if (!PF) {
+      if (!CHUNKED) seg_load<VEC>(lo, hi, sf, nhop, T, partner, n);
+      seg_load4<VEC>(cv, cyc + g0 + (int64_t)i * nhop + t, n);
+    }
+    // the next run (hop i2, samples q2 S ...)
+    int i2 = i + di, q2 = q + dq;
+    if (q2 >= nq) {
+      q2 -= nq;
+      ++i2;
+    }
+    const bool more = PF && e + kSegThreads < items;
+    float c1[S], s1[S], sv[S], acc[S];
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      sincospif(2.0f * llsm::frac_c(cv[s]), &s1[s], &c1[s]);
+      sv[s] = (float)(t + s) * inv_hop;
+      acc[s] = 0.0f;
+    }
+    if (more)
+      seg_load4<VEC>(cv, cyc + g0 + (int64_t)i2 * nhop + q2 * S,
+                     min(S, nhop - q2 * S));
+    if (!CHUNKED) {
+      // the ladder z^(k + 1), k < Ke, once for every band
+      float wr[S][KC], wi[S][KC];
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        wr[s][0] = c1[s];
+        wi[s][0] = s1[s];
+#pragma unroll
+        for (int k = 1; k < KC; ++k) {
+          wr[s][k] = wr[s][k - 1];
+          wi[s][k] = wi[s][k - 1];
+          if (k < Ke) seg_rotate(wr[s][k], wi[s][k], c1[s], s1[s]);
+        }
+      }
+      for (int c = 0; c < C; ++c) {
+        float clo[S], chi[S];
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          clo[s] = lo[s];
+          chi[s] = hi[s];
+        }
+        if (c + 1 < C)                 // the next band's, in flight
+          seg_load<VEC>(lo, hi, sf + (c + 1) * bstride, nhop, T, partner, n);
+        else if (more)                 // the next run's band 0
+          seg_load<VEC>(lo, hi, sb + ((int64_t)f0 + i2) * T + q2 * S, nhop,
+                        T, f0 + i2 + 1 < N, min(S, nhop - q2 * S));
+        float env[S];
+        const float ed0 = e0[c], ded = __fsub_rn(e0[C + c], ed0);
+#pragma unroll
+        for (int s = 0; s < S; ++s) env[s] = __fmaf_rn(sv[s], ded, ed0);
+        if (!LLSM_SKIP_PASS_A)
+          seg_terms<KC>(env, wr, wi, ar0 + c * Ke, ar0 + CK + c * Ke,
+                        ai0 + c * Ke, ai0 + CK + c * Ke, 0, Ke, sv);
+        seg_accumulate(acc, clo, chi, env, bs0[c], bs0[C + c], sv);
+      }
+    } else {
+      // bands kSegCG at a time; for each group the ladder in chunks of
+      // KC harmonics, each chunk's terms added to the group's envelopes
+      // (each band's terms in the order of k)
+      for (int c0 = 0; c0 < C; c0 += kSegCG) {
+        const int nc = min(kSegCG, C - c0);
+        float env[kSegCG][S];
+#pragma unroll
+        for (int u = 0; u < kSegCG; ++u) {
+          if (u >= nc) break;
+          const float ed0 = e0[c0 + u];
+          const float ded = __fsub_rn(e0[C + c0 + u], ed0);
+#pragma unroll
+          for (int s = 0; s < S; ++s) env[u][s] = __fmaf_rn(sv[s], ded, ed0);
+        }
+        float zr[S], zi[S];
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          zr[s] = c1[s];
+          zi[s] = s1[s];
+        }
+        for (int k0 = 0; !LLSM_SKIP_PASS_A && k0 < Ke; k0 += KC) {
+          const int nk = min(KC, Ke - k0);
+          float wr[S][KC], wi[S][KC];
+#pragma unroll
+          for (int s = 0; s < S; ++s) {
+#pragma unroll
+            for (int k = 0; k < KC; ++k) {
+              wr[s][k] = zr[s];
+              wi[s][k] = zi[s];
+              if (k0 + k + 1 < Ke) seg_rotate(zr[s], zi[s], c1[s], s1[s]);
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < kSegCG; ++u) {
+            if (u >= nc) break;
+            const int c = c0 + u;
+            seg_terms<KC>(env[u], wr, wi, ar0 + c * Ke, ar0 + CK + c * Ke,
+                          ai0 + c * Ke, ai0 + CK + c * Ke, k0, nk, sv);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kSegCG; ++u) {
+          if (u >= nc) break;
+          const int c = c0 + u;
+          float clo[S], chi[S];
+          seg_load<VEC>(clo, chi, sf + c * bstride, nhop, T, partner, n);
+          seg_accumulate(acc, clo, chi, env[u], bs0[c], bs0[C + c], sv);
+        }
+      }
+    }
+    float* yg = y + g0 + (int64_t)i * nhop + t;
+    if (VEC) {
+      *reinterpret_cast<float4*>(yg) =
+          make_float4(acc[0], acc[1], acc[2], acc[3]);
+    } else {
+#pragma unroll
+      for (int s = 0; s < S; ++s)
+        if (s < n) yg[s] = acc[s];
+    }
+    i = i2;
+    q = q2;
+  }
+}
+
+template <bool VEC, int KC, bool CHUNKED>
+cudaError_t launch_seg(const float* cyc, const float* edc, const float* ar,
+                       const float* ai, const float* base, const float* seg,
+                       float* y, int B, int N, int nhop, int C, int Ke,
+                       cudaStream_t st) {
+  // kSegHops hops a tile where their frames' coefficients fit, else 15
+  // (16 frames: any C and Ke the wrapper admits)
+  int dev = 0, cap = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&cap, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  if (e != cudaSuccess) return e;
+  const size_t per = (size_t)(2 * C + 2 * C * Ke) * sizeof(float);
+  const int H = (size_t)(kSegHops + 1) * per <= (size_t)cap ? kSegHops : 15;
+  const size_t smem = (size_t)(H + 1) * per;
+  e = llsm::allow_smem(noise_seg_kernel<VEC, KC, CHUNKED>, smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid((N + H - 1) / H, B);
+  noise_seg_kernel<VEC, KC, CHUNKED><<<grid, kSegThreads, smem, st>>>(
+      cyc, edc, ar, ai, base, seg, y, N, nhop, C, Ke, H);
+  return cudaGetLastError();
+}
+
+template <bool VEC>
+cudaError_t launch_seg_ke(const float* cyc, const float* edc,
+                          const float* ar, const float* ai, const float* base,
+                          const float* seg, float* y, int B, int N, int nhop,
+                          int C, int Ke, cudaStream_t st) {
+  if (Ke <= 4)
+    return launch_seg<VEC, 4, false>(cyc, edc, ar, ai, base, seg, y, B, N,
+                                     nhop, C, Ke, st);
+  if (Ke <= kSegKC)
+    return launch_seg<VEC, kSegKC, false>(cyc, edc, ar, ai, base, seg, y, B,
+                                          N, nhop, C, Ke, st);
+  return launch_seg<VEC, kSegChunk, true>(cyc, edc, ar, ai, base, seg, y, B,
+                                          N, nhop, C, Ke, st);
 }
 
 }  // namespace
@@ -756,11 +1031,14 @@ extern "C" int llsm_noise_mod_ola_seg(const float* cyc, const float* edc,
                                       int Ke, void* stream) {
   if (B <= 0 || N <= 0) return (int)cudaGetLastError();
   if (nhop <= 0 || C <= 0 || Ke < 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)kFrames * (2 * C + 2 * C * Ke) * sizeof(float);
-  cudaError_t e = llsm::allow_smem(noise_seg_kernel, smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((N + kHops - 1) / kHops, B);
-  noise_seg_kernel<<<grid, kSegThreads, smem, (cudaStream_t)stream>>>(
-      cyc, edc, ar, ai, base, seg, y, N, nhop, C, Ke);
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  // 16-byte accesses where every run of 4 samples starts on a 16-byte
+  // boundary (the wrapper passes 16-byte aligned tensors)
+  const cudaError_t e =
+      nhop % kSegS == 0
+          ? launch_seg_ke<true>(cyc, edc, ar, ai, base, seg, y, B, N, nhop, C,
+                                Ke, st)
+          : launch_seg_ke<false>(cyc, edc, ar, ai, base, seg, y, B, N, nhop,
+                                 C, Ke, st);
+  return (int)e;
 }

@@ -37,20 +37,21 @@
 // within 1e-6 cycles of the CPU.
 //
 // Bound on the H100: the [B, nx] output written once (16 M samples at the
-// bench shape).  What costs is each sample's arithmetic (the step's
-// division and float64 conversions, two float64 adds, a floor) and the
-// latency between a block's phases, so the design evaluates each step once
-// and keeps many independent tiles in flight (scripts/port_kernel_passes.py
-// times the steps and the output pass compiled out).  Design: one
-// kernel launch after a memset of its tile words, a block of 4 warps
-// a tile of T <= 128 hops of one row, grid (tiles, rows).
+// bench shape, 49 M at 48 kHz).  What costs is each sample's arithmetic
+// (the step's division and four float conversions, two float64 adds, a
+// floor) and the latency between a block's phases, so the design
+// evaluates each step once and keeps many independent tiles in flight
+// (scripts/port_kernel_passes.py times the steps and the output pass
+// compiled out: only=sample_cycles, only=cycles_long).  Design, to a
+// 512-sample hop: one kernel launch after a memset of its tile words, a
+// block of 4 warps a tile of T <= 128 hops of one row, grid (tiles, rows).
+// Past it (48 kHz at a 20 ms hop is 960; at most 2048) the long-hop kernel
+// below, a hop over two or four warps.
 //   - Steps: L lanes share a hop, each a run of at most 10 consecutive
-//     samples (up to nhop = 320; past it 32 lanes with runs of up to 16,
-//     32 or 64 samples, the last two for nhop > 512, at most 2048: 48 kHz
-//     at a 20 ms hop is 960); a lane evaluates each step once, in
-//     registers, with the plain version's float32 operations rounded one
-//     by one (__fmul_rn / __fadd_rn keep FMA contraction out; the
-//     division as below).  The
+//     samples (up to nhop = 320; to 512, 32 lanes with runs of up to 16);
+//     a lane evaluates each step once, in registers, with the plain
+//     version's float32 operations rounded one by one (__fmul_rn /
+//     __fadd_rn keep FMA contraction out; the division as below).  The
 //     position s / nhop is not divided a sample: below 2^24 samples its
 //     fraction in hop j is fl(j + t / nhop) - j, which depends only on t
 //     and the binade of j (no tie can fall on that grid there), so a
@@ -122,14 +123,14 @@ __device__ __forceinline__ double f0_over_fs(const float* __restrict__ f0r,
 // binade of hop j: j in [2^(c - 1), 2^c), c = 0 for j = 0
 __device__ __forceinline__ int binade(int j) { return 32 - __clz(j); }
 
-// R: the samples a lane takes in a hop at most (a template, so the steps
-// stay in registers); L = 2^lg >= kWarps lanes share a hop, each a run of
-// ceil(nhop / L) <= R consecutive samples of it; a warp takes 32 / L hops
-// a pass, and a block kPasses passes: a tile of T = kPasses kWarps 32 / L
-// <= 128 hops.  Block (x, y) is tile x of row y, so a tile's predecessors
-// in its row are blocks launched before it.  word[y tiles + x] is the
-// tile's sum of hop totals mod 1, published with its sign bit set (0: not
-// yet; zeroed before the kernel on its stream).
+// R <= 16: the samples a lane takes in a hop at most (a template, so the
+// steps stay in registers); L = 2^lg >= kWarps lanes share a hop, each a run
+// of ceil(nhop / L) <= R consecutive samples of it; a warp takes 32 / L hops
+// a pass, and a block kPasses passes: a tile of T = kPasses kWarps 32 / L <=
+// 128 hops.  Block (x, y) is tile x of row y, so a tile's predecessors in its
+// row are blocks launched before it.  word[y tiles + x] is the tile's sum of
+// hop totals mod 1, published with its sign bit set (0: not yet; zeroed
+// before the kernel on its stream).
 template <int R>
 __global__ void __launch_bounds__(kThreads)
 sample_cycles_kernel(const float* __restrict__ f0, float* __restrict__ out,
@@ -320,12 +321,278 @@ int lanes_log2(int nhop) {
   return lg;
 }
 
+// ---------------------------------------------------------------------------
+// Past a 512-sample hop (48 kHz at a 20 ms hop is 960; at most 2048) the
+// kernel above would give a lane runs of 32 or 64 dependent steps and a block
+// a per-binade fraction table of (T + 8) nhop floats (~92 KB at hop 960: two
+// blocks an SM).  Here a hop's samples go over P = 64 or 128 lanes (two or
+// four warps), each a run of at most kLongRun consecutive samples, a multiple
+// of 4; the in-hop scan runs within each warp, then adds the sums of the
+// hop's warps before it (through shared memory, in warp order); kLongPasses
+// passes of G = kLongThreads / P hops make a tile of T = 8 or 4 hops a block.
+// The fractions of s / nhop come from a table in device memory, one row of
+// np4 floats a binade of the hop index (the 16 binades whose samples lie
+// below 2^24 at nhop > 512), written with the tile words' zeroing by
+// sample_cycles_prep and read as 16-byte vectors, so a block's
+// shared memory holds only its tile's partials (a hop's row padded by 4
+// floats every 32, so the runs' 16-byte stores do not collide: ~35 KB); the
+// steps stay float32 values in registers, five blocks an SM.  Every sum is
+// the kernel above's on analysis tracks (exact, whatever the partition), and
+// the hop offsets, the look-back and the output pass are its own, so it gives
+// its bits there.
+constexpr int kLongThreads = 256;
+constexpr int kLongBlocks = 5;     // blocks an SM: 51 registers a thread
+constexpr int kLongRun = 16;       // samples a lane at most, a multiple of 4
+constexpr int kLongPasses = 2;
+constexpr int kTableBinades = 16;  // binades of j with j nhop < 2^24
+
+// lanes a hop past 512 samples, as log2: the fewest (two warps at least)
+// that keep a run within kLongRun samples
+int long_lanes_log2(int nhop) {
+  int lg = 6;
+  while ((nhop + (1 << lg) - 1) >> lg > kLongRun) ++lg;
+  return lg;
+}
+
+// samples a lane: ceil(nhop / P) rounded up to a multiple of 4
+int long_run(int nhop) {
+  const int P = 1 << long_lanes_log2(nhop);
+  return ((nhop + P - 1) / P + 3) / 4 * 4;
+}
+
+int long_tile(int nhop) {
+  return kLongPasses * (kLongThreads >> long_lanes_log2(nhop));
+}
+
+// a hop's partials in shared memory: 32 samples, then 4 floats of padding
+__device__ __forceinline__ int long_slot(int t) { return t + (t >> 5) * 4; }
+
+// zeroes the nw tile words and writes the fraction table: row c, entry t
+// = fl(jc + t / nhop) - jc, jc = 2^(c - 1) (0 for c = 0), where jc nhop + t
+// < 2^24 (0 elsewhere and in the padding)
+__global__ void sample_cycles_prep(unsigned long long* __restrict__ word,
+                                   int nw, float* __restrict__ frac, int nhop,
+                                   int np4) {
+  const float nhop_f = (float)nhop;
+  const int n = max(nw, kTableBinades * np4);
+  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < n;
+       e += gridDim.x * blockDim.x) {
+    if (e < nw) word[e] = 0ull;
+    if (e < kTableBinades * np4) {
+      const int c = e / np4, t = e - c * np4;
+      const int jc = c ? 1 << (c - 1) : 0;
+      float v = 0.0f;
+      if (t < nhop && (int64_t)jc * nhop + t < kExact)
+        v = __fadd_rn(__fdiv_rn((float)(jc * nhop + t), nhop_f),
+                      -(float)jc);
+      frac[e] = v;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kLongThreads, kLongBlocks)
+sample_cycles_long_kernel(const float* __restrict__ f0,
+                          float* __restrict__ out,
+                          unsigned long long* __restrict__ word,
+                          const float* __restrict__ frac, int np4,
+                          const double* __restrict__ base, int start, int N,
+                          int nhop, int H, float fs, int lgP, int run) {
+  extern __shared__ double smem[];
+  const int P = 1 << lgP, G = kLongThreads >> lgP, T = kLongPasses * G;
+  const int W = P >> 5;                         // warps a hop
+  const int PS = ((nhop + 31) >> 5) * 36;       // a hop's row of partials
+  double* tots = smem;                          // [T] totals mod 1
+  double* wsum = tots + T;                      // [kLongPasses, G, W]
+  float* ofs = reinterpret_cast<float*>(wsum + kLongPasses * G * W);  // [T]
+  float* part = ofs + (T + 3) / 4 * 4;          // [T, PS], 16-byte aligned
+  const int row = blockIdx.y, k = blockIdx.x;
+  const int j0 = k * T;
+  const float* f0r = f0 + (int64_t)row * N;
+  const int64_t nx = (int64_t)H * nhop;
+  float* outr = out + (int64_t)row * nx;
+  const float nhop_f = (float)nhop;
+  const double rfs = __drcp_rn((double)fs);
+  const int lane = threadIdx.x & 31;
+  const int g = threadIdx.x >> lgP, r = threadIdx.x & (P - 1), wh = r >> 5;
+  const int t0 = min(r * run, nhop), t1 = min(t0 + run, nhop);
+  for (int pass = 0; pass < kLongPasses; ++pass) {
+    const int hh = pass * G + g, j = j0 + hh;
+    float d[kLongRun];                  // the steps, float32 values
+    double acc = 0.0;
+#pragma unroll
+    for (int i = 0; i < kLongRun; ++i) d[i] = 0.0f;
+    if (j < H) {
+      const int64_t s0 = (int64_t)(start + j) * nhop;
+      if (s0 >= 0 && s0 + nhop <= kExact) {
+        const int i0 = min(j, N - 2);
+        const float a = fmaxf(__ldg(f0r + i0), 0.0f);
+        const float b = fmaxf(__ldg(f0r + i0 + 1), 0.0f);
+        const float* fr = frac + binade(start + j) * np4 + t0;
+        const bool last = j >= N - 1;           // pos >= N - 1: t = 1
+#pragma unroll
+        for (int q = 0; q < kLongRun / 4; ++q) {
+          if (t0 + 4 * q < t1) {
+            const float4 u = __ldg(reinterpret_cast<const float4*>(fr) + q);
+            const float tv[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+            for (int m = 0; m < 4; ++m) {
+              if (t0 + 4 * q + m < t1) {
+                d[4 * q + m] = step(a, b, last ? 1.0f : tv[m], rfs);
+                acc += d[4 * q + m];
+              }
+            }
+          }
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < kLongRun; ++i) {
+          if (t0 + i < t1) {
+            d[i] = f0_over_fs(f0r, s0 + t0 + i, nhop_f, N, rfs, start);
+            acc += d[i];
+          }
+        }
+      }
+    }
+    // the runs' offsets in the hop: a scan within each warp by a tree
+    // fixed by the lane, then the sums of the hop's warps before it, in
+    // warp order
+    double incl = acc;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const double u = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += u;
+    }
+    double p = __shfl_up_sync(0xffffffffu, incl, 1);
+    if (lane == 0) p = 0.0;
+    double* ws = wsum + (pass * G + g) * W;
+    if (lane == 31) ws[wh] = incl;
+    __syncthreads();
+    double tot = ws[0];
+    for (int v = 1; v < W; ++v) tot += ws[v];
+    double woff = 0.0;
+    for (int v = 0; v < wh; ++v) woff += ws[v];
+    if (wh) p += woff;
+    if (j < H) {
+      float* ph = part + hh * PS;
+#pragma unroll
+      for (int q = 0; q < kLongRun / 4; ++q) {
+        if (t0 + 4 * q < t1) {
+          float v[4];
+#pragma unroll
+          for (int m = 0; m < 4; ++m) {
+            p += d[4 * q + m];
+            v[m] = __double2float_rn(p);
+          }
+          *reinterpret_cast<float4*>(ph + long_slot(t0 + 4 * q)) =
+              make_float4(v[0], v[1], v[2], v[3]);
+        }
+      }
+    }
+    if (r == 0) {
+      const float w = __double2float_rn(tot);
+      tots[hh] = j < H ? (double)(w - floorf(w)) : 0.0;
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    // the tile's exclusive prefix of its T <= 32 hop totals (a lane a hop,
+    // then the lanes by a tree fixed by the lane); the tile's sum is
+    // published for the tiles after it
+    const double sl = lane < T ? tots[lane] : 0.0;
+    double in = sl;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const double u = __shfl_up_sync(0xffffffffu, in, o);
+      if (lane >= o) in += u;
+    }
+    double ex = __shfl_up_sync(0xffffffffu, in, 1);
+    if (lane == 0) ex = 0.0;
+    unsigned long long* rw = word + (int64_t)row * gridDim.x;
+    if (lane == 31)
+      *(volatile unsigned long long*)(rw + k) =
+          (unsigned long long)__double_as_longlong(in) | (1ull << 63);
+    // the tiles before this one: lane l sums tiles l, l + 32, ... in
+    // order (waiting for each), then the lanes' sums by a fixed tree
+    double c = 0.0;
+    for (int i = lane; i < k; i += 32) {
+      unsigned long long x;
+      while ((x = *(volatile unsigned long long*)(rw + i)) == 0ull) {}
+      c += __longlong_as_double((long long)(x & ~(1ull << 63)));
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) c += __shfl_xor_sync(0xffffffffu, c, o);
+    if (base) c += base[row];
+    if (lane < T) {
+      const double o64 = c + ex;
+      ofs[lane] = (float)(o64 - floor(o64));
+    }
+  }
+  __syncthreads();
+  // the tile's samples are consecutive: write them coalesced, each
+  // sample's hop tracked by adding the stride's quotient and remainder
+  const int64_t st = (int64_t)j0 * nhop;
+  const int dh = kLongThreads / nhop, dt = kLongThreads - dh * nhop;
+  int h = threadIdx.x / nhop, t = threadIdx.x - h * nhop;
+  for (int e = threadIdx.x; e < (LLSM_SKIP_PASS_B ? 0 : T * nhop);
+       e += kLongThreads) {
+    if (st + e + 1 < nx) {
+      const float cv = __fadd_rn(ofs[h], part[h * PS + long_slot(t)]);
+      outr[st + e + 1] = cv - floorf(cv);
+    }
+    h += dh;
+    t += dt;
+    if (t >= nhop) {
+      t -= nhop;
+      ++h;
+    }
+  }
+  if (k == 0 && threadIdx.x == 0)
+    outr[0] = base ? (float)(base[row] - floor(base[row])) : 0.0f;
+}
+
+// the fraction table's floats a row: nhop rounded up to 16 bytes
+int long_np4(int nhop) { return (nhop + 3) / 4 * 4; }
+
+// tile words and the table (16-byte aligned after them) as 8-byte words
+int long_words(int B, int nhop, int H) {
+  const int T = long_tile(nhop);
+  return B * ((H + T - 1) / T) + kTableBinades * long_np4(nhop) / 2 + 2;
+}
+
+cudaError_t launch_long(const float* f0, float* out, unsigned long long* word,
+                        const double* base, int start, int B, int N, int nhop,
+                        int H, float fs, cudaStream_t st) {
+  const int lgP = long_lanes_log2(nhop), T = long_tile(nhop);
+  const int tiles = (H + T - 1) / T, nw = B * tiles, np4 = long_np4(nhop);
+  float* frac = reinterpret_cast<float*>(
+      (reinterpret_cast<uintptr_t>(word + nw) + 15) & ~uintptr_t(15));
+  const int n = max(nw, kTableBinades * np4);
+  const int blocks = n < 1024 * 256 ? (n + 255) / 256 : 1024;
+  sample_cycles_prep<<<blocks, 256, 0, st>>>(
+      word, nw, frac, nhop, np4);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const int G = kLongThreads >> lgP, W = (1 << lgP) >> 5;
+  const size_t smem = (size_t)T * sizeof(double) +
+                      (size_t)kLongPasses * G * W * sizeof(double) +
+                      (size_t)(T + 3) / 4 * 4 * sizeof(float) +
+                      (size_t)T * ((nhop + 31) / 32 * 36) * sizeof(float);
+  e = llsm::allow_smem(sample_cycles_long_kernel, smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid(tiles, B);
+  sample_cycles_long_kernel<<<grid, kLongThreads, smem, st>>>(
+      f0, out, word, frac, np4, base, start, N, nhop, H, fs, lgP,
+      long_run(nhop));
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // words the caller provides: one a tile of each row (llsm_sample_cycles
 // zeroes them on its stream before the kernel)
 extern "C" int llsm_sample_cycles_words(int B, int nhop, int nx) {
   if (B <= 0 || nhop <= 0 || nx <= 0) return 1;
+  if (nhop > 512) return long_words(B, nhop, nx / nhop);
   const int T = kPasses * kWarps * (32 >> lanes_log2(nhop));
   return B * ((nx / nhop + T - 1) / T);
 }
@@ -352,14 +619,12 @@ extern "C" int llsm_sample_cycles(const float* f0, float* out,
     LLSM_RUN(7) LLSM_RUN(8) LLSM_RUN(9) LLSM_RUN(10)
 #undef LLSM_RUN
     default:
-      // past 16 samples a lane (nhop > 512: 48 kHz at a 20 ms hop) the
-      // runs of 32 or 64 samples
+      // runs of up to 16 samples to nhop = 512; past it (48 kHz at a 20
+      // ms hop) the long-hop kernel
       if (run <= 16)
         e = launch<16>(f0, out, word, base, start, B, N, nhop, H, fs, lg, st);
-      else if (run <= 32)
-        e = launch<32>(f0, out, word, base, start, B, N, nhop, H, fs, lg, st);
       else
-        e = launch<64>(f0, out, word, base, start, B, N, nhop, H, fs, lg, st);
+        e = launch_long(f0, out, word, base, start, B, N, nhop, H, fs, st);
   }
   return (int)e;
 }

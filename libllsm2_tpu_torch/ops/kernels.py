@@ -590,6 +590,8 @@ def noise_mod_ola_seg(cyc: torch.Tensor, edc: torch.Tensor, ar: torch.Tensor,
         raise ValueError(f"noise_mod_ola_seg: C {C}, Ke {Ke}: the "
                          "coefficients of 16 frames overflow shared memory")
     cyc, edc, ar, ai, base, segs = map(_f32, (cyc, edc, ar, ai, base, segs))
+    # 16-byte loads of the cycle track and the segments where nhop % 4 == 0
+    cyc, segs = _aligned(cyc), _aligned(segs)
     y = torch.empty((B, N * nhop), dtype=FP, device=cyc.device)
     ptrs = (t.data_ptr() for t in (cyc, edc, ar, ai, base, segs, y))
     _launch("noise_mod_ola_seg", *ptrs, B, N, nhop, C, Ke, _stream(cyc))
@@ -1505,8 +1507,9 @@ def harmonic_project_mxu_ref(x, cyc, hw, max_k, nhop, hh, *,
 # no Pallas kernel)
 # ---------------------------------------------------------------------------
 
-# sample_cycles.cu: 32 lanes a hop at most, each a run of up to 64 samples
-_CYCLE_MAX_HOP = 32 * 64
+# sample_cycles.cu: past hop 512 its long-hop kernel, at most 128 lanes a
+# hop, each a run of up to 16 samples
+_CYCLE_MAX_HOP = 2048
 
 
 def sample_cycles(f0: torch.Tensor, nhop: int, fs: float, nx: int,
@@ -1530,7 +1533,8 @@ def sample_cycles(f0: torch.Tensor, nhop: int, fs: float, nx: int,
     f = f0 if f0.dtype == FP and f0.is_contiguous() else _f32(f0)
     B = f.numel() // N
     # one allocation: the track, then (8-byte aligned) the kernel's tile
-    # sums as int64, which the C entry zeroes (the call's memset)
+    # sums as int64, which the C entry zeroes (the call's memset), and past
+    # hop 512 the long-hop kernel's fraction table, which it writes
     n = B * nx + (B * nx) % 2
     buf = torch.empty(n + 2 * _cycle_words(B, int(nhop), int(nx)),
                       dtype=FP, device=f.device)
@@ -1545,7 +1549,8 @@ def sample_cycles(f0: torch.Tensor, nhop: int, fs: float, nx: int,
 
 @functools.lru_cache(maxsize=64)
 def _cycle_words(B: int, nhop: int, nx: int) -> int:
-    """The tile words the cycle-track kernel needs for this shape."""
+    """The scratch words (8 bytes) the cycle-track kernel needs for this
+    shape: its tile words and, past hop 512, its fraction table."""
     return _build.library().llsm_sample_cycles_words(B, nhop, nx)
 
 
@@ -1613,8 +1618,11 @@ def cycle_steps(f0: torch.Tensor, nhop: int, fs: float, nx: int,
     # the divisors as tensors on the device: PyTorch's CUDA divides by a
     # host scalar as a product with its reciprocal, which rounds otherwise
     div = lambda v: torch.tensor(v, dtype=f0s.dtype, device=f0.device)
-    pos = torch.arange(start * nhop, start * nhop + nx, dtype=FP,
-                       device=f0.device) / div(nhop)
+    # each sample index rounded to float32 on its own, as the kernel and
+    # jnp.arange take it: a float32 torch.arange rounds some indices past
+    # 2^24 otherwise
+    pos = torch.arange(start * nhop, start * nhop + nx, dtype=torch.int64,
+                       device=f0.device).to(FP) / div(nhop)
     i0 = torch.clamp(torch.floor(pos).to(torch.int64) - start, 0, n - 2)
     t = torch.clamp(pos - (i0 + start), 0.0, 1.0)
     return (f0s[..., i0] * (1.0 - t) + f0s[..., i0 + 1] * t) / div(fs)

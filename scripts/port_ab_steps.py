@@ -48,7 +48,16 @@ batch), ten calls a step, each pair's outputs compared bit for bit;
 `kernnoise48` the same for noise_mod_ola (its wide kernel) on its call in
 h10_48's synthesis, `kern160` for denoise_apply on its call in the
 analysis of phase 20a's creaky-voice conf (maxnhar 160, fnyq 6000, the
-bench rows); each side analyzes
+bench rows); `h20_48` is h10_48 at a 20 ms hop (hop 960, every fourth F0
+frame: chip_smoke.py's phase 20g, where the cycle track runs its long-hop
+kernel), compared as the three above; `fft16` the synthesis of phase
+16c (layer0._synthesize with noise_idft="fft" and the kernels on, of each
+side's own analysis of the bench rows with the library default), each
+pair's y compared bit for bit; `kernseg` noise_mod_ola_seg alone on its
+call in fft16's synthesis, `kerncyc960` sample_cycles alone on its first
+call in h20_48's analysis and `kerncyc2048` on 20f's hop 2048 at 48 kHz
+(F0 [128, 187], 70-300 Hz from seed 0, every 7th frame unvoiced), ten
+calls a step, as the kern cells above; each side analyzes
 (and fits layer 1) once, untimed, with its own package.  One untimed step of
 each first, then `pairs` pairs whose order alternates (other first in
 even pairs), each step timed by the host clock around work that ends in
@@ -59,7 +68,8 @@ quartiles, and how many pairs each side won.  Imports no jax:
         [cells=default,matmul,off32,one,refine,rta,layer1,pbp,edits,plain,
                11k,refine11,to_layer1,nasal,tracker,rdviterbi,viterbi,
                wide257,wide512,wide1025,tracker384,full48,full16,
-               kern48,kern16,h10_48,kernnoise48,kern160]
+               kern48,kern16,h10_48,kernnoise48,kern160,h20_48,fft16,
+               kernseg,kerncyc960,kerncyc2048]
 """
 import dataclasses
 import importlib
@@ -140,7 +150,8 @@ def main(argv):
                                  dtype=torch.float32, device="cuda")
                     for j in range(2))
     full = {}
-    if {"full48", "kern48", "h10_48", "kernnoise48"} & set(cells):
+    if {"full48", "kern48", "h10_48", "kernnoise48", "h20_48",
+            "kerncyc960"} & set(cells):
         rs = importlib.import_module("port_this.ops.resample")
         x48, r48 = (rs.resample_to(v, 16000.0, 48000.0) for v in (x, x_ref))
         nxv48 = torch.full_like(nxv, x48.shape[1])
@@ -150,6 +161,10 @@ def main(argv):
                                chanfreq=(3000.0, 6000.0, 9000.0), nspec=513,
                                f0_floor=70.0),
                           (x48, f0[:, ::2].contiguous(), nxv48, r48))
+        full["h20_48"] = (dict(fs=48000.0, thop=0.02, fnyq=12000.0,
+                               chanfreq=(3000.0, 6000.0, 9000.0), nspec=513,
+                               f0_floor=70.0),
+                          (x48, f0[:, ::4].contiguous(), nxv48, r48))
     if {"full16", "kern16"} & set(cells):
         rows16 = testsig.make_test_utterances(
             [(i, 0.05 if i < B // 2 else 0.0) for i in range(B)],
@@ -184,14 +199,24 @@ def main(argv):
     kern_cells = {"kern48": ("full48", KERN_WIDE), "kern16": ("full16",
                                                               KERN_WIDE),
                   "kernnoise48": ("h10_48", ("noise_mod_ola",)),
-                  "kern160": ("creaky", ("denoise_apply",))}
+                  "kern160": ("creaky", ("denoise_apply",)),
+                  "kernseg": ("fft16", ("noise_mod_ola_seg",)),
+                  "kerncyc960": ("h20_48", ("sample_cycles",)),
+                  "kerncyc2048": (None, ("sample_cycles",))}
     if "kern160" in cells:
         full["creaky"] = (dict(f0_floor=70.0, maxnhar=160, fnyq=6000.0),
                           (x, f0, nxv, x_ref))
+    if "kerncyc2048" in cells:
+        gc = torch.Generator(device="cuda").manual_seed(0)
+        fc = 70.0 + 230.0 * torch.rand(B, 187, generator=gc, device="cuda")
+        fc[:, ::7] = 0.0
+        captured["kerncyc2048 sample_cycles"] = (
+            (fc, 2048, 48000.0, 187 * 2048), {})
     for cell, (source, names) in kern_cells.items():
-        if cell in cells:
+        if cell in cells and source is not None:
             import chip_smoke
-            kw, args = full[source]
+            kw, args = full[source] if source in full else (
+                dict(f0_floor=70.0), (x, f0, nxv, x_ref))    # fft16
             pkg = sides["this"]
             kmod = importlib.import_module(pkg.__name__ + ".ops.kernels")
             l0 = importlib.import_module(pkg.__name__ + ".models.layer0")
@@ -202,6 +227,10 @@ def main(argv):
                                        use_pallas=True)
             run = ((lambda: corpus.batched_pipeline(opt, sopt, *args))
                    if cell == "kernnoise48" else
+                   (lambda: l0._synthesize(
+                       dataclasses.replace(sopt, noise_idft="fft"),
+                       l0._analyze(opt, args[0], args[1])))
+                   if cell == "kernseg" else
                    (lambda: l0._analyze(opt, args[0], args[1])))
             calls, _ = chip_smoke.capture_kernel_inputs(kmod, names, run)
             for name, recs in calls.items():
@@ -266,6 +295,10 @@ def main(argv):
                 chunks[name] = l0._analyze(opt, args[0], args[1])
                 steps[name] = (lambda c=corpus, o=opt, s=sopt, a=args:
                                c.batched_pipeline(o, s, *a))
+            elif cell == "fft16":
+                ch = l0._analyze(opt, x, f0)
+                so = dataclasses.replace(sopt, noise_idft="fft")
+                steps[name] = lambda l0=l0, c=ch, s=so: l0._synthesize(s, c)
             elif cell == "tracker384":
                 f0m = importlib.import_module(pkg.__name__ + ".ops.f0")
                 cfg = f0m.F0Config(fs=16000.0, nhop=80, f0_floor=70.0,
@@ -343,6 +376,10 @@ def main(argv):
                 outs[name] = steps[name]()
                 torch.cuda.synchronize()
                 ms[name].append((time.perf_counter() - t0) * 1e3)
+            if cell == "fft16":
+                print(f"{label} pair {i}: y equal bit for bit "
+                      f"{torch.equal(outs['this'].y, outs['other'].y)}",
+                      flush=True)
             if cell in full or cell in captured:
                 n = 2 if cell in full else None
                 same = all(torch.equal(a, b) for a, b in

@@ -90,6 +90,10 @@ with the Pallas kernels in interpret mode:
             use_pallas=True) with create_soptions(fs=48000, use_pallas=True)
             (noise hop 480) on the same rows resampled to 48 kHz by
             ops.resample.resample_to, with every second F0 frame;
+  h20       chip_smoke.py phase 20g: part wide's 48 kHz options with a
+            20 ms hop (thop=0.02: hop 960, where the cycle track runs
+            its long-hop kernel) on the same resampled rows, with every
+            fourth F0 frame;
   fullband  chip_smoke.py phase 20e: batched_pipeline at full band, the
             16 kHz options above with f0_floor=40 and maxnhar = fs / 2 /
             f0_floor: create_aoptions(fs=48000, f0_floor=40, maxnhar=600)
@@ -118,7 +122,7 @@ with the Pallas kernels in interpret mode:
 
     JAX_PLATFORMS=cpu python scripts/port_jax_pins.py [duration=8.0] \
         [only=l0,11k,l1,pbp,corpus,edits,coder,nasal,stream,dspkit,
-              learned,fp64,mesh,wide,fullband,proj64,cyc64,fullband64,
+              learned,fp64,mesh,wide,h20,fullband,proj64,cyc64,fullband64,
               fullbandmean]
         [mesh_seconds=64]
 
@@ -498,6 +502,25 @@ def wide_rows(duration):
     return out
 
 
+def h20_rows(duration):
+    """chip_smoke.py phase 20g pins: batched_pipeline SNRs of bench rows 0,
+    1 and 64 at 48 kHz with a 20 ms hop (part wide's 48 kHz options
+    otherwise) on the rows resampled to 48 kHz (every fourth F0 frame)."""
+    from libllsm2_tpu.ops.resample import resample_to
+    opt = create_aoptions(fs=48000.0, thop=0.02, fnyq=12000.0,
+                          chanfreq=(3000.0, 6000.0, 9000.0), nspec=513,
+                          f0_floor=70.0, use_pallas=True)
+    sopt = dataclasses.replace(create_soptions(fs=48000.0), use_pallas=True)
+    assert opt.conf.nhop == 960
+    x, f0, nxv, x_ref = _bench_rows(duration, list(ROWS))
+    x48, ref48 = (jnp.stack([resample_to(r, 16000.0, 48000.0) for r in a])
+                  for a in (x, x_ref))
+    nxv48 = jnp.full(nxv.shape, x48.shape[-1], nxv.dtype)
+    _, snr, _ = corpus.batched_pipeline(opt, sopt, x48, f0[:, ::4], nxv48,
+                                        ref48)
+    return dict(zip(ROWS, np.asarray(snr).tolist()))
+
+
 def fullband_opts(use_pallas=True):
     """chip_smoke.py phase 20e's options: {label: (analysis options,
     synthesis options, the fixtures' hop)}; use_pallas=False (the float64
@@ -831,7 +854,7 @@ def main():
     kw = dict(a.split("=", 1) for a in sys.argv[1:])
     duration = float(kw.get("duration", 8.0))
     only = kw.get("only", "l0,11k,l1,pbp,corpus,edits,coder,nasal,stream,"
-                  "dspkit,learned,fp64,mesh,wide,fullband,proj64").split(",")
+                  "dspkit,learned,fp64,mesh,wide,h20,fullband,proj64").split(",")
     if "l0" in only:
         t0 = time.perf_counter()
         print(f"16 kHz batched_pipeline at {duration} s:",
@@ -917,6 +940,11 @@ def main():
               "at a 10 ms hop), batched_pipeline SNR of rows 0/1/64:",
               wide_rows(duration), f"({time.perf_counter() - t0:.1f} s)",
               flush=True)
+    if "h20" in only:
+        t0 = time.perf_counter()
+        print(f"phase 20g at {duration} s (48 kHz at a 20 ms hop), "
+              "batched_pipeline SNR of rows 0/1/64:", h20_rows(duration),
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
     if "fullband" in only:
         t0 = time.perf_counter()
         print(f"phase 20e at {duration} s (full band: 48 kHz at K = 600, then "

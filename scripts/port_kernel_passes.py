@@ -20,7 +20,7 @@ imports no jax:
         [split=DIR,...]
 
 (name: a source of PASSES below, viterbi, deconv_wide, denoise_wide,
-noise_wide or apply_wide.)
+noise_wide, apply_wide, seg or cycles_long.)
 
 split= instead times each CUDA kernel of kernels.refine_f0_dec, by its
 name in a torch.profiler trace, of the package in each DIR (a checkout,
@@ -72,6 +72,19 @@ denoise_apply.cu's wide kernel at 20e's shapes ([128, 1600, 600] and
 [128, 4000, 200]) and 20a's K 160, spectral (the main path's) and at
 [128, 1600, 600] polar, built without its fit sums (LLSM_SKIP_PASS_A)
 and without its gate and stores (LLSM_SKIP_PASS_B).
+
+only=seg times noise_mod_ola.cu's segment entry (noise_mod_ola_seg, the
+noise_idft="fft" path) the same way at chip_smoke.py's 16c shape (segs
+[128, 4, 1600, 160], 4 envelope harmonics) and at 20f's 9 channels of 9
+harmonics, built without its envelope (LLSM_SKIP_PASS_A: the rotation
+ladder and the coefficients' lerps, an envelope of 1) and without its
+segment loads (LLSM_SKIP_PASS_B: an OLA of 1); what is left with both is
+the staging, the cycle load and the stores.  only=cycles_long times
+sample_cycles.cu past a 512-sample hop (48 kHz at a 20 ms hop, f0 [128,
+400], and hop 2048, f0 [128, 187]; F0 70-300 Hz with every 7th frame
+unvoiced), built without its steps (LLSM_SKIP_PASS_A: the lerp and the
+divide) and without its output pass (LLSM_SKIP_PASS_B); what is left with
+both is the in-hop scan, the hop offsets and the staging.
 
 The variants go to build/kernels/ beside the library (listed in
 .gitignore), each under a hash of its source and defines.
@@ -339,6 +352,47 @@ def apply_wide():
         torch.cuda.empty_cache()
 
 
+# noise_mod_ola_seg's shapes: (label, B, C, N, nhop, Ke)
+SEG_SHAPES = (("16c", 128, 4, 1600, 80, 4), ("C 9 Ke 9", 128, 9, 1600, 80, 9))
+# the cycle track's long hops: (label, B, N, nhop, fs)
+CYCLES_LONG_SHAPES = (("hop 960 at 48 kHz", 128, 400, 960, 48000.0),
+                      ("hop 2048 at 48 kHz", 128, 187, 2048, 48000.0))
+
+
+def seg():
+    """noise_mod_ola.cu's segment entry at SEG_SHAPES (the docstring says
+    how), a line each."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    r = lambda *s: torch.rand(*s, generator=g, device=dev)
+    for label, Bs, Cs, Ns, hop, Ks in SEG_SHAPES:
+        cyc = torch.remainder(torch.cumsum(r(Bs, Ns * hop) * 0.02, -1), 1.0)
+        args = (cyc, r(Bs, Ns, Cs), (r(Bs, Ns, Cs, Ks) - 0.5) * 0.3,
+                (r(Bs, Ns, Cs, Ks) - 0.5) * 0.3, 0.5 + r(Bs, Ns, Cs),
+                r(Bs, Cs, Ns, 2 * hop) - 0.5)
+        wide_variants(
+            "noise_mod_ola", f"seg {label} segs [{Bs}, {Cs}, {Ns}, "
+            f"{2 * hop}] Ke {Ks}",
+            lambda rows: kernels.noise_mod_ola_seg(*(t[:rows] for t in args)),
+            ("the envelope (ladder and lerps)", "the segment loads"))
+        del args, cyc
+        torch.cuda.empty_cache()
+
+
+def cycles_long():
+    """sample_cycles.cu past a 512-sample hop at CYCLES_LONG_SHAPES (the
+    docstring says how), a line each."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    for label, Bc, Nc, hop, fs in CYCLES_LONG_SHAPES:
+        f0 = 70.0 + 230.0 * torch.rand(Bc, Nc, generator=g, device=dev)
+        f0[:, ::7] = 0.0
+        wide_variants(
+            "sample_cycles", f"cycles_long {label} f0 [{Bc}, {Nc}]",
+            lambda rows: kernels.sample_cycles(f0[:rows], hop, fs, Nc * hop),
+            ("the steps (lerp and divide)", "the output pass"))
+
+
 def refine_args(nx):
     """-> (taps, keyword arguments) of the bench shape's decimated refine
     (16 kHz, hop 80, f0_floor 70: the main path's)."""
@@ -477,6 +531,12 @@ def main():
     if "apply_wide" in names:
         apply_wide()
         names.remove("apply_wide")
+    if "seg" in names:
+        seg()
+        names.remove("seg")
+    if "cycles_long" in names:
+        cycles_long()
+        names.remove("cycles_long")
     if not names:
         return 0
     libs = build_variants(names)

@@ -33,11 +33,25 @@ monkeypatching _apply_geometry) against the first kernel's scalar
 layout, the other checkout's wide kernel first (its source built with
 nvcc into build/dev/ with its C entry's K > 128 test made K > 0: where it
 differs from the first kernel, this one must equal it and be no further
-off; the largest difference printed).  Prints a line a case and, last, the cases that failed; exits 1
+off; the largest difference printed).  what=seg: noise_mod_ola_seg (the
+noise_idft="fft" path) on its call in chip_smoke.py's phase 16c (the
+library default's analysis of the bench rows, synthesized with
+noise_idft="fft"), at 20f's 9 channels of 9 envelope harmonics, hops 55,
+160, 480 and 882 (the scalar path and the 16-byte one), Ke 0, 1, 8, 9, 12
+and 16, 9 channels, N 5; rows 0, 1 and 64 alone against their rows of the
+batch, and each side's time at 16c's and 20f's shapes.  what=cycles:
+sample_cycles past a 512-sample hop (the long-hop kernel) at hops 600,
+882 (44.1 kHz), 960 and 2048 and at 513, 1024 and 1025 (the lane counts'
+edges), 128 rows of 8 s, on F0 70-300 Hz with every 7th frame unvoiced
+and, at hops 882 and 960, on the bench rows' F0 at a 20 ms hop; each also
+with base= and start= (start 37, -2 (a first shard's halo) and 17400,
+whose hops cross 2^24 samples at hop 960); rows 0, 1 and 64 alone
+against their rows of the batch, and each side's time at hops 960 and
+2048.  Prints a line a case and, last, the cases that failed; exits 1
 if any did.  Imports no jax:
 
     python3 scripts/port_wide_bits.py OTHER_DIR
-        [what=deconv,denoise,noise,apply]
+        [what=deconv,denoise,noise,apply,seg,cycles]
 """
 import ctypes
 import importlib
@@ -410,6 +424,127 @@ def apply(kt, ko, r, bad, other, build):
                     bad.append(("apply forced", K, spectral, g))
 
 
+# (label, B, C, N, nhop, Ke)
+SEG_CASES = (("C 9 Ke 9", 128, 9, 1600, 80, 9),
+             ("hop 55", 2, 4, 301, 55, 4), ("hop 160 C 3", 2, 3, 47, 160, 4),
+             ("hop 480", 2, 4, 130, 480, 4),
+             ("hop 882 Ke 12", 2, 4, 31, 882, 12),
+             ("Ke 0", 2, 3, 47, 80, 0), ("Ke 1 C 1", 2, 1, 301, 80, 1),
+             ("Ke 8", 2, 5, 77, 80, 8), ("Ke 16", 2, 2, 50, 80, 16),
+             ("Ke 9 hop 55", 2, 9, 61, 55, 9), ("N 5", 2, 4, 5, 80, 4))
+
+
+def rows_alone(label, fn, args, got, bad, what):
+    """Rows 0, 1 and 64 each alone (a batch of one) against their rows of
+    the batch's output got."""
+    for row in (0, 1, 64):
+        one = fn(*(a[row:row + 1] if torch.is_tensor(a) else a
+                   for a in args))
+        ok = torch.equal(one[0], got[row])
+        print(f"{what} {label} row {row} alone equal {ok}", flush=True)
+        if not ok:
+            bad.append((f"{what} row alone", label, row))
+
+
+def seg(kt, ko, r, bad):
+    """noise_mod_ola_seg against the other side's on 16c's call and on
+    random inputs at SEG_CASES."""
+    import dataclasses
+    import chip_smoke
+    pkg = sys.modules["p_this"]
+    layer0 = importlib.import_module("p_this.models.layer0")
+    x, f0 = chip_smoke.fixtures(torch, torch.device("cuda"))[:2]
+    opt = pkg.create_aoptions(f0_floor=70.0, use_pallas=True)
+    sopt = dataclasses.replace(pkg.create_soptions(), use_pallas=True,
+                               noise_idft="fft")
+    chunk = layer0._analyze(opt, x, f0)
+    calls, _ = chip_smoke.capture_kernel_inputs(
+        kt, ("noise_mod_ola_seg",), lambda: layer0._synthesize(sopt, chunk))
+    del chunk, x, f0
+    cases = [("16c", calls["noise_mod_ola_seg"][0][0])]
+    for label, B, C, N, nhop, Ke in SEG_CASES:
+        cyc = torch.remainder(torch.cumsum(r(B, N * nhop) * 0.02, -1), 1.0)
+        cases.append((label, (cyc, r(B, N, C), (r(B, N, C, Ke) - 0.5) * 0.3,
+                              (r(B, N, C, Ke) - 0.5) * 0.3, 0.5 + r(B, N, C),
+                              r(B, C, N, 2 * nhop) - 0.5)))
+    for label, args in cases:
+        got = kt.noise_mod_ola_seg(*args)
+        ok = torch.equal(got, ko.noise_mod_ola_seg(*args))
+        print(f"seg {label} segs {tuple(args[5].shape)} Ke "
+              f"{args[2].shape[-1]}: equal {ok}", flush=True)
+        if not ok:
+            bad.append(("seg", label))
+        if args[0].shape[0] > 64:
+            rows_alone(label, kt.noise_mod_ola_seg, args, got, bad, "seg")
+            for _ in range(2):
+                tt = cuda_ms(lambda: kt.noise_mod_ola_seg(*args))
+                to = cuda_ms(lambda: ko.noise_mod_ola_seg(*args))
+                print(f"seg {label} ms this {tt:.4f} other {to:.4f}",
+                      flush=True)
+        del got
+    del cases, calls
+    torch.cuda.empty_cache()
+
+
+# (label, nhop, fs, F0 tracks: "rand" or the bench rows' every k-th frame)
+CYCLE_CASES = (("hop 600", 600, 48000.0, "rand"),
+               ("hop 882 at 44.1 kHz", 882, 44100.0, "rand"),
+               ("hop 882 bench F0", 882, 44100.0, 4),
+               ("hop 960", 960, 48000.0, "rand"),
+               ("hop 960 bench F0", 960, 48000.0, 4),
+               ("hop 2048", 2048, 48000.0, "rand"),
+               ("hop 513", 513, 48000.0, "rand"),
+               ("hop 1024", 1024, 48000.0, "rand"),
+               ("hop 1025", 1025, 48000.0, "rand"))
+CYCLE_STARTS = (37, -2, 17400)
+
+
+def cycles(kt, ko, r, bad):
+    """sample_cycles past a 512-sample hop against the other side's at
+    CYCLE_CASES, with and without base= and start=."""
+    import chip_smoke
+    bench_f0 = chip_smoke.fixtures(torch, torch.device("cuda"))[1]
+    g = torch.Generator(device="cuda").manual_seed(25)
+    for label, nhop, fs, src in CYCLE_CASES:
+        N = int(8.0 * fs) // nhop
+        if src == "rand":
+            f0 = 70.0 + 230.0 * torch.rand(128, N, generator=g,
+                                           device="cuda")
+            f0[:, ::7] = 0.0
+        else:
+            f0 = bench_f0[:, ::src][:, :N].contiguous()
+            N = f0.shape[-1]
+        nx = N * nhop
+        base = 1000.0 * torch.rand(128, generator=g, device="cuda",
+                                   dtype=torch.float64)
+        for start in (None,) + CYCLE_STARTS:
+            kw = {} if start is None else dict(base=base, start=start)
+            if start == 17400 and nhop != 960:
+                continue
+            got = kt.sample_cycles(f0, nhop, fs, nx, **kw)
+            ok = torch.equal(got, ko.sample_cycles(f0, nhop, fs, nx, **kw))
+            tag = f"{label} start {start}"
+            print(f"cycles {tag} f0 {tuple(f0.shape)}: equal {ok}",
+                  flush=True)
+            if not ok:
+                bad.append(("cycles", tag))
+            for row in (0, 1, 64):
+                kw1 = {} if start is None else dict(
+                    base=base[row:row + 1], start=start)
+                one = kt.sample_cycles(f0[row:row + 1], nhop, fs, nx, **kw1)
+                ok = torch.equal(one[0], got[row])
+                print(f"cycles {tag} row {row} alone equal {ok}",
+                      flush=True)
+                if not ok:
+                    bad.append(("cycles row alone", tag, row))
+            if start is None and src == "rand" and nhop in (960, 2048):
+                for _ in range(2):
+                    tt = cuda_ms(lambda: kt.sample_cycles(f0, nhop, fs, nx))
+                    to = cuda_ms(lambda: ko.sample_cycles(f0, nhop, fs, nx))
+                    print(f"cycles {label} ms this {tt:.4f} other "
+                          f"{to:.4f}", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("port_wide_bits.py: needs a CUDA card")
@@ -417,6 +552,7 @@ def main():
     opts = dict(a.split("=", 1) for a in sys.argv[1:] if "=" in a)
     if len(argv) != 1:
         sys.exit(__doc__)
+    sys.path.insert(0, str(ROOT))          # chip_smoke (what=seg,cycles)
     load(ROOT, "p_this")
     load(Path(argv[0]).resolve(), "p_other")
     kt = importlib.import_module("p_this.ops.kernels")
@@ -435,6 +571,10 @@ def main():
         noise(kt, ko, r, bad)
     if "apply" in what:
         apply(kt, ko, r, bad, Path(argv[0]).resolve(), build)
+    if "seg" in what:
+        seg(kt, ko, r, bad)
+    if "cycles" in what:
+        cycles(kt, ko, r, bad)
     print("failed:", bad, flush=True)
     sys.exit(1 if bad else 0)
 

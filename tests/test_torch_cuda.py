@@ -698,15 +698,19 @@ def test_noise_mod_ola_kernel_matches_plain_on_card(nhop, per_row, Nf):
 
 
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("nhop,Nf,C", [(80, N, 4), (55, 301, 4),
-                                       (160, 47, 3)])
-def test_noise_mod_ola_seg_kernel_matches_plain_on_card(nhop, Nf, C):
+@pytest.mark.parametrize("nhop,Nf,C,Ke", [(80, N, 4, 4), (55, 301, 4, 4),
+                                          (160, 47, 3, 4), (80, 301, 9, 9),
+                                          (480, 130, 4, 4),
+                                          (882, 31, 4, 12), (81, 40, 2, 0)])
+def test_noise_mod_ola_seg_kernel_matches_plain_on_card(nhop, Nf, C, Ke):
     """The segment-input entry (noise_idft="fft"): OLA, modulation and
     band sum of given [B, C, N, 2 nhop] segments in one launch against
-    its twin, 5e-5 as the fused entry; frame counts off the 15-hop tile,
-    an odd channel count."""
+    its twin, 5e-5 as the fused entry; frame counts off the 32-hop tile,
+    an odd channel count, 9 channels of 9 envelope harmonics (the ladder
+    in chunks), hops past 256 (16-byte runs at 480, 8-byte ones at 882),
+    an odd hop without envelope harmonics."""
     dev = _card()
-    args, _, _ = _noise_inputs(nhop, True, nhop + 1, Nf=Nf, C=C)
+    args, _, _ = _noise_inputs(nhop, True, nhop + 1, Nf=Nf, C=C, Ke=Ke)
     cyc, edc, ar, ai, base = _noise_tensors(args, dev)[:5]
     segs = torch.randn((2, C, Nf, 2 * nhop), device=dev,
                        generator=torch.Generator(device=dev).manual_seed(nhop))
@@ -799,13 +803,14 @@ def _f0_rows(B, Nf, seed):
 
 
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("nhop", [55, 80, 110, 160, 960, 2048])
+@pytest.mark.parametrize("nhop", [55, 80, 110, 160, 512, 513, 600, 882,
+                                  960, 1024, 1025, 2048])
 def test_sample_cycles_kernel_matches_plain_on_card(nhop):
     """The cycle-track kernel against its twin over 1600 hops, both mod 1:
     wrapped |difference| <= 1e-4 cycles from the twin on the card (its
     float32 scan), <= 1e-6 from the twin on the CPU, which sums in the
-    kernel's order; hops 960 and 2048 past the 16-sample runs of 32 lanes
-    (runs of 32 and 64)."""
+    kernel's order; past hop 512 the long-hop kernel (64 lanes a hop to
+    1024, 128 to 2048), at the lane counts' edges too."""
     dev = _card()
     f0 = T(_f0_rows(3, 1600, nhop))
     kernels.reset_launches()
@@ -825,12 +830,15 @@ def test_sample_cycles_kernel_matches_plain_on_card(nhop):
 @pytest.mark.parametrize("nhop,B,Nf", [(55, 1, 1601), (80, 3, 1600),
                                        (80, 1, 1633), (110, 2, 97),
                                        (160, 3, 1601), (40, 3, 1633),
-                                       (400, 2, 301), (80, 1, 210000)])
+                                       (400, 2, 301), (80, 1, 210000),
+                                       (960, 3, 400), (2048, 2, 187),
+                                       (882, 1, 19100)])
 def test_sample_cycles_kernel_equals_cpu_twin_on_card(nhop, B, Nf):
     """On _f0_rows tracks (voicing edges included; their in-hop sums are
     exact: tests/test_torch_ops.py) the kernel equals the twin run on the
     CPU bit for bit, for one row, for hop counts that are not a multiple
-    of the kernel's tile and for a row past 2^24 samples (its positions
+    of the kernel's tile, for the long-hop kernel (hops 960, 2048) and
+    for a row past 2^24 samples at hops 80 and 882 (its positions there
     divided, not read from the table); a row whose hop ramps from 1e-11
     Hz to 1000 Hz (sums not exact) stays within 1e-6 cycles."""
     dev = _card()

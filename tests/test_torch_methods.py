@@ -294,6 +294,42 @@ def test_synthesis_options_match_jax(kernels_on, idft):
                                atol=1e-4 * np.sqrt(np.mean(yn ** 2)))
 
 
+@pytest.mark.parametrize("fs", [16000.0, 48000.0])
+def test_fft_synthesis_at_a_20_ms_hop_matches_jax(fs):
+    """_synthesize with noise_idft="fft" and the kernels on, of a JAX chunk
+    analysed at a 20 ms hop (hop 320 at 16 kHz; hop 960 at 48 kHz, where
+    on the card the cycle track runs its long-hop kernel and the segment
+    entry its 16-byte path), against the JAX package's (its Pallas kernel
+    in interpret mode): y_nos within 1e-4 of its rms, as
+    test_synthesis_options_match_jax; y_sin within 5e-5 of its peak (the
+    JAX package's float32 cycle track drifts with the hop: 1.3e-5 at hop
+    320 and 1.7e-5 at hop 960 from the port's float64 sums, the plain
+    branches alike); no kernel launches on the CPU."""
+    conf = dict(CONF, fs=fs, thop=0.02)
+    x, f0 = jts.make_test_utterance(duration=0.6, fs=fs, thop=0.02, seed=3,
+                                    noise_level=0.05)
+    x, f0 = x.astype(np.float32), f0.astype(np.float32)
+    jopt = dataclasses.replace(jpkg.create_aoptions(),
+                               conf=jpkg.ChunkConf(**conf))
+    j = jl0._analyze_jit(jopt, jnp.asarray(x), jnp.asarray(f0))
+    tch = Chunk(conf=tpkg.ChunkConf(**conf), **{
+        f: torch.tensor(np.asarray(getattr(j, f)))[None] for f in FIELDS})
+    assert tch.conf.nhop == int(0.02 * fs)
+    change = dict(use_pallas=True, noise_idft="fft")
+    jr = jl0._synthesize_jit(
+        dataclasses.replace(jpkg.create_soptions(fs=fs), **change), j)
+    kernels.reset_launches()
+    tr = tl0._synthesize(
+        dataclasses.replace(tpkg.create_soptions(fs=fs), **change), tch)
+    assert all(v == 0 for v in kernels.LAUNCHES.values())
+    ys, yn = np.asarray(jr.y_sin), np.asarray(jr.y_nos)
+    assert tr.y_nos.shape[-1] == len(yn) == len(f0) * tch.conf.nhop
+    np.testing.assert_allclose(tr.y_sin[0].numpy(), ys,
+                               atol=5e-5 * np.abs(ys).max())
+    np.testing.assert_allclose(tr.y_nos[0].numpy(), yn,
+                               atol=1e-4 * np.sqrt(np.mean(yn ** 2)))
+
+
 def test_segment_entry_twin_equals_the_fused_twin():
     """kernels.noise_mod_ola_seg (its twin on the CPU) on the matmul
     segments equals noise_mod_ola on the same spectra within 1e-6 of the

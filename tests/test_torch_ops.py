@@ -144,6 +144,30 @@ def test_sample_cycles_twin_matches_and_rows_stand_alone(nhop):
         assert torch.equal(alone[0], got[r])
 
 
+def test_cycle_steps_take_each_sample_index_rounded_past_2_24():
+    """kernels.cycle_steps (the plain twin's steps) at a frame shard's
+    block whose samples cross 2^24 (hop 882, start 18900: samples
+    16669800-16934400): each position is the float32 nearest its integer
+    sample index over nhop, as the kernel (float)s and jnp.arange take it,
+    so the steps equal numpy's float32 arithmetic on those positions bit
+    for bit (a float32 torch.arange rounds 45512 of these indices
+    otherwise)."""
+    from libllsm2_tpu_torch.ops import kernels
+    nhop, start, n = 882, 18900, 300
+    fs = 44100.0
+    rng = np.random.default_rng(25)
+    f0 = rng.uniform(70.0, 300.0, (1, n)).astype(np.float32)
+    got = kernels.cycle_steps(T(f0), nhop, fs, n * nhop, start).numpy()[0]
+    s = np.arange(start * nhop, (start + n) * nhop, dtype=np.int64)
+    pos = s.astype(np.float32) / np.float32(nhop)
+    i0 = np.clip(np.floor(pos).astype(np.int64) - start, 0, n - 2)
+    t = np.clip(pos - (i0 + start).astype(np.float32), np.float32(0.0),
+                np.float32(1.0))
+    a, b = f0[0, i0], f0[0, i0 + 1]
+    ref = (a * (np.float32(1.0) - t) + b * t) / np.float32(fs)
+    np.testing.assert_array_equal(got, ref)
+
+
 def _sums(a):
     """Float64 sums over a's last axis, taken sequentially, in reverse and
     pairwise (halves first)."""

@@ -422,8 +422,9 @@ def test_env_render_twin_matches_pallas_past_8_harmonics(C, Ke, nhop):
 @pytest.mark.parametrize("nhop", [960, 2048])
 def test_cycle_track_twin_matches_jax_past_a_512_sample_hop(nhop):
     """sample_cycles (its twin on the CPU) against the JAX package's at
-    hops 960 (48 kHz at 20 ms) and 2048, where the card runs 32 lanes with
-    runs of 32 and 64 samples: within 1e-5 cycles mod 1."""
+    hops 960 (48 kHz at 20 ms) and 2048, where the card runs its long-hop
+    kernel (64 or 128 lanes a hop, runs of up to 16 samples): within 1e-5
+    cycles mod 1."""
     import jax
     from libllsm2_tpu.ops import harmonics as jhm
     fs, n = 100.0 * nhop, 60
