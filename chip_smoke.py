@@ -362,7 +362,17 @@ non-zero without the final "ok" line:
      the cycle track past a 512-sample hop (its long-hop kernel) in the
      analysis and the synthesis, two launches, held to its twin at full
      batch there and timed beside its bound; pins from port_jax_pins.py
-     only=h20, rows 0, 1 and 64 alone as 20a.  20c,
+     only=h20, rows 0, 1 and 64 alone as 20a.  20h, the same at a 50 ms
+     hop (hop 2400, every tenth F0 frame): the projection's main pass past
+     the 16-frame tile's shared memory in 8-frame tiles, the cycle track's
+     hop kernels (past 2048 samples), noise_mod_ola's wide kernel at 4
+     frames a block, each held to its twin at full batch and timed beside
+     its bound; pins from only=h50, rows 0, 1 and 64 alone; then 96 kHz
+     at a 200 ms hop (hop 19200) at kernel level on full-batch shapes:
+     the projection past one frame's span (column chunks), the hop
+     kernels at up to 200 cycles a hop, the chunked noise kernel
+     (LONG_HOP_ROWS rows) and harmonic_project's chunked row kernel, each
+     against its twin and beside its bound.  20c,
      denoise_stats on phase 5's full-batch call ([128, 1600, 80]) with the
      taps of a 2 ms hop (33 + 17) and of track_denoise_hz=5 at 5 ms (41 +
      21): the wide kernel against its twin.  20d, viterbi_scan against its
@@ -402,14 +412,19 @@ its K = 1 case is phase 3's), 9 for env_render and viterbi_scan, 16c
 for noise_mod_ola_seg;
 denoise_apply also "finish_launches" and "finish_full_batch" for its
 second launch; "launches_by_phase" the counts of phases 11 to 17, of
-19, summed over its ranks' 19a runs, and of 20a, 20b, 20d, 20e and
-20g); ms,
+19, summed over its ranks' 19a runs, and of 20a, 20b, 20d, 20e, 20g
+and 20h); ms,
 plain_ms, library_ms and bound_ms at the first 2-row call of phase 3
 (noise_mod_ola_seg: its full-batch call of 16c; deconv_full_wide,
 deconv_full's second path: 20e's first 2-row call, its launches those
 of 20e's counted runs; denoise_stats_wide, denoise_stats's second path:
 20a's first 2-row call, its cases and full-batch records 20a's, 20c's
 and 20e's, its launches those of 20a's and 20e's counted runs;
+harmonic_project_win_tile, sample_cycles_hop, noise_mod_ola_chunk and
+harmonic_project_chunk, the paths past the hop-dependent limits: 20h's
+first case, their launches those of 20h's counted run (the tile's: its
+main-pass calls; 0 for the last two, which only the 96 kHz / 200 ms
+shapes take);
 viterbi_scan: 11v's
 first case, phase 9's full-batch Rd call; denoise_stats also has
 16b's full-batch polar case among its "cases"; phase 20's other cases
@@ -429,14 +444,15 @@ The SNR, rd and PbP pins are the JAX package's own values on the CPU, from
 
     JAX_PLATFORMS=cpu PYTHONPATH=. python scripts/port_jax_pins.py \
         [only=l0,11k,l1,pbp,corpus,edits,coder,nasal,stream,dspkit,
-              learned,fp64,mesh,wide,proj64]
+              learned,fp64,mesh,wide,h20,h50,proj64]
 
 (l0: phases 4 and 5; 11k: phases 7 and 8; l1: phase 9; pbp: phase 10;
 corpus: phase 11; edits: phase 12; coder: phase 13; nasal: phase 14;
 stream: phase 15, ~1 min on the CPU; dspkit: phase 16, ~70 s; learned:
 phase 17d-e and its npz, ~25 s; fp64: phase 18a, ~10 s; mesh: phase 19a,
-~130 s; wide: phase 20a-b; proj64: phase 20e, with the JAX package's
-windowed projection in float64, ~3 min).
+~130 s; wide: phase 20a-b; h20 / h50: phases 20g / 20h, ~20 s each;
+proj64: phase 20e, with the JAX package's windowed projection in float64,
+~3 min).
 """
 import dataclasses
 import json
@@ -736,14 +752,20 @@ MESH_FIELDS = ("f0", "ampl", "phse", "hm_mask", "psd", "edc", "eenv_a",
 # rows 0, 1 (noisy) and 64 (clean) at creaky voice's conf and at 48 kHz with
 # a 10 ms hop, from
 #   JAX_PLATFORMS=cpu PYTHONPATH=. python scripts/port_jax_pins.py only=wide
-# and with a 20 ms hop (phase 20g) from only=h20
+# and with a 20 ms hop (phase 20g) from only=h20, a 50 ms hop (20h) from
+# only=h50
 WIDE_PINS_DB = {"creaky": {0: 40.427391052246094, 1: 40.932682037353516,
                            64: 54.8484001159668},
                 "48 kHz": {0: 38.91567611694336, 1: 39.449703216552734,
                            64: 48.93970489501953},
                 "48 kHz 20 ms": {0: 33.830360412597656,
                                  1: 34.028926849365234,
-                                 64: 36.950321197509766}}
+                                 64: 36.950321197509766},
+                # phase 20h, from only=h50: a 50 ms hop models the rows
+                # poorly (13 dB), but the JAX package and the port alike
+                "48 kHz 50 ms": {0: 13.207839965820312,
+                                 1: 13.213396072387695,
+                                 64: 13.241656303405762}}
 # phase 20e (cell wide, full band): maxnhar = fs / 2 / f0_floor at phase
 # 5's options with f0_floor 40 -> (create_aoptions keywords, the fixtures'
 # hop), and the JAX package's batched_pipeline SNRs of bench rows 0, 1
@@ -765,6 +787,14 @@ FULLBAND_PINS_DB = {"48 kHz": {0: 38.343997955322266, 1: 38.714813232421875,
 # kernels' limits), a record each of their own in the kernels line
 DECONV_WIDE = "deconv_full_wide"
 DENOISE_WIDE = "denoise_stats_wide"
+# phase 20h: the paths past the hop-dependent shared-memory limits, a record
+# each in the kernels line -> the wrapper that launches it
+LONG_HOP = {"harmonic_project_win_tile": "harmonic_project_win",
+            "sample_cycles_hop": "sample_cycles",
+            "noise_mod_ola_chunk": "noise_mod_ola",
+            "harmonic_project_chunk": "harmonic_project"}
+LONG_HOP_ROWS = 32            # 20h's 96 kHz / 200 ms noise case (its twin's
+                              # [C, 19201, 38400] matrices: ~40 GB)
 WIDE_TAPS = {"2 ms hop": (33, 17), "5 Hz at 5 ms": (41, 21)}   # 20c
 WIDE_STATES = ((257, True), (512, False), (1025, True))        # 20d
 WIDE_VITERBI_ROWS = 64
@@ -4895,6 +4925,155 @@ def wide_shapes(torch, kernels, dev):
     return out
 
 
+def long_hop_shapes(torch, kernels, dev):
+    """Phase 20h at 96 kHz with a 200 ms hop (hop 19200; the default
+    ChunkConf: f0_floor 40, C = 19200), at kernel level against the twins,
+    each timed beside its bound: harmonic_project_win at K = 80 past one
+    frame's span (a warp a frame, its 38400 columns in chunks), the cycle
+    track's hop kernels (F0 70-1000 Hz: up to 200 cycles a hop),
+    noise_mod_ola's chunked kernel (4 bands, 4 envelope harmonics, on
+    LONG_HOP_ROWS rows) and harmonic_project's chunked row kernel (the
+    frames of a window outside the cosine series, W = 38400) -> {record:
+    [case]}."""
+    g = torch.Generator(device=dev).manual_seed(26)
+    r = lambda *shape: torch.rand(shape, generator=g, device=dev)
+    B, N, nhop, fs = BATCH, 40, 19200, 96000.0
+    C, H, K = 19200, 4800, 80
+    nx = N * nhop
+    f0 = 70.0 + 930.0 * r(B, N)
+    f0[:, ::7] = 0.0
+    out = {}
+    cyc = torch.remainder(torch.cumsum(r(B, nx) * 0.02, -1), 1.0)
+    x = r(B, nx) - 0.5
+    hw = 2.0 + (H - 2.0) * r(B, N)
+    hw_int = torch.ceil(hw).to(torch.int32)
+    kl = (r(B, N) * (K + 1)).to(torch.int32)
+    geo = kernels._proj_win_geometry(nhop, C)
+    phase("20h 96 kHz 200 ms projection geometry", geo[0] == 0,
+          f"(frames a block, columns a chunk, bytes) {geo}: the frame's "
+          f"{8 * 2 * C} B past the block's {kernels._SMEM_MAX}")
+    out["harmonic_project_win_tile"] = [check_kernel(
+        torch, kernels, "harmonic_project_win", KERNELS[
+            "harmonic_project_win"][2], (x, cyc, hw, K, C - hw_int,
+                                         C + hw_int + 1),
+        dict(nhop=nhop, center=C, kl=kl), f"96 kHz 200 ms, chunks {geo}",
+        prefix="20h", reps=3)]
+    del x, cyc, hw, hw_int, kl
+    out["sample_cycles_hop"] = [check_kernel(
+        torch, kernels, "sample_cycles", KERNELS["sample_cycles"][2],
+        (f0, nhop, fs, nx), {}, "hop 19200 at 96 kHz", prefix="20h")]
+    Bn, nbin = LONG_HOP_ROWS, nhop + 1
+    bands = kernels.band_ranges(nbin, fs, (0.0, 2000.0, 4000.0, 6000.0,
+                                           fs / 2))
+    geo = kernels._noise_geometry(nhop, 4, 4, bands)
+    phase("20h 96 kHz 200 ms noise geometry", geo[4] > 0,
+          f"(frames a block, slots, bytes, threads, slots a chunk) {geo}")
+    cyc = torch.remainder(torch.cumsum(r(Bn, nx) * 0.02, -1), 1.0)
+    spec = [torch.randn((1, N, nbin), generator=g, device=dev).expand(
+        Bn, N, nbin) for _ in range(2)]
+    out["noise_mod_ola_chunk"] = [check_kernel(
+        torch, kernels, "noise_mod_ola", KERNELS["noise_mod_ola"][2],
+        (cyc, r(Bn, N, 4), (r(Bn, N, 4, 4) - 0.5) * 0.3,
+         (r(Bn, N, 4, 4) - 0.5) * 0.3, 0.5 + r(Bn, N, 4), *spec,
+         r(Bn, N, nbin), bands), {}, f"gains [{Bn}, {N}, {nbin}], C 4 Ke 4",
+        prefix="20h", reps=3)]
+    del cyc, spec
+    torch.cuda.empty_cache()
+    # a frame's live columns, its window's 2 hw + 1 around the centre, xw
+    # a Hann-windowed signal
+    R, W = B * N, 2 * C
+    hwr = (2.0 + (H - 2.0) * r(R)).to(torch.int32)
+    lo, hi = (C - hwr).to(torch.int32), (C + hwr + 1).to(torch.int32)
+    d = torch.arange(W, device=dev)[None, :] - C
+    xw = (r(R, W) - 0.5) * torch.where(
+        d.abs() <= hwr[:, None],
+        0.5 + 0.5 * torch.cos(math.pi * d / hwr[:, None]), 0.0)
+    del d
+    phase("20h 96 kHz 200 ms harmonic_project geometry",
+          kernels._project_geometry(W, K)[0] > 0,
+          f"(columns a chunk, bytes) {kernels._project_geometry(W, K)}")
+    out["harmonic_project_chunk"] = [check_kernel(
+        torch, kernels, "harmonic_project", KERNELS["harmonic_project"][2],
+        ((r(R, W) - 0.5) * 4.0, xw, K, lo, hi), {},
+        f"[{R}, {W}] K {K}", prefix="20h", reps=3)]
+    del xw
+    torch.cuda.empty_cache()
+    return out
+
+
+def long_hop_phase(torch, mods, data50, sopt48, summary, join, by_phase):
+    """Phase 20h: wide_path at 48 kHz with a 50 ms hop (20b's options,
+    hop 2400: the projection's main pass past the 16-frame tile's shared
+    memory runs 8-frame tiles, the cycle track its hop kernels, the noise
+    the wide kernel at 4 frames a block), each of the three held to its
+    twin at full batch; then long_hop_shapes at 96 kHz / 200 ms.  Each new
+    path's cases, full-batch records and launches go to a record of its
+    own in summary (LONG_HOP); the rest joins its kernel's."""
+    from libllsm2_tpu_torch import create_aoptions
+    kernels = mods[0]
+    opt50 = create_aoptions(fs=48000.0, thop=0.05, fnyq=12000.0,
+                            chanfreq=(3000.0, 6000.0, 9000.0), nspec=513,
+                            f0_floor=70.0, use_pallas=True)
+    conf = opt50.conf
+    C = -(-conf.halfwin_max // conf.nhop) * conf.nhop
+    tile = kernels._proj_win_geometry(conf.nhop, C)
+    span16 = 8 * (15 * conf.nhop + 2 * C)
+    phase("20h 48 kHz 50 ms geometry", conf.nhop == 2400 and tile[0] == 8
+          and span16 + kernels._PROJ_STATIC > kernels._SMEM_MAX,
+          f"hop {conf.nhop}, C {C}: the 16-frame tile's span {span16} B "
+          f"past {kernels._SMEM_MAX}; (frames a block, columns a chunk, "
+          f"bytes) {tile}; the cycle track past 2048 samples; noise "
+          f"{kernels._noise_geometry(2400, 4, 4, kernels.band_ranges(2401, 48000.0, tuple(conf.chan_edges)))}")
+    checked = FULL_CHECKED + ("harmonic_project_win", "sample_cycles",
+                              "noise_mod_ola")
+    cases, launches, f, _ = wide_path(
+        torch, mods, "20h 48 kHz 50 ms", opt50, sopt48, data50,
+        WIDE_PINS_DB["48 kHz 50 ms"], checked=checked,
+        extra=("sample_cycles",), rows=BATCH_ROWS)
+    by_phase["20h"] = launches
+    # the main pass's calls (x at the batch's rows) take the tile; the
+    # envelope pass's (four channel rows a row, hop 600) the 16-frame tile
+    main = lambda rec: rec["shapes"][0][0] in (2, BATCH)
+    tile_cases = [c for c in cases["harmonic_project_win"] if main(c)]
+    tile_full = [rec for rec in f["harmonic_project_win"] if main(rec)]
+    cases["harmonic_project_win"] = [
+        c for c in cases["harmonic_project_win"] if not main(c)]
+    f["harmonic_project_win"] = [
+        rec for rec in f["harmonic_project_win"] if not main(rec)]
+    phase("20h launches of the new paths", len(tile_full) >= 1
+          and launches["sample_cycles"] == 2,
+          f"{len(tile_full)} of {launches['harmonic_project_win']} "
+          f"harmonic_project_win launches in 8-frame tiles, "
+          f"{launches['sample_cycles']} sample_cycles launches of the hop "
+          f"kernels (analysis and synthesis)")
+    redesigned_lines("20h", {"harmonic_project_win": tile_full,
+                             "sample_cycles": f["sample_cycles"],
+                             "noise_mod_ola": f["noise_mod_ola"]},
+                     {"harmonic_project_win": f"tile {tile}",
+                      "sample_cycles": "hop kernels", "noise_mod_ola": ""})
+    new = {"harmonic_project_win_tile": (tile_cases, tile_full,
+                                         len(tile_full)),
+           "sample_cycles_hop": (cases.pop("sample_cycles"),
+                                 f.pop("sample_cycles"),
+                                 launches["sample_cycles"]),
+           "noise_mod_ola_chunk": ([], [], 0),
+           "harmonic_project_chunk": ([], [], 0)}
+    join(cases, f)
+    for name, more in long_hop_shapes(torch, kernels,
+                                      data50[0].device).items():
+        new[name][0].extend(more)
+    for name, (cs, full, n) in new.items():
+        source, replaces, _ = KERNELS[LONG_HOP[name]]
+        summary[name] = {
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": n,
+            "max_abs_err": max(c["max_abs_err"] for c in cs),
+            **{k: cs[0][k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")},
+            "cases": cs, "full_batch": full,
+            "launches_by_phase": {"20h": n}}
+
+
 def wide_phase(torch, mods, opt, sopt, data, summary, full, by_phase):
     """Phase 20 (cell wide): 20a creaky voice's conf, 20b 48 kHz at a 10 ms
     hop, 20c the denoiser's wide taps, 20d the Viterbi past 256 states,
@@ -4992,7 +5171,13 @@ def wide_phase(torch, mods, opt, sopt, data, summary, full, by_phase):
           f"scratch words")
     redesigned_lines("20g", f, {"sample_cycles": ""})
     join(cases, f)
+    # 20h: 48 kHz at a 50 ms hop (hop 2400: the projection's 8-frame tile,
+    # the cycle track's hop kernels), every tenth F0 frame; then 96 kHz at
+    # a 200 ms hop at kernel level
+    data50 = (data20[0], f0[:, ::10].contiguous()) + data20[2:]
     del data20
+    long_hop_phase(torch, mods, data50, sopt48, summary, join, by_phase)
+    del data50
     torch.cuda.empty_cache()
     # 20c: denoise_stats on phase 5's full-batch call with wide taps
     calls, _ = capture_kernel_inputs(

@@ -21,7 +21,12 @@
 // K > 8 runs one block per row with the structure of
 // harmonic_project_win.cu: stage xw and the reduced offset of the live
 // columns in shared memory, then per chunk of 8 harmonics seed z^{k0+1}
-// exactly and rotate 8 times; one block reduction per chunk.
+// exactly and rotate 8 times; one block reduction per chunk.  Past a
+// row's 2 W floats of shared memory (kernels._project_geometry: W = 2C past
+// ~14500 samples, 96 kHz at a 200 ms hop) proj_row_chunk_kernel stages the
+// live columns in chunks of Q (a multiple of the block) in turn, each
+// thread's sums carried across them: a thread takes the same columns in
+// the same order, so the sums keep proj_row_kernel's bits.
 #include "common.cuh"
 
 namespace {
@@ -130,13 +135,71 @@ proj_row_kernel(const float* __restrict__ dc, const float* __restrict__ xw,
   }
 }
 
+__global__ void __launch_bounds__(kThreads)
+proj_row_chunk_kernel(const float* __restrict__ dc,
+                      const float* __restrict__ xw,
+                      const int* __restrict__ lo, const int* __restrict__ hi,
+                      float* __restrict__ re, float* __restrict__ im, int W,
+                      int K, int Q) {
+  extern __shared__ float sm[];
+  float* xw_s = sm;        // [Q] xw over a chunk of the live columns
+  float* r_s = sm + Q;     // [Q] their reduced cycle offsets
+  __shared__ float red[kWarps * 2 * kChunk];
+  const int64_t n = blockIdx.x;
+  const float* dcn = dc + n * W;
+  const float* xwn = xw + n * W;
+  const int a = max(lo[n], 0), b = min(hi[n], W), len = max(b - a, 0);
+  float sums[2 * kChunk];
+  for (int k0 = 0; k0 < K; k0 += kChunk) {
+#pragma unroll
+    for (int j = 0; j < 2 * kChunk; ++j) sums[j] = 0.0f;
+    for (int c0 = 0; c0 < len; c0 += Q) {
+      const int m = min(Q, len - c0);
+      __syncthreads();                  // the last chunk's reads are done
+      for (int i = threadIdx.x; i < m; i += kThreads) {
+        xw_s[i] = xwn[a + c0 + i];
+        r_s[i] = llsm::frac_c(dcn[a + c0 + i]);
+      }
+      __syncthreads();
+      for (int i = threadIdx.x; i < m; i += kThreads) {
+        const float r = r_s[i], x = xw_s[i];
+        float zs, zc, wr, wi;
+        sincospif(2.0f * r, &zs, &zc);
+        sincospif(2.0f * llsm::kmul_c((float)(k0 + 1), r), &wi, &wr);
+#pragma unroll
+        for (int j = 0; j < kChunk; ++j) {
+          sums[2 * j] = fmaf(x, wr, sums[2 * j]);
+          sums[2 * j + 1] = fmaf(-x, wi, sums[2 * j + 1]);
+          const float nwr = wr * zc - wi * zs;
+          wi = wr * zs + wi * zc;
+          wr = nwr;
+        }
+      }
+    }
+    llsm::block_sums<2 * kChunk, kWarps>(sums, red);
+    if (threadIdx.x == 0) {
+#pragma unroll
+      for (int j = 0; j < kChunk; ++j) {
+        const int k = k0 + j;
+        if (k < K) {
+          re[n * K + k] = sums[2 * j];
+          im[n * K + k] = sums[2 * j + 1];
+        }
+      }
+    }
+  }
+}
+
 }  // namespace
 
+// Q: 0 stages a row's live columns whole (proj_row_kernel), else in chunks
+// of Q columns (kernels._project_geometry; a multiple of kThreads)
 extern "C" int llsm_harmonic_project(const float* dc, const float* xw,
                                      const int* lo, const int* hi, float* re,
                                      float* im, long long R, int W, int K,
-                                     void* stream) {
+                                     int Q, void* stream) {
   if (R <= 0 || K <= 0) return (int)cudaGetLastError();
+  if (Q < 0 || Q % kThreads) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const unsigned wblocks = (unsigned)((R + kWarpRows - 1) / kWarpRows);
   if (K == 1) {
@@ -145,6 +208,12 @@ extern "C" int llsm_harmonic_project(const float* dc, const float* xw,
   } else if (K <= kChunk) {
     proj_warp_kernel<kChunk><<<wblocks, 32 * kWarpRows, 0, s>>>(
         dc, xw, lo, hi, re, im, R, W, K);
+  } else if (Q > 0) {
+    const size_t smem = 2 * (size_t)Q * sizeof(float);
+    cudaError_t e = llsm::allow_smem(proj_row_chunk_kernel, smem);
+    if (e != cudaSuccess) return (int)e;
+    proj_row_chunk_kernel<<<(unsigned)R, kThreads, smem, s>>>(
+        dc, xw, lo, hi, re, im, W, K, Q);
   } else {
     const size_t smem = 2 * (size_t)W * sizeof(float);
     cudaError_t e = llsm::allow_smem(proj_row_kernel, smem);

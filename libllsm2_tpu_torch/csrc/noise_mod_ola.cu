@@ -48,7 +48,11 @@
 // threads), one band at a time, its OLA and envelope finished in the same
 // thread, so no (E, O) buffer; the band table (each band's bins, first even
 // bin, first slot and slot count) in shared memory, made from the 2 C band
-// ranges in device memory.
+// ranges in device memory.  Past the wide kernel's 4-frame block (hop
+// ~3600 with 4 bands: 16 kHz at 250 ms, 48 kHz at 100 ms, 96 kHz at 200 ms)
+// noise_chunk_kernel runs it at 16 frames a block with each band's slots
+// staged in chunks, in turn, and the three [2 nhop] tables in device
+// memory (noise_tables_kernel), every output bit the wide kernel's.
 #include "common.cuh"
 
 // LLSM_SKIP_PASS_{A,B} = 1 compiles pass 1 or pass 2 out (in the segment
@@ -597,12 +601,272 @@ cudaError_t launch_wide(const float* cyc, const float* edc, const float* ar,
   return cudaGetLastError();
 }
 
+// The wide kernel's three [2 nhop] tables, e^{2 pi j m / T} and the window,
+// by the same operations, into tab [3, T] in device memory: for
+// noise_chunk_kernel, whose block has no room for them.
+__global__ void noise_tables_kernel(float* __restrict__ tab, int nhop) {
+  const int T = 2 * nhop;
+  for (int m = blockIdx.x * blockDim.x + threadIdx.x; m < T;
+       m += gridDim.x * blockDim.x) {
+    float sn, c;
+    sincospif(__fdiv_rn(2.0f * (float)m, (float)T), &sn, &c);
+    tab[m] = c;
+    tab[T + m] = sn;
+    tab[2 * T + m] = sqrtf(0.5f - 0.5f * cospif(__fdiv_rn(
+                                             2.0f * (float)m + 1.0f, (float)T)));
+  }
+}
+
+// Past the wide kernel's shared memory: its arithmetic at F frames a block,
+// every output bit the same, for any nhop.  A thread takes one sample pair
+// (ta, tb = ta + half) of all F frames: the block's threads a group of
+// consecutive pairs, grid (tiles of F - 1 hops, rows, pair groups).  Each
+// band's slots are staged in chunks of LC (even, a multiple of kRestart) in
+// turn, [LC / 2, F + 1] float4 as the wide kernel stages them all, and the
+// pass-1 sums walk them in the wide kernel's order, carried across the
+// chunks in registers; the tables come from device memory (tab, made by
+// noise_tables_kernel); the accumulators [F - 1, 2, threads], the
+// coefficients [F, 2 C (Ke + 1)] and the band table [5, C] stay in shared
+// memory.  A thread past the last pair stages and waits with the block and
+// computes nothing.
+template <int F>
+__global__ void __launch_bounds__(kWideThreads, 2)
+noise_chunk_kernel(const float* __restrict__ cyc,
+                   const float* __restrict__ edc,
+                   const float* __restrict__ ar, const float* __restrict__ ai,
+                   const float* __restrict__ base,
+                   const float* __restrict__ re,
+                   const float* __restrict__ im, int64_t spec_bstride,
+                   const float* __restrict__ gain,
+                   const int* __restrict__ bands,
+                   const float* __restrict__ tab, float* __restrict__ y,
+                   int N, int nhop, int C, int Ke, int LC) {
+  extern __shared__ float4 sm4[];
+  constexpr int H = F - 1, FP = F + 1;
+  const int T = 2 * nhop, nbin = nhop + 1, CK = C * Ke;
+  const int nt = blockDim.x, tid = threadIdx.x;
+  float4* spec = sm4;                                  // [LC / 2, F + 1]
+  float* acc = reinterpret_cast<float*>(spec + (LC / 2) * FP);  // [H, 2, nt]
+  float* s_edc = acc + H * 2 * nt;                     // [F, C]
+  float* s_base = s_edc + F * C;
+  float* s_ar = s_base + F * C;                        // [F, C, Ke]
+  float* s_ai = s_ar + F * CK;
+  int* b_lo = reinterpret_cast<int*>(s_ai + F * CK);   // [C] each
+  int* b_hi = b_lo + C;
+  int* b_base = b_hi + C;
+  int* b_plen = b_base + C;
+  const float* tc = tab;                               // [T] each
+  const float* ts = tab + T;
+  const float* win = tab + 2 * T;
+  const int b = blockIdx.y;
+  const int f0 = blockIdx.x * H;
+  const int64_t row0 = (int64_t)b * N;
+
+  if (tid == 0) {
+    for (int c = 0; c < C; ++c) {
+      const int lo = bands[2 * c], hi = bands[2 * c + 1];
+      b_lo[c] = lo;
+      b_hi[c] = hi;
+      b_base[c] = lo & ~1;
+      b_plen[c] = hi > lo ? ((hi - b_base[c] + 1) & ~1) : 0;
+    }
+  }
+  for (int idx = tid; idx < F * C; idx += nt) {
+    const int64_t fr = row0 + min(f0 + idx / C, N - 1);
+    const int c = idx % C;
+    s_edc[idx] = __ldg(edc + fr * C + c);
+    s_base[idx] = __ldg(base + fr * C + c);
+  }
+  for (int idx = tid; idx < F * CK; idx += nt) {
+    const int64_t fr = row0 + min(f0 + idx / CK, N - 1);
+    const int q = idx % CK;
+    s_ar[idx] = __ldg(ar + fr * CK + q);
+    s_ai[idx] = __ldg(ai + fr * CK + q);
+  }
+  const float ends = 1.0f / sqrtf((float)T);
+  const float mid = sqrtf(2.0f / (float)T);
+  const int half = (nhop + 1) >> 1;
+  const int nh = min(H, N - f0);
+  const float inv_hop = 1.0f / (float)nhop;
+  const int ta = blockIdx.z * nt + tid;
+  const bool active = ta < half;
+  const int tap = active ? ta : 0;
+  const bool has_b = tap + half < nhop;
+  const int tb = has_b ? tap + half : tap;    // odd nhop: a duplicate
+  const float rar = __ldg(tc + tap), rai = __ldg(ts + tap);
+  const float rbr = __ldg(tc + tb), rbi = __ldg(ts + tb);
+  const int stepa = (kRestart * tap) % T, stepb = (kRestart * tb) % T;
+  const float sv[2] = {(float)tap * inv_hop, (float)tb * inv_hop};
+  const float wa[2] = {__ldg(win + nhop + tap), __ldg(win + nhop + tb)};
+  const float wb[2] = {__ldg(win + tap), __ldg(win + tb)};
+  for (int i = 0; i < 2 * H; ++i) acc[i * nt + tid] = 0.0f;
+  __syncthreads();
+  for (int c = 0; c < C; ++c) {
+    // pass 1: the band's (E, O) of the F frames at ta and tb, its slots
+    // staged a chunk at a time
+    float ea[F], oa[F], eb[F], ob[F];
+#pragma unroll
+    for (int q = 0; q < F; ++q) ea[q] = oa[q] = eb[q] = ob[q] = 0.0f;
+    const int lo = b_lo[c], hi = b_hi[c], kb0 = b_base[c], plen = b_plen[c];
+    int ma = (int)(((int64_t)kb0 * tap) % T);
+    int mb = (int)(((int64_t)kb0 * tb) % T);
+    for (int q0 = 0; q0 < plen; q0 += LC) {
+      const int n2 = min(LC, plen - q0) >> 1;
+      __syncthreads();                  // the last chunk's reads are done
+      for (int idx = tid; idx < F * n2; idx += nt) {
+        const int j = idx / n2, sp = idx - j * n2;
+        const int f = min(f0 + j, N - 1);
+        float v[4];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kk = kb0 + q0 + 2 * sp + e;
+          const bool in = kk >= lo && kk < hi;
+          const int k = in ? kk : 0;
+          const int64_t o = spec_bstride * b + (int64_t)f * nbin + k;
+          const float g = __ldg(gain + (row0 + f) * nbin + k);
+          const float vr = __ldg(re + o), vi = __ldg(im + o);
+          const bool live = f0 + j < N && in;
+          const bool edge = k == 0 || k == nbin - 1;
+          v[2 * e] = live ? vr * g * (edge ? ends : mid) : 0.0f;
+          v[2 * e + 1] = live && !edge ? vi * g * mid : 0.0f;
+        }
+        spec[sp * FP + j] = make_float4(v[0], v[1], v[2], v[3]);
+      }
+      __syncthreads();
+      if (!active || LLSM_SKIP_PASS_A) continue;
+      for (int s0 = q0; s0 < q0 + 2 * n2; s0 += kRestart) {
+        float zar = __ldg(tc + ma), zai = __ldg(ts + ma);
+        float zbr = __ldg(tc + mb), zbi = __ldg(ts + mb);
+        const int n = min(kRestart, plen - s0);
+        const float4* sp = spec + ((s0 - q0) >> 1) * FP;
+        for (int p = 0; p < n; p += 2, sp += FP) {
+          float yar = zar, yai = zai, ybr = zbr, ybi = zbi;
+          rotate_e(yar, yai, rar, rai);
+          rotate_e(ybr, ybi, rbr, rbi);
+#pragma unroll
+          for (int q = 0; q < F; ++q) {
+            const float4 v = sp[q];
+            ea[q] = fmaf(v.x, zar, fmaf(-v.y, zai, ea[q]));
+            eb[q] = fmaf(v.x, zbr, fmaf(-v.y, zbi, eb[q]));
+            oa[q] = fmaf(v.z, yar, fmaf(-v.w, yai, oa[q]));
+            ob[q] = fmaf(v.z, ybr, fmaf(-v.w, ybi, ob[q]));
+          }
+          zar = yar;
+          zai = yai;
+          zbr = ybr;
+          zbi = ybi;
+          rotate_o(zar, zai, rar, rai);
+          rotate_o(zbr, zbi, rbr, rbi);
+        }
+        ma += stepa;
+        if (ma >= T) ma -= T;
+        mb += stepb;
+        if (mb >= T) mb -= T;
+      }
+    }
+    if (!active) continue;
+    if (LLSM_SKIP_PASS_B) {   // keeps pass 1's sums
+      float sink = 0.0f;
+#pragma unroll
+      for (int q = 0; q < F; ++q) sink += ea[q] + oa[q] + eb[q] + ob[q];
+      if (sink == 1e30f) y[0] = sink;
+      continue;
+    }
+    // pass 2: the wide kernel's, a hop's cycles loaded a hop ahead
+    float cy[2] = {cyc[(row0 + f0) * nhop + tap],
+                   cyc[(row0 + f0) * nhop + tb]};
+#pragma unroll
+    for (int i = 0; i < H; ++i) {
+      if (i >= nh) break;
+      const bool partner = f0 + i + 1 < N;
+      float c1[2], s1[2], env[2], zr[2], zi[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        sincospif(2.0f * llsm::frac_c(cy[r]), &s1[r], &c1[r]);
+      if (i + 1 < nh) {
+        const int64_t g1 = (row0 + f0 + i + 1) * nhop;
+        cy[0] = cyc[g1 + tap];
+        cy[1] = cyc[g1 + tb];
+      }
+      const float e0 = s_edc[i * C + c], de = s_edc[(i + 1) * C + c] - e0;
+      const float b0 = s_base[i * C + c];
+      const float db = s_base[(i + 1) * C + c] - b0;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        env[r] = fmaf(de, sv[r], e0);
+        zr[r] = c1[r];
+        zi[r] = s1[r];
+      }
+      const float* a0 = s_ar + i * CK + c * Ke;
+      const float* p0 = s_ai + i * CK + c * Ke;
+      for (int k = 0; k < Ke; ++k) {
+        const float a = a0[k], da = a0[CK + k] - a;
+        const float p = p0[k], dp = p0[CK + k] - p;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          env[r] = __fadd_rn(env[r],
+                             __fmaf_rn(fmaf(da, sv[r], a), zr[r],
+                                       -__fmul_rn(fmaf(dp, sv[r], p),
+                                                  zi[r])));
+          rotate_o(zr[r], zi[r], c1[r], s1[r]);
+        }
+      }
+      const float cur[2][2] = {{ea[i], oa[i]}, {eb[i], ob[i]}};
+      const float nxt[2][2] = {{ea[i + 1], oa[i + 1]},
+                               {eb[i + 1], ob[i + 1]}};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float ola = __fmul_rn(wa[r], __fsub_rn(cur[r][0], cur[r][1]));
+        if (partner)
+          ola = fmaf(wb[r], __fadd_rn(nxt[r][0], nxt[r][1]), ola);
+        const float bl = fmaf(db, sv[r], b0);
+        float* a_ = acc + (2 * i + r) * nt + tid;
+        *a_ = fmaf(ola, __fdividef(fmaxf(env[r], 0.0f), fmaxf(bl, 1e-8f)),
+                   *a_);
+      }
+    }
+  }
+  if (!active) return;
+  for (int i = 0; i < nh; ++i) {
+    const int64_t g0 = (row0 + f0 + i) * nhop;
+    y[g0 + tap] = acc[2 * i * nt + tid];
+    if (has_b) y[g0 + tb] = acc[(2 * i + 1) * nt + tid];
+  }
+}
+
+template <int F>
+cudaError_t launch_chunk(const float* cyc, const float* edc, const float* ar,
+                         const float* ai, const float* base, const float* re,
+                         const float* im, int64_t spec_bstride,
+                         const float* gain, const int* bands_d, float* tab,
+                         float* y, int B, int N, int nhop, int C, int Ke,
+                         int LC, int threads, cudaStream_t st) {
+  const int T = 2 * nhop, tblocks = min((T + 255) / 256, 1024);
+  noise_tables_kernel<<<tblocks, 256, 0, st>>>(tab, nhop);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const size_t smem = (size_t)(LC / 2) * (F + 1) * sizeof(float4) +
+                      (size_t)(F - 1) * 2 * threads * sizeof(float) +
+                      (size_t)F * (2 * C + 2 * C * Ke) * sizeof(float) +
+                      (size_t)4 * C * sizeof(int);
+  e = llsm::allow_smem(noise_chunk_kernel<F>, smem);
+  if (e != cudaSuccess) return e;
+  const int half = (nhop + 1) / 2;
+  dim3 grid((N + F - 2) / (F - 1), B, (half + threads - 1) / threads);
+  noise_chunk_kernel<F><<<grid, threads, smem, st>>>(
+      cyc, edc, ar, ai, base, re, im, spec_bstride, gain, bands_d, tab, y, N,
+      nhop, C, Ke, LC);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // bands: 2 C ints on the host, each band's bin range [lo, hi) (lo = hi for
 // an empty band), and the same in device memory (bands_d, read by the wide
 // kernel); F, wide_threads: the wide kernel's frames and threads a block
-// (kernels._noise_geometry), F = 0 for noise_mod_kernel.
+// (kernels._noise_geometry), F = 0 for noise_mod_kernel; chunk > 0 (F = 16
+// only): noise_chunk_kernel with chunks of that many slots, tab its [3, 2
+// nhop] tables' device memory (null otherwise).
 extern "C" int llsm_noise_mod_ola(const float* cyc, const float* edc,
                                   const float* ar, const float* ai,
                                   const float* base, const float* re,
@@ -610,12 +874,19 @@ extern "C" int llsm_noise_mod_ola(const float* cyc, const float* edc,
                                   const float* gain, const int* bands,
                                   const int* bands_d, float* y, int B, int N,
                                   int nhop, int C, int Ke, int F,
-                                  int wide_threads, void* stream) {
+                                  int wide_threads, int chunk, float* tab,
+                                  void* stream) {
   if (F > 0) {
     if (nhop <= 0 || C <= 0 || Ke < 0 || !bands_d || wide_threads <= 0 ||
-        wide_threads > kWideThreads)
+        wide_threads > kWideThreads ||
+        (chunk && (F != 16 || chunk < 0 || chunk % kRestart || !tab)))
       return (int)cudaErrorInvalidValue;
     if (B <= 0 || N <= 0) return (int)cudaGetLastError();
+    if (chunk)
+      return (int)launch_chunk<16>(cyc, edc, ar, ai, base, re, im,
+                                   (int64_t)spec_bstride, gain, bands_d, tab,
+                                   y, B, N, nhop, C, Ke, chunk, wide_threads,
+                                   (cudaStream_t)stream);
     int L = 0;
     for (int c = 0; c < C; ++c) {
       const int lo = bands[2 * c], hi = bands[2 * c + 1];

@@ -45,8 +45,9 @@
 // compiled out: only=sample_cycles, only=cycles_long).  Design, to a
 // 512-sample hop: one kernel launch after a memset of its tile words, a
 // block of 4 warps a tile of T <= 128 hops of one row, grid (tiles, rows).
-// Past it (48 kHz at a 20 ms hop is 960; at most 2048) the long-hop kernel
-// below, a hop over two or four warps.
+// Past it (48 kHz at a 20 ms hop is 960; to 2048) the long-hop kernel
+// below, a hop over two or four warps; past 2048 (48 kHz at 50 ms, 96 kHz
+// at 200 ms: 19200) the two hop kernels at the end, a block a hop.
 //   - Steps: L lanes share a hop, each a run of at most 10 consecutive
 //     samples (up to nhop = 320; to 512, 32 lanes with runs of up to 16);
 //     a lane evaluates each step once, in registers, with the plain
@@ -586,12 +587,148 @@ cudaError_t launch_long(const float* f0, float* out, unsigned long long* word,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Past a 2048-sample hop the long-hop kernel would need more than its 256
+// lanes a hop or runs past kLongRun, and its tile's partials grow with the
+// hop.  Here a block of kHopThreads lanes takes one hop, a lane a run of
+// ceil(nhop / kHopThreads) consecutive samples, any length, whose steps it
+// evaluates in turn (f0_over_fs: the plain version's division a sample, no
+// table) and, in the output pass, once more: two launches, no tile words
+// and no shared memory that grows with the hop.  sample_cycles_hop_totals
+// writes each hop's total mod 1 (the in-hop scan's sum: each warp's tree,
+// then the warps in order) to tots [B, H] in device memory;
+// sample_cycles_hop_kernel sums the row's totals before its hop (lane l
+// hops l, l + 32, ... in order, then a fixed xor tree, then the base) into
+// the hop's offset, scans the hop's runs as the totals kernel does and
+// writes each sample's track.  Every order is set by the row alone.
+//
+// Exactness at long hops: a float64 running sum of float32 values is exact
+// while every partial stays below 2^29 times the smallest nonzero value
+// added (each float32 value is a multiple of 2^-24 of itself; float64
+// holds 53 bits).  Between two voiced frames a step is at least f0_floor /
+// fs and a hop's partials at most f0_max nhop / fs: a ratio of (f0_max /
+// f0_floor) nhop, ~3e5 at 96 kHz with a 19200 hop.  At a voicing edge the
+// lerp starts from 0: the smallest step is ~f0 / (nhop fs) and the hop's
+// sum ~f0 nhop / (2 fs), a ratio of nhop^2 / 2, under 2^29 for nhop <
+// 32768 (1.8e8 at 19200).  So on analysis tracks the in-hop sums stay
+// exact to hop 32767 and the kernel keeps the plain version's CPU bits;
+// elsewhere the orders part in the float64 sums' last bits, which moves a
+// float32 partial by at most one ulp of the hop's largest partial
+// (2^-16 cycles at 200 cycles a hop: 1 kHz at 96 kHz over 19200 samples).
+constexpr int kHopThreads = 256;
+
+// the hop's exclusive prefix of lane r's run and its total: a scan in each
+// warp by a tree fixed by the lane, then the sums of the warps before it,
+// in warp order (ws: the warps' sums, kHopThreads / 32 doubles)
+__device__ __forceinline__ double hop_scan(double acc, double* ws,
+                                           double* tot) {
+  const int lane = threadIdx.x & 31, wh = threadIdx.x >> 5;
+  double incl = acc;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const double u = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += u;
+  }
+  double p = __shfl_up_sync(0xffffffffu, incl, 1);
+  if (lane == 0) p = 0.0;
+  if (lane == 31) ws[wh] = incl;
+  __syncthreads();
+  double t = ws[0];
+  for (int v = 1; v < kHopThreads / 32; ++v) t += ws[v];
+  *tot = t;
+  double woff = 0.0;
+  for (int v = 0; v < wh; ++v) woff += ws[v];
+  return wh ? p + woff : p;
+}
+
+__global__ void __launch_bounds__(kHopThreads)
+sample_cycles_hop_totals(const float* __restrict__ f0,
+                         double* __restrict__ tots, int start, int N,
+                         int nhop, int H, float fs, int run) {
+  __shared__ double ws[kHopThreads / 32];
+  const int j = blockIdx.x, row = blockIdx.y;
+  const float* f0r = f0 + (int64_t)row * N;
+  const double rfs = __drcp_rn((double)fs);
+  const int t0 = min((int)threadIdx.x * run, nhop), t1 = min(t0 + run, nhop);
+  const int64_t s0 = (int64_t)(start + j) * nhop;
+  double acc = 0.0;
+  for (int t = t0; t < t1; ++t)
+    acc += f0_over_fs(f0r, s0 + t, (float)nhop, N, rfs, start);
+  double tot;
+  hop_scan(acc, ws, &tot);
+  if (threadIdx.x == 0) {
+    const float w = __double2float_rn(tot);
+    tots[(int64_t)row * H + j] = (double)(w - floorf(w));
+  }
+}
+
+__global__ void __launch_bounds__(kHopThreads)
+sample_cycles_hop_kernel(const float* __restrict__ f0,
+                         float* __restrict__ out,
+                         const double* __restrict__ tots,
+                         const double* __restrict__ base, int start, int N,
+                         int nhop, int H, float fs, int run) {
+  __shared__ double ws[kHopThreads / 32];
+  __shared__ float ofs;
+  const int j = blockIdx.x, row = blockIdx.y;
+  const int lane = threadIdx.x & 31;
+  const float* f0r = f0 + (int64_t)row * N;
+  const int64_t nx = (int64_t)H * nhop;
+  float* outr = out + (int64_t)row * nx;
+  const double rfs = __drcp_rn((double)fs);
+  const float nhop_f = (float)nhop;
+  if (threadIdx.x < 32) {
+    // the hop's offset: the row's totals before it, lane l hops l, l + 32,
+    // ... in order, then the lanes by a fixed tree, then the base
+    const double* tr = tots + (int64_t)row * H;
+    double c = 0.0;
+    for (int i = lane; i < j; i += 32) c += tr[i];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) c += __shfl_xor_sync(0xffffffffu, c, o);
+    if (base) c += base[row];
+    if (lane == 0) ofs = (float)(c - floor(c));
+  }
+  const int t0 = min((int)threadIdx.x * run, nhop), t1 = min(t0 + run, nhop);
+  const int64_t s0 = (int64_t)(start + j) * nhop;
+  double acc = 0.0;
+  for (int t = t0; t < t1; ++t)
+    acc += f0_over_fs(f0r, s0 + t, nhop_f, N, rfs, start);
+  double tot;
+  double p = hop_scan(acc, ws, &tot);   // its barrier publishes ofs too
+  const int64_t o = (int64_t)j * nhop + 1;      // out[s + 1] = c[s]
+  for (int t = t0; t < (LLSM_SKIP_PASS_B ? t0 : t1); ++t) {
+    p += f0_over_fs(f0r, s0 + t, nhop_f, N, rfs, start);
+    if (o + t < nx) {
+      const float cv = __fadd_rn(ofs, __double2float_rn(p));
+      outr[o + t] = cv - floorf(cv);
+    }
+  }
+  if (j == 0 && threadIdx.x == 0)
+    outr[0] = base ? (float)(base[row] - floor(base[row])) : 0.0f;
+}
+
+cudaError_t launch_hop(const float* f0, float* out, double* tots,
+                       const double* base, int start, int B, int N, int nhop,
+                       int H, float fs, cudaStream_t st) {
+  const int run = (nhop + kHopThreads - 1) / kHopThreads;
+  dim3 grid(H, B);
+  sample_cycles_hop_totals<<<grid, kHopThreads, 0, st>>>(f0, tots, start, N,
+                                                         nhop, H, fs, run);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  sample_cycles_hop_kernel<<<grid, kHopThreads, 0, st>>>(
+      f0, out, tots, base, start, N, nhop, H, fs, run);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // words the caller provides: one a tile of each row (llsm_sample_cycles
-// zeroes them on its stream before the kernel)
+// zeroes them on its stream before the kernel); past a 2048-sample hop a
+// hop total of each row
 extern "C" int llsm_sample_cycles_words(int B, int nhop, int nx) {
   if (B <= 0 || nhop <= 0 || nx <= 0) return 1;
+  if (nhop > 2048) return B * (nx / nhop);
   if (nhop > 512) return long_words(B, nhop, nx / nhop);
   const int T = kPasses * kWarps * (32 >> lanes_log2(nhop));
   return B * ((nx / nhop + T - 1) / T);
@@ -603,8 +740,11 @@ extern "C" int llsm_sample_cycles(const float* f0, float* out,
                                   int N, int nhop, int nx, float fs,
                                   void* stream) {
   if (B <= 0 || nx <= 0) return (int)cudaGetLastError();
-  if (N < 2 || nhop <= 0 || nx % nhop || nhop > 32 * 64)
-    return (int)cudaErrorInvalidValue;
+  if (N < 2 || nhop <= 0 || nx % nhop) return (int)cudaErrorInvalidValue;
+  if (nhop > 2048)
+    return (int)launch_hop(f0, out, reinterpret_cast<double*>(word), base,
+                           start, B, N, nhop, nx / nhop, fs,
+                           (cudaStream_t)stream);
   const int lg = lanes_log2(nhop);
   const int run = (nhop + (1 << lg) - 1) >> lg;
   const int H = nx / nhop;

@@ -41,20 +41,22 @@ SIGNATURES = {
     # cyc, ampl, phse, mask, x (or null), y, B, N, K, nhop, stream
     "llsm_osc_bank": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # x, cyc, hw, lo, hi, kl, re, im, wsum, xsum, Bx, rep, nx, N, K, nhop,
-    # center, c0, c1, c2, c3, ncoef, stream
+    # center, c0, c1, c2, c3, ncoef, F, Q (kernels._proj_win_geometry),
+    # stream
     "llsm_harmonic_project_win": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                   _I, _I, _I, _I, _I, _I, _I, _F, _F, _F,
-                                  _F, _I, _P),
+                                  _F, _I, _I, _I, _P),
     # ampl, phse, cyc, hw, mask, out_a, out_b, taps (the wide path's
     # scratch, or null), B, N, K, D, nhop, stride, polar, FT, KC (0: the
     # first kernel), TT, stage (kernels._deconv_geometry), stream
     "llsm_deconv_full": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _I, _I, _I, _I, _I, _I, _P),
     # cyc, edc, ar, ai, base, re, im, spec batch stride, gain, bands (host,
-    # 2 C ints), bands (device, or null), y, B, N, nhop, C, Ke, F, threads
-    # (kernels._noise_geometry), stream
+    # 2 C ints), bands (device, or null), y, B, N, nhop, C, Ke, F, threads,
+    # chunk (kernels._noise_geometry), the chunked kernel's tables (or
+    # null), stream
     "llsm_noise_mod_ola": (_P, _P, _P, _P, _P, _P, _P, _L, _P, _P, _P, _P,
-                           _I, _I, _I, _I, _I, _I, _I, _P),
+                           _I, _I, _I, _I, _I, _I, _I, _I, _P, _P),
     # cyc, edc, ar, ai, base, segs, y, B, N, nhop, C, Ke, stream
     "llsm_noise_mod_ola_seg": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                _I, _P),
@@ -72,8 +74,9 @@ SIGNATURES = {
                            _I, _I, _F, _I, _I, _I, _I, _I, _P),
     # a, delta (complex64), cyc_c, mask, ampl, phse, B, N, K, stream
     "llsm_denoise_finish": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-    # dc, xw, lo, hi, re, im, R, W, K, stream
-    "llsm_harmonic_project": (_P, _P, _P, _P, _P, _P, _L, _I, _I, _P),
+    # dc, xw, lo, hi, re, im, R, W, K, Q (kernels._project_geometry),
+    # stream
+    "llsm_harmonic_project": (_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P),
     # x, cyc, hw, re, im, wsum, xsum, B, nx, N, K, nhop, reach, c0, c1, c2,
     # c3 (the window's cosine coefficients, zero past its own), stream
     "llsm_harmonic_project_mxu": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

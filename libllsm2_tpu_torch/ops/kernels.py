@@ -138,6 +138,32 @@ def osc_bank_ref(cyc, ampl, phse, mask, nhop, x=None):
 # 2. fused-window harmonic projection (pallas_osc.harmonic_project_win_pallas)
 # ---------------------------------------------------------------------------
 
+# harmonic_project_win.cu: the span of a tile of F frames, (F - 1) nhop + 2 C
+# samples of x and of cyc, in shared memory beside the tile's 16 frame
+# records; F = 16 (proj_win_kernel) where it fits, else the largest of 8,
+# 4, 2, 1 (proj_win_part_kernel), else a warp a frame staging its columns
+# in chunks of _PROJ_CHUNK
+_PROJ_TILES = (16, 8, 4, 2, 1)
+_PROJ_STATIC = 16 * 16
+_PROJ_WARPS = 4
+_PROJ_CHUNK = 1024
+
+
+@functools.lru_cache(maxsize=64)
+def _proj_win_geometry(nhop: int, C: int) -> tuple:
+    """harmonic_project_win's launch at hop nhop and center column C ->
+    (F frames a block, Q columns a chunk, dynamic shared bytes): the
+    largest F of _PROJ_TILES whose span's 8 ((F - 1) nhop + 2 C) bytes fit
+    beside the frame records (Q = 0); F = 0 past one frame's span, each of
+    the block's 4 warps a frame, its 2 C columns staged in chunks of Q =
+    _PROJ_CHUNK in turn."""
+    for F in _PROJ_TILES:
+        smem = 8 * ((F - 1) * nhop + 2 * C)
+        if smem + _PROJ_STATIC <= _SMEM_MAX:
+            return F, 0, smem
+    return 0, _PROJ_CHUNK, 8 * _PROJ_WARPS * _PROJ_CHUNK
+
+
 def harmonic_project_win(x: torch.Tensor, cyc: torch.Tensor,
                          hw: torch.Tensor, max_k: int, lo: torch.Tensor,
                          hi: torch.Tensor, *, nhop: int, center: int,
@@ -154,7 +180,9 @@ def harmonic_project_win(x: torch.Tensor, cyc: torch.Tensor,
     cosine-series `window` centered at column `center` with halfwidth
     hw; only columns in [lo, hi) (which must cover its support)
     contribute.  Slots k >= kl are exact zeros (kl=None: all max_k slots
-    live).  No [Bx N, 2 center] frame buffer is built on the card."""
+    live).  No [Bx N, 2 center] frame buffer is built on the card: a tile
+    of frames (or, past one frame's span, chunks of a frame's columns)
+    staged in shared memory (_proj_win_geometry), any nhop and center."""
     Bx, nx = x.shape
     N = hw.shape[-1]
     if kl is None:
@@ -175,9 +203,10 @@ def harmonic_project_win(x: torch.Tensor, cyc: torch.Tensor,
     ws = torch.empty((Bx, N), dtype=FP, device=dev)
     xs = torch.empty((Bx, N), dtype=FP, device=dev)
     ptrs = (t.data_ptr() for t in (x, cyc, hw, lo, hi, kl, re, im, ws, xs))
+    F, Q, _ = _proj_win_geometry(int(nhop), int(center))
     _launch("harmonic_project_win", *ptrs, Bx, Bx // Bc, nx, N, max_k,
             int(nhop), int(center), *coefs[:4], len(COSINE_SERIES[window]),
-            _stream(x))
+            F, Q, _stream(x))
     return re, im, ws, xs
 
 
@@ -405,12 +434,14 @@ def _deconv_step(ampl, phse, cyc_c, hw, eq_re, eq_im, D, nhop, stride):
 
 # noise_mod_ola.cu's first kernel: nhop <= 256, C <= 8, Ke <= 8, 16 frames a
 # block; the wide kernel the rest at 16, 8 or 4 frames a block of up to 256
-# threads
+# threads; past its 4-frame block the chunked kernel, 16 frames a block, the
+# slots staged _NOISE_CHUNK at a time
 _NOISE_MAX_C = 8
 _NOISE_MAX_KE = 8
 _NOISE_MAX_HOP = 256
 _NOISE_FRAMES = (16, 8, 4)
 _NOISE_WIDE_THREADS = 256
+_NOISE_CHUNK = 512
 _SM_SMEM = 233472            # the H100's shared memory an SM (228 KB)
 _BLOCK_RESERVED = 1024       # what the card keeps of it for each block
 
@@ -419,24 +450,29 @@ _BLOCK_RESERVED = 1024       # what the card keeps of it for each block
 def _noise_geometry(nhop: int, C: int, Ke: int, bands: tuple) -> tuple:
     """noise_mod_ola.cu's launch -> (F, the wide kernel's frames a block, 0
     for the first kernel; L, the staged slots a frame; shared bytes;
-    threads a block of the wide kernel, 0 for the first).  L sums each
-    band's slots, from its first even bin, an even count (band_ranges'
-    [lo, hi) each).  The first kernel (F = 16) where nhop <= 256, C <= 8
-    and Ke <= 8: the staged spectra [16, L] and (E, O) [16, C, nhop]
-    float2, the three [2 nhop] tables, the coefficients [16, 2 C (Ke + 1)]
-    floats and the slots' bins [L] ints.  Else the wide kernel: a thread
-    a sample pair of every frame of the block (threads: the pairs rounded
-    up to a warp, at most 256, each thread looping past them), the spectra
-    [L / 2, F + 1] float4 (slot pairs, a pad frame), the tables, the y
-    accumulators [F - 1, 2, threads], the coefficients, the slots' bins
-    and the band table [5, C] ints; the largest F of _NOISE_FRAMES whose
-    block leaves room for two an SM, else the largest that fits one; None
-    where none does."""
+    threads a block of the wide kernel, 0 for the first; the chunked
+    kernel's slots a chunk, 0 for the others).  L sums each band's slots,
+    from its first even bin, an even count (band_ranges' [lo, hi) each).
+    The first kernel (F = 16) where nhop <= 256, C <= 8 and Ke <= 8: the
+    staged spectra [16, L] and (E, O) [16, C, nhop] float2, the three
+    [2 nhop] tables, the coefficients [16, 2 C (Ke + 1)] floats and the
+    slots' bins [L] ints.  Else the wide kernel: a thread a sample pair of
+    every frame of the block (threads: the pairs rounded up to a warp, at
+    most 256, each thread looping past them), the spectra [L / 2, F + 1]
+    float4 (slot pairs, a pad frame), the tables, the y accumulators
+    [F - 1, 2, threads], the coefficients, the slots' bins and the band
+    table [5, C] ints; the largest F of _NOISE_FRAMES whose block leaves
+    room for two an SM, else the largest that fits one.  Past its 4-frame
+    block the chunked kernel (F = 16, a block a group of `threads` sample
+    pairs): a chunk of _NOISE_CHUNK slots [_NOISE_CHUNK / 2, 17] float4,
+    the accumulators, the coefficients and the band table [4, C] ints, the
+    tables in device memory; None where even that block overflows (the
+    coefficients of 16 frames past ~C (Ke + 1) 1000)."""
     L = sum((hi - (lo & ~1) + 1) & ~1 if hi > lo else 0
             for lo, hi in zip(bands[::2], bands[1::2]))
     if nhop <= _NOISE_MAX_HOP and C <= _NOISE_MAX_C and Ke <= _NOISE_MAX_KE:
         return (0, L, 8 * 16 * L + 8 * 16 * C * nhop + 12 * 2 * nhop
-                + 4 * 16 * 2 * C * (Ke + 1) + 4 * L, 0)
+                + 4 * 16 * 2 * C * (Ke + 1) + 4 * L, 0, 0)
     threads = min(_NOISE_WIDE_THREADS, -(-((nhop + 1) // 2) // 32) * 32)
 
     def smem(F):
@@ -445,8 +481,13 @@ def _noise_geometry(nhop: int, C: int, Ke: int, bands: tuple) -> tuple:
     fits = [F for F in _NOISE_FRAMES if smem(F) <= _SMEM_MAX]
     two = [F for F in fits
            if 2 * (smem(F) + _BLOCK_RESERVED) <= _SM_SMEM]
-    F = (two or fits or [None])[0]
-    return None if F is None else (F, L, smem(F), threads)
+    if fits:
+        F = (two or fits)[0]
+        return F, L, smem(F), threads, 0
+    chunk = (16 * (_NOISE_CHUNK // 2) * 17 + 4 * 15 * 2 * threads
+             + 4 * 16 * 2 * C * (Ke + 1) + 4 * 4 * C)
+    return (16, L, chunk, threads, _NOISE_CHUNK) if chunk <= _SMEM_MAX \
+        else None
 
 
 @functools.lru_cache(maxsize=32)
@@ -482,9 +523,11 @@ def noise_mod_ola(cyc: torch.Tensor, edc: torch.Tensor, ar: torch.Tensor,
     band's bins [lo, hi) as 2 C ints (band_ranges) -> y [B, N*nhop] = sum_c OLA(seg_c) max(env_c, 0) /
     max(base_c, 1e-8), seg_c each frame's windowed inverse real DFT of its
     band's bins of (re scale, im scale') x gain (DC and Nyquist real).  One
-    launch on the card (any nhop, C and Ke whose 4-frame block fits in
-    shared memory: _noise_geometry); no [B, C, N, 2 nhop] segment
-    buffer and, past the first kernel, no (E, O) buffer."""
+    launch on the card (two past the wide kernel's 4-frame block: the
+    chunked kernel's tables first; any nhop, and any C and Ke whose 16
+    frames' coefficients fit in shared memory: _noise_geometry); no
+    [B, C, N, 2 nhop] segment buffer and, past the first kernel, no (E, O)
+    buffer."""
     bands = tuple(int(v) for v in bands)
     if not _on_cuda(cyc, edc, ar, ai, base, re, im, gain):
         return noise_mod_ola_ref(cyc, edc, ar, ai, base, re, im, gain, bands)
@@ -504,7 +547,8 @@ def noise_mod_ola(cyc: torch.Tensor, edc: torch.Tensor, ar: torch.Tensor,
         else None
     if geo is None:
         raise ValueError(f"noise_mod_ola: nhop {nhop}, C {C}, Ke {Ke}: the "
-                         "staged spectra of 4 frames overflow shared memory")
+                         "envelope coefficients of 16 frames overflow "
+                         "shared memory")
     # one draw for the whole batch keeps its [N, nbin] storage: batch
     # stride 0; otherwise a draw a row
     if B > 1 and re.stride(0) == 0 and im.stride(0) == 0:
@@ -515,11 +559,15 @@ def noise_mod_ola(cyc: torch.Tensor, edc: torch.Tensor, ar: torch.Tensor,
     y = torch.empty((B, N * nhop), dtype=FP, device=cyc.device)
     ranges = (ctypes.c_int * (2 * C))(*bands)       # read at the launch
     ranges_d = _bands_on(bands, cyc.device).data_ptr() if geo[0] else None
+    # the chunked kernel's [3, 2 nhop] tables, made by its first launch
+    tab = torch.empty((3 * 2 * nhop,), dtype=FP, device=cyc.device) \
+        if geo[4] else None
     _launch("noise_mod_ola", cyc.data_ptr(), edc.data_ptr(), ar.data_ptr(),
             ai.data_ptr(), base.data_ptr(), spec[0].data_ptr(),
             spec[1].data_ptr(), bstride, gain.data_ptr(),
             ctypes.addressof(ranges), ranges_d, y.data_ptr(), B, N, nhop, C,
-            Ke, geo[0], geo[3], _stream(cyc))
+            Ke, geo[0], geo[3], geo[4], None if tab is None else
+            tab.data_ptr(), _stream(cyc))
     return y
 
 
@@ -1376,6 +1424,24 @@ def noise_bins(seed: int, frame_base: int, B: int, N: int, nbin: int,
 #     (pallas_osc.harmonic_project_pallas)
 # ---------------------------------------------------------------------------
 
+# harmonic_project.cu's row kernel (K > 8) stages a row's 2 W floats, beside
+# its 256 bytes of block sums; past them, chunks of _PROJECT_CHUNK columns
+_PROJECT_STATIC = 256
+_PROJECT_CHUNK = 8192
+
+
+def _project_geometry(W: int, K: int) -> tuple:
+    """harmonic_project's launch for rows of W columns and K harmonics ->
+    (Q columns a chunk, dynamic shared bytes): no shared memory at K <= 8
+    (a warp a row from device memory), a row's 2 W floats (Q = 0) where
+    they fit, else chunks of Q = _PROJECT_CHUNK columns staged in turn."""
+    if K <= 8:
+        return 0, 0
+    if 8 * W + _PROJECT_STATIC <= _SMEM_MAX:
+        return 0, 8 * W
+    return _PROJECT_CHUNK, 8 * _PROJECT_CHUNK
+
+
 def harmonic_project(dc: torch.Tensor, xw: torch.Tensor, max_k: int,
                      lo: torch.Tensor | None = None,
                      hi: torch.Tensor | None = None):
@@ -1397,7 +1463,8 @@ def harmonic_project(dc: torch.Tensor, xw: torch.Tensor, max_k: int,
     re = torch.empty((R, max_k), dtype=FP, device=dev)
     im = torch.empty((R, max_k), dtype=FP, device=dev)
     ptrs = (t.data_ptr() for t in (dc, xw, lo, hi, re, im))
-    _launch("harmonic_project", *ptrs, R, W, max_k, _stream(dc))
+    _launch("harmonic_project", *ptrs, R, W, max_k,
+            _project_geometry(W, max_k)[0], _stream(dc))
     return re, im
 
 
@@ -1508,8 +1575,8 @@ def harmonic_project_mxu_ref(x, cyc, hw, max_k, nhop, hh, *,
 # ---------------------------------------------------------------------------
 
 # sample_cycles.cu: past hop 512 its long-hop kernel, at most 128 lanes a
-# hop, each a run of up to 16 samples
-_CYCLE_MAX_HOP = 2048
+# hop, each a run of up to 16 samples; past 2048 its hop kernels, a block of
+# 256 lanes a hop
 
 
 def sample_cycles(f0: torch.Tensor, nhop: int, fs: float, nx: int,
@@ -1527,14 +1594,13 @@ def sample_cycles(f0: torch.Tensor, nhop: int, fs: float, nx: int,
     N = f0.shape[-1]
     if N < 2:
         raise ValueError(f"sample_cycles: {N} frames (at least 2)")
-    if nhop > _CYCLE_MAX_HOP:
-        raise ValueError(f"sample_cycles: nhop {nhop} > {_CYCLE_MAX_HOP}")
     # few tensor operations: a lone call's host time is most of its time
     f = f0 if f0.dtype == FP and f0.is_contiguous() else _f32(f0)
     B = f.numel() // N
     # one allocation: the track, then (8-byte aligned) the kernel's tile
     # sums as int64, which the C entry zeroes (the call's memset), and past
-    # hop 512 the long-hop kernel's fraction table, which it writes
+    # hop 512 the long-hop kernel's fraction table, which it writes (past
+    # 2048: each hop's total, float64)
     n = B * nx + (B * nx) % 2
     buf = torch.empty(n + 2 * _cycle_words(B, int(nhop), int(nx)),
                       dtype=FP, device=f.device)
@@ -1550,7 +1616,8 @@ def sample_cycles(f0: torch.Tensor, nhop: int, fs: float, nx: int,
 @functools.lru_cache(maxsize=64)
 def _cycle_words(B: int, nhop: int, nx: int) -> int:
     """The scratch words (8 bytes) the cycle-track kernel needs for this
-    shape: its tile words and, past hop 512, its fraction table."""
+    shape: its tile words and, past hop 512, its fraction table; past hop
+    2048 a hop total a hop of each row."""
     return _build.library().llsm_sample_cycles_words(B, nhop, nx)
 
 

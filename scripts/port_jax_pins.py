@@ -94,6 +94,9 @@ with the Pallas kernels in interpret mode:
             20 ms hop (thop=0.02: hop 960, where the cycle track runs
             its long-hop kernel) on the same resampled rows, with every
             fourth F0 frame;
+  h50       chip_smoke.py phase 20h: the same with a 50 ms hop (thop=0.05:
+            hop 2400, where the projection runs 8-frame tiles and the cycle
+            track its hop kernels), with every tenth F0 frame;
   fullband  chip_smoke.py phase 20e: batched_pipeline at full band, the
             16 kHz options above with f0_floor=40 and maxnhar = fs / 2 /
             f0_floor: create_aoptions(fs=48000, f0_floor=40, maxnhar=600)
@@ -122,8 +125,8 @@ with the Pallas kernels in interpret mode:
 
     JAX_PLATFORMS=cpu python scripts/port_jax_pins.py [duration=8.0] \
         [only=l0,11k,l1,pbp,corpus,edits,coder,nasal,stream,dspkit,
-              learned,fp64,mesh,wide,h20,fullband,proj64,cyc64,fullband64,
-              fullbandmean]
+              learned,fp64,mesh,wide,h20,h50,fullband,proj64,cyc64,
+              fullband64,fullbandmean]
         [mesh_seconds=64]
 
 CPU time of the parts added last, on an 8-core x86 host: corpus 49.3 s,
@@ -502,22 +505,23 @@ def wide_rows(duration):
     return out
 
 
-def h20_rows(duration):
-    """chip_smoke.py phase 20g pins: batched_pipeline SNRs of bench rows 0,
-    1 and 64 at 48 kHz with a 20 ms hop (part wide's 48 kHz options
-    otherwise) on the rows resampled to 48 kHz (every fourth F0 frame)."""
+def hop_rows(duration, thop=0.02, every=4):
+    """chip_smoke.py phase 20g / 20h pins: batched_pipeline SNRs of bench
+    rows 0, 1 and 64 at 48 kHz with a 20 ms (hop 960) or 50 ms (hop 2400)
+    hop (part wide's 48 kHz options otherwise) on the rows resampled to 48
+    kHz, every `every`-th F0 frame (the 5 ms frames at the hop)."""
     from libllsm2_tpu.ops.resample import resample_to
-    opt = create_aoptions(fs=48000.0, thop=0.02, fnyq=12000.0,
+    opt = create_aoptions(fs=48000.0, thop=thop, fnyq=12000.0,
                           chanfreq=(3000.0, 6000.0, 9000.0), nspec=513,
                           f0_floor=70.0, use_pallas=True)
     sopt = dataclasses.replace(create_soptions(fs=48000.0), use_pallas=True)
-    assert opt.conf.nhop == 960
+    assert opt.conf.nhop == round(48000 * thop) == 240 * every
     x, f0, nxv, x_ref = _bench_rows(duration, list(ROWS))
     x48, ref48 = (jnp.stack([resample_to(r, 16000.0, 48000.0) for r in a])
                   for a in (x, x_ref))
     nxv48 = jnp.full(nxv.shape, x48.shape[-1], nxv.dtype)
-    _, snr, _ = corpus.batched_pipeline(opt, sopt, x48, f0[:, ::4], nxv48,
-                                        ref48)
+    _, snr, _ = corpus.batched_pipeline(opt, sopt, x48, f0[:, ::every],
+                                        nxv48, ref48)
     return dict(zip(ROWS, np.asarray(snr).tolist()))
 
 
@@ -854,7 +858,7 @@ def main():
     kw = dict(a.split("=", 1) for a in sys.argv[1:])
     duration = float(kw.get("duration", 8.0))
     only = kw.get("only", "l0,11k,l1,pbp,corpus,edits,coder,nasal,stream,"
-                  "dspkit,learned,fp64,mesh,wide,h20,fullband,proj64").split(",")
+                  "dspkit,learned,fp64,mesh,wide,h20,h50,fullband,proj64").split(",")
     if "l0" in only:
         t0 = time.perf_counter()
         print(f"16 kHz batched_pipeline at {duration} s:",
@@ -943,7 +947,13 @@ def main():
     if "h20" in only:
         t0 = time.perf_counter()
         print(f"phase 20g at {duration} s (48 kHz at a 20 ms hop), "
-              "batched_pipeline SNR of rows 0/1/64:", h20_rows(duration),
+              "batched_pipeline SNR of rows 0/1/64:", hop_rows(duration),
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    if "h50" in only:
+        t0 = time.perf_counter()
+        print(f"phase 20h at {duration} s (48 kHz at a 50 ms hop), "
+              "batched_pipeline SNR of rows 0/1/64:",
+              hop_rows(duration, 0.05, 10),
               f"({time.perf_counter() - t0:.1f} s)", flush=True)
     if "fullband" in only:
         t0 = time.perf_counter()

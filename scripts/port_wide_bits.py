@@ -47,11 +47,19 @@ and, at hops 882 and 960, on the bench rows' F0 at a 20 ms hop; each also
 with base= and start= (start 37, -2 (a first shard's halo) and 17400,
 whose hops cross 2^24 samples at hop 960); rows 0, 1 and 64 alone
 against their rows of the batch, and each side's time at hops 960 and
-2048.  Prints a line a case and, last, the cases that failed; exits 1
-if any did.  Imports no jax:
+2048.  what=noise also forces the chunked noise kernel (past the wide
+kernel's 4-frame block) onto the first three noise shapes, chunks of 512,
+16 and 48 slots, against the other side's wide kernel.  what=proj:
+harmonic_project_win at shapes the 16-frame tile takes (16 kHz's main
+and envelope passes, K 160, 48 kHz at 20 ms, 96 kHz at 12.5 ms, full
+band's K 600), rows 0 / 1 / 64 alone, and this side's smaller tiles and
+column chunks forced onto four of them, each against the other side's
+16-frame tile; harmonic_project at K 1, 4 and 80 and its chunked row
+kernel forced onto [20000, 631].  Prints a line a case and, last, the
+cases that failed; exits 1 if any did.  Imports no jax:
 
     python3 scripts/port_wide_bits.py OTHER_DIR
-        [what=deconv,denoise,noise,apply,seg,cycles]
+        [what=deconv,denoise,noise,apply,seg,cycles,proj]
 """
 import ctypes
 import importlib
@@ -96,9 +104,22 @@ NOISE_CASES = (("20b", 128, 800, 480, 4, 4, False),
                ("5 frames", 2, 5, 480, 4, 4, False))
 NOISE_20B_EDGES = (0.0, 3000.0, 6000.0, 9000.0, 24000.0)
 # the wide kernels forced onto hop 80, C 4, Ke 4: frames a block (the
-# other checkout's 16, 12, 8, 4; this one's 16, 8, 4 with 64 or 32 threads)
-NOISE_FORCED_OTHER = (16, 12, 8, 4)
+# other checkout's 16, 8, 4; this one's 16, 8, 4 with 64 or 32 threads)
+NOISE_FORCED_OTHER = (16, 8, 4)
 NOISE_FORCED = ((16, 64), (8, 64), (4, 64), (16, 32), (8, 32))
+NOISE_CHUNKS = ((512, 256), (16, 96), (48, 32))     # (slots a chunk, threads)
+# harmonic_project_win: (label, rows of x, frames, hop, center C, K, x rows a
+# cycle row) at shapes the 16-frame tile takes: 16 kHz's main and envelope
+# passes, K 160 (groups of 80), 48 kHz at 20 ms, 96 kHz at 12.5 ms (the
+# largest span that fits) and full band's K 600
+PROJ_CASES = (("16k main", 128, 1600, 80, 480, 80, 1),
+              ("16k envelope", 512, 1600, 20, 120, 4, 4),
+              ("K 160", 128, 1600, 80, 480, 160, 1),
+              ("48k 20 ms", 128, 400, 960, 2880, 80, 1),
+              ("96k 12.5 ms", 128, 640, 1200, 4800, 80, 1),
+              ("48k K 600", 128, 1600, 240, 2400, 600, 1))
+# (frames a block, columns a chunk) forced onto those shapes
+PROJ_FORCED = ((8, 0), (4, 0), (2, 0), (1, 0), (0, 32), (0, 1024))
 # (label, B, N, K)
 APPLY_CASES = (("20e 48k", 128, 1600, 600), ("20e 16k2ms", 128, 4000, 200),
                ("20a", 128, 1600, 160), ("K129", 2, 301, 129),
@@ -293,7 +314,7 @@ def noise(kt, ko, r, bad):
     keep_o, keep_t = ko._noise_geometry, kt._noise_geometry
     worst = 0.0
     for F in NOISE_FORCED_OTHER:
-        ko._noise_geometry = lambda *a, F=F: (F,) + keep_t(*a)[1:3]
+        ko._noise_geometry = lambda *a, F=F: (F,) + keep_t(*a)[1:3] + (64,)
         try:
             got = ko.noise_mod_ola(*args, bands)
         finally:
@@ -305,7 +326,7 @@ def noise(kt, ko, r, bad):
               f"within {d:.3e}", flush=True)
     for F, threads in NOISE_FORCED:
         kt._noise_geometry = lambda *a, g=(F, threads): (
-            g[0], *keep_t(*a)[1:3], g[1])
+            g[0], *keep_t(*a)[1:3], g[1], 0)
         try:
             got = kt.noise_mod_ola(*args, bands)
         finally:
@@ -316,6 +337,28 @@ def noise(kt, ko, r, bad):
               f"kernel's bits {ok}; within {d:.3e}", flush=True)
         if not ok and d > worst:
             bad.append(("noise forced", F, threads))
+    # the chunked kernel (past the wide kernel's 4-frame block) forced onto
+    # shapes the other side's wide kernel takes: its bits
+    for label, B, N, nhop, C, Ke, per_row in NOISE_CASES[:3]:
+        args = inputs(min(B, 8), N, nhop, C, Ke, per_row)
+        bands = bands_of(nhop, C, label)
+        ref = ko.noise_mod_ola(*args, bands)
+        geo = keep_t(nhop, C, Ke, bands)
+        for chunk, threads in NOISE_CHUNKS:
+            kt._noise_geometry = lambda *a, g=(16, geo[1], 0, threads,
+                                               chunk): g
+            try:
+                got = kt.noise_mod_ola(*args, bands)
+            finally:
+                kt._noise_geometry = keep_t
+            ok = torch.equal(got, ref)
+            print(f"noise {label} chunked kernel forced (slots a chunk, "
+                  f"threads) {(chunk, threads)}: the other side's bits {ok}",
+                  flush=True)
+            if not ok:
+                bad.append(("noise chunked forced", label, chunk, threads))
+        del args, ref
+        torch.cuda.empty_cache()
 
 
 def other_apply_wide(other: Path, build):
@@ -432,6 +475,87 @@ SEG_CASES = (("C 9 Ke 9", 128, 9, 1600, 80, 9),
              ("Ke 0", 2, 3, 47, 80, 0), ("Ke 1 C 1", 2, 1, 301, 80, 1),
              ("Ke 8", 2, 5, 77, 80, 8), ("Ke 16", 2, 2, 50, 80, 16),
              ("Ke 9 hop 55", 2, 9, 61, 55, 9), ("N 5", 2, 4, 5, 80, 4))
+
+
+def proj(kt, ko, r, bad):
+    """harmonic_project_win against the other side's at PROJ_CASES (rows
+    0, 1 and 64 alone too), then this side's smaller tiles and column
+    chunks forced onto the first three and 48 kHz at 20 ms against the
+    other side's 16-frame tile; harmonic_project at K 1, 4 and 80 on
+    [20000, 631] and its chunked row kernel forced there (K 80)."""
+    for label, B, N, nhop, C, K, rep in PROJ_CASES:
+        nx = N * nhop
+        x = r(B, nx) - 0.5
+        cyc = torch.remainder(torch.cumsum(r(B // rep, nx) * 0.02, -1), 1.0)
+        hw = 2.0 + (C - 3.0) * r(B, N)
+        hw_int = torch.ceil(hw).to(torch.int32)
+        kl = (r(B, N) * (K + 1)).to(torch.int32)
+        args = (x, cyc, hw, K, C - hw_int, C + hw_int + 1)
+        kw = dict(nhop=nhop, center=C, kl=kl)
+        got = kt.harmonic_project_win(*args, **kw)
+        ok = all(equal(got, ko.harmonic_project_win(*args, **kw)))
+        geo = kt._proj_win_geometry(nhop, C)
+        print(f"proj {label} x {tuple(x.shape)} K {K} geometry {geo}: "
+              f"equal {ok}", flush=True)
+        if not ok:
+            bad.append(("proj", label))
+        if rep == 1:
+            for row in (0, 1, 64):
+                one = kt.harmonic_project_win(
+                    *(a[row:row + 1] if torch.is_tensor(a) else a
+                      for a in args), nhop=nhop, center=C,
+                    kl=kl[row:row + 1])
+                ok = all(torch.equal(o[0], g[row]) for o, g in zip(one, got))
+                print(f"proj {label} row {row} alone equal {ok}", flush=True)
+                if not ok:
+                    bad.append(("proj row alone", label, row))
+        if label in ("16k main", "16k envelope", "K 160", "48k 20 ms"):
+            keep = kt._proj_win_geometry
+            for F, Q in PROJ_FORCED:
+                kt._proj_win_geometry = lambda *a, g=(F, Q, 0): g
+                try:
+                    one = kt.harmonic_project_win(*args, **kw)
+                finally:
+                    kt._proj_win_geometry = keep
+                ok = all(equal(one, got))
+                print(f"proj {label} forced (frames, columns a chunk) "
+                      f"{(F, Q)}: the 16-frame tile's bits {ok}", flush=True)
+                if not ok:
+                    bad.append(("proj forced", label, F, Q))
+            del one
+        if label == "16k main":
+            for _ in range(2):
+                tt = cuda_ms(lambda: kt.harmonic_project_win(*args, **kw))
+                to = cuda_ms(lambda: ko.harmonic_project_win(*args, **kw))
+                print(f"proj {label} ms this {tt:.4f} other {to:.4f}",
+                      flush=True)
+        del x, cyc, args, got
+        torch.cuda.empty_cache()
+    R, W = 20000, 631
+    dc = (r(R, W) - 0.5) * 4.0
+    lo = (r(R) * (W // 3)).to(torch.int32)
+    hi = (W // 2 + r(R) * (W // 2)).to(torch.int32)
+    col = torch.arange(W, device="cuda")[None, :]
+    xw = (r(R, W) - 0.5) * ((col >= lo[:, None]) & (col < hi[:, None]))
+    for K in (1, 4, 80):
+        got = kt.harmonic_project(dc, xw, K, lo, hi)
+        ok = all(equal(got, ko.harmonic_project(dc, xw, K, lo, hi)))
+        print(f"project [{R}, {W}] K {K}: equal {ok}", flush=True)
+        if not ok:
+            bad.append(("project", K))
+    keep = kt._project_geometry
+    for Q in (128, 8192):
+        kt._project_geometry = lambda *a, g=(Q, 8 * Q): g
+        try:
+            one = kt.harmonic_project(dc, xw, 80, lo, hi)
+        finally:
+            kt._project_geometry = keep
+        ok = all(equal(one, got))
+        print(f"project K 80 forced chunks of {Q}: the whole row's bits {ok}",
+              flush=True)
+        if not ok:
+            bad.append(("project forced", Q))
+    torch.cuda.empty_cache()
 
 
 def rows_alone(label, fn, args, got, bad, what):
@@ -575,6 +699,8 @@ def main():
         seg(kt, ko, r, bad)
     if "cycles" in what:
         cycles(kt, ko, r, bad)
+    if "proj" in what:
+        proj(kt, ko, r, bad)
     print("failed:", bad, flush=True)
     sys.exit(1 if bad else 0)
 

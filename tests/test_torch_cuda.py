@@ -15,6 +15,16 @@ from libllsm2_tpu_torch.models import layer0 as tl0
 from libllsm2_tpu_torch.ops import kernels
 
 T = lambda a: torch.tensor(np.asarray(a))
+# (fs, thop): hops the JAX package takes (thop fs integral) that the card
+# ran only in part before harmonic_project_win's smaller tiles and column
+# chunks, the cycle track's hop kernels and the chunked noise kernel: 20 ms
+# at 48 kHz (the last that fit), 35 ms (the 16-frame tile's span past
+# shared memory), 44.1 kHz at 40 / 50 ms (odd hop 2205), 48 kHz at 50 / 100
+# ms, 96 kHz at 12.5 / 15 / 20 / 200 ms, 16 kHz at 120 / 250 ms
+LONG_HOP_GRID = ((48000.0, 0.02), (48000.0, 0.035), (44100.0, 0.04),
+                 (44100.0, 0.05), (48000.0, 0.05), (96000.0, 0.0125),
+                 (96000.0, 0.015), (96000.0, 0.02), (16000.0, 0.12),
+                 (16000.0, 0.25), (48000.0, 0.1), (96000.0, 0.2))
 N = 300   # ragged: three 128-frame blocks of the TPU kernels, the last partial
 # the default path's denoiser taps: 15 Hz split at a 5 ms hop -> M = 13, Mp = 7
 TAPS1, TAPS2 = tuple(tl0._hann_taps(13)), tuple(tl0._hann_taps(7))
@@ -357,18 +367,32 @@ def test_denoise_finish_past_2_31_slots_on_card():
 
 
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("K,nhop,W,rep", [(80, 80, 960, 1), (4, 20, 240, 4)])
-def test_harmonic_project_win_kernel_matches_plain_on_card(K, nhop, W, rep):
+@pytest.mark.parametrize("K,nhop,W,rep,Nf", [
+    (80, 80, 960, 1, 301), (4, 20, 240, 4, 301),
+    # past the 16-frame tile's span: 48 kHz at 35 ms (8 frames a tile), 96
+    # kHz at 20 ms (8), 48 kHz at 50 ms (8), 16 kHz at 250 ms (4), 96 kHz
+    # at 200 ms (chunks of a frame's columns) and its envelope pass (hop
+    # 4800, W 9600: 4 frames a tile)
+    (80, 1680, 6720, 1, 37), (80, 1920, 11520, 1, 37),
+    (80, 2400, 4800, 1, 37), (80, 4000, 8000, 1, 37),
+    (80, 19200, 38400, 1, 13), (4, 4800, 9600, 4, 13)])
+def test_harmonic_project_win_kernel_matches_plain_on_card(K, nhop, W, rep,
+                                                           Nf):
     """The main pass (K = 80, hop 80, W = 960) and the envelope pass (K = 4,
     hop 20, W = 240, four x rows on each cycle row) on 3 utterances of 301
     frames: a ragged last 16-frame tile, and the first and last frames
-    reaching past both ends (zero x, edge cyc).  re/im/xsum within 2e-3,
-    wsum 1e-5 relative (test_pallas.py's), slots at or above kl exact
-    zeros, and each utterance's rows equal to the kernel on it alone."""
+    reaching past both ends (zero x, edge cyc); past the 16-frame tile's
+    shared memory (kernels._proj_win_geometry) the smaller tiles and the
+    column chunks, on rows of 37 or 13 frames (ragged for every tile).
+    re/im/xsum within 2e-3, wsum 1e-5 relative (test_pallas.py's), slots
+    at or above kl exact zeros, and each utterance's rows equal to the
+    kernel on it alone."""
     dev = _card()
     x, cyc, hw, lo, hi, C = (T(a).to(dev) if isinstance(a, np.ndarray) else a
                              for a in _win_inputs(nhop, W, K, B=3 * rep,
-                                                  Nf=301))
+                                                  Nf=Nf))
+    F = kernels._proj_win_geometry(nhop, C)[0]
+    assert F == 16 if nhop <= 80 else F < 16
     cyc = cyc[::rep].contiguous()
     kl = torch.randint(0, K + 1, hw.shape, device=dev, dtype=torch.int32,
                        generator=torch.Generator(dev).manual_seed(K))
@@ -392,6 +416,38 @@ def test_harmonic_project_win_kernel_matches_plain_on_card(K, nhop, W, rep):
             assert torch.equal(g[b], a[0])
 
 
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("K,nhop,W,rep", [(80, 80, 960, 1), (4, 20, 240, 4),
+                                          (120, 80, 960, 1)])
+def test_harmonic_project_win_tiles_equal_the_16_frame_tile_on_card(
+        K, nhop, W, rep, monkeypatch):
+    """harmonic_project_win forced onto smaller tiles (8, 4, 2, 1 frames)
+    and onto column chunks (32, 96 and 1024 columns a chunk, a warp a
+    frame) at shapes the 16-frame tile takes, the main pass, the envelope
+    pass and K = 120 (groups of 80): every output the 16-frame tile's
+    bits, one launch counted each."""
+    dev = _card()
+    x, cyc, hw, lo, hi, C = (T(a).to(dev) if isinstance(a, np.ndarray) else a
+                             for a in _win_inputs(nhop, W, K + 1, B=2 * rep,
+                                                  Nf=301))
+    cyc = cyc[::rep].contiguous()
+    kl = torch.randint(0, K + 1, hw.shape, device=dev, dtype=torch.int32,
+                       generator=torch.Generator(dev).manual_seed(K))
+    kw = dict(nhop=nhop, center=C, kl=kl)
+    assert kernels._proj_win_geometry(nhop, C)[0] == 16
+    ref = kernels.harmonic_project_win(x, cyc, hw, K, lo, hi, **kw)
+    for F, Q in ((8, 0), (4, 0), (2, 0), (1, 0), (0, 32), (0, 96),
+                 (0, 1024)):
+        monkeypatch.setattr(kernels, "_proj_win_geometry",
+                            lambda *a, g=(F, Q, 0): g)
+        n0 = kernels.LAUNCHES["harmonic_project_win"]
+        got = kernels.harmonic_project_win(x, cyc, hw, K, lo, hi, **kw)
+        torch.cuda.synchronize()
+        monkeypatch.undo()
+        assert kernels.LAUNCHES["harmonic_project_win"] == n0 + 1
+        assert all(torch.equal(g, r) for g, r in zip(got, ref)), (F, Q)
+
+
 def _mxu_inputs(B, Nf, nhop, H, seed):
     """B distinct utterances for harmonic_project_mxu: x, a mod-1 cycle
     track of a wandering F0, and window halfwidths in [2, H] (x and cyc
@@ -407,20 +463,35 @@ def _mxu_inputs(B, Nf, nhop, H, seed):
 
 
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("K", [1, 4, 80])
-def test_harmonic_project_kernel_matches_plain_on_card(K):
+@pytest.mark.parametrize("K,W,R", [(1, 631, N), (4, 631, N), (80, 631, N),
+                                   (80, 38400, 40)])
+def test_harmonic_project_kernel_matches_plain_on_card(K, W, R):
     """K = 1 (the full-rate refine probe's shape: one warp per row), K = 4
     (the same kernel rotating) and K = 80 (one block per row), with each
-    row's live columns [lo, hi); 2e-3 absolute (test_pallas.py:46)."""
+    row's live columns [lo, hi); at W = 38400 (a frame of 96 kHz at a 200
+    ms hop: past a row's shared memory) the row kernel staging its live
+    columns in chunks, on frames as the analysis windows them; 2e-3
+    absolute (test_pallas.py:46), the rows of a chunked launch also each
+    equal to the kernel on it alone."""
     dev = _card()
-    rng = np.random.default_rng(K)
-    W = 631
-    dc = rng.uniform(-2, 2, (N, W)).astype(np.float32)
-    lo = rng.integers(0, W // 3, N).astype(np.int32)
-    hi = (lo + rng.integers(1, W - lo)).astype(np.int32)
+    rng = np.random.default_rng(K + W)
+    dc = rng.uniform(-2, 2, (R, W)).astype(np.float32)
     col = np.arange(W)[None, :]
-    xw = np.where((col >= lo[:, None]) & (col < hi[:, None]),
-                  rng.standard_normal((N, W)), 0.0).astype(np.float32)
+    if W > 29000:
+        # a frame's live columns: its window's 2 hw + 1 <= 9601 around the
+        # centre (f0_floor 40 at 96 kHz), xw a Hann-windowed signal of rms
+        # 0.25
+        C, hw = W // 2, rng.integers(2, 4801, R)
+        lo, hi = (C - hw).astype(np.int32), (C + hw + 1).astype(np.int32)
+        win = np.where(np.abs(col - C) <= hw[:, None],
+                       0.5 + 0.5 * np.cos(np.pi * (col - C) / hw[:, None]),
+                       0.0)
+        xw = (0.25 * rng.standard_normal((R, W)) * win).astype(np.float32)
+    else:
+        lo = rng.integers(0, W // 3, R).astype(np.int32)
+        hi = (lo + rng.integers(1, W - lo)).astype(np.int32)
+        xw = np.where((col >= lo[:, None]) & (col < hi[:, None]),
+                      rng.standard_normal((R, W)), 0.0).astype(np.float32)
     args = [T(a).to(dev) for a in (dc, xw)]
     lo, hi = T(lo).to(dev), T(hi).to(dev)
     kernels.reset_launches()
@@ -428,8 +499,38 @@ def test_harmonic_project_kernel_matches_plain_on_card(K):
     ref = kernels.harmonic_project_ref(*args, K, lo, hi)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["harmonic_project"] == 1
+    assert (kernels._project_geometry(W, K)[0] > 0) == (W > 29000)
     for g, r in zip(got, ref):
         torch.testing.assert_close(g, r, atol=2e-3, rtol=0)
+    if W > 29000:
+        for n in (0, R - 1):
+            alone = kernels.harmonic_project(args[0][n:n + 1],
+                                             args[1][n:n + 1], K,
+                                             lo[n:n + 1], hi[n:n + 1])
+            assert all(torch.equal(a[0], g[n]) for a, g in zip(alone, got))
+
+
+@pytest.mark.requires_cuda
+def test_harmonic_project_chunks_equal_the_whole_row_on_card(monkeypatch):
+    """harmonic_project's row kernel forced to stage its live columns in
+    chunks of 128, 384 and 8192 columns at K = 80, W = 631 (a row the
+    whole-row kernel takes): every output the whole-row kernel's bits."""
+    dev = _card()
+    rng = np.random.default_rng(3)
+    W, K = 631, 80
+    dc, xw = (T(rng.uniform(-2, 2, (N, W)).astype(np.float32)).to(dev)
+              for _ in range(2))
+    lo = T(rng.integers(0, W // 3, N).astype(np.int32)).to(dev)
+    hi = T(rng.integers(W // 2, W, N).astype(np.int32)).to(dev)
+    assert kernels._project_geometry(W, K)[0] == 0
+    ref = kernels.harmonic_project(dc, xw, K, lo, hi)
+    for Q in (128, 384, 8192):
+        monkeypatch.setattr(kernels, "_project_geometry",
+                            lambda *a, g=(Q, 8 * Q): g)
+        got = kernels.harmonic_project(dc, xw, K, lo, hi)
+        torch.cuda.synchronize()
+        monkeypatch.undo()
+        assert all(torch.equal(g, r) for g, r in zip(got, ref)), Q
 
 
 @pytest.mark.requires_cuda
@@ -804,13 +905,16 @@ def _f0_rows(B, Nf, seed):
 
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("nhop", [55, 80, 110, 160, 512, 513, 600, 882,
-                                  960, 1024, 1025, 2048])
+                                  960, 1024, 1025, 2048, 2205, 2400, 4000,
+                                  19200])
 def test_sample_cycles_kernel_matches_plain_on_card(nhop):
     """The cycle-track kernel against its twin over 1600 hops, both mod 1:
     wrapped |difference| <= 1e-4 cycles from the twin on the card (its
     float32 scan), <= 1e-6 from the twin on the CPU, which sums in the
     kernel's order; past hop 512 the long-hop kernel (64 lanes a hop to
-    1024, 128 to 2048), at the lane counts' edges too."""
+    1024, 128 to 2048), at the lane counts' edges too; past 2048 the hop
+    kernels (a block of 256 lanes a hop: 2205 and 2400, 44.1 and 48 kHz
+    at 50 ms; 4000, 16 kHz at 250 ms; 19200, 96 kHz at 200 ms)."""
     dev = _card()
     f0 = T(_f0_rows(3, 1600, nhop))
     kernels.reset_launches()
@@ -851,6 +955,53 @@ def test_sample_cycles_kernel_equals_cpu_twin_on_card(nhop, B, Nf):
     got = kernels.sample_cycles(odd.to(dev), nhop, fs, nx).cpu().double()
     d = got - kernels.sample_cycles_ref(odd, nhop, fs, nx).double()
     assert float((d - torch.round(d)).abs().max()) <= 1e-6
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("nhop,fs,B,Nf", [(2205, 44100.0, 2, 150),
+                                          (2400, 48000.0, 3, 161),
+                                          (4000, 16000.0, 2, 101),
+                                          (19200, 96000.0, 3, 41)])
+def test_sample_cycles_hop_kernels_at_long_hops_on_card(nhop, fs, B, Nf):
+    """Past a 2048-sample hop, at the hop's own rate: F0 70-1000 Hz (at 96
+    kHz over 19200 samples a hop's partials reach 200 cycles) with
+    unvoiced stretches (voicing edges, where a hop's steps start from 0).
+    Their in-hop sums are exact (sample_cycles.cu: below 2^29 times the
+    smallest step for nhop < 32768), so the kernel equals the twin run on
+    the CPU bit for bit, for a row alone too and with base= and start=
+    (a frame shard's block); a hop ramping from 1e-11 Hz to 1000 Hz (sums
+    not exact) stays within two float32 ulps of the largest sum a hop
+    makes, m = 1000 nhop / fs cycles and the offset: 2^-15 at 96 kHz and
+    16 kHz (m 200, 250), 2^-17 at 44.1 and 48 kHz (m 50) -- a partial
+    rounded the other way, then the offset it carries to the hops after."""
+    dev = _card()
+    rng = np.random.default_rng(nhop)
+    t = np.arange(Nf)[None, :]
+    f0 = 535.0 + 465.0 * np.sin(t / rng.uniform(3, 9, (B, 1))
+                                 + rng.uniform(0, 6, (B, 1)))
+    f0[(t % 20) > rng.integers(12, 18, (B, 1))] = 0.0
+    f0 = T(f0.astype(np.float32))
+    nx = Nf * nhop
+    kernels.reset_launches()
+    got = kernels.sample_cycles(f0.to(dev), nhop, fs, nx)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["sample_cycles"] == 1
+    assert torch.equal(got.cpu(), kernels.sample_cycles_ref(f0, nhop, fs, nx))
+    alone = kernels.sample_cycles(f0[1:2].to(dev), nhop, fs, nx)
+    assert torch.equal(alone[0], got[1])
+    base = torch.tensor([0.25, 17.5, 3.0][:B], dtype=torch.float64)
+    for start in (5, -2):
+        blk = kernels.sample_cycles(f0.to(dev), nhop, fs, nx,
+                                    base=base.to(dev), start=start).cpu()
+        assert torch.equal(blk, kernels.sample_cycles_ref(
+            f0, nhop, fs, nx, base=base, start=start))
+    odd = f0[:1].clone()
+    odd[0, 10], odd[0, 11] = 1e-11, 1000.0
+    got = kernels.sample_cycles(odd.to(dev), nhop, fs, nx).cpu().double()
+    d = got - kernels.sample_cycles_ref(odd, nhop, fs, nx).double()
+    m = nhop * 1000.0 / fs + 1.0
+    ulp = 2.0 ** (np.floor(np.log2(m)) - 23)
+    assert float((d - torch.round(d)).abs().max()) <= 2.0 * ulp
 
 
 @pytest.mark.requires_cuda
@@ -1786,17 +1937,22 @@ def _wide_noise_inputs(nhop, C, Ke, Nf, seed):
 @pytest.mark.parametrize("nhop,C,Ke,Nf", [(480, 4, 4, 130), (80, 9, 9, 301),
                                           (480, 9, 9, 47), (882, 4, 12, 31),
                                           (481, 4, 4, 130), (480, 4, 4, 5),
-                                          (2048, 4, 4, 9)])
+                                          (2048, 4, 4, 9), (4000, 4, 4, 9),
+                                          (4800, 4, 4, 19),
+                                          (19200, 2, 4, 5)])
 def test_noise_mod_ola_wide_kernel_matches_plain_on_card(nhop, C, Ke, Nf):
     """noise_mod_ola past the first kernel's nhop <= 256, C <= 8, Ke <= 8
     (48 kHz at a 10 ms hop: nhop 480; nine bands; nine and twelve envelope
     harmonics; 44.1 kHz at a 20 ms hop; an odd hop; 5 frames, fewer than a
     block's; hop 2048, 8 frames a block): the wide kernel, one launch,
-    against the twin within 5e-5; the segment entry at the same C and Ke
-    too."""
+    against the twin within 5e-5; past its 4-frame block (hop 4000, 16
+    kHz at 250 ms; 4800, 48 kHz at 100 ms; 19200, 96 kHz at 200 ms) the
+    chunked kernel, two launches counted once; the segment entry at the
+    same C and Ke too."""
     dev = _card()
     args, bands = _wide_noise_inputs(nhop, C, Ke, Nf, nhop + C)
-    assert kernels._noise_geometry(nhop, C, Ke, bands)[0] > 0
+    geo = kernels._noise_geometry(nhop, C, Ke, bands)
+    assert geo[0] > 0 and (geo[4] > 0) == (nhop >= 4000)
     ts = _noise_tensors(args, dev)
     kernels.reset_launches()
     got = kernels.noise_mod_ola(*ts, bands)
@@ -1829,7 +1985,7 @@ def test_noise_mod_ola_wide_kernel_equals_the_first_on_card(per_row,
     ref = kernels.noise_mod_ola(*ts, bands)
     keep = kernels._noise_geometry
     for F, threads in ((16, 64), (8, 64), (4, 64), (16, 32), (8, 32)):
-        geo = (F, *keep(80, 4, 4, bands)[1:3], threads)
+        geo = (F, *keep(80, 4, 4, bands)[1:3], threads, 0)
         monkeypatch.setattr(kernels, "_noise_geometry",
                             lambda *a, geo=geo: geo)
         n0 = kernels.LAUNCHES["noise_mod_ola"]
@@ -1840,6 +1996,35 @@ def test_noise_mod_ola_wide_kernel_equals_the_first_on_card(per_row,
     row = kernels.noise_mod_ola(*(t[1:] for t in ts), bands)
     monkeypatch.undo()
     assert torch.equal(row[0], ref[1])
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("nhop,C,Ke,Nf", [(480, 4, 4, 130), (481, 9, 9, 47),
+                                          (2048, 4, 4, 9)])
+def test_noise_mod_ola_chunked_kernel_equals_the_wide_on_card(
+        nhop, C, Ke, Nf, monkeypatch):
+    """The chunked noise kernel forced onto shapes the wide kernel takes
+    (hop 480, 4 bands; an odd hop with 9 bands of 9 envelope harmonics;
+    hop 2048): chunks of 16, 48 and 512 slots, 256, 96 and 32 threads a
+    block (one pair group or several), two launches counted once -- every
+    output the wide kernel's bits; a row alone equals its batch row."""
+    dev = _card()
+    args, bands = _wide_noise_inputs(nhop, C, Ke, Nf, nhop + C)
+    ts = _noise_tensors(args, dev)
+    geo = kernels._noise_geometry(nhop, C, Ke, bands)
+    assert geo[0] > 0 and geo[4] == 0
+    ref = kernels.noise_mod_ola(*ts, bands)
+    for chunk, threads in ((512, 256), (16, 96), (48, 32)):
+        g = (16, geo[1], 0, threads, chunk)
+        monkeypatch.setattr(kernels, "_noise_geometry", lambda *a, g=g: g)
+        n0 = kernels.LAUNCHES["noise_mod_ola"]
+        got = kernels.noise_mod_ola(*ts, bands)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["noise_mod_ola"] == n0 + 1
+        assert torch.equal(got, ref), g
+        row = kernels.noise_mod_ola(*(t[1:] for t in ts), bands)
+        monkeypatch.undo()
+        assert torch.equal(row[0], ref[1])
 
 
 @pytest.mark.requires_cuda
@@ -1917,3 +2102,66 @@ def test_viterbi_grid_kernel_matches_plain_on_card(S, renorm, B, N):
     for r in {0, B - 1}:
         p, s = kernels.viterbi_scan(obs[r:r + 1], lt, renorm, scores=True)
         assert torch.equal(p[0], path[r]) and torch.equal(s[0], score[r])
+
+
+def _snr_db(ref, y):
+    """SNR of y against ref over 10-90 % of the signal."""
+    lo, hi = int(0.1 * ref.shape[-1]), int(0.9 * ref.shape[-1])
+    e = (ref[lo:hi] - y[lo:hi]).double()
+    return float(10.0 * torch.log10(torch.sum(ref[lo:hi].double() ** 2)
+                                    / torch.sum(e ** 2).clamp(min=1e-20)))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("fs,thop", LONG_HOP_GRID)
+def test_analysis_and_synthesis_at_every_hop_on_card(fs, thop):
+    """analyze -> synthesize with the kernels on (use_pallas=True, both
+    noise_idft values; the main pass by the windowed projection and, with
+    hm_kernel="matmul", by the unframed one) at every hop of
+    LONG_HOP_GRID, the default ChunkConf at that rate, on a noisy and a
+    clean 2 s row: nothing raises, the projection, cycle track and noise
+    kernels launch, every output is finite; against the same path on the
+    CPU (the kernels' plain twins; its noise by noise_idft="fft", whose
+    twin stays small at hop 19200): f0 within 1e-4 relative (the refine's
+    tolerance) and each row's y_sin SNR against its clean harmonic part
+    within 0.05 dB."""
+    import dataclasses
+    from libllsm2_tpu_torch import create_aoptions, create_soptions
+    from libllsm2_tpu_torch.utils import testsig
+    dev = _card()
+    rows = testsig.make_test_utterances([(0, 0.05), (1, 0.0)], duration=2.0,
+                                        fs=fs, thop=thop)
+    x, f0, x_harm = (torch.tensor(np.stack([r[j] for r in rows]),
+                                  dtype=torch.float32, device=dev)
+                     for j in range(3))
+    snr = lambda y: [_snr_db(x_harm[r].to(y.device), y[r]) for r in range(2)]
+    for hm, proj in (("rotation", "harmonic_project_win"),
+                     ("matmul", "harmonic_project_mxu")):
+        opt = create_aoptions(fs=fs, thop=thop, use_pallas=True,
+                              hm_kernel=hm)
+        assert opt.conf.nhop == round(fs * thop)
+        kernels.reset_launches()
+        chunk = tl0._analyze(opt, x, f0)
+        torch.cuda.synchronize()
+        n = dict(kernels.LAUNCHES)
+        assert n[proj] >= 1 and n["harmonic_project_win"] >= 1 \
+            and n["sample_cycles"] == 1, n
+        cpu = tl0._analyze(opt, x.cpu(), f0.cpu())
+        ref = snr(tl0._synthesize(dataclasses.replace(
+            create_soptions(fs=fs), use_pallas=True, noise_idft="fft"),
+            cpu).y_sin)
+        torch.testing.assert_close(chunk.f0.cpu(), cpu.f0, rtol=1e-4, atol=0)
+        for idft, name in (("matmul", "noise_mod_ola"),
+                           ("fft", "noise_mod_ola_seg")):
+            sopt = dataclasses.replace(create_soptions(fs=fs),
+                                       use_pallas=True, noise_idft=idft)
+            kernels.reset_launches()
+            out = tl0._synthesize(sopt, chunk)
+            torch.cuda.synchronize()
+            assert kernels.LAUNCHES[name] == 1 \
+                and kernels.LAUNCHES["sample_cycles"] == 1, kernels.LAUNCHES
+            assert out.y.shape == x.shape \
+                and bool(torch.isfinite(out.y).all())
+            got = snr(out.y_sin)
+            assert all(abs(g - r) <= 0.05 for g, r in zip(got, ref)), \
+                (hm, idft, got, ref)

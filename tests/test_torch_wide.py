@@ -275,26 +275,36 @@ def test_denoise_frame_block_is_the_pallas_kernels(N, block):
     # its threads are the C entry's own (0)
     (80, 4, 4, (0, 15, 15, 30, 30, 45, 45, 81),
      (0, 16 + 16 + 16 + 38,
-      8 * 16 * 86 + 8 * 16 * 4 * 80 + 24 * 80 + 4 * 16 * 8 * 5 + 4 * 86, 0)),
+      8 * 16 * 86 + 8 * 16 * 4 * 80 + 24 * 80 + 4 * 16 * 8 * 5 + 4 * 86, 0,
+      0)),
     # 48 kHz at 10 ms: nhop 480; 16 frames, a thread a sample pair (240
     # pairs: 256 threads), no (E, O) buffer: spectra [L / 2, 17] float4,
     # the three tables, the accumulators [15, 2, 256], the coefficients,
     # the slots' bins and the band table [5, C] ints
     (480, 4, 4, (0, 60, 60, 120, 120, 180, 180, 480),
      (16, 480, 16 * 240 * 17 + 24 * 480 + 4 * 15 * 2 * 256 + 4 * 16 * 8 * 5
-      + 4 * (480 + 20), 256)),
+      + 4 * (480 + 20), 256, 0)),
     # nine bands of 9 bins (odd ranges: slots from each band's even bin):
     # 40 pairs, 64 threads
     (80, 9, 9, (0, 9, 9, 18, 18, 27, 27, 36, 36, 45, 45, 54, 54, 63, 63, 72,
                 72, 81),
      (16, 10 + 10 + 10 + 10 + 10 + 10 + 10 + 10 + 10,
       16 * 45 * 17 + 24 * 80 + 4 * 15 * 2 * 64 + 4 * 16 * 18 * 10
-      + 4 * (90 + 45), 64)),
+      + 4 * (90 + 45), 64, 0)),
+    # 96 kHz at 200 ms: nhop 19200, past the wide kernel's 4-frame block;
+    # the chunked kernel, 16 frames, a chunk of 512 slots [256, 17] float4,
+    # the accumulators [15, 2, 256], the coefficients and the band table
+    # [4, C] ints (the tables in device memory)
+    (19200, 4, 4, (0, 800, 800, 1600, 1600, 2400, 2400, 19201),
+     (16, 800 + 800 + 800 + 16802,
+      16 * 256 * 17 + 4 * 15 * 2 * 256 + 4 * 16 * 8 * 5 + 4 * 4 * 4, 256,
+      512)),
 ])
 def test_noise_geometry_by_hand(nhop, C, Ke, bands, geometry):
     """kernels._noise_geometry: (frames a block, 0 for the first kernel;
     staged slots a frame, each band's from its first even bin, an even
-    count; shared bytes; threads a block of the wide kernel).  The first
+    count; shared bytes; threads a block of the wide kernel; slots a chunk,
+    0: all staged at once).  The first
     kernel's bytes: spectra [F, L] and (E, O) [F, C, nhop] float2, three
     [2 nhop] tables, coefficients [F, 2 C (Ke + 1)], the slots' bins [L];
     the wide kernel's: spectra [L / 2, F + 1] float4, tables, y
@@ -320,9 +330,10 @@ def test_noise_wide_geometry_fits(nhop, C, Ke):
     counted by hand, within the H100's 227 KB a block; two blocks an SM
     wherever some F leaves room for them, and then the largest such F."""
     bands = _equal_bands(nhop, C)
-    F, L, nbytes, threads = kernels._noise_geometry(nhop, C, Ke, bands)
+    F, L, nbytes, threads, chunk = kernels._noise_geometry(nhop, C, Ke,
+                                                            bands)
     half = (nhop + 1) // 2
-    assert F in (16, 8, 4)
+    assert F in (16, 8, 4) and chunk == 0
     assert threads % 32 == 0 and min(half, 256) <= threads <= 256
     assert nbytes == (8 * (F + 1) * L + 24 * nhop + 8 * (F - 1) * threads
                       + 8 * F * C * (Ke + 1) + 4 * (L + 5 * C))
@@ -344,8 +355,8 @@ def test_noise_geometry_gives_20b_two_blocks_an_sm():
     bands = kernels.band_ranges(481, 48000.0,
                                 (0.0, 3000.0, 6000.0, 9000.0, 24000.0))
     assert bands == (0, 60, 60, 120, 120, 180, 180, 480)
-    F, L, nbytes, threads = kernels._noise_geometry(480, 4, 4, bands)
-    assert (F, L, threads) == (16, 480, 256)
+    F, L, nbytes, threads, chunk = kernels._noise_geometry(480, 4, 4, bands)
+    assert (F, L, threads, chunk) == (16, 480, 256, 0)
     assert 2 * (nbytes + 1024) <= 233472
 
 
