@@ -359,18 +359,21 @@ non-zero without the final "ok" line:
      (the wide kernel: its geometry, two blocks an SM, and at full batch
      its twin, time, bound and ratio), the pins, times and rows alone as
      20a.  20g, the same at a 20 ms hop (hop 960, every fourth F0 frame):
-     the cycle track past a 512-sample hop (its long-hop kernel) in the
+     noise_mod_ola's long kernel (the wide kernel's 16-frame block would
+     not leave room for two an SM), held to its twin at full batch and timed
+     beside its bound; the cycle track past a 512-sample hop (its long-hop
+     kernel) in the
      analysis and the synthesis, two launches, held to its twin at full
      batch there and timed beside its bound; pins from port_jax_pins.py
      only=h20, rows 0, 1 and 64 alone as 20a.  20h, the same at a 50 ms
      hop (hop 2400, every tenth F0 frame): the projection's main pass past
      the 16-frame tile's shared memory in 8-frame tiles, the cycle track's
-     hop kernels (past 2048 samples), noise_mod_ola's wide kernel at 4
-     frames a block, each held to its twin at full batch and timed beside
+     hop kernel (past 2048 samples), noise_mod_ola's long kernel, each
+     held to its twin at full batch and timed beside
      its bound; pins from only=h50, rows 0, 1 and 64 alone; then 96 kHz
      at a 200 ms hop (hop 19200) at kernel level on full-batch shapes:
      the projection past one frame's span (column chunks), the hop
-     kernels at up to 200 cycles a hop, the chunked noise kernel
+     kernel at up to 200 cycles a hop, the long noise kernel
      (LONG_HOP_ROWS rows) and harmonic_project's chunked row kernel, each
      against its twin and beside its bound.  20c,
      denoise_stats on phase 5's full-batch call ([128, 1600, 80]) with the
@@ -420,11 +423,12 @@ deconv_full's second path: 20e's first 2-row call, its launches those
 of 20e's counted runs; denoise_stats_wide, denoise_stats's second path:
 20a's first 2-row call, its cases and full-batch records 20a's, 20c's
 and 20e's, its launches those of 20a's and 20e's counted runs;
-harmonic_project_win_tile, sample_cycles_hop, noise_mod_ola_chunk and
+harmonic_project_win_tile, sample_cycles_hop, noise_mod_ola_long and
 harmonic_project_chunk, the paths past the hop-dependent limits: 20h's
-first case, their launches those of 20h's counted run (the tile's: its
-main-pass calls; 0 for the last two, which only the 96 kHz / 200 ms
-shapes take);
+first case (noise_mod_ola_long: 20g's), their launches those of 20h's
+counted run (the tile's: its main-pass calls; noise_mod_ola_long's those
+of 20g's and 20h's; 0 for harmonic_project_chunk, which only the 96 kHz /
+200 ms shapes take);
 viterbi_scan: 11v's
 first case, phase 9's full-batch Rd call; denoise_stats also has
 16b's full-batch polar case among its "cases"; phase 20's other cases
@@ -791,7 +795,7 @@ DENOISE_WIDE = "denoise_stats_wide"
 # each in the kernels line -> the wrapper that launches it
 LONG_HOP = {"harmonic_project_win_tile": "harmonic_project_win",
             "sample_cycles_hop": "sample_cycles",
-            "noise_mod_ola_chunk": "noise_mod_ola",
+            "noise_mod_ola_long": "noise_mod_ola",
             "harmonic_project_chunk": "harmonic_project"}
 LONG_HOP_ROWS = 32            # 20h's 96 kHz / 200 ms noise case (its twin's
                               # [C, 19201, 38400] matrices: ~40 GB)
@@ -4930,8 +4934,8 @@ def long_hop_shapes(torch, kernels, dev):
     ChunkConf: f0_floor 40, C = 19200), at kernel level against the twins,
     each timed beside its bound: harmonic_project_win at K = 80 past one
     frame's span (a warp a frame, its 38400 columns in chunks), the cycle
-    track's hop kernels (F0 70-1000 Hz: up to 200 cycles a hop),
-    noise_mod_ola's chunked kernel (4 bands, 4 envelope harmonics, on
+    track's hop kernel (F0 70-1000 Hz: up to 200 cycles a hop),
+    noise_mod_ola's long kernel (4 bands, 4 envelope harmonics, on
     LONG_HOP_ROWS rows) and harmonic_project's chunked row kernel (the
     frames of a window outside the cosine series, W = 38400) -> {record:
     [case]}."""
@@ -4971,7 +4975,7 @@ def long_hop_shapes(torch, kernels, dev):
     cyc = torch.remainder(torch.cumsum(r(Bn, nx) * 0.02, -1), 1.0)
     spec = [torch.randn((1, N, nbin), generator=g, device=dev).expand(
         Bn, N, nbin) for _ in range(2)]
-    out["noise_mod_ola_chunk"] = [check_kernel(
+    out["noise_mod_ola_long"] = [check_kernel(
         torch, kernels, "noise_mod_ola", KERNELS["noise_mod_ola"][2],
         (cyc, r(Bn, N, 4), (r(Bn, N, 4, 4) - 0.5) * 0.3,
          (r(Bn, N, 4, 4) - 0.5) * 0.3, 0.5 + r(Bn, N, 4), *spec,
@@ -5001,14 +5005,17 @@ def long_hop_shapes(torch, kernels, dev):
     return out
 
 
-def long_hop_phase(torch, mods, data50, sopt48, summary, join, by_phase):
+def long_hop_phase(torch, mods, data50, sopt48, summary, join, by_phase,
+                   noise20g):
     """Phase 20h: wide_path at 48 kHz with a 50 ms hop (20b's options,
     hop 2400: the projection's main pass past the 16-frame tile's shared
-    memory runs 8-frame tiles, the cycle track its hop kernels, the noise
-    the wide kernel at 4 frames a block), each of the three held to its
-    twin at full batch; then long_hop_shapes at 96 kHz / 200 ms.  Each new
-    path's cases, full-batch records and launches go to a record of its
-    own in summary (LONG_HOP); the rest joins its kernel's."""
+    memory runs 8-frame tiles, the cycle track its hop kernel, the noise
+    its long kernel), each of the three held to its twin at full batch;
+    then long_hop_shapes at 96 kHz / 200 ms.  Each new path's cases,
+    full-batch records and launches go to a record of its own in summary
+    (LONG_HOP; the long noise kernel's with 20g's, noise20g: its cases,
+    full-batch records and launches there); the rest joins its
+    kernel's."""
     from libllsm2_tpu_torch import create_aoptions
     kernels = mods[0]
     opt50 = create_aoptions(fs=48000.0, thop=0.05, fnyq=12000.0,
@@ -5018,12 +5025,16 @@ def long_hop_phase(torch, mods, data50, sopt48, summary, join, by_phase):
     C = -(-conf.halfwin_max // conf.nhop) * conf.nhop
     tile = kernels._proj_win_geometry(conf.nhop, C)
     span16 = 8 * (15 * conf.nhop + 2 * C)
+    noise = kernels._noise_geometry(2400, 4, 4, kernels.band_ranges(
+        2401, 48000.0, tuple(conf.chan_edges)))
     phase("20h 48 kHz 50 ms geometry", conf.nhop == 2400 and tile[0] == 8
-          and span16 + kernels._PROJ_STATIC > kernels._SMEM_MAX,
+          and span16 + kernels._PROJ_STATIC > kernels._SMEM_MAX
+          and noise[4] > 0,
           f"hop {conf.nhop}, C {C}: the 16-frame tile's span {span16} B "
           f"past {kernels._SMEM_MAX}; (frames a block, columns a chunk, "
-          f"bytes) {tile}; the cycle track past 2048 samples; noise "
-          f"{kernels._noise_geometry(2400, 4, 4, kernels.band_ranges(2401, 48000.0, tuple(conf.chan_edges)))}")
+          f"bytes) {tile}; the cycle track past 2048 samples; noise (frames "
+          f"a block, slots, bytes, threads, slots a chunk) {noise}: the "
+          f"long kernel")
     checked = FULL_CHECKED + ("harmonic_project_win", "sample_cycles",
                               "noise_mod_ola")
     cases, launches, f, _ = wide_path(
@@ -5041,22 +5052,29 @@ def long_hop_phase(torch, mods, data50, sopt48, summary, join, by_phase):
     f["harmonic_project_win"] = [
         rec for rec in f["harmonic_project_win"] if not main(rec)]
     phase("20h launches of the new paths", len(tile_full) >= 1
-          and launches["sample_cycles"] == 2,
+          and launches["sample_cycles"] == 2
+          and launches["noise_mod_ola"] == 1,
           f"{len(tile_full)} of {launches['harmonic_project_win']} "
           f"harmonic_project_win launches in 8-frame tiles, "
           f"{launches['sample_cycles']} sample_cycles launches of the hop "
-          f"kernels (analysis and synthesis)")
+          f"kernel (analysis and synthesis), "
+          f"{launches['noise_mod_ola']} noise_mod_ola launch of the long "
+          f"kernel")
     redesigned_lines("20h", {"harmonic_project_win": tile_full,
                              "sample_cycles": f["sample_cycles"],
                              "noise_mod_ola": f["noise_mod_ola"]},
                      {"harmonic_project_win": f"tile {tile}",
-                      "sample_cycles": "hop kernels", "noise_mod_ola": ""})
+                      "sample_cycles": "hop kernel",
+                      "noise_mod_ola": f"long kernel {noise}"})
+    n_cases, n_full, n20g = noise20g
     new = {"harmonic_project_win_tile": (tile_cases, tile_full,
                                          len(tile_full)),
            "sample_cycles_hop": (cases.pop("sample_cycles"),
                                  f.pop("sample_cycles"),
                                  launches["sample_cycles"]),
-           "noise_mod_ola_chunk": ([], [], 0),
+           "noise_mod_ola_long": (n_cases + cases.pop("noise_mod_ola"),
+                                  n_full + f.pop("noise_mod_ola"),
+                                  n20g + launches["noise_mod_ola"]),
            "harmonic_project_chunk": ([], [], 0)}
     join(cases, f)
     for name, more in long_hop_shapes(torch, kernels,
@@ -5071,7 +5089,8 @@ def long_hop_phase(torch, mods, data50, sopt48, summary, join, by_phase):
             **{k: cs[0][k] for k in ("ms", "plain_ms", "bound_ms",
                                      "bound_by", "library_ms")},
             "cases": cs, "full_batch": full,
-            "launches_by_phase": {"20h": n}}
+            "launches_by_phase": {"20g": n20g, "20h": n - n20g}
+            if name == "noise_mod_ola_long" else {"20h": n}}
 
 
 def wide_phase(torch, mods, opt, sopt, data, summary, full, by_phase):
@@ -5161,22 +5180,34 @@ def wide_phase(torch, mods, opt, sopt, data, summary, full, by_phase):
     cases, by_phase["20g"], f, _ = wide_path(
         torch, mods, "20g 48 kHz 20 ms", opt20, sopt48, data20,
         WIDE_PINS_DB["48 kHz 20 ms"],
-        checked=FULL_CHECKED + ("sample_cycles",), extra=("sample_cycles",),
-        rows=BATCH_ROWS)
+        checked=FULL_CHECKED + ("sample_cycles", "noise_mod_ola"),
+        extra=("sample_cycles",), rows=BATCH_ROWS)
     n_cyc = by_phase["20g"]["sample_cycles"]
     phase("20g long cycle track", n_cyc == 2,
           f"nhop {opt20.conf.nhop} > 512: {n_cyc} sample_cycles launches "
           f"(analysis and synthesis) in the counted run, each a launch of "
           f"the long-hop kernel, {kernels._cycle_words(BATCH, 960, 384000)} "
           f"scratch words")
-    redesigned_lines("20g", f, {"sample_cycles": ""})
+    geo20 = kernels._noise_geometry(960, 4, 4, kernels.band_ranges(
+        961, 48000.0, tuple(opt20.conf.chan_edges)))
+    n_noise = by_phase["20g"]["noise_mod_ola"]
+    phase("20g long noise kernel", n_noise == 1 and geo20[4] > 0,
+          f"nhop 960: the wide kernel's 16-frame block would not leave "
+          f"room for two an SM, so the long kernel (frames a block, slots, "
+          f"bytes, threads, slots a chunk) {geo20}: {n_noise} noise_mod_ola "
+          f"launch in the counted run")
+    redesigned_lines("20g", f, {"sample_cycles": "",
+                                "noise_mod_ola": f"long kernel {geo20}"})
+    noise20g = (cases.pop("noise_mod_ola"), f.pop("noise_mod_ola"), n_noise)
     join(cases, f)
     # 20h: 48 kHz at a 50 ms hop (hop 2400: the projection's 8-frame tile,
-    # the cycle track's hop kernels), every tenth F0 frame; then 96 kHz at
+    # the cycle track's hop kernel, the long noise kernel), every tenth F0
+    # frame; then 96 kHz at
     # a 200 ms hop at kernel level
     data50 = (data20[0], f0[:, ::10].contiguous()) + data20[2:]
     del data20
-    long_hop_phase(torch, mods, data50, sopt48, summary, join, by_phase)
+    long_hop_phase(torch, mods, data50, sopt48, summary, join, by_phase,
+                   noise20g)
     del data50
     torch.cuda.empty_cache()
     # 20c: denoise_stats on phase 5's full-batch call with wide taps

@@ -43,16 +43,16 @@
 // frame group), C <= 8 bands and Ke <= 8 (its band table is a kernel
 // argument).  Past any of them (48 kHz at a 10 ms hop: nhop = 480)
 // noise_wide_kernel runs the same arithmetic, every bit the same, laid out
-// otherwise: a thread a sample pair of all F frames of its block (F - 1
-// output hops; kernels._noise_geometry takes F = 16, 8 or 4 and the
-// threads), one band at a time, its OLA and envelope finished in the same
-// thread, so no (E, O) buffer; the band table (each band's bins, first even
-// bin, first slot and slot count) in shared memory, made from the 2 C band
-// ranges in device memory.  Past the wide kernel's 4-frame block (hop
-// ~3600 with 4 bands: 16 kHz at 250 ms, 48 kHz at 100 ms, 96 kHz at 200 ms)
-// noise_chunk_kernel runs it at 16 frames a block with each band's slots
-// staged in chunks, in turn, and the three [2 nhop] tables in device
-// memory (noise_tables_kernel), every output bit the wide kernel's.
+// otherwise: a thread a sample pair of all 16 frames of its block (15
+// output hops; kernels._noise_geometry gives the threads), one band at a
+// time, its OLA and envelope finished in the same thread, so no (E, O)
+// buffer; the band table (each band's bins, first even bin, first slot and
+// slot count) in shared memory, made from the 2 C band ranges in device
+// memory.  Where its 16-frame block would not leave room for two an SM
+// (from hop ~500 with 4 bands: 44.1 / 48 kHz at 20 ms and every longer hop)
+// noise_long_kernel runs it, a thread 4 columns of 16 frames, each
+// band's slots pre-scaled once into device memory (noise_long_prep) and
+// staged by cp.async in chunks, every output bit the wide kernel's.
 #include "common.cuh"
 
 // LLSM_SKIP_PASS_{A,B} = 1 compiles pass 1 or pass 2 out (in the segment
@@ -312,7 +312,7 @@ noise_mod_kernel(const float* __restrict__ cyc, const float* __restrict__ edc,
 }
 
 // nhop > 256, C > 8 or Ke > 8 (48 kHz at a 10 ms hop: nhop = 480):
-// noise_mod_kernel's arithmetic at F frames a block (F - 1 output hops),
+// noise_mod_kernel's arithmetic at F = 16 frames a block (15 output hops),
 // every output bit the same, laid out for a block of up to kWideThreads
 // threads and two blocks an SM.  A thread takes a sample pair (ta, tb =
 // ta + half) of ALL F frames, one band at a time: pass 1 sums the band's
@@ -601,11 +601,71 @@ cudaError_t launch_wide(const float* cyc, const float* edc, const float* ar,
   return cudaGetLastError();
 }
 
-// The wide kernel's three [2 nhop] tables, e^{2 pi j m / T} and the window,
-// by the same operations, into tab [3, T] in device memory: for
-// noise_chunk_kernel, whose block has no room for them.
-__global__ void noise_tables_kernel(float* __restrict__ tab, int nhop) {
-  const int T = 2 * nhop;
+// Where the wide kernel's 16-frame block would not leave room for two an SM
+// (from hop ~500 with 4 bands: 44.1 / 48 kHz at 20 ms, 48 kHz at 30-50 ms,
+// every hop past; at hop 480 with 9 bands of 9 harmonics), noise_long_kernel
+// runs its arithmetic, every output bit the same, laid out for long hops.
+// There the wide kernel would run one block an SM, or (as first written)
+// fewer frames a block, sharing its rotation ladders and table restarts
+// over 8 or 4 frames and computing F frames for F - 1 hops; and each
+// 16-byte slot pair it loads from shared memory feeds 8 FMAs.
+//   - noise_long_prep writes each frame's slot pairs once for the whole
+//     grid, pre-scaled as the wide kernel stages them, [B, N, L / 2] float4
+//     in device memory (each band's bins from an even bin, zero-padded),
+//     and the three [2 nhop] tables (e^{2 pi j m / T}, the window) beside
+//     them, by the wide kernel's expressions.
+//   - A block of kLongThreads threads takes F = 16 frames (15 output hops)
+//     of one row and kLongThreads x kLongCols consecutive columns t (the
+//     segment samples t and nhop + t), grid (column groups, tiles, rows),
+//     so a tile's column groups run together and read its chunks from L2;
+//     a thread takes kLongCols neighbouring columns of all F frames, so
+//     each slot pair loaded (one address for the whole warp) feeds 4
+//     kLongCols FMAs and each rotation 2 F.
+//   - Each band's slots come in chunks of LC (a multiple of kRestart: 64,
+//     or the largest of 48, 32 and 16 that leaves room for two blocks an SM
+//     where the coefficients take it), [LC / 2, F + 1] float4, copied by
+//     cp.async into one of two buffers
+//     while the block sums the other; the sums walk them in the wide
+//     kernel's order, carried across the chunks in registers.
+//   - A column's rotation restarts every 16 slots from its table entry,
+//     computed in the thread by the table's own expression (the same bits):
+//     a table read there is a load from a scattered address a column,
+//     which at hop 19200 (a 300 KB table) misses L1 and waits on L2.
+//   - Pass 2's sincospif of each sample is taken once, before the bands,
+//     into shared memory [F - 1, kLongCols, threads] float2; the y
+//     accumulators [F - 1, kLongCols, threads], the coefficients [F, 2 C
+//     (Ke + 1)] and the band table [5, C] ints are there too.
+// A column past nhop computes on column nhop - 1 and stores nothing.
+constexpr int kLongThreads = 128;
+constexpr int kLongCols = 4;
+
+// the staged spectra [B, N, L / 2] float4 and the tables tab [3, T]
+__global__ void noise_long_prep(const float* __restrict__ re,
+                                const float* __restrict__ im,
+                                int64_t spec_bstride,
+                                const float* __restrict__ gain,
+                                const int* __restrict__ bands,
+                                float* __restrict__ tab,
+                                float4* __restrict__ spec, int B, int N,
+                                int nhop, int C, int L2) {
+  extern __shared__ int sb[];                 // lo, hi, base, off [C] each
+  int* b_lo = sb;
+  int* b_hi = b_lo + C;
+  int* b_base = b_hi + C;
+  int* b_off = b_base + C;
+  if (threadIdx.x == 0) {
+    int off = 0;
+    for (int c = 0; c < C; ++c) {
+      const int lo = bands[2 * c], hi = bands[2 * c + 1];
+      b_lo[c] = lo;
+      b_hi[c] = hi;
+      b_base[c] = lo & ~1;
+      b_off[c] = off;
+      off += hi > lo ? ((hi - (lo & ~1) + 1) & ~1) : 0;
+    }
+  }
+  __syncthreads();
+  const int T = 2 * nhop, nbin = nhop + 1;
   for (int m = blockIdx.x * blockDim.x + threadIdx.x; m < T;
        m += gridDim.x * blockDim.x) {
     float sn, c;
@@ -615,187 +675,235 @@ __global__ void noise_tables_kernel(float* __restrict__ tab, int nhop) {
     tab[2 * T + m] = sqrtf(0.5f - 0.5f * cospif(__fdiv_rn(
                                              2.0f * (float)m + 1.0f, (float)T)));
   }
+  const float ends = 1.0f / sqrtf((float)T);
+  const float mid = sqrtf(2.0f / (float)T);
+  for (int64_t fr = blockIdx.x; fr < (int64_t)B * N; fr += gridDim.x) {
+    const int b = (int)(fr / N);
+    const int64_t o0 = spec_bstride * b + (fr - (int64_t)b * N) * nbin;
+    for (int sp = threadIdx.x; sp < L2; sp += blockDim.x) {
+      int c = 0;
+      while (c + 1 < C && 2 * sp >= b_off[c + 1]) ++c;
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int k = b_base[c] + 2 * sp + e - b_off[c];
+        v[2 * e] = v[2 * e + 1] = 0.0f;
+        if (k >= b_lo[c] && k < b_hi[c]) {
+          const float g = __ldg(gain + fr * nbin + k);
+          const bool edge = k == 0 || k == nbin - 1;
+          v[2 * e] = __ldg(re + o0 + k) * g * (edge ? ends : mid);
+          v[2 * e + 1] = edge ? 0.0f : __ldg(im + o0 + k) * g * mid;
+        }
+      }
+      spec[fr * L2 + sp] = make_float4(v[0], v[1], v[2], v[3]);
+    }
+  }
 }
 
-// Past the wide kernel's shared memory: its arithmetic at F frames a block,
-// every output bit the same, for any nhop.  A thread takes one sample pair
-// (ta, tb = ta + half) of all F frames: the block's threads a group of
-// consecutive pairs, grid (tiles of F - 1 hops, rows, pair groups).  Each
-// band's slots are staged in chunks of LC (even, a multiple of kRestart) in
-// turn, [LC / 2, F + 1] float4 as the wide kernel stages them all, and the
-// pass-1 sums walk them in the wide kernel's order, carried across the
-// chunks in registers; the tables come from device memory (tab, made by
-// noise_tables_kernel); the accumulators [F - 1, 2, threads], the
-// coefficients [F, 2 C (Ke + 1)] and the band table [5, C] stay in shared
-// memory.  A thread past the last pair stages and waits with the block and
-// computes nothing.
+// two blocks an SM of 128 threads, up to 255 registers each
 template <int F>
-__global__ void __launch_bounds__(kWideThreads, 2)
-noise_chunk_kernel(const float* __restrict__ cyc,
-                   const float* __restrict__ edc,
-                   const float* __restrict__ ar, const float* __restrict__ ai,
-                   const float* __restrict__ base,
-                   const float* __restrict__ re,
-                   const float* __restrict__ im, int64_t spec_bstride,
-                   const float* __restrict__ gain,
-                   const int* __restrict__ bands,
-                   const float* __restrict__ tab, float* __restrict__ y,
-                   int N, int nhop, int C, int Ke, int LC) {
+__global__ void __launch_bounds__(kLongThreads, 2)
+noise_long_kernel(const float* __restrict__ cyc,
+                  const float* __restrict__ edc,
+                  const float* __restrict__ ar, const float* __restrict__ ai,
+                  const float* __restrict__ base,
+                  const float4* __restrict__ spec,
+                  const float* __restrict__ tab,
+                  const int* __restrict__ bands, float* __restrict__ y,
+                  int N, int nhop, int C, int Ke, int L2, int LC) {
   extern __shared__ float4 sm4[];
-  constexpr int H = F - 1, FP = F + 1;
-  const int T = 2 * nhop, nbin = nhop + 1, CK = C * Ke;
-  const int nt = blockDim.x, tid = threadIdx.x;
-  float4* spec = sm4;                                  // [LC / 2, F + 1]
-  float* acc = reinterpret_cast<float*>(spec + (LC / 2) * FP);  // [H, 2, nt]
-  float* s_edc = acc + H * 2 * nt;                     // [F, C]
+  constexpr int H = F - 1, FP = F + 1, NT = kLongThreads, M = kLongCols;
+  const int T = 2 * nhop, CK = C * Ke, P2 = LC / 2;
+  const int tid = threadIdx.x;
+  float4* buf = sm4;                                    // [2, LC / 2, F + 1]
+  float2* cs = reinterpret_cast<float2*>(buf + 2 * P2 * FP);  // [H, M, NT]
+  float* acc = reinterpret_cast<float*>(cs + H * M * NT);     // [H, M, NT]
+  float* s_edc = acc + H * M * NT;                      // [F, C]
   float* s_base = s_edc + F * C;
-  float* s_ar = s_base + F * C;                        // [F, C, Ke]
+  float* s_ar = s_base + F * C;                         // [F, C, Ke]
   float* s_ai = s_ar + F * CK;
-  int* b_lo = reinterpret_cast<int*>(s_ai + F * CK);   // [C] each
+  int* b_lo = reinterpret_cast<int*>(s_ai + F * CK);    // [C] each
   int* b_hi = b_lo + C;
   int* b_base = b_hi + C;
-  int* b_plen = b_base + C;
-  const float* tc = tab;                               // [T] each
+  int* b_off = b_base + C;
+  int* b_plen = b_off + C;
+  const float* tc = tab;                                // [T] each
   const float* ts = tab + T;
   const float* win = tab + 2 * T;
-  const int b = blockIdx.y;
-  const int f0 = blockIdx.x * H;
+  const int b = blockIdx.z;
+  const int f0 = blockIdx.y * H;
   const int64_t row0 = (int64_t)b * N;
+  const float4* srow = spec + row0 * L2;
+  const int nh = min(H, N - f0);
+  const int t0 = (blockIdx.x * NT + tid) * M;           // the first column
+  int tt[M];
+#pragma unroll
+  for (int m = 0; m < M; ++m) tt[m] = min(t0 + m, nhop - 1);
 
   if (tid == 0) {
+    int off = 0;
     for (int c = 0; c < C; ++c) {
       const int lo = bands[2 * c], hi = bands[2 * c + 1];
       b_lo[c] = lo;
       b_hi[c] = hi;
       b_base[c] = lo & ~1;
+      b_off[c] = off;
       b_plen[c] = hi > lo ? ((hi - b_base[c] + 1) & ~1) : 0;
+      off += b_plen[c];
     }
   }
-  for (int idx = tid; idx < F * C; idx += nt) {
+  for (int idx = tid; idx < F * C; idx += NT) {
     const int64_t fr = row0 + min(f0 + idx / C, N - 1);
     const int c = idx % C;
     s_edc[idx] = __ldg(edc + fr * C + c);
     s_base[idx] = __ldg(base + fr * C + c);
   }
-  for (int idx = tid; idx < F * CK; idx += nt) {
+  for (int idx = tid; idx < F * CK; idx += NT) {
     const int64_t fr = row0 + min(f0 + idx / CK, N - 1);
     const int q = idx % CK;
     s_ar[idx] = __ldg(ar + fr * CK + q);
     s_ai[idx] = __ldg(ai + fr * CK + q);
   }
-  const float ends = 1.0f / sqrtf((float)T);
-  const float mid = sqrtf(2.0f / (float)T);
-  const int half = (nhop + 1) >> 1;
-  const int nh = min(H, N - f0);
-  const float inv_hop = 1.0f / (float)nhop;
-  const int ta = blockIdx.z * nt + tid;
-  const bool active = ta < half;
-  const int tap = active ? ta : 0;
-  const bool has_b = tap + half < nhop;
-  const int tb = has_b ? tap + half : tap;    // odd nhop: a duplicate
-  const float rar = __ldg(tc + tap), rai = __ldg(ts + tap);
-  const float rbr = __ldg(tc + tb), rbi = __ldg(ts + tb);
-  const int stepa = (kRestart * tap) % T, stepb = (kRestart * tb) % T;
-  const float sv[2] = {(float)tap * inv_hop, (float)tb * inv_hop};
-  const float wa[2] = {__ldg(win + nhop + tap), __ldg(win + nhop + tb)};
-  const float wb[2] = {__ldg(win + tap), __ldg(win + tb)};
-  for (int i = 0; i < 2 * H; ++i) acc[i * nt + tid] = 0.0f;
+  // each sample's e^{2 pi j cyc}, once for every band
+  for (int i = 0; i < nh; ++i) {
+    const int64_t g0 = (row0 + f0 + i) * nhop;
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      float s1, c1;
+      sincospif(2.0f * llsm::frac_c(__ldg(cyc + g0 + tt[m])), &s1, &c1);
+      cs[(i * M + m) * NT + tid] = make_float2(c1, s1);
+      acc[(i * M + m) * NT + tid] = 0.0f;
+    }
+  }
   __syncthreads();
+
+  // chunk (c, q) of the block's frames into dst: slot pairs from (off_c +
+  // q) / 2, zeros for frames past the row's last
+  auto stage = [&](int c, int q, float4* dst) {
+    const int n2 = min(LC, b_plen[c] - q) >> 1, p0 = (b_off[c] + q) >> 1;
+    for (int idx = tid; idx < F * n2; idx += NT) {
+      const int j = idx / n2, sp = idx - j * n2;
+      const bool live = f0 + j < N;
+      llsm::cp_async16z(dst + sp * FP + j,
+                        srow + (int64_t)(live ? f0 + j : 0) * L2 + p0 + sp,
+                        live);
+    }
+  };
+  // the next chunk to stage: band nc from slot nq
+  int nc = 0, nq = 0;
+  while (nc < C && nq >= b_plen[nc]) {
+    ++nc;
+    nq = 0;
+  }
+  if (nc < C) stage(nc, nq, buf);
+  llsm::cp_async_commit();
+  int cur = 0;
+  const float inv_hop = 1.0f / (float)nhop;
+  float rr[M], ri[M];                                  // e^{2 pi j t / T}
+  int step[M];
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    rr[m] = __ldg(tc + tt[m]);
+    ri[m] = __ldg(ts + tt[m]);
+    step[m] = (kRestart * tt[m]) % T;
+  }
   for (int c = 0; c < C; ++c) {
-    // pass 1: the band's (E, O) of the F frames at ta and tb, its slots
-    // staged a chunk at a time
-    float ea[F], oa[F], eb[F], ob[F];
+    // pass 1: the band's (E, O) of the F frames at the thread's columns
+    float e[M][F], o[M][F];
 #pragma unroll
-    for (int q = 0; q < F; ++q) ea[q] = oa[q] = eb[q] = ob[q] = 0.0f;
-    const int lo = b_lo[c], hi = b_hi[c], kb0 = b_base[c], plen = b_plen[c];
-    int ma = (int)(((int64_t)kb0 * tap) % T);
-    int mb = (int)(((int64_t)kb0 * tb) % T);
+    for (int m = 0; m < M; ++m)
+#pragma unroll
+      for (int q = 0; q < F; ++q) e[m][q] = o[m][q] = 0.0f;
+    const int plen = b_plen[c];
+    int ma[M];                                         // the next restart
+#pragma unroll
+    for (int m = 0; m < M; ++m)
+      ma[m] = (int)(((int64_t)b_base[c] * tt[m]) % T);
     for (int q0 = 0; q0 < plen; q0 += LC) {
-      const int n2 = min(LC, plen - q0) >> 1;
-      __syncthreads();                  // the last chunk's reads are done
-      for (int idx = tid; idx < F * n2; idx += nt) {
-        const int j = idx / n2, sp = idx - j * n2;
-        const int f = min(f0 + j, N - 1);
-        float v[4];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int kk = kb0 + q0 + 2 * sp + e;
-          const bool in = kk >= lo && kk < hi;
-          const int k = in ? kk : 0;
-          const int64_t o = spec_bstride * b + (int64_t)f * nbin + k;
-          const float g = __ldg(gain + (row0 + f) * nbin + k);
-          const float vr = __ldg(re + o), vi = __ldg(im + o);
-          const bool live = f0 + j < N && in;
-          const bool edge = k == 0 || k == nbin - 1;
-          v[2 * e] = live ? vr * g * (edge ? ends : mid) : 0.0f;
-          v[2 * e + 1] = live && !edge ? vi * g * mid : 0.0f;
-        }
-        spec[sp * FP + j] = make_float4(v[0], v[1], v[2], v[3]);
+      nq += LC;
+      while (nc < C && nq >= b_plen[nc]) {
+        ++nc;
+        nq = 0;
       }
+      if (nc < C) stage(nc, nq, buf + (cur ^ 1) * P2 * FP);
+      llsm::cp_async_commit();
+      llsm::cp_async_wait<1>();
       __syncthreads();
-      if (!active || LLSM_SKIP_PASS_A) continue;
-      for (int s0 = q0; s0 < q0 + 2 * n2; s0 += kRestart) {
-        float zar = __ldg(tc + ma), zai = __ldg(ts + ma);
-        float zbr = __ldg(tc + mb), zbi = __ldg(ts + mb);
-        const int n = min(kRestart, plen - s0);
-        const float4* sp = spec + ((s0 - q0) >> 1) * FP;
+      const int nk = min(LC, plen - q0);
+      const float4* sp = buf + cur * P2 * FP;
+      for (int s0 = 0; !LLSM_SKIP_PASS_A && s0 < nk; s0 += kRestart) {
+        float zr[M], zi[M];
+#pragma unroll
+        for (int m = 0; m < M; ++m) {
+          // the table's entry ma, by its own expression
+          sincospif(__fdiv_rn(2.0f * (float)ma[m], (float)T), &zi[m], &zr[m]);
+          ma[m] += step[m];
+          if (ma[m] >= T) ma[m] -= T;
+        }
+        const int n = min(kRestart, nk - s0);
         for (int p = 0; p < n; p += 2, sp += FP) {
-          float yar = zar, yai = zai, ybr = zbr, ybi = zbi;
-          rotate_e(yar, yai, rar, rai);
-          rotate_e(ybr, ybi, rbr, rbi);
+          // z of the odd slot: one rotation past the even slot's
+          float yr[M], yi[M];
+#pragma unroll
+          for (int m = 0; m < M; ++m) {
+            yr[m] = zr[m];
+            yi[m] = zi[m];
+            rotate_e(yr[m], yi[m], rr[m], ri[m]);
+          }
 #pragma unroll
           for (int q = 0; q < F; ++q) {
             const float4 v = sp[q];
-            ea[q] = fmaf(v.x, zar, fmaf(-v.y, zai, ea[q]));
-            eb[q] = fmaf(v.x, zbr, fmaf(-v.y, zbi, eb[q]));
-            oa[q] = fmaf(v.z, yar, fmaf(-v.w, yai, oa[q]));
-            ob[q] = fmaf(v.z, ybr, fmaf(-v.w, ybi, ob[q]));
+#pragma unroll
+            for (int m = 0; m < M; ++m) {
+              e[m][q] = fmaf(v.x, zr[m], fmaf(-v.y, zi[m], e[m][q]));
+              o[m][q] = fmaf(v.z, yr[m], fmaf(-v.w, yi[m], o[m][q]));
+            }
           }
-          zar = yar;
-          zai = yai;
-          zbr = ybr;
-          zbi = ybi;
-          rotate_o(zar, zai, rar, rai);
-          rotate_o(zbr, zbi, rbr, rbi);
+#pragma unroll
+          for (int m = 0; m < M; ++m) {
+            zr[m] = yr[m];
+            zi[m] = yi[m];
+            rotate_o(zr[m], zi[m], rr[m], ri[m]);
+          }
         }
-        ma += stepa;
-        if (ma >= T) ma -= T;
-        mb += stepb;
-        if (mb >= T) mb -= T;
       }
+      __syncthreads();                 // this buffer is staged next
+      cur ^= 1;
     }
-    if (!active) continue;
     if (LLSM_SKIP_PASS_B) {   // keeps pass 1's sums
       float sink = 0.0f;
 #pragma unroll
-      for (int q = 0; q < F; ++q) sink += ea[q] + oa[q] + eb[q] + ob[q];
+      for (int m = 0; m < M; ++m)
+#pragma unroll
+        for (int q = 0; q < F; ++q) sink += e[m][q] + o[m][q];
       if (sink == 1e30f) y[0] = sink;
       continue;
     }
-    // pass 2: the wide kernel's, a hop's cycles loaded a hop ahead
-    float cy[2] = {cyc[(row0 + f0) * nhop + tap],
-                   cyc[(row0 + f0) * nhop + tb]};
+    // pass 2: the band's OLA, envelope and modulation of each hop at the
+    // thread's columns, added to the accumulators
+    float sv[M], wa[M], wb[M];
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      sv[m] = (float)tt[m] * inv_hop;
+      wa[m] = __ldg(win + nhop + tt[m]);
+      wb[m] = __ldg(win + tt[m]);
+    }
 #pragma unroll
     for (int i = 0; i < H; ++i) {
       if (i >= nh) break;
       const bool partner = f0 + i + 1 < N;
-      float c1[2], s1[2], env[2], zr[2], zi[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r)
-        sincospif(2.0f * llsm::frac_c(cy[r]), &s1[r], &c1[r]);
-      if (i + 1 < nh) {
-        const int64_t g1 = (row0 + f0 + i + 1) * nhop;
-        cy[0] = cyc[g1 + tap];
-        cy[1] = cyc[g1 + tb];
-      }
       const float e0 = s_edc[i * C + c], de = s_edc[(i + 1) * C + c] - e0;
       const float b0 = s_base[i * C + c];
       const float db = s_base[(i + 1) * C + c] - b0;
+      float c1[M], s1[M], env[M], zr[M], zi[M];
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        env[r] = fmaf(de, sv[r], e0);
-        zr[r] = c1[r];
-        zi[r] = s1[r];
+      for (int m = 0; m < M; ++m) {
+        const float2 w = cs[(i * M + m) * NT + tid];
+        c1[m] = w.x;
+        s1[m] = w.y;
+        env[m] = fmaf(de, sv[m], e0);
+        zr[m] = c1[m];
+        zi[m] = s1[m];
       }
       const float* a0 = s_ar + i * CK + c * Ke;
       const float* p0 = s_ai + i * CK + c * Ke;
@@ -803,59 +911,66 @@ noise_chunk_kernel(const float* __restrict__ cyc,
         const float a = a0[k], da = a0[CK + k] - a;
         const float p = p0[k], dp = p0[CK + k] - p;
 #pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          env[r] = __fadd_rn(env[r],
-                             __fmaf_rn(fmaf(da, sv[r], a), zr[r],
-                                       -__fmul_rn(fmaf(dp, sv[r], p),
-                                                  zi[r])));
-          rotate_o(zr[r], zi[r], c1[r], s1[r]);
+        for (int m = 0; m < M; ++m) {   // fused as noise_mod_kernel's
+          env[m] = __fadd_rn(env[m],
+                             __fmaf_rn(fmaf(da, sv[m], a), zr[m],
+                                       -__fmul_rn(fmaf(dp, sv[m], p),
+                                                  zi[m])));
+          rotate_o(zr[m], zi[m], c1[m], s1[m]);
         }
       }
-      const float cur[2][2] = {{ea[i], oa[i]}, {eb[i], ob[i]}};
-      const float nxt[2][2] = {{ea[i + 1], oa[i + 1]},
-                               {eb[i + 1], ob[i + 1]}};
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        float ola = __fmul_rn(wa[r], __fsub_rn(cur[r][0], cur[r][1]));
+      for (int m = 0; m < M; ++m) {
+        float ola = __fmul_rn(wa[m], __fsub_rn(e[m][i], o[m][i]));
         if (partner)
-          ola = fmaf(wb[r], __fadd_rn(nxt[r][0], nxt[r][1]), ola);
-        const float bl = fmaf(db, sv[r], b0);
-        float* a_ = acc + (2 * i + r) * nt + tid;
-        *a_ = fmaf(ola, __fdividef(fmaxf(env[r], 0.0f), fmaxf(bl, 1e-8f)),
+          ola = fmaf(wb[m], __fadd_rn(e[m][i + 1], o[m][i + 1]), ola);
+        const float bl = fmaf(db, sv[m], b0);
+        float* a_ = acc + (i * M + m) * NT + tid;
+        *a_ = fmaf(ola, __fdividef(fmaxf(env[m], 0.0f), fmaxf(bl, 1e-8f)),
                    *a_);
       }
     }
   }
-  if (!active) return;
+  llsm::cp_async_wait<0>();
   for (int i = 0; i < nh; ++i) {
     const int64_t g0 = (row0 + f0 + i) * nhop;
-    y[g0 + tap] = acc[2 * i * nt + tid];
-    if (has_b) y[g0 + tb] = acc[(2 * i + 1) * nt + tid];
+#pragma unroll
+    for (int m = 0; m < M; ++m)
+      if (t0 + m < nhop) y[g0 + t0 + m] = acc[(i * M + m) * NT + tid];
   }
 }
 
+// the staged spectra's offset in the scratch, in floats: after the tables,
+// 16-byte aligned
+int long_spec_offset(int nhop) { return (3 * 2 * nhop + 3) / 4 * 4; }
+
 template <int F>
-cudaError_t launch_chunk(const float* cyc, const float* edc, const float* ar,
-                         const float* ai, const float* base, const float* re,
-                         const float* im, int64_t spec_bstride,
-                         const float* gain, const int* bands_d, float* tab,
-                         float* y, int B, int N, int nhop, int C, int Ke,
-                         int LC, int threads, cudaStream_t st) {
-  const int T = 2 * nhop, tblocks = min((T + 255) / 256, 1024);
-  noise_tables_kernel<<<tblocks, 256, 0, st>>>(tab, nhop);
+cudaError_t launch_long(const float* cyc, const float* edc, const float* ar,
+                        const float* ai, const float* base, const float* re,
+                        const float* im, int64_t spec_bstride,
+                        const float* gain, const int* bands_d, float* tab,
+                        float* y, int B, int N, int nhop, int C, int Ke,
+                        int L, int LC, cudaStream_t st) {
+  const int L2 = L / 2;
+  float4* spec = reinterpret_cast<float4*>(tab + long_spec_offset(nhop));
+  const int64_t frames = (int64_t)B * N;
+  const int pblocks = (int)(frames < 4096 ? frames : 4096);
+  noise_long_prep<<<pblocks, 256, 4 * C * sizeof(int), st>>>(
+      re, im, spec_bstride, gain, bands_d, tab, spec, B, N, nhop, C, L2);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  const size_t smem = (size_t)(LC / 2) * (F + 1) * sizeof(float4) +
-                      (size_t)(F - 1) * 2 * threads * sizeof(float) +
+  const size_t smem = (size_t)2 * (LC / 2) * (F + 1) * sizeof(float4) +
+                      (size_t)(F - 1) * kLongCols * kLongThreads *
+                          (sizeof(float2) + sizeof(float)) +
                       (size_t)F * (2 * C + 2 * C * Ke) * sizeof(float) +
-                      (size_t)4 * C * sizeof(int);
-  e = llsm::allow_smem(noise_chunk_kernel<F>, smem);
+                      (size_t)5 * C * sizeof(int);
+  e = llsm::allow_smem(noise_long_kernel<F>, smem);
   if (e != cudaSuccess) return e;
-  const int half = (nhop + 1) / 2;
-  dim3 grid((N + F - 2) / (F - 1), B, (half + threads - 1) / threads);
-  noise_chunk_kernel<F><<<grid, threads, smem, st>>>(
-      cyc, edc, ar, ai, base, re, im, spec_bstride, gain, bands_d, tab, y, N,
-      nhop, C, Ke, LC);
+  const int cols = kLongThreads * kLongCols;
+  // a tile's column groups launch together, so its chunks stay in L2
+  dim3 grid((nhop + cols - 1) / cols, (N + F - 2) / (F - 1), B);
+  noise_long_kernel<F><<<grid, kLongThreads, smem, st>>>(
+      cyc, edc, ar, ai, base, spec, tab, bands_d, y, N, nhop, C, Ke, L2, LC);
   return cudaGetLastError();
 }
 
@@ -863,10 +978,11 @@ cudaError_t launch_chunk(const float* cyc, const float* edc, const float* ar,
 
 // bands: 2 C ints on the host, each band's bin range [lo, hi) (lo = hi for
 // an empty band), and the same in device memory (bands_d, read by the wide
-// kernel); F, wide_threads: the wide kernel's frames and threads a block
-// (kernels._noise_geometry), F = 0 for noise_mod_kernel; chunk > 0 (F = 16
-// only): noise_chunk_kernel with chunks of that many slots, tab its [3, 2
-// nhop] tables' device memory (null otherwise).
+// and long kernels); F, wide_threads: the wide kernel's frames (16) and
+// threads a block (kernels._noise_geometry), F = 0 for noise_mod_kernel;
+// chunk > 0: noise_long_kernel at F = 16 frames a block with chunks of that
+// many slots, tab its scratch (the [3, 2 nhop] tables, then 16-byte
+// aligned the staged spectra [B, N, L / 2] float4; null otherwise).
 extern "C" int llsm_noise_mod_ola(const float* cyc, const float* edc,
                                   const float* ar, const float* ai,
                                   const float* base, const float* re,
@@ -877,38 +993,25 @@ extern "C" int llsm_noise_mod_ola(const float* cyc, const float* edc,
                                   int wide_threads, int chunk, float* tab,
                                   void* stream) {
   if (F > 0) {
-    if (nhop <= 0 || C <= 0 || Ke < 0 || !bands_d || wide_threads <= 0 ||
-        wide_threads > kWideThreads ||
-        (chunk && (F != 16 || chunk < 0 || chunk % kRestart || !tab)))
+    if (nhop <= 0 || C <= 0 || Ke < 0 || !bands_d ||
+        F != 16 ||
+        (chunk ? chunk < 0 || chunk % kRestart || !tab
+               : wide_threads <= 0 || wide_threads > kWideThreads))
       return (int)cudaErrorInvalidValue;
     if (B <= 0 || N <= 0) return (int)cudaGetLastError();
-    if (chunk)
-      return (int)launch_chunk<16>(cyc, edc, ar, ai, base, re, im,
-                                   (int64_t)spec_bstride, gain, bands_d, tab,
-                                   y, B, N, nhop, C, Ke, chunk, wide_threads,
-                                   (cudaStream_t)stream);
     int L = 0;
     for (int c = 0; c < C; ++c) {
       const int lo = bands[2 * c], hi = bands[2 * c + 1];
       L += hi > lo ? ((hi - (lo & ~1) + 1) & ~1) : 0;
     }
     const cudaStream_t st = (cudaStream_t)stream;
-    switch (F) {
-      case 16:
-        return (int)launch_wide<16>(cyc, edc, ar, ai, base, re, im,
-                                    (int64_t)spec_bstride, gain, bands_d, y,
-                                    B, N, nhop, C, Ke, L, wide_threads, st);
-      case 8:
-        return (int)launch_wide<8>(cyc, edc, ar, ai, base, re, im,
-                                   (int64_t)spec_bstride, gain, bands_d, y,
-                                   B, N, nhop, C, Ke, L, wide_threads, st);
-      case 4:
-        return (int)launch_wide<4>(cyc, edc, ar, ai, base, re, im,
-                                   (int64_t)spec_bstride, gain, bands_d, y,
-                                   B, N, nhop, C, Ke, L, wide_threads, st);
-      default:
-        return (int)cudaErrorInvalidValue;
-    }
+    if (chunk)
+      return (int)launch_long<16>(cyc, edc, ar, ai, base, re, im,
+                                  (int64_t)spec_bstride, gain, bands_d, tab,
+                                  y, B, N, nhop, C, Ke, L, chunk, st);
+    return (int)launch_wide<16>(cyc, edc, ar, ai, base, re, im,
+                                (int64_t)spec_bstride, gain, bands_d, y, B, N,
+                                nhop, C, Ke, L, wide_threads, st);
   }
   if (B <= 0 || N <= 0) return (int)cudaGetLastError();
   if (nhop <= 0 || kGroups * ((nhop + 1) / 2) > kMaxThreads || C <= 0 ||

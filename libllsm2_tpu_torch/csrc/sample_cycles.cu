@@ -47,7 +47,7 @@
 // block of 4 warps a tile of T <= 128 hops of one row, grid (tiles, rows).
 // Past it (48 kHz at a 20 ms hop is 960; to 2048) the long-hop kernel
 // below, a hop over two or four warps; past 2048 (48 kHz at 50 ms, 96 kHz
-// at 200 ms: 19200) the two hop kernels at the end, a block a hop.
+// at 200 ms: 19200) the hop kernel at the end, a block a hop.
 //   - Steps: L lanes share a hop, each a run of at most 10 consecutive
 //     samples (up to nhop = 320; to 512, 32 lanes with runs of up to 16);
 //     a lane evaluates each step once, in registers, with the plain
@@ -590,17 +590,27 @@ cudaError_t launch_long(const float* f0, float* out, unsigned long long* word,
 // ---------------------------------------------------------------------------
 // Past a 2048-sample hop the long-hop kernel would need more than its 256
 // lanes a hop or runs past kLongRun, and its tile's partials grow with the
-// hop.  Here a block of kHopThreads lanes takes one hop, a lane a run of
-// ceil(nhop / kHopThreads) consecutive samples, any length, whose steps it
-// evaluates in turn (f0_over_fs: the plain version's division a sample, no
-// table) and, in the output pass, once more: two launches, no tile words
-// and no shared memory that grows with the hop.  sample_cycles_hop_totals
-// writes each hop's total mod 1 (the in-hop scan's sum: each warp's tree,
-// then the warps in order) to tots [B, H] in device memory;
-// sample_cycles_hop_kernel sums the row's totals before its hop (lane l
-// hops l, l + 32, ... in order, then a fixed xor tree, then the base) into
-// the hop's offset, scans the hop's runs as the totals kernel does and
-// writes each sample's track.  Every order is set by the row alone.
+// hop.  Here, after sample_cycles_prep (a word a hop of each row, zeroed,
+// and the long kernel's fraction table), one launch: a block of
+// kHopThreads lanes takes one hop, a lane a run of ceil(nhop /
+// kHopThreads) consecutive samples.
+//   - Steps: each evaluated once (the fraction table below 2^24 samples,
+//     the plain version's division past it, as the long kernel does), the
+//     block's threads on consecutive samples, kHopBatch of a thread's
+//     table reads in flight together, into shared memory [nhop] floats;
+//     a lane then sums its run's in float64.
+//   - In-hop sums: each warp's tree over its lanes, then the warps in order
+//     (hop_scan), give each run its offset and the hop's total; the run's
+//     float32 partials replace its steps in shared memory, and the block
+//     publishes the hop's total mod 1 in its word (sign bit set).
+//   - Hop offset: warp 0 sums the row's hops before it as they are
+//     published, lane l hops l, l + 32, ... in order (kHopLook of a lane's
+//     words read at once, then each waited for in turn), then a fixed xor
+//     tree, then the base.  Block (x, y) is hop x of row y; blocks start
+//     in linear order, so every hop it waits for has started.
+//   - Output: the hop's samples written coalesced from shared memory.
+// A hop whose steps overflow the block's shared memory (past ~58000
+// samples) evaluates them again in the output pass instead (stash = 0).
 //
 // Exactness at long hops: a float64 running sum of float32 values is exact
 // while every partial stays below 2^29 times the smallest nonzero value
@@ -616,6 +626,9 @@ cudaError_t launch_long(const float* f0, float* out, unsigned long long* word,
 // float32 partial by at most one ulp of the hop's largest partial
 // (2^-16 cycles at 200 cycles a hop: 1 kHz at 96 kHz over 19200 samples).
 constexpr int kHopThreads = 256;
+constexpr int kHopStashMax = 232448 - 1024;   // a hop's steps' bytes, at most
+constexpr int kHopBatch = 8;                  // a thread's step reads at once
+constexpr int kHopLook = 8;                   // a lane's words read at once
 
 // the hop's exclusive prefix of lane r's run and its total: a scan in each
 // warp by a tree fixed by the lane, then the sums of the warps before it,
@@ -641,33 +654,34 @@ __device__ __forceinline__ double hop_scan(double acc, double* ws,
   return wh ? p + woff : p;
 }
 
-__global__ void __launch_bounds__(kHopThreads)
-sample_cycles_hop_totals(const float* __restrict__ f0,
-                         double* __restrict__ tots, int start, int N,
-                         int nhop, int H, float fs, int run) {
-  __shared__ double ws[kHopThreads / 32];
-  const int j = blockIdx.x, row = blockIdx.y;
-  const float* f0r = f0 + (int64_t)row * N;
-  const double rfs = __drcp_rn((double)fs);
-  const int t0 = min((int)threadIdx.x * run, nhop), t1 = min(t0 + run, nhop);
-  const int64_t s0 = (int64_t)(start + j) * nhop;
-  double acc = 0.0;
-  for (int t = t0; t < t1; ++t)
-    acc += f0_over_fs(f0r, s0 + t, (float)nhop, N, rfs, start);
-  double tot;
-  hop_scan(acc, ws, &tot);
-  if (threadIdx.x == 0) {
-    const float w = __double2float_rn(tot);
-    tots[(int64_t)row * H + j] = (double)(w - floorf(w));
+// the position fraction of sample t of hop j below 2^24 samples (t = 1 at
+// and past the last frame), and F0 over fs there
+struct HopSteps {
+  bool table, last;
+  float a, b;
+  const float* fr;
+  const float* f0r;
+  int64_t s0;
+  float nhop_f;
+  int N, start;
+  double rfs;
+  __device__ __forceinline__ float frac(int t) const {
+    return last ? 1.0f : __ldg(fr + t);
   }
-}
+  __device__ __forceinline__ double at(float ft, int t) const {
+    return table ? step(a, b, ft, rfs)
+                 : f0_over_fs(f0r, s0 + t, nhop_f, N, rfs, start);
+  }
+};
 
 __global__ void __launch_bounds__(kHopThreads)
 sample_cycles_hop_kernel(const float* __restrict__ f0,
                          float* __restrict__ out,
-                         const double* __restrict__ tots,
+                         unsigned long long* __restrict__ word,
+                         const float* __restrict__ frac, int np4,
                          const double* __restrict__ base, int start, int N,
-                         int nhop, int H, float fs, int run) {
+                         int nhop, int H, float fs, int run, int stash) {
+  extern __shared__ float part[];               // [nhop]: steps, partials
   __shared__ double ws[kHopThreads / 32];
   __shared__ float ofs;
   const int j = blockIdx.x, row = blockIdx.y;
@@ -675,60 +689,141 @@ sample_cycles_hop_kernel(const float* __restrict__ f0,
   const float* f0r = f0 + (int64_t)row * N;
   const int64_t nx = (int64_t)H * nhop;
   float* outr = out + (int64_t)row * nx;
-  const double rfs = __drcp_rn((double)fs);
-  const float nhop_f = (float)nhop;
+  const int t0 = min((int)threadIdx.x * run, nhop), t1 = min(t0 + run, nhop);
+  unsigned long long* rw = word + (int64_t)row * H;
+  HopSteps hs;
+  hs.f0r = f0r;
+  hs.nhop_f = (float)nhop;
+  hs.N = N;
+  hs.start = start;
+  hs.rfs = __drcp_rn((double)fs);
+  hs.s0 = (int64_t)(start + j) * nhop;
+  hs.table = hs.s0 >= 0 && hs.s0 + nhop <= kExact;
+  const int i0 = min(j, N - 2);
+  hs.a = hs.table ? fmaxf(__ldg(f0r + i0), 0.0f) : 0.0f;
+  hs.b = hs.table ? fmaxf(__ldg(f0r + i0 + 1), 0.0f) : 0.0f;
+  hs.fr = frac + (hs.table ? binade(start + j) : 0) * np4;
+  hs.last = j >= N - 1;                         // pos >= N - 1: t = 1
+  double acc = 0.0;
+  if (stash) {   // the steps coalesced, then each run's sum in order
+    for (int tb = threadIdx.x; tb < nhop; tb += kHopBatch * kHopThreads) {
+      float ft[kHopBatch];
+#pragma unroll
+      for (int u = 0; u < kHopBatch; ++u) {
+        const int t = tb + u * kHopThreads;
+        ft[u] = hs.table && t < nhop ? hs.frac(t) : 0.0f;
+      }
+#pragma unroll
+      for (int u = 0; u < kHopBatch; ++u) {
+        const int t = tb + u * kHopThreads;
+        if (t < nhop) part[t] = (float)hs.at(ft[u], t);
+      }
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int t = t0; t < t1; ++t) acc += (double)part[t];
+  } else {
+    for (int t = t0; t < t1; ++t)
+      acc += hs.at(hs.table ? hs.frac(t) : 0.0f, t);
+  }
+  double tot;
+  double p = hop_scan(acc, ws, &tot);
   if (threadIdx.x < 32) {
-    // the hop's offset: the row's totals before it, lane l hops l, l + 32,
-    // ... in order, then the lanes by a fixed tree, then the base
-    const double* tr = tots + (int64_t)row * H;
+    // publish the hop's total mod 1; then its offset: the row's totals
+    // before it, lane l hops l, l + 32, ... in order (waiting for each),
+    // then the lanes by a fixed tree, then the base
+    if (lane == 0) {
+      const float w = __double2float_rn(tot);
+      *(volatile unsigned long long*)(rw + j) =
+          (unsigned long long)__double_as_longlong((double)(w - floorf(w))) |
+          (1ull << 63);
+    }
     double c = 0.0;
-    for (int i = lane; i < j; i += 32) c += tr[i];
+    for (int ib = lane; ib < j; ib += 32 * kHopLook) {
+      unsigned long long x[kHopLook];
+#pragma unroll
+      for (int u = 0; u < kHopLook; ++u) {
+        const int i = ib + 32 * u;
+        x[u] = i < j ? *(volatile unsigned long long*)(rw + i) : 0ull;
+      }
+#pragma unroll
+      for (int u = 0; u < kHopLook; ++u) {
+        const int i = ib + 32 * u;
+        if (i < j) {
+          while (x[u] == 0ull) x[u] = *(volatile unsigned long long*)(rw + i);
+          c += __longlong_as_double((long long)(x[u] & ~(1ull << 63)));
+        }
+      }
+    }
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) c += __shfl_xor_sync(0xffffffffu, c, o);
     if (base) c += base[row];
     if (lane == 0) ofs = (float)(c - floor(c));
   }
-  const int t0 = min((int)threadIdx.x * run, nhop), t1 = min(t0 + run, nhop);
-  const int64_t s0 = (int64_t)(start + j) * nhop;
-  double acc = 0.0;
-  for (int t = t0; t < t1; ++t)
-    acc += f0_over_fs(f0r, s0 + t, nhop_f, N, rfs, start);
-  double tot;
-  double p = hop_scan(acc, ws, &tot);   // its barrier publishes ofs too
   const int64_t o = (int64_t)j * nhop + 1;      // out[s + 1] = c[s]
-  for (int t = t0; t < (LLSM_SKIP_PASS_B ? t0 : t1); ++t) {
-    p += f0_over_fs(f0r, s0 + t, nhop_f, N, rfs, start);
-    if (o + t < nx) {
-      const float cv = __fadd_rn(ofs, __double2float_rn(p));
-      outr[o + t] = cv - floorf(cv);
+  if (stash) {
+    for (int t = t0; t < t1; ++t) {
+      p += (double)part[t];
+      part[t] = __double2float_rn(p);
+    }
+    __syncthreads();
+    for (int t = threadIdx.x; t < (LLSM_SKIP_PASS_B ? 0 : nhop);
+         t += kHopThreads) {
+      if (o + t < nx) {
+        const float cv = __fadd_rn(ofs, part[t]);
+        outr[o + t] = cv - floorf(cv);
+      }
+    }
+  } else {
+    __syncthreads();
+    for (int t = t0; t < (LLSM_SKIP_PASS_B ? t0 : t1); ++t) {
+      p += hs.at(hs.table ? hs.frac(t) : 0.0f, t);
+      if (o + t < nx) {
+        const float cv = __fadd_rn(ofs, __double2float_rn(p));
+        outr[o + t] = cv - floorf(cv);
+      }
     }
   }
   if (j == 0 && threadIdx.x == 0)
     outr[0] = base ? (float)(base[row] - floor(base[row])) : 0.0f;
 }
 
-cudaError_t launch_hop(const float* f0, float* out, double* tots,
+// a hop's word of each row and the fraction table (16-byte aligned after
+// them), as 8-byte words
+int hop_words(int B, int nhop, int H) {
+  return B * H + kTableBinades * long_np4(nhop) / 2 + 2;
+}
+
+cudaError_t launch_hop(const float* f0, float* out, unsigned long long* word,
                        const double* base, int start, int B, int N, int nhop,
                        int H, float fs, cudaStream_t st) {
-  const int run = (nhop + kHopThreads - 1) / kHopThreads;
-  dim3 grid(H, B);
-  sample_cycles_hop_totals<<<grid, kHopThreads, 0, st>>>(f0, tots, start, N,
-                                                         nhop, H, fs, run);
+  const int nw = B * H, np4 = long_np4(nhop);
+  float* frac = reinterpret_cast<float*>(
+      (reinterpret_cast<uintptr_t>(word + nw) + 15) & ~uintptr_t(15));
+  const int n = max(nw, kTableBinades * np4);
+  const int blocks = n < 1024 * 256 ? (n + 255) / 256 : 1024;
+  sample_cycles_prep<<<blocks, 256, 0, st>>>(word, nw, frac, nhop, np4);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  sample_cycles_hop_kernel<<<grid, kHopThreads, 0, st>>>(
-      f0, out, tots, base, start, N, nhop, H, fs, run);
+  const int stash = (size_t)nhop * sizeof(float) <= kHopStashMax;
+  const size_t smem = stash ? (size_t)nhop * sizeof(float) : 0;
+  e = llsm::allow_smem(sample_cycles_hop_kernel, smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid(H, B);
+  sample_cycles_hop_kernel<<<grid, kHopThreads, smem, st>>>(
+      f0, out, word, frac, np4, base, start, N, nhop, H, fs,
+      (nhop + kHopThreads - 1) / kHopThreads, stash);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // words the caller provides: one a tile of each row (llsm_sample_cycles
-// zeroes them on its stream before the kernel); past a 2048-sample hop a
-// hop total of each row
+// zeroes them on its stream before the kernel); past a 512-sample hop the
+// fraction table after them, and past 2048 a word a hop
 extern "C" int llsm_sample_cycles_words(int B, int nhop, int nx) {
   if (B <= 0 || nhop <= 0 || nx <= 0) return 1;
-  if (nhop > 2048) return B * (nx / nhop);
+  if (nhop > 2048) return hop_words(B, nhop, nx / nhop);
   if (nhop > 512) return long_words(B, nhop, nx / nhop);
   const int T = kPasses * kWarps * (32 >> lanes_log2(nhop));
   return B * ((nx / nhop + T - 1) / T);
@@ -742,9 +837,8 @@ extern "C" int llsm_sample_cycles(const float* f0, float* out,
   if (B <= 0 || nx <= 0) return (int)cudaGetLastError();
   if (N < 2 || nhop <= 0 || nx % nhop) return (int)cudaErrorInvalidValue;
   if (nhop > 2048)
-    return (int)launch_hop(f0, out, reinterpret_cast<double*>(word), base,
-                           start, B, N, nhop, nx / nhop, fs,
-                           (cudaStream_t)stream);
+    return (int)launch_hop(f0, out, word, base, start, B, N, nhop, nx / nhop,
+                           fs, (cudaStream_t)stream);
   const int lg = lanes_log2(nhop);
   const int run = (nhop + (1 << lg) - 1) >> lg;
   const int H = nx / nhop;

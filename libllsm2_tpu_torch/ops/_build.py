@@ -53,8 +53,8 @@ SIGNATURES = {
                          _I, _I, _I, _I, _I, _I, _P),
     # cyc, edc, ar, ai, base, re, im, spec batch stride, gain, bands (host,
     # 2 C ints), bands (device, or null), y, B, N, nhop, C, Ke, F, threads,
-    # chunk (kernels._noise_geometry), the chunked kernel's tables (or
-    # null), stream
+    # chunk (kernels._noise_geometry), the long kernel's scratch (or null),
+    # stream
     "llsm_noise_mod_ola": (_P, _P, _P, _P, _P, _P, _P, _L, _P, _P, _P, _P,
                            _I, _I, _I, _I, _I, _I, _I, _I, _P, _P),
     # cyc, edc, ar, ai, base, segs, y, B, N, nhop, C, Ke, stream

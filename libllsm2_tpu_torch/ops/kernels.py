@@ -433,61 +433,75 @@ def _deconv_step(ampl, phse, cyc_c, hw, eq_re, eq_im, D, nhop, stride):
 # ---------------------------------------------------------------------------
 
 # noise_mod_ola.cu's first kernel: nhop <= 256, C <= 8, Ke <= 8, 16 frames a
-# block; the wide kernel the rest at 16, 8 or 4 frames a block of up to 256
-# threads; past its 4-frame block the chunked kernel, 16 frames a block, the
-# slots staged _NOISE_CHUNK at a time
+# block; past it the wide kernel, 16 frames a block of up to 256 threads,
+# where that block leaves room for two an SM; elsewhere the long kernel, 16
+# frames a block of 128 threads, 4 columns each, with chunks of the first
+# of _NOISE_CHUNKS slots whose block leaves room for two an SM (64 where
+# none does and one fits)
 _NOISE_MAX_C = 8
 _NOISE_MAX_KE = 8
 _NOISE_MAX_HOP = 256
-_NOISE_FRAMES = (16, 8, 4)
 _NOISE_WIDE_THREADS = 256
-_NOISE_CHUNK = 512
+_NOISE_CHUNKS = (64, 48, 32, 16)
+_NOISE_LONG_THREADS = 128
+_NOISE_LONG_COLS = 4
 _SM_SMEM = 233472            # the H100's shared memory an SM (228 KB)
 _BLOCK_RESERVED = 1024       # what the card keeps of it for each block
 
 
+def _two_an_sm(nbytes: int) -> bool:
+    """Whether two blocks of nbytes shared bytes fit an SM."""
+    return 2 * (nbytes + _BLOCK_RESERVED) <= _SM_SMEM
+
+
 @functools.lru_cache(maxsize=64)
 def _noise_geometry(nhop: int, C: int, Ke: int, bands: tuple) -> tuple:
-    """noise_mod_ola.cu's launch -> (F, the wide kernel's frames a block, 0
-    for the first kernel; L, the staged slots a frame; shared bytes;
-    threads a block of the wide kernel, 0 for the first; the chunked
-    kernel's slots a chunk, 0 for the others).  L sums each band's slots,
-    from its first even bin, an even count (band_ranges' [lo, hi) each).
-    The first kernel (F = 16) where nhop <= 256, C <= 8 and Ke <= 8: the
-    staged spectra [16, L] and (E, O) [16, C, nhop] float2, the three
-    [2 nhop] tables, the coefficients [16, 2 C (Ke + 1)] floats and the
-    slots' bins [L] ints.  Else the wide kernel: a thread a sample pair of
-    every frame of the block (threads: the pairs rounded up to a warp, at
-    most 256, each thread looping past them), the spectra [L / 2, F + 1]
-    float4 (slot pairs, a pad frame), the tables, the y accumulators
-    [F - 1, 2, threads], the coefficients, the slots' bins and the band
-    table [5, C] ints; the largest F of _NOISE_FRAMES whose block leaves
-    room for two an SM, else the largest that fits one.  Past its 4-frame
-    block the chunked kernel (F = 16, a block a group of `threads` sample
-    pairs): a chunk of _NOISE_CHUNK slots [_NOISE_CHUNK / 2, 17] float4,
-    the accumulators, the coefficients and the band table [4, C] ints, the
-    tables in device memory; None where even that block overflows (the
-    coefficients of 16 frames past ~C (Ke + 1) 1000)."""
+    """noise_mod_ola.cu's launch -> (F, the frames a block, 0 for the first
+    kernel; L, the staged slots a frame; shared bytes; threads a block, 0
+    for the first kernel; the long kernel's slots a chunk, 0 for the
+    others).  L sums each band's slots, from its first even bin, an even
+    count (band_ranges' [lo, hi) each).  The first kernel (16 frames)
+    where nhop <= 256, C <= 8 and Ke <= 8: the staged spectra [16, L] and
+    (E, O) [16, C, nhop] float2, the three [2 nhop] tables, the
+    coefficients [16, 2 C (Ke + 1)] floats and the slots' bins [L] ints.
+    Else the wide kernel (16 frames) where its block leaves room for two an
+    SM: a thread a sample pair of every frame (threads: the pairs rounded
+    up to a warp, at most 256, each thread looping past them), the spectra
+    [L / 2, 17] float4 (slot pairs, a pad frame), the tables, the y
+    accumulators [15, 2, threads], the coefficients, the slots' bins and
+    the band table [5, C] ints.  Elsewhere the long kernel (16 frames, a
+    block 128 threads of 4 columns, the tables and staged spectra in device
+    memory) with chunks of LC slots, the first of _NOISE_CHUNKS whose block
+    leaves room for two an SM (64 where none does): two chunk buffers [LC /
+    2, 17] float4, e^{2 pi j cyc} [15, 4, 128] float2, the accumulators
+    [15, 4, 128], the coefficients and the band table; None where its block
+    overflows (the coefficients past ~C (Ke + 1) 950)."""
     L = sum((hi - (lo & ~1) + 1) & ~1 if hi > lo else 0
             for lo, hi in zip(bands[::2], bands[1::2]))
     if nhop <= _NOISE_MAX_HOP and C <= _NOISE_MAX_C and Ke <= _NOISE_MAX_KE:
         return (0, L, 8 * 16 * L + 8 * 16 * C * nhop + 12 * 2 * nhop
                 + 4 * 16 * 2 * C * (Ke + 1) + 4 * L, 0, 0)
     threads = min(_NOISE_WIDE_THREADS, -(-((nhop + 1) // 2) // 32) * 32)
+    wide = (8 * 17 * L + 12 * 2 * nhop + 4 * 15 * 2 * threads
+            + 4 * 16 * 2 * C * (Ke + 1) + 4 * (L + 5 * C))
+    if _two_an_sm(wide):
+        return 16, L, wide, threads, 0
 
-    def smem(F):
-        return (8 * (F + 1) * L + 12 * 2 * nhop + 4 * (F - 1) * 2 * threads
-                + 4 * F * 2 * C * (Ke + 1) + 4 * (L + 5 * C))
-    fits = [F for F in _NOISE_FRAMES if smem(F) <= _SMEM_MAX]
-    two = [F for F in fits
-           if 2 * (smem(F) + _BLOCK_RESERVED) <= _SM_SMEM]
-    if fits:
-        F = (two or fits)[0]
-        return F, L, smem(F), threads, 0
-    chunk = (16 * (_NOISE_CHUNK // 2) * 17 + 4 * 15 * 2 * threads
-             + 4 * 16 * 2 * C * (Ke + 1) + 4 * 4 * C)
-    return (16, L, chunk, threads, _NOISE_CHUNK) if chunk <= _SMEM_MAX \
-        else None
+    def long_bytes(LC):
+        return (16 * LC * 17
+                + 12 * 15 * _NOISE_LONG_COLS * _NOISE_LONG_THREADS
+                + 4 * 16 * 2 * C * (Ke + 1) + 4 * 5 * C)
+    LC = next((n for n in _NOISE_CHUNKS if _two_an_sm(long_bytes(n))),
+              _NOISE_CHUNKS[0])
+    if long_bytes(LC) > _SMEM_MAX:
+        return None
+    return 16, L, long_bytes(LC), _NOISE_LONG_THREADS, LC
+
+
+def _noise_long_floats(B: int, N: int, nhop: int, L: int) -> int:
+    """The long kernel's scratch in floats: the tables [3, 2 nhop], then
+    (16-byte aligned) the staged spectra [B, N, L / 2] float4."""
+    return -(-6 * nhop // 4) * 4 + B * N * (L // 2) * 4
 
 
 @functools.lru_cache(maxsize=32)
@@ -523,11 +537,12 @@ def noise_mod_ola(cyc: torch.Tensor, edc: torch.Tensor, ar: torch.Tensor,
     band's bins [lo, hi) as 2 C ints (band_ranges) -> y [B, N*nhop] = sum_c OLA(seg_c) max(env_c, 0) /
     max(base_c, 1e-8), seg_c each frame's windowed inverse real DFT of its
     band's bins of (re scale, im scale') x gain (DC and Nyquist real).  One
-    launch on the card (two past the wide kernel's 4-frame block: the
-    chunked kernel's tables first; any nhop, and any C and Ke whose 16
-    frames' coefficients fit in shared memory: _noise_geometry); no
-    [B, C, N, 2 nhop] segment buffer and, past the first kernel, no (E, O)
-    buffer."""
+    launch on the card (two where the long kernel runs: its staging of the
+    pre-scaled spectra first; any nhop, and any C and Ke whose frames'
+    coefficients fit in shared memory: _noise_geometry); no [B, C, N, 2
+    nhop] segment buffer and, past the first kernel, no (E, O) buffer.
+    Where the long kernel's staged spectra exceed the card's free memory,
+    ValueError."""
     bands = tuple(int(v) for v in bands)
     if not _on_cuda(cyc, edc, ar, ai, base, re, im, gain):
         return noise_mod_ola_ref(cyc, edc, ar, ai, base, re, im, gain, bands)
@@ -559,9 +574,17 @@ def noise_mod_ola(cyc: torch.Tensor, edc: torch.Tensor, ar: torch.Tensor,
     y = torch.empty((B, N * nhop), dtype=FP, device=cyc.device)
     ranges = (ctypes.c_int * (2 * C))(*bands)       # read at the launch
     ranges_d = _bands_on(bands, cyc.device).data_ptr() if geo[0] else None
-    # the chunked kernel's [3, 2 nhop] tables, made by its first launch
-    tab = torch.empty((3 * 2 * nhop,), dtype=FP, device=cyc.device) \
-        if geo[4] else None
+    # the long kernel's scratch, written by its first launch
+    tab = None
+    if geo[4]:
+        n = _noise_long_floats(B, N, nhop, geo[1])
+        try:
+            tab = torch.empty((n,), dtype=FP, device=cyc.device)
+        except torch.cuda.OutOfMemoryError:
+            raise ValueError(
+                f"noise_mod_ola: the staged spectra [{B}, {N}, "
+                f"{geo[1] // 2}] float4 and tables ({4 * n} bytes) exceed "
+                "the card's free memory: split the batch") from None
     _launch("noise_mod_ola", cyc.data_ptr(), edc.data_ptr(), ar.data_ptr(),
             ai.data_ptr(), base.data_ptr(), spec[0].data_ptr(),
             spec[1].data_ptr(), bstride, gain.data_ptr(),
@@ -1575,8 +1598,8 @@ def harmonic_project_mxu_ref(x, cyc, hw, max_k, nhop, hh, *,
 # ---------------------------------------------------------------------------
 
 # sample_cycles.cu: past hop 512 its long-hop kernel, at most 128 lanes a
-# hop, each a run of up to 16 samples; past 2048 its hop kernels, a block of
-# 256 lanes a hop
+# hop, each a run of up to 16 samples; past 2048 its hop kernel, a block of
+# 256 lanes a hop, one launch after its prep
 
 
 def sample_cycles(f0: torch.Tensor, nhop: int, fs: float, nx: int,
@@ -1599,8 +1622,8 @@ def sample_cycles(f0: torch.Tensor, nhop: int, fs: float, nx: int,
     B = f.numel() // N
     # one allocation: the track, then (8-byte aligned) the kernel's tile
     # sums as int64, which the C entry zeroes (the call's memset), and past
-    # hop 512 the long-hop kernel's fraction table, which it writes (past
-    # 2048: each hop's total, float64)
+    # hop 512 the fraction table, which it writes (past 2048 the words are
+    # a hop's each)
     n = B * nx + (B * nx) % 2
     buf = torch.empty(n + 2 * _cycle_words(B, int(nhop), int(nx)),
                       dtype=FP, device=f.device)
@@ -1616,8 +1639,8 @@ def sample_cycles(f0: torch.Tensor, nhop: int, fs: float, nx: int,
 @functools.lru_cache(maxsize=64)
 def _cycle_words(B: int, nhop: int, nx: int) -> int:
     """The scratch words (8 bytes) the cycle-track kernel needs for this
-    shape: its tile words and, past hop 512, its fraction table; past hop
-    2048 a hop total a hop of each row."""
+    shape: its tile words (past hop 2048 a word a hop of each row) and,
+    past hop 512, its fraction table."""
     return _build.library().llsm_sample_cycles_words(B, nhop, nx)
 
 

@@ -50,7 +50,13 @@ h10_48's synthesis, `kern160` for denoise_apply on its call in the
 analysis of phase 20a's creaky-voice conf (maxnhar 160, fnyq 6000, the
 bench rows); `h20_48` is h10_48 at a 20 ms hop (hop 960, every fourth F0
 frame: chip_smoke.py's phase 20g, where the cycle track runs its long-hop
-kernel), compared as the three above; `fft16` the synthesis of phase
+kernel), compared as the three above, and `h50_48` at a 50 ms hop (hop
+2400, every tenth F0 frame: phase 20h, where the noise runs its long
+kernel and the cycle track its hop kernel); `kernnoise960` and
+`kernnoise2400` time noise_mod_ola (its long kernel) alone on its call in
+h20_48's and h50_48's synthesis and `kerncyc2400` sample_cycles (its hop
+kernel) on its first call in h50_48's analysis, as the kern cells
+below; `fft16` the synthesis of phase
 16c (layer0._synthesize with noise_idft="fft" and the kernels on, of each
 side's own analysis of the bench rows with the library default), each
 pair's y compared bit for bit; `kernseg` noise_mod_ola_seg alone on its
@@ -69,7 +75,8 @@ quartiles, and how many pairs each side won.  Imports no jax:
                11k,refine11,to_layer1,nasal,tracker,rdviterbi,viterbi,
                wide257,wide512,wide1025,tracker384,full48,full16,
                kern48,kern16,h10_48,kernnoise48,kern160,h20_48,fft16,
-               kernseg,kerncyc960,kerncyc2048]
+               kernseg,kerncyc960,kerncyc2048,h50_48,kernnoise960,
+               kernnoise2400,kerncyc2400]
 """
 import dataclasses
 import importlib
@@ -151,7 +158,8 @@ def main(argv):
                     for j in range(2))
     full = {}
     if {"full48", "kern48", "h10_48", "kernnoise48", "h20_48",
-            "kerncyc960"} & set(cells):
+            "kerncyc960", "h50_48", "kernnoise960", "kernnoise2400",
+            "kerncyc2400"} & set(cells):
         rs = importlib.import_module("port_this.ops.resample")
         x48, r48 = (rs.resample_to(v, 16000.0, 48000.0) for v in (x, x_ref))
         nxv48 = torch.full_like(nxv, x48.shape[1])
@@ -165,6 +173,10 @@ def main(argv):
                                chanfreq=(3000.0, 6000.0, 9000.0), nspec=513,
                                f0_floor=70.0),
                           (x48, f0[:, ::4].contiguous(), nxv48, r48))
+        full["h50_48"] = (dict(fs=48000.0, thop=0.05, fnyq=12000.0,
+                               chanfreq=(3000.0, 6000.0, 9000.0), nspec=513,
+                               f0_floor=70.0),
+                          (x48, f0[:, ::10].contiguous(), nxv48, r48))
     if {"full16", "kern16"} & set(cells):
         rows16 = testsig.make_test_utterances(
             [(i, 0.05 if i < B // 2 else 0.0) for i in range(B)],
@@ -202,6 +214,9 @@ def main(argv):
                   "kern160": ("creaky", ("denoise_apply",)),
                   "kernseg": ("fft16", ("noise_mod_ola_seg",)),
                   "kerncyc960": ("h20_48", ("sample_cycles",)),
+                  "kernnoise960": ("h20_48", ("noise_mod_ola",)),
+                  "kernnoise2400": ("h50_48", ("noise_mod_ola",)),
+                  "kerncyc2400": ("h50_48", ("sample_cycles",)),
                   "kerncyc2048": (None, ("sample_cycles",))}
     if "kern160" in cells:
         full["creaky"] = (dict(f0_floor=70.0, maxnhar=160, fnyq=6000.0),
@@ -214,6 +229,7 @@ def main(argv):
             (fc, 2048, 48000.0, 187 * 2048), {})
     for cell, (source, names) in kern_cells.items():
         if cell in cells and source is not None:
+            sys.path.insert(0, str(ROOT))          # chip_smoke
             import chip_smoke
             kw, args = full[source] if source in full else (
                 dict(f0_floor=70.0), (x, f0, nxv, x_ref))    # fft16
@@ -226,7 +242,7 @@ def main(argv):
             sopt = dataclasses.replace(pkg.create_soptions(fs=opt.conf.fs),
                                        use_pallas=True)
             run = ((lambda: corpus.batched_pipeline(opt, sopt, *args))
-                   if cell == "kernnoise48" else
+                   if cell.startswith("kernnoise") else
                    (lambda: l0._synthesize(
                        dataclasses.replace(sopt, noise_idft="fft"),
                        l0._analyze(opt, args[0], args[1])))

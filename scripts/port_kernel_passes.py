@@ -20,7 +20,7 @@ imports no jax:
         [split=DIR,...]
 
 (name: a source of PASSES below, viterbi, deconv_wide, denoise_wide,
-noise_wide, apply_wide, seg or cycles_long.)
+noise_wide, noise_long, apply_wide, seg, cycles_long or cycles_hop.)
 
 split= instead times each CUDA kernel of kernels.refine_f0_dec, by its
 name in a torch.profiler trace, of the package in each DIR (a checkout,
@@ -67,7 +67,13 @@ the probe).  only=noise_wide times noise_mod_ola.cu's wide kernel at
 chip_smoke.py's phase 20b (48 kHz at a 10 ms hop: gains [128, 800, 481],
 4 bands, 4 envelope harmonics, one draw for the batch) the same way,
 built without pass 1 (LLSM_SKIP_PASS_A: the band iDFT) and without pass 2
-(LLSM_SKIP_PASS_B: the OLA, envelope and band sum); only=apply_wide
+(LLSM_SKIP_PASS_B: the OLA, envelope and band sum); only=noise_long
+the same for its long kernel (where the wide kernel's block would hold
+fewer than 16 frames) at phases 20g and 20h (48 kHz at 20 and 50 ms:
+gains [128, 400, 961] and [128, 160, 2401]) and at 96 kHz / 200 ms on 32
+rows (gains [32, 40, 19201]), what is left with both the prep's staging
+into device memory, the chunks' copies, e^{2 pi j cyc} and the stores;
+only=apply_wide
 denoise_apply.cu's wide kernel at 20e's shapes ([128, 1600, 600] and
 [128, 4000, 200]) and 20a's K 160, spectral (the main path's) and at
 [128, 1600, 600] polar, built without its fit sums (LLSM_SKIP_PASS_A)
@@ -84,7 +90,13 @@ sample_cycles.cu past a 512-sample hop (48 kHz at a 20 ms hop, f0 [128,
 400], and hop 2048, f0 [128, 187]; F0 70-300 Hz with every 7th frame
 unvoiced), built without its steps (LLSM_SKIP_PASS_A: the lerp and the
 divide) and without its output pass (LLSM_SKIP_PASS_B); what is left with
-both is the in-hop scan, the hop offsets and the staging.
+both is the in-hop scan, the hop offsets and the staging.  only=cycles_hop
+times it past a 2048-sample hop (its hop kernel: phase 20h's hop 2400 at
+48 kHz, f0 [128, 160], hop 19200 at 96 kHz, f0 [128, 40], and hop 60000
+at 96 kHz, f0 [128, 12], whose steps overflow the block's shared memory;
+F0 70-1000 Hz, every 7th frame unvoiced) the same way: without its steps
+(LLSM_SKIP_PASS_A: a step is then its table read) and without its output
+pass (LLSM_SKIP_PASS_B).
 
 The variants go to build/kernels/ beside the library (listed in
 .gitignore), each under a hash of its source and defines.
@@ -294,6 +306,13 @@ def denoise_wide():
 # noise_mod_ola's wide shape: (label, B, N, nhop, C, Ke, fs, channel edges)
 NOISE_WIDE_SHAPES = (("20b 48 kHz 10 ms", 128, 800, 480, 4, 4, 48000.0,
                       (0.0, 3000.0, 6000.0, 9000.0, 24000.0)),)
+# the long noise kernel's shapes, the same fields
+NOISE_LONG_SHAPES = (("20g 48 kHz 20 ms", 128, 400, 960, 4, 4, 48000.0,
+                      (0.0, 3000.0, 6000.0, 9000.0, 24000.0)),
+                     ("20h 48 kHz 50 ms", 128, 160, 2400, 4, 4, 48000.0,
+                      (0.0, 3000.0, 6000.0, 9000.0, 24000.0)),
+                     ("96 kHz 200 ms", 32, 40, 19200, 4, 4, 96000.0,
+                      (0.0, 2000.0, 4000.0, 6000.0, 48000.0)))
 # denoise_apply's wide shapes: (label, B, N, K, spectral)
 APPLY_WIDE_SHAPES = (("48 kHz", 128, 1600, 600, True),
                      ("16 kHz 2 ms", 128, 4000, 200, True),
@@ -301,13 +320,13 @@ APPLY_WIDE_SHAPES = (("48 kHz", 128, 1600, 600, True),
                      ("48 kHz polar", 128, 1600, 600, False))
 
 
-def noise_wide():
-    """noise_mod_ola.cu's wide kernel at NOISE_WIDE_SHAPES (the docstring
-    says how), a line each."""
+def noise_wide(shapes=NOISE_WIDE_SHAPES, name="noise_wide"):
+    """noise_mod_ola.cu's wide kernel at NOISE_WIDE_SHAPES (or its long
+    kernel at NOISE_LONG_SHAPES: the docstring says how), a line each."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     r = lambda *s: torch.rand(*s, generator=g, device=dev)
-    for label, Bw, Nw, hop, Cw, Kw, fs, edges in NOISE_WIDE_SHAPES:
+    for label, Bw, Nw, hop, Cw, Kw, fs, edges in shapes:
         nbin = hop + 1
         cyc = torch.remainder(torch.cumsum(r(Bw, Nw * hop) * 0.02, -1), 1.0)
         args = (cyc, r(Bw, Nw, Cw), r(Bw, Nw, Cw, Kw) - 0.5,
@@ -319,7 +338,7 @@ def noise_wide():
         bands = kernels.band_ranges(nbin, fs, edges)
         geo = kernels._noise_geometry(hop, Cw, Kw, bands)
         wide_variants(
-            "noise_mod_ola", f"noise_wide {label} gains [{Bw}, {Nw}, {nbin}] "
+            "noise_mod_ola", f"{name} {label} gains [{Bw}, {Nw}, {nbin}] "
             f"C {Cw} Ke {Kw}, geometry {geo}",
             lambda rows: kernels.noise_mod_ola(
                 *(t[:rows] for t in args), bands),
@@ -357,6 +376,10 @@ SEG_SHAPES = (("16c", 128, 4, 1600, 80, 4), ("C 9 Ke 9", 128, 9, 1600, 80, 9))
 # the cycle track's long hops: (label, B, N, nhop, fs)
 CYCLES_LONG_SHAPES = (("hop 960 at 48 kHz", 128, 400, 960, 48000.0),
                       ("hop 2048 at 48 kHz", 128, 187, 2048, 48000.0))
+# past 2048: the hop kernel (F0 to 1000 Hz)
+CYCLES_HOP_SHAPES = (("hop 2400 at 48 kHz", 128, 160, 2400, 48000.0),
+                     ("hop 19200 at 96 kHz", 128, 40, 19200, 96000.0),
+                     ("hop 60000 at 96 kHz", 128, 12, 60000, 96000.0))
 
 
 def seg():
@@ -379,16 +402,18 @@ def seg():
         torch.cuda.empty_cache()
 
 
-def cycles_long():
-    """sample_cycles.cu past a 512-sample hop at CYCLES_LONG_SHAPES (the
-    docstring says how), a line each."""
+def cycles_long(shapes=CYCLES_LONG_SHAPES, name="cycles_long", top=300.0):
+    """sample_cycles.cu past a 512-sample hop at CYCLES_LONG_SHAPES (or
+    past 2048 at CYCLES_HOP_SHAPES, F0 to `top` Hz: the docstring says
+    how), a line each."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
-    for label, Bc, Nc, hop, fs in CYCLES_LONG_SHAPES:
-        f0 = 70.0 + 230.0 * torch.rand(Bc, Nc, generator=g, device=dev)
+    for label, Bc, Nc, hop, fs in shapes:
+        f0 = 70.0 + (top - 70.0) * torch.rand(Bc, Nc, generator=g,
+                                              device=dev)
         f0[:, ::7] = 0.0
         wide_variants(
-            "sample_cycles", f"cycles_long {label} f0 [{Bc}, {Nc}]",
+            "sample_cycles", f"{name} {label} f0 [{Bc}, {Nc}]",
             lambda rows: kernels.sample_cycles(f0[:rows], hop, fs, Nc * hop),
             ("the steps (lerp and divide)", "the output pass"))
 
@@ -528,6 +553,9 @@ def main():
     if "noise_wide" in names:
         noise_wide()
         names.remove("noise_wide")
+    if "noise_long" in names:
+        noise_wide(NOISE_LONG_SHAPES, "noise_long")
+        names.remove("noise_long")
     if "apply_wide" in names:
         apply_wide()
         names.remove("apply_wide")
@@ -537,6 +565,9 @@ def main():
     if "cycles_long" in names:
         cycles_long()
         names.remove("cycles_long")
+    if "cycles_hop" in names:
+        cycles_long(CYCLES_HOP_SHAPES, "cycles_hop", 1000.0)
+        names.remove("cycles_hop")
     if not names:
         return 0
     libs = build_variants(names)

@@ -18,8 +18,10 @@ quadrature field staged or not, every output the first kernel's bits;
 the denoiser with one chunk walked 32 columns at a time, every output
 the first kernel's bits but pp (the wide path's r_inc products round
 otherwise; its largest difference printed).  what=noise: noise_mod_ola
-at phase 20b's gains [128, 800, 481] (4 bands, 4 envelope harmonics, one
-draw for the batch, and a draw a row), the card tests' (480, 9, 9),
+at phase 20b's, 20g's and 20h's gains [128, 800, 481], [128, 400, 961]
+and [128, 160, 2401] (4 bands, 4 envelope harmonics, one draw for the
+batch, and a draw a row; rows 0, 1 and 64 alone against their rows of
+the batch), the card tests' (480, 9, 9),
 (80, 9, 9) and (882, 4, 12), odd hops (481, 333), a row of 5 frames,
 fewer than a block's; then the wide kernel forced onto hop 80, 4 bands
 and 4 harmonics (frames and threads a block by monkeypatching
@@ -44,12 +46,18 @@ sample_cycles past a 512-sample hop (the long-hop kernel) at hops 600,
 882 (44.1 kHz), 960 and 2048 and at 513, 1024 and 1025 (the lane counts'
 edges), 128 rows of 8 s, on F0 70-300 Hz with every 7th frame unvoiced
 and, at hops 882 and 960, on the bench rows' F0 at a 20 ms hop; each also
-with base= and start= (start 37, -2 (a first shard's halo) and 17400,
-whose hops cross 2^24 samples at hop 960); rows 0, 1 and 64 alone
-against their rows of the batch, and each side's time at hops 960 and
-2048.  what=noise also forces the chunked noise kernel (past the wide
-kernel's 4-frame block) onto the first three noise shapes, chunks of 512,
-16 and 48 slots, against the other side's wide kernel.  what=proj:
+with base= and start= (start 37, -2 (a first shard's halo) and 17400 /
+6950, whose hops cross 2^24 samples at hop 960 / 2400); past a 2048-sample
+hop (the hop kernel) at hop 2400 on random F0 and on the bench rows' F0
+at a 50 ms hop (phase 20h's analysis call), 2205 (44.1 kHz), 4000 (16
+kHz), 19200 (96 kHz) and 60000 (96 kHz at 625 ms: a hop's steps past
+the block's shared memory, evaluated again in the output pass); rows 0, 1
+and 64 alone against their rows of the batch, and each side's time at
+hops 960, 2048, 2400, 19200 and 60000.
+what=noise also forces the long noise kernel (where the wide kernel's
+16-frame block would not leave room for two an SM) onto 20b's two shapes
+and (480, 9, 9) with chunks of 64, 48, 16 and 32 slots, against the other
+side's wide kernel.  what=proj:
 harmonic_project_win at shapes the 16-frame tile takes (16 kHz's main
 and envelope passes, K 160, 48 kHz at 20 ms, 96 kHz at 12.5 ms, full
 band's K 600), rows 0 / 1 / 64 alone, and this side's smaller tiles and
@@ -96,18 +104,24 @@ DENOISE_FORCED = ((80, 13, 7), (128, 13, 7), (37, 31, 15), (80, 3, 31))
 # fs / 2 (fs = 100 nhop) but for 20b, whose are its channel edges'
 NOISE_CASES = (("20b", 128, 800, 480, 4, 4, False),
                ("20b draw a row", 128, 800, 480, 4, 4, True),
+               ("20g", 128, 400, 960, 4, 4, False),
+               ("20g draw a row", 128, 400, 960, 4, 4, True),
+               ("20h", 128, 160, 2400, 4, 4, False),
+               ("20h draw a row", 128, 160, 2400, 4, 4, True),
                ("480 9 9", 2, 47, 480, 9, 9, False),
                ("80 9 9", 2, 301, 80, 9, 9, True),
                ("882 4 12", 2, 31, 882, 4, 12, False),
                ("odd 481", 2, 130, 481, 4, 4, True),
                ("odd 333", 3, 77, 333, 5, 3, False),
                ("5 frames", 2, 5, 480, 4, 4, False))
-NOISE_20B_EDGES = (0.0, 3000.0, 6000.0, 9000.0, 24000.0)
+NOISE_20B_EDGES = (0.0, 3000.0, 6000.0, 9000.0, 24000.0)   # 20b, 20g, 20h
 # the wide kernels forced onto hop 80, C 4, Ke 4: frames a block (the
-# other checkout's 16, 8, 4; this one's 16, 8, 4 with 64 or 32 threads)
+# other checkout's 16, 8, 4; this one's 16 with 64, 32 or 96 threads)
 NOISE_FORCED_OTHER = (16, 8, 4)
-NOISE_FORCED = ((16, 64), (8, 64), (4, 64), (16, 32), (8, 32))
-NOISE_CHUNKS = ((512, 256), (16, 96), (48, 32))     # (slots a chunk, threads)
+NOISE_FORCED = ((16, 64), (16, 32), (16, 96))
+# the long kernel forced onto the first shapes: (frames a block, slots a
+# chunk)
+NOISE_LONG = ((16, 64), (16, 48), (16, 16), (16, 32))
 # harmonic_project_win: (label, rows of x, frames, hop, center C, K, x rows a
 # cycle row) at shapes the 16-frame tile takes: 16 kHz's main and envelope
 # passes, K 160 (groups of 80), 48 kHz at 20 ms, 96 kHz at 12.5 ms (the
@@ -277,8 +291,9 @@ def noise(kt, ko, r, bad):
                 r(B, N, C) + 0.5, draw(), draw(), r(B, N, nbin))
 
     def bands_of(nhop, C, label):
-        fs = 48000.0 if label.startswith("20b") else 100.0 * nhop
-        edges = NOISE_20B_EDGES if label.startswith("20b") else tuple(
+        at48 = label[:3] in ("20b", "20g", "20h")
+        fs = 48000.0 if at48 else 100.0 * nhop
+        edges = NOISE_20B_EDGES if at48 else tuple(
             fs / 2 * c / C for c in range(C)) + (fs / 2 + 1.0,)
         return kt.band_ranges(nhop + 1, fs, edges)
 
@@ -294,11 +309,12 @@ def noise(kt, ko, r, bad):
         if not ok:
             bad.append(("noise", label))
         if B > 3:
-            row = kt.noise_mod_ola(*(a[1:2] for a in args), bands)
-            ok = torch.equal(row[0], got[1])
-            print(f"noise {label} row alone equal {ok}", flush=True)
-            if not ok:
-                bad.append(("noise row alone", label))
+            for i in (0, 1, 64) if B > 64 else (1,):
+                row = kt.noise_mod_ola(*(a[i:i + 1] for a in args), bands)
+                ok = torch.equal(row[0], got[i])
+                print(f"noise {label} row {i} alone equal {ok}", flush=True)
+                if not ok:
+                    bad.append(("noise row alone", label, i))
             if not per_row:
                 for _ in range(2):
                     tt = cuda_ms(lambda: kt.noise_mod_ola(*args, bands))
@@ -314,7 +330,8 @@ def noise(kt, ko, r, bad):
     keep_o, keep_t = ko._noise_geometry, kt._noise_geometry
     worst = 0.0
     for F in NOISE_FORCED_OTHER:
-        ko._noise_geometry = lambda *a, F=F: (F,) + keep_t(*a)[1:3] + (64,)
+        ko._noise_geometry = lambda *a, F=F: (F,) + keep_t(*a)[1:3] + (64,
+                                                                       0)
         try:
             got = ko.noise_mod_ola(*args, bands)
         finally:
@@ -337,26 +354,30 @@ def noise(kt, ko, r, bad):
               f"kernel's bits {ok}; within {d:.3e}", flush=True)
         if not ok and d > worst:
             bad.append(("noise forced", F, threads))
-    # the chunked kernel (past the wide kernel's 4-frame block) forced onto
-    # shapes the other side's wide kernel takes: its bits
-    for label, B, N, nhop, C, Ke, per_row in NOISE_CASES[:3]:
+    # the long kernel (where the wide kernel's block would hold fewer than
+    # 16 frames) forced onto shapes the other side's wide kernel takes at
+    # 16 frames: its bits
+    for label, B, N, nhop, C, Ke, per_row in (NOISE_CASES[:2]
+                                              + NOISE_CASES[6:7]):
         args = inputs(min(B, 8), N, nhop, C, Ke, per_row)
         bands = bands_of(nhop, C, label)
         ref = ko.noise_mod_ola(*args, bands)
         geo = keep_t(nhop, C, Ke, bands)
-        for chunk, threads in NOISE_CHUNKS:
-            kt._noise_geometry = lambda *a, g=(16, geo[1], 0, threads,
+        for F, chunk in NOISE_LONG:
+            nbytes = (16 * chunk * (F + 1) + 12 * (F - 1) * 4 * 128
+                      + 8 * F * C * (Ke + 1) + 20 * C)
+            kt._noise_geometry = lambda *a, g=(F, geo[1], nbytes, 128,
                                                chunk): g
             try:
                 got = kt.noise_mod_ola(*args, bands)
             finally:
                 kt._noise_geometry = keep_t
             ok = torch.equal(got, ref)
-            print(f"noise {label} chunked kernel forced (slots a chunk, "
-                  f"threads) {(chunk, threads)}: the other side's bits {ok}",
+            print(f"noise {label} long kernel forced (frames, slots a "
+                  f"chunk) {(F, chunk)}: the other side's bits {ok}",
                   flush=True)
             if not ok:
-                bad.append(("noise chunked forced", label, chunk, threads))
+                bad.append(("noise long forced", label, F, chunk))
         del args, ref
         torch.cuda.empty_cache()
 
@@ -619,8 +640,16 @@ CYCLE_CASES = (("hop 600", 600, 48000.0, "rand"),
                ("hop 2048", 2048, 48000.0, "rand"),
                ("hop 513", 513, 48000.0, "rand"),
                ("hop 1024", 1024, 48000.0, "rand"),
-               ("hop 1025", 1025, 48000.0, "rand"))
-CYCLE_STARTS = (37, -2, 17400)
+               ("hop 1025", 1025, 48000.0, "rand"),
+               ("hop 2400", 2400, 48000.0, "rand"),
+               ("hop 2400 bench F0", 2400, 48000.0, 10),
+               ("hop 2205 at 44.1 kHz", 2205, 44100.0, "rand"),
+               ("hop 4000 at 16 kHz", 4000, 16000.0, "rand"),
+               ("hop 19200 at 96 kHz", 19200, 96000.0, "rand"),
+               ("hop 60000 at 96 kHz", 60000, 96000.0, "rand"))
+CYCLE_STARTS = (37, -2)
+# a start whose hops cross 2^24 samples (positions divided past it)
+CYCLE_CROSS = {960: 17400, 2400: 6950}
 
 
 def cycles(kt, ko, r, bad):
@@ -641,10 +670,9 @@ def cycles(kt, ko, r, bad):
         nx = N * nhop
         base = 1000.0 * torch.rand(128, generator=g, device="cuda",
                                    dtype=torch.float64)
-        for start in (None,) + CYCLE_STARTS:
+        cross = (CYCLE_CROSS[nhop],) if nhop in CYCLE_CROSS else ()
+        for start in (None,) + CYCLE_STARTS + cross:
             kw = {} if start is None else dict(base=base, start=start)
-            if start == 17400 and nhop != 960:
-                continue
             got = kt.sample_cycles(f0, nhop, fs, nx, **kw)
             ok = torch.equal(got, ko.sample_cycles(f0, nhop, fs, nx, **kw))
             tag = f"{label} start {start}"
@@ -661,7 +689,8 @@ def cycles(kt, ko, r, bad):
                       flush=True)
                 if not ok:
                     bad.append(("cycles row alone", tag, row))
-            if start is None and src == "rand" and nhop in (960, 2048):
+            if start is None and src == "rand" and nhop in (960, 2048, 2400,
+                                                            19200, 60000):
                 for _ in range(2):
                     tt = cuda_ms(lambda: kt.sample_cycles(f0, nhop, fs, nx))
                     to = cuda_ms(lambda: ko.sample_cycles(f0, nhop, fs, nx))

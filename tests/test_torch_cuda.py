@@ -25,6 +25,8 @@ LONG_HOP_GRID = ((48000.0, 0.02), (48000.0, 0.035), (44100.0, 0.04),
                  (44100.0, 0.05), (48000.0, 0.05), (96000.0, 0.0125),
                  (96000.0, 0.015), (96000.0, 0.02), (16000.0, 0.12),
                  (16000.0, 0.25), (48000.0, 0.1), (96000.0, 0.2))
+
+
 N = 300   # ragged: three 128-frame blocks of the TPU kernels, the last partial
 # the default path's denoiser taps: 15 Hz split at a 5 ms hop -> M = 13, Mp = 7
 TAPS1, TAPS2 = tuple(tl0._hann_taps(13)), tuple(tl0._hann_taps(7))
@@ -961,7 +963,8 @@ def test_sample_cycles_kernel_equals_cpu_twin_on_card(nhop, B, Nf):
 @pytest.mark.parametrize("nhop,fs,B,Nf", [(2205, 44100.0, 2, 150),
                                           (2400, 48000.0, 3, 161),
                                           (4000, 16000.0, 2, 101),
-                                          (19200, 96000.0, 3, 41)])
+                                          (19200, 96000.0, 3, 41),
+                                          (60000, 96000.0, 2, 12)])
 def test_sample_cycles_hop_kernels_at_long_hops_on_card(nhop, fs, B, Nf):
     """Past a 2048-sample hop, at the hop's own rate: F0 70-1000 Hz (at 96
     kHz over 19200 samples a hop's partials reach 200 cycles) with
@@ -973,7 +976,14 @@ def test_sample_cycles_hop_kernels_at_long_hops_on_card(nhop, fs, B, Nf):
     not exact) stays within two float32 ulps of the largest sum a hop
     makes, m = 1000 nhop / fs cycles and the offset: 2^-15 at 96 kHz and
     16 kHz (m 200, 250), 2^-17 at 44.1 and 48 kHz (m 50) -- a partial
-    rounded the other way, then the offset it carries to the hops after."""
+    rounded the other way, then the offset it carries to the hops after.
+    At hop 60000 (96 kHz, 625 ms) a hop's steps overflow the block's
+    shared memory and the kernel evaluates them again in its output pass
+    (sample_cycles.cu, stash = 0); there a voicing edge's sum can round in
+    its float64's last bit (the hop's total past 2^30 times the smallest
+    step), which moves a float32 output with odds of ~2^-29 a sample, and
+    these seeded tracks keep the twin's bits.
+    The profiler sees one kernel past the prep that zeroes its words."""
     dev = _card()
     rng = np.random.default_rng(nhop)
     t = np.arange(Nf)[None, :]
@@ -986,6 +996,19 @@ def test_sample_cycles_hop_kernels_at_long_hops_on_card(nhop, fs, B, Nf):
     got = kernels.sample_cycles(f0.to(dev), nhop, fs, nx)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["sample_cycles"] == 1
+    # one kernel past the prep that zeroes its words; a profile's first
+    # launches can go unrecorded, so the second call's are read
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            kernels.sample_cycles(f0.to(dev), nhop, fs, nx)
+            torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if "sample_cycles" in e.name
+             and e.device_type == torch.autograd.DeviceType.CUDA]
+    assert all("sample_cycles_prep" in n or "sample_cycles_hop_kernel" in n
+               for n in names), names
+    assert len(names) >= 2 and "sample_cycles_prep" in names[-2] \
+        and "sample_cycles_hop_kernel" in names[-1], names
     assert torch.equal(got.cpu(), kernels.sample_cycles_ref(f0, nhop, fs, nx))
     alone = kernels.sample_cycles(f0[1:2].to(dev), nhop, fs, nx)
     assert torch.equal(alone[0], got[1])
@@ -1944,15 +1967,17 @@ def test_noise_mod_ola_wide_kernel_matches_plain_on_card(nhop, C, Ke, Nf):
     """noise_mod_ola past the first kernel's nhop <= 256, C <= 8, Ke <= 8
     (48 kHz at a 10 ms hop: nhop 480; nine bands; nine and twelve envelope
     harmonics; 44.1 kHz at a 20 ms hop; an odd hop; 5 frames, fewer than a
-    block's; hop 2048, 8 frames a block): the wide kernel, one launch,
-    against the twin within 5e-5; past its 4-frame block (hop 4000, 16
-    kHz at 250 ms; 4800, 48 kHz at 100 ms; 19200, 96 kHz at 200 ms) the
-    chunked kernel, two launches counted once; the segment entry at the
-    same C and Ke too."""
+    block's; hop 2048; 16 kHz at 250 ms, 48 kHz at 100 ms, 96 kHz at 200
+    ms): the wide kernel, one launch, where its 16-frame block leaves room
+    for two an SM, the long kernel elsewhere (hop 480 with 9 bands of 9
+    harmonics, 882 and every longer hop), two launches counted once; each
+    against the twin within 5e-5; the segment entry at the same C and Ke
+    too."""
     dev = _card()
     args, bands = _wide_noise_inputs(nhop, C, Ke, Nf, nhop + C)
     geo = kernels._noise_geometry(nhop, C, Ke, bands)
-    assert geo[0] > 0 and (geo[4] > 0) == (nhop >= 4000)
+    assert geo[0] > 0 and (geo[4] > 0) == (
+        nhop > 481 or (nhop, C, Ke) == (480, 9, 9))
     ts = _noise_tensors(args, dev)
     kernels.reset_launches()
     got = kernels.noise_mod_ola(*ts, bands)
@@ -1974,17 +1999,17 @@ def test_noise_mod_ola_wide_kernel_equals_the_first_on_card(per_row,
                                                            monkeypatch):
     """The wide noise kernel forced onto a shape the first kernel takes
     (hop 80, 4 bands, 4 envelope harmonics, 301 frames: a ragged last
-    block): 16, 8 and 4 frames a block with 64 or 32 threads (a thread
-    looping over two sample pairs) -- every output the first kernel's
-    bits, one launch counted each; a row alone under a forced geometry
-    equals its row of the batch."""
+    block): 16 frames a block with 64, 32 (a thread looping over two
+    sample pairs) or 96 threads -- every output the first kernel's bits,
+    one launch counted each; a row alone under a forced geometry equals its
+    row of the batch."""
     dev = _card()
     args, bands, _ = _noise_inputs(80, per_row, 17, Nf=301)
     ts = _noise_tensors(args, dev)
     assert kernels._noise_geometry(80, 4, 4, bands)[0] == 0
     ref = kernels.noise_mod_ola(*ts, bands)
     keep = kernels._noise_geometry
-    for F, threads in ((16, 64), (8, 64), (4, 64), (16, 32), (8, 32)):
+    for F, threads in ((16, 64), (16, 32), (16, 96)):
         geo = (F, *keep(80, 4, 4, bands)[1:3], threads, 0)
         monkeypatch.setattr(kernels, "_noise_geometry",
                             lambda *a, geo=geo: geo)
@@ -1998,24 +2023,35 @@ def test_noise_mod_ola_wide_kernel_equals_the_first_on_card(per_row,
     assert torch.equal(row[0], ref[1])
 
 
+def _long_geometry(nhop, C, Ke, bands, F, LC):
+    """noise_mod_ola's long kernel forced: F frames a block, LC slots a
+    chunk (its shared bytes as _noise_geometry counts them)."""
+    L = kernels._noise_geometry(nhop, C, Ke, bands)[1]
+    return (F, L, 16 * LC * (F + 1) + 12 * (F - 1) * 4 * 128
+            + 8 * F * C * (Ke + 1) + 20 * C, 128, LC)
+
+
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("nhop,C,Ke,Nf", [(480, 4, 4, 130), (481, 9, 9, 47),
-                                          (2048, 4, 4, 9)])
+                                          (960, 4, 4, 9)])
 def test_noise_mod_ola_chunked_kernel_equals_the_wide_on_card(
         nhop, C, Ke, Nf, monkeypatch):
-    """The chunked noise kernel forced onto shapes the wide kernel takes
-    (hop 480, 4 bands; an odd hop with 9 bands of 9 envelope harmonics;
-    hop 2048): chunks of 16, 48 and 512 slots, 256, 96 and 32 threads a
-    block (one pair group or several), two launches counted once -- every
-    output the wide kernel's bits; a row alone equals its batch row."""
+    """The long noise kernel (which replaced the chunked one) against the
+    wide kernel forced to 16 frames a block (hop 480, 4 bands; an odd hop
+    with 9 bands of 9 envelope harmonics; hop 960, whose 16-frame wide
+    block fits one an SM): chunks of 64, 48, 16 and 32 slots, two launches
+    counted once -- every output the wide kernel's bits; a row alone
+    equals its batch row."""
     dev = _card()
     args, bands = _wide_noise_inputs(nhop, C, Ke, Nf, nhop + C)
     ts = _noise_tensors(args, dev)
     geo = kernels._noise_geometry(nhop, C, Ke, bands)
-    assert geo[0] > 0 and geo[4] == 0
+    wide = (16, geo[1], 0, min(256, -(-((nhop + 1) // 2) // 32) * 32), 0)
+    monkeypatch.setattr(kernels, "_noise_geometry", lambda *a: wide)
     ref = kernels.noise_mod_ola(*ts, bands)
-    for chunk, threads in ((512, 256), (16, 96), (48, 32)):
-        g = (16, geo[1], 0, threads, chunk)
+    monkeypatch.undo()
+    for LC in (64, 48, 16, 32):
+        g = _long_geometry(nhop, C, Ke, bands, 16, LC)
         monkeypatch.setattr(kernels, "_noise_geometry", lambda *a, g=g: g)
         n0 = kernels.LAUNCHES["noise_mod_ola"]
         got = kernels.noise_mod_ola(*ts, bands)
@@ -2025,6 +2061,43 @@ def test_noise_mod_ola_chunked_kernel_equals_the_wide_on_card(
         row = kernels.noise_mod_ola(*(t[1:] for t in ts), bands)
         monkeypatch.undo()
         assert torch.equal(row[0], ref[1])
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("per_row", [False, True])
+@pytest.mark.parametrize("nhop,lim,Nf", [(480, 481, 130), (960, 961, 41),
+                                         (2400, 800, 23)])
+def test_noise_mod_ola_long_kernel_gives_the_wide_kernels_bits_on_card(
+        nhop, lim, Nf, per_row, monkeypatch):
+    """The long noise kernel on the shapes the wide kernel took at 16, 8
+    and 4 frames a block (hops 480, 960 and 2400; 4 bands of the default
+    channel edges at fs = 200 nhop, cut at bin `lim` at hop 2400 so that
+    the wide kernel's 16-frame block fits for the comparison), one draw for
+    the batch and a draw a row: its routed geometry and chunks of 64, 48
+    and 32 slots give the wide kernel's bits at 16 frames, and a row alone
+    equals its row of the batch."""
+    dev = _card()
+    args, bands, _ = _noise_inputs(nhop, per_row, nhop + 27, B=3, Nf=Nf)
+    bands = tuple(min(v, lim) for v in bands)
+    ts = _noise_tensors(args, dev)
+    geo = kernels._noise_geometry(nhop, 4, 4, bands)
+    assert (geo[4] > 0) == (nhop > 480)
+    wide = (16, geo[1], 0, min(256, -(-((nhop + 1) // 2) // 32) * 32), 0)
+    monkeypatch.setattr(kernels, "_noise_geometry", lambda *a: wide)
+    ref = kernels.noise_mod_ola(*ts, bands)
+    monkeypatch.undo()
+    for g in (geo if geo[4] else None,
+              _long_geometry(nhop, 4, 4, bands, 16, 64),
+              _long_geometry(nhop, 4, 4, bands, 16, 48),
+              _long_geometry(nhop, 4, 4, bands, 16, 32)):
+        if g is None:
+            continue
+        monkeypatch.setattr(kernels, "_noise_geometry", lambda *a, g=g: g)
+        got = kernels.noise_mod_ola(*ts, bands)
+        row = kernels.noise_mod_ola(*(t[2:] for t in ts), bands)
+        monkeypatch.undo()
+        assert torch.equal(got, ref), g
+        assert torch.equal(row[0], got[2]), g
 
 
 @pytest.mark.requires_cuda

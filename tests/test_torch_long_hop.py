@@ -1,14 +1,15 @@
 """Long hops on the CPU: the port's analysis and synthesis with the kernels
 on (their plain twins here) against the JAX package (its Pallas branch in
 interpret mode) at hops where the card runs the projection's smaller
-tiles, the cycle track's hop kernels (past 2048 samples) or the wide
-noise kernel at 4 frames a block: 48 kHz and 44.1 kHz at 50 ms (hops
-2400 and 2205, odd), 96 kHz at 20 ms and 16 kHz at 120 ms (1920), at
-verification widths on 2 s of a noisy row; then every geometry helper
-of the analysis and synthesis path over rates 8-96 kHz and hops 5-200
-ms: each launch within the H100's 232448 bytes of shared memory a block.
-test_torch_cuda.py runs the kernels themselves on a card at these hops
-(LONG_HOP_GRID)."""
+tiles, the cycle track's hop kernel (past 2048 samples) or the noise's
+long kernel: 48 kHz and 44.1 kHz at 50 ms (hops 2400 and 2205, odd), 96
+kHz at 20 ms and 16 kHz at 120 ms (1920), at verification widths on 2 s
+of a noisy row; then every geometry helper of the analysis and synthesis
+path over rates 8-96 kHz and hops 5-200 ms: each launch within the
+H100's 232448 bytes of shared memory a block; the noise routed to its
+long kernel wherever the wide kernel's 16-frame block would not leave
+room for two an SM (from hop 520 on the grid), its launch by hand.  test_torch_cuda.py runs the kernels
+themselves on a card at these hops (LONG_HOP_GRID)."""
 import dataclasses
 
 import jax.numpy as jnp
@@ -140,6 +141,11 @@ def _launches(fs, thop):
     geo = kernels._noise_geometry(nhop, conf.nchannel, conf.maxnhar_e, bands)
     assert geo is not None
     out["noise_mod_ola"] = geo[2]
+    if geo[4]:
+        # the long kernel: its prep's band table, and room for the two
+        # blocks an SM its launch bounds are built for
+        out["noise_mod_ola prep"] = 4 * 4 * conf.nchannel
+        assert 2 * (geo[2] + 1024) <= 233472
     # the refine, decimated or at the full rate (odd hops)
     Dr, taps, _, _ = thm.refine_decimation(nhop, nx, conf.fs, conf.f0_ceil)
     dm = kernels._refine_full_dims(nhop, conf.fs, H) if Dr == 1 else \
@@ -171,7 +177,8 @@ def test_every_geometry_fits_a_block_at_every_hop():
     noise kernels, the refines, the deconvolution, the denoiser) returns a
     launch within 232448 bytes of shared memory a block at every rate and
     hop of _grid (280 configurations and LONG_HOP_GRID): no hop the JAX
-    package takes is refused for shared memory on the card."""
+    package takes is refused for shared memory on the card; where the
+    noise runs its long kernel, its block leaves room for two an SM."""
     over = {}
     for fs, thop in _grid():
         for name, nbytes in _launches(fs, thop).items():
@@ -198,3 +205,68 @@ def test_projection_tile_by_hop(fs, thop, F):
     assert geo[0] == F
     span = (F - 1) * conf.nhop + 2 * C if F else 0
     assert geo == ((F, 0, 8 * span) if F else (0, 1024, 8 * 4 * 1024))
+
+
+# hops whose noise runs the long kernel at the default ChunkConf: 44.1 kHz
+# / 20 ms, 48 kHz / 20, 30, 40 and 50 ms, 96 kHz / 20 ms, 16 kHz / 120 and
+# 250 ms, 96 kHz / 200 ms
+LONG_NOISE_HOPS = {(44100.0, 0.02): 882, (48000.0, 0.02): 960,
+                   (48000.0, 0.03): 1440, (48000.0, 0.04): 1920,
+                   (96000.0, 0.02): 1920, (16000.0, 0.12): 1920,
+                   (48000.0, 0.05): 2400, (16000.0, 0.25): 4000,
+                   (96000.0, 0.2): 19200}
+
+
+def test_noise_routes_the_long_kernel_wherever_the_wide_block_is_short():
+    """_noise_geometry over _grid (rates 8-96 kHz, hops 5-200 ms and
+    LONG_HOP_GRID) at the default ChunkConf (4 bands, 4 envelope
+    harmonics): the first kernel (F 0) to hop 256 (240 on the grid); the
+    wide kernel at 16 frames a block (slots a chunk 0) to hop 480, whose
+    block leaves room for two an SM (20b); the long kernel (16 frames,
+    chunks of 64 slots, 128 threads) from the grid's next hop, 520, on,
+    where the wide kernel's block (its spectra [L / 2, 17] float4 grow
+    with the hop) would not, among them hops 882, 960, 1440, 1920, 2400,
+    4000 and 19200."""
+    seen = set()
+    for fs, thop in sorted(set(_grid()) | set(LONG_NOISE_HOPS)):
+        conf = tpkg.create_aoptions(fs=fs, thop=thop).conf
+        nhop, C, Ke = conf.nhop, conf.nchannel, conf.maxnhar_e
+        bands = kernels.band_ranges(nhop + 1, conf.fs,
+                                    tuple(conf.chan_edges))
+        F, L, nbytes, threads, chunk = kernels._noise_geometry(nhop, C, Ke,
+                                                                bands)
+        assert (C, Ke) == (4, 4)
+        if nhop <= 256:
+            assert (F, threads, chunk) == (0, 0, 0), (fs, thop)
+        elif nhop <= 480:
+            assert (F, chunk) == (16, 0) and threads > 0, (fs, thop)
+        else:
+            assert (F, threads, chunk) == (16, 128, 64), (fs, thop)
+            seen.add(nhop)
+        if (fs, thop) in LONG_NOISE_HOPS:
+            assert nhop == LONG_NOISE_HOPS[fs, thop] and chunk > 0
+    assert {882, 960, 1440, 1920, 2400, 4000, 19200} <= seen
+
+
+@pytest.mark.parametrize("fs,thop", sorted(LONG_NOISE_HOPS))
+def test_long_noise_geometry_by_hand(fs, thop):
+    """The long kernel's launch at each hop of LONG_NOISE_HOPS (default
+    ChunkConf: 4 bands, 4 envelope harmonics): 16 frames, 128 threads,
+    chunks of 64 slots; shared bytes two chunk buffers [32, 17] float4,
+    e^{2 pi j cyc} [15, 4, 128] float2, the accumulators [15, 4, 128], the
+    coefficients [16, 2 C (Ke + 1)] and the band table [5, C] ints; two
+    blocks an SM; L the bands' slots from each band's even bin; its device
+    scratch the tables [3, 2 nhop] (16-byte aligned) and the staged
+    spectra [B, N, L / 2] float4."""
+    conf = tpkg.create_aoptions(fs=fs, thop=thop).conf
+    nhop, C, Ke = conf.nhop, conf.nchannel, conf.maxnhar_e
+    assert (C, Ke) == (4, 4)
+    bands = kernels.band_ranges(nhop + 1, conf.fs, tuple(conf.chan_edges))
+    L = sum((hi - (lo & ~1) + 1) & ~1 if hi > lo else 0
+            for lo, hi in zip(bands[::2], bands[1::2]))
+    nbytes = 2 * 32 * 17 * 16 + 15 * 4 * 128 * 12 + 4 * 16 * 8 * 5 + 80
+    assert kernels._noise_geometry(nhop, C, Ke, bands) == (16, L, nbytes,
+                                                           128, 64)
+    assert 2 * (nbytes + 1024) <= 233472
+    assert kernels._noise_long_floats(128, 160, nhop, L) == (
+        -(-6 * nhop // 4) * 4 + 128 * 160 * L // 2 * 4)

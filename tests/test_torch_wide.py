@@ -291,19 +291,20 @@ def test_denoise_frame_block_is_the_pallas_kernels(N, block):
      (16, 10 + 10 + 10 + 10 + 10 + 10 + 10 + 10 + 10,
       16 * 45 * 17 + 24 * 80 + 4 * 15 * 2 * 64 + 4 * 16 * 18 * 10
       + 4 * (90 + 45), 64, 0)),
-    # 96 kHz at 200 ms: nhop 19200, past the wide kernel's 4-frame block;
-    # the chunked kernel, 16 frames, a chunk of 512 slots [256, 17] float4,
-    # the accumulators [15, 2, 256], the coefficients and the band table
-    # [4, C] ints (the tables in device memory)
+    # 96 kHz at 200 ms: nhop 19200, past the wide kernel's 16-frame block;
+    # the long kernel, 16 frames, 128 threads, two chunk buffers of 64
+    # slots [32, 17] float4, e^{2 pi j cyc} [15, 4, 128] float2, the
+    # accumulators [15, 4, 128], the coefficients and the band table [5, C]
+    # ints (the tables and staged spectra in device memory)
     (19200, 4, 4, (0, 800, 800, 1600, 1600, 2400, 2400, 19201),
      (16, 800 + 800 + 800 + 16802,
-      16 * 256 * 17 + 4 * 15 * 2 * 256 + 4 * 16 * 8 * 5 + 4 * 4 * 4, 256,
-      512)),
+      2 * 16 * 32 * 17 + 12 * 15 * 4 * 128 + 4 * 16 * 8 * 5 + 4 * 5 * 4,
+      128, 64)),
 ])
 def test_noise_geometry_by_hand(nhop, C, Ke, bands, geometry):
     """kernels._noise_geometry: (frames a block, 0 for the first kernel;
     staged slots a frame, each band's from its first even bin, an even
-    count; shared bytes; threads a block of the wide kernel; slots a chunk,
+    count; shared bytes; threads a block; the long kernel's slots a chunk,
     0: all staged at once).  The first
     kernel's bytes: spectra [F, L] and (E, O) [F, C, nhop] float2, three
     [2 nhop] tables, coefficients [F, 2 C (Ke + 1)], the slots' bins [L];
@@ -320,32 +321,39 @@ def _equal_bands(nhop, C):
     return kernels.band_ranges(nhop + 1, fs, edges)
 
 
+# the long noise kernel's slots a chunk where test_noise_wide_geometry_fits
+# expects it (by hand)
+NOISE_LONG = {(480, 9, 9): 32, (882, 4, 12): 48, (960, 3, 12): 64,
+              (2048, 4, 4): 64}
+
+
 @pytest.mark.parametrize("nhop,C,Ke", [
     (257, 4, 4), (480, 4, 4), (480, 9, 9), (80, 9, 9), (80, 4, 9),
     (333, 5, 3), (481, 4, 4), (882, 4, 12), (960, 3, 12), (2048, 4, 4)])
 def test_noise_wide_geometry_fits(nhop, C, Ke):
-    """The wide kernel's launch past the first kernel's limits: 16, 8 or
-    4 frames a block, a warp multiple of threads, at most 256, one a
-    sample pair (half = ceil(nhop / 2)) up to 256; its shared bytes as
-    counted by hand, within the H100's 227 KB a block; two blocks an SM
-    wherever some F leaves room for them, and then the largest such F."""
+    """The launch past the first kernel's limits: the wide kernel (16
+    frames) where its block leaves room for two an SM, a warp multiple of
+    threads, at most 256, one a sample pair (half = ceil(nhop / 2)) up to
+    256, its shared bytes as counted by hand; elsewhere (NOISE_LONG: hop
+    480 with 9 bands of 9 harmonics, 882 and longer) the long kernel, 16
+    frames, 128 threads, chunks of 64 slots, or of 32 / 48 where the
+    coefficients take the room of two blocks an SM at 64, its bytes by
+    hand; each within the H100's 227 KB a block, two blocks an SM."""
     bands = _equal_bands(nhop, C)
     F, L, nbytes, threads, chunk = kernels._noise_geometry(nhop, C, Ke,
                                                             bands)
     half = (nhop + 1) // 2
-    assert F in (16, 8, 4) and chunk == 0
-    assert threads % 32 == 0 and min(half, 256) <= threads <= 256
-    assert nbytes == (8 * (F + 1) * L + 24 * nhop + 8 * (F - 1) * threads
-                      + 8 * F * C * (Ke + 1) + 4 * (L + 5 * C))
+    if (nhop, C, Ke) not in NOISE_LONG:
+        assert (F, chunk) == (16, 0)
+        assert threads % 32 == 0 and min(half, 256) <= threads <= 256
+        assert nbytes == (8 * 17 * L + 24 * nhop + 8 * 15 * threads
+                          + 8 * 16 * C * (Ke + 1) + 4 * (L + 5 * C))
+    else:
+        assert (F, chunk, threads) == (16, NOISE_LONG[nhop, C, Ke], 128)
+        assert nbytes == (16 * chunk * 17 + 12 * 15 * 4 * 128
+                          + 8 * 16 * C * (Ke + 1) + 20 * C)
     assert nbytes <= kernels._SMEM_MAX
-
-    def two(f):
-        return 2 * (nbytes - 8 * (F + 1) * L - 8 * (F - 1) * threads
-                    - 8 * F * C * (Ke + 1) + 8 * (f + 1) * L
-                    + 8 * (f - 1) * threads + 8 * f * C * (Ke + 1)
-                    + 1024) <= 233472
-    pairs = [f for f in (16, 8, 4) if two(f)]
-    assert F == (pairs[0] if pairs else F)
+    assert 2 * (nbytes + 1024) <= 233472
 
 
 def test_noise_geometry_gives_20b_two_blocks_an_sm():
