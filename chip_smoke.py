@@ -361,21 +361,25 @@ non-zero without the final "ok" line:
      20a.  20g, the same at a 20 ms hop (hop 960, every fourth F0 frame):
      noise_mod_ola's long kernel (the wide kernel's 16-frame block would
      not leave room for two an SM), held to its twin at full batch and timed
-     beside its bound; the cycle track past a 512-sample hop (its long-hop
-     kernel) in the
+     beside its bound; the projection's main pass in the warp kernel (the
+     16-frame tile's 145920 bytes would leave room for one block an SM),
+     held to its twin at full batch and timed beside its bound; the cycle
+     track past a 512-sample hop (its long-hop kernel) in the
      analysis and the synthesis, two launches, held to its twin at full
      batch there and timed beside its bound; pins from port_jax_pins.py
      only=h20, rows 0, 1 and 64 alone as 20a.  20h, the same at a 50 ms
-     hop (hop 2400, every tenth F0 frame): the projection's main pass past
-     the 16-frame tile's shared memory in 8-frame tiles, the cycle track's
-     hop kernel (past 2048 samples), noise_mod_ola's long kernel, each
-     held to its twin at full batch and timed beside
+     hop (hop 2400, every tenth F0 frame): the projection's two passes in
+     the warp kernel (the main pass's 16-frame tile past shared memory, the
+     envelope pass's one block an SM), the cycle
+     track's hop kernel (past 2048 samples), noise_mod_ola's long kernel,
+     each held to its twin at full batch and timed beside
      its bound; pins from only=h50, rows 0, 1 and 64 alone; then 96 kHz
      at a 200 ms hop (hop 19200) at kernel level on full-batch shapes:
-     the projection past one frame's span (column chunks), the hop
+     the projection past one frame's span (the warp kernel), the hop
      kernel at up to 200 cycles a hop, the long noise kernel
-     (LONG_HOP_ROWS rows) and harmonic_project's chunked row kernel, each
-     against its twin and beside its bound.  20c,
+     (LONG_HOP_ROWS rows) and harmonic_project's row kernel (spans past
+     its staged columns in chunks), each against its twin and beside its
+     bound.  20c,
      denoise_stats on phase 5's full-batch call ([128, 1600, 80]) with the
      taps of a 2 ms hop (33 + 17) and of track_denoise_hz=5 at 5 ms (41 +
      21): the wide kernel against its twin.  20d, viterbi_scan against its
@@ -423,12 +427,13 @@ deconv_full's second path: 20e's first 2-row call, its launches those
 of 20e's counted runs; denoise_stats_wide, denoise_stats's second path:
 20a's first 2-row call, its cases and full-batch records 20a's, 20c's
 and 20e's, its launches those of 20a's and 20e's counted runs;
-harmonic_project_win_tile, sample_cycles_hop, noise_mod_ola_long and
-harmonic_project_chunk, the paths past the hop-dependent limits: 20h's
-first case (noise_mod_ola_long: 20g's), their launches those of 20h's
-counted run (the tile's: its main-pass calls; noise_mod_ola_long's those
-of 20g's and 20h's; 0 for harmonic_project_chunk, which only the 96 kHz /
-200 ms shapes take);
+harmonic_project_win_warp, sample_cycles_hop, noise_mod_ola_long and
+harmonic_project_rows, the paths past the hop-dependent limits: 20h's
+first case (noise_mod_ola_long's and harmonic_project_win_warp's: 20g's),
+their launches those of 20h's counted run (the warp kernel's: 20g's
+main pass and both of 20h's passes; noise_mod_ola_long's those of 20g's
+and 20h's; 0 for harmonic_project_rows, which only the 96 kHz / 200 ms
+shapes take);
 viterbi_scan: 11v's
 first case, phase 9's full-batch Rd call; denoise_stats also has
 16b's full-batch polar case among its "cases"; phase 20's other cases
@@ -793,10 +798,12 @@ DECONV_WIDE = "deconv_full_wide"
 DENOISE_WIDE = "denoise_stats_wide"
 # phase 20h: the paths past the hop-dependent shared-memory limits, a record
 # each in the kernels line -> the wrapper that launches it
-LONG_HOP = {"harmonic_project_win_tile": "harmonic_project_win",
+PROJ_WARP = "harmonic_project_win_warp"
+PROJECT_ROWS = "harmonic_project_rows"
+LONG_HOP = {PROJ_WARP: "harmonic_project_win",
             "sample_cycles_hop": "sample_cycles",
             "noise_mod_ola_long": "noise_mod_ola",
-            "harmonic_project_chunk": "harmonic_project"}
+            PROJECT_ROWS: "harmonic_project"}
 LONG_HOP_ROWS = 32            # 20h's 96 kHz / 200 ms noise case (its twin's
                               # [C, 19201, 38400] matrices: ~40 GB)
 WIDE_TAPS = {"2 ms hop": (33, 17), "5 Hz at 5 ms": (41, 21)}   # 20c
@@ -4933,11 +4940,12 @@ def long_hop_shapes(torch, kernels, dev):
     """Phase 20h at 96 kHz with a 200 ms hop (hop 19200; the default
     ChunkConf: f0_floor 40, C = 19200), at kernel level against the twins,
     each timed beside its bound: harmonic_project_win at K = 80 past one
-    frame's span (a warp a frame, its 38400 columns in chunks), the cycle
-    track's hop kernel (F0 70-1000 Hz: up to 200 cycles a hop),
-    noise_mod_ola's long kernel (4 bands, 4 envelope harmonics, on
-    LONG_HOP_ROWS rows) and harmonic_project's chunked row kernel (the
-    frames of a window outside the cosine series, W = 38400) -> {record:
+    frame's span (the warp kernel: a warp a frame, its live columns read
+    from device memory), the cycle track's hop kernel (F0 70-1000 Hz: up to
+    200 cycles a hop), noise_mod_ola's long kernel (4 bands, 4 envelope
+    harmonics, on LONG_HOP_ROWS rows) and harmonic_project's row kernel
+    (the frames of a window outside the cosine series, W = 38400: spans to
+    9601 columns, those past its 6144 staged columns in chunks) -> {record:
     [case]}."""
     g = torch.Generator(device=dev).manual_seed(26)
     r = lambda *shape: torch.rand(shape, generator=g, device=dev)
@@ -4952,15 +4960,16 @@ def long_hop_shapes(torch, kernels, dev):
     hw = 2.0 + (H - 2.0) * r(B, N)
     hw_int = torch.ceil(hw).to(torch.int32)
     kl = (r(B, N) * (K + 1)).to(torch.int32)
-    geo = kernels._proj_win_geometry(nhop, C)
+    geo = kernels._proj_win_geometry(nhop, C, K)
     phase("20h 96 kHz 200 ms projection geometry", geo[0] == 0,
-          f"(frames a block, columns a chunk, bytes) {geo}: the frame's "
-          f"{8 * 2 * C} B past the block's {kernels._SMEM_MAX}")
-    out["harmonic_project_win_tile"] = [check_kernel(
+          f"(frames a block, columns a chunk, bytes) {geo}: the warp "
+          f"kernel; the frame's {8 * 2 * C} B past the block's "
+          f"{kernels._SMEM_MAX}")
+    out[PROJ_WARP] = [check_kernel(
         torch, kernels, "harmonic_project_win", KERNELS[
             "harmonic_project_win"][2], (x, cyc, hw, K, C - hw_int,
                                          C + hw_int + 1),
-        dict(nhop=nhop, center=C, kl=kl), f"96 kHz 200 ms, chunks {geo}",
+        dict(nhop=nhop, center=C, kl=kl), f"96 kHz 200 ms, warp {geo}",
         prefix="20h", reps=3)]
     del x, cyc, hw, hw_int, kl
     out["sample_cycles_hop"] = [check_kernel(
@@ -4993,10 +5002,14 @@ def long_hop_shapes(torch, kernels, dev):
         d.abs() <= hwr[:, None],
         0.5 + 0.5 * torch.cos(math.pi * d / hwr[:, None]), 0.0)
     del d
+    S, nbytes, G = kernels._project_geometry(W, K)
+    chunked = int(((hi - lo) > S).sum())
     phase("20h 96 kHz 200 ms harmonic_project geometry",
-          kernels._project_geometry(W, K)[0] > 0,
-          f"(columns a chunk, bytes) {kernels._project_geometry(W, K)}")
-    out["harmonic_project_chunk"] = [check_kernel(
+          0 < S < W and 0 < chunked < R and G == 5,
+          f"(staged columns, bytes, groups a pass) {(S, nbytes, G)}: "
+          f"{R - chunked} rows staged once, {chunked} (spans past {S}) in "
+          f"chunks of {S // 2}")
+    out[PROJECT_ROWS] = [check_kernel(
         torch, kernels, "harmonic_project", KERNELS["harmonic_project"][2],
         ((r(R, W) - 0.5) * 4.0, xw, K, lo, hi), {},
         f"[{R}, {W}] K {K}", prefix="20h", reps=3)]
@@ -5005,17 +5018,48 @@ def long_hop_shapes(torch, kernels, dev):
     return out
 
 
+def proj_geometries(kernels, layer0, conf, nx):
+    """harmonic_project_win's launch geometry (kernels._proj_win_geometry)
+    for the main pass (hop nhop, C hh whole hops of the window's reach, K
+    maxnhar) and the envelope pass (at the envelope decimation's rate, K
+    maxnhar_e) of an analysis at conf on nx-sample rows."""
+    D = layer0._env_decimation(conf, 4, nx)
+    hop_e, h_e = conf.nhop // D, -(-conf.halfwin_max // D)
+    C = -(-conf.halfwin_max // conf.nhop) * conf.nhop
+    return (kernels._proj_win_geometry(conf.nhop, C, conf.maxnhar),
+            kernels._proj_win_geometry(hop_e, -(-h_e // hop_e) * hop_e,
+                                       conf.maxnhar_e))
+
+
+def warp_calls(cases, f, geos):
+    """The harmonic_project_win calls that run the warp kernel, taken out
+    of a path's cases and full-batch records f -> (their cases, their
+    records): the main pass's (x at the batch's rows, 2 or BATCH) where
+    geos[0] (proj_geometries) is the warp kernel's, the envelope pass's
+    (four channel rows a row) where geos[1] is; their record is
+    PROJ_WARP's."""
+    main = lambda rec: rec["shapes"][0][0] in (2, BATCH)
+    warp = lambda rec: geos[0 if main(rec) else 1][0] == 0
+    out = ([c for c in cases["harmonic_project_win"] if warp(c)],
+           [rec for rec in f["harmonic_project_win"] if warp(rec)])
+    cases["harmonic_project_win"] = [
+        c for c in cases["harmonic_project_win"] if not warp(c)]
+    f["harmonic_project_win"] = [
+        rec for rec in f["harmonic_project_win"] if not warp(rec)]
+    return out
+
+
 def long_hop_phase(torch, mods, data50, sopt48, summary, join, by_phase,
-                   noise20g):
+                   noise20g, proj20g):
     """Phase 20h: wide_path at 48 kHz with a 50 ms hop (20b's options,
-    hop 2400: the projection's main pass past the 16-frame tile's shared
-    memory runs 8-frame tiles, the cycle track its hop kernel, the noise
-    its long kernel), each of the three held to its twin at full batch;
-    then long_hop_shapes at 96 kHz / 200 ms.  Each new path's cases,
-    full-batch records and launches go to a record of its own in summary
-    (LONG_HOP; the long noise kernel's with 20g's, noise20g: its cases,
-    full-batch records and launches there); the rest joins its
-    kernel's."""
+    hop 2400: the projection's main pass, whose 16-frame tile's span is
+    past shared memory, runs the warp kernel, the cycle track its hop
+    kernel, the noise its long kernel), each of the three held to its twin
+    at full batch; then long_hop_shapes at 96 kHz / 200 ms.  Each new
+    path's cases, full-batch records and launches go to a record of its
+    own in summary (LONG_HOP; the long noise kernel's and the warp
+    kernel's with 20g's, noise20g and proj20g: its cases, full-batch
+    records and launches there); the rest joins its kernel's."""
     from libllsm2_tpu_torch import create_aoptions
     kernels = mods[0]
     opt50 = create_aoptions(fs=48000.0, thop=0.05, fnyq=12000.0,
@@ -5023,18 +5067,21 @@ def long_hop_phase(torch, mods, data50, sopt48, summary, join, by_phase,
                             f0_floor=70.0, use_pallas=True)
     conf = opt50.conf
     C = -(-conf.halfwin_max // conf.nhop) * conf.nhop
-    tile = kernels._proj_win_geometry(conf.nhop, C)
+    geos = proj_geometries(kernels, mods[1], conf, data50[0].shape[-1])
+    warp = geos[0]
     span16 = 8 * (15 * conf.nhop + 2 * C)
     noise = kernels._noise_geometry(2400, 4, 4, kernels.band_ranges(
         2401, 48000.0, tuple(conf.chan_edges)))
-    phase("20h 48 kHz 50 ms geometry", conf.nhop == 2400 and tile[0] == 8
+    phase("20h 48 kHz 50 ms geometry", conf.nhop == 2400 and warp[0] == 0
+          and geos[1][0] == 0
           and span16 + kernels._PROJ_STATIC > kernels._SMEM_MAX
           and noise[4] > 0,
           f"hop {conf.nhop}, C {C}: the 16-frame tile's span {span16} B "
           f"past {kernels._SMEM_MAX}; (frames a block, columns a chunk, "
-          f"bytes) {tile}; the cycle track past 2048 samples; noise (frames "
-          f"a block, slots, bytes, threads, slots a chunk) {noise}: the "
-          f"long kernel")
+          f"bytes) {warp}: the warp kernel, and for the envelope pass "
+          f"{geos[1]}; the cycle track past 2048 samples; noise (frames a "
+          f"block, slots, bytes, threads, slots a chunk) {noise}: the long "
+          f"kernel")
     checked = FULL_CHECKED + ("harmonic_project_win", "sample_cycles",
                               "noise_mod_ola")
     cases, launches, f, _ = wide_path(
@@ -5042,40 +5089,35 @@ def long_hop_phase(torch, mods, data50, sopt48, summary, join, by_phase,
         WIDE_PINS_DB["48 kHz 50 ms"], checked=checked,
         extra=("sample_cycles",), rows=BATCH_ROWS)
     by_phase["20h"] = launches
-    # the main pass's calls (x at the batch's rows) take the tile; the
-    # envelope pass's (four channel rows a row, hop 600) the 16-frame tile
-    main = lambda rec: rec["shapes"][0][0] in (2, BATCH)
-    tile_cases = [c for c in cases["harmonic_project_win"] if main(c)]
-    tile_full = [rec for rec in f["harmonic_project_win"] if main(rec)]
-    cases["harmonic_project_win"] = [
-        c for c in cases["harmonic_project_win"] if not main(c)]
-    f["harmonic_project_win"] = [
-        rec for rec in f["harmonic_project_win"] if not main(rec)]
-    phase("20h launches of the new paths", len(tile_full) >= 1
+    # both passes' calls take the warp kernel (the envelope pass's: hop
+    # 1200, C 1200, whose 16-frame tile would hold one block an SM)
+    warp_cases, warp_full = warp_calls(cases, f, geos)
+    phase("20h launches of the new paths", len(warp_full) >= 2
           and launches["sample_cycles"] == 2
           and launches["noise_mod_ola"] == 1,
-          f"{len(tile_full)} of {launches['harmonic_project_win']} "
-          f"harmonic_project_win launches in 8-frame tiles, "
+          f"{len(warp_full)} of {launches['harmonic_project_win']} "
+          f"harmonic_project_win launches of the warp kernel, "
           f"{launches['sample_cycles']} sample_cycles launches of the hop "
           f"kernel (analysis and synthesis), "
           f"{launches['noise_mod_ola']} noise_mod_ola launch of the long "
           f"kernel")
-    redesigned_lines("20h", {"harmonic_project_win": tile_full,
+    redesigned_lines("20h", {"harmonic_project_win": warp_full,
                              "sample_cycles": f["sample_cycles"],
                              "noise_mod_ola": f["noise_mod_ola"]},
-                     {"harmonic_project_win": f"tile {tile}",
+                     {"harmonic_project_win": f"warp kernel {warp}",
                       "sample_cycles": "hop kernel",
                       "noise_mod_ola": f"long kernel {noise}"})
     n_cases, n_full, n20g = noise20g
-    new = {"harmonic_project_win_tile": (tile_cases, tile_full,
-                                         len(tile_full)),
+    p_cases, p_full, p20g = proj20g
+    new = {PROJ_WARP: (p_cases + warp_cases, p_full + warp_full,
+                       p20g + len(warp_full)),
            "sample_cycles_hop": (cases.pop("sample_cycles"),
                                  f.pop("sample_cycles"),
                                  launches["sample_cycles"]),
            "noise_mod_ola_long": (n_cases + cases.pop("noise_mod_ola"),
                                   n_full + f.pop("noise_mod_ola"),
                                   n20g + launches["noise_mod_ola"]),
-           "harmonic_project_chunk": ([], [], 0)}
+           PROJECT_ROWS: ([], [], 0)}
     join(cases, f)
     for name, more in long_hop_shapes(torch, kernels,
                                       data50[0].device).items():
@@ -5090,7 +5132,9 @@ def long_hop_phase(torch, mods, data50, sopt48, summary, join, by_phase,
                                      "bound_by", "library_ms")},
             "cases": cs, "full_batch": full,
             "launches_by_phase": {"20g": n20g, "20h": n - n20g}
-            if name == "noise_mod_ola_long" else {"20h": n}}
+            if name == "noise_mod_ola_long" else
+            {"20g": p20g, "20h": n - p20g} if name == PROJ_WARP
+            else {"20h": n}}
 
 
 def wide_phase(torch, mods, opt, sopt, data, summary, full, by_phase):
@@ -5177,10 +5221,15 @@ def wide_phase(torch, mods, opt, sopt, data, summary, full, by_phase):
                             chanfreq=(3000.0, 6000.0, 9000.0), nspec=513,
                             f0_floor=70.0, use_pallas=True)
     assert opt20.conf.nhop == 960
+    C20 = -(-opt20.conf.halfwin_max // 960) * 960
+    geos20 = proj_geometries(kernels, layer0, opt20.conf,
+                             data20[0].shape[-1])
+    proj20 = geos20[0]
     cases, by_phase["20g"], f, _ = wide_path(
         torch, mods, "20g 48 kHz 20 ms", opt20, sopt48, data20,
         WIDE_PINS_DB["48 kHz 20 ms"],
-        checked=FULL_CHECKED + ("sample_cycles", "noise_mod_ola"),
+        checked=FULL_CHECKED + ("harmonic_project_win", "sample_cycles",
+                                "noise_mod_ola"),
         extra=("sample_cycles",), rows=BATCH_ROWS)
     n_cyc = by_phase["20g"]["sample_cycles"]
     phase("20g long cycle track", n_cyc == 2,
@@ -5196,18 +5245,33 @@ def wide_phase(torch, mods, opt, sopt, data, summary, full, by_phase):
           f"room for two an SM, so the long kernel (frames a block, slots, "
           f"bytes, threads, slots a chunk) {geo20}: {n_noise} noise_mod_ola "
           f"launch in the counted run")
-    redesigned_lines("20g", f, {"sample_cycles": "",
-                                "noise_mod_ola": f"long kernel {geo20}"})
+    # the main pass's calls take the warp kernel, the 16-frame tile's block
+    # (C 1920: 145920 bytes) leaving room for one an SM; the envelope
+    # pass's (hop 480, C 960) the 16-frame tile
+    warp_cases, warp_full = warp_calls(cases, f, geos20)
+    phase("20g warp projection", proj20[0] == 0 and geos20[1][0] == 16
+          and len(warp_full) >= 1,
+          f"hop 960, C {C20}: the 16-frame tile's "
+          f"{8 * (15 * 960 + 2 * C20)} B would leave room for one block an "
+          f"SM, so (frames a block, columns a chunk, bytes) {proj20}, the "
+          f"envelope pass {geos20[1]}: {len(warp_full)} of "
+          f"{by_phase['20g']['harmonic_project_win']} harmonic_project_win "
+          f"launches of the warp kernel")
+    redesigned_lines("20g", dict(f, harmonic_project_win=warp_full),
+                     {"harmonic_project_win": f"warp kernel {proj20}",
+                      "sample_cycles": "",
+                      "noise_mod_ola": f"long kernel {geo20}"})
     noise20g = (cases.pop("noise_mod_ola"), f.pop("noise_mod_ola"), n_noise)
+    proj20g = (warp_cases, warp_full, len(warp_full))
     join(cases, f)
-    # 20h: 48 kHz at a 50 ms hop (hop 2400: the projection's 8-frame tile,
+    # 20h: 48 kHz at a 50 ms hop (hop 2400: the projection's warp kernel,
     # the cycle track's hop kernel, the long noise kernel), every tenth F0
     # frame; then 96 kHz at
     # a 200 ms hop at kernel level
     data50 = (data20[0], f0[:, ::10].contiguous()) + data20[2:]
     del data20
     long_hop_phase(torch, mods, data50, sopt48, summary, join, by_phase,
-                   noise20g)
+                   noise20g, proj20g)
     del data50
     torch.cuda.empty_cache()
     # 20c: denoise_stats on phase 5's full-batch call with wide taps

@@ -18,23 +18,45 @@
 // memory (coalesced), seeding z = e^{-2 pi j r} with one sincospif and
 // rotating for the further harmonics, then warp shuffles -- no shared
 // memory and no block barrier, so the K = 1 probe runs at the memory rate.
-// K > 8 runs one block per row with the structure of
-// harmonic_project_win.cu: stage xw and the reduced offset of the live
-// columns in shared memory, then per chunk of 8 harmonics seed z^{k0+1}
-// exactly and rotate 8 times; one block reduction per chunk.  Past a
-// row's 2 W floats of shared memory (kernels._project_geometry: W = 2C past
-// ~14500 samples, 96 kHz at a 200 ms hop) proj_row_chunk_kernel stages the
-// live columns in chunks of Q (a multiple of the block) in turn, each
-// thread's sums carried across them: a thread takes the same columns in
-// the same order, so the sums keep proj_row_kernel's bits.
+// K > 8 runs one block per row (proj_rows_kernel): the row's live columns
+// [lo, hi) staged once in shared memory (xw and the reduced offset; the
+// block's room sized by a live span, kernels._project_geometry, not by W),
+// then passes over them of G groups of 8 harmonics, each column's z =
+// e^{2 pi j r} once a pass and each group's first harmonic seeded exactly,
+// z^{k0+1} by its own sincospif, and rotated 7 times: the groups'
+// independent rotation chains fill the cycles one group's dependent chain
+// left idle.  G is 5 on rows past 2048 columns (80 sums in 128 registers,
+// four blocks an SM) and 2 on shorter ones, whose few columns a thread
+// leave a block's staging, barriers and sums to hide: eight blocks an SM
+// hide them better than five groups' shared trig saves.  A span past the block's room streams through
+// two chunk buffers, the next chunk in flight by cp.async.  A thread takes
+// the same columns in the same order in every layout, and each group's
+// operations and block reduction are those of a walk of its own, so the
+// sums keep the bits of the one-group kernel this replaced.
 #include "common.cuh"
+
+// LLSM_SKIP_PASS_{A,B} = 1 compiles the row kernel's harmonics (no group
+// in a pass: the walk, block sums and stores left) or its staging (the
+// walk reads whatever shared memory holds) out
+// (scripts/port_kernel_passes.py only=project_rows).
+#ifndef LLSM_SKIP_PASS_A
+#define LLSM_SKIP_PASS_A 0
+#endif
+#ifndef LLSM_SKIP_PASS_B
+#define LLSM_SKIP_PASS_B 0
+#endif
 
 namespace {
 
 constexpr int kWarpRows = 4;        // rows per block of the warp kernel
 constexpr int kThreads = 128;       // threads per block of the row kernel
 constexpr int kWarps = kThreads / 32;
-constexpr int kChunk = 8;
+constexpr int kChunk = 8;            // harmonics a group
+
+// The row kernel's blocks an SM at G groups a pass (kernels._project_
+// geometry picks 2 or 5): five groups' 80 sums take 128 registers, two
+// groups' 32 sums 64
+constexpr int row_blocks(int G) { return G >= 5 ? 4 : 8; }
 
 template <int KC>
 __global__ void __launch_bounds__(32 * kWarpRows)
@@ -84,49 +106,113 @@ proj_warp_kernel(const float* __restrict__ dc, const float* __restrict__ xw,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-proj_row_kernel(const float* __restrict__ dc, const float* __restrict__ xw,
-                const int* __restrict__ lo, const int* __restrict__ hi,
-                float* __restrict__ re, float* __restrict__ im, int W,
-                int K) {
+// One column of a pass of at most G groups: z = e^{2 pi j r} once, then
+// for each of the pass's ng groups its first harmonic k0 + 1 seeded exactly,
+// sincospif(2 kmul_c(k0 + 1, r)), and rotated kChunk - 1 times, the
+// slots' sums fmaf'd into sums[2 (q kChunk + j) + {0, 1}] -- per group the
+// operations of one group's walk, so its sums are the same.  The rotation
+// is spelled out as the one-group kernel's compiled code contracted it:
+// w' = (fma(wr, zc, -(wi zs)), fma(wr, zs, wi zc)).
+template <int G>
+__device__ __forceinline__ void pass_column(float x, float r, int g0, int ng,
+                                            float* sums) {
+  float zs, zc;
+  sincospif(2.0f * r, &zs, &zc);
+#pragma unroll
+  for (int q = 0; q < G; ++q) {
+    if (q < ng) {
+      float wr, wi;
+      sincospif(2.0f * llsm::kmul_c((float)((g0 + q) * kChunk + 1), r), &wi,
+                &wr);
+      float* s = sums + 2 * kChunk * q;
+#pragma unroll
+      for (int j = 0; j < kChunk; ++j) {
+        s[2 * j] = fmaf(x, wr, s[2 * j]);
+        s[2 * j + 1] = fmaf(-x, wi, s[2 * j + 1]);
+        const float nwr = __fmaf_rn(wr, zc, -__fmul_rn(wi, zs));
+        wi = __fmaf_rn(wr, zs, __fmul_rn(wi, zc));
+        wr = nwr;
+      }
+    }
+  }
+}
+
+// Row n (a block) past K = kChunk: its live columns [a, b), thread t
+// columns a + t, a + t + kThreads, ... in order.  Where the span fits the
+// block's S staged columns it is staged once (xw and the reduced offset)
+// and each pass of G groups walks it; else two buffers of S / 2
+// columns (a multiple of kThreads) take it in chunks, chunk q + 1 in
+// flight by cp.async while chunk q is walked, once a pass.  Each pass's
+// sums are reduced by one block_sums, each value as the one-group walk
+// reduced it.
+template <int G>
+__global__ void __launch_bounds__(kThreads, row_blocks(G))
+proj_rows_kernel(const float* __restrict__ dc, const float* __restrict__ xw,
+                 const int* __restrict__ lo, const int* __restrict__ hi,
+                 float* __restrict__ re, float* __restrict__ im, int W, int K,
+                 int S) {
   extern __shared__ float sm[];
-  float* xw_s = sm;        // [W] xw over the live columns
-  float* r_s = sm + W;     // [W] reduced cycle offsets
-  __shared__ float red[kWarps * 2 * kChunk];
+  constexpr int kSums = 2 * kChunk * G;
+  __shared__ float red[kWarps * kSums];
   const int64_t n = blockIdx.x;
   const float* dcn = dc + n * W;
   const float* xwn = xw + n * W;
   const int a = max(lo[n], 0), b = min(hi[n], W), len = max(b - a, 0);
-  for (int i = threadIdx.x; i < len; i += kThreads) {
-    xw_s[i] = xwn[a + i];
-    r_s[i] = llsm::frac_c(dcn[a + i]);
+  const int ngroups = (K + kChunk - 1) / kChunk;
+  const bool whole = len <= S;
+  if (whole) {
+    for (int i = threadIdx.x; !LLSM_SKIP_PASS_B && i < len; i += kThreads) {
+      sm[i] = xwn[a + i];
+      sm[S + i] = llsm::frac_c(dcn[a + i]);
+    }
+    __syncthreads();
   }
-  __syncthreads();
-
-  float sums[2 * kChunk];
-  for (int k0 = 0; k0 < K; k0 += kChunk) {
+  const int Qc = S / 2;
+  // chunk [c0, c0 + Qc) of the span into buffer buf: xw, then dc
+  auto stage = [&](int c0, float* buf) {
+    for (int i = threadIdx.x; !LLSM_SKIP_PASS_B && i < min(Qc, len - c0);
+         i += kThreads) {
+      llsm::cp_async4(buf + i, xwn + a + c0 + i, true);
+      llsm::cp_async4(buf + Qc + i, dcn + a + c0 + i, true);
+    }
+    llsm::cp_async_commit();
+  };
+  for (int g0 = 0; g0 < ngroups; g0 += G) {
+    const int ng = LLSM_SKIP_PASS_A ? 0 : min(G, ngroups - g0);
+    float sums[kSums];
 #pragma unroll
-    for (int j = 0; j < 2 * kChunk; ++j) sums[j] = 0.0f;
-    for (int i = threadIdx.x; i < len; i += kThreads) {
-      const float r = r_s[i], x = xw_s[i];
-      float zs, zc, wr, wi;
-      sincospif(2.0f * r, &zs, &zc);
-      sincospif(2.0f * llsm::kmul_c((float)(k0 + 1), r), &wi, &wr);
-#pragma unroll
-      for (int j = 0; j < kChunk; ++j) {
-        sums[2 * j] = fmaf(x, wr, sums[2 * j]);
-        sums[2 * j + 1] = fmaf(-x, wi, sums[2 * j + 1]);
-        const float nwr = wr * zc - wi * zs;
-        wi = wr * zs + wi * zc;
-        wr = nwr;
+    for (int j = 0; j < kSums; ++j) sums[j] = 0.0f;
+    if (whole) {
+      for (int i = threadIdx.x; i < len; i += kThreads)
+        pass_column<G>(sm[i], sm[S + i], g0, ng, sums);
+    } else {
+      stage(0, sm);
+      for (int c0 = 0, q = 0; c0 < len; c0 += Qc, ++q) {
+        const float* cur = sm + (q & 1) * S;
+        if (c0 + Qc < len)
+          stage(c0 + Qc, sm + ((q + 1) & 1) * S);
+        else
+          llsm::cp_async_commit();      // an empty group: one wait for all
+        llsm::cp_async_wait<1>();
+        __syncthreads();
+        for (int i = threadIdx.x; i < min(Qc, len - c0); i += kThreads)
+          pass_column<G>(cur[i], llsm::frac_c(cur[Qc + i]), g0, ng, sums);
+        __syncthreads();                // chunk q's reads are done
       }
     }
-    llsm::block_sums<2 * kChunk, kWarps>(sums, red);
+    // a two-group pass with one live group (the last of an odd count, K 24
+    // on short rows) reduces that group's sums alone: at ~7 columns a
+    // thread the dead group's would cost ~13%; five groups reduce all
+    // (fewer spill their 128 registers)
+    if (G == 2 && ng == 1)
+      llsm::block_sums<2 * kChunk, kWarps>(sums, red);
+    else
+      llsm::block_sums<kSums, kWarps>(sums, red);
     if (threadIdx.x == 0) {  // static indices keep sums[] in registers
 #pragma unroll
-      for (int j = 0; j < kChunk; ++j) {
-        const int k = k0 + j;
-        if (k < K) {
+      for (int j = 0; j < G * kChunk; ++j) {
+        const int k = g0 * kChunk + j;
+        if (j < ng * kChunk && k < K) {
           re[n * K + k] = sums[2 * j];
           im[n * K + k] = sums[2 * j + 1];
         }
@@ -135,71 +221,35 @@ proj_row_kernel(const float* __restrict__ dc, const float* __restrict__ xw,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-proj_row_chunk_kernel(const float* __restrict__ dc,
-                      const float* __restrict__ xw,
-                      const int* __restrict__ lo, const int* __restrict__ hi,
-                      float* __restrict__ re, float* __restrict__ im, int W,
-                      int K, int Q) {
-  extern __shared__ float sm[];
-  float* xw_s = sm;        // [Q] xw over a chunk of the live columns
-  float* r_s = sm + Q;     // [Q] their reduced cycle offsets
-  __shared__ float red[kWarps * 2 * kChunk];
-  const int64_t n = blockIdx.x;
-  const float* dcn = dc + n * W;
-  const float* xwn = xw + n * W;
-  const int a = max(lo[n], 0), b = min(hi[n], W), len = max(b - a, 0);
-  float sums[2 * kChunk];
-  for (int k0 = 0; k0 < K; k0 += kChunk) {
-#pragma unroll
-    for (int j = 0; j < 2 * kChunk; ++j) sums[j] = 0.0f;
-    for (int c0 = 0; c0 < len; c0 += Q) {
-      const int m = min(Q, len - c0);
-      __syncthreads();                  // the last chunk's reads are done
-      for (int i = threadIdx.x; i < m; i += kThreads) {
-        xw_s[i] = xwn[a + c0 + i];
-        r_s[i] = llsm::frac_c(dcn[a + c0 + i]);
-      }
-      __syncthreads();
-      for (int i = threadIdx.x; i < m; i += kThreads) {
-        const float r = r_s[i], x = xw_s[i];
-        float zs, zc, wr, wi;
-        sincospif(2.0f * r, &zs, &zc);
-        sincospif(2.0f * llsm::kmul_c((float)(k0 + 1), r), &wi, &wr);
-#pragma unroll
-        for (int j = 0; j < kChunk; ++j) {
-          sums[2 * j] = fmaf(x, wr, sums[2 * j]);
-          sums[2 * j + 1] = fmaf(-x, wi, sums[2 * j + 1]);
-          const float nwr = wr * zc - wi * zs;
-          wi = wr * zs + wi * zc;
-          wr = nwr;
-        }
-      }
-    }
-    llsm::block_sums<2 * kChunk, kWarps>(sums, red);
-    if (threadIdx.x == 0) {
-#pragma unroll
-      for (int j = 0; j < kChunk; ++j) {
-        const int k = k0 + j;
-        if (k < K) {
-          re[n * K + k] = sums[2 * j];
-          im[n * K + k] = sums[2 * j + 1];
-        }
-      }
-    }
-  }
+// The row kernel at G groups a pass: its shared-memory opt-in (counting
+// the block sums' static bytes too), then the launch
+template <int G>
+int launch_rows(const float* dc, const float* xw, const int* lo,
+                const int* hi, float* re, float* im, long long R, int W,
+                int K, int S, cudaStream_t s) {
+  const size_t smem = 2 * (size_t)S * sizeof(float);
+  cudaError_t e = llsm::allow_smem(
+      proj_rows_kernel<G>, smem + kWarps * 2 * kChunk * G * sizeof(float));
+  if (e != cudaSuccess) return (int)e;
+  proj_rows_kernel<G><<<(unsigned)R, kThreads, smem, s>>>(dc, xw, lo, hi, re,
+                                                          im, W, K, S);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Q: 0 stages a row's live columns whole (proj_row_kernel), else in chunks
-// of Q columns (kernels._project_geometry; a multiple of kThreads)
+// S, G (K > kChunk): the row kernel's staged columns and groups a pass
+// (kernels._project_geometry; G 2 or 5): a row whose live span fits is
+// staged once, a longer one in chunks of S / 2, which must then be a
+// multiple of kThreads
 extern "C" int llsm_harmonic_project(const float* dc, const float* xw,
                                      const int* lo, const int* hi, float* re,
                                      float* im, long long R, int W, int K,
-                                     int Q, void* stream) {
+                                     int S, int G, void* stream) {
   if (R <= 0 || K <= 0) return (int)cudaGetLastError();
-  if (Q < 0 || Q % kThreads) return (int)cudaErrorInvalidValue;
+  if (K > kChunk && (S < 1 || (W > S && S % (2 * kThreads)) ||
+                     (G != 2 && G != 5)))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const unsigned wblocks = (unsigned)((R + kWarpRows - 1) / kWarpRows);
   if (K == 1) {
@@ -208,18 +258,10 @@ extern "C" int llsm_harmonic_project(const float* dc, const float* xw,
   } else if (K <= kChunk) {
     proj_warp_kernel<kChunk><<<wblocks, 32 * kWarpRows, 0, s>>>(
         dc, xw, lo, hi, re, im, R, W, K);
-  } else if (Q > 0) {
-    const size_t smem = 2 * (size_t)Q * sizeof(float);
-    cudaError_t e = llsm::allow_smem(proj_row_chunk_kernel, smem);
-    if (e != cudaSuccess) return (int)e;
-    proj_row_chunk_kernel<<<(unsigned)R, kThreads, smem, s>>>(
-        dc, xw, lo, hi, re, im, W, K, Q);
+  } else if (G == 2) {
+    return launch_rows<2>(dc, xw, lo, hi, re, im, R, W, K, S, s);
   } else {
-    const size_t smem = 2 * (size_t)W * sizeof(float);
-    cudaError_t e = llsm::allow_smem(proj_row_kernel, smem);
-    if (e != cudaSuccess) return (int)e;
-    proj_row_kernel<<<(unsigned)R, kThreads, smem, s>>>(dc, xw, lo, hi, re,
-                                                        im, W, K);
+    return launch_rows<5>(dc, xw, lo, hi, re, im, R, W, K, S, s);
   }
   return (int)cudaGetLastError();
 }

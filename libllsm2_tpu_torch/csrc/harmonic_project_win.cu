@@ -38,21 +38,39 @@
 // above kl[n] are never computed; unvoiced frames (kl = 0) sum the window
 // only.
 //
-// Past kTile frames' span of shared memory (kernels._proj_win_geometry:
-// at f0_floor 40, 48 kHz from hop 1528, 96 kHz at 15 ms)
-// proj_win_part_kernel runs the same frames, every bit the same: a tile
-// of F = 8, 4, 2 or 1 frames where its span fits, else (past one frame's
-// 2C columns: 96 kHz at 200 ms) a warp a frame that stages its columns in
-// chunks of Q, in turn, each lane's sums carried across the chunks in
-// registers.  A lane takes the same columns in the same order in every
-// layout, so a frame's sums do not depend on it.
+// Wherever kTile frames' span would not leave room for two blocks an SM
+// (kernels._proj_win_geometry: 48 kHz from a 20 ms hop, 96 kHz at 200 ms)
+// proj_win_warp_kernel runs the same frames, every bit the same, with no
+// tile: a warp a frame, two frames a block (a block is freed as soon as
+// its two frames are done, however unequal the frames' spans and live
+// slots), each warp staging only its frame's live columns, by cp.async in
+// chunks through two buffers of its own, the next chunk in flight while
+// the current one rotates.  Where frames overlap most (2C / nhop up to 20
+// at 96 kHz / 5 ms) each sample is restaged once a frame that reads it,
+// from L2, where the tile staged it once; the warp kernel still wins
+// there at K 80, and at K 4 where the tile fits only one block an SM
+// (scripts/port_proj_route.py): eight warps an SM where the tile held
+// four.  A lane takes the same columns in the same order in every layout,
+// so a frame's sums do not depend on it.
 #include "common.cuh"
+
+// LLSM_SKIP_PASS_{A,B} = 1 compiles the warp kernel's harmonics (every
+// frame's slots treated as dead: only the window and x sums walk the
+// columns) or its whole column walk out (scripts/port_kernel_passes.py
+// only=proj_part); the 16-frame tile is built the same either way.
+#ifndef LLSM_SKIP_PASS_A
+#define LLSM_SKIP_PASS_A 0
+#endif
+#ifndef LLSM_SKIP_PASS_B
+#define LLSM_SKIP_PASS_B 0
+#endif
 
 namespace {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kTile = 16;          // frames a block
+constexpr int kWarpWarps = 2;     // frames a block of the warp kernel
 
 // 4-byte asynchronous copy global -> shared (cp.async): a thread issues
 // all its copies before any of them has to land.
@@ -333,26 +351,41 @@ proj_win_kernel(const float* __restrict__ x, const float* __restrict__ cyc,
   }
 }
 
-// One frame (row b, index n; fi = b N + n) by one warp that stages its
-// columns [lo, hi) in chunks of Q (a multiple of 32) in its own xs, cs
-// [Q]: chunk q covers columns [a + q Q, a + (q + 1) Q), so lane l still
-// takes columns a + l, a + l + 32, ... in order, with the accumulators,
-// ws and xs carried across the chunks; each group of harmonics walks the
-// chunks again.  Outside [0, nx) x is zero and cyc edge-clamped, as the
-// tile's staging makes them.
+// One frame (row b, index n; fi = b N + n) by one warp, wherever the
+// 16-frame tile would not leave room for two blocks an SM.  The warp
+// stages its live columns [a, e) in chunks of Q (a multiple of 32) by
+// cp.async into two buffers of its own, buf [2][2][Q] (x, then cyc; x zero
+// and cyc edge-clamped outside [0, nx), as the tile stages them), chunk q
+// + 1 in flight while chunk q rotates.  Lane l takes columns a + l, a + l
+// + 32, ... in order, with the accumulators, ws and xs carried across the
+// chunks, so every sum is the 16-frame tile's; each group of harmonics
+// (GROUPS: past 80, whose accumulators take the registers) walks the
+// columns again.
 template <int CH, int NCH, bool GROUPS>
-__device__ __forceinline__ void project_frame_chunked(
+__device__ __forceinline__ void project_frame_warp(
     const float* __restrict__ xb, const float* __restrict__ cb, int n,
-    int64_t fi, const Frame& fr, float* xbuf, float* cbuf, int Q, float* re,
-    float* im, float* wsum, float* xsum, const Geom& g) {
+    int64_t fi, const Frame& fr, float* buf, int Q, float* re, float* im,
+    float* wsum, float* xsum, const Geom& g) {
   constexpr int V = 2 * CH, KG = CH * NCH;
   const int lane = threadIdx.x & 31;
   const float h = fr.hw, hr = 0.5f / fr.hw;
-  const int a = max(fr.lo, 0), e = min(fr.hi, 2 * g.C);
-  const int kn = min(max(fr.kl, 0), g.K);
+  const int a = max(fr.lo, 0);
+  const int e = LLSM_SKIP_PASS_B ? a : min(fr.hi, 2 * g.C);
+  const int kn = LLSM_SKIP_PASS_A ? 0 : min(max(fr.kl, 0), g.K);
   const int64_t s0 = (int64_t)n * g.nhop - g.C;
-  const float cc = cb[(int64_t)n * g.nhop];     // column C: s = n nhop < nx
+  const float cc = __ldg(cb + (int64_t)n * g.nhop);   // column C: < nx
   const int ngroups = GROUPS ? max((kn + KG - 1) / KG, 1) : 1;
+  // chunk [q, min(q + Q, e)) into xbuf [Q] and the cyc buffer after it
+  auto stage = [&](int q, float* xbuf) {
+    for (int i = lane; i < min(Q, e - q); i += 32) {
+      const int64_t s = s0 + q + i;
+      const bool in = s >= 0 && s < g.nx;
+      const float* src = cb + (s < 0 ? 0 : (s >= g.nx ? g.nx - 1 : s));
+      llsm::cp_async4(xbuf + Q + i, src, true);
+      llsm::cp_async4(xbuf + i, in ? xb + s : xb, in);
+    }
+    llsm::cp_async_commit();
+  };
   float ws = 0.0f, xs = 0.0f;
   for (int grp = 0; grp < ngroups; ++grp) {
     const int kg = grp * KG;
@@ -360,22 +393,22 @@ __device__ __forceinline__ void project_frame_chunked(
     float acc[NCH * V];
 #pragma unroll
     for (int i = 0; i < NCH * V; ++i) acc[i] = 0.0f;
-    for (int q = a; q < e; q += Q) {
-      const int qe = min(q + Q, e);
-      __syncwarp();                     // the last chunk's reads are done
-      for (int i = lane; i < qe - q; i += 32) {
-        const int64_t s = s0 + q + i;
-        copy_async(cbuf + i, cb + (s < 0 ? 0 : (s >= g.nx ? g.nx - 1 : s)));
-        if (s >= 0 && s < g.nx)
-          copy_async(xbuf + i, xb + s);
+    if (a < e) {
+      __syncwarp();                     // the last group's reads are done
+      stage(a, buf);
+      for (int q = a, i = 0; q < e; q += Q, ++i) {
+        float* cur = buf + (i & 1) * 2 * Q;
+        if (q + Q < e)
+          stage(q + Q, buf + ((i + 1) & 1) * 2 * Q);
         else
-          xbuf[i] = 0.0f;
+          llsm::cp_async_commit();      // an empty group: one wait for all
+        llsm::cp_async_wait<1>();
+        __syncwarp();
+        columns_live<CH, NCH, GROUPS>(nc, acc, cur - q, cur + Q - q, cc, q,
+                                      min(q + Q, e), h, hr, kg, grp == 0, ws,
+                                      xs, g);
+        __syncwarp();                   // chunk q's reads are done
       }
-      asm volatile("cp.async.commit_group;\n" ::);
-      asm volatile("cp.async.wait_all;\n" ::);
-      __syncwarp();
-      columns_live<CH, NCH, GROUPS>(nc, acc, xbuf - q, cbuf - q, cc, q, qe, h,
-                                    hr, kg, grp == 0, ws, xs, g);
     }
 #pragma unroll
     for (int c = 0; c < NCH; ++c) {
@@ -400,78 +433,42 @@ __device__ __forceinline__ void project_frame_chunked(
   }
 }
 
-// Past kTile frames' span: F > 0, proj_win_kernel's tile of F frames (g's
-// ntiles counts F-frame tiles); F = 0, kWarps frames a block, a warp a
-// frame staged in chunks of Q columns (ntiles counts kWarps-frame tiles).
+// kWarpWarps frames a block, a warp a frame (any row), frames in order:
+// frame fi = b N + n of the Bx N.
 template <int CH, int NCH, bool GROUPS>
-__global__ void __launch_bounds__(kThreads)
-proj_win_part_kernel(const float* __restrict__ x,
+__global__ void __launch_bounds__(32 * kWarpWarps)
+proj_win_warp_kernel(const float* __restrict__ x,
                      const float* __restrict__ cyc,
                      const float* __restrict__ hw, const int* __restrict__ lo,
                      const int* __restrict__ hi, const int* __restrict__ kl,
                      float* __restrict__ re, float* __restrict__ im,
                      float* __restrict__ wsum, float* __restrict__ xsum,
-                     Geom g, int F, int Q) {
+                     Geom g, long long frames, int Q) {
   extern __shared__ float sm[];
-  __shared__ Frame frames[kTile];
-  const int b = blockIdx.x / g.ntiles;
-  const int tile = blockIdx.x - b * g.ntiles;
-  const float* xb = x + (int64_t)b * g.nx;
-  const float* cb = cyc + (int64_t)(b / g.rep) * g.nx;
-  if (F == 0) {
-    const int warp = threadIdx.x >> 5, n = tile * kWarps + warp;
-    if (n >= g.N) return;               // the whole warp leaves together
-    const int64_t fi = (int64_t)b * g.N + n;
-    const Frame fr{hw[fi], lo[fi], hi[fi], kl[fi]};
-    float* xbuf = sm + 2 * warp * Q;
-    project_frame_chunked<CH, NCH, GROUPS>(xb, cb, n, fi, fr, xbuf, xbuf + Q,
-                                           Q, re, im, wsum, xsum, g);
-    return;
-  }
-  const int span = (F - 1) * g.nhop + 2 * g.C;
-  float* xs = sm;
-  float* cs = sm + span;
-  const int n0 = tile * F;
-  const int64_t s0 = (int64_t)n0 * g.nhop - g.C;
-  for (int i = threadIdx.x; i < span; i += kThreads) {
-    const int64_t s = s0 + i;
-    copy_async(cs + i, cb + (s < 0 ? 0 : (s >= g.nx ? g.nx - 1 : s)));
-    if (s >= 0 && s < g.nx)
-      copy_async(xs + i, xb + s);
-    else
-      xs[i] = 0.0f;
-  }
-  asm volatile("cp.async.commit_group;\n" ::);
-  if (threadIdx.x < F && n0 + (int)threadIdx.x < g.N) {
-    const int64_t fi = (int64_t)b * g.N + n0 + threadIdx.x;
-    frames[threadIdx.x] = Frame{hw[fi], lo[fi], hi[fi], kl[fi]};
-  }
-  asm volatile("cp.async.wait_all;\n" ::);
-  __syncthreads();
-  for (int f = threadIdx.x >> 5; f < F; f += kWarps) {
-    const int n = n0 + f;
-    if (n >= g.N) break;
-    project_frame<CH, NCH, GROUPS>(xs + f * g.nhop, cs + f * g.nhop,
-                                   (int64_t)b * g.N + n, frames[f], re, im,
-                                   wsum, xsum, g);
-  }
+  const int warp = threadIdx.x >> 5;
+  const int64_t fi = (int64_t)blockIdx.x * kWarpWarps + warp;
+  if (fi >= frames) return;             // the whole warp leaves together
+  const int b = (int)(fi / g.N), n = (int)(fi - (int64_t)b * g.N);
+  const Frame fr{hw[fi], lo[fi], hi[fi], kl[fi]};
+  project_frame_warp<CH, NCH, GROUPS>(
+      x + (int64_t)b * g.nx, cyc + (int64_t)(b / g.rep) * g.nx, n, fi, fr,
+      sm + 4 * warp * Q, Q, re, im, wsum, xsum, g);
 }
 
 template <int CH, int NCH, bool GROUPS = false>
-cudaError_t launch_part(const float* x, const float* cyc, const float* hw,
+cudaError_t launch_warp(const float* x, const float* cyc, const float* hw,
                         const int* lo, const int* hi, const int* kl,
                         float* re, float* im, float* wsum, float* xsum,
-                        int Bx, Geom g, int F, int Q, cudaStream_t stream) {
-  g.ntiles = (g.N + (F ? F : kWarps) - 1) / (F ? F : kWarps);
-  const size_t smem =
-      F ? 2 * (size_t)((F - 1) * g.nhop + 2 * g.C) * sizeof(float)
-        : 2 * (size_t)kWarps * Q * sizeof(float);
-  cudaError_t e = llsm::allow_smem(proj_win_part_kernel<CH, NCH, GROUPS>,
+                        int Bx, const Geom& g, int Q, cudaStream_t stream) {
+  const long long frames = (long long)Bx * g.N;
+  const size_t smem = 4 * (size_t)kWarpWarps * Q * sizeof(float);
+  cudaError_t e = llsm::allow_smem(proj_win_warp_kernel<CH, NCH, GROUPS>,
                                    smem);
   if (e != cudaSuccess) return e;
-  proj_win_part_kernel<CH, NCH, GROUPS>
-      <<<(unsigned)((int64_t)Bx * g.ntiles), kThreads, smem, stream>>>(
-          x, cyc, hw, lo, hi, kl, re, im, wsum, xsum, g, F, Q);
+  proj_win_warp_kernel<CH, NCH, GROUPS>
+      <<<(unsigned)((frames + kWarpWarps - 1) / kWarpWarps),
+         32 * kWarpWarps, smem,
+         stream>>>(x, cyc, hw, lo, hi, kl, re, im, wsum, xsum, g, frames, Q);
   return cudaGetLastError();
 }
 
@@ -494,9 +491,9 @@ cudaError_t launch(const float* x, const float* cyc, const float* hw,
 
 // x [Bx, nx], cyc [Bx / rep, nx]; hw, lo, hi, kl [Bx, N]; re, im
 // [Bx, N, K]; wsum, xsum [Bx, N].  K > 80 runs in groups of 80 harmonics,
-// each group's first harmonic seeded exactly.  F, Q: the frames a block
-// and the columns a chunk (kernels._proj_win_geometry): F = 16 (kTile)
-// proj_win_kernel, F = 8, 4, 2, 1 or 0 (chunks of Q) proj_win_part_kernel.
+// each group's first harmonic seeded exactly.  F, Q
+// (kernels._proj_win_geometry): F = 16 (kTile) proj_win_kernel; F = 0
+// proj_win_warp_kernel, a warp a frame, its columns staged in chunks of Q.
 extern "C" int llsm_harmonic_project_win(
     const float* x, const float* cyc, const float* hw, const int* lo,
     const int* hi, const int* kl, float* re, float* im, float* wsum,
@@ -505,34 +502,34 @@ extern "C" int llsm_harmonic_project_win(
     void* stream) {
   if (Bx <= 0 || N <= 0) return (int)cudaGetLastError();
   if (ncoef < 1 || ncoef > 4 || rep < 1 || nx < 1 || nhop < 1 ||
-      center < 0 || K < 1 || F < 0 || F > kTile || (F & (F - 1)) ||
+      center < 0 || K < 1 || (F != 0 && F != kTile) ||
       (F == 0 && (Q < 32 || Q % 32)))
     return (int)cudaErrorInvalidValue;
   const Geom g{N, K, center, nhop, nx, rep, (N + kTile - 1) / kTile,
                c0, c1, c2, c3};
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t e;
-  if (F < kTile) {
-#define LLSM_PART(CH, NCH, GROUPS) \
-  launch_part<CH, NCH, GROUPS>(x, cyc, hw, lo, hi, kl, re, im, wsum, xsum, \
-                               Bx, g, F, Q, s)
+  if (F == 0) {
+#define LLSM_WARP(CH, NCH, GROUPS) \
+  launch_warp<CH, NCH, GROUPS>(x, cyc, hw, lo, hi, kl, re, im, wsum, xsum, \
+                               Bx, g, Q, s)
     if (K <= 4)
-      e = LLSM_PART(4, 1, false);
+      e = LLSM_WARP(4, 1, false);
     else if (K <= 8)
-      e = LLSM_PART(8, 1, false);
+      e = LLSM_WARP(8, 1, false);
     else if (K <= 16)
-      e = LLSM_PART(16, 1, false);
+      e = LLSM_WARP(16, 1, false);
     else if (K <= 32)
-      e = LLSM_PART(16, 2, false);
+      e = LLSM_WARP(16, 2, false);
     else if (K <= 48)
-      e = LLSM_PART(16, 3, false);
+      e = LLSM_WARP(16, 3, false);
     else if (K <= 64)
-      e = LLSM_PART(16, 4, false);
+      e = LLSM_WARP(16, 4, false);
     else if (K <= 80)
-      e = LLSM_PART(16, 5, false);
+      e = LLSM_WARP(16, 5, false);
     else
-      e = LLSM_PART(16, 5, true);
-#undef LLSM_PART
+      e = LLSM_WARP(16, 5, true);
+#undef LLSM_WARP
     return (int)e;
   }
   if (K <= 4)

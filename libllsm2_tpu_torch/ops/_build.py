@@ -74,9 +74,10 @@ SIGNATURES = {
                            _I, _I, _F, _I, _I, _I, _I, _I, _P),
     # a, delta (complex64), cyc_c, mask, ampl, phse, B, N, K, stream
     "llsm_denoise_finish": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-    # dc, xw, lo, hi, re, im, R, W, K, Q (kernels._project_geometry),
+    # dc, xw, lo, hi, re, im, R, W, K, S, G (kernels._project_geometry),
     # stream
-    "llsm_harmonic_project": (_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P),
+    "llsm_harmonic_project": (_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I,
+                              _P),
     # x, cyc, hw, re, im, wsum, xsum, B, nx, N, K, nhop, reach, c0, c1, c2,
     # c3 (the window's cosine coefficients, zero past its own), stream
     "llsm_harmonic_project_mxu": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

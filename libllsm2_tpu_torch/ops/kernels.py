@@ -138,30 +138,35 @@ def osc_bank_ref(cyc, ampl, phse, mask, nhop, x=None):
 # 2. fused-window harmonic projection (pallas_osc.harmonic_project_win_pallas)
 # ---------------------------------------------------------------------------
 
-# harmonic_project_win.cu: the span of a tile of F frames, (F - 1) nhop + 2 C
-# samples of x and of cyc, in shared memory beside the tile's 16 frame
-# records; F = 16 (proj_win_kernel) where it fits, else the largest of 8,
-# 4, 2, 1 (proj_win_part_kernel), else a warp a frame staging its columns
-# in chunks of _PROJ_CHUNK
-_PROJ_TILES = (16, 8, 4, 2, 1)
+# harmonic_project_win.cu: the 16-frame tile (proj_win_kernel) stages its
+# span, 15 nhop + 2 C samples of x and of cyc, in shared memory beside its
+# 16 frame records, where two such blocks fit an SM; elsewhere
+# proj_win_warp_kernel, a warp a frame and two a block, stages its frame's
+# live columns through two buffers of Q columns (x and cyc: 16 Q bytes a
+# warp): 1792 where the harmonics' rotations make a column long (the most
+# that leaves room for the four blocks an SM its registers allow: a chunk
+# boundary costs a column's setup), 512 at K <= 8, where a short walk
+# would wait on a long first chunk
+_PROJ_TILE = 16
 _PROJ_STATIC = 16 * 16
-_PROJ_WARPS = 4
-_PROJ_CHUNK = 1024
+_PROJ_WARP_WARPS = 2
+_PROJ_CHUNK = 1792
+_PROJ_CHUNK_FEW = 512
 
 
 @functools.lru_cache(maxsize=64)
-def _proj_win_geometry(nhop: int, C: int) -> tuple:
-    """harmonic_project_win's launch at hop nhop and center column C ->
-    (F frames a block, Q columns a chunk, dynamic shared bytes): the
-    largest F of _PROJ_TILES whose span's 8 ((F - 1) nhop + 2 C) bytes fit
-    beside the frame records (Q = 0); F = 0 past one frame's span, each of
-    the block's 4 warps a frame, its 2 C columns staged in chunks of Q =
-    _PROJ_CHUNK in turn."""
-    for F in _PROJ_TILES:
-        smem = 8 * ((F - 1) * nhop + 2 * C)
-        if smem + _PROJ_STATIC <= _SMEM_MAX:
-            return F, 0, smem
-    return 0, _PROJ_CHUNK, 8 * _PROJ_WARPS * _PROJ_CHUNK
+def _proj_win_geometry(nhop: int, C: int, K: int) -> tuple:
+    """harmonic_project_win's launch at hop nhop, center column C and K
+    harmonics -> (F frames a block, Q columns a chunk, dynamic shared
+    bytes): the 16-frame tile (F 16, Q 0) where its span's 8 (15 nhop + 2
+    C) bytes beside the frame records leave room for two blocks an SM
+    (_two_an_sm); elsewhere the warp kernel (F 0), its chunks of Q =
+    _PROJ_CHUNK columns (_PROJ_CHUNK_FEW at K <= 8), 16 Q bytes a warp."""
+    smem = 8 * ((_PROJ_TILE - 1) * nhop + 2 * C)
+    if _two_an_sm(smem + _PROJ_STATIC):
+        return _PROJ_TILE, 0, smem
+    Q = _PROJ_CHUNK_FEW if K <= 8 else _PROJ_CHUNK
+    return 0, Q, 16 * _PROJ_WARP_WARPS * Q
 
 
 def harmonic_project_win(x: torch.Tensor, cyc: torch.Tensor,
@@ -181,8 +186,8 @@ def harmonic_project_win(x: torch.Tensor, cyc: torch.Tensor,
     hw; only columns in [lo, hi) (which must cover its support)
     contribute.  Slots k >= kl are exact zeros (kl=None: all max_k slots
     live).  No [Bx N, 2 center] frame buffer is built on the card: a tile
-    of frames (or, past one frame's span, chunks of a frame's columns)
-    staged in shared memory (_proj_win_geometry), any nhop and center."""
+    of 16 frames staged in shared memory, or a warp a frame staging its
+    live columns in chunks (_proj_win_geometry), any nhop and center."""
     Bx, nx = x.shape
     N = hw.shape[-1]
     if kl is None:
@@ -203,7 +208,7 @@ def harmonic_project_win(x: torch.Tensor, cyc: torch.Tensor,
     ws = torch.empty((Bx, N), dtype=FP, device=dev)
     xs = torch.empty((Bx, N), dtype=FP, device=dev)
     ptrs = (t.data_ptr() for t in (x, cyc, hw, lo, hi, kl, re, im, ws, xs))
-    F, Q, _ = _proj_win_geometry(int(nhop), int(center))
+    F, Q, _ = _proj_win_geometry(int(nhop), int(center), int(max_k))
     _launch("harmonic_project_win", *ptrs, Bx, Bx // Bc, nx, N, max_k,
             int(nhop), int(center), *coefs[:4], len(COSINE_SERIES[window]),
             F, Q, _stream(x))
@@ -1447,22 +1452,33 @@ def noise_bins(seed: int, frame_base: int, B: int, N: int, nbin: int,
 #     (pallas_osc.harmonic_project_pallas)
 # ---------------------------------------------------------------------------
 
-# harmonic_project.cu's row kernel (K > 8) stages a row's 2 W floats, beside
-# its 256 bytes of block sums; past them, chunks of _PROJECT_CHUNK columns
-_PROJECT_STATIC = 256
-_PROJECT_CHUNK = 8192
+# harmonic_project.cu's row kernel (K > 8) stages a row's live columns,
+# xw and the reduced offset (8 bytes a column), in shared memory: up to
+# _PROJECT_SPAN columns a block, which leaves room for four blocks an SM
+# and holds the live span of every frame at 96 kHz whose F0 is 70 Hz or
+# more (2 ceil(2 fs / F0) + 1 = 5487 columns); a longer span streams through
+# two chunk buffers of half as many.  Beside them, the block sums of a pass
+# (4 warps x 80 floats at five groups).  A pass walks the columns for five
+# groups of 8 harmonics (128 registers: four blocks an SM) on rows of more
+# than _PROJECT_SHORT columns, and for two (64 registers, eight blocks an
+# SM) on shorter rows, where a block's few columns a thread leave its
+# fixed costs to hide
+_PROJECT_SPAN = 6144
+_PROJECT_STATIC = 4 * 4 * 80
+_PROJECT_SHORT = 2048
 
 
 def _project_geometry(W: int, K: int) -> tuple:
     """harmonic_project's launch for rows of W columns and K harmonics ->
-    (Q columns a chunk, dynamic shared bytes): no shared memory at K <= 8
-    (a warp a row from device memory), a row's 2 W floats (Q = 0) where
-    they fit, else chunks of Q = _PROJECT_CHUNK columns staged in turn."""
+    (S staged columns a block, dynamic shared bytes, G groups of 8
+    harmonics a pass): no shared memory at K <= 8 (a warp a row from
+    device memory); else S = min(W, _PROJECT_SPAN): a row whose live span
+    [lo, hi) fits is staged once, a longer one (only where W > S) in
+    chunks of S / 2 columns; G 5 past _PROJECT_SHORT columns, else 2."""
     if K <= 8:
-        return 0, 0
-    if 8 * W + _PROJECT_STATIC <= _SMEM_MAX:
-        return 0, 8 * W
-    return _PROJECT_CHUNK, 8 * _PROJECT_CHUNK
+        return 0, 0, 0
+    S = min(W, _PROJECT_SPAN)
+    return S, 8 * S, 5 if W > _PROJECT_SHORT else 2
 
 
 def harmonic_project(dc: torch.Tensor, xw: torch.Tensor, max_k: int,
@@ -1486,8 +1502,8 @@ def harmonic_project(dc: torch.Tensor, xw: torch.Tensor, max_k: int,
     re = torch.empty((R, max_k), dtype=FP, device=dev)
     im = torch.empty((R, max_k), dtype=FP, device=dev)
     ptrs = (t.data_ptr() for t in (dc, xw, lo, hi, re, im))
-    _launch("harmonic_project", *ptrs, R, W, max_k,
-            _project_geometry(W, max_k)[0], _stream(dc))
+    S, _, G = _project_geometry(W, max_k)
+    _launch("harmonic_project", *ptrs, R, W, max_k, S, G, _stream(dc))
     return re, im
 
 

@@ -63,7 +63,13 @@ pair's y compared bit for bit; `kernseg` noise_mod_ola_seg alone on its
 call in fft16's synthesis, `kerncyc960` sample_cycles alone on its first
 call in h20_48's analysis and `kerncyc2048` on 20f's hop 2048 at 48 kHz
 (F0 [128, 187], 70-300 Hz from seed 0, every 7th frame unvoiced), ten
-calls a step, as the kern cells above; each side analyzes
+calls a step, as the kern cells above; `kernproj960` and
+`kernproj2400` harmonic_project_win alone on its first call (the main
+pass) in h20_48's and h50_48's analysis, `kernproj19200` on chip_smoke.py's
+96 kHz / 200 ms shape (x [batch, 768000], hop and C 19200, halfwidths to
+4800, K 80) and `kernproject` harmonic_project on its frames of a window
+outside the cosine series ([40 batch, 38400], K 80, live spans to 9601),
+ten calls a step, as the kern cells above; each side analyzes
 (and fits layer 1) once, untimed, with its own package.  One untimed step of
 each first, then `pairs` pairs whose order alternates (other first in
 even pairs), each step timed by the host clock around work that ends in
@@ -76,11 +82,11 @@ quartiles, and how many pairs each side won.  Imports no jax:
                wide257,wide512,wide1025,tracker384,full48,full16,
                kern48,kern16,h10_48,kernnoise48,kern160,h20_48,fft16,
                kernseg,kerncyc960,kerncyc2048,h50_48,kernnoise960,
-               kernnoise2400,kerncyc2400]
+               kernnoise2400,kerncyc2400,kernproj960,kernproj2400,
+               kernproj19200,kernproject]
 """
 import dataclasses
 import importlib
-import importlib.util
 import statistics
 import subprocess
 import sys
@@ -90,20 +96,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from port_harness import load
+
 ROOT = Path(__file__).resolve().parents[1]
 # the kernels whose wide paths full-band analysis runs (kern48, kern16)
 KERN_WIDE = ("deconv_full", "denoise_stats", "denoise_apply")
-
-
-def load(root: Path, alias: str):
-    """The libllsm2_tpu_torch package under root, imported as `alias`."""
-    pkg = root / "libllsm2_tpu_torch"
-    spec = importlib.util.spec_from_file_location(
-        alias, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
-    mod = importlib.util.module_from_spec(spec)
-    sys.modules[alias] = mod
-    spec.loader.exec_module(mod)
-    return mod
 
 
 def main(argv):
@@ -159,7 +156,7 @@ def main(argv):
     full = {}
     if {"full48", "kern48", "h10_48", "kernnoise48", "h20_48",
             "kerncyc960", "h50_48", "kernnoise960", "kernnoise2400",
-            "kerncyc2400"} & set(cells):
+            "kerncyc2400", "kernproj960", "kernproj2400"} & set(cells):
         rs = importlib.import_module("port_this.ops.resample")
         x48, r48 = (rs.resample_to(v, 16000.0, 48000.0) for v in (x, x_ref))
         nxv48 = torch.full_like(nxv, x48.shape[1])
@@ -217,7 +214,11 @@ def main(argv):
                   "kernnoise960": ("h20_48", ("noise_mod_ola",)),
                   "kernnoise2400": ("h50_48", ("noise_mod_ola",)),
                   "kerncyc2400": ("h50_48", ("sample_cycles",)),
-                  "kerncyc2048": (None, ("sample_cycles",))}
+                  "kerncyc2048": (None, ("sample_cycles",)),
+                  "kernproj960": ("h20_48", ("harmonic_project_win",)),
+                  "kernproj2400": ("h50_48", ("harmonic_project_win",)),
+                  "kernproj19200": (None, ("harmonic_project_win",)),
+                  "kernproject": (None, ("harmonic_project",))}
     if "kern160" in cells:
         full["creaky"] = (dict(f0_floor=70.0, maxnhar=160, fnyq=6000.0),
                           (x, f0, nxv, x_ref))
@@ -227,6 +228,34 @@ def main(argv):
         fc[:, ::7] = 0.0
         captured["kerncyc2048 sample_cycles"] = (
             (fc, 2048, 48000.0, 187 * 2048), {})
+    if {"kernproj19200", "kernproject"} & set(cells):
+        # chip_smoke.py's 20h shapes at 96 kHz / 200 ms: x [B, 768000] (hop
+        # and C 19200, halfwidths to 4800, random live slots) and the
+        # [40 B, 38400] Hann-windowed frames of a window outside the cosine
+        # series (live spans 2 hw + 1 to 9601)
+        gp = torch.Generator(device="cuda").manual_seed(26)
+        rp = lambda *s: torch.rand(s, generator=gp, device="cuda")
+        Np, hop, H = 40, 19200, 4800
+        if "kernproj19200" in cells:
+            hw = 2.0 + (H - 2.0) * rp(B, Np)
+            hwi = torch.ceil(hw).to(torch.int32)
+            captured["kernproj19200 harmonic_project_win"] = (
+                (rp(B, Np * hop) - 0.5,
+                 torch.remainder(torch.cumsum(rp(B, Np * hop) * 0.02, -1),
+                                 1.0), hw, 80, hop - hwi, hop + hwi + 1),
+                dict(nhop=hop, center=hop,
+                     kl=(rp(B, Np) * 81).to(torch.int32)))
+        if "kernproject" in cells:
+            R, W = B * Np, 2 * hop
+            hwr = (2.0 + (H - 2.0) * rp(R)).to(torch.int32)
+            d = torch.arange(W, device="cuda")[None, :] - hop
+            xw = (rp(R, W) - 0.5) * torch.where(
+                d.abs() <= hwr[:, None],
+                0.5 + 0.5 * torch.cos(np.pi * d / hwr[:, None]), 0.0)
+            del d
+            captured["kernproject harmonic_project"] = (
+                ((rp(R, W) - 0.5) * 4.0, xw, 80, (hop - hwr).int(),
+                 (hop + hwr + 1).int()), {})
     for cell, (source, names) in kern_cells.items():
         if cell in cells and source is not None:
             sys.path.insert(0, str(ROOT))          # chip_smoke

@@ -20,7 +20,8 @@ imports no jax:
         [split=DIR,...]
 
 (name: a source of PASSES below, viterbi, deconv_wide, denoise_wide,
-noise_wide, noise_long, apply_wide, seg, cycles_long or cycles_hop.)
+noise_wide, noise_long, apply_wide, seg, cycles_long, cycles_hop,
+proj_part or project_rows.)
 
 split= instead times each CUDA kernel of kernels.refine_f0_dec, by its
 name in a torch.profiler trace, of the package in each DIR (a checkout,
@@ -98,12 +99,27 @@ F0 70-1000 Hz, every 7th frame unvoiced) the same way: without its steps
 (LLSM_SKIP_PASS_A: a step is then its table read) and without its output
 pass (LLSM_SKIP_PASS_B).
 
+only=proj_part times harmonic_project_win's warp kernel (a warp a frame,
+where the 16-frame tile would not leave room for two blocks an SM) at
+phases 20g and 20h (48 kHz at 20 and 50 ms: x [128, 384000], hops 960 /
+2400, C 1920 / 2400, halfwidths to 1372) and at 96 kHz / 200 ms (x [128,
+768000], hop and C 19200, halfwidths to 4800), K 80, every frame's live
+slots random, built without its harmonics (LLSM_SKIP_PASS_A: every slot
+dead, so only the window and x sums walk the columns) and without its
+column walk (LLSM_SKIP_PASS_B); what is left with both is the frame
+records, the zero slots' stores and the launch.  only=project_rows times
+harmonic_project's row kernel (K 80) on 5120 frames of 96 kHz / 200 ms
+(W 38400, live spans to 9601 columns, a third of them past the block's
+staged columns, and to 5487: F0 of 70 Hz or more, every span staged
+once), built without its harmonics (LLSM_SKIP_PASS_A: no group in a pass)
+and without its staging (LLSM_SKIP_PASS_B); what is left with both is the
+walk's loop, the block sums and the stores.
+
 The variants go to build/kernels/ beside the library (listed in
 .gitignore), each under a hash of its source and defines.
 """
 import ctypes
 import importlib
-import importlib.util
 import json
 import math
 import re
@@ -114,6 +130,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from port_harness import load
 
 from libllsm2_tpu_torch.config import ChunkConf
 from libllsm2_tpu_torch.ops import _build, harmonics, kernels
@@ -382,6 +400,66 @@ CYCLES_HOP_SHAPES = (("hop 2400 at 48 kHz", 128, 160, 2400, 48000.0),
                      ("hop 60000 at 96 kHz", 128, 12, 60000, 96000.0))
 
 
+# harmonic_project_win's warp kernel: (label, B, N, nhop, C, H the
+# halfwidths' top), K 80
+PROJ_PART_SHAPES = (("20g 48 kHz 20 ms", 128, 400, 960, 1920, 1372),
+                    ("20h 48 kHz 50 ms", 128, 160, 2400, 2400, 1372),
+                    ("96 kHz 200 ms", 128, 40, 19200, 19200, 4800))
+# harmonic_project's row kernel: (label, R, W, H), K 80, frames of 96 kHz
+# at a 200 ms hop with live spans 2 hw + 1 to 2 H + 1
+PROJECT_ROWS_SHAPES = (("96 kHz 200 ms", 5120, 38400, 4800),
+                       ("96 kHz 200 ms, F0 >= 70 Hz", 5120, 38400, 2743))
+
+
+def proj_part():
+    """harmonic_project_win's warp kernel at PROJ_PART_SHAPES (the
+    docstring says how), a line each."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    r = lambda *s: torch.rand(*s, generator=g, device=dev)
+    for label, Bp, Np, hop, Cp, Hp in PROJ_PART_SHAPES:
+        nx = Np * hop
+        x = r(Bp, nx) - 0.5
+        cyc = torch.remainder(torch.cumsum(r(Bp, nx) * 0.02, -1), 1.0)
+        hw = 2.0 + (Hp - 2.0) * r(Bp, Np)
+        hwi = torch.ceil(hw).to(torch.int32)
+        kl = (r(Bp, Np) * 81).to(torch.int32)
+        args = (x, cyc, hw, Cp - hwi, Cp + hwi + 1, kl)
+        wide_variants(
+            "harmonic_project_win", f"proj_part {label} x [{Bp}, {nx}] K 80 "
+            f"C {Cp}, geometry {kernels._proj_win_geometry(hop, Cp, 80)}",
+            lambda rows: kernels.harmonic_project_win(
+                *(t[:rows] for t in args[:3]), 80,
+                *(t[:rows] for t in args[3:5]), nhop=hop, center=Cp,
+                kl=args[5][:rows]),
+            ("the harmonics", "the column walk"))
+        del args, x, cyc
+        torch.cuda.empty_cache()
+
+
+def project_rows():
+    """harmonic_project's row kernel at PROJECT_ROWS_SHAPES (the
+    docstring says how), a line each."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    r = lambda *s: torch.rand(*s, generator=g, device=dev)
+    for label, R, W, H in PROJECT_ROWS_SHAPES:
+        C = W // 2
+        hw = (2.0 + (H - 2.0) * r(R)).to(torch.int32)
+        lo, hi = (C - hw).to(torch.int32), (C + hw + 1).to(torch.int32)
+        args = ((r(R, W) - 0.5) * 4.0, r(R, W) - 0.5)
+        S = kernels._project_geometry(W, 80)[0]
+        wide_variants(
+            "harmonic_project", f"project_rows {label} [{R}, {W}] K 80, "
+            f"staged columns {S}, {int(((hi - lo) > S).sum())} rows chunked",
+            lambda rows: kernels.harmonic_project(
+                *(t[:R if rows > 1 else 1] for t in args), 80,
+                lo[:R if rows > 1 else 1], hi[:R if rows > 1 else 1]),
+            ("the harmonics", "the staging"))
+        del args
+        torch.cuda.empty_cache()
+
+
 def seg():
     """noise_mod_ola.cu's segment entry at SEG_SHAPES (the docstring says
     how), a line each."""
@@ -428,17 +506,6 @@ def refine_args(nx):
                       halfwin_max=conf.halfwin_max,
                       rel_winsize=conf.rel_winsize, window="hanning",
                       iters=2, max_rel_dev=0.05, pass_hz=pass_hz)
-
-
-def load(root: Path, alias: str):
-    """The libllsm2_tpu_torch package under root, imported as `alias`."""
-    pkg = root / "libllsm2_tpu_torch"
-    spec = importlib.util.spec_from_file_location(
-        alias, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
-    mod = importlib.util.module_from_spec(spec)
-    sys.modules[alias] = mod
-    spec.loader.exec_module(mod)
-    return mod
 
 
 def split(dirs, f0_rand):
@@ -568,6 +635,12 @@ def main():
     if "cycles_hop" in names:
         cycles_long(CYCLES_HOP_SHAPES, "cycles_hop", 1000.0)
         names.remove("cycles_hop")
+    if "proj_part" in names:
+        proj_part()
+        names.remove("proj_part")
+    if "project_rows" in names:
+        project_rows()
+        names.remove("project_rows")
     if not names:
         return 0
     libs = build_variants(names)

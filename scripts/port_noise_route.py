@@ -19,12 +19,12 @@ first option beat each other one.  Imports no jax:
     python3 scripts/port_noise_route.py OTHER_DIR [pairs=16]
 """
 import importlib
-import importlib.util
-import statistics
 import sys
 from pathlib import Path
 
 import torch
+
+from port_harness import load, rounds, same_bits
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
@@ -32,30 +32,6 @@ sys.path.insert(0, str(ROOT))
 # (label, B, N, nhop, C, Ke, fs)
 SHAPES = (("480 9 9 at 48 kHz", 128, 800, 480, 9, 9, 48000.0),
           ("882 4 12 at 44.1 kHz", 128, 400, 882, 4, 12, 44100.0))
-CALLS = 10
-
-
-def load(root: Path, alias: str):
-    """The libllsm2_tpu_torch package under root, imported as `alias`."""
-    pkg = root / "libllsm2_tpu_torch"
-    spec = importlib.util.spec_from_file_location(
-        alias, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
-    mod = importlib.util.module_from_spec(spec)
-    sys.modules[alias] = mod
-    spec.loader.exec_module(mod)
-    return mod
-
-
-def step_ms(fn):
-    """One step of CALLS calls (CUDA events) -> ms a call."""
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    for _ in range(CALLS):
-        fn()
-    e1.record()
-    e1.synchronize()
-    return e0.elapsed_time(e1) / CALLS
 
 
 def forced64(kt, args, bands):
@@ -106,40 +82,11 @@ def main(argv):
               f"the other {ko._noise_geometry(nhop, C, Ke, bands)}",
               flush=True)
         ref = opts["other"]()
-        for name in opts:
-            ok = torch.equal(opts[name](), ref)
-            print(f"{label} {name}: the other checkout's bits {ok}",
-                  flush=True)
-            if not ok:
-                bad.append((label, name))
-        bms, by = chip_smoke.bound(torch, "noise_mod_ola",
-                                   args + (bands,), {}, ref)
+        same_bits(label, opts, ref, bad)
+        bound = chip_smoke.bound(torch, "noise_mod_ola", args + (bands,), {},
+                                 ref)
         del ref
-        for fn in opts.values():       # one untimed step each
-            step_ms(fn)
-        times = {name: [] for name in opts}
-        names = list(opts)
-        for p in range(pairs):
-            k = p % len(names)
-            order = names[k:] + names[:k]
-            if p // len(names) % 2:
-                order = order[::-1]
-            got = {name: step_ms(opts[name]) for name in order}
-            for name in opts:
-                times[name].append(got[name])
-            print(f"{label} round {p} ({', '.join(order)}): " + ", ".join(
-                f"{name} {got[name]:.4f}" for name in opts) + " ms a call",
-                flush=True)
-        for name, ts in times.items():
-            q = statistics.quantiles(ts, n=4)
-            med = statistics.median(ts)
-            print(f"{label} {name}: median {med:.4f} ms a call (quartiles "
-                  f"{q[0]:.4f}-{q[2]:.4f}), {med / bms:.2f}x its bound "
-                  f"{bms:.4f} ms ({by})", flush=True)
-        for name in names[1:]:
-            wins = sum(a < b for a, b in zip(times[names[0]], times[name]))
-            print(f"{label}: {names[0]} faster than {name} in {wins} of "
-                  f"{pairs} rounds", flush=True)
+        rounds(label, opts, pairs, bound, each_round=True)
         del args, cyc, opts
         torch.cuda.empty_cache()
     print(f"failed: {bad}")

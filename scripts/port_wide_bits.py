@@ -59,25 +59,32 @@ what=noise also forces the long noise kernel (where the wide kernel's
 and (480, 9, 9) with chunks of 64, 48, 16 and 32 slots, against the other
 side's wide kernel.  what=proj:
 harmonic_project_win at shapes the 16-frame tile takes (16 kHz's main
-and envelope passes, K 160, 48 kHz at 20 ms, 96 kHz at 12.5 ms, full
-band's K 600), rows 0 / 1 / 64 alone, and this side's smaller tiles and
-column chunks forced onto four of them, each against the other side's
-16-frame tile; harmonic_project at K 1, 4 and 80 and its chunked row
-kernel forced onto [20000, 631].  Prints a line a case and, last, the
-cases that failed; exits 1 if any did.  Imports no jax:
+and envelope passes, K 160, 48 kHz at 10 ms, full band's K 600) and
+where the warp kernel runs (20g, 48 kHz at 20 ms with f0_floor 40, 96 kHz
+at 12.5 ms, 20h at K 80 and 160, 96 kHz at 200 ms), rows 0 / 1 / 64
+alone, and this side's warp kernel forced onto every case in each of its
+layouts (chunks of 32, 96, 512, 1792 and 2048 columns), each against the
+other side's output there (its 16-frame tile, or its own layout past
+it); harmonic_project at K 1, 4, 12, 24, 44, 72 and 80 on
+[20000, 631] and at K 80 on 96 kHz / 200 ms frames [5120, 38400], its
+row kernel forced onto 256, 512, 768 and 6144 staged columns at 2 and 5
+groups of harmonics a pass.  Prints a
+line a case and, last, the cases that failed; exits 1 if any did.
+Imports no jax:
 
     python3 scripts/port_wide_bits.py OTHER_DIR
         [what=deconv,denoise,noise,apply,seg,cycles,proj]
 """
 import ctypes
 import importlib
-import importlib.util
 import statistics
 import subprocess
 import sys
 from pathlib import Path
 
 import torch
+
+from port_harness import load
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -123,34 +130,37 @@ NOISE_FORCED = ((16, 64), (16, 32), (16, 96))
 # chunk)
 NOISE_LONG = ((16, 64), (16, 48), (16, 16), (16, 32))
 # harmonic_project_win: (label, rows of x, frames, hop, center C, K, x rows a
-# cycle row) at shapes the 16-frame tile takes: 16 kHz's main and envelope
-# passes, K 160 (groups of 80), 48 kHz at 20 ms, 96 kHz at 12.5 ms (the
-# largest span that fits) and full band's K 600
-PROJ_CASES = (("16k main", 128, 1600, 80, 480, 80, 1),
-              ("16k envelope", 512, 1600, 20, 120, 4, 4),
-              ("K 160", 128, 1600, 80, 480, 160, 1),
-              ("48k 20 ms", 128, 400, 960, 2880, 80, 1),
-              ("96k 12.5 ms", 128, 640, 1200, 4800, 80, 1),
-              ("48k K 600", 128, 1600, 240, 2400, 600, 1))
-# (frames a block, columns a chunk) forced onto those shapes
-PROJ_FORCED = ((8, 0), (4, 0), (2, 0), (1, 0), (0, 32), (0, 1024))
+# cycle row, halfwidths' top or None for C - 1): shapes the 16-frame tile
+# takes (16 kHz's main and envelope passes, K 160: groups of 80, 48 kHz at
+# 10 ms, full band's K 600) and the warp kernel's (20g: 48 kHz at 20 ms with
+# f0_floor 70, hop 960, C 1920; 48 kHz at 20 ms with f0_floor 40, C 2880;
+# 96 kHz at 12.5 ms; 20h: hop 2400, C 2400; K 160 there; 96 kHz at 200 ms,
+# hop and C 19200, on 32 rows)
+PROJ_CASES = (("16k main", 128, 1600, 80, 480, 80, 1, None),
+              ("16k envelope", 512, 1600, 20, 120, 4, 4, None),
+              ("K 160", 128, 1600, 80, 480, 160, 1, None),
+              ("48k 10 ms", 128, 800, 480, 1920, 80, 1, 1372),
+              ("48k K 600", 128, 1600, 240, 2400, 600, 1, None),
+              ("20g", 128, 400, 960, 1920, 80, 1, 1372),
+              ("48k 20 ms", 128, 400, 960, 2880, 80, 1, None),
+              ("96k 12.5 ms", 128, 640, 1200, 4800, 80, 1, None),
+              ("20h", 128, 160, 2400, 2400, 80, 1, 1372),
+              ("20h K 160", 128, 160, 2400, 2400, 160, 1, 1372),
+              ("96k 200 ms", 32, 40, 19200, 19200, 80, 1, 4800))
+# the warp kernel's layouts (frames a block 0, columns a chunk, bytes)
+# forced onto every case: chunks of 32, 96, 512 (the route's at K <= 8),
+# 1792 (the route's past it) and 2048
+PROJ_FORCED = ((0, 32, 1024), (0, 96, 3072), (0, 512, 16384),
+               (0, 1792, 57344), (0, 2048, 65536))
+# harmonic_project's row kernel: staged columns a block forced, each at 1, 2
+# and 5 groups a pass
+PROJECT_FORCED = (256, 512, 768, 6144)
 # (label, B, N, K)
 APPLY_CASES = (("20e 48k", 128, 1600, 600), ("20e 16k2ms", 128, 4000, 200),
                ("20a", 128, 1600, 160), ("K129", 2, 301, 129),
                ("K203", 2, 301, 203), ("B1", 1, 301, 160))
 # (warps, pairs a warp, stage) forced onto K 100, 127, 128
 APPLY_FORCED = ((1, 3, 1), (2, 1, 1), (4, 7, 1), (4, 2, 0))
-
-
-def load(root: Path, alias: str):
-    """The libllsm2_tpu_torch package under root, imported as `alias`."""
-    pkg = root / "libllsm2_tpu_torch"
-    spec = importlib.util.spec_from_file_location(
-        alias, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
-    mod = importlib.util.module_from_spec(spec)
-    sys.modules[alias] = mod
-    spec.loader.exec_module(mod)
-    return mod
 
 
 def cuda_ms(fn, reps=10):
@@ -498,29 +508,41 @@ SEG_CASES = (("C 9 Ke 9", 128, 9, 1600, 80, 9),
              ("Ke 9 hop 55", 2, 9, 61, 55, 9), ("N 5", 2, 4, 5, 80, 4))
 
 
+def proj_geometry(kmod, nhop, C, K):
+    """kmod._proj_win_geometry at (nhop, C, K), or (nhop, C) in a checkout
+    whose geometry does not take K."""
+    try:
+        return kmod._proj_win_geometry(nhop, C, K)
+    except TypeError:
+        return kmod._proj_win_geometry(nhop, C)
+
+
 def proj(kt, ko, r, bad):
     """harmonic_project_win against the other side's at PROJ_CASES (rows
-    0, 1 and 64 alone too), then this side's smaller tiles and column
-    chunks forced onto the first three and 48 kHz at 20 ms against the
-    other side's 16-frame tile; harmonic_project at K 1, 4 and 80 on
-    [20000, 631] and its chunked row kernel forced there (K 80)."""
-    for label, B, N, nhop, C, K, rep in PROJ_CASES:
+    0, 1 and 64 alone too, where a case has 65 rows), then this side's
+    warp kernel forced onto every case in each layout of PROJ_FORCED,
+    against the other side's output (its 16-frame tile, or past it its own
+    layout); harmonic_project at K 1, 4, 12, 24, 44, 72 and 80 on
+    [20000, 631] and at K 80 on 96 kHz / 200 ms frames ([5120, 38400],
+    live spans to 9601), its row kernel forced onto PROJECT_FORCED's
+    staged columns at 2 and 5 groups a pass."""
+    for label, B, N, nhop, C, K, rep, H in PROJ_CASES:
         nx = N * nhop
         x = r(B, nx) - 0.5
         cyc = torch.remainder(torch.cumsum(r(B // rep, nx) * 0.02, -1), 1.0)
-        hw = 2.0 + (C - 3.0) * r(B, N)
+        hw = 2.0 + ((H or C - 1) - 2.0) * r(B, N)
         hw_int = torch.ceil(hw).to(torch.int32)
         kl = (r(B, N) * (K + 1)).to(torch.int32)
         args = (x, cyc, hw, K, C - hw_int, C + hw_int + 1)
         kw = dict(nhop=nhop, center=C, kl=kl)
         got = kt.harmonic_project_win(*args, **kw)
         ok = all(equal(got, ko.harmonic_project_win(*args, **kw)))
-        geo = kt._proj_win_geometry(nhop, C)
-        print(f"proj {label} x {tuple(x.shape)} K {K} geometry {geo}: "
-              f"equal {ok}", flush=True)
+        geo, other = (proj_geometry(m, nhop, C, K) for m in (kt, ko))
+        print(f"proj {label} x {tuple(x.shape)} K {K} geometry {geo}, "
+              f"other's {other}: equal {ok}", flush=True)
         if not ok:
             bad.append(("proj", label))
-        if rep == 1:
+        if rep == 1 and B > 64:
             for row in (0, 1, 64):
                 one = kt.harmonic_project_win(
                     *(a[row:row + 1] if torch.is_tensor(a) else a
@@ -530,21 +552,20 @@ def proj(kt, ko, r, bad):
                 print(f"proj {label} row {row} alone equal {ok}", flush=True)
                 if not ok:
                     bad.append(("proj row alone", label, row))
-        if label in ("16k main", "16k envelope", "K 160", "48k 20 ms"):
-            keep = kt._proj_win_geometry
-            for F, Q in PROJ_FORCED:
-                kt._proj_win_geometry = lambda *a, g=(F, Q, 0): g
-                try:
-                    one = kt.harmonic_project_win(*args, **kw)
-                finally:
-                    kt._proj_win_geometry = keep
-                ok = all(equal(one, got))
-                print(f"proj {label} forced (frames, columns a chunk) "
-                      f"{(F, Q)}: the 16-frame tile's bits {ok}", flush=True)
-                if not ok:
-                    bad.append(("proj forced", label, F, Q))
+        keep = kt._proj_win_geometry
+        for forced in PROJ_FORCED:
+            kt._proj_win_geometry = lambda *a, g=forced: g
+            try:
+                one = kt.harmonic_project_win(*args, **kw)
+            finally:
+                kt._proj_win_geometry = keep
+            ok = all(equal(one, got))
+            print(f"proj {label} forced {forced}: the other side's bits "
+                  f"{ok}", flush=True)
+            if not ok:
+                bad.append(("proj forced", label, forced))
             del one
-        if label == "16k main":
+        if label in ("16k main", "20g", "20h", "96k 200 ms"):
             for _ in range(2):
                 tt = cuda_ms(lambda: kt.harmonic_project_win(*args, **kw))
                 to = cuda_ms(lambda: ko.harmonic_project_win(*args, **kw))
@@ -552,31 +573,61 @@ def proj(kt, ko, r, bad):
                       flush=True)
         del x, cyc, args, got
         torch.cuda.empty_cache()
-    R, W = 20000, 631
-    dc = (r(R, W) - 0.5) * 4.0
-    lo = (r(R) * (W // 3)).to(torch.int32)
-    hi = (W // 2 + r(R) * (W // 2)).to(torch.int32)
-    col = torch.arange(W, device="cuda")[None, :]
-    xw = (r(R, W) - 0.5) * ((col >= lo[:, None]) & (col < hi[:, None]))
-    for K in (1, 4, 80):
-        got = kt.harmonic_project(dc, xw, K, lo, hi)
-        ok = all(equal(got, ko.harmonic_project(dc, xw, K, lo, hi)))
-        print(f"project [{R}, {W}] K {K}: equal {ok}", flush=True)
-        if not ok:
-            bad.append(("project", K))
-    keep = kt._project_geometry
-    for Q in (128, 8192):
-        kt._project_geometry = lambda *a, g=(Q, 8 * Q): g
-        try:
-            one = kt.harmonic_project(dc, xw, 80, lo, hi)
-        finally:
-            kt._project_geometry = keep
-        ok = all(equal(one, got))
-        print(f"project K 80 forced chunks of {Q}: the whole row's bits {ok}",
-              flush=True)
-        if not ok:
-            bad.append(("project forced", Q))
-    torch.cuda.empty_cache()
+    for R, W, H in ((20000, 631, None), (5120, 38400, 4800)):
+        dc = (r(R, W) - 0.5) * 4.0
+        if H is None:
+            lo = (r(R) * (W // 3)).to(torch.int32)
+            hi = (W // 2 + r(R) * (W // 2)).to(torch.int32)
+        else:
+            hwr = (2.0 + (H - 2.0) * r(R)).to(torch.int32)
+            lo, hi = W // 2 - hwr, W // 2 + hwr + 1
+        col = torch.arange(W, device="cuda")[None, :]
+        xw = (r(R, W) - 0.5) * ((col >= lo[:, None]) & (col < hi[:, None]))
+        del col
+        keep = kt._project_geometry
+        # K 12, 24, 44, 72, 80: 2, 3, 6, 9, 10 groups of 8 harmonics; each K
+        # at the route's geometry and forced to 2 and 5 groups a pass
+        for K in ((1, 4, 12, 24, 44, 72, 80) if H is None else (80,)):
+            ref = ko.harmonic_project(dc, xw, K, lo, hi)
+            got = kt.harmonic_project(dc, xw, K, lo, hi)
+            ok = all(equal(got, ref))
+            print(f"project [{R}, {W}] K {K} geometry "
+                  f"{kt._project_geometry(W, K)}, other's "
+                  f"{ko._project_geometry(W, K)}: equal {ok}", flush=True)
+            if not ok:
+                bad.append(("project", W, K))
+            S = keep(W, K)[0]
+            for G in ((2, 5) if K > 8 else ()):
+                kt._project_geometry = lambda *a, g=(S, 8 * S, G): g
+                try:
+                    ok = all(equal(kt.harmonic_project(dc, xw, K, lo, hi),
+                                   ref))
+                finally:
+                    kt._project_geometry = keep
+                print(f"project [{R}, {W}] K {K} forced {G} groups a pass: "
+                      f"equal {ok}", flush=True)
+                if not ok:
+                    bad.append(("project groups", W, K, G))
+            del ref
+        for S, G in ((S, G) for S in PROJECT_FORCED for G in (2, 5)):
+            kt._project_geometry = lambda *a, g=(S, 8 * S, G): g
+            try:
+                one = kt.harmonic_project(dc, xw, 80, lo, hi)
+            finally:
+                kt._project_geometry = keep
+            ok = all(equal(one, got))
+            print(f"project [{R}, {W}] K 80 forced {S} staged columns, {G} "
+                  f"groups a pass: the other side's bits {ok}", flush=True)
+            if not ok:
+                bad.append(("project forced", W, S, G))
+        if H is not None:
+            for _ in range(2):
+                tt = cuda_ms(lambda: kt.harmonic_project(dc, xw, 80, lo, hi))
+                to = cuda_ms(lambda: ko.harmonic_project(dc, xw, 80, lo, hi))
+                print(f"project [{R}, {W}] K 80 ms this {tt:.4f} other "
+                      f"{to:.4f}", flush=True)
+        del dc, xw, got
+        torch.cuda.empty_cache()
 
 
 def rows_alone(label, fn, args, got, bad, what):

@@ -371,30 +371,31 @@ def test_denoise_finish_past_2_31_slots_on_card():
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("K,nhop,W,rep,Nf", [
     (80, 80, 960, 1, 301), (4, 20, 240, 4, 301),
-    # past the 16-frame tile's span: 48 kHz at 35 ms (8 frames a tile), 96
-    # kHz at 20 ms (8), 48 kHz at 50 ms (8), 16 kHz at 250 ms (4), 96 kHz
-    # at 200 ms (chunks of a frame's columns) and its envelope pass (hop
-    # 4800, W 9600: 4 frames a tile)
-    (80, 1680, 6720, 1, 37), (80, 1920, 11520, 1, 37),
-    (80, 2400, 4800, 1, 37), (80, 4000, 8000, 1, 37),
-    (80, 19200, 38400, 1, 13), (4, 4800, 9600, 4, 13)])
+    # where the 16-frame tile would not leave room for two blocks an SM
+    # (the warp kernel): 48 kHz at 20 ms (20g: hop 960, C 1920) and at 35
+    # ms, 96 kHz at 20 ms, 48 kHz at 50 ms (20h), 16 kHz at 250 ms, 96 kHz
+    # at 200 ms and its envelope pass (hop 4800, W 9600), K 120 at 20h
+    (80, 960, 3840, 1, 37), (80, 1680, 6720, 1, 37),
+    (80, 1920, 11520, 1, 37), (80, 2400, 4800, 1, 37),
+    (80, 4000, 8000, 1, 37), (80, 19200, 38400, 1, 13),
+    (4, 4800, 9600, 4, 13), (120, 2400, 4800, 1, 37)])
 def test_harmonic_project_win_kernel_matches_plain_on_card(K, nhop, W, rep,
                                                            Nf):
     """The main pass (K = 80, hop 80, W = 960) and the envelope pass (K = 4,
     hop 20, W = 240, four x rows on each cycle row) on 3 utterances of 301
     frames: a ragged last 16-frame tile, and the first and last frames
-    reaching past both ends (zero x, edge cyc); past the 16-frame tile's
-    shared memory (kernels._proj_win_geometry) the smaller tiles and the
-    column chunks, on rows of 37 or 13 frames (ragged for every tile).
-    re/im/xsum within 2e-3, wsum 1e-5 relative (test_pallas.py's), slots
-    at or above kl exact zeros, and each utterance's rows equal to the
-    kernel on it alone."""
+    reaching past both ends (zero x, edge cyc); where the 16-frame tile
+    would not leave room for two blocks an SM (kernels._proj_win_geometry)
+    the warp kernel, on rows of 37 or 13 frames (ragged for its 4-frame
+    blocks).  re/im/xsum within 2e-3, wsum 1e-5 relative (test_pallas.py's),
+    slots at or above kl exact zeros, and each utterance's rows equal to
+    the kernel on it alone."""
     dev = _card()
     x, cyc, hw, lo, hi, C = (T(a).to(dev) if isinstance(a, np.ndarray) else a
                              for a in _win_inputs(nhop, W, K, B=3 * rep,
                                                   Nf=Nf))
-    F = kernels._proj_win_geometry(nhop, C)[0]
-    assert F == 16 if nhop <= 80 else F < 16
+    F = kernels._proj_win_geometry(nhop, C, K)[0]
+    assert F == (16 if nhop <= 80 else 0)
     cyc = cyc[::rep].contiguous()
     kl = torch.randint(0, K + 1, hw.shape, device=dev, dtype=torch.int32,
                        generator=torch.Generator(dev).manual_seed(K))
@@ -418,16 +419,22 @@ def test_harmonic_project_win_kernel_matches_plain_on_card(K, nhop, W, rep,
             assert torch.equal(g[b], a[0])
 
 
+# the warp kernel's layouts (frames a block 0, columns a chunk, bytes):
+# chunks of 32, 96 (ragged against a frame's span), 512 (the envelope
+# pass's), 1792 (the main pass's) and 2048 columns
+PROJ_WARP_LAYOUTS = ((0, 32, 1024), (0, 96, 3072), (0, 512, 16384),
+                     (0, 1792, 57344), (0, 2048, 65536))
+
+
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("K,nhop,W,rep", [(80, 80, 960, 1), (4, 20, 240, 4),
                                           (120, 80, 960, 1)])
 def test_harmonic_project_win_tiles_equal_the_16_frame_tile_on_card(
         K, nhop, W, rep, monkeypatch):
-    """harmonic_project_win forced onto smaller tiles (8, 4, 2, 1 frames)
-    and onto column chunks (32, 96 and 1024 columns a chunk, a warp a
-    frame) at shapes the 16-frame tile takes, the main pass, the envelope
-    pass and K = 120 (groups of 80): every output the 16-frame tile's
-    bits, one launch counted each."""
+    """harmonic_project_win forced onto the warp kernel, each of
+    PROJ_WARP_LAYOUTS, at shapes the 16-frame tile takes, the main pass,
+    the envelope pass and K = 120 (groups of 80): every output the
+    16-frame tile's bits, one launch counted each."""
     dev = _card()
     x, cyc, hw, lo, hi, C = (T(a).to(dev) if isinstance(a, np.ndarray) else a
                              for a in _win_inputs(nhop, W, K + 1, B=2 * rep,
@@ -436,18 +443,57 @@ def test_harmonic_project_win_tiles_equal_the_16_frame_tile_on_card(
     kl = torch.randint(0, K + 1, hw.shape, device=dev, dtype=torch.int32,
                        generator=torch.Generator(dev).manual_seed(K))
     kw = dict(nhop=nhop, center=C, kl=kl)
-    assert kernels._proj_win_geometry(nhop, C)[0] == 16
+    assert kernels._proj_win_geometry(nhop, C, K)[0] == 16
     ref = kernels.harmonic_project_win(x, cyc, hw, K, lo, hi, **kw)
-    for F, Q in ((8, 0), (4, 0), (2, 0), (1, 0), (0, 32), (0, 96),
-                 (0, 1024)):
+    for geo in PROJ_WARP_LAYOUTS:
         monkeypatch.setattr(kernels, "_proj_win_geometry",
-                            lambda *a, g=(F, Q, 0): g)
+                            lambda *a, g=geo: g)
         n0 = kernels.LAUNCHES["harmonic_project_win"]
         got = kernels.harmonic_project_win(x, cyc, hw, K, lo, hi, **kw)
         torch.cuda.synchronize()
         monkeypatch.undo()
         assert kernels.LAUNCHES["harmonic_project_win"] == n0 + 1
-        assert all(torch.equal(g, r) for g, r in zip(got, ref)), (F, Q)
+        assert all(torch.equal(g, r) for g, r in zip(got, ref)), geo
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("K,nhop,W,Nf", [(80, 960, 3840, 37),
+                                         (80, 2400, 4800, 37),
+                                         (120, 2400, 4800, 37),
+                                         (80, 19200, 38400, 13)])
+def test_harmonic_project_win_warp_layouts_at_long_hops_on_card(
+        K, nhop, W, Nf, monkeypatch):
+    """The warp kernel at 20g's, 20h's and 96 kHz / 200 ms's hops and
+    centres (and K 120 at 20h: groups of 80) on 65 utterances of 37 or 13
+    frames (its 4-frame blocks ragged at every row's end and across rows):
+    the route's layout against the twin (re/im/xsum 2e-3, wsum 1e-5
+    relative), every other layout of PROJ_WARP_LAYOUTS its bits, and rows
+    0, 1 and 64 each alone equal to their rows of the batch."""
+    dev = _card()
+    x, cyc, hw, lo, hi, C = (T(a).to(dev) if isinstance(a, np.ndarray) else a
+                             for a in _win_inputs(nhop, W, K + 2, B=65,
+                                                  Nf=Nf))
+    kl = torch.randint(0, K + 1, hw.shape, device=dev, dtype=torch.int32,
+                       generator=torch.Generator(dev).manual_seed(K + 2))
+    kw = dict(nhop=nhop, center=C, kl=kl)
+    assert kernels._proj_win_geometry(nhop, C, K)[0] == 0
+    got = kernels.harmonic_project_win(x, cyc, hw, K, lo, hi, **kw)
+    ref = kernels.harmonic_project_win_ref(x, cyc, hw, K, lo, hi, **kw)
+    for g, r in zip(got[:2] + got[3:], ref[:2] + ref[3:]):
+        torch.testing.assert_close(g, r, atol=2e-3, rtol=0)
+    torch.testing.assert_close(got[2], ref[2], atol=0, rtol=1e-5)
+    del ref
+    for geo in PROJ_WARP_LAYOUTS:
+        monkeypatch.setattr(kernels, "_proj_win_geometry",
+                            lambda *a, g=geo: g)
+        one = kernels.harmonic_project_win(x, cyc, hw, K, lo, hi, **kw)
+        monkeypatch.undo()
+        assert all(torch.equal(o, g) for o, g in zip(one, got)), geo
+    for b in (0, 1, 64):
+        alone = kernels.harmonic_project_win(
+            x[b:b + 1], cyc[b:b + 1], hw[b:b + 1], K, lo[b:b + 1],
+            hi[b:b + 1], nhop=nhop, center=C, kl=kl[b:b + 1])
+        assert all(torch.equal(g[b], a[0]) for g, a in zip(got, alone)), b
 
 
 def _mxu_inputs(B, Nf, nhop, H, seed):
@@ -466,15 +512,16 @@ def _mxu_inputs(B, Nf, nhop, H, seed):
 
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("K,W,R", [(1, 631, N), (4, 631, N), (80, 631, N),
-                                   (80, 38400, 40)])
+                                   (80, 38400, 40), (12, 38400, 40)])
 def test_harmonic_project_kernel_matches_plain_on_card(K, W, R):
     """K = 1 (the full-rate refine probe's shape: one warp per row), K = 4
     (the same kernel rotating) and K = 80 (one block per row), with each
     row's live columns [lo, hi); at W = 38400 (a frame of 96 kHz at a 200
-    ms hop: past a row's shared memory) the row kernel staging its live
-    columns in chunks, on frames as the analysis windows them; 2e-3
-    absolute (test_pallas.py:46), the rows of a chunked launch also each
-    equal to the kernel on it alone."""
+    ms hop) on frames as the analysis windows them, rows 0-1 with live
+    spans of 5487 columns (F0 70 Hz) and 6144 (the block's staged columns:
+    staged once) and rows 2-3 of 6145 and 9601 (f0_floor 40: through the
+    chunk buffers), the rest random; 2e-3 absolute (test_pallas.py:46),
+    the long rows also each equal to the kernel on it alone."""
     dev = _card()
     rng = np.random.default_rng(K + W)
     dc = rng.uniform(-2, 2, (R, W)).astype(np.float32)
@@ -484,11 +531,16 @@ def test_harmonic_project_kernel_matches_plain_on_card(K, W, R):
         # centre (f0_floor 40 at 96 kHz), xw a Hann-windowed signal of rms
         # 0.25
         C, hw = W // 2, rng.integers(2, 4801, R)
+        hw[:4] = (2743, 3072, 3072, 4800)
         lo, hi = (C - hw).astype(np.int32), (C + hw + 1).astype(np.int32)
+        hi[1] -= 1
         win = np.where(np.abs(col - C) <= hw[:, None],
                        0.5 + 0.5 * np.cos(np.pi * (col - C) / hw[:, None]),
                        0.0)
         xw = (0.25 * rng.standard_normal((R, W)) * win).astype(np.float32)
+        S = kernels._project_geometry(W, K)[0]
+        assert list(hi[:4] - lo[:4]) == [5487, 6144, 6145, 9601]
+        assert list(hi[:4] - lo[:4] > S) == [False, False, True, True]
     else:
         lo = rng.integers(0, W // 3, R).astype(np.int32)
         hi = (lo + rng.integers(1, W - lo)).astype(np.int32)
@@ -501,11 +553,12 @@ def test_harmonic_project_kernel_matches_plain_on_card(K, W, R):
     ref = kernels.harmonic_project_ref(*args, K, lo, hi)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["harmonic_project"] == 1
-    assert (kernels._project_geometry(W, K)[0] > 0) == (W > 29000)
+    if K > 8:
+        assert (kernels._project_geometry(W, K)[0] < W) == (W > 29000)
     for g, r in zip(got, ref):
         torch.testing.assert_close(g, r, atol=2e-3, rtol=0)
     if W > 29000:
-        for n in (0, R - 1):
+        for n in (0, 1, 2, 3, R - 1):
             alone = kernels.harmonic_project(args[0][n:n + 1],
                                              args[1][n:n + 1], K,
                                              lo[n:n + 1], hi[n:n + 1])
@@ -513,26 +566,40 @@ def test_harmonic_project_kernel_matches_plain_on_card(K, W, R):
 
 
 @pytest.mark.requires_cuda
-def test_harmonic_project_chunks_equal_the_whole_row_on_card(monkeypatch):
-    """harmonic_project's row kernel forced to stage its live columns in
-    chunks of 128, 384 and 8192 columns at K = 80, W = 631 (a row the
-    whole-row kernel takes): every output the whole-row kernel's bits."""
+@pytest.mark.parametrize("W,K", [(631, 80), (631, 12), (631, 200),
+                                 (38400, 80)])
+def test_harmonic_project_chunks_equal_the_whole_row_on_card(W, K,
+                                                             monkeypatch):
+    """harmonic_project's row kernel forced to stream its live columns
+    through two chunk buffers of 128 and 384 columns (S 256 and 768), and
+    at W = 38400 with S 6144 (the route's: spans to 6143, each staged once)
+    and 12288, each at 2 and 5 groups of 8 harmonics a pass, at K 80, 12
+    (two groups: one pass) and 200: every output the bits of the route's
+    own layout -- each row's span staged once (all of W = 631, two groups
+    a pass; five at W = 38400), whose sums are those of the one-group walk
+    it replaced (port_wide_bits.py what=proj holds them to it)."""
     dev = _card()
-    rng = np.random.default_rng(3)
-    W, K = 631, 80
-    dc, xw = (T(rng.uniform(-2, 2, (N, W)).astype(np.float32)).to(dev)
+    rng = np.random.default_rng(3 + W)
+    R = N if W < 1000 else 40
+    dc, xw = (T(rng.uniform(-2, 2, (R, W)).astype(np.float32)).to(dev)
               for _ in range(2))
-    lo = T(rng.integers(0, W // 3, N).astype(np.int32)).to(dev)
-    hi = T(rng.integers(W // 2, W, N).astype(np.int32)).to(dev)
-    assert kernels._project_geometry(W, K)[0] == 0
+    lo = T(rng.integers(0, W // 3, R).astype(np.int32)).to(dev)
+    hi = T(rng.integers(W // 2, W, R).astype(np.int32)).to(dev)
+    if W > 29000:
+        hw = T(rng.integers(2, 3072, R).astype(np.int32)).to(dev)
+        lo, hi = W // 2 - hw, W // 2 + hw + 1
+    S, _, G = kernels._project_geometry(W, K)
+    assert S == min(W, 6144) and bool(((hi - lo) <= S).all())
+    assert G == (5 if W > 29000 else 2)
     ref = kernels.harmonic_project(dc, xw, K, lo, hi)
-    for Q in (128, 384, 8192):
-        monkeypatch.setattr(kernels, "_project_geometry",
-                            lambda *a, g=(Q, 8 * Q): g)
-        got = kernels.harmonic_project(dc, xw, K, lo, hi)
-        torch.cuda.synchronize()
-        monkeypatch.undo()
-        assert all(torch.equal(g, r) for g, r in zip(got, ref)), Q
+    for S in (256, 768) + ((6144, 12288) if W > 29000 else ()):
+        for G in (2, 5):
+            monkeypatch.setattr(kernels, "_project_geometry",
+                                lambda *a, g=(S, 8 * S, G): g)
+            got = kernels.harmonic_project(dc, xw, K, lo, hi)
+            torch.cuda.synchronize()
+            monkeypatch.undo()
+            assert all(torch.equal(g, r) for g, r in zip(got, ref)), (S, G)
 
 
 @pytest.mark.requires_cuda

@@ -75,6 +75,7 @@ KNOB = textwrap.dedent("""
     import jax.numpy as jnp
     import numpy as np
     import torch
+    torch.set_num_threads(1)
     from libllsm2_tpu import fp as jfp
     from libllsm2_tpu_torch.ops import kernels
 
@@ -125,6 +126,7 @@ CARD_DRAW = textwrap.dedent("""
     import jax.numpy as jnp
     import numpy as np
     import torch
+    torch.set_num_threads(1)
     from libllsm2_tpu import fp as jfp
     from libllsm2_tpu_torch.ops import kernels
 
@@ -165,12 +167,34 @@ CARD_DRAW = textwrap.dedent("""
 
 
 def _run(script, marker):
+    """Runs script in a fresh interpreter with LLSM_FP64=1 and asserts it
+    exits 0 and prints marker; a failure says how the subprocess ended (its
+    return code, the signal that ended it, or the time limit) with the
+    tails of its stdout and stderr.  The subprocess gets one XLA CPU
+    device (no inherited virtual device count) and one PyTorch thread: it
+    needs no more, and a full parallel run of the suite leaves it no
+    more."""
+    flags = " ".join(f for f in os.environ.get("XLA_FLAGS", "").split()
+                     if "xla_force_host_platform_device_count" not in f)
     env = dict(os.environ, LLSM_FP64="1", PYTHONPATH=REPO,
-               JAX_PLATFORMS="cpu")
-    r = subprocess.run([sys.executable, "-c", script], env=env,
-                       capture_output=True, text=True, timeout=600)
-    assert r.returncode == 0, r.stderr[-3000:]
-    assert marker in r.stdout, r.stdout
+               JAX_PLATFORMS="cpu", XLA_FLAGS=flags, OMP_NUM_THREADS="1")
+    tail = lambda t, n: (t.decode(errors="replace")
+                         if isinstance(t, bytes) else t or "")[-n:]
+    try:
+        r = subprocess.run([sys.executable, "-c", script], env=env,
+                           capture_output=True, text=True, timeout=600)
+    except subprocess.TimeoutExpired as e:
+        raise AssertionError(
+            f"still running after {e.timeout} s\n--- stdout tail ---\n"
+            f"{tail(e.stdout, 2000)}\n--- stderr tail ---\n"
+            f"{tail(e.stderr, 3000)}") from None
+    # a negative return code is the signal that ended the subprocess
+    why = (f"return code {r.returncode}"
+           + (f" (signal {-r.returncode})" if r.returncode < 0 else "")
+           + f"\n--- stdout tail ---\n{tail(r.stdout, 2000)}"
+           + f"\n--- stderr tail ---\n{tail(r.stderr, 3000)}")
+    assert r.returncode == 0, why
+    assert marker in r.stdout, why
 
 
 def test_fp64_round_trip_matches_jax():

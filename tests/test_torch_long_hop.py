@@ -127,11 +127,11 @@ def _launches(fs, thop):
     # decimation's rate); a window outside the cosine series on frame
     # buffers through harmonic_project
     D = tl0._env_decimation(conf, 4, nx)
-    for name, hop, h in (("main", nhop, H),
-                         ("envelope", nhop // D, -(-H // D))):
+    for name, hop, h, k in (("main", nhop, H, K),
+                            ("envelope", nhop // D, -(-H // D), 4)):
         C = -(-h // hop) * hop
-        F, Q, nbytes = kernels._proj_win_geometry(hop, C)
-        assert F in kernels._PROJ_TILES or (F == 0 and Q > 0)
+        F, Q, nbytes = kernels._proj_win_geometry(hop, C, k)
+        assert F in (kernels._PROJ_TILE, 0)
         out[f"harmonic_project_win {name}"] = nbytes + kernels._PROJ_STATIC
     C = -(-H // nhop) * nhop
     out["harmonic_project"] = (kernels._project_geometry(2 * C, K)[1]
@@ -187,24 +187,64 @@ def test_every_geometry_fits_a_block_at_every_hop():
     assert not over, over
 
 
-@pytest.mark.parametrize("fs,thop,F", [(48000.0, 0.02, 16),
-                                       (48000.0, 0.035, 8),
-                                       (96000.0, 0.0125, 16),
-                                       (96000.0, 0.015, 8),
-                                       (16000.0, 0.25, 4),
-                                       (96000.0, 0.2, 0)])
-def test_projection_tile_by_hop(fs, thop, F):
-    """_proj_win_geometry's frames a block at the main pass's C (hh whole
-    hops of the window's reach): the 16-frame tile where its span fits
-    (48 kHz to 30 ms, 96 kHz to 12.5 ms), 8 frames past it, 4 at 16 kHz /
-    250 ms, and chunks of 1024 columns a warp at 96 kHz / 200 ms, whose
-    frame (2 C = 38400 columns) is past one block's shared memory."""
-    conf = tpkg.create_aoptions(fs=fs, thop=thop).conf
+@pytest.mark.parametrize("fs,thop,f0_floor,F", [
+    (16000.0, 0.005, 40.0, 16), (48000.0, 0.01, 70.0, 16),
+    (48000.0, 0.01, 40.0, 16), (48000.0, 0.02, 70.0, 0),
+    (48000.0, 0.02, 40.0, 0), (48000.0, 0.05, 70.0, 0),
+    (96000.0, 0.0125, 40.0, 0), (16000.0, 0.25, 40.0, 0),
+    (96000.0, 0.2, 40.0, 0)])
+def test_projection_tile_by_hop(fs, thop, f0_floor, F):
+    """_proj_win_geometry at the main pass's C (hh whole hops of the
+    window's reach), by hand: the 16-frame tile where its span's 8 (15 nhop
+    + 2 C) bytes and the frame records leave room for two blocks an SM
+    (phase 5's 16 kHz, 20b's 48 kHz at 10 ms: 96000 bytes at f0_floor 40);
+    elsewhere the warp kernel, a warp a frame and two a block, staging its
+    live columns in chunks of 1792 (two buffers of x and cyc: 57344 bytes a
+    block, four blocks an SM, as its registers allow; 512 at K 4, the
+    envelope pass's): 20g (hop 960, C 1920 at
+    f0_floor 70: 145920 bytes, one block an SM), 48 kHz at 20 ms with
+    f0_floor 40 (C 2880), 20h (hop 2400), 96 kHz at 12.5 ms (C 4800: 220800
+    bytes, one block), 16 kHz at 250 ms and 96 kHz at 200 ms, whose frame
+    alone (2 C = 38400 columns) is past a block's shared memory."""
+    conf = tpkg.create_aoptions(fs=fs, thop=thop, f0_floor=f0_floor).conf
     C = -(-conf.halfwin_max // conf.nhop) * conf.nhop
-    geo = kernels._proj_win_geometry(conf.nhop, C)
-    assert geo[0] == F
-    span = (F - 1) * conf.nhop + 2 * C if F else 0
-    assert geo == ((F, 0, 8 * span) if F else (0, 1024, 8 * 4 * 1024))
+    span = 8 * (15 * conf.nhop + 2 * C)
+    geo = kernels._proj_win_geometry(conf.nhop, C, conf.maxnhar)
+    assert geo == ((16, 0, span) if F else (0, 1792, 2 * 16 * 1792))
+    assert 4 * (2 * 16 * 1792 + 1024) <= 233472
+    assert kernels._proj_win_geometry(conf.nhop, C, 4)[1:] == (
+        (0, span) if F else (512, 2 * 16 * 512))
+    assert (2 * (span + 256 + 1024) <= 233472) == (F == 16)
+    if (fs, thop, f0_floor) == (48000.0, 0.02, 70.0):
+        assert (conf.nhop, C, span) == (960, 1920, 145920)
+
+
+@pytest.mark.parametrize("span,chunked", [(1, False), (5487, False),
+                                          (6144, False), (6145, True),
+                                          (9601, True)])
+def test_project_layout_by_live_span(span, chunked):
+    """harmonic_project's row kernel (K > 8) at 96 kHz / 200 ms (W = 2 C =
+    38400 columns), by hand: its block stages S = 6144 columns (49152
+    bytes, beside the 1280 of a pass's block sums: four blocks an SM), so
+    a frame whose live span fits -- every F0 of 70 Hz or more, 2
+    ceil(2 fs / F0) + 1 = 5487 columns -- is staged once, and a longer one
+    (to 9601 at f0_floor 40) streams through two buffers of S / 2 = 3072
+    columns, a multiple of the block's 128 threads; a pass walks the
+    columns for five groups of 8 harmonics on such a row (past 2048
+    columns) and for two on a short row (631 columns: a whole row staged,
+    eight blocks an SM); K <= 8 stages nothing."""
+    conf = tpkg.create_aoptions(fs=96000.0, thop=0.2).conf
+    W = 2 * (-(-conf.halfwin_max // conf.nhop) * conf.nhop)
+    assert W == 38400 and 2 * conf.halfwin_max + 1 == 9601
+    S, nbytes, G = kernels._project_geometry(W, 80)
+    assert (S, nbytes, G) == (6144, 49152, 5)
+    assert 4 * (nbytes + kernels._PROJECT_STATIC + 1024) <= 233472
+    assert (span > S) == chunked and (S // 2) % 128 == 0
+    assert 2 * int(np.ceil(2 * 96000.0 / 70.0)) + 1 == 5487
+    assert kernels._project_geometry(W, 8) == (0, 0, 0)
+    assert kernels._project_geometry(631, 80) == (631, 8 * 631, 2)
+    assert kernels._project_geometry(2048, 80)[2] == 2
+    assert kernels._project_geometry(2049, 80)[2] == 5
 
 
 # hops whose noise runs the long kernel at the default ChunkConf: 44.1 kHz
