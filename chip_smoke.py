@@ -386,10 +386,12 @@ non-zero without the final "ok" line:
      twin, paths and last scores bit for bit, at S = 257 (renormalized),
      512 (not) and 1025 (renormalized) on seeded scores in eighths with
      -inf entries under the tracker's transitions at that S ([64, 1600,
-     S], row 0 alone, rows 0 and 1 joined into one 3200-frame row); then
-     the tracker with F0Config(nbins=384) on 64 bench rows: one launch,
-     its call against the twin bit for bit, a finite track (S 257 to 2048
-     run viterbi.cu's grid kernel).  20e, full band (maxnhar = fs / 2 /
+     S], row 0 alone, rows 0 and 1 joined into one 3200-frame row), then
+     at S = 2049 (renormalized) and 4097 (not), [64, 1600, S] and row 0
+     alone; then the tracker with F0Config(nbins=384) and nbins=2048 on
+     64 bench rows: one launch each, its call against the twin bit for
+     bit, a finite track (S 257 to 2048 run viterbi.cu's grid kernel, past
+     it its stream kernel), each case timed beside its bound.  20e, full band (maxnhar = fs / 2 /
      f0_floor at phase 5's options with f0_floor 40): 48 kHz at the 5 ms
      hop (K = 600, D = 11; the bench rows resampled on the card, every F0
      frame) and 16 kHz at a 2 ms hop (K = 200, D = 26, fnyq 8000; the
@@ -808,8 +810,10 @@ LONG_HOP_ROWS = 32            # 20h's 96 kHz / 200 ms noise case (its twin's
                               # [C, 19201, 38400] matrices: ~40 GB)
 WIDE_TAPS = {"2 ms hop": (33, 17), "5 Hz at 5 ms": (41, 21)}   # 20c
 WIDE_STATES = ((257, True), (512, False), (1025, True))        # 20d
+# past 2048 states (the stream kernel): [64, 1600, S] and row 0 alone
+WIDE_STREAM_STATES = ((2049, True), (4097, False))
 WIDE_VITERBI_ROWS = 64
-WIDE_TRACKER_NBINS = 384
+WIDE_TRACKER_NBINS = (384, 2048)
 MAIN_SIX = tuple(KERNELS)[:6]     # the library-default path's CUDA kernels
 # ... and its frame-axis FIR, noise draw, cycle track and F0 refine
 MAIN = MAIN_SIX + ("fir_frames", "noise_bins", "sample_cycles",
@@ -4778,12 +4782,12 @@ def wide_path(torch, mods, label, opt, sopt, data, pins,
 
 def wide_viterbi(torch, kernels, f0mod, x):
     """Phase 20d: viterbi_scan against its twin past 256 states, then the
-    tracker at nbins = WIDE_TRACKER_NBINS on bench rows x -> (cases, the
-    tracker run's launches)."""
+    tracker at each of WIDE_TRACKER_NBINS on bench rows x -> (cases, the
+    tracker runs' launches)."""
     dev = x.device
     g = torch.Generator(device=dev).manual_seed(20)
     cases = []
-    for S, renorm in WIDE_STATES:
+    for S, renorm in WIDE_STATES + WIDE_STREAM_STATES:
         obs = torch.round(torch.rand((WIDE_VITERBI_ROWS, 1600, S),
                                      generator=g, device=dev) * -96.0) / 8.0
         obs[torch.rand(obs.shape, generator=g, device=dev) < 0.1] = \
@@ -4791,33 +4795,56 @@ def wide_viterbi(torch, kernels, f0mod, x):
         obs[..., 0] = -1.0          # no frame all -inf
         lt = f0mod._tables(f0mod.F0Config(nbins=S - 1), dev)["lt"]
         geo = kernels._viterbi_geometry(1600, S)
-        for label, o in (("", obs), (" row 0", obs[:1]),
-                         (" rows 0-1 joined (3200 frames)",
-                          obs[:2].reshape(1, 3200, S))):
+        runs = (("", obs), (" row 0", obs[:1]))
+        if (S, renorm) in WIDE_STATES:
+            runs += ((" rows 0-1 joined (3200 frames)",
+                      obs[:2].reshape(1, 3200, S)),)
+        for label, o in runs:
             case = check_kernel(torch, kernels, VITERBI, KERNELS[VITERBI][2],
                                 (o, lt, renorm), {"scores": True},
                                 f"S {S}{label}", prefix="20d", reps=3)
             case["geometry"] = list(geo)
+            if geo[3] == 5:
+                case["geometry"].append(list(kernels._viterbi_stream(
+                    o.shape[0], S, kernels._sm_count(dev))))
+                phase(f"20d S {S}{label} stream kernel",
+                      case["max_abs_err"] == 0.0,
+                      f"[{o.shape[0]}, {o.shape[1]}, {S}] {case['ms']:.4f} "
+                      f"ms against its bound {case['bound_ms']:.4f} ms "
+                      f"({case['bound_by']}): "
+                      f"{case['ms'] / case['bound_ms']:.2f}x; grid (warps, "
+                      f"dest warps, row warps, rows a thread, slices, row "
+                      f"blocks, chunk, bytes) {case['geometry'][-1]}; twin "
+                      f"{case['plain_ms']:.1f} ms")
             cases.append(case)
-        del obs
-    torch.cuda.empty_cache()
-    cfg = f0mod.F0Config(fs=16000.0, nhop=80, f0_floor=70.0,
-                         nbins=WIDE_TRACKER_NBINS)
-    kernels.reset_launches()
-    calls, f0 = capture_kernel_inputs(
-        kernels, (VITERBI,), lambda: f0mod.track_batch(cfg, x))
-    torch.cuda.synchronize()
-    launches = dict(kernels.LAUNCHES)
-    S = calls[VITERBI][0][0][0].shape[-1]
-    phase("20d tracker nbins 384", launches[VITERBI] == len(calls[VITERBI])
-          >= 1 and S == WIDE_TRACKER_NBINS + 1
-          and bool(torch.isfinite(f0).all() and (f0 >= 0).all()),
-          f"f0 {tuple(f0.shape)} finite, {float((f0 > 0).float().mean()):.4f}"
-          f" voiced; {launches[VITERBI]} viterbi_scan launch(es) at S {S}")
-    args, kw = calls[VITERBI][0]
-    cases.append(check_kernel(torch, kernels, VITERBI, KERNELS[VITERBI][2],
-                              args, dict(kw, scores=True),
-                              "tracker nbins 384", prefix="20d", reps=3))
+        del obs, lt
+        torch.cuda.empty_cache()
+    launches = {}
+    for nbins in WIDE_TRACKER_NBINS:
+        cfg = f0mod.F0Config(fs=16000.0, nhop=80, f0_floor=70.0, nbins=nbins)
+        kernels.reset_launches()
+        calls, f0 = capture_kernel_inputs(
+            kernels, (VITERBI,), lambda: f0mod.track_batch(cfg, x))
+        torch.cuda.synchronize()
+        got = dict(kernels.LAUNCHES)
+        S = calls[VITERBI][0][0][0].shape[-1]
+        phase(f"20d tracker nbins {nbins}",
+              got[VITERBI] == len(calls[VITERBI]) == 1 and S == nbins + 1
+              and bool(torch.isfinite(f0).all() and (f0 >= 0).all()),
+              f"f0 {tuple(f0.shape)} finite, "
+              f"{float((f0 > 0).float().mean()):.4f} voiced; "
+              f"{got[VITERBI]} viterbi_scan launch(es) at S {S}, lt mode "
+              f"{kernels._viterbi_geometry(f0.shape[-1], S)[3]}")
+        for name, n in got.items():
+            launches[name] = launches.get(name, 0) + n
+        args, kw = calls[VITERBI][0]
+        cases.append(check_kernel(torch, kernels, VITERBI,
+                                  KERNELS[VITERBI][2], args,
+                                  dict(kw, scores=True),
+                                  f"tracker nbins {nbins}", prefix="20d",
+                                  reps=3))
+        del calls, f0, args
+        torch.cuda.empty_cache()
     return cases, launches
 
 
@@ -5291,7 +5318,8 @@ def wide_phase(torch, mods, opt, sopt, data, summary, full, by_phase):
     del args
     join_wide({"denoise_stats": cases})
     torch.cuda.empty_cache()
-    # 20d: the Viterbi past 256 states, then the tracker at nbins 384
+    # 20d: the Viterbi past 256 states, then the tracker at nbins 384 and
+    # 2048
     cases, by_phase["20d"] = wide_viterbi(torch, kernels, f0mod,
                                           x[:WIDE_VITERBI_ROWS])
     join({VITERBI: cases})

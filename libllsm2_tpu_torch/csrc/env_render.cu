@@ -25,12 +25,53 @@
 // code a sample at a time with scalar loads and stores.  Threads walk the
 // tile's (frame, run) pairs in order, the pair advanced by adding the
 // stride's quotient and remainder (one divide a thread, none a sample).
-// Past Ke = 8 (maxnhar_e >= 9) env_render_wide_kernel takes a sample a
-// thread, its ladder a rotation at a time inside each channel's sum
-// (common.cuh's envelope_sample, as noise_mod_ola.cu renders it): no
-// register arrays sized by Ke, so any Ke whose coefficients fit in shared
-// memory.
+// Past Ke = 8 (maxnhar_e >= 9) env_render_wide_kernel keeps that design
+// for any Ke: a block per tile of H frames of one utterance (64, 32 or 16:
+// of those whose coefficients fit shared memory, the one that makes the
+// fewest waves of blocks x runs of the busiest thread, by the kernel's
+// occupancy; 16 fit every C and Ke the wrapper admits)
+// stages each frame's coefficients once in slope form, as float4s (a_i,
+// a_{i+1} - a_i, the same for ai; edc with base), so one 16-byte load a
+// harmonic feeds four samples.  A thread takes runs of 4 consecutive
+// samples of a hop (16-byte loads of the cycle track and 16-byte streaming
+// stores where nhop and nx are multiples of 4 and the pointers aligned,
+// else single ones, a run cut at the hop's end and at nx), walking the
+// tile's (hop, run) pairs by the stride's quotient and remainder, the next
+// run's cycles loaded while this one is made.  The rotation ladder is made
+// once a sample for a group of up to 8 channels (4 where C <= 4: one
+// ladder for every channel up to C = 8, fewer registers at C <= 4), a
+// rotation at a time, each step used by every channel of the group before
+// the next: envelope_sample's recurrence, each channel's terms added in
+// the order of k, in registers of the group's envelopes alone.  Every
+// product is spelled out as nvcc contracts envelope_sample (its SASS: the
+// lerps fma(a1 - a0, s, a0), a term fma(rl, wr, -(il wi)) added to the
+// envelope, the rotation (fma(wr, c1, -(wi s1)), fma(wr, s1, wi c1))), so
+// the outputs are those of the wide kernel it replaced (a sample a
+// thread, a ladder a channel) bit for bit.  Bound: the bytes (36 a sample
+// at C = 4, 28 at C = 3) against 5 C Ke + 4 Ke float32 operations a
+// sample; a budget of 64 registers at up to 4 channels (four blocks an
+// SM), 85 past them (three).
+// LLSM_SKIP_PASS_A = 1 compiles the wide kernel's harmonic terms out (the
+// ladder and the coefficients' lerps), LLSM_SKIP_PASS_B = 1 its
+// coefficient staging (zeros staged), for scripts/port_kernel_passes.py
+// (only=env_wide).
+#include <map>
+#include <mutex>
+#include <utility>
+
 #include "common.cuh"
+
+#ifndef LLSM_SKIP_PASS_A
+#define LLSM_SKIP_PASS_A 0
+#endif
+#ifndef LLSM_SKIP_PASS_B
+#define LLSM_SKIP_PASS_B 0
+#endif
+// LLSM_ENV_TILE = 16, 32 or 64 forces the wide kernel's frames a tile
+// where they fit (scripts/port_kernel_passes.py only=env_tiles)
+#ifndef LLSM_ENV_TILE
+#define LLSM_ENV_TILE 0
+#endif
 
 namespace {
 
@@ -166,57 +207,259 @@ env_render_kernel(const float* __restrict__ cyc, const float* __restrict__ edc,
   }
 }
 
-// Ke > kMaxKe: a sample a thread, coefficients staged per frame as
-// env_render_kernel stages them (here as (a_i, a_{i+1}) pairs), each
-// channel's envelope by envelope_sample
-__global__ void __launch_bounds__(kThreads)
+// Past kMaxKe harmonics: env_render_wide_kernel (the header says how)
+constexpr int kWideThreads = 256;
+constexpr int kWideS = 4;      // samples a thread
+constexpr int kWideTiles[] = {64, 32, 16};   // frames a tile, tried in order
+
+// blocks an SM each channel group is compiled for: the most whose register
+// budget holds it (4: 64 registers, 3: 85); LLSM_ENV_BLOCKS forces it
+// (scripts/port_kernel_passes.py only=env_tiles)
+#ifndef LLSM_ENV_BLOCKS
+#define LLSM_ENV_BLOCKS 0
+#endif
+constexpr int wide_min_blocks(int CG) {
+  return LLSM_ENV_BLOCKS ? LLSM_ENV_BLOCKS : CG <= 4 ? 4 : 3;
+}
+
+// z <- z e^{2 pi j cyc}, as nvcc compiles envelope_sample's rotation
+__device__ __forceinline__ void wide_rotate(float& wr, float& wi, float c1,
+                                            float s1) {
+  const float nwr = __fmaf_rn(wr, c1, -__fmul_rn(wi, s1));
+  wi = __fmaf_rn(wr, s1, __fmul_rn(wi, c1));
+  wr = nwr;
+}
+
+// VEC: runs of 4 samples by 16-byte loads and stores (nhop % 4 == 0, nx %
+// 4 == 0, cyc / env / base_o 16-byte aligned); CG: channels a group (the
+// ladder made once a sample for each group)
+template <bool VEC, int CG>
+__global__ void __launch_bounds__(kWideThreads, wide_min_blocks(CG))
 env_render_wide_kernel(const float* __restrict__ cyc,
                        const float* __restrict__ edc,
                        const float* __restrict__ ar,
                        const float* __restrict__ ai,
                        const float* __restrict__ base,
                        float* __restrict__ env, float* __restrict__ base_o,
-                       int N, int nhop, int64_t nx, int C, int Ke) {
+                       int N, int nhop, int64_t nx, int C, int Ke, int H) {
+  constexpr int S = kWideS;
+  extern __shared__ float4 smw[];
   const int CK = C * Ke;
-  extern __shared__ float sm[];
-  float* s_e = sm;                                // [kFrames + 1, C]
-  float* s_b = s_e + (kFrames + 1) * C;
-  float* s_r = s_b + (kFrames + 1) * C;           // [kFrames + 1, C, Ke]
-  float* s_i = s_r + (kFrames + 1) * CK;
+  // [H, C]: (edc_i, edc_{i+1} - edc_i, base_i, base_{i+1} - base_i)
+  float4* s_eb = smw;
+  // [H, C, Ke]: (ar_i, ar_{i+1} - ar_i, ai_i, ai_{i+1} - ai_i)
+  float4* s_ri = smw + H * C;
   const int b = blockIdx.y;
-  const int f0 = blockIdx.x * kFrames;
+  const int f0 = blockIdx.x * H;
   const int64_t row0 = (int64_t)b * N;
-  for (int idx = threadIdx.x; idx < (kFrames + 1) * C; idx += kThreads) {
-    const int64_t fr = row0 + min(f0 + idx / C, N - 1);
-    s_e[idx] = edc[fr * C + idx % C];
-    s_b[idx] = base[fr * C + idx % C];
+  for (int idx = threadIdx.x; idx < H * C; idx += kWideThreads) {
+    const int r = idx / C, c = idx - r * C;
+    const int64_t fa = (row0 + min(f0 + r, N - 1)) * C + c;
+    const int64_t fb = (row0 + min(f0 + r + 1, N - 1)) * C + c;
+    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (!LLSM_SKIP_PASS_B) {
+      const float e = __ldg(edc + fa), bs = __ldg(base + fa);
+      v = make_float4(e, __fsub_rn(__ldg(edc + fb), e), bs,
+                      __fsub_rn(__ldg(base + fb), bs));
+    }
+    s_eb[idx] = v;
   }
-  for (int idx = threadIdx.x; idx < (kFrames + 1) * CK; idx += kThreads) {
-    const int64_t fr = row0 + min(f0 + idx / CK, N - 1);
-    s_r[idx] = ar[fr * CK + idx % CK];
-    s_i[idx] = ai[fr * CK + idx % CK];
+  for (int idx = threadIdx.x; idx < H * CK; idx += kWideThreads) {
+    const int r = idx / CK, q = idx - r * CK;
+    const int64_t fa = (row0 + min(f0 + r, N - 1)) * CK + q;
+    const int64_t fb = (row0 + min(f0 + r + 1, N - 1)) * CK + q;
+    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (!LLSM_SKIP_PASS_B) {
+      const float re = __ldg(ar + fa), im = __ldg(ai + fa);
+      v = make_float4(re, __fsub_rn(__ldg(ar + fb), re), im,
+                      __fsub_rn(__ldg(ai + fb), im));
+    }
+    s_ri[idx] = v;
   }
   __syncthreads();
+
+  // runs of S samples: nq a hop, the last cut at the hop's end (and at nx)
+  const int nh = min(H, N - f0), nq = (nhop + S - 1) / S, items = nh * nq;
   const float inv_hop = 1.0f / (float)nhop;
   const float* cycr = cyc + (int64_t)b * nx;
-  for (int e = threadIdx.x; e < kFrames * nhop; e += kThreads) {
-    const int r = e / nhop, t = e - r * nhop;
-    const int64_t g = (int64_t)(f0 + r) * nhop + t;
-    if (g >= nx) break;
-    const float sv = (float)t * inv_hop;
-    float s1, c1;
-    sincospif(2.0f * llsm::frac_c(cycr[g]), &s1, &c1);
-    for (int c = 0; c < C; ++c) {
-      const int rc = r * C + c;
-      const float v = llsm::envelope_sample(
-          s_e[rc], s_e[rc + C], s_r + rc * Ke, s_r + (rc + C) * Ke,
-          s_i + rc * Ke, s_i + (rc + C) * Ke, Ke, sv, c1, s1);
-      const float b0 = s_b[rc];
-      const int64_t o = ((int64_t)b * C + c) * nx + g;
-      __stcs(env + o, fmaxf(v, 0.0f));
-      __stcs(base_o + o, fmaxf(b0 + (s_b[rc + C] - b0) * sv, 1e-8f));
+  // the thread's first run (hop i, samples q S ...), then the block's
+  // stride as a quotient and remainder of hops
+  int i = threadIdx.x / nq, q = threadIdx.x - i * nq;
+  const int di = kWideThreads / nq, dq = kWideThreads - di * nq;
+  // a run's cycle samples, loaded one run ahead
+  float cv[S];
+  auto load = [&](int ii, int qq) {
+    const int64_t g = (int64_t)(f0 + ii) * nhop + qq * S;
+    const int n = (int)min((int64_t)min(S, nhop - qq * S), nx - g);
+    if (VEC) {
+      const float4 u = __ldg(reinterpret_cast<const float4*>(cycr + g));
+      cv[0] = u.x; cv[1] = u.y; cv[2] = u.z; cv[3] = u.w;
+    } else {
+#pragma unroll
+      for (int s = 0; s < S; ++s) cv[s] = s < n ? __ldg(cycr + g + s) : 0.0f;
+    }
+  };
+  if (threadIdx.x < items && (int64_t)(f0 + i) * nhop + q * S < nx) load(i, q);
+  for (int e = threadIdx.x; e < items; e += kWideThreads) {
+    const int t = q * S;
+    const int64_t g = (int64_t)(f0 + i) * nhop + t;
+    if (g >= nx) break;                          // later runs lie further
+    const int n = (int)min((int64_t)min(S, nhop - t), nx - g);
+    float c1[S], s1[S], sv[S];
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      sincospif(2.0f * llsm::frac_c(cv[s]), &s1[s], &c1[s]);
+      sv[s] = (float)(t + s) * inv_hop;
+    }
+    // the next run (hop i2, samples q2 S ...), its cycles in flight
+    int i2 = i + di, q2 = q + dq;
+    if (q2 >= nq) {
+      q2 -= nq;
+      ++i2;
+    }
+    if (e + kWideThreads < items && (int64_t)(f0 + i2) * nhop + q2 * S < nx)
+      load(i2, q2);
+    const float4* eb = s_eb + i * C;
+    const float4* ri = s_ri + i * CK;
+    for (int c0 = 0; c0 < C; c0 += CG) {
+      const int nc = min(CG, C - c0);
+      float ev[CG][S];
+#pragma unroll
+      for (int u = 0; u < CG; ++u) {
+        if (u >= nc) break;
+        const float4 w = eb[c0 + u];
+#pragma unroll
+        for (int s = 0; s < S; ++s) ev[u][s] = __fmaf_rn(sv[s], w.y, w.x);
+      }
+      // the ladder z^(k + 1), k < Ke, a rotation at a time, each step used
+      // by every channel of the group (each channel's terms in the order
+      // of k)
+      float zr[S], zi[S];
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        zr[s] = c1[s];
+        zi[s] = s1[s];
+      }
+      for (int k = 0; !LLSM_SKIP_PASS_A && k < Ke; ++k) {
+#pragma unroll
+        for (int u = 0; u < CG; ++u) {
+          if (u >= nc) break;
+          const float4 w = ri[(c0 + u) * Ke + k];
+#pragma unroll
+          for (int s = 0; s < S; ++s) {
+            const float rl = __fmaf_rn(sv[s], w.y, w.x);
+            const float il = __fmaf_rn(sv[s], w.w, w.z);
+            ev[u][s] = __fadd_rn(ev[u][s],
+                                 __fmaf_rn(rl, zr[s], -__fmul_rn(il, zi[s])));
+          }
+        }
+#pragma unroll
+        for (int s = 0; s < S; ++s) wide_rotate(zr[s], zi[s], c1[s], s1[s]);
+      }
+#pragma unroll
+      for (int u = 0; u < CG; ++u) {
+        if (u >= nc) break;
+        const float4 w = eb[c0 + u];
+        float ov[S], bv[S];
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          ov[s] = fmaxf(ev[u][s], 0.0f);
+          bv[s] = fmaxf(__fmaf_rn(sv[s], w.w, w.z), 1e-8f);
+        }
+        const int64_t o = ((int64_t)b * C + c0 + u) * nx + g;
+        // streaming stores: the outputs are not read again here
+        if (VEC) {
+          __stcs(reinterpret_cast<float4*>(env + o),
+                 make_float4(ov[0], ov[1], ov[2], ov[3]));
+          __stcs(reinterpret_cast<float4*>(base_o + o),
+                 make_float4(bv[0], bv[1], bv[2], bv[3]));
+        } else {
+#pragma unroll
+          for (int s = 0; s < S; ++s) {
+            if (s < n) {
+              __stcs(env + o + s, ov[s]);
+              __stcs(base_o + o + s, bv[s]);
+            }
+          }
+        }
+      }
+    }
+    i = i2;
+    q = q2;
+  }
+}
+
+// Blocks of `kernel` an SM holds at `smem` dynamic bytes on device `dev`,
+// asked of the runtime once a (device, bytes) and kept (its queries cost
+// more host time than a launch)
+template <typename Kernel>
+cudaError_t wide_occupancy(Kernel kernel, int dev, size_t smem, int* out) {
+  static std::mutex mu;
+  static std::map<std::pair<int, size_t>, int> seen;
+  std::lock_guard<std::mutex> lock(mu);
+  const auto key = std::make_pair(dev, smem);
+  const auto it = seen.find(key);
+  if (it != seen.end()) {
+    *out = it->second;
+    return cudaSuccess;
+  }
+  cudaError_t e = llsm::allow_smem(kernel, smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel,
+                                                      kWideThreads, smem);
+  if (e == cudaSuccess) seen[key] = *out;
+  return e;
+}
+
+// The wide kernel's frames a tile H: of kWideTiles, those whose
+// coefficients fit the card's shared memory, the one that makes the least
+// of (waves of blocks) x (runs the busiest thread of a block takes), the
+// blocks resident at once from the kernel's occupancy at that H (the
+// larger H of a tie); LLSM_ENV_TILE forces H
+template <bool VEC, int CG>
+cudaError_t launch_wide(const float* cyc, const float* edc, const float* ar,
+                        const float* ai, const float* base, float* env,
+                        float* base_o, int B, int N, int nhop, int nx, int C,
+                        int Ke, cudaStream_t st) {
+  auto kernel = env_render_wide_kernel<VEC, CG>;
+  int dev = 0, cap = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&cap, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  const int nq = (nhop + kWideS - 1) / kWideS;
+  int H = 0;
+  long long cost = 0;
+  for (int h : kWideTiles) {
+    const size_t smem = (size_t)h * (C + (size_t)C * Ke) * sizeof(float4);
+    if (smem > (size_t)cap || (LLSM_ENV_TILE && h != LLSM_ENV_TILE))
+      continue;
+    int per_sm = 0;
+    e = wide_occupancy(kernel, dev, smem, &per_sm);
+    if (e != cudaSuccess) return e;
+    const long long tile = (long long)h * nhop;
+    const long long blocks = (long long)B * ((nx + tile - 1) / tile);
+    const long long resident = (long long)max(per_sm, 1) * sms;
+    const long long c = (blocks + resident - 1) / resident *
+                        (((long long)h * nq + kWideThreads - 1) / kWideThreads);
+    if (H == 0 || c < cost) {
+      H = h;
+      cost = c;
     }
   }
+  if (H == 0) return cudaErrorInvalidValue;
+  const size_t smem = (size_t)H * (C + (size_t)C * Ke) * sizeof(float4);
+  e = llsm::allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  const int64_t tile = (int64_t)H * nhop;
+  dim3 grid((unsigned)((nx + tile - 1) / tile), B);
+  kernel<<<grid, kWideThreads, smem, st>>>(cyc, edc, ar, ai, base, env,
+                                           base_o, N, nhop, (int64_t)nx, C,
+                                           Ke, H);
+  return cudaGetLastError();
 }
 
 template <int CT, int KT, int V>
@@ -246,19 +489,23 @@ extern "C" int llsm_env_render(const float* cyc, const float* edc,
   if ((int64_t)nx > (int64_t)N * nhop || Ke < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (Ke > kMaxKe) {
-    const size_t smem =
-        (size_t)(kFrames + 1) * 2 * (C + C * Ke) * sizeof(float);
-    cudaError_t e = llsm::allow_smem(env_render_wide_kernel, smem);
-    if (e != cudaSuccess) return (int)e;
-    const int64_t tile = (int64_t)kFrames * nhop;
-    dim3 grid((unsigned)((nx + tile - 1) / tile), B);
-    env_render_wide_kernel<<<grid, kThreads, smem, st>>>(
-        cyc, edc, ar, ai, base, env, base_o, N, nhop, (int64_t)nx, C, Ke);
-    return (int)cudaGetLastError();
-  }
   const bool aligned = ((uintptr_t)cyc | (uintptr_t)env |
                         (uintptr_t)base_o) % 16 == 0;
+  if (Ke > kMaxKe) {
+    const bool vec = nhop % kWideS == 0 && nx % kWideS == 0 && aligned;
+    cudaError_t e;
+    if (C <= 4)
+      e = vec ? launch_wide<true, 4>(cyc, edc, ar, ai, base, env, base_o, B,
+                                     N, nhop, nx, C, Ke, st)
+              : launch_wide<false, 4>(cyc, edc, ar, ai, base, env, base_o,
+                                      B, N, nhop, nx, C, Ke, st);
+    else
+      e = vec ? launch_wide<true, 8>(cyc, edc, ar, ai, base, env, base_o, B,
+                                     N, nhop, nx, C, Ke, st)
+              : launch_wide<false, 8>(cyc, edc, ar, ai, base, env, base_o,
+                                      B, N, nhop, nx, C, Ke, st);
+    return (int)e;
+  }
   if (C == 4 && Ke == 4 && nhop % 4 == 0 && nx % 4 == 0 && aligned)
     return (int)launch<4, 4, 4>(cyc, edc, ar, ai, base, env, base_o, B, N,
                                 nhop, nx, C, Ke, st);

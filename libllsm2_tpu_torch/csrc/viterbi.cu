@@ -55,25 +55,12 @@
 // warp 0 takes the final argmax and thread 0 walks the backpointers.  No
 // host synchronisation: the wrapper allocates, launches once and returns.
 //
-// Past S = 256 (a tracker with nbins >= 256) a state no longer fits a lane
-// group of the block nor a backpointer a byte: viterbi_wide_kernel (lt mode
-// 3) takes one lane a state, min(1024, S rounded up to 32) threads, each
-// thread the destinations j = tid + r threads; a destination covers every
-// source state in the four partial maxima i = 4 m + e of the kernel above
-// at P = 1 (so the same order model holds), lt read from device memory
-// (S^2 floats, 4.2 MB at S = 1025, stay in L2), the observations read a
-// step at a time, the backpointers uint16.  Its limit is shared memory:
-// the two score rows, 8 C bytes (C = S rounded up to 4), and the warps'
-// maxima fit up to S = 29024 (kernels._VITERBI_MAX_STATES).  It is written
-// to be right, not fast: S^2 candidates a step on one SM.  It now runs
-// only past 2048 states (nbins >= 2048).
-//
 // From 257 to 2048 states (lt mode 4) viterbi_grid_kernel takes the card:
 // a step is a max-plus product of the rows' scores [B, S] with lt [S, S],
 // so each block owns a slice of kGridJ = 16 destination states for the
 // rows of its row groups, every step, and keeps lt's column slice in
-// shared memory for the whole launch (read once, where the one-block-a-
-// row kernel read all of lt from L2 for every row and step).  Its blocks
+// shared memory for the whole launch (read once, where a block a row
+// would read all of lt from L2 for every row and step).  Its blocks
 // (at most one an SM) run in one cooperative launch and meet at one
 // grid-wide barrier a step (an arrival counter in device memory); between
 // barriers the block copies its rows' previous raw scores from L2 into
@@ -95,6 +82,34 @@
 // B S^2 (N - 1) adds and compares; what sets a step is the ALU pipe's
 // compares, the scores' L2 traffic (4 B S^2 / 16 bytes a step) and the
 // barrier, whose fixed cost a step sets a row alone's time.
+//
+// Past 2048 states (lt mode 5: a tracker with nbins >= 2048, up to
+// kernels._VITERBI_MAX_STATES = 29024) viterbi_stream_kernel takes the card
+// the same way, with what stops the grid kernel there taken away: ceil(S /
+// 16) slices would need more blocks than SMs, and lt's column slice (16 x
+// (S + 4) floats) no longer fits shared memory beside the rows.  A block
+// owns a slice of 32 DW destination states (DW dest warps, the fewest whose
+// slices are at most one block an SM) for the rows of its row groups, and
+// every step streams lt's columns of the slice and the rows' previous raw
+// scores through shared memory in chunks of source states: cp.async into
+// two buffers, the next chunk in flight while this one is used.  Every
+// warp of the block uses each chunk (lt read once a step by the card, not
+// once a row), a thread 4 neighbouring destinations x 4 rows (1 row where
+// the batch has at most 4: a row alone), and the block's other warps split
+// each chunk's groups of 8 source states into P parts.  Each (row,
+// destination)'s running (group maximum, first group) is carried across
+// the chunks in ascending order, the grid kernel's strict > over groups;
+// after the last chunk the first state of the best group that reaches it
+// is found by reading its 8 candidates again from device memory (its chunk
+// is gone), then the parts are merged in order: by the order argument
+// above, the plain loop's maximum and first index, so the scores and the
+// path are the plain version's bit for bit, and those of the kernel it
+// replaced (one block a row, all of lt read from device memory by every
+// row at every step).  Row maxima, uint16 backpointers in device memory,
+// one grid barrier a step and the backtrace as in the grid kernel.  Bound:
+// B S^2 (N - 1) adds and compares; lt's 4 S^2 bytes a step (67 MB at S
+// 4097, more than the L2) come from device memory once a step, under the
+// compares' time at 64 rows.
 #include "common.cuh"
 
 namespace {
@@ -112,7 +127,8 @@ constexpr int kAhead = 8;
 
 // LLSM_SKIP_PASS_B = 1 compiles the backtrace's walk out (the final argmax
 // stays), for scripts/port_kernel_passes.py's split; LLSM_SKIP_PASS_A = 1
-// the grid kernel's candidates (its staging, merges and barriers stay)
+// the cooperative kernels' candidates (their staging, merges and barriers
+// stay)
 #ifndef LLSM_SKIP_PASS_A
 #define LLSM_SKIP_PASS_A 0
 #endif
@@ -372,128 +388,6 @@ Kernel pick(int C, int lt_mode, int bp_smem, int renorm) {
   return nullptr;
 }
 
-// lt mode 3, S > 256: one lane a state, a thread the destinations j = tid,
-// tid + blockDim.x, ...; C = S rounded up to 4 source states a lane in the
-// four partial maxima of viterbi_kernel at P = 1; BP the backpointers' type
-// (uint16).  Dynamic shared memory: the two score rows [2][C], the warps'
-// maxima [2][kMaxWarps], then the backpointers [(N - 1) * S] if BP_SMEM.
-template <typename BP, bool BP_SMEM, bool RENORM>
-__global__ void __launch_bounds__(kMaxThreads)
-    viterbi_wide_kernel(const float* __restrict__ obs,
-                        const float* __restrict__ lt,
-                        long long* __restrict__ path,
-                        float* __restrict__ final_score, BP* bp_g, int N,
-                        int S, int C) {
-  extern __shared__ __align__(16) float smem[];
-  float* s = smem;                               // [2][C]
-  int* red = reinterpret_cast<int*>(s + 2 * C);  // [2][kMaxWarps] keys
-  BP* bp_s = reinterpret_cast<BP*>(red + 2 * kMaxWarps);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int T = blockDim.x, b = blockIdx.x;
-  const float* o = obs + (long long)b * N * S;
-  BP* bp = BP_SMEM ? bp_s : bp_g + (long long)b * (N - 1) * S;
-
-  for (int k = tid; k < 2 * C; k += T) s[k] = -INFINITY;
-  for (int k = tid; k < 2 * kMaxWarps; k += T) red[k] = fkey(-INFINITY);
-  __syncthreads();
-  int kmax = fkey(-INFINITY);
-  for (int j = tid; j < S; j += T) {
-    const float v = o[j];
-    s[j] = v;
-    kmax = max(kmax, fkey(v));
-  }
-  if (RENORM) {
-    kmax = __reduce_max_sync(kFull, kmax);
-    if (lane == 0) red[warp] = kmax;
-  }
-  __syncthreads();
-
-  for (int t = 1; t < N; ++t) {
-    const int cur = (t - 1) & 1, nxt = t & 1;
-    const float4* sp4 = reinterpret_cast<const float4*>(s + cur * C);
-    const float m = RENORM ? row_max(red + cur * kMaxWarps, lane) : 0.0f;
-    kmax = fkey(-INFINITY);
-    for (int j = tid; j < S; j += T) {
-      const float ob = __ldg(o + (long long)t * S + j);
-      float bv[4];
-      int bi[4];
-      for (int mm = 0; mm < C / 4; ++mm) {
-        const float4 q = sp4[mm];
-        const float qs[4] = {q.x, q.y, q.z, q.w};
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = 4 * mm + e;
-          const float sc = RENORM ? __fsub_rn(qs[e], m) : qs[e];
-          const float l = i < S ? __ldg(lt + (long long)i * S + j) : 0.0f;
-          const float c = __fadd_rn(sc, l);
-          if (mm == 0) {
-            bv[e] = c;
-            bi[e] = i;
-          } else {
-            take_gt(bv[e], bi[e], c, i);
-          }
-        }
-      }
-      take_max(bv[0], bi[0], bv[1], bi[1]);
-      take_max(bv[2], bi[2], bv[3], bi[3]);
-      take_max(bv[0], bi[0], bv[2], bi[2]);
-      const float v = __fadd_rn(bv[0], ob);
-      s[nxt * C + j] = v;
-      bp[(long long)(t - 1) * S + j] = (BP)bi[0];
-      kmax = max(kmax, fkey(v));
-    }
-    if (RENORM) {
-      kmax = __reduce_max_sync(kFull, kmax);
-      if (lane == 0) red[nxt * kMaxWarps + warp] = kmax;
-    }
-    __syncthreads();
-  }
-
-  // as viterbi_kernel: the last scores out, the final argmax by warp 0,
-  // the backtrace by thread 0
-  const int last = (N - 1) & 1;
-  const float* sf = s + last * C;
-  const float mf = RENORM ? row_max(red + last * kMaxWarps, lane) : 0.0f;
-  for (int j = tid; j < S; j += T)
-    final_score[(long long)b * S + j] = RENORM ? __fsub_rn(sf[j], mf) : sf[j];
-  if (warp == 0) {
-    float bv = -INFINITY;
-    int g = 1 << 30;
-    for (int k = lane; k < S; k += 32) {
-      const float f = RENORM ? __fsub_rn(sf[k], mf) : sf[k];
-      if (k == lane || f > bv) {
-        bv = f;
-        g = k;
-      }
-    }
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const float vb = __shfl_xor_sync(kFull, bv, off);
-      const int ib = __shfl_xor_sync(kFull, g, off);
-      take_max(bv, g, vb, ib);
-    }
-    if (lane == 0) {
-      long long* pb = path + (long long)b * N;
-      pb[N - 1] = g;
-      for (int t = N - 2; !LLSM_SKIP_PASS_B && t >= 0; --t) {
-        g = bp[(long long)t * S + g];
-        pb[t] = g;
-      }
-    }
-  }
-}
-
-using WideKernel = void (*)(const float*, const float*, long long*, float*,
-                            uint16_t*, int, int, int);
-
-WideKernel pick_wide(int bp_smem, int renorm) {
-  if (bp_smem)
-    return renorm ? viterbi_wide_kernel<uint16_t, true, true>
-                  : viterbi_wide_kernel<uint16_t, true, false>;
-  return renorm ? viterbi_wide_kernel<uint16_t, false, true>
-                : viterbi_wide_kernel<uint16_t, false, false>;
-}
-
 // ---------------------------------------------------------------------------
 // lt mode 4: viterbi_grid_kernel (see the header)
 
@@ -549,6 +443,46 @@ __device__ __forceinline__ void take_group(float& best, int& g,
   const float m = fmaxf(fmaxf(fmaxf(c[0], c[1]), fmaxf(c[2], c[3])),
                         fmaxf(fmaxf(c[4], c[5]), fmaxf(c[6], c[7])));
   take_gt(best, g, m, i);
+}
+
+// After the last grid barrier: row r's final argmax by warp 0 of block (r
+// mod blocks), its backtrace by that warp's lane 0 (the cooperative
+// kernels' last raw scores `last`, their maxima's keys `mlast`)
+template <bool RENORM>
+__device__ __forceinline__ void argmax_backtrace(const float* last,
+                                                 const unsigned* mlast,
+                                                 long long* path,
+                                                 const uint16_t* bp, int B,
+                                                 int N, int S, int Sp) {
+  const int lane = threadIdx.x & 31;
+  const unsigned G = gridDim.x * gridDim.y;
+  for (int r = blockIdx.y * gridDim.x + blockIdx.x; r < B; r += G) {
+    const float mf = RENORM ? ufval(__ldcg(mlast + r)) : 0.0f;
+    float bv = -INFINITY;
+    int g = 1 << 30;
+    for (int k = lane; k < S; k += 32) {
+      const float raw = __ldcg(last + (long long)r * Sp + k);
+      const float f = RENORM ? __fsub_rn(raw, mf) : raw;
+      if (k == lane || f > bv) {
+        bv = f;
+        g = k;
+      }
+    }
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float vb = __shfl_xor_sync(kFull, bv, off);
+      const int ib = __shfl_xor_sync(kFull, g, off);
+      take_max(bv, g, vb, ib);
+    }
+    if (lane == 0) {
+      long long* pb = path + (long long)r * N;
+      pb[N - 1] = g;
+      for (int t = N - 2; !LLSM_SKIP_PASS_B && t >= 0; --t) {
+        g = __ldcg(bp + ((long long)r * (N - 1) + t) * S + g);
+        pb[t] = g;
+      }
+    }
+  }
 }
 
 // Dynamic shared memory: lt's column slice transposed, ltT [kGridJ][Sp + 4]
@@ -775,34 +709,261 @@ __global__ void __launch_bounds__(32 * kGridMaxWarps, 1)
         }
       }
     }
-  if (warp != 0) return;
-  for (int r = blockIdx.y * gridDim.x + blockIdx.x; r < B; r += G) {
-    const float mf = RENORM ? ufval(__ldcg(mlast + r)) : 0.0f;
-    float bv = -INFINITY;
-    int g = 1 << 30;
-    for (int k = lane; k < S; k += 32) {
-      const float raw = __ldcg(last + (long long)r * Sp + k);
-      const float f = RENORM ? __fsub_rn(raw, mf) : raw;
-      if (k == lane || f > bv) {
-        bv = f;
-        g = k;
-      }
-    }
+  if (warp == 0)
+    argmax_backtrace<RENORM>(last, mlast, path, bp, B, N, S, Sp);
+}
+
+// ---------------------------------------------------------------------------
+// lt mode 5: viterbi_stream_kernel (see the header)
+
+constexpr int kStreamJ = 32;         // destination states a dest warp
+constexpr int kStreamMaxWarps = 16;
+
+// Dynamic shared memory: two chunk buffers, each lt's chunk of source
+// states x the block's destinations [KC][J] (source-major, the block's
+// columns of KC rows of lt) and the row group's raw scores of the chunk
+// [Rb][KC + 4]; after a row group's last chunk the parts' maxima [P][Rb][J]
+// (value, first group), over the buffers.  A block's warps are DW
+// dest warps (32 destinations each: lane lj = lane & 7 the four j = 4 lj +
+// d) times RW row warps (4 RA rows each: lane lr = lane >> 3 the rows lr +
+// 4 a, a < RA) times P parts of the source states (part p the groups of 8
+// states p, p + P, ... of each chunk: ascending over the chunks), warp w =
+// (p RW + row warp) DW + dest warp.  Device memory (work): the raw scores
+// [2][B][Sp] (-inf past S), the row maxima's keys [3][B], the barrier's
+// counter.
+template <bool RENORM, int RA>
+__global__ void __launch_bounds__(32 * kStreamMaxWarps, 1)
+    viterbi_stream_kernel(const float* __restrict__ obs,
+                          const float* __restrict__ lt,
+                          long long* __restrict__ path,
+                          float* __restrict__ final_score, uint16_t* bp,
+                          float* scores, unsigned* rowmax, unsigned* ctr,
+                          int B, int N, int S, int Sp, int DW, int RW,
+                          int KC) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int RL = 4 * RA;                     // rows a row warp
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int T = blockDim.x, nw = T >> 5, P = nw / (DW * RW);
+  const int J = kStreamJ * DW, Rb = RL * RW, LS = KC + 4;
+  const int dw = warp % DW, rw = (warp / DW) % RW, part = warp / (DW * RW);
+  const int lr = lane >> 3, lj = lane & 7;
+  const int buf = KC * J + Rb * LS;              // floats a chunk buffer
+  // the parts' maxima [P][Rb][J] after the chunk loop, over the buffers
+  float* pval = smem;
+  int* pidx = reinterpret_cast<int*>(pval + P * Rb * J);
+  const int j0 = blockIdx.x * J;
+  const int jl = kStreamJ * dw + 4 * lj;         // the thread's first dest
+  const unsigned G = gridDim.x * gridDim.y;
+  const long long BS = (long long)B * Sp;
+  const int nch = (Sp + KC - 1) / KC;
+
+  // step 0: the raw scores (and -inf past S in both buffers), the maxima
+  for (int rg = blockIdx.y; rg * Rb < B; rg += gridDim.y) {
+    if (part != 0) continue;
 #pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const float vb = __shfl_xor_sync(kFull, bv, off);
-      const int ib = __shfl_xor_sync(kFull, g, off);
-      take_max(bv, g, vb, ib);
-    }
-    if (lane == 0) {
-      long long* pb = path + (long long)r * N;
-      pb[N - 1] = g;
-      for (int t = N - 2; !LLSM_SKIP_PASS_B && t >= 0; --t) {
-        g = __ldcg(bp + ((long long)r * (N - 1) + t) * S + g);
-        pb[t] = g;
+    for (int a = 0; a < RA; ++a) {
+      const int r = rg * Rb + rw * RL + lr + 4 * a;
+      unsigned key = 0;
+#pragma unroll
+      for (int d = 0; d < 4; ++d) {
+        const int j = j0 + jl + d;
+        if (r < B && j < Sp) {
+          if (j < S) {
+            const float v = obs[(long long)r * N * S + j];
+            scores[(long long)r * Sp + j] = v;
+            key = max(key, ukey(v));
+          } else {
+            scores[(long long)r * Sp + j] = -INFINITY;
+            scores[BS + (long long)r * Sp + j] = -INFINITY;
+          }
+        }
+      }
+      if (RENORM) {
+#pragma unroll
+        for (int o = 1; o < 8; o <<= 1)
+          key = max(key, __shfl_xor_sync(kFull, key, o));
+        if (lj == 0 && r < B) atomicMax(rowmax + r, key);
       }
     }
   }
+  grid_barrier(ctr, G);
+
+  for (int t = 1; t < N; ++t) {
+    const float* prev = scores + ((t - 1) & 1) * BS;
+    float* next = scores + (t & 1) * BS;
+    const unsigned* mprev = rowmax + ((t - 1) % 3) * B;
+    unsigned* mnext = rowmax + (t % 3) * B;
+    if (RENORM && blockIdx.x == 0) {   // read at step t - 1, written at t + 1
+      unsigned* mfree = rowmax + ((t + 1) % 3) * B;
+      for (int rg = blockIdx.y; rg * Rb < B; rg += gridDim.y)
+        for (int k = tid; k < Rb && rg * Rb + k < B; k += T)
+          mfree[rg * Rb + k] = 0u;
+    }
+    for (int rg = blockIdx.y; rg * Rb < B; rg += gridDim.y) {
+      const int r0 = rg * Rb;                      // the block's first row
+      // chunk c of lt's columns and of the rows' previous raw scores into
+      // buffer c & 1 (lt zero past S, the scores -inf there in device
+      // memory), one commit group
+      auto stage = [&](int c) {
+        float* lc = smem + (c & 1) * buf;
+        float* sr = lc + KC * J;
+        const int i0 = c * KC, len = min(KC, Sp - i0);
+        for (int ii = warp; ii < len; ii += nw) {
+          const int i = i0 + ii;
+          for (int jj = lane; jj < J; jj += 32) {
+            const bool in = i < S && j0 + jj < S;
+            llsm::cp_async4(lc + ii * J + jj,
+                            in ? lt + (long long)i * S + j0 + jj : lt, in);
+          }
+        }
+        for (int rr = warp; rr < Rb && r0 + rr < B; rr += nw) {
+          const float* src = prev + (long long)(r0 + rr) * Sp + i0;
+          for (int k = lane * 4; k < len; k += 128)
+            cp_async16_cg(sr + rr * LS + k, src + k);
+        }
+        cp_async_commit();
+      };
+      stage(0);
+      float m[RA];                                 // the rows' maxima
+#pragma unroll
+      for (int a = 0; a < RA; ++a) {
+        const int r = r0 + rw * RL + lr + 4 * a;
+        m[a] = RENORM && r < B ? ufval(__ldcg(mprev + r)) : 0.0f;
+      }
+      float best[RA][4];
+      int grp[RA][4];
+#pragma unroll
+      for (int a = 0; a < RA; ++a)
+#pragma unroll
+        for (int d = 0; d < 4; ++d) {
+          best[a][d] = -INFINITY;
+          grp[a][d] = 8 * part;
+        }
+      for (int c = 0; c < nch; ++c) {
+        if (c + 1 < nch) {
+          stage(c + 1);
+          llsm::cp_async_wait<1>();
+        } else {
+          llsm::cp_async_wait<0>();
+        }
+        __syncthreads();
+        const float* lc = smem + (c & 1) * buf + jl;
+        const float* sr = smem + (c & 1) * buf + KC * J
+                          + (rw * RL + lr) * LS;
+        const int i0 = c * KC, len = min(KC, Sp - i0);
+        for (int g = 8 * part; !LLSM_SKIP_PASS_A && g < len; g += 8 * P) {
+          float lv[8][4];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            const float4 q = *reinterpret_cast<const float4*>(lc + (g + e)
+                                                              * J);
+            lv[e][0] = q.x; lv[e][1] = q.y; lv[e][2] = q.z; lv[e][3] = q.w;
+          }
+#pragma unroll
+          for (int a = 0; a < RA; ++a) {
+            const float4 x = *reinterpret_cast<const float4*>(sr + 4 * a * LS
+                                                              + g);
+            const float4 y = *reinterpret_cast<const float4*>(sr + 4 * a * LS
+                                                              + g + 4);
+            const float q8[8] = {x.x, x.y, x.z, x.w, y.x, y.y, y.z, y.w};
+            float sv[8];
+#pragma unroll
+            for (int e = 0; e < 8; ++e)
+              sv[e] = RENORM ? __fsub_rn(q8[e], m[a]) : q8[e];
+#pragma unroll
+            for (int d = 0; d < 4; ++d) {
+              const float l8[8] = {lv[0][d], lv[1][d], lv[2][d], lv[3][d],
+                                   lv[4][d], lv[5][d], lv[6][d], lv[7][d]};
+              take_group(best[a][d], grp[a][d], sv, l8, i0 + g);
+            }
+          }
+        }
+        __syncthreads();           // buffer c & 1 is free for chunk c + 2
+      }
+
+      // each part's (maximum, first group reaching it) into shared memory
+      // (over the buffers: the loop's last barrier freed them)
+#pragma unroll
+      for (int a = 0; a < RA; ++a)
+#pragma unroll
+        for (int d = 0; d < 4; ++d) {
+          const int o = (part * Rb + rw * RL + lr + 4 * a) * J + jl + d;
+          pval[o] = best[a][d];
+          pidx[o] = grp[a][d];
+        }
+      __syncthreads();
+      // a (row, destination) a thread, destinations fastest: the parts
+      // merged in order by (value, then lowest group: the groups of two
+      // parts are disjoint, so the lower group holds the lower states),
+      // then the first state of the winning group that reaches the
+      // maximum, its 8 candidates read again from device memory (its
+      // chunk is gone): the maximum and its lowest index; the new raw
+      // score, the backpointer, the row's partial maximum
+      for (int k = tid; k < Rb * J; k += T) {
+        const int rl = k / J, jj = k - rl * J;
+        const int row = r0 + rl, j = j0 + jj;
+        float bv = pval[k];
+        int g0 = pidx[k];
+        for (int q = 1; q < P; ++q)
+          take_max(bv, g0, pval[q * Rb * J + k], pidx[q * Rb * J + k]);
+        unsigned key = 0;
+        if (row < B && j < S) {
+          const float m = RENORM ? ufval(__ldcg(mprev + row)) : 0.0f;
+          const float4* sp = reinterpret_cast<const float4*>(
+              prev + (long long)row * Sp + g0);
+          const float4 x = __ldcg(sp), y = __ldcg(sp + 1);
+          const float q8[8] = {x.x, x.y, x.z, x.w, y.x, y.y, y.z, y.w};
+          float c[8];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            const int i = g0 + e;
+            const float l = i < S ? __ldg(lt + (long long)i * S + j) : 0.0f;
+            c[e] = __fadd_rn(RENORM ? __fsub_rn(q8[e], m) : q8[e], l);
+          }
+          // descending, so the last taken is the first equal
+          float v = bv;
+          int bk = g0;
+#pragma unroll
+          for (int e = 7; e >= 0; --e)
+            if (c[e] == bv) {
+              v = c[e];
+              bk = g0 + e;
+            }
+          v = __fadd_rn(v, __ldg(obs + ((long long)row * N + t) * S + j));
+          next[(long long)row * Sp + j] = v;
+          bp[((long long)row * (N - 1) + t - 1) * S + j] = (uint16_t)bk;
+          key = ukey(v);
+        }
+        if (RENORM) {              // a warp's 32 destinations of one row
+          key = __reduce_max_sync(kFull, key);
+          if (lane == 0 && row < B) atomicMax(mnext + row, key);
+        }
+      }
+      __syncthreads();        // the partials are read before the next stage
+    }
+    grid_barrier(ctr, (unsigned)(t + 1) * G);
+  }
+  // the last scores out, renormalised; the rows' argmax and backtrace
+  const float* last = scores + ((N - 1) & 1) * BS;
+  const unsigned* mlast = rowmax + ((N - 1) % 3) * B;
+  for (int rg = blockIdx.y; rg * Rb < B; rg += gridDim.y)
+#pragma unroll
+    for (int a = 0; a < RA; ++a) {
+      const int r = rg * Rb + rw * RL + lr + 4 * a;
+      if (part != 0 || r >= B) continue;
+      const float mf = RENORM ? ufval(__ldcg(mlast + r)) : 0.0f;
+#pragma unroll
+      for (int d = 0; d < 4; ++d) {
+        const int j = j0 + jl + d;
+        if (j < S) {
+          const float raw = __ldcg(last + (long long)r * Sp + j);
+          final_score[(long long)r * S + j] = RENORM ? __fsub_rn(raw, mf)
+                                                     : raw;
+        }
+      }
+    }
+  if (warp == 0)
+    argmax_backtrace<RENORM>(last, mlast, path, bp, B, N, S, Sp);
 }
 
 }  // namespace
@@ -811,19 +972,23 @@ __global__ void __launch_bounds__(32 * kGridMaxWarps, 1)
 // [B, N - 1, S] scratch of bp_bytes-wide backpointers where bp_smem is 0,
 // else null); P lanes a state, C source states a lane, lt_mode, bp_smem
 // and bp_bytes as kernels._viterbi_geometry chose them: modes 0-2 (S <=
-// 256) viterbi_kernel with uint8 backpointers, mode 3 (S > 256)
-// viterbi_wide_kernel with uint16, mode 4 (256 < S <= 2048)
+// 256) viterbi_kernel with uint8 backpointers, mode 4 (256 < S <= 2048)
 // viterbi_grid_kernel: C = S rounded up to 8, `warps` warps a block of
 // which row_warps take rows (the rest parts of the source states),
-// ceil(S / 16) x row_blocks blocks (kernels._viterbi_grid), work the
-// device scratch of its raw scores, row maxima and barrier counter
-// (zeroed here but the scores)
+// ceil(S / 16) x row_blocks blocks (kernels._viterbi_grid); mode 5 (S >
+// 2048) viterbi_stream_kernel: C = S rounded up to 8, `warps` warps a
+// block of dest_warps x row_warps x parts, rows_a rows a thread, chunks of
+// `chunk` source states, ceil(S / (32 dest_warps)) x row_blocks blocks
+// (kernels._viterbi_stream); in modes 4 and 5 work is the device scratch
+// of the raw scores, row maxima and barrier counter (zeroed here but the
+// scores), the backpointers uint16 in device memory
 extern "C" int llsm_viterbi_scan(const float* obs, const float* lt,
                                  long long* path, float* final_score,
                                  void* bp, void* work, int B, int N, int S,
                                  int renorm, int P, int C, int lt_mode,
                                  int bp_smem, int bp_bytes, int warps,
                                  int row_warps, int row_blocks,
+                                 int dest_warps, int rows_a, int chunk,
                                  void* stream) {
   if (N < 1 || S < 1 || (!bp_smem && N > 1 && !bp))
     return (int)cudaErrorInvalidValue;
@@ -859,20 +1024,51 @@ extern "C" int llsm_viterbi_scan(const float* obs, const float* lt,
     if (e != cudaSuccess) return (int)e;
     return (int)cudaGetLastError();
   }
-  if (lt_mode == 3) {
-    const int threads = min(kMaxThreads, (S + 31) / 32 * 32);
-    const size_t smem = (size_t)(2 * C + 2 * kMaxWarps) * sizeof(float) +
-                        (bp_smem ? (size_t)(N - 1) * S * sizeof(uint16_t)
-                                 : 0);
-    if (S <= kMaxStates || S > 65536 || P != 1 || C % 4 || C < S ||
-        bp_bytes != 2)
+  if (lt_mode == 5) {
+    const int dr = dest_warps * row_warps;
+    if (S <= 2048 || S > 65536 || P != 1 || C % 8 || C < S ||
+        bp_bytes != 2 || bp_smem || warps < 1 || warps > kStreamMaxWarps ||
+        dest_warps < 1 || row_warps < 1 || warps % dr ||
+        (rows_a != 1 && rows_a != 4) || row_blocks < 1 || chunk < 8 ||
+        chunk % (8 * (warps / dr)) || !work)
       return (int)cudaErrorInvalidValue;
     if (B <= 0) return (int)cudaGetLastError();
-    const WideKernel k = pick_wide(bp_smem, renorm);
-    cudaError_t e = llsm::allow_smem(k, smem);
+    cudaStream_t st = (cudaStream_t)stream;
+    float* scores = static_cast<float*>(work);
+    unsigned* rowmax =
+        reinterpret_cast<unsigned*>(scores + 2 * (long long)B * C);
+    unsigned* ctr = rowmax + 3 * B;
+    cudaError_t e =
+        cudaMemsetAsync(rowmax, 0, (3 * (size_t)B + 1) * sizeof(unsigned), st);
     if (e != cudaSuccess) return (int)e;
-    k<<<B, threads, smem, (cudaStream_t)stream>>>(
-        obs, lt, path, final_score, static_cast<uint16_t*>(bp), N, S, C);
+    // kernels._viterbi_stream mirrors the bytes
+    const int J = kStreamJ * dest_warps, Rb = 4 * rows_a * row_warps;
+    const int parts = warps / dr;
+    const size_t bufs =
+        2 * ((size_t)chunk * J + (size_t)Rb * (chunk + 4)) * sizeof(float);
+    const size_t partials =
+        parts > 1 ? (size_t)parts * Rb * J * 2 * sizeof(float) : 0;
+    const size_t smem = bufs > partials ? bufs : partials;
+    const void* k =
+        rows_a == 4
+            ? (renorm ? (const void*)viterbi_stream_kernel<true, 4>
+                      : (const void*)viterbi_stream_kernel<false, 4>)
+            : (renorm ? (const void*)viterbi_stream_kernel<true, 1>
+                      : (const void*)viterbi_stream_kernel<false, 1>);
+    if (smem > 48 * 1024) {
+      e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    uint16_t* bp16 = static_cast<uint16_t*>(bp);
+    int Sp = C, DW = dest_warps, RW = row_warps, KC = chunk;
+    void* args[] = {&obs,  &lt, &path, &final_score, &bp16, &scores, &rowmax,
+                    &ctr,  &B,  &N,    &S,           &Sp,   &DW,     &RW,
+                    &KC};
+    dim3 grid((S + J - 1) / J, row_blocks);
+    e = cudaLaunchCooperativeKernel(k, grid, dim3(32 * warps), args, smem,
+                                    st);
+    if (e != cudaSuccess) return (int)e;
     return (int)cudaGetLastError();
   }
   int log2P = 0;

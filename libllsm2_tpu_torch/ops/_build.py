@@ -107,12 +107,14 @@ SIGNATURES = {
     # ncoef, F, G (kernels._refine_geometry at D = 1), stream
     "llsm_refine_f0_full": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F,
                             _F, _F, _F, _F, _F, _F, _F, _F, _I, _I, _I, _P),
-    # obs, lt, path, final scores, backpointer scratch (or null), the grid
-    # kernel's work (or null), B, N, S, renorm, P, C, lt_mode, bp_smem,
-    # bp_bytes (kernels._viterbi_geometry), warps, row warps, row blocks
-    # (kernels._viterbi_grid; 0 but in lt mode 4), stream
+    # obs, lt, path, final scores, backpointer scratch (or null), the
+    # cooperative kernels' work (or null), B, N, S, renorm, P, C, lt_mode,
+    # bp_smem, bp_bytes (kernels._viterbi_geometry), warps, row warps, row
+    # blocks (kernels._viterbi_grid or _viterbi_stream; 0 but in lt modes 4
+    # and 5), dest warps, rows a thread, chunk (_viterbi_stream; 0 but in
+    # lt mode 5), stream
     "llsm_viterbi_scan": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                          _I, _I, _I, _I, _I, _I, _P),
+                          _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 _lib = None

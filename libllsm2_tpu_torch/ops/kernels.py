@@ -702,7 +702,10 @@ def env_render(cyc: torch.Tensor, edc: torch.Tensor, ar: torch.Tensor,
     lerps frames i and i + 1, the last frame holds constant.  nx = N*nhop
     unless nhop is given: then nx <= N*nhop (the render is cut).  Ke <= 8
     takes env_render.cu's first kernel (one rotation ladder a sample for
-    every channel), more its wide kernel (a ladder a channel)."""
+    every channel), more its wide kernel (the ladder once a sample for
+    every 4 or 8 channels, a rotation at a time; runs of 4 samples a
+    thread; tiles of 64, 32 or 16 frames), every output the bits of the
+    wide kernel it replaced."""
     if not _on_cuda(cyc, edc, ar, ai, base):
         return env_render_ref(cyc, edc, ar, ai, base, nhop)
     B, N, C, Ke = ar.shape
@@ -2091,11 +2094,11 @@ _VITERBI_RING = 16
 _VITERBI_CHUNKS = (4, 8, 16, 32, 52, 64)
 
 
-# the most states viterbi.cu takes: past 2048 (lt mode 3) its two score rows
-# of S rounded up to 4 floats and the 32 warps' maxima fill the H100's
-# shared memory at (232448 / 4 - 64) / 2 states (uint16 backpointers would
-# go to 65536)
-_VITERBI_MAX_STATES = (_SMEM_MAX // 4 - 2 * _VITERBI_WARPS) // 2
+# the most states viterbi_scan takes (the one-block-a-row kernel that ran
+# past 2048 states until the stream kernel replaced it filled shared memory
+# with two score rows there; kept: the stream kernel's uint16 backpointers
+# and 16 dest warps a block would go further)
+_VITERBI_MAX_STATES = 29024
 # viterbi_grid_kernel (lt mode 4, 256 < S <= 2048): destination states a
 # block (kGridJ), source states a group (kGridG), rows a warp (kGridRows),
 # row warps a block tried; its ceil(S / 16) <= 128 slices need one block
@@ -2117,22 +2120,18 @@ def _viterbi_geometry(N: int, S: int) -> tuple:
     floats fit (mode 1), else in device memory (2).  The shared bytes: the
     two score rows [2, P C], the maxima [2, 32] and the observations' ring
     [16, S] always, then lt in mode 1, then the (N - 1) S byte backpointers
-    where they fit beside them.  From 257 to 2048 states (mode 4,
-    viterbi_grid_kernel) P = 1, C = S rounded up to 8 (the source states a
-    thread takes, in groups of 8), the backpointers uint16 in device
-    memory, and threads and bytes None: the grid is _viterbi_grid's.  Past 2048 (mode 3, viterbi_wide_kernel) P = 1, C = S rounded
-    up to 4, min(1024, S rounded up to 32) threads (each thread several
-    destination states), lt in device memory, no ring, the backpointers
-    uint16: 2 (N - 1) S bytes where they fit."""
-    if 256 < S <= _VITERBI_GRID_MAX_STATES:
-        C = -(-S // _VITERBI_GRID_G) * _VITERBI_GRID_G
-        return 1, C, None, 4, False, None, 2
+    where they fit beside them.  Past 256 states P = 1, C = S rounded up
+    to 8 (the source states a thread takes, in groups of 8), the
+    backpointers uint16 in device memory, and threads and bytes None: the
+    cooperative grid's, to 2048 states viterbi_grid_kernel's (mode 4,
+    _viterbi_grid: lt's column slice in shared memory for the whole
+    launch), past it viterbi_stream_kernel's (mode 5, _viterbi_stream:
+    lt's columns and the scores streamed through shared memory in chunks
+    of source states every step)."""
     if S > 256:
-        C = -(-S // 4) * 4
-        smem = 4 * (2 * C + 2 * _VITERBI_WARPS)
-        bp_smem = smem + 2 * (N - 1) * S <= _SMEM_MAX
-        return (1, C, min(1024, -(-S // 32) * 32), 3, bp_smem,
-                smem + (2 * (N - 1) * S if bp_smem else 0), 2)
+        C = -(-S // _VITERBI_GRID_G) * _VITERBI_GRID_G
+        mode = 4 if S <= _VITERBI_GRID_MAX_STATES else 5
+        return 1, C, None, mode, False, None, 2
     if S <= 128:
         P, lt_mode = 2, 0
         C = next(c for c in _VITERBI_CHUNKS if 2 * c >= S)
@@ -2187,17 +2186,77 @@ def _viterbi_grid(B: int, S: int, sms: int = 132) -> tuple:
     return wr * parts, wr, slices, row_blocks, smem
 
 
+# viterbi_stream_kernel (lt mode 5, S > 2048): destination states a dest
+# warp, the most warps a block
+_VITERBI_STREAM_J = 32
+_VITERBI_STREAM_WARPS = 16
+
+
+def _viterbi_stream(B: int, S: int, sms: int = 132) -> tuple:
+    """viterbi_stream_kernel's cooperative grid for B rows of S states (lt
+    mode 5) on a card of `sms` SMs -> (warps a block, dest warps, row
+    warps, rows a thread, destination slices, row blocks, source states a
+    chunk, shared bytes).  A block owns a slice of 32 x dest warps
+    destination states, the fewest dest warps whose ceil(S / (32 dest
+    warps)) slices are at most the card's SMs; a thread takes 4
+    neighbouring destinations of 4 rows (1 at up to 4 rows: a warp 16 or 4
+    rows); row warps: the fewest of 1, 2 and 4 that make the fewest passes
+    over the row groups a step, as _viterbi_grid; the block's other warps,
+    up to 16 in all, split each chunk's groups of 8 source states into P
+    parts (a power of 2).  A chunk holds 4 groups a part, at least 256
+    states; it is halved, then P, until its two buffers (lt's [chunk, 32
+    dest warps] and the rows' scores [rows, chunk + 4]) and the parts'
+    maxima [P, rows, 32 dest warps] (value, first group), which reuse the
+    buffers, fit shared memory.  The slices x row blocks blocks are at most
+    one an SM."""
+    dw = -(-(-(-S // _VITERBI_STREAM_J)) // sms)
+    if dw > _VITERBI_STREAM_WARPS:
+        raise ValueError(f"viterbi_scan: {S} states need more than "
+                         f"{_VITERBI_STREAM_WARPS} dest warps a block on "
+                         f"{sms} SMs")
+    J = _VITERBI_STREAM_J * dw
+    slices = -(-S // J)
+    ra = 1 if B <= 4 else 4
+    best = None
+    for rw in (1, 2, 4):
+        if dw * rw > _VITERBI_STREAM_WARPS:
+            break
+        groups = -(-B // (4 * ra * rw))
+        row_blocks = min(groups, sms // slices)
+        passes = -(-groups // row_blocks)
+        if best is None or passes < best[0]:
+            best = (passes, rw, row_blocks)
+    _, rw, row_blocks = best
+    rows = 4 * ra * rw
+    parts = 1
+    while dw * rw * parts * 2 <= _VITERBI_STREAM_WARPS:
+        parts *= 2
+
+    def nbytes(parts, kc):
+        return max(8 * (kc * J + rows * (kc + 4)), 8 * parts * rows * J)
+
+    kc = max(256, 32 * parts)
+    while nbytes(parts, kc) > _SMEM_MAX:
+        if kc > 8 * parts:
+            kc //= 2
+        else:
+            parts //= 2
+    return (dw * rw * parts, dw, rw, ra, slices, row_blocks, kc,
+            nbytes(parts, kc))
+
+
 def _viterbi_scratch(B: int, N: int, S: int, device):
     """viterbi.cu's scratch: None where _viterbi_geometry keeps the
     backpointers in shared memory, else [B, N - 1, S] uint8 (uint16 past
-    256 states); in lt mode 4 (bp, work), work the int32 words of the grid
-    kernel's raw scores [2, B, C], row maxima [3, B] and barrier counter."""
+    256 states); in lt modes 4 and 5 (bp, work), work the int32 words of
+    the cooperative kernels' raw scores [2, B, C], row maxima [3, B] and
+    barrier counter."""
     geo = _viterbi_geometry(N, S)
     if geo[4]:
         return None
     kind = torch.uint8 if geo[6] == 1 else torch.int16
     bp = torch.empty((B, N - 1, S), dtype=kind, device=device)
-    if geo[3] != 4:
+    if geo[3] < 4:
         return bp
     return bp, torch.empty(2 * B * geo[1] + 3 * B + 1, dtype=torch.int32,
                            device=device)
@@ -2208,15 +2267,21 @@ def _viterbi_launch_args(obs, lt, renorm: bool, path, final, bp):
     path [B, N], final [B, S] and bp (_viterbi_scratch)."""
     B, N, S = obs.shape
     P, C, _, lt_mode, bp_smem, _, bp_bytes = _viterbi_geometry(N, S)
-    work, warps, row_warps, rows = None, 0, 0, 0
+    work, warps, row_warps, rows, dest_warps, rows_a, chunk = (None, 0, 0,
+                                                               0, 0, 0, 0)
     if lt_mode == 4:
         bp, work = bp
         warps, row_warps, _, rows, _ = _viterbi_grid(B, S,
                                                      _sm_count(obs.device))
+    elif lt_mode == 5:
+        bp, work = bp
+        (warps, dest_warps, row_warps, rows_a, _, rows, chunk,
+         _) = _viterbi_stream(B, S, _sm_count(obs.device))
     ptr = lambda t: None if t is None else t.data_ptr()
     return (obs.data_ptr(), lt.data_ptr(), path.data_ptr(), final.data_ptr(),
             ptr(bp), ptr(work), B, N, S, int(bool(renorm)), P, C, lt_mode,
-            int(bp_smem), bp_bytes, warps, row_warps, rows, _stream(obs))
+            int(bp_smem), bp_bytes, warps, row_warps, rows, dest_warps,
+            rows_a, chunk, _stream(obs))
 
 
 def viterbi_scan(obs: torch.Tensor, lt: torch.Tensor, renorm: bool, *,
@@ -2228,9 +2293,11 @@ def viterbi_scan(obs: torch.Tensor, lt: torch.Tensor, renorm: bool, *,
     its row maximum; ties go to the first maximum at every step and at the
     end.  With scores, (path, the last step's scores [B, S]).  On the card
     one launch of viterbi.cu (S <= _VITERBI_MAX_STATES; _viterbi_geometry's
-    lanes a state; from 257 to 2048 states one cooperative launch over the
-    card's SMs, _viterbi_grid), the backtrace in the kernel; its scores and
-    path are the plain version's bit for bit (NaN inputs aside)."""
+    lanes a state; past 256 states one cooperative launch over the card's
+    SMs: _viterbi_grid to 2048 states, _viterbi_stream past it), the
+    backtrace in the kernel; its scores and path are the plain version's
+    bit for bit (NaN inputs aside).  A cooperative grid the card refuses
+    raises."""
     if not _on_cuda(obs, lt):
         return viterbi_scan_ref(obs, lt, renorm, scores=scores)
     B, N, S = obs.shape

@@ -27,11 +27,15 @@ uniform random scores from seed 0, as phases 9 and 11 time them
 (`rdviterbi`: layer1._rd_viterbi on [batch, 1600, 64] with the chunk's
 voicing; `viterbi`: f0.viterbi on [64, 1600, 97]; each all rows, then
 row 0 alone), kernels.viterbi_scan past 256 states as chip_smoke's phase
-20d runs it (`wide257`, `wide512`, `wide1025`: seeded scores in eighths
-with -inf entries under the tracker's transitions at S = nbins + 1,
-renormalized at 257 and 1025; [64, 1600, S], row 0 alone, then rows 0
-and 1 joined into one 3200-frame row) and the tracker at nbins 384 on the
-first 64 bench rows (`tracker384`), and full-band analysis as
+20d runs it (`wide257`, `wide512`, `wide1025`, `wide2049`, `wide4097`,
+any `wide<S>` or `wide<S>x<N>` at N frames: seeded scores in eighths
+with -inf entries under the tracker's transitions at S = nbins + 1 (past
+8193 states an lt in eighths from seed 0: the tracker's float64 table is
+6.7 GB at 29024), renormalized but at 512 and 4097; [64, N, S], row 0
+alone, then rows 0 and 1 joined into one row of 2 N frames, or the rows
+`widerows=` lists, -1 the joined row) and the tracker at nbins 384 on the
+first 64 bench rows (`tracker384`; `tracker<nbins>` at any nbins, e.g.
+`tracker2048`, past 2048 states), and full-band analysis as
 chip_smoke.py's phase 20e runs it (`full48`: batched_pipeline at 48 kHz
 with the 5 ms hop, maxnhar 600, f0_floor 40, on the bench rows resampled
 to 48 kHz on the card; `full16`: 16 kHz at a 2 ms hop, maxnhar 200, fnyq
@@ -69,7 +73,10 @@ pass) in h20_48's and h50_48's analysis, `kernproj19200` on chip_smoke.py's
 96 kHz / 200 ms shape (x [batch, 768000], hop and C 19200, halfwidths to
 4800, K 80) and `kernproject` harmonic_project on its frames of a window
 outside the cosine series ([40 batch, 38400], K 80, live spans to 9601),
-ten calls a step, as the kern cells above; each side analyzes
+`kernenv9` and `kernenv12` env_render past 8 envelope harmonics on
+chip_smoke.py's 20f shapes (cycle tracks [batch, 128000] at hop 80 with
+4 channels of 9 harmonics, [batch, 384000] at hop 480 with 3 of 12,
+from seed 22), ten calls a step, as the kern cells above; each side analyzes
 (and fits layer 1) once, untimed, with its own package.  One untimed step of
 each first, then `pairs` pairs whose order alternates (other first in
 even pairs), each step timed by the host clock around work that ends in
@@ -77,16 +84,19 @@ torch.cuda.synchronize().  Prints every step, each side's median and
 quartiles, and how many pairs each side won.  Imports no jax:
 
     python3 scripts/port_ab_steps.py OTHER_DIR [pairs=20] [batch=128]
+        [widerows=64,1,-1]
         [cells=default,matmul,off32,one,refine,rta,layer1,pbp,edits,plain,
                11k,refine11,to_layer1,nasal,tracker,rdviterbi,viterbi,
-               wide257,wide512,wide1025,tracker384,full48,full16,
+               wide257,wide512,wide1025,wide2049,wide4097,tracker384,
+               tracker2048,full48,full16,
                kern48,kern16,h10_48,kernnoise48,kern160,h20_48,fft16,
                kernseg,kerncyc960,kerncyc2048,h50_48,kernnoise960,
                kernnoise2400,kerncyc2400,kernproj960,kernproj2400,
-               kernproj19200,kernproject]
+               kernproj19200,kernproject,kernenv9,kernenv12]
 """
 import dataclasses
 import importlib
+import re
 import statistics
 import subprocess
 import sys
@@ -191,15 +201,17 @@ def main(argv):
     if "viterbi" in cells:
         logobs = torch.rand((64, 1600, 97), generator=g, device="cuda")
     wide = {}
+    wide_rows = [int(v) for v in kw.get("widerows", "64,1,-1").split(",")]
     for cell in cells:
-        if cell.startswith("wide"):
-            S = int(cell[4:])
-            o = torch.round(torch.rand((64, 1600, S), generator=g,
+        m = re.fullmatch(r"wide(\d+)(?:x(\d+))?", cell)
+        if m:
+            S, Nw = int(m[1]), int(m[2] or 1600)
+            o = torch.round(torch.rand((64, Nw, S), generator=g,
                                        device="cuda") * -96.0) / 8.0
             o[torch.rand(o.shape, generator=g, device="cuda") < 0.1] = \
                 -float("inf")
             o[..., 0] = -1.0
-            wide[cell] = (o, S != 512)
+            wide[cell] = (o, S not in (512, 4097))
     # (cell, rows): refine, refine11 and the two Viterbis run the batch,
     # then one row alone; the wide Viterbis also rows 0 and 1 joined (-1)
     # the kern cells: the wide kernels' calls in this checkout's full-band
@@ -218,7 +230,9 @@ def main(argv):
                   "kernproj960": ("h20_48", ("harmonic_project_win",)),
                   "kernproj2400": ("h50_48", ("harmonic_project_win",)),
                   "kernproj19200": (None, ("harmonic_project_win",)),
-                  "kernproject": (None, ("harmonic_project",))}
+                  "kernproject": (None, ("harmonic_project",)),
+                  "kernenv9": (None, ("env_render",)),
+                  "kernenv12": (None, ("env_render",))}
     if "kern160" in cells:
         full["creaky"] = (dict(f0_floor=70.0, maxnhar=160, fnyq=6000.0),
                           (x, f0, nxv, x_ref))
@@ -228,6 +242,18 @@ def main(argv):
         fc[:, ::7] = 0.0
         captured["kerncyc2048 sample_cycles"] = (
             (fc, 2048, 48000.0, 187 * 2048), {})
+    for cell, (Ne, hop, Ce, Ke) in (("kernenv9", (1600, 80, 4, 9)),
+                                    ("kernenv12", (800, 480, 3, 12))):
+        if cell in cells:
+            # chip_smoke.py's 20f envelopes: [B, N] frames, C channels of Ke
+            # harmonics, a cycle track of small random steps
+            ge = torch.Generator(device="cuda").manual_seed(22)
+            re_ = lambda *s: torch.rand(s, generator=ge, device="cuda")
+            cyc = torch.remainder(torch.cumsum(re_(B, Ne * hop) * 0.02, -1),
+                                  1.0)
+            captured[f"{cell} env_render"] = (
+                (cyc, re_(B, Ne, Ce), (re_(B, Ne, Ce, Ke) - 0.5) * 0.3,
+                 (re_(B, Ne, Ce, Ke) - 0.5) * 0.3, 0.5 + re_(B, Ne, Ce)), {})
     if {"kernproj19200", "kernproject"} & set(cells):
         # chip_smoke.py's 20h shapes at 96 kHz / 200 ms: x [B, 768000] (hop
         # and C 19200, halfwidths to 4800, random live slots) and the
@@ -285,11 +311,13 @@ def main(argv):
         if cell in kern_cells else
         [(cell, min(B, 64) if cell == "viterbi" else B), (cell, 1)]
         if cell in ("refine", "refine11", "viterbi", "rdviterbi")
-        else [(cell, 64), (cell, 1), (cell, -1)] if cell in wide
+        else [(cell, r) for r in wide_rows] if cell in wide
         else [(cell, None)])]
     for cell, rows in runs:
-        label = cell if rows is None else (f"{cell} 1 x 16 s" if rows < 0
-                                           else f"{cell} {rows} x 8 s")
+        label = cell if rows is None else (
+            f"{cell} {tuple(wide[cell][0].shape)} rows {rows} (-1: rows 0 "
+            "and 1 joined)" if cell in wide else f"{cell} 1 x 16 s"
+            if rows < 0 else f"{cell} {rows} x 8 s")
         steps, chunks = {}, {}
         for name, pkg in sides.items():
             opt = pkg.create_aoptions(f0_floor=70.0, use_pallas=True)
@@ -321,9 +349,15 @@ def main(argv):
                 f0m = importlib.import_module(pkg.__name__ + ".ops.f0")
                 kern = importlib.import_module(pkg.__name__ + ".ops.kernels")
                 o, renorm = wide[cell]
-                lt = f0m._tables(f0m.F0Config(nbins=o.shape[-1] - 1),
-                                 "cuda")["lt"]
-                o = o[:2].reshape(1, 3200, -1) if rows < 0 else o[:rows]
+                S = o.shape[-1]
+                if S <= 8193:
+                    lt = f0m._tables(f0m.F0Config(nbins=S - 1), "cuda")["lt"]
+                else:        # the tracker's float64 table: 6.7 GB at 29024
+                    gl = torch.Generator(device="cuda").manual_seed(0)
+                    lt = torch.round(torch.rand((S, S), generator=gl,
+                                                device="cuda") * -32.0) / 8.0
+                o = (o[:2].reshape(1, 2 * o.shape[1], -1) if rows < 0
+                     else o[:rows])
                 steps[name] = (lambda k=kern, o=o, lt=lt, rn=renorm:
                                k.viterbi_scan(o, lt, rn))
             elif cell in captured:
@@ -344,10 +378,10 @@ def main(argv):
                 ch = l0._analyze(opt, x, f0)
                 so = dataclasses.replace(sopt, noise_idft="fft")
                 steps[name] = lambda l0=l0, c=ch, s=so: l0._synthesize(s, c)
-            elif cell == "tracker384":
+            elif re.fullmatch(r"tracker\d+", cell):
                 f0m = importlib.import_module(pkg.__name__ + ".ops.f0")
                 cfg = f0m.F0Config(fs=16000.0, nhop=80, f0_floor=70.0,
-                                   nbins=384)
+                                   nbins=int(cell[7:]))
                 steps[name] = lambda f0m=f0m, c=cfg: f0m.track_batch(c, x[:64])
             elif cell in ("tracker", "viterbi"):
                 f0m = importlib.import_module(pkg.__name__ + ".ops.f0")

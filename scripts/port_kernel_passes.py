@@ -21,7 +21,8 @@ imports no jax:
 
 (name: a source of PASSES below, viterbi, deconv_wide, denoise_wide,
 noise_wide, noise_long, apply_wide, seg, cycles_long, cycles_hop,
-proj_part or project_rows.)
+proj_part, project_rows, env_wide, env_tiles, noise_floor, viterbi_wide
+or viterbi_layouts.)
 
 split= instead times each CUDA kernel of kernels.refine_f0_dec, by its
 name in a torch.profiler trace, of the package in each DIR (a checkout,
@@ -50,7 +51,12 @@ SM clock; then past 256 states, where the grid kernel runs (lt mode 4:
 under the tracker's transitions at S = nbins + 1, all rows and row 0
 alone), also built without its candidates (LLSM_SKIP_PASS_A: the max-plus
 product compiled out; the staging of the scores, the merges, the
-writes, the row maxima and the grid barriers kept): a step's fixed cost.
+writes, the row maxima and the grid barriers kept): a step's fixed cost;
+then past 2048 states, where the stream kernel runs (lt mode 5: [64,
+1600, 2049] renormalized and [64, 1600, 4097] not, all rows and row 0
+alone), the same three builds (without its candidates, the chunks'
+staging, the merges, the group resolve from device memory, the writes
+and the barriers are kept).
 
 only=deconv_wide times deconv_full.cu's wide path at the full-band
 shapes of chip_smoke.py's phase 20e on random inputs (48 kHz at the 5 ms
@@ -115,6 +121,31 @@ once), built without its harmonics (LLSM_SKIP_PASS_A: no group in a pass)
 and without its staging (LLSM_SKIP_PASS_B); what is left with both is the
 walk's loop, the block sums and the stores.
 
+only=env_wide times env_render.cu's wide kernel (past 8 envelope
+harmonics) at chip_smoke.py's phase 20f shapes (cycle tracks [128,
+128000] at hop 80 with 4 channels of 9 harmonics, [128, 384000] at hop
+480 with 3 channels of 12) on random inputs, built without its harmonic
+terms (LLSM_SKIP_PASS_A: the rotation ladder and the coefficients'
+lerps) and without its coefficient staging (LLSM_SKIP_PASS_B: zeros
+staged instead of the frames' coefficients); what is left with both is
+the cycle loads, one sincospif a sample and the stores; only=env_tiles
+times it at the same shapes built with tiles of 16, 32 and 64 frames
+forced (LLSM_ENV_TILE) and with launch bounds of 2 and 3 blocks an SM
+(LLSM_ENV_BLOCKS), beside the library's own.  only=noise_floor
+times kernels.noise_bins at the bench shape (one [1600, 81] draw a call,
+as phase 5 calls it) and a one-element torch fill, each by its kernels'
+device time in a torch.profiler trace of 20 calls, in three alternated
+rounds in one process: the draw beside the device time of a launch that
+does almost no work.  only=viterbi_wide times kernels.viterbi_scan past
+2048 states at chip_smoke.py's phase 20d shapes ([64, 1600, 2049]
+renormalized, [64, 1600, 4097] not, then row 0 alone at each; seeded
+scores in eighths with -inf entries under the tracker's transitions at S
+= nbins + 1), a call's time (CUDA events, median of 3 after one untimed),
+beside its bound, B (N - 1) S^2 adds and compares at 67 TFLOP/s.
+only=viterbi_layouts times the stream kernel at 20d's 64-row shapes
+under its route's layout and under others forced (row warps, parts of
+the source states, chunk), each output equal to the route's.
+
 The variants go to build/kernels/ beside the library (listed in
 .gitignore), each under a hash of its source and defines.
 """
@@ -155,7 +186,11 @@ VITERBI_SHAPES = (("tracker", 64, 1600, 97, True),
                   ("S 257 row 0", 1, 1600, 257, True),
                   ("S 512", 64, 1600, 512, False),
                   ("S 1025", 64, 1600, 1025, True),
-                  ("S 1025 row 0", 1, 1600, 1025, True))
+                  ("S 1025 row 0", 1, 1600, 1025, True),
+                  ("S 2049", 64, 1600, 2049, True),
+                  ("S 2049 row 0", 1, 1600, 2049, True),
+                  ("S 4097", 64, 1600, 4097, False),
+                  ("S 4097 row 0", 1, 1600, 4097, False))
 # C entry of a source, where its name is not llsm_<source>
 ENTRIES = {"refine_f0": "llsm_refine_f0_dec"}
 SPLIT_REPS = 20
@@ -219,7 +254,7 @@ def viterbi_passes():
         args = kernels._viterbi_launch_args(obs, lt, renorm, path, final, bp)
         ms = {}
         variants = (("whole", full), ("forward", fwd)) + (
-            (("fixed", fixed),) if geo[3] == 4 else ())
+            (("fixed", fixed),) if geo[3] >= 4 else ())
         for name, fn in variants:
             rc = fn(*args)
             if rc:
@@ -227,6 +262,7 @@ def viterbi_passes():
             ms[name] = run_ms(lambda: fn(*args), 20 if S <= 256 else 3)
         cyc = lambda t: t / (N - 1) * mhz * 1e3
         grid = (f" grid {kernels._viterbi_grid(B, S)}" if geo[3] == 4
+                else f" grid {kernels._viterbi_stream(B, S)}" if geo[3] == 5
                 else f" threads {geo[2]}")
         fixed_ms = "" if "fixed" not in ms else (
             f"; without its candidates {ms['fixed']:.4f} ms = "
@@ -496,6 +532,160 @@ def cycles_long(shapes=CYCLES_LONG_SHAPES, name="cycles_long", top=300.0):
             ("the steps (lerp and divide)", "the output pass"))
 
 
+# env_render's wide shapes: (label, B, N, nhop, C, Ke), chip_smoke.py's 20f
+ENV_WIDE_SHAPES = (("Ke 9", 128, 1600, 80, 4, 9),
+                   ("Ke 12", 128, 800, 480, 3, 12))
+
+
+def env_wide():
+    """env_render.cu's wide kernel at ENV_WIDE_SHAPES (the docstring says
+    how), a line each."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    r = lambda *s: torch.rand(*s, generator=g, device=dev)
+    for label, Be, Ne, hop, Ce, Ke in ENV_WIDE_SHAPES:
+        cyc = torch.remainder(torch.cumsum(r(Be, Ne * hop) * 0.02, -1), 1.0)
+        args = (cyc, r(Be, Ne, Ce), (r(Be, Ne, Ce, Ke) - 0.5) * 0.3,
+                (r(Be, Ne, Ce, Ke) - 0.5) * 0.3, 0.5 + r(Be, Ne, Ce))
+        wide_variants(
+            "env_render", f"env_wide {label} cyc [{Be}, {Ne * hop}] hop "
+            f"{hop} C {Ce}",
+            lambda rows: kernels.env_render(*(t[:rows] for t in args)),
+            ("the harmonic terms (ladder and lerps)",
+             "the coefficient staging"))
+        del args, cyc
+        torch.cuda.empty_cache()
+
+
+# viterbi_scan past 2048 states: (label, B, N, S, renorm), chip_smoke's 20d
+VITERBI_WIDE_SHAPES = (("S 2049", 64, 1600, 2049, True),
+                       ("S 2049 row 0", 1, 1600, 2049, True),
+                       ("S 4097", 64, 1600, 4097, False),
+                       ("S 4097 row 0", 1, 1600, 4097, False))
+
+
+def viterbi_wide():
+    """viterbi_scan at VITERBI_WIDE_SHAPES (the docstring says how), a line
+    each."""
+    from libllsm2_tpu_torch.ops import f0 as f0mod
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(20)
+    for label, Bv, Nv, S, renorm in VITERBI_WIDE_SHAPES:
+        obs = torch.round(torch.rand((Bv, Nv, S), generator=g, device=dev)
+                          * -96.0) / 8.0
+        obs[torch.rand(obs.shape, generator=g, device=dev) < 0.1] = \
+            -float("inf")
+        obs[..., 0] = -1.0
+        lt = f0mod._tables(f0mod.F0Config(nbins=S - 1), dev)["lt"]
+        kernels.viterbi_scan(obs, lt, renorm)
+        torch.cuda.synchronize()
+        ms = []
+        for _ in range(3):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            kernels.viterbi_scan(obs, lt, renorm)
+            e1.record()
+            e1.synchronize()
+            ms.append(e0.elapsed_time(e1))
+        ms.sort()
+        bound = 2.0 * Bv * (Nv - 1) * S * S / 67e12 * 1e3
+        print(f"viterbi_wide {label} [{Bv}, {Nv}, {S}] renorm {renorm}: "
+              f"{ms[1]:.4f} ms a call (of {[round(v, 4) for v in ms]}), "
+              f"bound {bound:.4f} ms (ops): {ms[1] / bound:.2f}x; geometry "
+              f"{kernels._viterbi_geometry(Nv, S)}", flush=True)
+        del obs, lt
+        torch.cuda.empty_cache()
+
+
+def env_tiles():
+    """env_render.cu's wide kernel at ENV_WIDE_SHAPES built with each tile
+    of 16, 32 and 64 frames forced (LLSM_ENV_TILE) and 2 or 3 blocks an SM
+    (LLSM_ENV_BLOCKS), beside the library's own choice, a line each."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    r = lambda *s: torch.rand(*s, generator=g, device=dev)
+    tiles = (16, 32, 64)
+    blocks = (2, 3)
+    libs = _build.variants([("env_render", {"LLSM_ENV_TILE": h})
+                            for h in tiles]
+                           + [("env_render", {"LLSM_ENV_BLOCKS": n})
+                              for n in blocks])
+    for label, Be, Ne, hop, Ce, Ke in ENV_WIDE_SHAPES:
+        cyc = torch.remainder(torch.cumsum(r(Be, Ne * hop) * 0.02, -1), 1.0)
+        args = (cyc, r(Be, Ne, Ce), (r(Be, Ne, Ce, Ke) - 0.5) * 0.3,
+                (r(Be, Ne, Ce, Ke) - 0.5) * 0.3, 0.5 + r(Be, Ne, Ce))
+        call = lambda: kernels.env_render(*args)
+        parts = [f"library {run_ms(call):.4f} ms"] + [
+            f"{what} {run_ms(lambda: with_library(lib, call)):.4f} ms"
+            for what, lib in zip([f"{h} frames" for h in tiles]
+                                 + [f"{n} blocks an SM" for n in blocks],
+                                 libs)]
+        print(f"env_tiles {label} cyc [{Be}, {Ne * hop}] hop {hop} C {Ce}: "
+              + "; ".join(parts) + " (a launch in a run of 20)", flush=True)
+        del args, cyc
+        torch.cuda.empty_cache()
+
+
+# viterbi_stream_kernel's layouts tried at 20d's 64-row shapes: (S, renorm,
+# [(row warps, parts, chunk)])
+VITERBI_LAYOUTS = ((2049, True, ((2, 2, 256), (2, 4, 256), (2, 8, 128),
+                                 (2, 8, 256), (4, 2, 256), (4, 4, 256))),
+                   (4097, False, ((4, 1, 256), (4, 2, 256), (4, 4, 64),
+                                  (4, 4, 128), (4, 4, 256), (2, 8, 256))))
+
+
+def viterbi_layouts():
+    """viterbi_scan at VITERBI_LAYOUTS: the stream kernel's route (its
+    _viterbi_stream geometry) beside each layout forced by monkeypatching
+    _viterbi_stream, every output equal to the route's, a line each."""
+    from libllsm2_tpu_torch.ops import f0 as f0mod
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(20)
+    route = kernels._viterbi_stream
+    for S, renorm, layouts in VITERBI_LAYOUTS:
+        obs = torch.round(torch.rand((64, 1600, S), generator=g, device=dev)
+                          * -96.0) / 8.0
+        obs[torch.rand(obs.shape, generator=g, device=dev) < 0.1] = \
+            -float("inf")
+        obs[..., 0] = -1.0
+        lt = f0mod._tables(f0mod.F0Config(nbins=S - 1), dev)["lt"]
+        ref = kernels.viterbi_scan(obs, lt, renorm, scores=True)
+        call = lambda: kernels.viterbi_scan(obs, lt, renorm)
+        parts = [f"route {route(64, S)} {run_ms(call, 3):.2f} ms"]
+        _, dw, _, ra, slices, _, _, _ = route(64, S)
+        J = 32 * dw
+        for rw, P, kc in layouts:
+            rows = 4 * ra * rw
+            nbytes = max(8 * (kc * J + rows * (kc + 4)), 8 * P * rows * J)
+            geo = (dw * rw * P, dw, rw, ra, slices,
+                   min(-(-64 // rows), 132 // slices), kc, nbytes)
+            kernels._viterbi_stream = lambda *a, geo=geo: geo
+            try:
+                got = kernels.viterbi_scan(obs, lt, renorm, scores=True)
+                same = all(torch.equal(x, y) for x, y in zip(got, ref))
+                parts.append(f"row warps {rw} parts {P} chunk {kc}: "
+                             f"{run_ms(call, 3):.2f} ms, equal {same}")
+            finally:
+                kernels._viterbi_stream = route
+        print(f"viterbi_layouts [64, 1600, {S}] renorm {renorm}: "
+              + "; ".join(parts) + " (a launch in a run of 3)", flush=True)
+        del obs, lt, ref
+        torch.cuda.empty_cache()
+
+
+def noise_floor():
+    """noise_bins' device time beside a one-element fill's (the docstring
+    says how), a line each, three rounds."""
+    dev = torch.device("cuda")
+    one = torch.empty(1, device=dev)
+    for i in range(3):
+        report(f"round {i}", "noise_bins", "bench shape", (B, N, NHOP + 1),
+               lambda: kernels.noise_bins(0, 0, B, N, NHOP + 1, dev))
+        report(f"round {i}", "a one-element fill", "launch floor", (1,),
+               lambda: one.fill_(1.0))
+
+
 def refine_args(nx):
     """-> (taps, keyword arguments) of the bench shape's decimated refine
     (16 kHz, hop 80, f0_floor 70: the main path's)."""
@@ -641,6 +831,21 @@ def main():
     if "project_rows" in names:
         project_rows()
         names.remove("project_rows")
+    if "env_wide" in names:
+        env_wide()
+        names.remove("env_wide")
+    if "noise_floor" in names:
+        noise_floor()
+        names.remove("noise_floor")
+    if "env_tiles" in names:
+        env_tiles()
+        names.remove("env_tiles")
+    if "viterbi_wide" in names:
+        viterbi_wide()
+        names.remove("viterbi_wide")
+    if "viterbi_layouts" in names:
+        viterbi_layouts()
+        names.remove("viterbi_layouts")
     if not names:
         return 0
     libs = build_variants(names)

@@ -68,12 +68,26 @@ other side's output there (its 16-frame tile, or its own layout past
 it); harmonic_project at K 1, 4, 12, 24, 44, 72 and 80 on
 [20000, 631] and at K 80 on 96 kHz / 200 ms frames [5120, 38400], its
 row kernel forced onto 256, 512, 768 and 6144 staged columns at 2 and 5
-groups of harmonics a pass.  Prints a
+groups of harmonics a pass.  what=env: env_render past 8 envelope
+harmonics (its wide kernel) at chip_smoke.py's 20f shapes ([128, 1600]
+frames at hop 80, 4 channels of 9 harmonics; [128, 800] at hop 480, 3 of
+12), the card tests' edge shapes, 1 and 9 channels, 16 and 24 harmonics,
+40 channels of 21 (the most the wrapper admits: 16-frame tiles), hops 55
+and 333 (single loads), cut renders, one partial tile and a track off the
+16-byte boundary; rows 0 / 1 / 64 alone and each side's time at 20f's
+shapes.  what=viterbi: viterbi_scan past 2048 states at chip_smoke.py's
+20d shapes ([64, 1600, 2049] renormalized, [64, 1600, 4097] not, each
+row 0 alone too), 5 rows, 2 frames, 3200 frames, 8193 states on 40
+frames, 29024 on 3 (a row, and 64 rows), 2050-2055 states and one
+frame, on scores in eighths with -inf entries under an lt in eighths with
+-inf off its diagonal, then the F0 tracker's own call at nbins 2048 on
+the first 64 bench rows: paths and last scores; each side's time at 20d's
+two shapes.  Prints a
 line a case and, last, the cases that failed; exits 1 if any did.
 Imports no jax:
 
     python3 scripts/port_wide_bits.py OTHER_DIR
-        [what=deconv,denoise,noise,apply,seg,cycles,proj]
+        [what=deconv,denoise,noise,apply,seg,cycles,proj,env,viterbi]
 """
 import ctypes
 import importlib
@@ -749,6 +763,122 @@ def cycles(kt, ko, r, bad):
                           f"{to:.4f}", flush=True)
 
 
+# env_render past 8 envelope harmonics (its wide kernel): (label, B, N,
+# nhop, C, Ke, samples cut off the render's end, offset of the cycle track
+# in its buffer); 20f's two shapes, the card tests' edges, C 1 / 9, Ke 16 /
+# 24, the shared memory's largest C (Ke + 1) (16-frame tiles), odd hops
+# (single loads), a cut render, one partial tile and a misaligned track
+ENV_CASES = (("20f Ke 9", 128, 1600, 80, 4, 9, 0, 0),
+             ("20f Ke 12", 128, 800, 480, 3, 12, 0, 0),
+             ("card Ke 9", 2, 130, 80, 4, 9, 0, 0),
+             ("card Ke 12 cut", 1, 70, 480, 3, 12, 5, 0),
+             ("C 1 Ke 9", 3, 130, 80, 1, 9, 0, 0),
+             ("C 9 Ke 9", 3, 130, 80, 9, 9, 0, 0),
+             ("C 4 Ke 16", 3, 130, 80, 4, 16, 0, 0),
+             ("C 2 Ke 24", 3, 130, 160, 2, 24, 0, 0),
+             ("C 40 Ke 21", 2, 70, 80, 40, 21, 0, 0),
+             ("hop 55 C 5 Ke 10", 2, 130, 55, 5, 10, 0, 0),
+             ("hop 333 cut", 2, 41, 333, 4, 9, 17, 0),
+             ("cut by 44", 2, 301, 80, 4, 9, 44, 0),
+             ("one partial tile", 2, 2, 80, 4, 9, 0, 0),
+             ("misaligned track", 2, 130, 80, 4, 9, 0, 1))
+
+
+def env(kt, ko, r, bad):
+    """env_render's wide kernel against the other side's at ENV_CASES,
+    rows 0, 1 and 64 alone at full batch, each side's time there."""
+    for label, B, N, nhop, C, Ke, cut, off in ENV_CASES:
+        nx = N * nhop - cut
+        cyc = torch.remainder(torch.cumsum(r(B, N * nhop + off) * 0.02, -1),
+                              1.0)[:, off:off + nx]
+        args = (cyc, r(B, N, C), (r(B, N, C, Ke) - 0.5) * 0.3,
+                (r(B, N, C, Ke) - 0.5) * 0.3, 0.5 + r(B, N, C))
+        fn = lambda *a, k=kt, h=nhop: k.env_render(*a, nhop=h)
+        got = fn(*args)
+        ok = equal(got, ko.env_render(*args, nhop=nhop))
+        print(f"env {label} [{B}, {N}, {C}, {Ke}] hop {nhop} nx {nx}: env "
+              f"equal {ok[0]}, base equal {ok[1]}", flush=True)
+        if not all(ok):
+            bad.append(("env", label))
+        if B > 64:
+            for row in (0, 1, 64):
+                one = fn(*(a[row:row + 1] for a in args))
+                ok = all(torch.equal(o[0], g[row]) for o, g in zip(one, got))
+                print(f"env {label} row {row} alone equal {ok}", flush=True)
+                if not ok:
+                    bad.append(("env row alone", label, row))
+            for _ in range(2):
+                tt = cuda_ms(lambda: fn(*args))
+                to = cuda_ms(lambda: ko.env_render(*args, nhop=nhop))
+                print(f"env {label} ms this {tt:.4f} other {to:.4f}",
+                      flush=True)
+        del got, args, cyc
+    torch.cuda.empty_cache()
+
+
+# viterbi_scan past 2048 states: (label, B, N, S, renorm); 20d's two
+# shapes and row 0 alone, rows of 5 (a partial row warp) and 2, 2 frames,
+# 3200 frames, 8193 states, S = 29024 on a few frames, paddings of 1-7
+# states
+VITERBI_CASES = (("20d S 2049", 64, 1600, 2049, True),
+                 ("20d S 2049 row 0", 1, 1600, 2049, True),
+                 ("20d S 4097", 64, 1600, 4097, False),
+                 ("20d S 4097 row 0", 1, 1600, 4097, False),
+                 ("5 rows", 5, 60, 4097, True),
+                 ("2 rows 2 frames", 2, 2, 2049, False),
+                 ("3200 frames", 1, 3200, 2049, True),
+                 ("S 8193", 64, 40, 8193, True),
+                 ("S 29024", 1, 3, 29024, True),
+                 ("S 29024 64 rows", 64, 3, 29024, False),
+                 ("S 2050", 3, 50, 2050, True),
+                 ("S 2055", 3, 50, 2055, False),
+                 ("S 2051 one frame", 3, 1, 2051, True))
+
+
+def viterbi(kt, ko, bad):
+    """viterbi_scan past 2048 states against the other side's at
+    VITERBI_CASES (scores in eighths with -inf entries, lt in eighths with
+    -inf off its diagonal), paths and last scores; then the tracker's own
+    call at nbins 2048 on the first 64 bench rows; each side's time at
+    20d's two shapes."""
+    import chip_smoke
+    f0m = importlib.import_module("p_this.ops.f0")
+    g = torch.Generator(device="cuda").manual_seed(29)
+    cases = []
+    for label, B, N, S, renorm in VITERBI_CASES:
+        obs = torch.round(torch.rand((B, N, S), generator=g, device="cuda")
+                          * -96.0) / 8.0
+        obs[torch.rand(obs.shape, generator=g, device="cuda") < 0.1] = \
+            -float("inf")
+        obs[..., 0] = -1.0
+        lt = torch.round(torch.rand((S, S), generator=g, device="cuda")
+                         * -32.0) / 8.0
+        lt[(torch.rand((S, S), generator=g, device="cuda") < 0.1)
+           & ~torch.eye(S, dtype=torch.bool, device="cuda")] = -float("inf")
+        cases.append((label, (obs, lt, renorm)))
+    x = chip_smoke.fixtures(torch, torch.device("cuda"))[0][:64]
+    cfg = f0m.F0Config(fs=16000.0, nhop=80, f0_floor=70.0, nbins=2048)
+    calls, _ = chip_smoke.capture_kernel_inputs(
+        kt, ("viterbi_scan",), lambda: f0m.track_batch(cfg, x))
+    del x
+    cases.append(("tracker nbins 2048", calls["viterbi_scan"][0][0]))
+    for label, args in cases:
+        got = kt.viterbi_scan(*args, scores=True)
+        ok = equal(got, ko.viterbi_scan(*args, scores=True))
+        print(f"viterbi {label} {tuple(args[0].shape)} renorm {args[2]}: "
+              f"path equal {ok[0]}, last scores equal {ok[1]}", flush=True)
+        if not all(ok):
+            bad.append(("viterbi", label))
+        if label in ("20d S 2049", "20d S 4097"):
+            tt = cuda_ms(lambda: kt.viterbi_scan(*args), 2)
+            to = cuda_ms(lambda: ko.viterbi_scan(*args), 1)
+            print(f"viterbi {label} ms this {tt:.4f} other {to:.4f}",
+                  flush=True)
+        del got
+    del cases, calls
+    torch.cuda.empty_cache()
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("port_wide_bits.py: needs a CUDA card")
@@ -756,7 +886,7 @@ def main():
     opts = dict(a.split("=", 1) for a in sys.argv[1:] if "=" in a)
     if len(argv) != 1:
         sys.exit(__doc__)
-    sys.path.insert(0, str(ROOT))          # chip_smoke (what=seg,cycles)
+    sys.path.insert(0, str(ROOT))     # chip_smoke (what=seg,cycles,viterbi)
     load(ROOT, "p_this")
     load(Path(argv[0]).resolve(), "p_other")
     kt = importlib.import_module("p_this.ops.kernels")
@@ -781,6 +911,10 @@ def main():
         cycles(kt, ko, r, bad)
     if "proj" in what:
         proj(kt, ko, r, bad)
+    if "env" in what:
+        env(kt, ko, r, bad)
+    if "viterbi" in what:
+        viterbi(kt, ko, bad)
     print("failed:", bad, flush=True)
     sys.exit(1 if bad else 0)
 

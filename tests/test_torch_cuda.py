@@ -719,12 +719,20 @@ def test_env_render_kernel_matches_plain_on_card(cut):
     (3, 64, 4, 4, 160, 0),      # a whole tile
     (2, 130, 4, 9, 80, 0),      # Ke past 8: the wide kernel
     (1, 70, 3, 12, 480, 5),     # and at 48 kHz's 10 ms hop, cut
+    (2, 130, 4, 16, 80, 0),     # 16 and 24 harmonics: four and six
+    (2, 130, 2, 24, 160, 0),    # ladder chunks
+    (2, 130, 1, 9, 80, 0),      # one channel
+    (2, 130, 9, 9, 80, 0),      # nine: a group of 8, then one
+    (2, 301, 4, 9, 80, 44),     # a cut render
+    (2, 2, 4, 9, 80, 0),        # one partial tile
+    (2, 130, 5, 10, 55, 0),     # an odd hop: single loads and stores
 ])
 def test_env_render_kernel_paths_on_card(B, Nf, C, Ke, nhop, cut):
     """Each of env_render's paths (float4 along samples at C = Ke = 4 with
     nhop and nx multiples of 4, a sample at a time otherwise, and past Ke
-    = 8 the wide kernel) against the twin: env 2e-5, base 2e-6
-    (test_pallas.py:231)."""
+    = 8 the wide kernel: runs of 4 samples, 16-byte where the hop allows,
+    the ladder in chunks of 4 harmonics for groups of 4 or 8 channels)
+    against the twin: env 2e-5, base 2e-6 (test_pallas.py:231)."""
     dev = _card()
     g = torch.Generator().manual_seed(B * 1000 + C * 10 + Ke)
     r = lambda *s: torch.rand(*s, generator=g).to(dev)
@@ -2170,13 +2178,15 @@ def test_noise_mod_ola_long_kernel_gives_the_wide_kernels_bits_on_card(
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("S,N,renorm", [(257, 3200, True), (512, 400, False),
                                         (1025, 200, True), (2049, 60, True),
-                                        (2049, 2, False)])
+                                        (2049, 2, False), (4097, 60, False),
+                                        (8193, 20, True), (29024, 3, True)])
 def test_viterbi_wide_kernel_matches_plain_on_card(S, N, renorm):
-    """viterbi_scan past 256 states (uint16 backpointers: the grid kernel
-    to 2048 states, at 3200 frames too; past it one lane a state, the
-    backpointers in device memory or, at 2 frames, in shared memory)
-    against its twin, paths and last scores bit for bit, on scores in
-    eighths with -inf entries."""
+    """viterbi_scan past 256 states (uint16 backpointers in device memory:
+    the grid kernel to 2048 states, at 3200 frames too; past it the stream
+    kernel, lt's columns and the scores through shared memory in chunks,
+    at 2 frames, 8193 states and the most, 29024, on 3 frames) against its
+    twin, paths and last scores bit for bit, on scores in eighths with
+    -inf entries."""
     dev = _card()
     rng = np.random.default_rng(S)
     obs = np.round(rng.uniform(-12.0, 0.0, (2, N, S)) * 8.0) / 8.0

@@ -304,12 +304,13 @@ def test_fp64_routes_to_the_twin():
     (2, 512, (1, 512, None, 4, False, None, 2)),
     (1600, 1025, (1, 1032, None, 4, False, None, 2)),
     (1, 2048, (1, 2048, None, 4, False, None, 2)),
-    # past 2048 states (mode 3): one lane a state, C = S rounded up to 4,
-    # 4 (2 C + 64) bytes, then 2 (N - 1) S of uint16 backpointers
-    (2, 2049, (1, 2052, 1024, 3, True, 16672 + 2 * 2049, 2)),
-    (300, 2049, (1, 2052, 1024, 3, False, 16672, 2)),   # 1.2 MB: HBM
-    (20, 4000, (1, 4000, 1024, 3, True, 32256 + 2 * 19 * 4000, 2)),
-    (1, 29024, (1, 29024, 1024, 3, True, 232448, 2)),   # the most states
+    # past 2048 states (mode 5, the stream kernel): C = S rounded up to 8,
+    # the uint16 backpointers in device memory at any N; threads and bytes
+    # are the grid's (_viterbi_stream)
+    (2, 2049, (1, 2056, None, 5, False, None, 2)),
+    (300, 2049, (1, 2056, None, 5, False, None, 2)),
+    (20, 4000, (1, 4000, None, 5, False, None, 2)),
+    (1, 29024, (1, 29024, None, 5, False, None, 2)),    # the most states
 ])
 def test_viterbi_geometry_by_hand(N, S, geometry):
     """kernels._viterbi_geometry: 2 lanes a state and lt's column slice
@@ -317,13 +318,15 @@ def test_viterbi_geometry_by_hand(N, S, geometry):
     97 states), past it 4 lanes and lt in shared memory where S^2
     floats fit in the H100's 232448 bytes (mode 1), else in device memory
     (2); from 257 to 2048 states the grid kernel (mode 4: groups of 8
-    source states, its grid from _viterbi_grid); past 2048 one lane a
-    state (mode 3, the one-block-a-row kernel), uint16 backpointers, up to
-    _VITERBI_MAX_STATES = 29024, whose two score rows fill shared memory;
-    the backpointers in shared memory where they fit beside the rest."""
+    source states, its grid from _viterbi_grid); past 2048 the stream
+    kernel (mode 5: groups of 8, its grid from _viterbi_stream), up to
+    _VITERBI_MAX_STATES = 29024; the backpointers in shared memory where
+    they fit beside the rest, uint16 in device memory past 256 states."""
     assert kernels._viterbi_geometry(N, S) == geometry
-    for smem in ([geometry[5]] if geometry[3] != 4 else
-                 [kernels._viterbi_grid(B, S)[4] for B in (1, 64)]):
+    grids = {4: lambda B: kernels._viterbi_grid(B, S)[4],
+             5: lambda B: kernels._viterbi_stream(B, S)[7]}
+    for smem in ([geometry[5]] if geometry[3] not in grids else
+                 [grids[geometry[3]](B) for B in (1, 64)]):
         assert smem <= kernels._SMEM_MAX
     assert kernels._VITERBI_MAX_STATES == 29024
 
@@ -353,6 +356,84 @@ def test_viterbi_grid_by_hand(B, S, grid):
     assert grid[2] * grid[3] <= 132
     with pytest.raises(ValueError, match="SMs"):
         kernels._viterbi_grid(B, 2048, sms=114)
+
+
+@pytest.mark.parametrize("B,S,grid", [
+    # (warps, dest warps, row warps, rows a thread, slices, row blocks,
+    # chunk, bytes): 129 slices of 32 states leave one row block, 4 row
+    # warps of 16 rows take 64 rows in one pass, the other 4 warps' worth
+    # are 4 parts; chunks of 256: 2 x 4 (256 x 32 + 64 x 260) bytes
+    (64, 4097, (16, 1, 4, 4, 129, 1, 256, 8 * (256 * 32 + 64 * 260))),
+    # 65 slices leave 2 row blocks: 2 row warps, 8 parts, chunks of 256
+    (64, 2049, (16, 1, 2, 4, 65, 2, 256, 8 * (256 * 32 + 32 * 260))),
+    # 257 32-state slices would pass 132: 64 states a slice; chunks of 256
+    # would overflow
+    (64, 8193, (16, 2, 4, 4, 129, 1, 128, 8 * (128 * 64 + 64 * 132))),
+    # a row alone: a row a thread (4 a warp), 16 parts, chunks of 512
+    (1, 2049, (16, 1, 1, 1, 65, 1, 512, 8 * (512 * 32 + 4 * 516))),
+    # the most states: 224 a slice, 2 parts; chunks of 128 would overflow
+    (1, 29024, (14, 7, 1, 1, 130, 1, 64, 8 * (64 * 224 + 4 * 68))),
+    (64, 29024, (14, 7, 2, 4, 130, 1, 64, 8 * (64 * 224 + 32 * 68))),
+])
+def test_viterbi_stream_by_hand(B, S, grid):
+    """kernels._viterbi_stream: the fewest dest warps whose slices are at
+    most one block an SM, the fewest passes over the row groups with the
+    fewest row warps, the other warps (16 in all) parts of the source
+    states, chunks of 4 groups a part (at least 256 states) halved until
+    the buffers fit."""
+    assert kernels._viterbi_stream(B, S) == grid
+    with pytest.raises(ValueError, match="dest warps"):
+        kernels._viterbi_stream(B, 29024, sms=10)
+
+
+@pytest.mark.parametrize("B", [1, 64])
+@pytest.mark.parametrize("S", [2049, 2050, 2055, 3000, 4097, 8193, 12000,
+                               20000, 29024])
+def test_viterbi_stream_geometry_covers_every_state(B, S):
+    """Every destination state falls in exactly one slice of one block
+    (dest warps x 8 lanes x 4 destinations) and every row in exactly one
+    row group of one row block; the blocks are at most one an SM; the
+    shared bytes (two chunk buffers, or the parts' maxima over them) are
+    within _SMEM_MAX; the chunks cover the source states (S rounded up to
+    8) in ascending order, each a whole number of groups of 8 for each
+    part, and each part's groups p, p + P, ... of a chunk cover it once."""
+    warps, dw, rw, ra, slices, rb, kc, nbytes = kernels._viterbi_stream(B, S)
+    J, rows = 32 * dw, 4 * ra * rw
+    parts = warps // (dw * rw)
+    assert warps <= 16 and warps == dw * rw * parts
+    assert parts & (parts - 1) == 0 and ra in (1, 4)
+    owner = torch.zeros(slices * J, dtype=torch.int64)
+    for blk in range(slices):
+        for w in range(dw):
+            for lj in range(8):
+                for d in range(4):
+                    owner[blk * J + 32 * w + 4 * lj + d] += 1
+    assert torch.equal(owner[:S], torch.ones(S, dtype=torch.int64))
+    assert slices * J - S < J
+    groups = -(-B // rows)
+    seen = torch.zeros(groups * rows, dtype=torch.int64)
+    for y in range(rb):
+        for rg in range(y, groups, rb):
+            for w in range(rw):
+                for lr in range(4):
+                    for a in range(ra):
+                        seen[rg * rows + w * 4 * ra + lr + 4 * a] += 1
+    assert torch.equal(seen, torch.ones_like(seen))
+    assert slices * rb <= 132
+    bufs = 8 * (kc * J + rows * (kc + 4))
+    assert nbytes == max(bufs, 8 * parts * rows * J)
+    assert nbytes <= kernels._SMEM_MAX
+    C = -(-S // 8) * 8
+    assert kc % (8 * parts) == 0
+    order = []
+    for c0 in range(0, C, kc):
+        n = min(kc, C - c0)
+        assert n % 8 == 0
+        mine = sorted(g for p in range(parts) for g in range(8 * p, n,
+                                                             8 * parts))
+        assert mine == list(range(0, n, 8))
+        order += list(range(c0, c0 + n))
+    assert order == list(range(C))
 
 
 def _merge(va, ia, vb, ib):
@@ -419,6 +500,57 @@ def _grid_order_scan(obs, lt, renorm, parts):
         assert int(arg.max()) < S
         back.append(arg)
         raw = best + obs[:, t]
+    return _final_and_backtrace(renormed(raw), back)
+
+
+def _stream_order_scan(obs, lt, renorm, parts, chunk):
+    """A plain-torch model of viterbi_stream_kernel's order (lt mode 5),
+    float32: the source states (padded to C = S rounded up to 8 with -inf
+    scores and zero lt rows) taken chunk by chunk in ascending order, and
+    in each chunk part p of `parts` its groups of 8 states p, p + parts,
+    ... (chunk-local, ascending), each group's maximum taken by the part's
+    running best where it is greater (a strict >), the running (best, first
+    group) carried from chunk to chunk (a part with no group: -inf at 8 p);
+    the parts merged in order by (value, then lowest group); then the
+    first state of the winning group whose candidate equals the maximum,
+    its value that candidate's; with renorm the previous raw scores less
+    their maximum at read time -> (path, last scores) as
+    _kernel_order_scan."""
+    B, N, S = obs.shape
+    C = -(-S // 8) * 8
+    lt_pad = torch.zeros((C, S), dtype=torch.float32)
+    lt_pad[:S] = lt
+    pad = torch.full((B, C - S), -float("inf"))
+    renormed = lambda r: r - torch.amax(r, -1, keepdims=True) if renorm else r
+    raw, back = obs[:, 0], []
+    for t in range(1, N):
+        sc = torch.cat([renormed(raw), pad], 1)                # [B, C]
+        best = [torch.full((B, S), -float("inf")) for _ in range(parts)]
+        grp = [torch.full((B, S), 8 * p, dtype=torch.int64)
+               for p in range(parts)]
+        for c0 in range(0, C, chunk):
+            n = min(chunk, C - c0)
+            gmax = torch.amax((sc[:, c0:c0 + n, None] + lt_pad[c0:c0 + n])
+                              .reshape(B, n // 8, 8, S), 2)
+            for p in range(parts):
+                for g in range(8 * p, n, 8 * parts):
+                    take = gmax[:, g // 8] > best[p]
+                    best[p] = torch.where(take, gmax[:, g // 8], best[p])
+                    grp[p] = torch.where(take, c0 + g, grp[p])
+        # the parts merged in order by (value, then lowest group), then the
+        # first state of the winning group that reaches its maximum
+        bv, g0 = best[0], grp[0]
+        for p in range(1, parts):
+            bv, g0 = _merge(bv, g0, best[p], grp[p])
+        idx = g0[:, None, :] + torch.arange(8)[None, :, None]
+        cand = (torch.gather(sc[:, :, None].expand(B, C, S), 1, idx)
+                + torch.gather(lt_pad[None].expand(B, C, S), 1, idx))
+        e = torch.argmax((cand == bv[:, None]).to(torch.int8), 1)
+        merged = (torch.gather(cand, 1, e[:, None])[:, 0], g0 + e)
+        bv, arg = merged
+        assert int(arg.max()) < S
+        back.append(arg)
+        raw = bv + obs[:, t]
     return _final_and_backtrace(renormed(raw), back)
 
 
@@ -556,6 +688,61 @@ def test_kernel_order_equals_the_twin_and_the_jax_scans(P, S, renorm):
         assert torch.equal(path, ref_path) and torch.equal(final, ref_final)
     if S > 2:
         assert _ties(obs.numpy(), lt.numpy(), renorm) > 0
+
+
+@pytest.mark.parametrize("renorm", [True, False])
+@pytest.mark.parametrize("S", [2049, 4097])
+@pytest.mark.parametrize("rows", [1, 64])
+def test_stream_order_equals_the_twin_and_the_jax_scans(rows, S, renorm):
+    """The model of viterbi_stream_kernel's chunked order above, with the
+    parts and chunk _viterbi_stream takes for a row alone (16 parts,
+    chunks of 512) and for 64 rows (8 parts of 256-state chunks at 2049
+    states, 4 of 128 at 4097), on scores in eighths with ties, -inf
+    entries and all-tied rows over a few frames: paths and last scores
+    equal kernels.viterbi_scan_ref's bit for bit, and its paths the JAX
+    package's (the tracker's renormalized scan; _rd_viterbi on the same
+    scores and voicing)."""
+    warps, dw, rw, _, _, _, chunk, _ = kernels._viterbi_stream(rows, S)
+    parts = warps // (dw * rw)
+    obs, lt, score, voiced = _order_inputs(S, renorm, S + rows + renorm,
+                                           N=12)
+    path, final = _stream_order_scan(obs, lt, renorm, parts, chunk)
+    ref_path, ref_final = kernels.viterbi_scan_ref(obs, lt, renorm,
+                                                   scores=True)
+    assert torch.equal(path, ref_path) and torch.equal(final, ref_final)
+    for b in range(obs.shape[0]):
+        if renorm:
+            ref = _jax_viterbi(jnp.asarray(obs[b].numpy()),
+                               jnp.asarray(lt.numpy()))
+        else:
+            ref = np.asarray(jl1._rd_viterbi(jnp.asarray(score[b].numpy()),
+                                             jnp.asarray(voiced[b].numpy()),
+                                             LAM))
+        np.testing.assert_array_equal(path[b].numpy(), ref)
+    assert _ties(obs.numpy(), lt.numpy(), renorm) > 0
+
+
+def test_tracker_at_2048_bins_gives_the_jax_path():
+    """The F0 tracker at nbins = 2048 (2049 states: the stream kernel's
+    range on the card): the port's Viterbi (f0.viterbi, the twin on the
+    CPU) on the JAX tracker's own observations and transitions gives the
+    JAX scan's path exactly, on two utterances at once (one with an
+    unvoiced tail)."""
+    from libllsm2_tpu.ops import f0 as jf0
+    from test_torch_f0 import _jax_front_end, _utt
+    cfg = jf0.F0Config(nbins=2048)
+    los, paths = [], []
+    for seed, kw in ((0, {}), (1, dict(noise_level=0.1,
+                                       unvoiced_tail_frac=0.3))):
+        x, _ = _utt(0.4, seed, **kw)
+        _, lo, lt = _jax_front_end(cfg, x)
+        los.append(lo)
+        paths.append(_jax_viterbi(jnp.asarray(lo), lt))
+    lt_t = tf0._tables(tf0.F0Config(nbins=2048), "cpu")["lt"]
+    assert lt_t.shape == (2049, 2049)
+    got = tf0.viterbi(T(np.stack(los)), lt_t).numpy()
+    np.testing.assert_array_equal(got, np.stack(paths))
+    assert (got == 2048).any() and (got < 2048).any()
 
 
 def test_chip_smoke_counts_viterbi_by_hand():

@@ -416,11 +416,15 @@ def test_apply_geometry_covers_every_pair(K, rows):
     assert blocks <= 132 * per_sm
 
 
-@pytest.mark.parametrize("C,Ke,nhop", [(4, 9, 80), (3, 12, 480)])
+@pytest.mark.parametrize("C,Ke,nhop", [(4, 9, 80), (3, 12, 480), (1, 9, 80),
+                                        (9, 9, 80), (4, 16, 80),
+                                        (2, 24, 160)])
 def test_env_render_twin_matches_pallas_past_8_harmonics(C, Ke, nhop):
     """env_render (its twin on the CPU) against env_render_pallas
-    (interpret mode) at Ke = 9 and 12, where the card runs the wide
-    kernel: env 2e-5, base 2e-6 (test_pallas.py:231)."""
+    (interpret mode) past Ke = 8, where the card runs the wide kernel: Ke 9
+    and 12 (chip_smoke.py's 20f), one channel and nine (a group of 8 and
+    one), 16 and 24 harmonics (four and six ladder chunks): env 2e-5, base
+    2e-6 (test_pallas.py:231)."""
     from libllsm2_tpu.ops import pallas_osc
     rng = np.random.default_rng(Ke)
     nfrm = 24
