@@ -443,18 +443,22 @@ def _spectral_gate(c_s, full, pp, guard, v, mask, thop: float,
     if D > 1:
         mats = _gate_dft(N, D, float(thop), float(cutoff_hz), c_s.device)
         sg_d = torch.where(guard[:, ::D], c_s[:, ::D], czero)   # [B, Nd, K]
-        Xs = grouped(lambda t: torch.matmul(mats.Wf, t), sg_d)   # [B, NPd, K]
-        lev_k = grouped(lambda t: torch.sum(power(
-            torch.matmul(mats.Whigh, t)), dim=1), full) \
-            / (float(max(mats.n_high, 1)) * D)
+        with named_scope("llsm.analyze.residual.gate.dft"):
+            # [B, NPd, K]
+            Xs = grouped(lambda t: torch.matmul(mats.Wf, t), sg_d)
+            lev_k = grouped(lambda t: torch.sum(power(
+                torch.matmul(mats.Whigh, t)), dim=1), full) \
+                / (float(max(mats.n_high, 1)) * D)
     else:
         NP = _gate_sizes(N, 1)[0]
         hb = np.abs(np.fft.fftfreq(NP, thop)) > 2.0 * cutoff_hz
         hbt = torch.as_tensor(hb, device=c_s.device)[None, :, None]
         fft = lambda t: torch.fft.fft(t, n=NP, dim=1)
-        Xs = grouped(fft, torch.where(guard, c_s, czero))
-        lev_k = grouped(lambda t: torch.sum(torch.where(
-            hbt, power(fft(t)), zero), dim=1), full) / float(max(hb.sum(), 1))
+        with named_scope("llsm.analyze.residual.gate.dft"):
+            Xs = grouped(fft, torch.where(guard, c_s, czero))
+            lev_k = grouped(lambda t: torch.sum(torch.where(
+                hbt, power(fft(t)), zero), dim=1), full) \
+                / float(max(hb.sum(), 1))
     Ps = power(Xs)
     # engagement stricter than the time gate's: -15 dB of the slow power
     gd = guard & (mask > 0)
@@ -481,14 +485,17 @@ def _spectral_gate(c_s, full, pp, guard, v, mask, thop: float,
     if D > 1:
         # inverse of the gated DIFFERENCE (g - 1) Xs, so transform rounding
         # stays relative to the delta; block-lerp back to the frame rate
-        delta_d = grouped(lambda t: torch.matmul(mats.Wi, t),
-                          (g - 1.0) * Xs)                        # [B, Nd, K]
+        with named_scope("llsm.analyze.residual.gate.dft"):
+            delta_d = grouped(lambda t: torch.matmul(mats.Wi, t),
+                              (g - 1.0) * Xs)                    # [B, Nd, K]
         nxt = torch.cat([delta_d[:, 1:], delta_d[:, -1:]], dim=1)
         wts = (torch.arange(D, dtype=FP, device=c_s.device) / D)[:, None]
         up = delta_d[:, :, None] * (1.0 - wts) + nxt[:, :, None] * wts
         s_dn = c_s + up.reshape(B, -1, K)[:, :N]
     else:
-        s_dn = grouped(lambda t: torch.fft.ifft(t, dim=1), g * Xs)[:, :N]
+        with named_scope("llsm.analyze.residual.gate.dft"):
+            s_dn = grouped(lambda t: torch.fft.ifft(t, dim=1),
+                           g * Xs)[:, :N]
 
     # local-noisiness blend: frame-smoothed probe power against the floor
     M = int(round(1.0 / (thop * cutoff_hz))) | 1
@@ -535,28 +542,35 @@ def _track_denoise(conf: ChunkConf, f0, cyc_c, ampl, phse, mask,
                                     spectral=spectral, a_spec=a_spec,
                                     spec_decimate=spec_decimate,
                                     c_complex=c_complex)
-    voiced = (f0 > 0).to(FP)
-    if c_complex is not None:
-        (pp, cs2, r2, guard, cre, cim, csr, csi) = kernels.denoise_stats(
-            c_complex[0], c_complex[1], cyc_c, mask, voiced, taps1, taps2,
-            complex_input=True)
-        amp2_m = (cre * cre + cim * cim) * mask
-    else:
-        (pp, cs2, r2, guard, cre, cim, csr, csi) = kernels.denoise_stats(
-            ampl, phse, cyc_c, mask, voiced, taps1, taps2)
-        amp2_m = ampl * ampl * mask
-    ok = guard[..., None] & (mask > 0)
-    v, wmul = _denoise_floor_stats(pp, cs2 * mask, r2, amp2_m, ok)
-    if not spectral:
-        return kernels.denoise_apply(cre, cim, csr, csi, cyc_c, mask, guard,
-                                     v, wmul, float(strength))
-    # the gated track stays aligned until the finish adds the gate's delta
-    a, full = kernels.denoise_apply(cre, cim, csr, csi, cyc_c, mask, guard,
-                                    v, wmul, float(strength), spectral=True)
-    delta = _spectral_gate(torch.complex(csr, csi), full, pp,
-                           guard[..., None], v, mask, conf.thop, cutoff_hz,
-                           a_spec, decimate=spec_decimate)
-    return kernels.denoise_finish(a, delta, cyc_c, mask)
+    with named_scope("llsm.analyze.residual.stats"):
+        voiced = (f0 > 0).to(FP)
+        if c_complex is not None:
+            (pp, cs2, r2, guard, cre, cim, csr, csi) = kernels.denoise_stats(
+                c_complex[0], c_complex[1], cyc_c, mask, voiced, taps1,
+                taps2, complex_input=True)
+            amp2_m = (cre * cre + cim * cim) * mask
+        else:
+            (pp, cs2, r2, guard, cre, cim, csr, csi) = kernels.denoise_stats(
+                ampl, phse, cyc_c, mask, voiced, taps1, taps2)
+            amp2_m = ampl * ampl * mask
+    with named_scope("llsm.analyze.residual.floor"):
+        ok = guard[..., None] & (mask > 0)
+        v, wmul = _denoise_floor_stats(pp, cs2 * mask, r2, amp2_m, ok)
+    with named_scope("llsm.analyze.residual.apply"):
+        if not spectral:
+            return kernels.denoise_apply(cre, cim, csr, csi, cyc_c, mask,
+                                         guard, v, wmul, float(strength))
+        # the gated track stays aligned until the finish adds the gate's
+        # delta
+        a, full = kernels.denoise_apply(cre, cim, csr, csi, cyc_c, mask,
+                                        guard, v, wmul, float(strength),
+                                        spectral=True)
+    with named_scope("llsm.analyze.residual.gate"):
+        delta = _spectral_gate(torch.complex(csr, csi), full, pp,
+                               guard[..., None], v, mask, conf.thop,
+                               cutoff_hz, a_spec, decimate=spec_decimate)
+    with named_scope("llsm.analyze.residual.apply"):
+        return kernels.denoise_finish(a, delta, cyc_c, mask)
 
 
 def _coherent_fit(c_s, r, wgt):
@@ -599,9 +613,10 @@ def _track_denoise_plain(conf: ChunkConf, f0, cyc_c, ampl, phse, mask,
     r_inc = r - _coherent_fit(c_s, r, m)
     r_probe = r_inc - _fir(False, r_inc, taps2)
     pp = power(r_probe)
-    ok = guard & (m > 0)
-    v, wmul = _denoise_floor_stats(pp, power(c_s) * m, power(r), power(c) * m,
-                                   ok)
+    with named_scope("llsm.analyze.residual.floor"):
+        ok = guard & (m > 0)
+        v, wmul = _denoise_floor_stats(pp, power(c_s) * m, power(r),
+                                       power(c) * m, ok)
     # second, weighted fit (wmul drops noise-dominated tracks)
     r_coh = _coherent_fit(c_s, r, m * wmul[:, None, :])
     r_inc = r - r_coh
@@ -610,10 +625,11 @@ def _track_denoise_plain(conf: ChunkConf, f0, cyc_c, ampl, phse, mask,
     out = c_s + r_coh + g * r_inc
     if spectral:
         czero = torch.zeros((), dtype=c.dtype, device=c.device)
-        out = out + _spectral_gate(c_s, torch.where(guard, c_s + r_inc, czero),
-                                   pp, guard, v, mask, conf.thop, cutoff_hz,
-                                   a_spec, decimate=spec_decimate,
-                                   use_pallas=False)
+        with named_scope("llsm.analyze.residual.gate"):
+            out = out + _spectral_gate(
+                c_s, torch.where(guard, c_s + r_inc, czero), pp, guard, v,
+                mask, conf.thop, cutoff_hz, a_spec, decimate=spec_decimate,
+                use_pallas=False)
     out = torch.where(guard, out, c) * align.conj()
     return torch.abs(out) * mask, torch.angle(out) * mask
 
@@ -670,22 +686,24 @@ def _analyze(opt: AnalysisOptions, x: torch.Tensor,
     f0 = f0.to(FP)
 
     if opt.f0_refine:
-        f0_ref = harmonics.refine_f0(
-            x, f0, nhop=nhop, fs=conf.fs, halfwin_max=conf.halfwin_max,
-            rel_winsize=conf.rel_winsize, f0_ceil=conf.f0_ceil,
-            use_pallas=opt.use_pallas)
-        S = opt.f0_refine_smooth
-        if S > 1:
-            # voicing-masked moving average of the refine CORRECTION
-            voiced_m = (f0 > 0).to(FP)
-            num = _moving_sum((f0_ref - f0) * voiced_m, S)
-            den = torch.clamp(_moving_sum(voiced_m, S), min=1.0)
-            f0 = torch.where(voiced_m > 0, f0 + num / den,
-                             torch.zeros_like(f0))
-        else:
-            f0 = f0_ref
+        with named_scope("llsm.analyze.refine"):
+            f0_ref = harmonics.refine_f0(
+                x, f0, nhop=nhop, fs=conf.fs, halfwin_max=conf.halfwin_max,
+                rel_winsize=conf.rel_winsize, f0_ceil=conf.f0_ceil,
+                use_pallas=opt.use_pallas)
+            S = opt.f0_refine_smooth
+            if S > 1:
+                # voicing-masked moving average of the refine CORRECTION
+                voiced_m = (f0 > 0).to(FP)
+                num = _moving_sum((f0_ref - f0) * voiced_m, S)
+                den = torch.clamp(_moving_sum(voiced_m, S), min=1.0)
+                f0 = torch.where(voiced_m > 0, f0 + num / den,
+                                 torch.zeros_like(f0))
+            else:
+                f0 = f0_ref
 
-    cyc = harmonics.sample_cycles(f0, nhop, conf.fs, nx)
+    with named_scope("llsm.cycles"):
+        cyc = harmonics.sample_cycles(f0, nhop, conf.fs, nx)
 
     # harmonic pass: zoomed chirped projection, or FFT peak-picking
     hkw = dict(nhop=nhop, fs=conf.fs, max_k=conf.maxnhar,
@@ -705,12 +723,14 @@ def _analyze(opt: AnalysisOptions, x: torch.Tensor,
     # denoise, subtract the harmonic part
     with named_scope("llsm.analyze.residual"):
         cplx = None
-        if _complex_handoff(opt):
-            cplx = _deconv_correction(opt, f0, cyc, ampl, phse, mask,
-                                      return_complex=True)
-        elif (opt.hm_correction == "deconv" and opt.hm_passes <= 1
-              and opt.hm_method == "czt"):
-            ampl, phse = _deconv_correction(opt, f0, cyc, ampl, phse, mask)
+        with named_scope("llsm.analyze.residual.deconv"):
+            if _complex_handoff(opt):
+                cplx = _deconv_correction(opt, f0, cyc, ampl, phse, mask,
+                                          return_complex=True)
+            elif (opt.hm_correction == "deconv" and opt.hm_passes <= 1
+                  and opt.hm_method == "czt"):
+                ampl, phse = _deconv_correction(opt, f0, cyc, ampl, phse,
+                                                mask)
         for _ in range(max(opt.hm_passes - 1, 0)):
             da, dp, _ = project(_residual(opt.use_pallas, cyc, ampl, phse,
                                           mask, nhop, x), f0, cyc)
@@ -732,27 +752,32 @@ def _analyze(opt: AnalysisOptions, x: torch.Tensor,
             ampl, phse = _track_lowpass(conf, f0, cyc_c, ampl, phse, mask,
                                         opt.track_lowpass_hz,
                                         use_pallas=opt.use_pallas)
-        residual = _residual(opt.use_pallas, cyc, ampl, phse, mask, nhop, x)
+        with named_scope("llsm.analyze.residual.render"):
+            residual = _residual(opt.use_pallas, cyc, ampl, phse, mask,
+                                 nhop, x)
 
     # noise pass: band envelopes (at the decimated rate fs/D) + warped PSD
     with named_scope("llsm.analyze.noise"):
         D = _env_decimation(conf, opt.env_decimate, nx)
-        envs = _band_envelopes(residual, conf, D)          # [B, C, nx/D]
+        with named_scope("llsm.analyze.noise.envelopes"):
+            envs = _band_envelopes(residual, conf, D)      # [B, C, nx/D]
         Cn, Ke = conf.nchannel, conf.maxnhar_e
         # each channel's row of envs reads its utterance's cycle track
-        ea, ep, _, edc = harmonics.harmonic_analysis(
-            envs.reshape(B * Cn, -1),
-            torch.repeat_interleave(f0, Cn, dim=0), cyc[:, ::D],
-            nhop=nhop // D, fs=conf.fs / D, max_k=Ke,
-            halfwin_max=-(-conf.halfwin_max // D),
-            rel_winsize=conf.rel_winsize,
-            fnyq=min(conf.fnyq, 0.4 * conf.fs / D), with_dc=True,
-            use_pallas=opt.use_pallas, frame_chunk=opt.frame_chunk)
+        with named_scope("llsm.analyze.noise.project"):
+            ea, ep, _, edc = harmonics.harmonic_analysis(
+                envs.reshape(B * Cn, -1),
+                torch.repeat_interleave(f0, Cn, dim=0), cyc[:, ::D],
+                nhop=nhop // D, fs=conf.fs / D, max_k=Ke,
+                halfwin_max=-(-conf.halfwin_max // D),
+                rel_winsize=conf.rel_winsize,
+                fnyq=min(conf.fnyq, 0.4 * conf.fs / D), with_dc=True,
+                use_pallas=opt.use_pallas, frame_chunk=opt.frame_chunk)
         edc = torch.clamp(edc, min=0.0).reshape(B, Cn, nfrm)
         edc = edc.transpose(1, 2)
         eenv_a = ea.reshape(B, Cn, nfrm, Ke).transpose(1, 2)  # [B, N, C, Ke]
         eenv_p = ep.reshape(B, Cn, nfrm, Ke).transpose(1, 2)
-        psd = _warped_psd(residual, nfrm, conf, rows=_group_rows(nfrm))
+        with named_scope("llsm.analyze.noise.psd"):
+            psd = _warped_psd(residual, nfrm, conf, rows=_group_rows(nfrm))
     return Chunk(f0=f0, ampl=ampl, phse=phse, hm_mask=mask, psd=psd,
                  edc=edc.contiguous(), eenv_a=eenv_a.contiguous(),
                  eenv_p=eenv_p.contiguous(), conf=conf)
@@ -974,7 +999,8 @@ def _synthesize(opt: SynthesisOptions, chunk: Chunk, bins=None) -> SynthResult:
                              for v in res[:3]), fs=fs)
     nhop = int(round(conf.thop * fs))
     nx = chunk.nfrm * nhop
-    cyc = harmonics.sample_cycles(chunk.f0, nhop, fs, nx)
+    with named_scope("llsm.cycles"):
+        cyc = harmonics.sample_cycles(chunk.f0, nhop, fs, nx)
     K = chunk.ampl.shape[-1]
     kharm = torch.arange(1, K + 1, dtype=FP, device=cyc.device)
     f0s = torch.where(chunk.f0 > 0, chunk.f0, torch.full_like(chunk.f0, 100.0))

@@ -1,66 +1,58 @@
-"""Observability: named scopes, throughput metrics, profiler hooks
-(counterpart of libllsm2_tpu.utils.profiling).
+"""Observability: named scopes and profiler hooks (counterpart of
+libllsm2_tpu.utils.profiling).
 
-named_scope marks a stage for torch.profiler (record_function) and, on
-the card, for NVTX (Nsight timelines); device_trace captures a
-torch.profiler trace -- host ops, and the card's kernels when CUDA is in
-use -- and writes it as a Chrome trace (chrome://tracing, Perfetto).
-layer0 marks the JAX package's five stages: llsm.analyze.harmonic /
-residual / noise and llsm.synth.harmonic / noise.
+named_scope marks a stage for torch.profiler (record_function, entered
+only while a profiler records) and, on the card, for NVTX (Nsight
+timelines); device_trace captures a torch.profiler trace -- host ops,
+and the card's kernels when CUDA is in use -- and writes it as a Chrome
+trace (chrome://tracing, Perfetto).
+
+The scopes layer0 opens, children inside their parents:
+
+    llsm.analyze.refine             the F0 refine and its smoothing
+    llsm.cycles                     the cycle track (analysis, synthesis)
+    llsm.analyze.harmonic           the harmonic projection
+    llsm.analyze.residual           deconvolution, denoiser, render
+      .deconv                       the amplitude-track deconvolution
+      .stats                        the denoiser's first pass
+      .floor                        its per-utterance floor statistics
+      .apply                        its second pass and its finish
+      .gate                         the spectral gate
+        .gate.dft                   the gate's transforms
+      .render                       the residual's oscillator bank
+    llsm.analyze.noise              noise analysis
+      .envelopes                    the band envelopes
+      .project                      their harmonic projection
+      .psd                          the warped periodogram
+    llsm.synth.harmonic             the oscillator bank
+    llsm.synth.noise                the noise render
 """
 from __future__ import annotations
 
 import contextlib
-import json
 import os
-import time
-from dataclasses import dataclass
-from typing import Dict, List
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 
 @contextlib.contextmanager
 def named_scope(name: str):
-    """A named range around a stage: a torch.profiler record_function (a
-    no-op cost when no profiler runs) and, while CUDA is initialized, an
-    NVTX range."""
+    """A named range around a stage: a torch.profiler record_function while
+    a profiler records (none otherwise: it costs host time a span even
+    with no profiler) and, while CUDA is initialized, an NVTX range."""
     nvtx = torch.cuda.is_initialized()
     if nvtx:
         torch.cuda.nvtx.range_push(name)
     try:
-        with torch.profiler.record_function(name):
+        if _autograd_profiler._is_profiler_enabled:
+            with torch.profiler.record_function(name):
+                yield
+        else:
             yield
     finally:
         if nvtx:
             torch.cuda.nvtx.range_pop()
-
-
-@dataclass
-class ThroughputMeter:
-    """Accumulates processed audio seconds and wall time; reports the
-    BASELINE.json metric."""
-    audio_sec: float = 0.0
-    wall_sec: float = 0.0
-
-    @contextlib.contextmanager
-    def measure(self, audio_seconds: float):
-        t0 = time.perf_counter()
-        yield
-        self.wall_sec += time.perf_counter() - t0
-        self.audio_sec += audio_seconds
-
-    @property
-    def audio_sec_per_sec(self) -> float:
-        return self.audio_sec / max(self.wall_sec, 1e-9)
-
-    def report(self) -> str:
-        return json.dumps({
-            "metric": "audio-sec/sec/gpu",
-            "value": round(self.audio_sec_per_sec, 2),
-            "audio_sec": round(self.audio_sec, 3),
-            "wall_sec": round(self.wall_sec, 4),
-        })
 
 
 @contextlib.contextmanager
@@ -83,18 +75,3 @@ def device_trace(logdir: str):
             torch.cuda.synchronize()
         prof.stop()
         prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
-
-
-class MetricsLog:
-    """Structured metrics logging (jsonl) for corpus runs."""
-
-    def __init__(self, path: str | None = None):
-        self.path = path
-        self.rows: List[Dict] = []
-
-    def log(self, **kw) -> None:
-        row = dict(ts=time.time(), **kw)
-        self.rows.append(row)
-        if self.path:
-            with open(self.path, "a") as f:
-                f.write(json.dumps(row) + "\n")

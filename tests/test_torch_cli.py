@@ -159,31 +159,27 @@ def test_cli_other_commands(wav, cmd, flags, seconds):
 
 def test_device_trace_names_the_five_scopes(tmp_path):
     """device_trace on the CPU writes a Chrome trace holding layer0's five
-    stage scopes (the JAX package's llsm.* named scopes)."""
+    stage scopes (the JAX package's llsm.* named scopes) and, with the
+    kernels on (their CPU twins), the spans inside the analysis: the
+    refine, the cycle tracks, the residual's and the noise stage's
+    sub-stages."""
     x, f0 = testsig.make_test_utterance(duration=0.3, seed=1)
-    opt, sopt = create_aoptions(), create_soptions()
+    opt = create_aoptions(use_pallas=True)
+    sopt = create_soptions(use_pallas=True)
     with profiling.device_trace(str(tmp_path)) as prof:
         layer0.synthesize(sopt, layer0.analyze(opt, x, f0, device="cpu"))
     with open(tmp_path / "trace.json") as f:
         names = {e.get("name") for e in json.load(f)["traceEvents"]}
     for scope in ("llsm.analyze.harmonic", "llsm.analyze.residual",
                   "llsm.analyze.noise", "llsm.synth.harmonic",
-                  "llsm.synth.noise"):
+                  "llsm.synth.noise", "llsm.analyze.refine", "llsm.cycles",
+                  *(f"llsm.analyze.residual.{s}" for s in (
+                      "deconv", "stats", "floor", "apply", "gate",
+                      "gate.dft", "render")),
+                  *(f"llsm.analyze.noise.{s}" for s in (
+                      "envelopes", "project", "psd"))):
         assert scope in names, scope
     assert prof.key_averages()
-
-
-def test_throughput_meter_and_metrics_log(tmp_path):
-    meter = profiling.ThroughputMeter()
-    with meter.measure(2.0):
-        pass
-    rep = json.loads(meter.report())
-    assert rep["metric"] == "audio-sec/sec/gpu" and rep["audio_sec"] == 2.0
-    log = profiling.MetricsLog(str(tmp_path / "m.jsonl"))
-    log.log(step=1, ms=2.5)
-    with open(tmp_path / "m.jsonl") as f:
-        row = json.loads(f.readline())
-    assert row["step"] == 1 and len(log.rows) == 1
 
 
 def test_plot_chunk_writes_png(tmp_path):

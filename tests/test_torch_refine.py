@@ -487,8 +487,10 @@ def test_every_public_name_has_a_counterpart():
     """Each JAX module has a port module defining or importing its
     top-level public defs, classes and constants, and each subpackage's
     __init__ all the names the JAX package's imports, but pallas_osc
-    (its kernels are csrc/, ops.kernels in the namespace) and utils/cache
-    (XLA's compile cache: the port's build cache is ops/_build.py)."""
+    (its kernels are csrc/, ops.kernels in the namespace), utils/cache
+    (XLA's compile cache: the port's build cache is ops/_build.py) and
+    utils/profiling's ThroughputMeter and MetricsLog (nothing read them:
+    the port's benchmark times and records its runs)."""
     jroot, troot = ROOT / "libllsm2_tpu", ROOT / "libllsm2_tpu_torch"
     missing = {}
     for p in sorted(jroot.rglob("*.py")):
@@ -498,8 +500,8 @@ def test_every_public_name_has_a_counterpart():
             assert not q.exists()
             continue
         assert q.exists(), rel
-        want = _top_names(p, p.name != "__init__.py") - {"pallas_osc",
-                                                          "cache"}
+        want = _top_names(p, p.name != "__init__.py") - {
+            "pallas_osc", "cache", "ThroughputMeter", "MetricsLog"}
         lack = want - _top_names(q, False)
         if lack:
             missing[str(rel)] = sorted(lack)
